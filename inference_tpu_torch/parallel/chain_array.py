@@ -1,0 +1,323 @@
+"""Batched arrays of independent chains.
+
+Port of ``inference_tpu.parallel.chain_array`` for the "hmc" kind: one
+batched transition advances every chain at once on one device, with the
+history kept on the host as numpy arrays. With ``fused=True`` the advance
+runs through kernel B1 (``ops.hmc_fused``), which keeps every chain's
+state on the chip through whole chunks of transitions.
+"""
+
+import copy
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..convert import hmc_state_from_jax, hmc_state_to_jax_leaves, N_HMC_LEAVES
+from ..mcmc._kernels.hmc import run_steps
+from ..utils import as_device_logp, default_float, make_generator
+from ._kinds import build_kind, require_ported
+
+
+def _warmup_window_sizes(n_steps: int, n_windows: int) -> np.ndarray:
+    """Expanding warmup windows (1x, 1x, 2x, 4x, ... of the base) summing to
+    exactly ``n_steps`` with every window >= 2 (``warmup`` validates
+    ``n_steps >= 2 * n_windows``): a rounding deficit goes to the final
+    window, a clamping excess is taken from the latest windows that can
+    still afford it."""
+    weights = np.array(
+        [1.0] + [float(1 << max(0, w - 1)) for w in range(1, n_windows)]
+    )
+    sizes = np.maximum((n_steps * weights / weights.sum()).astype(int), 2)
+    excess = int(sizes.sum()) - n_steps
+    i = len(sizes) - 1
+    while excess > 0:
+        take = min(excess, int(sizes[i]) - 2)
+        sizes[i] -= take
+        excess -= take
+        i -= 1
+    if excess < 0:
+        sizes[-1] -= excess
+    return sizes
+
+
+class ChainArray:
+    """
+    A batch of ``n_chains`` independent HMC chains advanced together on one
+    device.
+
+    :param kind: sampler family; "hmc" is the one ported so far, and the
+        others raise naming the ROADMAP queue item that ports them.
+    :param posterior: log-probability callable over ``(P,)`` tensors, written
+        with torch operations; an ``nn.Module`` is copied onto ``device``.
+    :param starts: starting positions, shape (n_chains, n_parameters).
+    :param epsilon: initial leapfrog step size.
+    :param steps: nominal leapfrog steps per proposal.
+    :param inverse_mass: scalar, (P,) diagonal, or full (P, P) matrix
+        inverse mass.
+    :param bounds: reflecting bounds are not ported yet (ROADMAP queue A7).
+    :param retry: repeat-until-accept proposals (the reference semantics)
+        when True; textbook duplicate-on-reject MH when False.
+    :param fused: "auto" (default) / True / False. True runs the advance
+        through the fused whole-trajectory kernel B1 (``ops.hmc_fused``;
+        its plain version on the CPU); it requires ``retry=False``, no
+        bounds, unit/scalar/diagonal inverse mass and a ``GaussianForm``
+        posterior with at most 64 parameters. "auto" and False run the
+        batched transition of ``mcmc/_kernels/hmc.py``, as the JAX package
+        does.
+    :param mesh: device meshes are not ported yet (ROADMAP queue A13).
+    :param seed: optional integer seed of the chains' ``torch.Generator``.
+    :param device: the device every chain lives on.
+    """
+
+    def __init__(
+        self,
+        kind: str,
+        posterior,
+        starts,
+        *,
+        epsilon: float = 0.1,
+        steps: int = 50,
+        inverse_mass=None,
+        bounds=None,
+        retry: bool = True,
+        fused="auto",
+        mesh=None,
+        seed=None,
+        device="cpu",
+    ):
+        require_ported(kind)
+        if mesh is not None:
+            raise ValueError(
+                "[ ChainArray error ] device meshes are not ported to "
+                "inference_tpu_torch yet (ROADMAP queue A13)."
+            )
+        starts = np.atleast_2d(np.asarray(starts, dtype=float))
+        self.n_chains, self.n_parameters = starts.shape
+        self.kind = kind
+        self.device = torch.device(device)
+
+        dtype = default_float()
+        if isinstance(posterior, nn.Module):
+            posterior = copy.deepcopy(posterior).to(device=self.device, dtype=dtype)
+        self._posterior = posterior
+        starts_dev = torch.as_tensor(starts, dtype=dtype, device=self.device)
+        self._logp = as_device_logp(posterior, starts_dev[0])
+        self._generator = make_generator(seed, self.device)
+
+        # kept so warmup()/set_inverse_mass() can rebuild the step with a
+        # re-estimated mass while preserving the live state
+        self._build_kwargs = dict(
+            epsilon=epsilon,
+            steps=steps,
+            inverse_mass=inverse_mass,
+            bounds=bounds,
+            retry=retry,
+        )
+        init, self._step = build_kind(
+            kind, self._logp, self.n_parameters, dtype, self.device,
+            **self._build_kwargs,
+        )
+        with torch.no_grad():
+            logp0 = torch.func.vmap(self._logp)(starts_dev)
+        self._state = init(starts_dev, logp0, 1.0)
+
+        self._history = []
+        self._prob_history = []
+
+        self._fused_plan = None
+        self._fused_mode = fused
+        self._rebuild_fused_plan(fused)
+
+    def _rebuild_fused_plan(self, fused):
+        """(Re)build the fused-advance plan. ``fused=True`` raises on a
+        configuration the kernel does not take; "auto" and False keep the
+        batched transition."""
+        self._fused_plan = None
+        if fused is not True:
+            return
+        from ..ops.hmc_fused import plan_fused_hmc
+
+        kw = self._build_kwargs
+        problems = []
+        if kw["retry"]:
+            problems.append("retry=True (repeat-until-accept)")
+        if kw["bounds"] is not None:
+            problems.append("reflecting bounds")
+        im = kw["inverse_mass"]
+        if im is not None and np.asarray(im).ndim > 1:
+            problems.append("a full-matrix inverse mass")
+        if problems:
+            raise ValueError(
+                "[ ChainArray error ] the fused hmc kernel does not "
+                "support: " + ", ".join(problems) + "."
+            )
+        self._fused_plan = plan_fused_hmc(
+            self._posterior,
+            self.n_parameters,
+            steps=kw["steps"],
+            inverse_mass=im,
+        )
+
+    @torch.no_grad()
+    def advance(self, n: int, store: bool = True, thin: int = 1):
+        """
+        Advance every chain ``n`` steps. With ``store=False`` only the final
+        state is kept (maximum throughput); otherwise every ``thin``-th
+        step's positions are appended to the host history. Returns once the
+        device has finished.
+        """
+        if self._fused_plan is not None:
+            from ..ops.hmc_fused import fused_hmc_advance
+
+            state, hist = fused_hmc_advance(
+                self._fused_plan, self._state, n, store, self._generator
+            )
+            pos, logp = (hist[0], hist[1]) if store else (None, None)
+        else:
+            state, outs = run_steps(
+                self._step, self._state, n, store, self._generator
+            )
+            pos, logp = (outs.theta, outs.logp) if store else (None, None)
+        self._state = state
+        if store:
+            self._history.append(pos[::thin].cpu().numpy())  # (n/thin, K, P)
+            self._prob_history.append(logp[::thin].cpu().numpy())
+        elif self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def set_inverse_mass(self, inverse_mass):
+        """
+        Rebuild the transition with a new inverse mass (scalar, (P,)
+        diagonal, or (P, P) matrix), preserving the live chain state.
+        """
+        self._build_kwargs["inverse_mass"] = inverse_mass
+        _, self._step = build_kind(
+            self.kind, self._logp, self.n_parameters,
+            self._state.theta.dtype, self.device, **self._build_kwargs,
+        )
+        self._rebuild_fused_plan(self._fused_mode)
+        return self
+
+    def warmup(self, n_steps: int = 500, n_windows: int = 4, store: bool = False):
+        """
+        Windowed diagonal mass adaptation: advance in ``n_windows``
+        expanding windows; after each, set the inverse mass to the
+        per-parameter variance pooled over all chains and the window's
+        steps. Step-size adaptation keeps running throughout. Warmup
+        samples are discarded (``store=False``) by default.
+        """
+        if n_windows < 1 or n_steps < 2 * n_windows:
+            raise ValueError(
+                "[ ChainArray error ] warmup needs n_windows >= 1 and "
+                "n_steps >= 2 * n_windows."
+            )
+        sizes = _warmup_window_sizes(n_steps, n_windows)
+        mark = len(self._history)
+        for size in sizes:
+            self.advance(int(size), store=True)
+            h = np.concatenate(self._history[mark:], axis=0)
+            var = h.reshape(-1, self.n_parameters).var(axis=0)
+            floor = 1e-12 * max(float(var.max()), 1e-30)
+            self.set_inverse_mass(np.maximum(var, floor))
+        if not store:
+            del self._history[mark:]
+            del self._prob_history[mark:]
+        return self
+
+    def _stored(self, burn: int, what: str) -> np.ndarray:
+        if not self._history:
+            raise ValueError(
+                "[ ChainArray error ] no stored history - advance with "
+                f"store=True before requesting {what}."
+            )
+        return np.concatenate(self._history, axis=0)[burn:]  # (steps, K, P)
+
+    def effective_sample_size(self, burn: int = 0) -> np.ndarray:
+        """Per-chain, per-parameter effective sample sizes, shape
+        (n_chains, n_parameters), from one batched FFT autocorrelation."""
+        from ..utils.ess import effective_sample_size_batched
+
+        h = self._stored(burn, "effective sample sizes")
+        series = torch.as_tensor(np.moveaxis(h, 0, -1))  # (K, P, steps)
+        return effective_sample_size_batched(series).numpy()
+
+    def rhat(self, burn: int = 0, rank_normalized: bool = True) -> np.ndarray:
+        """Per-parameter split-R-hat across the chain batch, shape
+        (n_parameters,): the rank-normalized, folded variant of Vehtari et
+        al. (2021) by default, the classic split statistic with
+        ``rank_normalized=False``."""
+        from ..utils.diagnostics import rank_normalized_rhat, split_rhat
+
+        h = self._stored(burn, "rhat")
+        series = torch.as_tensor(np.transpose(h, (2, 1, 0)))  # (P, K, steps)
+        estimator = rank_normalized_rhat if rank_normalized else split_rhat
+        return estimator(series).numpy()
+
+    @property
+    def theta(self) -> np.ndarray:
+        """Current positions, shape (n_chains, n_parameters)."""
+        return self._state.theta.cpu().numpy()
+
+    @property
+    def logp(self) -> np.ndarray:
+        """Current log-probabilities, shape (n_chains,)."""
+        return self._state.logp.cpu().numpy()
+
+    def get_sample(self, burn: int = 0, thin: int = 1) -> np.ndarray:
+        """Pooled samples from all chains, shape (n_kept * K, P). ``burn``
+        and ``thin`` apply to the step axis."""
+        if not self._history:
+            return np.empty([0, self.n_parameters])
+        h = np.concatenate(self._history, axis=0)[burn::thin]
+        return h.reshape(-1, self.n_parameters)
+
+    def get_probabilities(self, burn: int = 0, thin: int = 1) -> np.ndarray:
+        if not self._prob_history:
+            return np.empty([0])
+        h = np.concatenate(self._prob_history, axis=0)[burn::thin]
+        return h.reshape(-1)
+
+    # ------------------------------------------------------------------ #
+    # checkpoint / resume in the JAX package's .npz layout
+    # ------------------------------------------------------------------ #
+    def save(self, filename: str):
+        """Checkpoint the chain state in the JAX ``ChainArray`` layout
+        (``leaf_0`` ... ``leaf_10``, kind, n_chains, n_parameters), so
+        either package can restore it. The key leaf is drawn from this
+        array's generator."""
+        key = torch.randint(
+            0, 2**32, (self.n_chains, 2), dtype=torch.int64,
+            generator=self._generator, device=self.device,
+        )
+        leaves = hmc_state_to_jax_leaves(
+            self._state, key.cpu().numpy().astype(np.uint32)
+        )
+        items = {f"leaf_{i}": v for i, v in enumerate(leaves)}
+        items["kind"] = self.kind
+        items["n_chains"] = self.n_chains
+        items["n_parameters"] = self.n_parameters
+        np.savez(filename, **items)
+
+    def restore(self, filename: str):
+        """Restore a state saved by either package's ``ChainArray.save``
+        into this ChainArray (constructed with the same configuration)."""
+        D = np.load(filename)
+        if str(D["kind"]) != self.kind or int(D["n_chains"]) != self.n_chains:
+            raise ValueError(
+                "[ ChainArray error ] checkpoint configuration does not match "
+                "this ChainArray (kind / n_chains differ)."
+            )
+        n_saved = sum(1 for k in D.files if k.startswith("leaf_"))
+        if n_saved != N_HMC_LEAVES:
+            raise ValueError(
+                f"[ ChainArray error ] checkpoint stores {n_saved} state "
+                f"leaves but an '{self.kind}' state has {N_HMC_LEAVES}."
+            )
+        self._state = hmc_state_from_jax(
+            [D[f"leaf_{i}"] for i in range(n_saved)],
+            device=self.device,
+            dtype=self._state.theta.dtype,
+        )
+        return self

@@ -1,0 +1,15 @@
+from .dtypes import default_float
+from .random import make_generator
+from .wrap import as_device_logp
+from .ess import effective_sample_size, effective_sample_size_batched
+from .diagnostics import split_rhat, rank_normalized_rhat
+
+__all__ = [
+    "default_float",
+    "make_generator",
+    "as_device_logp",
+    "effective_sample_size",
+    "effective_sample_size_batched",
+    "split_rhat",
+    "rank_normalized_rhat",
+]

@@ -1,0 +1,138 @@
+"""Kernel B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu) on a CUDA device:
+against its plain PyTorch version on the same float32 state and draws,
+its launch count, its dtype check, and the fused ChainArray end to end.
+
+Every test here needs the card and carries the ``cuda`` marker; without a
+card each one skips. The file imports only the port (not the JAX package),
+so it runs on a machine with CUDA torch alone:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
+from inference_tpu_torch.ops import hmc_fused
+from inference_tpu_torch.ops.hmc_fused import GaussianForm
+from inference_tpu_torch.parallel import ChainArray
+
+RTOL, ATOL = 1e-4, 1e-5  # float32 kernel vs float32 plain version
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernel B1 has no CPU form)")
+    return torch.device("cuda")
+
+
+def _chunk_inputs(device, P, K, chunk, inv_temp, seed):
+    """A mid-adaptation float32 state of K chains on a random P-dim
+    Gaussian form, and the draws of ``chunk`` transitions."""
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(P, P)) / np.sqrt(P)
+    cov = B @ B.T + np.eye(P)
+    dev = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt).to(device)
+    form = GaussianForm(dev(np.linalg.inv(cov)), dev(rng.normal(0, 0.3, P))).to(device)
+    theta = dev(rng.multivariate_normal(np.zeros(P), cov, K).T.copy())
+    num = rng.integers(0, 20, K)
+    eps = AdaptiveScale(
+        dev(rng.uniform(0.1, 0.3, K)), dev(num * rng.uniform(0.4, 0.9, K)),
+        dev(num * 0.2), dev(num, torch.int32), dev(rng.choice([15, 20], K), torch.int32),
+    )
+    it = torch.full((K,), inv_temp, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((chunk, P, K), generator=gen, device=device)
+    us = torch.rand((chunk, K), generator=gen, device=device)
+    ua = torch.rand((chunk, K), generator=gen, device=device)
+    return form, (theta, form.value_cols(theta) * it, eps, it, z, us, ua)
+
+
+def _close(a, b):
+    return torch.isclose(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P, K, inv_temp, diag_mass",
+    [(10, 65536, 1.0, False), (32, 4096, 0.5, True), (3, 1000, 1.0, True)],
+)
+def test_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mass):
+    """One transition: position, logp and step size within tolerance and the
+    adaptation counters equal on >= 99.9% of chains (both P_MAX
+    instantiations, unit and diagonal mass, a ragged last block)."""
+    form, args = _chunk_inputs(cuda, P, K, 1, inv_temp, seed=P)
+    im = (torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, P),
+                          dtype=torch.float32, device=cuda) if diag_mass else None)
+    kw = dict(form=form, steps=50, inv_mass_diag=im, store=False)
+    before = hmc_fused.KERNEL_LAUNCHES
+    k = hmc_fused._launch_chunk(*args, **kw)
+    p = hmc_fused._reference_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    assert hmc_fused.KERNEL_LAUNCHES == before + 1
+    ok = _close(k[0], p[0]).all(dim=0) & _close(k[1], p[1]) & _close(k[2].value, p[2].value)
+    ok &= (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
+    assert float(ok.float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_stored_chunk(cuda):
+    """A stored 64-transition chunk: the first transition and every step
+    count agree per chain, and the accept fraction of every transition
+    agrees to 1e-3 (single chains drift apart over a chunk at float32
+    roundoff, as the plain version does from itself in float64)."""
+    form, args = _chunk_inputs(cuda, 10, 16384, 64, 1.0, seed=12)
+    kw = dict(form=form, steps=50, inv_mass_diag=None, store=True)
+    hk = hmc_fused._launch_chunk(*args, **kw)[3]
+    hp = hmc_fused._reference_chunk(*args, **kw)[3]
+    torch.cuda.synchronize()
+    first = _close(hk[0][0], hp[0][0]).all(dim=0) & (hk[2] == hp[2]).all(dim=0)
+    assert float(first.float().mean()) >= 0.999
+    theta = args[0]
+    accepted = lambda h: (h[0] != torch.cat([theta[None], h[0][:-1]])).any(dim=1)
+    frac_k = accepted(hk).float().mean(dim=1)
+    frac_p = accepted(hp).float().mean(dim=1)
+    assert float((frac_k - frac_p).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_fused_chain_array_on_card(cuda):
+    """ChainArray(fused=True) on the card launches the kernel and samples
+    the correlated 2-D Gaussian."""
+    cov = np.array([[1.0, 0.6], [0.6, 1.0]])
+    starts = np.random.default_rng(0).normal(0, 0.3, (4096, 2))
+    ca = ChainArray("hmc", GaussianForm(torch.as_tensor(np.linalg.inv(cov))), starts,
+                    steps=12, epsilon=0.4, retry=False, fused=True, device=cuda, seed=7)
+    before = hmc_fused.KERNEL_LAUNCHES
+    ca.advance(200, store=False)
+    ca.advance(100, store=True)
+    assert hmc_fused.KERNEL_LAUNCHES - before == 4 + 2
+    sample = ca.get_sample()
+    assert abs(sample.mean(axis=0)).max() < 0.05
+    np.testing.assert_allclose(np.cov(sample.T), cov, atol=0.05)
+    assert ca.rhat().max() < 1.05
+
+
+@pytest.mark.cuda
+def test_float64_state_raises_on_card(cuda):
+    """The fused path takes float32 only: a float64 CUDA state raises
+    instead of being cast."""
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        ca = ChainArray("hmc", GaussianForm(torch.eye(3)), np.zeros((256, 3)) + 0.1,
+                        retry=False, fused=True, device=cuda, seed=0)
+        with pytest.raises(TypeError, match="float64"):
+            ca.advance(2, store=False)
+    finally:
+        torch.set_default_dtype(old)
