@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's batched-HMC main path once on one CUDA GPU.
+"""Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
+(kernel B1) and dense GP regression (kernel B2).
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit:
@@ -9,8 +10,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
 
 1. device: a CUDA device is required; prints its name, the device count
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``)
-   with nvcc, times the build and prints the ``-Xptxas -v`` report;
+2. build: compiles kernels B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``)
+   and B2 (``.../sqexp.cu``) with nvcc, one process each, started together;
+   times each build and prints the ``-Xptxas -v`` registers and spills;
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition; (b) the same with
    64 transitions and the history; (c) P=32, diagonal mass, inv_temp 0.5,
@@ -20,9 +22,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    a timed advance, a stored advance for the acceptance and a thinned one
    for the mixing checks; checks the launch count, the sample variances
    and R-hat;
-5. plain path: the same ChainArray with ``fused=False``, timed.
+5. plain path: the same ChainArray with ``fused=False``, timed;
+6. kernel B2 against its plain version on the card, on the same inputs:
+   float64 and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged
+   float64 case (3,001 x 2,500, D=5), and the autograd backward against
+   autograd of the plain version at N=4,096; then both timed at
+   16,384 x 16,384 in each dtype;
+7. GP main path (gp-16k): ``GpRegressor`` on ``benchmarks/gp_lml_bench.py``'s
+   data and hyperparameters at N=16,384 in float64: LML+gradient
+   evaluations per second and peak memory, the B2 launch count, the LML
+   against an independent plain route (1e-10) and the gradient against
+   central finite differences (1e-5); a ``torch.profiler`` breakdown of
+   one evaluation (device time by operation, device idle share); the same
+   with ``cholesky="analytic"``; one float32 evaluation;
+8. GP fit and prediction at N=4,096 in float64: ``fit(optimizer="bfgs",
+   n_starts=2)``, then ``__call__`` at 4,096 points against the plain
+   route (1e-10).
 
-The second-to-last lines are a JSON object describing the kernel and the
+The second-to-last lines are a JSON object describing the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -30,12 +47,14 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from inference_tpu_torch.gp import GpRegressor
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import _build, hmc_fused
+from inference_tpu_torch.ops import _build, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -67,17 +86,29 @@ def phase_device():
     return name, smi
 
 
-def phase_build():
-    cached = _build.library_path("hmc_fused").exists()
+KERNELS = {"hmc_fused": "B1", "sqexp": "B2"}
+
+
+def _timed_build(name):
+    cached = _build.library_path(name).exists()
     t0 = time.perf_counter()
-    _build.load("hmc_fused")
-    seconds = time.perf_counter() - t0
-    print(f"[build] kernel B1 {'loaded from cache' if cached else 'built'} "
-          f"in {seconds:.2f} s: {_build.library_path('hmc_fused').name}")
-    for line in _build.build_log("hmc_fused").splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print(f"[build] {line.strip()}")
-    return seconds
+    _build.load(name)
+    return cached, time.perf_counter() - t0
+
+
+def phase_build():
+    """Build every kernel, one nvcc process each, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        futures = {name: pool.submit(_timed_build, name) for name in KERNELS}
+        results = {name: f.result() for name, f in futures.items()}
+    for name, (cached, seconds) in results.items():
+        print(f"[build] kernel {KERNELS[name]} {'loaded from cache' if cached else 'built'} "
+              f"in {seconds:.2f} s: {_build.library_path(name).name}")
+        for line in _build.build_log(name).splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")):
+                print(f"[build] {line.strip()}")
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
 
 
 def _random_state(P, K, seed, inv_temp):
@@ -299,6 +330,270 @@ def phase_plain_path():
     return attempts
 
 
+# ---------------------------------------------------------------------------
+# kernel B2 and the dense GP path (gp-16k)
+# ---------------------------------------------------------------------------
+
+GP_N = 16_384
+GP_THETA = np.array([0.0, 0.0, 0.5, 0.5])  # gp_lml_bench.py: ConstantMean, SquaredExponential
+GP_REPS = 3
+# kernel B2 vs its plain version: the same operations in the same order
+# (--fmad=false); only the exp may differ, by a few ulp
+B2_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+F64, CUDA = torch.float64, "cuda"
+
+
+def make_gp_data(n, d=2, seed=0):
+    """``benchmarks/gp_lml_bench.py::make_data``: x uniform on [0, 10]^d,
+    y = sin x0 cos x1 + N(0, 0.1) noise, y_err = 0.1."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 10, size=(n, d))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, n)
+    return x, y, np.full(n, 0.1)
+
+
+def _gp_operands(x, dtype, theta=GP_THETA):
+    """Rows, amplitude and lengthscales of the squared exponential at
+    ``theta`` on the card."""
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=CUDA)
+    return t(x), t(np.exp(theta[1])), t(np.exp(theta[2:]))
+
+
+def _errors(kernel, plain):
+    err = (kernel - plain).abs()
+    return float(err.max()), float((err / plain.abs()).max())
+
+
+def _b2_compare(label, u, v, amp, ls):
+    """Kernel B2 against its plain version on the same inputs."""
+    k = pairwise._launch_sqexp(u, v, amp, ls)
+    p = pairwise._sqexp_reference(u, v, amp, ls)
+    torch.cuda.synchronize()
+    if k.shape != p.shape or not bool(torch.isfinite(k).all()):
+        raise RuntimeError(f"check {label}: bad output, shape {tuple(k.shape)}")
+    max_abs, max_rel = _errors(k, p)
+    rtol = B2_RTOL[u.dtype]
+    print(f"[check {label}] B2 {str(u.dtype)[6:]} {u.shape[0]}x{v.shape[0]} D={u.shape[1]}: "
+          f"max abs err {max_abs:.3e}, max rel err {max_rel:.3e} (limit {rtol:g})")
+    if not max_rel <= rtol:
+        raise RuntimeError(f"check {label}: B2 disagrees with its plain version ({max_rel})")
+    return max_abs, max_rel
+
+
+def phase_b2_checks(x16k):
+    out = {}
+    for label, dtype in (("6a", F64), ("6b", torch.float32)):
+        u, amp, ls = _gp_operands(x16k, dtype)
+        out[dtype] = _b2_compare(label, u, u, amp, ls)
+        del u
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.as_tensor(a, dtype=F64, device=CUDA)
+    ragged = _b2_compare("6c", t(rng.uniform(0, 3, (3001, 5))), t(rng.uniform(0, 3, (2500, 5))),
+                         t(1.3), t(rng.uniform(0.5, 2.0, 5)))
+    out[F64] = tuple(max(a, b) for a, b in zip(out[F64], ragged))
+
+    # the autograd.Function's backward against autograd of the plain version
+    u, amp, ls = _gp_operands(x16k[:4096], F64)
+    kbar = torch.as_tensor(np.random.default_rng(7).normal(size=(4096, 4096)), dtype=F64,
+                           device=CUDA)
+    grads = []
+    for fn in (pairwise.SqexpCovariance.apply, pairwise._sqexp_reference):
+        leaves = [a.clone().requires_grad_(True) for a in (u, amp, ls)]
+        (fn(leaves[0], leaves[0], leaves[1], leaves[2]) * kbar).sum().backward()
+        grads.append([a.grad for a in leaves])
+    torch.cuda.synchronize()
+    rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(*grads)]
+    print(f"[check 6d] B2 backward vs autograd of the plain version, N=4096 float64: "
+          f"max rel err (positions, amplitude, lengthscales) "
+          f"{', '.join(f'{r:.3e}' for r in rels)} (limit 1e-10)")
+    if not max(rels) <= 1e-10:
+        raise RuntimeError(f"check 6d: the backward disagrees ({rels})")
+    return out
+
+
+def _time_events(fn, args, reps):
+    fn(*args)  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_b2_timing(x16k):
+    """CUDA-event times of B2 and its plain version at 16,384 x 16,384, in
+    turns (plain, kernel, plain, kernel)."""
+    times = {}
+    for dtype in (F64, torch.float32):
+        u, amp, ls = _gp_operands(x16k, dtype)
+        args = (u, u, amp, ls)
+        plain = [_time_events(pairwise._sqexp_reference, args, 3)]
+        kern = [_time_events(pairwise._launch_sqexp, args, 20)]
+        plain.append(_time_events(pairwise._sqexp_reference, args, 3))
+        kern.append(_time_events(pairwise._launch_sqexp, args, 20))
+        print(f"[time] B2 {str(dtype)[6:]} 16384x16384 D=2: kernel "
+              f"{kern[0]:.4f} / {kern[1]:.4f} ms, plain version {plain[0]:.4f} / "
+              f"{plain[1]:.4f} ms (plain, kernel, plain, kernel)")
+        times[dtype] = (min(kern), min(plain))
+        del u
+        torch.cuda.empty_cache()
+    return times
+
+
+def _plain_gp(x, y, err, theta):
+    """The independent plain route: B2's plain version, jitter and noise on
+    the diagonal, torch.linalg.cholesky; returns (L, residual, amp, ls)."""
+    xs, amp, ls = _gp_operands(x, F64, theta)
+    K = pairwise._sqexp_reference(xs, xs, amp, ls)
+    K.diagonal().add_(amp**2 * 1e-12)
+    K.diagonal().add_(torch.as_tensor(err**2, dtype=F64, device=CUDA))
+    L = torch.linalg.cholesky(K)
+    r = torch.as_tensor(y, dtype=F64, device=CUDA) - float(theta[0])
+    return L, r, amp, ls
+
+
+def _plain_lml(x, y, err, theta):
+    L, r, _, _ = _plain_gp(x, y, err, theta)
+    v = torch.linalg.solve_triangular(L, r[:, None], upper=False)[:, 0]
+    return float(-0.5 * (v @ v) - torch.log(torch.diagonal(L)).sum())
+
+
+def _time_lml_grad(gp):
+    gp.marginal_likelihood_gradient(GP_THETA)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GP_REPS):
+        value, grad = gp.marginal_likelihood_gradient(GP_THETA)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / GP_REPS, value, grad
+
+
+def phase_gp_main(x, y, err):
+    """gp-16k: GpRegressor at N=16,384 in float64 on the card."""
+    torch.cuda.reset_peak_memory_stats()
+    pairwise.KERNEL_LAUNCHES = 0
+    gp = GpRegressor(x, y, y_err=err, hyperpars=GP_THETA, dtype=F64, device=CUDA)
+    seconds, lml, grad = _time_lml_grad(gp)
+    launches = pairwise.KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[gp main] N={GP_N} float64: {1 / seconds:.4f} LML+grad evals/s "
+          f"({seconds * 1e3:.2f} ms each, mean of {GP_REPS}), peak device memory "
+          f"{peak:.2f} GiB, kernel B2 launches {launches}")
+    print(f"[gp main] LML {lml!r}, gradient {grad.tolist()}")
+    if launches == 0:
+        raise RuntimeError("the GP main path launched kernel B2 no time")
+    if not (np.isfinite(lml) and grad.shape == (4,) and np.isfinite(grad).all()):
+        raise RuntimeError(f"bad LML or gradient: {lml}, {grad}")
+
+    plain = _plain_lml(x, y, err, GP_THETA)
+    rel = abs(lml - plain) / abs(plain)
+    print(f"[gp check a] LML against the independent plain route: {plain!r}, "
+          f"rel diff {rel:.3e} (limit 1e-10)")
+    if not rel <= 1e-10:
+        raise RuntimeError(f"LML disagrees with the plain route ({rel})")
+
+    h = 1e-4
+    fd = np.empty(4)
+    for i in range(4):
+        tp, tm = GP_THETA.copy(), GP_THETA.copy()
+        tp[i] += h
+        tm[i] -= h
+        fd[i] = (gp.marginal_likelihood(tp) - gp.marginal_likelihood(tm)) / (2 * h)
+    rel_fd = float(np.abs(grad - fd).max() / np.abs(grad).max())
+    print(f"[gp check b] gradient against central differences (h={h}): {fd.tolist()}, "
+          f"max diff / max |grad| {rel_fd:.3e} (limit 1e-5)")
+    if not rel_fd <= 1e-5:
+        raise RuntimeError(f"gradient disagrees with finite differences ({rel_fd})")
+    _profile_evaluation(gp)
+    del gp
+    torch.cuda.empty_cache()
+
+    gp_a = GpRegressor(x, y, y_err=err, hyperpars=GP_THETA, dtype=F64, device=CUDA,
+                       cholesky="analytic")
+    seconds_a, lml_a, grad_a = _time_lml_grad(gp_a)
+    rel_a = float(np.abs(grad_a - grad).max() / np.abs(grad).max())
+    print(f"[gp analytic] cholesky='analytic': {1 / seconds_a:.4f} LML+grad evals/s "
+          f"({seconds_a * 1e3:.2f} ms each) against {seconds * 1e3:.2f} ms for 'auto'; "
+          f"gradient max diff / max |grad| {rel_a:.3e}")
+    if not rel_a <= 1e-8:
+        raise RuntimeError(f"the analytic gradient disagrees ({rel_a})")
+    del gp_a
+    torch.cuda.empty_cache()
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("TF32 matmuls are on; the float32 evaluation needs them off")
+    gp32 = GpRegressor(x, y, y_err=err, hyperpars=GP_THETA, dtype=torch.float32, device=CUDA)
+    before = pairwise.KERNEL_LAUNCHES
+    lml32, grad32 = gp32.marginal_likelihood_gradient(GP_THETA)
+    print(f"[gp float32] LML {lml32!r} (float64 {lml!r}, rel diff "
+          f"{abs(lml32 - lml) / abs(lml):.3e}), gradient {grad32.tolist()}")
+    if pairwise.KERNEL_LAUNCHES == before or not np.isfinite([lml32, *grad32]).all():
+        raise RuntimeError("the float32 evaluation did not run through B2 or is not finite")
+    del gp32
+    torch.cuda.empty_cache()
+    return launches, 1 / seconds, 1 / seconds_a
+
+
+def phase_gp_fit_predict():
+    """fit(optimizer="bfgs", n_starts=2) and __call__ at N=4,096, float64."""
+    x, y, err = make_gp_data(4096)
+    gp = GpRegressor(x, y, y_err=err, hyperpars=GP_THETA, dtype=F64, device=CUDA)
+    lwr, upr = (np.array([b[i] for b in gp.hp_bounds]) for i in (0, 1))
+    lml_centre = gp.marginal_likelihood(0.5 * (lwr + upr))
+    t0 = time.perf_counter()
+    theta = gp.fit(optimizer="bfgs", n_starts=2)
+    seconds = time.perf_counter() - t0
+    lml_fit = gp.marginal_likelihood(theta)
+    print(f"[gp fit] N=4096: two L-BFGS-B starts in {seconds:.2f} s, LML {lml_fit!r} at "
+          f"{theta.tolist()} (start centre {lml_centre!r})")
+    if not lml_fit >= lml_centre:
+        raise RuntimeError("the fit ended below the LML at the start centre")
+
+    gp.set_hyperparameters(theta)
+    q = np.random.default_rng(8).uniform(0, 10, (4096, 2))
+    before = pairwise.KERNEL_LAUNCHES
+    mu, sd = gp(q)
+    if pairwise.KERNEL_LAUNCHES == before:
+        raise RuntimeError("prediction at 4096 points did not launch kernel B2")
+    L, r, amp, ls = _plain_gp(x, y, err, theta)
+    alpha = torch.cholesky_solve(r[:, None], L)[:, 0]
+    K_qx = pairwise._sqexp_reference(_gp_operands(q, F64)[0], _gp_operands(x, F64)[0], amp, ls)
+    mu_ref = (K_qx @ alpha + float(theta[0])).cpu().numpy()
+    v = torch.linalg.solve_triangular(L, K_qx.T, upper=False)
+    sd_ref = torch.sqrt(torch.abs(amp**2 - (v**2).sum(dim=0))).cpu().numpy()
+    rel_mu = float(np.abs(mu - mu_ref).max() / np.abs(mu_ref).max())
+    rel_sd = float(np.abs(sd - sd_ref).max() / np.abs(sd_ref).max())
+    print(f"[gp predict] 4096 points: mean and sd against the plain route, max diff / "
+          f"max value {rel_mu:.3e} and {rel_sd:.3e} (limit 1e-10)")
+    if not (np.isfinite(mu).all() and np.isfinite(sd).all() and mu.shape == (4096,)):
+        raise RuntimeError("bad predictions")
+    if not max(rel_mu, rel_sd) <= 1e-10:
+        raise RuntimeError(f"predictions disagree with the plain route ({rel_mu}, {rel_sd})")
+
+
+def _profile_evaluation(gp):
+    """torch.profiler over one LML+gradient evaluation: device time of the
+    heaviest operations (nested ones included) and the device idle share."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        gp.marginal_likelihood_gradient(GP_THETA)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = sum(e.self_device_time_total for e in events if e.device_type == cuda) / 1e3
+    print(f"[gp profile] one evaluation: {wall:.3f} ms wall, {device:.3f} ms of device "
+          f"kernels (device idle {100 * (1 - device / wall):.1f}%)")
+    ops = [e for e in events if e.device_type != cuda and e.device_time_total > 0]
+    for e in sorted(ops, key=lambda e: -e.device_time_total)[:10]:
+        print(f"[gp profile] {e.device_time_total / 1e3:10.3f} ms  {e.count:3d}x  {e.key[:90]}")
+
+
 def main():
     name, smi = phase_device()
     torch.set_default_dtype(torch.float32)
@@ -312,6 +607,15 @@ def main():
     plain_attempts = phase_plain_path()
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
           f"{plain_attempts:,.0f} ({attempts / plain_attempts:.2f}x)")
+
+    x16k, y16k, err16k = make_gp_data(GP_N)
+    b2_err = phase_b2_checks(x16k)
+    b2_ms = phase_b2_timing(x16k)
+    b2_launches, evals, evals_a = phase_gp_main(x16k, y16k, err16k)
+    phase_gp_fit_predict()
+    print(f"[summary] gp-16k float64 LML+grad evals/s: {evals:.4f} (cholesky='auto'), "
+          f"{evals_a:.4f} (cholesky='analytic')")
+
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",
         "route": "cuda",
@@ -321,6 +625,20 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "sqexp_tile_kernel",
+        "route": "cuda",
+        "source": "inference_tpu_torch/ops/csrc/sqexp.cu",
+        "replaces": "inference_tpu/ops/pairwise.py:69",
+        "launches": b2_launches,
+        "max_abs_err": b2_err[F64][0],
+        "ms": b2_ms[F64][0],
+        "plain_ms": b2_ms[F64][1],
+        "per_dtype": {
+            str(dt)[6:]: {"max_abs_err": b2_err[dt][0], "max_rel_err": b2_err[dt][1],
+                          "ms": b2_ms[dt][0], "plain_ms": b2_ms[dt][1]}
+            for dt in (F64, torch.float32)
+        },
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Move HMC chain state and posteriors between the JAX package and this one.
+"""Move HMC chain state, posteriors and GP models between the JAX package
+and this one.
 
 The JAX package's batched ``HmcState`` flattens (``jax.tree.flatten``) to 11
 leaves, in this order: theta ``(K, P)``, logp ``(K,)``, the five step-size
@@ -7,11 +8,18 @@ PRNG key ``(K, 2)`` uint32, failed ``(K,)`` bool, inv_temp ``(K,)`` and
 steps ``(K,)`` int32. This module reads and writes that list as numpy
 arrays. The key leaf is read and ignored: the two packages' random streams
 differ by design.
+
+A ``GpRegressor`` crosses as its state: x, y, y_err or y_cov,
+hyperparameters, ``pad_to`` as numpy values, and its kernel and mean as
+class names (a kernel spec nests for ``CompositeCovariance`` and
+``ChangePoint``). ``gp_state_of`` reads that state off a JAX model by its
+attributes; ``gp_regressor_from_state`` builds the port's model from it.
 """
 
 import numpy as np
 import torch
 
+from . import gp as _gp
 from .mcmc._kernels.common import AdaptiveScale
 from .mcmc._kernels.hmc import HmcState
 from .ops.hmc_fused import GaussianForm
@@ -66,4 +74,54 @@ def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:
     return GaussianForm(
         torch.as_tensor(np.asarray(icov, dtype=float)),
         None if mean is None else torch.as_tensor(np.asarray(mean, dtype=float)),
+    )
+
+
+def _kernel_spec(cov):
+    """A covariance object as nested names: ``"SquaredExponential"``,
+    ``{"sum": [...]}`` or ``{"change_point": [...], "axis": a}``."""
+    name = type(cov).__name__
+    if name == "CompositeCovariance":
+        return {"sum": [_kernel_spec(c) for c in cov.components]}
+    if name == "ChangePoint":
+        return {"change_point": [_kernel_spec(c) for c in cov.cov], "axis": int(cov.axis)}
+    return name
+
+
+def _kernel_from_spec(spec):
+    if isinstance(spec, str):
+        return getattr(_gp, spec)()
+    if "sum" in spec:
+        return _gp.CompositeCovariance([_kernel_from_spec(s) for s in spec["sum"]])
+    return _gp.ChangePoint([_kernel_from_spec(s) for s in spec["change_point"]],
+                           axis=spec["axis"])
+
+
+def gp_state_of(gp) -> dict:
+    """The state of a JAX ``GpRegressor`` as numpy values and names: x, y,
+    y_err (diagonal error model) or y_cov, hyperpars, pad_to, kernel and
+    mean. It reads attributes only and imports nothing of the JAX package."""
+    sig = np.asarray(gp.sig)
+    diag = bool(gp._sig_is_diag)
+    return {
+        "x": np.asarray(gp.x),
+        "y": np.asarray(gp.y),
+        "y_err": np.sqrt(np.diagonal(sig)) if diag else None,
+        "y_cov": None if diag else sig,
+        "hyperpars": np.asarray(gp.hyperpars, dtype=float),
+        "pad_to": gp.pad_to,
+        "kernel": _kernel_spec(gp.cov),
+        "mean": type(gp.mean).__name__,
+    }
+
+
+def gp_regressor_from_state(state: dict, device="cpu", dtype=None, cholesky="auto"):
+    """The port's ``GpRegressor`` with the state ``gp_state_of`` returns:
+    the same data, error model, padding, kernel and mean classes and
+    hyperparameters."""
+    return _gp.GpRegressor(
+        state["x"], state["y"], y_err=state["y_err"], y_cov=state["y_cov"],
+        hyperpars=state["hyperpars"], kernel=_kernel_from_spec(state["kernel"]),
+        mean=getattr(_gp, state["mean"]), pad_to=state["pad_to"],
+        dtype=dtype, cholesky=cholesky, device=device,
     )

@@ -1,6 +1,7 @@
-"""Kernel B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu) on a CUDA device:
-against its plain PyTorch version on the same float32 state and draws,
-its launch count, its dtype check, and the fused ChainArray end to end.
+"""Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu) and B2
+(inference_tpu_torch/ops/csrc/sqexp.cu) on a CUDA device: each against its
+plain PyTorch version on the same inputs, its launch count and its input
+checks; the fused ChainArray and the GpRegressor end to end.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
+from inference_tpu_torch.gp import GpRegressor
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import hmc_fused
+from inference_tpu_torch.ops import hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -32,7 +34,7 @@ def _one_torch_thread():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernel B1 has no CPU form)")
+        pytest.skip("needs a CUDA device (kernels B1 and B2 have no CPU form)")
     return torch.device("cuda")
 
 
@@ -136,3 +138,92 @@ def test_float64_state_raises_on_card(cuda):
             ca.advance(2, store=False)
     finally:
         torch.set_default_dtype(old)
+
+
+# B2 against its plain version on the card: both run the same operations in
+# the same order (the kernel is built with --fmad=false); the only difference
+# is the exp, within a few ulp, so the relative error is a few epsilon
+B2_RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _sqexp_inputs(device, dtype, m, n, d, seed):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return (t(rng.uniform(0, 3, (m, d))), t(rng.uniform(0, 3, (n, d))),
+            t(1.3), t(rng.uniform(0.5, 2.0, d)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m, n, d", [(3001, 2500, 5), (1, 70, 1), (130, 65, 2), (257, 300, 16)])
+def test_sqexp_kernel_matches_plain(cuda, dtype, m, n, d):
+    """Kernel B2 against _sqexp_reference on ragged shapes, both dtypes,
+    D from 1 to its maximum."""
+    args = _sqexp_inputs(cuda, dtype, m, n, d, seed=m + d)
+    k = pairwise._launch_sqexp(*args)
+    p = pairwise._sqexp_reference(*args)
+    torch.cuda.synchronize()
+    assert k.shape == (m, n) and k.dtype == dtype
+    assert bool(torch.isfinite(k).all())
+    assert float(((k - p).abs() / p.abs()).max()) <= B2_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_sqexp_covariance_launch_count(cuda):
+    """sqexp_covariance launches B2 once for a block with both sides >= 2048
+    rows, and never for a smaller one; its autograd backward launches
+    nothing."""
+    u, v, amp, ls = _sqexp_inputs(cuda, torch.float64, 2048, 2100, 2, seed=3)
+    amp.requires_grad_(True)
+    before = pairwise.KERNEL_LAUNCHES
+    K = pairwise.sqexp_covariance(u, v, amp, ls)
+    assert pairwise.KERNEL_LAUNCHES == before + 1
+    K.sum().backward()
+    pairwise.sqexp_covariance(u[:2047], v, amp, ls)
+    torch.cuda.synchronize()
+    assert pairwise.KERNEL_LAUNCHES == before + 1
+    assert amp.grad is not None and bool(torch.isfinite(amp.grad))
+
+
+@pytest.mark.cuda
+def test_sqexp_wrapper_raises(cuda):
+    """The wrapper raises on a wrong dtype, a non-contiguous input, a
+    CPU/CUDA mix and D above the kernel's maximum; it never casts."""
+    u, v, amp, ls = _sqexp_inputs(cuda, torch.float64, 64, 64, 3, seed=4)
+    with pytest.raises(TypeError):
+        pairwise._launch_sqexp(u.half(), v.half(), amp.half(), ls.half())
+    with pytest.raises(TypeError):
+        pairwise._launch_sqexp(u, v.float(), amp, ls)
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise._launch_sqexp(u.T.contiguous().T, v, amp, ls)
+    with pytest.raises(ValueError, match="device"):
+        pairwise._launch_sqexp(u, v.cpu(), amp, ls)
+    with pytest.raises(ValueError, match="device"):
+        pairwise._launch_sqexp(u, v, amp, ls.cpu())
+    w = torch.zeros((64, pairwise.D_MAX + 1), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="B2"):
+        pairwise._launch_sqexp(w, w, amp, torch.ones(pairwise.D_MAX + 1, dtype=torch.float64,
+                                                     device=cuda))
+
+
+@pytest.mark.cuda
+def test_gp_regressor_on_card_matches_cpu(cuda):
+    """GpRegressor at N = 2,100 on the card (through B2) against the same
+    model on the CPU (through B2's plain version): LML, gradient and
+    predictions to 1e-9 relative in float64."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 10, (2100, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, 2100)
+    theta = np.array([0.0, 0.0, 0.5, 0.5])
+    kw = dict(y_err=np.full(2100, 0.1), hyperpars=theta, dtype=torch.float64)
+    on_card = GpRegressor(x, y, device=cuda, **kw)
+    on_cpu = GpRegressor(x, y, **kw)
+    before = pairwise.KERNEL_LAUNCHES
+    v1, g1 = on_card.marginal_likelihood_gradient(theta)
+    assert pairwise.KERNEL_LAUNCHES > before
+    v2, g2 = on_cpu.marginal_likelihood_gradient(theta)
+    assert abs(v1 - v2) <= 1e-9 * abs(v2)
+    np.testing.assert_allclose(g1, g2, rtol=1e-9, atol=1e-9 * np.abs(g2).max())
+    q = rng.uniform(0, 10, (2048, 2))
+    for a, b in zip(on_card(q), on_cpu(q)):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)

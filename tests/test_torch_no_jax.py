@@ -1,5 +1,6 @@
-"""The PyTorch port and its GPU smoke script never import jax: checked in a
-fresh interpreter, so this test process's own jax import cannot hide one."""
+"""The PyTorch port and its GPU smoke script never import jax (nor
+matplotlib, which the card's machine lacks): checked in a fresh
+interpreter, so this test process's own imports cannot hide one."""
 
 import os
 import subprocess
@@ -15,13 +16,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     [
         "inference_tpu_torch, inference_tpu_torch.parallel, inference_tpu_torch.ops.hmc_fused",
         "inference_tpu_torch.convert, inference_tpu_torch.utils, inference_tpu_torch.ops._build",
+        "inference_tpu_torch.gp, inference_tpu_torch.ops.pairwise, inference_tpu_torch.ops.linalg",
         "chip_smoke",
     ],
 )
 def test_port_imports_no_jax(modules):
     code = (
         f"import sys; import {modules}; "
-        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'inference_tpu.')) or m == 'inference_tpu'); "
+        "leaked = sorted(m for m in sys.modules if m in ('jax', 'inference_tpu', 'matplotlib') or m.startswith(('jax.', 'jaxlib', 'inference_tpu.', 'matplotlib.'))); "
         "print(leaked); sys.exit(1 if leaked else 0)"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
