@@ -115,10 +115,10 @@ def gp_state_of(gp) -> dict:
     }
 
 
-def gp_regressor_from_state(state: dict, device="cpu", dtype=None, cholesky="auto"):
+def gp_regressor_from_state(state: dict, device="cuda", dtype=None, cholesky="auto"):
     """The port's ``GpRegressor`` with the state ``gp_state_of`` returns:
     the same data, error model, padding, kernel and mean classes and
-    hyperparameters."""
+    hyperparameters, on ``device`` (default the card)."""
     return _gp.GpRegressor(
         state["x"], state["y"], y_err=state["y_err"], y_cov=state["y_cov"],
         hyperpars=state["hyperpars"], kernel=_kernel_from_spec(state["kernel"]),

@@ -16,6 +16,7 @@ import torch
 from scipy.optimize import minimize
 
 from ..ops.linalg import add_diagonal, cholesky_or_nan
+from ..utils.device import resolve_device
 from ..utils.dtypes import default_float
 from .covariance import CovarianceFunction, SquaredExponential
 from .mean import ConstantMean, MeanFunction
@@ -36,7 +37,8 @@ class GpLinearInverter:
         prior (default SquaredExponential).
     :param prior_mean_function: mean class or instance for the prior
         (default ConstantMean).
-    :param device: where the model and the computation live (default CPU).
+    :param device: where the model and the computation live (default the
+        card; raises when there is none, pass ``"cpu"`` for the CPU).
     """
 
     def __init__(
@@ -47,7 +49,7 @@ class GpLinearInverter:
         parameter_spatial_positions,
         prior_covariance_function: CovarianceFunction = SquaredExponential,
         prior_mean_function: MeanFunction = ConstantMean,
-        device=None,
+        device="cuda",
     ):
         y = np.asarray(y)
         y_err = np.asarray(y_err)
@@ -85,7 +87,7 @@ class GpLinearInverter:
             )
 
         self._dtype = default_float()
-        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._device = resolve_device(device, "GpLinearInverter")
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=self._dtype,
                                         device=self._device)
         self.A = dev(model_matrix)

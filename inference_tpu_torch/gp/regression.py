@@ -40,6 +40,7 @@ from ..ops.linalg import (
     identity_like,
     tril_gram,
 )
+from ..utils.device import resolve_device
 from ..utils.dtypes import default_float
 from .covariance import CovarianceFunction, SquaredExponential
 from .mean import ConstantMean, MeanFunction
@@ -140,7 +141,8 @@ class GpRegressor:
         with autograd; ``"blocked"`` or an int panel width,
         ``ops.linalg.blocked_cholesky``; ``"analytic"``, the native forward
         with the closed-form marginal-likelihood backward.
-    :param device: where the data and the computation live (default CPU).
+    :param device: where the data and the computation live (default the
+        card; raises when there is none, pass ``"cpu"`` for the CPU).
     """
 
     def __init__(
@@ -159,12 +161,12 @@ class GpRegressor:
         pad_to: int = None,
         dtype=None,
         cholesky="auto",
-        device=None,
+        device="cuda",
     ):
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self._dtype = dtype if dtype is not None else default_float()
-        self._device = torch.device(device) if device is not None else torch.device("cpu")
+        self._device = resolve_device(device, "GpRegressor")
         if cholesky not in ("auto", "xla", "blocked", "analytic") and not (
             isinstance(cholesky, int) and not isinstance(cholesky, bool) and cholesky > 0
         ):

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..convert import hmc_state_from_jax, hmc_state_to_jax_leaves, N_HMC_LEAVES
 from ..mcmc._kernels.hmc import run_steps
-from ..utils import as_device_logp, default_float, make_generator
+from ..utils import as_device_logp, default_float, make_generator, resolve_device
 from ._kinds import build_kind, require_ported
 
 
@@ -67,7 +67,8 @@ class ChainArray:
         does.
     :param mesh: device meshes are not ported yet (ROADMAP queue A13).
     :param seed: optional integer seed of the chains' ``torch.Generator``.
-    :param device: the device every chain lives on.
+    :param device: the device every chain lives on (default the card;
+        raises when there is none, pass ``"cpu"`` for the CPU).
     """
 
     def __init__(
@@ -84,7 +85,7 @@ class ChainArray:
         fused="auto",
         mesh=None,
         seed=None,
-        device="cpu",
+        device="cuda",
     ):
         require_ported(kind)
         if mesh is not None:
@@ -95,7 +96,7 @@ class ChainArray:
         starts = np.atleast_2d(np.asarray(starts, dtype=float))
         self.n_chains, self.n_parameters = starts.shape
         self.kind = kind
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "ChainArray")
 
         dtype = default_float()
         if isinstance(posterior, nn.Module):

@@ -1,3 +1,4 @@
+from .device import resolve_device
 from .dtypes import default_float
 from .random import make_generator
 from .wrap import as_device_logp
@@ -5,6 +6,7 @@ from .ess import effective_sample_size, effective_sample_size_batched
 from .diagnostics import split_rhat, rank_normalized_rhat
 
 __all__ = [
+    "resolve_device",
     "default_float",
     "make_generator",
     "as_device_logp",

@@ -89,7 +89,7 @@ def test_set_inverse_mass_and_warmup_rebuild_the_plan():
     form = GaussianForm(torch.as_tensor(np.diag([1.0, 1 / 16.0])))
     starts = np.random.default_rng(3).normal(0, 0.3, (64, 2))
     ca = ChainArray("hmc", form, starts, steps=10, epsilon=0.3, retry=False,
-                    fused=True, seed=3)
+                    fused=True, seed=3, device="cpu")
     ca.set_inverse_mass(4.0)
     assert ca._fused_plan.inv_mass_diag == (4.0, 4.0)
     ca.warmup(n_steps=60, n_windows=2)
@@ -104,7 +104,7 @@ def test_set_inverse_mass_and_warmup_rebuild_the_plan():
 
 def test_history_accessors_and_thinning():
     ca = ChainArray("hmc", GaussianForm(torch.eye(3)), np.zeros((8, 3)) + 0.1,
-                    retry=False, fused=True, seed=0, steps=5)
+                    retry=False, fused=True, seed=0, steps=5, device="cpu")
     ca.advance(6, store=True, thin=2)
     ca.advance(4, store=False)
     assert ca.get_sample().shape == (3 * 8, 3)
@@ -119,11 +119,11 @@ def test_unported_options_raise():
     starts = np.zeros((4, 2))
     for kind in ("nuts", "gibbs", "metropolis", "pca", "ensemble"):
         with pytest.raises(ValueError, match="ROADMAP queue A12"):
-            ChainArray(kind, form, starts)
+            ChainArray(kind, form, starts, device="cpu")
     with pytest.raises(ValueError, match="unknown"):
-        ChainArray("slice", form, starts)
+        ChainArray("slice", form, starts, device="cpu")
     with pytest.raises(ValueError, match="A13"):
-        ChainArray("hmc", form, starts, mesh=object())
+        ChainArray("hmc", form, starts, mesh=object(), device="cpu")
 
 
 # --------------------------------------------------------------------- #
@@ -143,7 +143,7 @@ def test_jax_checkpoint_restores_into_port(float64, tmp_path):
     theirs.save(str(tmp_path / "jax.npz"))
 
     ours = ChainArray("hmc", GaussianForm(torch.as_tensor(icov)), starts, steps=8,
-                      retry=False, fused=True, seed=2)
+                      retry=False, fused=True, seed=2, device="cpu")
     ours.restore(str(tmp_path / "jax.npz"))
     st = theirs._state
     np.testing.assert_array_equal(ours.theta, np.asarray(st.theta))
@@ -165,7 +165,7 @@ def test_port_checkpoint_restores_into_jax(port_float64, tmp_path):
     torch.set_default_dtype(torch.float64 if port_float64 else torch.float32)
     try:
         ours = ChainArray("hmc", GaussianForm(torch.as_tensor(icov)), starts, steps=8,
-                          epsilon=0.3, retry=False, fused=True, seed=3)
+                          epsilon=0.3, retry=False, fused=True, seed=3, device="cpu")
         ours.advance(20, store=False)
         ours.save(str(tmp_path / "port.npz"))
     finally:
@@ -184,9 +184,9 @@ def test_port_checkpoint_restores_into_jax(port_float64, tmp_path):
 
 
 def test_restore_rejects_mismatched_checkpoint(tmp_path):
-    ca = ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), retry=False)
+    ca = ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), retry=False, device="cpu")
     ca.save(str(tmp_path / "a.npz"))
-    other = ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((5, 2)), retry=False)
+    other = ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((5, 2)), retry=False, device="cpu")
     with pytest.raises(ValueError, match="n_chains"):
         other.restore(str(tmp_path / "a.npz"))
 
@@ -237,7 +237,7 @@ def test_ess_batched_matches_jax_exactly(n):
 
 def test_chain_array_diagnostics_match_jax_functions():
     ca = ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((16, 2)) + 0.2,
-                    retry=False, fused=True, steps=6, seed=5)
+                    retry=False, fused=True, steps=6, seed=5, device="cpu")
     ca.advance(60, store=True)
     h = np.concatenate(ca._history)[10:].astype(np.float64)
     np.testing.assert_array_equal(
@@ -250,7 +250,7 @@ def test_chain_array_diagnostics_match_jax_functions():
     np.testing.assert_allclose(ca.rhat(burn=10, rank_normalized=False),
                                np.asarray(jax_diag.split_rhat(series)), rtol=1e-5)
     with pytest.raises(ValueError, match="no stored history"):
-        ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2))).rhat()
+        ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), device="cpu").rhat()
 
 
 def _rhat_input(seed):

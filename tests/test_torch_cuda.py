@@ -217,7 +217,7 @@ def test_gp_regressor_on_card_matches_cpu(cuda):
     theta = np.array([0.0, 0.0, 0.5, 0.5])
     kw = dict(y_err=np.full(2100, 0.1), hyperpars=theta, dtype=torch.float64)
     on_card = GpRegressor(x, y, device=cuda, **kw)
-    on_cpu = GpRegressor(x, y, **kw)
+    on_cpu = GpRegressor(x, y, **kw, device="cpu")
     before = pairwise.KERNEL_LAUNCHES
     v1, g1 = on_card.marginal_likelihood_gradient(theta)
     assert pairwise.KERNEL_LAUNCHES > before

@@ -63,7 +63,7 @@ def pair(cholesky="auto", jax_cholesky=None, **kw):
     kw.setdefault("y_err", err)
     jg = jgp.GpRegressor(x, y, hyperpars=kw.pop("hyperpars", THETA),
                          cholesky=jax_cholesky or cholesky, **kw)
-    return jg, gp_regressor_from_state(gp_state_of(jg), cholesky=cholesky, dtype=torch.float64)
+    return jg, gp_regressor_from_state(gp_state_of(jg), cholesky=cholesky, dtype=torch.float64, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -146,7 +146,7 @@ def test_other_kernels_and_means_match_jax(name):
         0.3, 0.7, len(bounds))
     jg = jgp.GpRegressor(x, y, y_err=err, hyperpars=theta, kernel=make_kernel(jgp),
                          mean=getattr(jgp, mean))
-    tg = gp_regressor_from_state(gp_state_of(jg))
+    tg = gp_regressor_from_state(gp_state_of(jg), device="cpu")
     assert type(tg.cov).__name__ == type(jg.cov).__name__
     v, g = tg.marginal_likelihood_gradient(theta)
     vj, gj = jg.marginal_likelihood_gradient(theta)
@@ -175,7 +175,7 @@ def test_through_b2_plain_version_at_n2100(monkeypatch):
     x, y, err = make_data(n=2100)
     theta = np.array([0.0, 0.0, 0.5, 0.5])
     jg = jgp.GpRegressor(x, y, y_err=err, hyperpars=theta)
-    tg = gp_regressor_from_state(gp_state_of(jg))
+    tg = gp_regressor_from_state(gp_state_of(jg), device="cpu")
     blocks = []
     plain = pairwise._sqexp_block
     monkeypatch.setattr(pairwise, "_sqexp_block", lambda *a: blocks.append(1) or plain(*a))
@@ -217,7 +217,7 @@ def test_fit_bfgs_and_options():
     optimizer="device" raises naming its ROADMAP item; an unknown
     optimizer warns and falls back to "bfgs"."""
     x, y, err = make_data(n=30)
-    tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA)
+    tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, device="cpu")
     lwr, upr = (np.array([b[i] for b in tg.hp_bounds]) for i in (0, 1))
     theta = tg.fit(optimizer="bfgs", n_starts=2)
     assert tg.marginal_likelihood(theta) >= tg.marginal_likelihood(0.5 * (lwr + upr))
@@ -226,18 +226,18 @@ def test_fit_bfgs_and_options():
     with pytest.warns(UserWarning):
         tg.fit(optimizer="nonsense", n_starts=1)
     with pytest.raises(ValueError):
-        tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, cholesky="lu")
+        tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, cholesky="lu", device="cpu")
 
 
 def test_fit_diffev_and_fit_at_construction():
     """fit("diffev") beats the start centre too, and a model built without
     hyperparameters fits itself and sets the result."""
     x, y, err = make_data(n=20)
-    tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA)
+    tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, device="cpu")
     lwr, upr = (np.array([b[i] for b in tg.hp_bounds]) for i in (0, 1))
     centre = tg.marginal_likelihood(0.5 * (lwr + upr))
     assert tg.marginal_likelihood(tg.fit(optimizer="diffev")) >= centre
-    fitted = tgp.GpRegressor(x, y, y_err=err, n_starts=1, dtype=torch.float64)
+    fitted = tgp.GpRegressor(x, y, y_err=err, n_starts=1, dtype=torch.float64, device="cpu")
     assert fitted.hyperpars.shape == (4,)
     assert tg.marginal_likelihood(fitted.hyperpars) >= centre
 
@@ -247,7 +247,7 @@ def test_update_data_and_stale_state_match_jax():
     is set again; after it both packages agree on the new data."""
     x, y, err = make_data(n=50)
     jg = jgp.GpRegressor(x[:40], y[:40], y_err=err[:40], hyperpars=THETA, pad_to=32)
-    tg = gp_regressor_from_state(gp_state_of(jg))
+    tg = gp_regressor_from_state(gp_state_of(jg), device="cpu")
     for model in (jg, tg):
         model.update_data(x, y, y_err=err, set_state=False)
     with pytest.raises(RuntimeError, match="stale"):
@@ -275,7 +275,7 @@ def test_linear_inverter_matches_jax():
     package's."""
     problem = _inverter_problem()
     jinv = jgp.GpLinearInverter(*problem)
-    tinv = tgp.GpLinearInverter(*problem)
+    tinv = tgp.GpLinearInverter(*problem, device="cpu")
     theta = np.array([0.1, -0.5, 0.3])
     for port, ref in zip(tinv.calculate_posterior(theta), jinv.calculate_posterior(theta)):
         close(port, ref)

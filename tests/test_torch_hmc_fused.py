@@ -268,18 +268,18 @@ def test_fused_gating():
     starts = np.zeros((8, 2)) + 0.1
 
     with pytest.raises(ValueError, match="retry"):
-        ChainArray("hmc", form, starts, retry=True, fused=True)
+        ChainArray("hmc", form, starts, retry=True, fused=True, device="cpu")
     with pytest.raises(ValueError, match="full-matrix"):
-        ChainArray("hmc", form, starts, retry=False, fused=True, inverse_mass=np.eye(2))
+        ChainArray("hmc", form, starts, retry=False, fused=True, inverse_mass=np.eye(2), device="cpu")
     with pytest.raises(ValueError, match="A12"):
-        ChainArray("gibbs", form, starts, fused=True)
+        ChainArray("gibbs", form, starts, fused=True, device="cpu")
     with pytest.raises(ValueError, match="GaussianForm"):
-        ChainArray("hmc", lambda t: -0.5 * (t * t).sum(), starts, retry=False, fused=True)
+        ChainArray("hmc", lambda t: -0.5 * (t * t).sum(), starts, retry=False, fused=True, device="cpu")
     with pytest.raises(ValueError, match="at most 64"):
         ChainArray("hmc", GaussianForm(torch.eye(65)), np.zeros((4, 65)),
-                   retry=False, fused=True)
+                   retry=False, fused=True, device="cpu")
 
-    ca = ChainArray("hmc", form, starts, retry=False, fused="auto")
+    ca = ChainArray("hmc", form, starts, retry=False, fused="auto", device="cpu")
     assert ca._fused_plan is None
     ca.advance(3, store=True)
     assert ca.get_sample().shape == (24, 2)
@@ -287,7 +287,7 @@ def test_fused_gating():
 
 def test_fused_set_inverse_mass_rebuilds_plan():
     form = GaussianForm(torch.eye(2))
-    ca = ChainArray("hmc", form, np.zeros((16, 2)) + 0.1, retry=False, fused=True, seed=0)
+    ca = ChainArray("hmc", form, np.zeros((16, 2)) + 0.1, retry=False, fused=True, seed=0, device="cpu")
     assert ca._fused_plan.inv_mass_diag is None
     ca.set_inverse_mass(np.array([1.0, 4.0]))
     assert ca._fused_plan.inv_mass_diag == (1.0, 4.0)

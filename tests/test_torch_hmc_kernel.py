@@ -145,7 +145,7 @@ def _sample(inverse_mass=None, retry=False, n=300, K=96, seed=7, cov=COV, eps=0.
     form = GaussianForm(torch.as_tensor(np.linalg.inv(cov)))
     starts = np.random.default_rng(seed).normal(0, 0.3, (K, cov.shape[0])) * np.sqrt(np.diag(cov))
     ca = ChainArray("hmc", form, starts, steps=12, epsilon=eps, retry=retry,
-                    inverse_mass=inverse_mass, seed=seed)
+                    inverse_mass=inverse_mass, seed=seed, device="cpu")
     ca.advance(n, store=True)
     return ca, ca.get_sample(burn=100)
 
@@ -197,4 +197,4 @@ def test_retry_rejects_injected_draws():
 
 def test_bounds_not_ported():
     with pytest.raises(NotImplementedError, match="A7"):
-        ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), bounds=object())
+        ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), bounds=object(), device="cpu")
