@@ -1,5 +1,6 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
-(kernel B1) and dense GP regression (kernel B2).
+(kernel B1), dense GP regression (kernel B2) and the matrix-free
+small-noise GP (kernels B3-B6).
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit:
@@ -10,9 +11,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
 
 1. device: a CUDA device is required; prints its name, the device count
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles kernels B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``)
-   and B2 (``.../sqexp.cu``) with nvcc, one process each, started together;
-   times each build and prints the ``-Xptxas -v`` registers and spills;
+2. build: compiles kernels B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``),
+   B2 (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5
+   (``.../sqexp_entries.cu``) and B6 (``.../sqexp_stored.cu``) with nvcc, one
+   process each, started together; times each build and prints the
+   ``-Xptxas -v`` registers and spills;
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition; (b) the same with
    64 transitions and the history; (c) P=32, diagonal mass, inv_temp 0.5,
@@ -27,7 +30,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    float64 and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged
    float64 case (3,001 x 2,500, D=5), and the autograd backward against
    autograd of the plain version at N=4,096; then both timed at
-   16,384 x 16,384 in each dtype;
+   16,384 x 16,384 in each dtype, beside ``torch.cdist`` and the exp;
 7. GP main path (gp-16k): ``GpRegressor`` on ``benchmarks/gp_lml_bench.py``'s
    data and hyperparameters at N=16,384 in float64: LML+gradient
    evaluations per second and peak memory, the B2 launch count, the LML
@@ -37,13 +40,35 @@ Phases, each of which raises on failure (so the script exits non-zero):
    with ``cholesky="analytic"``; one float32 evaluation;
 8. GP fit and prediction at N=4,096 in float64: ``fit(optimizer="bfgs",
    n_starts=2)``, then ``__call__`` at 4,096 points against the plain
-   route (1e-10).
+   route (1e-10);
+9. kernels B3-B6 against their plain versions at full width, n = 53,248
+   (gp-large-50k's padded data): B5 equal bit for bit, row block by row
+   block; B3, B4 (q = 1, 8) and B6 (q = 1, 2, 8) within 1e-13 of
+   sum_j |E_ij| |V_jk|; B6 against B4 on the same V; then each timed with
+   CUDA events beside its plain version, B6 beside ``torch.matmul``;
+10. matrix-free GP main path (gp-large-50k): ``LargeScaleGP(solver="df64")``
+    on ``benchmarks/df64_solve_bench.py``'s data at N=50,000 (sigma=0.01,
+    rank 512, block 4096, cg_tol 1e-9) with ``store_entries="auto"`` (B5,
+    then B6 in every iteration) and ``False`` (B3 in every iteration):
+    cold constructor and warm solve, chunks and iterations, the FP64
+    residual by the port's kernel and by an independent plain route
+    (<= 1e-9), 256 means and 16 variances (B6 or B4 with q = 8), peak
+    memory, launches per kernel, and a ``torch.profiler`` breakdown of one
+    warm solve;
+11. gp-large-16k: the same at N=16,384 against a dense FP64 Cholesky on
+    the card: the training solve, means (1e-6) and variances (1e-9) at 16
+    points.
 
-The second-to-last lines are a JSON object describing the kernels and the
-``nvidia-smi`` line; the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last lines are a JSON object describing the kernels (each
+with its bound, plain version and library call) and the ``nvidia-smi``
+line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -52,9 +77,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from inference_tpu_torch.gp import GpRegressor
+from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import _build, hmc_fused, pairwise
+from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -63,6 +88,25 @@ N_CHAINS = 65_536
 HMC_STEPS = 50
 RTOL, ATOL = 1e-4, 1e-5  # per-chain kernel-vs-plain tolerance in float32
 MIN_AGREE = 0.999        # share of chains that must agree
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
+# device memory, float32 outside the tensor cores, float64 outside the
+# tensor cores (the data sheet gives 34 TFLOP/s for float64; 132 SMs x 64
+# FP64 lanes x 2 x 1.98 GHz = 33.5).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+FP64_FLOPS = 33.5e12
+# FP64 flops of one double exp as CUDA 12.8 compiles it, an FMA counted as
+# two: 14 DFMA, 3 DADD and 1 DMUL per entry beyond the distance, read off
+# the SASS of B5's d = 2 kernel (the build phase prints that mix)
+EXP_FLOPS = 32
+
+
+def bound(n_bytes, flops, peak_flops):
+    """The least time (ms) for the work, and what bounds it: bytes over the
+    memory rate or operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def make_cov():
@@ -86,7 +130,8 @@ def phase_device():
     return name, smi
 
 
-KERNELS = {"hmc_fused": "B1", "sqexp": "B2"}
+KERNELS = {"hmc_fused": "B1", "sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5",
+           "sqexp_stored": "B6"}
 
 
 def _timed_build(name):
@@ -109,6 +154,22 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"[build] {line.strip()}")
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+    _print_fp64_mix()
+
+
+def _print_fp64_mix():
+    """The FP64 instruction mix of B5's d = 2 kernel per entry (its unrolled
+    body writes 8 entries), from cuobjdump where the toolkit has it: the
+    basis of EXP_FLOPS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[build] cuobjdump not found; FP64 instruction mix not read")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("sqexp_entries"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    body = sass.split("sqexp_entries_kernelILi2EE")[1].split("Function :")[0]
+    mix = {op: len(re.findall(rf"\b{op}\b", body)) / 8 for op in ("DFMA", "DADD", "DMUL")}
+    print(f"[build] B5 (d = 2) SASS, FP64 instructions per entry: {mix}")
 
 
 def _random_state(P, K, seed, inv_temp):
@@ -262,10 +323,27 @@ def _time_chunk():
     ms = timed(hmc_fused._launch_chunk, 10)
     plain_ms_2 = timed(hmc_fused._reference_chunk, 2)
     ms_2 = timed(hmc_fused._launch_chunk, 10)
+    bound_ms, bound_by = _b1_bound(us)
     print(f"[time] one chunk (64 transitions, K={N_CHAINS}, P={N_DIM}): kernel "
           f"{ms:.3f} / {ms_2:.3f} ms, plain version {plain_ms:.3f} / "
-          f"{plain_ms_2:.3f} ms (plain, kernel, plain, kernel)")
-    return min(ms, ms_2), min(plain_ms, plain_ms_2)
+          f"{plain_ms_2:.3f} ms (plain, kernel, plain, kernel); bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return min(ms, ms_2), min(plain_ms, plain_ms_2), bound_ms, bound_by
+
+
+def _b1_bound(us, P=N_DIM, steps=HMC_STEPS):
+    """Kernel B1's bound for one chunk with these step-count draws. Per
+    transition: the jittered step count n (the kernel's own rule); each
+    leapfrog step a drift (3P), a centring (P) and a kick of 2P^2 + 4P
+    flops; the first half kick 2P^2 + 5P, the momentum draw 4P, the final
+    kinetic energy 3P and some 30 flops of energies and adaptation. Bytes:
+    the normals and uniforms read once, the state read and written once."""
+    chunk, K = us.shape
+    n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
+    n = n.clamp(min=1, max=max(int(steps * 1.1), 1))
+    flops = float(n.sum()) * (2 * P * P + 8 * P) + chunk * K * (2 * P * P + 12 * P + 30)
+    n_bytes = 4 * chunk * K * (P + 2) + 2 * 4 * K * (P + 7)
+    return bound(n_bytes, flops, FP32_FLOPS)
 
 
 def phase_main_path():
@@ -424,9 +502,18 @@ def _time_events(fn, args, reps):
     return start.elapsed_time(end) / reps
 
 
+def _cdist_exp(u, v, amplitude, lengthscales):
+    """The nearest library yardstick of B2: ``torch.cdist`` of the scaled
+    rows, then the square, scale, exp and amplitude as in-place passes (no
+    single PyTorch call computes the squared exponential)."""
+    us, vs = pairwise._scaled(u, v, lengthscales)
+    return torch.cdist(us, vs).square_().mul_(-0.5).exp_().mul_(amplitude**2)
+
+
 def phase_b2_timing(x16k):
     """CUDA-event times of B2 and its plain version at 16,384 x 16,384, in
-    turns (plain, kernel, plain, kernel)."""
+    turns (plain, kernel, plain, kernel), beside cdist and the exp. Returns
+    per dtype (kernel ms, plain ms, cdist+exp ms, bound ms, bound by)."""
     times = {}
     for dtype in (F64, torch.float32):
         u, amp, ls = _gp_operands(x16k, dtype)
@@ -435,10 +522,16 @@ def phase_b2_timing(x16k):
         kern = [_time_events(pairwise._launch_sqexp, args, 20)]
         plain.append(_time_events(pairwise._sqexp_reference, args, 3))
         kern.append(_time_events(pairwise._launch_sqexp, args, 20))
+        lib = _time_events(_cdist_exp, args, 5)
+        m, d = u.shape
+        size = u.element_size()
+        b_ms, b_by = bound(size * (m * m + 2 * m * d), m * m * (3 * d + 2 + EXP_FLOPS),
+                           FP64_FLOPS if dtype == F64 else FP32_FLOPS)
         print(f"[time] B2 {str(dtype)[6:]} 16384x16384 D=2: kernel "
               f"{kern[0]:.4f} / {kern[1]:.4f} ms, plain version {plain[0]:.4f} / "
-              f"{plain[1]:.4f} ms (plain, kernel, plain, kernel)")
-        times[dtype] = (min(kern), min(plain))
+              f"{plain[1]:.4f} ms (plain, kernel, plain, kernel); cdist + exp {lib:.4f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        times[dtype] = (min(kern), min(plain), lib, b_ms, b_by)
         del u
         torch.cuda.empty_cache()
     return times
@@ -594,7 +687,286 @@ def _profile_evaluation(gp):
         print(f"[gp profile] {e.device_time_total / 1e3:10.3f} ms  {e.count:3d}x  {e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# kernels B3-B6 and the matrix-free small-noise GP (gp-large-50k, -16k)
+# ---------------------------------------------------------------------------
+
+LARGE_N = 50_000
+LARGE_KW = dict(hyperpars=[0.0, 0.0, 0.0], block_size=4096, preconditioner_rank=512,
+                solver="df64", cg_tol=1e-9, cg_maxiter=3000)
+DF64_TOL = 1e-13  # B3/B4/B6 vs plain, per entry of sum_j |E_ij| |V_jk|
+
+
+def make_large_data(n, seed=0):
+    """``benchmarks/df64_solve_bench.py``'s data: x uniform on [0, 10]^2,
+    y = sin x0 cos x1 + N(0, 0.01^2), y_err = 0.01."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 10, size=(n, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.01, n)
+    return x, y, np.full(n, 0.01)
+
+
+def _padded(x, block=4096):
+    """x padded to a multiple of ``block`` with mean rows, as LargeScaleGP
+    pads it."""
+    extra = -(-len(x) // block) * block - len(x)
+    return np.concatenate([x, np.repeat(x.mean(axis=0, keepdims=True), extra, axis=0)])
+
+
+def _scaled_err(got, ref, scale):
+    """(max abs error, max error over sum_j |E_ij| |V_jk|)."""
+    err = (got - ref).abs()
+    return float(err.max()), float((err / scale).max())
+
+
+def phase_df64_checks(xpad):
+    """Kernels B3-B6 against their plain versions at full width on the
+    same inputs. Returns the max abs errors by kernel and the operands."""
+    n = xpad.shape[0]
+    uh, ul = (torch.as_tensor(a, device=CUDA) for a in df64.split_f64(xpad))
+    us = uh.double() + ul.double()
+    V = torch.as_tensor(np.random.default_rng(9).normal(size=(n, 8)).astype(np.float32),
+                        device=CUDA)
+    errs = {}
+    E = df64.sqexp_entries_df64(uh, ul)
+    mismatches, worst = 0, 0.0
+    for blk in df64._row_blocks(n, n):
+        diff = (E[blk] - df64._entry_block(us[blk], us)).abs()
+        mismatches += int((diff != 0).sum())
+        worst = max(worst, float(diff.max()))
+        del diff
+    errs["B5"] = worst
+    print(f"[check 9a] B5 n={n}: {mismatches} of {n * n} entries differ from the plain "
+          f"version, max abs err {worst:.3e} (bit for bit expected)")
+    if mismatches:
+        raise RuntimeError(f"check 9a: B5 differs from its plain version in {mismatches} entries")
+
+    def held(label, kernel, got, ref, scale):
+        max_abs, rel = _scaled_err(got, ref, scale)
+        errs[kernel] = max(errs.get(kernel, 0.0), max_abs)
+        print(f"[check {label}] max abs err {max_abs:.3e}, max err / sum|E||V| {rel:.3e} "
+              f"(limit {DF64_TOL:g})")
+        if not (rel <= DF64_TOL and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"check {label}: {kernel} disagrees ({rel})")
+
+    fused = {}
+    for q in (1, 2, 8):
+        Vq = V[:, :q].contiguous()
+        scale = df64._stored_reference(E, Vq.abs())
+        got = df64.sqexp_stored_matmat_df64(E, Vq)
+        held(f"9b B6 q={q} vs plain", "B6", got, df64._stored_reference(E, Vq), scale)
+        if q != 2:
+            fused[q] = df64.sqexp_matmat_df64(uh, ul, Vq)
+            held(f"9c B4 q={q} vs plain", "B4", fused[q], df64._fused_reference(us, us, Vq),
+                 scale)
+            held(f"9d B6 vs B4 q={q}", "B6", got, fused[q], scale)
+    scale1 = df64._stored_reference(E, V[:, :1].abs())[:, 0]
+    held("9e B3 vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V[:, 0].contiguous()),
+         df64._fused_reference(us, us, V[:, :1].contiguous())[:, 0], scale1)
+    return errs, (uh, ul, us, V)
+
+
+def _turns(kernel, plain, args, reps_kernel, reps_plain):
+    """CUDA-event ms of a kernel and its plain version in turns (plain,
+    kernel, plain, kernel); returns the two lists."""
+    p = [_time_events(plain, args, reps_plain)]
+    k = [_time_events(kernel, args, reps_kernel)]
+    p.append(_time_events(plain, args, reps_plain))
+    k.append(_time_events(kernel, args, reps_kernel))
+    return k, p
+
+
+def phase_df64_timing(operands):
+    """B3, B4 (q = 8), B5 and B6 (q = 1, 8) at full width with CUDA events,
+    each beside its plain version and its bound; B6 beside torch.matmul, B5
+    beside cdist and the exp. Returns {kernel: row of the JSON line}."""
+    uh, ul, us, V = operands
+    n, d = us.shape
+    n2 = float(n) * n
+    entry = 3 * d + 1 + EXP_FLOPS
+    V1, V8 = V[:, :1].contiguous(), V
+    rows = {}
+
+    def report(kernel, label, k, p, b, lib=None):
+        lib_txt = "" if lib is None else f", library {lib:.4f} ms"
+        print(f"[time] {kernel} {label}: kernel {k[0]:.4f} / {k[1]:.4f} ms, plain "
+              f"{p[0]:.4f} / {p[1]:.4f} ms{lib_txt}, bound {b[0]:.4f} ms ({b[1]}), "
+              f"kernel / bound {min(k) / b[0]:.2f}")
+        return {"ms": min(k), "plain_ms": min(p), "bound_ms": b[0], "bound_by": b[1],
+                "library_ms": lib}
+
+    k, p = _turns(lambda v: df64.sqexp_matvec_df64(uh, ul, v),
+                  lambda v: df64._fused_reference(us, us, v[:, None]), (V1[:, 0],), 10, 1)
+    rows["B3"] = report("B3", f"n={n}", k, p, bound(8 * n * d + 12 * n, n2 * (entry + 2),
+                                                     FP64_FLOPS))
+    k, p = _turns(lambda v: df64.sqexp_matmat_df64(uh, ul, v),
+                  lambda v: df64._fused_reference(us, us, v), (V8,), 10, 1)
+    rows["B4"] = report("B4", f"n={n} q=8", k, p, bound(8 * n * d + 12 * n * 8,
+                                                        n2 * (entry + 16), FP64_FLOPS))
+    k, p = _turns(lambda: df64.sqexp_entries_df64(uh, ul), lambda: df64._entries_reference(us),
+                  (), 5, 1)
+    ones = torch.ones((), dtype=torch.float64, device=CUDA)
+    lib = _time_events(_cdist_exp, (us, us, ones, torch.ones(d, dtype=torch.float64,
+                                                                device=CUDA)), 2)
+    row = report("B5", f"n={n} (cdist + exp {lib:.4f} ms)", k, p,
+                 bound(8 * n2 + 8 * n * d, n2 * entry, FP64_FLOPS))
+    rows["B5"] = {**row, "cdist_exp_ms": lib}
+    torch.cuda.empty_cache()
+    E = df64.sqexp_entries_df64(uh, ul)
+    for q, Vq in ((1, V1), (8, V8)):
+        k, p = _turns(lambda v: df64.sqexp_stored_matmat_df64(E, v),
+                      lambda v: df64._stored_reference(E, v), (Vq,), 10, 3)
+        V64 = Vq.double()
+        lib = _time_events(torch.matmul, (E, V64), 10)
+        rows[f"B6 q={q}"] = report("B6", f"n={n} q={q}", k, p,
+                                   bound(8 * n2 + 12 * n * q, 2 * q * n2, FP64_FLOPS), lib)
+    return rows
+
+
+def _plain_residual(gp):
+    """The FP64 relative residual of gp's training solve by an independent
+    plain route: K alpha from B2's plain version (exact differences) in row
+    blocks and torch matmuls, never kernels B3-B6."""
+    t = lambda a: torch.as_tensor(a, dtype=F64, device=CUDA)
+    xs, alpha, mask = t(gp._x_host), t(gp.alpha64), t(gp._mask)
+    amp, ls = t(np.exp(gp.hyperpars[0])), t(np.exp(gp.hyperpars[1:]))
+    Ka = torch.cat([pairwise._sqexp_reference(xs[blk], xs, amp, ls) @ alpha
+                    for blk in df64._row_blocks(xs.shape[0], xs.shape[0])])
+    diag = t(gp._sig_host + np.exp(2 * gp.hyperpars[0]) * 1e-12)
+    b = t((gp._y_host - gp.mean_value) * gp._mask)
+    return float(((b - Ka - diag * alpha) * mask).norm() / b.norm())
+
+
+def _profile_solve(gp):
+    """torch.profiler over one warm training solve: device idle share and
+    the top kernels by device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        gp._solve_alpha()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[large profile] one warm solve: {wall:.3f} ms wall, {device:.3f} ms of device "
+          f"kernels (device idle {100 * (1 - device / wall):.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[large profile] {e.self_device_time_total / 1e3:10.3f} ms  {e.count:5d}x  "
+              f"{e.key[:90]}")
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2**30
+
+
+def _large_run(label, x, y, err, q, store, profile):
+    """One LargeScaleGP(solver="df64") instance on the card: cold
+    constructor + solve, a warm solve, residuals, predictions."""
+    print(f"[{label}] device memory allocated before the run: {_free():.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp = LargeScaleGP(x, y, err, store_entries=store, device=CUDA, **LARGE_KW)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    solver = gp._df64_solver._multi
+    chunks = solver.chunks_run
+    t0 = time.perf_counter()
+    gp._solve_alpha()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    warm_chunks = solver.chunks_run - chunks
+    res_kernel = gp.residual_norm_f64()
+    res_plain = _plain_residual(gp)
+    t0 = time.perf_counter()
+    mu = gp(q)
+    mu16, sd16 = gp(q[:16], with_variance=True)
+    torch.cuda.synchronize()
+    pred = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{label}] store_entries={store!r} (tier {gp._tier}): cold constructor + solve "
+          f"{cold:.3f} s, warm solve {warm:.3f} s ({warm_chunks} chunks of "
+          f"{solver.restart_every} iterations), FP64 relative residual {res_kernel:.3e} by the "
+          f"tier's kernel, {res_plain:.3e} by the plain route; 256 means + 16 variances "
+          f"{pred:.3f} s; peak device memory {peak:.2f} GiB")
+    if not (res_plain <= 1e-9 and abs(res_kernel - res_plain) <= 1e-10):
+        raise RuntimeError(f"{label}: residual {res_plain} (kernel {res_kernel}), limit 1e-9")
+    if not (np.isfinite(mu).all() and mu.shape == (len(q),) and np.isfinite(sd16).all()
+            and np.abs(mu16 - mu[:16]).max() <= 1e-9):
+        raise RuntimeError(f"{label}: bad predictions")
+    if profile:
+        _profile_solve(gp)
+    return gp, {"cold_s": cold, "warm_s": warm, "warm_chunks": warm_chunks,
+                "residual": res_plain, "peak_gib": peak, "mu": mu, "sd16": sd16}
+
+
+def phase_large_main():
+    """gp-large-50k: LargeScaleGP(solver="df64") at N=50,000 on the card,
+    with the FP64 entry store and with the fused kernel."""
+    x, y, err = make_large_data(LARGE_N)
+    q = np.random.default_rng(1).uniform(0, 10, (256, 2))
+    for k in df64.KERNEL_LAUNCHES:
+        df64.KERNEL_LAUNCHES[k] = 0
+    gp, auto = _large_run("gp-large-50k", x, y, err, q, "auto", profile=True)
+    del gp
+    after_auto = dict(df64.KERNEL_LAUNCHES)
+    gp, fused = _large_run("gp-large-50k", x, y, err, q, False, profile=False)
+    del gp
+    _free()
+    launches = dict(df64.KERNEL_LAUNCHES)
+    print(f"[gp-large-50k] kernel launches: 'auto' {after_auto}, both runs {launches}")
+    gap = max(np.abs(auto["mu"] - fused["mu"]).max(), np.abs(auto["sd16"] - fused["sd16"]).max())
+    print(f"[gp-large-50k] 'auto' against False: max difference of means and sds {gap:.3e}; "
+          f"warm solve {auto['warm_s']:.3f} s stored vs {fused['warm_s']:.3f} s fused")
+    if not (after_auto["B5"] and after_auto["B6"] and launches["B3"] and launches["B4"]):
+        raise RuntimeError(f"the main path skipped a kernel: {launches}")
+    if not gap <= 1e-7:
+        raise RuntimeError(f"the two tiers disagree by {gap}")
+    return launches, auto, fused
+
+
+def phase_large_16k():
+    """gp-large-16k: LargeScaleGP(solver="df64") at N=16,384 against a
+    dense FP64 Cholesky on the card: training solve, means and variances at
+    16 points."""
+    n = 16_384
+    x, y, err = make_large_data(n)
+    q = np.random.default_rng(2).uniform(0, 10, (16, 2))
+    t0 = time.perf_counter()
+    gp = LargeScaleGP(x, y, err, device=CUDA, **LARGE_KW)
+    mu, sd = gp(q, with_variance=True)
+    seconds = time.perf_counter() - t0
+    xs, qs = (torch.as_tensor(a, dtype=F64, device=CUDA) for a in (x, q))
+    one, ls = torch.ones((), dtype=F64, device=CUDA), torch.ones(2, dtype=F64, device=CUDA)
+    K = pairwise._sqexp_reference(xs, xs, one, ls)
+    K.diagonal().add_(torch.as_tensor(err**2 + 1e-12, dtype=F64, device=CUDA))
+    L = torch.linalg.cholesky(K)
+    del K
+    r = torch.as_tensor(y - gp.mean_value, dtype=F64, device=CUDA)
+    alpha = torch.cholesky_solve(r[:, None], L)[:, 0]
+    Kq = pairwise._sqexp_reference(qs, xs, one, ls)
+    mu_ref = (Kq @ alpha).cpu().numpy() + gp.mean_value
+    v = torch.linalg.solve_triangular(L, Kq.T, upper=False)
+    var_ref = (1.0 - (v * v).sum(dim=0)).cpu().numpy()
+    d_alpha = float(np.abs(gp.alpha64 - alpha.cpu().numpy()).max() / alpha.abs().max())
+    d_mu = float(np.abs(mu - mu_ref).max())
+    d_var = float(np.abs(sd**2 - var_ref).max())
+    print(f"[gp-large-16k] N={n}: constructor + 16 means and variances {seconds:.3f} s; against "
+          f"the dense FP64 Cholesky: alpha max diff / max |alpha| {d_alpha:.3e}, means "
+          f"{d_mu:.3e} (limit 1e-6), variances {d_var:.3e} (limit 1e-9; truth "
+          f"{var_ref.min():.3e} to {var_ref.max():.3e})")
+    if not (d_mu <= 1e-6 and d_var <= 1e-9):
+        raise RuntimeError(f"gp-large-16k disagrees with the dense truth ({d_mu}, {d_var})")
+    del gp, L
+    torch.cuda.empty_cache()
+
+
 def main():
+    t_start = time.perf_counter()
     name, smi = phase_device()
     torch.set_default_dtype(torch.float32)
     phase_build()
@@ -602,7 +974,7 @@ def main():
     _compare("3b", N_DIM, N_CHAINS, 64, True, 1.0, None, 12)
     im = np.random.default_rng(5).uniform(0.5, 2.0, 32)
     _compare("3c", 32, 4096, 1, False, 0.5, im, 13)
-    ms, plain_ms = _time_chunk()
+    ms, plain_ms, b1_bound, b1_by = _time_chunk()
     launches, attempts, accept = phase_main_path()
     plain_attempts = phase_plain_path()
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
@@ -615,7 +987,33 @@ def main():
     phase_gp_fit_predict()
     print(f"[summary] gp-16k float64 LML+grad evals/s: {evals:.4f} (cholesky='auto'), "
           f"{evals_a:.4f} (cholesky='analytic')")
+    print(f"[summary] HMC and dense GP phases done at {time.perf_counter() - t_start:.1f} s")
 
+    print(f"[summary] device memory allocated after those phases: {_free():.2f} GiB")
+    xpad = _padded(make_large_data(LARGE_N)[0])
+    df64_err, operands = phase_df64_checks(xpad)
+    df64_ms = phase_df64_timing(operands)
+    del operands
+    large_launches, auto, fused = phase_large_main()
+    phase_large_16k()
+    print(f"[summary] gp-large-50k warm solve: {auto['warm_s']:.3f} s with the FP64 store "
+          f"(B6), {fused['warm_s']:.3f} s fused (B3); all phases done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    df64_rows = []
+    for kernel, fn, src, line in (
+        ("B3", "sqexp_fused_kernel (q = 1)", "sqexp_fused.cu", 472),
+        ("B4", "sqexp_fused_kernel", "sqexp_fused.cu", 591),
+        ("B5", "sqexp_entries_kernel", "sqexp_entries.cu", 828),
+        ("B6", "sqexp_stored_kernel", "sqexp_stored.cu", 971),
+    ):
+        timing = df64_ms["B6 q=1" if kernel == "B6" else kernel]
+        row = {"name": fn, "route": "cuda", "source": f"inference_tpu_torch/ops/csrc/{src}",
+               "replaces": f"inference_tpu/ops/df64.py:{line}",
+               "launches": large_launches[kernel], "max_abs_err": df64_err[kernel], **timing}
+        if kernel == "B6":
+            row["q8"] = df64_ms["B6 q=8"]
+        df64_rows.append(row)
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",
         "route": "cuda",
@@ -625,6 +1023,9 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": b1_bound,
+        "bound_by": b1_by,
+        "library_ms": None,
     }, {
         "name": "sqexp_tile_kernel",
         "route": "cuda",
@@ -634,12 +1035,17 @@ def main():
         "max_abs_err": b2_err[F64][0],
         "ms": b2_ms[F64][0],
         "plain_ms": b2_ms[F64][1],
+        "bound_ms": b2_ms[F64][3],
+        "bound_by": b2_ms[F64][4],
+        "library_ms": None,
+        "cdist_exp_ms": b2_ms[F64][2],
         "per_dtype": {
             str(dt)[6:]: {"max_abs_err": b2_err[dt][0], "max_rel_err": b2_err[dt][1],
-                          "ms": b2_ms[dt][0], "plain_ms": b2_ms[dt][1]}
+                          "ms": b2_ms[dt][0], "plain_ms": b2_ms[dt][1],
+                          "cdist_exp_ms": b2_ms[dt][2], "bound_ms": b2_ms[dt][3]}
             for dt in (F64, torch.float32)
         },
-    }]}))
+    }, *df64_rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

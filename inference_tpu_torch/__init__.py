@@ -5,7 +5,10 @@ its batched-HMC path (``parallel.ChainArray`` for the "hmc" kind, with the
 fused whole-trajectory kernel ``ops.hmc_fused`` written in CUDA C++) and
 its dense Gaussian-process path (``gp.GpRegressor``, ``gp.GpLinearInverter``,
 with the squared-exponential covariance kernel ``ops.pairwise`` in CUDA
-C++). It imports torch, numpy and scipy, never jax.
+C++) and the matrix-free small-noise GP (``gp.LargeScaleGP(solver="df64")``,
+with the FP64 kernels of ``ops.df64`` in CUDA C++). Its entry points run on
+the card unless the caller passes ``device="cpu"``. It imports torch, numpy
+and scipy, never jax.
 """
 
 __version__ = "0.1.0"

@@ -14,6 +14,9 @@ hyperparameters, ``pad_to`` as numpy values, and its kernel and mean as
 class names (a kernel spec nests for ``CompositeCovariance`` and
 ``ChangePoint``). ``gp_state_of`` reads that state off a JAX model by its
 attributes; ``gp_regressor_from_state`` builds the port's model from it.
+A solved ``LargeScaleGP(solver="df64")`` crosses the same way
+(``large_scale_state_of``, ``large_scale_gp_from_state``), with its
+training solve and preconditioner factor, so it is not solved again.
 """
 
 import numpy as np
@@ -124,4 +127,44 @@ def gp_regressor_from_state(state: dict, device="cuda", dtype=None, cholesky="au
         hyperpars=state["hyperpars"], kernel=_kernel_from_spec(state["kernel"]),
         mean=getattr(_gp, state["mean"]), pad_to=state["pad_to"],
         dtype=dtype, cholesky=cholesky, device=device,
+    )
+
+
+def large_scale_state_of(gp) -> dict:
+    """The state of a JAX ``LargeScaleGP(solver="df64")`` as numpy values:
+    the unpadded x, y and y_err, hyperpars, ``mean_value``,
+    ``block_size``, ``preconditioner_rank``, ``cg_tol``, ``cg_maxiter``,
+    ``store_entries``, the solved ``alpha64`` and the preconditioner factor
+    ``U`` (None without one). It reads attributes only and imports nothing
+    of the JAX package."""
+    n = gp.n_points
+    pc = getattr(gp, "_precond64", None)
+    U = None if pc is None else np.array(pc[0], dtype=np.float64)
+    return {
+        "x": np.asarray(gp._x_host, dtype=np.float64)[:n],
+        "y": np.asarray(gp._y_host, dtype=np.float64)[:n],
+        "y_err": np.sqrt(np.asarray(gp._sig_host, dtype=np.float64)[:n]),
+        "hyperpars": np.asarray(gp.hyperpars, dtype=np.float64),
+        "mean_value": float(gp.mean_value),
+        "block_size": int(gp.block_size),
+        "preconditioner_rank": 0 if U is None else U.shape[1],
+        "cg_tol": float(gp._cg_tol),
+        "cg_maxiter": int(gp._cg_maxiter),
+        "store_entries": gp.store_entries,
+        "alpha64": np.array(gp.alpha64, dtype=np.float64),
+        "U": U,
+    }
+
+
+def large_scale_gp_from_state(state: dict, device="cuda"):
+    """The port's ``LargeScaleGP(solver="df64")`` with the state
+    ``large_scale_state_of`` returns, on ``device`` (default the card): the
+    same data, padding, hyperparameters and settings, with the solved
+    ``alpha64`` and the factor ``U`` taken as they are, so nothing is
+    solved again."""
+    return _gp.LargeScaleGP._from_solved(
+        state["x"], state["y"], state["y_err"], state["hyperpars"], state["alpha64"], state["U"],
+        mean_value=state["mean_value"], block_size=state["block_size"],
+        cg_tol=state["cg_tol"], cg_maxiter=state["cg_maxiter"],
+        store_entries=state["store_entries"], device=device,
     )

@@ -1,7 +1,9 @@
-"""Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu) and B2
-(inference_tpu_torch/ops/csrc/sqexp.cu) on a CUDA device: each against its
+"""Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu), B2
+(inference_tpu_torch/ops/csrc/sqexp.cu) and B3-B6 (ops/csrc/sqexp_fused.cu,
+sqexp_entries.cu, sqexp_stored.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
-checks; the fused ChainArray and the GpRegressor end to end.
+checks; the fused ChainArray, the GpRegressor and the LargeScaleGP end to
+end.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -14,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from inference_tpu_torch.gp import GpRegressor
+from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import hmc_fused, pairwise
+from inference_tpu_torch.ops import df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -34,7 +36,7 @@ def _one_torch_thread():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels B1 and B2 have no CPU form)")
+        pytest.skip("needs a CUDA device (kernels B1-B6 have no CPU form)")
     return torch.device("cuda")
 
 
@@ -227,3 +229,120 @@ def test_gp_regressor_on_card_matches_cpu(cuda):
     q = rng.uniform(0, 10, (2048, 2))
     for a, b in zip(on_card(q), on_cpu(q)):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+
+
+# Kernels B3-B6 against their plain versions on the card. Each entry is
+# formed by the same operations in the same order (--fmad=false), so B5 is
+# equal bit for bit; the products sum over j in another order than the plain
+# version's matmul, so B3, B4 and B6 are held to 1e-13 of sum_j |E_ij| |V_jk|
+# per row and column.
+DF64_ATOL = 1e-13
+
+
+def _df64_inputs(device, n, d, q, seed):
+    rng = np.random.default_rng(seed)
+    uh, ul = df64.split_f64(rng.uniform(0, 12, (n, d)))
+    t = lambda a: torch.as_tensor(a, device=device)
+    return t(uh), t(ul), t(rng.normal(size=(n, q)).astype(np.float32))
+
+
+def _within_scale(got, ref, E_abs_V):
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    assert float(((got - ref).abs() / E_abs_V).max()) <= DF64_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d, q", [(4096, 2, 1), (4096, 2, 8), (4096, 3, 5), (1024, 5, 16)])
+def test_df64_fused_kernel_matches_plain(cuda, n, d, q):
+    """B4 (and B3 for q = 1) against _fused_reference: a ragged q, the
+    templated and the runtime-d paths."""
+    uh, ul, V = _df64_inputs(cuda, n, d, q, seed=n + d + q)
+    us = uh.double() + ul.double()
+    before = dict(df64.KERNEL_LAUNCHES)
+    got = df64.sqexp_matmat_df64(uh, ul, V)
+    ref = df64._fused_reference(us, us, V)
+    scale = df64._fused_reference(us, us, V.abs())
+    torch.cuda.synchronize()
+    assert df64.KERNEL_LAUNCHES["B4"] == before["B4"] + 1
+    _within_scale(got, ref, scale)
+    if q == 1:
+        vec = df64.sqexp_matvec_df64(uh, ul, V[:, 0])
+        torch.cuda.synchronize()
+        assert df64.KERNEL_LAUNCHES["B3"] == before["B3"] + 1
+        _within_scale(vec[:, None], ref, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(4096, 2), (1024, 5)])
+def test_df64_entries_kernel_equals_plain(cuda, n, d):
+    """B5 against _entries_reference: bit for bit."""
+    uh, ul, _ = _df64_inputs(cuda, n, d, 1, seed=d)
+    E = df64.sqexp_entries_df64(uh, ul)
+    ref = df64._entries_reference(uh.double() + ul.double())
+    torch.cuda.synchronize()
+    assert E.shape == (n, n) and E.dtype == torch.float64
+    assert torch.equal(E, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 2, 3, 8])
+def test_df64_stored_kernel_matches_plain_and_fused(cuda, q):
+    """B6 against _stored_reference and against B4 on the same V."""
+    uh, ul, V = _df64_inputs(cuda, 4096, 2, q, seed=q)
+    E = df64.sqexp_entries_df64(uh, ul)
+    before = df64.KERNEL_LAUNCHES["B6"]
+    got = df64.sqexp_stored_matmat_df64(E, V)
+    ref = df64._stored_reference(E, V)
+    scale = df64._stored_reference(E, V.abs())
+    fused = df64.sqexp_matmat_df64(uh, ul, V)
+    torch.cuda.synchronize()
+    assert df64.KERNEL_LAUNCHES["B6"] == before + 1
+    _within_scale(got, ref, scale)
+    _within_scale(got, fused, scale)
+
+
+@pytest.mark.cuda
+def test_df64_wrappers_raise(cuda):
+    """The launch wrappers raise on a wrong dtype, a CPU/CUDA mix or a
+    non-contiguous operand; they never cast or fall back."""
+    uh, ul, V = _df64_inputs(cuda, 256, 2, 2, seed=0)
+    us = uh.double() + ul.double()
+    with pytest.raises(TypeError):
+        df64._launch_fused(us, us, V.double())
+    with pytest.raises(ValueError, match="device"):
+        df64._launch_fused(us, us.cpu(), V)
+    with pytest.raises(TypeError):
+        df64._launch_stored(torch.zeros((256, 256), device=cuda), V)
+    with pytest.raises(TypeError):
+        df64._launch_stored(torch.zeros((256, 256), dtype=torch.float64, device=cuda).T[:, :],
+                            V.T.contiguous().T)
+    with pytest.raises(ValueError, match="device"):
+        df64.sqexp_matmat_df64(uh, ul, V.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("store_entries", ["auto", False])
+def test_large_scale_gp_on_card_matches_cpu(cuda, store_entries):
+    """LargeScaleGP(solver="df64") at n = 1024, sigma = 0.01 on the card
+    (through B5/B6 or B3/B4, and B2 for the cross-covariances) against the
+    same model on the CPU (the plain versions): the solve, means and
+    variances."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 8, (1000, 2))
+    y = np.sin(x[:, 0]) * np.cos(0.5 * x[:, 1]) + rng.normal(0, 0.01, 1000)
+    kw = dict(hyperpars=[0.0, 0.0, 0.0], block_size=512, preconditioner_rank=128,
+              solver="df64", cg_tol=1e-10, cg_maxiter=2000, store_entries=store_entries)
+    before = dict(df64.KERNEL_LAUNCHES)
+    on_card = LargeScaleGP(x, y, np.full(1000, 0.01), device=cuda, **kw)
+    on_cpu = LargeScaleGP(x, y, np.full(1000, 0.01), device="cpu", **kw)
+    launched = {k: df64.KERNEL_LAUNCHES[k] - before[k] for k in before}
+    if store_entries == "auto":
+        assert launched["B5"] == 1 and launched["B6"] > 0
+    else:
+        assert launched["B3"] > 0 and launched["B5"] == 0
+    assert on_card.residual_norm_f64("host") < 1e-9
+    np.testing.assert_allclose(on_card.alpha64, on_cpu.alpha64, rtol=0,
+                               atol=1e-6 * np.abs(on_cpu.alpha64).max())
+    q = rng.uniform(1, 7, (16, 2))
+    for a, b in zip(on_card(q, with_variance=True), on_cpu(q, with_variance=True)):
+        np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9)

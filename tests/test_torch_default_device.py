@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from inference_tpu_torch import convert
-from inference_tpu_torch.gp import GpLinearInverter, GpRegressor
+from inference_tpu_torch.gp import GpLinearInverter, GpRegressor, LargeScaleGP
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -24,6 +24,8 @@ ENTRY_POINTS = {
         "x": _X, "y": _Y, "y_err": _ERR, "y_cov": None, "hyperpars": np.zeros(3),
         "pad_to": None, "kernel": "SquaredExponential", "mean": "ConstantMean",
     }),
+    "LargeScaleGP": lambda: LargeScaleGP(_X, _Y, _ERR, hyperpars=[0.0, 0.0], block_size=128,
+                                         solver="df64"),
 }
 
 

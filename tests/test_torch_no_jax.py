@@ -17,6 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch, inference_tpu_torch.parallel, inference_tpu_torch.ops.hmc_fused",
         "inference_tpu_torch.convert, inference_tpu_torch.utils, inference_tpu_torch.ops._build",
         "inference_tpu_torch.gp, inference_tpu_torch.ops.pairwise, inference_tpu_torch.ops.linalg",
+        "inference_tpu_torch.gp.large_scale, inference_tpu_torch.ops.df64, "
+        "inference_tpu_torch.ops.solvers",
         "chip_smoke",
     ],
 )
