@@ -43,13 +43,12 @@ def sqexp_rows_host64(q, x, hyperpars):
 
 class BlockKernel:
     """Flat-theta kernel maps for the blocked matrix-free solvers:
-    ``name``, ``supports_df64``, ``n_params(d)``, the cross-covariance
-    ``rows`` on tensors, and the host float64 maps ``rows_host64``,
-    ``amp2_host`` and ``noise_variance_host``. (The JAX package's tensor
-    forms of the prior and noise variances serve its float32 tiers and
-    ``fit()``, which are not ported yet.)"""
-
-    supports_df64 = False
+    ``name``, ``n_params(d)``, the cross-covariance ``rows`` on tensors,
+    and the host float64 maps ``rows_host64``, ``amp2_host`` and
+    ``noise_variance_host``. (The JAX package's tensor forms of the prior
+    and noise variances serve its float32 tiers and ``fit()``, which are
+    not ported yet; its ``supports_df64`` flag has no job while the squared
+    exponential is the one adapter.)"""
 
     def n_params(self, n_dims: int) -> int:
         raise NotImplementedError
@@ -74,7 +73,6 @@ class BlockKernel:
 
 class SqExpBlock(BlockKernel):
     name = "SquaredExponential"
-    supports_df64 = True
 
     def n_params(self, n_dims):
         return n_dims + 1

@@ -5,10 +5,13 @@ Port of ``inference_tpu.gp.large_scale`` for ``solver="df64"``:
 ``LargeScaleGP`` solves ``(K + diag(sigma^2) + jitter I) alpha = y - m``
 by preconditioned CG with float64 iterates (``ops.solvers.Df64Solver``),
 where K's action is kernel B6 on the FP64 entry store of kernel B5
-(``store_entries="auto"`` or ``True`` up to ``ops.df64.STORE_MAX_N``) or
-the fused kernels B3/B4 that evaluate the entries in every product
-(``store_entries=False``), and the preconditioner is a rank-m Woodbury
-application of a greedy pivoted Cholesky factor. Predictive variances run
+(``store_entries="auto"`` or ``True`` up to ``ops.df64.STORE_MAX_N``), the
+fused kernels B3/B4 that evaluate the entries in every product
+(``store_entries=False``), or, with ``store_entries="f32"``, kernel B8 on
+the float32-rounded store of kernel B7 for the iterations and B3/B4 for
+each chunk's residual refresh (mixed-precision iterative refinement, as in
+the JAX package). The preconditioner is a rank-m Woodbury application of a
+greedy pivoted Cholesky factor. Predictive variances run
 one batched solve per eight query points (``Df64MultiSolver``).
 
 The JAX package runs this tier in float32-pair arithmetic because the TPU
@@ -38,8 +41,8 @@ decisions:
 
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: ``solver="cg"``/``"mixed"`` and the non-squared-exponential
-block kernels (A11, next slice), ``store_entries="f32"`` (B7/B8),
-``fit()`` (A11, next slice), ``mesh=`` (A13).
+block kernels (A11, next slice), ``fit()`` (A11, next slice), ``mesh=``
+(A13).
 """
 
 from functools import partial
@@ -52,8 +55,10 @@ from ..ops.df64 import (
     _TJ,
     split_f64,
     sqexp_entries_df64,
+    sqexp_entries_f32,
     sqexp_matmat_df64,
     sqexp_matvec_df64,
+    sqexp_stored_f32_matmat,
     sqexp_stored_matmat_df64,
     sqexp_stored_matvec_df64,
     stored_entries_tier,
@@ -83,25 +88,30 @@ def woodbury_apply(V, U, dinv, core, *, core_chol):
 
 def _system_matvec(amp2, diag, v32, *op):
     """``(amp2 E + diag) v`` for a float32 vector, float64 out: kernel B6 on
-    the stored entries ``op = (E,)`` or kernel B3 on the coordinate pair
-    ``op = (us_hi, us_lo)``."""
-    if len(op) == 1:
-        Ev = sqexp_stored_matvec_df64(op[0], v32)
-    else:
+    the FP64 store ``op = (E,)``, B8 on the float32 store, or kernel B3 on
+    the coordinate pair ``op = (us_hi, us_lo)``."""
+    if len(op) == 2:
         Ev = sqexp_matvec_df64(op[0], op[1], v32)
+    elif op[0].dtype == torch.float32:
+        Ev = sqexp_stored_f32_matmat(op[0], v32[:, None])[:, 0]
+    else:
+        Ev = sqexp_stored_matvec_df64(op[0], v32)
     return amp2 * Ev + diag * v32.double()
 
 
 def _entries_apply(V32, *op):
-    """``E V`` through the stored entries (kernel B6), else the fused kernel
-    (B4)."""
-    if len(op) == 1:
-        return sqexp_stored_matmat_df64(op[0], V32)
-    return sqexp_matmat_df64(op[0], op[1], V32)
+    """``E V`` through the FP64 store (kernel B6), the float32 store (B8),
+    else the fused kernel (B4)."""
+    if len(op) == 2:
+        return sqexp_matmat_df64(op[0], op[1], V32)
+    if op[0].dtype == torch.float32:
+        return sqexp_stored_f32_matmat(op[0], V32)
+    return sqexp_stored_matmat_df64(op[0], V32)
 
 
 def _system_matmat(amp2, diag, V32, *op):
-    """``(amp2 E + diag) V`` for a float32 (n, q) block: kernel B6 or B4."""
+    """``(amp2 E + diag) V`` for a float32 (n, q) block: kernel B6, B8 or
+    B4."""
     return amp2 * _entries_apply(V32, *op) + diag[:, None] * V32.double()
 
 
@@ -130,9 +140,13 @@ class LargeScaleGP:
     :param solver: ``"df64"``; ``"cg"`` and ``"mixed"`` are not ported yet.
     :param store_entries: ``"auto"`` (default) and ``True`` store the FP64
         entries once (kernel B5) and multiply them in every iteration
-        (kernel B6), up to ``ops.df64.STORE_MAX_N`` padded rows; ``False``
-        evaluates the entries in every product (kernels B3/B4). See
-        ``ops.df64.stored_entries_tier``.
+        (kernel B6), up to ``ops.df64.STORE_MAX_N`` padded rows; ``"f32"``
+        stores them rounded to float32 (kernel B7), iterates on that store
+        (kernel B8) in chunks of four and refreshes each chunk's residual
+        through the fused kernel, which ``"auto"`` also does up to
+        ``ops.df64.F32_STORE_MAX_N`` when its soundness guard allows;
+        ``False`` evaluates the entries in every product (kernels B3/B4).
+        See ``ops.df64.stored_entries_tier``.
     :param mesh: not ported yet (ROADMAP A13).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
@@ -144,6 +158,8 @@ class LargeScaleGP:
     _DF64_VAR_COLS = 8
     # CG iterations between true-residual refreshes
     _RESTART_EVERY = 50
+    # the same over the float32 store (see _df64_chunk)
+    _RESTART_EVERY_F32 = 4
 
     def __init__(
         self,
@@ -360,26 +376,30 @@ class LargeScaleGP:
     def _prepare_df64(self):
         """Split the scaled coordinates into a float32 pair (the kernels'
         signature; host float64) and, when the storage policy says so,
-        store the FP64 entries once (kernel B5)."""
+        store the entries once: in FP64 (kernel B5) or rounded to float32
+        (kernel B7)."""
         ls64 = np.exp(np.asarray(self.hyperpars[1:], np.float64))
         uh, ul = split_f64(self._x_host / ls64[None, :])
         self._us_hi = torch.as_tensor(uh, device=self._device)
         self._us_lo = torch.as_tensor(ul, device=self._device)
         self._sig64 = torch.as_tensor(self._sig_host, **self._f64)
         self._entries = None
-        tier = self._tier
-        if tier == "f32" and self.store_entries == "auto" and not self._f32_store_is_sound():
-            tier = None
-        if tier == "f64":
+        self._entries_f32 = None
+        if self._tier == "f32" and self.store_entries == "auto" and not self._f32_store_is_sound():
+            self._tier = None
+        if self._tier == "f64":
             self._entries = sqexp_entries_df64(self._us_hi, self._us_lo)
+        elif self._tier == "f32":
+            # the iterations run on the rounded store; the refreshes and
+            # residuals keep the fused kernel (_df64_op_args)
+            self._entries_f32 = sqexp_entries_f32(self._us_hi, self._us_lo)
 
     def _f32_store_is_sound(self) -> bool:
         """The JAX package's soundness guard of ``"auto"`` for the rounded
-        float32 store (kept for that tier, ROADMAP B7/B8): its 2^-24
-        quantisation has a spectral norm of row-sum scale, amp^2 2^-24 max
-        row sum of E, and refinement over it stalls once that exceeds 32
-        times the smallest noise variance; it then warns and returns
-        False (the fused kernel)."""
+        float32 store: its 2^-24 quantisation has a spectral norm of
+        row-sum scale, amp^2 2^-24 max row sum of E, and refinement over it
+        stalls once that exceeds 32 times the smallest noise variance; it
+        then warns and returns False (the fused kernel)."""
         ls64 = np.exp(np.asarray(self.hyperpars[1:], np.float64))
         us = self._x_host[: self.n_points] / ls64[None, :]
         rows = np.random.default_rng(0).choice(self.n_points, size=min(self.n_points, 512),
@@ -423,18 +443,33 @@ class LargeScaleGP:
     def _df64_chunk(self) -> int:
         """CG iterations per chunk. The JAX package sizes them by a TPU
         watchdog budget (50 at test sizes, fewer at large N); a GPU has no
-        watchdog, so the port keeps 50 at every size."""
-        return self._RESTART_EVERY
+        watchdog, so the port keeps 50 at every size.
 
-    def _solver_kwargs(self):
-        """The solvers' operands. The operator is a partial over tensors,
-        not a bound method: a solver that held the instance would make a
-        reference cycle, and the (n, n) entry store would outlive ``del``
-        until the garbage collector ran."""
-        kw = {"matmat_args": self._df64_op_args(), "restart_every": self._df64_chunk()}
+        Over the float32 store the chunk is four iterations, the JAX
+        package's choice and not for a watchdog: the store's 2^-24
+        rounding has a spectral norm of row-sum scale (about 2e-4 at
+        N = 50,000, sigma = 0.01, above the 1e-4 noise variance), so the
+        stored operator can be slightly indefinite and an inner CG that digs
+        below that level breaks down. Four iterations stay above it, and
+        each chunk's fused refresh contracts the error (measured in the JAX
+        package: 100x or more per refresh)."""
+        return self._RESTART_EVERY_F32 if self._entries_f32 is not None else self._RESTART_EVERY
+
+    def _solver_kwargs(self, kind):
+        """The solvers' operands, for a ``Df64Solver`` (``kind`` "matvec")
+        or a ``Df64MultiSolver`` ("matmat"); over the float32 store the
+        iterations' operator (B8) is the fast one. The operators are
+        partials over tensors, not bound methods: a solver that held the
+        instance would make a reference cycle, and the (n, n) entry store
+        would outlive ``del`` until the garbage collector ran."""
+        op = _system_matvec if kind == "matvec" else _system_matmat
+        kw = {f"{kind}_args": self._df64_op_args(), "restart_every": self._df64_chunk()}
         if self._precond64 is not None:
             kw.update(M=self._woodbury64, M_args=self._precond64)
-        return kw
+        if self._entries_f32 is not None:
+            kw.update({f"{kind}_fast": partial(op, self._amp2, self._diag64()),
+                       f"{kind}_fast_args": (self._entries_f32,)})
+        return partial(op, self._amp2, self._diag64()), kw
 
     def _build_compiled(self, cg_tol, cg_maxiter):
         """The df64 training solver. Nothing is compiled here (the name is
@@ -442,11 +477,8 @@ class LargeScaleGP:
         operations."""
         self._cg_tol, self._cg_maxiter = cg_tol, cg_maxiter
         self._prepare_df64()
-        kw = self._solver_kwargs()
-        self._df64_solver = Df64Solver(
-            partial(_system_matvec, self._amp2, self._diag64()),
-            matvec_args=kw.pop("matmat_args"), **kw,
-        )
+        op, kw = self._solver_kwargs("matvec")
+        self._df64_solver = Df64Solver(op, **kw)
 
     def _solve_rhs(self, rhs):
         """The checked df64 training solve of ``A x = rhs``: warns when it
@@ -455,11 +487,17 @@ class LargeScaleGP:
             torch.as_tensor(rhs, **self._f64), tol=self._cg_tol, maxiter=self._cg_maxiter
         )
         if info != 0:
+            hint = (
+                " The float32 entry store is active: its 2^-24 rounding may "
+                "exceed the noise scale; retry with store_entries=False."
+                if self._entries_f32 is not None
+                else " Raise cg_maxiter or loosen cg_tol."
+            )
             warn(
                 f"[ LargeScaleGP warning ] the df64 training solve stopped after "
                 f"{info} iterations above the requested tolerance "
                 f"{self._cg_tol:.1e}; the best iterate is returned but may be "
-                f"inaccurate. Raise cg_maxiter or loosen cg_tol."
+                f"inaccurate.{hint}"
             )
         return sol
 
@@ -550,9 +588,8 @@ class LargeScaleGP:
         fixed for the instance's lifetime)."""
         solver = getattr(self, "_df64_msolver", None)
         if solver is None:
-            solver = self._df64_msolver = Df64MultiSolver(
-                partial(_system_matmat, self._amp2, self._diag64()), **self._solver_kwargs()
-            )
+            op, kw = self._solver_kwargs("matmat")
+            solver = self._df64_msolver = Df64MultiSolver(op, **kw)
         return solver
 
     # ------------------------------------------------------------------ #
@@ -572,9 +609,10 @@ class LargeScaleGP:
         return out + diag * v
 
     def _residual64(self, alpha64, backend: str):
-        """``A alpha`` in float64: ``"df64"`` through the tier's operator
-        (kernel B6 or B3) on an exact hi/lo split of alpha, ``"host"``
-        through blocked host numpy."""
+        """``A alpha`` in float64: ``"df64"`` through the tier's accurate
+        operator (kernel B6, or B3 for the fused and the float32-store tiers)
+        on an exact hi/lo split of alpha, ``"host"`` through blocked host
+        numpy."""
         if backend == "df64":
             ah = alpha64.astype(np.float32)
             al = (alpha64 - ah.astype(np.float64)).astype(np.float32)

@@ -1,36 +1,42 @@
-// Kernel B5: the squared-exponential entry store in native FP64, for Hopper
-// (sm_90a).
+// Kernels B5 and B7: the squared-exponential entry store, in native FP64 and
+// rounded to float32, for Hopper (sm_90a).
 //
-// Replaces inference_tpu/ops/df64.py::_entries_kernel (launched by
+// B5 replaces inference_tpu/ops/df64.py::_entries_kernel (launched by
 // _sqexp_entries_df64_pallas), which wrote the entries as an (n, n) pair of
 // float32 words because the TPU has no float64. Here the store is one FP64
-// (n, n) matrix: 8 bytes per entry, as the pair was. The plain PyTorch version
-// is inference_tpu_torch/ops/df64.py::_entries_reference; the wrapper that
-// launches it is _launch_entries in the same module.
+// (n, n) matrix: 8 bytes per entry, as the pair was. B7 replaces
+// _entries_f32_kernel (launched by _sqexp_entries_f32_pallas), which wrote the
+// pair-accurate entry rounded to one float32 word: here the FP64 entry rounded
+// to nearest, 4 bytes per entry. The plain PyTorch versions are
+// inference_tpu_torch/ops/df64.py::_entries_reference (B5) and
+// _entries_f32_reference (B7); the wrappers that launch them are
+// _launch_entries and _launch_entries_f32 in the same module.
 //
 // What it computes. For pre-scaled FP64 coordinates us (n, d), row-major:
-//   out[i, j] = exp(-0.5 * sum_k (us[i, k] - us[j, k])^2)
-// with dist = dist + diff * diff over k in order (the build uses
-// --fmad=false), then the accurate exp: the plain version's separate torch
-// operations in the same order, so the two agree bit for bit on the card. It
-// is kernel B2 (csrc/sqexp.cu) with A = 1 and the dimension fixed at compile
-// time. The matrix is symmetric, but the kernel writes it whole: kernel B6
-// then reads rows, never columns.
+//   out[i, j] = T(exp(-0.5 * sum_k (us[i, k] - us[j, k])^2))
+// with T double (B5) or float (B7, round to nearest), dist = dist + diff * diff
+// over k in order (the build uses --fmad=false), then the accurate exp: the
+// plain version's separate torch operations in the same order, so the two agree
+// bit for bit on the card. It is kernel B2 (csrc/sqexp.cu) with A = 1 and the
+// dimension fixed at compile time. The matrix is symmetric, but the kernel
+// writes it whole: kernels B6 and B8 then read rows, never columns.
 //
-// What bounds it on this card. The store: at n = 53,248 the matrix is 22.7 GB,
-// 6.8 ms at 3.35 TB/s. The arithmetic is 3 d + 1 operations and CUDA's double
-// exp (some eighteen FP64 instructions) per entry, about 4 ms of FP64 issue at
-// d = 2, so the kernel should sit at the store bound if the FP64 work hides
-// under it.
+// What bounds it on this card. B5: the store, 22.7 GB at n = 53,248, 6.8 ms at
+// 3.35 TB/s. The arithmetic is 3 d + 1 operations and CUDA's double exp (some
+// eighteen FP64 instructions) per entry, about 3.3 ms of FP64 issue at d = 2,
+// so B5 should sit at the store bound if the FP64 work hides under it. B7
+// stores half the bytes (11.3 GB, 3.4 ms) and does the same FP64 work, so its
+// two bounds are about equal and it can reach neither unless the two overlap
+// completely.
 //
 // What the design does about it. A block writes a 64 x 128 tile with 256
 // threads: each thread owns two adjacent columns and 16 rows, so every store
-// is one 16-byte double2, a warp's store one contiguous 512-byte run, and the
-// stores are streaming (__stcs: the matrix is far larger than the 50 MB L2).
-// The tile's rows are staged in shared memory, read as broadcasts; a thread
-// keeps its two columns' coordinates in registers. The dimension is a
-// template parameter for d <= 3: with a runtime d, a D_MAX-long predicated
-// loop can issue more FP64 work than the entry itself.
+// is one double2 (B5) or float2 (B7), a warp's store one contiguous 512- or
+// 256-byte run, and the stores are streaming (__stcs: the matrix is far larger
+// than the 50 MB L2). The tile's rows are staged in shared memory, read as
+// broadcasts; a thread keeps its two columns' coordinates in registers. The
+// dimension is a template parameter for d <= 3: with a runtime d, a D_MAX-long
+// predicated loop can issue more FP64 work than the entry itself.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,9 +51,13 @@ constexpr int TY = 4;                // threads down a tile
 constexpr int THREADS = TX * TY;     // 256
 constexpr int D_MAX = 16;            // df64.py D_MAX
 
-template <int DT>
+template <typename T> struct Two;
+template <> struct Two<double> { using type = double2; };
+template <> struct Two<float> { using type = float2; };
+
+template <typename T, int DT>
 __global__ void __launch_bounds__(THREADS)
-sqexp_entries_kernel(const double* __restrict__ us, double* __restrict__ out, int n,
+sqexp_entries_kernel(const double* __restrict__ us, T* __restrict__ out, int n,
                      int d_runtime) {
   constexpr int DM = DT > 0 ? DT : D_MAX;
   const int d = DT > 0 ? DT : d_runtime;
@@ -84,36 +94,46 @@ sqexp_entries_kernel(const double* __restrict__ us, double* __restrict__ out, in
         d1 = d1 + e1 * e1;
       }
     }
-    double2 val;
-    val.x = exp(-0.5 * d0);
-    val.y = exp(-0.5 * d1);
-    __stcs(reinterpret_cast<double2*>(out + (size_t)(row0 + r) * n + col), val);
+    typename Two<T>::type val;
+    val.x = static_cast<T>(exp(-0.5 * d0));
+    val.y = static_cast<T>(exp(-0.5 * d1));
+    __stcs(reinterpret_cast<typename Two<T>::type*>(out + (size_t)(row0 + r) * n + col), val);
   }
 }
 
-template <int DT>
-int launch(const double* us, double* out, int n, int d, cudaStream_t stream) {
+template <typename T, int DT>
+int launch(const double* us, T* out, int n, int d, cudaStream_t stream) {
   dim3 grid(n / TC, n / TR);
   dim3 block(TX, TY);
-  sqexp_entries_kernel<DT><<<grid, block, 0, stream>>>(us, out, n, d);
+  sqexp_entries_kernel<T, DT><<<grid, block, 0, stream>>>(us, out, n, d);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int entries(const void* us, void* out, int n, int d, void* stream) {
+  if (n < TC || n % TC != 0 || n / TR > 65535 || d < 1 || d > D_MAX)
+    return (int)cudaErrorInvalidValue;
+  const double* u = static_cast<const double*>(us);
+  T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 1: return launch<T, 1>(u, o, n, d, s);
+    case 2: return launch<T, 2>(u, o, n, d, s);
+    case 3: return launch<T, 3>(u, o, n, d, s);
+    default: return launch<T, 0>(u, o, n, d, s);
+  }
 }
 
 }  // namespace
 
-// out (n, n) = exp(-0.5 |us_i - us_j|^2), on `stream`. n must be a positive
-// multiple of 128 and 1 <= d <= 16. Returns the CUDA error code of the
-// launch (0 on success).
+// Kernel B5: out (n, n) FP64 = exp(-0.5 |us_i - us_j|^2), on `stream`. n must
+// be a positive multiple of 128 and 1 <= d <= 16. Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int sqexp_entries_f64(const void* us, void* out, int n, int d, void* stream) {
-  if (n < TC || n % TC != 0 || n / TR > 65535 || d < 1 || d > D_MAX)
-    return (int)cudaErrorInvalidValue;
-  const double* u = static_cast<const double*>(us);
-  double* o = static_cast<double*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 1: return launch<1>(u, o, n, d, s);
-    case 2: return launch<2>(u, o, n, d, s);
-    case 3: return launch<3>(u, o, n, d, s);
-    default: return launch<0>(u, o, n, d, s);
-  }
+  return entries<double>(us, out, n, d, stream);
+}
+
+// Kernel B7: the same entries rounded to float32, out (n, n) float32.
+extern "C" int sqexp_entries_f32(const void* us, void* out, int n, int d, void* stream) {
+  return entries<float>(us, out, n, d, stream);
 }

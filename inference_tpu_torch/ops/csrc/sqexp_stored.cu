@@ -1,33 +1,40 @@
-// Kernel B6: the product of the stored squared-exponential entries with a
-// block of right-hand sides, in native FP64, for Hopper (sm_90a).
+// Kernels B6 and B8: the product of the stored squared-exponential entries
+// with a block of right-hand sides, accumulated in native FP64, for Hopper
+// (sm_90a).
 //
-// Replaces inference_tpu/ops/df64.py::_stored_matmat_kernel (launched by
+// B6 replaces inference_tpu/ops/df64.py::_stored_matmat_kernel (launched by
 // _sqexp_stored_matmat_pallas), which contracted a float32-pair entry store
 // with pair products and compensated sums because the TPU has no float64.
-// Here the store is kernel B5's FP64 (n, n) matrix and the sums are FP64. The
-// plain PyTorch version is inference_tpu_torch/ops/df64.py::_stored_reference;
-// the wrapper that launches it is _launch_stored in the same module.
+// Here the store is kernel B5's FP64 (n, n) matrix and the sums are FP64. B8
+// replaces _stored_f32_matmat_kernel (launched by
+// _sqexp_stored_f32_matmat_pallas), which contracted kernel B7's float32 store
+// with exact Dekker products and compensated pair sums: here a float32 entry
+// times a float32 right-hand side, both widened to double, is exact (24 + 24
+// significant bits fit in FP64's 53), and the sums are FP64. The plain PyTorch
+// versions are inference_tpu_torch/ops/df64.py::_stored_reference (both); the
+// wrappers that launch them are _launch_stored and _launch_stored_f32 in the
+// same module.
 //
-// What it computes. For E (n_rows, n_cols) FP64, row-major, and float32
-// right-hand sides v (n_cols, q):
+// What it computes. For E (n_rows, n_cols), FP64 (B6) or float32 (B8),
+// row-major, and float32 right-hand sides v (n_cols, q):
 //   y[i, c] = sum_j E[i, j] * v[j, c]
-// with v widened to double and each product added by fma.
+// with E and v widened to double and each product added by fma.
 //
 // What bounds it on this card. The read of E, once per launch for all q
-// columns: 22.7 GB at n = 53,248, 6.8 ms at 3.35 TB/s. The FP64 work is q fma
-// per entry, under that bound for q <= 16 (2.8e9 q against 16.7e12 FP64
-// instructions per second).
+// columns: at n = 53,248, 22.7 GB (B6) or 11.3 GB (B8), 6.8 or 3.4 ms at
+// 3.35 TB/s. The FP64 work is q fma per entry, under that bound for q <= 16
+// (2.8e9 q against 16.7e12 FP64 instructions per second).
 //
 // What the design does about it. A warp owns RPW rows; for a tile of TJ = 128
 // columns each lane reads 4 entries of each of its rows, so every load
-// instruction of a warp is one contiguous 256-byte run of a row, and the loads
-// are streaming (__ldcs: E is far larger than the 50 MB L2 and is not read
-// again in the launch). The tile's v rows are staged in shared memory,
-// widened to double and laid out [column][row] so the lanes read consecutive
-// words; a block of 8 warps shares each staged tile, so v is read from L2 once
-// per 8 RPW rows of E. Each lane keeps RPW x QMAX partial sums in registers
-// (at most 16 doubles), and a warp shuffle adds the lanes' sums at the end; no
-// sum crosses warps or blocks.
+// instruction of a warp is one contiguous run of a row (256 bytes for B6, 128
+// for B8), and the loads are streaming (__ldcs: E is far larger than the 50 MB
+// L2 and is not read again in the launch). The tile's v rows are staged in
+// shared memory, widened to double and laid out [column][row] so the lanes
+// read consecutive words; a block of 8 warps shares each staged tile, so v is
+// read from L2 once per 8 RPW rows of E. Each lane keeps RPW x QMAX partial
+// sums in registers (at most 16 doubles), and a warp shuffle adds the lanes'
+// sums at the end; no sum crosses warps or blocks.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -39,9 +46,9 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TJ = 128;                // columns per staged tile (df64.py _TJ)
 constexpr int PER_LANE = TJ / 32;      // entries of a row a lane reads per tile
 
-template <int QMAX, int RPW>
+template <typename TE, int QMAX, int RPW>
 __global__ void __launch_bounds__(THREADS)
-sqexp_stored_kernel(const double* __restrict__ E, const float* __restrict__ v,
+sqexp_stored_kernel(const TE* __restrict__ E, const float* __restrict__ v,
                     double* __restrict__ y, int n_rows, int n_cols, int q) {
   __shared__ double sv[QMAX][TJ];
 
@@ -49,7 +56,7 @@ sqexp_stored_kernel(const double* __restrict__ E, const float* __restrict__ v,
   const int lane = threadIdx.x % 32;
   const int row0 = (blockIdx.x * WARPS + warp) * RPW;
 
-  const double* erow[RPW];
+  const TE* erow[RPW];
 #pragma unroll
   for (int r = 0; r < RPW; ++r) erow[r] = E + (size_t)min(row0 + r, n_rows - 1) * n_cols;
   double acc[RPW][QMAX];
@@ -70,7 +77,7 @@ sqexp_stored_kernel(const double* __restrict__ E, const float* __restrict__ v,
 #pragma unroll
     for (int r = 0; r < RPW; ++r)
 #pragma unroll
-      for (int u = 0; u < PER_LANE; ++u) e[r][u] = __ldcs(erow[r] + j0 + lane + 32 * u);
+      for (int u = 0; u < PER_LANE; ++u) e[r][u] = (double)__ldcs(erow[r] + j0 + lane + 32 * u);
 #pragma unroll
     for (int u = 0; u < PER_LANE; ++u)
 #pragma unroll
@@ -101,31 +108,43 @@ sqexp_stored_kernel(const double* __restrict__ E, const float* __restrict__ v,
   }
 }
 
-template <int QMAX, int RPW>
-int launch(const double* E, const float* v, double* y, int n_rows, int n_cols, int q,
+template <typename TE, int QMAX, int RPW>
+int launch(const TE* E, const float* v, double* y, int n_rows, int n_cols, int q,
            cudaStream_t stream) {
   const int rows_per_block = WARPS * RPW;
   dim3 grid((n_rows + rows_per_block - 1) / rows_per_block);
-  sqexp_stored_kernel<QMAX, RPW><<<grid, THREADS, 0, stream>>>(E, v, y, n_rows, n_cols, q);
+  sqexp_stored_kernel<TE, QMAX, RPW><<<grid, THREADS, 0, stream>>>(E, v, y, n_rows, n_cols, q);
   return (int)cudaGetLastError();
+}
+
+template <typename TE>
+int stored(const void* E, const void* v, void* y, int n_rows, int n_cols, int q,
+           void* stream) {
+  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || q < 1 || q > 16)
+    return (int)cudaErrorInvalidValue;
+  const TE* e = static_cast<const TE*>(E);
+  const float* vv = static_cast<const float*>(v);
+  double* out = static_cast<double*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q <= 1) return launch<TE, 1, 4>(e, vv, out, n_rows, n_cols, q, s);
+  if (q <= 2) return launch<TE, 2, 4>(e, vv, out, n_rows, n_cols, q, s);
+  if (q <= 4) return launch<TE, 4, 4>(e, vv, out, n_rows, n_cols, q, s);
+  if (q <= 8) return launch<TE, 8, 2>(e, vv, out, n_rows, n_cols, q, s);
+  return launch<TE, 16, 1>(e, vv, out, n_rows, n_cols, q, s);
 }
 
 }  // namespace
 
-// y (n_rows, q) = E (n_rows, n_cols) @ v (n_cols, q), on `stream`. n_cols must
-// be a positive multiple of 128 and 1 <= q <= 16. Returns the CUDA error code
-// of the launch (0 on success).
+// Kernel B6: y (n_rows, q) FP64 = E (n_rows, n_cols) FP64 @ v (n_cols, q)
+// float32, on `stream`. n_cols must be a positive multiple of 128 and
+// 1 <= q <= 16. Returns the CUDA error code of the launch (0 on success).
 extern "C" int sqexp_stored_f64(const void* E, const void* v, void* y, int n_rows,
                                 int n_cols, int q, void* stream) {
-  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || q < 1 || q > 16)
-    return (int)cudaErrorInvalidValue;
-  const double* e = static_cast<const double*>(E);
-  const float* vv = static_cast<const float*>(v);
-  double* out = static_cast<double*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (q <= 1) return launch<1, 4>(e, vv, out, n_rows, n_cols, q, s);
-  if (q <= 2) return launch<2, 4>(e, vv, out, n_rows, n_cols, q, s);
-  if (q <= 4) return launch<4, 4>(e, vv, out, n_rows, n_cols, q, s);
-  if (q <= 8) return launch<8, 2>(e, vv, out, n_rows, n_cols, q, s);
-  return launch<16, 1>(e, vv, out, n_rows, n_cols, q, s);
+  return stored<double>(E, v, y, n_rows, n_cols, q, stream);
+}
+
+// Kernel B8: the same with E float32.
+extern "C" int sqexp_stored_f32(const void* E, const void* v, void* y, int n_rows,
+                                int n_cols, int q, void* stream) {
+  return stored<float>(E, v, y, n_rows, n_cols, q, stream);
 }

@@ -1,5 +1,5 @@
 """The squared-exponential kernel matrix of the matrix-free small-noise GP
-tier, in native FP64: kernels B3-B6 and their plain versions.
+tier, in native FP64: kernels B3-B8 and their plain versions.
 
 Port of ``inference_tpu.ops.df64``. The JAX package carries every quantity
 there as a pair of float32 words ``(hi, lo)`` and evaluates
@@ -21,6 +21,11 @@ With ``E_ij = exp(-1/2 |us_i - us_j|^2)``:
 - ``sqexp_stored_matmat_df64`` / ``sqexp_stored_matvec_df64`` (B6): ``E V``
   from the stored E (``csrc/sqexp_stored.cu``). They also take the JAX
   package's ``(E_hi, E_lo)`` pair in E's place.
+- ``sqexp_entries_f32`` (B7, ``csrc/sqexp_entries.cu``): E rounded to
+  float32, 4 bytes per entry; ``sqexp_stored_f32_matmat`` (B8,
+  ``csrc/sqexp_stored.cu``): its product with float32 ``V``, exact products
+  summed in FP64. The tier that iterates on it refreshes its residuals
+  through B3/B4 (``gp.large_scale``).
 - ``stored_entries_tier``: the one storage policy, sized for 80 GB.
 
 Right-hand sides ``V`` are float32 (the solver's float32 search
@@ -28,8 +33,8 @@ directions) and results float64, as in the JAX package; ``n`` is a
 multiple of 128 (``_TJ``/``_TI``). Each wrapper launches its CUDA kernel for
 operands on a CUDA device and raises on what the kernel does not take; for
 operands on the CPU it runs the kernel's plain version (``_fused_reference``,
-``_entries_reference``, ``_stored_reference``), which forms each entry with
-the same operations in the same order. ``KERNEL_LAUNCHES`` counts the
+``_entries_reference``, ``_entries_f32_reference``, ``_stored_reference``),
+which forms each entry with the same operations in the same order. ``KERNEL_LAUNCHES`` counts the
 launches of each kernel.
 """
 
@@ -47,10 +52,12 @@ D_MAX = 16  # the kernels' largest coordinate dimension
 Q_MAX = 16  # the largest right-hand-side block the kernels take
 
 # launches of each kernel in this process; each wrapper adds one per launch
-KERNEL_LAUNCHES = {"B3": 0, "B4": 0, "B5": 0, "B6": 0}
+KERNEL_LAUNCHES = {"B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0, "B8": 0}
 
-# the largest padded n the FP64 entry store serves (see stored_entries_tier)
+# the largest padded n the FP64 and the float32 entry stores serve under
+# store_entries="auto" (see stored_entries_tier)
 STORE_MAX_N = 81_920
+F32_STORE_MAX_N = 114_688
 
 _BLOCK_ELEMS = 1 << 27  # entries per row block of the plain versions (1 GiB)
 
@@ -278,20 +285,37 @@ def _entries_reference(us64):
     return E
 
 
-def _launch_entries(us64):
-    """Launch kernel B5 (``csrc/sqexp_entries.cu``) on contiguous FP64
-    coordinates on a CUDA device, with the result of ``_entries_reference``."""
+def _entries_f32_reference(us64):
+    """Kernel B7's plain version: ``_entries_reference``'s entries rounded
+    to float32 (to nearest), row block by row block."""
+    n = us64.shape[0]
+    E = torch.empty((n, n), dtype=torch.float32, device=us64.device)
+    for blk in _row_blocks(n, n):
+        E[blk] = _entry_block(us64[blk], us64).float()
+    return E
+
+
+# the entry store's kernels: output dtype -> (kernel, C entry point)
+_ENTRIES = {torch.float64: ("B5", "sqexp_entries_f64"), torch.float32: ("B7", "sqexp_entries_f32")}
+
+
+def _launch_entries(us64, dtype=torch.float64):
+    """Launch kernel B5 (``dtype`` float64) or B7 (float32) of
+    ``csrc/sqexp_entries.cu`` on contiguous FP64 coordinates on a CUDA
+    device, with the result of ``_entries_reference`` or
+    ``_entries_f32_reference``."""
+    kernel, symbol = _ENTRIES[dtype]
     if us64.device.type != "cuda":
-        raise ValueError(f"kernel B5: us is on {us64.device}, not a CUDA device")
+        raise ValueError(f"kernel {kernel}: us is on {us64.device}, not a CUDA device")
     if us64.dtype != torch.float64 or not us64.is_contiguous():
-        raise TypeError(f"kernel B5: us must be contiguous float64, got {us64.dtype}")
+        raise TypeError(f"kernel {kernel}: us must be contiguous float64, got {us64.dtype}")
     n, d = us64.shape
-    E = torch.empty((n, n), dtype=torch.float64, device=us64.device)
-    fn = _bind("sqexp_entries", "sqexp_entries_f64", 2, 2)
+    E = torch.empty((n, n), dtype=dtype, device=us64.device)
+    fn = _bind("sqexp_entries", symbol, 2, 2)
     with torch.cuda.device(us64.device):
         rc = fn(us64.data_ptr(), E.data_ptr(), n, d, _stream(us64.device))
-    _raise_on(rc, "B5")
-    KERNEL_LAUNCHES["B5"] += 1
+    _raise_on(rc, kernel)
+    KERNEL_LAUNCHES[kernel] += 1
     return E
 
 
@@ -300,47 +324,63 @@ def sqexp_entries_df64(us_hi, us_lo):
     tensor (kernel B5): 8 bytes per entry, 22.7 GB at n = 53,248. Every
     later ``sqexp_stored_matmat_df64`` then reads it instead of evaluating
     entries."""
-    caller = "sqexp_entries_df64"
+    return _entries(us_hi, us_lo, torch.float64, "sqexp_entries_df64")
+
+
+def sqexp_entries_f32(us_hi, us_lo):
+    """Materialise ``fl32(exp(-1/2 |us_i - us_j|^2))``, the FP64 entry
+    rounded to nearest float32, as an (n, n) float32 tensor (kernel B7): 4
+    bytes per entry, 11.3 GB at n = 53,248. Its only error is that rounding,
+    at most 2^-24 of each entry."""
+    return _entries(us_hi, us_lo, torch.float32, "sqexp_entries_f32")
+
+
+def _entries(us_hi, us_lo, dtype, caller):
     us64 = _pair_sum(us_hi, us_lo, caller)
     _check_coords(us64, caller)
     if us64.device.type == "cuda":
-        return _launch_entries(us64.contiguous())
+        return _launch_entries(us64.contiguous(), dtype)
     _same_device(caller, us64)
-    return _entries_reference(us64)
+    return (_entries_reference if dtype == torch.float64 else _entries_f32_reference)(us64)
 
 
 # --------------------------------------------------------------------- #
 # B6: the stored matmat
 # --------------------------------------------------------------------- #
 def _stored_reference(E, V):
-    """Kernel B6's plain version: ``E V`` in float64, row block by row
-    block."""
+    """Kernels B6 and B8's plain version: ``E V`` in float64 (a float32 E
+    widened, so every product is exact), row block by row block."""
     V64 = V.double()
     out = torch.empty((E.shape[0], V.shape[1]), dtype=torch.float64, device=E.device)
     for blk in _row_blocks(E.shape[0], E.shape[1]):
-        out[blk] = E[blk] @ V64
+        out[blk] = E[blk].double() @ V64
     return out
 
 
-def _launch_stored(E, V):
-    """Launch kernel B6 (``csrc/sqexp_stored.cu``) on a contiguous FP64 E
-    and float32 V on one CUDA device, with the result of
-    ``_stored_reference``."""
-    for name, t, dt in (("E", E, torch.float64), ("V", V, torch.float32)):
+# the stored product's kernels: entry dtype -> (kernel, C entry point)
+_STORED = {torch.float64: ("B6", "sqexp_stored_f64"), torch.float32: ("B8", "sqexp_stored_f32")}
+
+
+def _launch_stored(E, V, dtype=torch.float64):
+    """Launch kernel B6 (``dtype`` float64) or B8 (float32) of
+    ``csrc/sqexp_stored.cu`` on a contiguous E of that dtype and float32 V
+    on one CUDA device, with the result of ``_stored_reference``."""
+    kernel, symbol = _STORED[dtype]
+    for name, t, dt in (("E", E, dtype), ("V", V, torch.float32)):
         if t.device.type != "cuda" or t.device != E.device:
-            raise ValueError(f"kernel B6: {name} is on {t.device}; every operand must be on "
-                             f"one CUDA device")
+            raise ValueError(f"kernel {kernel}: {name} is on {t.device}; every operand must "
+                             f"be on one CUDA device")
         if t.dtype != dt or not t.is_contiguous():
-            raise TypeError(f"kernel B6: {name} must be contiguous {dt}, got {t.dtype} "
+            raise TypeError(f"kernel {kernel}: {name} must be contiguous {dt}, got {t.dtype} "
                             f"(contiguous={t.is_contiguous()})")
     n_rows, n_cols = E.shape
     q = V.shape[1]
     Y = torch.empty((n_rows, q), dtype=torch.float64, device=E.device)
-    fn = _bind("sqexp_stored", "sqexp_stored_f64", 3, 3)
+    fn = _bind("sqexp_stored", symbol, 3, 3)
     with torch.cuda.device(E.device):
         rc = fn(E.data_ptr(), V.data_ptr(), Y.data_ptr(), n_rows, n_cols, q, _stream(E.device))
-    _raise_on(rc, "B6")
-    KERNEL_LAUNCHES["B6"] += 1
+    _raise_on(rc, kernel)
+    KERNEL_LAUNCHES[kernel] += 1
     return Y
 
 
@@ -360,16 +400,29 @@ def sqexp_stored_matmat_df64(*args):
     Accepts q = 1 for the matvec case."""
     caller = "sqexp_stored_matmat_df64"
     E, V = _stored_operands(args, caller)
+    return _stored(E, V, torch.float64, caller)
+
+
+def sqexp_stored_f32_matmat(E, V):
+    """``Y = E V`` from the float32 store of ``sqexp_entries_f32`` (kernel
+    B8): ``V`` (n, q) float32; returns float64 (n, q). Each product of two
+    float32 words is exact in FP64 and the sums run in FP64, so the only
+    error of the operator is the entries' rounding: the iteration operator
+    of ``store_entries="f32"``."""
+    return _stored(_tensor(E), V, torch.float32, "sqexp_stored_f32_matmat")
+
+
+def _stored(E, V, dtype, caller):
     V = _float32("V", V, caller)
-    if E.dtype != torch.float64 or E.ndim != 2 or E.shape[0] != E.shape[1]:
-        raise TypeError(f"[ {caller} error ] E must be a square float64 matrix, got "
+    if E.dtype != dtype or E.ndim != 2 or E.shape[0] != E.shape[1]:
+        raise TypeError(f"[ {caller} error ] E must be a square {dtype} matrix, got "
                         f"{E.dtype} {tuple(E.shape)}.")
     if E.shape[0] % _TJ != 0:
         raise ValueError(f"[ {caller} error ] n ({E.shape[0]}) must be a multiple of {_TJ}.")
     _check_block(V, E.shape[0], caller)
     dev = _same_device(caller, E, V)
     if dev.type == "cuda":
-        return _launch_stored(E.contiguous(), V.contiguous())
+        return _launch_stored(E.contiguous(), V.contiguous(), dtype)
     return _stored_reference(E, V)
 
 
@@ -385,8 +438,10 @@ def sqexp_stored_matvec_df64(*args):
 # --------------------------------------------------------------------- #
 def stored_entries_tier(n_padded: int, store):
     """The one storage policy of the df64 tier, sized for one 80 GB H100.
-    Returns ``"f64"`` (store E once as FP64, kernel B5, and multiply it in
-    every iteration, kernel B6) or ``None`` (evaluate the entries in every
+    Returns ``"f64"`` (store E once in FP64, kernel B5, and multiply it in
+    every iteration, kernel B6), ``"f32"`` (store E rounded to float32,
+    kernel B7, iterate on it, kernel B8, and refresh the residuals through
+    the fused kernel B3/B4) or ``None`` (evaluate the entries in every
     product, kernels B3/B4).
 
     The FP64 store takes 8 n^2 bytes: 21.5 GB at n = 51,200, 22.7 GB at
@@ -396,21 +451,21 @@ def stored_entries_tier(n_padded: int, store):
     solver blocks and the (q, n) cross-covariances of a prediction, well
     under 1 GB, so 81,920 leaves about 25 GB of the 80 GB for them, for the
     caching allocator's slack and for a full-width check beside the store.
+    The float32 store takes 4 n^2 bytes: 52.6 GB at ``F32_STORE_MAX_N`` =
+    114,688, with the same room beside it (the factor is 0.47 GB there).
 
-    ``store`` is the user's choice: ``"auto"`` stores up to ``STORE_MAX_N``
-    and beyond it takes the fused kernel and warns; ``True`` demands the
-    store and raises beyond ``STORE_MAX_N``; ``False`` never stores;
-    ``"f32"`` (the JAX package's rounded float32 store, kernels B7/B8) is
-    not ported yet and raises.
+    ``store`` is the user's choice: ``"auto"`` stores in FP64 up to
+    ``STORE_MAX_N``, in float32 up to ``F32_STORE_MAX_N`` (where the JAX
+    package's soundness guard may still refuse it, see
+    ``LargeScaleGP._f32_store_is_sound``) and beyond takes the fused kernel
+    and warns; ``True`` demands the FP64 store and raises beyond
+    ``STORE_MAX_N``; ``"f32"`` demands the float32 store at any size the
+    card holds (an explicit accuracy opt-in); ``False`` never stores.
     """
     if store is False:
         return None
     if store == "f32":
-        raise NotImplementedError(
-            "[ stored_entries_tier error ] store_entries='f32' (the rounded "
-            "float32 entry store, kernels B7/B8) is not ported yet: ROADMAP "
-            "queue B7/B8 and A11's next slice. Use 'auto', True or False."
-        )
+        return "f32"
     if n_padded <= STORE_MAX_N:
         return "f64"
     if store is True:
@@ -418,12 +473,15 @@ def stored_entries_tier(n_padded: int, store):
             f"[ stored_entries_tier error ] store_entries=True requests the "
             f"FP64 entry store, which is limited to padded n <= {STORE_MAX_N} "
             f"(8 bytes/entry of the card's 80 GB); got n_padded = {n_padded}. "
-            f"Use 'auto' or False for the fused kernel."
+            f"Use store_entries='f32' to opt into the rounded float32 store, "
+            f"or 'auto'/False for the policy/fused paths."
         )
+    if n_padded <= F32_STORE_MAX_N:
+        return "f32"
     warn(
         f"[ LargeScaleGP warning ] store_entries='auto' takes the fused "
-        f"kernel: the FP64 entry store of n_padded = {n_padded} "
-        f"({8 * n_padded**2 / 1e9:.1f} GB) exceeds the {STORE_MAX_N} limit "
+        f"kernel: the float32 entry store of n_padded = {n_padded} "
+        f"({4 * n_padded**2 / 1e9:.1f} GB) exceeds the {F32_STORE_MAX_N} limit "
         f"of one 80 GB card. Every product evaluates its entries anew."
     )
     return None

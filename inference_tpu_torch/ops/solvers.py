@@ -42,8 +42,10 @@ class Df64MultiSolver:
       is used in float64 (a Woodbury application at sigma ~ 1e-2 cancels
       about eight digits).
     - ``matmat_fast``, when given, runs the iteration products while
-      ``matmat64`` anchors the refreshes (the rounded-float32 store of the
-      JAX package's ``store_entries="f32"`` tier, not ported yet).
+      ``matmat64`` anchors the refreshes: mixed-precision iterative
+      refinement, each chunk a short inner solve on the cheaper operator
+      (the float32 entry store of ``store_entries="f32"``, kernel B8) that
+      restarts from steepest descent after its refresh.
     """
 
     def __init__(

@@ -1,5 +1,5 @@
 """Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu), B2
-(inference_tpu_torch/ops/csrc/sqexp.cu) and B3-B6 (ops/csrc/sqexp_fused.cu,
+(inference_tpu_torch/ops/csrc/sqexp.cu) and B3-B8 (ops/csrc/sqexp_fused.cu,
 sqexp_entries.cu, sqexp_stored.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
 checks; the fused ChainArray, the GpRegressor and the LargeScaleGP end to
@@ -231,11 +231,11 @@ def test_gp_regressor_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
 
 
-# Kernels B3-B6 against their plain versions on the card. Each entry is
-# formed by the same operations in the same order (--fmad=false), so B5 is
-# equal bit for bit; the products sum over j in another order than the plain
-# version's matmul, so B3, B4 and B6 are held to 1e-13 of sum_j |E_ij| |V_jk|
-# per row and column.
+# Kernels B3-B8 against their plain versions on the card. Each entry is
+# formed by the same operations in the same order (--fmad=false), so B5 and
+# B7 are equal bit for bit; the products sum over j in another order than the
+# plain version's matmul, so B3, B4, B6 and B8 are held to 1e-13 of
+# sum_j |E_ij| |V_jk| per row and column.
 DF64_ATOL = 1e-13
 
 
@@ -302,6 +302,37 @@ def test_df64_stored_kernel_matches_plain_and_fused(cuda, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n, d", [(4096, 2), (1024, 5)])
+def test_df64_entries_f32_kernel_equals_plain(cuda, n, d):
+    """B7 against _entries_f32_reference: bit for bit, and B5's entries
+    rounded to nearest."""
+    uh, ul, _ = _df64_inputs(cuda, n, d, 1, seed=10 + d)
+    before = df64.KERNEL_LAUNCHES["B7"]
+    E32 = df64.sqexp_entries_f32(uh, ul)
+    ref = df64._entries_f32_reference(uh.double() + ul.double())
+    torch.cuda.synchronize()
+    assert df64.KERNEL_LAUNCHES["B7"] == before + 1
+    assert E32.shape == (n, n) and E32.dtype == torch.float32
+    assert torch.equal(E32, ref)
+    assert torch.equal(E32, df64.sqexp_entries_df64(uh, ul).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3, 8])
+def test_df64_stored_f32_kernel_matches_plain(cuda, q):
+    """B8 against _stored_reference on B7's store."""
+    uh, ul, V = _df64_inputs(cuda, 4096, 2, q, seed=20 + q)
+    E32 = df64.sqexp_entries_f32(uh, ul)
+    before = df64.KERNEL_LAUNCHES["B8"]
+    got = df64.sqexp_stored_f32_matmat(E32, V)
+    ref = df64._stored_reference(E32, V)
+    scale = df64._stored_reference(E32, V.abs())
+    torch.cuda.synchronize()
+    assert df64.KERNEL_LAUNCHES["B8"] == before + 1
+    _within_scale(got, ref, scale)
+
+
+@pytest.mark.cuda
 def test_df64_wrappers_raise(cuda):
     """The launch wrappers raise on a wrong dtype, a CPU/CUDA mix or a
     non-contiguous operand; they never cast or fall back."""
@@ -318,15 +349,20 @@ def test_df64_wrappers_raise(cuda):
                             V.T.contiguous().T)
     with pytest.raises(ValueError, match="device"):
         df64.sqexp_matmat_df64(uh, ul, V.cpu())
+    with pytest.raises(TypeError):
+        df64._launch_stored(torch.zeros((256, 256), dtype=torch.float64, device=cuda), V,
+                            torch.float32)
+    with pytest.raises(TypeError):
+        df64.sqexp_stored_f32_matmat(torch.zeros((256, 256), dtype=torch.float64, device=cuda), V)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("store_entries", ["auto", False])
+@pytest.mark.parametrize("store_entries", ["auto", False, "f32"])
 def test_large_scale_gp_on_card_matches_cpu(cuda, store_entries):
     """LargeScaleGP(solver="df64") at n = 1024, sigma = 0.01 on the card
-    (through B5/B6 or B3/B4, and B2 for the cross-covariances) against the
-    same model on the CPU (the plain versions): the solve, means and
-    variances."""
+    (through B5/B6, B3/B4 or B7/B8 with B3 refreshes, and B2 for the
+    cross-covariances) against the same model on the CPU (the plain
+    versions): the solve, means and variances."""
     rng = np.random.default_rng(7)
     x = rng.uniform(0, 8, (1000, 2))
     y = np.sin(x[:, 0]) * np.cos(0.5 * x[:, 1]) + rng.normal(0, 0.01, 1000)
@@ -338,6 +374,8 @@ def test_large_scale_gp_on_card_matches_cpu(cuda, store_entries):
     launched = {k: df64.KERNEL_LAUNCHES[k] - before[k] for k in before}
     if store_entries == "auto":
         assert launched["B5"] == 1 and launched["B6"] > 0
+    elif store_entries == "f32":
+        assert launched["B7"] == 1 and launched["B8"] > 0 and launched["B3"] > 0
     else:
         assert launched["B3"] > 0 and launched["B5"] == 0
     assert on_card.residual_norm_f64("host") < 1e-9

@@ -1,5 +1,5 @@
 """The df64 tier's operations in the PyTorch port against float64 numpy and
-the JAX package: the plain versions of kernels B3-B6
+the JAX package: the plain versions of kernels B3-B8
 (inference_tpu_torch/ops/df64.py), the storage policy, and the chunked
 solvers of ops/solvers.py. The kernels themselves are tested on the card by
 test_torch_cuda.py.
@@ -7,15 +7,19 @@ test_torch_cuda.py.
 Tolerances, with reasons:
 
 - plain versions against a float64 numpy truth with exact differences: B5
-  1e-14 relative (the same operations, only exp may differ by an ulp); B3,
-  B4 and B6 1e-13 of sum_j |E_ij| |V_jk| per row (the sums run in another
-  order than numpy's);
+  1e-14 relative (the same operations, only exp may differ by an ulp); B7
+  the same entries rounded to nearest float32, so 2^-24 relative plus that
+  ulp; B3, B4, B6 and B8 1e-13 of sum_j |E_ij| |V_jk| per row (the sums run
+  in another order than numpy's);
 - the port against the JAX kernels (interpret mode): the JAX side's own
   accuracy contract (tests/test_df64.py), since the pair arithmetic carries
   about 1e-8 of error: entries 5e-8 relative where E > 1e-25 and 1e-8
   absolute, products 1e-7 of max |truth|. Differences below 1e-37 come from
   the pair exponential's flush of arguments below -87 to zero
-  (``_exp_parts_m``), not from the port;
+  (``_exp_parts_m``), not from the port. The float32 stores (B7) differ by
+  at most one float32 ulp, where the pair's error moves a value across a
+  rounding boundary; over the same float32 store the two products (B8) are
+  both exact to float64 summation, so they agree to 1e-13;
 - the solvers on a shared dense float64 operator: 1e-10 relative, the same
   ``info``.
 """
@@ -89,6 +93,33 @@ def test_fused_and_stored_plain_match_numpy(d, q):
         _within_row_scale(df64.sqexp_stored_matvec_df64(torch.as_tensor(E), V[:, 0]), E, V)
 
 
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_entries_f32_plain_is_the_rounded_fp64_entry(d):
+    """B7's plain version is B5's, rounded to nearest float32: within 2^-24
+    of the float64 numpy truth (plus B5's ulp) and equal to the rounding of
+    B5's plain version bit for bit."""
+    uh, ul, _ = _coords(N, d, seed=30 + d)
+    E32 = df64.sqexp_entries_f32(uh, ul)
+    assert E32.dtype == torch.float32 and E32.shape == (N, N)
+    assert torch.equal(E32, df64.sqexp_entries_df64(uh, ul).float())
+    truth = _truth(uh, ul)
+    mask = truth > 1e-30
+    err = np.abs(E32.numpy().astype(np.float64) - truth)[mask]
+    assert np.all(err <= (2.0**-24 + 1e-15) * truth[mask])
+
+
+@pytest.mark.parametrize("q", [1, 3, 16])
+def test_stored_f32_plain_is_exact_over_the_store(q):
+    """B8's plain version: the float64 product of the float32 store with V
+    (every product exact), within 1e-13 of sum_j |E_ij| |V_jk|."""
+    uh, ul, _ = _coords(N, 2, seed=40 + q)
+    V = np.random.default_rng(q).normal(size=(N, q)).astype(np.float32)
+    E32 = df64.sqexp_entries_f32(uh, ul)
+    Y = df64.sqexp_stored_f32_matmat(E32, V)
+    assert Y.dtype == torch.float64 and Y.shape == (N, q)
+    _within_row_scale(Y, E32.numpy().astype(np.float64), V)
+
+
 def test_plain_row_blocks_cover_every_row(monkeypatch):
     """The plain versions work in row blocks; with blocks of 100 rows (not a
     divisor of 256) they give the unblocked result."""
@@ -109,11 +140,14 @@ def jax_kernels(request):
     d = request.param
     uh, ul, V = _coords(N, d, seed=20 + d, scale=6.0)
     Eh, El = jdf64.sqexp_entries_df64(uh, ul, interpret=True)
+    E32 = jdf64.sqexp_entries_f32(uh, ul, interpret=True)
     return {
         "d": d, "uh": uh, "ul": ul, "V": V, "Eh": np.array(Eh), "El": np.array(El),
+        "E32": np.array(E32),
         "matvec": np.asarray(jdf64.sqexp_matvec_df64(uh, ul, V[:, 0], interpret=True)),
         "matmat": np.asarray(jdf64.sqexp_matmat_df64(uh, ul, V[:, :4], interpret=True)),
         "stored": np.asarray(jdf64.sqexp_stored_matmat_df64(Eh, El, V[:, :4], interpret=True)),
+        "stored_f32": np.asarray(jdf64.sqexp_stored_f32_matmat(E32, V[:, :4], interpret=True)),
     }
 
 
@@ -125,6 +159,20 @@ def test_entries_match_jax_kernel(jax_kernels):
     assert np.all(np.abs(E_jax - E)[mask] <= 5e-8 * E[mask])
     # below ~1e-37 the pair exponential flushes to zero (ah < -87)
     assert np.abs(E_jax - E).max() <= 1e-8
+
+
+def test_entries_f32_match_jax_kernel(jax_kernels):
+    """B7 against the JAX kernel: at most one float32 ulp apart, where the
+    pair evaluation's ~1e-8 error crosses a rounding boundary."""
+    k = jax_kernels
+    E32 = df64.sqexp_entries_f32(k["uh"], k["ul"]).numpy()
+    E_jax = k["E32"]
+    assert E32.dtype == E_jax.dtype == np.float32
+    mask = E32 > 1e-25
+    ulps = np.abs(E32.view(np.int32) - E_jax.view(np.int32))[mask]
+    assert ulps.max() <= 1
+    # below ~1e-37 the pair exponential flushes to zero (ah < -87)
+    assert np.abs(E32.astype(np.float64) - E_jax)[~mask].max() <= 1e-25
 
 
 @pytest.mark.parametrize("which", ["matvec", "matmat", "stored", "stored_pair"])
@@ -145,6 +193,19 @@ def test_products_match_jax_kernels(jax_kernels, which):
     ours = ours.numpy()
     assert ours.shape == ref.shape and ours.dtype == np.float64
     assert np.abs(ours - ref).max() <= 1e-7 * np.abs(ref).max()
+
+
+def test_stored_f32_matches_jax_kernel(jax_kernels):
+    """B8 on the JAX package's own float32 store against its kernel: both
+    are exact products summed in (pair or native) float64, so they agree to
+    1e-13 of max |truth|; on the port's store, to the JAX contract."""
+    k = jax_kernels
+    V, ref = k["V"][:, :4], k["stored_f32"]
+    ours = df64.sqexp_stored_f32_matmat(k["E32"], V).numpy()
+    assert ours.shape == ref.shape and ours.dtype == np.float64
+    assert np.abs(ours - ref).max() <= 1e-13 * np.abs(ref).max()
+    own = df64.sqexp_stored_f32_matmat(df64.sqexp_entries_f32(k["uh"], k["ul"]), V).numpy()
+    assert np.abs(own - ref).max() <= 1e-7 * np.abs(ref).max()
 
 
 def test_split_f64_matches_jax():
@@ -183,22 +244,32 @@ def test_padding_and_operand_contracts():
         df64.sqexp_matmat_df64(uh, ul, np.zeros((N, 17), np.float32))
     with pytest.raises(ValueError, match="dimensions"):
         df64.sqexp_entries_df64(np.zeros((128, 17), np.float32), np.zeros((128, 17), np.float32))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        df64.sqexp_entries_f32(bad, bad)
+    with pytest.raises(TypeError, match="float32"):
+        df64.sqexp_stored_f32_matmat(torch.zeros((N, N), dtype=torch.float64), V)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        df64.sqexp_stored_f32_matmat(np.zeros((100, 100), np.float32), np.zeros((100, 1), np.float32))
 
 
 def test_stored_entries_tier_policy():
-    """The FP64 store up to 81,920 padded rows (53.7 GB of 80); beyond, 'auto'
-    takes the fused kernel and warns, True raises; 'f32' is not ported."""
+    """The FP64 store up to 81,920 padded rows (53.7 GB of 80), then 'auto'
+    takes the float32 store up to 114,688 (52.6 GB) and beyond that the
+    fused kernel, with a warning; True raises beyond 81,920; 'f32' stores
+    in float32 at any size."""
     assert df64.stored_entries_tier(1024, "auto") == "f64"
     assert df64.stored_entries_tier(53_248, "auto") == "f64"
     assert df64.stored_entries_tier(81_920, True) == "f64"
+    assert df64.stored_entries_tier(86_016, "auto") == "f32"
+    assert df64.stored_entries_tier(114_688, "auto") == "f32"
     with pytest.warns(UserWarning, match="fused"):
-        assert df64.stored_entries_tier(86_016, "auto") is None
+        assert df64.stored_entries_tier(118_784, "auto") is None
     with pytest.raises(ValueError, match="81920"):
         df64.stored_entries_tier(86_016, True)
     assert df64.stored_entries_tier(1024, False) is None
     assert df64.stored_entries_tier(200_000, False) is None
-    with pytest.raises(NotImplementedError, match="B7/B8"):
-        df64.stored_entries_tier(1024, "f32")
+    assert df64.stored_entries_tier(1024, "f32") == "f32"
+    assert df64.stored_entries_tier(53_248, "f32") == "f32"
 
 
 # --------------------------------------------------------------------- #
@@ -235,6 +306,36 @@ def test_multi_solver_matches_jax_on_a_shared_operator():
     assert np.abs(X.numpy() - X_j).max() <= 1e-10 * np.abs(X_j).max()
     rel = np.linalg.norm(A @ X.numpy() - B, axis=0) / np.linalg.norm(B, axis=0)
     assert rel.max() < 1e-12
+
+
+def test_multi_solver_with_a_fast_operator_matches_jax():
+    """Df64MultiSolver with ``matmat_fast`` (mixed-precision iterative
+    refinement) in both packages on one problem: the accurate operator the
+    sqexp matrix of 256 points plus sigma^2 = 1e-2 in float64, the fast one
+    the same matrix rounded to float32 (products exact in float64, as B8
+    forms them), q = 4, chunks of 20 iterations (unpreconditioned, chunks of
+    4 stall near 3e-4 here). X to 1e-10 relative, the same info, and the
+    true residual at the accurate operator's level."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 6, (N, 2))
+    E = np.exp(-0.5 * ((x[:, None] - x[None]) ** 2).sum(-1))
+    A = E + 1e-2 * np.eye(N)
+    A32 = E.astype(np.float32).astype(np.float64) + 1e-2 * np.eye(N)
+    B = rng.normal(size=(N, 4))
+    A_j, A32_j = jnp.asarray(A), jnp.asarray(A32)
+    jsolver = jsolvers.Df64MultiSolver(
+        lambda V32: A_j @ V32.astype(jnp.float64), restart_every=20,
+        matmat_fast=lambda V32, M: M @ V32.astype(jnp.float64), matmat_fast_args=(A32_j,))
+    X_j, info_j = jsolver.solve(jnp.asarray(B), tol=1e-11, maxiter=2000)
+    solver = solvers.Df64MultiSolver(_dense_op(A), restart_every=20,
+                                     matmat_fast=lambda V32, M: M @ V32.double(),
+                                     matmat_fast_args=(torch.as_tensor(A32),))
+    X, info = solver.solve(torch.as_tensor(B), tol=1e-11, maxiter=2000)
+    X_j = np.asarray(X_j)
+    assert info == int(info_j) == 0 and solver.chunks_run > 1
+    assert np.abs(X.numpy() - X_j).max() <= 1e-10 * np.abs(X_j).max()
+    rel = np.linalg.norm(A @ X.numpy() - B, axis=0) / np.linalg.norm(B, axis=0)
+    assert rel.max() < 1e-11
 
 
 def test_df64_pcg_ill_conditioned_matches_jax():
