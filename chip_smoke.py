@@ -1,6 +1,6 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
-(kernel B1), dense GP regression (kernel B2) and the matrix-free
-small-noise GP (kernels B3-B8).
+(kernel B1), dense GP regression (kernel B2), the matrix-free
+small-noise GP (kernels B3-B8) and the probes P1-P3 that measure B3.
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit:
@@ -13,9 +13,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles kernels B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``),
    B2 (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5/B7
-   (``.../sqexp_entries.cu``) and B6/B8 (``.../sqexp_stored.cu``) with nvcc,
-   one process each, started together; times each build and prints the
-   ``-Xptxas -v`` registers and spills;
+   (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
+   probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
+   (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
+   together; times each build and prints the ``-Xptxas -v`` registers and
+   spills;
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition; (b) the same with
    64 transitions and the history; (c) P=32, diagonal mass, inv_temp 0.5,
@@ -59,13 +61,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
     warm solve with each store;
 11. gp-large-16k: the same at N=16,384 against a dense FP64 Cholesky on
     the card: the training solve (1e-8 of max |alpha|), means (1e-6) and
-    variances (1e-9) at 16 points.
+    variances (1e-9) at 16 points;
+12. the probes at full width, n = 53,248, d = 2 (their own U[0, 10]^2
+    generator, the distribution of gp-large-50k's coordinates): P1 bit for
+    bit against its plain version in float32 and float64, every mode and
+    chain count; every P2 variant against its plain version (1e-13 of
+    sum|term||w|, d2exp32 1e-4); P3's class sums on one 16 x 8 tile
+    exactly, its matvec against its plain version (1e-13) and B3 (1e-11).
+    Then each probe's own entry point, its launch count set to 0 before and
+    read after: P1 under ``nvidia-smi``'s SM clock and power readings, every
+    configuration timed with its bound; the SASS instruction mix of the hot
+    loops of B3, P2 and P3 with the time the SMs need to issue it; P2 every
+    variant and B3; P3 beside B3 and against the float64 truth; then the
+    plain versions timed.
 
 The second-to-last lines are a JSON object describing the kernels (each
 with its bound, plain version and library call) and the ``nvidia-smi``
 line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import gc
 import json
 import os
@@ -84,32 +99,15 @@ from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
+                                        time_events, vpu_probe)
+from inference_tpu_torch.probes import df64_mxu_d2_experiment as words
 
 N_DIM = 10
 N_CHAINS = 65_536
 HMC_STEPS = 50
 RTOL, ATOL = 1e-4, 1e-5  # per-chain kernel-vs-plain tolerance in float32
 MIN_AGREE = 0.999        # share of chains that must agree
-
-# Peak rates of one H100 SXM (NVIDIA's data sheet, at the 700 W limit):
-# device memory, float32 outside the tensor cores, float64 outside the
-# tensor cores (the data sheet gives 34 TFLOP/s for float64; 132 SMs x 64
-# FP64 lanes x 2 x 1.98 GHz = 33.5).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-FP64_FLOPS = 33.5e12
-# FP64 flops of one double exp as CUDA 12.8 compiles it, an FMA counted as
-# two: 14 DFMA, 3 DADD and 1 DMUL per entry beyond the distance, read off
-# the SASS of B5's d = 2 kernel (the build phase prints that mix)
-EXP_FLOPS = 32
-
-
-def bound(n_bytes, flops, peak_flops):
-    """The least time (ms) for the work, and what bounds it: bytes over the
-    memory rate or operations over the peak rate of their type."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
 
 def make_cov():
     """The covariance of ``bench.py``'s 10-dim correlated Gaussian."""
@@ -133,7 +131,8 @@ def phase_device():
 
 
 KERNELS = {"hmc_fused": "B1", "sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
-           "sqexp_stored": "B6/B8"}
+           "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
+           "sqexp_words_mma": "P3"}
 
 
 def _timed_build(name):
@@ -159,16 +158,24 @@ def phase_build():
     _print_fp64_mix()
 
 
+@functools.lru_cache(maxsize=None)
+def _sass(name):
+    """The SASS of ``name``'s library by cuobjdump, or None without it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=120).stdout
+
+
 def _print_fp64_mix():
     """The FP64 instruction mix of B5's d = 2 kernel per entry (its unrolled
     body writes 8 entries), from cuobjdump where the toolkit has it: the
     basis of EXP_FLOPS."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    sass = _sass("sqexp_entries")
+    if sass is None:
         print("[build] cuobjdump not found; FP64 instruction mix not read")
         return
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("sqexp_entries"))],
-                          capture_output=True, text=True, timeout=120).stdout
     body = sass.split("sqexp_entries_kernelIdLi2EE")[1].split("Function :")[0]
     mix = {op: len(re.findall(rf"\b{op}\b", body)) / 8 for op in ("DFMA", "DADD", "DMUL")}
     print(f"[build] B5 (d = 2) SASS, FP64 instructions per entry: {mix}")
@@ -492,18 +499,6 @@ def phase_b2_checks(x16k):
     return out
 
 
-def _time_events(fn, args, reps):
-    fn(*args)  # warm-up
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn(*args)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def _cdist_exp(u, v, amplitude, lengthscales):
     """The nearest library yardstick of B2: ``torch.cdist`` of the scaled
     rows, then the square, scale, exp and amplitude as in-place passes (no
@@ -520,11 +515,11 @@ def phase_b2_timing(x16k):
     for dtype in (F64, torch.float32):
         u, amp, ls = _gp_operands(x16k, dtype)
         args = (u, u, amp, ls)
-        plain = [_time_events(pairwise._sqexp_reference, args, 3)]
-        kern = [_time_events(pairwise._launch_sqexp, args, 20)]
-        plain.append(_time_events(pairwise._sqexp_reference, args, 3))
-        kern.append(_time_events(pairwise._launch_sqexp, args, 20))
-        lib = _time_events(_cdist_exp, args, 5)
+        plain = [time_events(pairwise._sqexp_reference, args, 3)]
+        kern = [time_events(pairwise._launch_sqexp, args, 20)]
+        plain.append(time_events(pairwise._sqexp_reference, args, 3))
+        kern.append(time_events(pairwise._launch_sqexp, args, 20))
+        lib = time_events(_cdist_exp, args, 5)
         m, d = u.shape
         size = u.element_size()
         b_ms, b_by = bound(size * (m * m + 2 * m * d), m * m * (3 * d + 2 + EXP_FLOPS),
@@ -788,10 +783,10 @@ def phase_df64_checks(xpad):
 def _turns(kernel, plain, args, reps_kernel, reps_plain):
     """CUDA-event ms of a kernel and its plain version in turns (plain,
     kernel, plain, kernel); returns the two lists."""
-    p = [_time_events(plain, args, reps_plain)]
-    k = [_time_events(kernel, args, reps_kernel)]
-    p.append(_time_events(plain, args, reps_plain))
-    k.append(_time_events(kernel, args, reps_kernel))
+    p = [time_events(plain, args, reps_plain)]
+    k = [time_events(kernel, args, reps_kernel)]
+    p.append(time_events(plain, args, reps_plain))
+    k.append(time_events(kernel, args, reps_kernel))
     return k, p
 
 
@@ -828,7 +823,7 @@ def phase_df64_timing(operands):
     k, p = _turns(lambda: df64.sqexp_entries_df64(uh, ul), lambda: df64._entries_reference(us),
                   (), 5, 1)
     ones = torch.ones((), dtype=torch.float64, device=CUDA)
-    lib = _time_events(_cdist_exp, (us, us, ones, torch.ones(d, dtype=torch.float64,
+    lib = time_events(_cdist_exp, (us, us, ones, torch.ones(d, dtype=torch.float64,
                                                                 device=CUDA)), 2)
     row = report("B5", f"n={n} (cdist + exp {lib:.4f} ms)", k, p,
                  bound(8 * n2 + 8 * n * d, n2 * entry, FP64_FLOPS))
@@ -839,7 +834,7 @@ def phase_df64_timing(operands):
         k, p = _turns(lambda v: df64.sqexp_stored_matmat_df64(E, v),
                       lambda v: df64._stored_reference(E, v), (Vq,), 10, 3)
         V64 = Vq.double()
-        lib = _time_events(torch.matmul, (E, V64), 10)
+        lib = time_events(torch.matmul, (E, V64), 10)
         rows[f"B6 q={q}"] = report("B6", f"n={n} q={q}", k, p,
                                    bound(8 * n2 + 12 * n * q, 2 * q * n2, FP64_FLOPS), lib)
     del E
@@ -851,7 +846,7 @@ def phase_df64_timing(operands):
     for q, Vq in ((1, V1), (8, V8)):
         k, p = _turns(lambda v: df64.sqexp_stored_f32_matmat(E32, v),
                       lambda v: df64._stored_reference(E32, v), (Vq,), 10, 3)
-        yard = _time_events(torch.matmul, (E32, Vq), 10)
+        yard = time_events(torch.matmul, (E32, Vq), 10)
         row = report("B8", f"n={n} q={q} (float32 torch.matmul {yard:.4f} ms)", k, p,
                      bound(4 * n2 + 12 * n * q, 2 * q * n2, FP64_FLOPS))
         rows[f"B8 q={q}"] = {**row, "matmul_f32_ms": yard}
@@ -1009,6 +1004,225 @@ def phase_large_16k():
     del gp, L
     torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+# the probes P1-P3: kernel B3's measurement harnesses
+# ---------------------------------------------------------------------------
+
+SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"),
+                "int": ("IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX",
+                        "IABS"),
+                "compare": ("DSETP", "FSETP"), "move": ("MOV", "UMOV", "CS2R", "S2R"),
+                "shared": ("LDS", "STS"), "shuffle": ("SHFL",), "tensor": ("IMMA", "HMMA", "DMMA"),
+                "convert": ("I2F", "F2I", "F2F", "I2I"), "branch": ("BRA", "BSSY", "BSYNC")}
+
+
+def _hot_loop_mix(name, symbol, entries):
+    """Instructions per entry of the innermost loop that holds FP64 work in
+    one kernel of ``name``'s library, read off its SASS with cuobjdump: the
+    loop is the smallest span from a backward branch's target to the branch;
+    ``entries`` is the number of entries one thread evaluates per trip.
+    Returns {class: count per entry, "all": every instruction} or None
+    without cuobjdump."""
+    sass = _sass(name)
+    if sass is None:
+        return None
+    body = sass.split(symbol)[1].split("Function :")[0]
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
+    where = {a: k for k, (a, _, _) in enumerate(ins)}
+    loops = []
+    for k, (a, op, rest) in enumerate(ins):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if target and int(target.group(1), 16) < a and int(target.group(1), 16) in where:
+            loop = [o for _, o, _ in ins[where[int(target.group(1), 16)]:k + 1]]
+            if sum(o in SASS_CLASSES["fp64"] for o in loop) >= 4:
+                loops.append(loop)
+    if not loops:
+        return None
+    loop = min(loops, key=len)
+    mix = {c: sum(o in names for o in loop) / entries for c, names in SASS_CLASSES.items()}
+    mix["other"] = len(loop) / entries - sum(mix.values())
+    mix["all"] = len(loop) / entries
+    return mix
+
+
+# (label, library, mangled-name fragment, entries per thread per trip of the
+# hot loop): B3 itself, and the P2 and P3 kernels whose loops differ from it
+HOT_LOOPS = (("B3", "sqexp_fused", "sqexp_fused_kernelILi2ELi1EE", 2),
+             ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2),
+             ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2),
+             ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4),
+             ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8),
+             ("P3", "sqexp_words_mma", "sqexp_words_mma_kernelEPKa", 4))
+
+
+def _print_hot_loops(n, clock_hz):
+    """Each HOT_LOOPS kernel's instructions per entry and the time the SMs
+    need to issue them (one warp instruction per cycle on each of the 4
+    schedulers of 132 SMs at ``clock_hz``) for n^2 entries."""
+    mixes = {}
+    for label, lib, symbol, entries in HOT_LOOPS:
+        mix = _hot_loop_mix(lib, symbol, entries)
+        if mix is None:
+            print(f"[sass] {label}: hot loop not read (no cuobjdump or no loop found)")
+            continue
+        issue_ms = float(n) * n / 32 * mix["all"] / (4 * 132 * clock_hz) * 1e3
+        fp64_ms = float(n) * n / 32 * mix["fp64"] * 2 / (4 * 132 * clock_hz) * 1e3
+        mixes[label] = {**mix, "issue_ms": issue_ms, "fp64_pipe_ms": fp64_ms}
+        print(f"[sass] {label} hot loop, instructions per entry: "
+              + ", ".join(f"{k} {c:g}" for k, c in mix.items())
+              + f"; issuing them takes {issue_ms:.4f} ms at n={n}, the FP64 pipe {fp64_ms:.4f} ms")
+    return mixes
+
+
+def phase_probe_checks(n):
+    """P1-P3 against their plain versions on the card: P1 bit for bit in
+    every dtype, mode and chain count on 8 copies of the tile; every P2
+    variant at n; P3's class sums on one 16 x 8 tile exactly, then its
+    matvec at n against its plain version and against B3. Returns the max
+    abs errors by kernel."""
+    mismatches = 0
+    for dtype in vpu_probe.DTYPES:
+        x = vpu_probe.make_tile(dtype, CUDA)
+        for mode in vpu_probe.MODES:
+            for n_chains in vpu_probe.CHAINS:
+                k = vpu_probe.issue_probe(x, 128, n_chains, mode, reps=8)
+                p = vpu_probe._probe_reference(x, 128, n_chains, mode)
+                mismatches += int((~((k == p) | (k.isnan() & p.isnan()))).sum())
+    torch.cuda.synchronize()
+    print(f"[check 12a] P1: {mismatches} of {2 * 4 * 4 * 128 * 128} values differ from the plain "
+          f"version over 2 dtypes x 4 modes x 4 chain counts (bit for bit expected)")
+    if mismatches:
+        raise RuntimeError(f"check 12a: P1 differs from its plain version in {mismatches} values")
+
+    errs = {"P1": 0.0}
+    uh, ul, us, v = df64_ablate.make_inputs(n, CUDA)
+    worst = {}
+    for fn in ("d2", "d2exp32", "d2exp", "noexp", "full"):
+        ref = df64_ablate._ablate_reference(us, v, fn)
+        scale = df64_ablate._ablate_reference(us, v.abs(), fn)
+        tol = 1e-4 if fn == "d2exp32" else DF64_TOL
+        for variant in df64_ablate.VARIANTS:
+            if df64_ablate.function_of(variant) != fn:
+                continue
+            got = df64_ablate.sqexp_ablate(us, v, variant)
+            max_abs, rel = _scaled_err(got, ref, scale)
+            worst[variant] = (max_abs, rel)
+            if not (rel <= tol and bool(torch.isfinite(got).all())):
+                raise RuntimeError(f"check 12b: P2 {variant} disagrees with its plain version "
+                                   f"({rel}, limit {tol:g})")
+        del ref, scale
+    print(f"[check 12b] P2 n={n}, max err / sum|term||w| (max abs err) by variant, limit "
+          f"{DF64_TOL:g} (d2exp32 1e-4): "
+          + ", ".join(f"{k} {r:.2e} ({a:.2e})" for k, (a, r) in worst.items()))
+    errs["P2"] = worst["full"][0]
+
+    ops = words.prepare(us.cpu().numpy(), CUDA)
+    tile, tile_ref = words._launch_tile(ops), words._tile_reference(ops)
+    torch.cuda.synchronize()
+    print(f"[check 12c] P3 one 16 x 8 tile of the 7 class sums: "
+          f"{int((tile != tile_ref).sum())} of {tile.numel()} differ (exact expected)")
+    if not torch.equal(tile, tile_ref):
+        raise RuntimeError("check 12c: the MMA fragment layout is wrong")
+    got = words.words_matvec(ops, v)
+    scale = df64._fused_reference(us, us, v.abs()[:, None])[:, 0]
+    b3 = df64.sqexp_matvec_df64(uh, ul, v)
+    max_abs, rel = _scaled_err(got, words._words_reference(ops, v), scale)
+    b3_abs, b3_rel = _scaled_err(got, b3, scale)
+    print(f"[check 12d] P3 n={n}: against its plain version max abs err {max_abs:.3e}, max err / "
+          f"sum|E||v| {rel:.3e} (limit {DF64_TOL:g}); against B3 {b3_abs:.3e}, {b3_rel:.3e} "
+          f"(limit 1e-11)")
+    if not (rel <= DF64_TOL and b3_rel <= 1e-11 and bool(torch.isfinite(got).all())):
+        raise RuntimeError(f"check 12d: P3 disagrees ({rel}, against B3 {b3_rel})")
+    errs["P3"] = max_abs
+    return errs
+
+
+def phase_probe_paths(n):
+    """The probes' own entry points, each with its launch count set to 0
+    just before and read just after: P1 (the SM clock under load, then every
+    dtype, mode and chain count at 512 copies of the tile), P2 (every variant
+    and B3 at n) and P3 (the error against the float64 truth and the time
+    beside B3 at n). Then the plain versions timed on the same inputs."""
+    vpu_probe.KERNEL_LAUNCHES = 0
+    mhz, watts, samples = vpu_probe.sm_clock_under_load()
+    p1 = vpu_probe.run(CUDA, clock_hz=mhz * 1e6)
+    launches = {"P1": vpu_probe.KERNEL_LAUNCHES}
+    print(f"[probe P1] SM clock under the float64 load {mhz:.0f} MHz (median of {samples} "
+          f"nvidia-smi samples), power draw up to {watts:.1f} W")
+    hot = _print_hot_loops(n, mhz * 1e6)
+    for r in p1:
+        print(f"[probe P1] {r['dtype']} {r['mode']:9s} chains={r['chains']}: {r['ms']:.4f} ms, "
+              f"{r['gflops']:.1f} GFLOP/s, {r['cycles_per_warp_instr']:.3f} SM cycles per warp "
+              f"instruction, bound {r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%})")
+
+    df64_ablate.KERNEL_LAUNCHES = 0
+    p2 = df64_ablate.run(n, CUDA)
+    launches["P2"] = df64_ablate.KERNEL_LAUNCHES
+    words.KERNEL_LAUNCHES = 0
+    p3 = words.run(n, CUDA)
+    launches["P3"] = words.KERNEL_LAUNCHES
+    print(f"[probe] launches on the probes' paths: {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a probe's path launched its kernel no time: {launches}")
+
+    uh, ul, us, v = df64_ablate.make_inputs(n, CUDA)
+    plain = {fn: time_events(df64_ablate._ablate_reference, (us, v, fn), 1)
+             for fn in ("d2", "d2exp32", "d2exp", "noexp", "full")}
+    for r in p2:
+        fn = "full" if r["variant"] == "B3" else df64_ablate.function_of(r["variant"])
+        r["plain_ms"] = plain[fn]
+        print(f"[probe P2] {r['variant']:8s}: {r['ms']:.4f} ms ({r['ps_per_entry']:.4f} ps/entry), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['ms'] / r['bound_ms']:.2f}x; "
+              f"plain version {r['plain_ms']:.4f} ms")
+    ops = words.prepare(us.cpu().numpy(), CUDA)
+    p3["plain_ms"] = time_events(words._words_reference, (ops, v), 1)
+    print(f"[probe P3] n={n}: {p3['ms']:.4f} ms beside B3's {p3['b3_ms']:.4f} ms "
+          f"({p3['ms'] / p3['b3_ms']:.3f}x), bound {p3['bound_ms']:.4f} ms; plain version "
+          f"{p3['plain_ms']:.4f} ms; error against the float64 truth {p3['err']:.3e} (B3 "
+          f"{p3['b3_err']:.3e}) of max |y|; words built on the host in {p3['build_s']:.3f} s")
+    if not p3["err"] <= 1e-11:
+        raise RuntimeError(f"P3 is {p3['err']} off the float64 truth")
+    x = vpu_probe.make_tile(torch.float64, CUDA)
+    p1_plain = time_events(vpu_probe._probe_reference, (x, 128, 8, "vv", vpu_probe.REPS), 1)
+    print(f"[probe P1] plain version, float64 vv 8 chains at {vpu_probe.REPS} copies: "
+          f"{p1_plain:.4f} ms")
+    return {"P1": p1, "P2": p2, "P3": p3, "p1_plain_ms": p1_plain, "launches": launches,
+            "clock_mhz": mhz, "power_w": watts, "hot_loops": hot}
+
+
+def _probe_rows(probe, errs):
+    """The probes' entries of the kernels JSON line: each headline (P1 float64
+    vv with 8 chains, P2 full, P3) with every configuration beside it."""
+    src = "inference_tpu_torch/ops/csrc/"
+    p1 = next(r for r in probe["P1"] if r["dtype"] == "float64" and r["mode"] == "vv"
+              and r["chains"] == 8)
+    full = next(r for r in probe["P2"] if r["variant"] == "full")
+    p3 = probe["P3"]
+    return [{
+        "name": "issue_probe_kernel<double, vv, 8 chains>", "route": "cuda",
+        "source": src + "issue_probe.cu", "replaces": "benchmarks/vpu_probe.py:37",
+        "launches": probe["launches"]["P1"], "max_abs_err": errs["P1"], "ms": p1["ms"],
+        "plain_ms": probe["p1_plain_ms"], "bound_ms": p1["bound_ms"], "bound_by": "operations",
+        "library_ms": None, "sm_clock_mhz": probe["clock_mhz"], "power_w": probe["power_w"],
+        "configs": [{k: r[k] for k in ("dtype", "mode", "chains", "ms", "bound_ms",
+                                       "cycles_per_warp_instr")} for r in probe["P1"]],
+    }, {
+        "name": "sqexp_ablate_kernel<full>", "route": "cuda", "source": src + "sqexp_ablate.cu",
+        "replaces": "benchmarks/df64_ablate.py:46", "launches": probe["launches"]["P2"],
+        "max_abs_err": errs["P2"], "ms": full["ms"], "plain_ms": full["plain_ms"],
+        "bound_ms": full["bound_ms"], "bound_by": full["bound_by"], "library_ms": None,
+        "variants": {r["variant"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms")}
+                     for r in probe["P2"]},
+        "hot_loops": probe["hot_loops"],
+    }, {
+        "name": "sqexp_words_mma_kernel", "route": "cuda", "source": src + "sqexp_words_mma.cu",
+        "replaces": "benchmarks/df64_mxu_d2_experiment.py:72",
+        "launches": probe["launches"]["P3"], "max_abs_err": errs["P3"], "ms": p3["ms"],
+        "plain_ms": p3["plain_ms"], "bound_ms": p3["bound_ms"], "bound_by": p3["bound_by"],
+        "library_ms": None, "b3_ms": p3["b3_ms"], "err_vs_truth": p3["err"],
+    }]
+
 
 def main():
     t_start = time.perf_counter()
@@ -1041,6 +1255,10 @@ def main():
     del operands
     large_launches, runs = phase_large_main()
     phase_large_16k()
+    t_probes = time.perf_counter()
+    probe_err = phase_probe_checks(len(xpad))
+    probe = phase_probe_paths(len(xpad))
+    print(f"[summary] probes P1-P3 in {time.perf_counter() - t_probes:.1f} s")
     print(f"[summary] gp-large-50k warm solve: {runs['auto']['warm_s']:.3f} s with the FP64 "
           f"store (B6), {runs[False]['warm_s']:.3f} s fused (B3), {runs['f32']['warm_s']:.3f} s "
           f"with the float32 store (B8, B3 refreshes); all phases done at "
@@ -1093,7 +1311,7 @@ def main():
                           "cdist_exp_ms": b2_ms[dt][2], "bound_ms": b2_ms[dt][3]}
             for dt in (F64, torch.float32)
         },
-    }, *df64_rows]}))
+    }, *df64_rows, *_probe_rows(probe, probe_err)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -187,13 +187,6 @@ class GpRegressor:
         self._ingest_data(x, y, y_err, y_cov)
 
         self.cross_val = cross_val
-        if cross_val:
-            self.model_selector = self.loo_likelihood
-            self.model_selector_gradient = self.loo_likelihood_gradient
-        else:
-            self.model_selector = self.marginal_likelihood
-            self.model_selector_gradient = self.marginal_likelihood_gradient
-
         if hyperpars is None:
             hyperpars = self.fit(optimizer=optimizer, n_starts=n_starts, n_processes=n_processes)
         self.set_hyperparameters(hyperpars)
@@ -412,6 +405,19 @@ class GpRegressor:
     def loo_likelihood_gradient(self, theta):
         """The leave-one-out likelihood and its gradient by autograd."""
         return self._value_and_grad(self._loo_of, theta)
+
+    # The fit's objective, chosen by ``cross_val`` at each call. Properties,
+    # not bound methods stored on the instance: a stored bound method is a
+    # reference cycle that keeps a deleted model's device tensors alive until
+    # the garbage collector runs.
+    @property
+    def model_selector(self):
+        return self.loo_likelihood if self.cross_val else self.marginal_likelihood
+
+    @property
+    def model_selector_gradient(self):
+        return (self.loo_likelihood_gradient if self.cross_val
+                else self.marginal_likelihood_gradient)
 
     # ------------------------------------------------------------------ #
     # state

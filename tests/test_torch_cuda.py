@@ -1,6 +1,7 @@
 """Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu), B2
-(inference_tpu_torch/ops/csrc/sqexp.cu) and B3-B8 (ops/csrc/sqexp_fused.cu,
-sqexp_entries.cu, sqexp_stored.cu) on a CUDA device: each against its
+(inference_tpu_torch/ops/csrc/sqexp.cu), B3-B8 (ops/csrc/sqexp_fused.cu,
+sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
+sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
 checks; the fused ChainArray, the GpRegressor and the LargeScaleGP end to
 end.
@@ -21,6 +22,8 @@ from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.probes import df64_ablate, vpu_probe
+from inference_tpu_torch.probes import df64_mxu_d2_experiment as p3
 
 RTOL, ATOL = 1e-4, 1e-5  # float32 kernel vs float32 plain version
 
@@ -36,7 +39,7 @@ def _one_torch_thread():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (kernels B1-B6 have no CPU form)")
+        pytest.skip("needs a CUDA device (kernels B1-B8 and P1-P3 have no CPU form)")
     return torch.device("cuda")
 
 
@@ -384,3 +387,73 @@ def test_large_scale_gp_on_card_matches_cpu(cuda, store_entries):
     q = rng.uniform(1, 7, (16, 2))
     for a, b in zip(on_card(q, with_variance=True), on_cpu(q, with_variance=True)):
         np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9)
+
+
+# The probes P1-P3 against their plain versions on the card: P1 bit for bit
+# (one rounded operation each, in the kernel and in torch); P2 and P3 sum
+# over j in another order than the plain versions' matmuls, so 1e-13 of
+# sum_j |term_ij| |w_j| (d2exp32, float32 throughout, 1e-4); P3 against B3
+# 1e-11, the words' truncation.
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", vpu_probe.MODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_issue_probe_kernel_equals_plain(cuda, dtype, mode):
+    x = vpu_probe.make_tile(dtype, cuda, seed=1)
+    for n_chains in vpu_probe.CHAINS:
+        before = vpu_probe.KERNEL_LAUNCHES
+        got = vpu_probe.issue_probe(x, 128, n_chains, mode, reps=8)
+        ref = vpu_probe._probe_reference(x, 128, n_chains, mode)
+        torch.cuda.synchronize()
+        assert vpu_probe.KERNEL_LAUNCHES == before + 1
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", df64_ablate.VARIANTS)
+def test_ablate_kernel_matches_plain(cuda, variant):
+    _, _, us, v = df64_ablate.make_inputs(4096, cuda, seed=2)
+    before = df64_ablate.KERNEL_LAUNCHES
+    got = df64_ablate.sqexp_ablate(us, v, variant)
+    ref = df64_ablate._ablate_reference(us, v, variant)
+    scale = df64_ablate._ablate_reference(us, v.abs(), variant)
+    torch.cuda.synchronize()
+    assert df64_ablate.KERNEL_LAUNCHES == before + 1
+    assert got.dtype == ref.dtype and bool(torch.isfinite(got).all())
+    tol = 1e-4 if variant == "d2exp32" else DF64_ATOL
+    assert float(((got - ref).abs() / scale).max()) <= tol
+
+
+@pytest.mark.cuda
+def test_words_mma_tile_and_matvec(cuda):
+    """One 16 x 8 tile of the class sums equals the plain version's exactly;
+    the matvec matches its plain version and B3."""
+    uh, ul, us, v = df64_ablate.make_inputs(4096, cuda, seed=3)
+    ops = p3.prepare(us.cpu().numpy(), cuda)
+    assert torch.equal(p3._launch_tile(ops), p3._tile_reference(ops))
+    before = p3.KERNEL_LAUNCHES
+    got = p3.words_matvec(ops, v)
+    ref = p3._words_reference(ops, v)
+    scale = df64._fused_reference(us, us, v.abs()[:, None])[:, 0]
+    b3 = df64.sqexp_matvec_df64(uh, ul, v)
+    torch.cuda.synchronize()
+    assert p3.KERNEL_LAUNCHES == before + 1
+    assert float(((got - ref).abs() / scale).max()) <= DF64_ATOL
+    assert float(((got - b3).abs() / scale).max()) <= 1e-11
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_raise(cuda):
+    """The probes' launch wrappers raise on a wrong dtype or a CPU/CUDA mix;
+    they never cast or fall back."""
+    _, _, us, v = df64_ablate.make_inputs(256, cuda, seed=0)
+    with pytest.raises(TypeError):
+        df64_ablate.sqexp_ablate(us, v.double(), "full")
+    with pytest.raises(ValueError, match="device"):
+        df64_ablate.sqexp_ablate(us, v.cpu(), "full")
+    ops = p3.prepare(us.cpu().numpy(), cuda)
+    with pytest.raises(ValueError, match="device"):
+        p3.words_matvec(ops, v.cpu())
+    with pytest.raises(TypeError):
+        p3._launch_words(ops, v.double())
+    with pytest.raises(TypeError):
+        vpu_probe.issue_probe(torch.zeros((128, 128), dtype=torch.float16, device=cuda))

@@ -242,6 +242,30 @@ def test_fit_diffev_and_fit_at_construction():
     assert tg.marginal_likelihood(fitted.hyperpars) >= centre
 
 
+@pytest.mark.parametrize("cross_val", [False, True])
+def test_deleted_regressor_is_freed_without_the_collector(cross_val):
+    """The model selector dispatches on ``cross_val`` without a stored bound
+    method, so no reference cycle holds a deleted regressor (and its device
+    tensors) until the garbage collector runs."""
+    import gc
+    import weakref
+
+    x, y, err = make_data(n=30)
+    tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, cross_val=cross_val, device="cpu")
+    objective = tg.loo_likelihood if cross_val else tg.marginal_likelihood
+    assert tg.model_selector(THETA) == objective(THETA)
+    gradient = tg.loo_likelihood_gradient if cross_val else tg.marginal_likelihood_gradient
+    np.testing.assert_array_equal(tg.model_selector_gradient(THETA)[1], gradient(THETA)[1])
+    del objective, gradient
+    ref = weakref.ref(tg)
+    gc.disable()
+    try:
+        del tg
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_update_data_and_stale_state_match_jax():
     """update_data with set_state=False blocks predictions until the state
     is set again; after it both packages agree on the new data."""

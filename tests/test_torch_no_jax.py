@@ -19,6 +19,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.gp, inference_tpu_torch.ops.pairwise, inference_tpu_torch.ops.linalg",
         "inference_tpu_torch.gp.large_scale, inference_tpu_torch.ops.df64, "
         "inference_tpu_torch.ops.solvers",
+        "inference_tpu_torch.probes, inference_tpu_torch.probes.vpu_probe, "
+        "inference_tpu_torch.probes.df64_ablate, inference_tpu_torch.probes.df64_mxu_d2_experiment",
         "chip_smoke",
     ],
 )
