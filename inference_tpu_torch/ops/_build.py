@@ -5,7 +5,9 @@ first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout, named by a
 hash of its source and flags, and loaded with ``ctypes``. The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library as ``<library>.log``.
+the library as ``<library>.log``. ``bind`` types an entry point for its
+wrapper, ``stream`` gives the stream to launch on and ``raise_on`` turns
+a launcher's CUDA error code into an exception.
 """
 
 import ctypes
@@ -15,6 +17,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -82,3 +86,24 @@ def build_log(name: str) -> str:
 def load(name: str) -> ctypes.CDLL:
     """Build (at first use) and load the library of ``csrc/<name>.cu``."""
     return ctypes.CDLL(str(build(name)))
+
+
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, typed as every
+    kernel of the package declares its launcher: ``n_ptrs`` device pointers,
+    ``n_ints`` ints and the CUDA stream in, a CUDA error code out."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a launcher."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(rc: int, kernel: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"kernel {kernel} launch failed with CUDA error {rc}")

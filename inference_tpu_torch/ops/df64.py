@@ -38,7 +38,6 @@ which forms each entry with the same operations in the same order. ``KERNEL_LAUN
 launches of each kernel.
 """
 
-import ctypes
 from warnings import warn
 
 import numpy as np
@@ -139,22 +138,6 @@ def _check_block(V, n_cols, caller):
         )
 
 
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _bind(name, symbol, n_ptrs, n_ints):
-    fn = getattr(_build.load(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _raise_on(rc, kernel):
-    if rc != 0:
-        raise RuntimeError(f"kernel {kernel} launch failed with CUDA error {rc}")
-
-
 def _row_blocks(n_rows, n_cols):
     step = max(1, _BLOCK_ELEMS // max(n_cols, 1))
     return [slice(i, min(i + step, n_rows)) for i in range(0, n_rows, step)]
@@ -212,11 +195,11 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
     n_cols, q = V.shape
     splits = _splits(n_rows, n_cols, rows64.device)
     partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
-    fn = _bind("sqexp_fused", "sqexp_fused_f64", 4, 5)
+    fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 5)
     with torch.cuda.device(rows64.device):
         rc = fn(rows64.data_ptr(), cols64.data_ptr(), V.data_ptr(), partial.data_ptr(),
-                n_rows, n_cols, d, q, splits, _stream(rows64.device))
-    _raise_on(rc, kernel)
+                n_rows, n_cols, d, q, splits, _build.stream(rows64.device))
+    _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
     return partial[0] if splits == 1 else partial.sum(dim=0)
 
@@ -311,10 +294,10 @@ def _launch_entries(us64, dtype=torch.float64):
         raise TypeError(f"kernel {kernel}: us must be contiguous float64, got {us64.dtype}")
     n, d = us64.shape
     E = torch.empty((n, n), dtype=dtype, device=us64.device)
-    fn = _bind("sqexp_entries", symbol, 2, 2)
+    fn = _build.bind("sqexp_entries", symbol, 2, 2)
     with torch.cuda.device(us64.device):
-        rc = fn(us64.data_ptr(), E.data_ptr(), n, d, _stream(us64.device))
-    _raise_on(rc, kernel)
+        rc = fn(us64.data_ptr(), E.data_ptr(), n, d, _build.stream(us64.device))
+    _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
     return E
 
@@ -376,10 +359,11 @@ def _launch_stored(E, V, dtype=torch.float64):
     n_rows, n_cols = E.shape
     q = V.shape[1]
     Y = torch.empty((n_rows, q), dtype=torch.float64, device=E.device)
-    fn = _bind("sqexp_stored", symbol, 3, 3)
+    fn = _build.bind("sqexp_stored", symbol, 3, 3)
     with torch.cuda.device(E.device):
-        rc = fn(E.data_ptr(), V.data_ptr(), Y.data_ptr(), n_rows, n_cols, q, _stream(E.device))
-    _raise_on(rc, kernel)
+        rc = fn(E.data_ptr(), V.data_ptr(), Y.data_ptr(), n_rows, n_cols, q,
+                _build.stream(E.device))
+    _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
     return Y
 

@@ -31,7 +31,6 @@ CPU tensor the plain version runs instead; on a CUDA tensor the kernel
 launches or the wrapper raises.
 """
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -179,13 +178,6 @@ def _reference_chunk(
     return theta, logp, eps, tuple(torch.stack(h) for h in zip(*hist))
 
 
-def _bind(lib):
-    fn = lib.hmc_fused_chunk
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_chunk(
     theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store
 ):
@@ -252,16 +244,14 @@ def _launch_chunk(
         if store
         else None
     )
-    fn = _bind(_build.load("hmc_fused"))
+    fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5)
     ptrs = [x.data_ptr() for _, x, _, _ in operands]
     ptrs += [x.data_ptr() for x in outs]
     ptrs += [x.data_ptr() for x in hist] if store else [None] * 4
     max_steps = max(int(steps * 1.1), 1)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*ptrs, P, K, chunk, int(steps), max_steps, stream)
-    if rc != 0:
-        raise RuntimeError(f"kernel B1 launch failed with CUDA error {rc}")
+        rc = fn(*ptrs, P, K, chunk, int(steps), max_steps, _build.stream(dev))
+    _build.raise_on(rc, "B1")
     KERNEL_LAUNCHES += 1
     t_o, lp_o, ev_o, ea_o, evr_o, en_o, ec_o = outs
     return t_o, lp_o, AdaptiveScale(ev_o, ea_o, evr_o, en_o, ec_o), hist

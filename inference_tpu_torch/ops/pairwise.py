@@ -22,7 +22,6 @@ Port of ``inference_tpu.ops.pairwise``.
 
 import contextlib
 import contextvars
-import ctypes
 
 import torch
 
@@ -91,13 +90,6 @@ def _sqexp_reference(u, v, amplitude, lengthscales):
     return (amplitude**2) * torch.exp(-0.5 * dist)
 
 
-def _bind(lib, dtype):
-    fn = lib.sqexp_f64 if dtype == torch.float64 else lib.sqexp_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_sqexp(u, v, amplitude, lengthscales):
     """Launch kernel B2 on CUDA tensors, with the signature and result of
     ``_sqexp_reference``. ``u`` (M, D) and ``v`` (N, D) are contiguous,
@@ -145,13 +137,11 @@ def _launch_sqexp(u, v, amplitude, lengthscales):
     us, vs = _scaled(u, v, lengthscales)
     amp_sq = (amplitude**2).reshape(1).contiguous()
     out = torch.empty((m, n), dtype=u.dtype, device=u.device)
-    fn = _bind(_build.load("sqexp"), u.dtype)
+    fn = _build.bind("sqexp", "sqexp_f64" if u.dtype == torch.float64 else "sqexp_f32", 4, 3)
     with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
         rc = fn(us.data_ptr(), vs.data_ptr(), amp_sq.data_ptr(), out.data_ptr(),
-                m, n, d, stream)
-    if rc != 0:
-        raise RuntimeError(f"kernel B2 launch failed with CUDA error {rc}")
+                m, n, d, _build.stream(u.device))
+    _build.raise_on(rc, "B2")
     KERNEL_LAUNCHES += 1
     return out
 

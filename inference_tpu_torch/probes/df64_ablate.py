@@ -32,7 +32,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..ops import df64
+from ..ops import _build, df64
 from . import EXP_FLOPS, FP64_FLOPS, bound, time_events
 
 N = 53_248  # gp-large-50k's padded n
@@ -112,11 +112,11 @@ def _launch_ablate(us64, v, variant):
     splits = df64._splits(-(-n // rpt), n, us64.device)
     dtype = torch.float32 if variant == "d2exp32" else torch.float64
     partial = torch.empty((splits, n), dtype=dtype, device=us64.device)
-    fn = df64._bind("sqexp_ablate", "sqexp_ablate", 3, 3)
+    fn = _build.bind("sqexp_ablate", "sqexp_ablate", 3, 3)
     with torch.cuda.device(us64.device):
         rc = fn(us64.data_ptr(), v.data_ptr(), partial.data_ptr(), n, VARIANTS.index(variant),
-                splits, df64._stream(us64.device))
-    df64._raise_on(rc, "P2")
+                splits, _build.stream(us64.device))
+    _build.raise_on(rc, "P2")
     KERNEL_LAUNCHES += 1
     return partial[0] if splits == 1 else partial.sum(dim=0)
 

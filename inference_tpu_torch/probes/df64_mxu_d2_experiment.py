@@ -32,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import df64
+from ..ops import _build, df64
 from . import EXP_FLOPS, FP64_FLOPS, bound, time_events
 from .df64_ablate import N, make_inputs
 
@@ -143,11 +143,11 @@ def _launch_words(ops, v):
     n = ops["rows"].shape[0]
     splits = df64._splits(n, n, dev)
     partial = torch.empty((splits, n), dtype=torch.float64, device=dev)
-    fn = df64._bind("sqexp_words_mma", "sqexp_words_mma", 5, 3)
+    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 3)
     with torch.cuda.device(dev):
         rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), ops["norms"].data_ptr(),
-                v.data_ptr(), partial.data_ptr(), ops["shift"], n, splits, df64._stream(dev))
-    df64._raise_on(rc, "P3")
+                v.data_ptr(), partial.data_ptr(), ops["shift"], n, splits, _build.stream(dev))
+    _build.raise_on(rc, "P3")
     KERNEL_LAUNCHES += 1
     return partial[0] if splits == 1 else partial.sum(dim=0)
 
@@ -173,11 +173,11 @@ def _launch_tile(ops):
     kernel's MMAs: (NW, 16, 8) int32, the fragment layout's check."""
     dev = _check_cuda("P3 tile", ops)
     out = torch.empty((NW, 16, 8), dtype=torch.int32, device=dev)
-    fn = df64._bind("sqexp_words_mma", "words_mma_tile", 3, 1)
+    fn = _build.bind("sqexp_words_mma", "words_mma_tile", 3, 1)
     with torch.cuda.device(dev):
         rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), out.data_ptr(),
-                ops["rows"].shape[0], df64._stream(dev))
-    df64._raise_on(rc, "P3 tile")
+                ops["rows"].shape[0], _build.stream(dev))
+    _build.raise_on(rc, "P3 tile")
     return out
 
 

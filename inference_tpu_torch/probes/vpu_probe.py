@@ -29,7 +29,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import df64
+from ..ops import _build
 from . import BOOST_CLOCK_HZ, LANES, SMS, time_events
 
 T = 128  # the tile's side
@@ -93,11 +93,11 @@ def _launch_probe(x, n_ops, n_chains, mode, reps=REPS):
         raise TypeError("kernel P1: x must be contiguous")
     out = torch.empty_like(x)
     symbol = "issue_probe_f32" if x.dtype == torch.float32 else "issue_probe_f64"
-    fn = df64._bind("issue_probe", symbol, 2, 4)
+    fn = _build.bind("issue_probe", symbol, 2, 4)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), out.data_ptr(), n_ops, MODES.index(mode), n_chains, reps,
-                df64._stream(x.device))
-    df64._raise_on(rc, "P1")
+                _build.stream(x.device))
+    _build.raise_on(rc, "P1")
     KERNEL_LAUNCHES += 1
     return out
 
@@ -181,12 +181,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("n_ops", nargs="?", type=int, default=128)
     p.add_argument("--modes", default=",".join(MODES))
-    p.add_argument("--reps", type=int, default=None,
-                   help=f"copies of the tile (default {REPS} on the card, 1 on the CPU)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     on_card = torch.device(a.device).type == "cuda"
-    reps = a.reps or (REPS if on_card else 1)
+    reps = REPS if on_card else 1
     clock = BOOST_CLOCK_HZ
     if on_card:
         mhz, watts, n = sm_clock_under_load(device=a.device)
