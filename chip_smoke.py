@@ -45,10 +45,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    route (1e-10);
 9. kernels B3-B8 against their plain versions at full width, n = 53,248
    (gp-large-50k's padded data): B5 and B7 equal bit for bit, row block by
-   row block; B3, B4 (q = 1, 8), B6 and B8 (q = 1, 2, 8) within 1e-13 of
-   sum_j |E_ij| |V_jk|; B6 against B4 on the same V, B8 against B6 within
-   the float32 store's 2^-24; then each timed with CUDA events beside its
-   plain version, B6 beside ``torch.matmul``;
+   row block; B6/B8's FP64 MMA on one 16 x 8 tile exactly; B3, B4 (q = 1,
+   8), B6 and B8 (q = 1, 2, 8, 16) within 1e-13 of sum_j |E_ij| |V_jk|; B6
+   against B4 on the same V, B8 against B6 within the float32 store's
+   2^-24; then each timed with CUDA events beside its plain version, B6
+   beside ``torch.matmul``, B6 and B8 at every checked q;
 10. matrix-free GP main path (gp-large-50k): ``LargeScaleGP(solver="df64")``
     on ``benchmarks/df64_solve_bench.py``'s data at N=50,000 (sigma=0.01,
     rank 512, block 4096, cg_tol 1e-9) with ``store_entries="auto"`` (B5,
@@ -57,8 +58,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
     cold constructor and warm solve, chunks and iterations, the FP64
     residual by the port's kernel and by an independent plain route
     (<= 1e-9), 256 means and 16 variances (B6, B4 or B8 with q = 8), peak
-    memory, launches per kernel, and a ``torch.profiler`` breakdown of one
-    warm solve with each store;
+    memory, launches per kernel (B6 and B8 also by q), and a
+    ``torch.profiler`` breakdown of one warm solve with each store;
 11. gp-large-16k: the same at N=16,384 against a dense FP64 Cholesky on
     the card: the training solve (1e-8 of max |alpha|), means (1e-6) and
     variances (1e-9) at 16 points;
@@ -694,6 +695,7 @@ LARGE_N = 50_000
 LARGE_KW = dict(hyperpars=[0.0, 0.0, 0.0], block_size=4096, preconditioner_rank=512,
                 solver="df64", cg_tol=1e-9, cg_maxiter=3000)
 DF64_TOL = 1e-13  # B3/B4/B6/B8 vs plain, per entry of sum_j |E_ij| |V_jk|
+STORED_Q = (1, 2, 8, 16)  # right-hand sides at which B6 and B8 are checked and timed
 F32_STORE_TOL = 2.0**-24 + 1e-13  # B8 vs B6: the float32 store's rounding
 
 
@@ -744,7 +746,7 @@ def phase_df64_checks(xpad):
     n = xpad.shape[0]
     uh, ul = (torch.as_tensor(a, device=CUDA) for a in df64.split_f64(xpad))
     us = uh.double() + ul.double()
-    V = torch.as_tensor(np.random.default_rng(9).normal(size=(n, 8)).astype(np.float32),
+    V = torch.as_tensor(np.random.default_rng(9).normal(size=(n, 16)).astype(np.float32),
                         device=CUDA)
     errs = {}
     E = df64.sqexp_entries_df64(uh, ul)
@@ -761,21 +763,32 @@ def phase_df64_checks(xpad):
         if not (rel <= tol and bool(torch.isfinite(got).all())):
             raise RuntimeError(f"check {label}: {kernel} disagrees ({rel})")
 
+    A, B = (torch.as_tensor(np.random.default_rng(9).integers(-9, 10, shape), dtype=F64,
+                            device=CUDA) for shape in ((16, 4), (4, 8)))
+    tile = df64._launch_stored_mma_tile(A, B)
+    torch.cuda.synchronize()
+    print(f"[check 9i] B6/B8's m16n8k4 FP64 MMA on one 16 x 8 tile: "
+          f"{int((tile != A @ B).sum())} of 128 differ from A @ B (exact expected)")
+    if not torch.equal(tile, A @ B):
+        raise RuntimeError("check 9i: the MMA fragment layout is wrong")
     fused = {}
-    for q in (1, 2, 8):
+    for q in STORED_Q:
         Vq = V[:, :q].contiguous()
         scale = df64._stored_reference(E, Vq.abs())
+        ref = df64._stored_reference(E, Vq)
         got = df64.sqexp_stored_matmat_df64(E, Vq)
-        held(f"9b B6 q={q} vs plain", "B6", got, df64._stored_reference(E, Vq), scale)
-        if q != 2:
+        held(f"9b B6 q={q} vs plain", "B6", got, ref, scale)
+        if q in (1, 8):
             fused[q] = df64.sqexp_matmat_df64(uh, ul, Vq)
             held(f"9c B4 q={q} vs plain", "B4", fused[q], df64._fused_reference(us, us, Vq),
                  scale)
             held(f"9d B6 vs B4 q={q}", "B6", got, fused[q], scale)
+        ref32 = df64._stored_reference(E32, Vq)
+        scale32 = df64._stored_reference(E32, Vq.abs())
         got32 = df64.sqexp_stored_f32_matmat(E32, Vq)
-        held(f"9g B8 q={q} vs plain", "B8", got32, df64._stored_reference(E32, Vq),
-             df64._stored_reference(E32, Vq.abs()))
+        held(f"9g B8 q={q} vs plain", "B8", got32, ref32, scale32)
         held(f"9h B8 vs B6 q={q}", "B8", got32, got, scale, F32_STORE_TOL)
+        del ref, ref32, scale32
     scale1 = df64._stored_reference(E, V[:, :1].abs())[:, 0]
     held("9e B3 vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V[:, 0].contiguous()),
          df64._fused_reference(us, us, V[:, :1].contiguous())[:, 0], scale1)
@@ -793,9 +806,9 @@ def _turns(kernel, plain, args, reps_kernel, reps_plain):
 
 
 def phase_df64_timing(operands):
-    """B3, B4 (q = 8), B5, B6 (q = 1, 8), B7 and B8 (q = 1, 8) at full width
-    with CUDA events, each beside its plain version and its bound; B6 beside
-    torch.matmul, B5 beside cdist and the exp, B8 beside a float32
+    """B3, B4 (q = 8), B5, B6 (q = 1, 2, 8, 16), B7 and B8 (the same q) at
+    full width with CUDA events, each beside its plain version and its bound;
+    B6 beside torch.matmul, B5 beside cdist and the exp, B8 beside a float32
     torch.matmul (the nearest yardstick: no PyTorch call takes float32
     operands to their exact float64 product). Returns {kernel: row of the
     JSON line}."""
@@ -803,7 +816,7 @@ def phase_df64_timing(operands):
     n, d = us.shape
     n2 = float(n) * n
     entry = 3 * d + 1 + EXP_FLOPS
-    V1, V8 = V[:, :1].contiguous(), V
+    V1, V8 = V[:, :1].contiguous(), V[:, :8].contiguous()
     rows = {}
 
     def report(kernel, label, k, p, b, lib=None):
@@ -832,11 +845,11 @@ def phase_df64_timing(operands):
     rows["B5"] = {**row, "cdist_exp_ms": lib}
     torch.cuda.empty_cache()
     E = df64.sqexp_entries_df64(uh, ul)
-    for q, Vq in ((1, V1), (8, V8)):
+    for q in STORED_Q:
+        Vq = V[:, :q].contiguous()
         k, p = _turns(lambda v: df64.sqexp_stored_matmat_df64(E, v),
                       lambda v: df64._stored_reference(E, v), (Vq,), 10, 3)
-        V64 = Vq.double()
-        lib = time_events(torch.matmul, (E, V64), 10)
+        lib = time_events(torch.matmul, (E, Vq.double()), 10)
         rows[f"B6 q={q}"] = report("B6", f"n={n} q={q}", k, p,
                                    bound(8 * n2 + 12 * n * q, 2 * q * n2, FP64_FLOPS), lib)
     del E
@@ -845,7 +858,8 @@ def phase_df64_timing(operands):
                   lambda: df64._entries_f32_reference(us), (), 5, 1)
     rows["B7"] = report("B7", f"n={n}", k, p, bound(4 * n2 + 8 * n * d, n2 * entry, FP64_FLOPS))
     E32 = df64.sqexp_entries_f32(uh, ul)
-    for q, Vq in ((1, V1), (8, V8)):
+    for q in STORED_Q:
+        Vq = V[:, :q].contiguous()
         k, p = _turns(lambda v: df64.sqexp_stored_f32_matmat(E32, v),
                       lambda v: df64._stored_reference(E32, v), (Vq,), 10, 3)
         yard = time_events(torch.matmul, (E32, Vq), 10)
@@ -902,6 +916,8 @@ def _large_run(label, x, y, err, q, store, profile):
     print(f"[{label}] device memory allocated before the run: {_free():.2f} GiB")
     for k in df64.KERNEL_LAUNCHES:
         df64.KERNEL_LAUNCHES[k] = 0
+    for by_q in df64.STORED_LAUNCHES_BY_Q.values():
+        by_q.clear()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -924,6 +940,8 @@ def _large_run(label, x, y, err, q, store, profile):
     pred = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(df64.KERNEL_LAUNCHES)
+    launches.update({f"{k} by q": dict(sorted(v.items()))
+                     for k, v in df64.STORED_LAUNCHES_BY_Q.items()})
     print(f"[{label}] store_entries={store!r} (tier {gp._tier}): cold constructor + solve "
           f"{cold:.3f} s, warm solve {warm:.3f} s ({warm_chunks} chunks of "
           f"{solver.restart_every} iterations), FP64 relative residual {res_kernel:.3e} by the "
@@ -956,6 +974,12 @@ def phase_large_main():
             raise RuntimeError(f"store_entries={store!r} skipped a kernel: {launches[store]}")
     _free()
     total = {k: sum(run[k] for run in launches.values()) for k in df64.KERNEL_LAUNCHES}
+    for k in df64.STORED_LAUNCHES_BY_Q:
+        by_q = {}
+        for run in launches.values():
+            for q, count in run[f"{k} by q"].items():
+                by_q[q] = by_q.get(q, 0) + count
+        total[f"{k} by q"] = dict(sorted(by_q.items()))
     print(f"[gp-large-50k] kernel launches, all three runs: {total}")
     auto = runs["auto"]
     for store in (False, "f32"):
@@ -1303,16 +1327,18 @@ def main():
         ("B3", "sqexp_fused_kernel (q = 1)", "sqexp_fused.cu", 472),
         ("B4", "sqexp_fused_kernel", "sqexp_fused.cu", 591),
         ("B5", "sqexp_entries_kernel<double>", "sqexp_entries.cu", 828),
-        ("B6", "sqexp_stored_kernel<double>", "sqexp_stored.cu", 971),
+        ("B6", "sqexp_stored_kernel<double> (TMA ring, FP64 MMA)", "sqexp_stored.cu", 971),
         ("B7", "sqexp_entries_kernel<float>", "sqexp_entries.cu", 1088),
-        ("B8", "sqexp_stored_kernel<float>", "sqexp_stored.cu", 1180),
+        ("B8", "sqexp_stored_kernel<float> (TMA ring, FP64 MMA)", "sqexp_stored.cu", 1180),
     ):
         timing = df64_ms[f"{kernel} q=1" if kernel in ("B6", "B8") else kernel]
         row = {"name": fn, "route": "cuda", "source": f"inference_tpu_torch/ops/csrc/{src}",
                "replaces": f"inference_tpu/ops/df64.py:{line}",
                "launches": large_launches[kernel], "max_abs_err": df64_err[kernel], **timing}
         if kernel in ("B6", "B8"):
+            row["launches_by_q"] = large_launches[f"{kernel} by q"]
             row["q8"] = df64_ms[f"{kernel} q=8"]
+            row["per_q"] = {q: df64_ms[f"{kernel} q={q}"] for q in STORED_Q}
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",

@@ -90,7 +90,7 @@ def load(name: str) -> ctypes.CDLL:
 
 def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, typed as every
-    kernel of the package declares its launcher: ``n_ptrs`` device pointers,
+    kernel of the package declares its launcher: ``n_ptrs`` pointers,
     ``n_ints`` ints and the CUDA stream in, a CUDA error code out."""
     fn = getattr(load(name), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]

@@ -35,7 +35,7 @@ operands on a CUDA device and raises on what the kernel does not take; for
 operands on the CPU it runs the kernel's plain version (``_fused_reference``,
 ``_entries_reference``, ``_entries_f32_reference``, ``_stored_reference``),
 which forms each entry with the same operations in the same order. ``KERNEL_LAUNCHES`` counts the
-launches of each kernel.
+launches of each kernel, ``STORED_LAUNCHES_BY_Q`` those of B6 and B8 by q.
 """
 
 from warnings import warn
@@ -342,6 +342,30 @@ def _stored_reference(E, V):
 
 # the stored product's kernels: entry dtype -> (kernel, C entry point)
 _STORED = {torch.float64: ("B6", "sqexp_stored_f64"), torch.float32: ("B8", "sqexp_stored_f32")}
+# launches of B6 and B8 in this process by q; each launch adds one
+STORED_LAUNCHES_BY_Q = {"B6": {}, "B8": {}}
+_STORED_MIN_ROWS = 32  # rows of one stage of the kernel's ring of E tiles
+
+
+def stored_plan(n_rows, n_cols, q, sms):
+    """The work of each block of a stored-product launch on a card with
+    ``sms`` SMs, which the kernel takes as given: ``(row bounds, column
+    bounds, panel columns)``. Row group ``r`` owns rows ``[rows[r],
+    rows[r + 1])``, whole boxes of 4 rows (the kernel's TMA copies), at
+    least 16 of them; column split ``s`` owns the 128-column tiles of
+    ``[cols[s], cols[s + 1])``. The grid is one block per SM, and the
+    columns are split only where the rows alone make fewer than ``sms``
+    groups of 32 rows (a stage of the kernel's ring). A block walks its
+    split in panels of ``panel`` columns, each staging its rows of V once
+    into one of the kernel's two 64 KiB panel buffers: 1024 columns of one
+    8-column n-tile of doubles at q <= 8, 512 of two n-tiles at q <= 16."""
+    tiles = n_cols // _TJ
+    splits = max(1, min(tiles, -(-sms // max(1, n_rows // _STORED_MIN_ROWS))))
+    groups = max(1, min(sms // splits, n_rows // 16))
+    boxes = n_rows // 4
+    rows = [r * boxes // groups * 4 for r in range(groups + 1)]
+    cols = [s * tiles // splits * _TJ for s in range(splits + 1)]
+    return rows, cols, 1024 if q <= 8 else 512
 
 
 def _launch_stored(E, V, dtype=torch.float64):
@@ -356,16 +380,43 @@ def _launch_stored(E, V, dtype=torch.float64):
         if t.dtype != dt or not t.is_contiguous():
             raise TypeError(f"kernel {kernel}: {name} must be contiguous {dt}, got {t.dtype} "
                             f"(contiguous={t.is_contiguous()})")
+    if E.data_ptr() % 16:
+        raise ValueError(f"kernel {kernel}: E must be 16-byte aligned for the TMA")
+    if V.data_ptr() % 16:
+        V = V.clone()  # the kernel reads V with 16-byte loads
     n_rows, n_cols = E.shape
     q = V.shape[1]
-    Y = torch.empty((n_rows, q), dtype=torch.float64, device=E.device)
-    fn = _build.bind("sqexp_stored", symbol, 3, 3)
+    sms = torch.cuda.get_device_properties(E.device).multi_processor_count
+    rows, cols, panel = stored_plan(n_rows, n_cols, q, sms)
+    # host memory, read by the launcher into the kernel's parameters
+    bounds = torch.tensor(rows + cols, dtype=torch.int32)
+    splits = len(cols) - 1
+    # two planes per split, one for each column half of the kernel's stages
+    partial = torch.empty((2 * splits, n_rows, q), dtype=torch.float64, device=E.device)
+    fn = _build.bind("sqexp_stored", symbol, 4, 6)
     with torch.cuda.device(E.device):
-        rc = fn(E.data_ptr(), V.data_ptr(), Y.data_ptr(), n_rows, n_cols, q,
-                _build.stream(E.device))
+        rc = fn(E.data_ptr(), V.data_ptr(), partial.data_ptr(), bounds.data_ptr(), n_rows,
+                n_cols, q, len(rows) - 1, splits, panel, _build.stream(E.device))
     _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
-    return Y
+    by_q = STORED_LAUNCHES_BY_Q[kernel]
+    by_q[q] = by_q.get(q, 0) + 1
+    return partial.sum(dim=0)
+
+
+def _launch_stored_mma_tile(A, B):
+    """``A @ B`` for FP64 A (16, 4) and B (4, 8) on a CUDA device by one
+    m16n8k4 MMA with kernels B6/B8's fragment mapping: the layout check.
+    Not counted as a launch of B6 or B8."""
+    if A.shape != (16, 4) or B.shape != (4, 8) or A.device.type != "cuda":
+        raise ValueError("the MMA tile takes CUDA A (16, 4) and B (4, 8)")
+    A, B = A.double().contiguous(), B.double().contiguous()
+    D = torch.empty((16, 8), dtype=torch.float64, device=A.device)
+    fn = _build.bind("sqexp_stored", "sqexp_stored_mma_tile", 3, 0)
+    with torch.cuda.device(A.device):
+        rc = fn(A.data_ptr(), B.data_ptr(), D.data_ptr(), _build.stream(A.device))
+    _build.raise_on(rc, "B6/B8 MMA tile")
+    return D
 
 
 def _stored_operands(args, caller):

@@ -19,7 +19,7 @@ import torch
 
 from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import df64, hmc_fused, pairwise
+from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 from inference_tpu_torch.probes import df64_ablate, vpu_probe
@@ -287,21 +287,42 @@ def test_df64_entries_kernel_equals_plain(cuda, n, d):
     assert torch.equal(E, ref)
 
 
+STORED_Q = [1, 2, 3, 8, 16]
+# 4,736 = 37 column tiles: the last split and panel are ragged at every grid
+STORED_N = [4096, 4736]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 2, 3, 8])
-def test_df64_stored_kernel_matches_plain_and_fused(cuda, q):
-    """B6 against _stored_reference and against B4 on the same V."""
-    uh, ul, V = _df64_inputs(cuda, 4096, 2, q, seed=q)
+@pytest.mark.parametrize("n", STORED_N)
+@pytest.mark.parametrize("q", STORED_Q)
+def test_df64_stored_kernel_matches_plain_and_fused(cuda, n, q):
+    """B6 against _stored_reference and against B4 on the same V; one
+    launch, counted under its q."""
+    uh, ul, V = _df64_inputs(cuda, n, 2, q, seed=q + n)
     E = df64.sqexp_entries_df64(uh, ul)
     before = df64.KERNEL_LAUNCHES["B6"]
+    before_q = df64.STORED_LAUNCHES_BY_Q["B6"].get(q, 0)
     got = df64.sqexp_stored_matmat_df64(E, V)
     ref = df64._stored_reference(E, V)
     scale = df64._stored_reference(E, V.abs())
     fused = df64.sqexp_matmat_df64(uh, ul, V)
     torch.cuda.synchronize()
     assert df64.KERNEL_LAUNCHES["B6"] == before + 1
+    assert df64.STORED_LAUNCHES_BY_Q["B6"][q] == before_q + 1
     _within_scale(got, ref, scale)
     _within_scale(got, fused, scale)
+
+
+@pytest.mark.cuda
+def test_df64_stored_mma_fragment_layout(cuda):
+    """One m16n8k4 FP64 MMA with B6/B8's fragment mapping equals A @ B
+    exactly on small integers."""
+    rng = np.random.default_rng(3)
+    A = torch.as_tensor(rng.integers(-9, 10, (16, 4)), dtype=torch.float64, device=cuda)
+    B = torch.as_tensor(rng.integers(-9, 10, (4, 8)), dtype=torch.float64, device=cuda)
+    D = df64._launch_stored_mma_tile(A, B)
+    torch.cuda.synchronize()
+    assert torch.equal(D, A @ B)
 
 
 @pytest.mark.cuda
@@ -321,17 +342,21 @@ def test_df64_entries_f32_kernel_equals_plain(cuda, n, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 3, 8])
-def test_df64_stored_f32_kernel_matches_plain(cuda, q):
-    """B8 against _stored_reference on B7's store."""
-    uh, ul, V = _df64_inputs(cuda, 4096, 2, q, seed=20 + q)
+@pytest.mark.parametrize("n", STORED_N)
+@pytest.mark.parametrize("q", STORED_Q)
+def test_df64_stored_f32_kernel_matches_plain(cuda, n, q):
+    """B8 against _stored_reference on B7's store; one launch, counted
+    under its q."""
+    uh, ul, V = _df64_inputs(cuda, n, 2, q, seed=20 + q + n)
     E32 = df64.sqexp_entries_f32(uh, ul)
     before = df64.KERNEL_LAUNCHES["B8"]
+    before_q = df64.STORED_LAUNCHES_BY_Q["B8"].get(q, 0)
     got = df64.sqexp_stored_f32_matmat(E32, V)
     ref = df64._stored_reference(E32, V)
     scale = df64._stored_reference(E32, V.abs())
     torch.cuda.synchronize()
     assert df64.KERNEL_LAUNCHES["B8"] == before + 1
+    assert df64.STORED_LAUNCHES_BY_Q["B8"][q] == before_q + 1
     _within_scale(got, ref, scale)
 
 
@@ -357,6 +382,36 @@ def test_df64_wrappers_raise(cuda):
                             torch.float32)
     with pytest.raises(TypeError):
         df64.sqexp_stored_f32_matmat(torch.zeros((256, 256), dtype=torch.float64, device=cuda), V)
+    with pytest.raises(ValueError, match="aligned"):
+        df64._launch_stored(torch.zeros(256 * 256 + 1, dtype=torch.float32, device=cuda)[1:]
+                            .view(256, 256), V, torch.float32)
+
+
+@pytest.mark.cuda
+def test_df64_stored_launcher_checks_the_plan(cuda):
+    """B6's launcher takes the wrapper's plan only where it covers the
+    matrix in whole boxes and tiles and the panel fits its buffer; else it
+    refuses before the launch."""
+    E = torch.ones((256, 256), dtype=torch.float64, device=cuda)
+    V = torch.ones((256, 1), device=cuda)
+    partial = torch.zeros((4, 256, 1), dtype=torch.float64, device=cuda)
+    fn = _build.bind("sqexp_stored", "sqexp_stored_f64", 4, 6)
+
+    def launch(rows, cols, panel):
+        bounds = torch.tensor(rows + cols, dtype=torch.int32)
+        return fn(E.data_ptr(), V.data_ptr(), partial.data_ptr(), bounds.data_ptr(), 256, 256,
+                  1, len(rows) - 1, len(cols) - 1, panel, _build.stream(E.device))
+
+    assert launch([0, 128, 256], [0, 128, 256], 1024) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(partial.sum(dim=0), E @ V.double())
+    for rows, cols, panel in (([0, 128, 252], [0, 128, 256], 1024),  # rows short of the end
+                              ([0, 130, 256], [0, 128, 256], 1024),  # off a box of 4 rows
+                              ([0, 256, 256], [0, 128, 256], 1024),  # an empty row group
+                              ([0, 128, 256], [0, 64, 256], 1024),  # off a column tile
+                              ([0, 128, 256], [0, 128, 256], 2048),  # wider than its buffer
+                              ([0, 128, 256], [0, 128, 256], 96)):  # not whole tiles
+        assert launch(rows, cols, panel) != 0
 
 
 @pytest.mark.cuda

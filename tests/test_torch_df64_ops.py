@@ -120,6 +120,56 @@ def test_stored_f32_plain_is_exact_over_the_store(q):
     _within_row_scale(Y, E32.numpy().astype(np.float64), V)
 
 
+@pytest.mark.parametrize("n, sms", [(53_248, 132), (4096, 132), (4736, 132), (4736, 114),
+                                     (1664, 8), (128, 132)])
+def test_stored_grid_covers_every_tile_once(n, sms):
+    """B6/B8's plan, which the kernel takes as given: at most one block per
+    SM; the row groups cover every row once in whole boxes of 4 rows, at
+    least 16 each; for every q the splits are non-empty, and their panels
+    cover every 128-column tile exactly once and fit the kernel's 64 KiB
+    panel buffer (8 doubles per column and n-tile)."""
+    for q in (1, 2, 8, 9, 16):
+        rows, cols, panel = df64.stored_plan(n, n, q, sms)
+        groups, splits = len(rows) - 1, len(cols) - 1
+        assert groups >= 1 and splits >= 1 and groups * splits <= max(sms, 1)
+        assert rows[0] == 0 and rows[-1] == n and cols[0] == 0 and cols[-1] == n
+        assert all(b - a >= min(16, n) and a % 4 == 0 for a, b in zip(rows, rows[1:]))
+        assert all(b > a and a % 128 == 0 for a, b in zip(cols, cols[1:]))
+        assert panel % 128 == 0 and panel * (1 if q <= 8 else 2) * 64 <= 64 * 1024
+        panels = [(p, min(p + panel, c1)) for c0, c1 in zip(cols, cols[1:])
+                  for p in range(c0, c1, panel)]
+        tiles = [t for a, b in panels for t in range(a // 128, b // 128)]
+        assert sorted(tiles) == list(range(n // 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sms", [8, 132])
+@pytest.mark.parametrize("q", [1, 2, 16])
+def test_stored_partials_sum_to_the_product(dtype, sms, q):
+    """The plain version run panel by panel, as B6/B8 walk their plan (n =
+    1,664, 13 tiles: 3 ragged splits on 132 SMs, one split of ragged panels
+    on 8), summed over the splits: within 1e-13 of sum_j |E_ij| |V_jk| of
+    ``_stored_reference``."""
+    n = 1664
+    rng = np.random.default_rng(q + sms)
+    E = torch.as_tensor(rng.uniform(0, 1, (n, n))).to(dtype)
+    V = torch.as_tensor(rng.normal(size=(n, q)).astype(np.float32))
+    _, cols, panel = df64.stored_plan(n, n, q, sms)
+    splits = len(cols) - 1
+    partial = torch.zeros((splits, n, q), dtype=torch.float64)
+    walked = []
+    for s in range(splits):
+        for c0 in range(cols[s], cols[s + 1], panel):
+            c1 = min(c0 + panel, cols[s + 1])
+            partial[s] += df64._stored_reference(E[:, c0:c1], V[c0:c1])
+            walked.append(c1 - c0)
+    ref = df64._stored_reference(E, V)
+    scale = df64._stored_reference(E, V.abs())
+    assert float(((partial.sum(dim=0) - ref).abs() / scale).max()) <= 1e-13
+    assert splits == (3 if sms == 132 else 1)
+    assert sum(walked) == n and any(w < panel for w in walked)
+
+
 def test_plain_row_blocks_cover_every_row(monkeypatch):
     """The plain versions work in row blocks; with blocks of 100 rows (not a
     divisor of 256) they give the unblocked result."""
