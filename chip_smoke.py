@@ -45,11 +45,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    route (1e-10);
 9. kernels B3-B8 against their plain versions at full width, n = 53,248
    (gp-large-50k's padded data): B5 and B7 equal bit for bit, row block by
-   row block; B6/B8's FP64 MMA on one 16 x 8 tile exactly; B3, B4 (q = 1,
-   8), B6 and B8 (q = 1, 2, 8, 16) within 1e-13 of sum_j |E_ij| |V_jk|; B6
-   against B4 on the same V, B8 against B6 within the float32 store's
-   2^-24; then each timed with CUDA events beside its plain version, B6
-   beside ``torch.matmul``, B6 and B8 at every checked q;
+   row block; B6/B8's FP64 MMA on one 16 x 8 tile exactly; B3, B4, B6 and
+   B8 (q = 1, 2, 8, 16) within 1e-13 of sum_j |E_ij| |V_jk|; B6 against B4
+   on the same V, B8 against B6 within the float32 store's 2^-24; then each
+   timed with CUDA events beside its plain version, B6 beside
+   ``torch.matmul``, B4, B6 and B8 at every checked q (B4's q = 1 is B3);
 10. matrix-free GP main path (gp-large-50k): ``LargeScaleGP(solver="df64")``
     on ``benchmarks/df64_solve_bench.py``'s data at N=50,000 (sigma=0.01,
     rank 512, block 4096, cg_tol 1e-9) with ``store_entries="auto"`` (B5,
@@ -771,24 +771,21 @@ def phase_df64_checks(xpad):
           f"{int((tile != A @ B).sum())} of 128 differ from A @ B (exact expected)")
     if not torch.equal(tile, A @ B):
         raise RuntimeError("check 9i: the MMA fragment layout is wrong")
-    fused = {}
     for q in STORED_Q:
         Vq = V[:, :q].contiguous()
         scale = df64._stored_reference(E, Vq.abs())
         ref = df64._stored_reference(E, Vq)
         got = df64.sqexp_stored_matmat_df64(E, Vq)
         held(f"9b B6 q={q} vs plain", "B6", got, ref, scale)
-        if q in (1, 8):
-            fused[q] = df64.sqexp_matmat_df64(uh, ul, Vq)
-            held(f"9c B4 q={q} vs plain", "B4", fused[q], df64._fused_reference(us, us, Vq),
-                 scale)
-            held(f"9d B6 vs B4 q={q}", "B6", got, fused[q], scale)
+        fused = df64.sqexp_matmat_df64(uh, ul, Vq)
+        held(f"9c B4 q={q} vs plain", "B4", fused, df64._fused_reference(us, us, Vq), scale)
+        held(f"9d B6 vs B4 q={q}", "B6", got, fused, scale)
         ref32 = df64._stored_reference(E32, Vq)
         scale32 = df64._stored_reference(E32, Vq.abs())
         got32 = df64.sqexp_stored_f32_matmat(E32, Vq)
         held(f"9g B8 q={q} vs plain", "B8", got32, ref32, scale32)
         held(f"9h B8 vs B6 q={q}", "B8", got32, got, scale, F32_STORE_TOL)
-        del ref, ref32, scale32
+        del ref, ref32, scale32, fused
     scale1 = df64._stored_reference(E, V[:, :1].abs())[:, 0]
     held("9e B3 vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V[:, 0].contiguous()),
          df64._fused_reference(us, us, V[:, :1].contiguous())[:, 0], scale1)
@@ -805,8 +802,15 @@ def _turns(kernel, plain, args, reps_kernel, reps_plain):
     return k, p
 
 
+def _fused_bound(n, d, q):
+    """B3/B4's bound at n x n entries: the coordinates and v read, the
+    result written once; per entry the distance, the exp and q fma."""
+    return bound(8 * n * d + 4 * n * q + 8 * n * q, float(n) * n * (3 * d + 1 + EXP_FLOPS + 2 * q),
+                 FP64_FLOPS)
+
+
 def phase_df64_timing(operands):
-    """B3, B4 (q = 8), B5, B6 (q = 1, 2, 8, 16), B7 and B8 (the same q) at
+    """B3, B4 (q = 2, 8, 16), B5, B6 (q = 1, 2, 8, 16), B7 and B8 (the same q) at
     full width with CUDA events, each beside its plain version and its bound;
     B6 beside torch.matmul, B5 beside cdist and the exp, B8 beside a float32
     torch.matmul (the nearest yardstick: no PyTorch call takes float32
@@ -816,7 +820,7 @@ def phase_df64_timing(operands):
     n, d = us.shape
     n2 = float(n) * n
     entry = 3 * d + 1 + EXP_FLOPS
-    V1, V8 = V[:, :1].contiguous(), V[:, :8].contiguous()
+    V1 = V[:, :1].contiguous()
     rows = {}
 
     def report(kernel, label, k, p, b, lib=None):
@@ -829,12 +833,11 @@ def phase_df64_timing(operands):
 
     k, p = _turns(lambda v: df64.sqexp_matvec_df64(uh, ul, v),
                   lambda v: df64._fused_reference(us, us, v[:, None]), (V1[:, 0],), 10, 1)
-    rows["B3"] = report("B3", f"n={n}", k, p, bound(8 * n * d + 12 * n, n2 * (entry + 2),
-                                                     FP64_FLOPS))
-    k, p = _turns(lambda v: df64.sqexp_matmat_df64(uh, ul, v),
-                  lambda v: df64._fused_reference(us, us, v), (V8,), 10, 1)
-    rows["B4"] = report("B4", f"n={n} q=8", k, p, bound(8 * n * d + 12 * n * 8,
-                                                        n2 * (entry + 16), FP64_FLOPS))
+    rows["B3"] = report("B3", f"n={n}", k, p, _fused_bound(n, d, 1))
+    for q in (2, 8, 16):
+        k, p = _turns(lambda v: df64.sqexp_matmat_df64(uh, ul, v),
+                      lambda v: df64._fused_reference(us, us, v), (V[:, :q].contiguous(),), 10, 1)
+        rows[f"B4 q={q}"] = report("B4", f"n={n} q={q}", k, p, _fused_bound(n, d, q))
     k, p = _turns(lambda: df64.sqexp_entries_df64(uh, ul), lambda: df64._entries_reference(us),
                   (), 5, 1)
     ones = torch.ones((), dtype=torch.float64, device=CUDA)
@@ -867,6 +870,50 @@ def phase_df64_timing(operands):
                      bound(4 * n2 + 12 * n * q, 2 * q * n2, FP64_FLOPS))
         rows[f"B8 q={q}"] = {**row, "matmul_f32_ms": yard}
     return rows
+
+
+SWEEP_RPT = (1, 2, 4)  # rows per thread timed for each q by the sweep
+
+
+def phase_rpt_sweep(operands):
+    """B3/B4 at each of SWEEP_RPT rows per thread for q = 1, 2, 8 and 16:
+    the plan's rpt of q's bucket set to each in turn, the result held
+    against the plain version (1e-13 of sum|E||V|) and timed with CUDA
+    events beside its bound, twice in turns."""
+    uh, ul, us, V = operands
+    n, d = us.shape
+    shipped = dict(df64.FUSED_RPT)
+    times = {}
+    try:
+        for q in STORED_Q:
+            Vq = V[:, :q].contiguous()
+            bucket = next(b for b in df64.FUSED_RPT if q <= b)
+            ref = df64._fused_reference(us, us, Vq)
+            scale = df64._fused_reference(us, us, Vq.abs())
+            fn = ((lambda v: df64.sqexp_matvec_df64(uh, ul, v[:, 0].contiguous())[:, None])
+                  if q == 1 else (lambda v: df64.sqexp_matmat_df64(uh, ul, v)))
+            errs = {}
+            for rpt in SWEEP_RPT:
+                df64.FUSED_RPT[bucket] = rpt
+                _, errs[rpt] = _scaled_err(fn(Vq), ref, scale)
+                if not errs[rpt] <= DF64_TOL:
+                    raise RuntimeError(f"sweep: q={q} rpt={rpt} disagrees ({errs[rpt]})")
+                times[q, rpt] = [time_events(fn, (Vq,), 10)]
+            for rpt in SWEEP_RPT[::-1]:
+                df64.FUSED_RPT[bucket] = rpt
+                times[q, rpt].append(time_events(fn, (Vq,), 10))
+            b = _fused_bound(n, d, q)[0]
+            sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+            for rpt in SWEEP_RPT:
+                df64.FUSED_RPT[bucket] = rpt
+                t = times[q, rpt]
+                print(f"[rpt sweep] {'B3' if q == 1 else 'B4'} q={q} rpt={rpt} plan "
+                      f"{df64.fused_plan(n, n, q, sms)}: {t[0]:.4f} / {t[1]:.4f} ms, bound "
+                      f"{b:.4f} ms, {min(t) / b:.3f}x; max err / sum|E||V| {errs[rpt]:.2e}")
+            del ref, scale
+    finally:
+        df64.FUSED_RPT.update(shipped)
+    return times
 
 
 def _plain_residual(gp):
@@ -1074,7 +1121,10 @@ def _hot_loop_mix(name, symbol, entries):
 
 # (label, library, mangled-name fragment, entries per thread per trip of the
 # hot loop): B3 itself, and the P2 and P3 kernels whose loops differ from it
-HOT_LOOPS = (("B3", "sqexp_fused", "sqexp_fused_kernelILi2ELi1EE", 2),
+HOT_LOOPS = (*((f"B3 rpt={r}", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{r}EE", 2 * r)
+               for r in (1, 2, 4)),
+             *((f"B4 q=8 rpt={r}", "sqexp_fused", f"sqexp_fused_kernelILi2ELi8ELi{r}EE", 2 * r)
+               for r in (1, 2, 4)),
              ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2),
              ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2),
              ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4),
@@ -1310,6 +1360,7 @@ def main():
     xpad = _padded(make_large_data(LARGE_N)[0])
     df64_err, operands = phase_df64_checks(xpad)
     df64_ms = phase_df64_timing(operands)
+    phase_rpt_sweep(operands)
     del operands
     large_launches, runs = phase_large_main()
     phase_large_16k()
@@ -1331,7 +1382,7 @@ def main():
         ("B7", "sqexp_entries_kernel<float>", "sqexp_entries.cu", 1088),
         ("B8", "sqexp_stored_kernel<float> (TMA ring, FP64 MMA)", "sqexp_stored.cu", 1180),
     ):
-        timing = df64_ms[f"{kernel} q=1" if kernel in ("B6", "B8") else kernel]
+        timing = df64_ms[{"B4": "B4 q=8", "B6": "B6 q=1", "B8": "B8 q=1"}.get(kernel, kernel)]
         row = {"name": fn, "route": "cuda", "source": f"inference_tpu_torch/ops/csrc/{src}",
                "replaces": f"inference_tpu/ops/df64.py:{line}",
                "launches": large_launches[kernel], "max_abs_err": df64_err[kernel], **timing}
@@ -1339,6 +1390,8 @@ def main():
             row["launches_by_q"] = large_launches[f"{kernel} by q"]
             row["q8"] = df64_ms[f"{kernel} q=8"]
             row["per_q"] = {q: df64_ms[f"{kernel} q={q}"] for q in STORED_Q}
+        if kernel == "B4":
+            row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",

@@ -12,3 +12,7 @@ and scipy, never jax.
 """
 
 __version__ = "0.1.0"
+
+from .gp import GpLinearInverter, GpRegressor
+
+__all__ = ["GpRegressor", "GpLinearInverter"]

@@ -26,7 +26,8 @@ decisions:
   host loop would cost seconds.
 - **FP64 device arrays.** x, y, the factor U and the core inverse are
   FP64 on the device; the JAX package's float32 casts for its traced
-  prediction paths (and its ``dtype`` argument) have no job here.
+  prediction paths have no job here, so its ``dtype`` argument is taken
+  and checked but changes nothing.
 - **K(q, x) for predictions** is built on the device in FP64 through
   ``SqExpBlock.rows`` (kernel B2, exact coordinate differences). The JAX
   package's host numpy ``sqexp_rows_host64`` stays, for the host residual
@@ -115,6 +116,25 @@ def _system_matmat(amp2, diag, V32, *op):
     return amp2 * _entries_apply(V32, *op) + diag[:, None] * V32.double()
 
 
+def _check_dtype(dtype):
+    """Accept the JAX package's ``dtype`` values of the df64 tier: None or
+    float32/float64 as a name, numpy or torch dtype."""
+    if dtype is None:
+        return
+    if isinstance(dtype, torch.dtype):
+        ok = dtype in (torch.float32, torch.float64)
+    else:
+        try:
+            ok = np.dtype(dtype) in (np.float32, np.float64)
+        except TypeError:
+            ok = False
+    if not ok:
+        raise ValueError(
+            f"[ LargeScaleGP error ] 'dtype' must be None, float32 or float64, "
+            f"but {dtype!r} was given."
+        )
+
+
 class LargeScaleGP:
     """
     GP regression with matrix-free training solves, for datasets beyond
@@ -147,6 +167,10 @@ class LargeScaleGP:
         ``ops.df64.F32_STORE_MAX_N`` when its soundness guard allows;
         ``False`` evaluates the entries in every product (kernels B3/B4).
         See ``ops.df64.stored_entries_tier``.
+    :param dtype: the JAX package's storage dtype of the tier's arrays:
+        ``None``, ``"float32"`` or ``"float64"`` (or the numpy or torch
+        dtype of either). It changes nothing here, because the port's df64
+        tier is FP64 throughout; any other value raises ``ValueError``.
     :param mesh: not ported yet (ROADMAP A13).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
@@ -176,11 +200,13 @@ class LargeScaleGP:
         preconditioner: str = "pivchol",
         solver: str = "cg",
         store_entries="auto",
+        dtype=None,
         mesh=None,
         device="cuda",
     ):
         self._setup(x, y, y_err, hyperpars, kernel, mean_value, block_size, preconditioner,
                     solver, store_entries, mesh, device)
+        _check_dtype(dtype)
         self._build_preconditioner(preconditioner_rank)
         self._build_compiled(cg_tol, cg_maxiter)
         self._set_alpha(self._solve_alpha())
@@ -666,6 +692,15 @@ class LargeScaleGP:
                 best_alpha, best_res = alpha64, res
         self._set_alpha(torch.as_tensor(best_alpha, **self._f64))
         return self
+
+    def residual_norm(self) -> float:
+        """Relative residual of the training solve over the real (unpadded)
+        rows, ``|(K alpha - (y - m)) mask| / |(y - m) mask|``: a CG
+        convergence check. The JAX package evaluates it with its float32
+        system matmat; the port's system product is FP64 (kernel B6 on the
+        FP64 store, else B3 on the coordinates, applied to an exact hi/lo
+        split of alpha), so this is ``residual_norm_f64("df64")``."""
+        return self.residual_norm_f64("df64")
 
     def residual_norm_f64(self, residual_backend: str = "auto") -> float:
         """Relative residual of the training solve, evaluated in float64."""

@@ -6,5 +6,41 @@ dense linear algebra of the GP path (``linalg``) and the df64 tier's
 solvers (``solvers``)."""
 
 from .hmc_fused import GaussianForm
+from .pairwise import scaled_sq_distances, sqexp_covariance
+from .linalg import add_diagonal, identity_like
+from .solvers import df64_pcg, Df64Solver, Df64MultiSolver
+from .df64 import (
+    sqexp_matvec_df64,
+    sqexp_matmat_df64,
+    sqexp_matmat_rect_df64,
+    sqexp_entries_df64,
+    sqexp_entries_f32,
+    sqexp_stored_matvec_df64,
+    sqexp_stored_matmat_df64,
+    sqexp_stored_f32_matmat,
+    stored_entries_tier,
+    split_f64,
+)
 
-__all__ = ["GaussianForm"]
+# the JAX package's names from this path that the port defines, and
+# GaussianForm, the port's own: how a posterior reaches kernel B1
+__all__ = [
+    "GaussianForm",
+    "scaled_sq_distances",
+    "sqexp_covariance",
+    "add_diagonal",
+    "identity_like",
+    "df64_pcg",
+    "Df64Solver",
+    "Df64MultiSolver",
+    "sqexp_matvec_df64",
+    "sqexp_matmat_df64",
+    "sqexp_matmat_rect_df64",
+    "sqexp_entries_df64",
+    "sqexp_entries_f32",
+    "sqexp_stored_matvec_df64",
+    "sqexp_stored_matmat_df64",
+    "sqexp_stored_f32_matmat",
+    "stored_entries_tier",
+    "split_f64",
+]

@@ -6,7 +6,7 @@
 // (B3, launched by _sqexp_matvec_df64_pallas). B3 is the q = 1 launch of this
 // kernel, which computes exactly its function. The plain PyTorch version is
 // inference_tpu_torch/ops/df64.py::_fused_reference; the wrapper that launches
-// it is _launch_fused in the same module.
+// it is _launch_fused in the same module, by the launch plan fused_plan.
 //
 // What it computes. For pre-scaled FP64 coordinates rows (n_rows, d) and cols
 // (n_cols, d), row-major, and float32 right-hand sides v (n_cols, q):
@@ -25,19 +25,29 @@
 // operations for the distance, one for the scale, CUDA's double exp (a range
 // reduction, a polynomial by Horner's rule and a scaling: some eighteen FP64
 // instructions) and q fma. At n = 53,248, d = 2 that is 2.8e9 entries times
-// about 25 + q instructions against 16.7e12 FP64 instructions per second
-// (132 SMs x 64 lanes x 1.98 GHz), about 4.4 ms at q = 1 and 5.6 ms at q = 8.
+// about 25 + q FP64 instructions against 16.7e12 per second (132 SMs x 64
+// lanes x 1.98 GHz), about 4.4 ms at q = 1 and 5.6 ms at q = 8. With one row
+// per thread the hot loop issued 58 instructions per entry at q = 1, 25 of
+// them FP64: the shared-memory reads of each column, the loop's bookkeeping
+// and the exp's integer and move work all compete with the FP64 issue.
 //
-// What the design does about it. One thread owns one output row and keeps its
-// d coordinates and its q sums in registers; a block of ROWS threads streams
-// the columns through shared memory in tiles of TJ, with v widened to double
-// once at staging, so every thread reads the same tile entry (a broadcast) and
-// the inner loop is FP64 arithmetic only. The dimension d is a template
-// parameter for d <= 3 (a runtime d would issue predicated work for all of
-// D_MAX dimensions per entry), and q is looped to the template bound QMAX. On
-// the TPU the grid carried the accumulator across the column tiles; here the
-// column range is split over blockIdx.y so that enough blocks fill the 132 SMs,
-// and no accumulator crosses blocks.
+// What the design does about it. A block of ROWS threads owns ROWS * RPT
+// output rows; each thread keeps the d coordinates and q sums of RPT rows,
+// ROWS apart, in registers. The block streams the columns through shared
+// memory in tiles of TJ, with v widened to double once at staging; every
+// thread reads the same tile entry (a broadcast), and each read of a column's
+// coordinates and of its q values of v serves RPT entries, as does the loop's
+// bookkeeping. RPT is a template parameter fixed for each bucket of q (QMAX)
+// by measurement (PERF.md): more rows per thread cut the non-FP64 work per
+// entry until the RPT x QMAX sums crowd the registers. The rows of a thread
+// past n_rows are computed on the last row's coordinates and not stored. The
+// dimension d is a template parameter for d <= 3 (a runtime d would issue
+// predicated work for all of D_MAX dimensions per entry), and q is looped to
+// the template bound QMAX. On the TPU the grid carried the accumulator across
+// the column tiles; here the column range is split over blockIdx.y so that
+// enough blocks fill the 132 SMs, and no accumulator crosses blocks. The
+// wrapper's plan (rows per thread, splits, tiles per split) is taken as given:
+// the launcher checks it and the kernel does not re-derive it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,11 +55,11 @@
 
 namespace {
 
-constexpr int ROWS = 128;   // output rows per block, one per thread (df64.py _TI)
+constexpr int ROWS = 128;   // threads per block (df64.py _TI)
 constexpr int TJ = 128;     // columns per staged tile (df64.py _TJ)
 constexpr int D_MAX = 16;   // df64.py D_MAX
 
-template <int DT, int QMAX>
+template <int DT, int QMAX, int RPT>
 __global__ void __launch_bounds__(ROWS)
 sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ cols,
                    const float* __restrict__ v, double* __restrict__ partial,
@@ -60,15 +70,18 @@ sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ c
   __shared__ double sv[TJ][QMAX];
 
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * ROWS + tid;
-  const bool live = row < n_rows;
+  const int row0 = blockIdx.x * ROWS * RPT + tid;  // the thread's rows: row0 + p * ROWS
 
-  double r[DM];
+  double r[RPT][DM];
+  double acc[RPT][QMAX];
 #pragma unroll
-  for (int k = 0; k < DM; ++k) r[k] = (live && k < d) ? rows[(size_t)row * d + k] : 0.0;
-  double acc[QMAX];
+  for (int p = 0; p < RPT; ++p) {
+    const size_t row = (size_t)min(row0 + p * ROWS, n_rows - 1);
 #pragma unroll
-  for (int c = 0; c < QMAX; ++c) acc[c] = 0.0;
+    for (int k = 0; k < DM; ++k) r[p][k] = k < d ? rows[row * d + k] : 0.0;
+#pragma unroll
+    for (int c = 0; c < QMAX; ++c) acc[p][c] = 0.0;
+  }
 
   const int n_tiles = n_cols / TJ;
   const int t_begin = blockIdx.y * tiles_per_split;
@@ -89,58 +102,97 @@ sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ c
     __syncthreads();
 #pragma unroll 2
     for (int jj = 0; jj < TJ; ++jj) {
-      double dist = 0.0;
+      double dist[RPT];
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) dist[p] = 0.0;
 #pragma unroll
       for (int k = 0; k < DM; ++k) {
         if (DT > 0 || k < d) {
-          const double diff = r[k] - sc[k][jj];
-          dist = dist + diff * diff;
+          const double ck = sc[k][jj];
+#pragma unroll
+          for (int p = 0; p < RPT; ++p) {
+            const double diff = r[p][k] - ck;
+            dist[p] = dist[p] + diff * diff;
+          }
         }
       }
-      const double e = exp(-0.5 * dist);
+      double e[RPT];
 #pragma unroll
-      for (int c = 0; c < QMAX; ++c) acc[c] = fma(e, sv[jj][c], acc[c]);
+      for (int p = 0; p < RPT; ++p) e[p] = exp(-0.5 * dist[p]);
+#pragma unroll
+      for (int c = 0; c < QMAX; ++c) {
+        const double w = sv[jj][c];
+#pragma unroll
+        for (int p = 0; p < RPT; ++p) acc[p][c] = fma(e[p], w, acc[p][c]);
+      }
     }
   }
-  if (!live) return;
-  double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
 #pragma unroll
-  for (int c = 0; c < QMAX; ++c)
-    if (c < q) out[c] = acc[c];
+  for (int p = 0; p < RPT; ++p) {
+    const int row = row0 + p * ROWS;
+    if (row < n_rows) {
+      double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
+#pragma unroll
+      for (int c = 0; c < QMAX; ++c)
+        if (c < q) out[c] = acc[p][c];
+    }
+  }
 }
 
-template <int DT, int QMAX>
+template <int DT, int QMAX, int RPT>
 int launch_q(const double* rows, const double* cols, const float* v, double* partial,
-             int n_rows, int n_cols, int d, int q, int splits, cudaStream_t stream) {
-  const int n_tiles = n_cols / TJ;
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  dim3 grid((n_rows + ROWS - 1) / ROWS, splits);
-  sqexp_fused_kernel<DT, QMAX><<<grid, ROWS, 0, stream>>>(
+             int n_rows, int n_cols, int d, int q, int splits, int tiles_per_split,
+             cudaStream_t stream) {
+  const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
+  sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
       rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
   return (int)cudaGetLastError();
 }
 
+template <int DT, int QMAX>
+int launch_r(const double* rows, const double* cols, const float* v, double* partial,
+             int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
+             cudaStream_t stream) {
+  switch (rpt) {
+    case 1: return launch_q<DT, QMAX, 1>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
+                                         tiles_per_split, stream);
+    case 2: return launch_q<DT, QMAX, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
+                                         tiles_per_split, stream);
+    case 4: return launch_q<DT, QMAX, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
+                                         tiles_per_split, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <int DT>
 int launch_d(const double* rows, const double* cols, const float* v, double* partial,
-             int n_rows, int n_cols, int d, int q, int splits, cudaStream_t stream) {
-  if (q <= 1) return launch_q<DT, 1>(rows, cols, v, partial, n_rows, n_cols, d, q, splits, stream);
-  if (q <= 2) return launch_q<DT, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, splits, stream);
-  if (q <= 4) return launch_q<DT, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, splits, stream);
-  if (q <= 8) return launch_q<DT, 8>(rows, cols, v, partial, n_rows, n_cols, d, q, splits, stream);
-  return launch_q<DT, 16>(rows, cols, v, partial, n_rows, n_cols, d, q, splits, stream);
+             int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
+             cudaStream_t s) {
+  if (q <= 1) return launch_r<DT, 1>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 2) return launch_r<DT, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 4) return launch_r<DT, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 8) return launch_r<DT, 8>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  return launch_r<DT, 16>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
 }
 
 }  // namespace
 
 // partial (splits, n_rows, q) = the column splits' sums of
-// exp(-0.5 |rows_i - cols_j|^2) v[j, :], on `stream`. n_cols must be a
-// multiple of 128, 1 <= q <= 16, 1 <= d <= 16, splits >= 1. Returns the CUDA
-// error code of the launch (0 on success).
+// exp(-0.5 |rows_i - cols_j|^2) v[j, :], on `stream`, by the plan of
+// df64.py::fused_plan: rpt output rows per thread, column split s over the
+// tiles [s * tiles_per_split, (s + 1) * tiles_per_split) cut at n_cols / 128.
+// n_cols must be a multiple of 128, 1 <= q <= 16, 1 <= d <= 16; the splits
+// must cover the column tiles with none empty, and rpt must be the one
+// instantiated for q. Returns the CUDA error code of the launch (0 on
+// success), cudaErrorInvalidValue for operands or a plan it does not take.
 extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v,
-                               void* partial, int n_rows, int n_cols, int d, int q,
-                               int splits, void* stream) {
-  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || d < 1 || d > D_MAX || q < 1 ||
-      q > 16 || splits < 1 || splits > 65535)
+                               void* partial, int n_rows, int n_cols, int d, int q, int rpt,
+                               int splits, int tiles_per_split, void* stream) {
+  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || d < 1 || d > D_MAX || q < 1 || q > 16)
+    return (int)cudaErrorInvalidValue;
+  const long n_tiles = n_cols / TJ;
+  if (tiles_per_split < 1 || splits < 1 || splits > 65535 ||
+      (long)splits * tiles_per_split < n_tiles || (long)(splits - 1) * tiles_per_split >= n_tiles)
     return (int)cudaErrorInvalidValue;
   const double* r = static_cast<const double*>(rows);
   const double* c = static_cast<const double*>(cols);
@@ -148,9 +200,9 @@ extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v
   double* p = static_cast<double*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 1: return launch_d<1>(r, c, vv, p, n_rows, n_cols, d, q, splits, s);
-    case 2: return launch_d<2>(r, c, vv, p, n_rows, n_cols, d, q, splits, s);
-    case 3: return launch_d<3>(r, c, vv, p, n_rows, n_cols, d, q, splits, s);
-    default: return launch_d<0>(r, c, vv, p, n_rows, n_cols, d, q, splits, s);
+    case 1: return launch_d<1>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+    case 2: return launch_d<2>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+    case 3: return launch_d<3>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+    default: return launch_d<0>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   }
 }

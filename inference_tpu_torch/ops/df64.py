@@ -168,21 +168,44 @@ def _fused_reference(rows64, cols64, V):
     return out
 
 
-def _splits(n_rows, n_cols, device):
-    """Column splits of a fused launch: about sixteen blocks per SM (a few
-    waves of the five or so that fit at once), at least two column tiles
-    per split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = -(-n_rows // _TI)
-    n_tiles = n_cols // _TJ
+def _column_splits(row_blocks, n_tiles, sms):
+    """Column splits of a launch of ``row_blocks`` row blocks on ``sms``
+    SMs: about sixteen blocks per SM (a few waves of the blocks that fit at
+    once), at least two column tiles per split."""
     return max(1, min(-(-16 * sms // row_blocks), n_tiles // 2))
+
+
+def _splits(n_rows, n_cols, device):
+    """Column splits of a launch of one row per thread (probes P2, P3)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _column_splits(-(-n_rows // _TI), n_cols // _TJ, sms)
+
+
+# output rows per thread of kernels B3/B4 for each bucket of q (the kernel's
+# QMAX template parameter), the fastest without spills on the H100 (PERF.md);
+# csrc/sqexp_fused.cu instantiates exactly these and refuses any other
+FUSED_RPT = {1: 4, 2: 4, 4: 2, 8: 2, 16: 2}
+
+
+def fused_plan(n_rows, n_cols, q, sms):
+    """The work of each block of a fused launch on a card with ``sms`` SMs,
+    which the kernel takes as given: ``(rpt, splits, tiles_per_split)``. A
+    block of 128 threads owns ``128 rpt`` output rows, each thread ``rpt``
+    rows 128 apart; column split ``s`` walks the 128-column tiles ``[s
+    tiles_per_split, (s + 1) tiles_per_split)``, the last one cut at
+    ``n_cols``. ``rpt`` is ``FUSED_RPT`` of q's bucket; every split holds at
+    least one tile and, where there are two or more, at least two."""
+    rpt = FUSED_RPT[next(b for b in FUSED_RPT if q <= b)]
+    n_tiles = n_cols // _TJ
+    per = -(-n_tiles // _column_splits(-(-n_rows // (_TI * rpt)), n_tiles, sms))
+    return rpt, -(-n_tiles // per), per
 
 
 def _launch_fused(rows64, cols64, V, kernel="B4"):
     """Launch the fused kernel (``csrc/sqexp_fused.cu``) on contiguous
     FP64 coordinates and a float32 block ``V`` on one CUDA device, with the
-    result of ``_fused_reference``. Counts one launch of ``kernel`` (B3 for
-    the matvec, B4 for the matmat)."""
+    result of ``_fused_reference``, by ``fused_plan``. Counts one launch of
+    ``kernel`` (B3 for the matvec, B4 for the matmat)."""
     for name, t, dt in (("rows", rows64, torch.float64), ("cols", cols64, torch.float64),
                         ("V", V, torch.float32)):
         if t.device.type != "cuda" or t.device != rows64.device:
@@ -193,12 +216,13 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
                             f"{t.dtype} (contiguous={t.is_contiguous()})")
     n_rows, d = rows64.shape
     n_cols, q = V.shape
-    splits = _splits(n_rows, n_cols, rows64.device)
+    sms = torch.cuda.get_device_properties(rows64.device).multi_processor_count
+    rpt, splits, per = fused_plan(n_rows, n_cols, q, sms)
     partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
-    fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 5)
+    fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 7)
     with torch.cuda.device(rows64.device):
         rc = fn(rows64.data_ptr(), cols64.data_ptr(), V.data_ptr(), partial.data_ptr(),
-                n_rows, n_cols, d, q, splits, _build.stream(rows64.device))
+                n_rows, n_cols, d, q, rpt, splits, per, _build.stream(rows64.device))
     _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
     return partial[0] if splits == 1 else partial.sum(dim=0)

@@ -255,20 +255,33 @@ def _within_scale(got, ref, E_abs_V):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, d, q", [(4096, 2, 1), (4096, 2, 8), (4096, 3, 5), (1024, 5, 16)])
-def test_df64_fused_kernel_matches_plain(cuda, n, d, q):
-    """B4 (and B3 for q = 1) against _fused_reference: a ragged q, the
-    templated and the runtime-d paths."""
+@pytest.mark.parametrize("n_rows, n, d, q", [
+    (4096, 4096, 2, 1), (4096, 4096, 2, 2), (4096, 4096, 2, 8), (4096, 4096, 2, 16),
+    (4096, 4096, 3, 5), (1024, 1024, 5, 16),
+    # 4,224 rows = 33 row tiles: the last block is ragged for 2 and 4 rows per thread
+    (4224, 4096, 2, 1), (4224, 4096, 2, 2), (4224, 4096, 2, 8), (4224, 4096, 2, 16),
+    (4224, 1024, 5, 3),
+])
+def test_df64_fused_kernel_matches_plain(cuda, n_rows, n, d, q):
+    """B4 (and B3 for q = 1) against _fused_reference: square and
+    rectangular with ragged row blocks, every bucket of q and a ragged q,
+    the templated and the runtime-d paths."""
     uh, ul, V = _df64_inputs(cuda, n, d, q, seed=n + d + q)
     us = uh.double() + ul.double()
     before = dict(df64.KERNEL_LAUNCHES)
-    got = df64.sqexp_matmat_df64(uh, ul, V)
-    ref = df64._fused_reference(us, us, V)
-    scale = df64._fused_reference(us, us, V.abs())
+    if n_rows == n:
+        rows = us
+        got = df64.sqexp_matmat_df64(uh, ul, V)
+    else:
+        rh, rl, _ = _df64_inputs(cuda, n_rows, d, 1, seed=n_rows + q)
+        rows = rh.double() + rl.double()
+        got = df64.sqexp_matmat_rect_df64(rh, rl, uh, ul, V)
+    ref = df64._fused_reference(rows, us, V)
+    scale = df64._fused_reference(rows, us, V.abs())
     torch.cuda.synchronize()
     assert df64.KERNEL_LAUNCHES["B4"] == before["B4"] + 1
     _within_scale(got, ref, scale)
-    if q == 1:
+    if q == 1 and n_rows == n:
         vec = df64.sqexp_matvec_df64(uh, ul, V[:, 0])
         torch.cuda.synchronize()
         assert df64.KERNEL_LAUNCHES["B3"] == before["B3"] + 1

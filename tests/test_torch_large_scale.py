@@ -75,6 +75,46 @@ def test_training_solve_residual(pair):
     assert gp.alpha.dtype == torch.float64 and gp.alpha64.shape == (512,)
 
 
+def test_residual_norm_is_the_fp64_relative_residual(pair):
+    """``residual_norm()`` (the JAX package's name) against a numpy
+    |K alpha - b| / |b| from the dense float64 K and the port's alpha, and
+    within the JAX tests' 1e-6 bound. The two agree to 1e-12 of |b|: both
+    sum the same FP64 products in other orders, and the residual itself is
+    about 7e-13 here, so a bound relative to it would measure rounding."""
+    gp, x, y, err = pair["port"], pair["x"], pair["y"], pair["err"]
+    K = np.exp(-0.5 * ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)) + np.diag(err**2 + 1e-12)
+    b = y - gp.mean_value
+    truth = np.linalg.norm(K @ gp.alpha64 - b) / np.linalg.norm(b)
+    res = gp.residual_norm()
+    assert isinstance(res, float)
+    assert abs(res - truth) <= 1e-12
+    assert res <= 1e-6
+
+
+@pytest.fixture(scope="module")
+def default_dtype_alpha():
+    x, y, err, _ = small_noise_problem(256, seed=3)
+    kw = {**KW, "preconditioner_rank": 64}
+    return (x, y, err, kw), LargeScaleGP(x, y, err, device="cpu", **kw).alpha64
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", np.float32, torch.float64])
+def test_dtype_is_taken_and_changes_nothing(default_dtype_alpha, dtype):
+    """The JAX package's ``dtype`` (``tests/gp/test_LargeScaleGP.py`` passes
+    "float32" with the df64 solver): the port's tier is FP64 throughout, so
+    alpha is the same bit for bit as with ``dtype=None``."""
+    (x, y, err, kw), alpha = default_dtype_alpha
+    gp = LargeScaleGP(x, y, err, dtype=dtype, device="cpu", **kw)
+    assert np.array_equal(gp.alpha64, alpha)
+
+
+@pytest.mark.parametrize("dtype", ["int8", torch.int32, "bogus"])
+def test_other_dtypes_raise(dtype):
+    x, y, err, _ = small_noise_problem(64, seed=0)
+    with pytest.raises(ValueError, match="dtype"):
+        LargeScaleGP(x, y, err, dtype=dtype, device="cpu", **KW)
+
+
 def test_means_match_dense_truth_and_jax(pair):
     """300 queries (the 256-wide mean blocks and a ragged one)."""
     x, y, err, q = pair["x"], pair["y"], pair["err"], pair["q"]
