@@ -159,6 +159,7 @@ def phase_build():
                 print(f"[build] {line.strip()}")
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     _print_fp64_mix()
+    _print_fused_local_memory()
 
 
 @functools.lru_cache(maxsize=None)
@@ -876,7 +877,7 @@ SWEEP_RPT = (1, 2, 4)  # rows per thread timed for each q by the sweep
 
 
 def phase_rpt_sweep(operands):
-    """B3/B4 at each of SWEEP_RPT rows per thread for q = 1, 2, 8 and 16:
+    """B3/B4 at each of SWEEP_RPT rows per thread for q = 1, 2, 4, 8 and 16:
     the plan's rpt of q's bucket set to each in turn, the result held
     against the plain version (1e-13 of sum|E||V|) and timed with CUDA
     events beside its bound, twice in turns."""
@@ -885,7 +886,7 @@ def phase_rpt_sweep(operands):
     shipped = dict(df64.FUSED_RPT)
     times = {}
     try:
-        for q in STORED_Q:
+        for q in (1, 2, 4, 8, 16):
             Vq = V[:, :q].contiguous()
             bucket = next(b for b in df64.FUSED_RPT if q <= b)
             ref = df64._fused_reference(us, us, Vq)
@@ -1086,20 +1087,14 @@ SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"),
                         "IABS"),
                 "compare": ("DSETP", "FSETP"), "move": ("MOV", "UMOV", "CS2R", "S2R"),
                 "shared": ("LDS", "STS"), "shuffle": ("SHFL",), "tensor": ("IMMA", "HMMA", "DMMA"),
-                "convert": ("I2F", "F2I", "F2F", "I2I"), "branch": ("BRA", "BSSY", "BSYNC")}
+                "convert": ("I2F", "F2I", "F2F", "I2I"), "branch": ("BRA", "BSSY", "BSYNC"),
+                "local": ("LDL", "STL"), "call": ("CALL", "RET")}
 
 
-def _hot_loop_mix(name, symbol, entries):
-    """Instructions per entry of the innermost loop that holds FP64 work in
-    one kernel of ``name``'s library, read off its SASS with cuobjdump: the
-    loop is the smallest span from a backward branch's target to the branch;
-    ``entries`` is the number of entries one thread evaluates per trip.
-    Returns {class: count per entry, "all": every instruction} or None
-    without cuobjdump."""
-    sass = _sass(name)
-    if sass is None:
-        return None
-    body = sass.split(symbol)[1].split("Function :")[0]
+def _hot_loop(body):
+    """The innermost loop that holds FP64 work in one kernel's SASS
+    ``body``: the smallest span from a backward branch's target to the
+    branch, as a list of opcodes, or None."""
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
     where = {a: k for k, (a, _, _) in enumerate(ins)}
@@ -1110,9 +1105,20 @@ def _hot_loop_mix(name, symbol, entries):
             loop = [o for _, o, _ in ins[where[int(target.group(1), 16)]:k + 1]]
             if sum(o in SASS_CLASSES["fp64"] for o in loop) >= 4:
                 loops.append(loop)
-    if not loops:
+    return min(loops, key=len) if loops else None
+
+
+def _hot_loop_mix(name, symbol, entries):
+    """Instructions per entry of the hot loop (``_hot_loop``) of one kernel
+    of ``name``'s library, read off its SASS with cuobjdump; ``entries`` is
+    the number of entries one thread evaluates per trip. Returns {class:
+    count per entry, "all": every instruction} or None without cuobjdump."""
+    sass = _sass(name)
+    if sass is None:
         return None
-    loop = min(loops, key=len)
+    loop = _hot_loop(sass.split(symbol)[1].split("Function :")[0])
+    if loop is None:
+        return None
     mix = {c: sum(o in names for o in loop) / entries for c, names in SASS_CLASSES.items()}
     mix["other"] = len(loop) / entries - sum(mix.values())
     mix["all"] = len(loop) / entries
@@ -1130,6 +1136,24 @@ HOT_LOOPS = (*((f"B3 rpt={r}", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{r}
              ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4),
              ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8),
              ("P3", "sqexp_words_mma", "sqexp_words_mma_kernelEPKa", 4))
+
+
+def _print_fused_local_memory():
+    """Each instantiation of B3/B4's kernel: its local-memory (spill)
+    instructions in all and in its hot loop, from cuobjdump's SASS."""
+    sass = _sass("sqexp_fused")
+    if sass is None:
+        print("[sass] B3/B4: cuobjdump not found; local memory not read")
+        return
+    for part in sass.split("Function : ")[1:]:
+        name = re.match(r"\S+", part).group(0)
+        dt, qmax, rpt = re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups()
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
+        loop = _hot_loop(part) or []
+        local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
+        print(f"[sass] sqexp_fused_kernel<DT={dt}, QMAX={qmax}, RPT={rpt}>: "
+              f"{sum(o in local for o in ops)} local-memory or call instructions, "
+              f"{sum(o in local for o in loop)} in the hot loop of {len(loop)}")
 
 
 def _print_hot_loops(n, clock_hz):
