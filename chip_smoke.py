@@ -17,7 +17,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
    together; times each build and prints the ``-Xptxas -v`` registers and
-   spills;
+   spills, and for each instantiation of B3/B4's kernel the local-memory
+   instructions in all and in its hot loop (cuobjdump);
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition; (b) the same with
    64 transitions and the history; (c) P=32, diagonal mass, inv_temp 0.5,
@@ -74,7 +75,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
     Then each probe's own entry point, its launch count set to 0 before and
     read after: P1 under ``nvidia-smi``'s SM clock and power readings, every
     configuration timed with its bound; the SASS instruction mix of the hot
-    loops of B3, P2 and P3 with the issue bounds it sets; P2 every
+    loops of B3, B4 (q = 8), P2 and P3 with the issue bounds it sets; P2 every
     variant and B3; P3 beside B3 and against the float64 truth; then the
     plain versions timed.
 
@@ -873,50 +874,6 @@ def phase_df64_timing(operands):
     return rows
 
 
-SWEEP_RPT = (1, 2, 4)  # rows per thread timed for each q by the sweep
-
-
-def phase_rpt_sweep(operands):
-    """B3/B4 at each of SWEEP_RPT rows per thread for q = 1, 2, 4, 8 and 16:
-    the plan's rpt of q's bucket set to each in turn, the result held
-    against the plain version (1e-13 of sum|E||V|) and timed with CUDA
-    events beside its bound, twice in turns."""
-    uh, ul, us, V = operands
-    n, d = us.shape
-    shipped = dict(df64.FUSED_RPT)
-    times = {}
-    try:
-        for q in (1, 2, 4, 8, 16):
-            Vq = V[:, :q].contiguous()
-            bucket = next(b for b in df64.FUSED_RPT if q <= b)
-            ref = df64._fused_reference(us, us, Vq)
-            scale = df64._fused_reference(us, us, Vq.abs())
-            fn = ((lambda v: df64.sqexp_matvec_df64(uh, ul, v[:, 0].contiguous())[:, None])
-                  if q == 1 else (lambda v: df64.sqexp_matmat_df64(uh, ul, v)))
-            errs = {}
-            for rpt in SWEEP_RPT:
-                df64.FUSED_RPT[bucket] = rpt
-                _, errs[rpt] = _scaled_err(fn(Vq), ref, scale)
-                if not errs[rpt] <= DF64_TOL:
-                    raise RuntimeError(f"sweep: q={q} rpt={rpt} disagrees ({errs[rpt]})")
-                times[q, rpt] = [time_events(fn, (Vq,), 10)]
-            for rpt in SWEEP_RPT[::-1]:
-                df64.FUSED_RPT[bucket] = rpt
-                times[q, rpt].append(time_events(fn, (Vq,), 10))
-            b = _fused_bound(n, d, q)[0]
-            sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
-            for rpt in SWEEP_RPT:
-                df64.FUSED_RPT[bucket] = rpt
-                t = times[q, rpt]
-                print(f"[rpt sweep] {'B3' if q == 1 else 'B4'} q={q} rpt={rpt} plan "
-                      f"{df64.fused_plan(n, n, q, sms)}: {t[0]:.4f} / {t[1]:.4f} ms, bound "
-                      f"{b:.4f} ms, {min(t) / b:.3f}x; max err / sum|E||V| {errs[rpt]:.2e}")
-            del ref, scale
-    finally:
-        df64.FUSED_RPT.update(shipped)
-    return times
-
-
 def _plain_residual(gp):
     """The FP64 relative residual of gp's training solve by an independent
     plain route: K alpha from B2's plain version (exact differences) in row
@@ -1126,11 +1083,12 @@ def _hot_loop_mix(name, symbol, entries):
 
 
 # (label, library, mangled-name fragment, entries per thread per trip of the
-# hot loop): B3 itself, and the P2 and P3 kernels whose loops differ from it
-HOT_LOOPS = (*((f"B3 rpt={r}", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{r}EE", 2 * r)
-               for r in (1, 2, 4)),
-             *((f"B4 q=8 rpt={r}", "sqexp_fused", f"sqexp_fused_kernelILi2ELi8ELi{r}EE", 2 * r)
-               for r in (1, 2, 4)),
+# hot loop): B3 and B4 at q = 8 at d = 2 (two trips unrolled, each over the
+# thread's rows), and the P2 and P3 kernels whose loops differ from B3's
+HOT_LOOPS = (("B3", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{df64.FUSED_RPT[1]}EE",
+              2 * df64.FUSED_RPT[1]),
+             ("B4 q=8", "sqexp_fused", f"sqexp_fused_kernelILi2ELi8ELi{df64.FUSED_RPT[8]}EE",
+              2 * df64.FUSED_RPT[8]),
              ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2),
              ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2),
              ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4),
@@ -1384,7 +1342,6 @@ def main():
     xpad = _padded(make_large_data(LARGE_N)[0])
     df64_err, operands = phase_df64_checks(xpad)
     df64_ms = phase_df64_timing(operands)
-    phase_rpt_sweep(operands)
     del operands
     large_launches, runs = phase_large_main()
     phase_large_16k()

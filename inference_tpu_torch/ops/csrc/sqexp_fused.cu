@@ -37,9 +37,11 @@
 // memory in tiles of TJ, with v widened to double once at staging; every
 // thread reads the same tile entry (a broadcast), and each read of a column's
 // coordinates and of its q values of v serves RPT entries, as does the loop's
-// bookkeeping. RPT is a template parameter fixed for each bucket of q (QMAX)
-// by measurement (PERF.md): more rows per thread cut the non-FP64 work per
-// entry until the RPT x QMAX sums crowd the registers. The rows of a thread
+// bookkeeping. At q = 1 that took the hot loop from 58 instructions per entry
+// to 46 (still 25 FP64), and the time from 1.71x the bound to 1.41x. RPT is a
+// template parameter fixed for each bucket of q (QMAX) by measurement on the
+// H100 (PERF.md): 4 up to QMAX 8, 2 at QMAX 16, where 4 rows' 64 sums and 64
+// coordinates of the runtime d overflow the 255 registers. The rows of a thread
 // past n_rows are computed on the last row's coordinates and not stored. The
 // dimension d is a template parameter for d <= 3 (a runtime d would issue
 // predicated work for all of D_MAX dimensions per entry), and q is looped to
@@ -48,6 +50,20 @@
 // enough blocks fill the 132 SMs, and no accumulator crosses blocks. The
 // wrapper's plan (rows per thread, splits, tiles per split) is taken as given:
 // the launcher checks it and the kernel does not re-derive it.
+//
+// Registers per thread (-Xptxas -v, CUDA 12.8), d = 1 / 2 / 3 / runtime d:
+//   QMAX 1, RPT 4     48 /  64 /  72 / 168
+//   QMAX 2, RPT 4     64 /  64 /  80 / 194
+//   QMAX 4, RPT 4     78 /  96 /  96 / 208
+//   QMAX 8, RPT 4    128 / 134 / 140 / 248
+//   QMAX 16, RPT 2   128 / 140 / 140 / 204
+// ptxas spills 4 to 20 bytes in six of them (QMAX 1 runtime d; QMAX 2 d = 2,
+// 3; QMAX 4 d = 3; QMAX 8 d = 1; QMAX 16 d = 1). Each of those sits at the
+// most registers that still fit its blocks per SM (64 for 8 blocks, 128 for
+// 4), the trade ptxas makes for occupancy, and its SASS holds the loads and
+// stores outside the hot loop: chip_smoke.py prints each hot loop's
+// local-memory count, 0 in every one. At QMAX 8 and d = 2 three blocks fit on
+// an SM, against eight at QMAX 1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -139,40 +155,28 @@ sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ c
   }
 }
 
+// the launch of one instantiation; refuses rows per thread other than RPT
 template <int DT, int QMAX, int RPT>
 int launch_q(const double* rows, const double* cols, const float* v, double* partial,
-             int n_rows, int n_cols, int d, int q, int splits, int tiles_per_split,
+             int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
              cudaStream_t stream) {
+  if (rpt != RPT) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
   sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
       rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
   return (int)cudaGetLastError();
 }
 
-template <int DT, int QMAX>
-int launch_r(const double* rows, const double* cols, const float* v, double* partial,
-             int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
-             cudaStream_t stream) {
-  switch (rpt) {
-    case 1: return launch_q<DT, QMAX, 1>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
-                                         tiles_per_split, stream);
-    case 2: return launch_q<DT, QMAX, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
-                                         tiles_per_split, stream);
-    case 4: return launch_q<DT, QMAX, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, splits,
-                                         tiles_per_split, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
+// one RPT for each bucket of q (df64.py FUSED_RPT holds the same table)
 template <int DT>
 int launch_d(const double* rows, const double* cols, const float* v, double* partial,
              int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
              cudaStream_t s) {
-  if (q <= 1) return launch_r<DT, 1>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
-  if (q <= 2) return launch_r<DT, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
-  if (q <= 4) return launch_r<DT, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
-  if (q <= 8) return launch_r<DT, 8>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
-  return launch_r<DT, 16>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 1) return launch_q<DT, 1, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 2) return launch_q<DT, 2, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 4) return launch_q<DT, 4, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 8) return launch_q<DT, 8, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  return launch_q<DT, 16, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
 }
 
 }  // namespace

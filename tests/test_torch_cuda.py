@@ -401,6 +401,33 @@ def test_df64_wrappers_raise(cuda):
 
 
 @pytest.mark.cuda
+def test_df64_fused_launcher_checks_the_plan(cuda):
+    """B3/B4's launcher takes the wrapper's plan only where its rows per
+    thread are the ones it instantiates for q and the splits cover the
+    column tiles with none empty; else it refuses before the launch."""
+    uh, ul, V = _df64_inputs(cuda, 1024, 2, 1, seed=3)
+    us = (uh.double() + ul.double()).contiguous()
+    partial = torch.zeros((8, 1024, 1), dtype=torch.float64, device=cuda)
+    fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 7)
+    rpt = df64.FUSED_RPT[1]
+
+    def launch(rpt, splits, per):
+        return fn(us.data_ptr(), us.data_ptr(), V.data_ptr(), partial.data_ptr(), 1024, 1024, 2,
+                  1, rpt, splits, per, _build.stream(us.device))
+
+    assert launch(rpt, 4, 2) == 0  # 8 tiles in 4 splits of 2
+    torch.cuda.synchronize()
+    _within_scale(partial[:4].sum(dim=0), df64._fused_reference(us, us, V),
+                  df64._fused_reference(us, us, V.abs()))
+    other = next(r for r in (1, 2, 4) if r != rpt)
+    for bad in ((rpt, 3, 2),  # tiles 6 and 7 in no split
+                (rpt, 5, 2),  # an empty fifth split
+                (rpt, 4, 0), (rpt, 0, 8),  # no tiles, no splits
+                (other, 4, 2), (3, 4, 2)):  # rows per thread not instantiated for q = 1
+        assert launch(*bad) != 0
+
+
+@pytest.mark.cuda
 def test_df64_stored_launcher_checks_the_plan(cuda):
     """B6's launcher takes the wrapper's plan only where it covers the
     matrix in whole boxes and tiles and the panel fits its buffer; else it

@@ -24,6 +24,9 @@ Tolerances, with reasons:
   ``info``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -168,6 +171,54 @@ def test_stored_partials_sum_to_the_product(dtype, sms, q):
     assert float(((partial.sum(dim=0) - ref).abs() / scale).max()) <= 1e-13
     assert splits == (3 if sms == 132 else 1)
     assert sum(walked) == n and any(w < panel for w in walked)
+
+
+def _instantiated_rpt():
+    """{QMAX: rows per thread} of the launches ``csrc/sqexp_fused.cu``
+    instantiates (``launch_q<DT, QMAX, RPT>``)."""
+    src = (Path(df64.__file__).with_name("csrc") / "sqexp_fused.cu").read_text()
+    return {int(qmax): int(rpt) for qmax, rpt in re.findall(r"launch_q<DT, (\d+), (\d+)>", src)}
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("q", [1, 2, 8, 16])
+@pytest.mark.parametrize("n_rows", [128, 4224, 53_248])
+def test_fused_plan_covers_every_tile_once(n_rows, q, sms):
+    """B3/B4's plan, which the kernel takes as given: the rows per thread
+    the launcher instantiates for q's bucket; for square and rectangular
+    launches the splits cover every 128-column tile exactly once, none
+    empty, and hold at least two tiles where there are two."""
+    built = _instantiated_rpt()
+    assert sorted(built) == sorted(df64.FUSED_RPT) and built == df64.FUSED_RPT
+    for n_cols in (n_rows, 4096):
+        rpt, splits, per = df64.fused_plan(n_rows, n_cols, q, sms)
+        assert rpt == built[min(b for b in built if q <= b)]
+        n_tiles = n_cols // 128
+        walked = [range(s * per, min((s + 1) * per, n_tiles)) for s in range(splits)]
+        assert all(len(w) >= 1 for w in walked)
+        assert sorted(t for w in walked for t in w) == list(range(n_tiles))
+        assert per >= min(2, n_tiles)
+        assert 1 <= splits <= 65535
+
+
+@pytest.mark.parametrize("sms", [8, 132])
+@pytest.mark.parametrize("q", [1, 8])
+def test_fused_partials_sum_to_the_product(sms, q):
+    """The plain version run split by split, as B3/B4 walk their plan (n =
+    1,664, 13 tiles: ragged splits on 132 SMs), summed over the splits:
+    within 1e-13 of sum_j |E_ij| |V_jk| of ``_fused_reference``."""
+    n = 1664
+    uh, ul, _ = _coords(n, 2, seed=q + sms)
+    us = torch.as_tensor(uh).double() + torch.as_tensor(ul).double()
+    V = torch.as_tensor(np.random.default_rng(q).normal(size=(n, q)).astype(np.float32))
+    _, splits, per = df64.fused_plan(n, n, q, sms)
+    partial = torch.stack([df64._fused_reference(us, us[s * per * 128:(s + 1) * per * 128],
+                                                 V[s * per * 128:(s + 1) * per * 128])
+                           for s in range(splits)])
+    ref = df64._fused_reference(us, us, V)
+    scale = df64._fused_reference(us, us, V.abs())
+    assert float(((partial.sum(dim=0) - ref).abs() / scale).max()) <= 1e-13
+    assert splits > 1
 
 
 def test_plain_row_blocks_cover_every_row(monkeypatch):
