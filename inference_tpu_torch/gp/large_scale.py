@@ -204,9 +204,9 @@ class LargeScaleGP:
         mesh=None,
         device="cuda",
     ):
+        _check_dtype(dtype)
         self._setup(x, y, y_err, hyperpars, kernel, mean_value, block_size, preconditioner,
                     solver, store_entries, mesh, device)
-        _check_dtype(dtype)
         self._build_preconditioner(preconditioner_rank)
         self._build_compiled(cg_tol, cg_maxiter)
         self._set_alpha(self._solve_alpha())

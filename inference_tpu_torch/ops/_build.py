@@ -3,7 +3,8 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout, named by a
-hash of its source and flags, and loaded with ``ctypes``. The compiler's
+hash of its source and flags (``NVCC_FLAGS`` and, for some kernels,
+``KERNEL_FLAGS``), and loaded with ``ctypes``. The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 the library as ``<library>.log``. ``bind`` types an entry point for its
 wrapper, ``stream`` gives the stream to launch on and ``raise_on`` turns
@@ -28,6 +29,15 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# flags of one kernel's build beside NVCC_FLAGS. B3/B4: ptxas's highest
+# register-usage level gives the FP64 chains of several rows per thread more
+# registers to be scheduled side by side, 1-12% faster on the H100 (PERF.md)
+KERNEL_FLAGS = {"sqexp_fused": ("-Xptxas", "--register-usage-level=10")}
+
+
+def flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
 
 
 def find_nvcc() -> str:
@@ -51,7 +61,7 @@ def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built, keyed by a hash of
     the source and the flags."""
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{digest}.so"
 
@@ -65,7 +75,7 @@ def build(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [find_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

@@ -40,30 +40,33 @@
 // bookkeeping. At q = 1 that took the hot loop from 58 instructions per entry
 // to 46 (still 25 FP64), and the time from 1.71x the bound to 1.41x. RPT is a
 // template parameter fixed for each bucket of q (QMAX) by measurement on the
-// H100 (PERF.md): 4 up to QMAX 8, 2 at QMAX 16, where 4 rows' 64 sums and 64
-// coordinates of the runtime d overflow the 255 registers. The rows of a thread
-// past n_rows are computed on the last row's coordinates and not stored. The
-// dimension d is a template parameter for d <= 3 (a runtime d would issue
-// predicated work for all of D_MAX dimensions per entry), and q is looped to
-// the template bound QMAX. On the TPU the grid carried the accumulator across
-// the column tiles; here the column range is split over blockIdx.y so that
-// enough blocks fill the 132 SMs, and no accumulator crosses blocks. The
-// wrapper's plan (rows per thread, splits, tiles per split) is taken as given:
-// the launcher checks it and the kernel does not re-derive it.
+// H100 (PERF.md): 4 up to QMAX 4, 2 at QMAX 8 and 16 (at 16, 4 rows' 64 sums
+// and 64 coordinates of the runtime d overflow the 255 registers). The rows of
+// a thread past n_rows are computed on the last row's coordinates and not
+// stored. The dimension d is a template parameter for d <= 3 (a runtime d
+// would issue predicated work for all of D_MAX dimensions per entry), and q is
+// looped to the template bound QMAX. On the TPU the grid carried the
+// accumulator across the column tiles; here the column range is split over
+// blockIdx.y so that enough blocks fill the 132 SMs, and no accumulator
+// crosses blocks. The wrapper's plan (rows per thread, splits, tiles per
+// split) is taken as given: the launcher checks it and the kernel does not
+// re-derive it.
 //
-// Registers per thread (-Xptxas -v, CUDA 12.8), d = 1 / 2 / 3 / runtime d:
-//   QMAX 1, RPT 4     48 /  64 /  72 / 168
-//   QMAX 2, RPT 4     64 /  64 /  80 / 194
-//   QMAX 4, RPT 4     78 /  96 /  96 / 208
-//   QMAX 8, RPT 4    128 / 134 / 140 / 248
-//   QMAX 16, RPT 2   128 / 140 / 140 / 204
-// ptxas spills 4 to 20 bytes in six of them (QMAX 1 runtime d; QMAX 2 d = 2,
-// 3; QMAX 4 d = 3; QMAX 8 d = 1; QMAX 16 d = 1). Each of those sits at the
-// most registers that still fit its blocks per SM (64 for 8 blocks, 128 for
-// 4), the trade ptxas makes for occupancy, and its SASS holds the loads and
-// stores outside the hot loop: chip_smoke.py prints each hot loop's
-// local-memory count, 0 in every one. At QMAX 8 and d = 2 three blocks fit on
-// an SM, against eight at QMAX 1.
+// Registers. Left to itself, ptxas fitted each instantiation to an occupancy
+// step (64, 80, 96, 128 or 168 registers) and spilled a few bytes in six of
+// them. The kernel asks for one block per SM (__launch_bounds__(ROWS, 1)) and
+// the build for ptxas's highest register-usage level (_build.KERNEL_FLAGS):
+// no instantiation spills, and the extra registers schedule the RPT exps'
+// FP64 chains side by side: 1-12% faster, with the same results bit for bit.
+// Registers per thread (-Xptxas -v, CUDA 12.8), d = 2 / runtime d, and the
+// blocks per SM at d = 2:
+//   QMAX 1, RPT 4    112 / 182   4
+//   QMAX 2, RPT 4    116 / 196   4
+//   QMAX 4, RPT 4    144 / 216   3
+//   QMAX 8, RPT 2    114 / 150   4
+//   QMAX 16, RPT 2   162 / 204   3
+// chip_smoke.py prints every instantiation's registers and local-memory
+// instructions.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,8 +78,10 @@ constexpr int ROWS = 128;   // threads per block (df64.py _TI)
 constexpr int TJ = 128;     // columns per staged tile (df64.py _TJ)
 constexpr int D_MAX = 16;   // df64.py D_MAX
 
+// a minimum of one block per SM: ptxas keeps the registers it needs rather
+// than spill to fit another block (see the header)
 template <int DT, int QMAX, int RPT>
-__global__ void __launch_bounds__(ROWS)
+__global__ void __launch_bounds__(ROWS, 1)
 sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ cols,
                    const float* __restrict__ v, double* __restrict__ partial,
                    int n_rows, int n_cols, int d_runtime, int q, int tiles_per_split) {
@@ -175,7 +180,7 @@ int launch_d(const double* rows, const double* cols, const float* v, double* par
   if (q <= 1) return launch_q<DT, 1, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   if (q <= 2) return launch_q<DT, 2, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   if (q <= 4) return launch_q<DT, 4, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
-  if (q <= 8) return launch_q<DT, 8, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+  if (q <= 8) return launch_q<DT, 8, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   return launch_q<DT, 16, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
 }
 

@@ -184,7 +184,7 @@ def _splits(n_rows, n_cols, device):
 # output rows per thread of kernels B3/B4 for each bucket of q (the kernel's
 # QMAX template parameter), the fastest without spills on the H100 (PERF.md);
 # csrc/sqexp_fused.cu instantiates exactly these and refuses any other
-FUSED_RPT = {1: 4, 2: 4, 4: 4, 8: 4, 16: 2}
+FUSED_RPT = {1: 4, 2: 4, 4: 4, 8: 2, 16: 2}
 
 
 def fused_plan(n_rows, n_cols, q, sms):

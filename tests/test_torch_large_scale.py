@@ -91,6 +91,22 @@ def test_residual_norm_is_the_fp64_relative_residual(pair):
     assert res <= 1e-6
 
 
+def test_residual_norm_of_an_unconverged_solve():
+    """Far from rounding (a solve cut at 3 iterations with a rank-8
+    preconditioner; n = 300, padded to 384), ``residual_norm()`` is numpy's
+    |K alpha - b| / |b| over the real rows to 1e-8 relative."""
+    x, y, err, _ = small_noise_problem(300, seed=5)
+    with pytest.warns(UserWarning, match="stopped after"):
+        gp = LargeScaleGP(x, y, err, device="cpu",
+                          **{**KW, "preconditioner_rank": 8, "cg_maxiter": 3})
+    K = np.exp(-0.5 * ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)) + np.diag(err**2 + 1e-12)
+    b = y - gp.mean_value
+    truth = np.linalg.norm(K @ gp.alpha64[:300] - b) / np.linalg.norm(b)
+    res = gp.residual_norm()
+    assert truth > 1e-6
+    assert abs(res - truth) <= 1e-8 * truth
+
+
 @pytest.fixture(scope="module")
 def default_dtype_alpha():
     x, y, err, _ = small_noise_problem(256, seed=3)
