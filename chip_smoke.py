@@ -11,23 +11,29 @@ Phases, each of which raises on failure (so the script exits non-zero):
 
 1. device: a CUDA device is required; prints its name, the device count
    and ``nvidia-smi``'s name and power limit;
-2. build: compiles kernels B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``),
-   B2 (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5/B7
+2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
+   one library per parameter count: P = 1, 2, 3, 10, 32, 64), B2
+   (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
    together; times each build and prints the ``-Xptxas -v`` registers and
-   spills, and for each instantiation of B3/B4's kernel the local-memory
-   instructions in all and in its hot loop (cuobjdump);
+   spills, and for each instantiation of B3/B4's kernel and each of B1's
+   kernels the local-memory instructions in all and in its hot loop
+   (cuobjdump);
 3. kernel against plain version, on the card, in float32, on the same
-   random draws: (a) P=10, K=65,536, one transition; (b) the same with
-   64 transitions and the history; (c) P=32, diagonal mass, inv_temp 0.5,
-   K=4,096. Then both are timed on one chunk of the main path's shape;
+   random draws: (a) P=10, K=65,536, one transition, bit for bit; (b) the
+   same with 64 transitions and the history; (c) P=32, diagonal mass,
+   inv_temp 0.5, K=4,096; (d-f) P=1, 32 and 64, one transition. The SASS
+   mix of B1's leapfrog step at P=10 and 32; then one chunk at the main
+   path's K timed at P=2, 10, 32 and 64 beside its bound (at P=10 beside
+   the plain version too);
 4. main path: ``ChainArray("hmc", GaussianForm, ..., fused=True)`` on the
    10-dim correlated Gaussian of ``bench.py`` at 65,536 chains: warm-up,
-   a timed advance, a stored advance for the acceptance and a thinned one
-   for the mixing checks; checks the launch count, the sample variances
-   and R-hat;
+   a timed advance, a ``torch.profiler`` breakdown of another, a stored
+   advance for the acceptance and a thinned one for the mixing checks;
+   checks the launch count, the sample variances and R-hat; then
+   ``bench.py``'s chain sweep (1,024 to 131,072 chains), attempts/s per K;
 5. plain path: the same ChainArray with ``fused=False``, timed;
 6. kernel B2 against its plain version on the card, on the same inputs:
    float64 and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged
@@ -137,39 +143,51 @@ def phase_device():
 KERNELS = {"hmc_fused": "B1", "sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
            "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
            "sqexp_words_mma": "P3"}
+B1_BUILD_P = (1, 2, 3, 10, 32, 64)  # B1's libraries: those its checks and times use
+B1_TIME_P = (2, 10, 32, 64)         # P at which B1 is timed beside its bound
 
 
-def _timed_build(name):
-    cached = _build.library_path(name).exists()
+def _libraries():
+    """(name, defines, label) of every library this script runs: one per
+    kernel, and one per parameter count of B1."""
+    libs = [(name, (), label) for name, label in KERNELS.items() if name != "hmc_fused"]
+    return [("hmc_fused", hmc_fused.kernel_variant(P), f"B1 P={P}") for P in B1_BUILD_P] + libs
+
+
+def _timed_build(name, defines):
+    cached = _build.library_path(name, defines).exists()
     t0 = time.perf_counter()
-    _build.load(name)
+    _build.load(name, defines)
     return cached, time.perf_counter() - t0
 
 
 def phase_build():
-    """Build every kernel, one nvcc process each, all started together."""
+    """Build every library, one nvcc process each, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        futures = {name: pool.submit(_timed_build, name) for name in KERNELS}
-        results = {name: f.result() for name, f in futures.items()}
-    for name, (cached, seconds) in results.items():
-        print(f"[build] kernel {KERNELS[name]} {'loaded from cache' if cached else 'built'} "
-              f"in {seconds:.2f} s: {_build.library_path(name).name}")
-        for line in _build.build_log(name).splitlines():
+    libs = _libraries()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
+        results = [f.result() for f in futures]
+    for (name, defines, label), (cached, seconds) in zip(libs, results):
+        print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
+              f"in {seconds:.2f} s: {_build.library_path(name, defines).name}")
+        for line in _build.build_log(name, defines).splitlines():
             if any(w in line for w in ("entry function", "registers", "spill")):
                 print(f"[build] {line.strip()}")
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     _print_fp64_mix()
     _print_fused_local_memory()
+    _print_b1_local_memory()
 
 
 @functools.lru_cache(maxsize=None)
-def _sass(name):
-    """The SASS of ``name``'s library by cuobjdump, or None without it."""
+def _sass(name, defines=()):
+    """The SASS of ``name``'s library (in the variant ``defines``) by
+    cuobjdump, or None without it."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    return subprocess.run([tool, "-sass", str(_build.library_path(name))],
+    return subprocess.run([tool, "-sass", str(_build.library_path(name, defines))],
                           capture_output=True, text=True, timeout=120).stdout
 
 
@@ -310,39 +328,32 @@ def _compare(label, P, K, chunk, store, inv_temp, inv_mass, seed):
         )
 
 
-def _time_chunk():
-    """CUDA-event times of one 64-transition chunk of the main path's shape,
-    kernel and plain version on the same inputs, without history."""
-    form, theta, logp, eps, it = _random_state(N_DIM, N_CHAINS, 7, 1.0)
+def _time_chunk(P, plain):
+    """CUDA-event times of one 64-transition chunk at the main path's K
+    with P parameters, unit mass, without history: the kernel in two turns
+    (with the plain version on the same inputs between them, if ``plain``).
+    Returns (kernel ms, plain ms or None, bound ms, bound by), each time
+    the lower of its two turns."""
+    form, theta, logp, eps, it = _random_state(P, N_CHAINS, 7, 1.0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    z = torch.randn((64, N_DIM, N_CHAINS), generator=gen, device="cuda")
+    z = torch.randn((64, P, N_CHAINS), generator=gen, device="cuda")
     us = torch.rand((64, N_CHAINS), generator=gen, device="cuda")
     ua = torch.rand((64, N_CHAINS), generator=gen, device="cuda")
     kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=None, store=False)
     args = (theta, logp, eps, it, z, us, ua)
-
-    def timed(fn, reps):
-        fn(*args, **kw)  # warm-up
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(reps):
-            fn(*args, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    plain_ms = timed(hmc_fused._reference_chunk, 2)
-    ms = timed(hmc_fused._launch_chunk, 10)
-    plain_ms_2 = timed(hmc_fused._reference_chunk, 2)
-    ms_2 = timed(hmc_fused._launch_chunk, 10)
-    bound_ms, bound_by = _b1_bound(us)
-    print(f"[time] one chunk (64 transitions, K={N_CHAINS}, P={N_DIM}): kernel "
-          f"{ms:.3f} / {ms_2:.3f} ms, plain version {plain_ms:.3f} / "
-          f"{plain_ms_2:.3f} ms (plain, kernel, plain, kernel); bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return min(ms, ms_2), min(plain_ms, plain_ms_2), bound_ms, bound_by
+    reps = 10 if P <= 32 else 3
+    turns = []
+    for _ in range(2):
+        p_ms = time_events(lambda: hmc_fused._reference_chunk(*args, **kw), (), 2) if plain else None
+        turns.append((time_events(lambda: hmc_fused._launch_chunk(*args, **kw), (), reps), p_ms))
+    bound_ms, bound_by = _b1_bound(us, P)
+    (ms, p1), (ms_2, p2) = turns
+    print(f"[time] B1 one chunk (64 transitions, K={N_CHAINS}, P={P}): kernel {ms:.4f} / "
+          f"{ms_2:.4f} ms" + (f", plain version {p1:.3f} / {p2:.3f} ms (plain, kernel, plain, "
+                              f"kernel)" if plain else "")
+          + f"; bound {bound_ms:.4f} ms ({bound_by}), {min(ms, ms_2) / bound_ms:.2f}x")
+    return min(ms, ms_2), (min(p1, p2) if plain else None), bound_ms, bound_by
 
 
 def _b1_bound(us, P=N_DIM, steps=HMC_STEPS):
@@ -374,6 +385,7 @@ def phase_main_path():
     ca.advance(640, store=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    _profile_advance(ca)
     ca.advance(32, store=True)
     # R-hat of 32 consecutive transitions is biased upward by their
     # autocorrelation, so the mixing checks read a thinned window
@@ -400,6 +412,52 @@ def phase_main_path():
     if not rhat.max() < 1.05:
         raise RuntimeError(f"max rhat {rhat.max()} (limit 1.05)")
     return launches, attempts, accept
+
+
+def _profile_advance(ca):
+    """torch.profiler over one more ``advance(640, store=False)``: device
+    time by kernel (B1, the normals, the uniforms), the device idle share."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ca.advance(640, store=False)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[main path profile] advance(640): {wall:.3f} ms wall, {device:.3f} ms of device "
+          f"kernels (device idle {100 * (1 - device / wall):.1f}%)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[main path profile] {ms:10.3f} ms ({100 * ms / wall:5.2f}% of wall)  "
+              f"{e.count:4d}x  {e.key[:90]}")
+
+
+CHAIN_SWEEP = (1024, 4096, 16384, 65536, 131072)  # bench.py's sweep
+WORK_PER_TIER = 1 << 22                            # bench.py: chain-transitions per tier
+
+
+def phase_chain_sweep():
+    """bench.py's chain sweep on the main path's ChainArray (P = 10, fused):
+    per K, ``max(32, 2^22 // K)`` transitions as a warm-up, then the same
+    timed, ended by a sync. Returns {K: attempts/s}."""
+    form = GaussianForm(torch.as_tensor(np.linalg.inv(make_cov())))
+    rng = np.random.default_rng(0)
+    rates = {}
+    for K in CHAIN_SWEEP:
+        n = max(32, WORK_PER_TIER // K)
+        ca = ChainArray("hmc", form, rng.normal(0, 0.1, size=(K, N_DIM)), steps=HMC_STEPS,
+                        epsilon=0.25, retry=False, fused=True, device="cuda", seed=1)
+        ca.advance(n, store=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ca.advance(n, store=False)
+        torch.cuda.synchronize()
+        rates[K] = K * n / (time.perf_counter() - t0)
+    print("[chain sweep] fused=True, P=10, attempts/s by K: "
+          + ", ".join(f"{K}: {r:,.0f}" for K, r in rates.items()))
+    return rates
 
 
 def phase_plain_path():
@@ -1039,7 +1097,7 @@ def phase_large_16k():
 # the probes P1-P3: kernel B3's measurement harnesses
 # ---------------------------------------------------------------------------
 
-SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"),
+SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"), "fp32": ("FFMA", "FMUL", "FADD"),
                 "int": ("IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX",
                         "IABS"),
                 "compare": ("DSETP", "FSETP"), "move": ("MOV", "UMOV", "CS2R", "S2R"),
@@ -1048,10 +1106,11 @@ SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"),
                 "local": ("LDL", "STL"), "call": ("CALL", "RET")}
 
 
-def _hot_loop(body):
-    """The innermost loop that holds FP64 work in one kernel's SASS
-    ``body``: the smallest span from a backward branch's target to the
-    branch, as a list of opcodes, or None."""
+def _hot_loop(body, cls="fp64", least=4):
+    """The innermost loop that holds at least ``least`` instructions of the
+    class ``cls`` in one kernel's SASS ``body``: the smallest span from a
+    backward branch's target to the branch, as a list of (opcode,
+    operands), or None."""
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
     where = {a: k for k, (a, _, _) in enumerate(ins)}
@@ -1059,8 +1118,8 @@ def _hot_loop(body):
     for k, (a, op, rest) in enumerate(ins):
         target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
         if target and int(target.group(1), 16) < a and int(target.group(1), 16) in where:
-            loop = [o for _, o, _ in ins[where[int(target.group(1), 16)]:k + 1]]
-            if sum(o in SASS_CLASSES["fp64"] for o in loop) >= 4:
+            loop = [(o, r) for _, o, r in ins[where[int(target.group(1), 16)]:k + 1]]
+            if sum(o in SASS_CLASSES[cls] for o, _ in loop) >= least:
                 loops.append(loop)
     return min(loops, key=len) if loops else None
 
@@ -1076,6 +1135,7 @@ def _hot_loop_mix(name, symbol, entries):
     loop = _hot_loop(sass.split(symbol)[1].split("Function :")[0])
     if loop is None:
         return None
+    loop = [o for o, _ in loop]
     mix = {c: sum(o in names for o in loop) / entries for c, names in SASS_CLASSES.items()}
     mix["other"] = len(loop) / entries - sum(mix.values())
     mix["all"] = len(loop) / entries
@@ -1107,11 +1167,72 @@ def _print_fused_local_memory():
         name = re.match(r"\S+", part).group(0)
         dt, qmax, rpt = re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups()
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
-        loop = _hot_loop(part) or []
+        loop = [o for o, _ in _hot_loop(part) or []]
         local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
         print(f"[sass] sqexp_fused_kernel<DT={dt}, QMAX={qmax}, RPT={rpt}>: "
               f"{sum(o in local for o in ops)} local-memory or call instructions, "
               f"{sum(o in local for o in loop)} in the hot loop of {len(loop)}")
+
+
+def _b1_kernels(P):
+    """{"unit"/"diagonal": SASS body} of the kernels in B1's library for P
+    parameters, or None without cuobjdump."""
+    sass = _sass("hmc_fused", hmc_fused.kernel_variant(P))
+    if sass is None:
+        return None
+    parts = sass.split("Function : ")[1:]
+    return {mass: next(p for p in parts if f"hmc_chunk_kernelILb{flag}E" in p.split()[0])
+            for mass, flag in (("unit", 1), ("diagonal", 0))}
+
+
+def _b1_leapfrog(P, body):
+    """The leapfrog loop of one B1 kernel for P parameters (the innermost
+    loop with a whole matvec, P^2 FFMA) as (opcode, operands) pairs, and
+    the leapfrog steps one trip of it runs."""
+    loop = _hot_loop(body, "fp32", P * P)
+    if loop is None:
+        return None, 0
+    return loop, sum(o == "FFMA" for o, _ in loop) // (P * P)
+
+
+def _print_b1_local_memory():
+    """Each of B1's libraries: registers and spills are in the build log
+    above; here the local-memory (spill) and call instructions of both its
+    kernels in all and in their leapfrog loops."""
+    for P in B1_BUILD_P:
+        kernels = _b1_kernels(P)
+        if kernels is None:
+            print("[sass] B1: cuobjdump not found; local memory not read")
+            return
+        local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
+        for mass, body in kernels.items():
+            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+            loop, _ = _b1_leapfrog(P, body)
+            loop = loop or []
+            print(f"[sass] B1 P={P} {mass} mass: {sum(o in local for o in ops)} local-memory or "
+                  f"call instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop "
+                  f"of {len(loop)}")
+
+
+def _print_b1_leapfrog_mix(P):
+    """The instruction mix of one leapfrog step of B1's main-path kernel
+    (unit mass) for P parameters, read off its SASS: FFMA, FMUL/FADD,
+    shared loads, and the operands read from the constant bank (bank 3
+    holds the form, bank 0 the kernel's parameters)."""
+    kernels = _b1_kernels(P)
+    loop, steps = _b1_leapfrog(P, kernels["unit"]) if kernels else (None, 0)
+    if not steps:
+        print(f"[sass] B1 P={P}: leapfrog loop not read (no cuobjdump or no loop found)")
+        return
+    count = lambda pred: sum(map(pred, loop)) / steps
+    print(f"[sass] B1 P={P} leapfrog step ({steps} per trip of the loop): "
+          f"{len(loop) / steps:g} instructions; FFMA {count(lambda x: x[0] == 'FFMA'):g}, "
+          f"FMUL/FADD {count(lambda x: x[0] in ('FMUL', 'FADD')):g}, "
+          f"LDS {count(lambda x: x[0] == 'LDS'):g}, LDG {count(lambda x: x[0] == 'LDG'):g}; "
+          f"operands from the constant bank: form (c[0x3]) "
+          f"{count(lambda x: 'c[0x3]' in x[1]):g}, parameters (c[0x0]) "
+          f"{count(lambda x: 'c[0x0]' in x[1]):g}; FMA equivalents in the bound "
+          f"{P * P + 4 * P:g}")
 
 
 def _print_hot_loops(n, clock_hz):
@@ -1320,11 +1441,21 @@ def main():
     torch.set_default_dtype(torch.float32)
     phase_build()
     max_err = _compare("3a", N_DIM, N_CHAINS, 1, False, 1.0, None, 11)
+    if max_err != 0.0:
+        raise RuntimeError(f"check 3a: B1 differs from its plain version by {max_err} "
+                           "(bit for bit expected)")
     _compare("3b", N_DIM, N_CHAINS, 64, True, 1.0, None, 12)
     im = np.random.default_rng(5).uniform(0.5, 2.0, 32)
     _compare("3c", 32, 4096, 1, False, 0.5, im, 13)
-    ms, plain_ms, b1_bound, b1_by = _time_chunk()
+    _compare("3d", 1, N_CHAINS, 1, False, 1.0, None, 14)
+    _compare("3e", 32, N_CHAINS, 1, False, 1.0, None, 15)
+    _compare("3f", 64, 16384, 1, False, 1.0, None, 16)
+    for P in (10, 32):
+        _print_b1_leapfrog_mix(P)
+    b1 = {P: _time_chunk(P, plain=P == N_DIM) for P in B1_TIME_P}
+    ms, plain_ms, b1_bound, b1_by = b1[N_DIM]
     launches, attempts, accept = phase_main_path()
+    sweep = phase_chain_sweep()
     plain_attempts = phase_plain_path()
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
           f"{plain_attempts:,.0f} ({attempts / plain_attempts:.2f}x)")
@@ -1375,7 +1506,7 @@ def main():
             row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
-        "name": "hmc_fused_chunk",
+        "name": "hmc_chunk_kernel<unit mass>",
         "route": "cuda",
         "source": "inference_tpu_torch/ops/csrc/hmc_fused.cu",
         "replaces": "inference_tpu/ops/hmc_fused.py:347",
@@ -1386,6 +1517,10 @@ def main():
         "bound_ms": b1_bound,
         "bound_by": b1_by,
         "library_ms": None,
+        "P": N_DIM,
+        "variant": dict(hmc_fused.kernel_variant(N_DIM)),
+        "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
+        "chain_sweep_attempts_per_s": sweep,
     }, {
         "name": "sqexp_tile_kernel",
         "route": "cuda",

@@ -4,11 +4,15 @@ Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout, named by a
 hash of its source and flags (``NVCC_FLAGS`` and, for some kernels,
-``KERNEL_FLAGS``), and loaded with ``ctypes``. The compiler's
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library as ``<library>.log``. ``bind`` types an entry point for its
-wrapper, ``stream`` gives the stream to launch on and ``raise_on`` turns
-a launcher's CUDA error code into an exception.
+``KERNEL_FLAGS``), and loaded with ``ctypes``. A kernel built in variants
+(kernel B1: one library per parameter count) takes ``defines``, pairs
+``(macro, value)`` passed to nvcc as ``-Dmacro=value``: they join the
+flags in the hash and name the library, so each variant is its own file,
+built, logged and loaded apart. The compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills) is kept beside each library as
+``<library>.log``. ``bind`` types an entry point for its wrapper,
+``stream`` gives the stream to launch on and ``raise_on`` turns a
+launcher's CUDA error code into an exception.
 """
 
 import ctypes
@@ -35,9 +39,9 @@ NVCC_FLAGS = (
 KERNEL_FLAGS = {"sqexp_fused": ("-Xptxas", "--register-usage-level=10")}
 
 
-def flags(name: str) -> tuple:
-    """The nvcc flags of ``csrc/<name>.cu``."""
-    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ())
+def flags(name: str, defines: tuple = ()) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu`` in the variant ``defines``."""
+    return NVCC_FLAGS + KERNEL_FLAGS.get(name, ()) + tuple(f"-D{k}={v}" for k, v in defines)
 
 
 def find_nvcc() -> str:
@@ -57,29 +61,37 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is built, keyed by a hash of
-    the source and the flags."""
+def library_path(name: str, defines: tuple = ()) -> Path:
+    """Where the library of ``csrc/<name>.cu`` in the variant ``defines``
+    is built, keyed by a hash of the source and the flags."""
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name)).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name, defines)).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    tag = "".join(f"_{k}{v}" for k, v in defines)
+    return BUILD_DIR / f"{name}{tag}_{digest}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its library already exists; return
-    the library's path. The library is written under a temporary name and
-    renamed, so concurrent builds never load a partial file."""
-    lib = library_path(name)
+def command(name: str, defines: tuple, out) -> list:
+    """The nvcc command that builds ``csrc/<name>.cu`` in the variant
+    ``defines`` into ``out``."""
+    return [find_nvcc(), *flags(name, defines), "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build(name: str, defines: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` in the variant ``defines`` unless its
+    library already exists; return the library's path. The library is
+    written under a temporary name and renamed, so concurrent builds never
+    load a partial file."""
+    lib = library_path(name, defines)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = command(name, defines, tmp)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed building {name} (exit {proc.returncode}):\n"
+            f"nvcc failed building {lib.stem} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
     Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
@@ -87,22 +99,25 @@ def build(name: str) -> Path:
     return lib
 
 
-def build_log(name: str) -> str:
-    """The ``-Xptxas -v`` report of the built library of ``name``."""
-    return Path(f"{library_path(name)}.log").read_text()
+def build_log(name: str, defines: tuple = ()) -> str:
+    """The ``-Xptxas -v`` report of the built library of ``name`` in the
+    variant ``defines``."""
+    return Path(f"{library_path(name, defines)}.log").read_text()
 
 
 @functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """Build (at first use) and load the library of ``csrc/<name>.cu``."""
-    return ctypes.CDLL(str(build(name)))
+def load(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """Build (at first use) and load the library of ``csrc/<name>.cu`` in
+    the variant ``defines``."""
+    return ctypes.CDLL(str(build(name, defines)))
 
 
-def bind(name: str, symbol: str, n_ptrs: int, n_ints: int):
-    """The C entry point ``symbol`` of ``csrc/<name>.cu``, typed as every
-    kernel of the package declares its launcher: ``n_ptrs`` pointers,
-    ``n_ints`` ints and the CUDA stream in, a CUDA error code out."""
-    fn = getattr(load(name), symbol)
+def bind(name: str, symbol: str, n_ptrs: int, n_ints: int, defines: tuple = ()):
+    """The C entry point ``symbol`` of ``csrc/<name>.cu`` (in the variant
+    ``defines``), typed as every kernel of the package declares its
+    launcher: ``n_ptrs`` pointers, ``n_ints`` ints and the CUDA stream in,
+    a CUDA error code out."""
+    fn = getattr(load(name, defines), symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -19,33 +19,78 @@
 //
 // What bounds it on this card. A transition streams 4*P bytes of normals and
 // 8 bytes of uniforms per chain; the state never leaves the chip within a
-// chunk. Against that it does about 55 * (2 P^2 + O(P)) FLOPs of matvec and
-// integrator work (about 14 kFLOP at P = 10, some 300 FLOP per byte), far above
-// the card's FP32-to-HBM ratio of about 20. So the kernel is bound by its
-// instruction issue rate (FP32 and the shared-memory reads of A), and the
-// bytes that matter are the normals, which a separate torch kernel writes to
-// device memory before each launch and this kernel reads once.
+// chunk. Against that it does about 50 * (2 P^2 + 8 P) flops of matvec and
+// integrator work (about 14 kFLOP at P = 10, some 300 flops per byte), far
+// above the card's FP32-to-HBM ratio of about 20. So the kernel is bound by
+// its instruction issue, and every instruction of the leapfrog step that is
+// not a multiply or add of the step's own arithmetic is a loss.
 //
-// What the design does about it. One thread per chain keeps its proposal,
-// momentum and centred position (three vectors of P_MAX floats) in registers
-// through every leapfrog step of every transition in the chunk; the current
-// position, needed only to restore it on a rejection, waits in shared memory.
-// A is loaded once per block into shared memory, zero padded to P_MAX columns,
-// and read as float4 broadcasts (every lane of a warp reads the same
-// address), so one shared load feeds four fused multiply-adds. Each thread
-// runs its own loop to its own step count. Loops over P are unrolled to
-// P_MAX with uniform guards, so register arrays keep constant indices.
+// What the design does about it. The library is built once per parameter
+// count, P = B1_P, so every loop over P unrolls completely, without guards
+// or padded columns, and every register array has constant indices. One
+// thread per chain keeps its proposal, momentum and centred position (3 P
+// floats) in registers through every leapfrog step of every transition in
+// the chunk; the current position, needed only to restore it on a
+// rejection, waits in shared memory. The form's A, mu and the inverse mass
+// are uniform over the grid, so they sit in the constant bank: each fused
+// multiply-add of the matvec takes its element of A as a constant operand
+// (c[0x3][...]), with no load instruction and no register spent on A. The
+// launcher copies them there on the launch's stream (device to device, so
+// the host never waits), after the previous launch of this library on the
+// device, on whatever stream, has finished reading them. The quadratic form
+// is evaluated once, after the last step, and unit mass is its own kernel
+// without the multiplies by 1.
 //
 // Rounding. Built with --fmad=false, so no multiply and add are contracted
 // behind the code's back: the step count, the energies and the adaptation
 // round as the plain version's separate torch operations do. Only the matvec
-// accumulation uses explicit fmaf, as the plain version's matmul does.
+// accumulation uses explicit fmaf, as the plain version's matmul does, and
+// the quadratic form after the last step repeats the last kick's products
+// in the same order, so one transition matches the plain version bit for
+// bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <utility>
+
+#ifndef B1_P
+#error "kernel B1 is built once per parameter count: nvcc -DB1_P=<P> with 1 <= P <= 64"
+#endif
+
+// where the matvec reads A: the constant bank, loaded in the loop (0,
+// shipped); shared memory as float4 broadcasts, loaded in the loop (1);
+// the constant bank read as plain C++, which the compiler hoists out of the
+// leapfrog loop into registers (2)
+#ifndef B1_A
+#define B1_A 0
+#endif
+#ifndef B1_BLOCK
+#define B1_BLOCK 128
+#endif
+#ifndef B1_MINB
+#define B1_MINB 1
+#endif
+
+constexpr int P = B1_P;
+static_assert(P >= 1 && P <= 64, "kernel B1 takes 1 to 64 parameters");
+
+// The form in the constant bank, copied in by the launcher: A (P x P, row
+// major), mu (P), the diagonal inverse mass (P). At namespace scope, so its
+// PTX name is b1_form, which the loads below name.
+__constant__ float b1_form[P * P + 2 * P];
 
 namespace {
+
+constexpr int P4 = (P + 3) / 4 * 4;  // a row of A in shared memory, zero padded
+constexpr int BLOCK = B1_BLOCK;
+constexpr int MU = P * P;            // offsets of mu and the inverse mass in b1_form
+constexpr int IM = P * P + P;
+using Cols = std::make_integer_sequence<int, P>;
+using Groups = std::make_integer_sequence<int, P4 / 4>;
 
 // step-size adaptation constants (mcmc/_kernels/hmc.py EPS_*)
 constexpr float EPS_TARGET = 0.65f;
@@ -54,8 +99,6 @@ constexpr float EPS_VAR_FLOOR = 0.03f;
 constexpr float EPS_POWER = 0.15f;
 constexpr float EPS_MIN_ADJ = 0.5f;
 constexpr float EPS_MAX_ADJ = 2.0f;
-
-constexpr int BLOCK = 128;
 
 struct Args {
   // state in
@@ -71,10 +114,7 @@ struct Args {
   const float* z;         // (chunk, P, K) standard normals
   const float* us;        // (chunk, K) step-count uniforms
   const float* ua;        // (chunk, K) accept uniforms
-  // mass and posterior operands
-  const float* inv_mass;  // (P,) diagonal inverse mass
-  const float* A;         // (P, P) symmetric
-  const float* mu;        // (P,)
+  const float* A;         // (P, P), read by the shared-memory placement
   // state out
   float* theta_o;
   float* logp_o;
@@ -88,83 +128,137 @@ struct Args {
   float* h_logp;          // (chunk, K)
   int* h_steps;           // (chunk, K)
   float* h_eps;           // (chunk, K)
-  int P, K, chunk, steps, max_steps;
+  int K, chunk, steps, max_steps;
 };
 
-template <int P_MAX>
-__device__ __forceinline__ void centre(const float (&t)[P_MAX], const float* mu_s,
-                                       float (&d)[P_MAX], int P) {
-#pragma unroll
-  for (int j = 0; j < P_MAX; ++j) {
-    if (j < P) d[j] = t[j] - mu_s[j];
-  }
+// b1_form[IDX]. A volatile load cannot be hoisted out of the leapfrog loop
+// by the compiler's front end, which would hold all of A in registers; the
+// assembler then takes the value as a constant operand of its use.
+template <int IDX>
+__device__ __forceinline__ float form() {
+#if B1_A == 2
+  return b1_form[IDX];
+#else
+  float v;
+  asm volatile("ld.const.f32 %0, [b1_form+%1];" : "=f"(v) : "n"(4 * IDX));
+  return v;
+#endif
 }
 
-// r_i += c * grad_i with grad = -A d; returns d^T A d, the quadratic form at
-// the position d was centred from.
-template <int P_MAX>
-__device__ __forceinline__ float kick(const float* A_s, const float (&d)[P_MAX],
-                                      float (&r)[P_MAX], float c, int P) {
+// (A d)_I, accumulated in column order with fmaf from 0, as the plain
+// version's matmul rounds it
+template <int I, int... J>
+__device__ __forceinline__ float row_dot(uint32_t, const float (&d)[P],
+                                         std::integer_sequence<int, J...>) {
+  float acc = 0.0f;
+  ((acc = fmaf(form<I * P + J>(), d[J], acc)), ...);
+  return acc;
+}
+
+// the same from A in shared memory (at the shared address a_s), four
+// columns per load
+template <int I, int... G>
+__device__ __forceinline__ float row_dot_shared(uint32_t a_s, const float (&d)[P],
+                                                std::integer_sequence<int, G...>) {
+  float acc = 0.0f;
+  auto group = [&](auto g) {
+    constexpr int j = 4 * decltype(g)::value;
+    float x, y, z, w;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+%5];"
+                 : "=f"(x), "=f"(y), "=f"(z), "=f"(w) : "r"(a_s), "n"(4 * (I * P4 + j)));
+    acc = fmaf(x, d[j], acc);
+    if constexpr (j + 1 < P) acc = fmaf(y, d[j + 1], acc);
+    if constexpr (j + 2 < P) acc = fmaf(z, d[j + 2], acc);
+    if constexpr (j + 3 < P) acc = fmaf(w, d[j + 3], acc);
+  };
+  (group(std::integral_constant<int, G>{}), ...);
+  return acc;
+}
+
+template <int I>
+__device__ __forceinline__ float row(uint32_t a_s, const float (&d)[P]) {
+#if B1_A == 1
+  return row_dot_shared<I>(a_s, d, Groups{});
+#else
+  return row_dot<I>(a_s, d, Cols{});
+#endif
+}
+
+template <int... J>
+__device__ __forceinline__ void centre(const float (&t)[P], float (&d)[P],
+                                       std::integer_sequence<int, J...>) {
+  ((d[J] = t[J] - form<MU + J>()), ...);
+}
+
+// r_i += c * grad_i with grad = -A d
+template <int... I>
+__device__ __forceinline__ void kick(uint32_t a_s, const float (&d)[P], float (&r)[P], float c,
+                                     std::integer_sequence<int, I...>) {
+  ((r[I] = r[I] + c * (-row<I>(a_s, d))), ...);
+}
+
+// d^T A d, summed over rows in order, as the plain version's value_cols
+template <int... I>
+__device__ __forceinline__ float quad_form(uint32_t a_s, const float (&d)[P],
+                                           std::integer_sequence<int, I...>) {
   float quad = 0.0f;
-#pragma unroll
-  for (int i = 0; i < P_MAX; ++i) {
-    if (i < P) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < P_MAX; j += 4) {
-        if (j < P) {
-          const float4 a4 = *reinterpret_cast<const float4*>(A_s + i * P_MAX + j);
-          acc = fmaf(a4.x, d[j], acc);
-          acc = fmaf(a4.y, d[j + 1], acc);
-          acc = fmaf(a4.z, d[j + 2], acc);
-          acc = fmaf(a4.w, d[j + 3], acc);
-        }
-      }
-      r[i] = r[i] + c * (-acc);
-      quad = quad + d[i] * acc;
-    }
-  }
+  ((quad = quad + d[I] * row<I>(a_s, d)), ...);
   return quad;
 }
 
-template <int P_MAX>
-__global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);  // P_MAX * P_MAX, zero padded
-  float* mu_s = A_s + P_MAX * P_MAX;              // P_MAX
-  float* im_s = mu_s + P_MAX;                     // P_MAX inverse mass
-  float* ms_s = im_s + P_MAX;                     // P_MAX momentum scale
-  float* tcur_s = ms_s + P_MAX;                   // P * BLOCK, [j][thread]
+// the velocity im * r (r for unit mass), the drift and the kinetic sum
+template <bool UNIT, int J>
+__device__ __forceinline__ float velocity(float r) {
+  if constexpr (UNIT) {
+    return r;
+  } else {
+    return form<IM + J>() * r;
+  }
+}
 
-  const int P = a.P;
-  const int K = a.K;
-  for (int i = threadIdx.x; i < P_MAX * P_MAX; i += BLOCK) {
-    const int row = i / P_MAX, col = i % P_MAX;
-    A_s[i] = (row < P && col < P) ? a.A[row * P + col] : 0.0f;
+template <bool UNIT, int... J>
+__device__ __forceinline__ void drift(float (&t)[P], const float (&r)[P], float eps,
+                                      std::integer_sequence<int, J...>) {
+  ((t[J] = t[J] + eps * velocity<UNIT, J>(r[J])), ...);
+}
+
+template <bool UNIT, int... J>
+__device__ __forceinline__ float kinetic_sum(const float (&r)[P],
+                                             std::integer_sequence<int, J...>) {
+  float kin = 0.0f;
+  ((kin = kin + r[J] * velocity<UNIT, J>(r[J])), ...);
+  return kin;
+}
+
+template <bool UNIT>
+__global__ void __launch_bounds__(BLOCK, B1_MINB) hmc_chunk_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  float* ms_s = reinterpret_cast<float*>(smem4);  // P4 momentum scales 1 / sqrt(im)
+  float* tcur_s = ms_s + P4;                      // P * BLOCK, [j][thread]
+
+  if (!UNIT) {
+    for (int j = threadIdx.x; j < P; j += BLOCK) ms_s[j] = 1.0f / sqrtf(b1_form[IM + j]);
   }
-  for (int i = threadIdx.x; i < P_MAX; i += BLOCK) {
-    const bool in = i < P;
-    const float im = in ? a.inv_mass[i] : 1.0f;
-    mu_s[i] = in ? a.mu[i] : 0.0f;
-    im_s[i] = im;
-    ms_s[i] = 1.0f / sqrtf(im);
+  uint32_t a_s = 0;  // shared address of A in the shared-memory placement
+#if B1_A == 1
+  float* A_s = tcur_s + P * BLOCK;  // P x P4, 16-byte aligned (BLOCK and P4 are multiples of 4)
+  for (int i = threadIdx.x; i < P * P4; i += BLOCK) {
+    const int row = i / P4, col = i % P4;
+    A_s[i] = col < P ? a.A[row * P + col] : 0.0f;
   }
+  a_s = static_cast<uint32_t>(__cvta_generic_to_shared(A_s));
+#endif
   __syncthreads();
 
   const int k = blockIdx.x * BLOCK + threadIdx.x;
-  if (k >= K) return;  // ragged edge; no barrier follows
-  const size_t Ks = static_cast<size_t>(K);
+  if (k >= a.K) return;  // ragged edge; no barrier follows
+  const size_t Ks = static_cast<size_t>(a.K);
 
-  float tp[P_MAX], r[P_MAX], d[P_MAX];
+  float tp[P], r[P], d[P];
 #pragma unroll
-  for (int j = 0; j < P_MAX; ++j) {
-    tp[j] = 0.0f;
-    r[j] = 0.0f;
-    d[j] = 0.0f;
-    if (j < P) {
-      tp[j] = a.theta[j * Ks + k];
-      tcur_s[j * BLOCK + threadIdx.x] = tp[j];
-    }
+  for (int j = 0; j < P; ++j) {
+    tp[j] = a.theta[j * Ks + k];
+    tcur_s[j * BLOCK + threadIdx.x] = tp[j];
   }
   float lp = a.logp[k];
   float ev = a.ev[k], ea = a.ea[k], evr = a.evr[k];
@@ -176,17 +270,10 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
     const size_t cK = static_cast<size_t>(c) * Ks;
     const float* zc = a.z + cK * P + k;
 
-    // momentum draw and initial energy
-    float kin0 = 0.0f;
+    // momentum draw
 #pragma unroll
-    for (int j = 0; j < P_MAX; ++j) {
-      if (j < P) {
-        const float r0 = ms_s[j] * zc[j * Ks];
-        r[j] = r0;
-        kin0 = kin0 + r0 * (im_s[j] * r0);
-      }
-    }
-    const float h0 = 0.5f * kin0 - lp;
+    for (int j = 0; j < P; ++j) r[j] = UNIT ? zc[j * Ks] : ms_s[j] * zc[j * Ks];
+    const float h0 = 0.5f * kinetic_sum<UNIT>(r, Cols{}) - lp;
 
     // jittered step count, at least one drift
     const float u = a.us[cK + k];
@@ -195,26 +282,17 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
 
     const float eps = ev;
     const float r_step = it * eps;
-    centre<P_MAX>(tp, mu_s, d, P);
-    kick<P_MAX>(A_s, d, r, 0.5f * r_step, P);
-    float quad = 0.0f;
+    const float half = 0.5f * r_step;
+    centre(tp, d, Cols{});
+    kick(a_s, d, r, half, Cols{});
     for (int s = 0; s < n; ++s) {
-      const float kick_c = (s == n - 1) ? 0.5f : 1.0f;
-#pragma unroll
-      for (int j = 0; j < P_MAX; ++j) {
-        if (j < P) tp[j] = tp[j] + eps * (im_s[j] * r[j]);
-      }
-      centre<P_MAX>(tp, mu_s, d, P);
-      quad = kick<P_MAX>(A_s, d, r, kick_c * r_step, P);
+      drift<UNIT>(tp, r, eps, Cols{});
+      centre(tp, d, Cols{});
+      kick(a_s, d, r, s == n - 1 ? half : r_step, Cols{});
     }
 
-    const float p = (-0.5f * quad) * it;
-    float kin = 0.0f;
-#pragma unroll
-    for (int j = 0; j < P_MAX; ++j) {
-      if (j < P) kin = kin + r[j] * (im_s[j] * r[j]);
-    }
-    const float h = 0.5f * kin - p;
+    const float p = (-0.5f * quad_form(a_s, d, Cols{})) * it;
+    const float h = 0.5f * kinetic_sum<UNIT>(r, Cols{}) - p;
     const float ap = expf(h0 - h);
 
     // step-size adaptation (submit_accept_prob)
@@ -245,21 +323,15 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
     if (accepted) {
       lp = p;
 #pragma unroll
-      for (int j = 0; j < P_MAX; ++j) {
-        if (j < P) tcur_s[j * BLOCK + threadIdx.x] = tp[j];
-      }
+      for (int j = 0; j < P; ++j) tcur_s[j * BLOCK + threadIdx.x] = tp[j];
     } else {
 #pragma unroll
-      for (int j = 0; j < P_MAX; ++j) {
-        if (j < P) tp[j] = tcur_s[j * BLOCK + threadIdx.x];
-      }
+      for (int j = 0; j < P; ++j) tp[j] = tcur_s[j * BLOCK + threadIdx.x];
     }
 
     if (store) {
 #pragma unroll
-      for (int j = 0; j < P_MAX; ++j) {
-        if (j < P) a.h_theta[(cK * P) + j * Ks + k] = tp[j];
-      }
+      for (int j = 0; j < P; ++j) a.h_theta[(cK * P) + j * Ks + k] = tp[j];
       a.h_logp[cK + k] = lp;
       a.h_steps[cK + k] = n;
       a.h_eps[cK + k] = ev;
@@ -267,9 +339,7 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   }
 
 #pragma unroll
-  for (int j = 0; j < P_MAX; ++j) {
-    if (j < P) a.theta_o[j * Ks + k] = tp[j];
-  }
+  for (int j = 0; j < P; ++j) a.theta_o[j * Ks + k] = tp[j];
   a.logp_o[k] = lp;
   a.ev_o[k] = ev;
   a.ea_o[k] = ea;
@@ -278,37 +348,63 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   a.ec_o[k] = ec;
 }
 
-template <int P_MAX>
+template <bool UNIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (P_MAX * P_MAX + 3 * P_MAX + static_cast<size_t>(a.P) * BLOCK);
+  const size_t smem = sizeof(float) * (P4 + static_cast<size_t>(P) * BLOCK +
+                                       (B1_A == 1 ? P * P4 : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      hmc_chunk_kernel<P_MAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hmc_chunk_kernel<UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int grid = (a.K + BLOCK - 1) / BLOCK;
-  hmc_chunk_kernel<P_MAX><<<grid, BLOCK, smem, stream>>>(a);
+  hmc_chunk_kernel<UNIT><<<grid, BLOCK, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+// The constant bank is one per device for this library. Each launch waits,
+// on its own stream, for the previous launch on the device (`done`) before
+// it overwrites the form, so launches on different streams never read each
+// other's operands.
+constexpr int MAX_DEVICES = 64;
+std::mutex g_mutex;
+cudaEvent_t g_done[MAX_DEVICES];
+
 }  // namespace
 
-// Launches one chunk on `stream` and returns cudaGetLastError() (0 on
-// success). Every pointer is a device pointer; the four history pointers are
-// all null (no history) or all set.
+// Launches one chunk on `stream` and returns a CUDA error code (0 on
+// success; cudaErrorInvalidValue when P is not this library's B1_P). Every
+// pointer is a device pointer; inv_mass is null for unit mass; the four
+// history pointers are all null (no history) or all set.
 extern "C" int hmc_fused_chunk(
     const float* theta, const float* logp, const float* ev, const float* ea,
     const float* evr, const int* en, const int* ec, const float* inv_temp,
     const float* z, const float* us, const float* ua, const float* inv_mass,
     const float* A, const float* mu, float* theta_o, float* logp_o, float* ev_o,
     float* ea_o, float* evr_o, int* en_o, int* ec_o, float* h_theta,
-    float* h_logp, int* h_steps, float* h_eps, int P, int K, int chunk,
+    float* h_logp, int* h_steps, float* h_eps, int n_params, int K, int chunk,
     int steps, int max_steps, void* stream) {
-  if (P < 1 || P > 64 || K < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{theta, logp, ev, ea, evr, en, ec, inv_temp, z, us, ua, inv_mass, A, mu,
-               theta_o, logp_o, ev_o, ea_o, evr_o, en_o, ec_o,
-               h_theta, h_logp, h_steps, h_eps, P, K, chunk, steps, max_steps};
+  if (n_params != P || K < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  const Args args{theta, logp, ev, ea, evr, en, ec, inv_temp, z, us, ua, A,
+                  theta_o, logp_o, ev_o, ea_o, evr_o, en_o, ec_o,
+                  h_theta, h_logp, h_steps, h_eps, K, chunk, steps, max_steps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = P <= 16 ? launch<16>(a, s) : launch<64>(a, s);
+
+  std::lock_guard<std::mutex> lock(g_mutex);
+  cudaEvent_t& done = g_done[dev];
+  err = done == nullptr ? cudaEventCreateWithFlags(&done, cudaEventDisableTiming)
+                        : cudaStreamWaitEvent(s, done, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaMemcpyKind d2d = cudaMemcpyDeviceToDevice;
+  err = cudaMemcpyToSymbolAsync(b1_form, A, sizeof(float) * P * P, 0, d2d, s);
+  if (err == cudaSuccess)
+    err = cudaMemcpyToSymbolAsync(b1_form, mu, sizeof(float) * P, sizeof(float) * MU, d2d, s);
+  if (err == cudaSuccess && inv_mass != nullptr)
+    err = cudaMemcpyToSymbolAsync(b1_form, inv_mass, sizeof(float) * P, sizeof(float) * IM, d2d, s);
+  if (err == cudaSuccess) err = inv_mass == nullptr ? launch<true>(args, s) : launch<false>(args, s);
+  if (err == cudaSuccess) err = cudaEventRecord(done, s);
   return static_cast<int>(err);
 }

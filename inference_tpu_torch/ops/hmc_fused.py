@@ -25,10 +25,14 @@ cannot call a Python callable, so the quadratic form's operands ``A`` and
 ``mu`` are passed to it and the kernel evaluates value and gradient itself.
 Everywhere else a ``GaussianForm`` is an ordinary posterior module.
 
+The kernel is built once per parameter count P (``kernel_variant``): one
+library per P in ``build/kernels/``, compiled at the first launch with
+that P, so every loop over P unrolls with no guards or padding.
+
 Restrictions of the kernel: ``retry=False``, no reflecting bounds,
-unit/scalar/diagonal inverse mass, ``P <= 64``, float32, one device. On a
-CPU tensor the plain version runs instead; on a CUDA tensor the kernel
-launches or the wrapper raises.
+unit/scalar/diagonal inverse mass, ``1 <= P <= 64``, float32, one device.
+On a CPU tensor the plain version runs instead; on a CUDA tensor the
+kernel of that P launches or the wrapper raises.
 """
 
 from typing import NamedTuple
@@ -48,7 +52,7 @@ from ..mcmc._kernels.hmc import (
 from . import _build
 
 _CHUNK = 64  # transitions per kernel launch
-P_MAX = 64   # the kernel's largest instantiation
+P_MAX = 64   # the largest parameter count the kernel is built for
 
 # launches of the CUDA kernel in this process; the wrapper adds one per launch
 KERNEL_LAUNCHES = 0
@@ -178,13 +182,19 @@ def _reference_chunk(
     return theta, logp, eps, tuple(torch.stack(h) for h in zip(*hist))
 
 
+def kernel_variant(P: int) -> tuple:
+    """The nvcc defines of kernel B1's library for ``P`` parameters."""
+    return (("B1_P", P),)
+
+
 def _launch_chunk(
     theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store
 ):
     """Launch kernel B1 for ``z.shape[0]`` transitions on CUDA tensors, with
-    the signature and results of ``_reference_chunk``. Raises on a tensor
-    the kernel does not take (not float32 or int32, wrong device, shape or
-    layout); it never casts."""
+    the signature and results of ``_reference_chunk``, through the library
+    built for this P. Raises on a tensor the kernel does not take (not
+    float32 or int32, wrong device, shape or layout; it never casts), and
+    when the library of this P fails to build, load or launch."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
@@ -194,13 +204,10 @@ def _launch_chunk(
             f"kernel B1 takes at most P = {P_MAX} parameters, got {P} "
             "(larger P is ROADMAP queue B1's open item)"
         )
+    if P < 1:
+        raise ValueError(f"kernel B1 takes at least one parameter, got P = {P}")
     if chunk < 1 or K < 1:
         raise ValueError("kernel B1 needs at least one chain and one transition")
-    im = (
-        torch.ones(P, dtype=torch.float32, device=dev)
-        if inv_mass_diag is None
-        else inv_mass_diag
-    )
     f32, i32 = torch.float32, torch.int32
     operands = [
         ("theta", theta, (P, K), f32),
@@ -214,10 +221,11 @@ def _launch_chunk(
         ("z", z, (chunk, P, K), f32),
         ("u_steps", us, (chunk, K), f32),
         ("u_acc", ua, (chunk, K), f32),
-        ("inv_mass", im, (P,), f32),
         ("A", form.A, (P, P), f32),
         ("mu", form.mu, (P,), f32),
     ]
+    if inv_mass_diag is not None:  # None: unit mass, the kernel's own case
+        operands.insert(11, ("inv_mass", inv_mass_diag, (P,), f32))
     for name, x, shape, dtype in operands:
         if x.dtype != dtype:
             raise TypeError(
@@ -244,14 +252,19 @@ def _launch_chunk(
         if store
         else None
     )
-    fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5)
+    try:
+        fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, kernel_variant(P))
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError(f"kernel B1 for P = {P} failed to build or load: {e}") from e
     ptrs = [x.data_ptr() for _, x, _, _ in operands]
+    if inv_mass_diag is None:
+        ptrs.insert(11, None)
     ptrs += [x.data_ptr() for x in outs]
     ptrs += [x.data_ptr() for x in hist] if store else [None] * 4
     max_steps = max(int(steps * 1.1), 1)
     with torch.cuda.device(dev):
         rc = fn(*ptrs, P, K, chunk, int(steps), max_steps, _build.stream(dev))
-    _build.raise_on(rc, "B1")
+    _build.raise_on(rc, f"B1 (P = {P})")
     KERNEL_LAUNCHES += 1
     t_o, lp_o, ev_o, ea_o, evr_o, en_o, ec_o = outs
     return t_o, lp_o, AdaptiveScale(ev_o, ea_o, evr_o, en_o, ec_o), hist

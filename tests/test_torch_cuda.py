@@ -72,15 +72,21 @@ def _close(a, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "P, K, inv_temp, diag_mass",
-    [(10, 65536, 1.0, False), (32, 4096, 0.5, True), (3, 1000, 1.0, True)],
+    [(10, 65536, 1.0, False), (32, 4096, 0.5, True), (3, 1000, 1.0, True),
+     (1, 4096, 1.0, False), (2, 4096, 1.0, False), (16, 4096, 1.0, False),
+     (17, 4096, 1.0, True), (64, 4096, 1.0, False), (10, 4096, 1.0, "scalar"),
+     (10, 4096, 0.5, False)],
 )
 def test_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mass):
     """One transition: position, logp and step size within tolerance and the
-    adaptation counters equal on >= 99.9% of chains (both P_MAX
-    instantiations, unit and diagonal mass, a ragged last block)."""
+    adaptation counters equal on >= 99.9% of chains (the libraries of P = 1
+    to 64, unit, scalar and diagonal mass, tempering, a ragged last
+    block)."""
     form, args = _chunk_inputs(cuda, P, K, 1, inv_temp, seed=P)
     im = (torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, P),
                           dtype=torch.float32, device=cuda) if diag_mass else None)
+    if diag_mass == "scalar":
+        im = torch.full((P,), 0.7, device=cuda)
     kw = dict(form=form, steps=50, inv_mass_diag=im, store=False)
     before = hmc_fused.KERNEL_LAUNCHES
     k = hmc_fused._launch_chunk(*args, **kw)
@@ -93,12 +99,13 @@ def test_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mass):
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_stored_chunk(cuda):
+@pytest.mark.parametrize("P", [10, 32])
+def test_kernel_matches_plain_stored_chunk(cuda, P):
     """A stored 64-transition chunk: the first transition and every step
     count agree per chain, and the accept fraction of every transition
     agrees to 1e-3 (single chains drift apart over a chunk at float32
     roundoff, as the plain version does from itself in float64)."""
-    form, args = _chunk_inputs(cuda, 10, 16384, 64, 1.0, seed=12)
+    form, args = _chunk_inputs(cuda, P, 16384, 64, 1.0, seed=12)
     kw = dict(form=form, steps=50, inv_mass_diag=None, store=True)
     hk = hmc_fused._launch_chunk(*args, **kw)[3]
     hp = hmc_fused._reference_chunk(*args, **kw)[3]
@@ -128,6 +135,34 @@ def test_fused_chain_array_on_card(cuda):
     assert abs(sample.mean(axis=0)).max() < 0.05
     np.testing.assert_allclose(np.cov(sample.T), cov, atol=0.05)
     assert ca.rhat().max() < 1.05
+
+
+@pytest.mark.cuda
+def test_failed_variant_build_raises_naming_b1_and_p(cuda, tmp_path, monkeypatch):
+    """A library of B1 that fails to build raises naming the kernel and P:
+    no fallback to the plain version or to another P."""
+    bad = tmp_path / "nvcc"
+    bad.write_text("#!/bin/sh\nexit 1\n")
+    bad.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(bad))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    _build.load.cache_clear()
+    form, args = _chunk_inputs(cuda, 7, 256, 1, 1.0, seed=7)
+    before = hmc_fused.KERNEL_LAUNCHES
+    try:
+        with pytest.raises(RuntimeError, match="kernel B1 for P = 7"):
+            hmc_fused._launch_chunk(*args, form=form, steps=10, inv_mass_diag=None, store=False)
+    finally:
+        _build.load.cache_clear()
+    assert hmc_fused.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_launch_refuses_another_libraries_p(cuda):
+    """The library of one P refuses a launch with another P."""
+    fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, hmc_fused.kernel_variant(10))
+    rc = fn(*([None] * 25), 9, 256, 1, 10, 11, _build.stream(cuda))
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 @pytest.mark.cuda
