@@ -1197,28 +1197,30 @@ def _b1_leapfrog(P, body):
 
 def _print_b1_local_memory():
     """Each of B1's libraries: registers and spills are in the build log
-    above; here the local-memory (spill) and call instructions of both its
-    kernels in all and in their leapfrog loops."""
+    above; here the local-memory (spill) instructions of both its kernels
+    in all and in their leapfrog loops, and their calls (the slow paths of
+    the division and the exp)."""
     for P in B1_BUILD_P:
         kernels = _b1_kernels(P)
         if kernels is None:
             print("[sass] B1: cuobjdump not found; local memory not read")
             return
-        local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
+        local, call = SASS_CLASSES["local"], SASS_CLASSES["call"]
         for mass, body in kernels.items():
             ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
             loop, _ = _b1_leapfrog(P, body)
             loop = loop or []
-            print(f"[sass] B1 P={P} {mass} mass: {sum(o in local for o in ops)} local-memory or "
-                  f"call instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop "
-                  f"of {len(loop)}")
+            print(f"[sass] B1 P={P} {mass} mass: {sum(o in local for o in ops)} local-memory "
+                  f"instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop of "
+                  f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
 
 
 def _print_b1_leapfrog_mix(P):
     """The instruction mix of one leapfrog step of B1's main-path kernel
     (unit mass) for P parameters, read off its SASS: FFMA, FMUL/FADD,
-    shared loads, and the operands read from the constant bank (bank 3
-    holds the form, bank 0 the kernel's parameters)."""
+    shared and global loads, and where the operands come from: the
+    constant bank (bank 3 holds the form, bank 0 the kernel's parameters)
+    or the uniform registers the assembler loads constants into."""
     kernels = _b1_kernels(P)
     loop, steps = _b1_leapfrog(P, kernels["unit"]) if kernels else (None, 0)
     if not steps:
@@ -1229,10 +1231,11 @@ def _print_b1_leapfrog_mix(P):
           f"{len(loop) / steps:g} instructions; FFMA {count(lambda x: x[0] == 'FFMA'):g}, "
           f"FMUL/FADD {count(lambda x: x[0] in ('FMUL', 'FADD')):g}, "
           f"LDS {count(lambda x: x[0] == 'LDS'):g}, LDG {count(lambda x: x[0] == 'LDG'):g}; "
-          f"operands from the constant bank: form (c[0x3]) "
+          f"instructions with an operand from the constant bank: form (c[0x3]) "
           f"{count(lambda x: 'c[0x3]' in x[1]):g}, parameters (c[0x0]) "
-          f"{count(lambda x: 'c[0x0]' in x[1]):g}; FMA equivalents in the bound "
-          f"{P * P + 4 * P:g}")
+          f"{count(lambda x: 'c[0x0]' in x[1]):g}; from a uniform register "
+          f"{count(lambda x: re.search(r'\bUR\d', x[1]) is not None):g}; FMA equivalents "
+          f"in the bound {P * P + 4 * P:g}")
 
 
 def _print_hot_loops(n, clock_hz):

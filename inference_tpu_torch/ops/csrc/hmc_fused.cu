@@ -31,15 +31,23 @@
 // thread per chain keeps its proposal, momentum and centred position (3 P
 // floats) in registers through every leapfrog step of every transition in
 // the chunk; the current position, needed only to restore it on a
-// rejection, waits in shared memory. The form's A, mu and the inverse mass
-// are uniform over the grid, so they sit in the constant bank: each fused
-// multiply-add of the matvec takes its element of A as a constant operand
-// (c[0x3][...]), with no load instruction and no register spent on A. The
-// launcher copies them there on the launch's stream (device to device, so
-// the host never waits), after the previous launch of this library on the
-// device, on whatever stream, has finished reading them. The quadratic form
-// is evaluated once, after the last step, and unit mass is its own kernel
-// without the multiplies by 1.
+// rejection, waits in shared memory. The form (A, mu, the diagonal inverse
+// mass) is uniform over the grid and sits in the constant bank, where the
+// launcher copies it on the launch's stream (device to device, so the host
+// never waits) once the previous launch of this library on the device, on
+// whatever stream, has finished reading it. Where the matvec reads A was
+// chosen by timing both places on the H100 (PERF.md, PR 8):
+//   P <= 12: from the constant bank. The assembler holds A's P^2 values in
+//     uniform and regular registers through the loop, so a leapfrog step is
+//     its multiplies and adds and a few loop instructions (157 at P = 10),
+//     with no load;
+//   P > 12: from shared memory as float4 broadcasts (one LDS.128 for four
+//     FFMA), because A no longer fits the register file beside the state,
+//     and the assembler's hoisting of constant-bank values then spills.
+// Each value is loaded inside the loop by a volatile load, so the
+// compiler's front end cannot hoist all of A out of the loop first. The
+// quadratic form is evaluated once, after the last step, and unit mass is
+// its own kernel without the multiplies by 1.
 //
 // Rounding. Built with --fmad=false, so no multiply and add are contracted
 // behind the code's back: the step count, the energies and the adaptation
@@ -61,20 +69,6 @@
 #error "kernel B1 is built once per parameter count: nvcc -DB1_P=<P> with 1 <= P <= 64"
 #endif
 
-// where the matvec reads A: the constant bank, loaded in the loop (0,
-// shipped); shared memory as float4 broadcasts, loaded in the loop (1);
-// the constant bank read as plain C++, which the compiler hoists out of the
-// leapfrog loop into registers (2)
-#ifndef B1_A
-#define B1_A 0
-#endif
-#ifndef B1_BLOCK
-#define B1_BLOCK 128
-#endif
-#ifndef B1_MINB
-#define B1_MINB 1
-#endif
-
 constexpr int P = B1_P;
 static_assert(P >= 1 && P <= 64, "kernel B1 takes 1 to 64 parameters");
 
@@ -85,8 +79,9 @@ __constant__ float b1_form[P * P + 2 * P];
 
 namespace {
 
+constexpr bool SHARED_A = P > 12;    // where the matvec reads A (see above)
 constexpr int P4 = (P + 3) / 4 * 4;  // a row of A in shared memory, zero padded
-constexpr int BLOCK = B1_BLOCK;
+constexpr int BLOCK = 128;           // 64 and 256 measured no faster at P = 10 and 32
 constexpr int MU = P * P;            // offsets of mu and the inverse mass in b1_form
 constexpr int IM = P * P + P;
 using Cols = std::make_integer_sequence<int, P>;
@@ -114,7 +109,7 @@ struct Args {
   const float* z;         // (chunk, P, K) standard normals
   const float* us;        // (chunk, K) step-count uniforms
   const float* ua;        // (chunk, K) accept uniforms
-  const float* A;         // (P, P), read by the shared-memory placement
+  const float* A;         // (P, P), staged in shared memory where SHARED_A
   // state out
   float* theta_o;
   float* logp_o;
@@ -131,18 +126,14 @@ struct Args {
   int K, chunk, steps, max_steps;
 };
 
-// b1_form[IDX]. A volatile load cannot be hoisted out of the leapfrog loop
-// by the compiler's front end, which would hold all of A in registers; the
-// assembler then takes the value as a constant operand of its use.
+// b1_form[IDX], by a volatile load that the compiler's front end keeps
+// where it is used (a plain read of b1_form was hoisted out of the
+// leapfrog loop and ran 1.29x slower at P = 10, PERF.md)
 template <int IDX>
 __device__ __forceinline__ float form() {
-#if B1_A == 2
-  return b1_form[IDX];
-#else
   float v;
   asm volatile("ld.const.f32 %0, [b1_form+%1];" : "=f"(v) : "n"(4 * IDX));
   return v;
-#endif
 }
 
 // (A d)_I, accumulated in column order with fmaf from 0, as the plain
@@ -177,11 +168,11 @@ __device__ __forceinline__ float row_dot_shared(uint32_t a_s, const float (&d)[P
 
 template <int I>
 __device__ __forceinline__ float row(uint32_t a_s, const float (&d)[P]) {
-#if B1_A == 1
-  return row_dot_shared<I>(a_s, d, Groups{});
-#else
-  return row_dot<I>(a_s, d, Cols{});
-#endif
+  if constexpr (SHARED_A) {
+    return row_dot_shared<I>(a_s, d, Groups{});
+  } else {
+    return row_dot<I>(a_s, d, Cols{});
+  }
 }
 
 template <int... J>
@@ -231,7 +222,7 @@ __device__ __forceinline__ float kinetic_sum(const float (&r)[P],
 }
 
 template <bool UNIT>
-__global__ void __launch_bounds__(BLOCK, B1_MINB) hmc_chunk_kernel(const Args a) {
+__global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* ms_s = reinterpret_cast<float*>(smem4);  // P4 momentum scales 1 / sqrt(im)
   float* tcur_s = ms_s + P4;                      // P * BLOCK, [j][thread]
@@ -239,15 +230,15 @@ __global__ void __launch_bounds__(BLOCK, B1_MINB) hmc_chunk_kernel(const Args a)
   if (!UNIT) {
     for (int j = threadIdx.x; j < P; j += BLOCK) ms_s[j] = 1.0f / sqrtf(b1_form[IM + j]);
   }
-  uint32_t a_s = 0;  // shared address of A in the shared-memory placement
-#if B1_A == 1
-  float* A_s = tcur_s + P * BLOCK;  // P x P4, 16-byte aligned (BLOCK and P4 are multiples of 4)
-  for (int i = threadIdx.x; i < P * P4; i += BLOCK) {
-    const int row = i / P4, col = i % P4;
-    A_s[i] = col < P ? a.A[row * P + col] : 0.0f;
+  uint32_t a_s = 0;  // shared address of A where SHARED_A
+  if constexpr (SHARED_A) {
+    float* A_s = tcur_s + P * BLOCK;  // P x P4, 16-byte aligned (BLOCK and P4 are multiples of 4)
+    for (int i = threadIdx.x; i < P * P4; i += BLOCK) {
+      const int row = i / P4, col = i % P4;
+      A_s[i] = col < P ? a.A[row * P + col] : 0.0f;
+    }
+    a_s = static_cast<uint32_t>(__cvta_generic_to_shared(A_s));
   }
-  a_s = static_cast<uint32_t>(__cvta_generic_to_shared(A_s));
-#endif
   __syncthreads();
 
   const int k = blockIdx.x * BLOCK + threadIdx.x;
@@ -351,7 +342,7 @@ __global__ void __launch_bounds__(BLOCK, B1_MINB) hmc_chunk_kernel(const Args a)
 template <bool UNIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (P4 + static_cast<size_t>(P) * BLOCK +
-                                       (B1_A == 1 ? P * P4 : 0));
+                                       (SHARED_A ? P * P4 : 0));
   cudaError_t err = cudaFuncSetAttribute(
       hmc_chunk_kernel<UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
