@@ -140,9 +140,9 @@ def phase_device():
     return name, smi
 
 
-KERNELS = {"hmc_fused": "B1", "sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
+KERNELS = {"sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
            "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
-           "sqexp_words_mma": "P3"}
+           "sqexp_words_mma": "P3"}  # and B1, one library per P (B1_BUILD_P)
 B1_BUILD_P = (1, 2, 3, 10, 32, 64)  # B1's libraries: those its checks and times use
 B1_TIME_P = (2, 10, 32, 64)         # P at which B1 is timed beside its bound
 
@@ -150,8 +150,8 @@ B1_TIME_P = (2, 10, 32, 64)         # P at which B1 is timed beside its bound
 def _libraries():
     """(name, defines, label) of every library this script runs: one per
     kernel, and one per parameter count of B1."""
-    libs = [(name, (), label) for name, label in KERNELS.items() if name != "hmc_fused"]
-    return [("hmc_fused", hmc_fused.kernel_variant(P), f"B1 P={P}") for P in B1_BUILD_P] + libs
+    b1 = [("hmc_fused", hmc_fused.kernel_variant(P), f"B1 P={P}") for P in B1_BUILD_P]
+    return b1 + [(name, (), label) for name, label in KERNELS.items()]
 
 
 def _timed_build(name, defines):
