@@ -17,10 +17,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
-   together; times each build and prints the ``-Xptxas -v`` registers and
-   spills, and for each instantiation of B3/B4's kernel and each of B1's
-   kernels the local-memory instructions in all and in its hot loop
-   (cuobjdump);
+   together (B1's P = 64 build, the slowest, goes on beside checks 3a-3e);
+   times each build and prints the ``-Xptxas -v`` registers and spills,
+   and for each instantiation of B3/B4's kernel and each of B1's kernels
+   the local-memory instructions in all and in its hot loop (cuobjdump);
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition, bit for bit; (b) the
    same with 64 transitions and the history; (c) P=32, diagonal mass,
@@ -161,23 +161,39 @@ def _timed_build(name, defines):
     return cached, time.perf_counter() - t0
 
 
+def _print_build(name, defines, label, cached, seconds):
+    print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
+          f"in {seconds:.2f} s: {_build.library_path(name, defines).name}")
+    for line in _build.build_log(name, defines).splitlines():
+        if any(w in line for w in ("entry function", "registers", "spill")):
+            print(f"[build] {line.strip()}")
+
+
 def phase_build():
-    """Build every library, one nvcc process each, all started together."""
+    """Build every library, one nvcc process each, all started together.
+    Returns once all are built but B1's for the largest P, the slowest
+    build by far (about 50 s), which goes on beside the first checks; the
+    function returned waits for it and prints its report."""
     t0 = time.perf_counter()
     libs = _libraries()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
-        results = [f.result() for f in futures]
-    for (name, defines, label), (cached, seconds) in zip(libs, results):
-        print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
-              f"in {seconds:.2f} s: {_build.library_path(name, defines).name}")
-        for line in _build.build_log(name, defines).splitlines():
-            if any(w in line for w in ("entry function", "registers", "spill")):
-                print(f"[build] {line.strip()}")
-    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+    pool = ThreadPoolExecutor(len(libs))
+    futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
+    late = libs.index(("hmc_fused", hmc_fused.kernel_variant(max(B1_BUILD_P)),
+                       f"B1 P={max(B1_BUILD_P)}"))
+    for k, (lib, future) in enumerate(zip(libs, futures)):
+        if k != late:
+            _print_build(*lib, *future.result())
+    print(f"[build] all kernels but {libs[late][2]} in {time.perf_counter() - t0:.2f} s")
     _print_fp64_mix()
     _print_fused_local_memory()
-    _print_b1_local_memory()
+
+    def finish():
+        _print_build(*libs[late], *futures[late].result())
+        pool.shutdown()
+        print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
+        _print_b1_local_memory()
+
+    return finish
 
 
 @functools.lru_cache(maxsize=None)
@@ -1442,7 +1458,7 @@ def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
     torch.set_default_dtype(torch.float32)
-    phase_build()
+    finish_build = phase_build()
     max_err = _compare("3a", N_DIM, N_CHAINS, 1, False, 1.0, None, 11)
     if max_err != 0.0:
         raise RuntimeError(f"check 3a: B1 differs from its plain version by {max_err} "
@@ -1452,6 +1468,7 @@ def main():
     _compare("3c", 32, 4096, 1, False, 0.5, im, 13)
     _compare("3d", 1, N_CHAINS, 1, False, 1.0, None, 14)
     _compare("3e", 32, N_CHAINS, 1, False, 1.0, None, 15)
+    finish_build()
     _compare("3f", 64, 16384, 1, False, 1.0, None, 16)
     for P in (10, 32):
         _print_b1_leapfrog_mix(P)
