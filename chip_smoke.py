@@ -12,15 +12,16 @@ Phases, each of which raises on failure (so the script exits non-zero):
 1. device: a CUDA device is required; prints its name, the device count
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
-   one library per parameter count: P = 1, 2, 3, 10, 32, 64), B2
+   one library per parameter count and kind of mass: P = 1, 2, 3, 10, 32,
+   64 with unit mass, P = 32 with diagonal mass), B2
    (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
-   together (B1's P = 64 build, the slowest, goes on beside checks 3a-3e);
-   times each build and prints the ``-Xptxas -v`` registers and spills,
-   and for each instantiation of B3/B4's kernel and each of B1's kernels
-   the local-memory instructions in all and in its hot loop (cuobjdump);
+   together; times each build and prints the ``-Xptxas -v`` registers
+   and spills, and for each instantiation of B3/B4's kernel and each of
+   B1's libraries the local-memory instructions in all and in its hot
+   loop (cuobjdump);
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition, bit for bit; (b) the
    same with 64 transitions and the history; (c) P=32, diagonal mass,
@@ -142,15 +143,22 @@ def phase_device():
 
 KERNELS = {"sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
            "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
-           "sqexp_words_mma": "P3"}  # and B1, one library per P (B1_BUILD_P)
-B1_BUILD_P = (1, 2, 3, 10, 32, 64)  # B1's libraries: those its checks and times use
-B1_TIME_P = (2, 10, 32, 64)         # P at which B1 is timed beside its bound
+           "sqexp_words_mma": "P3"}  # and B1, one library per (P, mass) in B1_BUILD
+# B1's libraries, (P, unit mass), those its checks and times use: unit mass
+# at every P, diagonal mass at P = 32 (check 3c)
+B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True))
+B1_TIME_P = (2, 10, 32, 64)  # P at which B1 is timed beside its bound
+
+
+def _b1_label(P, unit):
+    return f"B1 P={P} {'unit' if unit else 'diagonal'} mass"
 
 
 def _libraries():
     """(name, defines, label) of every library this script runs: one per
-    kernel, and one per parameter count of B1."""
-    b1 = [("hmc_fused", hmc_fused.kernel_variant(P), f"B1 P={P}") for P in B1_BUILD_P]
+    kernel, and one per parameter count and kind of mass of B1."""
+    b1 = [("hmc_fused", hmc_fused.kernel_variant(P, unit), _b1_label(P, unit))
+          for P, unit in B1_BUILD]
     return b1 + [(name, (), label) for name, label in KERNELS.items()]
 
 
@@ -161,39 +169,23 @@ def _timed_build(name, defines):
     return cached, time.perf_counter() - t0
 
 
-def _print_build(name, defines, label, cached, seconds):
-    print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
-          f"in {seconds:.2f} s: {_build.library_path(name, defines).name}")
-    for line in _build.build_log(name, defines).splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print(f"[build] {line.strip()}")
-
-
 def phase_build():
-    """Build every library, one nvcc process each, all started together.
-    Returns once all are built but B1's for the largest P, the slowest
-    build by far (about 50 s), which goes on beside the first checks; the
-    function returned waits for it and prints its report."""
+    """Build every library, one nvcc process each, all started together."""
     t0 = time.perf_counter()
     libs = _libraries()
-    pool = ThreadPoolExecutor(len(libs))
-    futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
-    late = libs.index(("hmc_fused", hmc_fused.kernel_variant(max(B1_BUILD_P)),
-                       f"B1 P={max(B1_BUILD_P)}"))
-    for k, (lib, future) in enumerate(zip(libs, futures)):
-        if k != late:
-            _print_build(*lib, *future.result())
-    print(f"[build] all kernels but {libs[late][2]} in {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
+        results = [f.result() for f in futures]
+    for (name, defines, label), (cached, seconds) in zip(libs, results):
+        print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
+              f"in {seconds:.2f} s: {_build.library_path(name, defines).name}")
+        for line in _build.build_log(name, defines).splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")):
+                print(f"[build] {line.strip()}")
+    print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     _print_fp64_mix()
     _print_fused_local_memory()
-
-    def finish():
-        _print_build(*libs[late], *futures[late].result())
-        pool.shutdown()
-        print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
-        _print_b1_local_memory()
-
-    return finish
+    _print_b1_local_memory()
 
 
 @functools.lru_cache(maxsize=None)
@@ -1190,15 +1182,13 @@ def _print_fused_local_memory():
               f"{sum(o in local for o in loop)} in the hot loop of {len(loop)}")
 
 
-def _b1_kernels(P):
-    """{"unit"/"diagonal": SASS body} of the kernels in B1's library for P
-    parameters, or None without cuobjdump."""
-    sass = _sass("hmc_fused", hmc_fused.kernel_variant(P))
+def _b1_kernel(P, unit):
+    """The SASS body of the kernel in B1's library for P parameters and
+    unit (else diagonal) mass, or None without cuobjdump."""
+    sass = _sass("hmc_fused", hmc_fused.kernel_variant(P, unit))
     if sass is None:
         return None
-    parts = sass.split("Function : ")[1:]
-    return {mass: next(p for p in parts if f"hmc_chunk_kernelILb{flag}E" in p.split()[0])
-            for mass, flag in (("unit", 1), ("diagonal", 0))}
+    return next(p for p in sass.split("Function : ")[1:] if "hmc_chunk_kernel" in p.split()[0])
 
 
 def _b1_leapfrog(P, body):
@@ -1213,22 +1203,21 @@ def _b1_leapfrog(P, body):
 
 def _print_b1_local_memory():
     """Each of B1's libraries: registers and spills are in the build log
-    above; here the local-memory (spill) instructions of both its kernels
-    in all and in their leapfrog loops, and their calls (the slow paths of
-    the division and the exp)."""
-    for P in B1_BUILD_P:
-        kernels = _b1_kernels(P)
-        if kernels is None:
+    above; here the local-memory (spill) instructions of its kernel in all
+    and in its leapfrog loop, and its calls (the slow paths of the division
+    and the exp)."""
+    local, call = SASS_CLASSES["local"], SASS_CLASSES["call"]
+    for P, unit in B1_BUILD:
+        body = _b1_kernel(P, unit)
+        if body is None:
             print("[sass] B1: cuobjdump not found; local memory not read")
             return
-        local, call = SASS_CLASSES["local"], SASS_CLASSES["call"]
-        for mass, body in kernels.items():
-            ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
-            loop, _ = _b1_leapfrog(P, body)
-            loop = loop or []
-            print(f"[sass] B1 P={P} {mass} mass: {sum(o in local for o in ops)} local-memory "
-                  f"instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop of "
-                  f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", body)
+        loop, _ = _b1_leapfrog(P, body)
+        loop = loop or []
+        print(f"[sass] {_b1_label(P, unit)}: {sum(o in local for o in ops)} local-memory "
+              f"instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop of "
+              f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
 
 
 def _print_b1_leapfrog_mix(P):
@@ -1237,8 +1226,8 @@ def _print_b1_leapfrog_mix(P):
     shared and global loads, and where the operands come from: the
     constant bank (bank 3 holds the form, bank 0 the kernel's parameters)
     or the uniform registers the assembler loads constants into."""
-    kernels = _b1_kernels(P)
-    loop, steps = _b1_leapfrog(P, kernels["unit"]) if kernels else (None, 0)
+    body = _b1_kernel(P, True)
+    loop, steps = _b1_leapfrog(P, body) if body else (None, 0)
     if not steps:
         print(f"[sass] B1 P={P}: leapfrog loop not read (no cuobjdump or no loop found)")
         return
@@ -1458,7 +1447,7 @@ def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
     torch.set_default_dtype(torch.float32)
-    finish_build = phase_build()
+    phase_build()
     max_err = _compare("3a", N_DIM, N_CHAINS, 1, False, 1.0, None, 11)
     if max_err != 0.0:
         raise RuntimeError(f"check 3a: B1 differs from its plain version by {max_err} "
@@ -1468,7 +1457,6 @@ def main():
     _compare("3c", 32, 4096, 1, False, 0.5, im, 13)
     _compare("3d", 1, N_CHAINS, 1, False, 1.0, None, 14)
     _compare("3e", 32, N_CHAINS, 1, False, 1.0, None, 15)
-    finish_build()
     _compare("3f", 64, 16384, 1, False, 1.0, None, 16)
     for P in (10, 32):
         _print_b1_leapfrog_mix(P)
@@ -1538,7 +1526,7 @@ def main():
         "bound_by": b1_by,
         "library_ms": None,
         "P": N_DIM,
-        "variant": dict(hmc_fused.kernel_variant(N_DIM)),
+        "variant": dict(hmc_fused.kernel_variant(N_DIM, True)),
         "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
         "chain_sweep_attempts_per_s": sweep,
     }, {

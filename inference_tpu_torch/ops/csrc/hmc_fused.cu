@@ -26,8 +26,10 @@
 // not a multiply or add of the step's own arithmetic is a loss.
 //
 // What the design does about it. The library is built once per parameter
-// count, P = B1_P, so every loop over P unrolls completely, without guards
-// or padded columns, and every register array has constant indices. One
+// count, P = B1_P, and kind of mass, B1_UNIT (1: unit, 0: diagonal), so
+// every loop over P unrolls completely, without guards or padded columns,
+// every register array has constant indices, and unit mass skips the
+// multiplies by 1; a program builds only the kernels it launches. One
 // thread per chain keeps its proposal, momentum and centred position (3 P
 // floats) in registers through every leapfrog step of every transition in
 // the chunk; the current position, needed only to restore it on a
@@ -46,8 +48,7 @@
 //     and the assembler's hoisting of constant-bank values then spills.
 // Each value is loaded inside the loop by a volatile load, so the
 // compiler's front end cannot hoist all of A out of the loop first. The
-// quadratic form is evaluated once, after the last step, and unit mass is
-// its own kernel without the multiplies by 1.
+// quadratic form is evaluated once, after the last step.
 //
 // Rounding. Built with --fmad=false, so no multiply and add are contracted
 // behind the code's back: the step count, the energies and the adaptation
@@ -65,11 +66,12 @@
 #include <mutex>
 #include <utility>
 
-#ifndef B1_P
-#error "kernel B1 is built once per parameter count: nvcc -DB1_P=<P> with 1 <= P <= 64"
+#if !defined(B1_P) || !defined(B1_UNIT)
+#error "kernel B1 is built per parameter count and mass: nvcc -DB1_P=<1..64> -DB1_UNIT=<0|1>"
 #endif
 
 constexpr int P = B1_P;
+constexpr bool UNIT = B1_UNIT != 0;  // unit mass, else diagonal
 static_assert(P >= 1 && P <= 64, "kernel B1 takes 1 to 64 parameters");
 
 // The form in the constant bank, copied in by the launcher: A (P x P, row
@@ -198,7 +200,7 @@ __device__ __forceinline__ float quad_form(uint32_t a_s, const float (&d)[P],
 }
 
 // the velocity im * r (r for unit mass), the drift and the kinetic sum
-template <bool UNIT, int J>
+template <int J>
 __device__ __forceinline__ float velocity(float r) {
   if constexpr (UNIT) {
     return r;
@@ -207,27 +209,26 @@ __device__ __forceinline__ float velocity(float r) {
   }
 }
 
-template <bool UNIT, int... J>
+template <int... J>
 __device__ __forceinline__ void drift(float (&t)[P], const float (&r)[P], float eps,
                                       std::integer_sequence<int, J...>) {
-  ((t[J] = t[J] + eps * velocity<UNIT, J>(r[J])), ...);
+  ((t[J] = t[J] + eps * velocity<J>(r[J])), ...);
 }
 
-template <bool UNIT, int... J>
+template <int... J>
 __device__ __forceinline__ float kinetic_sum(const float (&r)[P],
                                              std::integer_sequence<int, J...>) {
   float kin = 0.0f;
-  ((kin = kin + r[J] * velocity<UNIT, J>(r[J])), ...);
+  ((kin = kin + r[J] * velocity<J>(r[J])), ...);
   return kin;
 }
 
-template <bool UNIT>
 __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   extern __shared__ float4 smem4[];
   float* ms_s = reinterpret_cast<float*>(smem4);  // P4 momentum scales 1 / sqrt(im)
   float* tcur_s = ms_s + P4;                      // P * BLOCK, [j][thread]
 
-  if (!UNIT) {
+  if constexpr (!UNIT) {
     for (int j = threadIdx.x; j < P; j += BLOCK) ms_s[j] = 1.0f / sqrtf(b1_form[IM + j]);
   }
   uint32_t a_s = 0;  // shared address of A where SHARED_A
@@ -264,7 +265,7 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
     // momentum draw
 #pragma unroll
     for (int j = 0; j < P; ++j) r[j] = UNIT ? zc[j * Ks] : ms_s[j] * zc[j * Ks];
-    const float h0 = 0.5f * kinetic_sum<UNIT>(r, Cols{}) - lp;
+    const float h0 = 0.5f * kinetic_sum(r, Cols{}) - lp;
 
     // jittered step count, at least one drift
     const float u = a.us[cK + k];
@@ -277,13 +278,13 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
     centre(tp, d, Cols{});
     kick(a_s, d, r, half, Cols{});
     for (int s = 0; s < n; ++s) {
-      drift<UNIT>(tp, r, eps, Cols{});
+      drift(tp, r, eps, Cols{});
       centre(tp, d, Cols{});
       kick(a_s, d, r, s == n - 1 ? half : r_step, Cols{});
     }
 
     const float p = (-0.5f * quad_form(a_s, d, Cols{})) * it;
-    const float h = 0.5f * kinetic_sum<UNIT>(r, Cols{}) - p;
+    const float h = 0.5f * kinetic_sum(r, Cols{}) - p;
     const float ap = expf(h0 - h);
 
     // step-size adaptation (submit_accept_prob)
@@ -339,16 +340,14 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   a.ec_o[k] = ec;
 }
 
-template <bool UNIT>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (P4 + static_cast<size_t>(P) * BLOCK +
                                        (SHARED_A ? P * P4 : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      hmc_chunk_kernel<UNIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      hmc_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int grid = (a.K + BLOCK - 1) / BLOCK;
-  hmc_chunk_kernel<UNIT><<<grid, BLOCK, smem, stream>>>(a);
+  hmc_chunk_kernel<<<grid, BLOCK, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -363,9 +362,9 @@ cudaEvent_t g_done[MAX_DEVICES];
 }  // namespace
 
 // Launches one chunk on `stream` and returns a CUDA error code (0 on
-// success; cudaErrorInvalidValue when P is not this library's B1_P). Every
-// pointer is a device pointer; inv_mass is null for unit mass; the four
-// history pointers are all null (no history) or all set.
+// success; cudaErrorInvalidValue when P or the kind of mass is not this
+// library's). Every pointer is a device pointer; inv_mass is null for unit
+// mass; the four history pointers are all null (no history) or all set.
 extern "C" int hmc_fused_chunk(
     const float* theta, const float* logp, const float* ev, const float* ea,
     const float* evr, const int* en, const int* ec, const float* inv_temp,
@@ -374,7 +373,8 @@ extern "C" int hmc_fused_chunk(
     float* ea_o, float* evr_o, int* en_o, int* ec_o, float* h_theta,
     float* h_logp, int* h_steps, float* h_eps, int n_params, int K, int chunk,
     int steps, int max_steps, void* stream) {
-  if (n_params != P || K < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_params != P || (inv_mass == nullptr) != UNIT || K < 1 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -393,9 +393,9 @@ extern "C" int hmc_fused_chunk(
   err = cudaMemcpyToSymbolAsync(b1_form, A, sizeof(float) * P * P, 0, d2d, s);
   if (err == cudaSuccess)
     err = cudaMemcpyToSymbolAsync(b1_form, mu, sizeof(float) * P, sizeof(float) * MU, d2d, s);
-  if (err == cudaSuccess && inv_mass != nullptr)
+  if (err == cudaSuccess && !UNIT)
     err = cudaMemcpyToSymbolAsync(b1_form, inv_mass, sizeof(float) * P, sizeof(float) * IM, d2d, s);
-  if (err == cudaSuccess) err = inv_mass == nullptr ? launch<true>(args, s) : launch<false>(args, s);
+  if (err == cudaSuccess) err = launch(args, s);
   if (err == cudaSuccess) err = cudaEventRecord(done, s);
   return static_cast<int>(err);
 }

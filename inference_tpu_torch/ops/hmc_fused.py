@@ -25,9 +25,10 @@ cannot call a Python callable, so the quadratic form's operands ``A`` and
 ``mu`` are passed to it and the kernel evaluates value and gradient itself.
 Everywhere else a ``GaussianForm`` is an ordinary posterior module.
 
-The kernel is built once per parameter count P (``kernel_variant``): one
-library per P in ``build/kernels/``, compiled at the first launch with
-that P, so every loop over P unrolls with no guards or padding.
+The kernel is built once per parameter count P and kind of mass, unit or
+diagonal (``kernel_variant``): one library each in ``build/kernels/``,
+compiled at the first launch that needs it, so every loop over P unrolls
+with no guards or padding and unit mass skips its multiplies by 1.
 
 Restrictions of the kernel: ``retry=False``, no reflecting bounds,
 unit/scalar/diagonal inverse mass, ``1 <= P <= 64``, float32, one device.
@@ -182,9 +183,10 @@ def _reference_chunk(
     return theta, logp, eps, tuple(torch.stack(h) for h in zip(*hist))
 
 
-def kernel_variant(P: int) -> tuple:
-    """The nvcc defines of kernel B1's library for ``P`` parameters."""
-    return (("B1_P", P),)
+def kernel_variant(P: int, unit_mass: bool) -> tuple:
+    """The nvcc defines of kernel B1's library for ``P`` parameters and
+    unit (else diagonal) mass."""
+    return (("B1_P", P), ("B1_UNIT", int(unit_mass)))
 
 
 def _launch_chunk(
@@ -192,9 +194,9 @@ def _launch_chunk(
 ):
     """Launch kernel B1 for ``z.shape[0]`` transitions on CUDA tensors, with
     the signature and results of ``_reference_chunk``, through the library
-    built for this P. Raises on a tensor the kernel does not take (not
-    float32 or int32, wrong device, shape or layout; it never casts), and
-    when the library of this P fails to build, load or launch."""
+    built for this P and kind of mass. Raises on a tensor the kernel does
+    not take (not float32 or int32, wrong device, shape or layout; it never
+    casts), and when that library fails to build, load or launch."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
@@ -253,7 +255,8 @@ def _launch_chunk(
         else None
     )
     try:
-        fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, kernel_variant(P))
+        fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5,
+                         kernel_variant(P, inv_mass_diag is None))
     except (RuntimeError, OSError) as e:
         raise RuntimeError(f"kernel B1 for P = {P} failed to build or load: {e}") from e
     ptrs = [x.data_ptr() for _, x, _, _ in operands]

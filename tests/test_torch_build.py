@@ -47,13 +47,15 @@ def stub_nvcc(tmp_path, monkeypatch):
 def test_library_paths_differ_by_variant():
     """Two parameter counts of B1 build two libraries, both apart from an
     unrelated kernel's, and the defines name the file."""
-    p2 = _build.library_path("hmc_fused", hmc_fused.kernel_variant(2))
-    p10 = _build.library_path("hmc_fused", hmc_fused.kernel_variant(10))
+    p2 = _build.library_path("hmc_fused", hmc_fused.kernel_variant(2, True))
+    p10 = _build.library_path("hmc_fused", hmc_fused.kernel_variant(10, True))
+    p10_diag = _build.library_path("hmc_fused", hmc_fused.kernel_variant(10, False))
     other = _build.library_path("sqexp")
-    assert len({p2, p10, other}) == 3
-    assert p2.name.startswith("hmc_fused_B1_P2_") and p10.name.startswith("hmc_fused_B1_P10_")
+    assert len({p2, p10, p10_diag, other}) == 4
+    assert p2.name.startswith("hmc_fused_B1_P2_B1_UNIT1_")
+    assert p10_diag.name.startswith("hmc_fused_B1_P10_B1_UNIT0_")
     assert p2.parent == p10.parent == _build.BUILD_DIR
-    assert _build.library_path("hmc_fused", hmc_fused.kernel_variant(10)) == p10
+    assert _build.library_path("hmc_fused", hmc_fused.kernel_variant(10, True)) == p10
 
 
 @pytest.mark.parametrize("P", [1, 10, 64])
@@ -61,9 +63,9 @@ def test_flags_and_defines_reach_the_command(P, monkeypatch):
     """The nvcc command of a variant carries the common flags, the
     kernel's own flags and its defines, and builds the kernel's source."""
     monkeypatch.setattr(_build, "find_nvcc", lambda: "/stub/nvcc")
-    cmd = _build.command("hmc_fused", hmc_fused.kernel_variant(P), "out.so")
+    cmd = _build.command("hmc_fused", hmc_fused.kernel_variant(P, P != 10), "out.so")
     assert cmd[0] == "/stub/nvcc"
-    assert f"-DB1_P={P}" in cmd and "--fmad=false" in cmd
+    assert f"-DB1_P={P}" in cmd and f"-DB1_UNIT={int(P != 10)}" in cmd and "--fmad=false" in cmd
     assert "arch=compute_90a,code=sm_90a" in cmd and ("-Xptxas", "-v") == tuple(
         cmd[cmd.index("-v") - 1:cmd.index("-v") + 1])
     assert cmd[-3:] == ["-o", "out.so", str(_build.CSRC / "hmc_fused.cu")]
@@ -75,14 +77,14 @@ def test_build_keeps_one_library_and_log_per_variant(stub_nvcc):
     """Each variant is compiled once into its own library with its own
     log; a second build of the same variant runs no compiler."""
     build_dir, calls = stub_nvcc
-    libs = [_build.build("hmc_fused", hmc_fused.kernel_variant(P)) for P in (3, 17, 3)]
+    libs = [_build.build("hmc_fused", hmc_fused.kernel_variant(P, True)) for P in (3, 17, 3)]
     assert libs[0] == libs[2] != libs[1]
     assert all(lib.parent == build_dir and lib.exists() for lib in libs)
     lines = calls.read_text().splitlines()
     assert len(lines) == 2
     assert "-DB1_P=3" in lines[0] and "-DB1_P=17" in lines[1]
     for P in (3, 17):
-        log = _build.build_log("hmc_fused", hmc_fused.kernel_variant(P))
+        log = _build.build_log("hmc_fused", hmc_fused.kernel_variant(P, True))
         assert "registers" in log and f"-DB1_P={P}" in log
     assert not [f for f in os.listdir(build_dir) if f.endswith(".tmp")]
 
@@ -94,9 +96,9 @@ def test_failed_build_names_the_variant(stub_nvcc, tmp_path, monkeypatch):
     bad.write_text("#!/bin/sh\necho 'error: no' >&2\nexit 2\n")
     bad.chmod(bad.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(bad))
-    with pytest.raises(RuntimeError, match=r"hmc_fused_B1_P5_.*exit 2"):
-        _build.build("hmc_fused", hmc_fused.kernel_variant(5))
-    assert not _build.library_path("hmc_fused", hmc_fused.kernel_variant(5)).exists()
+    with pytest.raises(RuntimeError, match=r"hmc_fused_B1_P5_B1_UNIT0_.*exit 2"):
+        _build.build("hmc_fused", hmc_fused.kernel_variant(5, False))
+    assert not _build.library_path("hmc_fused", hmc_fused.kernel_variant(5, False)).exists()
 
 
 def _chunk(P, K=8, dtype=torch.float32):
@@ -126,6 +128,8 @@ def test_wrapper_refuses_before_any_build(P, dtype, error, message, stub_nvcc):
     assert not calls.exists()
 
 
-def test_kernel_variant_is_one_per_parameter_count():
-    assert hmc_fused.kernel_variant(10) == (("B1_P", 10),)
-    assert len({hmc_fused.kernel_variant(P) for P in range(1, hmc_fused.P_MAX + 1)}) == 64
+def test_kernel_variant_is_one_per_parameter_count_and_mass():
+    assert hmc_fused.kernel_variant(10, True) == (("B1_P", 10), ("B1_UNIT", 1))
+    variants = {hmc_fused.kernel_variant(P, unit) for P in range(1, hmc_fused.P_MAX + 1)
+                for unit in (True, False)}
+    assert len(variants) == 128

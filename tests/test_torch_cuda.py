@@ -159,10 +159,15 @@ def test_failed_variant_build_raises_naming_b1_and_p(cuda, tmp_path, monkeypatch
 
 @pytest.mark.cuda
 def test_launch_refuses_another_libraries_p(cuda):
-    """The library of one P refuses a launch with another P."""
-    fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, hmc_fused.kernel_variant(10))
+    """The library of one P and kind of mass refuses a launch with another
+    P or another kind of mass."""
+    fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, hmc_fused.kernel_variant(10, True))
     rc = fn(*([None] * 25), 9, 256, 1, 10, 11, _build.stream(cuda))
     assert rc == 1  # cudaErrorInvalidValue
+    im = torch.ones(10, device=cuda)
+    rc = fn(*([None] * 11), im.data_ptr(), *([None] * 13), 10, 256, 1, 10, 11,
+            _build.stream(cuda))
+    assert rc == 1
 
 
 @pytest.mark.cuda
