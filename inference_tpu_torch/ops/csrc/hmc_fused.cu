@@ -38,7 +38,7 @@
 // launcher copies it on the launch's stream (device to device, so the host
 // never waits) once the previous launch of this library on the device, on
 // whatever stream, has finished reading it. Where the matvec reads A was
-// chosen by timing both places on the H100 (PERF.md, PR 8):
+// chosen by timing both places on the H100 (PERF.md, B1 findings):
 //   P <= 12: from the constant bank. The assembler holds A's P^2 values in
 //     uniform and regular registers through the loop, so a leapfrog step is
 //     its multiplies and adds and a few loop instructions (157 at P = 10),
