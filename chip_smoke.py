@@ -31,9 +31,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the plain version too);
 4. main path: ``ChainArray("hmc", GaussianForm, ..., fused=True)`` on the
    10-dim correlated Gaussian of ``bench.py`` at 65,536 chains: warm-up,
-   a timed advance, a ``torch.profiler`` breakdown of another, a stored
-   advance for the acceptance and a thinned one for the mixing checks;
-   checks the launch count, the sample variances and R-hat; then
+   a timed advance, a stored advance for the acceptance and a thinned one
+   for the mixing checks; checks the launch count, the sample variances
+   and R-hat; a ``torch.profiler`` breakdown of one more advance; then
    ``bench.py``'s chain sweep (1,024 to 131,072 chains), attempts/s per K;
 5. plain path: the same ChainArray with ``fused=False``, timed;
 6. kernel B2 against its plain version on the card, on the same inputs:
@@ -364,17 +364,27 @@ def _time_chunk(P, plain):
     return min(ms, ms_2), (min(p1, p2) if plain else None), bound_ms, bound_by
 
 
-def _b1_bound(us, P=N_DIM, steps=HMC_STEPS):
-    """Kernel B1's bound for one chunk with these step-count draws. Per
-    transition: the jittered step count n (the kernel's own rule); each
-    leapfrog step a drift (3P), a centring (P) and a kick of 2P^2 + 4P
-    flops; the first half kick 2P^2 + 5P, the momentum draw 4P, the final
-    kinetic energy 3P and some 30 flops of energies and adaptation. Bytes:
-    the normals and uniforms read once, the state read and written once."""
+def _b1_step_flops(P, unit=True):
+    """The flops of one leapfrog step: a drift of 2P (3P with diagonal
+    mass, its velocity a multiply more), a centring of P, and a kick of a
+    matvec (2P^2) and 2P."""
+    return 2 * P * P + (5 if unit else 6) * P
+
+
+def _b1_bound(us, P=N_DIM, steps=HMC_STEPS, unit=True):
+    """Kernel B1's bound for one chunk with these step-count draws: the
+    flops the transition needs, not the kernel's. Per transition: the
+    jittered step count n (the kernel's own rule) of ``_b1_step_flops``;
+    a centring and a half kick (2P^2 + 3P); the two kinetic sums, 2P each
+    (3P with diagonal mass, which also scales the momentum draw, P); the
+    quadratic form from the last kick's matvec, 2P; and some 30 flops of
+    energies and adaptation. Bytes: the normals and uniforms read once,
+    the state read and written once."""
     chunk, K = us.shape
     n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
     n = n.clamp(min=1, max=max(int(steps * 1.1), 1))
-    flops = float(n.sum()) * (2 * P * P + 8 * P) + chunk * K * (2 * P * P + 12 * P + 30)
+    per_transition = 2 * P * P + (9 if unit else 12) * P + 30
+    flops = float(n.sum()) * _b1_step_flops(P, unit) + chunk * K * per_transition
     n_bytes = 4 * chunk * K * (P + 2) + 2 * 4 * K * (P + 7)
     return bound(n_bytes, flops, FP32_FLOPS)
 
@@ -393,12 +403,11 @@ def phase_main_path():
     ca.advance(640, store=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    _profile_advance(ca)
     ca.advance(32, store=True)
     # R-hat of 32 consecutive transitions is biased upward by their
     # autocorrelation, so the mixing checks read a thinned window
     ca.advance(320, store=True, thin=10)
-    launches = hmc_fused.KERNEL_LAUNCHES
+    launches = hmc_fused.KERNEL_LAUNCHES  # before the profiled advance, which adds 10
 
     theta = ca._history[0]
     accept = float((np.abs(np.diff(theta, axis=0)).max(axis=2) > 0).mean())
@@ -419,6 +428,7 @@ def phase_main_path():
         raise RuntimeError(f"sample variance off by {rel.max():.3f} (limit 0.10)")
     if not rhat.max() < 1.05:
         raise RuntimeError(f"max rhat {rhat.max()} (limit 1.05)")
+    _profile_advance(ca)
     return launches, attempts, accept
 
 
@@ -1220,27 +1230,35 @@ def _print_b1_local_memory():
               f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
 
 
+UNIFORM_REGISTER = re.compile(r"\bUR\d")
+OTHER_BANK = re.compile(r"c\[0x[1-9a-f]")  # a constant bank other than the parameters'
+
+
 def _print_b1_leapfrog_mix(P):
     """The instruction mix of one leapfrog step of B1's main-path kernel
     (unit mass) for P parameters, read off its SASS: FFMA, FMUL/FADD,
     shared and global loads, and where the operands come from: the
-    constant bank (bank 3 holds the form, bank 0 the kernel's parameters)
-    or the uniform registers the assembler loads constants into."""
+    constant bank of the kernel's parameters (c[0x0], which holds the
+    form) or the uniform registers the assembler loads constants into.
+    Beside it the bound's flops per step and their FMA equivalents (an FMA
+    is two flops), the count the instructions are held to."""
     body = _b1_kernel(P, True)
     loop, steps = _b1_leapfrog(P, body) if body else (None, 0)
     if not steps:
         print(f"[sass] B1 P={P}: leapfrog loop not read (no cuobjdump or no loop found)")
         return
     count = lambda pred: sum(map(pred, loop)) / steps
+    flops = _b1_step_flops(P)
     print(f"[sass] B1 P={P} leapfrog step ({steps} per trip of the loop): "
           f"{len(loop) / steps:g} instructions; FFMA {count(lambda x: x[0] == 'FFMA'):g}, "
           f"FMUL/FADD {count(lambda x: x[0] in ('FMUL', 'FADD')):g}, "
           f"LDS {count(lambda x: x[0] == 'LDS'):g}, LDG {count(lambda x: x[0] == 'LDG'):g}; "
-          f"instructions with an operand from the constant bank: form (c[0x3]) "
-          f"{count(lambda x: 'c[0x3]' in x[1]):g}, parameters (c[0x0]) "
-          f"{count(lambda x: 'c[0x0]' in x[1]):g}; from a uniform register "
-          f"{count(lambda x: re.search(r'\bUR\d', x[1]) is not None):g}; FMA equivalents "
-          f"in the bound {P * P + 4 * P:g}")
+          f"instructions with an operand from the parameters' constant bank (c[0x0]) "
+          f"{count(lambda x: 'c[0x0]' in x[1]):g}, from another bank "
+          f"{count(lambda x: OTHER_BANK.search(x[1]) is not None):g}, "
+          f"from a uniform register "
+          f"{count(lambda x: UNIFORM_REGISTER.search(x[1]) is not None):g}; the bound's "
+          f"flops per step {flops:g}, {flops / 2:g} FMA equivalents")
 
 
 def _print_hot_loops(n, clock_hz):
@@ -1514,7 +1532,8 @@ def main():
             row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
-        "name": "hmc_chunk_kernel<unit mass>",
+        "name": "hmc_fused_chunk",
+        "kernel": "hmc_chunk_kernel<P=10, unit mass>",
         "route": "cuda",
         "source": "inference_tpu_torch/ops/csrc/hmc_fused.cu",
         "replaces": "inference_tpu/ops/hmc_fused.py:347",

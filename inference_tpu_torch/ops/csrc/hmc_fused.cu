@@ -19,8 +19,8 @@
 //
 // What bounds it on this card. A transition streams 4*P bytes of normals and
 // 8 bytes of uniforms per chain; the state never leaves the chip within a
-// chunk. Against that it does about 50 * (2 P^2 + 8 P) flops of matvec and
-// integrator work (about 14 kFLOP at P = 10, some 300 flops per byte), far
+// chunk. Against that it does about 50 * (2 P^2 + 5 P) flops of matvec and
+// integrator work (about 13 kFLOP at P = 10, some 250 flops per byte), far
 // above the card's FP32-to-HBM ratio of about 20. So the kernel is bound by
 // its instruction issue, and every instruction of the leapfrog step that is
 // not a multiply or add of the step's own arithmetic is a loss.
@@ -34,18 +34,19 @@
 // floats) in registers through every leapfrog step of every transition in
 // the chunk; the current position, needed only to restore it on a
 // rejection, waits in shared memory. The form (A, mu, the diagonal inverse
-// mass) is uniform over the grid and sits in the constant bank, where the
-// launcher copies it on the launch's stream (device to device, so the host
-// never waits) once the previous launch of this library on the device, on
-// whatever stream, has finished reading it. Where the matvec reads A was
+// mass) is uniform over the grid and travels in the kernel's parameters (a
+// __grid_constant__ struct of at most 16.9 KB, at P = 64), which the
+// launcher fills from host copies: every launch carries its own form, so
+// launches on any stream share no state. Where the matvec reads A was
 // chosen by timing both places on the H100 (PERF.md, B1 findings):
-//   P <= 12: from the constant bank. The assembler holds A's P^2 values in
-//     uniform and regular registers through the loop, so a leapfrog step is
-//     its multiplies and adds and a few loop instructions (157 at P = 10),
+//   P <= 12: from the parameters' constant bank. The assembler holds A's
+//     P^2 values in uniform and regular registers through the loop, so a
+//     leapfrog step is its multiplies and adds and a few loop instructions,
 //     with no load;
 //   P > 12: from shared memory as float4 broadcasts (one LDS.128 for four
-//     FFMA), because A no longer fits the register file beside the state,
-//     and the assembler's hoisting of constant-bank values then spills.
+//     FFMA), staged from the parameters once per block, because A no longer
+//     fits the register file beside the state, and the assembler's hoisting
+//     of constant-bank values then spills.
 // Each value is loaded inside the loop by a volatile load, so the
 // compiler's front end cannot hoist all of A out of the loop first. The
 // quadratic form is evaluated once, after the last step.
@@ -63,7 +64,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <mutex>
+#include <string.h>
+
 #include <utility>
 
 #if !defined(B1_P) || !defined(B1_UNIT)
@@ -74,28 +76,8 @@ constexpr int P = B1_P;
 constexpr bool UNIT = B1_UNIT != 0;  // unit mass, else diagonal
 static_assert(P >= 1 && P <= 64, "kernel B1 takes 1 to 64 parameters");
 
-// The form in the constant bank, copied in by the launcher: A (P x P, row
-// major), mu (P), the diagonal inverse mass (P). At namespace scope, so its
-// PTX name is b1_form, which the loads below name.
-__constant__ float b1_form[P * P + 2 * P];
-
-namespace {
-
-constexpr bool SHARED_A = P > 12;    // where the matvec reads A (see above)
-constexpr int P4 = (P + 3) / 4 * 4;  // a row of A in shared memory, zero padded
-constexpr int BLOCK = 128;           // 64 and 256 measured no faster at P = 10 and 32
-constexpr int MU = P * P;            // offsets of mu and the inverse mass in b1_form
+constexpr int MU = P * P;  // offsets of mu and the inverse mass in Args::form
 constexpr int IM = P * P + P;
-using Cols = std::make_integer_sequence<int, P>;
-using Groups = std::make_integer_sequence<int, P4 / 4>;
-
-// step-size adaptation constants (mcmc/_kernels/hmc.py EPS_*)
-constexpr float EPS_TARGET = 0.65f;
-constexpr float EPS_GROWTH = 1.4f;
-constexpr float EPS_VAR_FLOOR = 0.03f;
-constexpr float EPS_POWER = 0.15f;
-constexpr float EPS_MIN_ADJ = 0.5f;
-constexpr float EPS_MAX_ADJ = 2.0f;
 
 struct Args {
   // state in
@@ -111,7 +93,6 @@ struct Args {
   const float* z;         // (chunk, P, K) standard normals
   const float* us;        // (chunk, K) step-count uniforms
   const float* ua;        // (chunk, K) accept uniforms
-  const float* A;         // (P, P), staged in shared memory where SHARED_A
   // state out
   float* theta_o;
   float* logp_o;
@@ -126,15 +107,37 @@ struct Args {
   int* h_steps;           // (chunk, K)
   float* h_eps;           // (chunk, K)
   int K, chunk, steps, max_steps;
+  // the form: A (P x P, row major), mu (P), the diagonal inverse mass (P,
+  // unread with unit mass)
+  float form[P * P + 2 * P];
 };
 
-// b1_form[IDX], by a volatile load that the compiler's front end keeps
-// where it is used (a plain read of b1_form was hoisted out of the
-// leapfrog loop and ran 1.29x slower at P = 10, PERF.md)
+namespace {
+
+constexpr bool SHARED_A = P > 12;    // where the matvec reads A (see above)
+constexpr int P4 = (P + 3) / 4 * 4;  // a row of A in shared memory, zero padded
+constexpr int BLOCK = 128;           // 64 and 256 measured no faster at P = 10 and 32
+using Cols = std::make_integer_sequence<int, P>;
+using Groups = std::make_integer_sequence<int, P4 / 4>;
+
+// step-size adaptation constants (mcmc/_kernels/hmc.py EPS_*)
+constexpr float EPS_TARGET = 0.65f;
+constexpr float EPS_GROWTH = 1.4f;
+constexpr float EPS_VAR_FLOOR = 0.03f;
+constexpr float EPS_POWER = 0.15f;
+constexpr float EPS_MIN_ADJ = 0.5f;
+constexpr float EPS_MAX_ADJ = 2.0f;
+
+// Args::form[IDX] of the kernel's parameter, by a volatile load that the
+// compiler's front end keeps where it is used (a plain read of the form in
+// the constant bank was hoisted out of the leapfrog loop and ran 1.29x
+// slower at P = 10, PERF.md). The kernel is extern "C", so its parameter's
+// PTX name is hmc_chunk_kernel_param_0.
 template <int IDX>
 __device__ __forceinline__ float form() {
   float v;
-  asm volatile("ld.const.f32 %0, [b1_form+%1];" : "=f"(v) : "n"(4 * IDX));
+  asm volatile("ld.param.f32 %0, [hmc_chunk_kernel_param_0+%1];"
+               : "=f"(v) : "n"(offsetof(Args, form) + 4 * IDX));
   return v;
 }
 
@@ -223,20 +226,23 @@ __device__ __forceinline__ float kinetic_sum(const float (&r)[P],
   return kin;
 }
 
-__global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
+}  // namespace
+
+extern "C" __global__ void __launch_bounds__(BLOCK)
+    hmc_chunk_kernel(const __grid_constant__ Args a) {
   extern __shared__ float4 smem4[];
   float* ms_s = reinterpret_cast<float*>(smem4);  // P4 momentum scales 1 / sqrt(im)
   float* tcur_s = ms_s + P4;                      // P * BLOCK, [j][thread]
 
   if constexpr (!UNIT) {
-    for (int j = threadIdx.x; j < P; j += BLOCK) ms_s[j] = 1.0f / sqrtf(b1_form[IM + j]);
+    for (int j = threadIdx.x; j < P; j += BLOCK) ms_s[j] = 1.0f / sqrtf(a.form[IM + j]);
   }
   uint32_t a_s = 0;  // shared address of A where SHARED_A
   if constexpr (SHARED_A) {
     float* A_s = tcur_s + P * BLOCK;  // P x P4, 16-byte aligned (BLOCK and P4 are multiples of 4)
     for (int i = threadIdx.x; i < P * P4; i += BLOCK) {
       const int row = i / P4, col = i % P4;
-      A_s[i] = col < P ? a.A[row * P + col] : 0.0f;
+      A_s[i] = col < P ? a.form[row * P + col] : 0.0f;
     }
     a_s = static_cast<uint32_t>(__cvta_generic_to_shared(A_s));
   }
@@ -340,6 +346,8 @@ __global__ void __launch_bounds__(BLOCK) hmc_chunk_kernel(const Args a) {
   a.ec_o[k] = ec;
 }
 
+namespace {
+
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (P4 + static_cast<size_t>(P) * BLOCK +
                                        (SHARED_A ? P * P4 : 0));
@@ -351,20 +359,14 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The constant bank is one per device for this library. Each launch waits,
-// on its own stream, for the previous launch on the device (`done`) before
-// it overwrites the form, so launches on different streams never read each
-// other's operands.
-constexpr int MAX_DEVICES = 64;
-std::mutex g_mutex;
-cudaEvent_t g_done[MAX_DEVICES];
-
 }  // namespace
 
 // Launches one chunk on `stream` and returns a CUDA error code (0 on
 // success; cudaErrorInvalidValue when P or the kind of mass is not this
-// library's). Every pointer is a device pointer; inv_mass is null for unit
-// mass; the four history pointers are all null (no history) or all set.
+// library's). The form's operands inv_mass (P), A (P x P, row major) and mu
+// (P) are host pointers, copied into the launch's parameters; inv_mass is
+// null for unit mass. Every other pointer is a device pointer; the four
+// history pointers are all null (no history) or all set.
 extern "C" int hmc_fused_chunk(
     const float* theta, const float* logp, const float* ev, const float* ea,
     const float* evr, const int* en, const int* ec, const float* inv_temp,
@@ -373,29 +375,14 @@ extern "C" int hmc_fused_chunk(
     float* ea_o, float* evr_o, int* en_o, int* ec_o, float* h_theta,
     float* h_logp, int* h_steps, float* h_eps, int n_params, int K, int chunk,
     int steps, int max_steps, void* stream) {
-  if (n_params != P || (inv_mass == nullptr) != UNIT || K < 1 || chunk < 1)
+  if (n_params != P || (inv_mass == nullptr) != UNIT || A == nullptr || mu == nullptr ||
+      K < 1 || chunk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
-  const Args args{theta, logp, ev, ea, evr, en, ec, inv_temp, z, us, ua, A,
-                  theta_o, logp_o, ev_o, ea_o, evr_o, en_o, ec_o,
-                  h_theta, h_logp, h_steps, h_eps, K, chunk, steps, max_steps};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  std::lock_guard<std::mutex> lock(g_mutex);
-  cudaEvent_t& done = g_done[dev];
-  err = done == nullptr ? cudaEventCreateWithFlags(&done, cudaEventDisableTiming)
-                        : cudaStreamWaitEvent(s, done, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaMemcpyKind d2d = cudaMemcpyDeviceToDevice;
-  err = cudaMemcpyToSymbolAsync(b1_form, A, sizeof(float) * P * P, 0, d2d, s);
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbolAsync(b1_form, mu, sizeof(float) * P, sizeof(float) * MU, d2d, s);
-  if (err == cudaSuccess && !UNIT)
-    err = cudaMemcpyToSymbolAsync(b1_form, inv_mass, sizeof(float) * P, sizeof(float) * IM, d2d, s);
-  if (err == cudaSuccess) err = launch(args, s);
-  if (err == cudaSuccess) err = cudaEventRecord(done, s);
-  return static_cast<int>(err);
+  Args args{theta, logp, ev, ea, evr, en, ec, inv_temp, z, us, ua,
+            theta_o, logp_o, ev_o, ea_o, evr_o, en_o, ec_o,
+            h_theta, h_logp, h_steps, h_eps, K, chunk, steps, max_steps};
+  memcpy(args.form, A, sizeof(float) * P * P);
+  memcpy(args.form + MU, mu, sizeof(float) * P);
+  if (!UNIT) memcpy(args.form + IM, inv_mass, sizeof(float) * P);
+  return static_cast<int>(launch(args, static_cast<cudaStream_t>(stream)));
 }

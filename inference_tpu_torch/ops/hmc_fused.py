@@ -28,7 +28,9 @@ Everywhere else a ``GaussianForm`` is an ordinary posterior module.
 The kernel is built once per parameter count P and kind of mass, unit or
 diagonal (``kernel_variant``): one library each in ``build/kernels/``,
 compiled at the first launch that needs it, so every loop over P unrolls
-with no guards or padding and unit mass skips its multiplies by 1.
+with no guards or padding and unit mass skips its multiplies by 1. The
+form (``A``, ``mu`` and the inverse mass) travels in each launch's kernel
+parameters, filled from host copies that ``_host_copy`` keeps.
 
 Restrictions of the kernel: ``retry=False``, no reflecting bounds,
 unit/scalar/diagonal inverse mass, ``1 <= P <= 64``, float32, one device.
@@ -57,6 +59,12 @@ P_MAX = 64   # the largest parameter count the kernel is built for
 
 # launches of the CUDA kernel in this process; the wrapper adds one per launch
 KERNEL_LAUNCHES = 0
+
+# host copies of the form's device tensors: id -> (tensor, version, copy).
+# Holding the tensor keeps its id unique; its version counter changes with
+# every in-place write, which refreshes the copy.
+_HOST_COPIES = {}
+_HOST_COPIES_MAX = 16
 
 
 class GaussianForm(nn.Module):
@@ -183,6 +191,22 @@ def _reference_chunk(
     return theta, logp, eps, tuple(torch.stack(h) for h in zip(*hist))
 
 
+def _host_copy(x):
+    """A float32 host copy of ``x``, made once per tensor and version, so
+    launches with an unchanged form read no device memory from the host
+    (which would wait for the stream). An inference tensor has no version
+    counter and is copied at every launch."""
+    if x.is_inference():
+        return x.detach().to("cpu", torch.float32).contiguous()
+    hit = _HOST_COPIES.get(id(x))
+    if hit is None or hit[1] != x._version:
+        if hit is None and len(_HOST_COPIES) >= _HOST_COPIES_MAX:
+            del _HOST_COPIES[next(iter(_HOST_COPIES))]  # the oldest
+        hit = (x, x._version, x.detach().to("cpu", torch.float32).contiguous())
+        _HOST_COPIES[id(x)] = hit
+    return hit[2]
+
+
 def kernel_variant(P: int, unit_mass: bool) -> tuple:
     """The nvcc defines of kernel B1's library for ``P`` parameters and
     unit (else diagonal) mass."""
@@ -196,7 +220,9 @@ def _launch_chunk(
     the signature and results of ``_reference_chunk``, through the library
     built for this P and kind of mass. Raises on a tensor the kernel does
     not take (not float32 or int32, wrong device, shape or layout; it never
-    casts), and when that library fails to build, load or launch."""
+    casts), and when that library fails to build, load or launch. The
+    form's operands are checked on the card and launched from their host
+    copies (``_host_copy``)."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
@@ -259,7 +285,9 @@ def _launch_chunk(
                          kernel_variant(P, inv_mass_diag is None))
     except (RuntimeError, OSError) as e:
         raise RuntimeError(f"kernel B1 for P = {P} failed to build or load: {e}") from e
-    ptrs = [x.data_ptr() for _, x, _, _ in operands]
+    # the form's operands (inv_mass, A, mu) go in as host copies
+    host = [_host_copy(x) for _, x, _, _ in operands[11:]]
+    ptrs = [x.data_ptr() for _, x, _, _ in operands[:11]] + [h.data_ptr() for h in host]
     if inv_mass_diag is None:
         ptrs.insert(11, None)
     ptrs += [x.data_ptr() for x in outs]

@@ -133,3 +133,33 @@ def test_kernel_variant_is_one_per_parameter_count_and_mass():
     variants = {hmc_fused.kernel_variant(P, unit) for P in range(1, hmc_fused.P_MAX + 1)
                 for unit in (True, False)}
     assert len(variants) == 128
+
+
+def test_host_copy_is_kept_until_the_tensor_changes():
+    """The launcher's host copy of a form operand is made once per tensor
+    and refreshed by an in-place write; other tensors get their own."""
+    hmc_fused._HOST_COPIES.clear()
+    A = torch.arange(4.0).reshape(2, 2)
+    first = hmc_fused._host_copy(A)
+    assert hmc_fused._host_copy(A) is first and torch.equal(first, A)
+    A.mul_(3.0)
+    again = hmc_fused._host_copy(A)
+    assert again is not first and torch.equal(again, A)
+    other = A.clone()
+    assert hmc_fused._host_copy(other) is not again
+    assert torch.equal(hmc_fused._host_copy(A.double()), A)
+    assert hmc_fused._host_copy(A.double()).dtype == torch.float32
+
+
+def test_host_copies_are_bounded_and_skip_inference_tensors():
+    hmc_fused._HOST_COPIES.clear()
+    keep = [torch.full((3,), float(i)) for i in range(hmc_fused._HOST_COPIES_MAX + 4)]
+    for x in keep:
+        assert torch.equal(hmc_fused._host_copy(x), x)
+    assert len(hmc_fused._HOST_COPIES) == hmc_fused._HOST_COPIES_MAX
+    assert id(keep[-1]) in hmc_fused._HOST_COPIES and id(keep[0]) not in hmc_fused._HOST_COPIES
+    with torch.inference_mode():
+        x = torch.ones(3)
+    assert torch.equal(hmc_fused._host_copy(x), x)
+    assert id(x) not in hmc_fused._HOST_COPIES
+    hmc_fused._HOST_COPIES.clear()

@@ -164,10 +164,27 @@ def test_launch_refuses_another_libraries_p(cuda):
     fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5, hmc_fused.kernel_variant(10, True))
     rc = fn(*([None] * 25), 9, 256, 1, 10, 11, _build.stream(cuda))
     assert rc == 1  # cudaErrorInvalidValue
-    im = torch.ones(10, device=cuda)
+    im = torch.ones(10)  # the form's operands are host pointers
     rc = fn(*([None] * 11), im.data_ptr(), *([None] * 13), 10, 256, 1, 10, 11,
             _build.stream(cuda))
     assert rc == 1
+
+
+@pytest.mark.cuda
+def test_launch_follows_a_form_changed_in_place(cuda):
+    """The launcher copies the form into the kernel's parameters from host
+    copies; a form changed in place between launches reaches the next
+    launch, and each launch agrees with the plain version."""
+    form, args = _chunk_inputs(cuda, 10, 4096, 1, 1.0, seed=21)
+    kw = dict(form=form, steps=50, inv_mass_diag=None, store=False)
+    for _ in range(2):
+        k = hmc_fused._launch_chunk(*args, **kw)
+        p = hmc_fused._reference_chunk(*args, **kw)
+        torch.cuda.synchronize()
+        ok = _close(k[0], p[0]).all(dim=0) & _close(k[1], p[1])
+        assert float(ok.float().mean()) >= 0.999
+        form.A.mul_(2.0)
+        form.mu.add_(0.5)
 
 
 @pytest.mark.cuda
