@@ -36,7 +36,10 @@
 // than the 50 MB L2). The tile's rows are staged in shared memory, read as
 // broadcasts; a thread keeps its two columns' coordinates in registers. The
 // dimension is a template parameter for d <= 3: with a runtime d, a D_MAX-long
-// predicated loop can issue more FP64 work than the entry itself.
+// predicated loop can issue more FP64 work than the entry itself. Above d = 16
+// a thread keeps its 32 entries' partial distances in registers instead, and
+// the tile's rows and columns pass through shared memory in chunks of KC
+// dimensions: the same sums in the same order, for any d.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,6 +53,7 @@ constexpr int TC = 2 * TX;           // tile columns (df64.py _TJ)
 constexpr int TY = 4;                // threads down a tile
 constexpr int THREADS = TX * TY;     // 256
 constexpr int D_MAX = 16;            // df64.py D_MAX
+constexpr int KC = 16;               // dimensions per staged chunk above D_MAX
 
 template <typename T> struct Two;
 template <> struct Two<double> { using type = double2; };
@@ -101,18 +105,72 @@ sqexp_entries_kernel(const double* __restrict__ us, T* __restrict__ out, int n,
   }
 }
 
+// d > D_MAX: the partial distances of the thread's 16 rows by 2 columns in
+// registers, the coordinates staged KC dimensions at a time
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+sqexp_entries_wide_kernel(const double* __restrict__ us, T* __restrict__ out, int n, int d) {
+  __shared__ double su[KC][TR];
+  __shared__ double sc[KC][TC];
+
+  const int row0 = blockIdx.y * TR;
+  const int col0 = blockIdx.x * TC;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const int c = 2 * threadIdx.x;
+
+  double d0[TR / TY], d1[TR / TY];
+#pragma unroll
+  for (int i = 0; i < TR / TY; ++i) d0[i] = d1[i] = 0.0;
+  for (int k0 = 0; k0 < d; k0 += KC) {
+    const int kc = min(KC, d - k0);
+    __syncthreads();
+    for (int idx = tid; idx < TR * kc; idx += THREADS) {
+      const int r = idx / kc;
+      su[idx - r * kc][r] = us[(size_t)(row0 + r) * d + k0 + idx - r * kc];
+    }
+    for (int idx = tid; idx < TC * kc; idx += THREADS) {
+      const int j = idx / kc;
+      sc[idx - j * kc][j] = us[(size_t)(col0 + j) * d + k0 + idx - j * kc];
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; ++k) {
+      const double b0 = sc[k][c], b1 = sc[k][c + 1];
+#pragma unroll
+      for (int i = 0; i < TR / TY; ++i) {
+        const double a = su[k][threadIdx.y + i * TY];
+        const double e0 = a - b0;
+        const double e1 = a - b1;
+        d0[i] = d0[i] + e0 * e0;
+        d1[i] = d1[i] + e1 * e1;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TR / TY; ++i) {
+    typename Two<T>::type val;
+    val.x = static_cast<T>(exp(-0.5 * d0[i]));
+    val.y = static_cast<T>(exp(-0.5 * d1[i]));
+    __stcs(reinterpret_cast<typename Two<T>::type*>(
+               out + (size_t)(row0 + threadIdx.y + i * TY) * n + col0 + c),
+           val);
+  }
+}
+
+// DT < 0: the wide kernel
 template <typename T, int DT>
 int launch(const double* us, T* out, int n, int d, cudaStream_t stream) {
   dim3 grid(n / TC, n / TR);
   dim3 block(TX, TY);
-  sqexp_entries_kernel<T, DT><<<grid, block, 0, stream>>>(us, out, n, d);
+  if constexpr (DT < 0)
+    sqexp_entries_wide_kernel<T><<<grid, block, 0, stream>>>(us, out, n, d);
+  else
+    sqexp_entries_kernel<T, DT><<<grid, block, 0, stream>>>(us, out, n, d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int entries(const void* us, void* out, int n, int d, void* stream) {
-  if (n < TC || n % TC != 0 || n / TR > 65535 || d < 1 || d > D_MAX)
-    return (int)cudaErrorInvalidValue;
+  if (n < TC || n % TC != 0 || n / TR > 65535 || d < 1) return (int)cudaErrorInvalidValue;
   const double* u = static_cast<const double*>(us);
   T* o = static_cast<T*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -120,14 +178,14 @@ int entries(const void* us, void* out, int n, int d, void* stream) {
     case 1: return launch<T, 1>(u, o, n, d, s);
     case 2: return launch<T, 2>(u, o, n, d, s);
     case 3: return launch<T, 3>(u, o, n, d, s);
-    default: return launch<T, 0>(u, o, n, d, s);
+    default: return d <= D_MAX ? launch<T, 0>(u, o, n, d, s) : launch<T, -1>(u, o, n, d, s);
   }
 }
 
 }  // namespace
 
 // Kernel B5: out (n, n) FP64 = exp(-0.5 |us_i - us_j|^2), on `stream`. n must
-// be a positive multiple of 128 and 1 <= d <= 16. Returns the CUDA error code
+// be a positive multiple of 128 and d >= 1. Returns the CUDA error code
 // of the launch (0 on success).
 extern "C" int sqexp_entries_f64(const void* us, void* out, int n, int d, void* stream) {
   return entries<double>(us, out, n, d, stream);

@@ -67,6 +67,15 @@
 //   QMAX 16, RPT 2   162 / 204   3
 // chip_smoke.py prints every instantiation's registers and local-memory
 // instructions.
+//
+// Above d = 16 (sqexp_fused_wide_f64) no register array holds a row's
+// coordinates: the wrapper passes the rows transposed, (d, n_rows), so each
+// k's read of a warp's rows is one coalesced load, and the column's
+// coordinate at k is one load that every thread of the block shares. Both
+// come from device memory (the L1 keeps them), one k at a time, in the
+// order of the plain version; v is staged per tile as above. It computes the
+// same sums in the same order as the templated kernels and takes the same
+// plan, for any d.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -160,15 +169,89 @@ sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ c
   }
 }
 
-// the launch of one instantiation; refuses rows per thread other than RPT
+// d > D_MAX: rows_t is (d, n_rows), the rows transposed; the coordinates
+// come from device memory one k at a time (see the header)
+template <int QMAX, int RPT>
+__global__ void __launch_bounds__(ROWS, 1)
+sqexp_fused_wide_kernel(const double* __restrict__ rows_t, const double* __restrict__ cols,
+                        const float* __restrict__ v, double* __restrict__ partial,
+                        int n_rows, int n_cols, int d, int q, int tiles_per_split) {
+  __shared__ double sv[TJ][QMAX];
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.x * ROWS * RPT + tid;
+  int rr[RPT];
+  double acc[RPT][QMAX];
+#pragma unroll
+  for (int p = 0; p < RPT; ++p) {
+    rr[p] = min(row0 + p * ROWS, n_rows - 1);
+#pragma unroll
+    for (int c = 0; c < QMAX; ++c) acc[p][c] = 0.0;
+  }
+
+  const int n_tiles = n_cols / TJ;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_end = min(t_begin + tiles_per_split, n_tiles);
+  for (int t = t_begin; t < t_end; ++t) {
+    const size_t j0 = (size_t)t * TJ;
+    __syncthreads();
+    for (int idx = tid; idx < TJ * QMAX; idx += ROWS) {
+      const int jj = idx / QMAX;
+      const int c = idx - jj * QMAX;
+      sv[jj][c] = c < q ? (double)v[(j0 + jj) * q + c] : 0.0;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < TJ; ++jj) {
+      const double* col = cols + (j0 + jj) * d;
+      double dist[RPT];
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) dist[p] = 0.0;
+      for (int k = 0; k < d; ++k) {
+        const double ck = __ldg(col + k);
+        const double* row_k = rows_t + (size_t)k * n_rows;
+#pragma unroll
+        for (int p = 0; p < RPT; ++p) {
+          const double diff = __ldg(row_k + rr[p]) - ck;
+          dist[p] = dist[p] + diff * diff;
+        }
+      }
+      double e[RPT];
+#pragma unroll
+      for (int p = 0; p < RPT; ++p) e[p] = exp(-0.5 * dist[p]);
+#pragma unroll
+      for (int c = 0; c < QMAX; ++c) {
+        const double w = sv[jj][c];
+#pragma unroll
+        for (int p = 0; p < RPT; ++p) acc[p][c] = fma(e[p], w, acc[p][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < RPT; ++p) {
+    const int row = row0 + p * ROWS;
+    if (row < n_rows) {
+      double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
+#pragma unroll
+      for (int c = 0; c < QMAX; ++c)
+        if (c < q) out[c] = acc[p][c];
+    }
+  }
+}
+
+// the launch of one instantiation; refuses rows per thread other than RPT.
+// DT < 0 is the wide kernel, with rows transposed
 template <int DT, int QMAX, int RPT>
 int launch_q(const double* rows, const double* cols, const float* v, double* partial,
              int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
              cudaStream_t stream) {
   if (rpt != RPT) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
-  sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
-      rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
+  if constexpr (DT < 0)
+    sqexp_fused_wide_kernel<QMAX, RPT><<<grid, ROWS, 0, stream>>>(
+        rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
+  else
+    sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
+        rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -184,6 +267,14 @@ int launch_d(const double* rows, const double* cols, const float* v, double* par
   return launch_q<DT, 16, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
 }
 
+// the operands and the plan, else false (see the entry points)
+bool plan_ok(int n_rows, int n_cols, int d, int q, int splits, int tiles_per_split) {
+  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || d < 1 || q < 1 || q > 16) return false;
+  const long n_tiles = n_cols / TJ;
+  return tiles_per_split >= 1 && splits >= 1 && splits <= 65535 &&
+         (long)splits * tiles_per_split >= n_tiles && (long)(splits - 1) * tiles_per_split < n_tiles;
+}
+
 }  // namespace
 
 // partial (splits, n_rows, q) = the column splits' sums of
@@ -197,11 +288,7 @@ int launch_d(const double* rows, const double* cols, const float* v, double* par
 extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v,
                                void* partial, int n_rows, int n_cols, int d, int q, int rpt,
                                int splits, int tiles_per_split, void* stream) {
-  if (n_rows < 1 || n_cols < TJ || n_cols % TJ != 0 || d < 1 || d > D_MAX || q < 1 || q > 16)
-    return (int)cudaErrorInvalidValue;
-  const long n_tiles = n_cols / TJ;
-  if (tiles_per_split < 1 || splits < 1 || splits > 65535 ||
-      (long)splits * tiles_per_split < n_tiles || (long)(splits - 1) * tiles_per_split >= n_tiles)
+  if (d > D_MAX || !plan_ok(n_rows, n_cols, d, q, splits, tiles_per_split))
     return (int)cudaErrorInvalidValue;
   const double* r = static_cast<const double*>(rows);
   const double* c = static_cast<const double*>(cols);
@@ -214,4 +301,17 @@ extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v
     case 3: return launch_d<3>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
     default: return launch_d<0>(r, c, vv, p, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   }
+}
+
+// The same for d > 16, with rows_t the rows transposed, (d, n_rows)
+// row-major; the plan and the limits on n_cols and q are those above.
+extern "C" int sqexp_fused_wide_f64(const void* rows_t, const void* cols, const void* v,
+                                    void* partial, int n_rows, int n_cols, int d, int q, int rpt,
+                                    int splits, int tiles_per_split, void* stream) {
+  if (d <= D_MAX || !plan_ok(n_rows, n_cols, d, q, splits, tiles_per_split))
+    return (int)cudaErrorInvalidValue;
+  return launch_d<-1>(static_cast<const double*>(rows_t), static_cast<const double*>(cols),
+                      static_cast<const float*>(v), static_cast<double*>(partial), n_rows,
+                      n_cols, d, q, rpt, splits, tiles_per_split,
+                      static_cast<cudaStream_t>(stream));
 }

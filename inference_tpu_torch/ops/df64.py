@@ -47,8 +47,8 @@ from . import _build
 
 _TJ = 128  # column tile of the kernels; n must be a multiple
 _TI = 128  # row tile of the kernels
-D_MAX = 16  # the kernels' largest coordinate dimension
-Q_MAX = 16  # the largest right-hand-side block the kernels take
+D_MAX = 16  # above this coordinate dimension B3/B4 and B5/B7 take their wide kernels
+Q_MAX = 16  # the largest right-hand-side block one kernel launch takes
 
 # launches of each kernel in this process; each wrapper adds one per launch
 KERNEL_LAUNCHES = {"B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0, "B8": 0}
@@ -116,11 +116,8 @@ def _check_coords(us, caller, what="n"):
             f"[ {caller} error ] {what} ({n}) must be a multiple of {_TJ}; "
             f"pad the data rows (zero-padded v entries are inert)."
         )
-    if not 1 <= d <= D_MAX:
-        raise ValueError(
-            f"[ {caller} error ] the kernels take 1 to {D_MAX} coordinate "
-            f"dimensions, got {d} (larger d is ROADMAP queue B4's open item)."
-        )
+    if d < 1:
+        raise ValueError(f"[ {caller} error ] coordinates need at least one dimension, got {d}.")
 
 
 def _check_block(V, n_cols, caller):
@@ -131,11 +128,17 @@ def _check_block(V, n_cols, caller):
             f"[ {caller} error ] V has {V.shape[0]} rows but there are "
             f"{n_cols} column points."
         )
-    if not 1 <= V.shape[1] <= Q_MAX:
-        raise ValueError(
-            f"[ {caller} error ] the kernels take 1 to {Q_MAX} right-hand "
-            f"sides at once, got {V.shape[1]}; chunk the columns."
-        )
+    if V.shape[1] < 1:
+        raise ValueError(f"[ {caller} error ] V needs at least one right-hand side.")
+
+
+def _by_column_blocks(fn, V):
+    """``fn`` over ``V``'s columns in blocks of at most ``Q_MAX`` (the
+    kernels' bound), concatenated. Each column of a product is independent
+    of the others, so each computes what it does in a block of its own."""
+    if V.shape[1] <= Q_MAX:
+        return fn(V)
+    return torch.cat([fn(V[:, c:c + Q_MAX]) for c in range(0, V.shape[1], Q_MAX)], dim=1)
 
 
 def _row_blocks(n_rows, n_cols):
@@ -219,7 +222,11 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
     sms = torch.cuda.get_device_properties(rows64.device).multi_processor_count
     rpt, splits, per = fused_plan(n_rows, n_cols, q, sms)
     partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
-    fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 7)
+    if d <= D_MAX:
+        fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 7)
+    else:  # the wide kernel reads the rows transposed, (d, n_rows)
+        fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 7)
+        rows64 = rows64.T.contiguous()
     with torch.cuda.device(rows64.device):
         rc = fn(rows64.data_ptr(), cols64.data_ptr(), V.data_ptr(), partial.data_ptr(),
                 n_rows, n_cols, d, q, rpt, splits, per, _build.stream(rows64.device))
@@ -231,8 +238,10 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
 def _fused(rows64, cols64, V, kernel):
     dev = _same_device(f"kernel {kernel}", rows64, cols64, V)
     if dev.type == "cuda":
-        return _launch_fused(rows64.contiguous(), cols64.contiguous(), V.contiguous(), kernel)
-    return _fused_reference(rows64, cols64, V)
+        rows64, cols64 = rows64.contiguous(), cols64.contiguous()
+        return _by_column_blocks(
+            lambda W: _launch_fused(rows64, cols64, W.contiguous(), kernel), V)
+    return _by_column_blocks(lambda W: _fused_reference(rows64, cols64, W), V)
 
 
 def sqexp_matmat_rect_df64(rows_hi, rows_lo, cols_hi, cols_lo, V):
@@ -254,8 +263,8 @@ def sqexp_matmat_rect_df64(rows_hi, rows_lo, cols_hi, cols_lo, V):
 
 def sqexp_matmat_df64(us_hi, us_lo, V):
     """``Y = E V`` for a block of right-hand sides ``V`` (n, q) float32
-    (kernel B4): returns float64 (n, q). ``n`` must be a multiple of 128;
-    ``q`` at most 16."""
+    (kernel B4, one launch per 16 columns): returns float64 (n, q). ``n``
+    must be a multiple of 128."""
     caller = "sqexp_matmat_df64"
     us64 = _pair_sum(us_hi, us_lo, caller)
     V = _float32("V", V, caller)
@@ -481,8 +490,9 @@ def _stored(E, V, dtype, caller):
     _check_block(V, E.shape[0], caller)
     dev = _same_device(caller, E, V)
     if dev.type == "cuda":
-        return _launch_stored(E.contiguous(), V.contiguous(), dtype)
-    return _stored_reference(E, V)
+        E = E.contiguous()
+        return _by_column_blocks(lambda W: _launch_stored(E, W.contiguous(), dtype), V)
+    return _by_column_blocks(lambda W: _stored_reference(E, W), V)
 
 
 def sqexp_stored_matvec_df64(*args):

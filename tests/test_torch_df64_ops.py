@@ -54,10 +54,15 @@ def _coords(n, d, seed, scale=10.0):
 
 
 def _truth(uh, ul, uh2=None, ul2=None):
-    """Float64 numpy entries from exact differences of the pair sums."""
+    """Float64 numpy entries from exact differences of the pair sums,
+    summed over k in order."""
     a = uh.astype(np.float64) + ul.astype(np.float64)
     b = a if uh2 is None else uh2.astype(np.float64) + ul2.astype(np.float64)
-    return np.exp(-0.5 * ((a[:, None, :] - b[None, :, :]) ** 2).sum(-1))
+    sq = (a[:, None, :] - b[None, :, :]) ** 2
+    dist = np.zeros(sq.shape[:2])
+    for k in range(sq.shape[2]):
+        dist = dist + sq[:, :, k]
+    return np.exp(-0.5 * dist)
 
 
 def _within_row_scale(got, E, V, tol=1e-13):
@@ -70,7 +75,7 @@ def _within_row_scale(got, E, V, tol=1e-13):
 # --------------------------------------------------------------------- #
 # plain versions against float64 numpy
 # --------------------------------------------------------------------- #
-@pytest.mark.parametrize("d", [1, 2, 3, 5])
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 20])
 def test_entries_plain_matches_numpy(d):
     uh, ul, _ = _coords(N, d, seed=d)
     E = df64.sqexp_entries_df64(uh, ul)
@@ -80,7 +85,7 @@ def test_entries_plain_matches_numpy(d):
     assert np.all(np.abs(E.numpy() - truth)[mask] <= 1e-14 * truth[mask])
 
 
-@pytest.mark.parametrize("d, q", [(2, 1), (2, 8), (3, 5), (5, 16)])
+@pytest.mark.parametrize("d, q", [(2, 1), (2, 8), (3, 5), (5, 16), (2, 20), (20, 1), (20, 37)])
 def test_fused_and_stored_plain_match_numpy(d, q):
     """B4 (square and rectangular), B3 (q = 1) and B6 within 1e-13 of
     sum_j |E_ij| |V_jk|."""
@@ -96,7 +101,7 @@ def test_fused_and_stored_plain_match_numpy(d, q):
         _within_row_scale(df64.sqexp_stored_matvec_df64(torch.as_tensor(E), V[:, 0]), E, V)
 
 
-@pytest.mark.parametrize("d", [1, 2, 3])
+@pytest.mark.parametrize("d", [1, 2, 3, 20])
 def test_entries_f32_plain_is_the_rounded_fp64_entry(d):
     """B7's plain version is B5's, rounded to nearest float32: within 2^-24
     of the float64 numpy truth (plus B5's ulp) and equal to the rounding of
@@ -111,7 +116,7 @@ def test_entries_f32_plain_is_the_rounded_fp64_entry(d):
     assert np.all(err <= (2.0**-24 + 1e-15) * truth[mask])
 
 
-@pytest.mark.parametrize("q", [1, 3, 16])
+@pytest.mark.parametrize("q", [1, 3, 16, 20])
 def test_stored_f32_plain_is_exact_over_the_store(q):
     """B8's plain version: the float64 product of the float32 store with V
     (every product exact), within 1e-13 of sum_j |E_ij| |V_jk|."""
@@ -309,6 +314,88 @@ def test_stored_f32_matches_jax_kernel(jax_kernels):
     assert np.abs(own - ref).max() <= 1e-7 * np.abs(ref).max()
 
 
+@pytest.fixture(scope="module")
+def jax_wide():
+    """The JAX kernels (interpret mode, n = 256) where the port's kernels
+    used to raise: the four products at q = 20 right-hand sides (d = 2), and
+    B3/B4/B5/B7 at d = 20 on coordinates spread so that E is well filled."""
+    uh, ul, _ = _coords(N, 2, seed=50, scale=6.0)
+    V = np.random.default_rng(51).normal(size=(N, 20)).astype(np.float32)
+    Eh, El = jdf64.sqexp_entries_df64(uh, ul, interpret=True)
+    E32 = np.array(jdf64.sqexp_entries_f32(uh, ul, interpret=True))
+    wh, wl, W = _coords(N, 20, seed=52, scale=1.2)
+    return {
+        "q20": (uh, ul, V, np.array(Eh), np.array(El), E32),
+        "matmat": np.asarray(jdf64.sqexp_matmat_df64(uh, ul, V, interpret=True)),
+        "rect": np.asarray(jdf64.sqexp_matmat_rect_df64(uh[:128], ul[:128], uh, ul, V,
+                                                        interpret=True)),
+        "stored": np.asarray(jdf64.sqexp_stored_matmat_df64(Eh, El, V, interpret=True)),
+        "stored_f32": np.asarray(jdf64.sqexp_stored_f32_matmat(E32, V, interpret=True)),
+        "d20": (wh, wl, W[:, :2]),
+        "entries20": [np.array(a) for a in jdf64.sqexp_entries_df64(wh, wl, interpret=True)],
+        "entries_f32_20": np.array(jdf64.sqexp_entries_f32(wh, wl, interpret=True)),
+        "matvec20": np.asarray(jdf64.sqexp_matvec_df64(wh, wl, W[:, 0], interpret=True)),
+        "matmat20": np.asarray(jdf64.sqexp_matmat_df64(wh, wl, W[:, :2], interpret=True)),
+    }
+
+
+@pytest.mark.parametrize("which", ["matmat", "rect", "stored", "stored_f32"])
+def test_wrappers_take_twenty_right_hand_sides_as_jax(jax_wide, which):
+    """The four block products at q = 20, where the port raised before: one
+    launch per 16 columns, concatenated, against the JAX kernels (to the
+    JAX contract, 1e-7 of max |ref|; B8 on the JAX package's own float32
+    store to 1e-13) and against the plain version of each column block
+    alone, bit for bit."""
+    uh, ul, V, Eh, El, E32 = jax_wide["q20"]
+    us = torch.as_tensor(uh).double() + torch.as_tensor(ul).double()
+    Vt = torch.as_tensor(V)
+    if which == "matmat":
+        ours, tol = df64.sqexp_matmat_df64(uh, ul, V), 1e-7
+        blocks = [df64._fused_reference(us, us, Vt[:, c:c + 16]) for c in (0, 16)]
+    elif which == "rect":
+        ours, tol = df64.sqexp_matmat_rect_df64(uh[:128], ul[:128], uh, ul, V), 1e-7
+        blocks = [df64._fused_reference(us[:128], us, Vt[:, c:c + 16]) for c in (0, 16)]
+    elif which == "stored":
+        E = df64.sqexp_entries_df64(uh, ul)
+        ours, tol = df64.sqexp_stored_matmat_df64(E, V), 1e-7
+        blocks = [df64._stored_reference(E, Vt[:, c:c + 16]) for c in (0, 16)]
+    else:
+        ours, tol = df64.sqexp_stored_f32_matmat(E32, V), 1e-13
+        blocks = [df64._stored_reference(torch.as_tensor(E32), Vt[:, c:c + 16]) for c in (0, 16)]
+    ref = jax_wide[which]
+    assert ours.shape == ref.shape == (ref.shape[0], 20) and ours.dtype == torch.float64
+    assert np.abs(ours.numpy() - ref).max() <= tol * np.abs(ref).max()
+    assert torch.equal(ours, torch.cat(blocks, dim=1))
+
+
+@pytest.mark.parametrize("which", ["entries", "entries_f32", "matvec", "matmat"])
+def test_plain_routes_at_twenty_dimensions_match_jax(jax_wide, which):
+    """B5, B7, B3 and B4's plain versions at d = 20, where the port raised
+    before, against the JAX kernels in interpret mode: the JAX contract of
+    test_entries_match_jax_kernel, test_entries_f32_match_jax_kernel and
+    test_products_match_jax_kernels."""
+    wh, wl, W = jax_wide["d20"]
+    if which == "entries":
+        E = df64.sqexp_entries_df64(wh, wl).numpy()
+        Eh, El = jax_wide["entries20"]
+        E_jax = Eh.astype(np.float64) + El.astype(np.float64)
+        mask = E > 1e-25
+        assert mask.mean() > 0.5
+        assert np.all(np.abs(E_jax - E)[mask] <= 5e-8 * E[mask])
+        assert np.abs(E_jax - E).max() <= 1e-8
+    elif which == "entries_f32":
+        E32 = df64.sqexp_entries_f32(wh, wl).numpy()
+        mask = E32 > 1e-25
+        ulps = np.abs(E32.view(np.int32) - jax_wide["entries_f32_20"].view(np.int32))[mask]
+        assert E32.dtype == np.float32 and ulps.max() <= 1
+    else:
+        ours = (df64.sqexp_matvec_df64(wh, wl, W[:, 0]) if which == "matvec"
+                else df64.sqexp_matmat_df64(wh, wl, W)).numpy()
+        ref = jax_wide[f"{which}20"]
+        assert ours.shape == ref.shape and ours.dtype == np.float64
+        assert np.abs(ours - ref).max() <= 1e-7 * np.abs(ref).max()
+
+
 def test_split_f64_matches_jax():
     a = np.random.default_rng(0).normal(size=(64, 3)) * 1e3
     for ours, ref in zip(df64.split_f64(a), jdf64.split_f64(a)):
@@ -320,7 +407,9 @@ def test_split_f64_matches_jax():
 # --------------------------------------------------------------------- #
 def test_padding_and_operand_contracts():
     """The n % 128 contract with the JAX package's errors, plus the port's
-    own: float32 operands only, at most 16 right-hand sides."""
+    own: float32 operands only, at least one right-hand side and one
+    coordinate dimension (any number of each above that, as in the JAX
+    package)."""
     bad = np.zeros((100, 2), np.float32)
     for fn in (jdf64.sqexp_matvec_df64, df64.sqexp_matvec_df64):
         with pytest.raises(ValueError, match="multiple of 128"):
@@ -342,9 +431,9 @@ def test_padding_and_operand_contracts():
     with pytest.raises(TypeError, match="float32"):
         df64.sqexp_matvec_df64(uh.astype(np.float64), ul, V[:, 0])
     with pytest.raises(ValueError, match="right-hand"):
-        df64.sqexp_matmat_df64(uh, ul, np.zeros((N, 17), np.float32))
-    with pytest.raises(ValueError, match="dimensions"):
-        df64.sqexp_entries_df64(np.zeros((128, 17), np.float32), np.zeros((128, 17), np.float32))
+        df64.sqexp_matmat_df64(uh, ul, np.zeros((N, 0), np.float32))
+    with pytest.raises(ValueError, match="dimension"):
+        df64.sqexp_entries_df64(np.zeros((128, 0), np.float32), np.zeros((128, 0), np.float32))
     with pytest.raises(ValueError, match="multiple of 128"):
         df64.sqexp_entries_f32(bad, bad)
     with pytest.raises(TypeError, match="float32"):

@@ -140,6 +140,26 @@ def test_means_match_dense_truth_and_jax(pair):
     assert np.abs(mu - np.asarray(pair["jax"](q))).max() < 1e-6
 
 
+def test_twenty_dimensions_match_jax_and_dense_truth():
+    """d = 20, where the port's kernels raised before (n = 512, sigma =
+    0.01, rank 128, block 128; x uniform on [0, 1.5]^20 so that the kernel
+    matrix is well filled): the training residual, and 64 means against the
+    dense truth and the JAX instance, to this file's bounds."""
+    rng = np.random.default_rng(20)
+    x = rng.uniform(0, 1.5, size=(512, 20))
+    y = np.sin(2 * x[:, 0]) * np.cos(x[:, 1]) + x[:, 2:].mean(axis=1)
+    err = np.full(512, 0.01)
+    q = rng.uniform(0, 1.5, size=(64, 20))
+    kw = {**KW, "hyperpars": np.zeros(21)}
+    gp = LargeScaleGP(x, y, err, device="cpu", **kw)
+    assert gp.residual_norm_f64(residual_backend="host") < 3e-8
+    mu = gp(q)
+    mu_ref, _ = dense_truth(x, y, err, q, y.mean())
+    assert np.abs(mu - mu_ref).max() < 1e-6
+    mu_jax = np.asarray(JaxLargeScaleGP(x, y, err, dtype="float32", **kw)(q))
+    assert np.abs(mu - mu_jax).max() < 1e-6
+
+
 def test_pivoted_cholesky_matches_jax_host_build(pair):
     """The port's device FP64 pivoted Cholesky against the JAX package's
     host float64 build: the same pivots (the argmax of each column, which
