@@ -141,13 +141,16 @@ def phase_device():
     return name, smi
 
 
-KERNELS = {"sqexp": "B2", "sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
+KERNELS = {"sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
            "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
-           "sqexp_words_mma": "P3"}  # and B1, one library per (P, mass) in B1_BUILD
+           "sqexp_words_mma": "P3"}  # and B1 and B2, one library per variant below
 # B1's libraries, (P, unit mass), those its checks and times use: unit mass
 # at every P, diagonal mass at P = 32 (check 3c)
 B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True))
 B1_TIME_P = (2, 10, 32, 64)  # P at which B1 is timed beside its bound
+# B2's libraries, by the D its checks launch: its own library at D = 2, 5
+# and 17, the wide one for D = 100
+B2_BUILD_D = (2, 5, 17, 100)
 
 
 def _b1_label(P, unit):
@@ -159,7 +162,13 @@ def _libraries():
     kernel, and one per parameter count and kind of mass of B1."""
     b1 = [("hmc_fused", hmc_fused.kernel_variant(P, unit), _b1_label(P, unit))
           for P, unit in B1_BUILD]
-    return b1 + [(name, (), label) for name, label in KERNELS.items()]
+    b2 = [("sqexp", pairwise.kernel_variant(d), _b2_label(d)) for d in B2_BUILD_D]
+    return b1 + b2 + [(name, (), label) for name, label in KERNELS.items()]
+
+
+def _b2_label(d):
+    (_, lib_d), = pairwise.kernel_variant(d)
+    return f"B2 D={d}" if lib_d else f"B2 wide (D={d})"
 
 
 def _timed_build(name, defines):
@@ -532,8 +541,15 @@ def _errors(kernel, plain):
     return float(err.max()), float((err / plain.abs()).max())
 
 
+def _b2_plan(u, v):
+    """Kernel B2's plan for a launch on u and v on this card."""
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    return pairwise.sqexp_plan(u.shape[0], v.shape[0], u.shape[1], u.dtype, sms)
+
+
 def _b2_compare(label, u, v, amp, ls):
-    """Kernel B2 against its plain version on the same inputs."""
+    """Kernel B2 against its plain version on the same inputs; prints the
+    library and the store route the launch took."""
     k = pairwise._launch_sqexp(u, v, amp, ls)
     p = pairwise._sqexp_reference(u, v, amp, ls)
     torch.cuda.synchronize()
@@ -541,11 +557,21 @@ def _b2_compare(label, u, v, amp, ls):
         raise RuntimeError(f"check {label}: bad output, shape {tuple(k.shape)}")
     max_abs, max_rel = _errors(k, p)
     rtol = B2_RTOL[u.dtype]
-    print(f"[check {label}] B2 {str(u.dtype)[6:]} {u.shape[0]}x{v.shape[0]} D={u.shape[1]}: "
-          f"max abs err {max_abs:.3e}, max rel err {max_rel:.3e} (limit {rtol:g})")
+    print(f"[check {label}] B2 {str(u.dtype)[6:]} {u.shape[0]}x{v.shape[0]} D={u.shape[1]} "
+          f"({_b2_label(u.shape[1])} library, {_b2_plan(u, v).route} stores): max abs err "
+          f"{max_abs:.3e}, max rel err {max_rel:.3e} (limit {rtol:g})")
     if not max_rel <= rtol:
         raise RuntimeError(f"check {label}: B2 disagrees with its plain version ({max_rel})")
     return max_abs, max_rel
+
+
+# (label, dtype, M, N, D) of B2's checks beyond gp-16k's: D = 5 ragged, the
+# library of D = 17 and the wide one (D = 100) on the vector route, and an
+# odd row pitch (scalar stores) in each dtype
+B2_CHECKS = (("6c", F64, 3001, 2500, 5), ("6e", F64, 3001, 2504, 17),
+             ("6f", torch.float32, 3001, 2504, 17), ("6g", F64, 2048, 2056, 100),
+             ("6h", torch.float32, 2048, 2056, 100), ("6i", F64, 3001, 2501, 2),
+             ("6j", torch.float32, 3001, 2501, 2))
 
 
 def phase_b2_checks(x16k):
@@ -556,10 +582,13 @@ def phase_b2_checks(x16k):
         del u
         torch.cuda.empty_cache()
     rng = np.random.default_rng(6)
-    t = lambda a: torch.as_tensor(a, dtype=F64, device=CUDA)
-    ragged = _b2_compare("6c", t(rng.uniform(0, 3, (3001, 5))), t(rng.uniform(0, 3, (2500, 5))),
-                         t(1.3), t(rng.uniform(0.5, 2.0, 5)))
-    out[F64] = tuple(max(a, b) for a, b in zip(out[F64], ragged))
+    for label, dtype, m, n, d in B2_CHECKS:
+        t = lambda a: torch.as_tensor(a, dtype=dtype, device=CUDA)
+        u, v = t(rng.uniform(0, 3, (m, d))), t(rng.uniform(0, 3, (n, d)))
+        # lengthscales grow with sqrt(D), so the entries stay of order one
+        ls = t(rng.uniform(0.5, 2.0, d) * max(1.0, np.sqrt(d / 5)))
+        errs = _b2_compare(label, u, v, t(1.3), ls)
+        out[dtype] = tuple(max(a, b) for a, b in zip(out[dtype], errs))
 
     # the autograd.Function's backward against autograd of the plain version
     u, amp, ls = _gp_operands(x16k[:4096], F64)
@@ -588,10 +617,20 @@ def _cdist_exp(u, v, amplitude, lengthscales):
     return torch.cdist(us, vs).square_().mul_(-0.5).exp_().mul_(amplitude**2)
 
 
+def _registers(name, defines, fragment):
+    """Registers of the kernel whose name holds ``fragment`` in the build
+    log of ``name``'s library in the variant ``defines``."""
+    log = _build.build_log(name, defines)
+    part = log[log.index(fragment):]
+    return int(re.search(r"Used (\d+) registers", part).group(1))
+
+
 def phase_b2_timing(x16k):
     """CUDA-event times of B2 and its plain version at 16,384 x 16,384, in
-    turns (plain, kernel, plain, kernel), beside cdist and the exp. Returns
-    per dtype (kernel ms, plain ms, cdist+exp ms, bound ms, bound by)."""
+    turns (plain, kernel, plain, kernel), beside cdist and the exp and a
+    ``fill_`` of an equal tensor (the card's store rate); the SASS of the
+    launched kernel's hot loop per entry and its registers. Returns per
+    dtype a dict of the kernels JSON line's numbers."""
     times = {}
     for dtype in (F64, torch.float32):
         u, amp, ls = _gp_operands(x16k, dtype)
@@ -601,15 +640,32 @@ def phase_b2_timing(x16k):
         plain.append(time_events(pairwise._sqexp_reference, args, 3))
         kern.append(time_events(pairwise._launch_sqexp, args, 20))
         lib = time_events(_cdist_exp, args, 5)
+        filled = torch.empty((u.shape[0], u.shape[0]), dtype=dtype, device=CUDA)
+        fill = time_events(lambda: filled.fill_(1.0), (), 20)
+        del filled
         m, d = u.shape
         size = u.element_size()
         b_ms, b_by = bound(size * (m * m + 2 * m * d), m * m * (3 * d + 2 + EXP_FLOPS),
                            FP64_FLOPS if dtype == F64 else FP32_FLOPS)
-        print(f"[time] B2 {str(dtype)[6:]} 16384x16384 D=2: kernel "
-              f"{kern[0]:.4f} / {kern[1]:.4f} ms, plain version {plain[0]:.4f} / "
-              f"{plain[1]:.4f} ms (plain, kernel, plain, kernel); cdist + exp {lib:.4f} ms; "
-              f"bound {b_ms:.4f} ms ({b_by})")
-        times[dtype] = (min(kern), min(plain), lib, b_ms, b_by)
+        plan, variant = _b2_plan(u, u), pairwise.kernel_variant(d)
+        kernel = f"sqexp_kernel<{'double' if dtype == F64 else 'float'}, {plan.route}>"
+        frag = f"sqexp_kernelI{'d' if dtype == F64 else 'f'}Li{pairwise.ROUTES[plan.route]}EE"
+        mix = _hot_loop_mix("sqexp", frag, plan.tile_m // 4 * (16 // size), variant,
+                            "fp64" if dtype == F64 else "fp32")
+        regs = _registers("sqexp", variant, frag)
+        sass = "not read" if mix is None else (
+            f"{mix['all']:g} ({mix['fp64' if dtype == F64 else 'fp32']:g} "
+            f"{'FP64' if dtype == F64 else 'FP32'})")
+        print(f"[time] B2 {str(dtype)[6:]} 16384x16384 D=2 ({kernel}, {_b2_label(d)} "
+              f"library, {plan.blocks} blocks): kernel {kern[0]:.4f} / {kern[1]:.4f} ms, plain "
+              f"version {plain[0]:.4f} / {plain[1]:.4f} ms (plain, kernel, plain, kernel); "
+              f"cdist + exp {lib:.4f} ms; fill_ of an equal tensor {fill:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}), kernel / bound {min(kern) / b_ms:.2f}; SASS "
+              f"instructions per entry in the hot loop {sass}; {regs} registers")
+        times[dtype] = {"ms": min(kern), "plain_ms": min(plain), "cdist_exp_ms": lib,
+                        "bound_ms": b_ms, "bound_by": b_by, "fill_ms": fill, "kernel": kernel,
+                        "route": plan.route, "variant": dict(variant), "registers": regs,
+                        "sass_per_entry": None if mix is None else mix["all"]}
         del u
         torch.cuda.empty_cache()
     return times
@@ -868,6 +924,68 @@ def phase_df64_checks(xpad):
     held("9e B3 vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V[:, 0].contiguous()),
          df64._fused_reference(us, us, V[:, :1].contiguous())[:, 0], scale1)
     return errs, (uh, ul, us, V)
+
+
+WIDE_D, WIDE_Q = 20, 20  # checks of the wide kernels (d > 16) and of q > 16
+
+
+def _wide_coords(n, d, seed):
+    """Pre-scaled coordinates of d = WIDE_D as a float32 pair and in FP64,
+    uniform on [0, 1.5]^d so that E is well filled."""
+    x = np.random.default_rng(seed).uniform(0, 1.5, (n, d))
+    uh, ul = (torch.as_tensor(a, device=CUDA) for a in df64.split_f64(x))
+    return uh, ul, uh.double() + ul.double()
+
+
+def phase_df64_wide_checks(n=4096):
+    """B3, B4 (q = 8), B5 and B7 at d = 20 (the wide kernels) and B4 and B6
+    at q = 20 (two launches each) against their plain versions at n: B5
+    and B7 bit for bit, the products within 1e-13 of sum_j |E_ij| |V_jk|.
+    Returns the max abs errors by kernel."""
+    uh, ul, us = _wide_coords(n, WIDE_D, 20)
+    V = torch.as_tensor(np.random.default_rng(21).normal(size=(n, WIDE_Q)).astype(np.float32),
+                        device=CUDA)
+    errs = {"B5": _bit_for_bit("9j", f"B5 d={WIDE_D}", df64.sqexp_entries_df64(uh, ul), us),
+            "B7": _bit_for_bit("9k", f"B7 d={WIDE_D}", df64.sqexp_entries_f32(uh, ul), us,
+                               round_f32=True)}
+
+    def held(label, kernel, got, rows, cols, Vq, E=None):
+        ref = df64._fused_reference(rows, cols, Vq) if E is None else df64._stored_reference(E, Vq)
+        scale = (df64._fused_reference(rows, cols, Vq.abs()) if E is None
+                 else df64._stored_reference(E, Vq.abs()))
+        max_abs, rel = _scaled_err(got, ref, scale)
+        errs[kernel] = max(errs.get(kernel, 0.0), max_abs)
+        print(f"[check {label}] max abs err {max_abs:.3e}, max err / sum|E||V| {rel:.3e} "
+              f"(limit {DF64_TOL:g})")
+        if not (rel <= DF64_TOL and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"check {label}: {kernel} disagrees ({rel})")
+
+    V1, V8 = V[:, :1].contiguous(), V[:, :8].contiguous()
+    held(f"9l B3 d={WIDE_D} vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V1[:, 0])[:, None],
+         us, us, V1)
+    held(f"9m B4 d={WIDE_D} q=8 vs plain", "B4", df64.sqexp_matmat_df64(uh, ul, V8), us, us, V8)
+    xh, xl, xs = (a[:, :2].contiguous() for a in (uh, ul, us))
+    xh, xl, xs = xh * 4, xl * 4, xs * 4  # d = 2 on [0, 6]^2
+    held(f"9n B4 q={WIDE_Q} vs plain", "B4", df64.sqexp_matmat_df64(xh, xl, V), xs, xs, V)
+    E = df64.sqexp_entries_df64(xh, xl)
+    held(f"9o B6 q={WIDE_Q} vs plain", "B6", df64.sqexp_stored_matmat_df64(E, V), None, None, V, E)
+    return errs
+
+
+def phase_df64_wide_timing(n):
+    """One CUDA-event time each (after a warm-up call) of the wide kernels
+    at n, d = 20: B3, B4 at q = 8, B5 and B7."""
+    uh, ul, _ = _wide_coords(n, WIDE_D, 22)
+    V = torch.as_tensor(np.random.default_rng(23).normal(size=(n, 8)).astype(np.float32),
+                        device=CUDA)
+    ms = {"B3": time_events(df64.sqexp_matvec_df64, (uh, ul, V[:, 0].contiguous()), 1),
+          "B4": time_events(df64.sqexp_matmat_df64, (uh, ul, V), 1)}
+    for kernel, fn in (("B5", df64.sqexp_entries_df64), ("B7", df64.sqexp_entries_f32)):
+        ms[kernel] = time_events(lambda: fn(uh, ul), (), 1)
+        torch.cuda.empty_cache()
+    print(f"[time] wide kernels, n={n} d={WIDE_D}, one timed call each: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + " (B4 at q = 8)")
+    return ms
 
 
 def _turns(kernel, plain, args, reps_kernel, reps_plain):
@@ -1142,15 +1260,16 @@ def _hot_loop(body, cls="fp64", least=4):
     return min(loops, key=len) if loops else None
 
 
-def _hot_loop_mix(name, symbol, entries):
-    """Instructions per entry of the hot loop (``_hot_loop``) of one kernel
-    of ``name``'s library, read off its SASS with cuobjdump; ``entries`` is
-    the number of entries one thread evaluates per trip. Returns {class:
-    count per entry, "all": every instruction} or None without cuobjdump."""
-    sass = _sass(name)
+def _hot_loop_mix(name, symbol, entries, defines=(), cls="fp64"):
+    """Instructions per entry of the hot loop (``_hot_loop``, at least 4 of
+    the class ``cls``) of one kernel of ``name``'s library in the variant
+    ``defines``, read off its SASS with cuobjdump; ``entries`` is the number
+    of entries one thread evaluates per trip. Returns {class: count per
+    entry, "all": every instruction} or None without cuobjdump."""
+    sass = _sass(name, defines)
     if sass is None:
         return None
-    loop = _hot_loop(sass.split(symbol)[1].split("Function :")[0])
+    loop = _hot_loop(sass.split(symbol)[1].split("Function :")[0], cls)
     if loop is None:
         return None
     loop = [o for o, _ in loop]
@@ -1183,7 +1302,9 @@ def _print_fused_local_memory():
         return
     for part in sass.split("Function : ")[1:]:
         name = re.match(r"\S+", part).group(0)
-        dt, qmax, rpt = re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups()
+        wide = re.search(r"sqexp_fused_wide_kernelILi(\d+)ELi(\d+)EE", name)
+        dt, qmax, rpt = (("wide", *wide.groups()) if wide else
+                         re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups())
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
         loop = [o for o, _ in _hot_loop(part) or []]
         local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
@@ -1498,8 +1619,12 @@ def main():
     print(f"[summary] device memory allocated after those phases: {_free():.2f} GiB")
     xpad = _padded(make_large_data(LARGE_N)[0])
     df64_err, operands = phase_df64_checks(xpad)
+    for kernel, err in phase_df64_wide_checks().items():
+        df64_err[kernel] = max(df64_err[kernel], err)
     df64_ms = phase_df64_timing(operands)
     del operands
+    torch.cuda.empty_cache()
+    wide_ms = phase_df64_wide_timing(len(xpad))
     large_launches, runs = phase_large_main()
     phase_large_16k()
     t_probes = time.perf_counter()
@@ -1530,6 +1655,8 @@ def main():
             row["per_q"] = {q: df64_ms[f"{kernel} q={q}"] for q in STORED_Q}
         if kernel == "B4":
             row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
+        if kernel in wide_ms:
+            row[f"d{WIDE_D}_ms"] = wide_ms[kernel]
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",
@@ -1549,22 +1676,26 @@ def main():
         "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
         "chain_sweep_attempts_per_s": sweep,
     }, {
-        "name": "sqexp_tile_kernel",
+        "name": "sqexp_kernel",
+        "kernel": b2_ms[F64]["kernel"],
         "route": "cuda",
         "source": "inference_tpu_torch/ops/csrc/sqexp.cu",
         "replaces": "inference_tpu/ops/pairwise.py:69",
         "launches": b2_launches,
         "max_abs_err": b2_err[F64][0],
-        "ms": b2_ms[F64][0],
-        "plain_ms": b2_ms[F64][1],
-        "bound_ms": b2_ms[F64][3],
-        "bound_by": b2_ms[F64][4],
+        "ms": b2_ms[F64]["ms"],
+        "plain_ms": b2_ms[F64]["plain_ms"],
+        "bound_ms": b2_ms[F64]["bound_ms"],
+        "bound_by": b2_ms[F64]["bound_by"],
         "library_ms": None,
-        "cdist_exp_ms": b2_ms[F64][2],
+        "cdist_exp_ms": b2_ms[F64]["cdist_exp_ms"],
+        "variant": b2_ms[F64]["variant"],
+        "store_route": b2_ms[F64]["route"],
         "per_dtype": {
             str(dt)[6:]: {"max_abs_err": b2_err[dt][0], "max_rel_err": b2_err[dt][1],
-                          "ms": b2_ms[dt][0], "plain_ms": b2_ms[dt][1],
-                          "cdist_exp_ms": b2_ms[dt][2], "bound_ms": b2_ms[dt][3]}
+                          **{k: b2_ms[dt][k] for k in ("ms", "plain_ms", "cdist_exp_ms",
+                                                       "bound_ms", "fill_ms", "route",
+                                                       "registers", "sass_per_entry")}}
             for dt in (F64, torch.float32)
         },
     }, *df64_rows, *_probe_rows(probe, probe_err)]}))

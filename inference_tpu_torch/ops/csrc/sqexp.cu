@@ -3,7 +3,7 @@
 // Replaces inference_tpu/ops/pairwise.py::_sqexp_pallas, the Pallas kernel
 // that pairwise.py::_sqexp_pallas_diff wraps. Its plain PyTorch version is
 // inference_tpu_torch/ops/pairwise.py::_sqexp_reference, and the wrapper that
-// launches it is _launch_sqexp in the same module.
+// launches it is _launch_sqexp in the same module, by the plan sqexp_plan.
 //
 // What it computes. For pre-scaled rows us = u / l (M, D) and vs = v / l
 // (N, D), row-major, and a device scalar amp_sq = A^2:
@@ -14,110 +14,307 @@
 //
 // What bounds it on this card. The M x N store: at M = N = 16,384 that is
 // 2.15 GB in double (1.07 GB in float), about 0.64 ms (0.32 ms) at 3.35 TB/s.
-// Against it, each entry costs 3 D + 1 flops and one exp; in double the exp is
-// a software sequence of some twenty FP64 instructions, so at D = 2 the FP64
-// pipe needs about as long as the store, and the kernel sits between the two
-// bounds. The reads (M + N) * D values are negligible.
+// Each entry costs 3 D + 1 flops and one exp; in double the exp is a software
+// sequence of some twenty FP64 instructions, about 0.4 ms of FP64 issue at
+// D = 2, so double reaches the store bound only if that work hides under the
+// stores. The reads (M + N) * D values are negligible.
 //
-// What the design does about it. One block computes a TILE x TILE (64 x 64)
-// output tile with 256 threads as (64 columns) x (4 row groups): each thread
-// owns one column and TILE / 4 = 16 rows of it. Consecutive threads of a warp
-// own consecutive columns, so every store of a warp is one contiguous run of
-// 32 entries (256 bytes in double). The tile's rows of us and vs are staged in
-// shared memory, transposed to [k][row], so the column reads are conflict-free
-// and the row reads are broadcasts; a thread keeps its column's D coordinates
-// in registers. Ragged edges are masked in the kernel: no padding of the
-// operands and no slicing copy of the output. Nothing but the output ever goes
-// to device memory. Built with --fmad=false and the accurate exp/expf (no fast
-// math), so it rounds as the plain version's separate torch operations do.
+// What the design does about it.
+// - D is fixed at compile time: one library per D (-DB2_D=<D>, built at first
+//   use by pairwise.kernel_variant), so every loop over k unrolls with no
+//   guards and a thread keeps its columns' coordinates in registers. Above
+//   pairwise.B2_D_REG one wide library (-DB2_D=0) takes any D at run time:
+//   a thread keeps its entries' partial distances in registers and the
+//   tile's coordinates pass through shared memory KC dimensions at a time.
+// - A persistent walk. The grid is the wrapper's plan (SMs x blocks per SM);
+//   block b takes the output tiles b, b + grid, ... in row-major tile order,
+//   so the blocks running together write neighbouring column ranges of the
+//   same rows. A tile is TM rows of 1 KiB (128 doubles or 256 floats): the
+//   card's copy rate halves at 512-byte rows (PERF.md, B6).
+// - Full-width stores. 256 threads as 64 across a tile row by 4 down it; a
+//   thread owns 16 bytes of a row (2 doubles or 4 floats) and TM / 4 rows, so
+//   a warp's store is one contiguous 512-byte run. The route is the plan's:
+//   VECTOR stores each thread's 16 bytes from registers (streaming hint);
+//   TMA writes the tile into one of two shared buffers and stores it by one
+//   bulk tensor copy (cp.async.bulk.tensor), the map clipping the ragged
+//   edge, the buffer reused only after its copy has been read
+//   (wait_group.read). Both need a row pitch of whole 16-byte units; other
+//   pitches (odd N in double, N not a multiple of 4 in float) take SCALAR,
+//   the same walk with one store per entry.
+// Rows past M and columns past N are computed on the last row's or column's
+// coordinates and never stored. Built with --fmad=false and the accurate
+// exp/expf (no fast math), so it rounds as the plain version's separate
+// torch operations do.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#ifndef B2_D
+#error "build with -DB2_D=<D> (pairwise.kernel_variant): the feature dimension, 0 for any"
+#endif
 
 namespace {
 
-constexpr int TILE = 64;                     // output tile edge (pairwise.py _TILE)
-constexpr int ROW_GROUPS = 4;                // threads per column of a tile
-constexpr int THREADS = TILE * ROW_GROUPS;   // 256
-constexpr int ROWS_PER_THREAD = TILE / ROW_GROUPS;
-constexpr int D_MAX = 16;                    // pairwise.py D_MAX
+constexpr int D = B2_D;          // 0: the wide instantiation, D at run time
+constexpr int DR = D > 0 ? D : 1;  // register arrays of the per-D instantiation
+constexpr int THREADS = 256;
+constexpr int ROW_BYTES = 1024;  // a tile row
+constexpr int TM = 32;           // tile rows (pairwise.py B2_TILE_M)
+constexpr int TX = 64;           // threads across a tile row, 16 bytes each
+constexpr int TY = THREADS / TX; // threads down a tile
+constexpr int KC = 16;           // dimensions per staged chunk of the wide instantiation
+// blocks per SM the registers are held to, as pairwise.py::_blocks_per_sm
+constexpr int MINB = D == 0 ? 3 : D <= 4 ? 4 : D <= 8 ? 3 : 2;
+enum Route { SCALAR = 0, VECTOR = 1 };  // pairwise.py ROUTES
+
+template <typename T> struct Elem;
+template <> struct Elem<double> { using Vec = double2; };
+template <> struct Elem<float> { using Vec = float4; };
+template <typename T> constexpr int VN = 16 / (int)sizeof(T);         // entries per 16 bytes
+template <typename T> constexpr int TN = ROW_BYTES / (int)sizeof(T);  // tile columns
 
 __device__ __forceinline__ float exp_of(float x) { return expf(x); }
 __device__ __forceinline__ double exp_of(double x) { return exp(x); }
+__device__ __forceinline__ double2 as_vec(const double (&v)[2]) { return make_double2(v[0], v[1]); }
+__device__ __forceinline__ float4 as_vec(const float (&v)[4]) {
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
 
+// the walk: the output's shape and the plan's tiles
+struct Walk {
+  int m, n, d, tiles_n, n_tiles;
+};
+
+// one thread's VN entries of one row, past the last row or column stored
+// nowhere: one 16-byte store (VECTOR, n a multiple of VN) or one per entry
+template <typename T, int ROUTE>
+__device__ __forceinline__ void put(T* __restrict__ out, const T (&val)[VN<T>], int row, int c,
+                                    const Walk& w) {
+  if (row >= w.m) return;
+  T* p = out + (size_t)row * w.n + c;
+  if constexpr (ROUTE == VECTOR) {
+    if (c < w.n) __stcs(reinterpret_cast<typename Elem<T>::Vec*>(p), as_vec(val));
+  } else {
+#pragma unroll
+    for (int v = 0; v < VN<T>; ++v)
+      if (c + v < w.n) __stcs(p + v, val[v]);
+  }
+}
+
+template <typename T, int ROUTE>
+__global__ void __launch_bounds__(THREADS, MINB)
+sqexp_kernel(const T* __restrict__ us, const T* __restrict__ vs, const T* __restrict__ amp_sq,
+             T* __restrict__ out, const Walk w) {
+  constexpr int V = VN<T>, NT = TN<T>, RPT = TM / TY;
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const T a2 = *amp_sq;
+  for (int t = blockIdx.x; t < w.n_tiles; t += gridDim.x) {
+    const int row0 = (t / w.tiles_n) * TM;
+    const int col0 = (t % w.tiles_n) * NT;
+    const int c = col0 + tx * V;
+    if constexpr (D > 0) {
+      // the thread's columns' coordinates in registers; each row's are
+      // loads that every thread of the warp shares
+      T vc[V][DR];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const T* col = vs + (size_t)min(c + v, w.n - 1) * D;
+#pragma unroll
+        for (int k = 0; k < D; ++k) vc[v][k] = col[k];
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = row0 + ty + i * TY;
+        if (row >= w.m) break;
+        const T* ur = us + (size_t)row * D;
+        T dist[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) dist[v] = T(0);
+#pragma unroll
+        for (int k = 0; k < D; ++k) {
+          const T u = ur[k];
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            const T diff = u - vc[v][k];
+            dist[v] = dist[v] + diff * diff;
+          }
+        }
+        T val[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) val[v] = a2 * exp_of(T(-0.5) * dist[v]);
+        put<T, ROUTE>(out, val, row, c, w);
+      }
+    } else {
+      // the entries' partial distances in registers, the tile's coordinates
+      // staged KC dimensions at a time
+      __shared__ T su[KC][TM];
+      __shared__ T sv[KC][NT];
+      T dist[RPT][V];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int v = 0; v < V; ++v) dist[i][v] = T(0);
+      for (int k0 = 0; k0 < w.d; k0 += KC) {
+        const int kc = min(KC, w.d - k0);
+        __syncthreads();
+        for (int idx = threadIdx.x; idx < TM * kc; idx += THREADS) {
+          const int r = idx / kc;
+          su[idx - r * kc][r] = us[(size_t)min(row0 + r, w.m - 1) * w.d + k0 + idx - r * kc];
+        }
+        for (int idx = threadIdx.x; idx < NT * kc; idx += THREADS) {
+          const int j = idx / kc;
+          sv[idx - j * kc][j] = vs[(size_t)min(col0 + j, w.n - 1) * w.d + k0 + idx - j * kc];
+        }
+        __syncthreads();
+        for (int k = 0; k < kc; ++k) {
+          T vk[V];
+#pragma unroll
+          for (int v = 0; v < V; ++v) vk[v] = sv[k][tx * V + v];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const T u = su[k][ty + i * TY];
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+              const T diff = u - vk[v];
+              dist[i][v] = dist[i][v] + diff * diff;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        T val[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) val[v] = a2 * exp_of(T(-0.5) * dist[i][v]);
+        put<T, ROUTE>(out, val, row0 + ty + i * TY, c, w);
+      }
+    }
+  }
+}
+
+#if defined(B2_SWEEP) && B2_D > 0
+// the parent's one-tile-per-block kernel with D fixed at compile time: 64 x
+// 64 tiles, one column and 16 rows per thread, one 4- or 8-byte store each
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(256)
 sqexp_tile_kernel(const T* __restrict__ us, const T* __restrict__ vs,
-                  const T* __restrict__ amp_sq, T* __restrict__ out,
-                  int m, int n, int d) {
-  __shared__ T su[D_MAX][TILE];
-  __shared__ T sv[D_MAX][TILE];
-
+                  const T* __restrict__ amp_sq, T* __restrict__ out, int m, int n) {
+  constexpr int TILE = 64;
+  __shared__ T su[D][TILE];
+  __shared__ T sv[D][TILE];
   const int row0 = blockIdx.y * TILE;
   const int col0 = blockIdx.x * TILE;
   const int tid = threadIdx.y * TILE + threadIdx.x;
-
-  // stage the tile's rows, zero beyond the ragged edge (never stored)
-  for (int idx = tid; idx < TILE * d; idx += THREADS) {
-    const int r = idx / d;
-    const int k = idx - r * d;
-    su[k][r] = row0 + r < m ? us[(size_t)(row0 + r) * d + k] : T(0);
-    sv[k][r] = col0 + r < n ? vs[(size_t)(col0 + r) * d + k] : T(0);
+  for (int r = tid; r < TILE; r += 256) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      su[k][r] = row0 + r < m ? us[(size_t)(row0 + r) * D + k] : T(0);
+      sv[k][r] = col0 + r < n ? vs[(size_t)(col0 + r) * D + k] : T(0);
+    }
   }
   __syncthreads();
-
   const int c = threadIdx.x;
   const int col = col0 + c;
   if (col >= n) return;
-
-  T vc[D_MAX];
+  T vc[D];
 #pragma unroll
-  for (int k = 0; k < D_MAX; ++k) vc[k] = k < d ? sv[k][c] : T(0);
-
+  for (int k = 0; k < D; ++k) vc[k] = sv[k][c];
   const T a2 = *amp_sq;
-  T* out_col = out + col;
 #pragma unroll 4
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-    const int r = threadIdx.y + i * ROW_GROUPS;
+  for (int i = 0; i < TILE / 4; ++i) {
+    const int r = threadIdx.y + i * 4;
     const int row = row0 + r;
     if (row >= m) break;
     T dist = T(0);
 #pragma unroll
-    for (int k = 0; k < D_MAX; ++k) {
-      if (k < d) {
-        const T diff = su[k][r] - vc[k];
-        dist = dist + diff * diff;
-      }
+    for (int k = 0; k < D; ++k) {
+      const T diff = su[k][r] - vc[k];
+      dist = dist + diff * diff;
     }
-    out_col[(size_t)row * n] = a2 * exp_of(T(-0.5) * dist);
+    out[(size_t)row * n + col] = a2 * exp_of(T(-0.5) * dist);
   }
+}
+#endif
+
+template <typename T, int ROUTE>
+int launch(const T* us, const T* vs, const T* amp_sq, T* out, const Walk& w, int blocks,
+           cudaStream_t stream) {
+  sqexp_kernel<T, ROUTE><<<blocks, THREADS, 0, stream>>>(us, vs, amp_sq, out, w);
+  return (int)cudaGetLastError();
+}
+
+// the plan covers every tile exactly once: tiles tiles of `tile` rows (or
+// columns) reach past the last one and tiles - 1 do not
+bool covers(int size, int tile, int tiles) {
+  return tiles >= 1 && (long)(tiles - 1) * tile < size && (long)tiles * tile >= size;
 }
 
 template <typename T>
-int launch(const T* us, const T* vs, const T* amp_sq, T* out, int m, int n,
-           int d, cudaStream_t stream) {
-  if (m < 1 || n < 1 || d < 1 || d > D_MAX) return (int)cudaErrorInvalidValue;
-  dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE);
-  dim3 block(TILE, ROW_GROUPS);
-  sqexp_tile_kernel<T><<<grid, block, 0, stream>>>(us, vs, amp_sq, out, m, n, d);
-  return (int)cudaGetLastError();
+int sqexp(const void* us, const void* vs, const void* amp_sq, void* out, int m, int n, int d,
+          int tile_m, int tile_n, int tiles_m, int tiles_n, int blocks, int route,
+          void* stream) {
+  if (m < 1 || n < 1 || d < 1 || (D > 0 && d != D) || tile_m != TM || tile_n != TN<T> ||
+      !covers(m, tile_m, tiles_m) || !covers(n, tile_n, tiles_n))
+    return (int)cudaErrorInvalidValue;
+  const long n_tiles = (long)tiles_m * tiles_n;
+  if (n_tiles > INT_MAX || blocks < 1 || blocks > n_tiles || route < SCALAR || route > VECTOR)
+    return (int)cudaErrorInvalidValue;
+  if (route == VECTOR &&
+      ((size_t)n * sizeof(T) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  const Walk w{m, n, d, tiles_n, (int)n_tiles};
+  const T* u = static_cast<const T*>(us);
+  const T* v = static_cast<const T*>(vs);
+  const T* a = static_cast<const T*>(amp_sq);
+  T* o = static_cast<T*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == VECTOR) return launch<T, VECTOR>(u, v, a, o, w, blocks, s);
+  return launch<T, SCALAR>(u, v, a, o, w, blocks, s);
 }
 
 }  // namespace
 
-// out (m, n) = amp_sq[0] * exp(-0.5 * sum_k (us[i, k] - vs[j, k])^2), on `stream`.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int sqexp_f32(const void* us, const void* vs, const void* amp_sq,
-                         void* out, int m, int n, int d, void* stream) {
-  return launch<float>(static_cast<const float*>(us), static_cast<const float*>(vs),
-                       static_cast<const float*>(amp_sq), static_cast<float*>(out),
-                       m, n, d, static_cast<cudaStream_t>(stream));
+// out (m, n) = amp_sq[0] * exp(-0.5 * sum_k (us[i, k] - vs[j, k])^2), on
+// `stream`, by the plan of pairwise.py::sqexp_plan: tiles of tile_m (32)
+// rows by tile_n columns (1 KiB of a row), tiles_m by tiles_n of them
+// covering the output exactly once, walked by `blocks` blocks, stored by
+// `route` (0 scalar; 1 vector, which needs n * sizeof(T) and out on 16
+// bytes). d must be this library's B2_D (any d >= 1 where B2_D is 0).
+// Returns 0 on success, cudaErrorInvalidValue for operands or a plan it does
+// not take, else the CUDA error code of the launch.
+extern "C" int sqexp_f32(const void* us, const void* vs, const void* amp_sq, void* out, int m,
+                         int n, int d, int tile_m, int tile_n, int tiles_m, int tiles_n,
+                         int blocks, int route, void* stream) {
+  return sqexp<float>(us, vs, amp_sq, out, m, n, d, tile_m, tile_n, tiles_m, tiles_n, blocks,
+                      route, stream);
 }
 
-extern "C" int sqexp_f64(const void* us, const void* vs, const void* amp_sq,
-                         void* out, int m, int n, int d, void* stream) {
-  return launch<double>(static_cast<const double*>(us), static_cast<const double*>(vs),
-                        static_cast<const double*>(amp_sq), static_cast<double*>(out),
-                        m, n, d, static_cast<cudaStream_t>(stream));
+extern "C" int sqexp_f64(const void* us, const void* vs, const void* amp_sq, void* out, int m,
+                         int n, int d, int tile_m, int tile_n, int tiles_m, int tiles_n,
+                         int blocks, int route, void* stream) {
+  return sqexp<double>(us, vs, amp_sq, out, m, n, d, tile_m, tile_n, tiles_m, tiles_n, blocks,
+                       route, stream);
 }
+
+#if defined(B2_SWEEP) && B2_D > 0
+template <typename T>
+int tile_launch(const void* us, const void* vs, const void* amp_sq, void* out, int m, int n,
+                void* stream) {
+  const dim3 grid((n + 63) / 64, (m + 63) / 64), block(64, 4);
+  sqexp_tile_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(us), static_cast<const T*>(vs), static_cast<const T*>(amp_sq),
+      static_cast<T*>(out), m, n);
+  return (int)cudaGetLastError();
+}
+extern "C" int sqexp_tile_f32(const void* us, const void* vs, const void* amp_sq, void* out,
+                              int m, int n, void* stream) {
+  return tile_launch<float>(us, vs, amp_sq, out, m, n, stream);
+}
+extern "C" int sqexp_tile_f64(const void* us, const void* vs, const void* amp_sq, void* out,
+                              int m, int n, void* stream) {
+  return tile_launch<double>(us, vs, amp_sq, out, m, n, stream);
+}
+#endif

@@ -10,7 +10,9 @@ Port of ``inference_tpu.ops.pairwise``.
   differences of the pre-scaled rows, with the exponential fused into the
   one pass that writes the M x N block. ``_sqexp_reference`` is its plain
   version, the same arithmetic in the same order as separate torch
-  operations; ``_launch_sqexp`` is the wrapper that launches it.
+  operations; ``_launch_sqexp`` is the wrapper that launches it, by the
+  plan ``sqexp_plan``, from the library of its D (``kernel_variant``: one
+  per D up to ``B2_D_REG``, one wide library above).
 - ``SqexpCovariance``: the ``torch.autograd.Function`` around B2 (the JAX
   package's ``_sqexp_pallas_diff``), whose backward is plain torch
   (``_sqexp_backward``, ``_sqexp_position_backward``).
@@ -22,14 +24,18 @@ Port of ``inference_tpu.ops.pairwise``.
 
 import contextlib
 import contextvars
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 _PALLAS_MIN_N = 2048  # both sides at least this many rows take kernel B2
-D_MAX = 16            # the kernel's largest feature dimension
-_TILE = 64            # rows of u per block of the kernel (csrc/sqexp.cu TILE)
+# kernel B2: one library per D up to this D (a thread holds its columns'
+# coordinates in registers), one wide library for any larger D
+B2_D_REG = 16
+B2_TILE_M = 32  # rows of an output tile of kernel B2 (csrc/sqexp.cu TM)
+ROUTES = {"scalar": 0, "vector": 1}  # kernel B2's store routes (csrc/sqexp.cu Route)
 
 # launches of kernel B2 in this process; the wrapper adds one per launch
 KERNEL_LAUNCHES = 0
@@ -90,12 +96,56 @@ def _sqexp_reference(u, v, amplitude, lengthscales):
     return (amplitude**2) * torch.exp(-0.5 * dist)
 
 
+def kernel_variant(d: int) -> tuple:
+    """The nvcc defines of kernel B2's library for ``d`` feature dimensions:
+    its own up to ``B2_D_REG``, the wide library (``B2_D = 0``) above."""
+    return (("B2_D", d if d <= B2_D_REG else 0),)
+
+
+class SqexpPlan(NamedTuple):
+    """The work of kernel B2's launch, which the kernel takes as given:
+    output tiles of ``tile_m`` rows by ``tile_n`` columns (1 KiB of a row),
+    ``tiles_m`` by ``tiles_n`` of them, walked by ``blocks`` blocks in
+    row-major tile order (block b takes tiles b, b + blocks, ...), stored
+    by ``route`` (``ROUTES``)."""
+
+    tile_m: int
+    tile_n: int
+    tiles_m: int
+    tiles_n: int
+    blocks: int
+    route: str
+
+
+def _blocks_per_sm(d: int) -> int:
+    """The blocks per SM to which kernel B2's library for ``d`` holds its
+    registers (csrc/sqexp.cu MINB): its persistent walk launches that many."""
+    if d > B2_D_REG:
+        return 3
+    return 4 if d <= 4 else 3 if d <= 8 else 2
+
+
+def sqexp_plan(m, n, d, dtype, sms) -> SqexpPlan:
+    """Kernel B2's plan for an (m, n) block of ``d`` features in ``dtype``
+    on a card of ``sms`` SMs: every output tile exactly once, as many
+    blocks as fit on the SMs at once (``_blocks_per_sm``) and none without
+    a tile; 16-byte stores where a row of the output is whole 16-byte
+    units, else one store per entry."""
+    size = dtype.itemsize
+    tile_n = 1024 // size
+    tiles_m, tiles_n = -(-m // B2_TILE_M), -(-n // tile_n)
+    route = "vector" if n * size % 16 == 0 else "scalar"
+    return SqexpPlan(B2_TILE_M, tile_n, tiles_m, tiles_n,
+                     min(tiles_m * tiles_n, sms * _blocks_per_sm(d)), route)
+
+
 def _launch_sqexp(u, v, amplitude, lengthscales):
     """Launch kernel B2 on CUDA tensors, with the signature and result of
     ``_sqexp_reference``. ``u`` (M, D) and ``v`` (N, D) are contiguous,
     float32 or float64, on one CUDA device; ``amplitude`` (a scalar) and
     ``lengthscales`` (D,) have their dtype and device. Raises on anything
-    else; it never casts or copies an input."""
+    else, and when the library of its D fails to build, load or launch; it
+    never casts or copies an input."""
     global KERNEL_LAUNCHES
     amplitude = torch.as_tensor(amplitude)
     for name, x in (("u", u), ("v", v), ("amplitude", amplitude),
@@ -124,24 +174,24 @@ def _launch_sqexp(u, v, amplitude, lengthscales):
         )
     if not (u.is_contiguous() and v.is_contiguous()):
         raise ValueError("kernel B2 takes contiguous u and v")
-    if d > D_MAX:
-        raise ValueError(
-            f"kernel B2 takes at most D = {D_MAX} feature dimensions, got {d} "
-            "(larger D is ROADMAP queue B2's open item)"
-        )
     if m < 1 or n < 1 or d < 1:
         raise ValueError(f"kernel B2 needs non-empty operands, got M={m} N={n} D={d}")
-    if -(-m // _TILE) > 65535:
-        raise ValueError(f"kernel B2 takes at most {65535 * _TILE} rows of u, got {m}")
 
+    symbol = "sqexp_f64" if u.dtype == torch.float64 else "sqexp_f32"
+    try:
+        fn = _build.bind("sqexp", symbol, 4, 9, kernel_variant(d))
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError(f"kernel B2 for D = {d} failed to build or load: {e}") from e
+    sms = torch.cuda.get_device_properties(u.device).multi_processor_count
+    plan = sqexp_plan(m, n, d, u.dtype, sms)
     us, vs = _scaled(u, v, lengthscales)
     amp_sq = (amplitude**2).reshape(1).contiguous()
     out = torch.empty((m, n), dtype=u.dtype, device=u.device)
-    fn = _build.bind("sqexp", "sqexp_f64" if u.dtype == torch.float64 else "sqexp_f32", 4, 3)
     with torch.cuda.device(u.device):
-        rc = fn(us.data_ptr(), vs.data_ptr(), amp_sq.data_ptr(), out.data_ptr(),
-                m, n, d, _build.stream(u.device))
-    _build.raise_on(rc, "B2")
+        rc = fn(us.data_ptr(), vs.data_ptr(), amp_sq.data_ptr(), out.data_ptr(), m, n, d,
+                plan.tile_m, plan.tile_n, plan.tiles_m, plan.tiles_n, plan.blocks,
+                ROUTES[plan.route], _build.stream(u.device))
+    _build.raise_on(rc, f"B2 (D = {d})")
     KERNEL_LAUNCHES += 1
     return out
 

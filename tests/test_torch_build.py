@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import _build, hmc_fused
+from inference_tpu_torch.ops import _build, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 
 
@@ -126,6 +126,39 @@ def test_wrapper_refuses_before_any_build(P, dtype, error, message, stub_nvcc):
     with pytest.raises(error, match=message):
         hmc_fused._launch_chunk(*args, **kw)
     assert not calls.exists()
+
+
+@pytest.mark.parametrize("d", [1, 2, 5, pairwise.B2_D_REG, pairwise.B2_D_REG + 1, 100])
+def test_b2_library_and_define_differ_per_d(d, monkeypatch):
+    """Kernel B2: its own library and -DB2_D for each D up to B2_D_REG, the
+    one wide library (-DB2_D=0) for every larger D."""
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/stub/nvcc")
+    own = d <= pairwise.B2_D_REG
+    variant = pairwise.kernel_variant(d)
+    assert variant == (("B2_D", d if own else 0),)
+    cmd = _build.command("sqexp", variant, "out.so")
+    assert f"-DB2_D={d if own else 0}" in cmd and "--fmad=false" in cmd
+    assert cmd[-1] == str(_build.CSRC / "sqexp.cu")
+    path = _build.library_path("sqexp", variant)
+    assert path.name.startswith(f"sqexp_B2_D{d if own else 0}_")
+    others = {_build.library_path("sqexp", pairwise.kernel_variant(e)) for e in (1, 2, 5, 100)}
+    assert (path in others) == (d in (1, 2, 5) or not own)
+    assert len(others) == 4
+
+
+def test_b2_failed_build_names_b2_and_d(stub_nvcc, tmp_path, monkeypatch):
+    """A compiler error in B2's library of one D raises from the wrapper
+    naming B2 and that D, before any launch."""
+    bad = tmp_path / "bad_nvcc"
+    bad.write_text("#!/bin/sh\necho 'error: no' >&2\nexit 2\n")
+    bad.chmod(bad.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(bad))
+    _build.load.cache_clear()
+    u = torch.zeros((4, 7), dtype=torch.float64)
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(RuntimeError, match=r"kernel B2 for D = 7 failed to build.*sqexp_B2_D7_"):
+        pairwise._launch_sqexp(u, u, torch.ones((), dtype=torch.float64),
+                               torch.ones(7, dtype=torch.float64))
 
 
 def test_kernel_variant_is_one_per_parameter_count_and_mass():

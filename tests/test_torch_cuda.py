@@ -249,8 +249,8 @@ def test_sqexp_covariance_launch_count(cuda):
 
 @pytest.mark.cuda
 def test_sqexp_wrapper_raises(cuda):
-    """The wrapper raises on a wrong dtype, a non-contiguous input, a
-    CPU/CUDA mix and D above the kernel's maximum; it never casts."""
+    """The wrapper raises on a wrong dtype, a non-contiguous input and a
+    CPU/CUDA mix; it never casts."""
     u, v, amp, ls = _sqexp_inputs(cuda, torch.float64, 64, 64, 3, seed=4)
     with pytest.raises(TypeError):
         pairwise._launch_sqexp(u.half(), v.half(), amp.half(), ls.half())
@@ -262,10 +262,6 @@ def test_sqexp_wrapper_raises(cuda):
         pairwise._launch_sqexp(u, v.cpu(), amp, ls)
     with pytest.raises(ValueError, match="device"):
         pairwise._launch_sqexp(u, v, amp, ls.cpu())
-    w = torch.zeros((64, pairwise.D_MAX + 1), dtype=torch.float64, device=cuda)
-    with pytest.raises(ValueError, match="B2"):
-        pairwise._launch_sqexp(w, w, amp, torch.ones(pairwise.D_MAX + 1, dtype=torch.float64,
-                                                     device=cuda))
 
 
 @pytest.mark.cuda
@@ -428,6 +424,68 @@ def test_df64_stored_f32_kernel_matches_plain(cuda, n, q):
     assert df64.KERNEL_LAUNCHES["B8"] == before + 1
     assert df64.STORED_LAUNCHES_BY_Q["B8"][q] == before_q + 1
     _within_scale(got, ref, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["B4", "B4 rect", "B6", "B8"])
+def test_df64_products_at_twenty_right_hand_sides(cuda, which):
+    """q = 20: one launch per block of at most 16 columns (two here), each
+    column within 1e-13 of sum_j |E_ij| |V_jk| of the plain version."""
+    n = 1024
+    uh, ul, V = _df64_inputs(cuda, n, 2, 20, seed=30)
+    us = uh.double() + ul.double()
+    E = df64.sqexp_entries_df64(uh, ul) if which == "B6" else None
+    E32 = df64.sqexp_entries_f32(uh, ul) if which == "B8" else None
+    kernel = which.split()[0]
+    before = df64.KERNEL_LAUNCHES[kernel]
+    if which == "B4":
+        got, ref, scale = (df64.sqexp_matmat_df64(uh, ul, V), df64._fused_reference(us, us, V),
+                           df64._fused_reference(us, us, V.abs()))
+    elif which == "B4 rect":
+        got = df64.sqexp_matmat_rect_df64(uh[:256], ul[:256], uh, ul, V)
+        ref, scale = df64._fused_reference(us[:256], us, V), df64._fused_reference(us[:256], us,
+                                                                                   V.abs())
+    elif which == "B6":
+        got, ref, scale = (df64.sqexp_stored_matmat_df64(E, V), df64._stored_reference(E, V),
+                           df64._stored_reference(E, V.abs()))
+    else:
+        got, ref, scale = (df64.sqexp_stored_f32_matmat(E32, V), df64._stored_reference(E32, V),
+                           df64._stored_reference(E32, V.abs()))
+    torch.cuda.synchronize()
+    assert df64.KERNEL_LAUNCHES[kernel] == before + 2
+    assert got.shape == (ref.shape[0], 20)
+    _within_scale(got, ref, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["B3", "B4", "B5", "B7"])
+def test_df64_kernels_at_twenty_dimensions(cuda, which):
+    """d = 20, the wide kernels: B5 and B7 bit for bit with their plain
+    versions, B3 and B4 (q = 8, a ragged row block) within 1e-13 of
+    sum_j |E_ij| |V_jk|."""
+    n = 1024
+    uh, ul, V = _df64_inputs(cuda, n, 20, 8, seed=31)
+    uh, ul = uh / 8, ul / 8  # a well-filled E at d = 20
+    us = uh.double() + ul.double()
+    before = df64.KERNEL_LAUNCHES[which]
+    if which in ("B5", "B7"):
+        got = (df64.sqexp_entries_df64 if which == "B5" else df64.sqexp_entries_f32)(uh, ul)
+        ref = (df64._entries_reference if which == "B5" else df64._entries_f32_reference)(us)
+        torch.cuda.synchronize()
+        assert float((ref > 1e-3).double().mean()) > 0.1
+        assert torch.equal(got, ref)
+    elif which == "B3":
+        got = df64.sqexp_matvec_df64(uh, ul, V[:, 0])
+        torch.cuda.synchronize()
+        _within_scale(got[:, None], df64._fused_reference(us, us, V[:, :1]),
+                      df64._fused_reference(us, us, V[:, :1].abs()))
+    else:
+        rh, rl = uh[:640], ul[:640]
+        got = df64.sqexp_matmat_rect_df64(rh, rl, uh, ul, V)
+        torch.cuda.synchronize()
+        _within_scale(got, df64._fused_reference(us[:640], us, V),
+                      df64._fused_reference(us[:640], us, V.abs()))
+    assert df64.KERNEL_LAUNCHES[which] == before + 1
 
 
 @pytest.mark.cuda

@@ -11,6 +11,9 @@ uses the matmul form of the squared distances (cancellation of |u|^2 +
 |v|^2 - 2 u.v costs a few digits); 1e-8 for gradients, the BASELINE
 contract."""
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -58,7 +61,7 @@ def _inputs(m, n, d, seed):
     return rng.normal(size=(m, d)), rng.normal(size=(n, d)), 1.3, rng.uniform(0.6, 1.5, d)
 
 
-@pytest.mark.parametrize("m, n, d", [(300, 260, 3), (520, 137, 1)])
+@pytest.mark.parametrize("m, n, d", [(300, 260, 3), (520, 137, 1), (200, 130, 20)])
 def test_sqexp_reference_matches_pallas_interpret(m, n, d):
     """B2's plain version against the Pallas kernel in interpret mode on
     ragged sizes: the same exact differences in the same order, 1e-12."""
@@ -121,6 +124,80 @@ def test_sqexp_covariance_dispatch(m, n, through_function):
     assert (type(K.grad_fn).__name__ == "SqexpCovarianceBackward") == through_function
     ref = np.asarray(jpairwise.sqexp_covariance(u, v, amp, jnp.asarray(ls)))
     close(K.detach(), ref, 1e-9)
+
+
+def test_sqexp_covariance_at_twenty_features_matches_jax():
+    """D = 20 through SqexpCovariance (B2's plain version on the CPU; on the
+    card the wide library of kernel B2), where the port raised before:
+    against the JAX package's sqexp_covariance to 1e-9, and the amplitude
+    and lengthscale gradients against jax.grad of it to 1e-8."""
+    u, v, amp, ls = _inputs(2048, 2050, 20, seed=20)
+    ls = ls * 4.0  # a well-filled block at D = 20
+    kbar = np.random.default_rng(21).normal(size=(2048, 2050))
+    ta, tl = t(amp).requires_grad_(True), t(ls).requires_grad_(True)
+    K = pairwise.sqexp_covariance(t(u), t(v), ta, tl)
+    assert type(K.grad_fn).__name__ == "SqexpCovarianceBackward"
+    ref = np.asarray(jpairwise.sqexp_covariance(u, v, amp, jnp.asarray(ls)))
+    assert np.median(ref) > 1e-3
+    close(K.detach(), ref, 1e-9)
+    (K * t(kbar)).sum().backward()
+    g_amp, g_ls = jax.grad(
+        lambda a_, l_: jnp.sum(jpairwise.sqexp_covariance(u, v, a_, l_) * kbar), argnums=(0, 1)
+    )(jnp.asarray(amp), jnp.asarray(ls))
+    close(ta.grad, g_amp, 1e-8)
+    close(tl.grad, g_ls, 1e-8)
+
+
+# (m, n) with ragged row and column tiles in both dtypes, and one tile
+PLAN_SHAPES = [(16_384, 16_384), (3001, 2500), (3001, 2501), (37, 300), (1, 1), (4096, 255),
+               (2048, 2050)]
+
+
+def _b2_source(name):
+    """The integer constant ``name`` of csrc/sqexp.cu."""
+    src = (Path(pairwise.__file__).with_name("csrc") / "sqexp.cu").read_text()
+    return int(re.search(rf"\b{name} = (\d+)", src).group(1))
+
+
+def _b2_minb(lib_d):
+    """csrc/sqexp.cu's MINB for the library of B2_D = ``lib_d``, evaluated
+    from its source: ``D == 0 ? a : D <= x ? b : D <= y ? c : e``."""
+    src = (Path(pairwise.__file__).with_name("csrc") / "sqexp.cu").read_text()
+    a, x, b, y, c, e = map(int, re.search(
+        r"MINB = D == 0 \? (\d+) : D <= (\d+) \? (\d+) : D <= (\d+) \? (\d+) : (\d+);",
+        src).groups())
+    return a if lib_d == 0 else b if lib_d <= x else c if lib_d <= y else e
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("d", [2, 5, 16, 17])
+@pytest.mark.parametrize("m, n", PLAN_SHAPES)
+def test_sqexp_plan_covers_every_tile_once(m, n, d, dtype, sms):
+    """Kernel B2's plan, which the kernel takes as given: tiles of 1 KiB
+    rows, every output entry in exactly one tile of the row-major walk
+    (block b takes tiles b, b + blocks, ...), as many blocks per SM as the
+    library of its D is built to fit (the table csrc/sqexp.cu holds) and
+    none without a tile; 16-byte stores only where a row of the output is
+    whole 16-byte units."""
+    plan = pairwise.sqexp_plan(m, n, d, dtype, sms)
+    size = dtype.itemsize
+    assert plan.tile_n * size == 1024 and plan.tile_m == pairwise.B2_TILE_M == _b2_source("TM")
+    n_tiles = plan.tiles_m * plan.tiles_n
+    assert plan.blocks == min(n_tiles, sms * _b2_minb(d if d <= pairwise.B2_D_REG else 0))
+    walked = [t for b in range(plan.blocks) for t in range(b, n_tiles, plan.blocks)]
+    assert sorted(walked) == list(range(n_tiles))
+    # the tiles reach past the last row and column, and one fewer would not
+    assert (plan.tiles_m - 1) * plan.tile_m < m <= plan.tiles_m * plan.tile_m
+    assert (plan.tiles_n - 1) * plan.tile_n < n <= plan.tiles_n * plan.tile_n
+    if m * n <= 1 << 24:
+        covered = np.zeros((m, n), dtype=np.int8)
+        for t_ in walked:
+            r0, c0 = t_ // plan.tiles_n * plan.tile_m, t_ % plan.tiles_n * plan.tile_n
+            covered[r0:r0 + plan.tile_m, c0:c0 + plan.tile_n] += 1
+        assert (covered == 1).all()
+    assert plan.route == ("vector" if n * size % 16 == 0 else "scalar")
+    assert pairwise.ROUTES == {"scalar": _b2_source("SCALAR"), "vector": _b2_source("VECTOR")}
 
 
 def test_scaled_sq_distances_and_fallback_match_jax():
