@@ -14,7 +14,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
 2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
    one library per parameter count and kind of mass: P = 1, 2, 3, 10, 32,
    64 with unit mass, P = 32 with diagonal mass), B2
-   (``.../sqexp.cu``), B3/B4 (``.../sqexp_fused.cu``), B5/B7
+   (``.../sqexp.cu``, one library per D up to 5: D = 2 and 5, and the wide
+   one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
@@ -36,11 +37,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and R-hat; a ``torch.profiler`` breakdown of one more advance; then
    ``bench.py``'s chain sweep (1,024 to 131,072 chains), attempts/s per K;
 5. plain path: the same ChainArray with ``fused=False``, timed;
-6. kernel B2 against its plain version on the card, on the same inputs:
-   float64 and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged
-   float64 case (3,001 x 2,500, D=5), and the autograd backward against
-   autograd of the plain version at N=4,096; then both timed at
-   16,384 x 16,384 in each dtype, beside ``torch.cdist`` and the exp;
+6. kernel B2 against its plain version on the card, on the same inputs,
+   each check printing the library and the store route it took: float64
+   and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
+   case (3,001 x 2,500, D=5), D=17 and D=100 (the wide library) and an odd
+   row pitch (scalar stores) in each dtype, and the autograd backward
+   against autograd of the plain version at N=4,096; then both timed at
+   16,384 x 16,384 in each dtype, beside ``torch.cdist`` and the exp and a
+   ``fill_`` of an equal tensor, with the SASS instructions per entry of
+   the launched kernel's hot loop and its registers;
 7. GP main path (gp-16k): ``GpRegressor`` on ``benchmarks/gp_lml_bench.py``'s
    data and hyperparameters at N=16,384 in float64: LML+gradient
    evaluations per second and peak memory, the B2 launch count, the LML
@@ -58,6 +63,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    on the same V, B8 against B6 within the float32 store's 2^-24; then each
    timed with CUDA events beside its plain version, B6 beside
    ``torch.matmul``, B4, B6 and B8 at every checked q (B4's q = 1 is B3);
+   at n = 4,096 B3, B4 (q = 8), B5 and B7 at d = 20 (the wide kernels; B5
+   and B7 bit for bit) and B4 and B6 at q = 20 (two launches each), and
+   one timed call each of B3, B4, B5 and B7 at n = 53,248, d = 20;
 10. matrix-free GP main path (gp-large-50k): ``LargeScaleGP(solver="df64")``
     on ``benchmarks/df64_solve_bench.py``'s data at N=50,000 (sigma=0.01,
     rank 512, block 4096, cg_tol 1e-9) with ``store_entries="auto"`` (B5,
@@ -148,9 +156,9 @@ KERNELS = {"sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
 # at every P, diagonal mass at P = 32 (check 3c)
 B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True))
 B1_TIME_P = (2, 10, 32, 64)  # P at which B1 is timed beside its bound
-# B2's libraries, by the D its checks launch: its own library at D = 2, 5
-# and 17, the wide one for D = 100
-B2_BUILD_D = (2, 5, 17, 100)
+# B2's libraries, by a D each serves among those its checks launch: its
+# own library at D = 2 and 5, the wide one (D = 17 and 100)
+B2_BUILD_D = (2, 5, 17)
 
 
 def _b1_label(P, unit):

@@ -20,31 +20,36 @@
 // stores. The reads (M + N) * D values are negligible.
 //
 // What the design does about it.
-// - D is fixed at compile time: one library per D (-DB2_D=<D>, built at first
-//   use by pairwise.kernel_variant), so every loop over k unrolls with no
-//   guards and a thread keeps its columns' coordinates in registers. Above
-//   pairwise.B2_D_REG one wide library (-DB2_D=0) takes any D at run time:
-//   a thread keeps its entries' partial distances in registers and the
-//   tile's coordinates pass through shared memory KC dimensions at a time.
-// - A persistent walk. The grid is the wrapper's plan (SMs x blocks per SM);
-//   block b takes the output tiles b, b + grid, ... in row-major tile order,
-//   so the blocks running together write neighbouring column ranges of the
-//   same rows. A tile is TM rows of 1 KiB (128 doubles or 256 floats): the
-//   card's copy rate halves at 512-byte rows (PERF.md, B6).
+// - D is fixed at compile time: one library per D up to pairwise.B2_D_REG
+//   (-DB2_D=<D>, built at first use by pairwise.kernel_variant), so every
+//   loop over k unrolls with no guards and a thread keeps its columns'
+//   coordinates in registers; each row's coordinates are loads that all the
+//   threads of a warp share. One wide library (-DB2_D=0) takes any larger D
+//   at run time: a thread keeps its entries' partial distances in registers
+//   and the tile's coordinates pass through shared memory KC dimensions at a
+//   time. The parent's runtime D issued a predicated loop of 16 dimensions
+//   per entry: 143 instructions per entry at D = 2 in double (67 FP64),
+//   against 52 (25 FP64) here. Above D = 5 the per-D library was slower than
+//   the wide one on the H100 (PERF.md, B2), hence B2_D_REG = 5.
+// - A persistent walk. The grid is the wrapper's plan, MINB blocks per SM on
+//   every SM; block b takes the output tiles b, b + grid, ... in row-major
+//   tile order, so the blocks running together write neighbouring column
+//   ranges of the same rows. A tile is TM rows of 1 KiB (128 doubles or 256
+//   floats). The registers are held to MINB blocks per SM
+//   (__launch_bounds__): with fewer warps per SM the stores did not keep the
+//   memory busy (2 blocks: 1.45x the bound; 4: 1.10x).
 // - Full-width stores. 256 threads as 64 across a tile row by 4 down it; a
 //   thread owns 16 bytes of a row (2 doubles or 4 floats) and TM / 4 rows, so
-//   a warp's store is one contiguous 512-byte run. The route is the plan's:
-//   VECTOR stores each thread's 16 bytes from registers (streaming hint);
-//   TMA writes the tile into one of two shared buffers and stores it by one
-//   bulk tensor copy (cp.async.bulk.tensor), the map clipping the ragged
-//   edge, the buffer reused only after its copy has been read
-//   (wait_group.read). Both need a row pitch of whole 16-byte units; other
-//   pitches (odd N in double, N not a multiple of 4 in float) take SCALAR,
-//   the same walk with one store per entry.
-// Rows past M and columns past N are computed on the last row's or column's
-// coordinates and never stored. Built with --fmad=false and the accurate
-// exp/expf (no fast math), so it rounds as the plain version's separate
-// torch operations do.
+//   each warp's store is one 16-byte streaming store a thread (VECTOR), one
+//   contiguous 512-byte run. That needs a row pitch of whole 16-byte units;
+//   other pitches (odd N in double, N not a multiple of 4 in float) take
+//   SCALAR, the same walk with one store per entry. A TMA store of each tile
+//   from shared memory, double-buffered, tied the vector stores in double
+//   and lost 1-2% in float (PERF.md), so it was not kept.
+// Rows past M are not computed; columns past N are computed on the last
+// column's coordinates and not stored. Built with --fmad=false and the
+// accurate exp/expf (no fast math), so it rounds as the plain version's
+// separate torch operations do: bit for bit on the H100.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -66,8 +71,9 @@ constexpr int TM = 32;           // tile rows (pairwise.py B2_TILE_M)
 constexpr int TX = 64;           // threads across a tile row, 16 bytes each
 constexpr int TY = THREADS / TX; // threads down a tile
 constexpr int KC = 16;           // dimensions per staged chunk of the wide instantiation
-// blocks per SM the registers are held to, as pairwise.py::_blocks_per_sm
-constexpr int MINB = D == 0 ? 3 : D <= 4 ? 4 : D <= 8 ? 3 : 2;
+// blocks per SM the registers are held to (64 or 85 registers a thread), as
+// pairwise.py::_blocks_per_sm: the walk launches this many
+constexpr int MINB = D >= 1 && D <= 4 ? 4 : 3;
 enum Route { SCALAR = 0, VECTOR = 1 };  // pairwise.py ROUTES
 
 template <typename T> struct Elem;
@@ -195,50 +201,6 @@ sqexp_kernel(const T* __restrict__ us, const T* __restrict__ vs, const T* __rest
   }
 }
 
-#if defined(B2_SWEEP) && B2_D > 0
-// the parent's one-tile-per-block kernel with D fixed at compile time: 64 x
-// 64 tiles, one column and 16 rows per thread, one 4- or 8-byte store each
-template <typename T>
-__global__ void __launch_bounds__(256)
-sqexp_tile_kernel(const T* __restrict__ us, const T* __restrict__ vs,
-                  const T* __restrict__ amp_sq, T* __restrict__ out, int m, int n) {
-  constexpr int TILE = 64;
-  __shared__ T su[D][TILE];
-  __shared__ T sv[D][TILE];
-  const int row0 = blockIdx.y * TILE;
-  const int col0 = blockIdx.x * TILE;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int r = tid; r < TILE; r += 256) {
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      su[k][r] = row0 + r < m ? us[(size_t)(row0 + r) * D + k] : T(0);
-      sv[k][r] = col0 + r < n ? vs[(size_t)(col0 + r) * D + k] : T(0);
-    }
-  }
-  __syncthreads();
-  const int c = threadIdx.x;
-  const int col = col0 + c;
-  if (col >= n) return;
-  T vc[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) vc[k] = sv[k][c];
-  const T a2 = *amp_sq;
-#pragma unroll 4
-  for (int i = 0; i < TILE / 4; ++i) {
-    const int r = threadIdx.y + i * 4;
-    const int row = row0 + r;
-    if (row >= m) break;
-    T dist = T(0);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const T diff = su[k][r] - vc[k];
-      dist = dist + diff * diff;
-    }
-    out[(size_t)row * n + col] = a2 * exp_of(T(-0.5) * dist);
-  }
-}
-#endif
-
 template <typename T, int ROUTE>
 int launch(const T* us, const T* vs, const T* amp_sq, T* out, const Walk& w, int blocks,
            cudaStream_t stream) {
@@ -298,23 +260,3 @@ extern "C" int sqexp_f64(const void* us, const void* vs, const void* amp_sq, voi
   return sqexp<double>(us, vs, amp_sq, out, m, n, d, tile_m, tile_n, tiles_m, tiles_n, blocks,
                        route, stream);
 }
-
-#if defined(B2_SWEEP) && B2_D > 0
-template <typename T>
-int tile_launch(const void* us, const void* vs, const void* amp_sq, void* out, int m, int n,
-                void* stream) {
-  const dim3 grid((n + 63) / 64, (m + 63) / 64), block(64, 4);
-  sqexp_tile_kernel<T><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(us), static_cast<const T*>(vs), static_cast<const T*>(amp_sq),
-      static_cast<T*>(out), m, n);
-  return (int)cudaGetLastError();
-}
-extern "C" int sqexp_tile_f32(const void* us, const void* vs, const void* amp_sq, void* out,
-                              int m, int n, void* stream) {
-  return tile_launch<float>(us, vs, amp_sq, out, m, n, stream);
-}
-extern "C" int sqexp_tile_f64(const void* us, const void* vs, const void* amp_sq, void* out,
-                              int m, int n, void* stream) {
-  return tile_launch<double>(us, vs, amp_sq, out, m, n, stream);
-}
-#endif

@@ -32,8 +32,9 @@ from . import _build
 
 _PALLAS_MIN_N = 2048  # both sides at least this many rows take kernel B2
 # kernel B2: one library per D up to this D (a thread holds its columns'
-# coordinates in registers), one wide library for any larger D
-B2_D_REG = 16
+# coordinates in registers), one wide library for any larger D, which was
+# the faster above D = 5 on the H100 (PERF.md)
+B2_D_REG = 5
 B2_TILE_M = 32  # rows of an output tile of kernel B2 (csrc/sqexp.cu TM)
 ROUTES = {"scalar": 0, "vector": 1}  # kernel B2's store routes (csrc/sqexp.cu Route)
 
@@ -120,9 +121,7 @@ class SqexpPlan(NamedTuple):
 def _blocks_per_sm(d: int) -> int:
     """The blocks per SM to which kernel B2's library for ``d`` holds its
     registers (csrc/sqexp.cu MINB): its persistent walk launches that many."""
-    if d > B2_D_REG:
-        return 3
-    return 4 if d <= 4 else 3 if d <= 8 else 2
+    return 4 if d <= 4 else 3
 
 
 def sqexp_plan(m, n, d, dtype, sms) -> SqexpPlan:

@@ -154,11 +154,11 @@ def test_b2_failed_build_names_b2_and_d(stub_nvcc, tmp_path, monkeypatch):
     bad.chmod(bad.stat().st_mode | stat.S_IEXEC)
     monkeypatch.setattr(_build, "find_nvcc", lambda: str(bad))
     _build.load.cache_clear()
-    u = torch.zeros((4, 7), dtype=torch.float64)
+    u = torch.zeros((4, 3), dtype=torch.float64)
     monkeypatch.setattr(torch.Tensor, "device", property(lambda self: torch.device("cuda", 0)))
-    with pytest.raises(RuntimeError, match=r"kernel B2 for D = 7 failed to build.*sqexp_B2_D7_"):
+    with pytest.raises(RuntimeError, match=r"kernel B2 for D = 3 failed to build.*sqexp_B2_D3_"):
         pairwise._launch_sqexp(u, u, torch.ones((), dtype=torch.float64),
-                               torch.ones(7, dtype=torch.float64))
+                               torch.ones(3, dtype=torch.float64))
 
 
 def test_kernel_variant_is_one_per_parameter_count_and_mass():

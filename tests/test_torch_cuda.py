@@ -217,17 +217,91 @@ def _sqexp_inputs(device, dtype, m, n, d, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m, n, d", [(3001, 2500, 5), (1, 70, 1), (130, 65, 2), (257, 300, 16)])
+@pytest.mark.parametrize("m, n, d", [
+    (3001, 2500, 5), (1, 70, 1), (130, 65, 2), (257, 300, 16),
+    (300, 257, 3), (2048, 2056, 17), (513, 260, 64), (1000, 1001, 100), (64, 2, 2),
+])
 def test_sqexp_kernel_matches_plain(cuda, dtype, m, n, d):
-    """Kernel B2 against _sqexp_reference on ragged shapes, both dtypes,
-    D from 1 to its maximum."""
+    """Kernel B2 against _sqexp_reference on ragged shapes, both dtypes, D
+    from 1 to 100 (its own library up to B2_D_REG, the wide one above), on
+    16-byte row pitches (vector stores) and others (n = 65, 257 and 1001;
+    n = 70 and 2 in float32: scalar stores); the route the plan takes is the
+    one the pitch allows."""
     args = _sqexp_inputs(cuda, dtype, m, n, d, seed=m + d)
+    args = (*args[:3], args[3] * max(1.0, (d / 5) ** 0.5))  # entries of order one
     k = pairwise._launch_sqexp(*args)
     p = pairwise._sqexp_reference(*args)
     torch.cuda.synchronize()
     assert k.shape == (m, n) and k.dtype == dtype
     assert bool(torch.isfinite(k).all())
     assert float(((k - p).abs() / p.abs()).max()) <= B2_RTOL[dtype]
+    plan = pairwise.sqexp_plan(m, n, d, dtype, 132)
+    assert plan.route == ("vector" if n * dtype.itemsize % 16 == 0 else "scalar")
+
+
+def _b2_launcher(cuda, dtype, m, n, d):
+    """Kernel B2's C entry point for D and its operands, as the wrapper
+    passes them: (fn, pointers, out, plan)."""
+    u, v, amp, ls = _sqexp_inputs(cuda, dtype, m, n, d, seed=5)
+    us, vs = pairwise._scaled(u, v, ls)
+    a2 = (amp**2).reshape(1).contiguous()
+    out = torch.full((m, n), float("nan"), dtype=dtype, device=cuda)
+    symbol = "sqexp_f64" if dtype == torch.float64 else "sqexp_f32"
+    fn = _build.bind("sqexp", symbol, 4, 9, pairwise.kernel_variant(d))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pairwise.sqexp_plan(m, n, d, dtype, sms)
+    keep = (us, vs, a2)
+    return fn, keep, out, plan, pairwise._sqexp_reference(u, v, amp, ls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("d", [2, 17])
+def test_sqexp_each_store_route_matches_plain(cuda, dtype, d):
+    """Both store routes of kernel B2 on one 16-byte pitch, each launched by
+    the plan with only its route changed: equal bit for bit, and to the
+    plain version within B2_RTOL."""
+    fn, (us, vs, a2), out, plan, ref = _b2_launcher(cuda, dtype, 1000, 1024, d)
+    results = []
+    for route in pairwise.ROUTES.values():
+        out.fill_(float("nan"))
+        rc = fn(us.data_ptr(), vs.data_ptr(), a2.data_ptr(), out.data_ptr(), 1000, 1024, d,
+                plan.tile_m, plan.tile_n, plan.tiles_m, plan.tiles_n, plan.blocks, route,
+                _build.stream(cuda))
+        torch.cuda.synchronize()
+        assert rc == 0
+        results.append(out.clone())
+    assert torch.equal(results[0], results[1])
+    assert float(((results[0] - ref).abs() / ref.abs()).max()) <= B2_RTOL[dtype]
+
+
+@pytest.mark.cuda
+def test_sqexp_launcher_refuses_a_bad_plan(cuda):
+    """Kernel B2's launcher takes the wrapper's plan only where its tiles
+    cover the output exactly once, every block has a tile, the tile is the
+    one it is built for, the vector route has a 16-byte pitch and D is its
+    library's; else it refuses before the launch."""
+    m, n, d = 1000, 1001, 2
+    fn, (us, vs, a2), out, plan, ref = _b2_launcher(cuda, torch.float64, m, n, d)
+
+    def launch(**kw):
+        p = {**plan._asdict(), "route": pairwise.ROUTES[plan.route], "d": d, **kw}
+        return fn(us.data_ptr(), vs.data_ptr(), a2.data_ptr(), out.data_ptr(), m, n, p["d"],
+                  p["tile_m"], p["tile_n"], p["tiles_m"], p["tiles_n"], p["blocks"], p["route"],
+                  _build.stream(cuda))
+
+    assert plan.route == "scalar" and launch() == 0
+    torch.cuda.synchronize()
+    assert float(((out - ref).abs() / ref.abs()).max()) <= B2_RTOL[torch.float64]
+    n_tiles = plan.tiles_m * plan.tiles_n
+    for bad in (dict(tiles_n=plan.tiles_n - 1),  # the last column tile missed
+                dict(tiles_m=plan.tiles_m + 1),  # a row tile past the end
+                dict(tile_m=16, tiles_m=-(-m // 16)),  # another tile than the library's
+                dict(tile_n=64, tiles_n=-(-n // 64)),
+                dict(blocks=0), dict(blocks=n_tiles + 1),  # no block, a block without a tile
+                dict(route=pairwise.ROUTES["vector"]),  # 16-byte stores on an odd pitch
+                dict(route=7), dict(d=3)):  # no such route, another library's D
+        assert launch(**bad) != 0, bad
 
 
 @pytest.mark.cuda
@@ -262,6 +336,29 @@ def test_sqexp_wrapper_raises(cuda):
         pairwise._launch_sqexp(u, v.cpu(), amp, ls)
     with pytest.raises(ValueError, match="device"):
         pairwise._launch_sqexp(u, v, amp, ls.cpu())
+
+
+@pytest.mark.cuda
+def test_gp_regressor_with_seventeen_features_on_card_matches_cpu(cuda):
+    """GpRegressor with D = 17 at N = 2,100 (kernel B2's wide library on the
+    card, where the port raised before) against the same model on the CPU:
+    LML, gradient and predictions to 1e-9 relative in float64."""
+    rng = np.random.default_rng(17)
+    x = rng.uniform(0, 3, (2100, 17))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + x[:, 2:].mean(axis=1) + rng.normal(0, 0.1, 2100)
+    theta = np.concatenate([[0.0, 0.0], np.full(17, np.log(2.0))])
+    kw = dict(y_err=np.full(2100, 0.1), hyperpars=theta, dtype=torch.float64)
+    on_card = GpRegressor(x, y, device=cuda, **kw)
+    on_cpu = GpRegressor(x, y, **kw, device="cpu")
+    before = pairwise.KERNEL_LAUNCHES
+    v1, g1 = on_card.marginal_likelihood_gradient(theta)
+    assert pairwise.KERNEL_LAUNCHES > before
+    v2, g2 = on_cpu.marginal_likelihood_gradient(theta)
+    assert abs(v1 - v2) <= 1e-9 * abs(v2)
+    np.testing.assert_allclose(g1, g2, rtol=1e-9, atol=1e-9 * np.abs(g2).max())
+    q = rng.uniform(0, 3, (2048, 17))
+    for a, b in zip(on_card(q), on_cpu(q)):
+        np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
 
 
 @pytest.mark.cuda

@@ -161,12 +161,11 @@ def _b2_source(name):
 
 def _b2_minb(lib_d):
     """csrc/sqexp.cu's MINB for the library of B2_D = ``lib_d``, evaluated
-    from its source: ``D == 0 ? a : D <= x ? b : D <= y ? c : e``."""
+    from its source: ``D >= 1 && D <= x ? a : b``."""
     src = (Path(pairwise.__file__).with_name("csrc") / "sqexp.cu").read_text()
-    a, x, b, y, c, e = map(int, re.search(
-        r"MINB = D == 0 \? (\d+) : D <= (\d+) \? (\d+) : D <= (\d+) \? (\d+) : (\d+);",
-        src).groups())
-    return a if lib_d == 0 else b if lib_d <= x else c if lib_d <= y else e
+    x, a, b = map(int, re.search(r"MINB = D >= 1 && D <= (\d+) \? (\d+) : (\d+);",
+                                 src).groups())
+    return a if 1 <= lib_d <= x else b
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
