@@ -27,10 +27,11 @@
 //   threads of a warp share. One wide library (-DB2_D=0) takes any larger D
 //   at run time: a thread keeps its entries' partial distances in registers
 //   and the tile's coordinates pass through shared memory KC dimensions at a
-//   time. The parent's runtime D issued a predicated loop of 16 dimensions
-//   per entry: 143 instructions per entry at D = 2 in double (67 FP64),
-//   against 52 (25 FP64) here. Above D = 5 the per-D library was slower than
-//   the wide one on the H100 (PERF.md, B2), hence B2_D_REG = 5.
+//   time. A runtime D read by a loop predicated to a largest D pays the
+//   largest D's work in every entry: at D = 2 in double, 143 instructions
+//   per entry (67 FP64) for a largest D of 16, against 52 (25 FP64) with D
+//   fixed. Above D = 5 the per-D library was slower than the wide one on the
+//   H100 (PERF.md, B2), hence B2_D_REG = 5.
 // - A persistent walk. The grid is the wrapper's plan, MINB blocks per SM on
 //   every SM; block b takes the output tiles b, b + grid, ... in row-major
 //   tile order, so the blocks running together write neighbouring column
