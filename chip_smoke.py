@@ -1,6 +1,8 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
-(kernel B1), dense GP regression (kernel B2), the matrix-free
-small-noise GP (kernels B3-B8) and the probes P1-P3 that measure B3.
+(kernel B1, and its wide route for P > 64), the headline and dense HMC
+benches, the single-chain HamiltonianChain, dense GP regression (kernel
+B2), the matrix-free small-noise GP (kernels B3-B8) and the probes P1-P3
+that measure B3.
 
 Run from the root of a checkout, on a machine with an NVIDIA Hopper GPU and
 the CUDA toolkit:
@@ -13,7 +15,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and ``nvidia-smi``'s name and power limit;
 2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
    one library per parameter count and kind of mass: P = 1, 2, 3, 10, 32,
-   64 with unit mass, P = 32 with diagonal mass), B2
+   64 with unit mass, P = 32 with diagonal mass, and the wide library for
+   any P > 64), B2
    (``.../sqexp.cu``, one library per D up to 5: D = 2 and 5, and the wide
    one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
@@ -34,9 +37,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
    10-dim correlated Gaussian of ``bench.py`` at 65,536 chains: warm-up,
    a timed advance, a stored advance for the acceptance and a thinned one
    for the mixing checks; checks the launch count, the sample variances
-   and R-hat; a ``torch.profiler`` breakdown of one more advance; then
-   ``bench.py``'s chain sweep (1,024 to 131,072 chains), attempts/s per K;
-5. plain path: the same ChainArray with ``fused=False``, timed;
+   and R-hat; a ``torch.profiler`` breakdown of one more advance; then the
+   port's headline bench (``inference_tpu_torch.bench.headline``:
+   ``bench.py``'s chain sweep, 1,024 to 131,072 chains), its JSON line;
+5. plain path: the same ChainArray with ``fused=False``, 16 transitions
+   timed; then
+   (a) kernel B1's wide route (P > 64) against its plain version at P = 65,
+   100 and 256, timed at each beside its bound, and
+   ``ChainArray(fused=True)`` at P = 100 (launches, variances); (c) the
+   dense HMC bench (``inference_tpu_torch.bench.dense_hmc``) at 4,096
+   chains, both workloads checked (the Gaussian's variances; the forward
+   model's means and variances against its exact FP64 posterior); (d)
+   ``HamiltonianChain`` on the card, a bounded 10-dim problem for 2,000
+   steps (10 leapfrog steps a proposal) against the same chain on the CPU
+   for 1,000, and a save, load and advance;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -113,26 +127,22 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from inference_tpu_torch import Bounds, HamiltonianChain
+from inference_tpu_torch.bench import dense_hmc, headline
+from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
 from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.utils import effective_sample_size
 from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
                                         time_events, vpu_probe)
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as words
 
-N_DIM = 10
 N_CHAINS = 65_536
-HMC_STEPS = 50
 RTOL, ATOL = 1e-4, 1e-5  # per-chain kernel-vs-plain tolerance in float32
 MIN_AGREE = 0.999        # share of chains that must agree
-
-def make_cov():
-    """The covariance of ``bench.py``'s 10-dim correlated Gaussian."""
-    rng = np.random.default_rng(42)
-    A = rng.normal(size=(N_DIM, N_DIM)) / np.sqrt(N_DIM)
-    return A @ A.T + np.eye(N_DIM)
 
 
 def phase_device():
@@ -154,14 +164,18 @@ KERNELS = {"sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
            "sqexp_words_mma": "P3"}  # and B1 and B2, one library per variant below
 # B1's libraries, (P, unit mass), those its checks and times use: unit mass
 # at every P, diagonal mass at P = 32 (check 3c)
-B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True))
+B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True),
+            (65, True))  # P = 65: the wide library, which serves every P > 64
 B1_TIME_P = (2, 10, 32, 64)  # P at which B1 is timed beside its bound
+B1_WIDE_P = (65, 100, 256)   # P at which B1's wide route is checked and timed
 # B2's libraries, by a D each serves among those its checks launch: its
 # own library at D = 2 and 5, the wide one (D = 17 and 100)
 B2_BUILD_D = (2, 5, 17)
 
 
 def _b1_label(P, unit):
+    if P > hmc_fused.P_NARROW:
+        return "B1 wide (any P > 64, either mass)"
     return f"B1 P={P} {'unit' if unit else 'diagonal'} mass"
 
 
@@ -353,32 +367,34 @@ def _compare(label, P, K, chunk, store, inv_temp, inv_mass, seed):
         )
 
 
-def _time_chunk(P, plain):
-    """CUDA-event times of one 64-transition chunk at the main path's K
-    with P parameters, unit mass, without history: the kernel in two turns
-    (with the plain version on the same inputs between them, if ``plain``).
-    Returns (kernel ms, plain ms or None, bound ms, bound by), each time
-    the lower of its two turns."""
-    form, theta, logp, eps, it = _random_state(P, N_CHAINS, 7, 1.0)
+def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2):
+    """CUDA-event times of one 64-transition chunk of K chains with P
+    parameters, unit mass, without history: the kernel in ``turns`` turns
+    (with the plain version on the same inputs between them, if
+    ``plain``). Returns (kernel ms, plain ms or None, bound ms, bound by),
+    each time the lowest of its turns."""
+    form, theta, logp, eps, it = _random_state(P, K, 7, 1.0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    z = torch.randn((64, P, N_CHAINS), generator=gen, device="cuda")
-    us = torch.rand((64, N_CHAINS), generator=gen, device="cuda")
-    ua = torch.rand((64, N_CHAINS), generator=gen, device="cuda")
+    z = torch.randn((64, P, K), generator=gen, device="cuda")
+    us = torch.rand((64, K), generator=gen, device="cuda")
+    ua = torch.rand((64, K), generator=gen, device="cuda")
     kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=None, store=False)
     args = (theta, logp, eps, it, z, us, ua)
-    reps = 10 if P <= 32 else 3
-    turns = []
-    for _ in range(2):
-        p_ms = time_events(lambda: hmc_fused._reference_chunk(*args, **kw), (), 2) if plain else None
-        turns.append((time_events(lambda: hmc_fused._launch_chunk(*args, **kw), (), reps), p_ms))
+    reps = reps or (10 if P <= 32 else 3)
+    times = []
+    for _ in range(turns):
+        p_ms = time_events(lambda: hmc_fused._reference_chunk(*args, **kw), (), 1) if plain else None
+        times.append((time_events(lambda: hmc_fused._launch_chunk(*args, **kw), (), reps), p_ms))
     bound_ms, bound_by = _b1_bound(us, P)
-    (ms, p1), (ms_2, p2) = turns
-    print(f"[time] B1 one chunk (64 transitions, K={N_CHAINS}, P={P}): kernel {ms:.4f} / "
-          f"{ms_2:.4f} ms" + (f", plain version {p1:.3f} / {p2:.3f} ms (plain, kernel, plain, "
-                              f"kernel)" if plain else "")
-          + f"; bound {bound_ms:.4f} ms ({bound_by}), {min(ms, ms_2) / bound_ms:.2f}x")
-    return min(ms, ms_2), (min(p1, p2) if plain else None), bound_ms, bound_by
+    ms = min(t for t, _ in times)
+    p_ms = min(p for _, p in times) if plain else None
+    print(f"[time] B1 one chunk (64 transitions, K={K}, P={P}): kernel "
+          + " / ".join(f"{t:.4f}" for t, _ in times) + " ms"
+          + (", plain version " + " / ".join(f"{p:.3f}" for _, p in times)
+             + " ms (plain, kernel, ...)" if plain else "")
+          + f"; bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x")
+    return ms, p_ms, bound_ms, bound_by
 
 
 def _b1_step_flops(P, unit=True):
@@ -469,30 +485,19 @@ def _profile_advance(ca):
               f"{e.count:4d}x  {e.key[:90]}")
 
 
-CHAIN_SWEEP = (1024, 4096, 16384, 65536, 131072)  # bench.py's sweep
-WORK_PER_TIER = 1 << 22                            # bench.py: chain-transitions per tier
-
-
-def phase_chain_sweep():
-    """bench.py's chain sweep on the main path's ChainArray (P = 10, fused):
-    per K, ``max(32, 2^22 // K)`` transitions as a warm-up, then the same
-    timed, ended by a sync. Returns {K: attempts/s}."""
-    form = GaussianForm(torch.as_tensor(np.linalg.inv(make_cov())))
-    rng = np.random.default_rng(0)
-    rates = {}
-    for K in CHAIN_SWEEP:
-        n = max(32, WORK_PER_TIER // K)
-        ca = ChainArray("hmc", form, rng.normal(0, 0.1, size=(K, N_DIM)), steps=HMC_STEPS,
-                        epsilon=0.25, retry=False, fused=True, device="cuda", seed=1)
-        ca.advance(n, store=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ca.advance(n, store=False)
-        torch.cuda.synchronize()
-        rates[K] = K * n / (time.perf_counter() - t0)
-    print("[chain sweep] fused=True, P=10, attempts/s by K: "
-          + ", ".join(f"{K}: {r:,.0f}" for K, r in rates.items()))
-    return rates
+def phase_headline():
+    """The port's headline bench (``inference_tpu_torch.bench.headline``):
+    ``bench.py``'s chain sweep on the main path's ChainArray (P = 10,
+    fused), its JSON line printed as it is. Returns (that line's object,
+    {K: attempts/s})."""
+    result, attempts = headline.measure("cuda")
+    print("[headline] fused=True, P=10, attempts/s by K: "
+          + ", ".join(f"{K}: {r:,.0f}" for K, r in attempts.items()))
+    print(json.dumps(result))
+    if not (np.isfinite(result["value"]) and result["value"] > 0
+            and 0.0 < result["acceptance"] < 1.0):
+        raise RuntimeError(f"headline bench: bad result {result}")
+    return result, attempts
 
 
 def phase_plain_path():
@@ -504,15 +509,204 @@ def phase_plain_path():
     )
     ca.advance(4, store=False)
     t0 = time.perf_counter()
-    ca.advance(64, store=False)
+    ca.advance(16, store=False)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    attempts = N_CHAINS * 64 / seconds
-    print(f"[plain path] fused=False, K={N_CHAINS}: advance(64) in {seconds:.4f} s, "
+    attempts = N_CHAINS * 16 / seconds
+    print(f"[plain path] fused=False, K={N_CHAINS}: advance(16) in {seconds:.4f} s, "
           f"{attempts:,.0f} attempts/s")
     if not np.isfinite(ca.theta).all():
         raise RuntimeError("plain path produced non-finite positions")
     return attempts
+
+
+# ---------------------------------------------------------------------------
+# kernel B1's wide route (P > 64), the dense HMC bench, HamiltonianChain
+# ---------------------------------------------------------------------------
+
+
+def phase_b1_wide():
+    """Kernel B1's wide route: against its plain version at P = 65, 100 and
+    256 (one transition; at P = 100 also a stored chunk, with diagonal mass
+    and tempering), timed at each P at the main path's K beside its bound
+    (at P = 100 beside the plain version too), then driven through
+    ``ChainArray(fused=True)`` at P = 100, its launches counted from 0 and
+    its sample variances held to the covariance's. Returns (max abs error
+    of the one-transition checks, {P: (ms, plain ms, bound ms, bound by)},
+    launches of the ChainArray run)."""
+    _print_b1_wide_mix()
+    im = np.random.default_rng(6).uniform(0.5, 2.0, 100)
+    errs = [_compare("3g", 65, 16384, 1, False, 1.0, None, 17),
+            _compare("3h", 100, 16384, 1, False, 0.5, im, 18),
+            _compare("3i", 256, 8192, 1, False, 1.0, None, 19)]
+    _compare("3j", 100, 4096, 64, True, 1.0, None, 20)
+    # P = 256 takes 2.85 s a chunk (PR 10): one turn of one timed launch
+    times = {P: _time_chunk(P, plain=P == 100, reps=1 if P == 256 else 2,
+                            turns=1 if P == 256 else 2) for P in B1_WIDE_P}
+
+    P, K = 100, 16384
+    rng = np.random.default_rng(21)
+    B = rng.normal(size=(P, P)) / np.sqrt(P)
+    cov = B @ B.T + np.eye(P)
+    starts = rng.multivariate_normal(np.zeros(P), cov, K)
+    hmc_fused.KERNEL_LAUNCHES = 0
+    ca = ChainArray("hmc", GaussianForm(torch.as_tensor(np.linalg.inv(cov))), starts,
+                    steps=HMC_STEPS, epsilon=0.2, retry=False, fused=True, device="cuda", seed=3)
+    t0 = time.perf_counter()
+    ca.advance(64, store=False)
+    ca.advance(64, store=True, thin=8)
+    seconds = time.perf_counter() - t0
+    launches = hmc_fused.KERNEL_LAUNCHES
+    var = ca.get_sample().var(axis=0)
+    rel = np.abs(var / np.diag(cov) - 1.0)
+    print(f"[b1 wide] ChainArray(fused=True), P={P}, K={K}: 128 transitions in {seconds:.3f} s "
+          f"({K * 128 / seconds:,.0f} attempts/s), {launches} launches of B1's wide route, sample "
+          f"variances within {rel.max():.4f} of the covariance's (relative), max rhat "
+          f"{ca.rhat().max():.5f}")
+    if launches == 0:
+        raise RuntimeError("the P = 100 ChainArray launched B1's wide route no time")
+    if rel.max() > 0.10:
+        raise RuntimeError(f"P = 100: sample variance off by {rel.max():.3f} (limit 0.10)")
+    return max(errs), times, launches
+
+
+DENSE_CHAINS = 4096
+DENSE_WORK = 1 << 17  # chain-transitions: 32 warm-up and 32 timed transitions at 4,096 chains
+
+
+def phase_dense_hmc():
+    """``inference_tpu_torch.bench.dense_hmc``'s two workloads at 4,096
+    chains, 32 transitions each as a warm-up and 32 timed (samples/s,
+    TFLOP/s, share of the float32 peak; the bench itself times 512 at this
+    count, but the plain path is host-bound, so the rate is the same), then
+    32 more stored transitions of each, checked: the Gaussian's pooled variances
+    within 10% of its covariance's diagonal; the forward model's posterior,
+    Gaussian with covariance (A^T S^-1 A)^-1 computed in FP64 on the host,
+    its pooled means within 5 standard errors (of the chains' means) of the
+    exact mean and its variances within 10%; R-hat printed for both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for kind, (posterior, inverse_mass) in dense_hmc.workloads("cuda").items():
+        row, ca = dense_hmc.run_one(kind, posterior, inverse_mass, DENSE_CHAINS, "cuda",
+                                    DENSE_WORK)
+        rows[kind] = row
+        print(f"[dense {kind}] chains={DENSE_CHAINS}: {row['samples_per_s']:,.1f} samples/s "
+              f"(acceptance {row['acceptance']:.4f}, {row['transitions']} transitions in "
+              f"{row['seconds']:.3f} s), {row['tflops']:.4f} TFLOP/s, "
+              f"{row['fp32_peak_pct']:.4f}% of the float32 peak")
+        ca.advance(32, store=True)
+        h = np.concatenate(ca._history, axis=0)[dense_hmc.ACCEPT_WINDOW:]  # (32, K, P)
+        sample = h.reshape(-1, dense_hmc.P)
+        rhat = ca.rhat(burn=dense_hmc.ACCEPT_WINDOW).max()
+        if kind == "gaussian":
+            _, cov = dense_hmc.correlated_gaussian()
+            rel = np.abs(sample.var(axis=0) / np.diag(cov) - 1.0)
+            print(f"[dense {kind}] pooled variances within {rel.max():.4f} of the covariance's "
+                  f"diagonal (limit 0.10), max rhat {rhat:.5f}")
+            if rel.max() > 0.10:
+                raise RuntimeError(f"dense gaussian: variance off by {rel.max():.4f}")
+        else:
+            _, A, y, sigma = dense_hmc.forward_model("cpu")
+            precision = A.T @ (A / sigma[:, None] ** 2)
+            cov = np.linalg.inv(precision)
+            mean = cov @ (A.T @ (y / sigma**2))
+            chain_means = h.mean(axis=0)  # (K, P)
+            se = chain_means.std(axis=0, ddof=1) / np.sqrt(DENSE_CHAINS)
+            z = np.abs(sample.mean(axis=0) - mean) / se
+            rel = np.abs(sample.var(axis=0) / np.diag(cov) - 1.0)
+            print(f"[dense {kind}] pooled means within {z.max():.3f} standard errors of the exact "
+                  f"posterior mean (limit 5), variances within {rel.max():.4f} (limit 0.10), "
+                  f"max rhat {rhat:.5f}")
+            if z.max() > 5.0 or rel.max() > 0.10:
+                raise RuntimeError(f"dense forward model: {z.max():.3f} standard errors, "
+                                   f"variance off by {rel.max():.4f}")
+        if not np.isfinite(sample).all():
+            raise RuntimeError(f"dense {kind}: non-finite samples")
+    return rows
+
+
+HC_STEPS_CARD, HC_STEPS_CPU = 2000, 1000
+HC_LEAPFROG = 10  # leapfrog steps per proposal (the chain's default is 50)
+
+
+def _bounded_chain(device, seed, analytic=True):
+    """HamiltonianChain on ``bench.py``'s 10-dim Gaussian with the first
+    parameter's lower tail cut at half a standard deviation below the mean,
+    every other bound 10 standard deviations out; ``HC_LEAPFROG`` leapfrog
+    steps per proposal; the form's own gradient -A (t - mu) as ``grad``
+    (as ``bench.py``'s reference run passes one), else autograd."""
+    cov = make_cov()
+    sd = np.sqrt(np.diag(cov))
+    lower, upper = -10.0 * sd, 10.0 * sd
+    lower[0] = -0.5 * sd[0]
+    form = GaussianForm(torch.as_tensor(np.linalg.inv(cov))).to(device)
+    grad = (lambda t: -(form.A @ (t - form.mu))) if analytic else None
+    chain = HamiltonianChain(form, start=np.full(N_DIM, 0.1), grad=grad,
+                             bounds=Bounds(lower, upper), display_progress=False, seed=seed,
+                             device=device)
+    chain.steps = HC_LEAPFROG
+    return chain, lower, upper
+
+
+def _moments(chain, burn):
+    s = chain.get_sample(burn=burn)
+    ess = np.array([effective_sample_size(s[:, i]) for i in range(N_DIM)])
+    return s, s.mean(axis=0), s.var(axis=0), ess
+
+
+def phase_hamiltonian():
+    """HamiltonianChain on the card: the bounded 10-dim problem advanced
+    2,000 steps (transitions/s), every sample inside the bounds; the same
+    chain on the CPU for 1,000 steps (transitions/s); their moments after a
+    burn-in of 200 held to each other: each mean within 5 joint standard
+    errors (sd / sqrt(ESS) of each chain), each variance ratio within 5 x
+    sqrt(2/ESS + 2/ESS) of 1; then save, load and advance 50 more on the
+    card, and 100 steps on the card with the gradient by autograd. Returns
+    {run: transitions/s}."""
+    rates = {}
+    chains = {}
+    for device, n in (("cuda", HC_STEPS_CARD), ("cpu", HC_STEPS_CPU)):
+        chain, lower, upper = _bounded_chain(device, seed=5)
+        chain.advance(10)  # warm-up
+        t0 = time.perf_counter()
+        chain.advance(n)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        rates[device] = n / (time.perf_counter() - t0)
+        chains[device] = chain
+        s = chain.get_sample()
+        inside = bool(((s >= lower) & (s <= upper)).all())
+        print(f"[hamiltonian] {device}: {n} steps at {rates[device]:.2f} transitions/s, "
+              f"{chain.chain_length} samples, all inside the bounds: {inside}, mean leapfrog "
+              f"steps per transition {np.mean(chain.leapfrog_steps[1:]):.1f}")
+        if not inside or not np.isfinite(s).all():
+            raise RuntimeError(f"HamiltonianChain on {device}: samples outside the bounds")
+    _, m1, v1, e1 = _moments(chains["cuda"], 200)
+    _, m2, v2, e2 = _moments(chains["cpu"], 200)
+    z = np.abs(m1 - m2) / np.sqrt(v1 / e1 + v2 / e2)
+    r = np.abs(v1 / v2 - 1.0) / np.sqrt(2.0 / e1 + 2.0 / e2)
+    print(f"[hamiltonian] card vs CPU: means within {z.max():.3f} joint standard errors, variance "
+          f"ratios within {r.max():.3f} of theirs (limits 5); ESS card {e1.min()}-{e1.max()}, "
+          f"CPU {e2.min()}-{e2.max()}; the cut parameter's mean {m1[0]:.4f} / {m2[0]:.4f}")
+    if z.max() > 5.0 or r.max() > 5.0:
+        raise RuntimeError("HamiltonianChain: the card's moments disagree with the CPU's")
+    path = _build.BUILD_DIR.parent / "chip_smoke_hamiltonian.npz"
+    chains["cuda"].save(str(path))
+    loaded = HamiltonianChain.load(str(path), posterior=chains["cuda"].posterior, device="cuda")
+    path.unlink()
+    loaded.advance(50)
+    if loaded.chain_length != chains["cuda"].chain_length + 50:
+        raise RuntimeError("HamiltonianChain: save, load and advance lost steps")
+    print(f"[hamiltonian] save, load and advance(50) on the card: chain length "
+          f"{loaded.chain_length}")
+    chain, _, _ = _bounded_chain("cuda", seed=6, analytic=False)
+    chain.advance(10)
+    t0 = time.perf_counter()
+    chain.advance(100)
+    rates["cuda autograd"] = 100 / (time.perf_counter() - t0)
+    print(f"[hamiltonian] cuda with the gradient by autograd: 100 steps at "
+          f"{rates['cuda autograd']:.2f} transitions/s")
+    return rates
 
 
 # ---------------------------------------------------------------------------
@@ -1327,13 +1521,17 @@ def _b1_kernel(P, unit):
     sass = _sass("hmc_fused", hmc_fused.kernel_variant(P, unit))
     if sass is None:
         return None
-    return next(p for p in sass.split("Function : ")[1:] if "hmc_chunk_kernel" in p.split()[0])
+    name = "hmc_wide_kernel" if P > hmc_fused.P_NARROW else "hmc_chunk_kernel"
+    return next(p for p in sass.split("Function : ")[1:] if name in p.split()[0])
 
 
 def _b1_leapfrog(P, body):
     """The leapfrog loop of one B1 kernel for P parameters (the innermost
     loop with a whole matvec, P^2 FFMA) as (opcode, operands) pairs, and
-    the leapfrog steps one trip of it runs."""
+    the leapfrog steps one trip of it runs; for the wide kernel its matvec
+    loop (16 FFMA a trip: 4 columns of a lane's 4 rows) and 0 steps."""
+    if P > hmc_fused.P_NARROW:
+        return _hot_loop(body, "fp32", 16), 0
     loop = _hot_loop(body, "fp32", P * P)
     if loop is None:
         return None, 0
@@ -1357,6 +1555,21 @@ def _print_b1_local_memory():
         print(f"[sass] {_b1_label(P, unit)}: {sum(o in local for o in ops)} local-memory "
               f"instructions, {sum(o in local for o, _ in loop)} in the leapfrog loop of "
               f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
+
+
+def _print_b1_wide_mix():
+    """The instruction mix of the wide kernel's matvec loop, per FFMA:
+    its loads of A (LDG) and of d (LDS) beside the multiply-adds."""
+    body = _b1_kernel(B1_WIDE_P[0], True)
+    loop = _b1_leapfrog(B1_WIDE_P[0], body)[0] if body else None
+    if not loop:
+        print("[sass] B1 wide: matvec loop not read (no cuobjdump or no loop found)")
+        return
+    ffma = sum(o == "FFMA" for o, _ in loop)
+    count = lambda ops: sum(o in ops for o, _ in loop)
+    print(f"[sass] B1 wide matvec loop: {len(loop)} instructions for {ffma} FFMA "
+          f"({len(loop) / ffma:.3f} per FFMA): LDG {count(('LDG',))}, LDS {count(('LDS',))}, "
+          f"other {len(loop) - ffma - count(('LDG', 'LDS'))}")
 
 
 UNIFORM_REGISTER = re.compile(r"\bUR\d")
@@ -1610,10 +1823,20 @@ def main():
     b1 = {P: _time_chunk(P, plain=P == N_DIM) for P in B1_TIME_P}
     ms, plain_ms, b1_bound, b1_by = b1[N_DIM]
     launches, attempts, accept = phase_main_path()
-    sweep = phase_chain_sweep()
+    _, sweep = phase_headline()
     plain_attempts = phase_plain_path()
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
           f"{plain_attempts:,.0f} ({attempts / plain_attempts:.2f}x)")
+    t_new = time.perf_counter()
+    wide_err, wide, wide_launches = phase_b1_wide()
+    t_dense = time.perf_counter()
+    dense = phase_dense_hmc()
+    t_chain = time.perf_counter()
+    hc_rates = phase_hamiltonian()
+    t_end = time.perf_counter()
+    print(f"[summary] B1 wide {t_dense - t_new:.1f} s, dense HMC {t_chain - t_dense:.1f} s, "
+          f"HamiltonianChain {t_end - t_chain:.1f} s; HamiltonianChain transitions/s: card "
+          f"{hc_rates['cuda']:.2f}, CPU {hc_rates['cpu']:.2f}")
 
     x16k, y16k, err16k = make_gp_data(GP_N)
     b2_err = phase_b2_checks(x16k)
@@ -1683,6 +1906,23 @@ def main():
         "variant": dict(hmc_fused.kernel_variant(N_DIM, True)),
         "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
         "chain_sweep_attempts_per_s": sweep,
+    }, {
+        "name": "hmc_fused_chunk_wide",
+        "kernel": "hmc_wide_kernel (any P > 64, one warp per chain)",
+        "route": "cuda",
+        "source": "inference_tpu_torch/ops/csrc/hmc_fused.cu",
+        "replaces": "inference_tpu/ops/hmc_fused.py:347",
+        "launches": wide_launches,
+        "max_abs_err": wide_err,
+        "ms": wide[100][0],
+        "plain_ms": wide[100][1],
+        "bound_ms": wide[100][2],
+        "bound_by": wide[100][3],
+        "library_ms": None,
+        "P": 100,
+        "variant": dict(hmc_fused.kernel_variant(100, True)),
+        "per_P": {P: {"ms": t[0], "bound_ms": t[2], "bound_by": t[3]} for P, t in wide.items()},
+        "dense_hmc_4096": dense,
     }, {
         "name": "sqexp_kernel",
         "kernel": b2_ms[F64]["kernel"],

@@ -2,17 +2,44 @@
 
 The JAX package ``inference_tpu`` stays the reference. This package ports
 its batched-HMC path (``parallel.ChainArray`` for the "hmc" kind, with the
-fused whole-trajectory kernel ``ops.hmc_fused`` written in CUDA C++) and
-its dense Gaussian-process path (``gp.GpRegressor``, ``gp.GpLinearInverter``,
-with the squared-exponential covariance kernel ``ops.pairwise`` in CUDA
-C++) and the matrix-free small-noise GP (``gp.LargeScaleGP(solver="df64")``,
-with the FP64 kernels of ``ops.df64`` in CUDA C++). Its entry points run on
-the card unless the caller passes ``device="cpu"``. It imports torch, numpy
-and scipy, never jax.
+fused whole-trajectory kernel ``ops.hmc_fused`` written in CUDA C++), the
+single-chain ``mcmc.HamiltonianChain`` with reflecting ``Bounds``, the
+posterior building blocks of ``models`` (likelihoods, priors,
+``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``,
+``gp.GpLinearInverter``, with the squared-exponential covariance kernel
+``ops.pairwise`` in CUDA C++) and the matrix-free small-noise GP
+(``gp.LargeScaleGP(solver="df64")``, with the FP64 kernels of ``ops.df64``
+in CUDA C++). Its benches are ``bench.headline`` and ``bench.dense_hmc``.
+Its entry points run on the card unless the caller passes
+``device="cpu"``. It imports torch, numpy and scipy, never jax.
 """
 
 __version__ = "0.1.0"
 
+from .mcmc import Bounds, HamiltonianChain
+from .models import (
+    CauchyLikelihood,
+    ExponentialPrior,
+    GaussianLikelihood,
+    GaussianPrior,
+    JointPrior,
+    LogisticLikelihood,
+    Posterior,
+    UniformPrior,
+)
 from .gp import GpLinearInverter, GpRegressor
 
-__all__ = ["GpRegressor", "GpLinearInverter"]
+__all__ = [
+    "HamiltonianChain",
+    "Bounds",
+    "GaussianLikelihood",
+    "CauchyLikelihood",
+    "LogisticLikelihood",
+    "GaussianPrior",
+    "ExponentialPrior",
+    "UniformPrior",
+    "JointPrior",
+    "Posterior",
+    "GpRegressor",
+    "GpLinearInverter",
+]

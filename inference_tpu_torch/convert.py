@@ -17,7 +17,14 @@ attributes; ``gp_regressor_from_state`` builds the port's model from it.
 A solved ``LargeScaleGP(solver="df64")`` crosses the same way
 (``large_scale_state_of``, ``large_scale_gp_from_state``), with its
 training solve and preconditioner factor, so it is not solved again.
+
+A ``HamiltonianChain`` crosses as its checkpoint items, the ``.npz`` keys
+both packages save (``hamiltonian_chain_from_jax``); ``bounds_from_numpy``
+and ``mass_from_numpy`` build the port's ``Bounds`` and particle mass from
+numpy arrays.
 """
+
+import io
 
 import numpy as np
 import torch
@@ -25,7 +32,12 @@ import torch
 from . import gp as _gp
 from .mcmc._kernels.common import AdaptiveScale
 from .mcmc._kernels.hmc import HmcState
+from .mcmc.hmc import HamiltonianChain
+from .mcmc.hmc.mass import get_particle_mass
 from .ops.hmc_fused import GaussianForm
+from .utils.bounds import Bounds
+from .utils.device import resolve_device
+from .utils.dtypes import default_float
 
 N_HMC_LEAVES = 11
 
@@ -77,6 +89,35 @@ def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:
     return GaussianForm(
         torch.as_tensor(np.asarray(icov, dtype=float)),
         None if mean is None else torch.as_tensor(np.asarray(mean, dtype=float)),
+    )
+
+
+def hamiltonian_chain_from_jax(chain, posterior, grad=None, seed=None, device="cuda"):
+    """The port's ``HamiltonianChain`` carrying a JAX ``HamiltonianChain``'s
+    state on ``device`` (default the card): its history, step-size
+    adaptation, mass, bounds and settings, read from the ``.npz`` items its
+    own ``save`` writes (into memory). With ``posterior`` (a torch
+    callable) it continues from the last stored step."""
+    buffer = io.BytesIO()
+    chain.save(buffer)
+    buffer.seek(0)
+    return HamiltonianChain.from_items(
+        np.load(buffer), posterior=posterior, grad=grad, seed=seed, device=device
+    )
+
+
+def bounds_from_numpy(lower, upper) -> Bounds:
+    """The port's ``Bounds`` from numpy lower and upper bounds."""
+    return Bounds(np.asarray(lower, dtype=float), np.asarray(upper, dtype=float))
+
+
+def mass_from_numpy(inverse_mass, n_parameters: int, device="cuda", dtype=None):
+    """The port's particle mass (scalar, diagonal or full matrix) from a
+    numpy inverse mass, its maps in ``dtype`` (default
+    ``default_float()``) on ``device`` (default the card)."""
+    return get_particle_mass(
+        np.asarray(inverse_mass, dtype=float), n_parameters,
+        dtype=dtype or default_float(), device=resolve_device(device, "mass_from_numpy"),
     )
 
 

@@ -7,8 +7,9 @@ chains at once: positions are ``(K, P)`` and every per-chain scalar is
 
 - The leapfrog runs as a Python loop to the batch's largest jittered step
   count ``n = int(steps * (1 + (U - 0.5) * 0.2))``, with each chain masked
-  once its own count is done (the per-proposal count is data-dependent).
-  A count of zero is raised to one, which is what the JAX step takes.
+  once its own count is done (the per-proposal count is data-dependent);
+  a batch of one chain needs no mask. A count of zero is raised to one,
+  which is what the JAX step takes.
 - With ``retry=True`` the repeat-until-accept loop is a host loop over the
   chains that have not accepted yet, for at most ``max_attempts`` trips.
 - Randomness comes from an explicit ``torch.Generator``. The standard
@@ -84,15 +85,13 @@ def make_hmc_step(
     :param max_attempts: proposal retries before flagging failure.
     :param mass_velocity: ``r -> velocity`` map (inverse-mass application).
     :param mass_sample: ``z -> momentum`` map from standard normals.
-    :param bounds_reflect: reflecting bounds are not ported yet.
+    :param bounds_reflect: optional batched ``theta -> (theta,
+        reflections)`` map (``Bounds.reflect_momenta``) for the bounded
+        leapfrog: after each drift the positions are reflected into the
+        bounds and the momenta multiplied by the returned +-1.
     :param retry: repeat-until-accept proposals when True; the textbook
         duplicate-on-reject MH transition when False.
     """
-    if bounds_reflect is not None:
-        raise NotImplementedError(
-            "reflecting bounds for the hmc kind are not ported yet "
-            "(ROADMAP queue A7)"
-        )
     if mass_velocity is None:
         mass_velocity = lambda r: r
     if mass_sample is None:
@@ -104,14 +103,28 @@ def make_hmc_step(
     def leapfrog(t, r, n_steps, epsilon, inv_temp):
         r_step = (inv_temp * epsilon)[:, None]
         eps_col = epsilon[:, None]
+
+        def drift_kick(t, r, kick_step):
+            t = t + eps_col * mass_velocity(r)
+            if bounds_reflect is not None:
+                t, reflections = bounds_reflect(t)
+                r = r * reflections
+            return t, r + kick_step * grad_fn(t)
+
+        r = r + (0.5 * r_step) * grad_fn(t)
+        n_max = int(n_steps.max())
+        if t.shape[0] == 1:
+            # one chain: every step is active, so no masking (the same bits)
+            half_step = 0.5 * r_step
+            for i in range(n_max):
+                t, r = drift_kick(t, r, half_step if i == n_max - 1 else r_step)
+            return t, r
         half = torch.full_like(epsilon, 0.5)
         one = torch.ones_like(epsilon)
-        r = r + (0.5 * r_step) * grad_fn(t)
-        for i in range(int(n_steps.max())):
+        for i in range(n_max):
             active = (i < n_steps)[:, None]
             kick = torch.where(i == n_steps - 1, half, one)[:, None]
-            t2 = t + eps_col * mass_velocity(r)
-            r2 = r + (kick * r_step) * grad_fn(t2)
+            t2, r2 = drift_kick(t, r, kick * r_step)
             t = torch.where(active, t2, t)
             r = torch.where(active, r2, r)
         return t, r

@@ -58,6 +58,28 @@
 // the quadratic form after the last step repeats the last kick's products
 // in the same order, so one transition matches the plain version bit for
 // bit.
+//
+// The wide route, P > 64 (built once, with -DB1_P=0, for any P and either
+// kind of mass; P is a launch argument). Neither of the above scales: at
+// P = 128 one thread would hold 384 state floats, and A (4 P^2 bytes) no
+// longer fits a block's shared memory from P = 239. So one warp owns one
+// chain: its position, momentum, centred position and current position
+// (4 P floats, rows padded to P4 = a multiple of 4) live in the warp's
+// share of shared memory, and lane l owns the groups of four rows q = l,
+// l + 32, ... of every elementwise step and of the gradient matvec. A is
+// read from device memory, where the launcher keeps a zero-padded P4 x P4
+// copy, through L1 and L2 (40 KB at P = 100 stays in L1; 256 KB at P = 256
+// streams from L2): since A is symmetric, (A d)_i = sum_j A[j][i] d_j, so
+// the 32 lanes read row j of A as 32 neighbouring float4s while d_j is a
+// shared-memory broadcast. Each step the warp reads all of A, so at large
+// P the kernel is bound by the L2's bandwidth, not by its flops: a simple
+// design that is right, to be made fast later. The matvec accumulates over
+// j in order with fmaf as above; the kinetic sums and the quadratic form
+// (taken from the last kick's own matvec) are summed per lane and then
+// across the warp by a butterfly, so every lane holds the same bits and
+// the chain's branches stay uniform. Those sums round in another order
+// than the plain version's, so the wide route agrees with it within the
+// float32 tolerance, not bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,11 +88,59 @@
 
 #include <string.h>
 
+#include <algorithm>
 #include <utility>
 
-#if !defined(B1_P) || !defined(B1_UNIT)
-#error "kernel B1 is built per parameter count and mass: nvcc -DB1_P=<1..64> -DB1_UNIT=<0|1>"
+#if !defined(B1_P) || (B1_P > 0 && !defined(B1_UNIT))
+#error "kernel B1 is built per parameter count and mass: nvcc -DB1_P=<1..64> -DB1_UNIT=<0|1>, or -DB1_P=0 for the wide route"
 #endif
+
+namespace {
+
+// step-size adaptation constants (mcmc/_kernels/hmc.py EPS_*)
+constexpr float EPS_TARGET = 0.65f;
+constexpr float EPS_GROWTH = 1.4f;
+constexpr float EPS_VAR_FLOOR = 0.03f;
+constexpr float EPS_POWER = 0.15f;
+constexpr float EPS_MIN_ADJ = 0.5f;
+constexpr float EPS_MAX_ADJ = 2.0f;
+
+// One transition's step-size adaptation (submit_accept_prob) from the
+// acceptance probability ap, on the chain's (value, avg, var, num, chk_int).
+__device__ __forceinline__ void adapt(float ap, float& ev, float& ea, float& evr, int& en,
+                                      int& ec) {
+  const float sub = isfinite(ap) ? fminf(ap, 1.0f) : 0.0f;
+  en = en + 1;
+  ea = ea + sub;
+  evr = evr + fmaxf(sub * (1.0f - sub), EPS_VAR_FLOOR);
+  const bool due = en >= ec;
+  const float denom = fmaxf(static_cast<float>(en), 1.0f);
+  const float mu = due ? ea / denom : 0.5f;
+  const float sd = sqrtf(fmaxf(evr, 0.0f)) / denom;
+  const bool in_band = (mu - 2.0f * sd < EPS_TARGET) && (EPS_TARGET < mu + 2.0f * sd);
+  if (due && !in_band) {
+    // mu is clipped to [1e-12, 1 - 1e-12], whose upper end rounds to 1.0f
+    const float mu_safe = fminf(fmaxf(mu, 1e-12f), 1.0f);
+    const float ratio = logf(EPS_TARGET) / logf(mu_safe);
+    const float adj = fminf(fmaxf(powf(ratio, EPS_POWER), EPS_MIN_ADJ), EPS_MAX_ADJ);
+    ev = ev * adj;
+    ea = 0.0f;
+    evr = 0.0f;
+    en = 0;
+  } else if (due) {
+    ec = static_cast<int>(floorf(EPS_GROWTH * static_cast<float>(ec) * 0.1f)) * 10;
+  }
+}
+
+// the jittered step count of one transition, at least one drift
+__device__ __forceinline__ int step_count(float u, int steps, int max_steps) {
+  const int n = static_cast<int>(static_cast<float>(steps) * (1.0f + (u - 0.5f) * 0.2f));
+  return max(min(n, max_steps), 1);
+}
+
+}  // namespace
+
+#if B1_P > 0
 
 constexpr int P = B1_P;
 constexpr bool UNIT = B1_UNIT != 0;  // unit mass, else diagonal
@@ -119,14 +189,6 @@ constexpr int P4 = (P + 3) / 4 * 4;  // a row of A in shared memory, zero padded
 constexpr int BLOCK = 128;           // 64 and 256 measured no faster at P = 10 and 32
 using Cols = std::make_integer_sequence<int, P>;
 using Groups = std::make_integer_sequence<int, P4 / 4>;
-
-// step-size adaptation constants (mcmc/_kernels/hmc.py EPS_*)
-constexpr float EPS_TARGET = 0.65f;
-constexpr float EPS_GROWTH = 1.4f;
-constexpr float EPS_VAR_FLOOR = 0.03f;
-constexpr float EPS_POWER = 0.15f;
-constexpr float EPS_MIN_ADJ = 0.5f;
-constexpr float EPS_MAX_ADJ = 2.0f;
 
 // Args::form[IDX] of the kernel's parameter, by a volatile load that the
 // compiler's front end keeps where it is used (a plain read of the form in
@@ -273,10 +335,7 @@ extern "C" __global__ void __launch_bounds__(BLOCK)
     for (int j = 0; j < P; ++j) r[j] = UNIT ? zc[j * Ks] : ms_s[j] * zc[j * Ks];
     const float h0 = 0.5f * kinetic_sum(r, Cols{}) - lp;
 
-    // jittered step count, at least one drift
-    const float u = a.us[cK + k];
-    int n = static_cast<int>(static_cast<float>(a.steps) * (1.0f + (u - 0.5f) * 0.2f));
-    n = max(min(n, a.max_steps), 1);
+    const int n = step_count(a.us[cK + k], a.steps, a.max_steps);
 
     const float eps = ev;
     const float r_step = it * eps;
@@ -293,28 +352,7 @@ extern "C" __global__ void __launch_bounds__(BLOCK)
     const float h = 0.5f * kinetic_sum(r, Cols{}) - p;
     const float ap = expf(h0 - h);
 
-    // step-size adaptation (submit_accept_prob)
-    const float sub = isfinite(ap) ? fminf(ap, 1.0f) : 0.0f;
-    en = en + 1;
-    ea = ea + sub;
-    evr = evr + fmaxf(sub * (1.0f - sub), EPS_VAR_FLOOR);
-    const bool due = en >= ec;
-    const float denom = fmaxf(static_cast<float>(en), 1.0f);
-    const float mu = due ? ea / denom : 0.5f;
-    const float sd = sqrtf(fmaxf(evr, 0.0f)) / denom;
-    const bool in_band = (mu - 2.0f * sd < EPS_TARGET) && (EPS_TARGET < mu + 2.0f * sd);
-    if (due && !in_band) {
-      // mu is clipped to [1e-12, 1 - 1e-12], whose upper end rounds to 1.0f
-      const float mu_safe = fminf(fmaxf(mu, 1e-12f), 1.0f);
-      const float ratio = logf(EPS_TARGET) / logf(mu_safe);
-      const float adj = fminf(fmaxf(powf(ratio, EPS_POWER), EPS_MIN_ADJ), EPS_MAX_ADJ);
-      ev = ev * adj;
-      ea = 0.0f;
-      evr = 0.0f;
-      en = 0;
-    } else if (due) {
-      ec = static_cast<int>(floorf(EPS_GROWTH * static_cast<float>(ec) * 0.1f)) * 10;
-    }
+    adapt(ap, ev, ea, evr, en, ec);
 
     // duplicate-on-reject
     const bool accepted = (ap >= 1.0f) || (a.ua[cK + k] <= ap);
@@ -386,3 +424,259 @@ extern "C" int hmc_fused_chunk(
   if (!UNIT) memcpy(args.form + IM, inv_mass, sizeof(float) * P);
   return static_cast<int>(launch(args, static_cast<cudaStream_t>(stream)));
 }
+
+#else  // B1_P == 0: the wide route
+
+struct WideArgs {
+  // state in, random operands, state out and history: as the narrow Args
+  const float* theta;     // (P, K)
+  const float* logp;      // (K,)
+  const float* ev;        // (K,) eps.value
+  const float* ea;        // (K,) eps.avg
+  const float* evr;       // (K,) eps.var
+  const int* en;          // (K,) eps.num
+  const int* ec;          // (K,) eps.chk_int
+  const float* inv_temp;  // (K,)
+  const float* z;         // (chunk, P, K) standard normals
+  const float* us;        // (chunk, K) step-count uniforms
+  const float* ua;        // (chunk, K) accept uniforms
+  // the form on the device, zero padded to P4: the diagonal inverse mass
+  // (P4, null for unit mass), A (P4 x P4, row major) and mu (P4)
+  const float4* inv_mass;
+  const float4* A;
+  const float4* mu;
+  float* theta_o;
+  float* logp_o;
+  float* ev_o;
+  float* ea_o;
+  float* evr_o;
+  int* en_o;
+  int* ec_o;
+  float* h_theta;         // (chunk, P, K), all four null without store
+  float* h_logp;          // (chunk, K)
+  int* h_steps;           // (chunk, K)
+  float* h_eps;           // (chunk, K)
+  int P, P4, K, chunk, steps, max_steps;
+};
+
+namespace {
+
+constexpr int WARPS_MAX = 4;  // chains (warps) per block, fewer where shared memory is short
+constexpr int SMEM_MAX = 200 * 1024;  // of the 227 KB a block may have
+
+// the sum of v over the warp, the same bits on every lane
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+__device__ __forceinline__ float4 velocity4(const float4 r, const float4* im4, int q) {
+  if (im4 == nullptr) return r;
+  const float4 m = im4[q];
+  return make_float4(m.x * r.x, m.y * r.y, m.z * r.z, m.w * r.w);
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// (A d) for the rows 4q .. 4q+3, accumulated over j in order with fmaf from 0
+__device__ __forceinline__ float4 matvec4(const float4* __restrict__ A, const float* d, int Q,
+                                          int q) {
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* col = A + q;
+#pragma unroll 4
+  for (int j = 0; j < 4 * Q; ++j) {
+    const float4 a = __ldg(col + static_cast<size_t>(j) * Q);
+    const float dj = d[j];
+    acc.x = fmaf(a.x, dj, acc.x);
+    acc.y = fmaf(a.y, dj, acc.y);
+    acc.z = fmaf(a.z, dj, acc.z);
+    acc.w = fmaf(a.w, dj, acc.w);
+  }
+  return acc;
+}
+
+}  // namespace
+
+extern "C" __global__ void __launch_bounds__(32 * WARPS_MAX)
+    hmc_wide_kernel(const __grid_constant__ WideArgs a) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (k >= a.K) return;  // a whole warp; no block barrier follows
+  const int P = a.P, Q = a.P4 / 4;
+  const size_t Ks = static_cast<size_t>(a.K);
+  // the warp's state: position, momentum, centred position, current position
+  float4* t4 = smem4 + static_cast<size_t>(warp) * 4 * Q;
+  float4* r4 = t4 + Q;
+  float4* d4 = r4 + Q;
+  float4* c4 = d4 + Q;
+  float* t = reinterpret_cast<float*>(t4);
+  float* r = reinterpret_cast<float*>(r4);
+  const float* d = reinterpret_cast<const float*>(d4);
+  float* tc = reinterpret_cast<float*>(c4);
+
+  for (int i = lane; i < 4 * Q; i += 32) {
+    const float v = i < P ? a.theta[i * Ks + k] : 0.0f;
+    t[i] = v;
+    tc[i] = v;
+  }
+  float lp = a.logp[k];
+  float ev = a.ev[k], ea = a.ea[k], evr = a.evr[k];
+  int en = a.en[k], ec = a.ec[k];
+  const float it = a.inv_temp[k];
+  const bool store = a.h_theta != nullptr;
+  __syncwarp();
+
+  for (int c = 0; c < a.chunk; ++c) {
+    const size_t cK = static_cast<size_t>(c) * Ks;
+    const float* zc = a.z + cK * P + k;
+    __syncwarp();  // the last transition's reads of r and t are done
+
+    // momentum draw (1 / sqrt(im) scales it) and its kinetic energy
+    float kin = 0.0f;
+    for (int i = lane; i < 4 * Q; i += 32) {
+      float ri = 0.0f;
+      if (i < P) {
+        ri = zc[i * Ks];
+        if (a.inv_mass != nullptr) {
+          const float im = reinterpret_cast<const float*>(a.inv_mass)[i];
+          ri = (1.0f / sqrtf(im)) * ri;
+          kin = kin + ri * (im * ri);
+        } else {
+          kin = kin + ri * ri;
+        }
+      }
+      r[i] = ri;
+    }
+    const float h0 = 0.5f * warp_sum(kin) - lp;
+    const int n = step_count(a.us[cK + k], a.steps, a.max_steps);
+    const float eps = ev;
+    const float r_step = it * eps;
+    const float half = 0.5f * r_step;
+
+    // centre, the first half kick, then n drifts and kicks; the last kick
+    // is halved and also gives the quadratic form d^T A d
+    __syncwarp();
+    for (int q = lane; q < Q; q += 32) {
+      const float4 tq = t4[q], m = a.mu[q];
+      d4[q] = make_float4(tq.x - m.x, tq.y - m.y, tq.z - m.z, tq.w - m.w);
+    }
+    __syncwarp();
+    for (int q = lane; q < Q; q += 32) {
+      const float4 g = matvec4(a.A, d, Q, q);
+      float4 rq = r4[q];
+      rq.x = rq.x + half * (-g.x);
+      rq.y = rq.y + half * (-g.y);
+      rq.z = rq.z + half * (-g.z);
+      rq.w = rq.w + half * (-g.w);
+      r4[q] = rq;
+    }
+    float quad = 0.0f;
+    for (int s = 0; s < n; ++s) {
+      const bool last = s == n - 1;
+      const float kick = last ? half : r_step;
+      __syncwarp();  // every lane has read d
+      for (int q = lane; q < Q; q += 32) {
+        const float4 v = velocity4(r4[q], a.inv_mass, q);
+        float4 tq = t4[q];
+        tq.x = tq.x + eps * v.x;
+        tq.y = tq.y + eps * v.y;
+        tq.z = tq.z + eps * v.z;
+        tq.w = tq.w + eps * v.w;
+        t4[q] = tq;
+        const float4 m = a.mu[q];
+        d4[q] = make_float4(tq.x - m.x, tq.y - m.y, tq.z - m.z, tq.w - m.w);
+      }
+      __syncwarp();  // d is whole
+      for (int q = lane; q < Q; q += 32) {
+        const float4 g = matvec4(a.A, d, Q, q);
+        float4 rq = r4[q];
+        rq.x = rq.x + kick * (-g.x);
+        rq.y = rq.y + kick * (-g.y);
+        rq.z = rq.z + kick * (-g.z);
+        rq.w = rq.w + kick * (-g.w);
+        r4[q] = rq;
+        if (last) quad = quad + dot4(d4[q], g);
+      }
+    }
+
+    const float p = (-0.5f * warp_sum(quad)) * it;
+    float kin_end = 0.0f;
+    for (int q = lane; q < Q; q += 32) kin_end = kin_end + dot4(r4[q], velocity4(r4[q], a.inv_mass, q));
+    const float h = 0.5f * warp_sum(kin_end) - p;
+    const float ap = expf(h0 - h);
+    adapt(ap, ev, ea, evr, en, ec);
+
+    // duplicate-on-reject, each lane on its own rows
+    const bool accepted = (ap >= 1.0f) || (a.ua[cK + k] <= ap);
+    if (accepted) lp = p;
+    for (int q = lane; q < Q; q += 32) {
+      if (accepted) {
+        c4[q] = t4[q];
+      } else {
+        t4[q] = c4[q];
+      }
+    }
+    if (store) {
+      __syncwarp();  // each lane stores rows that other lanes accepted or restored
+      for (int i = lane; i < P; i += 32) a.h_theta[(cK * P) + i * Ks + k] = tc[i];
+      if (lane == 0) {
+        a.h_logp[cK + k] = lp;
+        a.h_steps[cK + k] = n;
+        a.h_eps[cK + k] = ev;
+      }
+    }
+  }
+
+  __syncwarp();
+  for (int i = lane; i < P; i += 32) a.theta_o[i * Ks + k] = tc[i];
+  if (lane == 0) {
+    a.logp_o[k] = lp;
+    a.ev_o[k] = ev;
+    a.ea_o[k] = ea;
+    a.evr_o[k] = evr;
+    a.en_o[k] = en;
+    a.ec_o[k] = ec;
+  }
+}
+
+// Launches one chunk of the wide route on `stream` and returns a CUDA error
+// code (0 on success; cudaErrorInvalidValue for P < 1, a P4 that is not P
+// rounded up to a multiple of 4, a P too large for one warp's state in
+// shared memory, or a missing form pointer). The form's operands inv_mass
+// (P4, null for unit mass), A (P4 x P4, row major, symmetric, zero padded)
+// and mu (P4, zero padded) are device pointers, 16-byte aligned; so is
+// every other pointer. The four history pointers are all null (no history)
+// or all set.
+extern "C" int hmc_fused_chunk_wide(
+    const float* theta, const float* logp, const float* ev, const float* ea,
+    const float* evr, const int* en, const int* ec, const float* inv_temp,
+    const float* z, const float* us, const float* ua, const float* inv_mass,
+    const float* A, const float* mu, float* theta_o, float* logp_o, float* ev_o,
+    float* ea_o, float* evr_o, int* en_o, int* ec_o, float* h_theta,
+    float* h_logp, int* h_steps, float* h_eps, int n_params, int P4, int K, int chunk,
+    int steps, int max_steps, void* stream) {
+  const size_t per_warp = sizeof(float) * 4 * static_cast<size_t>(P4);
+  if (n_params < 1 || P4 != (n_params + 3) / 4 * 4 || per_warp > SMEM_MAX || A == nullptr ||
+      mu == nullptr || K < 1 || chunk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideArgs args{theta, logp, ev, ea, evr, en, ec, inv_temp, z, us, ua,
+                reinterpret_cast<const float4*>(inv_mass), reinterpret_cast<const float4*>(A),
+                reinterpret_cast<const float4*>(mu),
+                theta_o, logp_o, ev_o, ea_o, evr_o, en_o, ec_o,
+                h_theta, h_logp, h_steps, h_eps, n_params, P4, K, chunk, steps, max_steps};
+  const int warps = static_cast<int>(std::min<size_t>(WARPS_MAX, SMEM_MAX / per_warp));
+  const size_t smem = per_warp * warps;
+  cudaError_t err = cudaFuncSetAttribute(
+      hmc_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (K + warps - 1) / warps;
+  hmc_wide_kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#endif

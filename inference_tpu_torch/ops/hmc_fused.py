@@ -25,17 +25,21 @@ cannot call a Python callable, so the quadratic form's operands ``A`` and
 ``mu`` are passed to it and the kernel evaluates value and gradient itself.
 Everywhere else a ``GaussianForm`` is an ordinary posterior module.
 
-The kernel is built once per parameter count P and kind of mass, unit or
-diagonal (``kernel_variant``): one library each in ``build/kernels/``,
-compiled at the first launch that needs it, so every loop over P unrolls
-with no guards or padding and unit mass skips its multiplies by 1. The
-form (``A``, ``mu`` and the inverse mass) travels in each launch's kernel
-parameters, filled from host copies that ``_host_copy`` keeps.
+Up to ``P_NARROW`` (64) parameters the kernel is built once per parameter
+count P and kind of mass, unit or diagonal (``kernel_variant``): one
+library each in ``build/kernels/``, compiled at the first launch that needs
+it, so every loop over P unrolls with no guards or padding and unit mass
+skips its multiplies by 1. The form (``A``, ``mu`` and the inverse mass)
+travels in each launch's kernel parameters, filled from host copies that
+``_host_copy`` keeps. Above that one wide library serves every P and both
+kinds of mass (the wide route): one warp per chain, its state in shared
+memory, and the form read from zero-padded device copies
+(``_wide_form``).
 
-Restrictions of the kernel: ``retry=False``, no reflecting bounds,
-unit/scalar/diagonal inverse mass, ``1 <= P <= 64``, float32, one device.
+Restrictions of the kernel, as of the JAX package's: ``retry=False``, no
+reflecting bounds, unit/scalar/diagonal inverse mass, float32, one device.
 On a CPU tensor the plain version runs instead; on a CUDA tensor the
-kernel of that P launches or the wrapper raises.
+kernel launches or the wrapper raises.
 """
 
 from typing import NamedTuple
@@ -54,8 +58,8 @@ from ..mcmc._kernels.hmc import (
 )
 from . import _build
 
-_CHUNK = 64  # transitions per kernel launch
-P_MAX = 64   # the largest parameter count the kernel is built for
+_CHUNK = 64     # transitions per kernel launch
+P_NARROW = 64  # the largest parameter count with a library of its own
 
 # launches of the CUDA kernel in this process; the wrapper adds one per launch
 KERNEL_LAUNCHES = 0
@@ -209,8 +213,27 @@ def _host_copy(x):
 
 def kernel_variant(P: int, unit_mass: bool) -> tuple:
     """The nvcc defines of kernel B1's library for ``P`` parameters and
-    unit (else diagonal) mass."""
+    unit (else diagonal) mass: one library per P and kind of mass up to
+    ``P_NARROW``, the one wide library (``B1_P=0``) above."""
+    if P > P_NARROW:
+        return (("B1_P", 0),)
     return (("B1_P", P), ("B1_UNIT", int(unit_mass)))
+
+
+def _wide_form(form, inv_mass_diag, P4):
+    """The wide route's form on the card: A as a ``(P4, P4)`` and mu and
+    the inverse mass (or None) as ``(P4,)`` float32 tensors, zero padded
+    from P to ``P4``, so a padded row adds nothing to the matvec, the
+    drift or the energies."""
+    P = form.A.shape[0]
+
+    def pad(x, shape):
+        out = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        out[tuple(slice(0, n) for n in x.shape)] = x
+        return out
+
+    im = None if inv_mass_diag is None else pad(inv_mass_diag, (P4,))
+    return im, pad(form.A, (P4, P4)), pad(form.mu.reshape(P), (P4,))
 
 
 def _launch_chunk(
@@ -218,20 +241,17 @@ def _launch_chunk(
 ):
     """Launch kernel B1 for ``z.shape[0]`` transitions on CUDA tensors, with
     the signature and results of ``_reference_chunk``, through the library
-    built for this P and kind of mass. Raises on a tensor the kernel does
-    not take (not float32 or int32, wrong device, shape or layout; it never
-    casts), and when that library fails to build, load or launch. The
-    form's operands are checked on the card and launched from their host
-    copies (``_host_copy``)."""
+    built for this P and kind of mass (the wide library above
+    ``P_NARROW``). Raises on a tensor the kernel does not take (not float32
+    or int32, wrong device, shape or layout; it never casts), and when that
+    library fails to build, load or launch. The form's operands are
+    checked on the card and launched from their host copies
+    (``_host_copy``), or on the wide route from padded device copies
+    (``_wide_form``)."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
     dev = theta.device
-    if P > P_MAX:
-        raise ValueError(
-            f"kernel B1 takes at most P = {P_MAX} parameters, got {P} "
-            "(larger P is ROADMAP queue B1's open item)"
-        )
     if P < 1:
         raise ValueError(f"kernel B1 takes at least one parameter, got P = {P}")
     if chunk < 1 or K < 1:
@@ -280,22 +300,31 @@ def _launch_chunk(
         if store
         else None
     )
+    wide = P > P_NARROW
     try:
-        fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5,
-                         kernel_variant(P, inv_mass_diag is None))
+        if wide:
+            fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 6, kernel_variant(P, True))
+        else:
+            fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5,
+                             kernel_variant(P, inv_mass_diag is None))
     except (RuntimeError, OSError) as e:
         raise RuntimeError(f"kernel B1 for P = {P} failed to build or load: {e}") from e
-    # the form's operands (inv_mass, A, mu) go in as host copies
-    host = [_host_copy(x) for _, x, _, _ in operands[11:]]
-    ptrs = [x.data_ptr() for _, x, _, _ in operands[:11]] + [h.data_ptr() for h in host]
-    if inv_mass_diag is None:
-        ptrs.insert(11, None)
+    if wide:  # the form's operands (inv_mass, A, mu) as padded device copies
+        P4 = (P + 3) // 4 * 4
+        form_ops = list(_wide_form(form, inv_mass_diag, P4))
+        sizes = (P, P4)
+    else:  # as host copies
+        form_ops = [None if inv_mass_diag is None else _host_copy(inv_mass_diag),
+                    _host_copy(form.A), _host_copy(form.mu)]
+        sizes = (P,)
+    ptrs = [x.data_ptr() for _, x, _, _ in operands[:11]]
+    ptrs += [None if x is None else x.data_ptr() for x in form_ops]
     ptrs += [x.data_ptr() for x in outs]
     ptrs += [x.data_ptr() for x in hist] if store else [None] * 4
     max_steps = max(int(steps * 1.1), 1)
     with torch.cuda.device(dev):
-        rc = fn(*ptrs, P, K, chunk, int(steps), max_steps, _build.stream(dev))
-    _build.raise_on(rc, f"B1 (P = {P})")
+        rc = fn(*ptrs, *sizes, K, chunk, int(steps), max_steps, _build.stream(dev))
+    _build.raise_on(rc, f"B1 (P = {P}{', wide route' if wide else ''})")
     KERNEL_LAUNCHES += 1
     t_o, lp_o, ev_o, ea_o, evr_o, en_o, ec_o = outs
     return t_o, lp_o, AdaptiveScale(ev_o, ea_o, evr_o, en_o, ec_o), hist
@@ -338,12 +367,6 @@ def plan_fused_hmc(
         raise ValueError(
             f"[ fused hmc ] the GaussianForm has {form.A.shape[0]} parameters, "
             f"the chains have {n_parameters}."
-        )
-    if n_parameters > P_MAX:
-        raise ValueError(
-            f"[ fused hmc ] the fused kernel takes at most {P_MAX} "
-            f"parameters, got {n_parameters} (larger P is ROADMAP queue "
-            "B1's open item)."
         )
     im = None
     if inverse_mass is not None:

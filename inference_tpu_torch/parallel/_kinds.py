@@ -6,10 +6,10 @@ full inverse-mass maps. The other kinds raise and name the ROADMAP queue
 item that ports them.
 """
 
-import numpy as np
 import torch
 
 from ..mcmc._kernels import hmc as hmc_kernel
+from ..mcmc.hmc.mass import get_particle_mass
 
 KINDS = ("hmc", "nuts", "gibbs", "metropolis", "pca", "ensemble")
 
@@ -39,33 +39,13 @@ def build_mass_maps(n_parameters, dtype, device, inverse_mass=None):
     """
     Batched inverse-mass application ``r -> velocity`` and momentum map
     ``z -> r`` from standard normals ``z``, both over ``(K, P)``, for a
-    scalar, vector (diagonal) or full-matrix inverse mass. For a full
-    matrix with Cholesky factor M^-1 = L L^T, ``r = L^-T z`` gives
-    cov(r) = M; L^-T is computed once on the host.
+    scalar, vector (diagonal) or full-matrix inverse mass: the maps of
+    ``mcmc.hmc.mass``. None is unit mass.
     """
     if inverse_mass is None:
         return (lambda r: r, lambda z: z)
-    inv_mass = np.asarray(inverse_mass, dtype=float)
-    if inv_mass.ndim <= 1:
-        diag = np.broadcast_to(inv_mass, (n_parameters,)).copy()
-        if (diag <= 0).any():
-            raise ValueError("inverse mass values must all be positive")
-        im = torch.as_tensor(diag, dtype=dtype, device=device)
-        sqrt_mass = 1.0 / torch.sqrt(im)
-        return (lambda r: r * im, lambda z: z * sqrt_mass)
-    if inv_mass.shape != (n_parameters, n_parameters):
-        raise ValueError(
-            f"matrix inverse mass must have shape "
-            f"({n_parameters}, {n_parameters}), got {inv_mass.shape}"
-        )
-    chol = np.linalg.cholesky(inv_mass)  # raises if not positive-definite
-    from scipy.linalg import solve_triangular
-
-    linv_t = solve_triangular(chol, np.eye(n_parameters), lower=True).T
-    im = torch.as_tensor(inv_mass, dtype=dtype, device=device)
-    linv_t = torch.as_tensor(linv_t, dtype=dtype, device=device)
-    # per chain: velocity = M^-1 r and r = L^-T z, written for row batches
-    return (lambda r: r @ im.T, lambda z: z @ linv_t.T)
+    mass = get_particle_mass(inverse_mass, n_parameters, dtype, device)
+    return mass.get_velocity, mass.momentum
 
 
 def build_kind(
@@ -90,6 +70,9 @@ def build_kind(
 
     ``logp_fn`` is the per-chain ``(P,) -> ()`` posterior; it is batched
     with ``torch.func.vmap`` and differentiated with ``torch.func.grad``.
+
+    :param bounds: optional ``utils.Bounds``: reflecting boundaries of the
+        bounded leapfrog.
     """
     require_ported(kind)
     mass_velocity, mass_sample = build_mass_maps(
@@ -100,7 +83,7 @@ def build_kind(
         torch.func.vmap(torch.func.grad(logp_fn)),
         mass_velocity=mass_velocity,
         mass_sample=mass_sample,
-        bounds_reflect=bounds,
+        bounds_reflect=None if bounds is None else bounds.reflect_momenta,
         retry=retry,
     )
 

@@ -55,14 +55,15 @@ class ChainArray:
     :param steps: nominal leapfrog steps per proposal.
     :param inverse_mass: scalar, (P,) diagonal, or full (P, P) matrix
         inverse mass.
-    :param bounds: reflecting bounds are not ported yet (ROADMAP queue A7).
+    :param bounds: optional ``utils.Bounds`` for the bounded leapfrog of
+        the batched transition.
     :param retry: repeat-until-accept proposals (the reference semantics)
         when True; textbook duplicate-on-reject MH when False.
     :param fused: "auto" (default) / True / False. True runs the advance
         through the fused whole-trajectory kernel B1 (``ops.hmc_fused``;
         its plain version on the CPU); it requires ``retry=False``, no
         bounds, unit/scalar/diagonal inverse mass and a ``GaussianForm``
-        posterior with at most 64 parameters. "auto" and False run the
+        posterior, as the JAX package's kernel does. "auto" and False run the
         batched transition of ``mcmc/_kernels/hmc.py``, as the JAX package
         does.
     :param mesh: device meshes are not ported yet (ROADMAP queue A13).

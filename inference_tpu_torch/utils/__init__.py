@@ -1,7 +1,9 @@
 from .device import resolve_device
 from .dtypes import default_float
 from .random import make_generator
-from .wrap import as_device_logp
+from .wrap import as_device_logp, validate_posterior
+from .bounds import Bounds, reflect_to_bounds
+from .progress import ChainProgressPrinter
 from .ess import effective_sample_size, effective_sample_size_batched
 from .diagnostics import split_rhat, rank_normalized_rhat
 
@@ -10,6 +12,10 @@ __all__ = [
     "default_float",
     "make_generator",
     "as_device_logp",
+    "validate_posterior",
+    "Bounds",
+    "reflect_to_bounds",
+    "ChainProgressPrinter",
     "effective_sample_size",
     "effective_sample_size_batched",
     "split_rhat",

@@ -52,3 +52,17 @@ def as_device_logp(fn, example):
         return fn(theta).reshape(())
 
     return logp
+
+
+def validate_posterior(posterior, start, error_source: str = "MarkovChain"):
+    """
+    Validate the posterior callable on the start point (a ``(P,)`` tensor)
+    and return it as ``as_device_logp`` does: it must be callable and
+    return a finite scalar tensor there. A numpy-only posterior raises,
+    naming ROADMAP queue A1.
+    """
+    if not callable(posterior):
+        raise ValueError(
+            f"[ {error_source} error ] The given 'posterior' is not a callable object."
+        )
+    return as_device_logp(posterior, start)

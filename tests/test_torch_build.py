@@ -115,12 +115,13 @@ def _chunk(P, K=8, dtype=torch.float32):
 
 @pytest.mark.parametrize("P, dtype, error, message", [
     (0, torch.float32, ValueError, "at least one parameter"),
-    (65, torch.float32, ValueError, "at most P = 64"),
+    (65, torch.float32, ValueError, "CUDA tensors"),
     (3, torch.float64, TypeError, "float64"),
 ])
 def test_wrapper_refuses_before_any_build(P, dtype, error, message, stub_nvcc):
-    """P = 0, P > 64 and non-float32 operands raise in the wrapper, before
-    any library is built."""
+    """P = 0, non-float32 operands and CPU tensors raise in the wrapper,
+    before any library is built; P > 64 (the wide route) passes every check
+    but the device."""
     build_dir, calls = stub_nvcc
     args, kw = _chunk(P, dtype=dtype)
     with pytest.raises(error, match=message):
@@ -162,10 +163,16 @@ def test_b2_failed_build_names_b2_and_d(stub_nvcc, tmp_path, monkeypatch):
 
 
 def test_kernel_variant_is_one_per_parameter_count_and_mass():
+    """One library per P and kind of mass up to P_NARROW (64), the one wide
+    library (-DB1_P=0) for every larger P and either mass."""
     assert hmc_fused.kernel_variant(10, True) == (("B1_P", 10), ("B1_UNIT", 1))
-    variants = {hmc_fused.kernel_variant(P, unit) for P in range(1, hmc_fused.P_MAX + 1)
+    variants = {hmc_fused.kernel_variant(P, unit) for P in range(1, hmc_fused.P_NARROW + 1)
                 for unit in (True, False)}
     assert len(variants) == 128
+    wide = {hmc_fused.kernel_variant(P, unit) for P in (65, 100, 256, 1000)
+            for unit in (True, False)}
+    assert wide == {(("B1_P", 0),)}
+    assert _build.library_path("hmc_fused", (("B1_P", 0),)).name.startswith("hmc_fused_B1_P0_")
 
 
 def test_host_copy_is_kept_until_the_tensor_changes():

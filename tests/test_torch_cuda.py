@@ -1,10 +1,11 @@
-"""Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu), B2
+"""Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu, and its wide
+route for P > 64), B2
 (inference_tpu_torch/ops/csrc/sqexp.cu), B3-B8 (ops/csrc/sqexp_fused.cu,
 sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
 sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
-checks; the fused ChainArray, the GpRegressor and the LargeScaleGP end to
-end.
+checks; the fused ChainArray, HamiltonianChain and a models.Posterior on
+the card, the GpRegressor and the LargeScaleGP end to end.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -135,6 +136,144 @@ def test_fused_chain_array_on_card(cuda):
     assert abs(sample.mean(axis=0)).max() < 0.05
     np.testing.assert_allclose(np.cov(sample.T), cov, atol=0.05)
     assert ca.rhat().max() < 1.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "P, K, inv_temp, diag_mass",
+    [(65, 4096, 1.0, False), (100, 4096, 0.5, True), (256, 2048, 1.0, False),
+     (129, 1000, 1.0, "scalar")],
+)
+def test_wide_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mass):
+    """B1's wide route (P > 64, one library): one transition agrees with the
+    plain version per chain within the float32 tolerance on >= 99.9% of the
+    chains, with unit, scalar and diagonal mass, tempering and a ragged
+    last block; each launch counts once."""
+    form, args = _chunk_inputs(cuda, P, K, 1, inv_temp, seed=P)
+    im = (torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, P),
+                          dtype=torch.float32, device=cuda) if diag_mass else None)
+    if diag_mass == "scalar":
+        im = torch.full((P,), 0.7, device=cuda)
+    kw = dict(form=form, steps=50, inv_mass_diag=im, store=False)
+    before = hmc_fused.KERNEL_LAUNCHES
+    k = hmc_fused._launch_chunk(*args, **kw)
+    p = hmc_fused._reference_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    assert hmc_fused.KERNEL_LAUNCHES == before + 1
+    ok = _close(k[0], p[0]).all(dim=0) & _close(k[1], p[1]) & _close(k[2].value, p[2].value)
+    ok &= (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
+    assert float(ok.float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_wide_kernel_matches_plain_stored_chunk(cuda):
+    """A stored 64-transition chunk at P = 100 on the wide route: the first
+    transition and every step count agree per chain, and the accept
+    fraction of every transition agrees to 1e-3."""
+    form, args = _chunk_inputs(cuda, 100, 4096, 64, 1.0, seed=30)
+    kw = dict(form=form, steps=50, inv_mass_diag=None, store=True)
+    hk = hmc_fused._launch_chunk(*args, **kw)[3]
+    hp = hmc_fused._reference_chunk(*args, **kw)[3]
+    torch.cuda.synchronize()
+    first = _close(hk[0][0], hp[0][0]).all(dim=0) & (hk[2] == hp[2]).all(dim=0)
+    assert float(first.float().mean()) >= 0.999
+    theta = args[0]
+    accepted = lambda h: (h[0] != torch.cat([theta[None], h[0][:-1]])).any(dim=1)
+    assert float((accepted(hk).float().mean(dim=1)
+                  - accepted(hp).float().mean(dim=1)).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wide_launcher_refuses_bad_sizes(cuda):
+    """The wide library refuses P < 1, a P4 that is not P rounded up to a
+    multiple of 4 and a missing form."""
+    fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 6, hmc_fused.kernel_variant(100, True))
+    A = torch.zeros((100, 100), device=cuda)
+    mu = torch.zeros(100, device=cuda)
+    for P, P4, a in ((100, 101, A), (0, 0, A), (100, 100, None)):
+        ptrs = [None] * 12 + [None if a is None else a.data_ptr(), mu.data_ptr()] + [None] * 11
+        assert fn(*ptrs, P, P4, 256, 1, 10, 11, _build.stream(cuda)) == 1
+
+
+@pytest.mark.cuda
+def test_fused_chain_array_at_one_hundred_parameters_on_card(cuda):
+    """ChainArray(fused=True) at P = 100 takes B1's wide route on the card
+    and samples the Gaussian: pooled variances within 10%."""
+    P = 100
+    rng = np.random.default_rng(1)
+    B = rng.normal(size=(P, P)) / np.sqrt(P)
+    cov = B @ B.T + np.eye(P)
+    starts = rng.multivariate_normal(np.zeros(P), cov, 4096)
+    ca = ChainArray("hmc", GaussianForm(torch.as_tensor(np.linalg.inv(cov))), starts, steps=30,
+                    epsilon=0.2, retry=False, fused=True, device=cuda, seed=2)
+    before = hmc_fused.KERNEL_LAUNCHES
+    ca.advance(64, store=False)
+    ca.advance(128, store=True, thin=8)
+    assert hmc_fused.KERNEL_LAUNCHES - before == 1 + 2
+    rel = np.abs(ca.get_sample().var(axis=0) / np.diag(cov) - 1.0)
+    assert rel.max() < 0.10
+
+
+def _bounded_gaussian_chain(device, seed):
+    from inference_tpu_torch import Bounds, HamiltonianChain
+
+    cov = np.array([[1.0, 0.5, 0.0], [0.5, 2.0, 0.3], [0.0, 0.3, 0.5]])
+    bounds = Bounds([-0.5, -8.0, -8.0], [8.0, 8.0, 8.0])
+    return HamiltonianChain(GaussianForm(torch.as_tensor(np.linalg.inv(cov))),
+                            start=np.full(3, 0.1), bounds=bounds, display_progress=False,
+                            seed=seed, device=device)
+
+
+@pytest.mark.cuda
+def test_hamiltonian_chain_on_card_matches_cpu(cuda):
+    """HamiltonianChain on the card against the same chain on the CPU, by
+    statistics: every sample inside the bounds, each mean within 5 joint
+    standard errors (sd / sqrt(ESS)), and save, load and advance on the
+    card."""
+    from inference_tpu_torch import HamiltonianChain
+    from inference_tpu_torch.utils import effective_sample_size
+
+    chains = {}
+    for device in (cuda, "cpu"):
+        chain = _bounded_gaussian_chain(device, seed=3)
+        chain.steps = 20
+        chain.advance(600)
+        chains[str(torch.device(device).type)] = chain
+    moments = []
+    for chain in chains.values():
+        s = chain.get_sample(burn=100)
+        assert chain.bounds.inside(s)
+        ess = np.array([effective_sample_size(s[:, i]) for i in range(3)])
+        moments.append((s.mean(axis=0), s.var(axis=0), ess))
+    (m1, v1, e1), (m2, v2, e2) = moments
+    assert (np.abs(m1 - m2) / np.sqrt(v1 / e1 + v2 / e2)).max() < 5.0
+    card = chains["cuda"]
+    path = _build.BUILD_DIR.parent / "test_hamiltonian_card.npz"
+    card.save(str(path))
+    loaded = HamiltonianChain.load(str(path), posterior=card.posterior, device=cuda)
+    path.unlink()
+    loaded.advance(20)
+    assert loaded.chain_length == card.chain_length + 20
+
+
+@pytest.mark.cuda
+def test_posterior_on_card_inside_chain_array(cuda):
+    """A models.Posterior with its data on the card goes into ChainArray on
+    the card and finds the straight line's least-squares fit."""
+    from inference_tpu_torch.models import GaussianLikelihood, Posterior, UniformPrior
+
+    rng = np.random.default_rng(1)
+    x = np.linspace(1, 10, 10)
+    y = 2.0 * x + 1.0 + rng.normal(0.0, 2.0, x.size)
+    xs = torch.as_tensor(x, dtype=torch.float32, device=cuda)
+    post = Posterior(GaussianLikelihood(y, np.full(10, 2.0), lambda t: t[0] * xs + t[1], device=cuda),
+                     UniformPrior([0.0, -5.0], [5.0, 5.0], [0, 1], device=cuda))
+    starts = rng.uniform([1.5, -1.0], [2.5, 1.0], size=(1024, 2))
+    ca = ChainArray("hmc", post, starts, steps=10, epsilon=0.1, retry=False, seed=1, device=cuda)
+    ca.advance(200, store=True)
+    mean = ca.get_sample(burn=50).mean(axis=0)
+    fit = np.polyfit(x, y, 1)
+    assert abs(mean[0] - fit[0]) < 0.05 and abs(mean[1] - fit[1]) < 0.3
 
 
 @pytest.mark.cuda

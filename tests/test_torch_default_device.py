@@ -7,8 +7,10 @@ import numpy as np
 import pytest
 import torch
 
-from inference_tpu_torch import convert
+from inference_tpu_torch import convert, models
+from inference_tpu_torch.bench import dense_hmc, headline
 from inference_tpu_torch.gp import GpLinearInverter, GpRegressor, LargeScaleGP
+from inference_tpu_torch.mcmc import HamiltonianChain
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -26,6 +28,18 @@ ENTRY_POINTS = {
     }),
     "LargeScaleGP": lambda: LargeScaleGP(_X, _Y, _ERR, hyperpars=[0.0, 0.0], block_size=128,
                                          solver="df64"),
+    "HamiltonianChain": lambda: HamiltonianChain(GaussianForm(torch.eye(2)), start=np.zeros(2),
+                                                 display_progress=False),
+    "HamiltonianChain.from_items": lambda: HamiltonianChain.from_items({}),
+    "GaussianLikelihood": lambda: models.GaussianLikelihood([1.0], [1.0], lambda t: t),
+    "CauchyLikelihood": lambda: models.CauchyLikelihood([1.0], [1.0], lambda t: t),
+    "LogisticLikelihood": lambda: models.LogisticLikelihood([1.0], [1.0], lambda t: t),
+    "GaussianPrior": lambda: models.GaussianPrior(0.0, 1.0, 0),
+    "ExponentialPrior": lambda: models.ExponentialPrior(1.0, 0),
+    "UniformPrior": lambda: models.UniformPrior(0.0, 1.0, 0),
+    "mass_from_numpy": lambda: convert.mass_from_numpy(1.0, 2),
+    "bench.headline": lambda: headline.sweep(chains=(4,), work=4),
+    "bench.dense_hmc": lambda: dense_hmc.main([]),
 }
 
 

@@ -11,7 +11,8 @@ import pytest
 import inference_tpu_torch
 import inference_tpu_torch.ops
 
-PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops")
+PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
+         "inference_tpu_torch.models")
 PORT_ONLY = {"GaussianForm"}
 # the JAX package's names from these paths that the port does not define
 # yet, each a ROADMAP item (A11-A13)

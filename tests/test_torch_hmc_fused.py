@@ -275,9 +275,10 @@ def test_fused_gating():
         ChainArray("gibbs", form, starts, fused=True, device="cpu")
     with pytest.raises(ValueError, match="GaussianForm"):
         ChainArray("hmc", lambda t: -0.5 * (t * t).sum(), starts, retry=False, fused=True, device="cpu")
-    with pytest.raises(ValueError, match="at most 64"):
-        ChainArray("hmc", GaussianForm(torch.eye(65)), np.zeros((4, 65)),
-                   retry=False, fused=True, device="cpu")
+    # any P takes the kernel, as in the JAX package (the wide route above 64)
+    wide = ChainArray("hmc", GaussianForm(torch.eye(65)), np.zeros((4, 65)),
+                      retry=False, fused=True, device="cpu")
+    assert wide._fused_plan is not None
 
     ca = ChainArray("hmc", form, starts, retry=False, fused="auto", device="cpu")
     assert ca._fused_plan is None
@@ -293,3 +294,38 @@ def test_fused_set_inverse_mass_rebuilds_plan():
     assert ca._fused_plan.inv_mass_diag == (1.0, 4.0)
     ca.advance(3, store=True)
     assert ca.get_sample().shape == (3 * 16, 2)
+
+
+def test_fused_chain_array_at_one_hundred_parameters_matches_jax(float64):
+    """ChainArray(fused=True) with a 100-parameter GaussianForm runs on the
+    CPU (kernel B1's plain version; the card takes B1's wide route), and its
+    advance equals the JAX package's CPU route for fused chunks of fewer than
+    128 chains (``_reference_chunk``) on the same draws, to 1e-10 in
+    float64."""
+    P, K, n, steps = 100, 48, 3, 10
+    rng = np.random.default_rng(100)
+    B = rng.normal(size=(P, P)) / np.sqrt(P)
+    A = np.linalg.inv(B @ B.T + np.eye(P))
+    mu = rng.normal(0, 0.3, P)
+    starts = mu + rng.normal(0, 0.3, (K, P))
+    ca = ChainArray("hmc", GaussianForm(torch.as_tensor(A), torch.as_tensor(mu)), starts,
+                    steps=steps, epsilon=0.15, retry=False, fused=True, seed=4, device="cpu")
+    assert ca._fused_plan is not None
+    state0 = ca._state
+    ca.advance(n, store=True)
+
+    # the draws the advance took: one chunk, from the array's generator seed
+    gen = torch.Generator().manual_seed(4)
+    z = torch.randn((n, P, K), generator=gen)
+    us, ua = torch.rand((n, K), generator=gen), torch.rand((n, K), generator=gen)
+    eps = {f: getattr(state0.eps, f).numpy() for f in AdaptiveScale._fields}
+    draws = {"z": z.numpy(), "us": us.numpy(), "ua": ua.numpy()}
+    t, lp, e, hist = _jax_chunk(A, mu, state0.theta.numpy().T.copy(), eps, draws, 1.0,
+                                steps, None)
+    np.testing.assert_allclose(ca.theta, t.T, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ca.logp, lp, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(ca._state.eps.value.numpy(), e[0], rtol=1e-10)
+    np.testing.assert_allclose(np.concatenate(ca._history), np.swapaxes(hist[0], 1, 2),
+                               rtol=1e-10, atol=1e-12)
+    moved = (np.abs(np.diff(np.concatenate(ca._history), axis=0)).max(axis=2) > 0).mean()
+    assert 0.0 < moved < 1.0

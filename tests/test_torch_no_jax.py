@@ -21,6 +21,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.ops.solvers",
         "inference_tpu_torch.probes, inference_tpu_torch.probes.vpu_probe, "
         "inference_tpu_torch.probes.df64_ablate, inference_tpu_torch.probes.df64_mxu_d2_experiment",
+        "inference_tpu_torch.mcmc, inference_tpu_torch.mcmc.hmc, inference_tpu_torch.mcmc.base, "
+        "inference_tpu_torch.mcmc.utilities, inference_tpu_torch.utils.bounds, "
+        "inference_tpu_torch.utils.progress, inference_tpu_torch.utils.history",
+        "inference_tpu_torch.models, inference_tpu_torch.models.likelihoods, "
+        "inference_tpu_torch.models.priors, inference_tpu_torch.models.posterior",
+        "inference_tpu_torch.bench, inference_tpu_torch.bench.headline, "
+        "inference_tpu_torch.bench.dense_hmc",
         "chip_smoke",
     ],
 )
