@@ -50,7 +50,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    model's means and variances against its exact FP64 posterior); (d)
    ``HamiltonianChain`` on the card, a bounded 10-dim problem for 2,000
    steps (10 leapfrog steps a proposal) against the same chain on the CPU
-   for 1,000, and a save, load and advance;
+   for 1,000, its device operations per transition counted by
+   ``torch.profiler``, and a save, load and advance;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -660,7 +661,8 @@ def phase_hamiltonian():
     chain on the CPU for 1,000 steps (transitions/s); their moments after a
     burn-in of 200 held to each other: each mean within 5 joint standard
     errors (sd / sqrt(ESS) of each chain), each variance ratio within 5 x
-    sqrt(2/ESS + 2/ESS) of 1; then save, load and advance 50 more on the
+    sqrt(2/ESS + 2/ESS) of 1; the card chain's device operations over 20
+    more transitions counted; then save, load and advance 50 more on the
     card, and 100 steps on the card with the gradient by autograd. Returns
     {run: transitions/s}."""
     rates = {}
@@ -690,6 +692,7 @@ def phase_hamiltonian():
           f"CPU {e2.min()}-{e2.max()}; the cut parameter's mean {m1[0]:.4f} / {m2[0]:.4f}")
     if z.max() > 5.0 or r.max() > 5.0:
         raise RuntimeError("HamiltonianChain: the card's moments disagree with the CPU's")
+    _profile_chain(chains["cuda"])
     path = _build.BUILD_DIR.parent / "chip_smoke_hamiltonian.npz"
     chains["cuda"].save(str(path))
     loaded = HamiltonianChain.load(str(path), posterior=chains["cuda"].posterior, device="cuda")
@@ -707,6 +710,25 @@ def phase_hamiltonian():
     print(f"[hamiltonian] cuda with the gradient by autograd: 100 steps at "
           f"{rates['cuda autograd']:.2f} transitions/s")
     return rates
+
+
+def _profile_chain(chain, n=20):
+    """torch.profiler over ``advance(n)`` of one chain on the card: device
+    operations (kernels and copies) per transition and per leapfrog step,
+    the steps of rejected attempts and each attempt's bookkeeping included."""
+    done = chain.chain_length
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        chain.advance(n)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+    leapfrog = int(np.sum(chain.leapfrog_steps[done:]))
+    print(f"[hamiltonian] torch.profiler over advance({n}) on the card: {ops} device "
+          f"operations, {ops / n:.1f} per transition, {ops / leapfrog:.1f} per leapfrog "
+          f"step ({leapfrog} steps)")
+    if ops == 0:
+        raise RuntimeError("HamiltonianChain: the profiler saw no device operation")
 
 
 # ---------------------------------------------------------------------------

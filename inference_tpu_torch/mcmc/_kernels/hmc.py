@@ -7,9 +7,8 @@ chains at once: positions are ``(K, P)`` and every per-chain scalar is
 
 - The leapfrog runs as a Python loop to the batch's largest jittered step
   count ``n = int(steps * (1 + (U - 0.5) * 0.2))``, with each chain masked
-  once its own count is done (the per-proposal count is data-dependent);
-  a batch of one chain needs no mask. A count of zero is raised to one,
-  which is what the JAX step takes.
+  once its own count is done (the per-proposal count is data-dependent).
+  A count of zero is raised to one, which is what the JAX step takes.
 - With ``retry=True`` the repeat-until-accept loop is a host loop over the
   chains that have not accepted yet, for at most ``max_attempts`` trips.
 - Randomness comes from an explicit ``torch.Generator``. The standard
@@ -103,28 +102,18 @@ def make_hmc_step(
     def leapfrog(t, r, n_steps, epsilon, inv_temp):
         r_step = (inv_temp * epsilon)[:, None]
         eps_col = epsilon[:, None]
-
-        def drift_kick(t, r, kick_step):
-            t = t + eps_col * mass_velocity(r)
-            if bounds_reflect is not None:
-                t, reflections = bounds_reflect(t)
-                r = r * reflections
-            return t, r + kick_step * grad_fn(t)
-
-        r = r + (0.5 * r_step) * grad_fn(t)
-        n_max = int(n_steps.max())
-        if t.shape[0] == 1:
-            # one chain: every step is active, so no masking (the same bits)
-            half_step = 0.5 * r_step
-            for i in range(n_max):
-                t, r = drift_kick(t, r, half_step if i == n_max - 1 else r_step)
-            return t, r
         half = torch.full_like(epsilon, 0.5)
         one = torch.ones_like(epsilon)
-        for i in range(n_max):
+        r = r + (0.5 * r_step) * grad_fn(t)
+        for i in range(int(n_steps.max())):
             active = (i < n_steps)[:, None]
             kick = torch.where(i == n_steps - 1, half, one)[:, None]
-            t2, r2 = drift_kick(t, r, kick * r_step)
+            t2 = t + eps_col * mass_velocity(r)
+            r2 = r
+            if bounds_reflect is not None:
+                t2, reflections = bounds_reflect(t2)
+                r2 = r2 * reflections
+            r2 = r2 + (kick * r_step) * grad_fn(t2)
             t = torch.where(active, t2, t)
             r = torch.where(active, r2, r)
         return t, r

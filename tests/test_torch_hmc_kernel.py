@@ -210,26 +210,3 @@ def test_bounds_not_ported():
         ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2)), bounds=bounds,
                    retry=False, fused=True, device="cpu")
 
-
-@pytest.mark.parametrize("bounded", [False, True])
-def test_one_chain_step_equals_the_masked_batch(float64, bounded):
-    """A batch of one chain skips the step mask; its transition is bit for
-    bit the masked batch's for the same chain beside a twin (on a posterior
-    of elementwise operations, whose rounding does not depend on the batch
-    size as a matrix product's may)."""
-    from inference_tpu_torch.utils import Bounds
-
-    _, theta, eps, z, us, ua = _transition_inputs(3, 2, 1, seed=8)
-    w = torch.tensor([1.0, 2.5, 0.7])
-    form = lambda t: -0.5 * (t * t * w).sum(-1)
-    reflect = Bounds(np.full(3, -0.8), np.full(3, 0.9)).reflect_momenta if bounded else None
-    step = hmc.make_hmc_step(torch.func.vmap(form), torch.func.vmap(torch.func.grad(form)),
-                             bounds_reflect=reflect, retry=False)
-    t = torch.as_tensor(np.clip(theta[:1], -0.7, 0.8))
-    one = hmc.init_hmc_state(t, form(t), 0.3, steps=12)
-    two = hmc.init_hmc_state(t.repeat(2, 1), form(t.repeat(2, 1)), 0.3, steps=12)
-    draws = [torch.as_tensor(x[0, :1]) for x in (z, us, ua)]
-    s1, o1 = step(one, None, *draws)
-    s2, o2 = step(two, None, *(d.repeat(2, *([1] * (d.ndim - 1))) for d in draws))
-    assert torch.equal(s1.theta[0], s2.theta[0]) and torch.equal(s1.logp[0], s2.logp[0])
-    assert torch.equal(o1.leapfrog_steps[0], o2.leapfrog_steps[0])
