@@ -42,9 +42,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``bench.py``'s chain sweep, 1,024 to 131,072 chains), its JSON line;
 5. plain path: the same ChainArray with ``fused=False``, 16 transitions
    timed; then
-   (a) kernel B1's wide route (P > 64) against its plain version at P = 65,
-   100 and 256, timed at each beside its bound, and
-   ``ChainArray(fused=True)`` at P = 100 (launches, variances); (c) the
+   (a) kernel B1's wide route (P > 64): its plans (chains a block, A
+   resident or streamed) and the SASS mix of each wide kernel's product
+   loop, then against its plain version at P = 65, 100 and 256, timed at
+   each beside its bound and the warp-per-chain design's time with the
+   steps its blocks take beyond the chains' own, and
+   ``ChainArray(fused=True)`` at P = 100 and
+   256, 16,384 chains (attempts/s, launches, variances); (c) the
    dense HMC bench (``inference_tpu_torch.bench.dense_hmc``) at 4,096
    chains, both workloads checked (the Gaussian's variances; the forward
    model's means and variances against its exact FP64 posterior); (d)
@@ -372,8 +376,9 @@ def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2):
     """CUDA-event times of one 64-transition chunk of K chains with P
     parameters, unit mass, without history: the kernel in ``turns`` turns
     (with the plain version on the same inputs between them, if
-    ``plain``). Returns (kernel ms, plain ms or None, bound ms, bound by),
-    each time the lowest of its turns."""
+    ``plain``). Returns (kernel ms, plain ms or None, bound ms, bound by,
+    the step-count draws), each time the lowest of its turns. On the wide
+    route the plan's padded form is made once, as a plan holds it."""
     form, theta, logp, eps, it = _random_state(P, K, 7, 1.0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
@@ -381,6 +386,8 @@ def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2):
     us = torch.rand((64, K), generator=gen, device="cuda")
     ua = torch.rand((64, K), generator=gen, device="cuda")
     kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=None, store=False)
+    if P > hmc_fused.P_NARROW:
+        kw["padded"] = hmc_fused.wide_form(form)
     args = (theta, logp, eps, it, z, us, ua)
     reps = reps or (10 if P <= 32 else 3)
     times = []
@@ -395,7 +402,7 @@ def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2):
           + (", plain version " + " / ".join(f"{p:.3f}" for _, p in times)
              + " ms (plain, kernel, ...)" if plain else "")
           + f"; bound {bound_ms:.4f} ms ({bound_by}), {ms / bound_ms:.2f}x")
-    return ms, p_ms, bound_ms, bound_by
+    return ms, p_ms, bound_ms, bound_by, us
 
 
 def _b1_step_flops(P, unit=True):
@@ -526,27 +533,52 @@ def phase_plain_path():
 # ---------------------------------------------------------------------------
 
 
-def phase_b1_wide():
-    """Kernel B1's wide route: against its plain version at P = 65, 100 and
-    256 (one transition; at P = 100 also a stored chunk, with diagonal mass
-    and tempering), timed at each P at the main path's K beside its bound
-    (at P = 100 beside the plain version too), then driven through
-    ``ChainArray(fused=True)`` at P = 100, its launches counted from 0 and
-    its sample variances held to the covariance's. Returns (max abs error
-    of the one-transition checks, {P: (ms, plain ms, bound ms, bound by)},
-    launches of the ChainArray run)."""
-    _print_b1_wide_mix()
-    im = np.random.default_rng(6).uniform(0.5, 2.0, 100)
-    errs = [_compare("3g", 65, 16384, 1, False, 1.0, None, 17),
-            _compare("3h", 100, 16384, 1, False, 0.5, im, 18),
-            _compare("3i", 256, 8192, 1, False, 1.0, None, 19)]
-    _compare("3j", 100, 4096, 64, True, 1.0, None, 20)
-    # P = 256 takes 2.85 s a chunk (PR 10): one turn of one timed launch
-    times = {P: _time_chunk(P, plain=P == 100, reps=1 if P == 256 else 2,
-                            turns=1 if P == 256 else 2) for P in B1_WIDE_P}
+# the wide route's earlier design (one warp per chain for every P > 64), one
+# chunk at K = 65,536, unit mass: PERF.md section 6 (NVIDIA H100 80GB HBM3,
+# 700.00 W), quoted, not re-run
+WARP_DESIGN_MS = {65: 272.3725, 100: 409.6335, 256: 2856.1372}
 
-    P, K = 100, 16384
-    rng = np.random.default_rng(21)
+
+def _wide_plan_text(P, K):
+    plan = hmc_fused.wide_plan(P, K)
+    if not plan.tiled:
+        return f"P={P} K={K}: one warp per chain, {plan.chains} a block"
+    a = ("A resident" if plan.stages == 0 else
+         f"A streamed, a ring of {plan.stages} stages of {plan.slab} rows")
+    return (f"P={P} K={K}: C={plan.chains} chains a block, {plan.threads} threads of 8 x 4 tiles, "
+            f"{a}, {plan.smem} bytes of shared memory, {plan.blocks} blocks")
+
+
+def _wide_losses(us, P, steps=HMC_STEPS):
+    """The steps one chunk's draws cost the wide route's blocks beyond the
+    chains' own: in lockstep per transition, the tiled kernel's design
+    (sum over blocks and transitions of max(n) C over sum n), and had each
+    chain moved to its next transition at its own pace (sum over blocks of
+    the largest sum of n + 1 over the chunk, times C, over the chains' sum
+    of n + 1). Returns both ratios and the bytes of A the blocks read from
+    the L2 (a product of each transition's max(n) + 1 streams all of A
+    through a ring; a resident A is read once per block)."""
+    chunk, K = us.shape
+    plan = hmc_fused.wide_plan(P, K)
+    C = plan.chains
+    n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
+    n = n.clamp(min=1, max=max(int(steps * 1.1), 1))
+    pad = -K % C
+    n = torch.nn.functional.pad(n, (0, pad)).reshape(chunk, -1, C)
+    lockstep = float(n.amax(dim=2).sum() * C / n.sum())
+    own = (n + (n > 0)).sum(dim=0)
+    pace = float(own.amax(dim=1).sum() * C / own.sum())
+    products = float((n.amax(dim=2) + 1).sum()) if plan.stages else plan.blocks
+    return lockstep, pace, products * 4 * plan.rows * plan.depth
+
+
+def _wide_chain_array(P, K, seed):
+    """``ChainArray(fused=True)`` at P parameters and K chains on a random
+    Gaussian: 64 transitions, then 64 stored (thinned by 8), timed on the
+    host clock, launches counted from 0, sample variances against the
+    covariance's diagonal. Returns (attempts/s, launches, worst relative
+    variance error, max R-hat)."""
+    rng = np.random.default_rng(seed)
     B = rng.normal(size=(P, P)) / np.sqrt(P)
     cov = B @ B.T + np.eye(P)
     starts = rng.multivariate_normal(np.zeros(P), cov, K)
@@ -558,17 +590,53 @@ def phase_b1_wide():
     ca.advance(64, store=True, thin=8)
     seconds = time.perf_counter() - t0
     launches = hmc_fused.KERNEL_LAUNCHES
-    var = ca.get_sample().var(axis=0)
-    rel = np.abs(var / np.diag(cov) - 1.0)
+    rel = float(np.abs(ca.get_sample().var(axis=0) / np.diag(cov) - 1.0).max())
+    rhat = float(ca.rhat().max())
+    rate = K * 128 / seconds
     print(f"[b1 wide] ChainArray(fused=True), P={P}, K={K}: 128 transitions in {seconds:.3f} s "
-          f"({K * 128 / seconds:,.0f} attempts/s), {launches} launches of B1's wide route, sample "
-          f"variances within {rel.max():.4f} of the covariance's (relative), max rhat "
-          f"{ca.rhat().max():.5f}")
+          f"({rate:,.0f} attempts/s), {launches} launches of B1's wide route, sample "
+          f"variances within {rel:.4f} of the covariance's (relative), max rhat {rhat:.5f}")
     if launches == 0:
-        raise RuntimeError("the P = 100 ChainArray launched B1's wide route no time")
-    if rel.max() > 0.10:
-        raise RuntimeError(f"P = 100: sample variance off by {rel.max():.3f} (limit 0.10)")
-    return max(errs), times, launches
+        raise RuntimeError(f"the P = {P} ChainArray launched B1's wide route no time")
+    if rel > 0.10:
+        raise RuntimeError(f"P = {P}: sample variance off by {rel:.3f} (limit 0.10)")
+    return rate, launches, rel, rhat
+
+
+def phase_b1_wide():
+    """Kernel B1's wide route: its plans, then against its plain version at
+    P = 65, 100 and 256 (one transition; at P = 100 also a stored chunk,
+    with diagonal mass and tempering), timed at each P at the main path's K
+    beside its bound and the warp-per-chain design's time (at P = 100
+    beside the plain version too), with the steps its blocks cost beyond
+    the chains' own, then
+    driven through ``ChainArray(fused=True)`` at P = 100 and 256, 16,384
+    chains, its launches counted from 0 and its sample variances held to
+    the covariance's. Returns (max abs error of the one-transition checks,
+    {P: (ms, plain ms, bound ms, bound by, lockstep loss, pace loss, TB/s of
+    A from the L2)}, {P: ChainArray results})."""
+    for P, K in ((65, 16384), (100, 16384), (256, 8192), (100, 4096),
+                 *((P, N_CHAINS) for P in B1_WIDE_P)):
+        print(f"[b1 wide] plan {_wide_plan_text(P, K)}")
+    _print_b1_wide_mix()
+    im = np.random.default_rng(6).uniform(0.5, 2.0, 100)
+    errs = [_compare("3g", 65, 16384, 1, False, 1.0, None, 17),
+            _compare("3h", 100, 16384, 1, False, 0.5, im, 18),
+            _compare("3i", 256, 8192, 1, False, 1.0, None, 19)]
+    _compare("3j", 100, 4096, 64, True, 1.0, None, 20)
+    times = {}
+    for P in B1_WIDE_P:
+        ms, p_ms, bound_ms, by, us = _time_chunk(P, plain=P == 100, reps=2)
+        lockstep, pace, a_bytes = _wide_losses(us, P)
+        print(f"[b1 wide] P={P} K={N_CHAINS}: {ms:.4f} ms, {ms / bound_ms:.2f}x its bound "
+              f"{bound_ms:.4f} ms; the warp-per-chain design {WARP_DESIGN_MS[P]} ms (PERF.md, "
+              f"quoted), {WARP_DESIGN_MS[P] / ms:.2f}x this time; steps the blocks take over the chains' "
+              f"own: {lockstep:.4f} in lockstep per transition (this kernel; sum of max(n) C / "
+              f"sum n), {pace:.4f} had each chain moved at its own pace; A read from the L2 "
+              f"{a_bytes / 1e9:.2f} GB, {a_bytes / ms / 1e9:.3f} TB/s")
+        times[P] = (ms, p_ms, bound_ms, by, lockstep, pace, a_bytes / ms / 1e9)
+    chains = {P: _wide_chain_array(P, 16384, seed) for P, seed in ((100, 21), (256, 22))}
+    return max(errs), times, chains
 
 
 DENSE_CHAINS = 4096
@@ -1539,21 +1607,24 @@ def _print_fused_local_memory():
 
 def _b1_kernel(P, unit):
     """The SASS body of the kernel in B1's library for P parameters and
-    unit (else diagonal) mass, or None without cuobjdump."""
+    unit (else diagonal) mass (the wide library's resident tiled kernel
+    above P = 64), or None without cuobjdump."""
+    if P > hmc_fused.P_NARROW:
+        return _wide_body(WIDE_KERNELS[0][1])
     sass = _sass("hmc_fused", hmc_fused.kernel_variant(P, unit))
     if sass is None:
         return None
-    name = "hmc_wide_kernel" if P > hmc_fused.P_NARROW else "hmc_chunk_kernel"
-    return next(p for p in sass.split("Function : ")[1:] if name in p.split()[0])
+    return next(p for p in sass.split("Function : ")[1:] if "hmc_chunk_kernel" in p.split()[0])
 
 
 def _b1_leapfrog(P, body):
     """The leapfrog loop of one B1 kernel for P parameters (the innermost
     loop with a whole matvec, P^2 FFMA) as (opcode, operands) pairs, and
-    the leapfrog steps one trip of it runs; for the wide kernel its matvec
-    loop (16 FFMA a trip: 4 columns of a lane's 4 rows) and 0 steps."""
+    the leapfrog steps one trip of it runs; for the wide route's resident
+    tiled kernel its product loop (128 FFMA a trip: 4 rows of A against a
+    thread's 8 x 4 tile) and 0 steps."""
     if P > hmc_fused.P_NARROW:
-        return _hot_loop(body, "fp32", 16), 0
+        return _hot_loop(body, "fp32", 64), 0
     loop = _hot_loop(body, "fp32", P * P)
     if loop is None:
         return None, 0
@@ -1579,19 +1650,37 @@ def _print_b1_local_memory():
               f"{len(loop)}; {sum(o in call for o in ops)} call or return instructions")
 
 
+WIDE_KERNELS = (("tiled, A resident", "hmc_tile_kernelILi0EE"),
+                ("tiled, ring of 2", "hmc_tile_kernelILi2EE"),
+                ("tiled, ring of 3", "hmc_tile_kernelILi3EE"),
+                ("one warp per chain", "hmc_wide_kernel"))
+
+
+def _wide_body(fragment):
+    """The SASS body of the wide library's kernel whose name holds
+    ``fragment``, or None without cuobjdump."""
+    sass = _sass("hmc_fused", hmc_fused.kernel_variant(B1_WIDE_P[0], True))
+    if sass is None:
+        return None
+    return next(p for p in sass.split("Function : ")[1:] if fragment in p.split()[0])
+
+
 def _print_b1_wide_mix():
-    """The instruction mix of the wide kernel's matvec loop, per FFMA:
-    its loads of A (LDG) and of d (LDS) beside the multiply-adds."""
-    body = _b1_kernel(B1_WIDE_P[0], True)
-    loop = _b1_leapfrog(B1_WIDE_P[0], body)[0] if body else None
-    if not loop:
-        print("[sass] B1 wide: matvec loop not read (no cuobjdump or no loop found)")
-        return
-    ffma = sum(o == "FFMA" for o, _ in loop)
-    count = lambda ops: sum(o in ops for o, _ in loop)
-    print(f"[sass] B1 wide matvec loop: {len(loop)} instructions for {ffma} FFMA "
-          f"({len(loop) / ffma:.3f} per FFMA): LDG {count(('LDG',))}, LDS {count(('LDS',))}, "
-          f"other {len(loop) - ffma - count(('LDG', 'LDS'))}")
+    """The instruction mix of each wide kernel's product loop, per FFMA:
+    the tiled kernels' unrolled loop over j (4 rows of A a trip, 32 FFMA
+    each: 128), the warp kernel's (16 FFMA a trip); its loads of A and D
+    (LDS, or LDG for the warp kernel's A) beside the multiply-adds."""
+    for label, fragment in WIDE_KERNELS:
+        body = _wide_body(fragment)
+        loop = _hot_loop(body, "fp32", 16 if "warp" in label else 64) if body else None
+        if not loop:
+            print(f"[sass] B1 wide {label}: product loop not read (no cuobjdump or no loop found)")
+            continue
+        ffma = sum(o == "FFMA" for o, _ in loop)
+        count = lambda ops: sum(o in ops for o, _ in loop)
+        print(f"[sass] B1 wide {label}, product loop: {len(loop)} instructions for {ffma} FFMA "
+              f"({len(loop) / ffma:.3f} per FFMA): LDS {count(('LDS',))}, LDG {count(('LDG',))}, "
+              f"other {len(loop) - ffma - count(('LDG', 'LDS'))}")
 
 
 UNIFORM_REGISTER = re.compile(r"\bUR\d")
@@ -1842,7 +1931,7 @@ def main():
     _compare("3f", 64, 16384, 1, False, 1.0, None, 16)
     for P in (10, 32):
         _print_b1_leapfrog_mix(P)
-    b1 = {P: _time_chunk(P, plain=P == N_DIM) for P in B1_TIME_P}
+    b1 = {P: _time_chunk(P, plain=P == N_DIM)[:4] for P in B1_TIME_P}
     ms, plain_ms, b1_bound, b1_by = b1[N_DIM]
     launches, attempts, accept = phase_main_path()
     _, sweep = phase_headline()
@@ -1850,7 +1939,7 @@ def main():
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
           f"{plain_attempts:,.0f} ({attempts / plain_attempts:.2f}x)")
     t_new = time.perf_counter()
-    wide_err, wide, wide_launches = phase_b1_wide()
+    wide_err, wide, wide_chains = phase_b1_wide()
     t_dense = time.perf_counter()
     dense = phase_dense_hmc()
     t_chain = time.perf_counter()
@@ -1930,11 +2019,12 @@ def main():
         "chain_sweep_attempts_per_s": sweep,
     }, {
         "name": "hmc_fused_chunk_wide",
-        "kernel": "hmc_wide_kernel (any P > 64, one warp per chain)",
+        "kernel": "hmc_tile_kernel (a block of C chains shares each row of A; A resident in "
+                  "shared memory where it fits, else a cp.async ring; transitions in lockstep)",
         "route": "cuda",
         "source": "inference_tpu_torch/ops/csrc/hmc_fused.cu",
         "replaces": "inference_tpu/ops/hmc_fused.py:347",
-        "launches": wide_launches,
+        "launches": wide_chains[100][1],
         "max_abs_err": wide_err,
         "ms": wide[100][0],
         "plain_ms": wide[100][1],
@@ -1943,7 +2033,12 @@ def main():
         "library_ms": None,
         "P": 100,
         "variant": dict(hmc_fused.kernel_variant(100, True)),
-        "per_P": {P: {"ms": t[0], "bound_ms": t[2], "bound_by": t[3]} for P, t in wide.items()},
+        "per_P": {P: {"ms": t[0], "bound_ms": t[2], "bound_by": t[3], "warp_design_ms": WARP_DESIGN_MS[P],
+                      "lockstep_loss": t[4], "pace_loss": t[5], "a_from_l2_tb_per_s": t[6],
+                      "plan": hmc_fused.wide_plan(P, N_CHAINS)._asdict()}
+                  for P, t in wide.items()},
+        "chain_array": {P: {"attempts_per_s": c[0], "launches": c[1], "max_rel_var_err": c[2],
+                            "max_rhat": c[3]} for P, c in wide_chains.items()},
         "dense_hmc_4096": dense,
     }, {
         "name": "sqexp_kernel",

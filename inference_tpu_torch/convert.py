@@ -42,9 +42,11 @@ from .utils.dtypes import default_float
 N_HMC_LEAVES = 11
 
 
-def hmc_state_from_jax(leaves, device="cpu", dtype=None) -> HmcState:
-    """The port's ``HmcState`` from the 11 leaves of a JAX ``HmcState``.
-    Floating leaves take ``dtype`` (default: theta's own dtype)."""
+def hmc_state_from_jax(leaves, device="cuda", dtype=None) -> HmcState:
+    """The port's ``HmcState`` from the 11 leaves of a JAX ``HmcState``, on
+    ``device`` (the card unless the caller passes ``"cpu"``). Floating
+    leaves take ``dtype`` (default: theta's own dtype)."""
+    device = resolve_device(device, "hmc_state_from_jax")
     if len(leaves) != N_HMC_LEAVES:
         raise ValueError(
             f"an HmcState has {N_HMC_LEAVES} leaves, got {len(leaves)}"

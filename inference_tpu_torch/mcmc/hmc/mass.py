@@ -9,7 +9,8 @@ P)``: ``get_velocity`` applies the inverse mass to momenta, and
 ``momentum`` maps standard normals ``z`` to momenta whose covariance is
 the mass. ``sample_momentum`` draws those normals from a
 ``torch.Generator``, or takes them as given, where the JAX package takes
-a key.
+a key. Like the port's other entry points, each runs on the card unless
+the caller passes ``device="cpu"``, and raises without a card.
 """
 
 from abc import ABC, abstractmethod
@@ -17,6 +18,8 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 from scipy.linalg import issymmetric, solve_triangular
+
+from ...utils.device import resolve_device
 
 
 class ParticleMass(ABC):
@@ -26,7 +29,7 @@ class ParticleMass(ABC):
     def __init__(self, n_parameters: int, dtype, device):
         self.n_parameters = n_parameters
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device, type(self).__name__)
 
     def _tensor(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -52,7 +55,7 @@ class ParticleMass(ABC):
 class ScalarMass(ParticleMass):
     kind = "scalar"
 
-    def __init__(self, inv_mass: float, n_parameters: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, inv_mass: float, n_parameters: int, dtype=torch.float64, device="cuda"):
         super().__init__(n_parameters, dtype, device)
         self.inv_mass = float(inv_mass)
         if not self.inv_mass > 0.0:
@@ -71,7 +74,7 @@ class ScalarMass(ParticleMass):
 class VectorMass(ParticleMass):
     kind = "vector"
 
-    def __init__(self, inv_mass, n_parameters: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, inv_mass, n_parameters: int, dtype=torch.float64, device="cuda"):
         super().__init__(n_parameters, dtype, device)
         inv_mass = np.asarray(inv_mass, dtype=float)
         valid = (
@@ -99,7 +102,7 @@ class VectorMass(ParticleMass):
 class MatrixMass(ParticleMass):
     kind = "matrix"
 
-    def __init__(self, inv_mass, n_parameters: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, inv_mass, n_parameters: int, dtype=torch.float64, device="cuda"):
         super().__init__(n_parameters, dtype, device)
         inv_mass = np.asarray(inv_mass, dtype=float)
         valid = (
@@ -135,7 +138,7 @@ class MatrixMass(ParticleMass):
 
 
 def get_particle_mass(inverse_mass, n_parameters: int, dtype=torch.float64,
-                      device="cpu") -> ParticleMass:
+                      device="cuda") -> ParticleMass:
     """Dispatch scalar / 1D / 2D inverse-mass specifications, with the maps'
     tensors in ``dtype`` on ``device``."""
     if np.isscalar(inverse_mass):

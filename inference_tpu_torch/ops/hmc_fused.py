@@ -32,9 +32,11 @@ it, so every loop over P unrolls with no guards or padding and unit mass
 skips its multiplies by 1. The form (``A``, ``mu`` and the inverse mass)
 travels in each launch's kernel parameters, filled from host copies that
 ``_host_copy`` keeps. Above that one wide library serves every P and both
-kinds of mass (the wide route): one warp per chain, its state in shared
-memory, and the form read from zero-padded device copies
-(``_wide_form``).
+kinds of mass (the wide route), with the form as zero-padded device copies
+(``wide_form``, built once per plan) and sizes that ``wide_plan`` chooses
+per P and chain count: a block of chains shares each value of A it reads,
+A resident in shared memory where it fits and streamed through a ring
+above, or for the largest P one warp per chain.
 
 Restrictions of the kernel, as of the JAX package's: ``retry=False``, no
 reflecting bounds, unit/scalar/diagonal inverse mass, float32, one device.
@@ -42,6 +44,7 @@ On a CPU tensor the plain version runs instead; on a CUDA tensor the
 kernel launches or the wrapper raises.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -60,6 +63,22 @@ from . import _build
 
 _CHUNK = 64     # transitions per kernel launch
 P_NARROW = 64  # the largest parameter count with a library of its own
+
+# the wide route's tiled kernel (csrc/hmc_fused.cu, hmc_tile_kernel): a
+# thread's tile of the gradient is TILE_ROWS rows by TILE_CHAINS chains
+TILE_ROWS, TILE_CHAINS = 8, 4
+TILE_THREADS = 256        # most threads of a block
+TILE_CHAINS_MAX = 64      # most chains of a block
+CHAIN_WORDS = 11          # shared-memory words per chain
+SMEM_BLOCK = 232_448      # the 227 KB of shared memory a block may have
+SMEM_HALF = 115_712       # the most a block may have for two blocks to share an SM
+N_SMS = 132               # the H100's SMs: a plan keeps a block per SM where K allows
+# the rings that stream A, (rows per stage, stages), in the order they are
+# tried: the widest slabs first (the fewest barriers a product), then the
+# deepest
+RINGS = ((16, 3), (16, 2), (8, 3), (8, 2), (4, 3), (4, 2))
+# the warp-per-chain kernel (hmc_wide_kernel), for P above the tiled kernel's reach
+WARPS_MAX, SMEM_WARPS = 4, 200 * 1024
 
 # launches of the CUDA kernel in this process; the wrapper adds one per launch
 KERNEL_LAUNCHES = 0
@@ -173,13 +192,14 @@ def _transition_math(value_cols, grad_cols, steps: int, max_steps: int):
 
 
 def _reference_chunk(
-    theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store
+    theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store, padded=None
 ):
     """The kernel's plain version: ``z.shape[0]`` transitions of ``(P, K)``
     positions with ``(K,)`` per-chain state, on any device and dtype.
     Returns ``(theta, logp, eps, history)``; the history is ``(theta (n, P,
     K), logp (n, K), n_steps (n, K), eps (n, K))`` or None without
-    ``store``."""
+    ``store``. ``padded`` (the wide route's ``WideForm``) is not read: the
+    signature is the kernel wrapper's."""
     max_steps = max(int(steps * 1.1), 1)
     transition = _transition_math(form.value_cols, form.grad_cols, steps, max_steps)
     im = None if inv_mass_diag is None else inv_mass_diag.reshape(-1, 1)
@@ -220,34 +240,113 @@ def kernel_variant(P: int, unit_mass: bool) -> tuple:
     return (("B1_P", P), ("B1_UNIT", int(unit_mass)))
 
 
-def _wide_form(form, inv_mass_diag, P4):
-    """The wide route's form on the card: A as a ``(P4, P4)`` and mu and
-    the inverse mass (or None) as ``(P4,)`` float32 tensors, zero padded
-    from P to ``P4``, so a padded row adds nothing to the matvec, the
-    drift or the energies."""
+def _ceil(x, m):
+    return -(-x // m) * m
+
+
+class WidePlan(NamedTuple):
+    """Sizes of one wide-route launch (``wide_plan``)."""
+
+    tiled: bool     # the tiled kernel, else one warp per chain
+    chains: int     # chains per block
+    rows: int       # P rounded up to 8: rows of the gradient, and of mu and the inverse mass
+    depth: int      # rows of A a product walks
+    slab: int       # rows of A per ring stage (0: A resident, or the warp kernel)
+    stages: int     # ring stages (0: A resident, or the warp kernel)
+    threads: int    # per block
+    blocks: int
+    smem: int       # bytes of shared memory per block
+
+
+def _tile_smem(rows, depth, chains, slab, stages):
+    """Shared memory of a tiled block in bytes, as ``tile_smem`` in
+    ``csrc/hmc_fused.cu`` computes it: A (resident, or the ring), the centred
+    tile and the positions, the partial sums, the form per row and the
+    chains' words."""
+    a = depth * rows if stages == 0 else stages * slab * rows
+    return 4 * (a + 2 * depth * chains + 3 * (rows // TILE_ROWS) * chains + 3 * rows
+                + CHAIN_WORDS * chains)
+
+
+@functools.lru_cache(maxsize=None)
+def wide_plan(P: int, K: int) -> WidePlan:
+    """The wide route's sizes for ``P`` parameters and ``K`` chains, the
+    same on any device (a pure function of the two).
+
+    The tiled kernel's chains per block C are bounded by its threads (one
+    8-row by 4-chain tile each, at most ``TILE_THREADS``), by
+    ``TILE_CHAINS_MAX`` and by K (a block per SM where K allows). The
+    largest such C (a multiple of 4) at which the block's tiles and A
+    (resident) or a ring (the first of ``RINGS`` that fits) fit in half an
+    SM's shared memory is taken, so two blocks share each SM and one hides
+    the other's waits; where even C = 4 does not fit there, C = 4 with a
+    whole SM's. A is resident exactly where it fits beside the tiles at
+    that C. So C never grows as P grows. Where no tiled plan fits, one warp
+    per chain (up to ``WARPS_MAX`` a block) takes any P up to 12,800;
+    larger P raise ``ValueError``."""
+    if P < 1 or K < 1:
+        raise ValueError(f"the wide route takes P >= 1 and K >= 1, got P = {P}, K = {K}")
+    rows = _ceil(P, TILE_ROWS)
+    tile_rows = rows // TILE_ROWS
+    top = min(TILE_CHAINS_MAX, TILE_CHAINS * (TILE_THREADS // tile_rows),
+              _ceil(-(-K // N_SMS), TILE_CHAINS))
+    tiles = [(_ceil(P, 4), 0, 0)] + [(_ceil(P, s), s, n) for s, n in RINGS]
+    for budget, most in ((SMEM_HALF, top), (SMEM_BLOCK, min(top, TILE_CHAINS))):
+        for C in range(most, TILE_CHAINS - 1, -TILE_CHAINS):
+            threads = tile_rows * (C // TILE_CHAINS)
+            for depth, slab, stages in tiles:
+                smem = _tile_smem(rows, depth, C, slab, stages)
+                if smem <= budget and C <= threads:
+                    return WidePlan(True, C, rows, depth, slab, stages, threads, -(-K // C),
+                                    smem)
+    per_warp = 16 * rows
+    if per_warp > SMEM_WARPS:
+        raise ValueError(
+            f"kernel B1's wide route takes at most {SMEM_WARPS // 16} parameters, got P = {P}"
+        )
+    warps = min(WARPS_MAX, SMEM_WARPS // per_warp)
+    return WidePlan(False, warps, rows, rows, 0, 0, 32 * warps, -(-K // warps), warps * per_warp)
+
+
+class WideForm(NamedTuple):
+    """The wide route's form on the card, zero padded, so a padded row adds
+    nothing to a product, a drift or an energy: A as ``(P rounded up to 16,
+    P rounded up to 8)``, mu and the inverse mass (None: unit mass) as ``(P
+    rounded up to 8,)`` float32 tensors."""
+
+    A: torch.Tensor
+    mu: torch.Tensor
+    inv_mass: object
+
+
+def wide_form(form, inv_mass_diag=None) -> WideForm:
+    """``WideForm`` of a ``GaussianForm`` and a ``(P,)`` diagonal inverse
+    mass (None: unit mass), on the form's device."""
     P = form.A.shape[0]
+    rows = _ceil(P, TILE_ROWS)
 
     def pad(x, shape):
-        out = torch.zeros(shape, dtype=torch.float32, device=x.device)
+        out = torch.zeros(shape, dtype=torch.float32, device=form.A.device)
         out[tuple(slice(0, n) for n in x.shape)] = x
         return out
 
-    im = None if inv_mass_diag is None else pad(inv_mass_diag, (P4,))
-    return im, pad(form.A, (P4, P4)), pad(form.mu.reshape(P), (P4,))
+    im = None if inv_mass_diag is None else pad(inv_mass_diag.reshape(P), (rows,))
+    return WideForm(pad(form.A, (_ceil(P, 16), rows)), pad(form.mu.reshape(P), (rows,)), im)
 
 
 def _launch_chunk(
-    theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store
+    theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store, padded=None
 ):
     """Launch kernel B1 for ``z.shape[0]`` transitions on CUDA tensors, with
     the signature and results of ``_reference_chunk``, through the library
     built for this P and kind of mass (the wide library above
-    ``P_NARROW``). Raises on a tensor the kernel does not take (not float32
-    or int32, wrong device, shape or layout; it never casts), and when that
-    library fails to build, load or launch. The form's operands are
-    checked on the card and launched from their host copies
-    (``_host_copy``), or on the wide route from padded device copies
-    (``_wide_form``)."""
+    ``P_NARROW``, with the sizes of ``wide_plan``). Raises on a tensor the
+    kernel does not take (not float32 or int32, wrong device, shape or
+    layout; it never casts), and when that library fails to build, load or
+    launch. The form's operands are checked on the card and launched from
+    their host copies (``_host_copy``), or on the wide route from the padded
+    device copies ``padded`` (a plan's ``WideForm`` of ``form`` and
+    ``inv_mass_diag``; built here when None)."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
@@ -301,29 +400,43 @@ def _launch_chunk(
         else None
     )
     wide = P > P_NARROW
+    if wide:
+        padded = wide_form(form, inv_mass_diag) if padded is None else padded
+        rows = _ceil(P, TILE_ROWS)
+        for name, x, shape in (("A", padded.A, (_ceil(P, 16), rows)), ("mu", padded.mu, (rows,)),
+                               ("inv_mass", padded.inv_mass, (rows,))):
+            if x is None:
+                continue
+            if x.dtype != f32 or x.device != dev or tuple(x.shape) != shape or not x.is_contiguous():
+                raise ValueError(f"kernel B1: the padded {name} is not a contiguous float32 "
+                                 f"{shape} tensor on {dev}")
+        if (padded.inv_mass is None) != (inv_mass_diag is None):
+            raise ValueError("kernel B1: the padded form's inverse mass does not match "
+                             "inv_mass_diag")
     try:
         if wide:
-            fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 6, kernel_variant(P, True))
+            fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 10, kernel_variant(P, True))
         else:
             fn = _build.bind("hmc_fused", "hmc_fused_chunk", 25, 5,
                              kernel_variant(P, inv_mass_diag is None))
     except (RuntimeError, OSError) as e:
         raise RuntimeError(f"kernel B1 for P = {P} failed to build or load: {e}") from e
+    max_steps = max(int(steps * 1.1), 1)
+    sizes = (P, K, chunk, int(steps), max_steps)
     if wide:  # the form's operands (inv_mass, A, mu) as padded device copies
-        P4 = (P + 3) // 4 * 4
-        form_ops = list(_wide_form(form, inv_mass_diag, P4))
-        sizes = (P, P4)
+        form_ops = [padded.inv_mass, padded.A, padded.mu]
+        plan = wide_plan(P, K)
+        sizes += (plan.chains if plan.tiled else 0, plan.rows, plan.depth, plan.slab,
+                  plan.stages)
     else:  # as host copies
         form_ops = [None if inv_mass_diag is None else _host_copy(inv_mass_diag),
                     _host_copy(form.A), _host_copy(form.mu)]
-        sizes = (P,)
     ptrs = [x.data_ptr() for _, x, _, _ in operands[:11]]
     ptrs += [None if x is None else x.data_ptr() for x in form_ops]
     ptrs += [x.data_ptr() for x in outs]
     ptrs += [x.data_ptr() for x in hist] if store else [None] * 4
-    max_steps = max(int(steps * 1.1), 1)
     with torch.cuda.device(dev):
-        rc = fn(*ptrs, *sizes, K, chunk, int(steps), max_steps, _build.stream(dev))
+        rc = fn(*ptrs, *sizes, _build.stream(dev))
     _build.raise_on(rc, f"B1 (P = {P}{', wide route' if wide else ''})")
     KERNEL_LAUNCHES += 1
     t_o, lp_o, ev_o, ea_o, evr_o, en_o, ec_o = outs
@@ -343,12 +456,15 @@ def _run_chunk(*args, **kw):
 
 class FusedHmc(NamedTuple):
     """Plan for fused advances over a ChainArray's HMC state. The
-    posterior's operands live on ``form``; there is no global cache."""
+    posterior's operands live on ``form``, and for the wide route on the
+    card (P > ``P_NARROW``, a float32 form on CUDA) as the padded copies
+    ``padded``, made once here; there is no global cache."""
 
     form: GaussianForm
     steps: int
     inv_mass_diag: object   # None | tuple of P floats
     chunk: int
+    padded: object = None   # None | WideForm
 
 
 def plan_fused_hmc(
@@ -381,7 +497,12 @@ def plan_fused_hmc(
         if bool((im <= 0).any()):
             raise ValueError("inverse mass values must all be positive")
         im = tuple(im.tolist())
-    return FusedHmc(form=form, steps=int(steps), inv_mass_diag=im, chunk=int(chunk))
+    padded = None
+    if n_parameters > P_NARROW and form.A.is_cuda and form.A.dtype == torch.float32:
+        diag = None if im is None else torch.tensor(im, dtype=torch.float32, device=form.A.device)
+        padded = wide_form(form, diag)
+    return FusedHmc(form=form, steps=int(steps), inv_mass_diag=im, chunk=int(chunk),
+                    padded=padded)
 
 
 def _advance(plan: FusedHmc, state, n: int, store: bool, generator, run_chunk):
@@ -408,6 +529,7 @@ def _advance(plan: FusedHmc, state, n: int, store: bool, generator, run_chunk):
         theta, logp, eps, hist = run_chunk(
             theta, logp, eps, state.inv_temp, z, us, ua,
             form=plan.form, steps=plan.steps, inv_mass_diag=im, store=store,
+            padded=plan.padded,
         )
         if store:
             hists.append(hist)

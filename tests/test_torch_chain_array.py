@@ -199,13 +199,13 @@ def test_convert_round_trip(float64):
               rng.integers(0, 9, K).astype(np.int32), np.full(K, 20, np.int32),
               rng.integers(0, 2**32, (K, 2), dtype=np.uint64).astype(np.uint32),
               rng.uniform(size=K) < 0.5, np.full(K, 0.5), np.full(K, 50, np.int32)]
-    state = convert.hmc_state_from_jax(leaves)
+    state = convert.hmc_state_from_jax(leaves, device="cpu")
     back = convert.hmc_state_to_jax_leaves(state, leaves[7])
     for a, b in zip(back, leaves):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
     with pytest.raises(ValueError, match="11 leaves"):
-        convert.hmc_state_from_jax(leaves[:10])
+        convert.hmc_state_from_jax(leaves[:10], device="cpu")
     form = convert.gaussian_form_from_numpy(np.eye(3) * 2.0, mean=[1.0, 2.0, 3.0])
     assert float(form(torch.tensor([1.0, 2.0, 3.0]))) == 0.0
 

@@ -138,18 +138,61 @@ def test_fused_chain_array_on_card(cuda):
     assert ca.rhat().max() < 1.05
 
 
+def _resident_edge(K):
+    """The smallest P > 64 whose wide plan at K chains streams A: there A
+    just stops fitting beside the block's tiles."""
+    return next(P for P in range(65, 2000) if hmc_fused.wide_plan(P, K).stages)
+
+
+def _wide_inputs(device, P, K, chunk, inv_temp, seed):
+    """``_chunk_inputs`` for large P: a diagonally dominant form and
+    positions near its mean, made without a P x P inverse or factorisation."""
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(P, P)) * (0.5 / np.sqrt(P))
+    dev = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt).to(device)
+    mu = rng.normal(0, 0.3, P)
+    form = GaussianForm(dev(np.eye(P) + 0.5 * (B + B.T)), dev(mu)).to(device)
+    theta = dev(mu[:, None] + rng.normal(0, 0.7, (P, K)))
+    num = rng.integers(0, 20, K)
+    eps = AdaptiveScale(
+        dev(rng.uniform(0.1, 0.3, K)), dev(num * rng.uniform(0.4, 0.9, K)),
+        dev(num * 0.2), dev(num, torch.int32), dev(rng.choice([15, 20], K), torch.int32),
+    )
+    it = torch.full((K,), inv_temp, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((chunk, P, K), generator=gen, device=device)
+    us = torch.rand((chunk, K), generator=gen, device=device)
+    ua = torch.rand((chunk, K), generator=gen, device=device)
+    return form, (theta, form.value_cols(theta) * it, eps, it, z, us, ua)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "P, K, inv_temp, diag_mass",
     [(65, 4096, 1.0, False), (100, 4096, 0.5, True), (256, 2048, 1.0, False),
-     (129, 1000, 1.0, "scalar")],
+     (129, 1000, 1.0, "scalar"), (65, 65536, 1.0, False), ("edge", 4096, 1.0, False),
+     ("edge - 1", 4096, 1.0, False), (700, 1000, 1.0, False), (700, 1000, 0.5, True),
+     (100, 1000, 1.0, False), (256, 1000, 0.7, True), (2000, 96, 1.0, False),
+     (3000, 64, 1.0, False), (3000, 64, 0.5, True)],
 )
 def test_wide_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mass):
     """B1's wide route (P > 64, one library): one transition agrees with the
     plain version per chain within the float32 tolerance on >= 99.9% of the
-    chains, with unit, scalar and diagonal mass, tempering and a ragged
-    last block; each launch counts once."""
-    form, args = _chunk_inputs(cuda, P, K, 1, inv_temp, seed=P)
+    chains, with unit, scalar and diagonal mass, tempering and K not a
+    multiple of the block's chains; each launch counts once. The tiled
+    kernel at P = 65 (rows padded to 72), where A just stops fitting beside
+    the block's tiles at this K ("edge", streamed) and one P before it
+    (resident), at P = 700 and 2,000 (few chains a block, A streamed; 2,000
+    with a whole SM's shared memory), and the warp-per-chain kernel beyond
+    the tiled kernel's reach (P = 3,000)."""
+    edge = _resident_edge(K)
+    P = {"edge": edge, "edge - 1": edge - 1}.get(P, P)
+    plan = hmc_fused.wide_plan(P, K)
+    assert plan.tiled == (P <= 2048)
+    if P == edge:
+        assert plan.stages and not hmc_fused.wide_plan(P - 1, K).stages
+    make = _chunk_inputs if P <= 256 else _wide_inputs
+    form, args = make(cuda, P, K, 1, inv_temp, seed=P)
     im = (torch.as_tensor(np.random.default_rng(5).uniform(0.5, 2.0, P),
                           dtype=torch.float32, device=cuda) if diag_mass else None)
     if diag_mass == "scalar":
@@ -166,12 +209,18 @@ def test_wide_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mas
 
 
 @pytest.mark.cuda
-def test_wide_kernel_matches_plain_stored_chunk(cuda):
-    """A stored 64-transition chunk at P = 100 on the wide route: the first
-    transition and every step count agree per chain, and the accept
-    fraction of every transition agrees to 1e-3."""
-    form, args = _chunk_inputs(cuda, 100, 4096, 64, 1.0, seed=30)
-    kw = dict(form=form, steps=50, inv_mass_diag=None, store=True)
+@pytest.mark.parametrize("P, K, diag_mass", [(100, 4096, False), (100, 4100, True),
+                                             (256, 2048, False), (700, 4100, False)])
+def test_wide_kernel_matches_plain_stored_chunk(cuda, P, K, diag_mass):
+    """A stored 64-transition chunk on the wide route (A resident at P = 100,
+    streamed at 256 and 700; K = 4,100 not a multiple of the block's
+    chains): the first transition and every step count agree per chain,
+    and the accept fraction of every transition agrees to 1e-3."""
+    make = _chunk_inputs if P <= 256 else _wide_inputs
+    form, args = make(cuda, P, K, 64, 1.0, seed=30)
+    im = (torch.as_tensor(np.random.default_rng(6).uniform(0.5, 2.0, P),
+                          dtype=torch.float32, device=cuda) if diag_mass else None)
+    kw = dict(form=form, steps=50, inv_mass_diag=im, store=True)
     hk = hmc_fused._launch_chunk(*args, **kw)[3]
     hp = hmc_fused._reference_chunk(*args, **kw)[3]
     torch.cuda.synchronize()
@@ -185,14 +234,28 @@ def test_wide_kernel_matches_plain_stored_chunk(cuda):
 
 @pytest.mark.cuda
 def test_wide_launcher_refuses_bad_sizes(cuda):
-    """The wide library refuses P < 1, a P4 that is not P rounded up to a
-    multiple of 4 and a missing form."""
-    fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 6, hmc_fused.kernel_variant(100, True))
-    A = torch.zeros((100, 100), device=cuda)
-    mu = torch.zeros(100, device=cuda)
-    for P, P4, a in ((100, 101, A), (0, 0, A), (100, 100, None)):
+    """The wide library refuses P < 1, rows that are not P rounded up to 8,
+    a missing form, and plans the kernels do not take: chains not a
+    multiple of 4 or too many threads, a depth off the padded A, a slab or
+    stage count outside the ring's, too much shared memory, and a warp
+    plan whose depth is not its rows."""
+    fn = _build.bind("hmc_fused", "hmc_fused_chunk_wide", 25, 10,
+                     hmc_fused.kernel_variant(100, True))
+    A = torch.zeros((112, 104), device=cuda)
+    mu = torch.zeros(104, device=cuda)
+    ok = hmc_fused.wide_plan(100, 256)
+    assert ok.tiled and ok.stages == 0
+    bad = [  # (P, A, chains, rows, depth, slab, stages)
+        (100, A, ok.chains, 101, 100, 0, 0), (0, A, 4, 0, 0, 0, 0), (100, None, 4, 104, 100, 0, 0),
+        (100, A, 6, 104, 100, 0, 0), (100, A, 256, 104, 100, 0, 0), (100, A, 96, 104, 100, 0, 0),
+        (100, A, 4, 104, 98, 0, 0), (100, A, 4, 104, 116, 0, 0), (100, A, 4, 104, 112, 12, 3),
+        (100, A, 4, 104, 112, 16, 4), (100, A, 4, 104, 100, 16, 0), (240, A, 64, 240, 240, 0, 0),
+        (100, A, 0, 104, 100, 0, 0),
+    ]
+    for P, a, chains, rows, depth, slab, stages in bad:
         ptrs = [None] * 12 + [None if a is None else a.data_ptr(), mu.data_ptr()] + [None] * 11
-        assert fn(*ptrs, P, P4, 256, 1, 10, 11, _build.stream(cuda)) == 1
+        assert fn(*ptrs, P, 256, 1, 10, 11, chains, rows, depth, slab, stages,
+                  _build.stream(cuda)) == 1, (P, chains, rows, depth, slab, stages)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,10 @@ import pytest
 import torch
 
 from inference_tpu_torch import convert, models
-from inference_tpu_torch.bench import dense_hmc, headline
+from inference_tpu_torch.bench import b1_wide_ablation, dense_hmc, headline
 from inference_tpu_torch.gp import GpLinearInverter, GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc import HamiltonianChain
+from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 
@@ -38,8 +39,16 @@ ENTRY_POINTS = {
     "ExponentialPrior": lambda: models.ExponentialPrior(1.0, 0),
     "UniformPrior": lambda: models.UniformPrior(0.0, 1.0, 0),
     "mass_from_numpy": lambda: convert.mass_from_numpy(1.0, 2),
+    "ScalarMass": lambda: ScalarMass(1.0, 2),
+    "VectorMass": lambda: VectorMass(np.ones(2), 2),
+    "MatrixMass": lambda: MatrixMass(np.eye(2), 2),
+    "get_particle_mass": lambda: get_particle_mass(np.ones(2), 2),
+    "hmc_state_from_jax": lambda: convert.hmc_state_from_jax(
+        [np.zeros((4, 2)), *[np.zeros(4)] * 4, np.zeros(4, np.int32), np.zeros((4, 2), np.uint32),
+         np.zeros(4, bool), np.ones(4), np.full(4, 10, np.int32)]),
     "bench.headline": lambda: headline.sweep(chains=(4,), work=4),
     "bench.dense_hmc": lambda: dense_hmc.main([]),
+    "bench.b1_wide_ablation": b1_wide_ablation.main,
 }
 
 

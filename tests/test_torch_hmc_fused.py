@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from inference_tpu.mcmc._kernels.common import AdaptiveScale as JaxScale
 from inference_tpu.ops import hmc_fused as jax_fused
+from inference_tpu_torch.bench import b1_wide_ablation
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.mcmc._kernels.hmc import init_hmc_state
 from inference_tpu_torch.ops import hmc_fused
@@ -256,6 +257,111 @@ def test_launch_wrapper_rejects_float64_and_cpu(float64):
     args32 = (f32(args[0]), f32(args[1]), AdaptiveScale(*map(f32, e)), *map(f32, args[3:]))
     with pytest.raises(ValueError, match="CUDA"):
         hmc_fused._launch_chunk(*args32, **dict(kw, form=form32))
+
+
+# --------------------------------------------------------------------- #
+# the wide route's planner (P > 64) and padded form
+# --------------------------------------------------------------------- #
+P_MAX_WIDE = hmc_fused.SMEM_WARPS // 16  # 12,800, the largest P the wide route takes
+
+
+@pytest.mark.parametrize("K", [65536, 16384, 4096, 1000, 7, 1])
+@pytest.mark.parametrize("P", [65, 100, 200, 256, 1000, P_MAX_WIDE])
+def test_wide_plan_fits_shared_memory(P, K):
+    """Every plan fits a block's 227 KB of shared memory (the warp kernel's
+    200 KB) with at least one chain a block and threads enough for the
+    tiles and the chains' owners; a tiled plan's shared memory is what the
+    launcher computes, and K below the block's chains gets one block."""
+    plan = hmc_fused.wide_plan(P, K)
+    assert plan.chains >= 1 and plan.blocks == -(-K // plan.chains)
+    assert plan.rows == -(-P // 8) * 8 and plan.depth >= P
+    if plan.tiled:
+        assert plan.smem == hmc_fused._tile_smem(plan.rows, plan.depth, plan.chains, plan.slab,
+                                                 plan.stages) <= hmc_fused.SMEM_BLOCK
+        assert plan.chains % 4 == 0 and plan.chains <= plan.threads <= hmc_fused.TILE_THREADS
+        assert plan.threads == plan.rows // 8 * plan.chains // 4
+        assert plan.depth % max(plan.slab, 4) == 0 and plan.depth <= -(-P // 16) * 16
+        assert (plan.slab, plan.stages) in ((0, 0), *hmc_fused.RINGS)
+    else:
+        assert plan.smem <= hmc_fused.SMEM_WARPS and plan.depth == plan.rows
+        assert plan.threads == 32 * plan.chains
+    if K < plan.chains:
+        assert plan.blocks == 1
+
+
+@pytest.mark.parametrize("K", [65536, 16384, 4096, 1000, 1])
+def test_wide_plan_chains_never_grow_with_p(K):
+    """As P grows the plan's chains a block never grow, the tiled kernel
+    serves every P up to 2,048 and the warp-per-chain kernel every P above,
+    up to 12,800; a larger P raises."""
+    Ps = sorted({*range(65, 1500), *range(1500, P_MAX_WIDE, 37), 2048, 2049, P_MAX_WIDE})
+    plans = [hmc_fused.wide_plan(P, K) for P in Ps]
+    assert all(b.chains <= a.chains for a, b in zip(plans, plans[1:]))
+    tiled = [P for P, p in zip(Ps, plans) if p.tiled]
+    assert tiled == Ps[:len(tiled)] and tiled[-1] == 2048
+    with pytest.raises(ValueError, match="12800"):
+        hmc_fused.wide_plan(P_MAX_WIDE + 1, K)
+
+
+@pytest.mark.parametrize("K", [65536, 16384, 4096, 1000, 1])
+def test_wide_plan_resident_exactly_where_a_fits(K):
+    """A tiled plan keeps A resident exactly where A fits beside the block's
+    tiles at the plan's chains, in the plan's share of an SM (half of it
+    where two blocks fit, else all), and streams it above; at the main
+    path's K A is resident at P = 65 and 100 and streamed at 256."""
+    for P in range(65, 1200):
+        plan = hmc_fused.wide_plan(P, K)
+        if not plan.tiled:
+            break
+        budget = (hmc_fused.SMEM_HALF if plan.smem <= hmc_fused.SMEM_HALF
+                  else hmc_fused.SMEM_BLOCK)
+        fits = hmc_fused._tile_smem(plan.rows, -(-P // 4) * 4, plan.chains, 0, 0)
+        assert (plan.stages == 0) == (fits <= budget), P
+    if K == 65536:
+        assert [hmc_fused.wide_plan(P, K).stages == 0 for P in (65, 100, 256)] == [
+            True, True, False]
+
+
+@pytest.mark.parametrize("P, diag", [(65, False), (100, True), (257, True)])
+def test_wide_form_is_the_form_zero_padded(P, diag):
+    """The wide route's padded form holds A, mu and the inverse mass in its
+    leading block and zeros elsewhere, as float32; a plan on the CPU makes
+    none (the plain version runs there)."""
+    rng = np.random.default_rng(P)
+    form = GaussianForm(torch.as_tensor(rng.normal(size=(P, P))), torch.as_tensor(rng.normal(size=P)))
+    im = torch.as_tensor(rng.uniform(0.5, 2.0, P)) if diag else None
+    w = hmc_fused.wide_form(form, im)
+    rows, depth = -(-P // 8) * 8, -(-P // 16) * 16
+    assert w.A.shape == (depth, rows) and w.mu.shape == (rows,) and w.A.dtype == torch.float32
+    torch.testing.assert_close(w.A[:P, :P], form.A.float())
+    torch.testing.assert_close(w.mu[:P], form.mu.float())
+    assert not w.A[P:].any() and not w.A[:, P:].any() and not w.mu[P:].any()
+    if diag:
+        torch.testing.assert_close(w.inv_mass[:P], im.float())
+        assert not w.inv_mass[P:].any()
+    else:
+        assert w.inv_mass is None
+    assert hmc_fused.plan_fused_hmc(form, P, steps=10).padded is None
+
+
+@pytest.mark.parametrize("variant", sorted(b1_wide_ablation.VARIANTS))
+def test_wide_ablation_variants_apply_to_the_kernel_source(variant):
+    """Each variant of the wide route's ablation cuts its part out of the
+    committed kernel source (each substitution found once), and leaves the
+    braces balanced."""
+    src = b1_wide_ablation.variant_source(variant)
+    assert src != (b1_wide_ablation._build.CSRC / "hmc_fused.cu").read_text()
+    assert src.count("{") == src.count("}")
+
+
+def test_wide_ablation_chunk_is_one_chunk_of_the_wrapper():
+    """The ablation's chunk has the operands ``_launch_chunk`` checks, on
+    the device asked for (here the CPU, where the plain version takes it)."""
+    args, kw = b1_wide_ablation._chunk(70, 16, torch.device("cpu"))
+    z, us, ua = (x[:1] for x in args[4:])  # one transition of the chunk's 64
+    out = hmc_fused._reference_chunk(*args[:4], z, us, ua, **kw)
+    assert out[0].shape == (70, 16) and torch.isfinite(out[0]).all()
+    assert kw["padded"].A.shape == (80, 72)
 
 
 # --------------------------------------------------------------------- #
