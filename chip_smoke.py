@@ -45,8 +45,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (a) kernel B1's wide route (P > 64): its plans (chains a block, A
    resident or streamed) and the SASS mix of each wide kernel's product
    loop, then against its plain version at P = 65, 100 and 256, timed at
-   each beside its bound and the warp-per-chain design's time with the
-   steps its blocks take beyond the chains' own, and
+   each beside its bound and the warp-per-chain design's time (quoted)
+   with the steps its blocks take beyond the chains' own (modelled from
+   the step draws), and
    ``ChainArray(fused=True)`` at P = 100 and
    256, 16,384 chains (attempts/s, launches, variances); (c) the
    dense HMC bench (``inference_tpu_torch.bench.dense_hmc``) at 4,096
@@ -322,7 +323,8 @@ def _compare(label, P, K, chunk, store, inv_temp, inv_mass, seed):
     im = None if inv_mass is None else torch.as_tensor(inv_mass, dtype=torch.float32).cuda()
     kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=im, store=store)
     args = (theta, logp, eps, it, z, us, ua)
-    kernel = hmc_fused._launch_chunk(*args, **kw)
+    padded = hmc_fused.wide_form(form, im) if P > hmc_fused.P_NARROW else None
+    kernel = hmc_fused._launch_chunk(*args, **kw, padded=padded)
     plain = hmc_fused._reference_chunk(*args, **kw)
     torch.cuda.synchronize()
     where = f"[check {label}] P={P} K={K} chunk={chunk}"
@@ -372,32 +374,38 @@ def _compare(label, P, K, chunk, store, inv_temp, inv_mass, seed):
         )
 
 
-def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2):
+def _time_chunk(P, plain, K=N_CHAINS, reps=None, turns=2, shared=0):
     """CUDA-event times of one 64-transition chunk of K chains with P
     parameters, unit mass, without history: the kernel in ``turns`` turns
     (with the plain version on the same inputs between them, if
     ``plain``). Returns (kernel ms, plain ms or None, bound ms, bound by,
     the step-count draws), each time the lowest of its turns. On the wide
-    route the plan's padded form is made once, as a plan holds it."""
+    route the plan's padded form is made once, as a plan holds it. With
+    ``shared`` = C, each block of C neighbouring chains takes its first
+    chain's step-count draws, so all its chains take each transition's
+    steps together."""
     form, theta, logp, eps, it = _random_state(P, K, 7, 1.0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     z = torch.randn((64, P, K), generator=gen, device="cuda")
     us = torch.rand((64, K), generator=gen, device="cuda")
     ua = torch.rand((64, K), generator=gen, device="cuda")
+    if shared:
+        us = us[:, torch.arange(K, device="cuda") // shared * shared].contiguous()
     kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=None, store=False)
-    if P > hmc_fused.P_NARROW:
-        kw["padded"] = hmc_fused.wide_form(form)
+    padded = hmc_fused.wide_form(form) if P > hmc_fused.P_NARROW else None
     args = (theta, logp, eps, it, z, us, ua)
     reps = reps or (10 if P <= 32 else 3)
     times = []
     for _ in range(turns):
         p_ms = time_events(lambda: hmc_fused._reference_chunk(*args, **kw), (), 1) if plain else None
-        times.append((time_events(lambda: hmc_fused._launch_chunk(*args, **kw), (), reps), p_ms))
+        times.append((time_events(lambda: hmc_fused._launch_chunk(*args, **kw, padded=padded),
+                                  (), reps), p_ms))
     bound_ms, bound_by = _b1_bound(us, P)
     ms = min(t for t, _ in times)
     p_ms = min(p for _, p in times) if plain else None
-    print(f"[time] B1 one chunk (64 transitions, K={K}, P={P}): kernel "
+    print(f"[time] B1 one chunk (64 transitions, K={K}, P={P}"
+          + (f", step draws shared by blocks of {shared}" if shared else "") + "): kernel "
           + " / ".join(f"{t:.4f}" for t, _ in times) + " ms"
           + (", plain version " + " / ".join(f"{p:.3f}" for _, p in times)
              + " ms (plain, kernel, ...)" if plain else "")
@@ -412,6 +420,13 @@ def _b1_step_flops(P, unit=True):
     return 2 * P * P + (5 if unit else 6) * P
 
 
+def _step_counts(us, steps=HMC_STEPS):
+    """Each chain's leapfrog steps per transition from its draws, the
+    kernel's own rule."""
+    n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
+    return n.clamp(min=1, max=max(int(steps * 1.1), 1))
+
+
 def _b1_bound(us, P=N_DIM, steps=HMC_STEPS, unit=True):
     """Kernel B1's bound for one chunk with these step-count draws: the
     flops the transition needs, not the kernel's. Per transition: the
@@ -422,8 +437,7 @@ def _b1_bound(us, P=N_DIM, steps=HMC_STEPS, unit=True):
     energies and adaptation. Bytes: the normals and uniforms read once,
     the state read and written once."""
     chunk, K = us.shape
-    n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
-    n = n.clamp(min=1, max=max(int(steps * 1.1), 1))
+    n = _step_counts(us, steps)
     per_transition = 2 * P * P + (9 if unit else 12) * P + 30
     flops = float(n.sum()) * _b1_step_flops(P, unit) + chunk * K * per_transition
     n_bytes = 4 * chunk * K * (P + 2) + 2 * 4 * K * (P + 7)
@@ -550,19 +564,19 @@ def _wide_plan_text(P, K):
 
 
 def _wide_losses(us, P, steps=HMC_STEPS):
-    """The steps one chunk's draws cost the wide route's blocks beyond the
-    chains' own: in lockstep per transition, the tiled kernel's design
-    (sum over blocks and transitions of max(n) C over sum n), and had each
-    chain moved to its next transition at its own pace (sum over blocks of
-    the largest sum of n + 1 over the chunk, times C, over the chains' sum
-    of n + 1). Returns both ratios and the bytes of A the blocks read from
-    the L2 (a product of each transition's max(n) + 1 streams all of A
-    through a ring; a resident A is read once per block)."""
+    """A model from one chunk's step draws, not a reading of the kernel:
+    the steps the wide route's blocks take beyond the chains' own in
+    lockstep per transition, the tiled kernel's design (sum over blocks and
+    transitions of max(n) C over sum n), and had each chain moved to its
+    next transition at its own pace, a design not shipped (sum over blocks
+    of the largest sum of n + 1 over the chunk, times C, over the chains'
+    sum of n + 1). Returns both ratios and the bytes of A the plan reads
+    from the L2 (a product of each transition's max(n) + 1 streams all of
+    A through a ring; a resident A is read once per block)."""
     chunk, K = us.shape
     plan = hmc_fused.wide_plan(P, K)
     C = plan.chains
-    n = (steps * (1.0 + (us.double() - 0.5) * 0.2)).to(torch.int64)
-    n = n.clamp(min=1, max=max(int(steps * 1.1), 1))
+    n = _step_counts(us, steps)
     pad = -K % C
     n = torch.nn.functional.pad(n, (0, pad)).reshape(chunk, -1, C)
     lockstep = float(n.amax(dim=2).sum() * C / n.sum())
@@ -609,32 +623,41 @@ def phase_b1_wide():
     with diagonal mass and tempering), timed at each P at the main path's K
     beside its bound and the warp-per-chain design's time (at P = 100
     beside the plain version too), with the steps its blocks cost beyond
-    the chains' own, then
+    the chains' own (modelled from the step draws), then
     driven through ``ChainArray(fused=True)`` at P = 100 and 256, 16,384
     chains, its launches counted from 0 and its sample variances held to
     the covariance's. Returns (max abs error of the one-transition checks,
-    {P: (ms, plain ms, bound ms, bound by, lockstep loss, pace loss, TB/s of
-    A from the L2)}, {P: ChainArray results})."""
-    for P, K in ((65, 16384), (100, 16384), (256, 8192), (100, 4096),
+    {P: (ms, plain ms, bound ms, bound by)}, {P: ChainArray results})."""
+    for P, K in ((65, 16384), (100, 16384), (256, 16384), (100, 4096),
                  *((P, N_CHAINS) for P in B1_WIDE_P)):
         print(f"[b1 wide] plan {_wide_plan_text(P, K)}")
     _print_b1_wide_mix()
     im = np.random.default_rng(6).uniform(0.5, 2.0, 100)
     errs = [_compare("3g", 65, 16384, 1, False, 1.0, None, 17),
             _compare("3h", 100, 16384, 1, False, 0.5, im, 18),
-            _compare("3i", 256, 8192, 1, False, 1.0, None, 19)]
+            _compare("3i", 256, 16384, 1, False, 1.0, None, 19)]
     _compare("3j", 100, 4096, 64, True, 1.0, None, 20)
     times = {}
     for P in B1_WIDE_P:
         ms, p_ms, bound_ms, by, us = _time_chunk(P, plain=P == 100, reps=2)
         lockstep, pace, a_bytes = _wide_losses(us, P)
+        C = hmc_fused.wide_plan(P, N_CHAINS).chains
+        ms_shared, _, _, _, us_shared = _time_chunk(P, plain=False, reps=2, shared=C)
+        per_step = ms / float(_step_counts(us).sum())
+        per_step_shared = ms_shared / float(_step_counts(us_shared).sum())
+        print(f"[b1 wide] P={P} K={N_CHAINS}: lockstep loss measured: {per_step * 1e6:.4f} ns a "
+              f"chain-step with each chain's own draws, {per_step_shared * 1e6:.4f} ns with "
+              f"each block's draws shared (no lockstep loss), {per_step / per_step_shared - 1:.4f} "
+              f"more time a chain-step")
         print(f"[b1 wide] P={P} K={N_CHAINS}: {ms:.4f} ms, {ms / bound_ms:.2f}x its bound "
               f"{bound_ms:.4f} ms; the warp-per-chain design {WARP_DESIGN_MS[P]} ms (PERF.md, "
-              f"quoted), {WARP_DESIGN_MS[P] / ms:.2f}x this time; steps the blocks take over the chains' "
-              f"own: {lockstep:.4f} in lockstep per transition (this kernel; sum of max(n) C / "
-              f"sum n), {pace:.4f} had each chain moved at its own pace; A read from the L2 "
-              f"{a_bytes / 1e9:.2f} GB, {a_bytes / ms / 1e9:.3f} TB/s")
-        times[P] = (ms, p_ms, bound_ms, by, lockstep, pace, a_bytes / ms / 1e9)
+              f"quoted, not re-run), {WARP_DESIGN_MS[P] / ms:.2f}x this time; modelled from the "
+              f"step draws: steps the blocks take over the chains' own {lockstep:.4f} in lockstep "
+              f"per transition (this kernel; sum of max(n) C / sum n), {pace:.4f} had each chain "
+              f"moved at its own pace (not shipped); bytes of A the plan reads from the L2 "
+              f"{a_bytes / 1e9:.2f} GB over this time, {a_bytes / ms / 1e9:.3f} TB/s (a model, "
+              f"not a profiler reading)")
+        times[P] = (ms, p_ms, bound_ms, by)
     chains = {P: _wide_chain_array(P, 16384, seed) for P, seed in ((100, 21), (256, 22))}
     return max(errs), times, chains
 
@@ -2033,8 +2056,7 @@ def main():
         "library_ms": None,
         "P": 100,
         "variant": dict(hmc_fused.kernel_variant(100, True)),
-        "per_P": {P: {"ms": t[0], "bound_ms": t[2], "bound_by": t[3], "warp_design_ms": WARP_DESIGN_MS[P],
-                      "lockstep_loss": t[4], "pace_loss": t[5], "a_from_l2_tb_per_s": t[6],
+        "per_P": {P: {"ms": t[0], "bound_ms": t[2], "bound_by": t[3],
                       "plan": hmc_fused.wide_plan(P, N_CHAINS)._asdict()}
                   for P, t in wide.items()},
         "chain_array": {P: {"attempts_per_s": c[0], "launches": c[1], "max_rel_var_err": c[2],

@@ -4,9 +4,7 @@
   1,024-131,072 chains) through kernel B1, one JSON line with
   ``bench.py``'s keys;
 - ``dense_hmc``: ``benchmarks/dense_hmc_bench.py``'s two P = 256 workloads
-  on the batched transition;
-- ``b1_wide_ablation``: where kernel B1's wide route spends a chunk (the
-  card only).
+  on the batched transition.
 
 On the card by default; ``--device cpu`` runs them on the CPU at a small
 size (no device number is printed then).

@@ -94,11 +94,12 @@
 //     each transition in lockstep: the block runs to the largest n among
 //     them, and a chain past its own n is frozen (no drift, no kick; its D,
 //     so its products, unchanged), as in the TPU kernel's mask. That costs
-//     about 9% more steps at C = 64 (chip_smoke.py prints it per chunk).
+//     about 9% more steps at C = 64 (chip_smoke.py prints the count and
+//     times it against a chunk whose blocks share their step draws).
 //     Letting each chain move on to its next transition at its own pace
-//     would save most of that, but then transition ends fall on most steps,
-//     each with its barriers and waits; a version built that way ran slower
-//     on the H100 (PERF.md).
+//     would save most of those steps, but then transition ends fall on
+//     most steps, each with its barriers and waits; that design is not
+//     built here, and its time is not measured.
 //   - At a transition's end the threads that share a chain write their
 //     partial sums of the quadratic form (d^T G of the chain's last kick's
 //     own product: its D is unchanged since) and of the kinetic energy to

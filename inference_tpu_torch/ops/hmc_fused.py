@@ -191,15 +191,12 @@ def _transition_math(value_cols, grad_cols, steps: int, max_steps: int):
     return transition
 
 
-def _reference_chunk(
-    theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store, padded=None
-):
+def _reference_chunk(theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag, store):
     """The kernel's plain version: ``z.shape[0]`` transitions of ``(P, K)``
     positions with ``(K,)`` per-chain state, on any device and dtype.
     Returns ``(theta, logp, eps, history)``; the history is ``(theta (n, P,
     K), logp (n, K), n_steps (n, K), eps (n, K))`` or None without
-    ``store``. ``padded`` (the wide route's ``WideForm``) is not read: the
-    signature is the kernel wrapper's."""
+    ``store``."""
     max_steps = max(int(steps * 1.1), 1)
     transition = _transition_math(form.value_cols, form.grad_cols, steps, max_steps)
     im = None if inv_mass_diag is None else inv_mass_diag.reshape(-1, 1)
@@ -345,8 +342,9 @@ def _launch_chunk(
     layout; it never casts), and when that library fails to build, load or
     launch. The form's operands are checked on the card and launched from
     their host copies (``_host_copy``), or on the wide route from the padded
-    device copies ``padded`` (a plan's ``WideForm`` of ``form`` and
-    ``inv_mass_diag``; built here when None)."""
+    device copies ``padded``, the ``WideForm`` of ``form`` and
+    ``inv_mass_diag`` that a plan builds once (``plan_fused_hmc``); the wide
+    route raises without it, the narrow one with it."""
     global KERNEL_LAUNCHES
     P, K = theta.shape
     chunk = z.shape[0]
@@ -400,8 +398,10 @@ def _launch_chunk(
         else None
     )
     wide = P > P_NARROW
+    if (padded is None) == wide:
+        raise ValueError(f"kernel B1 at P = {P} takes padded=" + (
+            "wide_form(form, inv_mass_diag), the plan's padded form" if wide else "None"))
     if wide:
-        padded = wide_form(form, inv_mass_diag) if padded is None else padded
         rows = _ceil(P, TILE_ROWS)
         for name, x, shape in (("A", padded.A, (_ceil(P, 16), rows)), ("mu", padded.mu, (rows,)),
                                ("inv_mass", padded.inv_mass, (rows,))):
@@ -443,12 +443,12 @@ def _launch_chunk(
     return t_o, lp_o, AdaptiveScale(ev_o, ea_o, evr_o, en_o, ec_o), hist
 
 
-def _run_chunk(*args, **kw):
-    """One chunk: the kernel on a CUDA tensor, the plain version on a CPU
-    tensor."""
+def _run_chunk(*args, padded=None, **kw):
+    """One chunk: the kernel on a CUDA tensor (with the plan's ``padded``
+    form on the wide route), the plain version on a CPU tensor."""
     device = args[0].device
     if device.type == "cuda":
-        return _launch_chunk(*args, **kw)
+        return _launch_chunk(*args, **kw, padded=padded)
     if device.type == "cpu":
         return _reference_chunk(*args, **kw)
     raise ValueError(f"no fused hmc path for device {device}")
@@ -529,7 +529,6 @@ def _advance(plan: FusedHmc, state, n: int, store: bool, generator, run_chunk):
         theta, logp, eps, hist = run_chunk(
             theta, logp, eps, state.inv_temp, z, us, ua,
             form=plan.form, steps=plan.steps, inv_mass_diag=im, store=store,
-            padded=plan.padded,
         )
         if store:
             hists.append(hist)
@@ -551,7 +550,8 @@ def _advance(plan: FusedHmc, state, n: int, store: bool, generator, run_chunk):
 def fused_hmc_advance(plan: FusedHmc, state, n: int, store: bool, generator=None):
     """Advance ``n`` transitions through kernel B1 (its plain version for a
     state on the CPU). See ``_advance`` for the results."""
-    return _advance(plan, state, n, store, generator, _run_chunk)
+    return _advance(plan, state, n, store, generator,
+                    functools.partial(_run_chunk, padded=plan.padded))
 
 
 def _advance_mirror(plan: FusedHmc, state, n: int, store: bool, generator=None):

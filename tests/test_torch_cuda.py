@@ -199,13 +199,27 @@ def test_wide_kernel_matches_plain_one_transition(cuda, P, K, inv_temp, diag_mas
         im = torch.full((P,), 0.7, device=cuda)
     kw = dict(form=form, steps=50, inv_mass_diag=im, store=False)
     before = hmc_fused.KERNEL_LAUNCHES
-    k = hmc_fused._launch_chunk(*args, **kw)
+    k = hmc_fused._launch_chunk(*args, **kw, padded=hmc_fused.wide_form(form, im))
     p = hmc_fused._reference_chunk(*args, **kw)
     torch.cuda.synchronize()
     assert hmc_fused.KERNEL_LAUNCHES == before + 1
     ok = _close(k[0], p[0]).all(dim=0) & _close(k[1], p[1]) & _close(k[2].value, p[2].value)
     ok &= (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
     assert float(ok.float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [10, 100])
+def test_padded_form_goes_with_the_wide_route_only(cuda, P):
+    """The wide route launches only with the plan's padded form, and the
+    narrow route only without one: either mistake raises before a launch."""
+    form, args = _chunk_inputs(cuda, P, 256, 1, 1.0, seed=P)
+    padded = None if P > hmc_fused.P_NARROW else hmc_fused.wide_form(form)
+    before = hmc_fused.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="takes padded="):
+        hmc_fused._launch_chunk(*args, form=form, steps=10, inv_mass_diag=None, store=False,
+                                padded=padded)
+    assert hmc_fused.KERNEL_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -221,7 +235,7 @@ def test_wide_kernel_matches_plain_stored_chunk(cuda, P, K, diag_mass):
     im = (torch.as_tensor(np.random.default_rng(6).uniform(0.5, 2.0, P),
                           dtype=torch.float32, device=cuda) if diag_mass else None)
     kw = dict(form=form, steps=50, inv_mass_diag=im, store=True)
-    hk = hmc_fused._launch_chunk(*args, **kw)[3]
+    hk = hmc_fused._launch_chunk(*args, **kw, padded=hmc_fused.wide_form(form, im))[3]
     hp = hmc_fused._reference_chunk(*args, **kw)[3]
     torch.cuda.synchronize()
     first = _close(hk[0][0], hp[0][0]).all(dim=0) & (hk[2] == hp[2]).all(dim=0)

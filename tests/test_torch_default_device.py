@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from inference_tpu_torch import convert, models
-from inference_tpu_torch.bench import b1_wide_ablation, dense_hmc, headline
+from inference_tpu_torch.bench import dense_hmc, headline
 from inference_tpu_torch.gp import GpLinearInverter, GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc import HamiltonianChain
 from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
@@ -48,7 +48,6 @@ ENTRY_POINTS = {
          np.zeros(4, bool), np.ones(4), np.full(4, 10, np.int32)]),
     "bench.headline": lambda: headline.sweep(chains=(4,), work=4),
     "bench.dense_hmc": lambda: dense_hmc.main([]),
-    "bench.b1_wide_ablation": b1_wide_ablation.main,
 }
 
 

@@ -11,7 +11,6 @@ import jax.numpy as jnp
 
 from inference_tpu.mcmc._kernels.common import AdaptiveScale as JaxScale
 from inference_tpu.ops import hmc_fused as jax_fused
-from inference_tpu_torch.bench import b1_wide_ablation
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.mcmc._kernels.hmc import init_hmc_state
 from inference_tpu_torch.ops import hmc_fused
@@ -342,26 +341,6 @@ def test_wide_form_is_the_form_zero_padded(P, diag):
     else:
         assert w.inv_mass is None
     assert hmc_fused.plan_fused_hmc(form, P, steps=10).padded is None
-
-
-@pytest.mark.parametrize("variant", sorted(b1_wide_ablation.VARIANTS))
-def test_wide_ablation_variants_apply_to_the_kernel_source(variant):
-    """Each variant of the wide route's ablation cuts its part out of the
-    committed kernel source (each substitution found once), and leaves the
-    braces balanced."""
-    src = b1_wide_ablation.variant_source(variant)
-    assert src != (b1_wide_ablation._build.CSRC / "hmc_fused.cu").read_text()
-    assert src.count("{") == src.count("}")
-
-
-def test_wide_ablation_chunk_is_one_chunk_of_the_wrapper():
-    """The ablation's chunk has the operands ``_launch_chunk`` checks, on
-    the device asked for (here the CPU, where the plain version takes it)."""
-    args, kw = b1_wide_ablation._chunk(70, 16, torch.device("cpu"))
-    z, us, ua = (x[:1] for x in args[4:])  # one transition of the chunk's 64
-    out = hmc_fused._reference_chunk(*args[:4], z, us, ua, **kw)
-    assert out[0].shape == (70, 16) and torch.isfinite(out[0]).all()
-    assert kw["padded"].A.shape == (80, 72)
 
 
 # --------------------------------------------------------------------- #

@@ -27,7 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.models, inference_tpu_torch.models.likelihoods, "
         "inference_tpu_torch.models.priors, inference_tpu_torch.models.posterior",
         "inference_tpu_torch.bench, inference_tpu_torch.bench.headline, "
-        "inference_tpu_torch.bench.dense_hmc, inference_tpu_torch.bench.b1_wide_ablation",
+        "inference_tpu_torch.bench.dense_hmc",
         "chip_smoke",
     ],
 )
