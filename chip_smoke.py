@@ -23,9 +23,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
    (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
    together; times each build and prints the ``-Xptxas -v`` registers
-   and spills, and for each instantiation of B3/B4's kernel and each of
+   and spills, and for each instantiation of B3/B4's kernels and each of
    B1's libraries the local-memory instructions in all and in its hot
-   loop (cuobjdump);
+   loop, and the SASS per entry and dimension of the distance loops of
+   the wide B3, B4, B5 and B7 (cuobjdump);
 3. kernel against plain version, on the card, in float32, on the same
    random draws: (a) P=10, K=65,536, one transition, bit for bit; (b) the
    same with 64 transitions and the history; (c) P=32, diagonal mass,
@@ -83,9 +84,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    on the same V, B8 against B6 within the float32 store's 2^-24; then each
    timed with CUDA events beside its plain version, B6 beside
    ``torch.matmul``, B4, B6 and B8 at every checked q (B4's q = 1 is B3);
-   at n = 4,096 B3, B4 (q = 8), B5 and B7 at d = 20 (the wide kernels; B5
-   and B7 bit for bit) and B4 and B6 at q = 20 (two launches each), and
-   one timed call each of B3, B4, B5 and B7 at n = 53,248, d = 20;
+   at n = 4,096 B3, B4 (q = 8), B5 and B7 at d = 17, 20, 33 and 100 (the
+   wide kernels; B5 and B7 bit for bit; B4 also on a ragged row block at d
+   = 20 and 100) and B4 and B6 at q = 20 (two launches each); then B3, B4
+   (q = 8), B5 and B7 at n = 53,248, d = 20 in two turns with their plain
+   versions, beside their flops bound and their FP64-issue time;
 10. matrix-free GP main path (gp-large-50k): ``LargeScaleGP(solver="df64")``
     on ``benchmarks/df64_solve_bench.py``'s data at N=50,000 (sigma=0.01,
     rank 512, block 4096, cg_tol 1e-9) with ``store_entries="auto"`` (B5,
@@ -96,6 +99,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
     (<= 1e-9), 256 means and 16 variances (B6, B4 or B8 with q = 8), peak
     memory, launches per kernel (B6 and B8 also by q), and a
     ``torch.profiler`` breakdown of one warm solve with each store;
+    gp-large-50k-d20: the same generator in 20 dimensions (x on [0, 7.5]^20,
+    amplitude 1, lengthscale 5, y_err 0.1) with ``"auto"`` (the wide B5, then B6) and
+    ``False`` (the wide B3, then the wide B4 for the predictions), the same
+    readings, each profiled, the two tiers within 1e-7;
 11. gp-large-16k: the same at N=16,384 against a dense FP64 Cholesky on
     the card: the training solve (1e-8 of max |alpha|), means (1e-6) and
     variances (1e-9) at 16 points;
@@ -134,7 +141,7 @@ import numpy as np
 import torch
 
 from inference_tpu_torch import Bounds, HamiltonianChain
-from inference_tpu_torch.bench import dense_hmc, headline
+from inference_tpu_torch.bench import dense_hmc, headline, wide_d20
 from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
 from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
@@ -142,8 +149,8 @@ from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 from inference_tpu_torch.utils import effective_sample_size
-from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
-                                        time_events, vpu_probe)
+from inference_tpu_torch.probes import (BOOST_CLOCK_HZ, EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, LANES,
+                                        SMS, bound, df64_ablate, time_events, vpu_probe)
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as words
 
 N_CHAINS = 65_536
@@ -222,6 +229,7 @@ def phase_build():
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s")
     _print_fp64_mix()
     _print_fused_local_memory()
+    _print_wide_mix()
     _print_b1_local_memory()
 
 
@@ -1241,28 +1249,30 @@ def phase_df64_checks(xpad):
     return errs, (uh, ul, us, V)
 
 
-WIDE_D, WIDE_Q = 20, 20  # checks of the wide kernels (d > 16) and of q > 16
+WIDE_D, WIDE_Q = 20, 20  # the wide kernels' (d > 16) timed width; q > 16's checks
+WIDE_CHECK_D = (17, 20, 33, 100)  # widths of the wide kernels' checks: both ends of a
+# padded step of 4, one and three staged chunks of B5/B7, B3/B4 staged and from device memory
+EXP_FP64 = 18  # FP64 instructions of CUDA's double exp: 14 DFMA, 3 DADD, 1 DMUL (EXP_FLOPS)
 
 
 def _wide_coords(n, d, seed):
-    """Pre-scaled coordinates of d = WIDE_D as a float32 pair and in FP64,
-    uniform on [0, 1.5]^d so that E is well filled."""
-    x = np.random.default_rng(seed).uniform(0, 1.5, (n, d))
+    """Pre-scaled coordinates as a float32 pair and in FP64, uniform on
+    [0, 1.5 sqrt(20 / d)]^d (gp-large-50k-d20's [0, 1.5]^20 at d = 20), so
+    that E is about as well filled at every d."""
+    x = np.random.default_rng(seed).uniform(0, 1.5 * np.sqrt(WIDE_D / d), (n, d))
     uh, ul = (torch.as_tensor(a, device=CUDA) for a in df64.split_f64(x))
     return uh, ul, uh.double() + ul.double()
 
 
 def phase_df64_wide_checks(n=4096):
-    """B3, B4 (q = 8), B5 and B7 at d = 20 (the wide kernels) and B4 and B6
-    at q = 20 (two launches each) against their plain versions at n: B5
-    and B7 bit for bit, the products within 1e-13 of sum_j |E_ij| |V_jk|.
-    Returns the max abs errors by kernel."""
-    uh, ul, us = _wide_coords(n, WIDE_D, 20)
+    """B5 and B7 (bit for bit), B3 and B4 (q = 8; 1e-13 of sum_j |E_ij|
+    |V_jk|) at each of WIDE_CHECK_D (the wide kernels), B4 on 4,224 rows (a
+    ragged last row block) at d = 20 and 100, and B4 and B6 at q = 20 (two
+    launches each), against their plain versions at n. Returns the max abs
+    errors by kernel."""
     V = torch.as_tensor(np.random.default_rng(21).normal(size=(n, WIDE_Q)).astype(np.float32),
                         device=CUDA)
-    errs = {"B5": _bit_for_bit("9j", f"B5 d={WIDE_D}", df64.sqexp_entries_df64(uh, ul), us),
-            "B7": _bit_for_bit("9k", f"B7 d={WIDE_D}", df64.sqexp_entries_f32(uh, ul), us,
-                               round_f32=True)}
+    errs = {}
 
     def held(label, kernel, got, rows, cols, Vq, E=None):
         ref = df64._fused_reference(rows, cols, Vq) if E is None else df64._stored_reference(E, Vq)
@@ -1276,31 +1286,74 @@ def phase_df64_wide_checks(n=4096):
             raise RuntimeError(f"check {label}: {kernel} disagrees ({rel})")
 
     V1, V8 = V[:, :1].contiguous(), V[:, :8].contiguous()
-    held(f"9l B3 d={WIDE_D} vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V1[:, 0])[:, None],
-         us, us, V1)
-    held(f"9m B4 d={WIDE_D} q=8 vs plain", "B4", df64.sqexp_matmat_df64(uh, ul, V8), us, us, V8)
-    xh, xl, xs = (a[:, :2].contiguous() for a in (uh, ul, us))
-    xh, xl, xs = xh * 4, xl * 4, xs * 4  # d = 2 on [0, 6]^2
+    sms = torch.cuda.get_device_properties(CUDA).multi_processor_count
+    for d in WIDE_CHECK_D:
+        uh, ul, us = _wide_coords(n, d, 20 + d)
+        for kernel, label, fn, f32 in (("B5", "9j", df64.sqexp_entries_df64, False),
+                                       ("B7", "9k", df64.sqexp_entries_f32, True)):
+            errs[kernel] = max(errs.get(kernel, 0.0),
+                               _bit_for_bit(label, f"{kernel} d={d}", fn(uh, ul), us, f32))
+        held(f"9l B3 d={d} vs plain", "B3", df64.sqexp_matvec_df64(uh, ul, V1[:, 0])[:, None],
+             us, us, V1)
+        held(f"9m B4 d={d} q=8 vs plain ({df64.fused_wide_plan(n, n, d, 8, sms)})", "B4",
+             df64.sqexp_matmat_df64(uh, ul, V8), us, us, V8)
+        if d in (20, 100):
+            rh, rl, rs = _wide_coords(n + 128, d, 40 + d)
+            held(f"9m B4 d={d} q=8, 4,224 rows vs plain", "B4",
+                 df64.sqexp_matmat_rect_df64(rh, rl, uh, ul, V8), rs, us, V8)
+    xh, xl, xs = (a[:, :2].contiguous() * 4 for a in _wide_coords(n, WIDE_D, 20))  # [0, 6]^2
     held(f"9n B4 q={WIDE_Q} vs plain", "B4", df64.sqexp_matmat_df64(xh, xl, V), xs, xs, V)
     E = df64.sqexp_entries_df64(xh, xl)
     held(f"9o B6 q={WIDE_Q} vs plain", "B6", df64.sqexp_stored_matmat_df64(E, V), None, None, V, E)
     return errs
 
 
+def _issue_ms(n, fp64_per_entry):
+    """The FP64-issue time (ms) of n^2 entries of ``fp64_per_entry`` FP64
+    instructions each: one instruction per lane and cycle on 132 SMs x 64
+    lanes at the boost clock. Under --fmad=false each sub, mul and add is
+    a whole instruction, so this, not the flops bound, is the ceiling."""
+    return float(n) * n * fp64_per_entry / (SMS * LANES["float64"] * BOOST_CLOCK_HZ) * 1e3
+
+
 def phase_df64_wide_timing(n):
-    """One CUDA-event time each (after a warm-up call) of the wide kernels
-    at n, d = 20: B3, B4 at q = 8, B5 and B7."""
-    uh, ul, _ = _wide_coords(n, WIDE_D, 22)
+    """B3, B4 (q = 8), B5 and B7 at n, d = 20 (the wide kernels), each in two
+    turns with its plain version (CUDA events), beside its flops bound (the
+    convention of the kernels line) and its FP64-issue time, with the FP64
+    instructions per entry. Returns {kernel: {"ms", "plain_ms", "bound_ms",
+    "bound_by", "issue_ms", "fp64_per_entry"}}."""
+    d = WIDE_D
+    uh, ul, us = _wide_coords(n, d, 22)
     V = torch.as_tensor(np.random.default_rng(23).normal(size=(n, 8)).astype(np.float32),
                         device=CUDA)
-    ms = {"B3": time_events(df64.sqexp_matvec_df64, (uh, ul, V[:, 0].contiguous()), 1),
-          "B4": time_events(df64.sqexp_matmat_df64, (uh, ul, V), 1)}
-    for kernel, fn in (("B5", df64.sqexp_entries_df64), ("B7", df64.sqexp_entries_f32)):
-        ms[kernel] = time_events(lambda: fn(uh, ul), (), 1)
+    n2 = float(n) * n
+    rows = {}
+
+    def report(kernel, k, p, b, per_entry):
+        issue = _issue_ms(n, per_entry)
+        print(f"[time] {kernel} n={n} d={d}: kernel {k[0]:.4f} / {k[1]:.4f} ms, plain "
+              f"{p[0]:.4f} / {p[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; kernel / bound "
+              f"{min(k) / b[0]:.2f}), FP64 issue {issue:.4f} ms ({per_entry} FP64 instructions "
+              f"per entry; kernel / issue {min(k) / issue:.2f})")
+        rows[kernel] = {"ms": min(k), "plain_ms": min(p), "bound_ms": b[0], "bound_by": b[1],
+                        "issue_ms": issue, "fp64_per_entry": per_entry}
+
+    V1 = V[:, :1].contiguous()
+    k, p = _turns(lambda v: df64.sqexp_matvec_df64(uh, ul, v),
+                  lambda v: df64._fused_reference(us, us, v[:, None]), (V1[:, 0],), 3, 1)
+    report("B3", k, p, _fused_bound(n, d, 1), 3 * d + 1 + EXP_FP64 + 1)
+    k, p = _turns(lambda v: df64.sqexp_matmat_df64(uh, ul, v),
+                  lambda v: df64._fused_reference(us, us, v), (V,), 3, 1)
+    report("B4", k, p, _fused_bound(n, d, 8), 3 * d + 1 + EXP_FP64 + 8)
+    entry = 3 * d + 1 + EXP_FLOPS
+    for kernel, fn, plain, size in (("B5", df64.sqexp_entries_df64, df64._entries_reference, 8),
+                                    ("B7", df64.sqexp_entries_f32, df64._entries_f32_reference, 4)):
         torch.cuda.empty_cache()
-    print(f"[time] wide kernels, n={n} d={WIDE_D}, one timed call each: "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()) + " (B4 at q = 8)")
-    return ms
+        k, p = _turns(lambda: fn(uh, ul), lambda: plain(us), (), 2, 1)
+        report(kernel, k, p, bound(size * n2 + 8 * n * d, n2 * entry, FP64_FLOPS),
+               3 * d + 1 + EXP_FP64)
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _turns(kernel, plain, args, reps_kernel, reps_plain):
@@ -1423,10 +1476,11 @@ def _free():
     return torch.cuda.memory_allocated() / 2**30
 
 
-def _large_run(label, x, y, err, q, store, profile):
-    """One LargeScaleGP(solver="df64") instance on the card: cold
-    constructor + solve, a warm solve, residuals, predictions. Returns the
-    instance, the readings and the kernel launches of the run."""
+def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW):
+    """One LargeScaleGP(solver="df64") instance on the card (settings
+    ``kw``): cold constructor + solve, a warm solve, residuals,
+    predictions. Returns the instance, the readings and the kernel launches
+    of the run."""
     print(f"[{label}] device memory allocated before the run: {_free():.2f} GiB")
     for k in df64.KERNEL_LAUNCHES:
         df64.KERNEL_LAUNCHES[k] = 0
@@ -1435,7 +1489,7 @@ def _large_run(label, x, y, err, q, store, profile):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    gp = LargeScaleGP(x, y, err, store_entries=store, device=CUDA, **LARGE_KW)
+    gp = LargeScaleGP(x, y, err, store_entries=store, device=CUDA, **kw)
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     solver = gp._df64_solver._multi
@@ -1458,7 +1512,7 @@ def _large_run(label, x, y, err, q, store, profile):
                      for k, v in df64.STORED_LAUNCHES_BY_Q.items()})
     print(f"[{label}] store_entries={store!r} (tier {gp._tier}): cold constructor + solve "
           f"{cold:.3f} s, warm solve {warm:.3f} s ({warm_chunks} chunks of "
-          f"{solver.restart_every} iterations), FP64 relative residual {res_kernel:.3e} by the "
+          f"{solver.restart_every} iterations; {solver.chunks_run} chunks in all), FP64 relative residual {res_kernel:.3e} by the "
           f"tier's kernel, {res_plain:.3e} by the plain route; 256 means + 16 variances "
           f"{pred:.3f} s; peak device memory {peak:.2f} GiB; kernel launches {launches}")
     if not (res_plain <= 1e-9 and abs(res_kernel - res_plain) <= 1e-10):
@@ -1469,6 +1523,7 @@ def _large_run(label, x, y, err, q, store, profile):
     if profile:
         _profile_solve(gp)
     return gp, {"cold_s": cold, "warm_s": warm, "warm_chunks": warm_chunks,
+                "iterations": warm_chunks * solver.restart_every,
                 "residual": res_plain, "peak_gib": peak, "mu": mu, "sd16": sd16}, launches
 
 
@@ -1505,6 +1560,36 @@ def phase_large_main():
         if not gap <= 1e-7:
             raise RuntimeError(f"the tiers 'auto' and {store!r} disagree by {gap}")
     return total, runs
+
+
+def phase_large_d20():
+    """gp-large-50k-d20: LargeScaleGP(solver="df64") at N=50,000, d = 20 on
+    the card with store_entries="auto" (the wide B5, then B6) and False (the
+    wide B3, then the wide B4 for the predictions), each counting its
+    launches from 0 and profiled over one warm solve; the two tiers' means
+    and sds must agree within 1e-7."""
+    x, y, err = wide_d20.make_d20_data(LARGE_N)
+    q = np.random.default_rng(3).uniform(0, 7.5, (256, wide_d20.D20))
+    runs, launches = {}, {}
+    for store, needs in (("auto", ("B5", "B6")), (False, ("B3", "B4"))):
+        gp, runs[store], launches[store] = _large_run("gp-large-50k-d20", x, y, err, q, store,
+                                                      profile=True, kw=wide_d20.D20_KW)
+        del gp
+        wide = {k: launches[store][k] for k in needs}
+        print(f"[gp-large-50k-d20] store_entries={store!r}: launches of the kernels at d = "
+              f"{wide_d20.D20} {wide} ({', '.join(needs[:1])} through its wide kernel)")
+        if not all(wide.values()):
+            raise RuntimeError(f"gp-large-50k-d20 store_entries={store!r} skipped a kernel: "
+                               f"{launches[store]}")
+    _free()
+    auto, fused = runs["auto"], runs[False]
+    gap = max(np.abs(auto["mu"] - fused["mu"]).max(), np.abs(auto["sd16"] - fused["sd16"]).max())
+    print(f"[gp-large-50k-d20] 'auto' against False: max difference of means and sds {gap:.3e} "
+          f"(limit 1e-7); warm solve {auto['warm_s']:.3f} s against {fused['warm_s']:.3f} s, "
+          f"cold {auto['cold_s']:.3f} s against {fused['cold_s']:.3f} s")
+    if not gap <= 1e-7:
+        raise RuntimeError(f"gp-large-50k-d20: the tiers 'auto' and False disagree by {gap}")
+    return runs, launches
 
 
 def phase_large_16k():
@@ -1557,11 +1642,11 @@ SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"), "fp32": ("FFMA", "FMUL", "FADD
                 "local": ("LDL", "STL"), "call": ("CALL", "RET")}
 
 
-def _hot_loop(body, cls="fp64", least=4):
+def _hot_loop(body, cls="fp64", least=4, ops=None):
     """The innermost loop that holds at least ``least`` instructions of the
-    class ``cls`` in one kernel's SASS ``body``: the smallest span from a
-    backward branch's target to the branch, as a list of (opcode,
-    operands), or None."""
+    class ``cls`` (or of the opcodes ``ops``) in one kernel's SASS
+    ``body``: the smallest span from a backward branch's target to the
+    branch, as a list of (opcode, operands), or None."""
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
     where = {a: k for k, (a, _, _) in enumerate(ins)}
@@ -1570,7 +1655,7 @@ def _hot_loop(body, cls="fp64", least=4):
         target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
         if target and int(target.group(1), 16) < a and int(target.group(1), 16) in where:
             loop = [(o, r) for _, o, r in ins[where[int(target.group(1), 16)]:k + 1]]
-            if sum(o in SASS_CLASSES[cls] for o, _ in loop) >= least:
+            if sum(o in (ops or SASS_CLASSES[cls]) for o, _ in loop) >= least:
                 loops.append(loop)
     return min(loops, key=len) if loops else None
 
@@ -1609,7 +1694,7 @@ HOT_LOOPS = (("B3", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{df64.FUSED_RP
 
 
 def _print_fused_local_memory():
-    """Each instantiation of B3/B4's kernel: its local-memory (spill)
+    """Each instantiation of B3/B4's kernels: its local-memory (spill)
     instructions in all and in its hot loop, from cuobjdump's SASS."""
     sass = _sass("sqexp_fused")
     if sass is None:
@@ -1617,15 +1702,53 @@ def _print_fused_local_memory():
         return
     for part in sass.split("Function : ")[1:]:
         name = re.match(r"\S+", part).group(0)
-        wide = re.search(r"sqexp_fused_wide_kernelILi(\d+)ELi(\d+)EE", name)
-        dt, qmax, rpt = (("wide", *wide.groups()) if wide else
-                         re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups())
+        wide = re.search(r"sqexp_fused_wide_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE", name)
+        label = (f"sqexp_fused_wide_kernel<QMAX={wide[1]}, RPT={wide[2]}, JC={wide[3]}, "
+                 f"STAGED={wide[4]}>" if wide else "sqexp_fused_kernel<DT={}, QMAX={}, RPT={}>"
+                 .format(*re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups()))
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
         loop = [o for o, _ in _hot_loop(part) or []]
         local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
-        print(f"[sass] sqexp_fused_kernel<DT={dt}, QMAX={qmax}, RPT={rpt}>: "
-              f"{sum(o in local for o in ops)} local-memory or call instructions, "
+        print(f"[sass] {label}: {sum(o in local for o in ops)} local-memory or call instructions, "
               f"{sum(o in local for o in loop)} in the hot loop of {len(loop)}")
+
+
+# the wide kernels' distance loops: (label, library, mangled-name fragment,
+# entries and dimensions one thread covers per trip): B3/B4's staged kernel
+# at q = 1 and 8 (2 rows x 8 columns, 4 dimensions a trip), B5/B7's (16 rows
+# x 2 columns, 4 dimensions a trip)
+WIDE_LOOPS = (
+    ("B3 wide", "sqexp_fused",
+     "sqexp_fused_wide_kernelILi1ELi{}ELi{}ELb1EE".format(*df64.FUSED_WIDE[1]),
+     df64.FUSED_WIDE[1][0] * df64.FUSED_WIDE[1][1], df64.WIDE_KC),
+    ("B4 wide q=8", "sqexp_fused",
+     "sqexp_fused_wide_kernelILi8ELi{}ELi{}ELb1EE".format(*df64.FUSED_WIDE[8]),
+     df64.FUSED_WIDE[8][0] * df64.FUSED_WIDE[8][1], df64.WIDE_KC),
+    ("B5 wide", "sqexp_entries", "sqexp_entries_wide_kernelIdE", 32, 4),
+    ("B7 wide", "sqexp_entries", "sqexp_entries_wide_kernelIfE", 32, 4),
+)
+
+
+def _print_wide_mix():
+    """The SASS of each wide kernel's distance loop (the innermost loop with
+    a DMUL per entry and dimension of a trip) per entry and dimension (3 FP64
+    instructions are the work; the rest is issue beside it), and its
+    local-memory instructions, from cuobjdump."""
+    for label, lib, fragment, entries, dims in WIDE_LOOPS:
+        sass = _sass(lib)
+        body = next((part for part in (sass or "").split("Function : ")[1:]
+                     if fragment in part.split()[0]), None)
+        loop = _hot_loop(body, least=entries * dims, ops=("DMUL",)) if body else None
+        if not loop:
+            print(f"[sass] {label}: distance loop not read (no cuobjdump or no loop found)")
+            continue
+        ops = [o for o, _ in loop]
+        per = entries * dims
+        mix = {c: sum(o in names for o in ops) / per for c, names in SASS_CLASSES.items()}
+        local = len(re.findall(r"\b(?:LDL|STL)\b", body))
+        print(f"[sass] {label} distance loop, instructions per entry and dimension: "
+              f"all {len(ops) / per:g}; " + ", ".join(f"{k} {v:g}" for k, v in mix.items() if v)
+              + f"; local-memory instructions in the kernel: {local}")
 
 
 def _b1_kernel(P, unit):
@@ -1991,6 +2114,7 @@ def main():
     torch.cuda.empty_cache()
     wide_ms = phase_df64_wide_timing(len(xpad))
     large_launches, runs = phase_large_main()
+    d20_runs, d20_launches = phase_large_d20()
     phase_large_16k()
     t_probes = time.perf_counter()
     probe_err = phase_probe_checks(len(xpad))
@@ -1998,8 +2122,10 @@ def main():
     print(f"[summary] probes P1-P3 in {time.perf_counter() - t_probes:.1f} s")
     print(f"[summary] gp-large-50k warm solve: {runs['auto']['warm_s']:.3f} s with the FP64 "
           f"store (B6), {runs[False]['warm_s']:.3f} s fused (B3), {runs['f32']['warm_s']:.3f} s "
-          f"with the float32 store (B8, B3 refreshes); all phases done at "
-          f"{time.perf_counter() - t_start:.1f} s")
+          f"with the float32 store (B8, B3 refreshes); gp-large-50k-d20 warm solve "
+          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, {d20_runs[False]['warm_s']:.3f} "
+          f"s fused (the wide B3), cold {d20_runs['auto']['cold_s']:.3f} s with the store (the "
+          f"wide B5); all phases done at {time.perf_counter() - t_start:.1f} s")
 
     df64_rows = []
     for kernel, fn, src, line in (
@@ -2021,7 +2147,10 @@ def main():
         if kernel == "B4":
             row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
         if kernel in wide_ms:
-            row[f"d{WIDE_D}_ms"] = wide_ms[kernel]
+            w = wide_ms[kernel]
+            row.update({f"d{WIDE_D}_ms": w["ms"], f"d{WIDE_D}_bound_ms": w["bound_ms"],
+                        f"d{WIDE_D}_issue_ms": w["issue_ms"], f"d{WIDE_D}_plain_ms": w["plain_ms"]})
+        row[f"d{WIDE_D}_launches"] = sum(run[kernel] for run in d20_launches.values())
         df64_rows.append(row)
     print(json.dumps({"kernels": [{
         "name": "hmc_fused_chunk",

@@ -36,14 +36,36 @@
 // than the 50 MB L2). The tile's rows are staged in shared memory, read as
 // broadcasts; a thread keeps its two columns' coordinates in registers. The
 // dimension is a template parameter for d <= 3: with a runtime d, a D_MAX-long
-// predicated loop can issue more FP64 work than the entry itself. Above d = 16
-// a thread keeps its 32 entries' partial distances in registers instead, and
-// the tile's rows and columns pass through shared memory in chunks of KC
-// dimensions: the same sums in the same order, for any d.
+// predicated loop can issue more FP64 work than the entry itself.
+//
+// Above d = 16 (sqexp_entries_wide_kernel) FP64 issue bounds both: 3 d + 1
+// operations, the exp's ~18 per entry, 79 at d = 20 (13.4 ms of issue at n =
+// 53,248 on 132 SMs x 64 lanes x 1.98 GHz, each sub, mul and add a whole
+// FP64 instruction, as bit-for-bit agreement with the plain version
+// demands), against B5's 6.8 ms store. What the design does about it:
+// - Each thread keeps the partial distances of its 16 consecutive rows by 2
+//   columns in registers; per dimension it reads its two columns as one
+//   16-byte load and its rows as 8 broadcast 16-byte loads, for 96 FP64
+//   instructions.
+// - A tile's 64 rows and 128 columns are staged by cp.async into shared
+//   memory as [k][point], consecutive threads on consecutive device
+//   addresses (each warp load coalesced), the row stride padded by two
+//   doubles so that the transposing writes spread over the banks. d is
+//   zero-padded to a multiple of 4 in the copy, since adding (0 - 0)^2 = +0
+//   leaves a distance bit for bit, and the unrolled k loop has no
+//   predicate. Up to 32 dimensions go in one pass; beyond, chunks of 32
+//   follow one another and the distances stay in registers between them.
+// - A persistent walk: a grid of as many blocks as fit on the SMs (two or
+//   more each) walks the output tiles, and each (tile, chunk) unit's copy
+//   is double buffered: unit u + 1's coordinates are in flight while unit u
+//   is computed, so one tile's exps and streaming stores overlap the next
+//   tile's copy, with one barrier per unit.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -53,7 +75,6 @@ constexpr int TC = 2 * TX;           // tile columns (df64.py _TJ)
 constexpr int TY = 4;                // threads down a tile
 constexpr int THREADS = TX * TY;     // 256
 constexpr int D_MAX = 16;            // df64.py D_MAX
-constexpr int KC = 16;               // dimensions per staged chunk above D_MAX
 
 template <typename T> struct Two;
 template <> struct Two<double> { using type = double2; };
@@ -105,66 +126,135 @@ sqexp_entries_kernel(const double* __restrict__ us, T* __restrict__ out, int n,
   }
 }
 
-// d > D_MAX: the partial distances of the thread's 16 rows by 2 columns in
-// registers, the coordinates staged KC dimensions at a time
+// cp.async of 8 bytes from device to shared memory, through the L1
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr int PTS = TR + TC;  // points of a tile: its rows, then its columns
+// row stride of the staged [k][point] copy: even, for 16-byte reads, and
+// 2 doubles past PTS, so that the copy's writes (consecutive threads on
+// consecutive k) spread over 8 bank pairs
+constexpr int PTS_PAD = PTS + 2;
+constexpr int WKC = 32;       // dimensions staged per unit above D_MAX
+
+// d > D_MAX (see the header): a persistent walk over the (n / TR) x (n / TC)
+// output tiles, each in ceil(d_pad / WKC) units of up to WKC dimensions.
+// Dynamic shared memory: two buffers of [min(d_pad, WKC)][PTS_PAD] doubles.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-sqexp_entries_wide_kernel(const double* __restrict__ us, T* __restrict__ out, int n, int d) {
-  __shared__ double su[KC][TR];
-  __shared__ double sc[KC][TC];
-
-  const int row0 = blockIdx.y * TR;
-  const int col0 = blockIdx.x * TC;
+__global__ void __launch_bounds__(THREADS, 2)
+sqexp_entries_wide_kernel(const double* __restrict__ us, T* __restrict__ out, int n, int d,
+                          int d_pad) {
+  extern __shared__ __align__(16) double sp[];
+  const int kc_max = min(d_pad, WKC);
+  const int n_chunks = (d_pad + WKC - 1) / WKC;
+  const int col_tiles = n / TC;
+  const int n_tiles = (n / TR) * col_tiles;
   const int tid = threadIdx.y * TX + threadIdx.x;
-  const int c = 2 * threadIdx.x;
+  const int units = blockIdx.x < n_tiles
+                        ? (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x * n_chunks + n_chunks
+                        : 0;
 
+  // copy unit u's coordinates into buffer b as [k][point] with row stride
+  // PTS_PAD, consecutive threads on consecutive device addresses (a point's
+  // dimensions, then the next point's); zeros in the pad dimensions
+  auto stage = [&](int u, int b) {
+    const int t = blockIdx.x + (u / n_chunks) * gridDim.x;
+    const int k0 = (u % n_chunks) * WKC;
+    const int kc = min(WKC, d_pad - k0), kr = min(kc, d - k0);  // staged, real
+    const int row0 = t / col_tiles * TR, col0 = t % col_tiles * TC;
+    double* dst = sp + (size_t)b * kc_max * PTS_PAD;
+    const int step_p = THREADS / kr, step_k = THREADS - step_p * kr;
+    int p = tid / kr, k = tid - p * kr;
+    for (int idx = tid; idx < PTS * kr; idx += THREADS) {
+      const int point = p < TR ? row0 + p : col0 + p - TR;
+      cp_async8(dst + k * PTS_PAD + p, us + (size_t)point * d + k0 + k);
+      k += step_k;
+      p += step_p;
+      if (k >= kr) {
+        k -= kr;
+        ++p;
+      }
+    }
+    for (int idx = tid; idx < PTS * (kc - kr); idx += THREADS)
+      dst[(kr + idx / PTS) * PTS_PAD + idx % PTS] = 0.0;
+    cp_async_commit();
+  };
+
+  const int r0 = threadIdx.y * (TR / TY);  // the thread's 16 consecutive rows
+  const int c = TR + 2 * threadIdx.x;      // its two columns, in the tile's points
   double d0[TR / TY], d1[TR / TY];
+  if (units > 0) stage(0, 0);
+  for (int u = 0; u < units; ++u) {
+    const int b = u & 1;
+    cp_async_wait_all();
+    __syncthreads();  // unit u staged; every thread done with unit u - 1
+    if (u + 1 < units) stage(u + 1, b ^ 1);
+    const int chunk = u % n_chunks;
+    if (chunk == 0) {
 #pragma unroll
-  for (int i = 0; i < TR / TY; ++i) d0[i] = d1[i] = 0.0;
-  for (int k0 = 0; k0 < d; k0 += KC) {
-    const int kc = min(KC, d - k0);
-    __syncthreads();
-    for (int idx = tid; idx < TR * kc; idx += THREADS) {
-      const int r = idx / kc;
-      su[idx - r * kc][r] = us[(size_t)(row0 + r) * d + k0 + idx - r * kc];
+      for (int i = 0; i < TR / TY; ++i) d0[i] = d1[i] = 0.0;
     }
-    for (int idx = tid; idx < TC * kc; idx += THREADS) {
-      const int j = idx / kc;
-      sc[idx - j * kc][j] = us[(size_t)(col0 + j) * d + k0 + idx - j * kc];
+    const double* s = sp + (size_t)b * kc_max * PTS_PAD;
+    const int kc = min(WKC, d_pad - chunk * WKC);
+    for (int k = 0; k < kc; k += 4) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const double* sk = s + (k + kk) * PTS_PAD;
+        const double2 cc = *reinterpret_cast<const double2*>(sk + c);
+#pragma unroll
+        for (int i = 0; i < TR / TY; i += 2) {
+          const double2 a = *reinterpret_cast<const double2*>(sk + r0 + i);
+          const double e00 = a.x - cc.x, e01 = a.x - cc.y;
+          const double e10 = a.y - cc.x, e11 = a.y - cc.y;
+          d0[i] = d0[i] + e00 * e00;
+          d1[i] = d1[i] + e01 * e01;
+          d0[i + 1] = d0[i + 1] + e10 * e10;
+          d1[i + 1] = d1[i + 1] + e11 * e11;
+        }
+      }
     }
-    __syncthreads();
-    for (int k = 0; k < kc; ++k) {
-      const double b0 = sc[k][c], b1 = sc[k][c + 1];
+    if (chunk == n_chunks - 1) {
+      const int t = blockIdx.x + (u / n_chunks) * gridDim.x;
+      T* o = out + (size_t)(t / col_tiles * TR + r0) * n + t % col_tiles * TC + 2 * threadIdx.x;
 #pragma unroll
       for (int i = 0; i < TR / TY; ++i) {
-        const double a = su[k][threadIdx.y + i * TY];
-        const double e0 = a - b0;
-        const double e1 = a - b1;
-        d0[i] = d0[i] + e0 * e0;
-        d1[i] = d1[i] + e1 * e1;
+        typename Two<T>::type val;
+        val.x = static_cast<T>(exp(-0.5 * d0[i]));
+        val.y = static_cast<T>(exp(-0.5 * d1[i]));
+        __stcs(reinterpret_cast<typename Two<T>::type*>(o + (size_t)i * n), val);
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < TR / TY; ++i) {
-    typename Two<T>::type val;
-    val.x = static_cast<T>(exp(-0.5 * d0[i]));
-    val.y = static_cast<T>(exp(-0.5 * d1[i]));
-    __stcs(reinterpret_cast<typename Two<T>::type*>(
-               out + (size_t)(row0 + threadIdx.y + i * TY) * n + col0 + c),
-           val);
-  }
 }
 
-// DT < 0: the wide kernel
+// DT < 0: the wide kernel, persistent: as many blocks as fit on the SMs
 template <typename T, int DT>
 int launch(const double* us, T* out, int n, int d, cudaStream_t stream) {
-  dim3 grid(n / TC, n / TR);
   dim3 block(TX, TY);
-  if constexpr (DT < 0)
-    sqexp_entries_wide_kernel<T><<<grid, block, 0, stream>>>(us, out, n, d);
-  else
+  if constexpr (DT < 0) {
+    const int d_pad = (d + 3) / 4 * 4;
+    const int smem = 2 * min(d_pad, WKC) * PTS_PAD * (int)sizeof(double);
+    auto kernel = sqexp_entries_wide_kernel<T>;
+    cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    int device = 0, sms = 0, per_sm = 0;
+    if (rc == cudaSuccess) rc = cudaGetDevice(&device);
+    if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (rc == cudaSuccess)
+      rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    const long n_tiles = (long)(n / TR) * (n / TC);
+    const int grid = (int)std::min<long>(n_tiles, (long)sms * std::max(per_sm, 1));
+    kernel<<<grid, block, smem, stream>>>(us, out, n, d, d_pad);
+  } else {
+    dim3 grid(n / TC, n / TR);
     sqexp_entries_kernel<T, DT><<<grid, block, 0, stream>>>(us, out, n, d);
+  }
   return (int)cudaGetLastError();
 }
 

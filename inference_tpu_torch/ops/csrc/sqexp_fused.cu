@@ -68,14 +68,43 @@
 // chip_smoke.py prints every instantiation's registers and local-memory
 // instructions.
 //
-// Above d = 16 (sqexp_fused_wide_f64) no register array holds a row's
-// coordinates: the wrapper passes the rows transposed, (d, n_rows), so each
-// k's read of a warp's rows is one coalesced load, and the column's
-// coordinate at k is one load that every thread of the block shares. Both
-// come from device memory (the L1 keeps them), one k at a time, in the
-// order of the plain version; v is staged per tile as above. It computes the
-// same sums in the same order as the templated kernels and takes the same
-// plan, for any d.
+// Above d = 16: sqexp_fused_wide_kernel (sqexp_fused_wide_f64). It computes
+// the same sums in the same order as the templated kernel for any d: each
+// entry's distance over k in order, the accurate exp, each row's sum over j
+// within one thread in column order. What bounds it is FP64 issue again, and
+// more of it: per entry 3 d + 1 operations, the exp's ~18 and q fma, 80 at d
+// = 20, q = 1 (13.6 ms of issue at n = 53,248 on 132 SMs x 64 lanes x 1.98
+// GHz), each sub, mul and add a whole FP64 instruction under --fmad=false.
+//
+// What the design does about it:
+// - A 2-D micro-tile. Each thread keeps RPT rows x JC consecutive columns of
+//   partial distances in registers, so each row value it reads serves JC
+//   entries and each column value RPT entries: per pair of dimensions RPT +
+//   JC 16-byte shared-memory loads for 6 RPT JC FP64 instructions. RPT = 1,
+//   JC = 16 for every bucket of q, by measurement on the H100 (PERF.md): the
+//   shared memory of a block's rows scales with RPT, and at d = 20 one row
+//   a thread leaves room for three blocks an SM at q = 1, faster than the
+//   two of 2 x 8 or the one of 4 x 4.
+// - Staged once, read as pairs. The block's rows are staged once into shared
+//   memory as [d_pad / 2][rows] pairs (a warp's read of its rows' dimensions
+//   k, k + 1 is 512 contiguous bytes, no bank conflict), and every 128-column
+//   tile of the split as [column][d_pad] (each read of dimensions k, k + 1
+//   of a column is one 16-byte broadcast), both by cp.async from the
+//   row-major coordinates: no transpose. The column tiles are double
+//   buffered: tile t + 1's copy and its v (widened to double through
+//   registers) are in flight while tile t is computed, with one barrier per
+//   tile.
+// - Chunks that unroll. d is zero-padded to d_pad, a multiple of KC = 4, in
+//   the staged copies; adding (0 - 0)^2 = +0 to a non-negative distance
+//   leaves every sum bit for bit, so the k loop runs whole unrolled steps of
+//   KC with no predicate and no 64-bit address arithmetic.
+// - Where the staged rows and two column tiles do not fit in shared memory
+//   (d_pad above 64-72, by q), the kernel reads the same layouts from device
+//   memory: the wrapper then passes the rows transposed and zero-padded,
+//   (d_pad, n_rows), and the columns zero-padded, (n_cols, d_pad), a copy at
+//   every launch that this mode alone makes.
+// The plan (df64.fused_wide_plan: rows and columns per thread for q's bucket,
+// d_pad, shared memory, column splits) is taken as given and checked.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,6 +115,8 @@ namespace {
 constexpr int ROWS = 128;   // threads per block (df64.py _TI)
 constexpr int TJ = 128;     // columns per staged tile (df64.py _TJ)
 constexpr int D_MAX = 16;   // df64.py D_MAX
+constexpr int KC = 4;       // dimensions per unrolled step of the wide kernel (df64.py WIDE_KC)
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of a block (df64.py SMEM_MAX)
 
 // a minimum of one block per SM: ptxas keeps the registers it needs rather
 // than spill to fit another block (see the header)
@@ -169,22 +200,58 @@ sqexp_fused_kernel(const double* __restrict__ rows, const double* __restrict__ c
   }
 }
 
-// d > D_MAX: rows_t is (d, n_rows), the rows transposed; the coordinates
-// come from device memory one k at a time (see the header)
-template <int QMAX, int RPT>
+// cp.async of 8 bytes from device to shared memory, through the L1
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy count = n_pts x d doubles of a contiguous row-major block, through
+// cp.async, to shared memory at dst(point, k), the block's threads in turn.
+// (point, k) of a thread's next element advance by (ROWS / d, ROWS % d): no
+// division in the loop.
+template <typename Dst>
+__device__ __forceinline__ void stage(const double* __restrict__ src, int n_pts, int d, Dst dst) {
+  const int step_j = ROWS / d, step_k = ROWS - step_j * d;
+  int j = threadIdx.x / d, k = threadIdx.x - j * d;
+  for (int idx = threadIdx.x; idx < n_pts * d; idx += ROWS) {
+    cp_async8(dst(j, k), src + idx);
+    k += step_k;
+    j += step_j;
+    if (k >= d) {
+      k -= d;
+      ++j;
+    }
+  }
+}
+
+// d > D_MAX (see the header). STAGED: rows and cols row-major (n, d), the
+// block's rows and each column tile staged in shared memory; else rows is
+// (d_pad, n_rows) and cols (n_cols, d_pad), zero-padded, read from device
+// memory. Dynamic shared memory: the rows as [d_pad / 2][ROWS RPT] pairs and
+// two column tiles [TJ][d_pad] (STAGED only), then two tiles of v [TJ][QMAX].
+template <int QMAX, int RPT, int JC, bool STAGED>
 __global__ void __launch_bounds__(ROWS, 1)
-sqexp_fused_wide_kernel(const double* __restrict__ rows_t, const double* __restrict__ cols,
-                        const float* __restrict__ v, double* __restrict__ partial,
-                        int n_rows, int n_cols, int d, int q, int tiles_per_split) {
-  __shared__ double sv[TJ][QMAX];
+sqexp_fused_wide_kernel(const double* __restrict__ rows, const double* __restrict__ cols,
+                        const float* __restrict__ v, double* __restrict__ partial, int n_rows,
+                        int n_cols, int d, int d_pad, int q, int tiles_per_split) {
+  constexpr int R = ROWS * RPT;  // rows of the block
+  extern __shared__ __align__(16) double smem[];
+  double2* srow = reinterpret_cast<double2*>(smem);                // [d_pad / 2][R]
+  double* scol = smem + (STAGED ? (size_t)R * d_pad : 0);          // [2][TJ][d_pad]
+  double* sv = scol + (STAGED ? (size_t)2 * TJ * d_pad : 0);       // [2][TJ][QMAX]
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * ROWS * RPT + tid;
-  int rr[RPT];
+  const int row_base = blockIdx.x * R;
+  int rr[RPT];  // the thread's rows, clamped to the last
   double acc[RPT][QMAX];
 #pragma unroll
   for (int p = 0; p < RPT; ++p) {
-    rr[p] = min(row0 + p * ROWS, n_rows - 1);
+    rr[p] = min(row_base + tid + p * ROWS, n_rows - 1);
 #pragma unroll
     for (int c = 0; c < QMAX; ++c) acc[p][c] = 0.0;
   }
@@ -192,43 +259,119 @@ sqexp_fused_wide_kernel(const double* __restrict__ rows_t, const double* __restr
   const int n_tiles = n_cols / TJ;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  for (int t = t_begin; t < t_end; ++t) {
-    const size_t j0 = (size_t)t * TJ;
-    __syncthreads();
-    for (int idx = tid; idx < TJ * QMAX; idx += ROWS) {
-      const int jj = idx / QMAX;
-      const int c = idx - jj * QMAX;
-      sv[jj][c] = c < q ? (double)v[(j0 + jj) * q + c] : 0.0;
+  auto stage_cols = [&](int t, int b) {
+    if constexpr (STAGED) {
+      double* dst = scol + (size_t)b * TJ * d_pad;
+      stage(cols + (size_t)t * TJ * d, TJ, d, [&](int j, int k) { return dst + j * d_pad + k; });
     }
-    __syncthreads();
-    for (int jj = 0; jj < TJ; ++jj) {
-      const double* col = cols + (j0 + jj) * d;
-      double dist[RPT];
+  };
+  auto load_v = [&](int t, float (&w)[QMAX]) {  // column tid of tile t
 #pragma unroll
-      for (int p = 0; p < RPT; ++p) dist[p] = 0.0;
-      for (int k = 0; k < d; ++k) {
-        const double ck = __ldg(col + k);
-        const double* row_k = rows_t + (size_t)k * n_rows;
+    for (int c = 0; c < QMAX; ++c) w[c] = c < q ? v[((size_t)t * TJ + tid) * q + c] : 0.0f;
+  };
+  auto store_v = [&](const float (&w)[QMAX], int b) {
 #pragma unroll
-        for (int p = 0; p < RPT; ++p) {
-          const double diff = __ldg(row_k + rr[p]) - ck;
-          dist[p] = dist[p] + diff * diff;
+    for (int c = 0; c < QMAX; ++c) sv[(b * TJ + tid) * QMAX + c] = (double)w[c];
+  };
+
+  if constexpr (STAGED) {
+    // the block's rows (the last row repeated past n_rows) and the zero pads
+    double* sr = smem;
+    const int last = n_rows - 1 - row_base;  // rows of the block past it repeat it
+    if (last >= R - 1) {
+      stage(rows + (size_t)row_base * d, R, d,
+            [&](int r, int k) { return sr + (size_t)(k >> 1) * 2 * R + 2 * r + (k & 1); });
+    } else {
+      for (int idx = tid; idx < R * d; idx += ROWS) {
+        const int r = idx / d, k = idx - r * d;
+        cp_async8(sr + (size_t)(k >> 1) * 2 * R + 2 * r + (k & 1),
+                  rows + (size_t)(row_base + min(r, last)) * d + k);
+      }
+    }
+    for (int idx = tid; idx < R * (d_pad - d); idx += ROWS) {
+      const int k = d + idx / R, r = idx % R;
+      sr[(size_t)(k >> 1) * 2 * R + 2 * r + (k & 1)] = 0.0;
+    }
+    for (int idx = tid; idx < 2 * TJ * (d_pad - d); idx += ROWS) {
+      const int j = idx / (d_pad - d);
+      scol[(size_t)j * d_pad + d + idx - j * (d_pad - d)] = 0.0;
+    }
+  }
+  if (t_begin < t_end) {
+    stage_cols(t_begin, 0);
+    float w[QMAX];
+    load_v(t_begin, w);
+    store_v(w, 0);
+  }
+  cp_async_commit();
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int b = (t - t_begin) & 1;
+    cp_async_wait_all();
+    __syncthreads();  // tile t staged; every thread done with tile t - 1
+    const bool next = t + 1 < t_end;
+    float w_next[QMAX];
+    if (next) {
+      stage_cols(t + 1, b ^ 1);
+      cp_async_commit();
+      load_v(t + 1, w_next);
+    }
+    const double* ct = STAGED ? scol + (size_t)b * TJ * d_pad : cols + (size_t)t * TJ * d_pad;
+    const double* vt = sv + b * TJ * QMAX;
+    for (int g = 0; g < TJ; g += JC) {
+      double dist[RPT][JC];
+#pragma unroll
+      for (int p = 0; p < RPT; ++p)
+#pragma unroll
+        for (int j = 0; j < JC; ++j) dist[p][j] = 0.0;
+      const double* cg = ct + (size_t)g * d_pad;
+      for (int k = 0; k < d_pad; k += KC) {
+#pragma unroll
+        for (int kk = 0; kk < KC; kk += 2) {
+          double2 a[RPT];
+#pragma unroll
+          for (int p = 0; p < RPT; ++p) {
+            if constexpr (STAGED) {
+              a[p] = srow[((k + kk) >> 1) * R + tid + p * ROWS];
+            } else {
+              a[p].x = __ldg(rows + (size_t)(k + kk) * n_rows + rr[p]);
+              a[p].y = __ldg(rows + (size_t)(k + kk + 1) * n_rows + rr[p]);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < JC; ++j) {
+            const double2* src = reinterpret_cast<const double2*>(cg + j * d_pad + k + kk);
+            double2 c;
+            if constexpr (STAGED) c = *src;
+            else c = __ldg(src);
+#pragma unroll
+            for (int p = 0; p < RPT; ++p) {
+              const double e0 = a[p].x - c.x;
+              dist[p][j] = dist[p][j] + e0 * e0;
+              const double e1 = a[p].y - c.y;
+              dist[p][j] = dist[p][j] + e1 * e1;
+            }
+          }
         }
       }
-      double e[RPT];
 #pragma unroll
-      for (int p = 0; p < RPT; ++p) e[p] = exp(-0.5 * dist[p]);
+      for (int j = 0; j < JC; ++j) {
+        double e[RPT];
 #pragma unroll
-      for (int c = 0; c < QMAX; ++c) {
-        const double w = sv[jj][c];
+        for (int p = 0; p < RPT; ++p) e[p] = exp(-0.5 * dist[p][j]);
 #pragma unroll
-        for (int p = 0; p < RPT; ++p) acc[p][c] = fma(e[p], w, acc[p][c]);
+        for (int c = 0; c < QMAX; ++c) {
+          const double wc = vt[(g + j) * QMAX + c];
+#pragma unroll
+          for (int p = 0; p < RPT; ++p) acc[p][c] = fma(e[p], wc, acc[p][c]);
+        }
       }
     }
+    if (next) store_v(w_next, b ^ 1);
   }
 #pragma unroll
   for (int p = 0; p < RPT; ++p) {
-    const int row = row0 + p * ROWS;
+    const int row = row_base + tid + p * ROWS;
     if (row < n_rows) {
       double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
 #pragma unroll
@@ -238,20 +381,16 @@ sqexp_fused_wide_kernel(const double* __restrict__ rows_t, const double* __restr
   }
 }
 
-// the launch of one instantiation; refuses rows per thread other than RPT.
-// DT < 0 is the wide kernel, with rows transposed
+// the launch of one instantiation of the templated kernel; refuses rows per
+// thread other than RPT
 template <int DT, int QMAX, int RPT>
 int launch_q(const double* rows, const double* cols, const float* v, double* partial,
              int n_rows, int n_cols, int d, int q, int rpt, int splits, int tiles_per_split,
              cudaStream_t stream) {
   if (rpt != RPT) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
-  if constexpr (DT < 0)
-    sqexp_fused_wide_kernel<QMAX, RPT><<<grid, ROWS, 0, stream>>>(
-        rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
-  else
-    sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
-        rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
+  sqexp_fused_kernel<DT, QMAX, RPT><<<grid, ROWS, 0, stream>>>(
+      rows, cols, v, partial, n_rows, n_cols, d, q, tiles_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -265,6 +404,35 @@ int launch_d(const double* rows, const double* cols, const float* v, double* par
   if (q <= 4) return launch_q<DT, 4, 4>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   if (q <= 8) return launch_q<DT, 8, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
   return launch_q<DT, 16, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
+}
+
+// the wide kernel's shared memory for q's bucket, staged or not; the
+// plan's (df64.py fused_wide_plan) must equal it
+constexpr size_t wide_smem(int qmax, int rpt, int d_pad, bool staged) {
+  return 8 * ((staged ? (size_t)d_pad * (ROWS * rpt + 2 * TJ) : 0) + (size_t)2 * TJ * qmax);
+}
+
+// the launch of one instantiation of the wide kernel; refuses a plan that
+// differs from its rows and columns per thread, its d_pad or its shared
+// memory (staged where the staged layout fits)
+template <int QMAX, int RPT, int JC>
+int launch_wide_q(const double* rows, const double* cols, const float* v, double* partial,
+                  int n_rows, int n_cols, int d, int q, int rpt, int jc, int splits,
+                  int tiles_per_split, int d_pad, int smem, cudaStream_t stream) {
+  const bool staged = wide_smem(QMAX, RPT, d_pad, true) <= SMEM_MAX;
+  if (rpt != RPT || jc != JC || d_pad != (d + KC - 1) / KC * KC ||
+      (size_t)smem != wide_smem(QMAX, RPT, d_pad, staged))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
+  auto run = [&](auto kernel) {
+    cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    kernel<<<grid, ROWS, smem, stream>>>(rows, cols, v, partial, n_rows, n_cols, d, d_pad, q,
+                                         tiles_per_split);
+    return (int)cudaGetLastError();
+  };
+  return staged ? run(sqexp_fused_wide_kernel<QMAX, RPT, JC, true>)
+                : run(sqexp_fused_wide_kernel<QMAX, RPT, JC, false>);
 }
 
 // the operands and the plan, else false (see the entry points)
@@ -303,15 +471,27 @@ extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v
   }
 }
 
-// The same for d > 16, with rows_t the rows transposed, (d, n_rows)
-// row-major; the plan and the limits on n_cols and q are those above.
-extern "C" int sqexp_fused_wide_f64(const void* rows_t, const void* cols, const void* v,
+// The same for d > 16 by the plan of df64.py::fused_wide_plan: rpt rows and
+// jc columns per thread (those instantiated for q's bucket), d_pad = d
+// rounded up to a multiple of 4 and smem bytes of dynamic shared memory, the
+// staged layout's where it fits. Staged, rows (n_rows, d) and cols (n_cols,
+// d) are row-major; else rows is (d_pad, n_rows) and cols (n_cols, d_pad),
+// zero-padded. The limits on n_cols, q and the splits are those above.
+extern "C" int sqexp_fused_wide_f64(const void* rows, const void* cols, const void* v,
                                     void* partial, int n_rows, int n_cols, int d, int q, int rpt,
-                                    int splits, int tiles_per_split, void* stream) {
+                                    int jc, int splits, int tiles_per_split, int d_pad, int smem,
+                                    void* stream) {
   if (d <= D_MAX || !plan_ok(n_rows, n_cols, d, q, splits, tiles_per_split))
     return (int)cudaErrorInvalidValue;
-  return launch_d<-1>(static_cast<const double*>(rows_t), static_cast<const double*>(cols),
-                      static_cast<const float*>(v), static_cast<double*>(partial), n_rows,
-                      n_cols, d, q, rpt, splits, tiles_per_split,
-                      static_cast<cudaStream_t>(stream));
+  const double* r = static_cast<const double*>(rows);
+  const double* c = static_cast<const double*>(cols);
+  const float* vv = static_cast<const float*>(v);
+  double* p = static_cast<double*>(partial);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // one (RPT, JC) for each bucket of q (df64.py FUSED_WIDE holds the same table)
+  if (q <= 1) return launch_wide_q<1, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
+  if (q <= 2) return launch_wide_q<2, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
+  if (q <= 4) return launch_wide_q<4, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
+  if (q <= 8) return launch_wide_q<8, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
+  return launch_wide_q<16, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
 }

@@ -38,6 +38,7 @@ which forms each entry with the same operations in the same order. ``KERNEL_LAUN
 launches of each kernel, ``STORED_LAUNCHES_BY_Q`` those of B6 and B8 by q.
 """
 
+from typing import NamedTuple
 from warnings import warn
 
 import numpy as np
@@ -204,11 +205,70 @@ def fused_plan(n_rows, n_cols, q, sms):
     return rpt, -(-n_tiles // per), per
 
 
+# rows and columns per thread of the wide kernel (d > D_MAX) for each bucket
+# of q; csrc/sqexp_fused.cu instantiates exactly these and refuses any other
+FUSED_WIDE = {1: (1, 16), 2: (1, 16), 4: (1, 16), 8: (1, 16), 16: (1, 16)}
+WIDE_KC = 4  # the wide kernels' unrolled step of dimensions: d is padded to a multiple
+SMEM_MAX = 232_448  # dynamic shared memory one block may take on the H100
+
+
+class WidePlan(NamedTuple):
+    """The plan of one launch of the wide fused kernel (``fused_wide_plan``)."""
+    rpt: int      # output rows per thread (the block's 128 threads own 128 rpt rows)
+    jc: int       # consecutive columns of each thread's micro-tile of distances
+    splits: int   # column splits (blockIdx.y)
+    per: int      # 128-column tiles per split
+    d_pad: int    # d rounded up to a multiple of WIDE_KC; the pad dimensions are zeros
+    staged: bool  # rows and column tiles staged in shared memory
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+def pad_dims(d):
+    """``d`` rounded up to a multiple of ``WIDE_KC``: the width of the wide
+    kernels' zero-padded coordinates. Adding (0 - 0)^2 = +0 to a distance
+    leaves it bit for bit, so the padded coordinates give the same
+    entries."""
+    return -(-d // WIDE_KC) * WIDE_KC
+
+
+def fused_wide_plan(n_rows, n_cols, d, q, sms):
+    """The plan of a launch of the wide fused kernel (d > ``D_MAX``) on a
+    card with ``sms`` SMs, which the kernel takes as given. ``rpt`` and
+    ``jc`` are ``FUSED_WIDE`` of q's bucket, the splits and tiles per split
+    those of ``fused_plan`` at that ``rpt``. Staged, a block holds its 128
+    rpt rows (d_pad / 2 pairs each) and two 128-column tiles (d_pad each) in
+    shared memory; where those exceed ``SMEM_MAX`` the kernel reads them
+    from device memory and its shared memory holds only the two tiles of v
+    widened to double."""
+    bucket = next(b for b in FUSED_WIDE if q <= b)
+    rpt, jc = FUSED_WIDE[bucket]
+    n_tiles = n_cols // _TJ
+    per = -(-n_tiles // _column_splits(-(-n_rows // (_TI * rpt)), n_tiles, sms))
+    d_pad = pad_dims(d)
+    v_bytes = 8 * 2 * _TJ * bucket
+    staged = 8 * d_pad * (_TI * rpt + 2 * _TJ) + v_bytes
+    fits = staged <= SMEM_MAX
+    return WidePlan(rpt, jc, -(-n_tiles // per), per, d_pad, fits, staged if fits else v_bytes)
+
+
+def _unstaged_operands(rows64, cols64, d_pad):
+    """The wide kernel's operands where they are not staged in shared
+    memory: the rows transposed, (d_pad, n_rows), and the columns (n_cols,
+    d_pad), both zero-padded to ``d_pad`` dimensions."""
+    d = rows64.shape[1]
+    rows_t = rows64.new_zeros((d_pad, rows64.shape[0]))
+    rows_t[:d] = rows64.T
+    cols_p = cols64.new_zeros((cols64.shape[0], d_pad))
+    cols_p[:, :d] = cols64
+    return rows_t, cols_p
+
+
 def _launch_fused(rows64, cols64, V, kernel="B4"):
     """Launch the fused kernel (``csrc/sqexp_fused.cu``) on contiguous
     FP64 coordinates and a float32 block ``V`` on one CUDA device, with the
-    result of ``_fused_reference``, by ``fused_plan``. Counts one launch of
-    ``kernel`` (B3 for the matvec, B4 for the matmat)."""
+    result of ``_fused_reference``, by ``fused_plan`` (d <= ``D_MAX``) or
+    ``fused_wide_plan``. Counts one launch of ``kernel`` (B3 for the
+    matvec, B4 for the matmat)."""
     for name, t, dt in (("rows", rows64, torch.float64), ("cols", cols64, torch.float64),
                         ("V", V, torch.float32)):
         if t.device.type != "cuda" or t.device != rows64.device:
@@ -220,16 +280,21 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
     n_rows, d = rows64.shape
     n_cols, q = V.shape
     sms = torch.cuda.get_device_properties(rows64.device).multi_processor_count
-    rpt, splits, per = fused_plan(n_rows, n_cols, q, sms)
-    partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
     if d <= D_MAX:
+        rpt, splits, per = fused_plan(n_rows, n_cols, q, sms)
         fn = _build.bind("sqexp_fused", "sqexp_fused_f64", 4, 7)
-    else:  # the wide kernel reads the rows transposed, (d, n_rows)
-        fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 7)
-        rows64 = rows64.T.contiguous()
+        plan = (rpt, splits, per)
+    else:
+        wp = fused_wide_plan(n_rows, n_cols, d, q, sms)
+        if not wp.staged:
+            rows64, cols64 = _unstaged_operands(rows64, cols64, wp.d_pad)
+        fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 10)
+        splits = wp.splits
+        plan = (wp.rpt, wp.jc, wp.splits, wp.per, wp.d_pad, wp.smem)
+    partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
     with torch.cuda.device(rows64.device):
         rc = fn(rows64.data_ptr(), cols64.data_ptr(), V.data_ptr(), partial.data_ptr(),
-                n_rows, n_cols, d, q, rpt, splits, per, _build.stream(rows64.device))
+                n_rows, n_cols, d, q, *plan, _build.stream(rows64.device))
     _build.raise_on(rc, kernel)
     KERNEL_LAUNCHES[kernel] += 1
     return partial[0] if splits == 1 else partial.sum(dim=0)

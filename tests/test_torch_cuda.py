@@ -771,14 +771,18 @@ def test_df64_products_at_twenty_right_hand_sides(cuda, which):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 20, 33, 100])
 @pytest.mark.parametrize("which", ["B3", "B4", "B5", "B7"])
-def test_df64_kernels_at_twenty_dimensions(cuda, which):
-    """d = 20, the wide kernels: B5 and B7 bit for bit with their plain
-    versions, B3 and B4 (q = 8, a ragged row block) within 1e-13 of
-    sum_j |E_ij| |V_jk|."""
+def test_df64_kernels_at_twenty_dimensions(cuda, which, d):
+    """d > 16, the wide kernels, at both ends of a padded step of 4 (17,
+    20), with a second staged chunk of B5/B7 (33) and B3/B4 read from device
+    memory (100): B5 and B7 bit for bit with their plain versions, B3 and B4
+    (q = 1, 8 and 16, on 640 rows: a last row block that is not full) within
+    1e-13 of sum_j |E_ij| |V_jk|."""
     n = 1024
-    uh, ul, V = _df64_inputs(cuda, n, 20, 8, seed=31)
-    uh, ul = uh / 8, ul / 8  # a well-filled E at d = 20
+    uh, ul, V = _df64_inputs(cuda, n, d, 16, seed=31 + d)
+    scale = 8 * np.sqrt(d / 20)  # a well-filled E at every d
+    uh, ul = uh / scale, ul / scale
     us = uh.double() + ul.double()
     before = df64.KERNEL_LAUNCHES[which]
     if which in ("B5", "B7"):
@@ -787,18 +791,47 @@ def test_df64_kernels_at_twenty_dimensions(cuda, which):
         torch.cuda.synchronize()
         assert float((ref > 1e-3).double().mean()) > 0.1
         assert torch.equal(got, ref)
+        launches = 1
     elif which == "B3":
         got = df64.sqexp_matvec_df64(uh, ul, V[:, 0])
         torch.cuda.synchronize()
         _within_scale(got[:, None], df64._fused_reference(us, us, V[:, :1]),
                       df64._fused_reference(us, us, V[:, :1].abs()))
+        launches = 1
     else:
         rh, rl = uh[:640], ul[:640]
-        got = df64.sqexp_matmat_rect_df64(rh, rl, uh, ul, V)
-        torch.cuda.synchronize()
-        _within_scale(got, df64._fused_reference(us[:640], us, V),
-                      df64._fused_reference(us[:640], us, V.abs()))
-    assert df64.KERNEL_LAUNCHES[which] == before + 1
+        for q in (1, 8, 16):
+            Vq = V[:, :q].contiguous()
+            got = df64.sqexp_matmat_rect_df64(rh, rl, uh, ul, Vq)
+            torch.cuda.synchronize()
+            _within_scale(got, df64._fused_reference(us[:640], us, Vq),
+                          df64._fused_reference(us[:640], us, Vq.abs()))
+        launches = 3
+    assert df64.KERNEL_LAUNCHES[which] == before + launches
+
+
+@pytest.mark.cuda
+def test_df64_wide_launcher_refuses_a_bad_plan(cuda):
+    """The wide fused launcher takes df64.fused_wide_plan's plan as given and
+    returns cudaErrorInvalidValue (1) for another micro-tile, d_pad or
+    shared memory, and for d <= 16; with the plan itself it launches."""
+    n, d, q = 256, 20, 1
+    uh, ul, V = _df64_inputs(cuda, n, d, q, seed=5)
+    us = (uh.double() + ul.double()).contiguous()
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = df64.fused_wide_plan(n, n, d, q, sms)
+    fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 10)
+    partial = torch.empty((plan.splits, n, q), dtype=torch.float64, device=cuda)
+
+    def launch(rpt=plan.rpt, jc=plan.jc, d_pad=plan.d_pad, smem=plan.smem, width=d):
+        return fn(us.data_ptr(), us.data_ptr(), V.data_ptr(), partial.data_ptr(), n, n, width,
+                  q, rpt, jc, plan.splits, plan.per, d_pad, smem, _build.stream(cuda))
+
+    assert launch() == 0
+    torch.cuda.synchronize()
+    for bad in (dict(rpt=plan.rpt + 1), dict(jc=plan.jc // 2), dict(d_pad=plan.d_pad + 4),
+                dict(smem=plan.smem + 8), dict(width=16, d_pad=16)):
+        assert launch(**bad) == 1, bad
 
 
 @pytest.mark.cuda
