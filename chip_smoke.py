@@ -1512,7 +1512,8 @@ def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW):
                      for k, v in df64.STORED_LAUNCHES_BY_Q.items()})
     print(f"[{label}] store_entries={store!r} (tier {gp._tier}): cold constructor + solve "
           f"{cold:.3f} s, warm solve {warm:.3f} s ({warm_chunks} chunks of "
-          f"{solver.restart_every} iterations; {solver.chunks_run} chunks in all), FP64 relative residual {res_kernel:.3e} by the "
+          f"{solver.restart_every} iterations; {solver.chunks_run} chunks in all), FP64 "
+          f"relative residual {res_kernel:.3e} by the "
           f"tier's kernel, {res_plain:.3e} by the plain route; 256 means + 16 variances "
           f"{pred:.3f} s; peak device memory {peak:.2f} GiB; kernel launches {launches}")
     if not (res_plain <= 1e-9 and abs(res_kernel - res_plain) <= 1e-10):
@@ -1523,7 +1524,6 @@ def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW):
     if profile:
         _profile_solve(gp)
     return gp, {"cold_s": cold, "warm_s": warm, "warm_chunks": warm_chunks,
-                "iterations": warm_chunks * solver.restart_every,
                 "residual": res_plain, "peak_gib": peak, "mu": mu, "sd16": sd16}, launches
 
 
@@ -1705,7 +1705,8 @@ def _print_fused_local_memory():
         wide = re.search(r"sqexp_fused_wide_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)EE", name)
         label = (f"sqexp_fused_wide_kernel<QMAX={wide[1]}, RPT={wide[2]}, JC={wide[3]}, "
                  f"STAGED={wide[4]}>" if wide else "sqexp_fused_kernel<DT={}, QMAX={}, RPT={}>"
-                 .format(*re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE", name).groups()))
+                 .format(*re.search(r"sqexp_fused_kernelILi(\d+)ELi(\d+)ELi(\d+)EE",
+                                    name).groups()))
         ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", part)
         loop = [o for o, _ in _hot_loop(part) or []]
         local = SASS_CLASSES["local"] + SASS_CLASSES["call"]
@@ -1715,8 +1716,8 @@ def _print_fused_local_memory():
 
 # the wide kernels' distance loops: (label, library, mangled-name fragment,
 # entries and dimensions one thread covers per trip): B3/B4's staged kernel
-# at q = 1 and 8 (2 rows x 8 columns, 4 dimensions a trip), B5/B7's (16 rows
-# x 2 columns, 4 dimensions a trip)
+# at q = 1 and 8 (df64.FUSED_WIDE's rows x columns, WIDE_KC dimensions a
+# trip), B5/B7's (16 rows x 2 columns, 4 dimensions a trip)
 WIDE_LOOPS = (
     ("B3 wide", "sqexp_fused",
      "sqexp_fused_wide_kernelILi1ELi{}ELi{}ELb1EE".format(*df64.FUSED_WIDE[1]),
@@ -2123,9 +2124,10 @@ def main():
     print(f"[summary] gp-large-50k warm solve: {runs['auto']['warm_s']:.3f} s with the FP64 "
           f"store (B6), {runs[False]['warm_s']:.3f} s fused (B3), {runs['f32']['warm_s']:.3f} s "
           f"with the float32 store (B8, B3 refreshes); gp-large-50k-d20 warm solve "
-          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, {d20_runs[False]['warm_s']:.3f} "
-          f"s fused (the wide B3), cold {d20_runs['auto']['cold_s']:.3f} s with the store (the "
-          f"wide B5); all phases done at {time.perf_counter() - t_start:.1f} s")
+          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, "
+          f"{d20_runs[False]['warm_s']:.3f} s fused (the wide B3), cold "
+          f"{d20_runs['auto']['cold_s']:.3f} s with the store (the wide B5); all phases done "
+          f"at {time.perf_counter() - t_start:.1f} s")
 
     df64_rows = []
     for kernel, fn, src, line in (

@@ -60,6 +60,9 @@
 //   is double buffered: unit u + 1's coordinates are in flight while unit u
 //   is computed, so one tile's exps and streaming stores overlap the next
 //   tile's copy, with one barrier per unit.
+// On the H100 it runs at about 1.3x its issue time at d = 20: the distance
+// loop at about 1.2x its FP64 time, the streaming stores about 1 ms beside
+// it (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>

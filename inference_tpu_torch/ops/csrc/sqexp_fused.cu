@@ -104,7 +104,9 @@
 //   (d_pad, n_rows), and the columns zero-padded, (n_cols, d_pad), a copy at
 //   every launch that this mode alone makes.
 // The plan (df64.fused_wide_plan: rows and columns per thread for q's bucket,
-// d_pad, shared memory, column splits) is taken as given and checked.
+// d_pad, shared memory, column splits) is taken as given and checked. On the
+// H100 it runs at about 1.17x its issue time at d = 20, q = 1: the exp at its
+// share, the distance loop at about 1.2x its FP64 time (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
