@@ -77,36 +77,43 @@
 // GHz), each sub, mul and add a whole FP64 instruction under --fmad=false.
 //
 // What the design does about it:
-// - A 2-D micro-tile. Each thread keeps RPT rows x JC consecutive columns of
-//   partial distances in registers, so each row value it reads serves JC
-//   entries and each column value RPT entries: per pair of dimensions RPT +
-//   JC 16-byte shared-memory loads for 6 RPT JC FP64 instructions. RPT = 1,
-//   JC = 16 for every bucket of q, by measurement on the H100 (PERF.md): the
-//   shared memory of a block's rows scales with RPT, and at d = 20 one row
-//   a thread leaves room for three blocks an SM at q = 1, faster than the
-//   two of 2 x 8 or the one of 4 x 4.
-// - Staged once, read as pairs. The block's rows are staged once into shared
-//   memory as [d_pad / 2][rows] pairs (a warp's read of its rows' dimensions
+// - A 2-D micro-tile. Each thread keeps 1 row x JC = 16 consecutive columns
+//   of partial distances in registers, so each row value it reads serves 16
+//   entries: per pair of dimensions 1 + 16 16-byte shared-memory loads for 96
+//   FP64 instructions. One row a thread, by measurement on the H100 (PERF.md):
+//   the shared memory of a block's rows scales with the rows a thread, and at
+//   d = 20 one row leaves room for three blocks an SM at q = 1, faster than
+//   the two of 2 x 8 or the one of 4 x 4; 16 columns beat 8 and 32.
+// - Staged once, read as pairs. The block's 128 rows are staged into shared
+//   memory as [dims / 2][rows] pairs (a warp's read of its rows' dimensions
 //   k, k + 1 is 512 contiguous bytes, no bank conflict), and every 128-column
-//   tile of the split as [column][d_pad] (each read of dimensions k, k + 1
-//   of a column is one 16-byte broadcast), both by cp.async from the
-//   row-major coordinates: no transpose. The column tiles are double
-//   buffered: tile t + 1's copy and its v (widened to double through
-//   registers) are in flight while tile t is computed, with one barrier per
+//   tile of the split as [column][dims] (each read of dimensions k, k + 1 of
+//   a column is one 16-byte broadcast), both by cp.async from the row-major
+//   coordinates: no transpose, no copy by the wrapper. The column tiles are
+//   double buffered: the next one's copy and its v (widened to double through
+//   registers) are in flight while one is computed, with one barrier per
 //   tile.
 // - Chunks that unroll. d is zero-padded to d_pad, a multiple of KC = 4, in
 //   the staged copies; adding (0 - 0)^2 = +0 to a non-negative distance
 //   leaves every sum bit for bit, so the k loop runs whole unrolled steps of
 //   KC with no predicate and no 64-bit address arithmetic.
-// - Where the staged rows and two column tiles do not fit in shared memory
-//   (d_pad above 64-72, by q), the kernel reads the same layouts from device
-//   memory: the wrapper then passes the rows transposed and zero-padded,
-//   (d_pad, n_rows), and the columns zero-padded, (n_cols, d_pad), a copy at
-//   every launch that this mode alone makes.
-// The plan (df64.fused_wide_plan: rows and columns per thread for q's bucket,
-// d_pad, shared memory, column splits) is taken as given and checked. On the
-// H100 it runs at about 1.17x its issue time at d = 20, q = 1: the exp at its
-// share, the distance loop at about 1.2x its FP64 time (PERF.md).
+// - Wide d in chunks. Where the rows and two column tiles of all d_pad
+//   dimensions do not fit in shared memory beside v (d_pad above 64-72, by q),
+//   the block walks each tile in chunks of DC = 16 dimensions: the rows'
+//   chunk and the tile's are staged (double buffered) for each, and the
+//   tile's 128 x 128 partial distances wait in shared memory between chunks,
+//   each thread's own column of them, so no barrier guards them. Every
+//   distance is still summed over k in order, so the chunks change no bit.
+//   A chunk's place in its tile (first, last) is a template parameter of its
+//   code, so a tile of one chunk (d = 20) runs neither a branch nor a
+//   shared-memory round trip for the chunks.
+// - Three blocks an SM up to QMAX 2 (launch bounds: at most 168 registers),
+//   which their shared memory at d = 20 allows; left to itself, ptxas gave
+//   the four copies of the chunk code 184 registers at q = 1, two blocks.
+// The plan (df64.fused_wide_plan: column splits, d_pad, the chunk, shared
+// memory) is taken as given and checked. On the H100 it runs at about 1.17x
+// its issue time at d = 20, q = 1: the exp at its share, the distance loop at
+// about 1.2x its FP64 time (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -118,6 +125,8 @@ constexpr int ROWS = 128;   // threads per block (df64.py _TI)
 constexpr int TJ = 128;     // columns per staged tile (df64.py _TJ)
 constexpr int D_MAX = 16;   // df64.py D_MAX
 constexpr int KC = 4;       // dimensions per unrolled step of the wide kernel (df64.py WIDE_KC)
+constexpr int JC = 16;      // columns of a wide kernel thread's micro-tile (df64.py WIDE_JC)
+constexpr int DC = 16;      // dimensions a chunk where d_pad's do not fit (df64.py WIDE_DC)
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory of a block (df64.py SMEM_MAX)
 
 // a minimum of one block per SM: ptxas keeps the registers it needs rather
@@ -212,59 +221,119 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Copy count = n_pts x d doubles of a contiguous row-major block, through
-// cp.async, to shared memory at dst(point, k), the block's threads in turn.
-// (point, k) of a thread's next element advance by (ROWS / d, ROWS % d): no
-// division in the loop.
+// Stage dimensions [k0, k0 + kw) of TJ = ROWS points of the row-major (n, d)
+// coordinates from src (the first point's row) into shared memory at dst(p,
+// k), the block's threads in turn: the real ones (points below n_real,
+// dimensions below d) through cp.async, a point's dimensions and then the
+// next point's, with (p, k) and the source advancing by fixed steps (no
+// division and no 64-bit product in the loop); then plain stores of 0 in the
+// pad dimensions up to kw (a multiple of KC) and in the points from n_real on.
+static_assert(TJ == ROWS, "stage() copies a column tile or the block's rows alike");
 template <typename Dst>
-__device__ __forceinline__ void stage(const double* __restrict__ src, int n_pts, int d, Dst dst) {
-  const int step_j = ROWS / d, step_k = ROWS - step_j * d;
-  int j = threadIdx.x / d, k = threadIdx.x - j * d;
-  for (int idx = threadIdx.x; idx < n_pts * d; idx += ROWS) {
-    cp_async8(dst(j, k), src + idx);
+__device__ __forceinline__ void stage(const double* __restrict__ src, int n_real, int d, int k0,
+                                      int kw, Dst dst) {
+  const int kr = min(kw, d - k0), n = min(n_real, TJ);  // real dimensions and points
+  const int step_p = ROWS / kr, step_k = ROWS - step_p * kr;
+  int p = threadIdx.x / kr, k = threadIdx.x - p * kr;
+  const double* from = src + p * d + k0 + k;
+  for (int idx = threadIdx.x; idx < n * kr; idx += ROWS) {
+    cp_async8(dst(p, k), from);
     k += step_k;
-    j += step_j;
-    if (k >= d) {
-      k -= d;
-      ++j;
+    p += step_p;
+    from += step_p * d + step_k;
+    if (k >= kr) {
+      k -= kr;
+      ++p;
+      from += d - kr;
+    }
+  }
+  for (int idx = threadIdx.x; idx < n * (kw - kr); idx += ROWS)
+    *dst(idx / (kw - kr), kr + idx % (kw - kr)) = 0.0;
+  for (int idx = threadIdx.x; idx < (TJ - n) * kw; idx += ROWS) *dst(n + idx / kw, idx % kw) = 0.0;
+}
+
+// One chunk of one staged tile for the thread's row (sr: its pairs of the
+// chunk's dimensions; ct: the tile's columns, dc a row; vt: the tile's v):
+// the distances of each 16 columns, from 0 in the FIRST chunk, else from the
+// thread's column of sdist, over the chunk's kw dimensions; in the LAST, the
+// exps and their fma into acc in column order, else back into sdist. The
+// chunk's place is a template parameter, so that a tile of one chunk runs
+// no branch and no shared-memory round trip for it.
+template <int QMAX, bool FIRST, bool LAST>
+__device__ __forceinline__ void tile_chunk(const double2* __restrict__ sr,
+                                           const double* __restrict__ ct,
+                                           const double* __restrict__ vt, double* sdist, int dc,
+                                           int kw, double (&acc)[QMAX]) {
+  for (int g = 0; g < TJ; g += JC) {
+    double dist[JC];
+#pragma unroll
+    for (int j = 0; j < JC; ++j) dist[j] = FIRST ? 0.0 : sdist[(g + j) * ROWS + threadIdx.x];
+    const double* cg = ct + g * dc;
+    for (int k = 0; k < kw; k += KC) {
+#pragma unroll
+      for (int kk = 0; kk < KC; kk += 2) {
+        const double2 a = sr[((k + kk) >> 1) * ROWS];
+#pragma unroll
+        for (int j = 0; j < JC; ++j) {
+          const double2 c = *reinterpret_cast<const double2*>(cg + j * dc + k + kk);
+          const double e0 = a.x - c.x;
+          dist[j] = dist[j] + e0 * e0;
+          const double e1 = a.y - c.y;
+          dist[j] = dist[j] + e1 * e1;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < JC; ++j) {
+      if constexpr (LAST) {
+        const double e = exp(-0.5 * dist[j]);
+#pragma unroll
+        for (int c = 0; c < QMAX; ++c) acc[c] = fma(e, vt[(g + j) * QMAX + c], acc[c]);
+      } else {
+        sdist[(g + j) * ROWS + threadIdx.x] = dist[j];
+      }
     }
   }
 }
 
-// d > D_MAX (see the header). STAGED: rows and cols row-major (n, d), the
-// block's rows and each column tile staged in shared memory; else rows is
-// (d_pad, n_rows) and cols (n_cols, d_pad), zero-padded, read from device
-// memory. Dynamic shared memory: the rows as [d_pad / 2][ROWS RPT] pairs and
-// two column tiles [TJ][d_pad] (STAGED only), then two tiles of v [TJ][QMAX].
-template <int QMAX, int RPT, int JC, bool STAGED>
-__global__ void __launch_bounds__(ROWS, 1)
+// d > D_MAX (see the header): the block's ROWS rows against the column tiles
+// of its split, in units of (tile, chunk of dc dimensions). Dynamic shared
+// memory: the rows as [dc / 2][ROWS] pairs (two buffers where there are two
+// or more chunks, else one, staged once), two column tiles [TJ][dc], two
+// tiles of v [TJ][QMAX], and, where there are two or more chunks, the
+// partial distances of a tile [TJ][ROWS]. Up to QMAX 2, three blocks an SM
+// (at most 168 registers): at d = 20 their shared memory fits three.
+template <int QMAX>
+__global__ void __launch_bounds__(ROWS, QMAX <= 2 ? 3 : 1)
 sqexp_fused_wide_kernel(const double* __restrict__ rows, const double* __restrict__ cols,
                         const float* __restrict__ v, double* __restrict__ partial, int n_rows,
-                        int n_cols, int d, int d_pad, int q, int tiles_per_split) {
-  constexpr int R = ROWS * RPT;  // rows of the block
+                        int n_cols, int d, int d_pad, int dc, int q, int tiles_per_split) {
   extern __shared__ __align__(16) double smem[];
-  double2* srow = reinterpret_cast<double2*>(smem);                // [d_pad / 2][R]
-  double* scol = smem + (STAGED ? (size_t)R * d_pad : 0);          // [2][TJ][d_pad]
-  double* sv = scol + (STAGED ? (size_t)2 * TJ * d_pad : 0);       // [2][TJ][QMAX]
+  const int n_chunks = (d_pad + dc - 1) / dc;
+  const int row_bufs = n_chunks > 1 ? 2 : 1;
+  double* srow = smem;                                  // [row_bufs][dc / 2][ROWS] pairs
+  double* scol = srow + (size_t)row_bufs * ROWS * dc;   // [2][TJ][dc]
+  double* sv = scol + (size_t)2 * TJ * dc;              // [2][TJ][QMAX]
+  double* sdist = sv + 2 * TJ * QMAX;                   // [TJ][ROWS], two or more chunks
 
   const int tid = threadIdx.x;
-  const int row_base = blockIdx.x * R;
-  int rr[RPT];  // the thread's rows, clamped to the last
-  double acc[RPT][QMAX];
+  const int row_base = blockIdx.x * ROWS;
+  double acc[QMAX];
 #pragma unroll
-  for (int p = 0; p < RPT; ++p) {
-    rr[p] = min(row_base + tid + p * ROWS, n_rows - 1);
-#pragma unroll
-    for (int c = 0; c < QMAX; ++c) acc[p][c] = 0.0;
-  }
+  for (int c = 0; c < QMAX; ++c) acc[c] = 0.0;
 
-  const int n_tiles = n_cols / TJ;
   const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  auto stage_cols = [&](int t, int b) {
-    if constexpr (STAGED) {
-      double* dst = scol + (size_t)b * TJ * d_pad;
-      stage(cols + (size_t)t * TJ * d, TJ, d, [&](int j, int k) { return dst + j * d_pad + k; });
+  const int units = (min(t_begin + tiles_per_split, n_cols / TJ) - t_begin) * n_chunks;
+  // unit u's column chunk, and its row chunk where chunks follow one another
+  // (zeros for the rows past n_rows, computed and not stored), into buffer b
+  auto stage_unit = [&](int u, int b) {
+    const int t = t_begin + u / n_chunks, k0 = u % n_chunks * dc, kw = min(dc, d_pad - k0);
+    double* sc = scol + (size_t)b * TJ * dc;
+    stage(cols + (size_t)t * TJ * d, TJ, d, k0, kw, [&](int j, int k) { return sc + j * dc + k; });
+    if (u == 0 || n_chunks > 1) {
+      double* sr = srow + (size_t)(row_bufs - 1) * b * ROWS * dc;
+      stage(rows + (size_t)row_base * d, n_rows - row_base, d, k0, kw,
+            [&](int r, int k) { return sr + (k >> 1) * 2 * ROWS + 2 * r + (k & 1); });
     }
   };
   auto load_v = [&](int t, float (&w)[QMAX]) {  // column tid of tile t
@@ -276,110 +345,43 @@ sqexp_fused_wide_kernel(const double* __restrict__ rows, const double* __restric
     for (int c = 0; c < QMAX; ++c) sv[(b * TJ + tid) * QMAX + c] = (double)w[c];
   };
 
-  if constexpr (STAGED) {
-    // the block's rows (the last row repeated past n_rows) and the zero pads
-    double* sr = smem;
-    const int last = n_rows - 1 - row_base;  // rows of the block past it repeat it
-    if (last >= R - 1) {
-      stage(rows + (size_t)row_base * d, R, d,
-            [&](int r, int k) { return sr + (size_t)(k >> 1) * 2 * R + 2 * r + (k & 1); });
-    } else {
-      for (int idx = tid; idx < R * d; idx += ROWS) {
-        const int r = idx / d, k = idx - r * d;
-        cp_async8(sr + (size_t)(k >> 1) * 2 * R + 2 * r + (k & 1),
-                  rows + (size_t)(row_base + min(r, last)) * d + k);
-      }
-    }
-    for (int idx = tid; idx < R * (d_pad - d); idx += ROWS) {
-      const int k = d + idx / R, r = idx % R;
-      sr[(size_t)(k >> 1) * 2 * R + 2 * r + (k & 1)] = 0.0;
-    }
-    for (int idx = tid; idx < 2 * TJ * (d_pad - d); idx += ROWS) {
-      const int j = idx / (d_pad - d);
-      scol[(size_t)j * d_pad + d + idx - j * (d_pad - d)] = 0.0;
-    }
-  }
-  if (t_begin < t_end) {
-    stage_cols(t_begin, 0);
+  if (units > 0) {
+    stage_unit(0, 0);
     float w[QMAX];
     load_v(t_begin, w);
     store_v(w, 0);
   }
   cp_async_commit();
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int b = (t - t_begin) & 1;
+  for (int u = 0; u < units; ++u) {
+    const int b = u & 1, tile = u / n_chunks, chunk = u % n_chunks;
+    const bool first = chunk == 0, last = chunk == n_chunks - 1;
     cp_async_wait_all();
-    __syncthreads();  // tile t staged; every thread done with tile t - 1
-    const bool next = t + 1 < t_end;
+    __syncthreads();  // unit u staged; every thread done with unit u - 1
+    const bool next_tile = last && u + 1 < units;
     float w_next[QMAX];
-    if (next) {
-      stage_cols(t + 1, b ^ 1);
+    if (u + 1 < units) {
+      stage_unit(u + 1, b ^ 1);
       cp_async_commit();
-      load_v(t + 1, w_next);
+      if (next_tile) load_v(t_begin + tile + 1, w_next);
     }
-    const double* ct = STAGED ? scol + (size_t)b * TJ * d_pad : cols + (size_t)t * TJ * d_pad;
-    const double* vt = sv + b * TJ * QMAX;
-    for (int g = 0; g < TJ; g += JC) {
-      double dist[RPT][JC];
-#pragma unroll
-      for (int p = 0; p < RPT; ++p)
-#pragma unroll
-        for (int j = 0; j < JC; ++j) dist[p][j] = 0.0;
-      const double* cg = ct + (size_t)g * d_pad;
-      for (int k = 0; k < d_pad; k += KC) {
-#pragma unroll
-        for (int kk = 0; kk < KC; kk += 2) {
-          double2 a[RPT];
-#pragma unroll
-          for (int p = 0; p < RPT; ++p) {
-            if constexpr (STAGED) {
-              a[p] = srow[((k + kk) >> 1) * R + tid + p * ROWS];
-            } else {
-              a[p].x = __ldg(rows + (size_t)(k + kk) * n_rows + rr[p]);
-              a[p].y = __ldg(rows + (size_t)(k + kk + 1) * n_rows + rr[p]);
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < JC; ++j) {
-            const double2* src = reinterpret_cast<const double2*>(cg + j * d_pad + k + kk);
-            double2 c;
-            if constexpr (STAGED) c = *src;
-            else c = __ldg(src);
-#pragma unroll
-            for (int p = 0; p < RPT; ++p) {
-              const double e0 = a[p].x - c.x;
-              dist[p][j] = dist[p][j] + e0 * e0;
-              const double e1 = a[p].y - c.y;
-              dist[p][j] = dist[p][j] + e1 * e1;
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < JC; ++j) {
-        double e[RPT];
-#pragma unroll
-        for (int p = 0; p < RPT; ++p) e[p] = exp(-0.5 * dist[p][j]);
-#pragma unroll
-        for (int c = 0; c < QMAX; ++c) {
-          const double wc = vt[(g + j) * QMAX + c];
-#pragma unroll
-          for (int p = 0; p < RPT; ++p) acc[p][c] = fma(e[p], wc, acc[p][c]);
-        }
-      }
-    }
-    if (next) store_v(w_next, b ^ 1);
+    const double2* sr =
+        reinterpret_cast<const double2*>(srow + (size_t)(row_bufs - 1) * b * ROWS * dc) + tid;
+    const double* ct = scol + (size_t)b * TJ * dc;
+    const double* vt = sv + (tile & 1) * TJ * QMAX;
+    const int kw = min(dc, d_pad - chunk * dc);
+    if (first && last) tile_chunk<QMAX, true, true>(sr, ct, vt, sdist, dc, kw, acc);
+    else if (first) tile_chunk<QMAX, true, false>(sr, ct, vt, sdist, dc, kw, acc);
+    else if (last) tile_chunk<QMAX, false, true>(sr, ct, vt, sdist, dc, kw, acc);
+    else tile_chunk<QMAX, false, false>(sr, ct, vt, sdist, dc, kw, acc);
+    if (next_tile) store_v(w_next, (tile + 1) & 1);
   }
+  const int row = row_base + tid;
+  if (row < n_rows) {
+    double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
 #pragma unroll
-  for (int p = 0; p < RPT; ++p) {
-    const int row = row_base + tid + p * ROWS;
-    if (row < n_rows) {
-      double* out = partial + ((size_t)blockIdx.y * n_rows + row) * q;
-#pragma unroll
-      for (int c = 0; c < QMAX; ++c)
-        if (c < q) out[c] = acc[p][c];
-    }
+    for (int c = 0; c < QMAX; ++c)
+      if (c < q) out[c] = acc[c];
   }
 }
 
@@ -408,33 +410,35 @@ int launch_d(const double* rows, const double* cols, const float* v, double* par
   return launch_q<DT, 16, 2>(rows, cols, v, partial, n_rows, n_cols, d, q, rpt, splits, tiles_per_split, s);
 }
 
-// the wide kernel's shared memory for q's bucket, staged or not; the
-// plan's (df64.py fused_wide_plan) must equal it
-constexpr size_t wide_smem(int qmax, int rpt, int d_pad, bool staged) {
-  return 8 * ((staged ? (size_t)d_pad * (ROWS * rpt + 2 * TJ) : 0) + (size_t)2 * TJ * qmax);
+// the wide kernel's chunk of dimensions and shared memory for q's bucket:
+// all d_pad dimensions where the rows and two column tiles of them fit
+// beside v's tiles, else chunks of DC with the tile's distances; the
+// plan's (df64.py fused_wide_plan) must equal them
+constexpr int wide_dc(int qmax, int d_pad) {
+  return 8 * ((size_t)d_pad * (ROWS + 2 * TJ) + (size_t)2 * TJ * qmax) <= SMEM_MAX ? d_pad : DC;
+}
+constexpr size_t wide_smem(int qmax, int d_pad) {
+  return wide_dc(qmax, d_pad) == d_pad
+             ? 8 * ((size_t)d_pad * (ROWS + 2 * TJ) + (size_t)2 * TJ * qmax)
+             : 8 * ((size_t)DC * (2 * ROWS + 2 * TJ) + (size_t)2 * TJ * qmax + (size_t)TJ * ROWS);
 }
 
-// the launch of one instantiation of the wide kernel; refuses a plan that
-// differs from its rows and columns per thread, its d_pad or its shared
-// memory (staged where the staged layout fits)
-template <int QMAX, int RPT, int JC>
+// the launch of one instantiation of the wide kernel; refuses a plan whose
+// d_pad, chunk or shared memory differ from its own
+template <int QMAX>
 int launch_wide_q(const double* rows, const double* cols, const float* v, double* partial,
-                  int n_rows, int n_cols, int d, int q, int rpt, int jc, int splits,
-                  int tiles_per_split, int d_pad, int smem, cudaStream_t stream) {
-  const bool staged = wide_smem(QMAX, RPT, d_pad, true) <= SMEM_MAX;
-  if (rpt != RPT || jc != JC || d_pad != (d + KC - 1) / KC * KC ||
-      (size_t)smem != wide_smem(QMAX, RPT, d_pad, staged))
+                  int n_rows, int n_cols, int d, int q, int splits, int tiles_per_split,
+                  int d_pad, int dc, int smem, cudaStream_t stream) {
+  if (d_pad != (d + KC - 1) / KC * KC || dc != wide_dc(QMAX, d_pad) ||
+      (size_t)smem != wide_smem(QMAX, d_pad))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_rows + ROWS * RPT - 1) / (ROWS * RPT), splits);
-  auto run = [&](auto kernel) {
-    cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    kernel<<<grid, ROWS, smem, stream>>>(rows, cols, v, partial, n_rows, n_cols, d, d_pad, q,
-                                         tiles_per_split);
-    return (int)cudaGetLastError();
-  };
-  return staged ? run(sqexp_fused_wide_kernel<QMAX, RPT, JC, true>)
-                : run(sqexp_fused_wide_kernel<QMAX, RPT, JC, false>);
+  auto kernel = sqexp_fused_wide_kernel<QMAX>;
+  cudaError_t rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((n_rows + ROWS - 1) / ROWS, splits);
+  kernel<<<grid, ROWS, smem, stream>>>(rows, cols, v, partial, n_rows, n_cols, d, d_pad, dc, q,
+                                       tiles_per_split);
+  return (int)cudaGetLastError();
 }
 
 // the operands and the plan, else false (see the entry points)
@@ -473,15 +477,15 @@ extern "C" int sqexp_fused_f64(const void* rows, const void* cols, const void* v
   }
 }
 
-// The same for d > 16 by the plan of df64.py::fused_wide_plan: rpt rows and
-// jc columns per thread (those instantiated for q's bucket), d_pad = d
-// rounded up to a multiple of 4 and smem bytes of dynamic shared memory, the
-// staged layout's where it fits. Staged, rows (n_rows, d) and cols (n_cols,
-// d) are row-major; else rows is (d_pad, n_rows) and cols (n_cols, d_pad),
-// zero-padded. The limits on n_cols, q and the splits are those above.
+// The same for d > 16 by the plan of df64.py::fused_wide_plan: d_pad = d
+// rounded up to a multiple of 4, dc dimensions a chunk (all of d_pad where
+// they fit, else DC) and smem bytes of dynamic shared memory, as the
+// instantiation for q's bucket computes them. rows (n_rows, d) and cols
+// (n_cols, d) are row-major. The limits on n_cols, q and the splits are
+// those above.
 extern "C" int sqexp_fused_wide_f64(const void* rows, const void* cols, const void* v,
-                                    void* partial, int n_rows, int n_cols, int d, int q, int rpt,
-                                    int jc, int splits, int tiles_per_split, int d_pad, int smem,
+                                    void* partial, int n_rows, int n_cols, int d, int q,
+                                    int splits, int tiles_per_split, int d_pad, int dc, int smem,
                                     void* stream) {
   if (d <= D_MAX || !plan_ok(n_rows, n_cols, d, q, splits, tiles_per_split))
     return (int)cudaErrorInvalidValue;
@@ -490,10 +494,9 @@ extern "C" int sqexp_fused_wide_f64(const void* rows, const void* cols, const vo
   const float* vv = static_cast<const float*>(v);
   double* p = static_cast<double*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // one (RPT, JC) for each bucket of q (df64.py FUSED_WIDE holds the same table)
-  if (q <= 1) return launch_wide_q<1, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
-  if (q <= 2) return launch_wide_q<2, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
-  if (q <= 4) return launch_wide_q<4, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
-  if (q <= 8) return launch_wide_q<8, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
-  return launch_wide_q<16, 1, 16>(r, c, vv, p, n_rows, n_cols, d, q, rpt, jc, splits, tiles_per_split, d_pad, smem, s);
+  if (q <= 1) return launch_wide_q<1>(r, c, vv, p, n_rows, n_cols, d, q, splits, tiles_per_split, d_pad, dc, smem, s);
+  if (q <= 2) return launch_wide_q<2>(r, c, vv, p, n_rows, n_cols, d, q, splits, tiles_per_split, d_pad, dc, smem, s);
+  if (q <= 4) return launch_wide_q<4>(r, c, vv, p, n_rows, n_cols, d, q, splits, tiles_per_split, d_pad, dc, smem, s);
+  if (q <= 8) return launch_wide_q<8>(r, c, vv, p, n_rows, n_cols, d, q, splits, tiles_per_split, d_pad, dc, smem, s);
+  return launch_wide_q<16>(r, c, vv, p, n_rows, n_cols, d, q, splits, tiles_per_split, d_pad, dc, smem, s);
 }

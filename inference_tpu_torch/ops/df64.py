@@ -205,21 +205,17 @@ def fused_plan(n_rows, n_cols, q, sms):
     return rpt, -(-n_tiles // per), per
 
 
-# rows and columns per thread of the wide kernel (d > D_MAX) for each bucket
-# of q; csrc/sqexp_fused.cu instantiates exactly these and refuses any other
-FUSED_WIDE = {1: (1, 16), 2: (1, 16), 4: (1, 16), 8: (1, 16), 16: (1, 16)}
 WIDE_KC = 4  # the wide kernels' unrolled step of dimensions: d is padded to a multiple
+WIDE_DC = 16  # B3/B4's wide chunk of dimensions where all of d_pad's do not fit
 SMEM_MAX = 232_448  # dynamic shared memory one block may take on the H100
 
 
 class WidePlan(NamedTuple):
     """The plan of one launch of the wide fused kernel (``fused_wide_plan``)."""
-    rpt: int      # output rows per thread (the block's 128 threads own 128 rpt rows)
-    jc: int       # consecutive columns of each thread's micro-tile of distances
     splits: int   # column splits (blockIdx.y)
     per: int      # 128-column tiles per split
     d_pad: int    # d rounded up to a multiple of WIDE_KC; the pad dimensions are zeros
-    staged: bool  # rows and column tiles staged in shared memory
+    dc: int       # dimensions staged per chunk: d_pad where they fit, else WIDE_DC
     smem: int     # dynamic shared memory of a block, bytes
 
 
@@ -233,34 +229,24 @@ def pad_dims(d):
 
 def fused_wide_plan(n_rows, n_cols, d, q, sms):
     """The plan of a launch of the wide fused kernel (d > ``D_MAX``) on a
-    card with ``sms`` SMs, which the kernel takes as given. ``rpt`` and
-    ``jc`` are ``FUSED_WIDE`` of q's bucket, the splits and tiles per split
-    those of ``fused_plan`` at that ``rpt``. Staged, a block holds its 128
-    rpt rows (d_pad / 2 pairs each) and two 128-column tiles (d_pad each) in
-    shared memory; where those exceed ``SMEM_MAX`` the kernel reads them
-    from device memory and its shared memory holds only the two tiles of v
-    widened to double."""
-    bucket = next(b for b in FUSED_WIDE if q <= b)
-    rpt, jc = FUSED_WIDE[bucket]
+    card with ``sms`` SMs, which the kernel takes as given. A block of 128
+    threads owns 128 rows, one a thread; the splits and tiles per split are
+    those of ``fused_plan`` at one row a thread. A block stages its rows and
+    two 128-column tiles of all ``d_pad`` dimensions in shared memory beside
+    two tiles of v (q's bucket, widened to double); where those exceed
+    ``SMEM_MAX`` it walks each tile in chunks of ``WIDE_DC`` dimensions,
+    with two buffers of rows and the tile's 128 x 128 partial distances in
+    shared memory."""
+    bucket = next(b for b in FUSED_RPT if q <= b)
     n_tiles = n_cols // _TJ
-    per = -(-n_tiles // _column_splits(-(-n_rows // (_TI * rpt)), n_tiles, sms))
+    per = -(-n_tiles // _column_splits(-(-n_rows // _TI), n_tiles, sms))
     d_pad = pad_dims(d)
-    v_bytes = 8 * 2 * _TJ * bucket
-    staged = 8 * d_pad * (_TI * rpt + 2 * _TJ) + v_bytes
-    fits = staged <= SMEM_MAX
-    return WidePlan(rpt, jc, -(-n_tiles // per), per, d_pad, fits, staged if fits else v_bytes)
-
-
-def _unstaged_operands(rows64, cols64, d_pad):
-    """The wide kernel's operands where they are not staged in shared
-    memory: the rows transposed, (d_pad, n_rows), and the columns (n_cols,
-    d_pad), both zero-padded to ``d_pad`` dimensions."""
-    d = rows64.shape[1]
-    rows_t = rows64.new_zeros((d_pad, rows64.shape[0]))
-    rows_t[:d] = rows64.T
-    cols_p = cols64.new_zeros((cols64.shape[0], d_pad))
-    cols_p[:, :d] = cols64
-    return rows_t, cols_p
+    v_doubles = 2 * _TJ * bucket
+    whole = 8 * (d_pad * (_TI + 2 * _TJ) + v_doubles)
+    if whole <= SMEM_MAX:
+        return WidePlan(-(-n_tiles // per), per, d_pad, d_pad, whole)
+    chunked = 8 * (WIDE_DC * (2 * _TI + 2 * _TJ) + v_doubles + _TJ * _TI)
+    return WidePlan(-(-n_tiles // per), per, d_pad, WIDE_DC, chunked)
 
 
 def _launch_fused(rows64, cols64, V, kernel="B4"):
@@ -286,11 +272,9 @@ def _launch_fused(rows64, cols64, V, kernel="B4"):
         plan = (rpt, splits, per)
     else:
         wp = fused_wide_plan(n_rows, n_cols, d, q, sms)
-        if not wp.staged:
-            rows64, cols64 = _unstaged_operands(rows64, cols64, wp.d_pad)
-        fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 10)
+        fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 9)
         splits = wp.splits
-        plan = (wp.rpt, wp.jc, wp.splits, wp.per, wp.d_pad, wp.smem)
+        plan = tuple(wp)
     partial = torch.empty((splits, n_rows, q), dtype=torch.float64, device=rows64.device)
     with torch.cuda.device(rows64.device):
         rc = fn(rows64.data_ptr(), cols64.data_ptr(), V.data_ptr(), partial.data_ptr(),

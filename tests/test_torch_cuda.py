@@ -775,8 +775,8 @@ def test_df64_products_at_twenty_right_hand_sides(cuda, which):
 @pytest.mark.parametrize("which", ["B3", "B4", "B5", "B7"])
 def test_df64_kernels_at_twenty_dimensions(cuda, which, d):
     """d > 16, the wide kernels, at both ends of a padded step of 4 (17,
-    20), with a second staged chunk of B5/B7 (33) and B3/B4 read from device
-    memory (100): B5 and B7 bit for bit with their plain versions, B3 and B4
+    20), with a second staged chunk of B5/B7 (33) and B3/B4 in chunks of 16
+    dimensions (100): B5 and B7 bit for bit with their plain versions, B3 and B4
     (q = 1, 8 and 16, on 640 rows: a last row block that is not full) within
     1e-13 of sum_j |E_ij| |V_jk|."""
     n = 1024
@@ -813,24 +813,24 @@ def test_df64_kernels_at_twenty_dimensions(cuda, which, d):
 @pytest.mark.cuda
 def test_df64_wide_launcher_refuses_a_bad_plan(cuda):
     """The wide fused launcher takes df64.fused_wide_plan's plan as given and
-    returns cudaErrorInvalidValue (1) for another micro-tile, d_pad or
-    shared memory, and for d <= 16; with the plan itself it launches."""
+    returns cudaErrorInvalidValue (1) for another d_pad, chunk or shared
+    memory, and for d <= 16; with the plan itself it launches."""
     n, d, q = 256, 20, 1
     uh, ul, V = _df64_inputs(cuda, n, d, q, seed=5)
     us = (uh.double() + ul.double()).contiguous()
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     plan = df64.fused_wide_plan(n, n, d, q, sms)
-    fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 10)
+    fn = _build.bind("sqexp_fused", "sqexp_fused_wide_f64", 4, 9)
     partial = torch.empty((plan.splits, n, q), dtype=torch.float64, device=cuda)
 
-    def launch(rpt=plan.rpt, jc=plan.jc, d_pad=plan.d_pad, smem=plan.smem, width=d):
+    def launch(d_pad=plan.d_pad, dc=plan.dc, smem=plan.smem, width=d):
         return fn(us.data_ptr(), us.data_ptr(), V.data_ptr(), partial.data_ptr(), n, n, width,
-                  q, rpt, jc, plan.splits, plan.per, d_pad, smem, _build.stream(cuda))
+                  q, plan.splits, plan.per, d_pad, dc, smem, _build.stream(cuda))
 
     assert launch() == 0
     torch.cuda.synchronize()
-    for bad in (dict(rpt=plan.rpt + 1), dict(jc=plan.jc // 2), dict(d_pad=plan.d_pad + 4),
-                dict(smem=plan.smem + 8), dict(width=16, d_pad=16)):
+    for bad in (dict(d_pad=plan.d_pad + 4), dict(dc=df64.WIDE_DC), dict(smem=plan.smem + 8),
+                dict(width=16, d_pad=16, dc=16)):
         assert launch(**bad) == 1, bad
 
 

@@ -227,53 +227,59 @@ def test_fused_partials_sum_to_the_product(sms, q):
 
 
 def _instantiated_wide():
-    """{QMAX: (RPT, JC)} of the wide launches ``csrc/sqexp_fused.cu``
-    instantiates (``launch_wide_q<QMAX, RPT, JC>``), and its constants KC and
+    """The buckets of q the wide launcher of ``csrc/sqexp_fused.cu``
+    instantiates (``launch_wide_q<QMAX>``), and its constants KC, DC and
     SMEM_MAX."""
     src = (Path(df64.__file__).with_name("csrc") / "sqexp_fused.cu").read_text()
-    table = {int(a): (int(b), int(c))
-             for a, b, c in re.findall(r"launch_wide_q<(\d+), (\d+), (\d+)>\(", src)}
-    kc = int(re.search(r"constexpr int KC = (\d+);", src)[1])
-    smem = int(re.search(r"constexpr size_t SMEM_MAX = (\d+);", src)[1])
-    return table, kc, smem
+    buckets = sorted(int(a) for a in re.findall(r"launch_wide_q<(\d+)>\(", src))
+    consts = {k: int(re.search(rf"constexpr (?:int|size_t) {k} = (\d+);", src)[1])
+              for k in ("KC", "DC", "SMEM_MAX")}
+    return buckets, consts
 
 
 @pytest.mark.parametrize("q", [1, 2, 4, 8, 16])
 def test_fused_wide_plan_at_every_width(q):
     """The wide kernel's plan (d > 16), which its launcher checks and takes
-    as given, at every d from 17 to 130 for each bucket of q: the rows and
-    columns per thread the source instantiates; d_pad the least multiple of
-    its KC at or above d; the staged layout (rows, two column tiles and two
-    tiles of v) wherever it fits the block's shared memory, and only v's
-    tiles otherwise; gp-large-50k-d20's width and every d up to 48 staged;
-    the splits cover every column tile exactly once."""
-    table, kc, smem_max = _instantiated_wide()
-    assert table == df64.FUSED_WIDE and kc == df64.WIDE_KC and smem_max == df64.SMEM_MAX
-    bucket = min(b for b in table if q <= b)
+    as given, at every d from 17 to 130 for each bucket of q the source
+    instantiates: d_pad the least multiple of its KC at or above d; all of
+    d_pad staged at once (rows, two column tiles and two tiles of v)
+    wherever that fits the block's shared memory, else chunks of its DC with
+    two row buffers and a tile of distances, which fit too;
+    gp-large-50k-d20's width and every d up to 64 at once; the splits cover
+    every column tile exactly once."""
+    buckets, consts = _instantiated_wide()
+    assert buckets == sorted(df64.FUSED_RPT)
+    assert (consts["KC"], consts["DC"], consts["SMEM_MAX"]) == (df64.WIDE_KC, df64.WIDE_DC,
+                                                                 df64.SMEM_MAX)
+    bucket = min(b for b in buckets if q <= b)
     for d in range(17, 131):
         for n_rows, n_cols, sms in ((53_248, 53_248, 132), (4224, 4096, 132), (128, 128, 1)):
             plan = df64.fused_wide_plan(n_rows, n_cols, d, q, sms)
-            assert (plan.rpt, plan.jc) == table[bucket]
-            assert plan.d_pad % kc == 0 and d <= plan.d_pad < d + kc
-            staged = 8 * plan.d_pad * (128 * plan.rpt + 2 * 128) + 8 * 2 * 128 * bucket
-            assert plan.staged == (staged <= smem_max) and (plan.staged or d > 48)
-            assert plan.smem == (staged if plan.staged else 8 * 2 * 128 * bucket) <= smem_max
+            assert plan.d_pad % df64.WIDE_KC == 0 and d <= plan.d_pad < d + df64.WIDE_KC
+            whole = 8 * (plan.d_pad * 3 * 128 + 2 * 128 * bucket)
+            chunked = 8 * (df64.WIDE_DC * 4 * 128 + 2 * 128 * bucket + 128 * 128)
+            if whole <= df64.SMEM_MAX:
+                assert (plan.dc, plan.smem) == (plan.d_pad, whole)
+            else:
+                assert d > 64 and (plan.dc, plan.smem) == (df64.WIDE_DC, chunked)
+            assert plan.dc % df64.WIDE_KC == 0 and plan.smem <= df64.SMEM_MAX
             n_tiles = n_cols // 128
             walked = [range(s * plan.per, min((s + 1) * plan.per, n_tiles))
                       for s in range(plan.splits)]
             assert all(len(w) >= 1 for w in walked)
             assert sorted(t for w in walked for t in w) == list(range(n_tiles))
             assert plan.per >= min(2, n_tiles) and 1 <= plan.splits <= 65535
-    assert df64.fused_wide_plan(53_248, 53_248, 20, q, 132).staged
+    assert df64.fused_wide_plan(53_248, 53_248, 20, q, 132).dc == 20
 
 
 @pytest.mark.parametrize("d", [17, 20, 33, 100])
 def test_zero_padded_coordinates_give_the_same_entries(d):
     """What the wide kernels rely on: coordinates zero-padded to
     ``pad_dims(d)`` give B5's entries and B3/B4's products bit for bit (each
-    pad dimension adds +0 to a non-negative distance); and the unstaged
-    operands (rows transposed, columns padded) hold the same coordinates, so
-    the plain version on them equals it on the unpadded ones bit for bit."""
+    pad dimension adds +0 to a non-negative distance), and so does B3/B4's
+    walk in chunks of the plan's ``dc`` dimensions with the partial
+    distances carried from chunk to chunk; the wrapper (its plain route
+    here) gives the plain version on the unpadded coordinates."""
     uh, ul, V = _coords(N, d, seed=60 + d, scale=1.2 * np.sqrt(20 / d))
     us = torch.as_tensor(uh).double() + torch.as_tensor(ul).double()
     V = torch.as_tensor(V)
@@ -281,13 +287,16 @@ def test_zero_padded_coordinates_give_the_same_entries(d):
     assert d_pad % df64.WIDE_KC == 0 and d <= d_pad < d + df64.WIDE_KC
     padded = torch.cat([us, us.new_zeros((N, d_pad - d))], dim=1)
     assert torch.equal(df64._entries_reference(padded), df64._entries_reference(us))
-    rows_t, cols_p = df64._unstaged_operands(us[:128], us, d_pad)
-    assert rows_t.shape == (d_pad, 128) and cols_p.shape == (N, d_pad)
-    assert torch.equal(rows_t[:d].T, us[:128]) and not rows_t[d:].any() and not cols_p[:, d:].any()
-    assert torch.equal(df64._fused_reference(rows_t.T, cols_p, V),
-                       df64._fused_reference(us[:128], us, V))
-    assert torch.equal(df64.sqexp_matmat_rect_df64(uh[:128], ul[:128], uh, ul, V),
-                       df64._fused_reference(rows_t.T, cols_p, V))
+    plain = df64._fused_reference(us[:128], us, V)
+    assert torch.equal(df64._fused_reference(padded[:128], padded, V), plain)
+    dc = df64.fused_wide_plan(128, N, d, V.shape[1], 132).dc
+    dist = torch.zeros((128, N), dtype=torch.float64)
+    for k0 in range(0, d_pad, dc):  # the kernel's chunks, each k in order
+        for k in range(k0, min(k0 + dc, d_pad)):
+            diff = padded[:128, k][:, None] - padded[:, k][None, :]
+            dist = dist + diff * diff
+    assert torch.equal(torch.exp(-0.5 * dist) @ V.double(), plain)
+    assert torch.equal(df64.sqexp_matmat_rect_df64(uh[:128], ul[:128], uh, ul, V), plain)
 
 
 def test_plain_row_blocks_cover_every_row(monkeypatch):
