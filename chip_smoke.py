@@ -21,7 +21,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
-   (``.../sqexp_words_mma.cu``) with nvcc, one process each, started
+   (``.../sqexp_words_mma.cu``, one library per d: d = 2 and 20) with nvcc,
+   one process each, started
    together; times each build and prints the ``-Xptxas -v`` registers
    and spills, and for each instantiation of B3/B4's kernels and each of
    B1's libraries the local-memory instructions in all and in its hot
@@ -113,15 +114,19 @@ Phases, each of which raises on failure (so the script exits non-zero):
     bit against its plain version in float32 and float64, every mode and
     chain count; every P2 variant against its plain version (1e-13 of
     sum|term||w|, d2exp32 1e-6, and again on coordinates shifted by 1e4,
-    where a float32-distance control must fail that limit); P3's class
-    sums on one 16 x 8 tile exactly, its matvec against its plain version
+    where a float32-distance control must fail that limit); P3 (one library
+    per d) at d = 2 on that data and at d = 20 on gp-large-50k-d20's
+    pre-scaled [0, 1.5]^20: the class sums and S of one 32 x 16 tile
+    exactly (also on words of +-64), its matvec against its plain version
     (1e-13) and B3 (1e-11).
     Then each probe's own entry point, its launch count set to 0 before and
     read after: P1 under ``nvidia-smi``'s SM clock and power readings, every
     configuration timed with its bound; the SASS instruction mix of the hot
-    loops of B3, B4 (q = 8), P2 and P3 with the issue bounds it sets; P2 every
-    variant and B3; P3 beside B3 and against the float64 truth; then the
-    plain versions timed.
+    loops of B3, B4 (q = 8), P2 and P3 (d = 2, 20) with the issue bounds it
+    sets; P2 every variant and B3; P3 at d = 2 and 20 beside B3, against the
+    float64 truth, with its flops bound, FP64-issue time (its SASS's FP64
+    instructions per entry at P1's measured clock) and tensor-core time;
+    then the plain versions timed.
 
 The second-to-last lines are a JSON object describing the kernels (each
 with its bound, plain version and library call) and the ``nvidia-smi``
@@ -175,8 +180,8 @@ def phase_device():
 
 
 KERNELS = {"sqexp_fused": "B3/B4", "sqexp_entries": "B5/B7",
-           "sqexp_stored": "B6/B8", "issue_probe": "P1", "sqexp_ablate": "P2",
-           "sqexp_words_mma": "P3"}  # and B1 and B2, one library per variant below
+           "sqexp_stored": "B6/B8", "issue_probe": "P1",
+           "sqexp_ablate": "P2"}  # and B1, B2 and P3, one library per variant below
 # B1's libraries, (P, unit mass), those its checks and times use: unit mass
 # at every P, diagonal mass at P = 32 (check 3c)
 B1_BUILD = ((1, True), (2, True), (3, True), (10, True), (32, True), (32, False), (64, True),
@@ -186,6 +191,8 @@ B1_WIDE_P = (65, 100, 256)   # P at which B1's wide route is checked and timed
 # B2's libraries, by a D each serves among those its checks launch: its
 # own library at D = 2 and 5, the wide one (D = 17 and 100)
 B2_BUILD_D = (2, 5, 17)
+# P3's libraries, one per d: its own data (d = 2) and gp-large-50k-d20's width
+P3_D = (2, 20)
 
 
 def _b1_label(P, unit):
@@ -200,7 +207,8 @@ def _libraries():
     b1 = [("hmc_fused", hmc_fused.kernel_variant(P, unit), _b1_label(P, unit))
           for P, unit in B1_BUILD]
     b2 = [("sqexp", pairwise.kernel_variant(d), _b2_label(d)) for d in B2_BUILD_D]
-    return b1 + b2 + [(name, (), label) for name, label in KERNELS.items()]
+    p3 = [("sqexp_words_mma", words.kernel_variant(d), f"P3 d={d}") for d in P3_D]
+    return b1 + b2 + p3 + [(name, (), label) for name, label in KERNELS.items()]
 
 
 def _b2_label(d):
@@ -1712,18 +1720,24 @@ def _hot_loop_mix(name, symbol, entries, defines=(), cls="fp64"):
     return mix
 
 
+# P3's matvec kernel, sqexp_words_mma_kernel(const int8_t*, const int8_t*,
+# const double*, const float*, double, double*, int, int) in the file's
+# anonymous namespace (whose mangled name carries a tag of the file): its hot
+# loop takes two 32 x 16 sub-tiles a trip, 32 entries of each thread
+P3_SYMBOL, P3_ENTRIES = "22sqexp_words_mma_kernelEPKaS1_PKdPKfdPdii", 32
 # (label, library, mangled-name fragment, entries per thread per trip of the
-# hot loop): B3 and B4 at q = 8 at d = 2 (two trips unrolled, each over the
-# thread's rows), and the P2 and P3 kernels whose loops differ from B3's
+# hot loop, defines): B3 and B4 at q = 8 at d = 2 (two trips unrolled, each
+# over the thread's rows), and the P2 and P3 kernels whose loops differ from B3's
 HOT_LOOPS = (("B3", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{df64.FUSED_RPT[1]}EE",
-              2 * df64.FUSED_RPT[1]),
+              2 * df64.FUSED_RPT[1], ()),
              ("B4 q=8", "sqexp_fused", f"sqexp_fused_kernelILi2ELi8ELi{df64.FUSED_RPT[8]}EE",
-              2 * df64.FUSED_RPT[8]),
-             ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2),
-             ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2),
-             ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4),
-             ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8),
-             ("P3", "sqexp_words_mma", "sqexp_words_mma_kernelEPKa", 4))
+              2 * df64.FUSED_RPT[8], ()),
+             ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2, ()),
+             ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2, ()),
+             ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4, ()),
+             ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8, ()),
+             *((f"P3 d={d}", "sqexp_words_mma", P3_SYMBOL, P3_ENTRIES, words.kernel_variant(d))
+               for d in P3_D))
 
 
 def _print_fused_local_memory():
@@ -1894,9 +1908,11 @@ def _print_hot_loops(n, clock_hz):
     bounds for n^2 entries: the SMs issuing one warp instruction per cycle
     on each of the 4 schedulers of 132 SMs at ``clock_hz``, and the FP64
     pipe taking 2 cycles per warp instruction. Bounds from a static count,
-    not times: they stay out of the kernels JSON line."""
-    for label, lib, symbol, entries in HOT_LOOPS:
-        mix = _hot_loop_mix(lib, symbol, entries)
+    not times: they stay out of the kernels JSON line. Returns the mixes by
+    label (None where not read)."""
+    mixes = {}
+    for label, lib, symbol, entries, defines in HOT_LOOPS:
+        mix = mixes[label] = _hot_loop_mix(lib, symbol, entries, defines)
         if mix is None:
             print(f"[sass] {label}: hot loop not read (no cuobjdump or no loop found)")
             continue
@@ -1905,6 +1921,7 @@ def _print_hot_loops(n, clock_hz):
         print(f"[sass] {label} hot loop, instructions per entry: "
               + ", ".join(f"{k} {c:g}" for k, c in mix.items())
               + f"; issue bound {issue_ms:.4f} ms at n={n}, FP64 pipe bound {fp64_ms:.4f} ms")
+    return mixes
 
 
 def _f32_distance_control(us64, v):
@@ -1983,25 +2000,46 @@ def phase_probe_checks(n):
           + ", ".join(f"{k} {r:.2e} ({a:.2e})" for k, (a, r) in worst.items()))
     errs["P2"] = worst["full"][0]
 
+    errs["P3"] = {}
+    for d in P3_D:
+        if d == 2:
+            p3_in = (uh, ul, us, v)
+        else:
+            wh, wl, ws = _wide_coords(n, d, 24)
+            p3_in = (wh, wl, ws, v)
+        errs["P3"][d] = _p3_checks(n, d, *p3_in)
+    return errs
+
+
+def _p3_checks(n, d, uh, ul, us, v):
+    """Checks 12c and 12d of P3 at n and d: the class sums and S of one
+    32 x 16 tile exactly, on the data and on words of +-64; the matvec
+    within DF64_TOL of sum|E||v| of its plain version and 1e-11 of B3.
+    Returns the max abs error against the plain version."""
     ops = words.prepare(us.cpu().numpy(), CUDA)
-    tile, tile_ref = words._launch_tile(ops), words._tile_reference(ops)
+    W = np.random.default_rng(d).choice([-64, 64], (32, words.NW * d))
+    big = dict(ops, **{k: torch.as_tensor(a, device=CUDA)
+                       for k, a in zip(("rows", "cols"), words._operands(W, d))})
+    differ = 0
+    for o in (ops, big):
+        for got, ref in zip(words._launch_tile(o), words._tile_reference(o)):
+            differ += int((got != ref).sum())
     torch.cuda.synchronize()
-    print(f"[check 12c] P3 one 16 x 8 tile of the 7 class sums: "
-          f"{int((tile != tile_ref).sum())} of {tile.numel()} differ (exact expected)")
-    if not torch.equal(tile, tile_ref):
-        raise RuntimeError("check 12c: the MMA fragment layout is wrong")
+    print(f"[check 12c] P3 d={d}: one 32 x 16 tile of the 7 class sums and S, on the data and on "
+          f"words of +-64: {differ} of {2 * (words.NW + 1) * 512} differ (exact expected)")
+    if differ:
+        raise RuntimeError(f"check 12c: P3's fragments or fold are wrong at d={d}")
     got = words.words_matvec(ops, v)
     scale = df64._fused_reference(us, us, v.abs()[:, None])[:, 0]
     b3 = df64.sqexp_matvec_df64(uh, ul, v)
     max_abs, rel = _scaled_err(got, words._words_reference(ops, v), scale)
     b3_abs, b3_rel = _scaled_err(got, b3, scale)
-    print(f"[check 12d] P3 n={n}: against its plain version max abs err {max_abs:.3e}, max err / "
-          f"sum|E||v| {rel:.3e} (limit {DF64_TOL:g}); against B3 {b3_abs:.3e}, {b3_rel:.3e} "
+    print(f"[check 12d] P3 n={n} d={d}: against its plain version max abs err {max_abs:.3e}, max "
+          f"err / sum|E||v| {rel:.3e} (limit {DF64_TOL:g}); against B3 {b3_abs:.3e}, {b3_rel:.3e} "
           f"(limit 1e-11)")
     if not (rel <= DF64_TOL and b3_rel <= 1e-11 and bool(torch.isfinite(got).all())):
-        raise RuntimeError(f"check 12d: P3 disagrees ({rel}, against B3 {b3_rel})")
-    errs["P3"] = max_abs
-    return errs
+        raise RuntimeError(f"check 12d: P3 disagrees at d={d} ({rel}, against B3 {b3_rel})")
+    return max_abs
 
 
 def phase_probe_paths(n):
@@ -2016,7 +2054,7 @@ def phase_probe_paths(n):
     launches = {"P1": vpu_probe.KERNEL_LAUNCHES}
     print(f"[probe P1] SM clock under the float64 load {mhz:.0f} MHz (median of {samples} "
           f"nvidia-smi samples), power draw up to {watts:.1f} W")
-    _print_hot_loops(n, mhz * 1e6)
+    mixes = _print_hot_loops(n, mhz * 1e6)
     for r in p1:
         print(f"[probe P1] {r['dtype']} {r['mode']:9s} chains={r['chains']}: {r['ms']:.4f} ms, "
               f"{r['gflops']:.1f} GFLOP/s, {r['cycles_per_warp_instr']:.3f} SM cycles per warp "
@@ -2025,9 +2063,11 @@ def phase_probe_paths(n):
     df64_ablate.KERNEL_LAUNCHES = 0
     p2 = df64_ablate.run(n, CUDA)
     launches["P2"] = df64_ablate.KERNEL_LAUNCHES
-    words.KERNEL_LAUNCHES = 0
-    p3 = words.run(n, CUDA)
-    launches["P3"] = words.KERNEL_LAUNCHES
+    p3 = {}
+    for d in P3_D:
+        words.KERNEL_LAUNCHES = 0
+        p3[d] = words.run(n, CUDA, d=d)
+        launches[f"P3 d={d}"] = words.KERNEL_LAUNCHES
     print(f"[probe] launches on the probes' paths: {launches}")
     if not all(launches.values()):
         raise RuntimeError(f"a probe's path launched its kernel no time: {launches}")
@@ -2041,14 +2081,28 @@ def phase_probe_paths(n):
         print(f"[probe P2] {r['variant']:8s}: {r['ms']:.4f} ms ({r['ps_per_entry']:.4f} ps/entry), "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['ms'] / r['bound_ms']:.2f}x; "
               f"plain version {r['plain_ms']:.4f} ms")
-    ops = words.prepare(us.cpu().numpy(), CUDA)
-    p3["plain_ms"] = time_events(words._words_reference, (ops, v), 1)
-    print(f"[probe P3] n={n}: {p3['ms']:.4f} ms beside B3's {p3['b3_ms']:.4f} ms "
-          f"({p3['ms'] / p3['b3_ms']:.3f}x), bound {p3['bound_ms']:.4f} ms; plain version "
-          f"{p3['plain_ms']:.4f} ms; error against the float64 truth {p3['err']:.3e} (B3 "
-          f"{p3['b3_err']:.3e}) of max |y|; words built on the host in {p3['build_s']:.3f} s")
-    if not p3["err"] <= 1e-11:
-        raise RuntimeError(f"P3 is {p3['err']} off the float64 truth")
+    for d in P3_D:
+        r = p3[d]
+        mix = mixes[f"P3 d={d}"]
+        if mix is None:
+            raise RuntimeError(f"P3 d={d}: the hot loop's SASS was not read ({P3_SYMBOL})")
+        r["fp64_per_entry"] = mix["fp64"]
+        r["fp64_issue_ms"] = words.fp64_issue_ms(n, mix["fp64"], mhz * 1e6)
+        r["plan"] = words.plan(n, d, CUDA)
+        _, _, us_d, v_d = words.make_coords(n, d, CUDA)
+        r["plain_ms"] = time_events(words._words_reference, (words.prepare(us_d.cpu().numpy(),
+                                                                            CUDA), v_d), 1)
+        print(f"[probe P3] n={n} d={d}: {r['ms']:.4f} ms beside B3's {r['b3_ms']:.4f} ms "
+              f"({r['ms'] / r['b3_ms']:.3f}x); flops bound {r['bound_ms']:.4f} ms "
+              f"({r['ms'] / r['bound_ms']:.2f}x), FP64-issue time {r['fp64_issue_ms']:.4f} ms "
+              f"({r['fp64_per_entry']:g} FP64 instructions per entry from the SASS, "
+              f"{mhz:.0f} MHz; {r['ms'] / r['fp64_issue_ms']:.2f}x), tensor-core time "
+              f"{r['tensor_ms']:.4f} ms ({words.layout(d)[2]} int8 MACs per entry at 989.5e12 "
+              f"MAC/s; {r['ms'] / r['tensor_ms']:.2f}x); plain version {r['plain_ms']:.4f} ms; "
+              f"error against the float64 truth {r['err']:.3e} (B3 {r['b3_err']:.3e}) of max "
+              f"|y|; words built on the host in {r['build_s']:.3f} s; plan {r['plan']}")
+        if not r["err"] <= 1e-11:
+            raise RuntimeError(f"P3 is {r['err']} off the float64 truth at d={d}")
     x = vpu_probe.make_tile(torch.float64, CUDA)
     p1_plain = time_events(vpu_probe._probe_reference, (x, 128, 8, "vv", vpu_probe.REPS), 1)
     print(f"[probe P1] plain version, float64 vv 8 chains at {vpu_probe.REPS} copies: "
@@ -2083,9 +2137,14 @@ def _probe_rows(probe, errs):
     }, {
         "name": "sqexp_words_mma_kernel", "route": "cuda", "source": src + "sqexp_words_mma.cu",
         "replaces": "benchmarks/df64_mxu_d2_experiment.py:72",
-        "launches": probe["launches"]["P3"], "max_abs_err": errs["P3"], "ms": p3["ms"],
-        "plain_ms": p3["plain_ms"], "bound_ms": p3["bound_ms"], "bound_by": p3["bound_by"],
-        "library_ms": None, "b3_ms": p3["b3_ms"], "err_vs_truth": p3["err"],
+        "launches": sum(probe["launches"][f"P3 d={d}"] for d in P3_D),
+        "max_abs_err": max(errs["P3"].values()), "ms": p3[2]["ms"], "plain_ms": p3[2]["plain_ms"],
+        "bound_ms": p3[2]["bound_ms"], "bound_by": p3[2]["bound_by"], "library_ms": None,
+        "per_d": {d: {"launches": probe["launches"][f"P3 d={d}"], "max_abs_err": errs["P3"][d],
+                      **{k: p3[d][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "fp64_issue_ms", "fp64_per_entry", "tensor_ms",
+                                               "b3_ms", "err", "plan")}}
+                  for d in P3_D},
     }]
 
 

@@ -1,5 +1,7 @@
 // Probe P3: kernel B3's function with the squared distance's cross term from
-// exact integer matmuls on the tensor cores, for Hopper (sm_90a).
+// exact integer matmuls on the tensor cores, for Hopper (sm_90a), at any
+// coordinate dimension d up to 256. One library per d (-DP3_D=<d>): every
+// size below is fixed at compile time.
 //
 // Replaces the Pallas kernel of benchmarks/df64_mxu_d2_experiment.py::
 // _matvec_mxu_pallas (kernel :72-161, launched at :179). The plain PyTorch
@@ -11,180 +13,685 @@
 // words of 7 bits, u = sum_a q_a 2^(s - 7(a + 1)) with |q_a| <= 64 (s a global
 // exponent from max |u|). With C_c[i, j] = sum_{a + b = c} q_a(i) . q_b(j),
 // the class-c cross term, u_i . u_j = sum_{c < 7} C_c 2^(2s - 7(c + 2)) up to
-// the dropped classes c >= 7 (about 1e-12 at |u| <= 10), and
-//   y_i = sum_j exp(m_i + m_j + u_i . u_j) v_j,   m = -|u|^2 / 2 in FP64.
-// Operands: rows_a (n, 16) int8, the words of row i word-major (a d + k) and
-// zero beyond 7 d; cols_b (7, n, 16) int8, for class c and column j the words
-// q_{c-a}(j) at a d + k for a <= c, zero elsewhere, so that rows_a[i] .
-// cols_b[c, j] = C_c[i, j].
+// the dropped classes c >= 7, and
+//   y_i = sum_j exp(m_i + m_j + S_ij 2^(2s - 56)) v_j,
+//   S = sum_c C_c 2^(7 (6 - c)),   m = -|u|^2 / 2 in FP64.
+// Operands: rows_a (n, KA) int8, the words of row i word-major (a d + k),
+// zero beyond 7 d; cols_b (n, KB) int8, for each class c a slice of
+// class_k(c) bytes (at class_off(c)) holding the words q_{c-a}(j) at a d + k
+// for a <= c and zeros after, so that rows_a[i, :class_k(c)] . that slice
+// = C_c[i, j]. KA and each class_k are multiples of the MMA's K step.
 //
-// The cross term. Every C_c is one m16n8k16 mma.sync of int8 operands with an
-// int32 sum, written by hand in PTX: the words fit int8, the products are
-// integers <= 4096 and every sum is exact. Of the two exact routes this one
-// takes the integer tensor cores: FP64 DMMA (m8n8k4) would need 16 MMAs per
-// 8 x 8 tile for the 56 products of an entry, about 5 ms at n = 53,248 at the
-// FP64 tensor rate, as long as B3 takes in all; int8 needs 7 MMAs per 16 x 8
-// tile (K = 7 d <= 16 fits one), under 1 ms at the int8 rate. The seven int32
-// sums are then combined exactly in integers, S = sum_c C_c 2^(7(6 - c)),
-// three classes at a time in 32 bits and the rest in 64 (|S| < 2^57), on the
-// integer lanes; one conversion to double (to nearest, as the plain version's
-// .double()) and one fma give the FP64 argument
-// m_i + m_j + S 2^(2s - 56) (the product by a power of two is exact, so the fma
-// rounds as the plain version's multiply and add do). B3's FP64 exp and fma
-// accumulate with v widened to double follow. The TPU kernel's pair combine
-// and pair exp (:120-153) worked round the TPU's lack of float64 and are not
-// ported.
+// The cross term. Every C_c is a sum of m16n8k32 mma.sync instructions of
+// int8 operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31), written by hand in
+// PTX: 7 MMAs a 16 x 8 tile at d = 2, 21 at d = 20. The class sums are folded
+// into S as each class ends: classes 0 and 1 into the high word in 32 bits,
+// classes 2-6 by one mad.wide.s32 each; |S| < 2^63 for d <= 256, the limit.
+// One conversion to double (to nearest, as the plain version's .double()) and
+// one fma give the FP64 argument m_i + m_j + S 2^shift, rounded once as the
+// plain version rounds it; CUDA's double exp and an fma accumulate with v
+// widened to double follow, as in B3.
 //
-// What bounds it. The FP64 work per entry falls from B3's distance (6 flops)
-// and scale to one conversion, an fma and an add, so the exp (some 32 flops)
-// dominates; the tensor cores and integer lanes run beside the FP64 lanes.
+// What bounds it. Per entry 21 FP64 instructions (the add of the norms, the
+// fma of the argument, the exp's 18, the accumulate), 3.6 ms at n = 53,248 on
+// the 132 SMs' FP64 lanes; beside them on other pipes the integer fold (7
+// instructions), the conversion and the MMAs: 224 int8 MACs an entry at
+// d = 2, 672 at d = 20 (1.9 ms at the dense int8 rate). The FP64 pipe and
+// the issue slots are the limits; the design keeps everything else off them.
 //
-// The design. B3's: a block of 128 rows (8 warps of 16, each warp one m16 row
-// tile whose A fragments stay in registers), columns staged through shared
-// memory in tiles of 128 (the 7 class vectors, the norms, v widened to
-// double), the column range split over blockIdx.y. Each thread owns 4 entries
-// of each 16 x 8 output tile (rows g and g + 8, columns 2 t and 2 t + 1 of
-// the PTX fragment layout), accumulates its two rows, and the 4 lanes that
-// share a row add their sums with shuffles at the end.
+// The design. A block owns BM rows (one warp per 32 of them), their words
+// resident in shared memory, and walks its split of the columns in tiles of
+// TJ through a cp.async ring of STAGES buffers (the class words, the norms
+// and v of the tile). A warp takes the tile in sub-tiles of 32 rows x 16
+// columns: four m16n8 accumulators per class, so each B fragment feeds two
+// MMAs and each A fragment two; fragments come by ldmatrix from rows padded to
+// an odd multiple of 16 bytes (no bank conflicts), or, when the row words are
+// short (KA <= 160, d <= 22), A stays in registers for the whole walk. The
+// thread's 16 entries of a sub-tile hold their converted S, and its 4
+// columns' norms and v, in registers; the loop body computes the class sums of
+// sub-tile k and the exps of sub-tile k - 1, so the MMAs and the integer fold
+// issue under the FP64 work. BM, TJ and STAGES follow from d to fit the
+// 227 KB of shared memory (choose_plan); the column range is split over
+// blockIdx.y so that the blocks fill the SMs in whole waves
+// (sqexp_words_mma_plan). The splits' sums are added by the wrapper.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef P3_D
+#define P3_D 2
+#endif
+
 namespace {
 
-constexpr int NW = 7;        // words per coordinate (df64_mxu_d2_experiment.py NW)
-constexpr int KP = 16;       // bytes of one word vector, the MMA's K
-constexpr int BM = 128;      // rows a block
-constexpr int TJ = 128;      // columns per staged tile
-constexpr int THREADS = 256; // 8 warps of 16 rows
+constexpr int NW = 7;         // words per coordinate (df64_mxu_d2_experiment.py NW)
+constexpr int D = P3_D;       // coordinate dimension of this library
+constexpr int KS = 32;        // bytes of one MMA K step (m16n8k32 and m64nNk32, int8)
+constexpr int D_MAX = 256;    // |S| < 2^63 up to here
+static_assert(D >= 1 && D <= D_MAX, "P3_D must lie in [1, 256]");
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+constexpr int KA = round_up(NW * D, KS);  // bytes of a row's words
+// bytes of class c's words in a column, and where they start (a loop, not a
+// recursion, so that a call with a constant c inlines to a constant)
+__host__ __device__ constexpr int class_k(int c) { return round_up((c + 1) * D, KS); }
+__host__ __device__ constexpr int class_off(int c) {
+  int off = 0;
+  for (int i = 0; i < c; ++i) off += class_k(i);
+  return off;
+}
+constexpr int KB = class_off(NW);  // bytes of a column's words
+constexpr int SA = KA + 16;  // shared pitch of a row's words: an odd multiple of 16 bytes
+// A stage's column words in shared memory: for each 8 columns, KB / 16 core
+// matrices of 8 columns x 16 bytes (128 contiguous bytes) along k, as wgmma
+// reads them (K-major, no swizzle) and ldmatrix reads them without conflicts
+constexpr int BGROUP = 8 * KB;  // bytes of 8 columns' words
+__host__ __device__ constexpr int b_at(int col, int kbyte) {  // kbyte a multiple of 16
+  return (col >> 3) * BGROUP + (kbyte >> 4) * 128 + (col & 7) * 16;
+}
+
+// Variants, each measured on the H100 (PERF.md): A's fragments in registers
+// (where a row's words are short), wgmma for the class sums, the short exp,
+// the m16 tiles of a warp's sub-tile, the class sums of sub-tile k beside the
+// exps of k - 1; P3_ABLATE (timing only) drops the exp (1), the MMAs (2) or
+// the conversion (3)
+#ifndef P3_AREG
+#define P3_AREG (KA <= 160)
+#endif
+#ifndef P3_WGMMA
+#define P3_WGMMA 0
+#endif
+#ifndef P3_EXP
+#define P3_EXP 0
+#endif
+#ifndef P3_MT
+#define P3_MT (P3_WGMMA ? 1 : 2)
+#endif
+#ifndef P3_PIPE
+#define P3_PIPE 1
+#endif
+#ifndef P3_ABLATE
+#define P3_ABLATE 0
+#endif
+constexpr bool AREG = P3_AREG;
+constexpr bool SHORT_EXP = P3_EXP;  // exp_nonpos (12 FP64 instructions) for CUDA's exp (18)
+constexpr int MT = P3_MT;           // m16 tiles of a warp's sub-tile: 16 MT rows x 16 columns
+constexpr int E = 8 * MT;           // the thread's entries of a sub-tile
+constexpr bool PIPE = P3_PIPE;
+constexpr int ABLATE = P3_ABLATE;
+static_assert(MT == 1 || MT == 2, "P3_MT is 1 or 2");
+
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block on the H100
+// a stage of tj columns: their words, norms and v
+__host__ __device__ constexpr int stage_bytes(int tj) { return tj * (KB + 8 + 4); }
+
+struct Plan { int bm, tj, stages; };
+// eight warps of 16 MT rows (fewest column re-reads), else fewer; then the
+// widest tile and the deepest ring that fit the shared memory
+constexpr Plan choose_plan() {
+  const int tjs[7] = {64, 64, 32, 32, 16, 32, 16};
+  const int sts[7] = {3, 2, 3, 2, 2, 1, 1};
+  for (int b = 0; b < 4; ++b)
+    for (int i = 0; i < 7; ++i) {
+      const int bm = 16 * MT * (8 >> b);
+      if (bm * SA + sts[i] * stage_bytes(tjs[i]) + 64 <= SMEM_MAX) return {bm, tjs[i], sts[i]};
+    }
+  return {0, 0, 0};
+}
+constexpr Plan PLAN = choose_plan();
+constexpr int BM = PLAN.bm, TJ = PLAN.tj, STAGES = PLAN.stages;
+static_assert(BM > 0, "no plan fits the shared memory");
+constexpr int WARPS_M = BM / (16 * MT);
+constexpr int WARPS_N = 8 / WARPS_M < TJ / 16 ? 8 / WARPS_M : TJ / 16;
+constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int NSUB = TJ / 16 / WARPS_N;  // sub-tiles of a warp in one stage
+constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 64;  // + exp_nonpos's table
+static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
+// wgmma where a warpgroup's four warps hold 64 consecutive rows that share
+// their columns, with A in registers; mma.sync otherwise
+constexpr bool WG = P3_WGMMA && MT == 1 && AREG && WARPS_M % 4 == 0;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// D (16 x 8, int32) = A (16 x 16, int8, row) . B (16 x 8, int8, col). Thread
-// lane = 4 g + t holds A[g][4t..4t+3] in a0, A[g + 8][4t..4t+3] in a1,
-// B[4t..4t+3][g] in b, and D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g + 8][2t + 1].
-__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
-  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %7, %7, %7};\n"
-      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
-      : "r"(a0), "r"(a1), "r"(b), "r"(0));
+// the fold's multipliers 2^28, 2^21, 2^14, 2^7, 1 as operands ptxas cannot
+// see: a known power of two turns each one-instruction mad.wide into a
+// shift, a high part and a carried add
+__constant__ int FOLD_M[5] = {1 << 28, 1 << 21, 1 << 14, 1 << 7, 1};
+__constant__ double EXP2_EIGHTHS[8] = {1.0, 1.0905077326652577, 1.189207115002721,
+                                       1.2968395546510096, 1.4142135623730951,
+                                       1.5422108254079407, 1.681792830507429,
+                                       1.8340080864093424};  // 2^(i / 8), rounded
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// cp.async of 16 bytes from device to shared memory, through the L2 only
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// S = sum_c C_c 2^(7 (6 - c)), exact: |C_c| <= 2 (c + 1) 64^2 < 2^16, so the
-// classes 4-6 and 1-3 each sum in 32 bits (< 2^30) and the rest in 64
-__device__ __forceinline__ long long combine(const int (&C)[NW][4], int e) {
-  const int lo = C[6][e] + C[5][e] * (1 << 7) + C[4][e] * (1 << 14);
-  const int mid = C[3][e] + C[2][e] * (1 << 7) + C[1][e] * (1 << 14);
-  return (long long)C[0][e] * (1LL << 42) + (long long)mid * (1LL << 21) + lo;
+// four 8 x 16-byte matrices; lanes 8 m .. 8 m + 7 give matrix m's row addresses
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
-__device__ __forceinline__ void class_sums(int (&C)[NW][4], uint32_t a0, uint32_t a1,
-                                           const int8_t* b_of_class, size_t class_stride) {
+// D (16 x 8, int32) += A (16 x 32, int8, row) . B (32 x 8, int8, col). Lane
+// 4 g + t holds A[g][4t..], A[g + 8][4t..], A[g][16 + 4t..], A[g + 8][16 + 4t..]
+// in a, B[4t..][g], B[16 + 4t..][g] in b0, b1, and D[g][2t], D[g][2t + 1],
+// D[g + 8][2t], D[g + 8][2t + 1].
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the wgmma descriptor of B at shared address addr: K-major, no swizzle, core
+// matrices 128 bytes apart along k and BGROUP apart along n
+__device__ __forceinline__ uint64_t b_desc(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(128 >> 4) << 16 |
+         (uint64_t)(BGROUP >> 4) << 32;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the warp's 16 rows of D (64 x 16, int32) = (scale_d ? D : 0) + A (64 x 32,
+// int8, the warp's rows in registers as mma_s8's) . B (16 columns x 32 bytes
+// at desc); d[4 nt + e] as mma_s8's D of n8 tile nt
+__device__ __forceinline__ void wgmma_s8(int (&d)[8], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+// pin registers in place: the async MMA's results are read after the wait,
+// and the FP64 work meant to run under the MMAs stays before it
+template <int N>
+__device__ __forceinline__ void reg_fence(int (&r)[N]) {
 #pragma unroll
-  for (int c = 0; c < NW; ++c)
-    mma_s8(C[c], a0, a1, *reinterpret_cast<const uint32_t*>(b_of_class + c * class_stride));
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(double (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+d"(r[i])::"memory");
+}
+
+// a * b + c, 32 x 32 -> 64 bits in one instruction
+__device__ __forceinline__ long long mad_wide(int a, int b, long long c) {
+  long long d;
+  asm("mad.wide.s32 %0, %1, %2, %3;\n" : "=l"(d) : "r"(a), "r"(b), "l"(c));
+  return d;
+}
+
+// e^x for x <= 0: x = j ln2 / 8 + r with j = rint(8 x / ln2), |r| <= ln2 / 16,
+// e^x = 2^(j >> 3) t8[j & 7] p(r) with t8[i] = 2^(i / 8) and p a degree-7
+// Chebyshev fit of e^r (max relative error 2.2e-16 with its rounding); below
+// -708 x is taken as -708 (e^-708 = 3.3e-308) by the high word of the negative
+// double, which grows with its magnitude. 12 FP64 instructions.
+__device__ __forceinline__ double exp_nonpos(double x, const double* t8) {
+  constexpr double SHIFTER = 6755399441055744.0;  // 1.5 2^52: kf - SHIFTER = rint
+  x = __hiloint2double((int)min((unsigned)__double2hiint(x), 0xC0862000u), __double2loint(x));
+  const double kf = fma(x, 11.541560327111707, SHIFTER);
+  const double jf = kf - SHIFTER;
+  double r = fma(jf, -0.08664339756999316, x);
+  r = fma(jf, -2.8988085173078744e-18, r);
+  double p = 0.0001984230424030784;
+  p = fma(p, r, 0.0013889819852876434);
+  p = fma(p, r, 0.008333333321199942);
+  p = fma(p, r, 0.04166666655746539);
+  p = fma(p, r, 0.1666666666666712);
+  p = fma(p, r, 0.500000000000041);
+  p = fma(p, r, 1.0);
+  p = fma(p, r, 1.0);
+  const int j = __double2loint(kf);
+  const double y = p * t8[j & 7];
+  return __hiloint2double(__double2hiint(y) + ((j >> 3) << 20), __double2loint(y));
+}
+
+using AFrags = uint32_t[KA / KS][MT][4];  // the warp's A fragments: k step, m16 tile
+
+// the thread's ldmatrix row of A (an m16 tile from row r16, k step 0) and of
+// B (columns col0.., class 0, k step 0; k moves 8 bytes of shared memory per
+// byte), matching mma_s8's fragments
+__device__ __forceinline__ unsigned a_lane_addr(const int8_t* sa, int r16, int lane) {
+  return smem_addr(sa + (r16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SA + (lane >> 4) * 16);
+}
+__device__ __forceinline__ unsigned b_lane_addr(const int8_t* sb, int col0, int lane) {
+  return smem_addr(sb + b_at(col0 + (lane & 7) + (lane >> 4) * 8, ((lane >> 3) & 1) * 16));
+}
+
+__device__ __forceinline__ void load_a(AFrags& a, const unsigned (&a_addr)[MT]) {
+#pragma unroll
+  for (int ks = 0; ks < KA / KS; ++ks)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[ks][mt], a_addr[mt] + ks * KS);
+}
+
+// S += class c's sums C (the thread's E entries), exactly: classes 0 and 1
+// into the high word in 32 bits, the rest by one mad.wide each
+__device__ __forceinline__ void fold(int c, const int (&C)[2 * MT][4], int (&hi)[E],
+                                     long long (&S)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int x = C[i >> 2][i & 3];
+    if (c == 0) hi[i] = x * 128;                    // C_0 2^42 = (C_0 2^10) 2^32
+    else if (c == 1) hi[i] = (hi[i] + x) * 8;       // + C_1 2^35
+    else if (c == 2) S[i] = mad_wide(x, FOLD_M[0], (long long)hi[i] * 4294967296LL);
+    else S[i] = mad_wide(x, FOLD_M[c - 2], S[i]);
+  }
+}
+
+// S of the thread's E entries of a 16 MT x 16 sub-tile, entry (m16 tile mt,
+// n8 tile nt, fragment slot e) at i = (2 mt + nt) 4 + e. epi(c), c = 0..6,
+// is the FP64 work of the previous sub-tile in sevenths, issued while the
+// MMAs run; sink(c, C) sees each class's sums (the tile check's window).
+template <bool USE_WG, class Epi, class Sink>
+__device__ __forceinline__ void sub_tile_sums(long long (&S)[E], const AFrags& areg,
+                                              const unsigned (&a_addr)[MT], unsigned b_addr,
+                                              Epi epi, Sink sink) {
+  int hi[E];
+  if constexpr (USE_WG) {
+    // every class's MMAs in flight at once, one wait
+    int W[NW][8];
+    const uint64_t desc = b_desc(b_addr);  // k steps add to its start-address field
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NW; ++c)
+#pragma unroll
+      for (int ks = 0; ks < class_k(c) / KS; ++ks)
+        wgmma_s8(W[c], areg[ks][0], desc + (uint64_t)((class_off(c) + ks * KS) * 8 >> 4),
+                 ks > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int c = 0; c < NW; ++c) epi(c);
+    wgmma_wait();
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+      reg_fence(W[c]);
+      int C[2 * MT][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) C[q][e] = W[c][4 * q + e];
+      sink(c, C);
+      fold(c, C, hi, S);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NW; ++c) {
+      int C[2 * MT][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < class_k(c) / KS; ++ks) {
+        uint32_t a[MT][4], b[4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (AREG) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) a[mt][q] = areg[ks][mt][q];
+          } else {
+            ldsm_x4(a[mt], a_addr[mt] + ks * KS);
+          }
+        }
+        if constexpr (ABLATE == 2) {
+#pragma unroll
+          for (int q = 0; q < 2 * MT; ++q)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) C[q][e] += (int)(b_addr >> (q + e)) + (int)a[q >> 1][e];
+          continue;
+        }
+        ldsm_x4(b, b_addr + (class_off(c) + ks * KS) * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_s8(C[2 * mt], a[mt], b[0], b[1]);
+          mma_s8(C[2 * mt + 1], a[mt], b[2], b[3]);
+        }
+      }
+      epi(c);
+      sink(c, C);
+      fold(c, C, hi, S);
+    }
+  }
+}
+
+struct SubTile {
+  double sd[E];  // S of each entry, converted
+  double cn[4];  // the norms of the thread's 4 columns
+  double cv[4];  // and their v
+};
+
+// the MMA half of a sub-tile at column col0 of a stage, with epi's FP64 work
+template <class Epi>
+__device__ __forceinline__ void sums_of(SubTile& st, const AFrags& areg,
+                                        const unsigned (&a_addr)[MT], const int8_t* sb,
+                                        const double* sn, const float* sv, int col0, int lane,
+                                        Epi epi) {
+  long long S[E];
+  sub_tile_sums<WG>(S, areg, a_addr,
+                    WG ? smem_addr(sb + b_at(col0, 0)) : b_lane_addr(sb, col0, lane), epi,
+                    [](int, const int (&)[2 * MT][4]) {});
+#pragma unroll
+  for (int i = 0; i < E; ++i)
+    st.sd[i] = ABLATE == 3 ? __longlong_as_double(S[i]) : (double)S[i];
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const double2 nn = *reinterpret_cast<const double2*>(sn + col0 + nt * 8 + 2 * t4);
+    const float2 vv = *reinterpret_cast<const float2*>(sv + col0 + nt * 8 + 2 * t4);
+    st.cn[2 * nt] = nn.x;
+    st.cn[2 * nt + 1] = nn.y;
+    st.cv[2 * nt] = (double)vv.x;
+    st.cv[2 * nt + 1] = (double)vv.y;
+  }
+}
+
+// the FP64 half: argument, exp and accumulate of entries lo..hi - 1 into the
+// thread's 2 MT rows (row slot 2 mt + e / 2, column slot 2 nt + e % 2)
+__device__ __forceinline__ void accumulate(double (&acc)[2 * MT], const double (&rm)[2 * MT],
+                                           const SubTile& st, double scale, const double* t8,
+                                           int lo = 0, int hi = E) {
+#pragma unroll
+  for (int i = lo; i < hi; ++i) {
+    const int r = 2 * (i >> 3) + ((i & 3) >> 1), cc = 2 * ((i >> 2) & 1) + (i & 1);
+    const double arg = fma(st.sd[i], scale, rm[r] + st.cn[cc]);
+    const double e = ABLATE == 1 ? arg : SHORT_EXP ? exp_nonpos(arg, t8) : exp(arg);
+    acc[r] = fma(e, st.cv[cc], acc[r]);
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
 sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restrict__ cols_b,
                        const double* __restrict__ norms, const float* __restrict__ v,
                        double scale, double* __restrict__ partial, int n, int tiles_per_split) {
-  __shared__ __align__(16) int8_t sb[NW][TJ][KP];
-  __shared__ double sn[TJ];
-  __shared__ double sv[TJ];
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* const sa = reinterpret_cast<int8_t*>(smem);
+  unsigned char* const ring = smem + BM * SA;
+  auto sb = [&](int buf) { return reinterpret_cast<int8_t*>(ring + buf * stage_bytes(TJ)); };
+  auto sn = [&](int buf) {
+    return reinterpret_cast<double*>(ring + buf * stage_bytes(TJ) + TJ * KB);
+  };
+  auto sv = [&](int buf) {
+    return reinterpret_cast<float*>(ring + buf * stage_bytes(TJ) + TJ * KB + TJ * 8);
+  };
+  double* const t8 = reinterpret_cast<double*>(ring + STAGES * stage_bytes(TJ));
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  const int r0 = blockIdx.x * BM + (tid >> 5) * 16 + g;  // the thread's rows r0, r0 + 8
-  const uint32_t a0 = *reinterpret_cast<const uint32_t*>(rows_a + (size_t)r0 * KP + 4 * t4);
-  const uint32_t a1 = *reinterpret_cast<const uint32_t*>(rows_a + (size_t)(r0 + 8) * KP + 4 * t4);
-  const double m0 = norms[r0], m1 = norms[r0 + 8];
-  double acc0 = 0.0, acc1 = 0.0;
-
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = warp % WARPS_M, wn = warp / WARPS_M;
+  if (SHORT_EXP && tid < 8) t8[tid] = EXP2_EIGHTHS[tid];  // visible after stage_begin(0)
+  const int row_base = blockIdx.x * BM;
+  const int rows_here = min(BM, n - row_base);
+  // n is a multiple of 128, so a warp's rows, and a warpgroup's, lie wholly
+  // inside or outside it
+  const bool active = wm * 16 * MT < rows_here;
   const int n_tiles = n / TJ;
   const int t_begin = blockIdx.y * tiles_per_split;
-  const int t_end = min(t_begin + tiles_per_split, n_tiles);
-  for (int t = t_begin; t < t_end; ++t) {
-    const size_t j0 = (size_t)t * TJ;
-    __syncthreads();
-    for (int idx = tid; idx < NW * TJ; idx += THREADS) {
-      const int c = idx / TJ, jj = idx - c * TJ;
-      *reinterpret_cast<int4*>(&sb[c][jj][0]) =
-          *reinterpret_cast<const int4*>(cols_b + ((size_t)c * n + j0 + jj) * KP);
+  const int t_count = min(tiles_per_split, n_tiles - t_begin);
+
+  auto load_stage = [&](int u) {  // tile t_begin + u into buffer u % STAGES
+    const int buf = u % STAGES;
+    const size_t j0 = (size_t)(t_begin + u) * TJ;
+    int8_t* const b = sb(buf);
+    // a warp copies 4 consecutive 16-byte chunks of 8 columns: 64 contiguous
+    // bytes of each column read, 4 whole core matrices written
+    for (int idx = tid; idx < TJ * (KB / 16); idx += THREADS) {
+      const int grp = idx / (8 * (KB / 16)), rem = idx - grp * 8 * (KB / 16);
+      const int col = grp * 8 + (rem & 7), ch = rem >> 3;
+      cp_async16(b + b_at(col, ch * 16), cols_b + (j0 + col) * KB + ch * 16);
     }
-    if (tid < TJ) {
-      sn[tid] = norms[j0 + tid];
-      sv[tid] = (double)v[j0 + tid];
-    }
-    __syncthreads();
-#pragma unroll 1
-    for (int nt = 0; nt < TJ / 8; ++nt) {
-      int C[NW][4];
-      class_sums(C, a0, a1, &sb[0][nt * 8 + g][4 * t4], TJ * KP);
+    for (int idx = tid; idx < TJ / 2; idx += THREADS) cp_async16(sn(buf) + 2 * idx, norms + j0 + 2 * idx);
+    for (int idx = tid; idx < TJ / 4; idx += THREADS) cp_async16(sv(buf) + 4 * idx, v + j0 + 4 * idx);
+  };
+  for (int idx = tid; idx < rows_here * (KA / 16); idx += THREADS) {
+    const int r = idx / (KA / 16), ch = idx - r * (KA / 16);
+    cp_async16(sa + r * SA + ch * 16, rows_a + (size_t)(row_base + r) * KA + ch * 16);
+  }
+  load_stage(0);
+  cp_async_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jj = nt * 8 + 2 * t4 + (e & 1);
-        const double cross = (double)combine(C, e);
-        const double arg = fma(cross, scale, (e < 2 ? m0 : m1) + sn[jj]);
-        const double E = exp(arg);
-        if (e < 2) acc0 = fma(E, sv[jj], acc0);
-        else acc1 = fma(E, sv[jj], acc1);
+  for (int u = 1; u < STAGES - 1; ++u) {
+    if (u < t_count) load_stage(u);
+    cp_async_commit();
+  }
+  // stage u's copies landed and every warp is done with stage u - 1's buffer,
+  // which then takes stage u + STAGES - 1
+  auto stage_begin = [&](int u) {
+    if constexpr (STAGES > 1) {
+      cp_async_wait<STAGES - 2>();
+      if constexpr (WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (u + STAGES - 1 < t_count) load_stage(u + STAGES - 1);
+      cp_async_commit();
+    } else {
+      if (u > 0) {
+        __syncthreads();
+        load_stage(u);
+        cp_async_commit();
       }
+      cp_async_wait<0>();
+      if constexpr (WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+  };
+
+  // the thread's rows, row slot r = 2 mt + e / 2 at row_base + rofs(r)
+  auto rofs = [&](int r) { return wm * 16 * MT + (r >> 1) * 16 + (r & 1) * 8 + g; };
+  double rm[2 * MT], acc[2 * MT];
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    rm[r] = active ? norms[row_base + rofs(r)] : 0.0;
+    acc[r] = 0.0;
+  }
+  unsigned a_addr[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) a_addr[mt] = a_lane_addr(sa, wm * 16 * MT + 16 * mt, lane);
+
+  stage_begin(0);
+  AFrags areg;
+  if constexpr (AREG) load_a(areg, a_addr);
+  // sub-tile k: stage k / NSUB, the warp's (k % NSUB)-th 16 columns of it;
+  // epi is the FP64 work that rides under its MMAs
+  auto sums_at = [&](int k, SubTile& st, auto epi) {
+    const int u = k / NSUB, j = k - u * NSUB, buf = u % STAGES;
+    if (j == 0 && u > 0) stage_begin(u);
+    if (active)
+      sums_of(st, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane, epi);
+  };
+  auto no_epi = [](int) {};
+  auto epi_of = [&](const SubTile& from) {  // a seventh of from's entries a class
+    return [&](int c) {
+      accumulate(acc, rm, from, scale, t8, E * c / NW, E * (c + 1) / NW);
+      if (WG && c == NW - 1) reg_fence(acc);
+    };
+  };
+  const int total = t_count * NSUB;
+  if constexpr (PIPE) {
+    // two sub-tiles in flight, ping-pong: no register copies between trips
+    SubTile st0, st1;
+    sums_at(0, st0, no_epi);
+    int k = 1;
+    for (; k + 1 < total; k += 2) {
+      sums_at(k, st1, epi_of(st0));
+      sums_at(k + 1, st0, epi_of(st1));
+    }
+    if (k < total) {
+      sums_at(k, st1, epi_of(st0));
+      if (active) accumulate(acc, rm, st1, scale, t8);
+    } else if (active) {
+      accumulate(acc, rm, st0, scale, t8);
+    }
+  } else {
+    for (int k = 0; k < total; ++k) {
+      SubTile st;
+      sums_at(k, st, no_epi);
+      if (active) accumulate(acc, rm, st, scale, t8);
     }
   }
-  acc0 += __shfl_xor_sync(FULL_MASK, acc0, 1);
-  acc0 += __shfl_xor_sync(FULL_MASK, acc0, 2);
-  acc1 += __shfl_xor_sync(FULL_MASK, acc1, 1);
-  acc1 += __shfl_xor_sync(FULL_MASK, acc1, 2);
-  if (t4 == 0) {
-    partial[(size_t)blockIdx.y * n + r0] = acc0;
-    partial[(size_t)blockIdx.y * n + r0 + 8] = acc1;
+
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 1);
+    acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 2);
+  }
+  double* const out = partial + (size_t)blockIdx.y * n + row_base;
+  if constexpr (WARPS_N == 1) {
+    if (active && t4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2 * MT; ++r) out[rofs(r)] = acc[r];
+  } else {
+    // the warps of one row band add their column shares in a fixed order
+    double* const red = reinterpret_cast<double*>(smem);
+    __syncthreads();
+    if (t4 == 0)
+#pragma unroll
+      for (int r = 0; r < 2 * MT; ++r) red[wn * BM + rofs(r)] = acc[r];
+    __syncthreads();
+    for (int r = tid; r < rows_here; r += THREADS) {
+      double s = 0.0;
+      for (int w = 0; w < WARPS_N; ++w) s += red[w * BM + r];
+      out[r] = s;
+    }
   }
 }
 
-// one warp: the 7 class sums of rows 0-15 and columns 0-7, out (7, 16, 8)
+// one warp: the class sums C_c and S of rows 0-31 and columns 0-15 by the
+// matvec's own staging, fragments and fold (in sub-tiles of 16 MT rows, by
+// mma.sync); out_c (7, 32, 16), out_s (32, 16)
 __global__ void words_mma_tile_kernel(const int8_t* __restrict__ rows_a,
-                                      const int8_t* __restrict__ cols_b, int* __restrict__ out,
-                                      int n) {
+                                      const int8_t* __restrict__ cols_b, int* __restrict__ out_c,
+                                      long long* __restrict__ out_s) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* const sa = reinterpret_cast<int8_t*>(smem);
+  int8_t* const sb = sa + 32 * SA;  // 16 columns: two 8-column groups
   const int lane = threadIdx.x, g = lane >> 2, t4 = lane & 3;
-  const uint32_t a0 = *reinterpret_cast<const uint32_t*>(rows_a + g * KP + 4 * t4);
-  const uint32_t a1 = *reinterpret_cast<const uint32_t*>(rows_a + (g + 8) * KP + 4 * t4);
-  int C[NW][4];
-  class_sums(C, a0, a1, cols_b + g * KP + 4 * t4, (size_t)n * KP);
-  for (int c = 0; c < NW; ++c)
-    for (int e = 0; e < 4; ++e)
-      out[(c * 16 + g + 8 * (e >> 1)) * 8 + 2 * t4 + (e & 1)] = C[c][e];
+  for (int idx = lane; idx < 32 * (KA / 16); idx += 32)
+    cp_async16(sa + (idx / (KA / 16)) * SA + (idx % (KA / 16)) * 16, rows_a + idx * 16);
+  for (int idx = lane; idx < 16 * (KB / 16); idx += 32)
+    cp_async16(sb + b_at(idx / (KB / 16), (idx % (KB / 16)) * 16), cols_b + idx * 16);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  for (int r0 = 0; r0 < 32; r0 += 16 * MT) {
+    unsigned a_addr[MT];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) a_addr[mt] = a_lane_addr(sa, r0 + 16 * mt, lane);
+    AFrags areg;
+    if constexpr (AREG) load_a(areg, a_addr);
+    auto at = [&](int i) {  // (row, column) of the thread's entry i
+      return (r0 + (i >> 3) * 16 + g + 8 * ((i & 3) >> 1)) * 16 + ((i >> 2) & 1) * 8 + 2 * t4 +
+             (i & 1);
+    };
+    long long S[E];
+    sub_tile_sums<false>(S, areg, a_addr, b_lane_addr(sb, 0, lane), [](int) {},
+                         [&](int c, const int (&C)[2 * MT][4]) {
+                           for (int i = 0; i < E; ++i) out_c[c * 512 + at(i)] = C[i >> 2][i & 3];
+                         });
+    for (int i = 0; i < E; ++i) out_s[at(i)] = S[i];
+  }
+}
+
+cudaError_t configure() {
+  static cudaError_t rc = [] {
+    cudaError_t e = cudaFuncSetAttribute(sqexp_words_mma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(words_mma_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               32 * SA + 16 * KB);
+    return e;
+  }();
+  return rc;
 }
 
 }  // namespace
 
+// The launch plan of this library for n rows on the current device: out =
+// {d, BM, TJ, STAGES, threads, shared bytes, blocks per SM, splits, KA, KB,
+// m16 tiles a warp's sub-tile, wgmma (1) or mma.sync (0), the short exp}.
+// splits divides the column tiles evenly and, of those that do, takes the
+// fewest waves of blocks times tiles per block (one tile more for a split's
+// fill). Returns the CUDA error code (0 on success).
+extern "C" int sqexp_words_mma_plan(int n, int* out) {
+  if (n < 128 || n % 128 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t rc = configure();
+  int dev = 0, sms = 0, per_sm = 0;
+  if (rc == cudaSuccess) rc = cudaGetDevice(&dev);
+  if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sqexp_words_mma_kernel, THREADS,
+                                                       SMEM);
+  if (rc != cudaSuccess) return (int)rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int n_tiles = n / TJ, row_blocks = (n + BM - 1) / BM;
+  const long long slots = (long long)sms * per_sm;
+  int best = 1;
+  long long best_cost = -1;
+  for (int s = 1; s <= n_tiles && s <= 65535; ++s) {
+    const int tps = (n_tiles + s - 1) / s;
+    if ((n_tiles + tps - 1) / tps != s) continue;
+    const long long waves = ((long long)row_blocks * s + slots - 1) / slots;
+    const long long cost = waves * (tps + 1);
+    if (best_cost < 0 || cost < best_cost) {
+      best_cost = cost;
+      best = s;
+    }
+  }
+  const int plan[13] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, MT, WG, SHORT_EXP};
+  for (int i = 0; i < 13; ++i) out[i] = plan[i];
+  return 0;
+}
+
 // partial (splits, n) = the column splits' sums of exp(m_i + m_j + S_ij
-// 2^shift) v_j, on `stream`, with rows_a (n, 16) and cols_b (7, n, 16) int8,
-// norms (n,) FP64, v (n,) float32; n a multiple of 128. Returns the CUDA error
-// code of the launch (0 on success).
+// 2^shift) v_j, on `stream`, with rows_a (n, KA) and cols_b (n, KB) int8,
+// norms (n,) FP64, v (n,) float32; n a multiple of 128, d this library's,
+// splits one that divides the column tiles evenly (sqexp_words_mma_plan's).
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int sqexp_words_mma(const void* rows_a, const void* cols_b, const void* norms,
-                               const void* v, void* partial, int shift, int n, int splits,
+                               const void* v, void* partial, int shift, int n, int d, int splits,
                                void* stream) {
-  if (n < TJ || n % TJ != 0 || splits < 1 || splits > 65535 || shift < -1000 || shift > 1000)
-    return (int)cudaErrorInvalidValue;
+  if (d != D || n < 128 || n % 128 != 0 || shift < -1000 || shift > 1000) return (int)cudaErrorInvalidValue;
   const int n_tiles = n / TJ;
+  if (splits < 1 || splits > n_tiles || splits > 65535) return (int)cudaErrorInvalidValue;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  const dim3 grid(n / BM, splits);
-  sqexp_words_mma_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if ((n_tiles + tiles_per_split - 1) / tiles_per_split != splits) return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = configure();
+  if (rc != cudaSuccess) return (int)rc;
+  const dim3 grid((n + BM - 1) / BM, splits);
+  sqexp_words_mma_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
       static_cast<const double*>(norms), static_cast<const float*>(v), ldexp(1.0, shift),
       static_cast<double*>(partial), n, tiles_per_split);
   return (int)cudaGetLastError();
 }
 
-// out (7, 16, 8) int32 = the class sums C_c of rows 0-15 and columns 0-7, by
-// one warp of the same MMAs: the fragment layout's check.
-extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out, int n,
-                              void* stream) {
-  if (n < 16) return (int)cudaErrorInvalidValue;
-  words_mma_tile_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+// out_c (7, 32, 16) int32 and out_s (32, 16) int64 = the class sums C_c and S
+// of rows 0-31 and columns 0-15 (n >= 32), by one warp of the matvec's own
+// staging, fragments and fold: the layout's check.
+extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out_c, void* out_s,
+                              int n, int d, void* stream) {
+  if (d != D || n < 32) return (int)cudaErrorInvalidValue;
+  const cudaError_t rc = configure();
+  if (rc != cudaSuccess) return (int)rc;
+  words_mma_tile_kernel<<<1, 32, 32 * SA + 16 * KB, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
-      static_cast<int*>(out), n);
+      static_cast<int*>(out_c), static_cast<long long*>(out_s));
   return (int)cudaGetLastError();
 }

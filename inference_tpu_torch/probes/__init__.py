@@ -31,6 +31,9 @@ FP32_FLOPS = 67e12
 FP64_FLOPS = 33.5e12
 SMS = 132
 BOOST_CLOCK_HZ = 1.98e9
+# int8 multiply-accumulates per second of the tensor cores, dense: the data
+# sheet's 1,979 TOP/s, a MAC counted as two operations
+INT8_MACS = 1979e12 / 2
 # lanes per SM that issue one float32 or float64 multiply or add per cycle
 LANES = {"float32": 128, "float64": 64}
 # FP64 flops of one double exp as CUDA 12.8 compiles it, an FMA counted as

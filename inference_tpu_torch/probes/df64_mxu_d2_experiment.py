@@ -1,5 +1,6 @@
 """Probe P3: kernel B3's function with the squared distance's cross term
-from exact integer matmuls on the tensor cores.
+from exact integer matmuls on the tensor cores, at any coordinate dimension
+d up to ``D_MAX``.
 
 Port of ``benchmarks/df64_mxu_d2_experiment.py``. On the TPU the pair-
 arithmetic distance was the fused kernels' bottleneck, and the experiment
@@ -8,12 +9,16 @@ split: each coordinate becomes ``NW = 7`` integer words of 7 bits
 (``build_words``), and the cross term is a sum over scale classes ``c`` of
 exact integer matmuls ``C_c``. Here the class matmuls are int8 ``mma.sync``
 instructions on the tensor cores, written by hand
-(``ops/csrc/sqexp_words_mma.cu``), their int32 sums are combined exactly in
-integers, and the argument ``-|u_i|^2/2 - |u_j|^2/2 + u_i . u_j``, the exp
-and the accumulate run in FP64 as in B3. The TPU kernel's pair combine and
-pair exponential (its ``:120-153``) worked round the TPU's lack of float64
-and are not ported; ``build_norms`` is kept as the JAX script defines it,
-and the kernel takes the FP64 norms it splits (``half_norms``).
+(``ops/csrc/sqexp_words_mma.cu``, one library per d), their int32 sums are
+combined exactly in integers into ``S = sum_c C_c 2^(7 (6 - c))``, and the
+argument ``-|u_i|^2/2 - |u_j|^2/2 + S 2^shift``, the exp and the accumulate
+run in FP64 as in B3. The TPU kernel's pair combine and pair exponential
+(its ``:120-153``) worked round the TPU's lack of float64 and are not
+ported; ``build_norms`` is kept as the JAX script defines it, and the kernel
+takes the FP64 norms it splits (``half_norms``).
+
+The JAX probe takes any d; the port takes d <= ``D_MAX`` = 256, where S
+still fits int64 (``|S| <= 1.016 d 2^54``) and raises above.
 
 ``words_matvec`` launches the kernel for operands (``prepare``) on a CUDA
 device and runs the plain version ``_words_reference`` (the class matmuls in
@@ -22,23 +27,25 @@ a row-blocked matvec) for operands on the CPU. ``run`` prints the error
 against the float64 truth and times the kernel beside B3 on the same
 inputs; ``KERNEL_LAUNCHES`` counts the kernel's launches.
 
-    python -m inference_tpu_torch.probes.df64_mxu_d2_experiment [n ...]
-    python -m inference_tpu_torch.probes.df64_mxu_d2_experiment 512 --device cpu
+    python -m inference_tpu_torch.probes.df64_mxu_d2_experiment [n ...] [--d D]
+    python -m inference_tpu_torch.probes.df64_mxu_d2_experiment 512 --d 20 --device cpu
 """
 
 import argparse
+import ctypes
 import time
 
 import numpy as np
 import torch
 
 from ..ops import _build, df64
-from . import EXP_FLOPS, FP64_FLOPS, bound, time_events
+from . import EXP_FLOPS, FP64_FLOPS, INT8_MACS, LANES, SMS, bound, time_events
 from .df64_ablate import N, make_inputs
 
 NW = 7  # fixed-point words per coordinate
 BITS = 7  # magnitude bits per word
-KP = 16  # int8 entries of one word vector: the MMA's K, at least NW * d
+KS = 32  # int8 entries of one MMA K step (m16n8k32): every class's K is a multiple
+D_MAX = 256  # the largest d whose combined class sum S fits int64
 
 KERNEL_LAUNCHES = 0  # launches of the kernel in this process
 
@@ -71,37 +78,69 @@ def build_norms(u64):
     return nh, nl
 
 
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def layout(d):
+    """(KA, [(offset, K) of each class], KB): the bytes of a row's words,
+    where class c's words lie in a column's and how many (``(c + 1) d``
+    rounded up to the MMA's K step), and the bytes of a column's words;
+    ``csrc/sqexp_words_mma.cu`` computes the same."""
+    ks = [_round_up((c + 1) * d, KS) for c in range(NW)]
+    offs = np.concatenate([[0], np.cumsum(ks)]).astype(int).tolist()
+    return _round_up(NW * d, KS), list(zip(offs[:-1], ks)), offs[-1]
+
+
+def _operands(W, d):
+    """rows (n, KA) and cols (n, KB) int8 from the integer words ``W`` (n,
+    NW d), word-major: ``rows[i]`` holds row i's words, zero-padded;
+    column j's class-c slice of ``cols`` holds q_{c-a}(j) at a d + k for
+    a <= c and zeros after, so that ``rows[i, :K] . cols[j, off:off + K]``
+    is the JAX kernel's class-c sum (its ``:104-114``)."""
+    W = np.asarray(W, np.int8)
+    n = W.shape[0]
+    KA, classes, KB = layout(d)
+    rows = np.zeros((n, KA), np.int8)
+    rows[:, : NW * d] = W
+    cols = np.zeros((n, KB), np.int8)
+    for c, (off, _) in enumerate(classes):
+        for a in range(c + 1):
+            cols[:, off + a * d: off + (a + 1) * d] = W[:, (c - a) * d:(c - a + 1) * d]
+    return rows, cols
+
+
 def prepare(u64, device="cuda"):
-    """The kernel's operands from FP64 coordinates ``u64`` (n, d), d <= 2,
-    built on the host: ``rows`` (n, 16) int8, every row's words word-major
-    and zero-padded; ``cols`` (NW, n, 16) int8, for class c the words
-    q_{c-a} at a d + k for a <= c, so that ``rows[i] . cols[c, j]`` is the
-    class-c cross term; ``norms`` (n,) float64; ``shift`` = 2 s - 56, the
-    exponent of the combined class sum."""
+    """The kernel's operands from FP64 coordinates ``u64`` (n, d), d <=
+    ``D_MAX``, built on the host: ``rows`` and ``cols`` (``_operands``),
+    ``norms`` (n,) float64, ``shift`` = 2 s - 56, the exponent of the
+    combined class sum, and ``d``."""
     u64 = np.asarray(u64, np.float64)
     n, d = u64.shape
-    if NW * d > KP:
-        raise ValueError(f"[ prepare error ] the words of d = {d} dimensions do not fit the "
-                         f"MMA's K = {KP}; d <= {KP // NW}.")
+    if d > D_MAX:
+        raise ValueError(f"[ prepare error ] d = {d} coordinates: the combined class sum "
+                         f"overflows int64 above d = {D_MAX}; d <= {D_MAX}.")
     Wq, s = build_words(u64)
-    W = Wq.astype(np.int8)
-    rows = np.zeros((n, KP), np.int8)
-    rows[:, : NW * d] = W
-    cols = np.zeros((NW, n, KP), np.int8)
-    for c in range(NW):
-        for a in range(c + 1):
-            cols[c, :, a * d:(a + 1) * d] = W[:, (c - a) * d:(c - a + 1) * d]
+    rows, cols = _operands(Wq, d)
     t = lambda a: torch.as_tensor(a, device=device)
     return {"rows": t(rows), "cols": t(cols), "norms": t(half_norms(u64)),
-            "shift": 2 * s - BITS * (NW + 1)}
+            "shift": 2 * s - BITS * (NW + 1), "d": d}
 
 
-def _class_sums(rows, cols):
-    """Exact C_c of the rows against every column, summed to
-    S = sum_c C_c 2^(7 (6 - c)) in int64."""
-    S = torch.zeros((rows.shape[0], cols.shape[1]), dtype=torch.int64, device=rows.device)
+def class_operands(ops, c):
+    """(A, B): the rows' and the columns' words of class c, A @ B.T = C_c."""
+    _, classes, _ = layout(ops["d"])
+    off, k = classes[c]
+    return ops["rows"][:, :k], ops["cols"][:, off:off + k]
+
+
+def _class_sums(ops, rows=slice(None), cols=slice(None)):
+    """Exact C_c of the rows against the columns (float64 matmuls of
+    integers below 2^31), summed to S = sum_c C_c 2^(7 (6 - c)) in int64."""
+    S = 0
     for c in range(NW):
-        S += (rows.double() @ cols[c].double().T).long() * (1 << BITS * (NW - 1 - c))
+        A, B = class_operands(ops, c)
+        S = S + (A[rows].double() @ B[cols].double().T).long() * (1 << BITS * (NW - 1 - c))
     return S
 
 
@@ -109,16 +148,22 @@ def _words_reference(ops, v):
     """The kernel's plain version: the class matmuls in float64 (exact for
     these integers), the same integer combine and FP64 argument, torch.exp,
     and the product with v in float64, row block by row block."""
-    rows, cols, norms = ops["rows"], ops["cols"], ops["norms"]
-    n = rows.shape[0]
+    norms = ops["norms"]
+    n = norms.shape[0]
     scale = 2.0 ** ops["shift"]
     V64 = v.double()
-    out = torch.empty(n, dtype=torch.float64, device=rows.device)
+    out = torch.empty(n, dtype=torch.float64, device=norms.device)
     for blk in df64._row_blocks(n, n):
-        S = _class_sums(rows[blk], cols)
-        arg = (norms[blk, None] + norms[None, :]) + S.double() * scale
+        arg = (norms[blk, None] + norms[None, :]) + _class_sums(ops, blk).double() * scale
         out[blk] = torch.exp(arg) @ V64
     return out
+
+
+def kernel_variant(d, **extra):
+    """The nvcc defines of the kernel's library for d coordinates (one per
+    d), with ``extra`` defines of a measured variant (``P3_AREG``,
+    ``P3_PIPE``)."""
+    return (("P3_D", d),) + tuple(sorted(extra.items()))
 
 
 def _check_cuda(kernel, ops, *extra):
@@ -133,23 +178,49 @@ def _check_cuda(kernel, ops, *extra):
     return dev
 
 
-def _launch_words(ops, v):
-    """Launch ``csrc/sqexp_words_mma.cu`` on ``prepare``'s operands and float32
-    v on one CUDA device, with the result of ``_words_reference``."""
+PLAN_KEYS = ("d", "bm", "tj", "stages", "threads", "smem", "blocks_per_sm", "splits", "ka", "kb",
+             "mt", "wgmma", "short_exp")
+
+
+def plan(n, d, device, variant=()):
+    """The library's launch plan for n rows at d on ``device``
+    (``sqexp_words_mma_plan``): its tile sizes, ring depth, threads, shared
+    bytes, blocks an SM, column splits, operand widths, m16 tiles of a
+    warp's sub-tile and its routes (wgmma, the short exp)."""
+    fn = getattr(_build.load("sqexp_words_mma", kernel_variant(d, **dict(variant))),
+                 "sqexp_words_mma_plan")
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    with torch.cuda.device(device):
+        rc = fn(n, ctypes.addressof(out))
+    _build.raise_on(rc, "P3 plan")
+    return dict(zip(PLAN_KEYS, out))
+
+
+def _launch_words(ops, v, variant=()):
+    """Launch ``csrc/sqexp_words_mma.cu`` (the library of ``ops``' d, in the
+    measured ``variant``'s defines) on ``prepare``'s operands and float32 v
+    on one CUDA device, with the result of ``_words_reference``."""
     global KERNEL_LAUNCHES
     dev = _check_cuda("P3", ops, ("v", v))
     if v.dtype != torch.float32:
         raise TypeError(f"kernel P3: v must be float32, got {v.dtype}")
-    n = ops["rows"].shape[0]
-    splits = df64._splits(n, n, dev)
-    partial = torch.empty((splits, n), dtype=torch.float64, device=dev)
-    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 3)
+    n, d = ops["rows"].shape[0], ops["d"]
+    p = plan(n, d, dev, variant)
+    if (p["ka"], p["kb"]) != (ops["rows"].shape[1], ops["cols"].shape[1]):
+        raise ValueError(f"kernel P3: operands of {ops['rows'].shape[1]} and "
+                         f"{ops['cols'].shape[1]} bytes, the library's d = {d} takes "
+                         f"{p['ka']} and {p['kb']}")
+    partial = torch.empty((p["splits"], n), dtype=torch.float64, device=dev)
+    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 4,
+                     kernel_variant(d, **dict(variant)))
     with torch.cuda.device(dev):
         rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), ops["norms"].data_ptr(),
-                v.data_ptr(), partial.data_ptr(), ops["shift"], n, splits, _build.stream(dev))
+                v.data_ptr(), partial.data_ptr(), ops["shift"], n, d, p["splits"],
+                _build.stream(dev))
     _build.raise_on(rc, "P3")
     KERNEL_LAUNCHES += 1
-    return partial[0] if splits == 1 else partial.sum(dim=0)
+    return partial[0] if p["splits"] == 1 else partial.sum(dim=0)
 
 
 def words_matvec(ops, v):
@@ -169,38 +240,70 @@ def words_matvec(ops, v):
 
 
 def _launch_tile(ops):
-    """The class sums C_c of rows 0-15 and columns 0-7 by one warp of the
-    kernel's MMAs: (NW, 16, 8) int32, the fragment layout's check."""
+    """The class sums C_c (NW, 32, 16) int32 and S (32, 16) int64 of rows
+    0-31 and columns 0-15 by one warp of the kernel's own staging,
+    fragments and fold: the layout's check."""
     dev = _check_cuda("P3 tile", ops)
-    out = torch.empty((NW, 16, 8), dtype=torch.int32, device=dev)
-    fn = _build.bind("sqexp_words_mma", "words_mma_tile", 3, 1)
+    out_c = torch.empty((NW, 32, 16), dtype=torch.int32, device=dev)
+    out_s = torch.empty((32, 16), dtype=torch.int64, device=dev)
+    fn = _build.bind("sqexp_words_mma", "words_mma_tile", 4, 2, kernel_variant(ops["d"]))
     with torch.cuda.device(dev):
-        rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), out.data_ptr(),
-                ops["rows"].shape[0], _build.stream(dev))
+        rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), out_c.data_ptr(),
+                out_s.data_ptr(), ops["rows"].shape[0], ops["d"], _build.stream(dev))
     _build.raise_on(rc, "P3 tile")
-    return out
+    return out_c, out_s
 
 
 def _tile_reference(ops):
     """``_launch_tile``'s plain version."""
-    rows = ops["rows"][:16].double()
-    return torch.stack([rows @ ops["cols"][c, :8].double().T for c in range(NW)]).int()
+    C = torch.stack([(A[:32].double() @ B[:16].double().T).int()
+                     for A, B in (class_operands(ops, c) for c in range(NW))])
+    return C, _class_sums(ops, slice(0, 32), slice(0, 16))
 
 
-def words_bound(n):
+def words_bound(n, d):
     """(ms, what bounds it) of the kernel's FP64 work at n, with
-    chip_smoke.py's arithmetic: per entry one add and one fma for the
-    argument, the exp and the fma accumulate; the operands moved once."""
-    n_bytes = n * (KP + NW * KP + 8 + 4 + 8)
-    return bound(n_bytes, float(n) * n * (3 + EXP_FLOPS + 2), FP64_FLOPS)
+    chip_smoke.py's arithmetic (an fma two flops): per entry one add and
+    one fma for the argument, the exp and the fma accumulate; the operands
+    read once and y written once."""
+    KA, _, KB = layout(d)
+    return bound(n * (KA + KB + 8 + 4 + 8), float(n) * n * (3 + EXP_FLOPS + 2), FP64_FLOPS)
 
 
-def run(n=N, device="cuda", time_reps=5, seed=0):
-    """The probe at n on ``make_inputs``' data: the kernel (or on the CPU
-    its plain version) and B3 against the float64 truth (exact differences,
-    B3's plain version) and, on a CUDA device, both timed with CUDA events.
-    Returns a dict of the readings."""
-    uh, ul, us64, v = make_inputs(n, device, seed)
+def tensor_ms(n, d):
+    """The int8 MACs the kernel issues, KB an entry (each class's K, padded
+    to the MMA's step), over the tensor cores' dense int8 rate: the least
+    time of its MMAs (ms)."""
+    return float(n) * n * layout(d)[2] / INT8_MACS * 1e3
+
+
+def fp64_issue_ms(n, fp64_per_entry, clock_hz):
+    """The FP64-issue time (ms) of n^2 entries of ``fp64_per_entry`` FP64
+    instructions each (read from the kernel's SASS), one instruction a lane
+    and cycle on the SMs' FP64 lanes at ``clock_hz``."""
+    return float(n) * n * fp64_per_entry / (SMS * LANES["float64"] * clock_hz) * 1e3
+
+
+def make_coords(n, d, device="cuda", seed=0):
+    """Coordinates for the probe at d: ``df64_ablate.make_inputs``' U[0,
+    10]^2 at d = 2 (P3's own data), else pre-scaled uniform on [0, 1.5
+    sqrt(20 / d)]^d (gp-large-50k-d20's [0, 1.5]^20 at d = 20), as a float32
+    pair, their FP64 sum and v ~ N(0, 1) in float32."""
+    if d == 2:
+        return make_inputs(n, device, seed)
+    rng = np.random.default_rng(seed)
+    uh, ul = df64.split_f64(rng.uniform(0, 1.5 * np.sqrt(20 / d), (n, d)))
+    v = rng.normal(size=n).astype(np.float32)
+    uh, ul, v = (torch.as_tensor(a, device=device) for a in (uh, ul, v))
+    return uh, ul, uh.double() + ul.double(), v
+
+
+def run(n=N, device="cuda", time_reps=5, seed=0, d=2):
+    """The probe at n and d on ``make_coords``' data: the kernel (or on the
+    CPU its plain version) and B3 against the float64 truth (exact
+    differences, B3's plain version) and, on a CUDA device, both timed with
+    CUDA events. Returns a dict of the readings."""
+    uh, ul, us64, v = make_coords(n, d, device, seed)
     t0 = time.perf_counter()
     ops = prepare(us64.cpu().numpy(), device)
     build_s = time.perf_counter() - t0
@@ -208,10 +311,12 @@ def run(n=N, device="cuda", time_reps=5, seed=0):
     y_b3 = df64.sqexp_matvec_df64(uh, ul, v)
     truth = df64._fused_reference(us64, us64, v[:, None])[:, 0]
     scale = float(truth.abs().max())
-    out = {"n": n, "build_s": build_s, "ms": None, "b3_ms": None,
+    out = {"n": n, "d": d, "build_s": build_s, "ms": None, "b3_ms": None,
            "err": float((y - truth).abs().max()) / scale,
-           "b3_err": float((y_b3 - truth).abs().max()) / scale}
-    out["bound_ms"], out["bound_by"] = words_bound(n)
+           "b3_err": float((y_b3 - truth).abs().max()) / scale,
+           "tensor_ms": tensor_ms(n, d)}
+    # the least time: the larger of the FP64 flops bound and the MMAs' time
+    out["bound_ms"], out["bound_by"] = max(words_bound(n, d), (out["tensor_ms"], "operations"))
     if us64.device.type == "cuda":
         out["ms"] = time_events(words_matvec, (ops, v), time_reps)
         out["b3_ms"] = time_events(df64.sqexp_matvec_df64, (uh, ul, v), time_reps)
@@ -221,18 +326,20 @@ def run(n=N, device="cuda", time_reps=5, seed=0):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("sizes", nargs="*", type=int, default=[N])
+    p.add_argument("--d", type=int, default=2, help="coordinate dimension (1-256)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     on_card = torch.device(a.device).type == "cuda"
     print(f"device: {torch.cuda.get_device_name(a.device) if on_card else 'cpu (the plain versions; no time is measured)'}")
     for n in a.sizes:
-        r = run(n, a.device)
-        print(f"n={n}: words rel err {r['err']:.2e}, B3 rel err {r['b3_err']:.2e} "
+        r = run(n, a.device, d=a.d)
+        print(f"n={n} d={a.d}: words rel err {r['err']:.2e}, B3 rel err {r['b3_err']:.2e} "
               f"(max |y - truth| / max |truth|); words built on the host in "
               f"{r['build_s']:.3f} s")
         if on_card:
-            print(f"  words: {r['ms']:8.4f} ms ({r['ms'] * 1e9 / n**2:.4f} ps/entry), bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+            print(f"  words: {r['ms']:8.4f} ms ({r['ms'] * 1e9 / n**2:.4f} ps/entry), flops bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), tensor-core time "
+                  f"{r['tensor_ms']:.4f} ms")
             print(f"  B3:    {r['b3_ms']:8.4f} ms ({r['b3_ms'] * 1e9 / n**2:.4f} ps/entry)")
 
 

@@ -984,12 +984,20 @@ def test_ablate_kernel_matches_plain(cuda, variant):
 
 
 @pytest.mark.cuda
-def test_words_mma_tile_and_matvec(cuda):
-    """One 16 x 8 tile of the class sums equals the plain version's exactly;
-    the matvec matches its plain version and B3."""
-    uh, ul, us, v = df64_ablate.make_inputs(4096, cuda, seed=3)
+@pytest.mark.parametrize("d", [2, 3, 20, 33])
+def test_words_mma_tile_and_matvec(cuda, d):
+    """One 32 x 16 tile of the class sums and their combined S equal the
+    plain version's exactly, on the data and on words of +-64 (the largest
+    sums); the matvec matches its plain version and B3, one launch."""
+    uh, ul, us, v = p3.make_coords(4096, d, cuda, seed=3)
     ops = p3.prepare(us.cpu().numpy(), cuda)
-    assert torch.equal(p3._launch_tile(ops), p3._tile_reference(ops))
+    for got, ref in zip(p3._launch_tile(ops), p3._tile_reference(ops)):
+        assert torch.equal(got, ref)
+    W = np.random.default_rng(d).choice([-64, 64], (32, p3.NW * d))
+    rows, cols = p3._operands(W, d)
+    big = {**ops, "rows": torch.as_tensor(rows, device=cuda), "cols": torch.as_tensor(cols, device=cuda)}
+    for got, ref in zip(p3._launch_tile(big), p3._tile_reference(big)):
+        assert torch.equal(got, ref)
     before = p3.KERNEL_LAUNCHES
     got = p3.words_matvec(ops, v)
     ref = p3._words_reference(ops, v)
@@ -997,8 +1005,30 @@ def test_words_mma_tile_and_matvec(cuda):
     b3 = df64.sqexp_matvec_df64(uh, ul, v)
     torch.cuda.synchronize()
     assert p3.KERNEL_LAUNCHES == before + 1
+    assert bool(torch.isfinite(got).all())
     assert float(((got - ref).abs() / scale).max()) <= DF64_ATOL
     assert float(((got - b3).abs() / scale).max()) <= 1e-11
+
+
+@pytest.mark.cuda
+def test_words_launcher_refuses_a_bad_plan(cuda):
+    """The launcher returns cudaErrorInvalidValue (1) for another library's
+    d, a split count that does not divide the column tiles evenly or an n
+    off the 128 grid, and its plan splits the tiles evenly."""
+    _, _, us, v = p3.make_coords(4096, 3, cuda, seed=0)
+    ops = p3.prepare(us.cpu().numpy(), cuda)
+    p = p3.plan(4096, 3, cuda)
+    assert p["d"] == 3 and (p["ka"], p["kb"]) == (ops["rows"].shape[1], ops["cols"].shape[1])
+    tiles = 4096 // p["tj"]
+    assert -(-tiles // -(-tiles // p["splits"])) == p["splits"]
+    partial = torch.empty((tiles, 4096), dtype=torch.float64, device=cuda)
+    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 4, p3.kernel_variant(3))
+    ptrs = (ops["rows"].data_ptr(), ops["cols"].data_ptr(), ops["norms"].data_ptr(), v.data_ptr(),
+            partial.data_ptr())
+    for n, d, splits in ((4096, 2, p["splits"]), (4096, 3, tiles + 1), (4000, 3, 1)):
+        assert fn(*ptrs, ops["shift"], n, d, splits, _build.stream(cuda)) == 1
+    assert fn(*ptrs, ops["shift"], 4096, 3, p["splits"], _build.stream(cuda)) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -16,7 +16,9 @@ Tolerances, with reasons:
 - P3 against the JAX experiment: 1e-7 of max |y| (the JAX side's own error
   is about 3e-8, its pair exponential's); against the float64 truth: 1e-11
   of sum_j |E_ij| |v_j|, the words' truncation (classes c >= 7, about 1e-12
-  of the argument).
+  of the argument). Its operands, class sums and combined sum: exactly.
+  P3 runs at d = 2 (U[0, 10]^2), 3 and 20 (pre-scaled, [0, 1.5]^20 at
+  d = 20).
 """
 
 import importlib.util
@@ -171,13 +173,17 @@ def _jax_experiment():
     return mod
 
 
-@pytest.fixture(scope="module")
-def words_inputs():
-    uh, ul, us64, v = df64_ablate.make_inputs(N, "cpu", seed=5)
+WORDS_D = (2, 3, 20)  # d = 2 on P3's U[0, 10]^2, the others pre-scaled (p3.make_coords)
+
+
+@pytest.fixture(scope="module", params=WORDS_D, ids=lambda d: f"d{d}")
+def words_inputs(request):
+    d = request.param
+    _, _, us64, v = p3.make_coords(N, d, "cpu", seed=5)
     u = us64.numpy()
     jx = _jax_experiment()
     E = np.exp(-0.5 * ((u[:, None, :] - u[None, :, :]) ** 2).sum(-1))
-    return {"u": u, "v": v, "jx": jx, "E": E,
+    return {"u": u, "v": v, "jx": jx, "E": E, "d": d,
             "jax_y": np.asarray(jx.sqexp_matvec_mxu(u, v.numpy(), interpret=True))}
 
 
@@ -195,24 +201,49 @@ def test_words_and_norms_equal_the_jax_scripts(words_inputs, scale):
 
 
 def test_words_operands_give_the_class_sums(words_inputs):
-    """rows . cols[c] is the JAX kernel's class-c matmul (its ``:104-114``),
-    and the combined sum times 2^shift is u_i . u_j to the words' precision."""
-    u = words_inputs["u"]
+    """Each class's operands are the JAX kernel's A and B (its ``:104-114``)
+    with zeros to the MMA's K step, their product its class-c matmul, the
+    tile check's plain version the same sums, and the combined sum times
+    2^shift is u_i . u_j to the words' precision."""
+    u, d = words_inputs["u"], words_inputs["d"]
     ops = p3.prepare(u, "cpu")
     Wq, _ = p3.build_words(u)
-    d = u.shape[1]
+    KA, classes, KB = p3.layout(d)
+    assert ops["rows"].shape == (N, KA) and ops["cols"].shape == (N, KB) and ops["d"] == d
+    tile_c, tile_s = p3._tile_reference(ops)
     for c in range(p3.NW):
-        A = Wq[:, : (c + 1) * d].astype(np.float64)
-        B = np.concatenate([Wq[:, a * d:(a + 1) * d] for a in range(c, -1, -1)], axis=1)
-        ref = A @ B.astype(np.float64).T
-        got = ops["rows"].double() @ ops["cols"][c].double().T
-        np.testing.assert_array_equal(got.numpy(), ref)
-    np.testing.assert_array_equal(p3._tile_reference(ops).numpy(),
-                                  np.stack([ops["rows"][:16].numpy().astype(np.int64)
-                                            @ ops["cols"][c, :8].numpy().astype(np.int64).T
-                                            for c in range(p3.NW)]))
-    cross = p3._class_sums(ops["rows"], ops["cols"]).double() * 2.0 ** ops["shift"]
+        A_j = Wq[:, : (c + 1) * d]
+        B_j = np.concatenate([Wq[:, a * d:(a + 1) * d] for a in range(c, -1, -1)], axis=1)
+        A, B = (t.numpy() for t in p3.class_operands(ops, c))
+        assert A.shape[1] == B.shape[1] == classes[c][1] and A.shape[1] % p3.KS == 0
+        np.testing.assert_array_equal(A[:, : (c + 1) * d], A_j)
+        np.testing.assert_array_equal(B[:, : (c + 1) * d], B_j)
+        assert not B[:, (c + 1) * d:].any()
+        ref = A_j.astype(np.float64) @ B_j.astype(np.float64).T
+        np.testing.assert_array_equal((A.astype(np.float64) @ B.astype(np.float64).T), ref)
+        np.testing.assert_array_equal(tile_c[c].numpy(), ref[:32, :16])
+    S = p3._class_sums(ops)
+    np.testing.assert_array_equal(tile_s.numpy(), S[:32, :16].numpy())
+    cross = S.double() * 2.0 ** ops["shift"]
     assert np.abs(cross.numpy() - u @ u.T).max() <= 1e-11
+
+
+@pytest.mark.parametrize("d", [20, p3.D_MAX])
+@pytest.mark.parametrize("signs", ["all +64", "random +-64"])
+def test_words_class_sum_does_not_overflow(d, signs):
+    """At the largest words (every one +-64) the combined S = sum_c C_c
+    2^(7 (6 - c)) of the plain version is exact in int64 up to D_MAX:
+    equal to the sum in Python's integers, below 2^63."""
+    rng = np.random.default_rng(d)
+    W = np.full((32, p3.NW * d), 64) if signs == "all +64" else rng.choice([-64, 64], (32, p3.NW * d))
+    rows, cols = p3._operands(W, d)
+    ops = {"rows": torch.as_tensor(rows), "cols": torch.as_tensor(cols), "d": d}
+    got = p3._class_sums(ops).numpy()
+    exact = sum((W[:, : (c + 1) * d].astype(np.int64)
+                 @ np.concatenate([W[:, a * d:(a + 1) * d] for a in range(c, -1, -1)], 1).T
+                 ).astype(object) * 2 ** (7 * (6 - c)) for c in range(p3.NW))
+    assert np.abs(exact).max() < 2 ** 63
+    np.testing.assert_array_equal(got.astype(object), exact)
 
 
 def test_words_plain_matches_truth_and_jax(words_inputs):
@@ -225,9 +256,23 @@ def test_words_plain_matches_truth_and_jax(words_inputs):
     assert np.abs(y - ref).max() <= 1e-7 * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("d, mmas", [(1, 7), (2, 7), (3, 7), (20, 21), (33, 35)])
+def test_words_layout_and_readings(d, mmas):
+    """Every class's K is (c + 1) d rounded up to the MMA's 32; the kernel's
+    m16n8k32 MMAs a 16 x 8 tile and its tensor-core time follow; the flops
+    bound counts 37 FP64 flops an entry at every d."""
+    KA, classes, KB = p3.layout(d)
+    assert KA == -(-7 * d // 32) * 32 and KB == sum(k for _, k in classes) == 32 * mmas
+    assert [off for off, _ in classes] == list(np.cumsum([0] + [k for _, k in classes])[:-1])
+    n = 53_248
+    assert p3.tensor_ms(n, d) == pytest.approx(n * n * KB / 989.5e12 * 1e3)
+    assert p3.words_bound(n, d) == (n * n * 37 / 33.5e12 * 1e3, "operations")
+    assert p3.fp64_issue_ms(n, 21, 1.98e9) == pytest.approx(n * n * 21 / (132 * 64 * 1.98e9) * 1e3)
+
+
 def test_words_checks():
-    u = np.random.default_rng(0).uniform(0, 10, (N, 3))
-    with pytest.raises(ValueError, match="d <= 2"):
+    u = np.random.default_rng(0).uniform(0, 10, (N, p3.D_MAX + 1))
+    with pytest.raises(ValueError, match=f"d <= {p3.D_MAX}"):
         p3.prepare(u, "cpu")
     ops = p3.prepare(u[:, :2], "cpu")
     with pytest.raises(TypeError):
@@ -244,12 +289,13 @@ def test_probe_mains_run_on_the_cpu(capsys):
     vpu_probe.main(["8", "--device", "cpu", "--modes", "scalar,bcast"])
     df64_ablate.main(["256", "--device", "cpu", "--variants", "d2,full"])
     p3.main(["256", "--device", "cpu"])
+    p3.main(["256", "--d", "20", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("checksum") == 2 * 2 * 4 + 3
     assert "GFLOP/s" not in out and " ms" not in out
-    assert "B3 rel err 0.00e+00" in out
-    err = float(out.split("words rel err ")[1].split(",")[0])
-    assert err <= 1e-11
+    assert out.count("B3 rel err 0.00e+00") == 2 and "n=256 d=20:" in out
+    for part in out.split("words rel err ")[1:]:
+        assert float(part.split(",")[0]) <= 1e-11
 
 
 def test_probe_runs_agree_on_the_cpu():
@@ -258,5 +304,6 @@ def test_probe_runs_agree_on_the_cpu():
     rows = {r["variant"]: r for r in df64_ablate.run(256, "cpu", ("full", "fullb", "d2"))}
     assert rows["full"]["checksum"] == rows["B3"]["checksum"] == rows["fullb"]["checksum"]
     assert rows["d2"]["ms"] is None and rows["full"]["bound_by"] == "operations"
-    r = p3.run(256, "cpu")
-    assert r["ms"] is None and r["b3_err"] == 0.0 and r["err"] <= 1e-11
+    for d in (2, 20):
+        r = p3.run(256, "cpu", d=d)
+        assert r["ms"] is None and r["b3_err"] == 0.0 and r["err"] <= 1e-11 and r["d"] == d
