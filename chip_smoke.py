@@ -116,7 +116,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
     sum|term||w|, d2exp32 1e-6, and again on coordinates shifted by 1e4,
     where a float32-distance control must fail that limit); P3 (one library
     per d) at d = 2 on that data and at d = 20 on gp-large-50k-d20's
-    pre-scaled [0, 1.5]^20: the class sums and S of one 32 x 16 tile
+    pre-scaled [0, 1.5]^20: the class sums and the parts of S of one 32 x 16 tile
     exactly (also on words of +-64), its matvec against its plain version
     (1e-13) and B3 (1e-11).
     Then each probe's own entry point, its launch count set to 0 before and
@@ -1678,7 +1678,8 @@ SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"), "fp32": ("FFMA", "FMUL", "FADD
                 "int": ("IADD3", "IMAD", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "IMNMX",
                         "IABS"),
                 "compare": ("DSETP", "FSETP"), "move": ("MOV", "UMOV", "CS2R", "S2R"),
-                "shared": ("LDS", "STS"), "shuffle": ("SHFL",), "tensor": ("IMMA", "HMMA", "DMMA"),
+                "shared": ("LDS", "STS"), "shuffle": ("SHFL",),
+                "tensor": ("IMMA", "HMMA", "DMMA", "IGMMA"),
                 "convert": ("I2F", "F2I", "F2F", "I2I"), "branch": ("BRA", "BSSY", "BSYNC"),
                 "local": ("LDL", "STL"), "call": ("CALL", "RET")}
 
@@ -1723,21 +1724,23 @@ def _hot_loop_mix(name, symbol, entries, defines=(), cls="fp64"):
 # P3's matvec kernel, sqexp_words_mma_kernel(const int8_t*, const int8_t*,
 # const double*, const float*, double, double*, int, int) in the file's
 # anonymous namespace (whose mangled name carries a tag of the file): its hot
-# loop takes two 32 x 16 sub-tiles a trip, 32 entries of each thread
-P3_SYMBOL, P3_ENTRIES = "22sqexp_words_mma_kernelEPKaS1_PKdPKfdPdii", 32
+# loop, the one that holds its MMAs, takes one 16 x 16 sub-tile of a warp a
+# trip, 8 entries of each thread
+P3_SYMBOL, P3_ENTRIES = "22sqexp_words_mma_kernelEPKaS1_PKdPKfdPdii", 8
 # (label, library, mangled-name fragment, entries per thread per trip of the
-# hot loop, defines): B3 and B4 at q = 8 at d = 2 (two trips unrolled, each
-# over the thread's rows), and the P2 and P3 kernels whose loops differ from B3's
+# hot loop, defines, the class of instruction that marks the hot loop): B3 and
+# B4 at q = 8 at d = 2 (two trips unrolled, each over the thread's rows), and
+# the P2 and P3 kernels whose loops differ from B3's
 HOT_LOOPS = (("B3", "sqexp_fused", f"sqexp_fused_kernelILi2ELi1ELi{df64.FUSED_RPT[1]}EE",
-              2 * df64.FUSED_RPT[1], ()),
+              2 * df64.FUSED_RPT[1], (), "fp64"),
              ("B4 q=8", "sqexp_fused", f"sqexp_fused_kernelILi2ELi8ELi{df64.FUSED_RPT[8]}EE",
-              2 * df64.FUSED_RPT[8], ()),
-             ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2, ()),
-             ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2, ()),
-             ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4, ()),
-             ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8, ()),
-             *((f"P3 d={d}", "sqexp_words_mma", P3_SYMBOL, P3_ENTRIES, words.kernel_variant(d))
-               for d in P3_D))
+              2 * df64.FUSED_RPT[8], (), "fp64"),
+             ("P2 d2", "sqexp_ablate", "sqexp_ablate_kernelILi0ELi1ELb0EE", 2, (), "fp64"),
+             ("P2 full", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb0EE", 2, (), "fp64"),
+             ("P2 fullb", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi1ELb1EE", 4, (), "fp64"),
+             ("P2 fulls4", "sqexp_ablate", "sqexp_ablate_kernelILi4ELi4ELb0EE", 8, (), "fp64"),
+             *((f"P3 d={d}", "sqexp_words_mma", P3_SYMBOL, P3_ENTRIES, words.kernel_variant(d),
+                "tensor") for d in P3_D))
 
 
 def _print_fused_local_memory():
@@ -1911,8 +1914,8 @@ def _print_hot_loops(n, clock_hz):
     not times: they stay out of the kernels JSON line. Returns the mixes by
     label (None where not read)."""
     mixes = {}
-    for label, lib, symbol, entries, defines in HOT_LOOPS:
-        mix = mixes[label] = _hot_loop_mix(lib, symbol, entries, defines)
+    for label, lib, symbol, entries, defines, cls in HOT_LOOPS:
+        mix = mixes[label] = _hot_loop_mix(lib, symbol, entries, defines, cls)
         if mix is None:
             print(f"[sass] {label}: hot loop not read (no cuobjdump or no loop found)")
             continue
@@ -2012,21 +2015,23 @@ def phase_probe_checks(n):
 
 
 def _p3_checks(n, d, uh, ul, us, v):
-    """Checks 12c and 12d of P3 at n and d: the class sums and S of one
-    32 x 16 tile exactly, on the data and on words of +-64; the matvec
+    """Checks 12c and 12d of P3 at n and d: the class sums and the parts of
+    S of one 32 x 16 tile exactly, on the data and on words of +-64; the matvec
     within DF64_TOL of sum|E||v| of its plain version and 1e-11 of B3.
     Returns the max abs error against the plain version."""
     ops = words.prepare(us.cpu().numpy(), CUDA)
     W = np.random.default_rng(d).choice([-64, 64], (32, words.NW * d))
     big = dict(ops, **{k: torch.as_tensor(a, device=CUDA)
                        for k, a in zip(("rows", "cols"), words._operands(W, d))})
-    differ = 0
+    differ, values = 0, 0
     for o in (ops, big):
         for got, ref in zip(words._launch_tile(o), words._tile_reference(o)):
             differ += int((got != ref).sum())
+            values += ref.numel()
     torch.cuda.synchronize()
-    print(f"[check 12c] P3 d={d}: one 32 x 16 tile of the 7 class sums and S, on the data and on "
-          f"words of +-64: {differ} of {2 * (words.NW + 1) * 512} differ (exact expected)")
+    print(f"[check 12c] P3 d={d}: one 32 x 16 tile of the 7 class sums and the {len(words.parts(d))} "
+          f"parts of S, on the data and on words of +-64: {differ} of {values} differ (exact "
+          f"expected)")
     if differ:
         raise RuntimeError(f"check 12c: P3's fragments or fold are wrong at d={d}")
     got = words.words_matvec(ops, v)

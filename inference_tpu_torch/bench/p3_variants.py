@@ -1,5 +1,6 @@
-# One-off: builds the P3 variants (P3_* defines of ops/csrc/sqexp_words_mma.cu), checks each
-# against the plain version and times each beside B3 at n = 53,248, d = 2 and 20, on the card:
+# One-off: builds the P3 variants (P3_* defines of ops/csrc/sqexp_words_mma.cu), prints each
+# one's registers, spills and hot-loop instruction mix, checks each against the plain version and
+# times each in two turns beside B3 at n = 53,248, d = 2 and 20, on the card:
 #     python3 inference_tpu_torch/bench/p3_variants.py
 import sys, time, subprocess, traceback, re, collections
 sys.path.insert(0, '.')
@@ -7,9 +8,11 @@ import torch
 from concurrent.futures import ThreadPoolExecutor
 from inference_tpu_torch.ops import _build, df64
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as p3, time_events
-E1 = ("P3_EXP", 1)
-VAR = {2: [(), (E1,), (E1, ("P3_MT", 1)), (E1, ("P3_WGMMA", 1)), (("P3_WGMMA", 1),), (E1, ("P3_ABLATE", 1)), (E1, ("P3_ABLATE", 2))],
-       20: [(), (E1,), (E1, ("P3_MT", 1)), (E1, ("P3_WGMMA", 1)), (("P3_WGMMA", 1),), (E1, ("P3_ABLATE", 2)), (E1, ("P3_WGMMA", 1), ("P3_ABLATE", 1))]}
+# the shipped kernel first, then one switch changed at a time, then the ablations
+V = lambda *kv: tuple(zip(kv[::2], kv[1::2]))
+COMMON = [(), V("P3_MINB", 1), V("P3_EXP", 0), V("P3_EXP", 1), V("P3_EXP", 2),
+          V("P3_WARPS", 8, "P3_MINB", 4), V("P3_ABLATE", 1), V("P3_ABLATE", 2), V("P3_ABLATE", 3)]
+VAR = {2: COMMON, 20: COMMON + [V("P3_AREG", 0)]}
 libs = [p3.kernel_variant(d, **dict(v)) for d in VAR for v in VAR[d]]
 def b(v):
     try:
@@ -20,12 +23,14 @@ with ThreadPoolExecutor(len(libs) + 1) as pool:
     f = pool.submit(_build.load, "sqexp_fused", ())
     errs = list(pool.map(b, libs)); f.result()
 def mix(sass):
+    """The smallest loop with at least 4 FP64 instructions (chip_smoke's _hot_loop)."""
     body = sass.split("22sqexp_words_mma_kernelEPKaS1_PKdPKfdPdii")[1].split("Function :")[0]
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
     where = {a: k for k, (a, _, _) in enumerate(ins)}
     lps = [(where[int(t.group(1), 16)], k) for k, (a, op, rest) in enumerate(ins) if op == "BRA"
            for t in [re.search(r"0x([0-9a-f]+)", rest)] if t and int(t.group(1), 16) < a and int(t.group(1), 16) in where]
-    a, b = max(lps, key=lambda x: x[1] - x[0])
+    lps = [(a, b) for a, b in lps if sum(op in ("DFMA", "DADD", "DMUL") for _, op, _ in ins[a:b + 1]) >= 4]
+    a, b = min(lps, key=lambda x: x[1] - x[0])
     return b - a + 1, collections.Counter(op for _, op, _ in ins[a:b + 1])
 bad = set()
 for v, e in zip(libs, errs):

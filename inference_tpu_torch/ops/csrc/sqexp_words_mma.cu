@@ -24,36 +24,44 @@
 //
 // The cross term. Every C_c is a sum of m16n8k32 mma.sync instructions of
 // int8 operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31), written by hand in
-// PTX: 7 MMAs a 16 x 8 tile at d = 2, 21 at d = 20. The class sums are folded
-// into S as each class ends: classes 0 and 1 into the high word in 32 bits,
-// classes 2-6 by one mad.wide.s32 each; |S| < 2^63 for d <= 256, the limit.
-// One conversion to double (to nearest, as the plain version's .double()) and
-// one fma give the FP64 argument m_i + m_j + S 2^shift, rounded once as the
-// plain version rounds it; CUDA's double exp and an fma accumulate with v
-// widened to double follow, as in B3.
+// PTX: 7 MMAs a 16 x 8 tile at d = 2, 21 at d = 20. S needs up to 63 bits,
+// and a 64-bit integer fold costs ~13 integer instructions an entry, so S
+// never forms: runs of classes whose partial sums fit int32 ("parts",
+// part_fits: three at d = 2 and 20, four at d = 256) are combined in 32 bits
+// as they leave the MMAs, each part is converted to double and added by one
+// fma into the argument, the largest first, where m_i + m_j and the cross
+// term cancel exactly inside the fma:
+//   t = m_i + m_j;  t = fma(P_k, 2^(shift + 7 (6 - b_k)), t) for each part.
+// The argument rounds at each part (the plain version rounds S once), a few
+// units of its last place, 1e-16 to 1e-15 of sum_j |E_ij| |v_j| on the card.
+// A shorter exp for the argument, always <= 0 (exp_nonpos, a table of 8 and
+// a degree-7 polynomial, 12 FP64 instructions against CUDA's 18, within 2e-16
+// of it) and an fma accumulate with v widened to double follow.
 //
-// What bounds it. Per entry 21 FP64 instructions (the add of the norms, the
-// fma of the argument, the exp's 18, the accumulate), 3.6 ms at n = 53,248 on
-// the 132 SMs' FP64 lanes; beside them on other pipes the integer fold (7
-// instructions), the conversion and the MMAs: 224 int8 MACs an entry at
-// d = 2, 672 at d = 20 (1.9 ms at the dense int8 rate). The FP64 pipe and
-// the issue slots are the limits; the design keeps everything else off them.
+// What bounds it. Per entry 17 FP64 instructions (the add of the norms, three
+// part fmas, the exp's 12, the accumulate), 2.9 ms at n = 53,248 on the 132
+// SMs' FP64 lanes at 1.98 GHz; beside them on other pipes the parts' 4
+// integer combines and 3 conversions, the exp's 6 integer instructions and
+// table load, and the MMAs: 224 int8 MACs an entry at d = 2, 672 at d = 20
+// (0.6 and 1.9 ms at the dense int8 rate, which mma.sync reaches only in
+// part). The FP64 pipe, the issue slots and at d = 20 the tensor pipe are
+// the limits.
 //
-// The design. A block owns BM rows (one warp per 32 of them), their words
-// resident in shared memory, and walks its split of the columns in tiles of
-// TJ through a cp.async ring of STAGES buffers (the class words, the norms
-// and v of the tile). A warp takes the tile in sub-tiles of 32 rows x 16
-// columns: four m16n8 accumulators per class, so each B fragment feeds two
-// MMAs and each A fragment two; fragments come by ldmatrix from rows padded to
-// an odd multiple of 16 bytes (no bank conflicts), or, when the row words are
-// short (KA <= 160, d <= 22), A stays in registers for the whole walk. The
-// thread's 16 entries of a sub-tile hold their converted S, and its 4
-// columns' norms and v, in registers; the loop body computes the class sums of
-// sub-tile k and the exps of sub-tile k - 1, so the MMAs and the integer fold
-// issue under the FP64 work. BM, TJ and STAGES follow from d to fit the
-// 227 KB of shared memory (choose_plan); the column range is split over
-// blockIdx.y so that the blocks fill the SMs in whole waves
-// (sqexp_words_mma_plan). The splits' sums are added by the wrapper.
+// The design. A block of up to 16 warps owns BM rows, 16 a warp (one m16
+// tile, its A fragments in registers for short rows, KA <= 160, d <= 22, else
+// read by ldmatrix), their words resident in shared memory, and walks its
+// split of the columns in tiles of TJ through a cp.async ring of STAGES
+// buffers (the class words as 8-column core matrices that ldmatrix reads
+// without conflicts, the norms and v). A warp takes a tile in 16 x 16
+// sub-tiles (8 entries a thread): each class's MMAs, the parts, the FP64
+// work. Registers stay at 128 so that 16 warps share the SM and hide each
+// other's latencies; an earlier design with 32 x 16 sub-tiles, the MMAs of
+// one beside the exps of the previous and a 64-bit fold held 176-255
+// registers and 8 warps and ran at 2-2.3x the instruction count's time
+// (PERF.md). BM, TJ and STAGES follow from d to fit the 227 KB of shared
+// memory (choose_plan); the column range is split over blockIdx.y so that
+// the blocks fill the SMs in whole waves (sqexp_words_mma_plan). The splits'
+// sums are added by the wrapper.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,8 +76,8 @@ namespace {
 
 constexpr int NW = 7;         // words per coordinate (df64_mxu_d2_experiment.py NW)
 constexpr int D = P3_D;       // coordinate dimension of this library
-constexpr int KS = 32;        // bytes of one MMA K step (m16n8k32 and m64nNk32, int8)
-constexpr int D_MAX = 256;    // |S| < 2^63 up to here
+constexpr int KS = 16;        // bytes of a K chunk: each class's K is a multiple
+constexpr int D_MAX = 256;    // every part of S fits int32 up to here (see part_fits)
 static_assert(D >= 1 && D <= D_MAX, "P3_D must lie in [1, 256]");
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -83,85 +91,135 @@ __host__ __device__ constexpr int class_off(int c) {
   return off;
 }
 constexpr int KB = class_off(NW);  // bytes of a column's words
-constexpr int SA = KA + 16;  // shared pitch of a row's words: an odd multiple of 16 bytes
+constexpr int SA = round_up(KA, 32) + 16;  // a row's shared pitch: an odd multiple of 16 bytes
 // A stage's column words in shared memory: for each 8 columns, KB / 16 core
-// matrices of 8 columns x 16 bytes (128 contiguous bytes) along k, as wgmma
-// reads them (K-major, no swizzle) and ldmatrix reads them without conflicts
+// matrices of 8 columns x 16 bytes (128 contiguous bytes) along k, which
+// ldmatrix reads without bank conflicts
 constexpr int BGROUP = 8 * KB;  // bytes of 8 columns' words
 __host__ __device__ constexpr int b_at(int col, int kbyte) {  // kbyte a multiple of 16
   return (col >> 3) * BGROUP + (kbyte >> 4) * 128 + (col & 7) * 16;
 }
 
-// Variants, each measured on the H100 (PERF.md): A's fragments in registers
-// (where a row's words are short), wgmma for the class sums, the short exp,
-// the m16 tiles of a warp's sub-tile, the class sums of sub-tile k beside the
-// exps of k - 1; P3_ABLATE (timing only) drops the exp (1), the MMAs (2) or
-// the conversion (3)
+// The parts of S = sum_c C_c 2^(7 (6 - c)): runs of consecutive classes a..b
+// whose P = sum_{c=a..b} C_c 2^(7 (b - c)) fits int32 for words of +-64
+// (|C_c| <= (c + 1) d 2^12), taken greedily from class 0. Three parts at
+// d = 2 and 20 (classes 0-2, 3-5, 6 and 0-2, 3-4, 5-6), four at d = 256.
+constexpr bool part_fits(int a, int b) {
+  double bound = 0.0;
+  for (int c = a; c <= b; ++c) {
+    double w = (c + 1.0) * D * 4096.0;
+    for (int k = c; k < b; ++k) w *= 128.0;
+    bound += w;
+  }
+  return bound < 2147483648.0;
+}
+constexpr int part_ends() {  // bit c set: class c ends a part
+  int mask = 0;
+  for (int a = 0; a < NW;) {
+    int b = a;
+    while (b + 1 < NW && part_fits(a, b + 1)) ++b;
+    mask |= 1 << b;
+    a = b + 1;
+  }
+  return mask;
+}
+constexpr int PART_ENDS = part_ends();
+__host__ __device__ constexpr bool part_last(int c) { return (PART_ENDS >> c) & 1; }
+__host__ __device__ constexpr bool part_first(int c) { return c == 0 || part_last(c - 1); }
+__host__ __device__ constexpr int n_parts() {
+  int n = 0;
+  for (int c = 0; c < NW; ++c) n += part_last(c);
+  return n;
+}
+static_assert(part_fits(0, 0) && part_fits(NW - 1, NW - 1), "a class alone must fit int32");
+
+// Variants, measured on the H100 (PERF.md): A's fragments in registers where
+// a row's words are short, the short exp
 #ifndef P3_AREG
 #define P3_AREG (KA <= 160)
 #endif
-#ifndef P3_WGMMA
-#define P3_WGMMA 0
-#endif
 #ifndef P3_EXP
-#define P3_EXP 0
-#endif
-#ifndef P3_MT
-#define P3_MT (P3_WGMMA ? 1 : 2)
-#endif
-#ifndef P3_PIPE
-#define P3_PIPE 1
+#define P3_EXP 3
 #endif
 #ifndef P3_ABLATE
 #define P3_ABLATE 0
 #endif
+#ifndef P3_WARPS
+#define P3_WARPS 16
+#endif
+#ifndef P3_MINB
+#define P3_MINB 2
+#endif
 constexpr bool AREG = P3_AREG;
-constexpr bool SHORT_EXP = P3_EXP;  // exp_nonpos (12 FP64 instructions) for CUDA's exp (18)
-constexpr int MT = P3_MT;           // m16 tiles of a warp's sub-tile: 16 MT rows x 16 columns
-constexpr int E = 8 * MT;           // the thread's entries of a sub-tile
-constexpr bool PIPE = P3_PIPE;
+// exp_nonpos for CUDA's exp (18 FP64 instructions): 1 a table of 8 and a
+// degree-7 polynomial (12), 2 a table of 32 and a degree-5 polynomial (10)
+constexpr int SHORT_EXP = P3_EXP;
+// timing only: 1 no exp, 2 no MMA, 3 no conversion (the parts' bits as doubles)
 constexpr int ABLATE = P3_ABLATE;
-static_assert(MT == 1 || MT == 2, "P3_MT is 1 or 2");
+constexpr int WARPS = P3_WARPS;  // warps of a block at most: 16 x 16 rows
+constexpr int MINB_ASKED = P3_MINB;  // blocks an SM that registers and shared memory leave room for
 
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory of one block on the H100
+// dynamic shared memory of one block on the H100 when `blocks` share an SM
+// (228 KB an SM, 1 KB of it reserved for each block)
+__host__ __device__ constexpr int smem_max(int blocks) { return (233472 - 1024 * blocks) / blocks; }
 // a stage of tj columns: their words, norms and v
 __host__ __device__ constexpr int stage_bytes(int tj) { return tj * (KB + 8 + 4); }
 
 struct Plan { int bm, tj, stages; };
-// eight warps of 16 MT rows (fewest column re-reads), else fewer; then the
-// widest tile and the deepest ring that fit the shared memory
-constexpr Plan choose_plan() {
+// the most rows a block (sixteen warps of 16: fewest column re-reads), then
+// the widest tile and the deepest ring that fit the shared memory of one of
+// `blocks` blocks an SM
+constexpr Plan choose_plan(int blocks) {
   const int tjs[7] = {64, 64, 32, 32, 16, 32, 16};
   const int sts[7] = {3, 2, 3, 2, 2, 1, 1};
-  for (int b = 0; b < 4; ++b)
-    for (int i = 0; i < 7; ++i) {
-      const int bm = 16 * MT * (8 >> b);
-      if (bm * SA + sts[i] * stage_bytes(tjs[i]) + 64 <= SMEM_MAX) return {bm, tjs[i], sts[i]};
-    }
+  for (int bm = 16 * WARPS; bm >= 16; bm /= 2)
+    for (int i = 0; i < 7; ++i)
+      if (bm * SA + sts[i] * stage_bytes(tjs[i]) + 512 <= smem_max(blocks))
+        return {bm, tjs[i], sts[i]};
   return {0, 0, 0};
 }
-constexpr Plan PLAN = choose_plan();
+// the blocks an SM asked for where a plan fits them, else one
+constexpr int MINB = choose_plan(MINB_ASKED).bm > 0 ? MINB_ASKED : 1;
+constexpr Plan PLAN = choose_plan(MINB);
 constexpr int BM = PLAN.bm, TJ = PLAN.tj, STAGES = PLAN.stages;
 static_assert(BM > 0, "no plan fits the shared memory");
-constexpr int WARPS_M = BM / (16 * MT);
-constexpr int WARPS_N = 8 / WARPS_M < TJ / 16 ? 8 / WARPS_M : TJ / 16;
+constexpr int WARPS_M = BM / 16;  // one m16 tile of rows a warp
+constexpr int WARPS_N = WARPS / WARPS_M < TJ / 16 ? WARPS / WARPS_M : TJ / 16;
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
-constexpr int NSUB = TJ / 16 / WARPS_N;  // sub-tiles of a warp in one stage
-constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 64;  // + exp_nonpos's table
+constexpr int NSUB = TJ / 16 / WARPS_N;  // 16-column sub-tiles of a warp in one stage
+constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 512;  // + exp_nonpos's table
 static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
-// wgmma where a warpgroup's four warps hold 64 consecutive rows that share
-// their columns, with A in registers; mma.sync otherwise
-constexpr bool WG = P3_WGMMA && MT == 1 && AREG && WARPS_M % 4 == 0;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-// the fold's multipliers 2^28, 2^21, 2^14, 2^7, 1 as operands ptxas cannot
-// see: a known power of two turns each one-instruction mad.wide into a
-// shift, a high part and a carried add
-__constant__ int FOLD_M[5] = {1 << 28, 1 << 21, 1 << 14, 1 << 7, 1};
-__constant__ double EXP2_EIGHTHS[8] = {1.0, 1.0905077326652577, 1.189207115002721,
-                                       1.2968395546510096, 1.4142135623730951,
-                                       1.5422108254079407, 1.681792830507429,
-                                       1.8340080864093424};  // 2^(i / 8), rounded
+constexpr int TB = SHORT_EXP == 3 ? 6 : SHORT_EXP == 2 ? 5 : 3;  // exp_nonpos's table: 2^TB entries
+__constant__ double EXP2_64[64] = {
+    1.0, 1.0108892860517005, 1.0218971486541166, 1.0330248790212284, 1.0442737824274138,
+     1.0556451783605572, 1.0671404006768237, 1.0787607977571199, 1.0905077326652577,
+     1.102382583307841, 1.1143867425958924, 1.1265216186082418, 1.1387886347566916,
+     1.1511892299529827, 1.1637248587775775, 1.1763969916502812, 1.189207115002721,
+     1.202156731452703, 1.215247359980469, 1.22848053610687, 1.241857812073484,
+     1.255380757024691, 1.2690509571917332, 1.2828700160787783, 1.2968395546510096,
+     1.3109612115247644, 1.3252366431597413, 1.339667524053303, 1.3542555469368927,
+     1.3690024229745905, 1.383909881963832, 1.3989796725383112, 1.4142135623730951,
+     1.42961333839197, 1.4451808069770467, 1.460917794180647, 1.4768261459394993,
+     1.4929077282912648, 1.5091644275934228, 1.5255981507445384, 1.5422108254079407,
+     1.559004400237837, 1.5759808451078865, 1.593142151342267, 1.6104903319492543,
+     1.6280274218573478, 1.645755478153965, 1.6636765803267364, 1.681792830507429,
+     1.7001063537185235, 1.718619298122478, 1.7373338352737062, 1.7562521603732995,
+     1.7753764925265212, 1.7947090750031072, 1.8142521755003989, 1.8340080864093424,
+     1.8539791250833855, 1.8741676341103, 1.8945759815869656, 1.9152065613971474,
+     1.9360617934922943, 1.9571441241754002, 1.978456026387951};  // 2^(i / 64), rounded
+__constant__ double EXP2_TABLE[2][32] = {
+    {1.0, 1.0905077326652577, 1.189207115002721, 1.2968395546510096, 1.4142135623730951,
+     1.5422108254079407, 1.681792830507429, 1.8340080864093424},  // 2^(i / 8), rounded
+    {1.0, 1.0218971486541166, 1.0442737824274138, 1.0671404006768237, 1.0905077326652577,
+     1.1143867425958924, 1.1387886347566916, 1.1637248587775775, 1.189207115002721,
+     1.215247359980469, 1.241857812073484, 1.2690509571917332, 1.2968395546510096,
+     1.3252366431597413, 1.3542555469368927, 1.383909881963832, 1.4142135623730951,
+     1.4451808069770467, 1.4768261459394993, 1.5091644275934228, 1.5422108254079407,
+     1.5759808451078865, 1.6104903319492543, 1.645755478153965, 1.681792830507429,
+     1.718619298122478, 1.7562521603732995, 1.7947090750031072, 1.8340080864093424,
+     1.8741676341103, 1.9152065613971474, 1.9571441241754002}};  // 2^(i / 32), rounded
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -183,6 +241,13 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], unsigned addr) {
                : "r"(addr));
 }
 
+// two 8 x 16-byte matrices, from lanes 0-7 and 8-15
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 // D (16 x 8, int32) += A (16 x 32, int8, row) . B (32 x 8, int8, col). Lane
 // 4 g + t holds A[g][4t..], A[g + 8][4t..], A[g][16 + 4t..], A[g + 8][16 + 4t..]
 // in a, B[4t..][g], B[16 + 4t..][g] in b0, b1, and D[g][2t], D[g][2t + 1],
@@ -194,53 +259,12 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// the wgmma descriptor of B at shared address addr: K-major, no swizzle, core
-// matrices 128 bytes apart along k and BGROUP apart along n
-__device__ __forceinline__ uint64_t b_desc(unsigned addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(128 >> 4) << 16 |
-         (uint64_t)(BGROUP >> 4) << 32;
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// the warp's 16 rows of D (64 x 16, int32) = (scale_d ? D : 0) + A (64 x 32,
-// int8, the warp's rows in registers as mma_s8's) . B (16 columns x 32 bytes
-// at desc); d[4 nt + e] as mma_s8's D of n8 tile nt
-__device__ __forceinline__ void wgmma_s8(int (&d)[8], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
-}
-// pin registers in place: the async MMA's results are read after the wait,
-// and the FP64 work meant to run under the MMAs stays before it
-template <int N>
-__device__ __forceinline__ void reg_fence(int (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(double (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+d"(r[i])::"memory");
-}
-
-// a * b + c, 32 x 32 -> 64 bits in one instruction
-__device__ __forceinline__ long long mad_wide(int a, int b, long long c) {
-  long long d;
-  asm("mad.wide.s32 %0, %1, %2, %3;\n" : "=l"(d) : "r"(a), "r"(b), "l"(c));
-  return d;
+// the same with K = 16: a0, a1 and b0 as above
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // e^x for x <= 0: x = j ln2 / 8 + r with j = rint(8 x / ln2), |r| <= ln2 / 16,
@@ -248,177 +272,199 @@ __device__ __forceinline__ long long mad_wide(int a, int b, long long c) {
 // Chebyshev fit of e^r (max relative error 2.2e-16 with its rounding); below
 // -708 x is taken as -708 (e^-708 = 3.3e-308) by the high word of the negative
 // double, which grows with its magnitude. 12 FP64 instructions.
-__device__ __forceinline__ double exp_nonpos(double x, const double* t8) {
+__device__ __forceinline__ double exp_nonpos(double x, const double* tab) {
   constexpr double SHIFTER = 6755399441055744.0;  // 1.5 2^52: kf - SHIFTER = rint
   x = __hiloint2double((int)min((unsigned)__double2hiint(x), 0xC0862000u), __double2loint(x));
-  const double kf = fma(x, 11.541560327111707, SHIFTER);
-  const double jf = kf - SHIFTER;
-  double r = fma(jf, -0.08664339756999316, x);
-  r = fma(jf, -2.8988085173078744e-18, r);
-  double p = 0.0001984230424030784;
-  p = fma(p, r, 0.0013889819852876434);
-  p = fma(p, r, 0.008333333321199942);
-  p = fma(p, r, 0.04166666655746539);
-  p = fma(p, r, 0.1666666666666712);
-  p = fma(p, r, 0.500000000000041);
+  double kf, jf, r, p;
+  if constexpr (TB == 6) {
+    kf = fma(x, 92.33248261689366, SHIFTER);
+    jf = kf - SHIFTER;
+    r = fma(jf, -0.010830424696249145, x);
+    r = fma(jf, -3.623510646634843e-19, r);
+    p = 0.041666717577326616;
+    p = fma(p, r, 0.16666697213067969);
+    p = fma(p, r, 0.49999999999962674);
+    p = fma(p, r, 0.9999999999977606);
+    p = fma(p, r, 1.0);
+    const int j = __double2loint(kf);
+    const double y = p * tab[j & 63];
+    return __hiloint2double(__double2hiint(y) + ((j >> 6) << 20), __double2loint(y));
+  } else if constexpr (TB == 3) {
+    kf = fma(x, 11.541560327111707, SHIFTER);
+    jf = kf - SHIFTER;
+    r = fma(jf, -0.08664339756999316, x);
+    r = fma(jf, -2.8988085173078744e-18, r);
+    p = 0.0001984230424030784;
+    p = fma(p, r, 0.0013889819852876434);
+    p = fma(p, r, 0.008333333321199942);
+    p = fma(p, r, 0.04166666655746539);
+    p = fma(p, r, 0.1666666666666712);
+    p = fma(p, r, 0.500000000000041);
+  } else {
+    kf = fma(x, 46.16624130844683, SHIFTER);
+    jf = kf - SHIFTER;
+    r = fma(jf, -0.02166084939249829, x);
+    r = fma(jf, -7.247021293269686e-19, r);
+    p = 0.008333368243545858;
+    p = fma(p, r, 0.04166691103828231);
+    p = fma(p, r, 0.16666666666513108);
+    p = fma(p, r, 0.4999999999892509);
+  }
   p = fma(p, r, 1.0);
   p = fma(p, r, 1.0);
   const int j = __double2loint(kf);
-  const double y = p * t8[j & 7];
-  return __hiloint2double(__double2hiint(y) + ((j >> 3) << 20), __double2loint(y));
+  const double y = p * tab[j & ((1 << TB) - 1)];
+  return __hiloint2double(__double2hiint(y) + ((j >> TB) << 20), __double2loint(y));
 }
 
-using AFrags = uint32_t[KA / KS][MT][4];  // the warp's A fragments: k step, m16 tile
+using AFrags = uint32_t[KA / KS][2];  // the warp's A fragments, 16 bytes of k at a time
 
-// the thread's ldmatrix row of A (an m16 tile from row r16, k step 0) and of
-// B (columns col0.., class 0, k step 0; k moves 8 bytes of shared memory per
-// byte), matching mma_s8's fragments
+// the thread's ldmatrix row of A (the warp's m16 tile from row r16, k step 0)
+// and of B (columns col0.., class 0, k step 0; k moves 8 bytes of shared
+// memory per byte), matching mma_s8's fragments
 __device__ __forceinline__ unsigned a_lane_addr(const int8_t* sa, int r16, int lane) {
   return smem_addr(sa + (r16 + (lane & 7) + ((lane >> 3) & 1) * 8) * SA + (lane >> 4) * 16);
 }
 __device__ __forceinline__ unsigned b_lane_addr(const int8_t* sb, int col0, int lane) {
   return smem_addr(sb + b_at(col0 + (lane & 7) + (lane >> 4) * 8, ((lane >> 3) & 1) * 16));
 }
-
-__device__ __forceinline__ void load_a(AFrags& a, const unsigned (&a_addr)[MT]) {
-#pragma unroll
-  for (int ks = 0; ks < KA / KS; ++ks)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) ldsm_x4(a[ks][mt], a_addr[mt] + ks * KS);
+// B's row for a K = 16 step (ldsm_x2: columns col0.. and col0 + 8..)
+__device__ __forceinline__ unsigned b_lane_addr16(const int8_t* sb, int col0, int lane) {
+  return smem_addr(sb + b_at(col0 + (lane & 15), 0));
 }
 
-// S += class c's sums C (the thread's E entries), exactly: classes 0 and 1
-// into the high word in 32 bits, the rest by one mad.wide each
-__device__ __forceinline__ void fold(int c, const int (&C)[2 * MT][4], int (&hi)[E],
-                                     long long (&S)[E]) {
+// the warp's A fragments, 16 bytes of k at a time: a pair by ldsm_x4, an odd
+// last one by ldsm_x2
+__device__ __forceinline__ void load_a(AFrags& a, unsigned a_addr) {
 #pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const int x = C[i >> 2][i & 3];
-    if (c == 0) hi[i] = x * 128;                    // C_0 2^42 = (C_0 2^10) 2^32
-    else if (c == 1) hi[i] = (hi[i] + x) * 8;       // + C_1 2^35
-    else if (c == 2) S[i] = mad_wide(x, FOLD_M[0], (long long)hi[i] * 4294967296LL);
-    else S[i] = mad_wide(x, FOLD_M[c - 2], S[i]);
+  for (int k = 0; k < KA / KS; k += 2) {
+    if (k + 1 < KA / KS) {
+      uint32_t r[4];
+      ldsm_x4(r, a_addr + k * KS);
+      a[k][0] = r[0];
+      a[k][1] = r[1];
+      a[k + 1][0] = r[2];
+      a[k + 1][1] = r[3];
+    } else {
+      ldsm_x2(a[k], a_addr + k * KS);
+    }
   }
 }
 
-// S of the thread's E entries of a 16 MT x 16 sub-tile, entry (m16 tile mt,
-// n8 tile nt, fragment slot e) at i = (2 mt + nt) 4 + e. epi(c), c = 0..6,
-// is the FP64 work of the previous sub-tile in sevenths, issued while the
-// MMAs run; sink(c, C) sees each class's sums (the tile check's window).
-template <bool USE_WG, class Epi, class Sink>
-__device__ __forceinline__ void sub_tile_sums(long long (&S)[E], const AFrags& areg,
-                                              const unsigned (&a_addr)[MT], unsigned b_addr,
+// The thread's 8 entries of a 16 x 16 sub-tile: entry i = 4 nt + e (n8 tile
+// nt, fragment slot e) in row slot e / 2 (rows g, g + 8) and column slot
+// 2 nt + e % 2. Each class's MMAs; P of each part, then t += P 2^(7 (6 - b))
+// scale in FP64 in the part's order (the largest first, where the norms
+// cancel exactly inside the fma); sink(c, C, P) sees the sums (the tile
+// check's window).
+template <class Epi, class Sink>
+__device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg, unsigned a_addr,
+                                              unsigned b_addr, unsigned b16_addr, double scale,
                                               Epi epi, Sink sink) {
-  int hi[E];
-  if constexpr (USE_WG) {
-    // every class's MMAs in flight at once, one wait
-    int W[NW][8];
-    const uint64_t desc = b_desc(b_addr);  // k steps add to its start-address field
-    wgmma_fence();
+  int P[8];
 #pragma unroll
-    for (int c = 0; c < NW; ++c)
+  for (int c = 0; c < NW; ++c) {
+    int C[2][4] = {};
+    // class c's K in chunks of 16: m16n8k32 for each pair, m16n8k16 for an odd last
 #pragma unroll
-      for (int ks = 0; ks < class_k(c) / KS; ++ks)
-        wgmma_s8(W[c], areg[ks][0], desc + (uint64_t)((class_off(c) + ks * KS) * 8 >> 4),
-                 ks > 0);
-    wgmma_commit();
-#pragma unroll
-    for (int c = 0; c < NW; ++c) epi(c);
-    wgmma_wait();
-#pragma unroll
-    for (int c = 0; c < NW; ++c) {
-      reg_fence(W[c]);
-      int C[2 * MT][4];
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) C[q][e] = W[c][4 * q + e];
-      sink(c, C);
-      fold(c, C, hi, S);
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < NW; ++c) {
-      int C[2 * MT][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < class_k(c) / KS; ++ks) {
-        uint32_t a[MT][4], b[4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if constexpr (AREG) {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) a[mt][q] = areg[ks][mt][q];
-          } else {
-            ldsm_x4(a[mt], a_addr[mt] + ks * KS);
-          }
+    for (int k = 0; k < class_k(c) / KS; k += 2) {
+      const unsigned kb = (class_off(c) + k * KS) * 8;  // shared bytes of k
+      if (k + 1 < class_k(c) / KS) {
+        uint32_t a[4], b[4];
+        if constexpr (AREG) {
+          a[0] = areg[k][0];
+          a[1] = areg[k][1];
+          a[2] = areg[k + 1][0];
+          a[3] = areg[k + 1][1];
+        } else {
+          ldsm_x4(a, a_addr + k * KS);
         }
         if constexpr (ABLATE == 2) {
 #pragma unroll
-          for (int q = 0; q < 2 * MT; ++q)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) C[q][e] += (int)(b_addr >> (q + e)) + (int)a[q >> 1][e];
+          for (int e = 0; e < 4; ++e) {
+            C[0][e] += (int)a[e] ^ (int)b_addr;
+            C[1][e] += (int)a[e] + (int)b_addr;
+          }
           continue;
         }
-        ldsm_x4(b, b_addr + (class_off(c) + ks * KS) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_s8(C[2 * mt], a[mt], b[0], b[1]);
-          mma_s8(C[2 * mt + 1], a[mt], b[2], b[3]);
+        ldsm_x4(b, b_addr + kb);
+        mma_s8(C[0], a, b[0], b[1]);
+        mma_s8(C[1], a, b[2], b[3]);
+      } else {
+        uint32_t a[2], b[2];
+        if constexpr (AREG) {
+          a[0] = areg[k][0];
+          a[1] = areg[k][1];
+        } else {
+          ldsm_x2(a, a_addr + k * KS);
         }
+        if constexpr (ABLATE == 2) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            C[0][e] += (int)a[e & 1] ^ (int)b_addr;
+            C[1][e] += (int)a[e & 1] + (int)b_addr;
+          }
+          continue;
+        }
+        ldsm_x2(b, b16_addr + kb);
+        mma_s8_k16(C[0], a[0], a[1], b[0]);
+        mma_s8_k16(C[1], a[0], a[1], b[1]);
       }
-      epi(c);
-      sink(c, C);
-      fold(c, C, hi, S);
     }
+    epi(c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int x = C[i >> 2][i & 3];
+      P[i] = part_first(c) ? x : P[i] * 128 + x;
+      if (part_last(c))
+        t[i] = fma(ABLATE == 3 ? __hiloint2double(P[i], 0) : (double)P[i],
+                   scale * (double)(1LL << (7 * (NW - 1 - c))), t[i]);
+    }
+    sink(c, C, P);
   }
 }
 
-struct SubTile {
-  double sd[E];  // S of each entry, converted
-  double cn[4];  // the norms of the thread's 4 columns
-  double cv[4];  // and their v
+// a sub-tile's arguments and its columns' v, between its MMAs and its exps
+struct Args {
+  double t[8];
+  double cv[4];
 };
 
-// the MMA half of a sub-tile at column col0 of a stage, with epi's FP64 work
-template <class Epi>
-__device__ __forceinline__ void sums_of(SubTile& st, const AFrags& areg,
-                                        const unsigned (&a_addr)[MT], const int8_t* sb,
-                                        const double* sn, const float* sv, int col0, int lane,
-                                        Epi epi) {
-  long long S[E];
-  sub_tile_sums<WG>(S, areg, a_addr,
-                    WG ? smem_addr(sb + b_at(col0, 0)) : b_lane_addr(sb, col0, lane), epi,
-                    [](int, const int (&)[2 * MT][4]) {});
+// the exps of entries lo..hi - 1 of a sub-tile into the thread's 2 row sums
+__device__ __forceinline__ void accumulate(double (&acc)[2], const Args& s, const double* t8,
+                                           int lo = 0, int hi = 8) {
 #pragma unroll
-  for (int i = 0; i < E; ++i)
-    st.sd[i] = ABLATE == 3 ? __longlong_as_double(S[i]) : (double)S[i];
+  for (int i = lo; i < hi; ++i) {
+    const double e = ABLATE == 1 ? s.t[i] : SHORT_EXP ? exp_nonpos(s.t[i], t8) : exp(s.t[i]);
+    acc[(i & 3) >> 1] = fma(e, s.cv[2 * (i >> 2) + (i & 1)], acc[(i & 3) >> 1]);
+  }
+}
+
+// the arguments of the sub-tile at column col0 of a stage, with epi's FP64
+// work between its classes
+template <class Epi>
+__device__ __forceinline__ void args_of(Args& s, const double (&rm)[2], const AFrags& areg,
+                                        unsigned a_addr, const int8_t* sb, const double* sn,
+                                        const float* sv, int col0, int lane, double scale,
+                                        Epi epi) {
   const int t4 = lane & 3;
+  double cn[4];
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
     const double2 nn = *reinterpret_cast<const double2*>(sn + col0 + nt * 8 + 2 * t4);
     const float2 vv = *reinterpret_cast<const float2*>(sv + col0 + nt * 8 + 2 * t4);
-    st.cn[2 * nt] = nn.x;
-    st.cn[2 * nt + 1] = nn.y;
-    st.cv[2 * nt] = (double)vv.x;
-    st.cv[2 * nt + 1] = (double)vv.y;
+    cn[2 * nt] = nn.x;
+    cn[2 * nt + 1] = nn.y;
+    s.cv[2 * nt] = (double)vv.x;
+    s.cv[2 * nt + 1] = (double)vv.y;
   }
-}
-
-// the FP64 half: argument, exp and accumulate of entries lo..hi - 1 into the
-// thread's 2 MT rows (row slot 2 mt + e / 2, column slot 2 nt + e % 2)
-__device__ __forceinline__ void accumulate(double (&acc)[2 * MT], const double (&rm)[2 * MT],
-                                           const SubTile& st, double scale, const double* t8,
-                                           int lo = 0, int hi = E) {
 #pragma unroll
-  for (int i = lo; i < hi; ++i) {
-    const int r = 2 * (i >> 3) + ((i & 3) >> 1), cc = 2 * ((i >> 2) & 1) + (i & 1);
-    const double arg = fma(st.sd[i], scale, rm[r] + st.cn[cc]);
-    const double e = ABLATE == 1 ? arg : SHORT_EXP ? exp_nonpos(arg, t8) : exp(arg);
-    acc[r] = fma(e, st.cv[cc], acc[r]);
-  }
+  for (int i = 0; i < 8; ++i) s.t[i] = rm[(i & 3) >> 1] + cn[2 * (i >> 2) + (i & 1)];
+  sub_tile_args(s.t, areg, a_addr, b_lane_addr(sb, col0, lane), b_lane_addr16(sb, col0, lane),
+                scale, epi, [](int, const int (&)[2][4], const int (&)[8]) {});
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MINB)
 sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restrict__ cols_b,
                        const double* __restrict__ norms, const float* __restrict__ v,
                        double scale, double* __restrict__ partial, int n, int tiles_per_split) {
@@ -437,12 +483,11 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  if (SHORT_EXP && tid < 8) t8[tid] = EXP2_EIGHTHS[tid];  // visible after stage_begin(0)
+  if (SHORT_EXP && tid < (1 << TB))  // seen after stage_begin(0)
+    t8[tid] = TB == 6 ? EXP2_64[tid] : EXP2_TABLE[TB == 5][tid];
   const int row_base = blockIdx.x * BM;
   const int rows_here = min(BM, n - row_base);
-  // n is a multiple of 128, so a warp's rows, and a warpgroup's, lie wholly
-  // inside or outside it
-  const bool active = wm * 16 * MT < rows_here;
+  const bool active = wm * 16 < rows_here;  // n is a multiple of 128: whole warps
   const int n_tiles = n / TJ;
   const int t_begin = blockIdx.y * tiles_per_split;
   const int t_count = min(tiles_per_split, n_tiles - t_begin);
@@ -477,7 +522,6 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   auto stage_begin = [&](int u) {
     if constexpr (STAGES > 1) {
       cp_async_wait<STAGES - 2>();
-      if constexpr (WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
       if (u + STAGES - 1 < t_count) load_stage(u + STAGES - 1);
       cp_async_commit();
@@ -488,82 +532,53 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
         cp_async_commit();
       }
       cp_async_wait<0>();
-      if constexpr (WG) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
     }
   };
 
-  // the thread's rows, row slot r = 2 mt + e / 2 at row_base + rofs(r)
-  auto rofs = [&](int r) { return wm * 16 * MT + (r >> 1) * 16 + (r & 1) * 8 + g; };
-  double rm[2 * MT], acc[2 * MT];
+  const int row0 = wm * 16;  // the warp's rows in the block; the thread's: row0 + g, + 8
+  double rm[2], acc[2] = {0.0, 0.0};
 #pragma unroll
-  for (int r = 0; r < 2 * MT; ++r) {
-    rm[r] = active ? norms[row_base + rofs(r)] : 0.0;
-    acc[r] = 0.0;
-  }
-  unsigned a_addr[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) a_addr[mt] = a_lane_addr(sa, wm * 16 * MT + 16 * mt, lane);
+  for (int r = 0; r < 2; ++r) rm[r] = active ? norms[row_base + row0 + g + 8 * r] : 0.0;
+  const unsigned a_addr = a_lane_addr(sa, row0, lane);
 
   stage_begin(0);
   AFrags areg;
   if constexpr (AREG) load_a(areg, a_addr);
-  // sub-tile k: stage k / NSUB, the warp's (k % NSUB)-th 16 columns of it;
-  // epi is the FP64 work that rides under its MMAs
-  auto sums_at = [&](int k, SubTile& st, auto epi) {
+  // sub-tile k: stage k / NSUB, the warp's (k % NSUB)-th 16 columns of it
+  auto args_at = [&](int k, Args& st, auto epi) {
     const int u = k / NSUB, j = k - u * NSUB, buf = u % STAGES;
     if (j == 0 && u > 0) stage_begin(u);
     if (active)
-      sums_of(st, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane, epi);
-  };
-  auto no_epi = [](int) {};
-  auto epi_of = [&](const SubTile& from) {  // a seventh of from's entries a class
-    return [&](int c) {
-      accumulate(acc, rm, from, scale, t8, E * c / NW, E * (c + 1) / NW);
-      if (WG && c == NW - 1) reg_fence(acc);
-    };
+      args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
+              scale, epi);
   };
   const int total = t_count * NSUB;
-  if constexpr (PIPE) {
-    // two sub-tiles in flight, ping-pong: no register copies between trips
-    SubTile st0, st1;
-    sums_at(0, st0, no_epi);
-    int k = 1;
-    for (; k + 1 < total; k += 2) {
-      sums_at(k, st1, epi_of(st0));
-      sums_at(k + 1, st0, epi_of(st1));
-    }
-    if (k < total) {
-      sums_at(k, st1, epi_of(st0));
-      if (active) accumulate(acc, rm, st1, scale, t8);
-    } else if (active) {
-      accumulate(acc, rm, st0, scale, t8);
-    }
-  } else {
-    for (int k = 0; k < total; ++k) {
-      SubTile st;
-      sums_at(k, st, no_epi);
-      if (active) accumulate(acc, rm, st, scale, t8);
-    }
+  for (int k = 0; k < total; ++k) {
+    Args st;
+    args_at(k, st, [](int) {});
+    if (active) accumulate(acc, st, t8);
   }
 
 #pragma unroll
-  for (int r = 0; r < 2 * MT; ++r) {
+  for (int r = 0; r < 2; ++r) {
     acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 1);
     acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 2);
   }
   double* const out = partial + (size_t)blockIdx.y * n + row_base;
   if constexpr (WARPS_N == 1) {
-    if (active && t4 == 0)
-#pragma unroll
-      for (int r = 0; r < 2 * MT; ++r) out[rofs(r)] = acc[r];
+    if (active && t4 == 0) {
+      out[row0 + g] = acc[0];
+      out[row0 + g + 8] = acc[1];
+    }
   } else {
     // the warps of one row band add their column shares in a fixed order
     double* const red = reinterpret_cast<double*>(smem);
     __syncthreads();
-    if (t4 == 0)
-#pragma unroll
-      for (int r = 0; r < 2 * MT; ++r) red[wn * BM + rofs(r)] = acc[r];
+    if (t4 == 0) {
+      red[wn * BM + row0 + g] = acc[0];
+      red[wn * BM + row0 + g + 8] = acc[1];
+    }
     __syncthreads();
     for (int r = tid; r < rows_here; r += THREADS) {
       double s = 0.0;
@@ -573,12 +588,12 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   }
 }
 
-// one warp: the class sums C_c and S of rows 0-31 and columns 0-15 by the
-// matvec's own staging, fragments and fold (in sub-tiles of 16 MT rows, by
-// mma.sync); out_c (7, 32, 16), out_s (32, 16)
+// one warp: the class sums C_c and the parts P of rows 0-31 and columns 0-15
+// by the matvec's own staging, fragments and combine, two m16 tiles in turn;
+// out_c (7, 32, 16), out_p (n_parts, 32, 16)
 __global__ void words_mma_tile_kernel(const int8_t* __restrict__ rows_a,
                                       const int8_t* __restrict__ cols_b, int* __restrict__ out_c,
-                                      long long* __restrict__ out_s) {
+                                      int* __restrict__ out_p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* const sa = reinterpret_cast<int8_t*>(smem);
   int8_t* const sb = sa + 32 * SA;  // 16 columns: two 8-column groups
@@ -590,22 +605,24 @@ __global__ void words_mma_tile_kernel(const int8_t* __restrict__ rows_a,
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
-  for (int r0 = 0; r0 < 32; r0 += 16 * MT) {
-    unsigned a_addr[MT];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) a_addr[mt] = a_lane_addr(sa, r0 + 16 * mt, lane);
+  for (int r16 = 0; r16 < 32; r16 += 16) {
+    const unsigned a_addr = a_lane_addr(sa, r16, lane);
     AFrags areg;
     if constexpr (AREG) load_a(areg, a_addr);
     auto at = [&](int i) {  // (row, column) of the thread's entry i
-      return (r0 + (i >> 3) * 16 + g + 8 * ((i & 3) >> 1)) * 16 + ((i >> 2) & 1) * 8 + 2 * t4 +
-             (i & 1);
+      return (r16 + g + 8 * ((i & 3) >> 1)) * 16 + (i >> 2) * 8 + 2 * t4 + (i & 1);
     };
-    long long S[E];
-    sub_tile_sums<false>(S, areg, a_addr, b_lane_addr(sb, 0, lane), [](int) {},
-                         [&](int c, const int (&C)[2 * MT][4]) {
-                           for (int i = 0; i < E; ++i) out_c[c * 512 + at(i)] = C[i >> 2][i & 3];
-                         });
-    for (int i = 0; i < E; ++i) out_s[at(i)] = S[i];
+    double t[8] = {};
+    int p = 0;
+    sub_tile_args(t, areg, a_addr, b_lane_addr(sb, 0, lane), b_lane_addr16(sb, 0, lane), 1.0,
+                  [](int) {},
+                  [&](int c, const int (&C)[2][4], const int (&P)[8]) {
+                    for (int i = 0; i < 8; ++i) out_c[c * 512 + at(i)] = C[i >> 2][i & 3];
+                    if (part_last(c)) {
+                      for (int i = 0; i < 8; ++i) out_p[p * 512 + at(i)] = P[i];
+                      ++p;
+                    }
+                  });
   }
 }
 
@@ -625,7 +642,7 @@ cudaError_t configure() {
 
 // The launch plan of this library for n rows on the current device: out =
 // {d, BM, TJ, STAGES, threads, shared bytes, blocks per SM, splits, KA, KB,
-// m16 tiles a warp's sub-tile, wgmma (1) or mma.sync (0), the short exp}.
+// parts of S, A in registers, the short exp}.
 // splits divides the column tiles evenly and, of those that do, takes the
 // fewest waves of blocks times tiles per block (one tile more for a split's
 // fill). Returns the CUDA error code (0 on success).
@@ -654,7 +671,8 @@ extern "C" int sqexp_words_mma_plan(int n, int* out) {
       best = s;
     }
   }
-  const int plan[13] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, MT, WG, SHORT_EXP};
+  const int plan[13] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, n_parts(), AREG,
+                        SHORT_EXP};
   for (int i = 0; i < 13; ++i) out[i] = plan[i];
   return 0;
 }
@@ -682,16 +700,16 @@ extern "C" int sqexp_words_mma(const void* rows_a, const void* cols_b, const voi
   return (int)cudaGetLastError();
 }
 
-// out_c (7, 32, 16) int32 and out_s (32, 16) int64 = the class sums C_c and S
-// of rows 0-31 and columns 0-15 (n >= 32), by one warp of the matvec's own
-// staging, fragments and fold: the layout's check.
-extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out_c, void* out_s,
+// out_c (7, 32, 16) and out_p (n_parts, 32, 16) int32 = the class sums C_c and
+// the parts P of rows 0-31 and columns 0-15 (n >= 32), by one warp of the
+// matvec's own staging, fragments and combine: the layout's check.
+extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out_c, void* out_p,
                               int n, int d, void* stream) {
   if (d != D || n < 32) return (int)cudaErrorInvalidValue;
   const cudaError_t rc = configure();
   if (rc != cudaSuccess) return (int)rc;
   words_mma_tile_kernel<<<1, 32, 32 * SA + 16 * KB, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
-      static_cast<int*>(out_c), static_cast<long long*>(out_s));
+      static_cast<int*>(out_c), static_cast<int*>(out_p));
   return (int)cudaGetLastError();
 }

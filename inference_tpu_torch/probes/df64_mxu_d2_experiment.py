@@ -44,7 +44,7 @@ from .df64_ablate import N, make_inputs
 
 NW = 7  # fixed-point words per coordinate
 BITS = 7  # magnitude bits per word
-KS = 32  # int8 entries of one MMA K step (m16n8k32): every class's K is a multiple
+KS = 16  # int8 entries of a K chunk (the MMAs take 32, or 16 for a last chunk): every class's K is a multiple
 D_MAX = 256  # the largest d whose combined class sum S fits int64
 
 KERNEL_LAUNCHES = 0  # launches of the kernel in this process
@@ -144,6 +144,34 @@ def _class_sums(ops, rows=slice(None), cols=slice(None)):
     return S
 
 
+def parts(d):
+    """The kernel's parts of S: runs (a, b) of consecutive classes whose
+    P = sum_{c=a..b} C_c 2^(7 (b - c)) fits int32 for words of +-64 (|C_c|
+    <= (c + 1) d 2^12), taken greedily from class 0, as
+    ``csrc/sqexp_words_mma.cu``'s part_fits; S = sum of P 2^(7 (6 - b))."""
+    fits = lambda a, b: sum((c + 1) * d * 4096 * 128 ** (b - c) for c in range(a, b + 1)) < 2 ** 31
+    out, a = [], 0
+    while a < NW:
+        b = a
+        while b + 1 < NW and fits(a, b + 1):
+            b += 1
+        out.append((a, b))
+        a = b + 1
+    return out
+
+
+def _parts_of(C, d):
+    """The parts (``parts``) of class sums C (NW, ...) in int64."""
+    C = C.long()
+    out = []
+    for a, b in parts(d):
+        P = C[a]
+        for c in range(a + 1, b + 1):
+            P = P * 128 + C[c]
+        out.append(P)
+    return torch.stack(out)
+
+
 def _words_reference(ops, v):
     """The kernel's plain version: the class matmuls in float64 (exact for
     these integers), the same integer combine and FP64 argument, torch.exp,
@@ -162,7 +190,7 @@ def _words_reference(ops, v):
 def kernel_variant(d, **extra):
     """The nvcc defines of the kernel's library for d coordinates (one per
     d), with ``extra`` defines of a measured variant (``P3_AREG``,
-    ``P3_PIPE``)."""
+    ``P3_EXP``)."""
     return (("P3_D", d),) + tuple(sorted(extra.items()))
 
 
@@ -179,14 +207,14 @@ def _check_cuda(kernel, ops, *extra):
 
 
 PLAN_KEYS = ("d", "bm", "tj", "stages", "threads", "smem", "blocks_per_sm", "splits", "ka", "kb",
-             "mt", "wgmma", "short_exp")
+             "parts", "areg", "short_exp")
 
 
 def plan(n, d, device, variant=()):
     """The library's launch plan for n rows at d on ``device``
     (``sqexp_words_mma_plan``): its tile sizes, ring depth, threads, shared
-    bytes, blocks an SM, column splits, operand widths, m16 tiles of a
-    warp's sub-tile and its routes (wgmma, the short exp)."""
+    bytes, blocks an SM, column splits, operand widths, the parts of S
+    (``parts``) and its routes (A in registers, the short exp)."""
     fn = getattr(_build.load("sqexp_words_mma", kernel_variant(d, **dict(variant))),
                  "sqexp_words_mma_plan")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
@@ -240,25 +268,26 @@ def words_matvec(ops, v):
 
 
 def _launch_tile(ops):
-    """The class sums C_c (NW, 32, 16) int32 and S (32, 16) int64 of rows
-    0-31 and columns 0-15 by one warp of the kernel's own staging,
-    fragments and fold: the layout's check."""
+    """The class sums C_c (NW, 32, 16) and the parts P (``parts``, 32, 16),
+    int32, of rows 0-31 and columns 0-15 by one warp of the kernel's own
+    staging, fragments and combine: the layout's check."""
     dev = _check_cuda("P3 tile", ops)
+    d = ops["d"]
     out_c = torch.empty((NW, 32, 16), dtype=torch.int32, device=dev)
-    out_s = torch.empty((32, 16), dtype=torch.int64, device=dev)
-    fn = _build.bind("sqexp_words_mma", "words_mma_tile", 4, 2, kernel_variant(ops["d"]))
+    out_p = torch.empty((len(parts(d)), 32, 16), dtype=torch.int32, device=dev)
+    fn = _build.bind("sqexp_words_mma", "words_mma_tile", 4, 2, kernel_variant(d))
     with torch.cuda.device(dev):
         rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), out_c.data_ptr(),
-                out_s.data_ptr(), ops["rows"].shape[0], ops["d"], _build.stream(dev))
+                out_p.data_ptr(), ops["rows"].shape[0], d, _build.stream(dev))
     _build.raise_on(rc, "P3 tile")
-    return out_c, out_s
+    return out_c, out_p
 
 
 def _tile_reference(ops):
     """``_launch_tile``'s plain version."""
-    C = torch.stack([(A[:32].double() @ B[:16].double().T).int()
+    C = torch.stack([(A[:32].double() @ B[:16].double().T).long()
                      for A, B in (class_operands(ops, c) for c in range(NW))])
-    return C, _class_sums(ops, slice(0, 32), slice(0, 16))
+    return C.int(), _parts_of(C, ops["d"]).int()
 
 
 def words_bound(n, d):

@@ -210,7 +210,7 @@ def test_words_operands_give_the_class_sums(words_inputs):
     Wq, _ = p3.build_words(u)
     KA, classes, KB = p3.layout(d)
     assert ops["rows"].shape == (N, KA) and ops["cols"].shape == (N, KB) and ops["d"] == d
-    tile_c, tile_s = p3._tile_reference(ops)
+    tile_c, tile_p = p3._tile_reference(ops)
     for c in range(p3.NW):
         A_j = Wq[:, : (c + 1) * d]
         B_j = np.concatenate([Wq[:, a * d:(a + 1) * d] for a in range(c, -1, -1)], axis=1)
@@ -223,7 +223,8 @@ def test_words_operands_give_the_class_sums(words_inputs):
         np.testing.assert_array_equal((A.astype(np.float64) @ B.astype(np.float64).T), ref)
         np.testing.assert_array_equal(tile_c[c].numpy(), ref[:32, :16])
     S = p3._class_sums(ops)
-    np.testing.assert_array_equal(tile_s.numpy(), S[:32, :16].numpy())
+    combined = sum(tile_p[k].long() * 2 ** (7 * (p3.NW - 1 - b)) for k, (_, b) in enumerate(p3.parts(d)))
+    np.testing.assert_array_equal(combined.numpy(), S[:32, :16].numpy())
     cross = S.double() * 2.0 ** ops["shift"]
     assert np.abs(cross.numpy() - u @ u.T).max() <= 1e-11
 
@@ -233,7 +234,8 @@ def test_words_operands_give_the_class_sums(words_inputs):
 def test_words_class_sum_does_not_overflow(d, signs):
     """At the largest words (every one +-64) the combined S = sum_c C_c
     2^(7 (6 - c)) of the plain version is exact in int64 up to D_MAX:
-    equal to the sum in Python's integers, below 2^63."""
+    equal to the sum in Python's integers, below 2^63; and each of the
+    kernel's parts of S fits int32."""
     rng = np.random.default_rng(d)
     W = np.full((32, p3.NW * d), 64) if signs == "all +64" else rng.choice([-64, 64], (32, p3.NW * d))
     rows, cols = p3._operands(W, d)
@@ -244,6 +246,9 @@ def test_words_class_sum_does_not_overflow(d, signs):
                  ).astype(object) * 2 ** (7 * (6 - c)) for c in range(p3.NW))
     assert np.abs(exact).max() < 2 ** 63
     np.testing.assert_array_equal(got.astype(object), exact)
+    C = torch.stack([A.double() @ B.double().T for A, B in
+                     (p3.class_operands(ops, c) for c in range(p3.NW))]).long()
+    assert int(p3._parts_of(C, d).abs().max()) < 2 ** 31
 
 
 def test_words_plain_matches_truth_and_jax(words_inputs):
@@ -256,13 +261,21 @@ def test_words_plain_matches_truth_and_jax(words_inputs):
     assert np.abs(y - ref).max() <= 1e-7 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("d, mmas", [(1, 7), (2, 7), (3, 7), (20, 21), (33, 35)])
-def test_words_layout_and_readings(d, mmas):
-    """Every class's K is (c + 1) d rounded up to the MMA's 32; the kernel's
-    m16n8k32 MMAs a 16 x 8 tile and its tensor-core time follow; the flops
-    bound counts 37 FP64 flops an entry at every d."""
+@pytest.mark.parametrize("d, chunks, mmas, parts", [
+    (1, 7, 7, [(0, 2), (3, 5), (6, 6)]), (2, 7, 7, [(0, 2), (3, 5), (6, 6)]),
+    (3, 9, 7, [(0, 2), (3, 5), (6, 6)]), (20, 38, 21, [(0, 2), (3, 4), (5, 6)]),
+    (33, 63, 35, [(0, 1), (2, 3), (4, 5), (6, 6)]),
+    (256, 448, 224, [(0, 1), (2, 3), (4, 5), (6, 6)])])
+def test_words_layout_and_readings(d, chunks, mmas, parts):
+    """Every class's K is (c + 1) d rounded up to a chunk of 16; the kernel
+    issues an m16n8k32 MMA for each pair of chunks and an m16n8k16 for an
+    odd last one, ``mmas`` a 16 x 8 tile; the tensor-core time counts the
+    MACs issued; the parts of S cover the classes in order; the flops bound
+    counts 37 FP64 flops an entry at every d."""
+    assert p3.parts(d) == parts
     KA, classes, KB = p3.layout(d)
-    assert KA == -(-7 * d // 32) * 32 and KB == sum(k for _, k in classes) == 32 * mmas
+    assert KA == -(-7 * d // 16) * 16 and KB == sum(k for _, k in classes) == 16 * chunks
+    assert sum(-(-k // 32) for _, k in classes) == mmas
     assert [off for off, _ in classes] == list(np.cumsum([0] + [k for _, k in classes])[:-1])
     n = 53_248
     assert p3.tensor_ms(n, d) == pytest.approx(n * n * KB / 989.5e12 * 1e3)
