@@ -156,8 +156,8 @@ from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 from inference_tpu_torch.utils import effective_sample_size
-from inference_tpu_torch.probes import (BOOST_CLOCK_HZ, EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, LANES,
-                                        SMS, bound, df64_ablate, time_events, vpu_probe)
+from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
+                                        fp64_issue_ms, time_events, vpu_probe)
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as words
 
 N_CHAINS = 65_536
@@ -1332,15 +1332,6 @@ def phase_df64_wide_checks(n=4096):
     return errs
 
 
-def _issue_ms(n, fp64_per_entry):
-    """A model, not a reading: the FP64-issue time (ms) of n^2 entries of
-    ``fp64_per_entry`` FP64 instructions each, one instruction per lane and
-    cycle on 132 SMs x 64 lanes at the boost clock. Under --fmad=false each
-    sub, mul and add is a whole instruction, so this, not the flops bound,
-    is the ceiling."""
-    return float(n) * n * fp64_per_entry / (SMS * LANES["float64"] * BOOST_CLOCK_HZ) * 1e3
-
-
 def phase_df64_wide_timing(n):
     """B3, B4 (q = 8), B5 and B7 at n, d = 20 (the wide kernels), each in two
     turns with its plain version (CUDA events), beside its flops bound (the
@@ -1357,7 +1348,7 @@ def phase_df64_wide_timing(n):
     rows = {}
 
     def report(kernel, k, p, b, per_entry):
-        issue = _issue_ms(n, per_entry)
+        issue = fp64_issue_ms(n, per_entry)  # a model: the boost clock, a count from the code
         print(f"[time] {kernel} n={n} d={d}: kernel {k[0]:.4f} / {k[1]:.4f} ms, plain "
               f"{p[0]:.4f} / {p[1]:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; kernel / bound "
               f"{min(k) / b[0]:.2f}), FP64-issue model {issue:.4f} ms ({per_entry} FP64 "
@@ -2029,9 +2020,9 @@ def _p3_checks(n, d, uh, ul, us, v):
             differ += int((got != ref).sum())
             values += ref.numel()
     torch.cuda.synchronize()
-    print(f"[check 12c] P3 d={d}: one 32 x 16 tile of the 7 class sums and the {len(words.parts(d))} "
-          f"parts of S, on the data and on words of +-64: {differ} of {values} differ (exact "
-          f"expected)")
+    print(f"[check 12c] P3 d={d}: one 32 x 16 tile of the 7 class sums and the "
+          f"{len(words.parts(d))} parts of S, on the data and on words of +-64: {differ} of "
+          f"{values} differ (exact expected)")
     if differ:
         raise RuntimeError(f"check 12c: P3's fragments or fold are wrong at d={d}")
     got = words.words_matvec(ops, v)
@@ -2092,7 +2083,7 @@ def phase_probe_paths(n):
         if mix is None:
             raise RuntimeError(f"P3 d={d}: the hot loop's SASS was not read ({P3_SYMBOL})")
         r["fp64_per_entry"] = mix["fp64"]
-        r["fp64_issue_ms"] = words.fp64_issue_ms(n, mix["fp64"], mhz * 1e6)
+        r["fp64_issue_ms"] = fp64_issue_ms(n, mix["fp64"], mhz * 1e6)
         r["plan"] = words.plan(n, d, CUDA)
         _, _, us_d, v_d = words.make_coords(n, d, CUDA)
         r["plain_ms"] = time_events(words._words_reference, (words.prepare(us_d.cpu().numpy(),

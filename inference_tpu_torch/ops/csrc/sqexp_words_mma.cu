@@ -20,48 +20,50 @@
 // zero beyond 7 d; cols_b (n, KB) int8, for each class c a slice of
 // class_k(c) bytes (at class_off(c)) holding the words q_{c-a}(j) at a d + k
 // for a <= c and zeros after, so that rows_a[i, :class_k(c)] . that slice
-// = C_c[i, j]. KA and each class_k are multiples of the MMA's K step.
+// = C_c[i, j]. KA and each class_k are multiples of 16 bytes.
 //
-// The cross term. Every C_c is a sum of m16n8k32 mma.sync instructions of
-// int8 operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31), written by hand in
-// PTX: 7 MMAs a 16 x 8 tile at d = 2, 21 at d = 20. S needs up to 63 bits,
-// and a 64-bit integer fold costs ~13 integer instructions an entry, so S
-// never forms: runs of classes whose partial sums fit int32 ("parts",
-// part_fits: three at d = 2 and 20, four at d = 256) are combined in 32 bits
-// as they leave the MMAs, each part is converted to double and added by one
-// fma into the argument, the largest first, where m_i + m_j and the cross
-// term cancel exactly inside the fma:
+// The cross term. Every C_c is a sum of mma.sync instructions of int8
+// operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31), written by hand in
+// PTX: m16n8k32 for each pair of 16-byte chunks of the class's K and
+// m16n8k16 for an odd last one, 7 a 16 x 8 tile at d = 2 (all k16), 21 at
+// d = 20. S needs up to 63 bits, and a 64-bit integer fold costs about 13
+// integer instructions an entry, so S never forms: runs of classes whose
+// sums fit int32 ("parts", part_fits: three at d = 2 and 20, four at d = 256)
+// are combined in 32 bits as they leave the MMAs, each part is converted to
+// double and added by one fma into the argument, the largest first, where
+// m_i + m_j and the cross term cancel exactly inside the fma:
 //   t = m_i + m_j;  t = fma(P_k, 2^(shift + 7 (6 - b_k)), t) for each part.
-// The argument rounds at each part (the plain version rounds S once), a few
-// units of its last place, 1e-16 to 1e-15 of sum_j |E_ij| |v_j| on the card.
-// A shorter exp for the argument, always <= 0 (exp_nonpos, a table of 8 and
-// a degree-7 polynomial, 12 FP64 instructions against CUDA's 18, within 2e-16
-// of it) and an fma accumulate with v widened to double follow.
+// The argument rounds at each part (the plain version rounds S once): a few
+// units of its last place, below 1e-15 of sum_j |E_ij| |v_j| on the card.
+// The exp of the argument, always <= 0, is exp_nonpos (a table of 64 and a
+// degree-4 polynomial, 9 FP64 instructions against CUDA's 18, within 2.5e-15
+// of it); an fma accumulates with v widened to double.
 //
-// What bounds it. Per entry 17 FP64 instructions (the add of the norms, three
-// part fmas, the exp's 12, the accumulate), 2.9 ms at n = 53,248 on the 132
-// SMs' FP64 lanes at 1.98 GHz; beside them on other pipes the parts' 4
-// integer combines and 3 conversions, the exp's 6 integer instructions and
-// table load, and the MMAs: 224 int8 MACs an entry at d = 2, 672 at d = 20
-// (0.6 and 1.9 ms at the dense int8 rate, which mma.sync reaches only in
-// part). The FP64 pipe, the issue slots and at d = 20 the tensor pipe are
-// the limits.
+// What bounds it. Per entry 14 FP64 instructions (the add of the norms,
+// three part fmas, the exp's 9, the accumulate): 2.4 ms at n = 53,248 on the
+// 132 SMs' FP64 lanes at 1.98 GHz. Beside them on other pipes: the parts'
+// integer combines and conversions, the exp's integer work and table load,
+// and the MMAs, 112 int8 MACs an entry at d = 2 and 608 at d = 20 (0.3 and
+// 1.7 ms at the dense int8 rate). On the H100 the MMAs do not hide under the
+// FP64 work: timed without them the kernel runs 2.8 ms faster at d = 2 and
+// 6.6 ms at d = 20 (PERF.md), an mma.sync costing about 20 cycles of its SM
+// sub-partition whatever its K; wgmma (B from shared memory, every class in
+// flight, one wait) ran slower still. So the tensor work, and not the FP64
+// pipe, sets the time.
 //
-// The design. A block of up to 16 warps owns BM rows, 16 a warp (one m16
+// The design. A block of 16 warps owns BM = 256 rows, 16 a warp (one m16
 // tile, its A fragments in registers for short rows, KA <= 160, d <= 22, else
-// read by ldmatrix), their words resident in shared memory, and walks its
-// split of the columns in tiles of TJ through a cp.async ring of STAGES
-// buffers (the class words as 8-column core matrices that ldmatrix reads
-// without conflicts, the norms and v). A warp takes a tile in 16 x 16
-// sub-tiles (8 entries a thread): each class's MMAs, the parts, the FP64
-// work. Registers stay at 128 so that 16 warps share the SM and hide each
-// other's latencies; an earlier design with 32 x 16 sub-tiles, the MMAs of
-// one beside the exps of the previous and a 64-bit fold held 176-255
-// registers and 8 warps and ran at 2-2.3x the instruction count's time
-// (PERF.md). BM, TJ and STAGES follow from d to fit the 227 KB of shared
-// memory (choose_plan); the column range is split over blockIdx.y so that
-// the blocks fill the SMs in whole waves (sqexp_words_mma_plan). The splits'
-// sums are added by the wrapper.
+// read by ldmatrix at each use), their words resident in shared memory, and
+// walks its split of the columns in tiles of TJ through a cp.async ring of
+// STAGES buffers (the class words as 8-column core matrices that ldmatrix
+// reads without bank conflicts, the norms and v). A warp takes a tile in
+// 16 x 16 sub-tiles, 8 entries a thread: each class's MMAs, the parts, the
+// exps. The registers are held to 64 so that two blocks, 32 warps, share an
+// SM and hide each other's latencies (a few spills; one block of 92-116
+// registers ran 3-7% slower); BM, TJ and STAGES follow from d to fit two
+// blocks in the 228 KB of shared memory (choose_plan), one where two do not
+// fit. The column range is split over blockIdx.y so that the blocks fill the
+// SMs in whole waves (sqexp_words_mma_plan); the wrapper adds the splits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -133,31 +135,11 @@ __host__ __device__ constexpr int n_parts() {
 }
 static_assert(part_fits(0, 0) && part_fits(NW - 1, NW - 1), "a class alone must fit int32");
 
-// Variants, measured on the H100 (PERF.md): A's fragments in registers where
-// a row's words are short, the short exp
-#ifndef P3_AREG
-#define P3_AREG (KA <= 160)
-#endif
-#ifndef P3_EXP
-#define P3_EXP 3
-#endif
-#ifndef P3_ABLATE
-#define P3_ABLATE 0
-#endif
-#ifndef P3_WARPS
-#define P3_WARPS 16
-#endif
-#ifndef P3_MINB
-#define P3_MINB 2
-#endif
-constexpr bool AREG = P3_AREG;
-// exp_nonpos for CUDA's exp (18 FP64 instructions): 1 a table of 8 and a
-// degree-7 polynomial (12), 2 a table of 32 and a degree-5 polynomial (10)
-constexpr int SHORT_EXP = P3_EXP;
-// timing only: 1 no exp, 2 no MMA, 3 no conversion (the parts' bits as doubles)
-constexpr int ABLATE = P3_ABLATE;
-constexpr int WARPS = P3_WARPS;  // warps of a block at most: 16 x 16 rows
-constexpr int MINB_ASKED = P3_MINB;  // blocks an SM that registers and shared memory leave room for
+// A's fragments live in registers where a row's words are short (KA <= 160,
+// d <= 22), else ldmatrix reads them at each use
+constexpr bool AREG = KA <= 160;
+constexpr int WARPS = 16;     // warps of a block at most: 16 x 16 rows
+constexpr int MINB_ASKED = 2;  // blocks an SM that registers and shared memory leave room for
 
 // dynamic shared memory of one block on the H100 when `blocks` share an SM
 // (228 KB an SM, 1 KB of it reserved for each block)
@@ -191,35 +173,23 @@ constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 512;  // + exp_nonpos'
 static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-constexpr int TB = SHORT_EXP == 3 ? 6 : SHORT_EXP == 2 ? 5 : 3;  // exp_nonpos's table: 2^TB entries
 __constant__ double EXP2_64[64] = {
     1.0, 1.0108892860517005, 1.0218971486541166, 1.0330248790212284, 1.0442737824274138,
-     1.0556451783605572, 1.0671404006768237, 1.0787607977571199, 1.0905077326652577,
-     1.102382583307841, 1.1143867425958924, 1.1265216186082418, 1.1387886347566916,
-     1.1511892299529827, 1.1637248587775775, 1.1763969916502812, 1.189207115002721,
-     1.202156731452703, 1.215247359980469, 1.22848053610687, 1.241857812073484,
-     1.255380757024691, 1.2690509571917332, 1.2828700160787783, 1.2968395546510096,
-     1.3109612115247644, 1.3252366431597413, 1.339667524053303, 1.3542555469368927,
-     1.3690024229745905, 1.383909881963832, 1.3989796725383112, 1.4142135623730951,
-     1.42961333839197, 1.4451808069770467, 1.460917794180647, 1.4768261459394993,
-     1.4929077282912648, 1.5091644275934228, 1.5255981507445384, 1.5422108254079407,
-     1.559004400237837, 1.5759808451078865, 1.593142151342267, 1.6104903319492543,
-     1.6280274218573478, 1.645755478153965, 1.6636765803267364, 1.681792830507429,
-     1.7001063537185235, 1.718619298122478, 1.7373338352737062, 1.7562521603732995,
-     1.7753764925265212, 1.7947090750031072, 1.8142521755003989, 1.8340080864093424,
-     1.8539791250833855, 1.8741676341103, 1.8945759815869656, 1.9152065613971474,
-     1.9360617934922943, 1.9571441241754002, 1.978456026387951};  // 2^(i / 64), rounded
-__constant__ double EXP2_TABLE[2][32] = {
-    {1.0, 1.0905077326652577, 1.189207115002721, 1.2968395546510096, 1.4142135623730951,
-     1.5422108254079407, 1.681792830507429, 1.8340080864093424},  // 2^(i / 8), rounded
-    {1.0, 1.0218971486541166, 1.0442737824274138, 1.0671404006768237, 1.0905077326652577,
-     1.1143867425958924, 1.1387886347566916, 1.1637248587775775, 1.189207115002721,
-     1.215247359980469, 1.241857812073484, 1.2690509571917332, 1.2968395546510096,
-     1.3252366431597413, 1.3542555469368927, 1.383909881963832, 1.4142135623730951,
-     1.4451808069770467, 1.4768261459394993, 1.5091644275934228, 1.5422108254079407,
-     1.5759808451078865, 1.6104903319492543, 1.645755478153965, 1.681792830507429,
-     1.718619298122478, 1.7562521603732995, 1.7947090750031072, 1.8340080864093424,
-     1.8741676341103, 1.9152065613971474, 1.9571441241754002}};  // 2^(i / 32), rounded
+    1.0556451783605572, 1.0671404006768237, 1.0787607977571199, 1.0905077326652577,
+    1.102382583307841, 1.1143867425958924, 1.1265216186082418, 1.1387886347566916,
+    1.1511892299529827, 1.1637248587775775, 1.1763969916502812, 1.189207115002721,
+    1.202156731452703, 1.215247359980469, 1.22848053610687, 1.241857812073484,
+    1.255380757024691, 1.2690509571917332, 1.2828700160787783, 1.2968395546510096,
+    1.3109612115247644, 1.3252366431597413, 1.339667524053303, 1.3542555469368927,
+    1.3690024229745905, 1.383909881963832, 1.3989796725383112, 1.4142135623730951,
+    1.42961333839197, 1.4451808069770467, 1.460917794180647, 1.4768261459394993,
+    1.4929077282912648, 1.5091644275934228, 1.5255981507445384, 1.5422108254079407,
+    1.559004400237837, 1.5759808451078865, 1.593142151342267, 1.6104903319492543,
+    1.6280274218573478, 1.645755478153965, 1.6636765803267364, 1.681792830507429,
+    1.7001063537185235, 1.718619298122478, 1.7373338352737062, 1.7562521603732995,
+    1.7753764925265212, 1.7947090750031072, 1.8142521755003989, 1.8340080864093424,
+    1.8539791250833855, 1.8741676341103, 1.8945759815869656, 1.9152065613971474,
+    1.9360617934922943, 1.9571441241754002, 1.978456026387951};  // 2^(i / 64), rounded
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -267,54 +237,27 @@ __device__ __forceinline__ void mma_s8_k16(int (&d)[4], uint32_t a0, uint32_t a1
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// e^x for x <= 0: x = j ln2 / 8 + r with j = rint(8 x / ln2), |r| <= ln2 / 16,
-// e^x = 2^(j >> 3) t8[j & 7] p(r) with t8[i] = 2^(i / 8) and p a degree-7
-// Chebyshev fit of e^r (max relative error 2.2e-16 with its rounding); below
-// -708 x is taken as -708 (e^-708 = 3.3e-308) by the high word of the negative
-// double, which grows with its magnitude. 12 FP64 instructions.
+// e^x for x <= 0: x = j ln2 / 64 + r with j = rint(64 x / ln2), |r| <= ln2 /
+// 128, e^x = 2^(j >> 6) tab[j & 63] p(r) with tab[i] = 2^(i / 64) and p a
+// degree-4 Chebyshev fit of e^r (max relative error 2.5e-15 with its
+// rounding); below -708 x is taken as -708 (e^-708 = 3.3e-308) by the high
+// word of the negative double, which grows with its magnitude. 9 FP64
+// instructions against CUDA's exp's 18.
 __device__ __forceinline__ double exp_nonpos(double x, const double* tab) {
   constexpr double SHIFTER = 6755399441055744.0;  // 1.5 2^52: kf - SHIFTER = rint
   x = __hiloint2double((int)min((unsigned)__double2hiint(x), 0xC0862000u), __double2loint(x));
-  double kf, jf, r, p;
-  if constexpr (TB == 6) {
-    kf = fma(x, 92.33248261689366, SHIFTER);
-    jf = kf - SHIFTER;
-    r = fma(jf, -0.010830424696249145, x);
-    r = fma(jf, -3.623510646634843e-19, r);
-    p = 0.041666717577326616;
-    p = fma(p, r, 0.16666697213067969);
-    p = fma(p, r, 0.49999999999962674);
-    p = fma(p, r, 0.9999999999977606);
-    p = fma(p, r, 1.0);
-    const int j = __double2loint(kf);
-    const double y = p * tab[j & 63];
-    return __hiloint2double(__double2hiint(y) + ((j >> 6) << 20), __double2loint(y));
-  } else if constexpr (TB == 3) {
-    kf = fma(x, 11.541560327111707, SHIFTER);
-    jf = kf - SHIFTER;
-    r = fma(jf, -0.08664339756999316, x);
-    r = fma(jf, -2.8988085173078744e-18, r);
-    p = 0.0001984230424030784;
-    p = fma(p, r, 0.0013889819852876434);
-    p = fma(p, r, 0.008333333321199942);
-    p = fma(p, r, 0.04166666655746539);
-    p = fma(p, r, 0.1666666666666712);
-    p = fma(p, r, 0.500000000000041);
-  } else {
-    kf = fma(x, 46.16624130844683, SHIFTER);
-    jf = kf - SHIFTER;
-    r = fma(jf, -0.02166084939249829, x);
-    r = fma(jf, -7.247021293269686e-19, r);
-    p = 0.008333368243545858;
-    p = fma(p, r, 0.04166691103828231);
-    p = fma(p, r, 0.16666666666513108);
-    p = fma(p, r, 0.4999999999892509);
-  }
-  p = fma(p, r, 1.0);
+  const double kf = fma(x, 92.33248261689366, SHIFTER);
+  const double jf = kf - SHIFTER;
+  double r = fma(jf, -0.010830424696249145, x);
+  r = fma(jf, -3.623510646634843e-19, r);
+  double p = 0.041666717577326616;
+  p = fma(p, r, 0.16666697213067969);
+  p = fma(p, r, 0.49999999999962674);
+  p = fma(p, r, 0.9999999999977606);
   p = fma(p, r, 1.0);
   const int j = __double2loint(kf);
-  const double y = p * tab[j & ((1 << TB) - 1)];
-  return __hiloint2double(__double2hiint(y) + ((j >> TB) << 20), __double2loint(y));
+  const double y = p * tab[j & 63];
+  return __hiloint2double(__double2hiint(y) + ((j >> 6) << 20), __double2loint(y));
 }
 
 using AFrags = uint32_t[KA / KS][2];  // the warp's A fragments, 16 bytes of k at a time
@@ -357,10 +300,10 @@ __device__ __forceinline__ void load_a(AFrags& a, unsigned a_addr) {
 // scale in FP64 in the part's order (the largest first, where the norms
 // cancel exactly inside the fma); sink(c, C, P) sees the sums (the tile
 // check's window).
-template <class Epi, class Sink>
+template <class Sink>
 __device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg, unsigned a_addr,
                                               unsigned b_addr, unsigned b16_addr, double scale,
-                                              Epi epi, Sink sink) {
+                                              Sink sink) {
   int P[8];
 #pragma unroll
   for (int c = 0; c < NW; ++c) {
@@ -379,14 +322,6 @@ __device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg
         } else {
           ldsm_x4(a, a_addr + k * KS);
         }
-        if constexpr (ABLATE == 2) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            C[0][e] += (int)a[e] ^ (int)b_addr;
-            C[1][e] += (int)a[e] + (int)b_addr;
-          }
-          continue;
-        }
         ldsm_x4(b, b_addr + kb);
         mma_s8(C[0], a, b[0], b[1]);
         mma_s8(C[1], a, b[2], b[3]);
@@ -398,55 +333,41 @@ __device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg
         } else {
           ldsm_x2(a, a_addr + k * KS);
         }
-        if constexpr (ABLATE == 2) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            C[0][e] += (int)a[e & 1] ^ (int)b_addr;
-            C[1][e] += (int)a[e & 1] + (int)b_addr;
-          }
-          continue;
-        }
         ldsm_x2(b, b16_addr + kb);
         mma_s8_k16(C[0], a[0], a[1], b[0]);
         mma_s8_k16(C[1], a[0], a[1], b[1]);
       }
     }
-    epi(c);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int x = C[i >> 2][i & 3];
       P[i] = part_first(c) ? x : P[i] * 128 + x;
       if (part_last(c))
-        t[i] = fma(ABLATE == 3 ? __hiloint2double(P[i], 0) : (double)P[i],
-                   scale * (double)(1LL << (7 * (NW - 1 - c))), t[i]);
+        t[i] = fma((double)P[i], scale * (double)(1LL << (7 * (NW - 1 - c))), t[i]);
     }
     sink(c, C, P);
   }
 }
 
-// a sub-tile's arguments and its columns' v, between its MMAs and its exps
+// a sub-tile's arguments and its 4 columns' v, between its MMAs and its exps
 struct Args {
   double t[8];
   double cv[4];
 };
 
-// the exps of entries lo..hi - 1 of a sub-tile into the thread's 2 row sums
-__device__ __forceinline__ void accumulate(double (&acc)[2], const Args& s, const double* t8,
-                                           int lo = 0, int hi = 8) {
+// the exps of a sub-tile's 8 entries into the thread's 2 row sums
+__device__ __forceinline__ void accumulate(double (&acc)[2], const Args& s, const double* tab) {
 #pragma unroll
-  for (int i = lo; i < hi; ++i) {
-    const double e = ABLATE == 1 ? s.t[i] : SHORT_EXP ? exp_nonpos(s.t[i], t8) : exp(s.t[i]);
-    acc[(i & 3) >> 1] = fma(e, s.cv[2 * (i >> 2) + (i & 1)], acc[(i & 3) >> 1]);
+  for (int i = 0; i < 8; ++i) {
+    const int r = (i & 3) >> 1;
+    acc[r] = fma(exp_nonpos(s.t[i], tab), s.cv[2 * (i >> 2) + (i & 1)], acc[r]);
   }
 }
 
-// the arguments of the sub-tile at column col0 of a stage, with epi's FP64
-// work between its classes
-template <class Epi>
+// the arguments of the sub-tile at column col0 of a stage
 __device__ __forceinline__ void args_of(Args& s, const double (&rm)[2], const AFrags& areg,
                                         unsigned a_addr, const int8_t* sb, const double* sn,
-                                        const float* sv, int col0, int lane, double scale,
-                                        Epi epi) {
+                                        const float* sv, int col0, int lane, double scale) {
   const int t4 = lane & 3;
   double cn[4];
 #pragma unroll
@@ -461,7 +382,7 @@ __device__ __forceinline__ void args_of(Args& s, const double (&rm)[2], const AF
 #pragma unroll
   for (int i = 0; i < 8; ++i) s.t[i] = rm[(i & 3) >> 1] + cn[2 * (i >> 2) + (i & 1)];
   sub_tile_args(s.t, areg, a_addr, b_lane_addr(sb, col0, lane), b_lane_addr16(sb, col0, lane),
-                scale, epi, [](int, const int (&)[2][4], const int (&)[8]) {});
+                scale, [](int, const int (&)[2][4], const int (&)[8]) {});
 }
 
 __global__ void __launch_bounds__(THREADS, MINB)
@@ -478,13 +399,12 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   auto sv = [&](int buf) {
     return reinterpret_cast<float*>(ring + buf * stage_bytes(TJ) + TJ * KB + TJ * 8);
   };
-  double* const t8 = reinterpret_cast<double*>(ring + STAGES * stage_bytes(TJ));
+  double* const tab = reinterpret_cast<double*>(ring + STAGES * stage_bytes(TJ));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   const int wm = warp % WARPS_M, wn = warp / WARPS_M;
-  if (SHORT_EXP && tid < (1 << TB))  // seen after stage_begin(0)
-    t8[tid] = TB == 6 ? EXP2_64[tid] : EXP2_TABLE[TB == 5][tid];
+  for (int i = tid; i < 64; i += THREADS) tab[i] = EXP2_64[i];  // seen after stage_begin(0)
   const int row_base = blockIdx.x * BM;
   const int rows_here = min(BM, n - row_base);
   const bool active = wm * 16 < rows_here;  // n is a multiple of 128: whole warps
@@ -503,7 +423,8 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
       const int col = grp * 8 + (rem & 7), ch = rem >> 3;
       cp_async16(b + b_at(col, ch * 16), cols_b + (j0 + col) * KB + ch * 16);
     }
-    for (int idx = tid; idx < TJ / 2; idx += THREADS) cp_async16(sn(buf) + 2 * idx, norms + j0 + 2 * idx);
+    for (int idx = tid; idx < TJ / 2; idx += THREADS)
+      cp_async16(sn(buf) + 2 * idx, norms + j0 + 2 * idx);
     for (int idx = tid; idx < TJ / 4; idx += THREADS) cp_async16(sv(buf) + 4 * idx, v + j0 + 4 * idx);
   };
   for (int idx = tid; idx < rows_here * (KA / 16); idx += THREADS) {
@@ -546,18 +467,18 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   AFrags areg;
   if constexpr (AREG) load_a(areg, a_addr);
   // sub-tile k: stage k / NSUB, the warp's (k % NSUB)-th 16 columns of it
-  auto args_at = [&](int k, Args& st, auto epi) {
+  auto args_at = [&](int k, Args& st) {
     const int u = k / NSUB, j = k - u * NSUB, buf = u % STAGES;
     if (j == 0 && u > 0) stage_begin(u);
     if (active)
       args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
-              scale, epi);
+              scale);
   };
   const int total = t_count * NSUB;
   for (int k = 0; k < total; ++k) {
     Args st;
-    args_at(k, st, [](int) {});
-    if (active) accumulate(acc, st, t8);
+    args_at(k, st);
+    if (active) accumulate(acc, st, tab);
   }
 
 #pragma unroll
@@ -615,7 +536,6 @@ __global__ void words_mma_tile_kernel(const int8_t* __restrict__ rows_a,
     double t[8] = {};
     int p = 0;
     sub_tile_args(t, areg, a_addr, b_lane_addr(sb, 0, lane), b_lane_addr16(sb, 0, lane), 1.0,
-                  [](int) {},
                   [&](int c, const int (&C)[2][4], const int (&P)[8]) {
                     for (int i = 0; i < 8; ++i) out_c[c * 512 + at(i)] = C[i >> 2][i & 3];
                     if (part_last(c)) {
@@ -642,7 +562,7 @@ cudaError_t configure() {
 
 // The launch plan of this library for n rows on the current device: out =
 // {d, BM, TJ, STAGES, threads, shared bytes, blocks per SM, splits, KA, KB,
-// parts of S, A in registers, the short exp}.
+// parts of S, A in registers}.
 // splits divides the column tiles evenly and, of those that do, takes the
 // fewest waves of blocks times tiles per block (one tile more for a split's
 // fill). Returns the CUDA error code (0 on success).
@@ -671,9 +591,8 @@ extern "C" int sqexp_words_mma_plan(int n, int* out) {
       best = s;
     }
   }
-  const int plan[13] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, n_parts(), AREG,
-                        SHORT_EXP};
-  for (int i = 0; i < 13; ++i) out[i] = plan[i];
+  const int plan[12] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, n_parts(), AREG};
+  for (int i = 0; i < 12; ++i) out[i] = plan[i];
   return 0;
 }
 
@@ -685,11 +604,13 @@ extern "C" int sqexp_words_mma_plan(int n, int* out) {
 extern "C" int sqexp_words_mma(const void* rows_a, const void* cols_b, const void* norms,
                                const void* v, void* partial, int shift, int n, int d, int splits,
                                void* stream) {
-  if (d != D || n < 128 || n % 128 != 0 || shift < -1000 || shift > 1000) return (int)cudaErrorInvalidValue;
+  if (d != D || n < 128 || n % 128 != 0 || shift < -1000 || shift > 1000)
+    return (int)cudaErrorInvalidValue;
   const int n_tiles = n / TJ;
   if (splits < 1 || splits > n_tiles || splits > 65535) return (int)cudaErrorInvalidValue;
   const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  if ((n_tiles + tiles_per_split - 1) / tiles_per_split != splits) return (int)cudaErrorInvalidValue;
+  if ((n_tiles + tiles_per_split - 1) / tiles_per_split != splits)
+    return (int)cudaErrorInvalidValue;
   const cudaError_t rc = configure();
   if (rc != cudaSuccess) return (int)rc;
   const dim3 grid((n + BM - 1) / BM, splits);

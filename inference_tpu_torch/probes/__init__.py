@@ -49,6 +49,14 @@ def bound(n_bytes, flops, peak_flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fp64_issue_ms(n, fp64_per_entry, clock_hz=BOOST_CLOCK_HZ):
+    """The FP64-issue time (ms) of n^2 entries of ``fp64_per_entry`` FP64
+    instructions each, one instruction a lane and cycle on the SMs' FP64
+    lanes at ``clock_hz``. Under --fmad=false each sub, mul and add is a
+    whole instruction, so this, not the flops bound, is the FP64 ceiling."""
+    return float(n) * n * fp64_per_entry / (SMS * LANES["float64"] * clock_hz) * 1e3
+
+
 def time_events(fn, args=(), reps=10):
     """Mean ms of ``fn(*args)`` over ``reps`` calls between two CUDA
     events, after one warm-up call."""

@@ -39,12 +39,12 @@ import numpy as np
 import torch
 
 from ..ops import _build, df64
-from . import EXP_FLOPS, FP64_FLOPS, INT8_MACS, LANES, SMS, bound, time_events
+from . import EXP_FLOPS, FP64_FLOPS, INT8_MACS, bound, time_events
 from .df64_ablate import N, make_inputs
 
 NW = 7  # fixed-point words per coordinate
 BITS = 7  # magnitude bits per word
-KS = 16  # int8 entries of a K chunk (the MMAs take 32, or 16 for a last chunk): every class's K is a multiple
+KS = 16  # int8 entries of a K chunk (an MMA takes two, or one last): each class's K is a multiple
 D_MAX = 256  # the largest d whose combined class sum S fits int64
 
 KERNEL_LAUNCHES = 0  # launches of the kernel in this process
@@ -187,11 +187,10 @@ def _words_reference(ops, v):
     return out
 
 
-def kernel_variant(d, **extra):
-    """The nvcc defines of the kernel's library for d coordinates (one per
-    d), with ``extra`` defines of a measured variant (``P3_AREG``,
-    ``P3_EXP``)."""
-    return (("P3_D", d),) + tuple(sorted(extra.items()))
+def kernel_variant(d):
+    """The nvcc defines of the kernel's library for d coordinates: one
+    library per d."""
+    return (("P3_D", d),)
 
 
 def _check_cuda(kernel, ops, *extra):
@@ -207,16 +206,15 @@ def _check_cuda(kernel, ops, *extra):
 
 
 PLAN_KEYS = ("d", "bm", "tj", "stages", "threads", "smem", "blocks_per_sm", "splits", "ka", "kb",
-             "parts", "areg", "short_exp")
+             "parts", "areg")
 
 
-def plan(n, d, device, variant=()):
+def plan(n, d, device):
     """The library's launch plan for n rows at d on ``device``
     (``sqexp_words_mma_plan``): its tile sizes, ring depth, threads, shared
     bytes, blocks an SM, column splits, operand widths, the parts of S
-    (``parts``) and its routes (A in registers, the short exp)."""
-    fn = getattr(_build.load("sqexp_words_mma", kernel_variant(d, **dict(variant))),
-                 "sqexp_words_mma_plan")
+    (``parts``) and whether A's fragments sit in registers."""
+    fn = getattr(_build.load("sqexp_words_mma", kernel_variant(d)), "sqexp_words_mma_plan")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     out = (ctypes.c_int * len(PLAN_KEYS))()
     with torch.cuda.device(device):
@@ -225,23 +223,22 @@ def plan(n, d, device, variant=()):
     return dict(zip(PLAN_KEYS, out))
 
 
-def _launch_words(ops, v, variant=()):
-    """Launch ``csrc/sqexp_words_mma.cu`` (the library of ``ops``' d, in the
-    measured ``variant``'s defines) on ``prepare``'s operands and float32 v
-    on one CUDA device, with the result of ``_words_reference``."""
+def _launch_words(ops, v):
+    """Launch ``csrc/sqexp_words_mma.cu`` (the library of ``ops``' d) on
+    ``prepare``'s operands and float32 v on one CUDA device, with the result
+    of ``_words_reference``."""
     global KERNEL_LAUNCHES
     dev = _check_cuda("P3", ops, ("v", v))
     if v.dtype != torch.float32:
         raise TypeError(f"kernel P3: v must be float32, got {v.dtype}")
     n, d = ops["rows"].shape[0], ops["d"]
-    p = plan(n, d, dev, variant)
+    p = plan(n, d, dev)
     if (p["ka"], p["kb"]) != (ops["rows"].shape[1], ops["cols"].shape[1]):
         raise ValueError(f"kernel P3: operands of {ops['rows'].shape[1]} and "
                          f"{ops['cols'].shape[1]} bytes, the library's d = {d} takes "
                          f"{p['ka']} and {p['kb']}")
     partial = torch.empty((p["splits"], n), dtype=torch.float64, device=dev)
-    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 4,
-                     kernel_variant(d, **dict(variant)))
+    fn = _build.bind("sqexp_words_mma", "sqexp_words_mma", 5, 4, kernel_variant(d))
     with torch.cuda.device(dev):
         rc = fn(ops["rows"].data_ptr(), ops["cols"].data_ptr(), ops["norms"].data_ptr(),
                 v.data_ptr(), partial.data_ptr(), ops["shift"], n, d, p["splits"],
@@ -304,13 +301,6 @@ def tensor_ms(n, d):
     to the MMA's step), over the tensor cores' dense int8 rate: the least
     time of its MMAs (ms)."""
     return float(n) * n * layout(d)[2] / INT8_MACS * 1e3
-
-
-def fp64_issue_ms(n, fp64_per_entry, clock_hz):
-    """The FP64-issue time (ms) of n^2 entries of ``fp64_per_entry`` FP64
-    instructions each (read from the kernel's SASS), one instruction a lane
-    and cycle on the SMs' FP64 lanes at ``clock_hz``."""
-    return float(n) * n * fp64_per_entry / (SMS * LANES["float64"] * clock_hz) * 1e3
 
 
 def make_coords(n, d, device="cuda", seed=0):

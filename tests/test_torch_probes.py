@@ -30,7 +30,7 @@ import torch
 
 from inference_tpu.ops import df64 as jdf64
 from inference_tpu_torch.ops import df64
-from inference_tpu_torch.probes import df64_ablate, vpu_probe
+from inference_tpu_torch.probes import df64_ablate, fp64_issue_ms, vpu_probe
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as p3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -223,7 +223,8 @@ def test_words_operands_give_the_class_sums(words_inputs):
         np.testing.assert_array_equal((A.astype(np.float64) @ B.astype(np.float64).T), ref)
         np.testing.assert_array_equal(tile_c[c].numpy(), ref[:32, :16])
     S = p3._class_sums(ops)
-    combined = sum(tile_p[k].long() * 2 ** (7 * (p3.NW - 1 - b)) for k, (_, b) in enumerate(p3.parts(d)))
+    combined = sum(tile_p[k].long() * 2 ** (7 * (p3.NW - 1 - b))
+                   for k, (_, b) in enumerate(p3.parts(d)))
     np.testing.assert_array_equal(combined.numpy(), S[:32, :16].numpy())
     cross = S.double() * 2.0 ** ops["shift"]
     assert np.abs(cross.numpy() - u @ u.T).max() <= 1e-11
@@ -237,7 +238,8 @@ def test_words_class_sum_does_not_overflow(d, signs):
     equal to the sum in Python's integers, below 2^63; and each of the
     kernel's parts of S fits int32."""
     rng = np.random.default_rng(d)
-    W = np.full((32, p3.NW * d), 64) if signs == "all +64" else rng.choice([-64, 64], (32, p3.NW * d))
+    shape = (32, p3.NW * d)
+    W = np.full(shape, 64) if signs == "all +64" else rng.choice([-64, 64], shape)
     rows, cols = p3._operands(W, d)
     ops = {"rows": torch.as_tensor(rows), "cols": torch.as_tensor(cols), "d": d}
     got = p3._class_sums(ops).numpy()
@@ -280,7 +282,7 @@ def test_words_layout_and_readings(d, chunks, mmas, parts):
     n = 53_248
     assert p3.tensor_ms(n, d) == pytest.approx(n * n * KB / 989.5e12 * 1e3)
     assert p3.words_bound(n, d) == (n * n * 37 / 33.5e12 * 1e3, "operations")
-    assert p3.fp64_issue_ms(n, 21, 1.98e9) == pytest.approx(n * n * 21 / (132 * 64 * 1.98e9) * 1e3)
+    assert fp64_issue_ms(n, 21, 1.98e9) == pytest.approx(n * n * 21 / (132 * 64 * 1.98e9) * 1e3)
 
 
 def test_words_checks():
