@@ -124,9 +124,13 @@ Phases, each of which raises on failure (so the script exits non-zero):
     configuration timed with its bound; the SASS instruction mix of the hot
     loops of B3, B4 (q = 8), P2 and P3 (d = 2, 20) with the issue bounds it
     sets; P2 every variant and B3; P3 at d = 2 and 20 beside B3, against the
-    float64 truth, with its flops bound, FP64-issue time (its SASS's FP64
+    float64 truth, with its bound (the larger of its FP64 flops and its
+    int8 MACs over their data-sheet rates) and two models printed beside
+    it, not in the JSON line: its FP64-issue time (its SASS's FP64
     instructions per entry at P1's measured clock) and tensor-core time;
-    then the plain versions timed.
+    P3's hot loop must hold no inner loop and its issue time must stay
+    below the measured time, or its SASS was misread; then the plain
+    versions timed.
 
 The second-to-last lines are a JSON object describing the kernels (each
 with its bound, plain version and library call) and the ``nvidia-smi``
@@ -1675,22 +1679,34 @@ SASS_CLASSES = {"fp64": ("DFMA", "DADD", "DMUL"), "fp32": ("FFMA", "FMUL", "FADD
                 "local": ("LDL", "STL"), "call": ("CALL", "RET")}
 
 
-def _hot_loop(body, cls="fp64", least=4, ops=None):
+def _hot_span(body, cls="fp64", least=4, ops=None):
     """The innermost loop that holds at least ``least`` instructions of the
     class ``cls`` (or of the opcodes ``ops``) in one kernel's SASS
     ``body``: the smallest span from a backward branch's target to the
-    branch, as a list of (opcode, operands), or None."""
+    branch, as a list of (address, opcode, operands), or None."""
     ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
         r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^ ;]*([^;]*);", body)]
     where = {a: k for k, (a, _, _) in enumerate(ins)}
     loops = []
     for k, (a, op, rest) in enumerate(ins):
-        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        if target and int(target.group(1), 16) < a and int(target.group(1), 16) in where:
-            loop = [(o, r) for _, o, r in ins[where[int(target.group(1), 16)]:k + 1]]
-            if sum(o in (ops or SASS_CLASSES[cls]) for o, _ in loop) >= least:
+        target = _back_target(a, op, rest)
+        if target is not None and target in where:
+            loop = ins[where[target]:k + 1]
+            if sum(o in (ops or SASS_CLASSES[cls]) for _, o, _ in loop) >= least:
                 loops.append(loop)
     return min(loops, key=len) if loops else None
+
+
+def _back_target(address, op, operands):
+    """The target of a backward branch at ``address``, else None."""
+    target = re.search(r"0x([0-9a-f]+)", operands) if op == "BRA" else None
+    return int(target.group(1), 16) if target and int(target.group(1), 16) < address else None
+
+
+def _hot_loop(body, cls="fp64", least=4, ops=None):
+    """``_hot_span`` as a list of (opcode, operands), or None."""
+    span = _hot_span(body, cls, least, ops)
+    return None if span is None else [(o, r) for _, o, r in span]
 
 
 def _hot_loop_mix(name, symbol, entries, defines=(), cls="fp64"):
@@ -1698,17 +1714,20 @@ def _hot_loop_mix(name, symbol, entries, defines=(), cls="fp64"):
     the class ``cls``) of one kernel of ``name``'s library in the variant
     ``defines``, read off its SASS with cuobjdump; ``entries`` is the number
     of entries one thread evaluates per trip. Returns {class: count per
-    entry, "all": every instruction} or None without cuobjdump."""
+    entry, "all": every instruction, "inner_loops": the backward branches
+    inside it, whose loops this count takes once a trip} or None without
+    cuobjdump."""
     sass = _sass(name, defines)
     if sass is None:
         return None
-    loop = _hot_loop(sass.split(symbol)[1].split("Function :")[0], cls)
-    if loop is None:
+    span = _hot_span(sass.split(symbol)[1].split("Function :")[0], cls)
+    if span is None:
         return None
-    loop = [o for o, _ in loop]
+    loop = [o for _, o, _ in span]
     mix = {c: sum(o in names for o in loop) / entries for c, names in SASS_CLASSES.items()}
     mix["other"] = len(loop) / entries - sum(mix.values())
     mix["all"] = len(loop) / entries
+    mix["inner_loops"] = sum(_back_target(*x) is not None for x in span[:-1])
     return mix
 
 
@@ -1897,6 +1916,13 @@ def _print_b1_leapfrog_mix(P):
           f"flops per step {flops:g}, {flops / 2:g} FMA equivalents")
 
 
+def _issue_ms(n, per_entry, clock_hz):
+    """The SMs' issue time (ms) of n^2 entries of ``per_entry`` instructions
+    each, one warp instruction a cycle on each of the 4 schedulers of 132
+    SMs at ``clock_hz``: a lower bound where the count is right."""
+    return float(n) * n / 32 * per_entry / (4 * 132 * clock_hz) * 1e3
+
+
 def _print_hot_loops(n, clock_hz):
     """Print each HOT_LOOPS kernel's instructions per entry and two issue
     bounds for n^2 entries: the SMs issuing one warp instruction per cycle
@@ -1910,7 +1936,7 @@ def _print_hot_loops(n, clock_hz):
         if mix is None:
             print(f"[sass] {label}: hot loop not read (no cuobjdump or no loop found)")
             continue
-        issue_ms = float(n) * n / 32 * mix["all"] / (4 * 132 * clock_hz) * 1e3
+        issue_ms = _issue_ms(n, mix["all"], clock_hz)
         fp64_ms = float(n) * n / 32 * mix["fp64"] * 2 / (4 * 132 * clock_hz) * 1e3
         print(f"[sass] {label} hot loop, instructions per entry: "
               + ", ".join(f"{k} {c:g}" for k, c in mix.items())
@@ -2080,23 +2106,30 @@ def phase_probe_paths(n):
     for d in P3_D:
         r = p3[d]
         mix = mixes[f"P3 d={d}"]
-        if mix is None:
-            raise RuntimeError(f"P3 d={d}: the hot loop's SASS was not read ({P3_SYMBOL})")
+        if mix is None or mix["inner_loops"]:
+            raise RuntimeError(f"P3 d={d}: the hot loop's SASS was not read, or holds an inner "
+                               f"loop ({P3_SYMBOL}: {mix})")
         r["fp64_per_entry"] = mix["fp64"]
         r["fp64_issue_ms"] = fp64_issue_ms(n, mix["fp64"], mhz * 1e6)
+        issue = _issue_ms(n, mix["all"], mhz * 1e6)
         r["plan"] = words.plan(n, d, CUDA)
         _, _, us_d, v_d = words.make_coords(n, d, CUDA)
         r["plain_ms"] = time_events(words._words_reference, (words.prepare(us_d.cpu().numpy(),
                                                                             CUDA), v_d), 1)
         print(f"[probe P3] n={n} d={d}: {r['ms']:.4f} ms beside B3's {r['b3_ms']:.4f} ms "
               f"({r['ms'] / r['b3_ms']:.3f}x); flops bound {r['bound_ms']:.4f} ms "
-              f"({r['ms'] / r['bound_ms']:.2f}x), FP64-issue time {r['fp64_issue_ms']:.4f} ms "
+              f"({words.words_bound(n, d)[0]:.4f} ms of FP64 flops; {r['ms'] / r['bound_ms']:.2f}x); "
+              f"models, not times: FP64-issue time {r['fp64_issue_ms']:.4f} ms "
               f"({r['fp64_per_entry']:g} FP64 instructions per entry from the SASS, "
-              f"{mhz:.0f} MHz; {r['ms'] / r['fp64_issue_ms']:.2f}x), tensor-core time "
+              f"{mhz:.0f} MHz; {r['ms'] / r['fp64_issue_ms']:.2f}x), issue time of the hot loop "
+              f"{issue:.4f} ms ({mix['all']:g} instructions per entry), tensor-core time "
               f"{r['tensor_ms']:.4f} ms ({words.layout(d)[2]} int8 MACs per entry at 989.5e12 "
               f"MAC/s; {r['ms'] / r['tensor_ms']:.2f}x); plain version {r['plain_ms']:.4f} ms; "
               f"error against the float64 truth {r['err']:.3e} (B3 {r['b3_err']:.3e}) of max "
               f"|y|; words built on the host in {r['build_s']:.3f} s; plan {r['plan']}")
+        if issue > r["ms"]:
+            raise RuntimeError(f"P3 d={d}: the hot loop's issue time {issue} ms exceeds the "
+                               f"measured {r['ms']} ms, so its SASS was misread")
         if not r["err"] <= 1e-11:
             raise RuntimeError(f"P3 is {r['err']} off the float64 truth at d={d}")
     x = vpu_probe.make_tile(torch.float64, CUDA)
@@ -2138,7 +2171,6 @@ def _probe_rows(probe, errs):
         "bound_ms": p3[2]["bound_ms"], "bound_by": p3[2]["bound_by"], "library_ms": None,
         "per_d": {d: {"launches": probe["launches"][f"P3 d={d}"], "max_abs_err": errs["P3"][d],
                       **{k: p3[d][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "fp64_issue_ms", "fp64_per_entry", "tensor_ms",
                                                "b3_ms", "err", "plan")}}
                   for d in P3_D},
     }]

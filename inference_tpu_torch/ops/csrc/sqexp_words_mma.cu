@@ -39,13 +39,13 @@
 // degree-4 polynomial, 9 FP64 instructions against CUDA's 18, within 2.5e-15
 // of it); an fma accumulates with v widened to double.
 //
-// What bounds it. Per entry 14 FP64 instructions (the add of the norms,
-// three part fmas, the exp's 9, the accumulate): 2.4 ms at n = 53,248 on the
-// 132 SMs' FP64 lanes at 1.98 GHz. Beside them on other pipes: the parts'
-// integer combines and conversions, the exp's integer work and table load,
-// and the MMAs, 112 int8 MACs an entry at d = 2 and 608 at d = 20 (0.3 and
-// 1.7 ms at the dense int8 rate). On the H100 the MMAs do not hide under the
-// FP64 work: timed without them the kernel runs 2.8 ms faster at d = 2 and
+// What bounds it. Per entry 14 FP64 instructions, 25 flops (the add of the
+// norms, three part fmas, the exp's 9, the accumulate): 2.4 ms at n = 53,248
+// on the 132 SMs' FP64 lanes at 1.98 GHz. Beside them on other pipes: the
+// parts' integer combines and conversions, the exp's integer work and table
+// load, and the MMAs, 112 int8 MACs an entry at d = 2 and 608 at d = 20 (0.3
+// and 1.7 ms at the dense int8 rate). On the H100 the MMAs do not hide under
+// the FP64 work: timed without them the kernel ran 2.8 ms faster at d = 2 and
 // 6.6 ms at d = 20 (PERF.md), an mma.sync costing about 20 cycles of its SM
 // sub-partition whatever its K; wgmma (B from shared memory, every class in
 // flight, one wait) ran slower still. So the tensor work, and not the FP64
@@ -57,7 +57,8 @@
 // walks its split of the columns in tiles of TJ through a cp.async ring of
 // STAGES buffers (the class words as 8-column core matrices that ldmatrix
 // reads without bank conflicts, the norms and v). A warp takes a tile in
-// 16 x 16 sub-tiles, 8 entries a thread: each class's MMAs, the parts, the
+// 16 x 16 sub-tiles, 8 entries a thread, one a trip of the innermost loop:
+// each class's MMAs (every offset and size a constant), the parts, the
 // exps. The registers are held to 64 so that two blocks, 32 warps, share an
 // SM and hide each other's latencies (a few spills; one block of 92-116
 // registers ran 3-7% slower); BM, TJ and STAGES follow from d to fit two
@@ -137,9 +138,15 @@ static_assert(part_fits(0, 0) && part_fits(NW - 1, NW - 1), "a class alone must 
 
 // A's fragments live in registers where a row's words are short (KA <= 160,
 // d <= 22), else ldmatrix reads them at each use
-constexpr bool AREG = KA <= 160;
+#ifndef P3_AREG_KA
+#define P3_AREG_KA 160
+#endif
+constexpr bool AREG = KA <= P3_AREG_KA;
 constexpr int WARPS = 16;     // warps of a block at most: 16 x 16 rows
-constexpr int MINB_ASKED = 2;  // blocks an SM that registers and shared memory leave room for
+#ifndef P3_MINB
+#define P3_MINB 2
+#endif
+constexpr int MINB_ASKED = P3_MINB;  // blocks an SM that registers and shared memory leave room for
 
 // dynamic shared memory of one block on the H100 when `blocks` share an SM
 // (228 KB an SM, 1 KB of it reserved for each block)
@@ -294,6 +301,18 @@ __device__ __forceinline__ void load_a(AFrags& a, unsigned a_addr) {
   }
 }
 
+// a class index as a type, so that every size and offset of class C is a
+// constant expression
+template <int C>
+struct Class {
+  static constexpr int value = C;
+};
+template <class F, int... Cs>
+__device__ __forceinline__ void each_class(F&& f, Class<Cs>...) {
+  (f(Class<Cs>{}), ...);
+}
+static_assert(NW == 7, "each_class lists the 7 classes");
+
 // The thread's 8 entries of a 16 x 16 sub-tile: entry i = 4 nt + e (n8 tile
 // nt, fragment slot e) in row slot e / 2 (rows g, g + 8) and column slot
 // 2 nt + e % 2. Each class's MMAs; P of each part, then t += P 2^(7 (6 - b))
@@ -305,14 +324,16 @@ __device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg
                                               unsigned b_addr, unsigned b16_addr, double scale,
                                               Sink sink) {
   int P[8];
-#pragma unroll
-  for (int c = 0; c < NW; ++c) {
+  each_class([&](auto cls) {
+    constexpr int c = decltype(cls)::value;
+    constexpr int KC = class_k(c) / KS;            // 16-byte chunks of the class's K
+    constexpr unsigned KB0 = class_off(c) * 8;     // shared bytes of its first chunk
     int C[2][4] = {};
     // class c's K in chunks of 16: m16n8k32 for each pair, m16n8k16 for an odd last
 #pragma unroll
-    for (int k = 0; k < class_k(c) / KS; k += 2) {
-      const unsigned kb = (class_off(c) + k * KS) * 8;  // shared bytes of k
-      if (k + 1 < class_k(c) / KS) {
+    for (int k = 0; k < KC; k += 2) {
+      const unsigned kb = KB0 + k * KS * 8;
+      if (k + 1 < KC) {
         uint32_t a[4], b[4];
         if constexpr (AREG) {
           a[0] = areg[k][0];
@@ -338,15 +359,19 @@ __device__ __forceinline__ void sub_tile_args(double (&t)[8], const AFrags& areg
         mma_s8_k16(C[1], a[0], a[1], b[1]);
       }
     }
+    constexpr double WEIGHT = (double)(1LL << (7 * (NW - 1 - c)));
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int x = C[i >> 2][i & 3];
-      P[i] = part_first(c) ? x : P[i] * 128 + x;
-      if (part_last(c))
-        t[i] = fma((double)P[i], scale * (double)(1LL << (7 * (NW - 1 - c))), t[i]);
+      if constexpr (part_first(c)) {
+        P[i] = x;
+      } else {
+        P[i] = P[i] * 128 + x;
+      }
+      if constexpr (part_last(c)) t[i] = fma((double)P[i], scale * WEIGHT, t[i]);
     }
     sink(c, C, P);
-  }
+  }, Class<0>{}, Class<1>{}, Class<2>{}, Class<3>{}, Class<4>{}, Class<5>{}, Class<6>{});
 }
 
 // a sub-tile's arguments and its 4 columns' v, between its MMAs and its exps
@@ -466,19 +491,23 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
   stage_begin(0);
   AFrags areg;
   if constexpr (AREG) load_a(areg, a_addr);
-  // sub-tile k: stage k / NSUB, the warp's (k % NSUB)-th 16 columns of it
-  auto args_at = [&](int k, Args& st) {
-    const int u = k / NSUB, j = k - u * NSUB, buf = u % STAGES;
-    if (j == 0 && u > 0) stage_begin(u);
-    if (active)
+  // a stage at a time; in it the warp's NSUB sub-tiles of 16 columns, one a
+  // trip of the innermost loop, which holds nothing else
+  for (int u = 0; u < t_count; ++u) {
+    if (u > 0) stage_begin(u);
+    const int buf = u % STAGES;
+    if (!active) continue;
+#if P3_JUNROLL
+#pragma unroll
+#else
+#pragma unroll 1
+#endif
+    for (int j = 0; j < NSUB; ++j) {
+      Args st;
       args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
               scale);
-  };
-  const int total = t_count * NSUB;
-  for (int k = 0; k < total; ++k) {
-    Args st;
-    args_at(k, st);
-    if (active) accumulate(acc, st, tab);
+      accumulate(acc, st, tab);
+    }
   }
 
 #pragma unroll

@@ -39,13 +39,15 @@ import numpy as np
 import torch
 
 from ..ops import _build, df64
-from . import EXP_FLOPS, FP64_FLOPS, INT8_MACS, bound, time_events
+from . import FP64_FLOPS, INT8_MACS, bound, time_events
 from .df64_ablate import N, make_inputs
 
 NW = 7  # fixed-point words per coordinate
 BITS = 7  # magnitude bits per word
 KS = 16  # int8 entries of a K chunk (an MMA takes two, or one last): each class's K is a multiple
 D_MAX = 256  # the largest d whose combined class sum S fits int64
+# FP64 flops of the kernel's exp_nonpos (an fma two): 7 DFMA, 1 DADD, 1 DMUL
+EXP_NONPOS_FLOPS = 16
 
 KERNEL_LAUNCHES = 0  # launches of the kernel in this process
 
@@ -288,18 +290,20 @@ def _tile_reference(ops):
 
 
 def words_bound(n, d):
-    """(ms, what bounds it) of the kernel's FP64 work at n, with
-    chip_smoke.py's arithmetic (an fma two flops): per entry one add and
-    one fma for the argument, the exp and the fma accumulate; the operands
-    read once and y written once."""
+    """(ms, what bounds it) of the kernel's FP64 work at n, an fma two
+    flops: per entry the add of the norms, one fma for each part of S
+    (``parts``), exp_nonpos (``EXP_NONPOS_FLOPS``) and the fma accumulate,
+    25 flops up to d = 31 (three parts), 27 above; the operands read once
+    and y written once."""
     KA, _, KB = layout(d)
-    return bound(n * (KA + KB + 8 + 4 + 8), float(n) * n * (3 + EXP_FLOPS + 2), FP64_FLOPS)
+    flops = 1 + 2 * len(parts(d)) + EXP_NONPOS_FLOPS + 2
+    return bound(n * (KA + KB + 8 + 4 + 8), float(n) * n * flops, FP64_FLOPS)
 
 
 def tensor_ms(n, d):
     """The int8 MACs the kernel issues, KB an entry (each class's K, padded
-    to the MMA's step), over the tensor cores' dense int8 rate: the least
-    time of its MMAs (ms)."""
+    to the MMA's step), over the data sheet's dense int8 rate: the least
+    time of its MMAs (ms), a model."""
     return float(n) * n * layout(d)[2] / INT8_MACS * 1e3
 
 
@@ -356,8 +360,8 @@ def main(argv=None):
               f"(max |y - truth| / max |truth|); words built on the host in "
               f"{r['build_s']:.3f} s")
         if on_card:
-            print(f"  words: {r['ms']:8.4f} ms ({r['ms'] * 1e9 / n**2:.4f} ps/entry), flops bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), tensor-core time "
+            print(f"  words: {r['ms']:8.4f} ms ({r['ms'] * 1e9 / n**2:.4f} ps/entry), bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), tensor-core time (a model) "
                   f"{r['tensor_ms']:.4f} ms")
             print(f"  B3:    {r['b3_ms']:8.4f} ms ({r['b3_ms'] * 1e9 / n**2:.4f} ps/entry)")
 

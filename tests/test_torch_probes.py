@@ -273,7 +273,9 @@ def test_words_layout_and_readings(d, chunks, mmas, parts):
     issues an m16n8k32 MMA for each pair of chunks and an m16n8k16 for an
     odd last one, ``mmas`` a 16 x 8 tile; the tensor-core time counts the
     MACs issued; the parts of S cover the classes in order; the flops bound
-    counts 37 FP64 flops an entry at every d."""
+    counts the add of the norms, an fma a part, exp_nonpos's 16 flops and
+    the accumulate's fma: 25 FP64 flops an entry with three parts, 27 with
+    four."""
     assert p3.parts(d) == parts
     KA, classes, KB = p3.layout(d)
     assert KA == -(-7 * d // 16) * 16 and KB == sum(k for _, k in classes) == 16 * chunks
@@ -281,8 +283,19 @@ def test_words_layout_and_readings(d, chunks, mmas, parts):
     assert [off for off, _ in classes] == list(np.cumsum([0] + [k for _, k in classes])[:-1])
     n = 53_248
     assert p3.tensor_ms(n, d) == pytest.approx(n * n * KB / 989.5e12 * 1e3)
-    assert p3.words_bound(n, d) == (n * n * 37 / 33.5e12 * 1e3, "operations")
+    assert p3.words_bound(n, d) == (n * n * (19 + 2 * len(parts)) / 33.5e12 * 1e3, "operations")
     assert fp64_issue_ms(n, 21, 1.98e9) == pytest.approx(n * n * 21 / (132 * 64 * 1.98e9) * 1e3)
+
+
+def test_words_bound_counts_the_kernels_exp():
+    """EXP_NONPOS_FLOPS is the FP64 work of the kernel's exp_nonpos: seven
+    fmas, the shifter's subtraction and the product with the table."""
+    src = open(os.path.join(REPO, "inference_tpu_torch", "ops", "csrc",
+                            "sqexp_words_mma.cu")).read()
+    body = src.split("double exp_nonpos(")[1].split("\n}\n")[0]
+    fmas = body.count("fma(")
+    assert fmas == 7 and "kf - SHIFTER" in body and "p * tab[" in body
+    assert p3.EXP_NONPOS_FLOPS == 2 * fmas + 2
 
 
 def test_words_checks():
