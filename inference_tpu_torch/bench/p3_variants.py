@@ -7,6 +7,7 @@ beside B3 at n = 53,248, d = 2 and 20.
 """
 
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -14,10 +15,16 @@ from ..ops import _build, df64
 from ..probes import df64_mxu_d2_experiment as p3, time_events
 
 N = 53_248
-# the shipped kernel, then one switch changed at a time: A's fragments by
-# ldmatrix at each use, one block an SM (no register cap), the sub-tile loop
-# unrolled
-VARIANTS = ((), (("P3_AREG_KA", 0),), (("P3_MINB", 1),), (("P3_JUNROLL", 1),))
+V = lambda *kv: tuple(zip(kv[::2], kv[1::2]))  # noqa: E731
+# the shipped kernel, then the switches alone and together: A's fragments by
+# ldmatrix at each use (P3_AREG_KA 0), one block an SM with no register cap
+# (P3_MINB 1), JU sub-tiles a trip of the sub-tile loop (P3_JU)
+VARIANTS = {2: ((), V("P3_JU", 2), V("P3_JU", 4), V("P3_MINB", 1), V("P3_MINB", 1, "P3_JU", 2),
+                V("P3_MINB", 1, "P3_JU", 4)),
+            20: ((), V("P3_AREG_KA", 0), V("P3_MINB", 1), V("P3_AREG_KA", 0, "P3_JU", 2),
+                 V("P3_MINB", 1, "P3_JU", 2), V("P3_MINB", 1, "P3_AREG_KA", 0),
+                 V("P3_MINB", 1, "P3_AREG_KA", 0, "P3_JU", 2), V("P3_MINB", 1, "P3_JU", 4),
+                 V("P3_MINB", 1, "P3_AREG_KA", 0, "P3_JU", 4))}
 
 
 def main():
@@ -25,12 +32,15 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
+    libs = [shipped(d) + extra for d in VARIANTS for extra in VARIANTS[d]]
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a library, all at once
+        list(pool.map(lambda v: _build.load("sqexp_words_mma", v), libs))
     for d in (2, 20):
         uh, ul, us, v = p3.make_coords(N, d, dev)
         ops = p3.prepare(us.cpu().numpy(), dev)
         ref = p3._words_reference(ops, v)
         scale = df64._fused_reference(us, us, v.abs()[:, None])[:, 0]
-        for extra in VARIANTS:
+        for extra in VARIANTS[d]:
             p3.kernel_variant = lambda d, extra=extra: shipped(d) + extra
             got = p3.words_matvec(ops, v)
             log = _build.build_log("sqexp_words_mma", p3.kernel_variant(d)).splitlines()
@@ -40,7 +50,7 @@ def main():
                   f"{p3.plan(N, d, dev)}", flush=True)
         del ref, scale
         for _ in range(2):
-            for extra in VARIANTS:
+            for extra in VARIANTS[d]:
                 p3.kernel_variant = lambda d, extra=extra: shipped(d) + extra
                 print(f"[time] d={d} {extra}: {time_events(p3.words_matvec, (ops, v), 5):.4f} ms",
                       flush=True)

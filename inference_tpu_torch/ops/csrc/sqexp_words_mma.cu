@@ -176,6 +176,11 @@ constexpr int WARPS_M = BM / 16;  // one m16 tile of rows a warp
 constexpr int WARPS_N = WARPS / WARPS_M < TJ / 16 ? WARPS / WARPS_M : TJ / 16;
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int NSUB = TJ / 16 / WARPS_N;  // 16-column sub-tiles of a warp in one stage
+#ifndef P3_JU
+#define P3_JU 1
+#endif
+constexpr int JU = P3_JU;  // sub-tiles a trip of the innermost loop
+static_assert(NSUB % JU == 0, "the sub-tiles of a stage split into whole trips");
 constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 512;  // + exp_nonpos's table
 static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -497,16 +502,15 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
     if (u > 0) stage_begin(u);
     const int buf = u % STAGES;
     if (!active) continue;
-#if P3_JUNROLL
-#pragma unroll
-#else
 #pragma unroll 1
-#endif
-    for (int j = 0; j < NSUB; ++j) {
-      Args st;
-      args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
-              scale);
-      accumulate(acc, st, tab);
+    for (int j0 = 0; j0 < NSUB; j0 += JU) {
+#pragma unroll
+      for (int j = j0; j < j0 + JU; ++j) {
+        Args st;
+        args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
+                scale);
+        accumulate(acc, st, tab);
+      }
     }
   }
 
