@@ -52,7 +52,7 @@
 // pipe, sets the time.
 //
 // The design. A block of 16 warps owns BM = 256 rows, 16 a warp (one m16
-// tile, its A fragments in registers for short rows, KA <= 160, d <= 22, else
+// tile, its A fragments in registers for short rows, KA <= 32, d <= 4, else
 // read by ldmatrix at each use), their words resident in shared memory, and
 // walks its split of the columns in tiles of TJ through a cp.async ring of
 // STAGES buffers (the class words as 8-column core matrices that ldmatrix
@@ -60,10 +60,10 @@
 // 16 x 16 sub-tiles, 8 entries a thread, one a trip of the innermost loop:
 // each class's MMAs (every offset and size a constant), the parts, the
 // exps. The registers are held to 64 so that two blocks, 32 warps, share an
-// SM and hide each other's latencies (a few spills; one block of 92-116
-// registers ran 3-7% slower); BM, TJ and STAGES follow from d to fit two
-// blocks in the 228 KB of shared memory (choose_plan), one where two do not
-// fit. The column range is split over blockIdx.y so that the blocks fill the
+// SM and hide each other's latencies (a few spills; one block an SM of
+// 115-128 registers ran up to 2% slower at d = 2 and 20, PERF.md); BM, TJ
+// and STAGES follow from d to fit two blocks in the 228 KB of shared memory
+// (choose_plan), one where two do not fit. The column range is split over blockIdx.y so that the blocks fill the
 // SMs in whole waves (sqexp_words_mma_plan); the wrapper adds the splits.
 
 #include <cuda_runtime.h>
@@ -136,17 +136,12 @@ __host__ __device__ constexpr int n_parts() {
 }
 static_assert(part_fits(0, 0) && part_fits(NW - 1, NW - 1), "a class alone must fit int32");
 
-// A's fragments live in registers where a row's words are short (KA <= 160,
-// d <= 22), else ldmatrix reads them at each use
-#ifndef P3_AREG_KA
-#define P3_AREG_KA 160
-#endif
-constexpr bool AREG = KA <= P3_AREG_KA;
+// A's fragments live in registers where a row's words are short (KA <= 32,
+// d <= 4), else ldmatrix reads them at each use: at d = 20 their 18
+// registers spilled under the cap of 64, 14-26% slower (PERF.md)
+constexpr bool AREG = KA <= 32;
 constexpr int WARPS = 16;     // warps of a block at most: 16 x 16 rows
-#ifndef P3_MINB
-#define P3_MINB 2
-#endif
-constexpr int MINB_ASKED = P3_MINB;  // blocks an SM that registers and shared memory leave room for
+constexpr int MINB_ASKED = 2;  // blocks an SM that registers and shared memory leave room for
 
 // dynamic shared memory of one block on the H100 when `blocks` share an SM
 // (228 KB an SM, 1 KB of it reserved for each block)
@@ -176,11 +171,6 @@ constexpr int WARPS_M = BM / 16;  // one m16 tile of rows a warp
 constexpr int WARPS_N = WARPS / WARPS_M < TJ / 16 ? WARPS / WARPS_M : TJ / 16;
 constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int NSUB = TJ / 16 / WARPS_N;  // 16-column sub-tiles of a warp in one stage
-#ifndef P3_JU
-#define P3_JU 1
-#endif
-constexpr int JU = P3_JU;  // sub-tiles a trip of the innermost loop
-static_assert(NSUB % JU == 0, "the sub-tiles of a stage split into whole trips");
 constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 512;  // + exp_nonpos's table
 static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -503,14 +493,11 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
     const int buf = u % STAGES;
     if (!active) continue;
 #pragma unroll 1
-    for (int j0 = 0; j0 < NSUB; j0 += JU) {
-#pragma unroll
-      for (int j = j0; j < j0 + JU; ++j) {
-        Args st;
-        args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
-                scale);
-        accumulate(acc, st, tab);
-      }
+    for (int j = 0; j < NSUB; ++j) {
+      Args st;
+      args_of(st, rm, areg, a_addr, sb(buf), sn(buf), sv(buf), (j * WARPS_N + wn) * 16, lane,
+              scale);
+      accumulate(acc, st, tab);
     }
   }
 
