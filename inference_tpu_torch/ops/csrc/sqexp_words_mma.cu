@@ -1,7 +1,8 @@
 // Probe P3: kernel B3's function with the squared distance's cross term from
 // exact integer matmuls on the tensor cores, for Hopper (sm_90a), at any
-// coordinate dimension d up to 256. One library per d (-DP3_D=<d>): every
-// size below is fixed at compile time.
+// coordinate dimension d up to 411, where the smallest plan (16 rows of words
+// resident, one stage of 16 columns) still fits a block's shared memory. One
+// library per d (-DP3_D=<d>): every size below is fixed at compile time.
 //
 // Replaces the Pallas kernel of benchmarks/df64_mxu_d2_experiment.py::
 // _matvec_mxu_pallas (kernel :72-161, launched at :179). The plain PyTorch
@@ -23,12 +24,12 @@
 // = C_c[i, j]. KA and each class_k are multiples of 16 bytes.
 //
 // The cross term. Every C_c is a sum of mma.sync instructions of int8
-// operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31), written by hand in
+// operands with int32 sums (|C_c| <= 7 d 2^12 < 2^31 up to d = 74,898), written by hand in
 // PTX: m16n8k32 for each pair of 16-byte chunks of the class's K and
 // m16n8k16 for an odd last one, 7 a 16 x 8 tile at d = 2 (all k16), 21 at
 // d = 20. S needs up to 63 bits, and a 64-bit integer fold costs about 13
 // integer instructions an entry, so S never forms: runs of classes whose
-// sums fit int32 ("parts", part_fits: three at d = 2 and 20, four at d = 256)
+// sums fit int32 ("parts", part_fits: three at d = 2 and 20, four at d = 33-411)
 // are combined in 32 bits as they leave the MMAs, each part is converted to
 // double and added by one fma into the argument, the largest first, where
 // m_i + m_j and the cross term cancel exactly inside the fma:
@@ -80,8 +81,7 @@ namespace {
 constexpr int NW = 7;         // words per coordinate (df64_mxu_d2_experiment.py NW)
 constexpr int D = P3_D;       // coordinate dimension of this library
 constexpr int KS = 16;        // bytes of a K chunk: each class's K is a multiple
-constexpr int D_MAX = 256;    // every part of S fits int32 up to here (see part_fits)
-static_assert(D >= 1 && D <= D_MAX, "P3_D must lie in [1, 256]");
+static_assert(D >= 1, "P3_D must be positive");
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 constexpr int KA = round_up(NW * D, KS);  // bytes of a row's words
@@ -106,7 +106,7 @@ __host__ __device__ constexpr int b_at(int col, int kbyte) {  // kbyte a multipl
 // The parts of S = sum_c C_c 2^(7 (6 - c)): runs of consecutive classes a..b
 // whose P = sum_{c=a..b} C_c 2^(7 (b - c)) fits int32 for words of +-64
 // (|C_c| <= (c + 1) d 2^12), taken greedily from class 0. Three parts at
-// d = 2 and 20 (classes 0-2, 3-5, 6 and 0-2, 3-4, 5-6), four at d = 256.
+// d = 2 and 20 (classes 0-2, 3-5, 6 and 0-2, 3-4, 5-6), four at d = 33-411.
 constexpr bool part_fits(int a, int b) {
   double bound = 0.0;
   for (int c = a; c <= b; ++c) {
@@ -530,24 +530,27 @@ sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restri
 }
 
 // one warp: the class sums C_c and the parts P of rows 0-31 and columns 0-15
-// by the matvec's own staging, fragments and combine, two m16 tiles in turn;
+// by the matvec's own staging, fragments and combine, two m16 tiles in turn,
+// each staged alone (16 rows of words, as the matvec's smallest plan);
 // out_c (7, 32, 16), out_p (n_parts, 32, 16)
 __global__ void words_mma_tile_kernel(const int8_t* __restrict__ rows_a,
                                       const int8_t* __restrict__ cols_b, int* __restrict__ out_c,
                                       int* __restrict__ out_p) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* const sa = reinterpret_cast<int8_t*>(smem);
-  int8_t* const sb = sa + 32 * SA;  // 16 columns: two 8-column groups
+  int8_t* const sb = sa + 16 * SA;  // 16 columns: two 8-column groups
   const int lane = threadIdx.x, g = lane >> 2, t4 = lane & 3;
-  for (int idx = lane; idx < 32 * (KA / 16); idx += 32)
-    cp_async16(sa + (idx / (KA / 16)) * SA + (idx % (KA / 16)) * 16, rows_a + idx * 16);
   for (int idx = lane; idx < 16 * (KB / 16); idx += 32)
     cp_async16(sb + b_at(idx / (KB / 16), (idx % (KB / 16)) * 16), cols_b + idx * 16);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncwarp();
   for (int r16 = 0; r16 < 32; r16 += 16) {
-    const unsigned a_addr = a_lane_addr(sa, r16, lane);
+    __syncwarp();
+    for (int idx = lane; idx < 16 * (KA / 16); idx += 32)
+      cp_async16(sa + (idx / (KA / 16)) * SA + (idx % (KA / 16)) * 16,
+                 rows_a + (size_t)r16 * KA + idx * 16);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+    const unsigned a_addr = a_lane_addr(sa, 0, lane);
     AFrags areg;
     if constexpr (AREG) load_a(areg, a_addr);
     auto at = [&](int i) {  // (row, column) of the thread's entry i
@@ -572,7 +575,7 @@ cudaError_t configure() {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(words_mma_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               32 * SA + 16 * KB);
+                               16 * SA + 16 * KB);
     return e;
   }();
   return rc;
@@ -649,7 +652,7 @@ extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out_
   if (d != D || n < 32) return (int)cudaErrorInvalidValue;
   const cudaError_t rc = configure();
   if (rc != cudaSuccess) return (int)rc;
-  words_mma_tile_kernel<<<1, 32, 32 * SA + 16 * KB, static_cast<cudaStream_t>(stream)>>>(
+  words_mma_tile_kernel<<<1, 32, 16 * SA + 16 * KB, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
       static_cast<int*>(out_c), static_cast<int*>(out_p));
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 """Probe P3: kernel B3's function with the squared distance's cross term
-from exact integer matmuls on the tensor cores, at any coordinate dimension
-d up to ``D_MAX``.
+from exact integer matmuls on the tensor cores, at any coordinate dimension d
+(the kernel up to ``D_MAX``).
 
 Port of ``benchmarks/df64_mxu_d2_experiment.py``. On the TPU the pair-
 arithmetic distance was the fused kernels' bottleneck, and the experiment
@@ -9,16 +9,20 @@ split: each coordinate becomes ``NW = 7`` integer words of 7 bits
 (``build_words``), and the cross term is a sum over scale classes ``c`` of
 exact integer matmuls ``C_c``. Here the class matmuls are int8 ``mma.sync``
 instructions on the tensor cores, written by hand
-(``ops/csrc/sqexp_words_mma.cu``, one library per d), their int32 sums are
-combined exactly in integers into ``S = sum_c C_c 2^(7 (6 - c))``, and the
-argument ``-|u_i|^2/2 - |u_j|^2/2 + S 2^shift``, the exp and the accumulate
+(``ops/csrc/sqexp_words_mma.cu``, one library per d), and the argument ``-|u_i|^2/2 - |u_j|^2/2 + S 2^shift``, the exp and the accumulate
 run in FP64 as in B3. The TPU kernel's pair combine and pair exponential
 (its ``:120-153``) worked round the TPU's lack of float64 and are not
 ported; ``build_norms`` is kept as the JAX script defines it, and the kernel
 takes the FP64 norms it splits (``half_norms``).
 
-The JAX probe takes any d; the port takes d <= ``D_MAX`` = 256, where S
-still fits int64 (``|S| <= 1.016 d 2^54``) and raises above.
+The combined class sum ``S = sum_c C_c 2^(7 (6 - c))`` needs 54 + log2(d)
+bits, more than int64 holds above d = 256. The plain version carries it
+exactly in two int64 words (``_class_sums``) and rounds it to FP64 once, so
+it takes any d, as the JAX probe does; the kernel folds S into the FP64
+argument part by part (``parts``). The kernel takes d <= ``D_MAX`` = 411,
+where its smallest plan (16 rows of words resident, one stage of 16
+columns) still fits the 227 KB of shared memory a block may have; its
+wrapper raises above.
 
 ``words_matvec`` launches the kernel for operands (``prepare``) on a CUDA
 device and runs the plain version ``_words_reference`` (the class matmuls in
@@ -45,7 +49,7 @@ from .df64_ablate import N, make_inputs
 NW = 7  # fixed-point words per coordinate
 BITS = 7  # magnitude bits per word
 KS = 16  # int8 entries of a K chunk (an MMA takes two, or one last): each class's K is a multiple
-D_MAX = 256  # the largest d whose combined class sum S fits int64
+LO_BITS = BITS * (NW - 1)  # S = hi 2^LO_BITS + lo, 0 <= lo < 2^LO_BITS (``_class_sums``)
 # FP64 flops of the kernel's exp_nonpos (an fma two): 7 DFMA, 1 DADD, 1 DMUL
 EXP_NONPOS_FLOPS = 16
 
@@ -112,16 +116,25 @@ def _operands(W, d):
     return rows, cols
 
 
+def _plan_fits(d):
+    """Whether the kernel's smallest plan at d fits a block's shared memory:
+    16 rows of words at its pitch, one stage of 16 columns (words, norms, v)
+    and the exp's table, as ``csrc/sqexp_words_mma.cu``'s choose_plan
+    counts them."""
+    KA, _, KB = layout(d)
+    return 16 * (_round_up(KA, 32) + 16) + 16 * (KB + 12) + 512 <= 233472 - 1024
+
+
+D_MAX = max(d for d in range(1, 1024) if _plan_fits(d))  # the largest d the kernel takes
+
+
 def prepare(u64, device="cuda"):
-    """The kernel's operands from FP64 coordinates ``u64`` (n, d), d <=
-    ``D_MAX``, built on the host: ``rows`` and ``cols`` (``_operands``),
-    ``norms`` (n,) float64, ``shift`` = 2 s - 56, the exponent of the
-    combined class sum, and ``d``."""
+    """The kernel's operands from FP64 coordinates ``u64`` (n, d), built on
+    the host: ``rows`` and ``cols`` (``_operands``), ``norms`` (n,) float64,
+    ``shift`` = 2 s - 56, the exponent of the combined class sum, and
+    ``d``."""
     u64 = np.asarray(u64, np.float64)
     n, d = u64.shape
-    if d > D_MAX:
-        raise ValueError(f"[ prepare error ] d = {d} coordinates: the combined class sum "
-                         f"overflows int64 above d = {D_MAX}; d <= {D_MAX}.")
     Wq, s = build_words(u64)
     rows, cols = _operands(Wq, d)
     t = lambda a: torch.as_tensor(a, device=device)
@@ -138,12 +151,27 @@ def class_operands(ops, c):
 
 def _class_sums(ops, rows=slice(None), cols=slice(None)):
     """Exact C_c of the rows against the columns (float64 matmuls of
-    integers below 2^31), summed to S = sum_c C_c 2^(7 (6 - c)) in int64."""
-    S = 0
+    integers below 2^31), summed to S = sum_c C_c 2^(7 (6 - c)) exactly in
+    two int64 words (hi, lo), S = hi 2^42 + lo with 0 <= lo < 2^42: C_c
+    2^(42 - 7 c) = floor(C_c / 2^(7 c)) 2^42 + (C_c mod 2^(7 c)) 2^(42 - 7 c),
+    the first into hi and the second, below 2^42, into lo, then lo's carry
+    into hi. |hi| stays below 1.02 d 2^12, so S is exact at every d."""
+    hi = lo = 0
     for c in range(NW):
         A, B = class_operands(ops, c)
-        S = S + (A[rows].double() @ B[cols].double().T).long() * (1 << BITS * (NW - 1 - c))
-    return S
+        C = (A[rows].double() @ B[cols].double().T).long()
+        low = BITS * c  # the bits of C_c below 2^42 once it is scaled by 2^(42 - 7 c)
+        q = C >> low  # floor(C_c / 2^(7 c))
+        hi = hi + q
+        lo = lo + ((C - (q << low)) << (LO_BITS - low))
+    carry = lo >> LO_BITS
+    return hi + carry, lo - (carry << LO_BITS)
+
+
+def _class_sum_f64(hi, lo):
+    """S = hi 2^42 + lo (``_class_sums``) in FP64, rounded once: hi 2^42
+    and lo are exact doubles, and their sum rounds."""
+    return hi.double() * 2.0**LO_BITS + lo.double()
 
 
 def parts(d):
@@ -176,15 +204,16 @@ def _parts_of(C, d):
 
 def _words_reference(ops, v):
     """The kernel's plain version: the class matmuls in float64 (exact for
-    these integers), the same integer combine and FP64 argument, torch.exp,
-    and the product with v in float64, row block by row block."""
+    these integers), S exact (``_class_sums``) rounded once into the FP64
+    argument, torch.exp, and the product with v in float64, row block by row
+    block."""
     norms = ops["norms"]
     n = norms.shape[0]
     scale = 2.0 ** ops["shift"]
     V64 = v.double()
     out = torch.empty(n, dtype=torch.float64, device=norms.device)
     for blk in df64._row_blocks(n, n):
-        arg = (norms[blk, None] + norms[None, :]) + _class_sums(ops, blk).double() * scale
+        arg = (norms[blk, None] + norms[None, :]) + _class_sum_f64(*_class_sums(ops, blk)) * scale
         out[blk] = torch.exp(arg) @ V64
     return out
 
@@ -231,6 +260,9 @@ def _launch_words(ops, v):
     of ``_words_reference``."""
     global KERNEL_LAUNCHES
     dev = _check_cuda("P3", ops, ("v", v))
+    if ops["d"] > D_MAX:
+        raise ValueError(f"kernel P3: d = {ops['d']} coordinates; its plan fits the shared "
+                         f"memory up to d = {D_MAX}")
     if v.dtype != torch.float32:
         raise TypeError(f"kernel P3: v must be float32, got {v.dtype}")
     n, d = ops["rows"].shape[0], ops["d"]
@@ -349,7 +381,8 @@ def run(n=N, device="cuda", time_reps=5, seed=0, d=2):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("sizes", nargs="*", type=int, default=[N])
-    p.add_argument("--d", type=int, default=2, help="coordinate dimension (1-256)")
+    p.add_argument("--d", type=int, default=2,
+                   help=f"coordinate dimension (any on the CPU, 1-{D_MAX} on the card)")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     on_card = torch.device(a.device).type == "cuda"

@@ -222,32 +222,39 @@ def test_words_operands_give_the_class_sums(words_inputs):
         ref = A_j.astype(np.float64) @ B_j.astype(np.float64).T
         np.testing.assert_array_equal((A.astype(np.float64) @ B.astype(np.float64).T), ref)
         np.testing.assert_array_equal(tile_c[c].numpy(), ref[:32, :16])
-    S = p3._class_sums(ops)
+    hi, lo = p3._class_sums(ops)
+    S = hi * 2**p3.LO_BITS + lo  # fits int64 at these d
     combined = sum(tile_p[k].long() * 2 ** (7 * (p3.NW - 1 - b))
                    for k, (_, b) in enumerate(p3.parts(d)))
     np.testing.assert_array_equal(combined.numpy(), S[:32, :16].numpy())
-    cross = S.double() * 2.0 ** ops["shift"]
+    cross = p3._class_sum_f64(hi, lo) * 2.0 ** ops["shift"]
     assert np.abs(cross.numpy() - u @ u.T).max() <= 1e-11
 
 
-@pytest.mark.parametrize("d", [20, p3.D_MAX])
+@pytest.mark.parametrize("d", [20, 256, 300, 1000])
 @pytest.mark.parametrize("signs", ["all +64", "random +-64"])
 def test_words_class_sum_does_not_overflow(d, signs):
     """At the largest words (every one +-64) the combined S = sum_c C_c
-    2^(7 (6 - c)) of the plain version is exact in int64 up to D_MAX:
-    equal to the sum in Python's integers, below 2^63; and each of the
-    kernel's parts of S fits int32."""
+    2^(7 (6 - c)) of the plain version is exact at any d, also where it
+    passes int64 (d = 1000): its two words equal the sum in Python's
+    integers, lo in [0, 2^42), and its FP64 value is that sum rounded once;
+    and each of the kernel's parts of S fits int32."""
     rng = np.random.default_rng(d)
     shape = (32, p3.NW * d)
     W = np.full(shape, 64) if signs == "all +64" else rng.choice([-64, 64], shape)
     rows, cols = p3._operands(W, d)
     ops = {"rows": torch.as_tensor(rows), "cols": torch.as_tensor(cols), "d": d}
-    got = p3._class_sums(ops).numpy()
+    hi, lo = p3._class_sums(ops)
     exact = sum((W[:, : (c + 1) * d].astype(np.int64)
                  @ np.concatenate([W[:, a * d:(a + 1) * d] for a in range(c, -1, -1)], 1).T
                  ).astype(object) * 2 ** (7 * (6 - c)) for c in range(p3.NW))
-    assert np.abs(exact).max() < 2 ** 63
-    np.testing.assert_array_equal(got.astype(object), exact)
+    if signs == "all +64":  # past int64 at d = 1000
+        assert (np.abs(exact).max() >= 2 ** 63) == (d == 1000)
+    assert int(lo.min()) >= 0 and int(lo.max()) < 2**p3.LO_BITS
+    got = hi.numpy().astype(object) * 2**p3.LO_BITS + lo.numpy().astype(object)
+    np.testing.assert_array_equal(got, exact)
+    rounded = np.vectorize(float, otypes=[np.float64])(exact)  # Python's int -> float rounds once
+    np.testing.assert_array_equal(p3._class_sum_f64(hi, lo).numpy(), rounded)
     C = torch.stack([A.double() @ B.double().T for A, B in
                      (p3.class_operands(ops, c) for c in range(p3.NW))]).long()
     assert int(p3._parts_of(C, d).abs().max()) < 2 ** 31
@@ -299,14 +306,21 @@ def test_words_bound_counts_the_kernels_exp():
 
 
 def test_words_checks():
-    u = np.random.default_rng(0).uniform(0, 10, (N, p3.D_MAX + 1))
-    with pytest.raises(ValueError, match=f"d <= {p3.D_MAX}"):
-        p3.prepare(u, "cpu")
+    """The plain version takes d above the kernel's limit (``D_MAX``, the
+    largest d whose smallest plan fits a block's shared memory); the
+    operands' checks raise."""
+    assert p3.D_MAX == 411 and p3._plan_fits(411) and not p3._plan_fits(412)
+    u = np.random.default_rng(0).uniform(0, 0.5, (128, p3.D_MAX + 1))
+    v = torch.as_tensor(np.random.default_rng(1).normal(size=128).astype(np.float32))
+    y = p3.words_matvec(p3.prepare(u, "cpu"), v).numpy()
+    E = np.exp(-0.5 * ((u[:, None, :] - u[None, :, :]) ** 2).sum(-1))
+    v64 = v.numpy().astype(np.float64)
+    assert np.all(np.abs(y - E @ v64) <= 1e-11 * (E @ np.abs(v64)))
     ops = p3.prepare(u[:, :2], "cpu")
     with pytest.raises(TypeError):
         p3.words_matvec(ops, torch.zeros(N, dtype=torch.float64))
     with pytest.raises(ValueError):
-        p3.words_matvec(p3.prepare(u[:200, :2], "cpu"), torch.zeros(200))
+        p3.words_matvec(p3.prepare(u[:100, :2], "cpu"), torch.zeros(100))
 
 
 # --------------------------------------------------------------------- #
