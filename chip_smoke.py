@@ -1,6 +1,8 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
 (kernel B1, and its wide route for P > 64), the headline and dense HMC
-benches, the single-chain HamiltonianChain, dense GP regression (kernel
+benches, the single-chain HamiltonianChain, the Metropolis family
+(ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain) and
+posteriors written with numpy, dense GP regression (kernel
 B2), the matrix-free small-noise GP (kernels B3-B8) and the probes P1-P3
 that measure B3.
 
@@ -58,7 +60,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    ``HamiltonianChain`` on the card, a bounded 10-dim problem for 2,000
    steps (10 leapfrog steps a proposal) against the same chain on the CPU
    for 1,000, its device operations per transition counted by
-   ``torch.profiler``, and a save, load and advance;
+   ``torch.profiler``, and a save, load and advance; then the Metropolis
+   family, which has no kernel of its own: (e) gibbs-10d,
+   ``ChainArray`` on ``benchmarks/chain_batch_bench.py``'s 10-dim Gaussian,
+   the gibbs kind at 1,024 and 65,536 chains with retry=True and False and
+   the metropolis and pca kinds with retry=False timed in chain-steps/s,
+   stored runs of each at 1,024 chains held to the covariance (variances
+   within 10%, R-hat < 1.05), a ``torch.profiler`` reading of one retry=True
+   advance at 65,536 chains (idle share, launches a sweep, tries a
+   parameter, host syncs); (f) gibbs-rosenbrock, ``GibbsChain`` and
+   ``PcaChain`` on ``demos/gibbs_chain_demo.py``'s posterior from [2, -4] on
+   the card and on the CPU (steps/s), held to 2D grid quadrature and to
+   each other, and a retry=False ``ChainArray`` of 1,024 chains held to the
+   quadrature; (g) a1-numpy, the same posterior written with numpy:
+   ``GibbsChain`` on the card (host evaluations, state on the card) held to
+   the torch chain, ``HamiltonianChain`` with the forward-difference
+   gradient, ``ChainArray("gibbs")`` at 64 chains; their readings as one
+   JSON line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -151,7 +169,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from inference_tpu_torch import Bounds, HamiltonianChain
+from inference_tpu_torch import Bounds, GibbsChain, HamiltonianChain, PcaChain
 from inference_tpu_torch.bench import dense_hmc, headline
 from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
 from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
@@ -842,6 +860,318 @@ def _profile_chain(chain, n=20):
           f"step ({leapfrog} steps)")
     if ops == 0:
         raise RuntimeError("HamiltonianChain: the profiler saw no device operation")
+
+
+# ---------------------------------------------------------------------------
+# the Metropolis family and numpy posteriors (no kernel of their own):
+# gibbs-10d, gibbs-rosenbrock, a1-numpy
+# ---------------------------------------------------------------------------
+
+GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's count
+# (warm-up, timed) steps of a gibbs or pca timing run: chain_batch_bench.py's
+# 128 and 512 cut to fit the script's time (the rate is launch-bound and flat)
+GIBBS_STEPS = {False: (16, 64), True: (16, 64)}
+METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
+GIBBS_CHECK = 1024  # chains of the stored correctness runs
+# timed steps of one chain by device (the demo's 150,000 cut to the script's time)
+ROSEN_STEPS = {"cuda": 1000, "cpu": 2000}
+ROSEN_CHAINS = 1024  # chains of the ChainArray runs on the demo's posterior
+A1_CHAINS = 64
+
+
+def gauss10(t):
+    """chain_batch_bench.py's 10-dim correlated Gaussian in torch: d = t -
+    roll(t, 1) / 2, logp = -|d|^2 / 2."""
+    d = t - 0.5 * torch.roll(t, 1, dims=-1)
+    return -0.5 * (d * d).sum(-1)
+
+
+def gauss10_cov():
+    """Its covariance, inv((I - S/2)^T (I - S/2)) with S the cyclic shift."""
+    M = np.eye(10) - 0.5 * np.roll(np.eye(10), 1, axis=0)
+    return np.linalg.inv(M.T @ M)
+
+
+def rosen_torch(t):
+    """demos/gibbs_chain_demo.py's posterior in torch."""
+    x, y = t[0], t[1]
+    x2 = x**2
+    return -x2 - 15.0 * (y - x2) ** 2 - 0.5 * (x2 + y**2) / 9.0
+
+
+def rosen_numpy(t):
+    """The same posterior written with numpy, as the reference's users write
+    theirs: evaluated on the host."""
+    x, y = float(t[0]), float(t[1])
+    return -x * x - 15.0 * (y - x * x) ** 2 - 0.5 * (x * x + y * y) / 9.0
+
+
+def rosen_quadrature():
+    """Means and variances of x and y under the demo's density by 2D grid
+    quadrature in float64 (x on [-6, 6], y on [-8, 40], steps 0.004 and
+    0.008: the density is below 1e-30 of its peak at the edges)."""
+    x = np.linspace(-6.0, 6.0, 3001)
+    y = np.linspace(-8.0, 40.0, 6001)
+    X, Y = np.meshgrid(x, y, indexing="ij")
+    X2 = X * X
+    logp = -X2 - 15.0 * (Y - X2) ** 2 - 0.5 * (X2 + Y * Y) / 9.0
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    mean = np.array([(w * X).sum(), (w * Y).sum()])
+    var = np.array([(w * (X - mean[0]) ** 2).sum(), (w * (Y - mean[1]) ** 2).sum()])
+    return mean, var
+
+
+def _timed_advance(ca, warm, timed):
+    """``advance(warm)`` then a timed ``advance(timed)``, both with
+    ``store=False`` (the advance ends in a sync); chain-steps/s."""
+    ca.advance(warm, store=False)
+    t0 = time.perf_counter()
+    ca.advance(timed, store=False)
+    return ca.n_chains * timed / (time.perf_counter() - t0)
+
+
+def _gibbs10_check(label, ca, cov, steps, burn):
+    """Advance a ChainArray ``steps`` stored steps and hold it: pooled
+    variances within 10% of the covariance's diagonal, rank-normalized
+    R-hat < 1.05 (PERF.md section 2), finite positions."""
+    ca.advance(steps)
+    s = ca.get_sample(burn=burn)
+    rel = np.abs(s.var(axis=0) / np.diag(cov) - 1.0)
+    rhat = ca.rhat(burn=burn)
+    print(f"[gibbs-10d] {label}: {steps} stored steps, {ca.n_chains} chains, burn {burn}: "
+          f"variances within {rel.max():.4f} of the truth (limit 0.10), max R-hat "
+          f"{rhat.max():.4f} (limit 1.05)")
+    if not np.isfinite(s).all() or rel.max() > 0.10 or not rhat.max() < 1.05:
+        raise RuntimeError(f"gibbs-10d {label}: the statistical checks failed")
+    return {"max_rel_var_err": float(rel.max()), "max_rhat": float(rhat.max())}
+
+
+def _profile_gibbs(ca, sweeps=4):
+    """torch.profiler over ``advance(sweeps, store=False)`` of a retry=True
+    ChainArray: device idle share, kernel launches per sweep, the host
+    reads (one count of acceptances a try, ``aten::_local_scalar_dense``)
+    and so the tries per parameter, and the host syncs
+    (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        ca.advance(sweeps, store=False)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    count = lambda name: sum(e.count for e in events if e.key == name)
+    tries = count("aten::_local_scalar_dense")
+    syncs = count("cudaStreamSynchronize") + count("cudaDeviceSynchronize")
+    P = ca.n_parameters
+    out = {"wall_ms": wall, "device_ms": device, "idle_pct": 100 * (1 - device / wall),
+           "launches_per_sweep": launches / sweeps, "tries_per_parameter": tries / (sweeps * P),
+           "syncs_per_sweep": syncs / sweeps}
+    print(f"[gibbs-10d profile] K={ca.n_chains}, retry=True, advance({sweeps}): {wall:.3f} ms "
+          f"wall, {device:.3f} ms of device kernels (device idle {out['idle_pct']:.1f}%); "
+          f"{out['launches_per_sweep']:.0f} kernel launches a sweep, "
+          f"{out['tries_per_parameter']:.2f} tries a parameter (host reads of the acceptance "
+          f"count), {out['syncs_per_sweep']:.0f} host syncs a sweep")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        ms = e.self_device_time_total / 1e3
+        print(f"[gibbs-10d profile] {ms:10.3f} ms ({100 * ms / wall:5.2f}% of wall)  "
+              f"{e.count:6d}x  {e.key[:80]}")
+    if launches == 0 or tries == 0:
+        raise RuntimeError("gibbs-10d: the profiler saw no launch or no try")
+    return out
+
+
+def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
+    """gibbs-10d: ``ChainArray`` on chain_batch_bench.py's 10-dim Gaussian
+    (its starts, seed 1, default widths). Chain-steps/s of the gibbs kind at
+    each chain count with retry=True and False, of the metropolis (widths
+    0.7) and pca kinds with retry=False; stored correctness runs of each
+    kind with the textbook update (retry=False) at ``check`` chains from
+    widths of 1 (metropolis 0.7; pca: one ``update_directions()`` after the
+    warm-up); a profile of one advance at the largest count with retry=True.
+    Returns the readings."""
+    cov = gauss10_cov()
+    out = {"rates": {}, "checks": {}}
+    for K in chains:
+        starts = np.random.default_rng(0).normal(size=(K, 10))
+        for kind, retry in (("gibbs", True), ("gibbs", False), ("metropolis", False),
+                            ("pca", False)):
+            kw = dict(widths=0.7) if kind == "metropolis" else {}
+            ca = ChainArray(kind, gauss10, starts, seed=1, retry=retry, device=device, **kw)
+            warm, timed = METROPOLIS_STEPS if kind == "metropolis" else GIBBS_STEPS[retry]
+            rate = _timed_advance(ca, warm, timed)
+            out["rates"][f"{kind} retry={retry} K={K}"] = rate
+            print(f"[gibbs-10d] {kind} retry={retry} K={K}: advance({warm}) then advance({timed}), "
+                  f"store=False: {rate:,.0f} chain-steps/s ({rate * 10:,.0f} parameter "
+                  f"updates/s)")
+            if not np.isfinite(ca.theta).all():
+                raise RuntimeError(f"gibbs-10d {kind}: non-finite positions")
+            if retry and K == chains[-1] and torch.device(device).type == "cuda":
+                out["profile"] = _profile_gibbs(ca)
+            del ca
+    starts = np.random.default_rng(0).normal(size=(check, 10))
+    for kind, retry, steps, burn in (("gibbs", False, 600, 200),
+                                     ("metropolis", False, 3000, 1000), ("pca", False, 400, 150)):
+        ca = ChainArray(kind, gauss10, starts, seed=2, retry=retry, device=device,
+                        widths=0.7 if kind == "metropolis" else 1.0)
+        if kind == "pca":
+            ca.advance(burn)
+            ca.update_directions()
+        out["checks"][f"{kind} retry={retry}"] = _gibbs10_check(
+            f"{kind} retry={retry}", ca, cov, steps, burn if kind != "pca" else 2 * burn)
+        if device == "cuda" and {t.device.type for t in
+                                 torch.utils._pytree.tree_leaves(ca._state)} != {"cuda"}:
+            raise RuntimeError(f"gibbs-10d {kind}: state left the card")
+    return out
+
+
+def _pooled(ca, burn):
+    """Pooled means and variances of a ChainArray's stored steps after
+    ``burn``, with standard errors from its K independent chains: the spread
+    of the chains' own means (and of their variance terms) over sqrt(K),
+    so an ESS of K var / var(chain means), with no autocorrelation
+    estimate."""
+    K, P = ca.n_chains, ca.n_parameters
+    h = ca.get_sample(burn=burn).reshape(-1, K, P)
+    m_k = h.mean(axis=0)
+    mean = m_k.mean(axis=0)
+    terms = h.var(axis=0) + (m_k - mean) ** 2
+    return (mean, terms.mean(axis=0), m_k.std(axis=0, ddof=1) / np.sqrt(K),
+            terms.std(axis=0, ddof=1) / np.sqrt(K))
+
+
+def _inside_box(s):
+    """Finite, and inside the quadrature's box (the density there is below
+    1e-30 of its peak outside it)."""
+    return bool(np.isfinite(s).all() and (np.abs(s[:, 0]) < 6).all()
+                and ((s[:, 1] > -8) & (s[:, 1] < 40)).all())
+
+
+def _rosen_chain(cls, posterior, device, n, seed=0):
+    """A chain of ``cls`` from [2, -4] (the demo's start): 200 warm steps,
+    then a timed ``advance(n)``; (chain, steps/s)."""
+    chain = cls(posterior=posterior, start=np.array([2.0, -4.0]), display_progress=False,
+                seed=seed, device=device)
+    chain.advance(200)
+    t0 = time.perf_counter()
+    chain.advance(n)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return chain, n / (time.perf_counter() - t0)
+
+
+def phase_gibbs_rosenbrock(steps=ROSEN_STEPS, devices=("cuda", "cpu")):
+    """gibbs-rosenbrock: the demo's posterior in torch. ``GibbsChain`` and
+    ``PcaChain`` from [2, -4] on the card and on the CPU: steps/s of a warm
+    timed advance (``steps`` by device), every sample finite and inside the
+    quadrature's box, and each one's distance to the quadrature printed (a
+    reading: one chain mixes slowly between the two arms of x given y, and
+    the reference's repeat-until-accept update these facades run is
+    biased). The held check: the gibbs and pca kinds of ``ChainArray`` with
+    the textbook update (retry=False) at 1,024 chains on the card around
+    the mode (widths 0.5, 2,000 stored steps, the first 1,000 dropped; pca
+    re-estimates its directions at 1,000), pooled means and variances within
+    5 standard errors (from the 1,024 independent chains, ``_pooled``) of
+    2D grid quadrature of the density. Returns the readings and the
+    quadrature."""
+    mean, var = rosen_quadrature()
+    print(f"[gibbs-rosenbrock] quadrature: means {mean}, variances {var}")
+    out = {}
+    for cls in (GibbsChain, PcaChain):
+        for device in devices:
+            n = steps[torch.device(device).type]
+            chain, rate = _rosen_chain(cls, rosen_torch, device, n)
+            s = chain.get_sample(burn=0)
+            label = f"{cls.__name__} {device}"
+            print(f"[gibbs-rosenbrock] {label}: advance({n}) at {rate:,.2f} steps/s; means "
+                  f"{s[200:].mean(axis=0)}, variances {s[200:].var(axis=0)} (a reading); "
+                  f"finite and inside the box: {_inside_box(s)}")
+            if not _inside_box(s):
+                raise RuntimeError(f"gibbs-rosenbrock {label}: samples non-finite or outside")
+            out[label] = {"steps_per_s": rate}
+    starts = np.array([0.0, 0.4]) + np.random.default_rng(5).normal(0, 0.5, (ROSEN_CHAINS, 2))
+    for kind in ("gibbs", "pca"):
+        ca = ChainArray(kind, rosen_torch, starts, widths=0.5, retry=False, seed=6,
+                        device=devices[0])
+        t0 = time.perf_counter()
+        ca.advance(1000)
+        if kind == "pca":
+            ca.update_directions()
+        ca.advance(1000)
+        rate = ROSEN_CHAINS * 2000 / (time.perf_counter() - t0)
+        m, v, se_m, se_v = _pooled(ca, 1000)
+        z_m, z_v = np.abs(m - mean) / se_m, np.abs(v - var) / se_v
+        print(f"[gibbs-rosenbrock] ChainArray('{kind}', retry=False), {ROSEN_CHAINS} chains on "
+              f"{devices[0]}: {rate:,.0f} chain-steps/s (stored); pooled means {m} (se {se_m}), "
+              f"variances {v} (se {se_v}): means within {z_m.max():.3f}, variances within "
+              f"{z_v.max():.3f} standard errors of the quadrature (limits 5)")
+        if not np.isfinite(ca.get_sample()).all() or z_m.max() > 5.0 or z_v.max() > 5.0:
+            raise RuntimeError(f"gibbs-rosenbrock: ChainArray('{kind}') is off the quadrature")
+        out[f"ChainArray {kind} retry=False"] = {"chain_steps_per_s": rate,
+                                                 "z_mean": float(z_m.max()),
+                                                 "z_var": float(z_v.max())}
+    return out, (mean, var)
+
+
+def phase_a1_numpy(steps=ROSEN_STEPS["cuda"], device="cuda"):
+    """a1-numpy: the demo's posterior written with numpy. ``GibbsChain`` on
+    the card (host evaluations, state on the card): steps/s, every sample
+    finite and inside the quadrature's box, and its stored log-probabilities
+    those of the numpy function at its samples (float32 rounding);
+    ``HamiltonianChain`` with the forward-difference gradient, 200
+    transitions of 10 leapfrog steps, finite and inside the box;
+    ``ChainArray("gibbs")`` at 64 chains (64 host calls a proposal), 200
+    steps with retry=False, its log-probabilities those of the numpy
+    function."""
+    out = {}
+    chain, rate = _rosen_chain(GibbsChain, rosen_numpy, device, steps)
+    if not chain._logp.host or {t.device.type for t in torch.utils._pytree.tree_leaves(
+            chain._state)} != {torch.device(device).type}:
+        raise RuntimeError("a1-numpy: the numpy GibbsChain is not on the host route with its "
+                           "state on the card")
+    s = chain.get_sample(burn=0)
+    lp = np.array([rosen_numpy(t) for t in s])
+    err = float(np.abs(chain.get_probabilities(burn=0) - lp).max() / max(1.0, np.abs(lp).max()))
+    print(f"[a1-numpy] GibbsChain {device} (host evaluations): advance({steps}) at {rate:,.2f} "
+          f"steps/s; finite and inside the box: {_inside_box(s)}; log-probabilities within "
+          f"{err:.3e} of the numpy function's (relative to max(1, |logp|))")
+    if not _inside_box(s) or err > 1e-5:
+        raise RuntimeError("a1-numpy: the numpy GibbsChain's samples or log-probabilities are off")
+    out[f"GibbsChain {device}"] = {"steps_per_s": rate, "logp_err": err}
+
+    hmc = HamiltonianChain(rosen_numpy, start=np.array([0.5, 0.5]), display_progress=False,
+                           seed=0, device=device)
+    hmc.steps = 10
+    t0 = time.perf_counter()
+    hmc.advance(200)
+    hmc_rate = 200 / (time.perf_counter() - t0)
+    s = hmc.get_sample(burn=0)
+    inside = bool(np.isfinite(s).all() and (np.abs(s[:, 0]) < 6).all()
+                  and ((s[:, 1] > -8) & (s[:, 1] < 40)).all())
+    print(f"[a1-numpy] HamiltonianChain {device}, forward-difference gradient: 200 transitions at "
+          f"{hmc_rate:.2f} transitions/s, means {s[50:].mean(axis=0)}, finite and inside the "
+          f"box: {inside}")
+    if not inside:
+        raise RuntimeError("a1-numpy: HamiltonianChain samples non-finite or outside the box")
+    out[f"HamiltonianChain {device}"] = {"transitions_per_s": hmc_rate}
+
+    starts = np.array([0.0, 0.5]) + np.random.default_rng(3).normal(0, 0.3, (A1_CHAINS, 2))
+    ca = ChainArray("gibbs", rosen_numpy, starts, retry=False, seed=4, device=device)
+    ca.advance(20, store=False)
+    t0 = time.perf_counter()
+    ca.advance(200)
+    ca_rate = A1_CHAINS * 200 / (time.perf_counter() - t0)
+    lp = np.array([rosen_numpy(t) for t in ca.theta])
+    err = float(np.abs(ca.logp - lp).max())
+    print(f"[a1-numpy] ChainArray('gibbs') {device}, {A1_CHAINS} chains: {ca_rate:,.1f} "
+          f"chain-steps/s; log-probabilities within {err:.3e} of the numpy function's")
+    if not np.isfinite(ca.get_sample()).all() or err > 1e-3 * max(1.0, np.abs(lp).max()):
+        raise RuntimeError("a1-numpy: ChainArray('gibbs') on a numpy posterior is off")
+    out[f"ChainArray gibbs {device}"] = {"chain_steps_per_s": ca_rate, "logp_err": err}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2210,6 +2540,18 @@ def main():
     print(f"[summary] B1 wide {t_dense - t_new:.1f} s, dense HMC {t_chain - t_dense:.1f} s, "
           f"HamiltonianChain {t_end - t_chain:.1f} s; HamiltonianChain transitions/s: card "
           f"{hc_rates['cuda']:.2f}, CPU {hc_rates['cpu']:.2f}")
+    gibbs10 = phase_gibbs_10d()
+    t_rosen = time.perf_counter()
+    rosen, _ = phase_gibbs_rosenbrock()
+    t_a1 = time.perf_counter()
+    a1 = phase_a1_numpy()
+    t_metro = time.perf_counter()
+    print(f"[summary] the Metropolis family: gibbs-10d {t_rosen - t_end:.1f} s, gibbs-rosenbrock "
+          f"{t_a1 - t_rosen:.1f} s, a1-numpy {t_metro - t_a1:.1f} s ({t_metro - t_end:.1f} s in "
+          f"all)")
+    print(json.dumps({"metropolis_family": {"gibbs-10d": gibbs10, "gibbs-rosenbrock": rosen,
+                                            "a1-numpy": a1}}))
+    _free()
 
     x16k, y16k, err16k = make_gp_data(GP_N)
     b2_err = phase_b2_checks(x16k)

@@ -1,9 +1,12 @@
 """PyTorch and CUDA port of ``inference_tpu`` for NVIDIA Hopper GPUs.
 
 The JAX package ``inference_tpu`` stays the reference. This package ports
-its batched-HMC path (``parallel.ChainArray`` for the "hmc" kind, with the
-fused whole-trajectory kernel ``ops.hmc_fused`` written in CUDA C++), the
-single-chain ``mcmc.HamiltonianChain`` with reflecting ``Bounds``, the
+its batched samplers (``parallel.ChainArray`` for the "hmc", "gibbs",
+"metropolis" and "pca" kinds, with the fused whole-trajectory HMC kernel
+``ops.hmc_fused`` written in CUDA C++), the single-chain
+``mcmc.HamiltonianChain`` with reflecting ``Bounds``, ``MetropolisChain``,
+``GibbsChain`` and ``PcaChain``, posteriors written with numpy (evaluated
+on the host, ``utils.wrap``), the
 posterior building blocks of ``models`` (likelihoods, priors,
 ``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``,
 ``gp.GpLinearInverter``, with the squared-exponential covariance kernel
@@ -16,7 +19,7 @@ Its entry points run on the card unless the caller passes
 
 __version__ = "0.1.0"
 
-from .mcmc import Bounds, HamiltonianChain
+from .mcmc import Bounds, GibbsChain, HamiltonianChain, MetropolisChain, PcaChain
 from .models import (
     CauchyLikelihood,
     ExponentialPrior,
@@ -30,6 +33,9 @@ from .models import (
 from .gp import GpLinearInverter, GpRegressor
 
 __all__ = [
+    "MetropolisChain",
+    "GibbsChain",
+    "PcaChain",
     "HamiltonianChain",
     "Bounds",
     "GaussianLikelihood",

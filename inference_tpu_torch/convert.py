@@ -18,10 +18,18 @@ A solved ``LargeScaleGP(solver="df64")`` crosses the same way
 (``large_scale_state_of``, ``large_scale_gp_from_state``), with its
 training solve and preconditioner factor, so it is not solved again.
 
-A ``HamiltonianChain`` crosses as its checkpoint items, the ``.npz`` keys
-both packages save (``hamiltonian_chain_from_jax``); ``bounds_from_numpy``
-and ``mass_from_numpy`` build the port's ``Bounds`` and particle mass from
-numpy arrays.
+The JAX package's batched ``MetropolisState`` (the gibbs and metropolis
+kinds) flattens to 10 leaves: theta ``(K, P)``, logp ``(K,)``, the five
+width fields ``widths.value``/``avg``/``var``/``num``/``chk_int`` ``(K, P)``,
+try_count ``(K, P)`` int32, the key ``(K, 2)`` uint32 and inv_temp
+``(K,)``; its ``PcaState`` adds directions ``(K, P, P)`` as an 11th
+(``metropolis_state_from_jax``, ``metropolis_state_to_jax_leaves``).
+
+A ``HamiltonianChain``, ``GibbsChain``, ``MetropolisChain`` or ``PcaChain``
+crosses as its checkpoint items, the ``.npz`` keys both packages save
+(``hamiltonian_chain_from_jax``, ``gibbs_chain_from_jax``,
+``pca_chain_from_jax``); ``bounds_from_numpy`` and ``mass_from_numpy``
+build the port's ``Bounds`` and particle mass from numpy arrays.
 """
 
 import io
@@ -32,7 +40,10 @@ import torch
 from . import gp as _gp
 from .mcmc._kernels.common import AdaptiveScale
 from .mcmc._kernels.hmc import HmcState
+from .mcmc._kernels.metropolis import MetropolisState, PcaState
+from .mcmc.gibbs import GibbsChain, MetropolisChain
 from .mcmc.hmc import HamiltonianChain
+from .mcmc.pca import PcaChain
 from .mcmc.hmc.mass import get_particle_mass
 from .ops.hmc_fused import GaussianForm
 from .utils.bounds import Bounds
@@ -40,6 +51,7 @@ from .utils.device import resolve_device
 from .utils.dtypes import default_float
 
 N_HMC_LEAVES = 11
+N_METROPOLIS_LEAVES = 10  # a PcaState has one more, its directions
 
 
 def hmc_state_from_jax(leaves, device="cuda", dtype=None) -> HmcState:
@@ -85,6 +97,82 @@ def hmc_state_to_jax_leaves(state: HmcState, key) -> list:
     ]
 
 
+def metropolis_state_from_jax(leaves, device="cuda", dtype=None):
+    """The port's ``MetropolisState`` from the 10 leaves of a JAX
+    ``MetropolisState``, or its ``PcaState`` from the 11 of a JAX
+    ``PcaState``, on ``device`` (the card unless the caller passes
+    ``"cpu"``). Floating leaves take ``dtype`` (default: theta's own
+    dtype); the key leaf is read and ignored."""
+    device = resolve_device(device, "metropolis_state_from_jax")
+    if len(leaves) not in (N_METROPOLIS_LEAVES, N_METROPOLIS_LEAVES + 1):
+        raise ValueError(
+            f"a MetropolisState has {N_METROPOLIS_LEAVES} leaves and a PcaState "
+            f"{N_METROPOLIS_LEAVES + 1}, got {len(leaves)}"
+        )
+    leaves = [np.asarray(x) for x in leaves]
+    theta, logp, wv, wa, wvr, wn, wc, tries, _key, inv_temp = leaves[:N_METROPOLIS_LEAVES]
+    dtype = dtype or torch.tensor(theta[:0]).dtype
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    i = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
+    state = MetropolisState(
+        theta=f(theta),
+        logp=f(logp),
+        widths=AdaptiveScale(f(wv), f(wa), f(wvr), i(wn), i(wc)),
+        try_count=i(tries),
+        inv_temp=f(inv_temp),
+    )
+    if len(leaves) == N_METROPOLIS_LEAVES:
+        return state
+    return PcaState(*state, directions=f(leaves[-1]))
+
+
+def metropolis_state_to_jax_leaves(state, key) -> list:
+    """The 10 leaves of a JAX ``MetropolisState`` (11 of a ``PcaState``) as
+    numpy arrays, with ``key`` (a ``(K, 2)`` uint32 array) as the key
+    leaf."""
+    host = lambda x: x.detach().cpu().numpy()
+    key = np.asarray(key, dtype=np.uint32)
+    if key.shape != (state.theta.shape[0], 2):
+        raise ValueError(f"the key leaf must be (K, 2), got {key.shape}")
+    leaves = [
+        host(state.theta),
+        host(state.logp),
+        *(host(x) for x in state.widths),
+        host(state.try_count),
+        key,
+        host(state.inv_temp),
+    ]
+    if isinstance(state, PcaState):
+        leaves.append(host(state.directions))
+    return leaves
+
+
+def _checkpoint_buffer(chain):
+    """A JAX chain's ``.npz`` checkpoint, written into memory by its own
+    ``save``."""
+    buffer = io.BytesIO()
+    chain.save(buffer)
+    buffer.seek(0)
+    return buffer
+
+
+def gibbs_chain_from_jax(chain, posterior=None, seed=None, device="cuda"):
+    """The port's ``GibbsChain`` (or ``MetropolisChain``, after the JAX
+    chain's class) carrying a JAX chain's state on ``device`` (default the
+    card): its history, width adaptation and trace, proposal modes and
+    settings, read from the ``.npz`` items its own ``save`` writes. With
+    ``posterior`` it continues from the last stored step."""
+    cls = MetropolisChain if type(chain).__name__ == "MetropolisChain" else GibbsChain
+    return cls.load(_checkpoint_buffer(chain), posterior=posterior, seed=seed, device=device)
+
+
+def pca_chain_from_jax(chain, posterior=None, seed=None, device="cuda"):
+    """The port's ``PcaChain`` carrying a JAX ``PcaChain``'s state on
+    ``device`` (default the card), as ``gibbs_chain_from_jax`` does, with
+    its directions, blended covariance, update schedule and bounds."""
+    return PcaChain.load(_checkpoint_buffer(chain), posterior=posterior, seed=seed, device=device)
+
+
 def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:
     """The posterior ``-1/2 (theta - mean)^T icov (theta - mean)`` as a
     ``GaussianForm`` in torch's default dtype."""
@@ -100,11 +188,9 @@ def hamiltonian_chain_from_jax(chain, posterior, grad=None, seed=None, device="c
     adaptation, mass, bounds and settings, read from the ``.npz`` items its
     own ``save`` writes (into memory). With ``posterior`` (a torch
     callable) it continues from the last stored step."""
-    buffer = io.BytesIO()
-    chain.save(buffer)
-    buffer.seek(0)
     return HamiltonianChain.from_items(
-        np.load(buffer), posterior=posterior, grad=grad, seed=seed, device=device
+        np.load(_checkpoint_buffer(chain)), posterior=posterior, grad=grad, seed=seed,
+        device=device,
     )
 
 

@@ -5,10 +5,12 @@ plus ``device=`` (default the card; pass ``"cpu"`` for the CPU). A
 transition is the port's batched transition (``mcmc/_kernels/hmc.py``)
 run with one chain, ``retry=True`` (repeat until accept) and at most
 ``max_attempts`` (200) proposals; a chain that exhausts them raises the
-JAX package's error. The posterior is a torch callable over ``(P,)``
-tensors, differentiated by autograd; a user ``grad`` that is a torch
-callable is used as given. A numpy-only posterior or gradient
-raises, naming ROADMAP queue A1 (``utils.wrap.as_device_logp``).
+JAX package's error. A torch posterior over ``(P,)`` tensors is
+differentiated by autograd; a posterior written with numpy runs on the host
+(``utils.wrap``) and, without a ``grad``, takes the JAX package's
+forward-difference gradient, h = 1e-6 max(|t|, 1) with P + 1 evaluations.
+A user ``grad`` runs on its route too: a torch callable on the device, a
+numpy one on the host.
 
 History chunks stay on the device until a host view is requested or
 ``utils.history.DEVICE_HISTORY_LIMIT`` is passed; the per-step epsilon
@@ -34,6 +36,7 @@ from ...utils import (
     resolve_device,
 )
 from ...utils.history import DEVICE_HISTORY_LIMIT
+from ...utils.wrap import host_call, runs_under_vmap
 from ..base import MarkovChain
 from .._kernels.common import AdaptiveScale
 from .._kernels.hmc import HmcState, init_hmc_state, make_hmc_step, run_steps
@@ -51,6 +54,16 @@ __all__ = [
 ]
 
 
+def fd_gradient(batched_logp, t):
+    """The JAX package's forward-difference gradient of a host posterior at
+    ``t`` (``(P,)``): h = 1e-6 max(|t|, 1), g_i = (logp(t + h_i e_i) -
+    logp(t)) / h_i, from one batch of the P + 1 positions (t, then t with
+    h_i added to element i)."""
+    h = 1e-6 * torch.clamp(t.abs(), min=1.0)
+    p = batched_logp(torch.cat([t[None], t[None] + torch.diag(h)]))
+    return (p[1:] - p[0]) / h
+
+
 class HamiltonianChain(MarkovChain):
     """
     Hamiltonian Monte-Carlo sampling with automatic step-size adaptation.
@@ -59,14 +72,15 @@ class HamiltonianChain(MarkovChain):
         A callable which takes the vector of model parameters as a ``(P,)``
         tensor and returns the posterior log-probability as a scalar
         tensor, written with torch operations (an ``nn.Module`` is copied
-        onto ``device``).
+        onto ``device``), or a numpy callable, evaluated on the host.
 
     :param start: \
         Parameter vector at which the chain starts.
 
     :param grad: \
-        A torch callable returning the gradient of the log-posterior. If
-        omitted, the gradient is autograd of ``posterior``.
+        A callable returning the gradient of the log-posterior (torch or
+        numpy). If omitted, the gradient is autograd of ``posterior``, or
+        its forward differences for a numpy posterior.
 
     :param epsilon: \
         Initial guess for the leapfrog time-step.
@@ -176,36 +190,28 @@ class HamiltonianChain(MarkovChain):
     # the transition
     # ------------------------------------------------------------------ #
     def _gradient_fn(self, start):
-        """The gradient of one chain, ``(P,) -> (P,)``: the user's, checked
-        to be a torch callable at ``start``, or autograd of the posterior
-        (``torch.autograd.grad``: one chain needs no ``torch.func``
-        transform)."""
-        if self.user_grad is None:
-            logp = self._logp
+        """The gradient of one chain, ``(P,) -> (P,)``: the user's on its
+        route (``torch.func.vmap`` of it over two rows of ``start`` gives
+        ``(2, P)``: on the device; else on the host), autograd of a torch
+        posterior (``torch.autograd.grad``: one chain needs no
+        ``torch.func`` transform), or forward differences of a host
+        posterior."""
+        P = start.numel()
+        if self.user_grad is not None:
+            grad = self.user_grad
+            if runs_under_vmap(lambda t: torch.as_tensor(grad(t)).reshape(P), start, (P,)):
+                return lambda t: torch.as_tensor(grad(t)).reshape(t.shape).to(t.dtype)
+            return lambda t: host_call(grad, t, (P,))
+        logp = self._logp
+        if logp.host:
+            return lambda t: fd_gradient(logp.batched, t)
 
-            def autograd(t):
-                with torch.enable_grad():
-                    x = t.detach().requires_grad_(True)
-                    return torch.autograd.grad(logp(x), x)[0]
+        def autograd(t):
+            with torch.enable_grad():
+                x = t.detach().requires_grad_(True)
+                return torch.autograd.grad(logp(x), x)[0]
 
-            return autograd
-        grad = self.user_grad
-        try:
-            g = grad(start)
-        except (TypeError, AttributeError, RuntimeError) as err:
-            raise ValueError(
-                "[ HamiltonianChain error ] the given 'grad' failed on a torch "
-                f"tensor ({type(err).__name__}: {err}); numpy-only gradients are "
-                "not supported by this package yet (ROADMAP queue A1)."
-            ) from err
-        if not isinstance(g, torch.Tensor) or g.numel() != start.numel():
-            raise ValueError(
-                "[ HamiltonianChain error ] the given 'grad' must return a torch "
-                f"tensor of {start.numel()} values, got {type(g).__name__}; "
-                "numpy-only gradients are not supported by this package yet "
-                "(ROADMAP queue A1)."
-            )
-        return lambda t: grad(t).reshape(t.shape).to(t.dtype)
+        return autograd
 
     def _get_step(self):
         # 'steps' is deliberately absent: it lives in the state, so changing

@@ -1,10 +1,13 @@
 """Batched arrays of independent chains.
 
-Port of ``inference_tpu.parallel.chain_array`` for the "hmc" kind: one
-batched transition advances every chain at once on one device, with the
-history kept on the host as numpy arrays. With ``fused=True`` the advance
-runs through kernel B1 (``ops.hmc_fused``), which keeps every chain's
-state on the chip through whole chunks of transitions.
+Port of ``inference_tpu.parallel.chain_array`` for the "hmc", "gibbs",
+"metropolis" and "pca" kinds: one batched transition advances every chain
+at once on one device, with the history kept on the host as numpy arrays.
+With ``fused=True`` the hmc advance runs through kernel B1
+(``ops.hmc_fused``), which keeps every chain's state on the chip through
+whole chunks of transitions. A posterior written with numpy runs on the
+host, one call per chain, with the chains' state on their device
+(``utils.wrap``); the hmc kind refuses it, as the JAX package does.
 """
 
 import copy
@@ -13,10 +16,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..convert import hmc_state_from_jax, hmc_state_to_jax_leaves, N_HMC_LEAVES
-from ..mcmc._kernels.hmc import run_steps
+from ..convert import (
+    N_HMC_LEAVES,
+    N_METROPOLIS_LEAVES,
+    hmc_state_from_jax,
+    hmc_state_to_jax_leaves,
+    metropolis_state_from_jax,
+    metropolis_state_to_jax_leaves,
+)
+from ..mcmc._kernels import hmc as hmc_kernel
+from ..mcmc._kernels import metropolis as met_kernel
 from ..utils import as_device_logp, default_float, make_generator, resolve_device
 from ._kinds import build_kind, require_ported
+
+METROPOLIS_KINDS = ("gibbs", "metropolis", "pca")
 
 
 def _warmup_window_sizes(n_steps: int, n_windows: int) -> np.ndarray:
@@ -43,20 +56,31 @@ def _warmup_window_sizes(n_steps: int, n_windows: int) -> np.ndarray:
 
 class ChainArray:
     """
-    A batch of ``n_chains`` independent HMC chains advanced together on one
+    A batch of ``n_chains`` independent chains advanced together on one
     device.
 
-    :param kind: sampler family; "hmc" is the one ported so far, and the
-        others raise naming the ROADMAP queue item that ports them.
+    :param kind: sampler family: "hmc", "gibbs", "metropolis" or "pca"
+        (PCA-directed Gibbs sweeps; call ``update_directions()`` between
+        advances to re-estimate each chain's principal directions from its
+        own history). "nuts" and "ensemble" raise naming the ROADMAP queue
+        item that ports them.
     :param posterior: log-probability callable over ``(P,)`` tensors, written
-        with torch operations; an ``nn.Module`` is copied onto ``device``.
+        with torch operations (an ``nn.Module`` is copied onto ``device``),
+        or a numpy posterior, evaluated on the host (not for "hmc").
     :param starts: starting positions, shape (n_chains, n_parameters).
-    :param epsilon: initial leapfrog step size.
-    :param steps: nominal leapfrog steps per proposal.
+    :param widths: initial proposal widths (gibbs/metropolis/pca): a scalar,
+        (P,) or (n_chains, P); by default 5% of each chain's own start, or 1
+        where it is 0.
+    :param epsilon: initial leapfrog step size (hmc).
+    :param steps: nominal leapfrog steps per proposal (hmc).
     :param inverse_mass: scalar, (P,) diagonal, or full (P, P) matrix
-        inverse mass.
-    :param bounds: optional ``utils.Bounds`` for the bounded leapfrog of
-        the batched transition.
+        inverse mass (hmc).
+    :param non_negative: bool or (P,) bools: parameters whose proposals
+        are folded non-negative (gibbs/metropolis).
+    :param boundaries: optional (lower, upper) reflecting proposal
+        boundaries (gibbs/metropolis).
+    :param bounds: optional ``utils.Bounds`` for the bounded leapfrog (hmc)
+        or the reflected proposals (pca).
     :param retry: repeat-until-accept proposals (the reference semantics)
         when True; textbook duplicate-on-reject MH when False.
     :param fused: "auto" (default) / True / False. True runs the advance
@@ -78,9 +102,12 @@ class ChainArray:
         posterior,
         starts,
         *,
+        widths=None,
         epsilon: float = 0.1,
         steps: int = 50,
         inverse_mass=None,
+        non_negative=None,
+        boundaries=None,
         bounds=None,
         retry: bool = True,
         fused="auto",
@@ -104,7 +131,7 @@ class ChainArray:
             posterior = copy.deepcopy(posterior).to(device=self.device, dtype=dtype)
         self._posterior = posterior
         starts_dev = torch.as_tensor(starts, dtype=dtype, device=self.device)
-        self._logp = as_device_logp(posterior, starts_dev[0])
+        self._logp = as_device_logp(posterior, starts_dev[0], "ChainArray")
         self._generator = make_generator(seed, self.device)
 
         # kept so warmup()/set_inverse_mass() can rebuild the step with a
@@ -113,6 +140,8 @@ class ChainArray:
             epsilon=epsilon,
             steps=steps,
             inverse_mass=inverse_mass,
+            non_negative=non_negative,
+            boundaries=boundaries,
             bounds=bounds,
             retry=retry,
         )
@@ -121,8 +150,22 @@ class ChainArray:
             **self._build_kwargs,
         )
         with torch.no_grad():
-            logp0 = torch.func.vmap(self._logp)(starts_dev)
+            logp0 = self._logp.batched(starts_dev)
         self._state = init(starts_dev, logp0, 1.0)
+        if kind in METROPOLIS_KINDS:
+            # per-chain initial widths: 5% of each chain's own start point
+            # when unspecified (reference: gibbs.py:258-259)
+            if widths is None:
+                per_chain = np.where(starts != 0, np.abs(starts) * 0.05, 1.0)
+            else:
+                per_chain = np.broadcast_to(np.asarray(widths, dtype=float), starts.shape)
+            value = torch.as_tensor(np.ascontiguousarray(per_chain), dtype=dtype,
+                                    device=self.device)
+            self._state = self._state._replace(
+                widths=self._state.widths._replace(value=value)
+            )
+        self._run_steps = (met_kernel.run_steps if kind in METROPOLIS_KINDS
+                           else hmc_kernel.run_steps)
 
         self._history = []
         self._prob_history = []
@@ -138,6 +181,11 @@ class ChainArray:
         self._fused_plan = None
         if fused is not True:
             return
+        if self.kind != "hmc":
+            raise ValueError(
+                "[ ChainArray error ] fused=True is only available "
+                "for the 'hmc' kind."
+            )
         from ..ops.hmc_fused import plan_fused_hmc
 
         kw = self._build_kwargs
@@ -177,7 +225,7 @@ class ChainArray:
             )
             pos, logp = (hist[0], hist[1]) if store else (None, None)
         else:
-            state, outs = run_steps(
+            state, outs = self._run_steps(
                 self._step, self._state, n, store, self._generator
             )
             pos, logp = (outs.theta, outs.logp) if store else (None, None)
@@ -194,6 +242,7 @@ class ChainArray:
         Rebuild the transition with a new inverse mass (scalar, (P,)
         diagonal, or (P, P) matrix), preserving the live chain state.
         """
+        self._require_hmc("set_inverse_mass")
         self._build_kwargs["inverse_mass"] = inverse_mass
         _, self._step = build_kind(
             self.kind, self._logp, self.n_parameters,
@@ -210,6 +259,7 @@ class ChainArray:
         steps. Step-size adaptation keeps running throughout. Warmup
         samples are discarded (``store=False``) by default.
         """
+        self._require_hmc("warmup")
         if n_windows < 1 or n_steps < 2 * n_windows:
             raise ValueError(
                 "[ ChainArray error ] warmup needs n_windows >= 1 and "
@@ -226,6 +276,41 @@ class ChainArray:
         if not store:
             del self._history[mark:]
             del self._prob_history[mark:]
+        return self
+
+    def _require_hmc(self, what):
+        if self.kind != "hmc":
+            raise ValueError(
+                f"[ ChainArray error ] {what} applies to the 'hmc' and "
+                "'nuts' kinds only."
+            )
+
+    def update_directions(self, last: int = None):
+        """
+        Re-estimate each chain's PCA sweep directions from its own stored
+        history (optionally only the ``last`` steps): one batched
+        ``torch.linalg.eigh`` over the per-chain sample covariances on the
+        chains' device (reference: pca.py:96-134 does this per chain on the
+        host). Below max(2 P, 3) stored steps the directions are left as
+        they are.
+        """
+        if self.kind != "pca":
+            raise ValueError(
+                "[ ChainArray error ] update_directions is only available "
+                "for kind='pca'."
+            )
+        if not self._history:
+            return self
+        h = np.concatenate(self._history, axis=0)  # (steps, K, P)
+        if last is not None:
+            h = h[-last:]
+        if h.shape[0] < max(2 * self.n_parameters, 3):
+            return self  # not enough samples for a stable covariance
+        h = torch.as_tensor(h, dtype=self._state.theta.dtype, device=self.device)
+        centred = h - h.mean(dim=0, keepdim=True)
+        covs = torch.einsum("skp,skq->kpq", centred, centred) / (h.shape[0] - 1)
+        _, vecs = torch.linalg.eigh(covs)  # batched; columns are directions
+        self._state = self._state._replace(directions=vecs)
         return self
 
     def _stored(self, burn: int, what: str) -> np.ndarray:
@@ -284,18 +369,22 @@ class ChainArray:
     # ------------------------------------------------------------------ #
     # checkpoint / resume in the JAX package's .npz layout
     # ------------------------------------------------------------------ #
+    def _n_leaves(self):
+        if self.kind == "hmc":
+            return N_HMC_LEAVES
+        return N_METROPOLIS_LEAVES + (self.kind == "pca")
+
     def save(self, filename: str):
         """Checkpoint the chain state in the JAX ``ChainArray`` layout
-        (``leaf_0`` ... ``leaf_10``, kind, n_chains, n_parameters), so
+        (``leaf_0`` ... ``leaf_<n>``, kind, n_chains, n_parameters), so
         either package can restore it. The key leaf is drawn from this
         array's generator."""
         key = torch.randint(
             0, 2**32, (self.n_chains, 2), dtype=torch.int64,
             generator=self._generator, device=self.device,
-        )
-        leaves = hmc_state_to_jax_leaves(
-            self._state, key.cpu().numpy().astype(np.uint32)
-        )
+        ).cpu().numpy().astype(np.uint32)
+        to_leaves = hmc_state_to_jax_leaves if self.kind == "hmc" else metropolis_state_to_jax_leaves
+        leaves = to_leaves(self._state, key)
         items = {f"leaf_{i}": v for i, v in enumerate(leaves)}
         items["kind"] = self.kind
         items["n_chains"] = self.n_chains
@@ -312,12 +401,13 @@ class ChainArray:
                 "this ChainArray (kind / n_chains differ)."
             )
         n_saved = sum(1 for k in D.files if k.startswith("leaf_"))
-        if n_saved != N_HMC_LEAVES:
+        if n_saved != self._n_leaves():
             raise ValueError(
                 f"[ ChainArray error ] checkpoint stores {n_saved} state "
-                f"leaves but an '{self.kind}' state has {N_HMC_LEAVES}."
+                f"leaves but an '{self.kind}' state has {self._n_leaves()}."
             )
-        self._state = hmc_state_from_jax(
+        from_leaves = hmc_state_from_jax if self.kind == "hmc" else metropolis_state_from_jax
+        self._state = from_leaves(
             [D[f"leaf_{i}"] for i in range(n_saved)],
             device=self.device,
             dtype=self._state.theta.dtype,

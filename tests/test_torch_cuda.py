@@ -5,7 +5,9 @@ sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
 sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
 checks; the fused ChainArray, HamiltonianChain and a models.Posterior on
-the card, the GpRegressor and the LargeScaleGP end to end.
+the card, the GpRegressor and the LargeScaleGP end to end; the gibbs,
+metropolis and pca ChainArrays on the card against their CPU runs, and a
+numpy posterior's chains with their state on the card.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -1049,3 +1051,77 @@ def test_probe_wrappers_raise(cuda):
         p3._launch_words(ops, v.double())
     with pytest.raises(TypeError):
         vpu_probe.issue_probe(torch.zeros((128, 128), dtype=torch.float16, device=cuda))
+
+
+# The Metropolis family on the card (no kernel of its own: the batched
+# transitions of mcmc/_kernels/metropolis.py): gibbs, metropolis and pca
+# ChainArrays against the same run on the CPU by statistics, every state
+# tensor on the card; a numpy posterior's chains keep their state there.
+def _gauss10(t):
+    """bench.py's 10-dim correlated Gaussian of chain_batch_bench.py:
+    d = t - roll(t, 1) / 2, logp = -|d|^2 / 2."""
+    d = t - 0.5 * torch.roll(t, 1, dims=-1)
+    return -0.5 * (d * d).sum(-1)
+
+
+def _gauss10_cov():
+    S = np.roll(np.eye(10), 1, axis=0)
+    M = np.eye(10) - 0.5 * S
+    return np.linalg.inv(M.T @ M)
+
+
+def _state_devices(state):
+    return {t.device.type for t in torch.utils._pytree.tree_leaves(state)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, retry", [("gibbs", True), ("gibbs", False),
+                                         ("metropolis", False), ("pca", False)])
+def test_metropolis_family_chain_array_on_card(cuda, kind, retry):
+    """128 chains of the 10-dim Gaussian on the card and on the CPU, from the
+    same starts: after a warm-up (pca: then one update_directions) pooled
+    variances within 10% of the truth on both devices, every state tensor on
+    the card, rank-normalized R-hat below 1.05 there."""
+    starts = np.random.default_rng(0).normal(0, 1, (128, 10))
+    var = np.diag(_gauss10_cov())
+    burn, n, width = {"gibbs": (100, 300, 1.0) if retry else (200, 500, 1.0),
+                      "metropolis": (500, 2000, 0.7), "pca": (200, 500, 1.0)}[kind]
+    for device in (cuda, "cpu"):
+        ca = ChainArray(kind, _gauss10, starts, widths=width, retry=retry, seed=1, device=device)
+        ca.advance(burn)
+        if kind == "pca":
+            ca.update_directions()
+        ca.advance(n)
+        np.testing.assert_allclose(ca.get_sample(burn=burn).var(0), var, rtol=0.1)
+        if device == cuda:
+            assert _state_devices(ca._state) == {"cuda"}
+            assert ca.rhat(burn=burn).max() < 1.05
+
+
+@pytest.mark.cuda
+def test_numpy_posterior_state_stays_on_card(cuda):
+    """A numpy posterior runs on the host while the chain's state stays on
+    the card: GibbsChain and ChainArray('gibbs'), their log-probabilities
+    those of the numpy function."""
+    from inference_tpu_torch import GibbsChain, HamiltonianChain
+
+    def rosen(t):
+        x, y = t
+        return float(-((1 - x) ** 2) - 100 * (y - x**2) ** 2)
+
+    chain = GibbsChain(rosen, start=np.array([2.0, -4.0]), display_progress=False, seed=0,
+                       device=cuda)
+    assert chain._logp.host
+    chain.advance(200)
+    assert _state_devices(chain._state) == {"cuda"}
+    np.testing.assert_allclose(chain.get_probabilities(0)[-1], rosen(chain.get_last()), rtol=1e-5)
+    hmc = HamiltonianChain(rosen, start=np.array([0.5, 0.3]), display_progress=False, seed=0,
+                           device=cuda)
+    hmc.steps = 10
+    hmc.advance(20)
+    assert _state_devices(hmc._state) == {"cuda"} and np.isfinite(hmc.get_sample(0)).all()
+    ca = ChainArray("gibbs", rosen, np.random.default_rng(1).normal(0.5, 0.3, (64, 2)), seed=0,
+                    device=cuda)
+    ca.advance(20)
+    assert _state_devices(ca._state) == {"cuda"}
+    np.testing.assert_allclose(ca.logp, [rosen(t) for t in ca.theta], rtol=1e-4, atol=1e-4)

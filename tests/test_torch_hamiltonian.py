@@ -235,13 +235,21 @@ def test_failed_step_raises_the_jax_error():
 
 
 def test_numpy_posterior_and_gradient_raise_naming_a1():
-    with pytest.raises(ValueError, match="A1"):
-        HamiltonianChain(lambda t: float(-0.5 * np.sum(np.asarray(t) ** 2)), start=START,
-                         display_progress=False, device="cpu")
+    """A numpy posterior (host route, forward-difference gradient) and a
+    numpy gradient of a torch posterior (evaluated on the host) now run;
+    a non-callable still raises."""
+    chain = HamiltonianChain(lambda t: float(-0.5 * np.sum(np.asarray(t) ** 2)), start=START,
+                             display_progress=False, device="cpu", seed=3)
+    assert chain._logp.host
+    chain.advance(20)
+    assert np.isfinite(chain.get_sample()).all() and chain.chain_length == 21
+    torus = Toroidal(np)
     chain = HamiltonianChain(Toroidal(torch), start=START, display_progress=False, device="cpu",
-                             grad=lambda t: np.asarray(t) * 2.0)
-    with pytest.raises(ValueError, match="A1"):
-        chain.advance(1)
+                             grad=torus.gradient, seed=3)
+    chain.advance(20)
+    sample = chain.get_sample()
+    assert np.isfinite(sample).all() and chain.chain_length == 21
+    assert np.abs(np.hypot(sample[:, 0], sample[:, 1]) - 1.0).max() < 0.5
     with pytest.raises(ValueError, match="not a callable"):
         HamiltonianChain(3.0, start=START, display_progress=False, device="cpu")
 

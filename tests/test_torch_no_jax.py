@@ -28,6 +28,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.models.priors, inference_tpu_torch.models.posterior",
         "inference_tpu_torch.bench, inference_tpu_torch.bench.headline, "
         "inference_tpu_torch.bench.dense_hmc",
+        "inference_tpu_torch.mcmc.gibbs, inference_tpu_torch.mcmc.pca, "
+        "inference_tpu_torch.mcmc._kernels.metropolis, inference_tpu_torch.utils.wrap, "
+        "inference_tpu_torch.parallel._kinds, inference_tpu_torch.parallel.chain_array",
         "chip_smoke",
     ],
 )
