@@ -23,7 +23,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
    probes P1 (``.../issue_probe.cu``), P2 (``.../sqexp_ablate.cu``) and P3
-   (``.../sqexp_words_mma.cu``, one library per d: d = 2 and 20) with nvcc,
+   (``.../sqexp_words_mma.cu``, one library per d: d = 2 and 20, and the
+   streamed one at d = 1,000) with nvcc,
    one process each, started
    together; times each build and prints the ``-Xptxas -v`` registers
    and spills, and for each instantiation of B3/B4's kernels and each of
@@ -64,19 +65,24 @@ Phases, each of which raises on failure (so the script exits non-zero):
    family, which has no kernel of its own: (e) gibbs-10d,
    ``ChainArray`` on ``benchmarks/chain_batch_bench.py``'s 10-dim Gaussian,
    the gibbs kind at 1,024 and 65,536 chains with retry=True and False and
-   the metropolis and pca kinds with retry=False timed in chain-steps/s,
-   stored runs of each at 1,024 chains held to the covariance (variances
-   within 10%, R-hat < 1.05), a ``torch.profiler`` reading of one retry=True
+   the metropolis and pca kinds with retry=False timed in chain-steps/s
+   after the bench's warm-up of 128 steps (each half of the timed window
+   printed), stored runs at 1,024 chains of gibbs with retry=True and False
+   and of metropolis and pca with retry=False held to the covariance
+   (variances within 10%, R-hat < 1.05; each run's variance bias in
+   standard errors printed), a ``torch.profiler`` reading of one retry=True
    advance at 65,536 chains (idle share, launches a sweep, tries a
    parameter, host syncs); (f) gibbs-rosenbrock, ``GibbsChain`` and
    ``PcaChain`` on ``demos/gibbs_chain_demo.py``'s posterior from [2, -4] on
-   the card and on the CPU (steps/s), held to 2D grid quadrature and to
-   each other, and a retry=False ``ChainArray`` of 1,024 chains held to the
-   quadrature; (g) a1-numpy, the same posterior written with numpy:
-   ``GibbsChain`` on the card (host evaluations, state on the card) held to
-   the torch chain, ``HamiltonianChain`` with the forward-difference
-   gradient, ``ChainArray("gibbs")`` at 64 chains; their readings as one
-   JSON line;
+   the card and on the CPU (steps/s), each facade's card chain held to its
+   CPU chain by the one-chain check (means and variance ratios in
+   standard errors from each chain's ESS), and two retry=False
+   ``ChainArray``s of 1,024 chains (gibbs, pca) held to 2D grid quadrature;
+   (g) a1-numpy, the same posterior written with numpy: ``GibbsChain`` on
+   the card (host evaluations, state on the card) held to the torch
+   ``GibbsChain``'s CPU chain by the same check, ``HamiltonianChain`` with
+   the forward-difference gradient, ``ChainArray("gibbs")`` at 64 chains;
+   their readings as one JSON line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -136,7 +142,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
     per d) at d = 2 on that data and at d = 20 on gp-large-50k-d20's
     pre-scaled [0, 1.5]^20: the class sums and the parts of S of one 32 x 16 tile
     exactly (also on words of +-64), its matvec against its plain version
-    (1e-13) and B3 (1e-11).
+    (1e-13) and B3 (1e-11); the same checks of its streamed kernel (d above
+    411) at d = 1,000, n = 512.
     Then each probe's own entry point, its launch count set to 0 before and
     read after: P1 under ``nvidia-smi``'s SM clock and power readings, every
     configuration timed with its bound; the SASS instruction mix of the hot
@@ -215,6 +222,8 @@ B1_WIDE_P = (65, 100, 256)   # P at which B1's wide route is checked and timed
 B2_BUILD_D = (2, 5, 17)
 # P3's libraries, one per d: its own data (d = 2) and gp-large-50k-d20's width
 P3_D = (2, 20)
+# the streamed P3 kernel (d above words.D_RESIDENT), checked at a small n
+P3_STREAMED_D, P3_STREAMED_N = 1000, 512
 
 
 def _b1_label(P, unit):
@@ -229,7 +238,8 @@ def _libraries():
     b1 = [("hmc_fused", hmc_fused.kernel_variant(P, unit), _b1_label(P, unit))
           for P, unit in B1_BUILD]
     b2 = [("sqexp", pairwise.kernel_variant(d), _b2_label(d)) for d in B2_BUILD_D]
-    p3 = [("sqexp_words_mma", words.kernel_variant(d), f"P3 d={d}") for d in P3_D]
+    p3 = [("sqexp_words_mma", words.kernel_variant(d), f"P3 d={d}")
+          for d in P3_D + (P3_STREAMED_D,)]
     return b1 + b2 + p3 + [(name, (), label) for name, label in KERNELS.items()]
 
 
@@ -869,12 +879,15 @@ def _profile_chain(chain, n=20):
 
 GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's count
 # (warm-up, timed) steps of a gibbs or pca timing run: chain_batch_bench.py's
-# 128 and 512 cut to fit the script's time (the rate is launch-bound and flat)
-GIBBS_STEPS = {False: (16, 64), True: (16, 64)}
+# warm-up of 128 (the widths adapt in it), its timed 512 cut to 64 to fit the
+# script's time; the two halves of the timed window are timed apart
+GIBBS_STEPS = (128, 64)
 METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
 GIBBS_CHECK = 1024  # chains of the stored correctness runs
-# timed steps of one chain by device (the demo's 150,000 cut to the script's time)
-ROSEN_STEPS = {"cuda": 1000, "cpu": 2000}
+# steps of one chain by device after 200 warm-up steps (the demo's 150,000
+# cut to the script's time); the held moments drop the warm-up
+ROSEN_STEPS = {"cuda": 2000, "cpu": 5000}
+ROSEN_WARM = 200
 ROSEN_CHAINS = 1024  # chains of the ChainArray runs on the demo's posterior
 A1_CHAINS = 64
 
@@ -923,28 +936,56 @@ def rosen_quadrature():
 
 
 def _timed_advance(ca, warm, timed):
-    """``advance(warm)`` then a timed ``advance(timed)``, both with
-    ``store=False`` (the advance ends in a sync); chain-steps/s."""
-    ca.advance(warm, store=False)
-    t0 = time.perf_counter()
-    ca.advance(timed, store=False)
-    return ca.n_chains * timed / (time.perf_counter() - t0)
+    """``advance(warm)``, then the timed window as two ``advance(timed /
+    2)``, all with ``store=False`` (an advance ends in a sync); chain-steps/s
+    of the warm-up, of each half and of the window."""
+    secs = []
+    for n in (warm, timed // 2, timed - timed // 2):
+        t0 = time.perf_counter()
+        ca.advance(n, store=False)
+        secs.append(time.perf_counter() - t0)
+    K = ca.n_chains
+    return {"warm": K * warm / secs[0], "first_half": K * (timed // 2) / secs[1],
+            "second_half": K * (timed - timed // 2) / secs[2], "window": K * timed / sum(secs[1:])}
+
+
+def _pooled(ca, burn):
+    """Pooled means and variances of a ChainArray's stored steps after
+    ``burn``, with standard errors from its K independent chains: the spread
+    of the chains' own means (and of their variance terms) over sqrt(K),
+    so an ESS of K var / var(chain means), with no autocorrelation
+    estimate."""
+    K, P = ca.n_chains, ca.n_parameters
+    h = ca.get_sample(burn=burn).reshape(-1, K, P)
+    m_k = h.mean(axis=0)
+    mean = m_k.mean(axis=0)
+    terms = h.var(axis=0) + (m_k - mean) ** 2
+    return (mean, terms.mean(axis=0), m_k.std(axis=0, ddof=1) / np.sqrt(K),
+            terms.std(axis=0, ddof=1) / np.sqrt(K))
 
 
 def _gibbs10_check(label, ca, cov, steps, burn):
     """Advance a ChainArray ``steps`` stored steps and hold it: pooled
     variances within 10% of the covariance's diagonal, rank-normalized
-    R-hat < 1.05 (PERF.md section 2), finite positions."""
+    R-hat < 1.05 (PERF.md section 2), finite positions. Also prints, not
+    held, the largest distance of the pooled variances from the diagonal in
+    standard errors from the chains' spread (``_pooled``)."""
     ca.advance(steps)
     s = ca.get_sample(burn=burn)
     rel = np.abs(s.var(axis=0) / np.diag(cov) - 1.0)
+    _, v, _, se_v = _pooled(ca, burn)
+    z = (v - np.diag(cov)) / se_v
+    zmax = float(z[np.argmax(np.abs(z))])
     rhat = ca.rhat(burn=burn)
     print(f"[gibbs-10d] {label}: {steps} stored steps, {ca.n_chains} chains, burn {burn}: "
           f"variances within {rel.max():.4f} of the truth (limit 0.10), max R-hat "
-          f"{rhat.max():.4f} (limit 1.05)")
+          f"{rhat.max():.4f} (limit 1.05); the pooled variance furthest from the truth "
+          f"{zmax:+.2f} standard errors of the chains' spread, mean over the parameters "
+          f"{z.mean():+.2f} (a reading)")
     if not np.isfinite(s).all() or rel.max() > 0.10 or not rhat.max() < 1.05:
         raise RuntimeError(f"gibbs-10d {label}: the statistical checks failed")
-    return {"max_rel_var_err": float(rel.max()), "max_rhat": float(rhat.max())}
+    return {"max_rel_var_err": float(rel.max()), "max_rhat": float(rhat.max()),
+            "var_z_max": zmax, "var_z_mean": float(z.mean())}
 
 
 def _profile_gibbs(ca, sweeps=4):
@@ -988,11 +1029,12 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
     """gibbs-10d: ``ChainArray`` on chain_batch_bench.py's 10-dim Gaussian
     (its starts, seed 1, default widths). Chain-steps/s of the gibbs kind at
     each chain count with retry=True and False, of the metropolis (widths
-    0.7) and pca kinds with retry=False; stored correctness runs of each
-    kind with the textbook update (retry=False) at ``check`` chains from
+    0.7) and pca kinds with retry=False, after the bench's warm-up
+    (``_timed_advance``); stored correctness runs at ``check`` chains from
     widths of 1 (metropolis 0.7; pca: one ``update_directions()`` after the
-    warm-up); a profile of one advance at the largest count with retry=True.
-    Returns the readings."""
+    warm-up) of gibbs with retry=True and False and of metropolis and pca
+    with retry=False; a profile of one advance at the largest count with
+    retry=True, after its timed window. Returns the readings."""
     cov = gauss10_cov()
     out = {"rates": {}, "checks": {}}
     for K in chains:
@@ -1001,19 +1043,20 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
                             ("pca", False)):
             kw = dict(widths=0.7) if kind == "metropolis" else {}
             ca = ChainArray(kind, gauss10, starts, seed=1, retry=retry, device=device, **kw)
-            warm, timed = METROPOLIS_STEPS if kind == "metropolis" else GIBBS_STEPS[retry]
-            rate = _timed_advance(ca, warm, timed)
-            out["rates"][f"{kind} retry={retry} K={K}"] = rate
-            print(f"[gibbs-10d] {kind} retry={retry} K={K}: advance({warm}) then advance({timed}), "
-                  f"store=False: {rate:,.0f} chain-steps/s ({rate * 10:,.0f} parameter "
-                  f"updates/s)")
+            warm, timed = METROPOLIS_STEPS if kind == "metropolis" else GIBBS_STEPS
+            r = _timed_advance(ca, warm, timed)
+            out["rates"][f"{kind} retry={retry} K={K}"] = r
+            print(f"[gibbs-10d] {kind} retry={retry} K={K}: advance({warm}) at {r['warm']:,.0f} "
+                  f"chain-steps/s, then advance({timed // 2}) twice at {r['first_half']:,.0f} "
+                  f"and {r['second_half']:,.0f}, store=False: {r['window']:,.0f} chain-steps/s "
+                  f"({r['window'] * 10:,.0f} parameter updates/s)")
             if not np.isfinite(ca.theta).all():
                 raise RuntimeError(f"gibbs-10d {kind}: non-finite positions")
             if retry and K == chains[-1] and torch.device(device).type == "cuda":
                 out["profile"] = _profile_gibbs(ca)
             del ca
     starts = np.random.default_rng(0).normal(size=(check, 10))
-    for kind, retry, steps, burn in (("gibbs", False, 600, 200),
+    for kind, retry, steps, burn in (("gibbs", True, 300, 100), ("gibbs", False, 600, 200),
                                      ("metropolis", False, 3000, 1000), ("pca", False, 400, 150)):
         ca = ChainArray(kind, gauss10, starts, seed=2, retry=retry, device=device,
                         widths=0.7 if kind == "metropolis" else 1.0)
@@ -1028,21 +1071,6 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
     return out
 
 
-def _pooled(ca, burn):
-    """Pooled means and variances of a ChainArray's stored steps after
-    ``burn``, with standard errors from its K independent chains: the spread
-    of the chains' own means (and of their variance terms) over sqrt(K),
-    so an ESS of K var / var(chain means), with no autocorrelation
-    estimate."""
-    K, P = ca.n_chains, ca.n_parameters
-    h = ca.get_sample(burn=burn).reshape(-1, K, P)
-    m_k = h.mean(axis=0)
-    mean = m_k.mean(axis=0)
-    terms = h.var(axis=0) + (m_k - mean) ** 2
-    return (mean, terms.mean(axis=0), m_k.std(axis=0, ddof=1) / np.sqrt(K),
-            terms.std(axis=0, ddof=1) / np.sqrt(K))
-
-
 def _inside_box(s):
     """Finite, and inside the quadrature's box (the density there is below
     1e-30 of its peak outside it)."""
@@ -1051,47 +1079,90 @@ def _inside_box(s):
 
 
 def _rosen_chain(cls, posterior, device, n, seed=0):
-    """A chain of ``cls`` from [2, -4] (the demo's start): 200 warm steps,
-    then a timed ``advance(n)``; (chain, steps/s)."""
+    """A chain of ``cls`` from [2, -4] (the demo's start, default widths):
+    ``ROSEN_WARM`` warm steps, then a timed ``advance(n)``; (chain, steps/s,
+    the samples after the warm-up)."""
     chain = cls(posterior=posterior, start=np.array([2.0, -4.0]), display_progress=False,
                 seed=seed, device=device)
-    chain.advance(200)
+    chain.advance(ROSEN_WARM)
     t0 = time.perf_counter()
     chain.advance(n)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    return chain, n / (time.perf_counter() - t0)
+    rate = n / (time.perf_counter() - t0)
+    s = chain.get_sample(burn=0)
+    if not _inside_box(s):
+        raise RuntimeError(f"{cls.__name__} on {device}: samples non-finite or outside the box")
+    return chain, rate, s[ROSEN_WARM + 1:]
+
+
+def _ess(x):
+    """ESS of a series by its integrated autocorrelation time 1 + 2 sum_k
+    rho_k (the library's ``effective_sample_size`` divides n by sum_k rho_k
+    from k = 0, up to twice too many for a slow chain; so tau = 2 n / ess -
+    1)."""
+    return len(x) / (2.0 * len(x) / effective_sample_size(x) - 1.0)
+
+
+def _mean_and_se(w):
+    """Each column's mean and its standard error sd / sqrt(ESS) (``_ess``)."""
+    return w.mean(axis=0), np.array([np.sqrt(w[:, i].var() / _ess(w[:, i]))
+                                     for i in range(w.shape[1])])
+
+
+def _chains_agree(label, s1, s2):
+    """Hold two chains that sample the same target to each other: each
+    mean, and each variance as the mean of the series (x - mean)^2, within 5
+    joint standard errors (sd / sqrt(ESS) of each chain's series, the ESS by
+    ``_ess``). Returns the readings."""
+    (m1, se_m1), (m2, se_m2) = _mean_and_se(s1), _mean_and_se(s2)
+    (v1, se_v1), (v2, se_v2) = _mean_and_se((s1 - m1) ** 2), _mean_and_se((s2 - m2) ** 2)
+    z = np.abs(m1 - m2) / np.hypot(se_m1, se_m2)
+    r = np.abs(v1 - v2) / np.hypot(se_v1, se_v2)
+    print(f"[{label}] means {m1} / {m2}, variances {v1} / {v2}, the means' ESS "
+          f"{(v1 / se_m1**2).round(1)} / {(v2 / se_m2**2).round(1)}: means within {z.max():.3f}, "
+          f"variances within {r.max():.3f} joint standard errors (limits 5)")
+    if z.max() > 5.0 or r.max() > 5.0:
+        raise RuntimeError(f"{label}: the two chains' moments disagree")
+    return {"z_mean": float(z.max()), "z_var": float(r.max())}
 
 
 def phase_gibbs_rosenbrock(steps=ROSEN_STEPS, devices=("cuda", "cpu")):
     """gibbs-rosenbrock: the demo's posterior in torch. ``GibbsChain`` and
-    ``PcaChain`` from [2, -4] on the card and on the CPU: steps/s of a warm
-    timed advance (``steps`` by device), every sample finite and inside the
-    quadrature's box, and each one's distance to the quadrature printed (a
-    reading: one chain mixes slowly between the two arms of x given y, and
-    the reference's repeat-until-accept update these facades run is
-    biased). The held check: the gibbs and pca kinds of ``ChainArray`` with
-    the textbook update (retry=False) at 1,024 chains on the card around
-    the mode (widths 0.5, 2,000 stored steps, the first 1,000 dropped; pca
-    re-estimates its directions at 1,000), pooled means and variances within
-    5 standard errors (from the 1,024 independent chains, ``_pooled``) of
-    2D grid quadrature of the density. Returns the readings and the
-    quadrature."""
+    ``PcaChain`` from [2, -4] on the card and on the CPU (``_rosen_chain``):
+    steps/s of a warm timed advance (``steps`` by device), every sample
+    finite and inside the quadrature's box, and each facade's card chain
+    held to its CPU chain (``_chains_agree``), the same code with the same
+    meaning. Then the gibbs and pca kinds of ``ChainArray`` with the textbook
+    update (retry=False) at 1,024 chains on the card around the mode (widths
+    0.5, 2,000 stored steps, the first 1,000 dropped; pca re-estimates its
+    directions at 1,000), pooled means and variances held within 5 standard
+    errors (from the 1,024 independent chains, ``_pooled``) of 2D grid
+    quadrature of the density. The facades' distance to the quadrature is
+    printed, not held: they run the reference's repeat-until-accept update,
+    whose target is not the posterior (gibbs-10d's retry=True run shows its
+    bias). Returns the readings and the CPU's GibbsChain samples (the
+    longest torch chain)."""
     mean, var = rosen_quadrature()
     print(f"[gibbs-rosenbrock] quadrature: means {mean}, variances {var}")
     out = {}
+    cpu_gibbs = None
     for cls in (GibbsChain, PcaChain):
+        samples = {}
         for device in devices:
             n = steps[torch.device(device).type]
-            chain, rate = _rosen_chain(cls, rosen_torch, device, n)
-            s = chain.get_sample(burn=0)
+            _, rate, s = _rosen_chain(cls, rosen_torch, device, n)
+            samples[device] = s
             label = f"{cls.__name__} {device}"
-            print(f"[gibbs-rosenbrock] {label}: advance({n}) at {rate:,.2f} steps/s; means "
-                  f"{s[200:].mean(axis=0)}, variances {s[200:].var(axis=0)} (a reading); "
-                  f"finite and inside the box: {_inside_box(s)}")
-            if not _inside_box(s):
-                raise RuntimeError(f"gibbs-rosenbrock {label}: samples non-finite or outside")
+            print(f"[gibbs-rosenbrock] {label}: advance({n}) at {rate:,.2f} steps/s; finite and "
+                  f"inside the box; means {s.mean(axis=0)}, variances {s.var(axis=0)} (the "
+                  f"quadrature's {mean}, {var}: a reading)")
             out[label] = {"steps_per_s": rate}
+        out[f"{cls.__name__} card vs CPU"] = _chains_agree(
+            f"gibbs-rosenbrock {cls.__name__} {devices[0]} vs {devices[1]}", samples[devices[0]],
+            samples[devices[1]])
+        if cls is GibbsChain:
+            cpu_gibbs = samples[devices[1]]
     starts = np.array([0.0, 0.4]) + np.random.default_rng(5).normal(0, 0.5, (ROSEN_CHAINS, 2))
     for kind in ("gibbs", "pca"):
         ca = ChainArray(kind, rosen_torch, starts, widths=0.5, retry=False, seed=6,
@@ -1113,34 +1184,38 @@ def phase_gibbs_rosenbrock(steps=ROSEN_STEPS, devices=("cuda", "cpu")):
         out[f"ChainArray {kind} retry=False"] = {"chain_steps_per_s": rate,
                                                  "z_mean": float(z_m.max()),
                                                  "z_var": float(z_v.max())}
-    return out, (mean, var)
+    return out, cpu_gibbs
 
 
-def phase_a1_numpy(steps=ROSEN_STEPS["cuda"], device="cuda"):
+def phase_a1_numpy(reference, steps=ROSEN_STEPS["cuda"], device="cuda"):
     """a1-numpy: the demo's posterior written with numpy. ``GibbsChain`` on
-    the card (host evaluations, state on the card): steps/s, every sample
-    finite and inside the quadrature's box, and its stored log-probabilities
-    those of the numpy function at its samples (float32 rounding);
-    ``HamiltonianChain`` with the forward-difference gradient, 200
-    transitions of 10 leapfrog steps, finite and inside the box;
-    ``ChainArray("gibbs")`` at 64 chains (64 host calls a proposal), 200
-    steps with retry=False, its log-probabilities those of the numpy
-    function."""
+    the card (host evaluations, state on the card; another seed): steps/s,
+    every sample finite and inside the quadrature's box, its stored
+    log-probabilities those of the numpy function at its samples (float32
+    rounding), and its moments held to ``reference``, the samples of the
+    torch GibbsChain on the CPU, the longest (``_chains_agree``);
+    ``HamiltonianChain`` with
+    the forward-difference gradient, 200 transitions of 10 leapfrog steps,
+    finite and inside the box; ``ChainArray("gibbs")`` at 64 chains (64 host
+    calls a proposal), 200 steps with retry=False, its log-probabilities
+    those of the numpy function."""
     out = {}
-    chain, rate = _rosen_chain(GibbsChain, rosen_numpy, device, steps)
+    chain, rate, s = _rosen_chain(GibbsChain, rosen_numpy, device, steps, seed=1)
     if not chain._logp.host or {t.device.type for t in torch.utils._pytree.tree_leaves(
             chain._state)} != {torch.device(device).type}:
         raise RuntimeError("a1-numpy: the numpy GibbsChain is not on the host route with its "
                            "state on the card")
-    s = chain.get_sample(burn=0)
-    lp = np.array([rosen_numpy(t) for t in s])
+    everything = chain.get_sample(burn=0)
+    lp = np.array([rosen_numpy(t) for t in everything])
     err = float(np.abs(chain.get_probabilities(burn=0) - lp).max() / max(1.0, np.abs(lp).max()))
     print(f"[a1-numpy] GibbsChain {device} (host evaluations): advance({steps}) at {rate:,.2f} "
-          f"steps/s; finite and inside the box: {_inside_box(s)}; log-probabilities within "
-          f"{err:.3e} of the numpy function's (relative to max(1, |logp|))")
-    if not _inside_box(s) or err > 1e-5:
-        raise RuntimeError("a1-numpy: the numpy GibbsChain's samples or log-probabilities are off")
-    out[f"GibbsChain {device}"] = {"steps_per_s": rate, "logp_err": err}
+          f"steps/s; finite and inside the box; log-probabilities within {err:.3e} of the numpy "
+          f"function's (relative to max(1, |logp|))")
+    if err > 1e-5:
+        raise RuntimeError("a1-numpy: the numpy GibbsChain's log-probabilities are off")
+    agree = _chains_agree(f"a1-numpy GibbsChain numpy on {device} vs torch on the CPU", s,
+                          reference)
+    out[f"GibbsChain {device}"] = {"steps_per_s": rate, "logp_err": err, **agree}
 
     hmc = HamiltonianChain(rosen_numpy, start=np.array([0.5, 0.5]), display_progress=False,
                            seed=0, device=device)
@@ -1149,8 +1224,7 @@ def phase_a1_numpy(steps=ROSEN_STEPS["cuda"], device="cuda"):
     hmc.advance(200)
     hmc_rate = 200 / (time.perf_counter() - t0)
     s = hmc.get_sample(burn=0)
-    inside = bool(np.isfinite(s).all() and (np.abs(s[:, 0]) < 6).all()
-                  and ((s[:, 1] > -8) & (s[:, 1] < 40)).all())
+    inside = _inside_box(s)
     print(f"[a1-numpy] HamiltonianChain {device}, forward-difference gradient: 200 transitions at "
           f"{hmc_rate:.2f} transitions/s, means {s[50:].mean(axis=0)}, finite and inside the "
           f"box: {inside}")
@@ -2358,6 +2432,8 @@ def phase_probe_checks(n):
             wh, wl, ws = _wide_coords(n, d, 24)
             p3_in = (wh, wl, ws, v)
         errs["P3"][d] = _p3_checks(n, d, *p3_in)
+    _p3_checks(P3_STREAMED_N, P3_STREAMED_D,
+               *words.make_coords(P3_STREAMED_N, P3_STREAMED_D, CUDA, seed=3))
     return errs
 
 
@@ -2542,9 +2618,9 @@ def main():
           f"{hc_rates['cuda']:.2f}, CPU {hc_rates['cpu']:.2f}")
     gibbs10 = phase_gibbs_10d()
     t_rosen = time.perf_counter()
-    rosen, _ = phase_gibbs_rosenbrock()
+    rosen, cpu_gibbs = phase_gibbs_rosenbrock()
     t_a1 = time.perf_counter()
-    a1 = phase_a1_numpy()
+    a1 = phase_a1_numpy(cpu_gibbs)
     t_metro = time.perf_counter()
     print(f"[summary] the Metropolis family: gibbs-10d {t_rosen - t_end:.1f} s, gibbs-rosenbrock "
           f"{t_a1 - t_rosen:.1f} s, a1-numpy {t_metro - t_a1:.1f} s ({t_metro - t_end:.1f} s in "

@@ -1,8 +1,11 @@
 // Probe P3: kernel B3's function with the squared distance's cross term from
 // exact integer matmuls on the tensor cores, for Hopper (sm_90a), at any
-// coordinate dimension d up to 411, where the smallest plan (16 rows of words
-// resident, one stage of 16 columns) still fits a block's shared memory. One
-// library per d (-DP3_D=<d>): every size below is fixed at compile time.
+// coordinate dimension d. One library per d (-DP3_D=<d>): every size below is
+// fixed at compile time. Up to d = 411, where the smallest resident plan (16
+// rows of words resident, one stage of 16 columns) still fits a block's
+// shared memory, the resident kernel below; above, the wrapper builds the
+// library with -DP3_STREAMED=1, whose kernel streams each class's K through
+// shared memory in chunks (the end of this file's kernels).
 //
 // Replaces the Pallas kernel of benchmarks/df64_mxu_d2_experiment.py::
 // _matvec_mxu_pallas (kernel :72-161, launched at :179). The plain PyTorch
@@ -75,6 +78,9 @@
 #ifndef P3_D
 #define P3_D 2
 #endif
+#ifndef P3_STREAMED
+#define P3_STREAMED 0  // 1: the streamed kernel (any d), else the resident one
+#endif
 
 namespace {
 
@@ -134,7 +140,10 @@ __host__ __device__ constexpr int n_parts() {
   for (int c = 0; c < NW; ++c) n += part_last(c);
   return n;
 }
-static_assert(part_fits(0, 0) && part_fits(NW - 1, NW - 1), "a class alone must fit int32");
+static_assert(P3_STREAMED || (part_fits(0, 0) && part_fits(NW - 1, NW - 1)),
+              "a class alone must fit int32");
+
+#if !P3_STREAMED
 
 // A's fragments live in registers where a row's words are short (KA <= 32,
 // d <= 4), else ldmatrix reads them at each use: at d = 20 their 18
@@ -173,6 +182,10 @@ constexpr int THREADS = 32 * WARPS_M * WARPS_N;
 constexpr int NSUB = TJ / 16 / WARPS_N;  // 16-column sub-tiles of a warp in one stage
 constexpr int SMEM = BM * SA + STAGES * stage_bytes(TJ) + 512;  // + exp_nonpos's table
 static_assert(WARPS_N * BM * 8 <= SMEM, "the row reduction reuses the shared memory");
+constexpr int LAUNCH_SMEM = SMEM;  // dynamic shared bytes of a launch
+constexpr int TILE_THREADS = 32, TILE_SMEM = 16 * SA + 16 * KB;  // the tile check's launch
+constexpr bool TILE_FITS = true;  // the tile check's int32 class sums (|C_c| < 2^31 here)
+#endif  // !P3_STREAMED
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 __constant__ double EXP2_64[64] = {
@@ -262,6 +275,7 @@ __device__ __forceinline__ double exp_nonpos(double x, const double* tab) {
   return __hiloint2double(__double2hiint(y) + ((j >> 6) << 20), __double2loint(y));
 }
 
+#if !P3_STREAMED
 using AFrags = uint32_t[KA / KS][2];  // the warp's A fragments, 16 bytes of k at a time
 
 // the thread's ldmatrix row of A (the warp's m16 tile from row r16, k step 0)
@@ -575,11 +589,169 @@ cudaError_t configure() {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(words_mma_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               16 * SA + 16 * KB);
+                               TILE_SMEM);
     return e;
   }();
   return rc;
 }
+
+#else  // P3_STREAMED
+
+// The streamed kernel, for any d (the wrapper takes it where the resident
+// plan does not fit, d > 411). A block of 4 warps owns BM = 64 rows, 16 a
+// warp, and walks its split of the columns in tiles of TJ = 16 columns, one
+// 16 x 16 sub-tile a warp. For each tile and class it streams the class's K
+// through shared memory in chunks of KCH bytes (the rows' words and the
+// columns' class slice, zero-padded to the MMA's 32), an m16n8k32 pair a
+// 32-byte step into int32 sums (below 2^21 a chunk), added into 64-bit class
+// sums, so that no class sum can overflow at any d. S then forms exactly in
+// two int64 words as in the plain version (S = hi 2^42 + lo, 0 <= lo <
+// 2^42), rounds once to FP64, and t = fma(S, 2^shift, m_i + m_j) is the plain
+// version's argument to the bit. No ring and no reuse of a row's words
+// across tiles: the path is for correctness at any d, not for speed.
+constexpr int BM = 64, TJ = 16, STAGES = 1, THREADS = 128;
+constexpr bool AREG = false;
+constexpr int KCH = 512;          // bytes of a K chunk
+constexpr int PITCH = KCH + 16;   // a staged row's bytes: lane 4 g + t4 reads bank 4 g + t4
+constexpr int LO_BITS = 7 * (NW - 1);  // S = hi 2^LO_BITS + lo
+constexpr int SMEM = (BM + TJ) * PITCH + 512;  // static: the staged rows, columns, exp table
+constexpr int LAUNCH_SMEM = 0;
+constexpr int TILE_ROWS = 32, TILE_THREADS = 64, TILE_SMEM = 0;
+// the tile check writes the class sums as int32: |C_c| <= 7 d 2^12
+constexpr bool TILE_FITS = 7.0 * D * 4096.0 < 2147483648.0;
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The class sums of the warp's 16 x 16 sub-tile: rows r0.. of the `rows`
+// staged from row_base, the TJ columns from col_base. For each class c, its
+// sums C64[i] of entry i (row r0 + g + 8 ((i & 3) >> 1), column 8 (i >> 2) +
+// 2 t4 + (i & 1), as the resident kernel's) go to f(c, C64). Every thread of
+// the block calls it: the chunks are staged by all.
+template <class F>
+__device__ __forceinline__ void stream_classes(int8_t* sa, int8_t* sb, const int8_t* rows_a,
+                                               const int8_t* cols_b, size_t row_base, int rows,
+                                               size_t col_base, int r0, F&& f) {
+  const int tid = threadIdx.x, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int8_t* const a = sa + (r0 + g) * PITCH + 4 * t4;
+  const int8_t* const b = sb + g * PITCH + 4 * t4;
+#pragma unroll 1
+  for (int c = 0; c < NW; ++c) {
+    const int kc = class_k(c), off = class_off(c);
+    long long C64[8] = {};
+#pragma unroll 1
+    for (int k0 = 0; k0 < kc; k0 += KCH) {
+      const int kk = min(KCH, kc - k0), k32 = round_up(kk, 32), chunks = k32 / 16;
+      __syncthreads();  // every warp is done with the last chunk
+      for (int idx = tid; idx < (rows + TJ) * chunks; idx += blockDim.x) {
+        const int r = idx / chunks, ch = idx - r * chunks;
+        const bool row = r < rows;
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (ch * 16 < kk)
+          w = *reinterpret_cast<const uint4*>(
+              row ? rows_a + (row_base + r) * KA + k0 + ch * 16
+                  : cols_b + (col_base + r - rows) * KB + off + k0 + ch * 16);
+        *reinterpret_cast<uint4*>((row ? sa + r * PITCH : sb + (r - rows) * PITCH) + ch * 16) = w;
+      }
+      __syncthreads();
+      int C[2][4] = {};
+      for (int k = 0; k < k32; k += 32) {
+        const uint32_t af[4] = {ld32(a + k), ld32(a + 8 * PITCH + k), ld32(a + k + 16),
+                                ld32(a + 8 * PITCH + k + 16)};
+        mma_s8(C[0], af, ld32(b + k), ld32(b + k + 16));
+        mma_s8(C[1], af, ld32(b + 8 * PITCH + k), ld32(b + 8 * PITCH + k + 16));
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) C64[i] += C[i >> 2][i & 3];
+    }
+    f(c, C64);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+sqexp_words_mma_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restrict__ cols_b,
+                       const double* __restrict__ norms, const float* __restrict__ v,
+                       double scale, double* __restrict__ partial, int n, int tiles_per_split) {
+  __shared__ __align__(16) int8_t sa[BM * PITCH];
+  __shared__ __align__(16) int8_t sb[TJ * PITCH];
+  __shared__ double tab[64];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  for (int i = tid; i < 64; i += THREADS) tab[i] = EXP2_64[i];  // seen after the first chunk
+  const int row_base = blockIdx.x * BM, row0 = warp * 16;
+  const int n_tiles = n / TJ;
+  const int t_begin = blockIdx.y * tiles_per_split;
+  const int t_count = min(tiles_per_split, n_tiles - t_begin);
+  double rm[2], acc[2] = {0.0, 0.0};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rm[r] = norms[row_base + row0 + g + 8 * r];
+  for (int u = 0; u < t_count; ++u) {
+    const int col0 = (t_begin + u) * TJ;
+    long long hi[8] = {}, lo[8] = {};
+    stream_classes(sa, sb, rows_a, cols_b, row_base, BM, col0, row0,
+                   [&](int c, const long long (&C)[8]) {
+                     // C_c 2^(42 - 7 c): floor(C_c / 2^(7 c)) into hi, the rest into lo
+                     const int low = 7 * c;
+#pragma unroll
+                     for (int i = 0; i < 8; ++i) {
+                       const long long q = C[i] >> low;
+                       hi[i] += q;
+                       lo[i] += (C[i] - q * (1LL << low)) << (LO_BITS - low);
+                     }
+                   });
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = col0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+      const long long carry = lo[i] >> LO_BITS;
+      const double S = fma((double)(hi[i] + carry), 4398046511104.0 /* 2^42 */,
+                           (double)(lo[i] - carry * (1LL << LO_BITS)));
+      const double t = fma(S, scale, rm[(i & 3) >> 1] + norms[col]);
+      acc[(i & 3) >> 1] = fma(exp_nonpos(t, tab), (double)v[col], acc[(i & 3) >> 1]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 1);
+    acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], 2);
+  }
+  double* const out = partial + (size_t)blockIdx.y * n + row_base;
+  if (t4 == 0) {
+    out[row0 + g] = acc[0];
+    out[row0 + g + 8] = acc[1];
+  }
+}
+
+// two warps: the class sums C_c and the parts P of rows 0-31 and columns
+// 0-15 by the streamed kernel's own staging and fragments; out_c (7, 32,
+// 16), out_p (n_parts, 32, 16)
+__global__ void __launch_bounds__(TILE_THREADS)
+words_mma_tile_kernel(const int8_t* __restrict__ rows_a, const int8_t* __restrict__ cols_b,
+                      int* __restrict__ out_c, int* __restrict__ out_p) {
+  __shared__ __align__(16) int8_t sa[TILE_ROWS * PITCH];
+  __shared__ __align__(16) int8_t sb[TJ * PITCH];
+  const int lane = threadIdx.x & 31, row0 = (threadIdx.x >> 5) * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  auto at = [&](int i) {  // (row, column) of the thread's entry i
+    return (row0 + g + 8 * ((i & 3) >> 1)) * 16 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+  };
+  int P[8], p = 0;
+  stream_classes(sa, sb, rows_a, cols_b, 0, TILE_ROWS, 0, row0,
+                 [&](int c, const long long (&C)[8]) {
+                   for (int i = 0; i < 8; ++i) {
+                     out_c[c * 512 + at(i)] = (int)C[i];
+                     P[i] = part_first(c) ? (int)C[i] : P[i] * 128 + (int)C[i];
+                   }
+                   if (part_last(c)) {
+                     for (int i = 0; i < 8; ++i) out_p[p * 512 + at(i)] = P[i];
+                     ++p;
+                   }
+                 });
+}
+
+cudaError_t configure() { return cudaSuccess; }  // static shared memory below 48 KB
+
+#endif  // P3_STREAMED
 
 }  // namespace
 
@@ -597,7 +769,7 @@ extern "C" int sqexp_words_mma_plan(int n, int* out) {
   if (rc == cudaSuccess) rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc == cudaSuccess)
     rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sqexp_words_mma_kernel, THREADS,
-                                                       SMEM);
+                                                       LAUNCH_SMEM);
   if (rc != cudaSuccess) return (int)rc;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int n_tiles = n / TJ, row_blocks = (n + BM - 1) / BM;
@@ -614,7 +786,8 @@ extern "C" int sqexp_words_mma_plan(int n, int* out) {
       best = s;
     }
   }
-  const int plan[12] = {D, BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB, n_parts(), AREG};
+  const int plan[12] = {D,  BM, TJ, STAGES, THREADS, SMEM, per_sm, best, KA, KB,
+                        P3_STREAMED ? 0 : n_parts(), AREG};
   for (int i = 0; i < 12; ++i) out[i] = plan[i];
   return 0;
 }
@@ -637,7 +810,7 @@ extern "C" int sqexp_words_mma(const void* rows_a, const void* cols_b, const voi
   const cudaError_t rc = configure();
   if (rc != cudaSuccess) return (int)rc;
   const dim3 grid((n + BM - 1) / BM, splits);
-  sqexp_words_mma_kernel<<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  sqexp_words_mma_kernel<<<grid, THREADS, LAUNCH_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
       static_cast<const double*>(norms), static_cast<const float*>(v), ldexp(1.0, shift),
       static_cast<double*>(partial), n, tiles_per_split);
@@ -649,10 +822,10 @@ extern "C" int sqexp_words_mma(const void* rows_a, const void* cols_b, const voi
 // matvec's own staging, fragments and combine: the layout's check.
 extern "C" int words_mma_tile(const void* rows_a, const void* cols_b, void* out_c, void* out_p,
                               int n, int d, void* stream) {
-  if (d != D || n < 32) return (int)cudaErrorInvalidValue;
+  if (d != D || n < 32 || !TILE_FITS) return (int)cudaErrorInvalidValue;
   const cudaError_t rc = configure();
   if (rc != cudaSuccess) return (int)rc;
-  words_mma_tile_kernel<<<1, 32, 16 * SA + 16 * KB, static_cast<cudaStream_t>(stream)>>>(
+  words_mma_tile_kernel<<<1, TILE_THREADS, TILE_SMEM, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(rows_a), static_cast<const int8_t*>(cols_b),
       static_cast<int*>(out_c), static_cast<int*>(out_p));
   return (int)cudaGetLastError();

@@ -1,6 +1,5 @@
 """Probe P3: kernel B3's function with the squared distance's cross term
-from exact integer matmuls on the tensor cores, at any coordinate dimension d
-(the kernel up to ``D_MAX``).
+from exact integer matmuls on the tensor cores, at any coordinate dimension d.
 
 Port of ``benchmarks/df64_mxu_d2_experiment.py``. On the TPU the pair-
 arithmetic distance was the fused kernels' bottleneck, and the experiment
@@ -18,11 +17,14 @@ takes the FP64 norms it splits (``half_norms``).
 The combined class sum ``S = sum_c C_c 2^(7 (6 - c))`` needs 54 + log2(d)
 bits, more than int64 holds above d = 256. The plain version carries it
 exactly in two int64 words (``_class_sums``) and rounds it to FP64 once, so
-it takes any d, as the JAX probe does; the kernel folds S into the FP64
-argument part by part (``parts``). The kernel takes d <= ``D_MAX`` = 411,
-where its smallest plan (16 rows of words resident, one stage of 16
-columns) still fits the 227 KB of shared memory a block may have; its
-wrapper raises above.
+it takes any d, as the JAX probe does. So does the kernel. Up to
+``D_RESIDENT`` = 411, where its smallest resident plan (16 rows of words
+resident, one stage of 16 columns) still fits the 227 KB of shared memory a
+block may have, the resident kernel folds S into the FP64 argument part by
+part (``parts``); above, the library is built streamed
+(``kernel_variant``): each class's K passes through shared memory in chunks
+into 64-bit class sums, and S forms in two int64 words as in the plain
+version.
 
 ``words_matvec`` launches the kernel for operands (``prepare``) on a CUDA
 device and runs the plain version ``_words_reference`` (the class matmuls in
@@ -125,7 +127,7 @@ def _plan_fits(d):
     return 16 * (_round_up(KA, 32) + 16) + 16 * (KB + 12) + 512 <= 233472 - 1024
 
 
-D_MAX = max(d for d in range(1, 1024) if _plan_fits(d))  # the largest d the kernel takes
+D_RESIDENT = max(d for d in range(1, 1024) if _plan_fits(d))  # the resident kernel's largest d
 
 
 def prepare(u64, device="cuda"):
@@ -220,8 +222,8 @@ def _words_reference(ops, v):
 
 def kernel_variant(d):
     """The nvcc defines of the kernel's library for d coordinates: one
-    library per d."""
-    return (("P3_D", d),)
+    library per d, streamed above ``D_RESIDENT``."""
+    return (("P3_D", d),) + ((("P3_STREAMED", 1),) if d > D_RESIDENT else ())
 
 
 def _check_cuda(kernel, ops, *extra):
@@ -244,7 +246,8 @@ def plan(n, d, device):
     """The library's launch plan for n rows at d on ``device``
     (``sqexp_words_mma_plan``): its tile sizes, ring depth, threads, shared
     bytes, blocks an SM, column splits, operand widths, the parts of S
-    (``parts``) and whether A's fragments sit in registers."""
+    (``parts``; 0 for the streamed kernel, which forms S in two words) and
+    whether A's fragments sit in registers."""
     fn = getattr(_build.load("sqexp_words_mma", kernel_variant(d)), "sqexp_words_mma_plan")
     fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
     out = (ctypes.c_int * len(PLAN_KEYS))()
@@ -260,9 +263,6 @@ def _launch_words(ops, v):
     of ``_words_reference``."""
     global KERNEL_LAUNCHES
     dev = _check_cuda("P3", ops, ("v", v))
-    if ops["d"] > D_MAX:
-        raise ValueError(f"kernel P3: d = {ops['d']} coordinates; its plan fits the shared "
-                         f"memory up to d = {D_MAX}")
     if v.dtype != torch.float32:
         raise TypeError(f"kernel P3: v must be float32, got {v.dtype}")
     n, d = ops["rows"].shape[0], ops["d"]
@@ -324,11 +324,12 @@ def _tile_reference(ops):
 def words_bound(n, d):
     """(ms, what bounds it) of the kernel's FP64 work at n, an fma two
     flops: per entry the add of the norms, one fma for each part of S
-    (``parts``), exp_nonpos (``EXP_NONPOS_FLOPS``) and the fma accumulate,
-    25 flops up to d = 31 (three parts), 27 above; the operands read once
-    and y written once."""
+    (``parts``; the streamed kernel's two: S from its two words, S into the
+    argument), exp_nonpos (``EXP_NONPOS_FLOPS``) and the fma accumulate, 25
+    flops up to d = 31 (three parts), 27 above; the operands read once and
+    y written once."""
     KA, _, KB = layout(d)
-    flops = 1 + 2 * len(parts(d)) + EXP_NONPOS_FLOPS + 2
+    flops = 1 + 2 * (len(parts(d)) if d <= D_RESIDENT else 2) + EXP_NONPOS_FLOPS + 2
     return bound(n * (KA + KB + 8 + 4 + 8), float(n) * n * flops, FP64_FLOPS)
 
 
@@ -382,7 +383,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("sizes", nargs="*", type=int, default=[N])
     p.add_argument("--d", type=int, default=2,
-                   help=f"coordinate dimension (any on the CPU, 1-{D_MAX} on the card)")
+                   help=f"coordinate dimension (any; the card's kernel is streamed above "
+                        f"{D_RESIDENT})")
     p.add_argument("--device", default="cuda")
     a = p.parse_args(argv)
     on_card = torch.device(a.device).type == "cuda"

@@ -987,12 +987,14 @@ def test_ablate_kernel_matches_plain(cuda, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d, n", [(2, 4096), (3, 4096), (20, 4096), (33, 4096), (256, 512),
-                                  (300, 512), (p3.D_MAX, 256)])
+                                  (300, 512), (p3.D_RESIDENT, 256),
+                                  (p3.D_RESIDENT + 1, 256), (1000, 256)])
 def test_words_mma_tile_and_matvec(cuda, d, n):
     """One 32 x 16 tile of the class sums and their parts equal the plain
     version's exactly, on the data and on words of +-64 (the largest sums);
     the matvec matches its plain version and B3, one launch; past d = 256,
-    where S passes int64, up to the largest d the kernel's plan fits."""
+    where S passes int64, up to the largest d of the resident plan, and
+    above it the streamed kernel (d = 412 and 1,000)."""
     uh, ul, us, v = p3.make_coords(n, d, cuda, seed=3)
     ops = p3.prepare(us.cpu().numpy(), cuda)
     for got, ref in zip(p3._launch_tile(ops), p3._tile_reference(ops)):

@@ -306,11 +306,14 @@ def test_words_bound_counts_the_kernels_exp():
 
 
 def test_words_checks():
-    """The plain version takes d above the kernel's limit (``D_MAX``, the
-    largest d whose smallest plan fits a block's shared memory); the
-    operands' checks raise."""
-    assert p3.D_MAX == 411 and p3._plan_fits(411) and not p3._plan_fits(412)
-    u = np.random.default_rng(0).uniform(0, 0.5, (128, p3.D_MAX + 1))
+    """The plain version takes d above the resident kernel's limit
+    (``D_RESIDENT``, the largest d whose smallest resident plan fits a
+    block's shared memory), where the kernel's library is built streamed;
+    the operands' checks raise."""
+    assert p3.D_RESIDENT == 411 and p3._plan_fits(411) and not p3._plan_fits(412)
+    assert p3.kernel_variant(411) == (("P3_D", 411),)
+    assert p3.kernel_variant(412) == (("P3_D", 412), ("P3_STREAMED", 1))
+    u = np.random.default_rng(0).uniform(0, 0.5, (128, p3.D_RESIDENT + 1))
     v = torch.as_tensor(np.random.default_rng(1).normal(size=128).astype(np.float32))
     y = p3.words_matvec(p3.prepare(u, "cpu"), v).numpy()
     E = np.exp(-0.5 * ((u[:, None, :] - u[None, :, :]) ** 2).sum(-1))
