@@ -10,9 +10,10 @@ on the host, ``utils.wrap``), the
 posterior building blocks of ``models`` (likelihoods, priors,
 ``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``,
 ``gp.GpLinearInverter``, with the squared-exponential covariance kernel
-``ops.pairwise`` in CUDA C++) and the matrix-free small-noise GP
-(``gp.LargeScaleGP(solver="df64")``, with the FP64 kernels of ``ops.df64``
-in CUDA C++). Its benches are ``bench.headline`` and ``bench.dense_hmc``.
+``ops.pairwise`` in CUDA C++) and the matrix-free GP
+(``gp.LargeScaleGP`` in its cg, mixed and df64 tiers, with ``fit()``, and
+``gp.LargeScaleGpLinearInverter``; the FP64 kernels of ``ops.df64`` in CUDA
+C++ serve the small-noise df64 tier). Its benches are ``bench.headline`` and ``bench.dense_hmc``.
 Its entry points run on the card unless the caller passes
 ``device="cpu"``. It imports torch, numpy and scipy, never jax.
 """

@@ -14,9 +14,12 @@ hyperparameters, ``pad_to`` as numpy values, and its kernel and mean as
 class names (a kernel spec nests for ``CompositeCovariance`` and
 ``ChangePoint``). ``gp_state_of`` reads that state off a JAX model by its
 attributes; ``gp_regressor_from_state`` builds the port's model from it.
-A solved ``LargeScaleGP(solver="df64")`` crosses the same way
+A solved ``LargeScaleGP`` of any tier crosses the same way
 (``large_scale_state_of``, ``large_scale_gp_from_state``), with its
-training solve and preconditioner factor, so it is not solved again.
+settings, training solve and preconditioner factor, so it is not solved
+again; so does a solved ``LargeScaleGpLinearInverter``
+(``large_inverter_state_of``, ``large_inverter_from_state``) with its
+data-space solution. Only numpy values and names cross.
 
 The JAX package's batched ``MetropolisState`` (the gibbs and metropolis
 kinds) flattens to 10 leaves: theta ``(K, P)``, logp ``(K,)``, the five
@@ -259,41 +262,103 @@ def gp_regressor_from_state(state: dict, device="cuda", dtype=None, cholesky="au
     )
 
 
+def _block_kernel_spec(bk):
+    """A JAX ``BlockKernel`` as the kernel spec of ``_kernel_spec``:
+    ``"SquaredExponential"``, ``"RationalQuadratic"``, or a ``{"sum": ...}``
+    of one of them and ``"WhiteNoise"`` in the composite's order."""
+    base = getattr(bk, "base", None)
+    if base is None:
+        return bk.name
+    parts = [base.name, "WhiteNoise"]
+    return {"sum": parts if bk.base_first else parts[::-1]}
+
+
 def large_scale_state_of(gp) -> dict:
-    """The state of a JAX ``LargeScaleGP(solver="df64")`` as numpy values:
-    the unpadded x, y and y_err, hyperpars, ``mean_value``,
-    ``block_size``, ``preconditioner_rank``, ``cg_tol``, ``cg_maxiter``,
-    ``store_entries``, the solved ``alpha64`` and the preconditioner factor
-    ``U`` (None without one). It reads attributes only and imports nothing
-    of the JAX package."""
+    """The state of a solved JAX ``LargeScaleGP`` of any tier as numpy
+    values and names: the unpadded x, y and y_err, hyperpars, the kernel
+    spec, ``solver``, ``preconditioner``, the working ``dtype``,
+    ``mean_value``, ``block_size``, ``preconditioner_rank``, ``cg_tol``,
+    ``cg_maxiter``, ``store_entries``, the solved ``alpha64`` (``alpha`` in
+    float64 where the instance has no ``alpha64``) and the preconditioner
+    factor ``U`` (None without one). It reads attributes only and imports
+    nothing of the JAX package."""
     n = gp.n_points
-    pc = getattr(gp, "_precond64", None)
+    pc = getattr(gp, "_precond64", None) or getattr(gp, "_precond", None)
     U = None if pc is None else np.array(pc[0], dtype=np.float64)
     return {
         "x": np.asarray(gp._x_host, dtype=np.float64)[:n],
         "y": np.asarray(gp._y_host, dtype=np.float64)[:n],
         "y_err": np.sqrt(np.asarray(gp._sig_host, dtype=np.float64)[:n]),
         "hyperpars": np.asarray(gp.hyperpars, dtype=np.float64),
+        "kernel": _block_kernel_spec(gp._bk),
+        "solver": gp.solver,
+        "preconditioner": gp.preconditioner,
+        "dtype": str(gp._x.dtype).rsplit(".", 1)[-1],
         "mean_value": float(gp.mean_value),
         "block_size": int(gp.block_size),
         "preconditioner_rank": 0 if U is None else U.shape[1],
         "cg_tol": float(gp._cg_tol),
         "cg_maxiter": int(gp._cg_maxiter),
         "store_entries": gp.store_entries,
-        "alpha64": np.array(gp.alpha64, dtype=np.float64),
+        "alpha64": np.array(getattr(gp, "alpha64", gp.alpha), dtype=np.float64),
         "U": U,
     }
 
 
 def large_scale_gp_from_state(state: dict, device="cuda"):
-    """The port's ``LargeScaleGP(solver="df64")`` with the state
-    ``large_scale_state_of`` returns, on ``device`` (default the card): the
-    same data, padding, hyperparameters and settings, with the solved
-    ``alpha64`` and the factor ``U`` taken as they are, so nothing is
-    solved again."""
+    """The port's ``LargeScaleGP`` with the state ``large_scale_state_of``
+    returns, on ``device`` (default the card): the same data, padding,
+    kernel, tier, hyperparameters and settings, with the solved ``alpha64``
+    and the factor ``U`` taken as they are, so nothing is solved again.
+    States written before the kernel, solver, preconditioner and dtype were
+    carried are read as the df64 tier's squared exponential."""
     return _gp.LargeScaleGP._from_solved(
         state["x"], state["y"], state["y_err"], state["hyperpars"], state["alpha64"], state["U"],
-        mean_value=state["mean_value"], block_size=state["block_size"],
-        cg_tol=state["cg_tol"], cg_maxiter=state["cg_maxiter"],
+        kernel=_kernel_from_spec(state.get("kernel", "SquaredExponential")),
+        solver=state.get("solver", "df64"), preconditioner=state.get("preconditioner", "pivchol"),
+        dtype=state.get("dtype"), mean_value=state["mean_value"],
+        block_size=state["block_size"], cg_tol=state["cg_tol"], cg_maxiter=state["cg_maxiter"],
         store_entries=state["store_entries"], device=device,
+    )
+
+
+def large_inverter_state_of(inv, cg_tol=1e-6, cg_maxiter=1000) -> dict:
+    """The state of a solved JAX ``LargeScaleGpLinearInverter`` as numpy
+    values and names: y, y_err, the unpadded model matrix and positions,
+    hyperpars, the kernel spec, ``prior_mean``, ``block_size``, ``solver``,
+    ``store_entries``, the working ``dtype``, ``cg_tol``, ``cg_maxiter`` and
+    the data-space solution ``z64`` (``z`` in float64 where the instance has
+    no ``z64``). The JAX instance records ``cg_tol`` and ``cg_maxiter`` only
+    in its df64 tier; for the others pass the values it was built with (the
+    defaults are the constructor's). It reads attributes only and imports
+    nothing of the JAX package."""
+    n = inv.n_parameters
+    return {
+        "y": np.asarray(inv._y_host, dtype=np.float64),
+        "y_err": np.sqrt(np.asarray(inv._sig_host, dtype=np.float64)),
+        "model_matrix": np.array(inv._A, dtype=np.float64)[:, :n],
+        "positions": np.array(getattr(inv, "_x_pad_host", inv._x), dtype=np.float64)[:n],
+        "hyperpars": np.asarray(inv.hyperpars, dtype=np.float64),
+        "kernel": _block_kernel_spec(inv._bk),
+        "prior_mean": float(inv.prior_mean),
+        "block_size": int(inv.block_size),
+        "solver": inv.solver,
+        "store_entries": inv.store_entries,
+        "dtype": str(inv._x.dtype).rsplit(".", 1)[-1],
+        "cg_tol": float(getattr(inv, "_cg_tol", cg_tol)),
+        "cg_maxiter": int(getattr(inv, "_cg_maxiter", cg_maxiter)),
+        "z64": np.array(getattr(inv, "z64", inv.z), dtype=np.float64),
+    }
+
+
+def large_inverter_from_state(state: dict, device="cuda"):
+    """The port's ``LargeScaleGpLinearInverter`` with the state
+    ``large_inverter_state_of`` returns, on ``device`` (default the card),
+    with the solution ``z64`` taken as it is, so nothing is solved again."""
+    return _gp.LargeScaleGpLinearInverter._from_solved(
+        state["y"], state["y_err"], state["model_matrix"], state["positions"],
+        state["hyperpars"], state["z64"], kernel=_kernel_from_spec(state["kernel"]),
+        prior_mean=state["prior_mean"], block_size=state["block_size"], cg_tol=state["cg_tol"],
+        cg_maxiter=state["cg_maxiter"], solver=state["solver"],
+        store_entries=state["store_entries"], dtype=state["dtype"], device=device,
     )

@@ -1,11 +1,13 @@
 """Gaussian processes: dense regression (``GpRegressor``), linear
-inversion (``GpLinearInverter``) and the matrix-free small-noise tier
-(``LargeScaleGP(solver="df64")``), with their covariance and mean
+inversion (``GpLinearInverter``), the matrix-free GP in its three solver
+tiers (``LargeScaleGP``) and matrix-free linear inversion
+(``LargeScaleGpLinearInverter``), with their covariance and mean
 functions. Port of that part of ``inference_tpu.gp``."""
 
 from .regression import GpRegressor
 from .inversion import GpLinearInverter
 from .large_scale import LargeScaleGP
+from .large_inversion import LargeScaleGpLinearInverter
 from .mean import ConstantMean, LinearMean, QuadraticMean
 from .covariance import (
     SquaredExponential,
@@ -21,6 +23,7 @@ __all__ = [
     "GpRegressor",
     "GpLinearInverter",
     "LargeScaleGP",
+    "LargeScaleGpLinearInverter",
     "ConstantMean",
     "LinearMean",
     "QuadraticMean",

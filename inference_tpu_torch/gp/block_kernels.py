@@ -1,24 +1,29 @@
-"""Kernel adapters for the matrix-free GP tier.
+"""Kernel adapters for the matrix-free GP tiers.
 
-Port of ``inference_tpu.gp.block_kernels``. ``LargeScaleGP`` never forms
-the covariance matrix; it needs a kernel's cross-covariance rows, its
-prior point variance and any white-noise variance it adds to the data
-diagonal, as maps over one flat hyperparameter vector. ``BlockKernel``
-packages those; ``SqExpBlock`` is the squared exponential, theta ``[ln A,
-ln l_1..l_D]``, the one kernel of the df64 tier.
+Port of ``inference_tpu.gp.block_kernels``. ``LargeScaleGP`` and
+``LargeScaleGpLinearInverter`` never form the covariance matrix; they need
+a kernel's cross-covariance rows, its prior point variance and any
+white-noise variance it adds to the data diagonal, as maps over one flat
+hyperparameter vector, on tensors (differentiable, for ``fit()``) and on
+the host in float64. ``BlockKernel`` packages those:
 
-``as_block_kernel`` resolves a dense-path covariance (class or instance).
-``RationalQuadratic`` and the ``+ WhiteNoise`` compositions, which only the
-JAX package's float32 and mixed solver tiers take (its df64 tier refuses
-them too), raise ``NotImplementedError`` until those tiers are ported
-(ROADMAP A11, next slice); other kernels raise the JAX package's
-``ValueError``.
+- ``SqExpBlock``, the squared exponential, theta ``[ln A, ln l_1..l_D]``:
+  its rows are kernel B2 (``ops.pairwise.SqexpCovariance``), and it is the
+  one kernel of the df64 tier;
+- ``RQBlock``, the rational quadratic, theta ``[ln A, ln alpha, ln
+  l_1..l_D]``: plain torch arithmetic on the matmul-form distances, as in
+  the JAX package (no TPU kernel there, none here);
+- ``NoisyBlock``: either of them ``+ WhiteNoise()``, whose ``ln sigma_w``
+  folds into the system diagonal, in the dense composite's slice order.
+
+``as_block_kernel`` resolves a dense-path covariance (class or instance)
+as the JAX function does, with its ``ValueError`` for the other kernels.
 """
 
 import numpy as np
 import torch
 
-from ..ops.pairwise import SqexpCovariance
+from ..ops.pairwise import SqexpCovariance, scaled_sq_distances
 from .covariance import (
     CompositeCovariance,
     CovarianceFunction,
@@ -43,12 +48,12 @@ def sqexp_rows_host64(q, x, hyperpars):
 
 class BlockKernel:
     """Flat-theta kernel maps for the blocked matrix-free solvers:
-    ``name``, ``n_params(d)``, the cross-covariance ``rows`` on tensors,
-    and the host float64 maps ``rows_host64``, ``amp2_host`` and
-    ``noise_variance_host``. (The JAX package's tensor forms of the prior
-    and noise variances serve its float32 tiers and ``fit()``, which are
-    not ported yet; its ``supports_df64`` flag has no job while the squared
-    exponential is the one adapter.)"""
+    ``name``, ``supports_df64``, ``n_params(d)``, the tensor maps ``rows``,
+    ``amp2`` and ``noise_variance`` (torch, differentiable in theta), and
+    the host float64 maps ``rows_host64``, ``amp2_host`` and
+    ``noise_variance_host``."""
+
+    supports_df64 = False
 
     def n_params(self, n_dims: int) -> int:
         raise NotImplementedError
@@ -56,6 +61,16 @@ class BlockKernel:
     def rows(self, xa, xb, theta):
         """Cross-covariance block K(xa, xb), white noise excluded."""
         raise NotImplementedError
+
+    def amp2(self, theta):
+        """Prior point variance K(x, x), white noise excluded (a tensor)."""
+        raise NotImplementedError
+
+    def noise_variance(self, theta):
+        """White-noise variance added to the data diagonal (a tensor); 0
+        without a noise component."""
+        theta = torch.as_tensor(theta)
+        return torch.zeros((), dtype=theta.dtype, device=theta.device)
 
     def rows_host64(self, q, x, theta) -> np.ndarray:
         """Host float64 cross-covariance rows (numpy in, numpy out)."""
@@ -73,6 +88,7 @@ class BlockKernel:
 
 class SqExpBlock(BlockKernel):
     name = "SquaredExponential"
+    supports_df64 = True
 
     def n_params(self, n_dims):
         return n_dims + 1
@@ -85,6 +101,9 @@ class SqExpBlock(BlockKernel):
         return SqexpCovariance.apply(xa.contiguous(), xb.contiguous(), torch.exp(theta[0]),
                                      torch.exp(theta[1:]))
 
+    def amp2(self, theta):
+        return torch.exp(2.0 * torch.as_tensor(theta)[0])
+
     def rows_host64(self, q, x, theta):
         return sqexp_rows_host64(q, x, theta)
 
@@ -92,24 +111,98 @@ class SqExpBlock(BlockKernel):
         return float(np.exp(2.0 * np.asarray(theta, np.float64)[0]))
 
 
+class RQBlock(BlockKernel):
+    name = "RationalQuadratic"
+
+    def n_params(self, n_dims):
+        return n_dims + 2
+
+    def rows(self, xa, xb, theta):
+        """``A^2 (1 + Z / alpha)^(-alpha)``, ``Z`` half the matmul-form
+        scaled squared distance, clamped at 0 so that the fractional power
+        stays real."""
+        theta = torch.as_tensor(theta)
+        a = torch.exp(theta[0])
+        k = torch.exp(theta[1])
+        Z = 0.5 * scaled_sq_distances(xa, xb, torch.exp(theta[2:]))
+        return (a**2) * (1.0 + torch.clamp(Z, min=0.0) / k) ** (-k)
+
+    def amp2(self, theta):
+        return torch.exp(2.0 * torch.as_tensor(theta)[0])
+
+    def rows_host64(self, q, x, theta):
+        h = np.asarray(theta, np.float64)
+        k = float(np.exp(h[1]))
+        ls = np.exp(h[2:])
+        qs = np.asarray(q, np.float64) / ls[None, :]
+        xs = np.asarray(x, np.float64) / ls[None, :]
+        d2 = (qs**2).sum(axis=1)[:, None] + (xs**2).sum(axis=1)[None, :] - 2.0 * (qs @ xs.T)
+        np.maximum(d2, 0.0, out=d2)
+        return float(np.exp(2.0 * h[0])) * (1.0 + 0.5 * d2 / k) ** (-k)
+
+    def amp2_host(self, theta):
+        return float(np.exp(2.0 * np.asarray(theta, np.float64)[0]))
+
+
+class NoisyBlock(BlockKernel):
+    """A smooth base kernel plus a WhiteNoise component. The flat theta
+    follows the dense ``CompositeCovariance`` slice order: the base's
+    parameters occupy their component's slice, the noise ``ln sigma_w`` its
+    own, so hyperparameter vectors are interchangeable between the dense
+    and matrix-free paths."""
+
+    def __init__(self, base: BlockKernel, base_first: bool = True):
+        self.base = base
+        self.base_first = base_first
+        self.name = f"{base.name}+WhiteNoise" if base_first else f"WhiteNoise+{base.name}"
+
+    def n_params(self, n_dims):
+        return self.base.n_params(n_dims) + 1
+
+    def _split(self, theta):
+        theta = torch.as_tensor(theta)
+        return (theta[:-1], theta[-1]) if self.base_first else (theta[1:], theta[0])
+
+    def _split_host(self, theta):
+        h = np.asarray(theta, np.float64)
+        return (h[:-1], float(h[-1])) if self.base_first else (h[1:], float(h[0]))
+
+    def rows(self, xa, xb, theta):
+        return self.base.rows(xa, xb, self._split(theta)[0])
+
+    def amp2(self, theta):
+        return self.base.amp2(self._split(theta)[0])
+
+    def noise_variance(self, theta):
+        return torch.exp(2.0 * self._split(theta)[1])
+
+    def rows_host64(self, q, x, theta):
+        return self.base.rows_host64(q, x, self._split_host(theta)[0])
+
+    def amp2_host(self, theta):
+        return self.base.amp2_host(self._split_host(theta)[0])
+
+    def noise_variance_host(self, theta):
+        return float(np.exp(2.0 * self._split_host(theta)[1]))
+
+
+def _base_block(component):
+    if isinstance(component, SquaredExponential):
+        return SqExpBlock()
+    if isinstance(component, RationalQuadratic):
+        return RQBlock()
+    return None
+
+
 _SUPPORTED = (
-    "Supported kernels: SquaredExponential (RationalQuadratic and the + "
-    "WhiteNoise compositions come with the float32/mixed tiers); use the "
-    "dense GpRegressor for other kernels."
+    "Supported kernels: SquaredExponential, RationalQuadratic, and either + "
+    "WhiteNoise; use the dense GpRegressor for other kernels."
 )
-
-
-def _not_ported(name, error_source):
-    return NotImplementedError(
-        f"[ {error_source} error ] the {name} block kernel serves the float32 "
-        f"and mixed solver tiers, which are not ported yet (ROADMAP A11, next "
-        f"slice); the df64 tier takes the SquaredExponential only."
-    )
 
 
 def as_block_kernel(kernel, error_source: str) -> BlockKernel:
     """Resolve a dense-path kernel (class or instance) to its
-    ``BlockKernel`` adapter, or raise."""
+    ``BlockKernel`` adapter, or raise the JAX package's ``ValueError``."""
     if isinstance(kernel, BlockKernel):
         return kernel
     if isinstance(kernel, type):
@@ -119,27 +212,30 @@ def as_block_kernel(kernel, error_source: str) -> BlockKernel:
             try:
                 kernel = kernel()
             except TypeError:
+                # a kernel that needs constructor arguments (ChangePoint) is
+                # unsupported either way: report that
                 raise ValueError(
                     f"[ {error_source} error ] Kernel {kernel.__name__!r} is not "
                     f"supported by the matrix-free solver tiers. {_SUPPORTED}"
                 ) from None
     if isinstance(kernel, CompositeCovariance):
         comps = kernel.components
-        smooth = [c for c in comps if isinstance(c, (SquaredExponential, RationalQuadratic))]
+        smooth = [c for c in comps if _base_block(c) is not None]
         noise = [c for c in comps if isinstance(c, WhiteNoise)]
         if len(smooth) == 1 and len(noise) == 1 and len(comps) == 2:
-            raise _not_ported(f"{type(smooth[0]).__name__} + WhiteNoise", error_source)
+            return NoisyBlock(_base_block(smooth[0]), base_first=comps[0] is smooth[0])
         names = " + ".join(type(c).__name__ for c in comps)
         raise ValueError(
-            f"[ {error_source} error ] Unsupported kernel composition {names} "
-            f"for the matrix-free solver tiers. {_SUPPORTED}"
+            f"[ {error_source} error ] Unsupported kernel composition {names} for "
+            f"the matrix-free solver tiers. Supported: SquaredExponential, "
+            f"RationalQuadratic, and either of those + WhiteNoise. Other kernels "
+            f"remain available on the dense GpRegressor path."
         )
-    if isinstance(kernel, SquaredExponential):
-        return SqExpBlock()
-    if isinstance(kernel, RationalQuadratic):
-        raise _not_ported("RationalQuadratic", error_source)
+    blk = _base_block(kernel) if isinstance(kernel, CovarianceFunction) else None
+    if blk is not None:
+        return blk
     raise ValueError(
         f"[ {error_source} error ] Kernel {type(kernel).__name__!r} is not "
-        f"supported by the matrix-free solver tiers (its blocked row "
-        f"evaluation is not implemented). {_SUPPORTED}"
+        f"supported by the matrix-free solver tiers (its blocked row evaluation "
+        f"is not implemented). {_SUPPORTED}"
     )

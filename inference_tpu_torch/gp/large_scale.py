@@ -1,49 +1,74 @@
-"""Matrix-free Gaussian-process regression for large datasets: the
-small-noise ``solver="df64"`` tier.
+"""Matrix-free Gaussian-process regression for large datasets.
 
-Port of ``inference_tpu.gp.large_scale`` for ``solver="df64"``:
-``LargeScaleGP`` solves ``(K + diag(sigma^2) + jitter I) alpha = y - m``
-by preconditioned CG with float64 iterates (``ops.solvers.Df64Solver``),
-where K's action is kernel B6 on the FP64 entry store of kernel B5
-(``store_entries="auto"`` or ``True`` up to ``ops.df64.STORE_MAX_N``), the
-fused kernels B3/B4 that evaluate the entries in every product
-(``store_entries=False``), or, with ``store_entries="f32"``, kernel B8 on
-the float32-rounded store of kernel B7 for the iterations and B3/B4 for
-each chunk's residual refresh (mixed-precision iterative refinement, as in
-the JAX package). The preconditioner is a rank-m Woodbury application of a
-greedy pivoted Cholesky factor. Predictive variances run
-one batched solve per eight query points (``Df64MultiSolver``).
+Port of ``inference_tpu.gp.large_scale``. ``LargeScaleGP`` solves
+``(K + diag(sigma^2) + noise + jitter I) alpha = y - m`` without forming K,
+in one of three tiers:
 
-The JAX package runs this tier in float32-pair arithmetic because the TPU
-has no float64. The card has, and these of its choices become design
+- ``solver="cg"`` (the default) and ``"mixed"``: K's action is computed in
+  row blocks of ``block_size``, each block's rows by the kernel adapter of
+  ``gp.block_kernels`` (kernel B2 for the squared exponential) and then one
+  product with the vector or block, in the working dtype (``dtype``, by
+  default ``utils.dtypes.default_float()``). ``"cg"`` runs the port's
+  ``ops.solvers.cg``, the JAX package's ``jax.scipy`` CG step for step;
+  ``"mixed"`` runs ``ops.solvers.mixed_pcg`` (float64 scalars, true-residual
+  restarts). The preconditioner is a rank-m Woodbury application of a
+  pivoted Cholesky or Nystrom factor, its core inverted on the host in
+  float64 and applied in FP64. Predictive variances come from one batched
+  ``pcg_multi`` solve.
+- ``solver="df64"``, the small-noise tier, in FP64 throughout: kernel B6 on
+  the FP64 entry store of kernel B5 (``store_entries="auto"`` or ``True`` up
+  to ``ops.df64.STORE_MAX_N``), the fused kernels B3/B4 that evaluate the
+  entries in every product (``store_entries=False``), or, with
+  ``store_entries="f32"``, kernel B8 on the float32-rounded store of kernel
+  B7 for the iterations and B3/B4 for each chunk's residual refresh (mixed-
+  precision iterative refinement, as in the JAX package). Its CG has float64
+  iterates (``ops.solvers.Df64Solver``); predictive variances run one
+  batched solve per eight query points (``Df64MultiSolver``).
+
+``fit()`` maximises the marginal likelihood in any tier by Adam on
+Hutchinson-trace gradients: one ``pcg_multi`` a step over the data and the
+Rademacher probes, and the gradient of the surrogate by autograd through
+the blocked system product, one row block alive at a time.
+
+The JAX package runs the df64 tier in float32-pair arithmetic because the
+TPU has no float64. The card has, and these of its choices become design
 decisions:
 
-- **Pivoted Cholesky on the card in FP64.** The JAX package runs the
-  greedy algorithm on the host in float64 (``_pivoted_cholesky_host``) only
-  because its device build is float32. The port runs the same algorithm on
-  the device in FP64, with the same pivot order: ``torch.argmax`` takes the
-  first maximum, as ``np.argmax`` does. At rank 512 and N = 53,248 the
-  host loop would cost seconds.
-- **FP64 device arrays.** x, y, the factor U and the core inverse are
-  FP64 on the device; the JAX package's float32 casts for its traced
-  prediction paths have no job here, so its ``dtype`` argument is taken
-  and checked but changes nothing.
-- **K(q, x) for predictions** is built on the device in FP64 through
-  ``SqExpBlock.rows`` (kernel B2, exact coordinate differences). The JAX
-  package's host numpy ``sqexp_rows_host64`` stays, for the host residual
-  and the parity tests.
-- **Residual backend.** ``"auto"`` resolves to ``"df64"``, the FP64 fused
-  kernel, on every device. The JAX rule (its emulated-float64 program up
-  to 16,384 rows, the pair kernel on a TPU, the host beyond) guards TPU
-  limits the card does not have.
-- **Variance solves** run to ``cg_tol``: the JAX package floors their
-  tolerance at 1e-8, the noise of its pair arithmetic, which FP64 does
-  not have.
+- **Pivoted Cholesky on the device in FP64** in every tier, with the same
+  pivot order as the JAX package's builds (``torch.argmax`` takes the first
+  maximum, as ``np.argmax`` and ``jnp.argmax`` do), the factor then cast to
+  the working dtype. The JAX package builds the df64 tier's factor on the
+  host in float64 because its device build is float32, and that build
+  repeats pivots in float32 on the card (see ``_pivoted_cholesky``).
+- **FP64 device arrays in the df64 tier.** x, y, the factor U and the core
+  inverse are FP64 on the device; the JAX package's float32 casts for its
+  traced prediction paths have no job there, so in that tier ``dtype`` is
+  taken and checked but changes nothing.
+- **K(q, x) for the df64 tier's predictions** is built on the device in
+  FP64 through the kernel adapter (kernel B2, exact coordinate
+  differences). The JAX package's host numpy ``sqexp_rows_host64`` stays,
+  for the host residual and the parity tests.
+- **The cg and mixed tiers apply the preconditioner in FP64**: 1/d and
+  the core's explicit inverse (from an FP64 Gram), the result cast to the
+  working dtype, as the JAX package's ``fit()`` applies it. The JAX
+  package's solves apply the core by its Cholesky factor in the working
+  dtype; in float32 on the card that stagnated at gp-large-cg-50k's
+  configuration (N = 50,000, sigma = 0.1, ranks 2,048 and 4,096: relative
+  residual 0.6-0.8 after 120 iterations, where the FP64 application
+  reached 1.7e-4 in 10, measured on an H100). The Woodbury subtraction
+  cancels about log10(amp^2 N / sigma^2) digits on the data's smooth
+  directions, more than float32 holds.
+- **Residual backend.** ``"auto"`` resolves to ``"df64"`` (the FP64 fused
+  kernel) in the df64 tier and to ``"device"`` (the blocked system product
+  in FP64 on the device) in the others. The JAX rule (its emulated-float64
+  program up to 16,384 rows, the pair kernel on a TPU, the host beyond)
+  guards TPU limits the card does not have.
+- **Variance solves of the df64 tier** run to ``cg_tol``: the JAX package
+  floors their tolerance at 1e-8, the noise of its pair arithmetic, which
+  FP64 does not have.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: ``solver="cg"``/``"mixed"`` and the non-squared-exponential
-block kernels (A11, next slice), ``fit()`` (A11, next slice), ``mesh=``
-(A13).
+``mesh=`` is not ported yet and raises ``NotImplementedError`` naming
+ROADMAP A13.
 """
 
 from functools import partial
@@ -64,26 +89,30 @@ from ..ops.df64 import (
     sqexp_stored_matvec_df64,
     stored_entries_tier,
 )
-from ..ops.solvers import Df64MultiSolver, Df64Solver
+from ..ops.solvers import Df64MultiSolver, Df64Solver, cg, mixed_pcg, pcg_multi
 from ..utils.device import resolve_device
+from ..utils.dtypes import default_float
 from .block_kernels import as_block_kernel, sqexp_rows_host64  # noqa: F401 (re-exported under its JAX module)
 from .covariance import SquaredExponential
 
 
-def woodbury_apply(V, U, dinv, core, *, core_chol):
+def woodbury_apply(V, U, dinv, core, *, core_chol, out_dtype=None):
     """``(D + U U^T)^{-1} V`` for a vector or (n, q) block ``V`` by the
     Woodbury identity: the one application of the low-rank preconditioner.
     ``U`` (n, m); ``dinv`` the elementwise ``1/diag(D)`` in the application
-    dtype (float64 here: the core's condition reaches ``amp^2 N /
+    dtype (float64 at small noise: the core's condition reaches ``amp^2 N /
     sigma^2`` and the subtraction cancels about log10 of it in digits);
     ``core`` the lower Cholesky factor of ``C = I + U^T D^{-1} U``
-    (``core_chol=True``) or its explicit inverse (``core_chol=False``)."""
+    (``core_chol=True``) or its explicit inverse (``core_chol=False``). The
+    result is cast to ``out_dtype`` when given."""
     vec = V.ndim == 1
     W = (V[:, None] if vec else V).to(dinv.dtype) * dinv[:, None]
     U_ = U.to(dinv.dtype)
     t = U_.T @ W
     t = torch.cholesky_solve(t, core) if core_chol else core @ t
     out = W - dinv[:, None] * (U_ @ t)
+    if out_dtype is not None:
+        out = out.to(out_dtype)
     return out[:, 0] if vec else out
 
 
@@ -116,61 +145,88 @@ def _system_matmat(amp2, diag, V32, *op):
     return amp2 * _entries_apply(V32, *op) + diag[:, None] * V32.double()
 
 
-def _check_dtype(dtype):
-    """Accept the JAX package's ``dtype`` values of the df64 tier: None or
-    float32/float64 as a name, numpy or torch dtype."""
+def _as_dtype(dtype, owner="LargeScaleGP"):
+    """The torch dtype of the JAX package's ``dtype`` values: None, or
+    float32/float64 as a name, numpy or torch dtype; anything else raises,
+    naming ``owner``."""
     if dtype is None:
-        return
+        return None
     if isinstance(dtype, torch.dtype):
-        ok = dtype in (torch.float32, torch.float64)
+        if dtype in (torch.float32, torch.float64):
+            return dtype
     else:
         try:
-            ok = np.dtype(dtype) in (np.float32, np.float64)
+            np_dtype = np.dtype(dtype)
         except TypeError:
-            ok = False
-    if not ok:
-        raise ValueError(
-            f"[ LargeScaleGP error ] 'dtype' must be None, float32 or float64, "
-            f"but {dtype!r} was given."
-        )
+            np_dtype = None
+        if np_dtype in (np.float32, np.float64):
+            return torch.float32 if np_dtype == np.float32 else torch.float64
+    raise ValueError(
+        f"[ {owner} error ] 'dtype' must be None, float32 or float64, but "
+        f"{dtype!r} was given."
+    )
+
+
+def _adam(theta, adam, g, t, lr):
+    """One Adam step (b1 0.9, b2 0.999, eps 1e-8), the JAX package's
+    arithmetic in theta's dtype. Returns ``(theta, (m, v))``."""
+    m, v = adam
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    m = b1 * m + (1.0 - b1) * g
+    v = b2 * v + (1.0 - b2) * g * g
+    m_hat = m / (1.0 - b1**t)
+    v_hat = v / (1.0 - b2**t)
+    return theta - lr * m_hat / (torch.sqrt(v_hat) + eps), (m, v)
+
+
+def _worst_relative_residual(R, B):
+    """``sqrt(max_k |R_k|^2 / |B_k|^2)`` over the columns, in their dtype."""
+    return torch.sqrt(torch.max((R * R).sum(dim=0) / (B * B).sum(dim=0)))
 
 
 class LargeScaleGP:
     """
-    GP regression with matrix-free training solves, for datasets beyond
-    the reach of dense factorisation, in the small-noise regime
-    (``solver="df64"``).
+    GP regression with matrix-free training solves, for datasets beyond the
+    reach of dense factorisation; hyperparameters are selected at that scale
+    too (``fit()``).
 
     :param x: data positions, shape (n_points, n_dims).
     :param y: data values, shape (n_points,).
     :param y_err: per-point Gaussian error standard deviations.
-    :param hyperpars: ``[ln A, ln l_1..l_D]`` of the squared exponential
-        (a known constant mean, as ``mean_value``).
-    :param kernel: ``SquaredExponential`` (class or instance); other
-        kernels raise (see ``gp.block_kernels``).
+    :param hyperpars: the kernel's hyperparameter vector: ``[ln A, ln
+        l_1..l_D]`` for the default ``SquaredExponential`` (a known constant
+        mean, as ``mean_value``), ``[ln A, ln alpha, ln l_1..l_D]`` for
+        ``RationalQuadratic``; a ``+ WhiteNoise()`` composition adds its
+        ``ln sigma_w`` in the dense composite's slice order.
+    :param kernel: ``SquaredExponential`` (default), ``RationalQuadratic``
+        or either ``+ WhiteNoise()`` (class or instance); others raise (see
+        ``gp.block_kernels``). The df64 tier takes the squared exponential
+        only.
     :param mean_value: constant mean (defaults to the data mean).
-    :param block_size: the data is padded with inert rows to a multiple of
-        it, which must be a multiple of 128.
+    :param block_size: rows of each kernel block; the data is padded with
+        inert rows to a multiple of it (a multiple of 128 for df64).
     :param cg_tol: relative residual the solves stop at.
     :param cg_maxiter: iteration cap of each solve.
-    :param preconditioner_rank: rank m of the pivoted-Cholesky Woodbury
-        preconditioner (0 disables it).
-    :param preconditioner: ``"pivchol"``; ``"nystrom"`` raises, as in the
-        JAX package's df64 tier.
-    :param solver: ``"df64"``; ``"cg"`` and ``"mixed"`` are not ported yet.
-    :param store_entries: ``"auto"`` (default) and ``True`` store the FP64
-        entries once (kernel B5) and multiply them in every iteration
-        (kernel B6), up to ``ops.df64.STORE_MAX_N`` padded rows; ``"f32"``
-        stores them rounded to float32 (kernel B7), iterates on that store
-        (kernel B8) in chunks of four and refreshes each chunk's residual
-        through the fused kernel, which ``"auto"`` also does up to
+    :param preconditioner_rank: rank m of the Woodbury preconditioner (0
+        disables it).
+    :param preconditioner: ``"pivchol"`` (greedy pivoted Cholesky) or
+        ``"nystrom"`` (m random inducing rows; not with df64).
+    :param solver: ``"cg"`` (default), ``"mixed"`` or ``"df64"`` (see the
+        module docstring).
+    :param store_entries: df64 tier only. ``"auto"`` (default) and ``True``
+        store the FP64 entries once (kernel B5) and multiply them in every
+        iteration (kernel B6), up to ``ops.df64.STORE_MAX_N`` padded rows;
+        ``"f32"`` stores them rounded to float32 (kernel B7), iterates on
+        that store (kernel B8) in chunks of four and refreshes each chunk's
+        residual through the fused kernel, which ``"auto"`` also does up to
         ``ops.df64.F32_STORE_MAX_N`` when its soundness guard allows;
         ``False`` evaluates the entries in every product (kernels B3/B4).
         See ``ops.df64.stored_entries_tier``.
-    :param dtype: the JAX package's storage dtype of the tier's arrays:
-        ``None``, ``"float32"`` or ``"float64"`` (or the numpy or torch
-        dtype of either). It changes nothing here, because the port's df64
-        tier is FP64 throughout; any other value raises ``ValueError``.
+    :param dtype: the working dtype of the cg and mixed tiers: ``None`` (the
+        default float), ``"float32"`` or ``"float64"`` (or the numpy or torch
+        dtype of either). The df64 tier is FP64 throughout, so there it is
+        taken and checked but changes nothing; any other value raises
+        ``ValueError``.
     :param mesh: not ported yet (ROADMAP A13).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
@@ -178,9 +234,9 @@ class LargeScaleGP:
 
     # query rows per K(q, x) block of the mean contraction (109 MB at 53,248)
     _DF64_MEAN_CHUNK = 256
-    # right-hand sides per batched variance solve
+    # right-hand sides per batched variance solve of the df64 tier
     _DF64_VAR_COLS = 8
-    # CG iterations between true-residual refreshes
+    # CG iterations between true-residual refreshes of the df64 tier
     _RESTART_EVERY = 50
     # the same over the float32 store (see _df64_chunk)
     _RESTART_EVERY_F32 = 4
@@ -204,35 +260,45 @@ class LargeScaleGP:
         mesh=None,
         device="cuda",
     ):
-        _check_dtype(dtype)
         self._setup(x, y, y_err, hyperpars, kernel, mean_value, block_size, preconditioner,
-                    solver, store_entries, mesh, device)
+                    solver, store_entries, dtype, mesh, device)
         self._build_preconditioner(preconditioner_rank)
         self._build_compiled(cg_tol, cg_maxiter)
         self._set_alpha(self._solve_alpha())
 
     @classmethod
-    def _from_solved(cls, x, y, y_err, hyperpars, alpha64, U, *, mean_value, block_size,
+    def _from_solved(cls, x, y, y_err, hyperpars, alpha64, U, *, kernel=SquaredExponential,
+                     solver="df64", preconditioner="pivchol", dtype=None, mean_value, block_size,
                      cg_tol, cg_maxiter, store_entries, device):
         """An instance whose training solve and preconditioner factor are
         given (``convert.large_scale_gp_from_state``): nothing is solved."""
         gp = cls.__new__(cls)
-        gp._setup(x, y, y_err, hyperpars, SquaredExponential, mean_value, block_size,
-                  "pivchol", "df64", store_entries, None, device)
+        gp._setup(x, y, y_err, hyperpars, kernel, mean_value, block_size, preconditioner,
+                  solver, store_entries, dtype, None, device)
         gp._build_preconditioner(0 if U is None else U.shape[1], U=U)
         gp._build_compiled(cg_tol, cg_maxiter)
-        gp._set_alpha(torch.as_tensor(alpha64, **gp._f64))
+        alpha64 = np.asarray(alpha64, np.float64)
+        gp._set_alpha(torch.as_tensor(alpha64, **gp._like), alpha64)
         return gp
 
     def _setup(self, x, y, y_err, hyperpars, kernel, mean_value, block_size, preconditioner,
-               solver, store_entries, mesh, device):
-        """Validate the arguments, pad the data and stage it on the device."""
+               solver, store_entries, dtype, mesh, device):
+        """Validate the arguments (in the JAX package's order, with its
+        messages), pad the data and stage it on the device."""
         if solver not in ("cg", "mixed", "df64"):
             raise ValueError(
                 f"[ LargeScaleGP error ] 'solver' must be 'cg', 'mixed' or "
                 f"'df64', but '{solver}' was given."
             )
         self._bk = as_block_kernel(kernel, "LargeScaleGP")
+        if solver == "df64" and not self._bk.supports_df64:
+            raise ValueError(
+                f"[ LargeScaleGP error ] solver='df64' is implemented for "
+                f"the pure SquaredExponential kernel only (its pair-"
+                f"arithmetic Pallas entry kernels are kernel-specific); "
+                f"got {self._bk.name}. Use solver='cg' or 'mixed' for "
+                f"this kernel."
+            )
         if store_entries not in ("auto", True, False, "f32"):
             raise ValueError(
                 f"[ LargeScaleGP error ] 'store_entries' must be 'auto', "
@@ -244,21 +310,18 @@ class LargeScaleGP:
                 "(the stored entries serve the double-float matvec); use "
                 "solver='df64' or drop the flag."
             )
-        if solver != "df64":
-            raise NotImplementedError(
-                f"[ LargeScaleGP error ] solver='{solver}' (the float32 and "
-                f"mixed-precision tiers) is not ported yet: ROADMAP A11, next "
-                f"slice. Use solver='df64'."
-            )
         if mesh is not None:
             raise NotImplementedError(
                 "[ LargeScaleGP error ] device meshes are not ported yet "
                 "(ROADMAP A13, the row-sharded df64 matmat)."
             )
+        dtype = _as_dtype(dtype)
         self.solver = solver
         self.store_entries = store_entries
-        self.preconditioner = preconditioner
         self._device = resolve_device(device, "LargeScaleGP")
+        # the working dtype: FP64 for df64, else the caller's or the default
+        self._wd = torch.float64 if solver == "df64" else (dtype or default_float())
+        self._like = dict(dtype=self._wd, device=self._device)
         self._f64 = dict(dtype=torch.float64, device=self._device)
 
         x = np.atleast_2d(np.asarray(x, dtype=float))
@@ -286,69 +349,113 @@ class LargeScaleGP:
             x = np.concatenate([x, np.repeat(x.mean(axis=0, keepdims=True), extra, axis=0)])
             y = np.concatenate([y, np.zeros(extra)])
             y_err = np.concatenate([y_err, np.full(extra, 1e8)])
-        if n_pad % _TJ != 0:
+        self._n_padded = n_pad
+        self._mask = np.zeros(n_pad)
+        self._mask[: self.n_points] = 1.0
+        if solver == "df64" and n_pad % _TJ != 0:
             raise ValueError(
                 f"[ LargeScaleGP error ] solver='df64' needs the padded row "
                 f"count to be a multiple of {_TJ}; use a block_size that is a "
                 f"multiple of {_TJ}."
             )
+        self.mean_value = float(np.mean(y[: self.n_points])) if mean_value is None else mean_value
+
+        self._x_host = x
+        self._y_host = y
+        self._sig_host = y_err**2
+        self._x = torch.as_tensor(x, **self._like)
+        self._y = torch.as_tensor(y, **self._like)
+        self._sig_diag = torch.as_tensor(self._sig_host, **self._like)
+        self._mask_dev = torch.as_tensor(self._mask, **self._like)
+        self._theta = torch.as_tensor(hyperpars, **self._like)
+        self._amp2 = self._bk.amp2_host(hyperpars)
+
         if preconditioner not in ("pivchol", "nystrom"):
             raise ValueError(
                 f"[ LargeScaleGP error ] 'preconditioner' must be 'pivchol' "
                 f"or 'nystrom', but '{preconditioner}' was given."
             )
-        if preconditioner == "nystrom":
+        if solver == "df64" and preconditioner == "nystrom":
             raise ValueError(
                 "[ LargeScaleGP error ] solver='df64' requires the 'pivchol' "
                 "preconditioner: its factor is built AND applied in float64 "
                 "(the f32-built, f32-applied Nystrom factor stalls the "
                 "small-noise solve this solver exists for)."
             )
-        self._n_padded = n_pad
-        self._mask = np.zeros(n_pad)
-        self._mask[: self.n_points] = 1.0
-        # the storage decision, before any O(N m^2) work
-        self._tier = stored_entries_tier(n_pad, store_entries)
-        self.mean_value = float(np.mean(y[: self.n_points])) if mean_value is None else mean_value
-
-        self._x_host = x
-        self._y_host = y
-        self._sig_host = y_err**2
-        self._x = torch.as_tensor(x, **self._f64)
-        self._mask_dev = torch.as_tensor(self._mask, **self._f64)
-        self._theta = torch.as_tensor(hyperpars, **self._f64)
-        self._amp2 = self._bk.amp2_host(hyperpars)
+        self.preconditioner = preconditioner
+        # the df64 storage decision, before any O(N m^2) work
+        self._tier = stored_entries_tier(n_pad, store_entries) if solver == "df64" else None
 
     # ------------------------------------------------------------------ #
     # preconditioner
     # ------------------------------------------------------------------ #
-    def _pivoted_cholesky(self, rank: int, return_pivots: bool = False):
+    @torch.no_grad()
+    def _pivoted_cholesky(self, rank: int, theta=None, return_pivots: bool = False):
         """Greedy pivoted Cholesky of the masked kernel matrix on the
-        device in FP64: ``rank`` steps, each pivoting on the largest
-        residual diagonal (the first one, as ``np.argmax``), evaluating
-        that point's kernel column and subtracting its projection on the
-        factors found so far. Returns U (n, rank) with K ~ U U^T (and the
-        pivots). The JAX package's ``_pivoted_cholesky_host``, step for
-        step; no host round trip per step."""
-        xs = self._x / torch.exp(self._theta[1:])[None, :]
-        mask = self._mask_dev
-        n = xs.shape[0]
-        diag = self._amp2 * mask
-        Ut = torch.zeros((rank, n), **self._f64)  # U transposed: rows are factors
+        device in FP64, at ``theta`` (default the instance's): ``rank``
+        steps, each pivoting on the largest residual diagonal (the first
+        one, as ``np.argmax``), evaluating that point's kernel column through
+        the kernel adapter (kernel B2 for the squared exponential) and
+        subtracting its projection on the factors found so far. Returns U
+        (n, rank) in the working dtype with K ~ U U^T, white noise excluded
+        (and the pivots). The JAX package's builds step for step, with two
+        departures:
+
+        - FP64 in every tier (the JAX package's cg and mixed tiers build in
+          their float32 working dtype): in float32 the residual diagonal's
+          rounding takes over near eps32 amp^2 and the build pivots on one
+          point again and again (at gp-large-fit-16k's start, 90 distinct
+          pivots of 512, measured on an H100).
+        - A pivot whose residual diagonal is not positive (the kernel's
+          numerical rank used up) gives a zero factor. The JAX builds divide
+          by sqrt(tiny) there, ~1e-154 in FP64, and the factor overflows
+          (at gp-large-fit-16k's start in FP64: every diagonal zero at step
+          227, then inf and NaN, measured on an H100)."""
+        f64 = self._f64
+        theta = torch.as_tensor(self.hyperpars if theta is None else theta, **f64)
+        x, mask = torch.as_tensor(self._x_host, **f64), torch.as_tensor(self._mask, **f64)
+        n = x.shape[0]
+        diag = self._bk.amp2(theta) * mask
+        Ut = torch.zeros((rank, n), **f64)  # U transposed: rows are factors
         pivots = torch.empty(rank, dtype=torch.long, device=self._device)
-        tiny = torch.finfo(torch.float64).tiny
         for i in range(rank):
             j = torch.argmax(diag, dim=0, keepdim=True)
             pivots[i : i + 1] = j
-            d2 = ((xs - xs.index_select(0, j)) ** 2).sum(dim=1)
-            col = self._amp2 * torch.exp(-0.5 * d2) * mask * mask.index_select(0, j)
+            col = self._bk.rows(x, x.index_select(0, j), theta)[:, 0] * mask * mask.index_select(0, j)
             proj = Ut[:i].T @ Ut[:i].index_select(1, j)[:, 0]
-            root = torch.sqrt(torch.clamp(diag.index_select(0, j), min=tiny))
-            u = (col - proj) / root
+            dj = diag.index_select(0, j)
+            u = torch.where(dj > 0, (col - proj) / torch.sqrt(dj), 0.0)
             Ut[i] = u
             diag = torch.clamp(diag - u * u, min=0.0) * mask
-        U = Ut.T.contiguous()
+        U = Ut.T.to(self._wd).contiguous()
         return (U, pivots) if return_pivots else U
+
+    @torch.no_grad()
+    def _nystrom(self, rank: int):
+        """The Nystrom factor ``U = K_nm L_mm^{-T}`` from ``rank`` inducing
+        rows drawn by ``np.random.default_rng(0)`` (sorted), with a jitter of
+        1e-3 amp^2 in float32 and 1e-8 in float64 on K_mm's diagonal; padded
+        rows masked out."""
+        idx = np.sort(np.random.default_rng(0).choice(self.n_points, rank, replace=False))
+        xm = self._x[torch.as_tensor(idx, device=self._device)]
+        theta = self._theta
+        K_mm = self._bk.rows(xm, xm, theta).clone()
+        jitter = 1e-3 if self._wd == torch.float32 else 1e-8
+        K_mm.diagonal().add_(self._bk.amp2(theta) * jitter)
+        L_mm = torch.linalg.cholesky(K_mm)
+        K_nm = self._bk.rows(self._x, xm, theta)
+        U = torch.linalg.solve_triangular(L_mm, K_nm.T, upper=False).T
+        return U * self._mask_dev[:, None]
+
+    @torch.no_grad()
+    def _precond_gram(self, U, theta):
+        """The Woodbury core's Gram ``G = U^T D^-1 U`` of a low-rank factor at
+        ``theta``, D the noise and jitter diagonal, in FP64 (U and D widened:
+        G reaches amp^2 N / sigma^2, beyond float32's digits): the cg and
+        mixed tiers' build and ``fit()``'s live-theta refresh."""
+        d = (self._sig_diag + self._bk.noise_variance(theta) + self._bk.amp2(theta) * 1e-12).double()
+        U = U.double()
+        return (U / d[:, None]).T @ U
 
     @staticmethod
     def _factor_core_host(G) -> np.ndarray:
@@ -379,31 +486,69 @@ class LargeScaleGP:
         return Linv.T @ Linv
 
     def _build_preconditioner(self, rank: int, U=None):
-        """The FP64 Woodbury preconditioner ``(D + U U^T)^{-1}``, D the
-        noise and jitter diagonal, from the pivoted Cholesky factor (or a
-        given factor ``U``): ``self._precond64 = (U, C^{-1}, 1/d)``, or
-        None for rank 0 or rank >= n_points."""
+        """The Woodbury preconditioner ``(D + U U^T)^{-1}``, D the noise and
+        jitter diagonal, from the pivoted Cholesky or Nystrom factor (or a
+        given factor ``U``). df64 tier: ``self._precond64 = (U, C^{-1},
+        1/d)`` in FP64; the others: ``self._precond = (U, 1/d, C^{-1})``, U in
+        the working dtype, 1/d and the core's inverse in FP64 (``fit()``'s
+        format). Both None for rank 0 or rank >= n_points."""
+        self._precond = self._precond64 = None
         if rank <= 0 or rank >= self.n_points:
-            self._precond64 = None
             return
-        U = self._pivoted_cholesky(rank) if U is None else torch.as_tensor(U, **self._f64)
-        d64 = torch.as_tensor(self._sig_host + self._amp2 * 1e-12, **self._f64)
-        G = (U / d64[:, None]).T @ U
-        Cinv = self._core_inverse_host(G.cpu().numpy())
-        self._precond64 = (U, torch.as_tensor(Cinv, **self._f64), 1.0 / d64)
+        if self.solver == "df64":
+            U = self._pivoted_cholesky(rank) if U is None else torch.as_tensor(U, **self._f64)
+            d64 = torch.as_tensor(self._sig_host + self._amp2 * 1e-12, **self._f64)
+            G = (U / d64[:, None]).T @ U
+            Cinv = self._core_inverse_host(G.cpu().numpy())
+            self._precond64 = (U, torch.as_tensor(Cinv, **self._f64), 1.0 / d64)
+            return
+        if U is not None:
+            U = torch.as_tensor(U, **self._like)
+        elif self.preconditioner == "pivchol":
+            U = self._pivoted_cholesky(rank)
+        else:
+            U = self._nystrom(rank)
+        self._precond = self._fit_pc_from_U(U, self.hyperpars)
+
+    def _factor(self):
+        """The preconditioner's low-rank factor U, or None."""
+        pc = self._precond64 if self.solver == "df64" else self._precond
+        return None if pc is None else pc[0]
 
     @staticmethod
     def _woodbury64(V, U64, Cinv, dinv):
         return woodbury_apply(V, U64, dinv, Cinv, core_chol=False)
 
+    def _woodbury(self):
+        """The cg/mixed tiers' preconditioner application, or None: 1/d and
+        the core's inverse in FP64, the result in the working dtype."""
+        if self._precond is None:
+            return None
+        U, dinv, Cinv = self._precond
+        return partial(woodbury_apply, U=U, dinv=dinv, core=Cinv, core_chol=False,
+                       out_dtype=self._wd)
+
     # ------------------------------------------------------------------ #
     # the system operator
     # ------------------------------------------------------------------ #
-    def _prepare_df64(self):
+    def _system_matmat(self, theta, V):
+        """``(K(theta) + diag(sig) + noise + jitter I) V`` for a vector
+        (n_pad,) or a column block (n_pad, q), in row blocks of
+        ``block_size``: each block's kernel rows through the adapter (kernel
+        B2 for the squared exponential), then one product with V, so one
+        block is alive at a time. The one system product of the cg and
+        mixed tiers, of ``fit()`` and of the ``"device"`` residual."""
+        x, step = self._x, self.block_size
+        KV = torch.cat([self._bk.rows(x[s : s + step], x, theta) @ V
+                        for s in range(0, self._n_padded, step)])
+        diag = self._sig_diag + self._bk.noise_variance(theta) + self._bk.amp2(theta) * 1e-12
+        return KV + (diag[:, None] * V if V.ndim == 2 else diag * V)
+
+    def _prepare_df64(self, store=True):
         """Split the scaled coordinates into a float32 pair (the kernels'
-        signature; host float64) and, when the storage policy says so,
-        store the entries once: in FP64 (kernel B5) or rounded to float32
-        (kernel B7)."""
+        signature; host float64) and, when the storage policy says so and
+        ``store``, store the entries once: in FP64 (kernel B5) or rounded to
+        float32 (kernel B7)."""
         ls64 = np.exp(np.asarray(self.hyperpars[1:], np.float64))
         uh, ul = split_f64(self._x_host / ls64[None, :])
         self._us_hi = torch.as_tensor(uh, device=self._device)
@@ -411,6 +556,8 @@ class LargeScaleGP:
         self._sig64 = torch.as_tensor(self._sig_host, **self._f64)
         self._entries = None
         self._entries_f32 = None
+        if not store:
+            return
         if self._tier == "f32" and self.store_entries == "auto" and not self._f32_store_is_sound():
             self._tier = None
         if self._tier == "f64":
@@ -447,7 +594,7 @@ class LargeScaleGP:
         return True
 
     def _df64_op_args(self):
-        """Operands of the system operator: the stored entries, or the
+        """Operands of the df64 system operator: the stored entries, or the
         scaled-coordinate pair."""
         if self._entries is not None:
             return (self._entries,)
@@ -457,13 +604,13 @@ class LargeScaleGP:
         return self._sig64 + self._amp2 * 1e-12
 
     def _matvec64_pair(self, v32, *op):
-        """System matvec: float32 vector in, float64 ``(K + diag(sig) +
-        jitter I) v`` out: kernel B6 on the stored entries or kernel B3,
-        and the diagonal in float64."""
+        """df64 system matvec: float32 vector in, float64 ``(K + diag(sig) +
+        jitter I) v`` out: kernel B6 on the stored entries or kernel B3, and
+        the diagonal in float64."""
         return _system_matvec(self._amp2, self._diag64(), v32, *op)
 
     def _matmat64_pair(self, V32, *op):
-        """System matmat on a float32 (n, q) block: kernel B6 or B4."""
+        """df64 system matmat on a float32 (n, q) block: kernel B6 or B4."""
         return _system_matmat(self._amp2, self._diag64(), V32, *op)
 
     def _df64_chunk(self) -> int:
@@ -482,10 +629,10 @@ class LargeScaleGP:
         return self._RESTART_EVERY_F32 if self._entries_f32 is not None else self._RESTART_EVERY
 
     def _solver_kwargs(self, kind):
-        """The solvers' operands, for a ``Df64Solver`` (``kind`` "matvec")
-        or a ``Df64MultiSolver`` ("matmat"); over the float32 store the
-        iterations' operator (B8) is the fast one. The operators are
-        partials over tensors, not bound methods: a solver that held the
+        """The df64 solvers' operands, for a ``Df64Solver`` (``kind``
+        "matvec") or a ``Df64MultiSolver`` ("matmat"); over the float32
+        store the iterations' operator (B8) is the fast one. The operators
+        are partials over tensors, not bound methods: a solver that held the
         instance would make a reference cycle, and the (n, n) entry store
         would outlive ``del`` until the garbage collector ran."""
         op = _system_matvec if kind == "matvec" else _system_matmat
@@ -498,17 +645,32 @@ class LargeScaleGP:
         return partial(op, self._amp2, self._diag64()), kw
 
     def _build_compiled(self, cg_tol, cg_maxiter):
-        """The df64 training solver. Nothing is compiled here (the name is
-        the JAX package's): the solver is a host loop over torch
-        operations."""
+        """The training solver's settings, and the df64 tier's operator and
+        solver. Nothing is compiled here (the name is the JAX package's):
+        every solver is a host loop over torch operations."""
         self._cg_tol, self._cg_maxiter = cg_tol, cg_maxiter
-        self._prepare_df64()
-        op, kw = self._solver_kwargs("matvec")
-        self._df64_solver = Df64Solver(op, **kw)
+        self.cg_iterations_estimate = None
+        if self.solver == "df64":
+            self._prepare_df64()
+            op, kw = self._solver_kwargs("matvec")
+            self._df64_solver = Df64Solver(op, **kw)
 
+    @torch.no_grad()
     def _solve_rhs(self, rhs):
-        """The checked df64 training solve of ``A x = rhs``: warns when it
-        stops above ``cg_tol`` and returns the best iterate."""
+        """The training solve of ``A x = rhs``. df64: the checked df64
+        solve, which warns when it stops above ``cg_tol`` and returns the
+        best iterate. cg: ``ops.solvers.cg``, whose iteration count it keeps
+        as ``cg_iterations_estimate``. mixed: ``ops.solvers.mixed_pcg``."""
+        if self.solver != "df64":
+            matvec = partial(self._system_matmat, self._theta)
+            rhs = torch.as_tensor(rhs, **self._like)
+            M = self._woodbury()
+            if self.solver == "mixed":
+                sol, _ = mixed_pcg(matvec, rhs, M=M, tol=self._cg_tol, maxiter=self._cg_maxiter)
+            else:
+                sol, self.cg_iterations_estimate = cg(matvec, rhs, M=M, tol=self._cg_tol,
+                                                      maxiter=self._cg_maxiter)
+            return sol
         sol, info = self._df64_solver.solve(
             torch.as_tensor(rhs, **self._f64), tol=self._cg_tol, maxiter=self._cg_maxiter
         )
@@ -528,42 +690,225 @@ class LargeScaleGP:
         return sol
 
     def _solve_alpha(self):
-        """The training solve, its right-hand side from the float64 host
-        data."""
-        return self._solve_rhs(
-            torch.as_tensor((self._y_host - self.mean_value) * self._mask, **self._f64)
-        )
+        """The training solve. Its right-hand side comes from the float64
+        host data in the df64 tier and from the device copy in the working
+        dtype in the others, as in the JAX package."""
+        if self.solver == "df64":
+            return self._solve_rhs(
+                torch.as_tensor((self._y_host - self.mean_value) * self._mask, **self._f64)
+            )
+        return self._solve_rhs((self._y - self.mean_value) * self._mask_dev)
 
-    def _set_alpha(self, alpha):
-        """The training solve's iterate: ``alpha`` (device FP64) and
-        ``alpha64`` (host float64, as in the JAX package)."""
+    def _set_alpha(self, alpha, alpha64=None):
+        """The training solve's iterate: ``alpha`` (device, working dtype)
+        and ``alpha64`` (host float64: ``alpha`` itself, or the
+        full-precision iterate of ``refine()``)."""
         self.alpha = alpha
-        self.alpha64 = alpha.cpu().numpy()
+        self.alpha64 = alpha.double().cpu().numpy() if alpha64 is None else alpha64
 
-    def fit(self, *args, **kwargs):
-        """The matrix-free stochastic-gradient fit is not ported yet."""
-        raise NotImplementedError(
-            "[ LargeScaleGP error ] fit() (Hutchinson-trace stochastic LML "
-            "gradients through batched CG) is not ported yet: ROADMAP A11, "
-            "next slice."
+    # ------------------------------------------------------------------ #
+    # fit
+    # ------------------------------------------------------------------ #
+    def fit(
+        self,
+        n_steps: int = 40,
+        learning_rate: float = 0.05,
+        n_probes: int = 8,
+        fit_tol: float = 1e-3,
+        fit_maxiter: int = 150,
+        precond_every: int = 10,
+        seed: int = 0,
+        verbose: bool = False,
+    ):
+        """
+        Select hyperparameters by maximising the log-marginal likelihood
+        without forming K. Each Adam step runs one batched CG solve
+        (``ops.solvers.pcg_multi``) of ``alpha = K^-1 r`` and ``u_i = K^-1
+        z_i`` for Rademacher probes ``z_i`` drawn once by
+        ``np.random.default_rng(seed)`` (common random numbers), then takes
+        the gradient of
+
+            S(th) = -0.5 alpha^T K(th) alpha + 0.5 mean_i u_i^T K(th) z_i,
+
+        whose gradient is minus the LML's, with ``alpha, u`` held fixed
+        (Hutchinson's trace estimate), by autograd through the blocked
+        system product at the live theta: one row block at a time, so one
+        block's kernel rows are alive at once.
+
+        Returns the optimised hyperparameter vector (numpy) and leaves this
+        instance as it is: construct a new ``LargeScaleGP`` with it. A step
+        whose inner CG stops above ``max(10 * fit_tol, 0.05)`` relative
+        residual warns once: its gradient is biased. The preconditioner is
+        rebuilt at the live hyperparameters every ``precond_every`` steps
+        (0 keeps the construction-time one), its core applied in float64.
+        """
+        if n_probes < 1:
+            raise ValueError(
+                "LargeScaleGP.fit requires n_probes >= 1 — the Hutchinson "
+                "trace term has no estimate from zero probes"
+            )
+        rng = np.random.default_rng(seed)
+        probes = torch.as_tensor(
+            rng.choice([-1.0, 1.0], size=(self._n_padded, n_probes)) * self._mask[:, None],
+            **self._like,
         )
+        rhs0 = torch.as_tensor((self._y_host - self.mean_value) * self._mask, **self._like)
+        use_precond = self._factor() is not None
+        fit_step = self._get_fit_step(float(fit_tol), int(fit_maxiter), use_precond)
+        theta = torch.as_tensor(self.hyperpars, **self._like)
+        adam = (torch.zeros_like(theta), torch.zeros_like(theta))
+        pc = self._fit_precond_initial() if use_precond else None
+        warned = False
+        for step in range(int(n_steps)):
+            if use_precond and precond_every and step and step % precond_every == 0:
+                pc = self._fit_precond(theta)
+            theta, adam, g, data_fit, rel_resid = fit_step(
+                self, theta, adam, torch.tensor(step + 1, **self._like),
+                torch.tensor(learning_rate, **self._like), rhs0, probes, pc,
+            )
+            if not warned and float(rel_resid) > max(10.0 * fit_tol, 0.05):
+                warn(
+                    f"LargeScaleGP.fit: inner CG stopped at relative "
+                    f"residual {float(rel_resid):.2e} on step {step + 1} — "
+                    f"the stochastic gradient is substantially biased; "
+                    f"increase fit_maxiter or reduce the step size"
+                )
+                warned = True
+            if verbose:
+                print(
+                    f"  [ LargeScaleGP.fit step {step + 1}/{n_steps}: "
+                    f"|grad| {float(torch.linalg.norm(g)):.3e}, data-fit "
+                    f"{float(data_fit):.4f}, CG resid "
+                    f"{float(rel_resid):.1e}, theta "
+                    f"{theta.cpu().numpy().round(3)} ]",
+                    flush=True,
+                )
+        return theta.cpu().numpy().astype(float)
+
+    def _fit_precond(self, theta):
+        """The preconditioner triple (U, 1/d, C^{-1}) at live
+        hyperparameters for ``fit()``: the pivoted Cholesky on the device at
+        theta and the core's explicit inverse on the host in float64. 1/d
+        and C^{-1} stay float64: the core's condition reaches ~amp^2 N /
+        sigma^2, where an all-float32 application diverges."""
+        th = theta.detach().cpu().numpy().astype(np.float64)
+        U = self._pivoted_cholesky(self._factor().shape[1], theta=torch.as_tensor(th, **self._like))
+        return self._fit_pc_from_U(U, th)
+
+    def _fit_pc_from_U(self, U, theta64):
+        """The triple (U, 1/d, C^{-1}) of a low-rank factor at theta64: the
+        device Gram, 1/d and the core's inverse (host, escalating jitter) in
+        float64."""
+        th = np.asarray(theta64, np.float64)
+        G = self._precond_gram(U, torch.as_tensor(th, **self._like))
+        dinv = 1.0 / (self._sig_host + self._bk.noise_variance_host(th)
+                      + self._bk.amp2_host(th) * 1e-12)
+        Cinv = self._core_inverse_host(G.cpu().numpy())
+        return U, torch.as_tensor(dinv, **self._f64), torch.as_tensor(Cinv, **self._f64)
+
+    def _fit_precond_initial(self):
+        """The fit's preconditioner at the construction hyperparameters: the
+        triple already built (the df64 tier's in its own order)."""
+        if self._precond64 is not None:
+            U64, Cinv, dinv = self._precond64
+            return U64.to(self._wd), dinv, Cinv
+        return self._precond
+
+    def _get_fit_step(self, fit_tol, fit_maxiter, use_precond):
+        """The Adam step of ``fit()`` for ``(fit_tol, fit_maxiter,
+        use_precond)``, cached per key as the JAX package caches its
+        compiled step (nothing is compiled here). The cached object is a
+        partial of the class's function, not of this instance, so the cache
+        makes no reference cycle."""
+        cache = self.__dict__.setdefault("_fit_step_cache", {})
+        key = (fit_tol, fit_maxiter, use_precond)
+        if key not in cache:
+            cache[key] = partial(type(self)._fit_step, fit_tol=fit_tol, fit_maxiter=fit_maxiter,
+                                 use_precond=use_precond)
+        return cache[key]
+
+    def _fit_step(self, theta, adam, t, lr, rhs, Z, pc, *, fit_tol, fit_maxiter, use_precond):
+        """One Adam step: the batched solve over ``[rhs, Z]`` at theta, its
+        worst true relative residual, the surrogate's gradient, the update.
+        Returns ``(theta, adam, g, data_fit, rel_resid)``."""
+        th0 = theta.detach()
+        B = torch.cat([rhs[:, None], Z], dim=1)
+        M = None
+        if use_precond:
+            Up, dinv, Cinv = pc
+            M = partial(woodbury_apply, U=Up, dinv=dinv, core=Cinv, core_chol=False,
+                        out_dtype=B.dtype)
+        with torch.no_grad():
+            Sol, _ = pcg_multi(partial(self._system_matmat, th0), B, M=M, tol=fit_tol,
+                               maxiter=fit_maxiter)
+            rel_resid = _worst_relative_residual(B - self._system_matmat(th0, Sol), B)
+        alpha, U = Sol[:, :1], Sol[:, 1:]
+        g = self._surrogate_grad(th0, torch.cat([alpha, Z], dim=1),
+                                 torch.cat([-0.5 * alpha, (0.5 / Z.shape[1]) * U], dim=1))
+        theta, adam = _adam(th0, adam, g, t, lr)
+        return theta, adam, g, -0.5 * (alpha[:, 0] * rhs).sum(), rel_resid
+
+    def _surrogate_grad(self, theta, W, weights):
+        """The gradient at theta of ``sum(weights * (K(theta) + diag(theta))
+        W)``, the surrogate of ``fit()`` with ``W = [alpha, Z]`` and
+        ``weights = [-alpha / 2, U / (2 p)]``: one ``torch.autograd.grad``
+        per row block of kernel rows (one block's graph alive at a time),
+        then the diagonal's part."""
+        th = theta.detach().requires_grad_(True)
+        x, step = self._x, self.block_size
+        g = torch.zeros_like(theta)
+        for s in range(0, self._n_padded, step):
+            block = (weights[s : s + step] * (self._bk.rows(x[s : s + step], x, th) @ W)).sum()
+            g = g + torch.autograd.grad(block, th)[0]
+        diag = self._sig_diag + self._bk.noise_variance(th) + self._bk.amp2(th) * 1e-12
+        return g + torch.autograd.grad((weights * (diag[:, None] * W)).sum(), th)[0]
 
     # ------------------------------------------------------------------ #
     # prediction
     # ------------------------------------------------------------------ #
     def __call__(self, points, with_variance: bool = False):
         """Predictive means, and with ``with_variance`` standard deviations,
-        at the given points: FP64 cross-covariances on the device, the
-        means contracted with ``alpha``, each block of eight query points'
-        variances from one batched df64 solve."""
+        at the given points. cg/mixed: ``K(q, x) alpha + m`` in the working
+        dtype and one batched ``pcg_multi`` over every query's column. df64:
+        FP64 cross-covariances on the device, the means contracted with
+        ``alpha``, each block of eight query points' variances from one
+        batched df64 solve."""
         q_host = np.atleast_2d(np.asarray(points, dtype=float))
         if q_host.shape[1] != self.n_dimensions:
             q_host = q_host.reshape(-1, self.n_dimensions)
-        if with_variance:
-            mu, var = self._predict_var_df64(q_host, self.alpha, return_mean=True)
-            return mu, np.sqrt(np.abs(var))
-        return self._predict_mean_df64(q_host)
+        if self.solver == "df64":
+            if with_variance:
+                mu, var = self._predict_var_df64(q_host, self.alpha, return_mean=True)
+                return mu, np.sqrt(np.abs(var))
+            return self._predict_mean_df64(q_host)
+        mu = self._predict_mean(q_host)
+        if not with_variance:
+            return mu
+        return mu, np.sqrt(np.abs(self._predict_var(q_host)))
 
+    @torch.no_grad()
+    def _predict_mean(self, q_host):
+        """cg/mixed means ``K(q, x) alpha + m`` in the working dtype, in query
+        blocks of ``_DF64_MEAN_CHUNK`` (each mean its own row)."""
+        q = torch.as_tensor(q_host, **self._like)
+        step = self._DF64_MEAN_CHUNK
+        mu = [self._bk.rows(q[s : s + step], self._x, self._theta) @ self.alpha
+              for s in range(0, q.shape[0], step)]
+        return (torch.cat(mu) + self.mean_value).cpu().numpy()
+
+    @torch.no_grad()
+    def _predict_var(self, q_host):
+        """cg/mixed variances ``amp^2 - diag(K(q, x) A^{-1} K(x, q))``: one
+        ``pcg_multi`` over every query's column under the preconditioner, in
+        the working dtype."""
+        q = torch.as_tensor(q_host, **self._like)
+        K_qx = self._bk.rows(q, self._x, self._theta)
+        sols, _ = pcg_multi(partial(self._system_matmat, self._theta), K_qx.T,
+                            M=self._woodbury(), tol=self._cg_tol, maxiter=self._cg_maxiter)
+        quad = (K_qx.T * sols).sum(dim=0)
+        return (self._bk.amp2(self._theta) - quad).cpu().numpy()
+
+    @torch.no_grad()
     def _kqx(self, q64):
         """FP64 cross-covariance rows ``K(q, x)`` on the device (query
         block x padded points, padded columns masked to zero)."""
@@ -571,19 +916,19 @@ class LargeScaleGP:
         return self._bk.rows(q, self._x, self._theta) * self._mask_dev[None, :]
 
     def _predict_mean_df64(self, q_host):
-        """Posterior means: ``K(q, x) alpha + mean`` in FP64, in query
-        blocks of ``_DF64_MEAN_CHUNK``."""
+        """df64 means: ``K(q, x) alpha + mean`` in FP64, in query blocks of
+        ``_DF64_MEAN_CHUNK``."""
         q64 = np.atleast_2d(np.asarray(q_host, np.float64))
         step = self._DF64_MEAN_CHUNK
         mu = [self._kqx(q64[s : s + step]) @ self.alpha for s in range(0, q64.shape[0], step)]
         return torch.cat(mu).cpu().numpy() + self.mean_value
 
     def _predict_var_df64(self, q_host, alpha, return_mean: bool = False):
-        """Posterior variances ``amp^2 - K(q, x) A^{-1} K(x, q)``: one batched
-        df64 solve per block of ``_DF64_VAR_COLS`` query points (zero
-        columns pad the last block and converge at once), the quadratic
-        form in FP64. With ``return_mean`` the same cross-covariance block
-        also gives the means."""
+        """df64 variances ``amp^2 - K(q, x) A^{-1} K(x, q)``: one batched df64
+        solve per block of ``_DF64_VAR_COLS`` query points (zero columns pad
+        the last block and converge at once), the quadratic form in FP64.
+        With ``return_mean`` the same cross-covariance block also gives the
+        means."""
         q64 = np.atleast_2d(np.asarray(q_host, np.float64))
         m, qc = q64.shape[0], self._DF64_VAR_COLS
         solver = self._get_df64_multi_solver()
@@ -634,40 +979,68 @@ class LargeScaleGP:
         diag = self._sig_host + self._bk.noise_variance_host(h) + self._amp2 * 1e-12
         return out + diag * v
 
+    @torch.no_grad()
+    def _device_matvec64(self, v) -> np.ndarray:
+        """Float64 system matvec on the device: the blocked system product
+        on FP64 copies of x, theta and the noise (kernel B2 for the squared
+        exponential, in FP64)."""
+        x = torch.as_tensor(self._x_host, **self._f64)
+        th = torch.as_tensor(self.hyperpars, **self._f64)
+        v = torch.as_tensor(v, **self._f64)
+        step = self.block_size
+        Kv = torch.cat([self._bk.rows(x[s : s + step], x, th) @ v
+                        for s in range(0, self._n_padded, step)])
+        diag = self._sig_host + self._bk.noise_variance_host(self.hyperpars) + self._amp2 * 1e-12
+        return (Kv + torch.as_tensor(diag, **self._f64) * v).cpu().numpy()
+
     def _residual64(self, alpha64, backend: str):
-        """``A alpha`` in float64: ``"df64"`` through the tier's accurate
-        operator (kernel B6, or B3 for the fused and the float32-store tiers)
-        on an exact hi/lo split of alpha, ``"host"`` through blocked host
-        numpy."""
+        """``A alpha`` in float64: ``"df64"`` through the df64 operator
+        (kernel B6, or B3 for the fused and the float32-store tiers; outside
+        the df64 tier the fused kernel, squared exponential only) on an
+        exact hi/lo split of alpha, ``"device"`` through the blocked system
+        product in FP64, ``"host"`` through blocked host numpy."""
         if backend == "df64":
+            if not self._bk.supports_df64:
+                raise ValueError(
+                    f"[ LargeScaleGP error ] residual_backend='df64' needs the "
+                    f"squared exponential kernel; got {self._bk.name}."
+                )
+            if not hasattr(self, "_us_hi"):
+                # one product needs no (n, n) store
+                self._prepare_df64(store=False)
             ah = alpha64.astype(np.float32)
             al = (alpha64 - ah.astype(np.float64)).astype(np.float32)
             op = self._df64_op_args()
             dev = lambda a: torch.as_tensor(a, device=self._device)
             return (self._matvec64_pair(dev(ah), *op)
                     + self._matvec64_pair(dev(al), *op)).cpu().numpy()
+        if backend == "device":
+            return self._device_matvec64(alpha64)
         if backend == "host":
             return self._host_matvec64(alpha64)
         raise ValueError(
-            f"[ LargeScaleGP error ] residual_backend must be 'auto', 'df64' "
-            f"or 'host', got {backend!r} (the JAX package's 'device', an "
-            f"emulated-float64 program, has no job where 'df64' is FP64)."
+            f"[ LargeScaleGP error ] residual_backend must be 'auto', 'df64', "
+            f"'device' or 'host', got {backend!r}."
         )
 
     def _resolve_residual_backend(self, residual_backend: str) -> str:
-        """``"auto"`` is ``"df64"``: the FP64 operator of the tier itself,
-        on every device. ``refine()`` and ``residual_norm_f64`` resolve
-        identically."""
-        return "df64" if residual_backend == "auto" else residual_backend
+        """``"auto"`` is ``"df64"`` (the tier's own FP64 operator) in the df64
+        tier and ``"device"`` (the blocked FP64 system product) in the others.
+        ``refine()`` and ``residual_norm_f64`` resolve identically."""
+        if residual_backend != "auto":
+            return residual_backend
+        return "df64" if self.solver == "df64" else "device"
 
     def refine(self, rounds: int = None, target: float = 1e-9, max_rounds: int = 40,
                residual_backend: str = "auto"):
         """Iterative refinement of the training solve: the float64 residual
-        ``r = b - A alpha`` (``residual_backend``), a df64 solve of ``A d =
-        r``, ``alpha += d``. With ``rounds=None`` it stops at ``target``,
-        on stagnation (contraction worse than 0.9 per round) or after
-        ``max_rounds``; it keeps the best-residual iterate. Returns
-        ``self``."""
+        ``r = b - A alpha`` (``residual_backend``), a solve of ``A d = r`` by
+        the tier's own solver (the df64 solve on the float64 residual, the
+        others on its cast to the working dtype), ``alpha += d`` in float64.
+        With ``rounds=None`` it stops at ``target``, on stagnation
+        (contraction worse than 0.9 per round) or after ``max_rounds``; it
+        keeps the best-residual iterate as ``alpha64``, and its cast as
+        ``alpha``. Returns ``self``."""
         residual_backend = self._resolve_residual_backend(residual_backend)
         b64 = (np.asarray(self._y_host) - self.mean_value) * self._mask
         b_norm = float(np.linalg.norm(b64))
@@ -683,24 +1056,30 @@ class LargeScaleGP:
             if res <= target or (rounds is None and res > 0.9 * last_res):
                 break
             last_res = res
-            d = self._solve_rhs(torch.as_tensor(r64, **self._f64))
-            alpha64 = alpha64 + d.cpu().numpy()
+            d = self._solve_rhs(torch.as_tensor(r64, **self._like))
+            alpha64 = alpha64 + d.double().cpu().numpy()
         else:
             r64 = (b64 - self._residual64(alpha64, residual_backend)) * self._mask
             res = float(np.linalg.norm(r64)) / max(b_norm, 1e-300)
             if res < best_res:
                 best_alpha, best_res = alpha64, res
-        self._set_alpha(torch.as_tensor(best_alpha, **self._f64))
+        self._set_alpha(torch.as_tensor(best_alpha, **self._like), best_alpha)
         return self
 
     def residual_norm(self) -> float:
         """Relative residual of the training solve over the real (unpadded)
-        rows, ``|(K alpha - (y - m)) mask| / |(y - m) mask|``: a CG
-        convergence check. The JAX package evaluates it with its float32
-        system matmat; the port's system product is FP64 (kernel B6 on the
-        FP64 store, else B3 on the coordinates, applied to an exact hi/lo
-        split of alpha), so this is ``residual_norm_f64("df64")``."""
-        return self.residual_norm_f64("df64")
+        rows, ``|(A alpha - (y - m)) mask| / |(y - m) mask|``: a CG
+        convergence check. cg/mixed: the JAX package's, through the system
+        product in the working dtype. df64: the port's system product is
+        FP64 (kernel B6 on the FP64 store, else B3 on the coordinates,
+        applied to an exact hi/lo split of alpha), so this is
+        ``residual_norm_f64("df64")``."""
+        if self.solver == "df64":
+            return self.residual_norm_f64("df64")
+        with torch.no_grad():
+            rhs = (self._y - self.mean_value) * self._mask_dev
+            r = (self._system_matmat(self._theta, self.alpha) - rhs) * self._mask_dev
+            return float(torch.linalg.norm(r) / torch.linalg.norm(rhs))
 
     def residual_norm_f64(self, residual_backend: str = "auto") -> float:
         """Relative residual of the training solve, evaluated in float64."""

@@ -2,13 +2,13 @@
 ``hmc_fused`` (kernel B1, fused whole-trajectory HMC transitions) and
 ``pairwise`` (kernel B2, the squared-exponential covariance block) and
 ``df64`` (kernels B3-B8, the matrix-free GP's kernel matrix in FP64); the
-dense linear algebra of the GP path (``linalg``) and the df64 tier's
+dense linear algebra of the GP path (``linalg``) and the matrix-free GP's
 solvers (``solvers``)."""
 
 from .hmc_fused import GaussianForm
 from .pairwise import scaled_sq_distances, sqexp_covariance
 from .linalg import add_diagonal, identity_like
-from .solvers import df64_pcg, Df64Solver, Df64MultiSolver
+from .solvers import mixed_pcg, pcg_multi, df64_pcg, Df64Solver, Df64MultiSolver
 from .df64 import (
     sqexp_matvec_df64,
     sqexp_matmat_df64,
@@ -30,6 +30,8 @@ __all__ = [
     "sqexp_covariance",
     "add_diagonal",
     "identity_like",
+    "mixed_pcg",
+    "pcg_multi",
     "df64_pcg",
     "Df64Solver",
     "Df64MultiSolver",

@@ -1,16 +1,25 @@
-"""Preconditioned conjugate gradients with float64 iterates over a
-float32-direction operator: the solvers of the df64 GP tier.
+"""Preconditioned conjugate gradients: the solvers of the matrix-free GP
+tiers.
 
-Port of ``Df64MultiSolver``, ``Df64Solver`` and ``df64_pcg`` from
-``inference_tpu.ops.solvers``. The chunk is a plain Python loop of torch
-operations (nothing is compiled), run by the host loop that checks each
-chunk's residuals; the arithmetic, the float32 cast of the search
-direction, the end-of-chunk true-residual refresh, the pAp latch and the
-host loop's divergence safeguard are the JAX package's. Its watchdog-sized
-chunk length (``df64_chunk_iters``) is not ported: a GPU has no dispatch
-watchdog, so callers pass ``restart_every`` (the tier uses 50, the length
-the JAX policy gives at test sizes). ``mixed_pcg`` and ``pcg_multi`` wait
-for the cg/mixed solver tiers (ROADMAP A11).
+Port of ``inference_tpu.ops.solvers`` and of the one library solver the JAX
+package calls:
+
+- ``cg``: plain preconditioned CG, ``jax.scipy.sparse.linalg.cg`` step for
+  step (its recursive residual, its scalars in the vector dtype, its stopping
+  rule), for ``solver="cg"``;
+- ``mixed_pcg`` and ``pcg_multi``: restarted PCG with float64 scalar
+  recurrences and a true residual every ``restart_every`` iterations, for
+  one right-hand side (``solver="mixed"``) and a block of them (predictive
+  variances, ``fit()``);
+- ``Df64MultiSolver``, ``Df64Solver`` and ``df64_pcg``: float64 iterates
+  over a float32-direction operator, for ``solver="df64"``.
+
+Every loop is a plain Python loop of torch operations (nothing is
+compiled) with one host read of its stopping test a trip; the arithmetic
+is the JAX package's. Its watchdog-sized chunk length
+(``df64_chunk_iters``) is not ported: a GPU has no dispatch watchdog, so
+callers pass ``restart_every`` (the tiers use 50, the length the JAX policy
+gives at test sizes).
 """
 
 import numpy as np
@@ -19,6 +28,134 @@ import torch
 
 def _colsum(U, V):
     return (U * V).sum(dim=0)
+
+
+def _identity(v):
+    return v
+
+
+def cg(matvec, b, M=None, tol=1e-5, atol=0.0, maxiter=None):
+    """Solve ``A x = b`` (A symmetric positive-definite, applied by
+    ``matvec``) by preconditioned CG from ``x = 0``, as
+    ``jax.scipy.sparse.linalg.cg`` does: the residual by recursion, every
+    scalar in ``b``'s dtype, and the loop runs while ``rs > max(tol^2 b.b,
+    atol^2)`` and fewer than ``maxiter`` iterations (default ``10 n``) have
+    run, ``rs`` being ``gamma = r.z`` without a preconditioner and ``r.r``
+    with one. The first residual is ``b`` itself (the JAX function's ``b -
+    A 0``, without the product).
+
+    Returns ``(x, iterations)``: the JAX function returns no count, so the
+    second value is the port's own."""
+    if maxiter is None:
+        maxiter = 10 * b.numel()
+    preconditioned = M is not None
+    M = _identity if M is None else M
+    dot = lambda u, v: (u * v).sum()
+    atol2 = torch.clamp(tol**2 * dot(b, b), min=atol**2)
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    gamma = dot(r, z).to(p.dtype)
+    k = 0
+    while k < maxiter and bool((dot(r, r) if preconditioned else gamma) > atol2):
+        Ap = matvec(p)
+        alpha = gamma / dot(p, Ap).to(p.dtype)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        gamma_new = dot(r, z).to(p.dtype)
+        p = z + (gamma_new / gamma) * p
+        gamma = gamma_new
+        k += 1
+    return x, k
+
+
+def mixed_pcg(matvec, b, M=None, tol=1e-6, maxiter=1000, restart_every=50):
+    """Solve ``A x = b`` (A symmetric positive-definite, applied by
+    ``matvec``) by preconditioned CG with float64 scalar recurrences and a
+    true residual ``b - A x`` every ``restart_every`` iterations, after
+    which the direction restarts from steepest descent (the float32
+    recurrence's direction is no longer conjugate to the fresh residual).
+    Vectors stay in ``b``'s dtype. A non-positive ``p.Ap`` (total loss of
+    precision) stops the loop with the current iterate.
+
+    Returns ``(x, info)``: ``info = 0`` on convergence, else the iteration
+    count."""
+    M = _identity if M is None else M
+    vdtype = b.dtype
+    dot64 = lambda u, v: (u.double() * v.double()).sum()
+    atol2 = (tol * torch.sqrt(dot64(b, b))) ** 2
+    x = torch.zeros_like(b)
+    r = b
+    z = M(r)
+    p = z
+    rz = dot64(r, z)
+    rr = dot64(r, r)
+    ok = torch.ones((), dtype=torch.bool, device=b.device)
+    i = 0
+    while i < maxiter and bool(ok & (rr > atol2)):
+        Ap = matvec(p)
+        pAp = dot64(p, Ap)
+        ok = ok & (pAp > 0.0)
+        alpha = torch.where(pAp > 0.0, rz / pAp, 0.0).to(vdtype)
+        x = x + alpha * p
+        restart = (i % restart_every) == (restart_every - 1)
+        r = b - matvec(x) if restart else r - alpha * Ap
+        z = M(r)
+        rz_new = dot64(r, z)
+        rr = dot64(r, r)
+        if restart:
+            beta = torch.zeros_like(rz)
+        else:
+            beta = torch.where(rz != 0.0, rz_new / rz, 0.0)
+        p = z + beta.to(vdtype) * p
+        rz = rz_new
+        i += 1
+    info = 0 if bool(dot64(r, r) <= atol2) else i
+    return x, info
+
+
+def pcg_multi(matvec, B, M=None, tol=1e-6, maxiter=1000, restart_every=50):
+    """Preconditioned CG over the columns of ``B`` (n, q) at once: each
+    iteration applies one shared ``matvec(P)`` to all q systems. Scalar
+    recurrences are per column and float64; a column freezes once its
+    residual is below ``tol`` of its right-hand side or its ``p.Ap`` turns
+    non-positive. The true residual ``B - A X`` is recomputed every
+    ``restart_every`` iterations with the directions reset to steepest
+    descent, as in ``mixed_pcg``.
+
+    Returns ``(X, iterations)``."""
+    M = _identity if M is None else M
+    dtype = B.dtype
+    colsum = lambda U, V: (U.double() * V.double()).sum(dim=0)
+    atol2 = (tol**2) * colsum(B, B)
+    X = torch.zeros_like(B)
+    R = B
+    Z = M(R)
+    P = Z
+    rz = colsum(R, Z)
+    active = colsum(R, R) > atol2
+    i = 0
+    while i < maxiter and bool(active.any()):
+        AP = matvec(P)
+        pAp = colsum(P, AP)
+        ok = active & (pAp > 0.0)
+        alpha = torch.where(ok, rz / torch.where(pAp > 0.0, pAp, 1.0), 0.0)
+        X = X + alpha[None, :].to(dtype) * P
+        restart = (i % restart_every) == (restart_every - 1)
+        R = B - matvec(X) if restart else R - alpha[None, :].to(dtype) * AP
+        Z = M(R)
+        rz_new = colsum(R, Z)
+        active = ok & (colsum(R, R) > atol2)
+        if restart:
+            beta = torch.zeros_like(rz)
+        else:
+            beta = torch.where(active & (rz != 0.0), rz_new / torch.where(rz != 0.0, rz, 1.0), 0.0)
+        P = Z + beta[None, :].to(dtype) * P
+        rz = rz_new
+        i += 1
+    return X, i
 
 
 class Df64MultiSolver:

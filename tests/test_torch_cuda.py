@@ -5,7 +5,9 @@ sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
 sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
 checks; the fused ChainArray, HamiltonianChain and a models.Posterior on
-the card, the GpRegressor and the LargeScaleGP end to end; the gibbs,
+the card, the GpRegressor, the LargeScaleGP (its df64 store tiers, its cg
+tier's product and a fit step) and the LargeScaleGpLinearInverter's df64
+stores end to end; the gibbs,
 metropolis and pca ChainArrays on the card against their CPU runs, and a
 numpy posterior's chains with their state on the card.
 
@@ -20,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from inference_tpu_torch.gp import GpRegressor, LargeScaleGP
+from inference_tpu_torch.gp import GpRegressor, LargeScaleGP, LargeScaleGpLinearInverter
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
@@ -945,6 +947,85 @@ def test_large_scale_gp_on_card_matches_cpu(cuda, store_entries):
     q = rng.uniform(1, 7, (16, 2))
     for a, b in zip(on_card(q, with_variance=True), on_cpu(q, with_variance=True)):
         np.testing.assert_allclose(a, b, rtol=1e-7, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cg_tier_product_on_card_matches_cpu(cuda):
+    """The cg tier's system product at n = 4,096 in float64: kernel B2's
+    rows in four blocks of 1,024, then the product with a (n, 3) block, on
+    the card against the same on the CPU (B2's plain version): 1e-10 of the
+    largest entry; one B2 launch a block."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(0, 10, (4096, 2))
+    kw = dict(hyperpars=[0.0, 0.3, 0.3], block_size=1024, preconditioner_rank=0, cg_maxiter=1,
+              dtype="float64")
+    args = (x, np.sin(x[:, 0]), np.full(4096, 0.1))
+    card, cpu = LargeScaleGP(*args, device=cuda, **kw), LargeScaleGP(*args, device="cpu", **kw)
+    V = rng.normal(size=(4096, 3))
+    before = pairwise.KERNEL_LAUNCHES
+    got = card._system_matmat(card._theta, torch.as_tensor(V, device=cuda)).cpu().numpy()
+    assert pairwise.KERNEL_LAUNCHES - before == 4
+    ref = cpu._system_matmat(cpu._theta, torch.as_tensor(V)).numpy()
+    assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+def _averaging_inversion(n, m, seed=0):
+    """n parameters on [0, 10]^2, m local-averaging data (weights exp(-d^2 /
+    (2 * 0.5)), rows summing to 1), truth sin x0 cos(x1 / 2), y_err 0.02."""
+    rng = np.random.default_rng(seed)
+    xp, centres = rng.uniform(0, 10, (n, 2)), rng.uniform(0, 10, (m, 2))
+    A = np.exp(-0.5 * ((centres[:, None] - xp[None]) ** 2).sum(-1) / 0.5)
+    A /= A.sum(axis=1, keepdims=True)
+    y = A @ (np.sin(xp[:, 0]) * np.cos(0.5 * xp[:, 1])) + rng.normal(0, 0.02, m)
+    return y, np.full(m, 0.02), A, xp
+
+
+@pytest.mark.cuda
+def test_inverter_df64_stores_agree_on_card(cuda):
+    """LargeScaleGpLinearInverter(solver="df64") at N = 4,096 (M = 512) on the
+    card with store_entries="auto" (B5, then B6) and False (B3/B4): the
+    data-space residual 1e-9, the two means within 1e-9 of the largest and
+    four variances within 1e-9."""
+    args = _averaging_inversion(4096, 512)
+    kw = dict(block_size=1024, solver="df64", cg_tol=1e-11, cg_maxiter=8000, device=cuda)
+    before = dict(df64.KERNEL_LAUNCHES)
+    auto = LargeScaleGpLinearInverter(*args, [0.0, 0.0, 0.0], store_entries="auto", **kw)
+    mid = dict(df64.KERNEL_LAUNCHES)
+    fused = LargeScaleGpLinearInverter(*args, [0.0, 0.0, 0.0], store_entries=False, **kw)
+    assert mid["B5"] - before["B5"] == 1 and mid["B6"] > before["B6"]
+    assert df64.KERNEL_LAUNCHES["B4"] > mid["B4"] and df64.KERNEL_LAUNCHES["B5"] == mid["B5"]
+    assert auto.residual_norm_f64() <= 1e-9 and fused.residual_norm_f64() <= 1e-9
+    m_a, m_f = auto.calculate_posterior_mean(), fused.calculate_posterior_mean()
+    assert np.abs(m_a - m_f).max() <= 1e-9 * np.abs(m_a).max()
+    idx = [0, 1000, 2047, 4095]
+    assert np.abs(auto.posterior_variances(idx) - fused.posterior_variances(idx)).max() <= 1e-9
+
+
+@pytest.mark.cuda
+def test_fit_step_on_card_matches_cpu(cuda):
+    """One Adam step of LargeScaleGP.fit() (cg tier, float64, n = 2,048,
+    rank 64: the batched solve and autograd through kernel B2's rows) on
+    the card against the CPU: the gradient and theta within 1e-8."""
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 10, (2048, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, 2048)
+    kw = dict(hyperpars=[0.5, 1.0, 1.0], block_size=1024, preconditioner_rank=64,
+              dtype="float64", cg_tol=1e-8)
+    steps = []
+    for device in (cuda, "cpu"):
+        gp = LargeScaleGP(x, y, np.full(2048, 0.1), device=device, **kw)
+        probes = torch.as_tensor(np.random.default_rng(1).choice([-1.0, 1.0], (2048, 4)),
+                                 device=device)
+        theta = torch.as_tensor(gp.hyperpars, device=device)
+        rhs = (gp._y - gp.mean_value) * gp._mask_dev
+        step = gp._get_fit_step(1e-10, 2000, True)
+        out = step(gp, theta, (torch.zeros_like(theta), torch.zeros_like(theta)),
+                   torch.tensor(1.0, device=device), torch.tensor(0.1, device=device), rhs,
+                   probes, gp._fit_precond_initial())
+        steps.append((out[0].cpu().numpy(), out[2].cpu().numpy()))
+    (theta_card, g_card), (theta_cpu, g_cpu) = steps
+    assert np.abs(g_card - g_cpu).max() <= 1e-8 * np.abs(g_cpu).max()
+    assert np.abs(theta_card - theta_cpu).max() <= 1e-8
 
 
 # The probes P1-P3 against their plain versions on the card: P1 bit for bit

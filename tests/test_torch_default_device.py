@@ -9,7 +9,8 @@ import torch
 
 from inference_tpu_torch import convert, models
 from inference_tpu_torch.bench import dense_hmc, headline
-from inference_tpu_torch.gp import GpLinearInverter, GpRegressor, LargeScaleGP
+from inference_tpu_torch.gp import (GpLinearInverter, GpRegressor, LargeScaleGP,
+                                    LargeScaleGpLinearInverter)
 from inference_tpu_torch.mcmc import HamiltonianChain
 from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
@@ -29,6 +30,15 @@ ENTRY_POINTS = {
     }),
     "LargeScaleGP": lambda: LargeScaleGP(_X, _Y, _ERR, hyperpars=[0.0, 0.0], block_size=128,
                                          solver="df64"),
+    "LargeScaleGP cg": lambda: LargeScaleGP(_X, _Y, _ERR, hyperpars=[0.0, 0.0]),
+    "LargeScaleGpLinearInverter": lambda: LargeScaleGpLinearInverter(_Y, _ERR, np.eye(8), _X,
+                                                                     [0.0, 0.0]),
+    "large_inverter_from_state": lambda: convert.large_inverter_from_state({
+        "y": _Y, "y_err": _ERR, "model_matrix": np.eye(8), "positions": _X,
+        "hyperpars": np.zeros(2), "kernel": "SquaredExponential", "prior_mean": 0.0,
+        "block_size": 8, "solver": "cg", "store_entries": "auto", "dtype": "float64",
+        "cg_tol": 1e-6, "cg_maxiter": 100, "z64": np.zeros(8),
+    }),
     "HamiltonianChain": lambda: HamiltonianChain(GaussianForm(torch.eye(2)), start=np.zeros(2),
                                                  display_progress=False),
     "HamiltonianChain.from_items": lambda: HamiltonianChain.from_items({}),

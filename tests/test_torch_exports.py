@@ -15,10 +15,10 @@ PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.
          "inference_tpu_torch.models")
 PORT_ONLY = {"GaussianForm"}
 # the JAX package's names from these paths that the port does not define
-# yet, each a ROADMAP item (A11-A13)
+# yet: the sharded matmat is ROADMAP A13; the TPU watchdog's chunk length
+# has no job on a GPU (ROADMAP "Not ported")
 UNPORTED = {
-    "inference_tpu.ops": {"mixed_pcg", "pcg_multi", "df64_chunk_iters",
-                          "sqexp_matmat_df64_sharded"},
+    "inference_tpu.ops": {"df64_chunk_iters", "sqexp_matmat_df64_sharded"},
 }
 
 

@@ -31,6 +31,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.mcmc.gibbs, inference_tpu_torch.mcmc.pca, "
         "inference_tpu_torch.mcmc._kernels.metropolis, inference_tpu_torch.utils.wrap, "
         "inference_tpu_torch.parallel._kinds, inference_tpu_torch.parallel.chain_array",
+        "inference_tpu_torch.gp.large_inversion, inference_tpu_torch.gp.block_kernels",
         "chip_smoke",
     ],
 )
