@@ -3,7 +3,8 @@
 benches, the single-chain HamiltonianChain, the Metropolis family
 (ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain) and
 posteriors written with numpy, dense GP regression (kernel
-B2), the matrix-free GP (its small-noise df64 tier through kernels B3-B8;
+B2) with its on-device fit, Bayesian optimisation (GpOptimiser), the
+matrix-free GP (its small-noise df64 tier through kernels B3-B8;
 its cg and mixed tiers, fit() and the RQ and white-noise kernels through
 B2; LargeScaleGpLinearInverter in all three tiers) and the probes P1-P3
 that measure B3.
@@ -104,6 +105,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
 8. GP fit and prediction at N=4,096 in float64: ``fit(optimizer="bfgs",
    n_starts=2)``, then ``__call__`` at 4,096 points against the plain
    route (1e-10);
+8a. bfgs-card: ``utils.optimize.minimize_bfgs`` (JAX's BFGS batched over
+   starts) on 64 starts of a 10-dim SPD quadratic and of the 2D Rosenbrock
+   in float64, against the same code on the CPU: every quadratic row
+   converged, each row's status the CPU's, x within 1e-10 / 1e-6;
+8b. gp-fit-device-4k: ``GpRegressor.fit_device(starts=16)`` on phase 8's
+   data: the batched objective against the single-start one at 4 thetas
+   (1e-10), the fit's seconds, iterations and B2 launches (one per start
+   and evaluation), its LML at least phase 8's less 1e-6 of it, one batched
+   evaluation profiled (idle share, B2, the Cholesky and its backward);
+8c. bo-warm-2d: ``bench.bo_warm`` (``benchmarks/bo_warm_bench.py``'s warm
+   ``GpOptimiser`` iteration, optimizer="device") in float64 and float32:
+   warm-iteration seconds, host reads an iteration, one iteration profiled
+   (device idle share, kernel launches); proposals in the bounds, the
+   histories one entry per added point, the adopted state equal to an
+   explicit refit (1e-10) after a fused proposal and after a public read;
+   in float64 one fused proposal from one state held to the CPU's
+   (``BO_TWIN_RTOL``);
+8d. bo-demo-1d: ``demos/gp_optimisation_demo.py``'s loop (8 iterations),
+   the best value within 0.05 of the grid maximum; their readings as one
+   ``{"gp_optimisation": ...}`` JSON line;
 9. kernels B3-B8 against their plain versions at full width, n = 53,248
    (gp-large-50k's padded data): B5 and B7 equal bit for bit, row block by
    row block; B6/B8's FP64 MMA on one 16 x 8 tile exactly; B3, B4, B6 and
@@ -152,7 +173,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
     #5 (N = 50,000 local-averaging parameters, M = 4,096 data, y_err 0.02)
     through ``LargeScaleGpLinearInverter`` with ``solver="cg"``, ``"mixed"``
     (float32, B2) and ``"df64"`` with ``store_entries="auto"`` (B5, B6) and
-    ``False`` (B3/B4): the plain-route data-space residual (1e-3; df64 1e-9),
+    ``False`` (B3/B4; a warm solve timed in the cg tier only): the plain-route
+    data-space residual (1e-3; df64 1e-9),
     the tiers' means and variances against df64's, predict_data's rms <= 3
     y_err; inv-8k, the same generator at N = 8,192 against the dense FP64
     ``GpLinearInverter`` (df64 1e-8, cg 1e-6) and a 30-step ``fit()`` that
@@ -203,15 +225,17 @@ import numpy as np
 import torch
 
 from inference_tpu_torch import Bounds, GibbsChain, HamiltonianChain, PcaChain
-from inference_tpu_torch.bench import dense_hmc, headline
+from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
 from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
-from inference_tpu_torch.gp import (GpLinearInverter, GpRegressor, LargeScaleGP,
+from inference_tpu_torch.convert import gp_optimiser_from_state, gp_optimiser_state_of
+from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter, RationalQuadratic, WhiteNoise)
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
-from inference_tpu_torch.utils import effective_sample_size
+from inference_tpu_torch.utils import effective_sample_size, optimize
+from inference_tpu_torch.utils.optimize import minimize_bfgs
 from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
                                         fp64_issue_ms, time_events, vpu_probe)
 from inference_tpu_torch.probes import df64_mxu_d2_experiment as words
@@ -1571,6 +1595,7 @@ def phase_gp_fit_predict():
         raise RuntimeError("bad predictions")
     if not max(rel_mu, rel_sd) <= 1e-10:
         raise RuntimeError(f"predictions disagree with the plain route ({rel_mu}, {rel_sd})")
+    return lml_fit
 
 
 def _profile_evaluation(gp):
@@ -2492,11 +2517,12 @@ def _plain_data_residual(inv, A):
     return float((r - t(inv._sig_host) * z - A @ Kp).norm() / r.norm())
 
 
-def _inverter_run(label, y, err, A, xp, idx, **kw):
+def _inverter_run(label, y, err, A, xp, idx, warm=True, **kw):
     """One LargeScaleGpLinearInverter on the card (settings ``kw``): cold
-    constructor and solve, a warm solve, the plain-route residual, the
-    posterior mean, variances at ``idx`` (none where ``idx`` is empty) and
-    predict_data. Returns the readings and the launches of the run."""
+    constructor and solve, a warm solve (unless ``warm`` is False), the
+    plain-route residual, the posterior mean, variances at ``idx`` (none
+    where ``idx`` is empty) and predict_data. Returns the readings and the
+    launches of the run."""
     _free()
     _reset_launches()
     t_phase = t0 = time.perf_counter()
@@ -2504,9 +2530,10 @@ def _inverter_run(label, y, err, A, xp, idx, **kw):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     t0 = time.perf_counter()
-    inv._set_z(inv._solve_data_space())
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    if warm:
+        inv._set_z(inv._solve_data_space())
+        torch.cuda.synchronize()
+    warm = time.perf_counter() - t0 if warm else None
     res = _plain_data_residual(inv, A)
     t0 = time.perf_counter()
     mean = inv.calculate_posterior_mean()
@@ -2519,7 +2546,8 @@ def _inverter_run(label, y, err, A, xp, idx, **kw):
     if tier == "df64":
         tier += f" store_entries={kw['store_entries']!r}"
     peak = _phase_line(label, time.perf_counter() - t_phase, (
-        f"{tier}: cold {cold:.3f} s, warm solve {warm:.3f} s ({inv.cg_iterations_estimate} cg "
+        f"{tier}: cold {cold:.3f} s, warm solve "
+        f"{'not run' if warm is None else f'{warm:.3f} s'} ({inv.cg_iterations_estimate} cg "
         f"iterations where counted), FP64 data-space residual by the plain route {res:.3e}, "
         f"mean field + {len(idx)} variances + predict_data {seconds:.3f} s, predict_data rms "
         f"against y {rms:.4f} (limit {3 * INV_ERR:g}); run "))
@@ -2549,7 +2577,10 @@ def phase_inversion_50k():
     unrestarted float32 CG bottoms out at 7.5e-4 (measured on an H100). Its
     variances are cg's (the same ``pcg_multi`` on the same operator, equal
     bit for bit on the card) and the fused store's cost as much as the
-    FP64 store's, so neither is solved again (the script's time)."""
+    FP64 store's, so neither is solved again (the script's time). For the
+    same reason only the cg tier times a warm solve; the others' (17.3,
+    27.3 and 20.4 s on an H100, PR 15) equal their cold solves less the
+    constructor's set-up."""
     xp, A, y, err = make_inversion_data(LARGE_N, 4096)
     idx = np.random.default_rng(5).choice(len(xp), 16, replace=False)
     runs, launches = {}, {}
@@ -2560,7 +2591,8 @@ def phase_inversion_50k():
              1e-9, idx),
             ("df64 fused", dict(INV_DF64_KW, solver="df64", store_entries=False), ("B4",),
              1e-9, idx[:0])):
-        runs[name], launches[name] = _inverter_run("inv-50k", y, err, A, xp, sel, **kw)
+        runs[name], launches[name] = _inverter_run("inv-50k", y, err, A, xp, sel,
+                                                   warm=name == "cg", **kw)
         run = runs[name]
         if not ((limit is None or run["residual"] <= limit) and run["rms"] <= 3 * INV_ERR):
             raise RuntimeError(f"inv-50k {name}: residual {run['residual']} (limit {limit}), "
@@ -3115,6 +3147,334 @@ def phase_probe_paths(n):
             "clock_mhz": mhz, "power_w": watts}
 
 
+# ---------------------------------------------------------------------------
+# A10: the batched BFGS, the on-device GP fit and Bayesian optimisation
+# ---------------------------------------------------------------------------
+
+BFGS_STARTS = 64
+FIT_N = 4096  # gp-fit-device-4k: phase 8's data
+FIT_STARTS = 16
+# the card's fused proposal against the CPU's, from one state: theta (max
+# norm) and the acquisition objective 1e-5, the fit's LML at the two thetas
+# 1e-9. The fit's starts end where a line search fails, at a point roundoff
+# decides on a surface flat to ~1e-12: the thetas stood 7.951e-7 apart in
+# the first card run (NVIDIA H100 80GB HBM3, 700 W), too close to 1e-6 to
+# hold across hosts
+BO_TWIN_RTOL, BO_TWIN_LML_RTOL = 1e-5, 1e-9
+
+
+def _bfgs_problems(device):
+    """bfgs-card's problems on ``device`` in float64: 64 starts (uniform on
+    [-2, 2]^2) of the 2D Rosenbrock and 64 (standard normal) of a 10-dim SPD
+    quadratic with eigenvalues 0.5-1.5."""
+    rng = np.random.default_rng(0)
+    Q, _ = np.linalg.qr(rng.normal(size=(10, 10)))
+    t = lambda a: torch.as_tensor(a, dtype=F64, device=device)
+    A, b = t(Q @ np.diag(np.linspace(0.5, 1.5, 10)) @ Q.T), t(rng.normal(size=10))
+    rosen = lambda X: (1 - X[:, 0]) ** 2 + 100 * (X[:, 1] - X[:, 0] ** 2) ** 2
+    quad = lambda X: 0.5 * ((X @ A) * X).sum(dim=1) - X @ b
+    return {"quadratic": (quad, t(rng.normal(size=(BFGS_STARTS, 10)))),
+            "rosenbrock": (rosen, t(rng.uniform(-2, 2, (BFGS_STARTS, 2))))}
+
+
+def phase_bfgs_card():
+    """bfgs-card: ``utils.optimize.minimize_bfgs`` on the card against the
+    same code on the CPU, 64 starts of each problem. Every quadratic row
+    converges (status 0); on Rosenbrock JAX's BFGS, which the port follows
+    step for step, ends rows with status 3 where its zoom fails, so there
+    each row's status must equal the CPU's. x within 1e-10 (quadratic) and
+    1e-6 (Rosenbrock) of the CPU's."""
+    t_phase = time.perf_counter()
+    _reset_launches()
+    card, cpu = _bfgs_problems(CUDA), _bfgs_problems("cpu")
+    out = {}
+    for name, tol in (("quadratic", 1e-10), ("rosenbrock", 1e-6)):
+        fn, x0 = card[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = minimize_bfgs(fn, x0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        ref = minimize_bfgs(*cpu[name])
+        status, status_cpu = res.status.cpu().numpy(), ref.status.numpy()
+        dx = float((res.x.cpu() - ref.x).abs().max())
+        counts = {int(k): int(v) for k, v in zip(*np.unique(status, return_counts=True))}
+        print(f"[bfgs-card] {name}, {BFGS_STARTS} starts: {seconds:.3f} s, iterations max "
+              f"{int(res.nit.max())} (mean {float(res.nit.double().mean()):.1f}), evaluations "
+              f"max {int(res.nfev.max())}, {res.rounds} rounds, {res.host_reads} host reads; "
+              f"status counts {counts} (CPU {status_cpu.tolist() == status.tolist()}), max "
+              f"|x - x_cpu| {dx:.3e} (limit {tol:g}) (card: {SMI})")
+        if not (status == status_cpu).all():
+            raise RuntimeError(f"bfgs-card {name}: statuses differ from the CPU's")
+        if name == "quadratic" and not (status == 0).all():
+            raise RuntimeError(f"bfgs-card quadratic: statuses {counts}, all 0 expected")
+        if not dx <= tol:
+            raise RuntimeError(f"bfgs-card {name}: x differs from the CPU's by {dx}")
+        out[name] = {"seconds": seconds, "nit_max": int(res.nit.max()),
+                     "nfev_max": int(res.nfev.max()), "rounds": res.rounds,
+                     "host_reads": res.host_reads, "status": counts, "max_dx_cpu": dx}
+    _phase_line("bfgs-card", time.perf_counter() - t_phase)
+    return out
+
+
+def _profile_batched_evaluation(gp, thetas):
+    """torch.profiler over one batched LML+gradient evaluation: wall and
+    device ms, the device idle share, and the shares of B2, the Cholesky
+    and its backward in the device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        optimize.value_and_grad(gp._batched_objective, thetas)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events if e.device_type == cuda) / 1e3
+    b2 = sum(e.self_device_time_total for e in events
+             if e.device_type == cuda and "sqexp" in e.key.lower()) / 1e3
+    op = lambda key: sum(e.device_time_total for e in events
+                         if e.device_type != cuda and e.key == key) / 1e3
+    chol = op("aten::linalg_cholesky_ex")
+    chol_bwd = sum(e.device_time_total for e in events if e.device_type != cuda
+                   and "evaluate_function: LinalgCholeskyExBackward0" in e.key) / 1e3
+    share = lambda v: 100 * v / max(device, 1e-9)
+    print(f"[gp-fit-device-4k profile] one batched evaluation of {thetas.shape[0]} starts: "
+          f"{wall:.3f} ms wall, {device:.3f} ms of device kernels (device idle "
+          f"{100 * (1 - device / wall):.1f}%); B2 {b2:.3f} ms ({share(b2):.1f}%), the Cholesky "
+          f"{chol:.3f} ms ({share(chol):.1f}%), its backward {chol_bwd:.3f} ms "
+          f"({share(chol_bwd):.1f}%) (card: {SMI})")
+    return {"wall_ms": wall, "device_ms": device, "b2_ms": b2, "cholesky_ms": chol,
+            "cholesky_backward_ms": chol_bwd}
+
+
+def phase_fit_device(lml_bfgs):
+    """gp-fit-device-4k: ``fit_device(starts=16)`` at N = 4,096 in float64 on
+    phase 8's data. The batched objective against the single-start one at
+    4 thetas (1e-10), then the fit: its seconds, B2 launches (one per start
+    and evaluation), iterations per start, peak memory, and the winner's
+    LML at least phase 8's L-BFGS-B fit's less 1e-6 of it."""
+    t_phase = time.perf_counter()
+    x, y, err = make_gp_data(FIT_N)
+    gp = GpRegressor(x, y, y_err=err, hyperpars=GP_THETA, dtype=F64, device=CUDA)
+    lo, hi = gp._hp_box()
+    z = torch.as_tensor(np.random.default_rng(4).uniform(-1.5, 1.5, (4, 4)), dtype=F64,
+                        device=CUDA)
+    thetas = lo + (hi - lo) * torch.sigmoid(z)
+    f, g = optimize.value_and_grad(gp._batched_objective, thetas)
+    worst = 0.0
+    for r in range(4):
+        v1, g1 = gp.marginal_likelihood_gradient(thetas[r].cpu().numpy())
+        worst = max(worst, abs(float(f[r]) - v1) / abs(v1),
+                    float(np.abs(g[r].cpu().numpy() - g1).max() / np.abs(g1).max()))
+    print(f"[gp-fit-device-4k check] the batched objective at 4 thetas against "
+          f"marginal_likelihood_gradient one start at a time: max rel diff {worst:.3e} "
+          f"(limit 1e-10)")
+    if not worst <= 1e-10:
+        raise RuntimeError(f"the batched objective disagrees with the single start ({worst})")
+
+    runs = []
+    real = optimize.minimize_bfgs
+
+    def recording(*args, **kw):
+        runs.append(real(*args, **kw))
+        return runs[-1]
+
+    _reset_launches()
+    optimize.minimize_bfgs = recording  # the fit's two runs, by refined_multistart
+    try:
+        t0 = time.perf_counter()
+        theta = gp.fit_device(starts=FIT_STARTS)
+        seconds = time.perf_counter() - t0
+    finally:
+        optimize.minimize_bfgs = real
+    launches = pairwise.KERNEL_LAUNCHES
+    expected = sum(r.x.shape[0] * (r.rounds + 1) for r in runs)
+    lml = gp.marginal_likelihood(theta)
+    nit = runs[0].nit.cpu().numpy()
+    print(f"[gp-fit-device-4k] fit_device(starts={FIT_STARTS}) at N={FIT_N}: {seconds:.3f} s, "
+          f"LML {lml!r} at {theta.tolist()} (phase 8's L-BFGS-B fit {lml_bfgs!r}); "
+          f"iterations per start {nit.tolist()}, statuses {runs[0].status.cpu().tolist()}, "
+          f"refinement {int(runs[1].nit[0])} iterations; rounds {[r.rounds for r in runs]}, "
+          f"host reads {[r.host_reads for r in runs]}; B2 launches {launches} (starts x "
+          f"evaluations: {expected})")
+    if launches == 0 or launches != expected:
+        raise RuntimeError(f"fit_device launched B2 {launches} times, {expected} expected")
+    if not lml >= lml_bfgs - 1e-6 * abs(lml_bfgs):
+        raise RuntimeError(f"fit_device's LML {lml} is below the L-BFGS-B fit's {lml_bfgs}")
+    peak = _phase_line("gp-fit-device-4k", time.perf_counter() - t_phase)
+    prof = _profile_batched_evaluation(gp, (lo + (hi - lo) * torch.sigmoid(torch.zeros(
+        FIT_STARTS, 4, dtype=F64, device=CUDA))).contiguous())
+    del gp
+    _free()
+    return {"seconds": seconds, "lml": lml, "lml_bfgs": lml_bfgs, "theta": theta.tolist(),
+            "b2_launches": launches, "nit": nit.tolist(), "refine_nit": int(runs[1].nit[0]),
+            "rounds": [r.rounds for r in runs], "host_reads": [r.host_reads for r in runs],
+            "peak_gib": peak, "batched_vs_single_rel": worst, "profile": prof,
+            "b2": _time_fit_block(x, theta)}
+
+
+def _time_fit_block(x, theta):
+    """B2 at the fit's block (4,096 x 4,096, D = 2, float64, the fit's
+    theta) in turns with its plain version (plain, kernel, plain, kernel),
+    beside cdist and the exp and its store bound; the kernel held to the
+    plain version (B2_RTOL). These launches come after the fit's count."""
+    u, amp, ls = _gp_operands(x, F64, theta)
+    args = (u, u, amp, ls)
+    err = _errors(pairwise._launch_sqexp(*args), pairwise._sqexp_reference(*args))
+    plain = [time_events(pairwise._sqexp_reference, args, 5)]
+    kern = [time_events(pairwise._launch_sqexp, args, 50)]
+    plain.append(time_events(pairwise._sqexp_reference, args, 5))
+    kern.append(time_events(pairwise._launch_sqexp, args, 50))
+    lib = time_events(_cdist_exp, args, 10)
+    m, d = u.shape
+    b_ms, b_by = bound(8 * (m * m + 2 * m * d), m * m * (3 * d + 2 + EXP_FLOPS), FP64_FLOPS)
+    print(f"[gp-fit-device-4k time] B2 at the fit's block, {m}x{m} D={d} float64: kernel "
+          f"{kern[0]:.4f} / {kern[1]:.4f} ms, plain version {plain[0]:.4f} / {plain[1]:.4f} ms "
+          f"(plain, kernel, plain, kernel), cdist + exp {lib:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), kernel / bound {min(kern) / b_ms:.2f}; against the plain version max abs "
+          f"{err[0]:.3e}, max rel {err[1]:.3e} (limit {B2_RTOL[F64]:g}) (card: {SMI})")
+    if not err[1] <= B2_RTOL[F64]:
+        raise RuntimeError(f"B2 at the fit's block disagrees with its plain version ({err})")
+    return {"ms": min(kern), "plain_ms": min(plain), "cdist_exp_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err[0], "max_rel_err": err[1]}
+
+
+def _profile_bo_iteration(opt):
+    """torch.profiler over one warm BO iteration: wall and device ms, the
+    device idle share and the device events (kernels, copies) it ran. Device
+    activity only, summed from the raw trace: the ~9e4 events of an
+    iteration took ``key_averages`` ~25 s to parse (PR 16, call 2)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bo_warm.iterate(opt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    device = sum(e.end_ns() - e.start_ns() for e in events) / 1e6
+    return {"wall_ms": wall, "device_ms": device, "idle_pct": 100 * (1 - device / wall),
+            "kernel_launches": len(events)}
+
+
+def _state_vs_refit(opt):
+    """Max relative difference of the GP's adopted L and alpha from an
+    explicit set_hyperparameters at the same theta."""
+    L, alpha = opt.gp.L.clone(), opt.gp.alpha.clone()
+    opt.gp.set_hyperparameters(opt.gp.hyperpars.copy())
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    return max(rel(L, opt.gp.L), rel(alpha, opt.gp.alpha))
+
+
+def _bo_twin_check(opt):
+    """The fused proposal from one state on the card and on the CPU: the
+    state read off ``opt``, one evaluation added to both twins, their clouds
+    from one seeded generator; theta, the fit's LML at each theta and the
+    proposal's acquisition objective (``BO_TWIN_RTOL``)."""
+    state = gp_optimiser_state_of(opt)
+    twins = {dev: gp_optimiser_from_state(state, device=dev, dtype=F64) for dev in (CUDA, "cpu")}
+    props = {}
+    for dev, twin in twins.items():
+        xq = np.array([2.0, 4.0])
+        twin.add_evaluation(xq, bo_warm.objective(xq))
+        twin.acquisition.rng = np.random.default_rng(99)
+        x_prop, f_prop = twin._fused_propose()
+        props[dev] = (twin.gp.hyperpars.copy(), f_prop, x_prop)
+    rel_theta = float(np.abs(props[CUDA][0] - props["cpu"][0]).max()
+                      / np.abs(props["cpu"][0]).max())
+    rel_f = abs(props[CUDA][1] - props["cpu"][1]) / abs(props["cpu"][1])
+    lml = [twins["cpu"].gp.marginal_likelihood(props[dev][0]) for dev in (CUDA, "cpu")]
+    rel_lml = abs(lml[0] - lml[1]) / abs(lml[1])
+    print(f"[bo-warm-2d twin] one fused proposal from one state: theta card "
+          f"{props[CUDA][0].tolist()} CPU {props['cpu'][0].tolist()} (max rel diff "
+          f"{rel_theta:.3e}, limit {BO_TWIN_RTOL:g}), the LML there {lml[0]!r} / {lml[1]!r} "
+          f"(rel diff {rel_lml:.3e}, limit {BO_TWIN_LML_RTOL:g}), acquisition objective "
+          f"{props[CUDA][1]!r} / {props['cpu'][1]!r} (rel diff {rel_f:.3e}, limit "
+          f"{BO_TWIN_RTOL:g}), proposals {props[CUDA][2].tolist()} / {props['cpu'][2].tolist()}")
+    if not (max(rel_theta, rel_f) <= BO_TWIN_RTOL and rel_lml <= BO_TWIN_LML_RTOL):
+        raise RuntimeError(f"the card's fused proposal differs from the CPU's "
+                           f"({rel_theta}, {rel_lml}, {rel_f})")
+    return {"theta_rel": rel_theta, "lml_rel": rel_lml, "objective_rel": rel_f}
+
+
+def phase_bo_warm():
+    """bo-warm-2d: ``bench.bo_warm`` (``benchmarks/bo_warm_bench.py``'s
+    configuration) on the card in float64, then float32 (the fit's jitter
+    path): warm-iteration seconds, kernel launches and host reads an
+    iteration, one iteration profiled; every proposal inside the bounds,
+    the histories one entry per added point, the adopted state equal to an
+    explicit refit (1e-10, float64) after a fused proposal and after a
+    public read, and in float64 one fused proposal held to the CPU's."""
+    out = {}
+    for dtype in (F64, torch.float32):
+        t_phase = time.perf_counter()
+        _reset_launches()
+        reads0 = optimize.COUNTS["host_reads"]
+        result, opt = bo_warm.measure(CUDA, dtype=dtype)
+        n_iter = bo_warm.WARMUP + bo_warm.ITERATIONS
+        reads = (optimize.COUNTS["host_reads"] - reads0) / n_iter
+        prof = _profile_bo_iteration(opt)
+        added = opt.x[bo_warm.N_START:]
+        if not ((added >= 0.0) & (added <= 6.0)).all():
+            raise RuntimeError("a proposal left the bounds")
+        opt.propose_evaluation()  # the fused proposal settles the last add
+        fused_rel = _state_vs_refit(opt)
+        xq = np.array([1.0, 5.0])
+        opt.add_evaluation(xq, bo_warm.objective(xq))
+        n_hist = len(opt.iteration_history)  # a public read settles the refit
+        read_rel = _state_vs_refit(opt)
+        hist_ok = (n_hist == opt.y.size - bo_warm.N_START == len(opt.acquisition_max_history)
+                   == len(opt.convergence_metric_history)
+                   and opt.iteration_history[-1] == opt.y.size)
+        label = str(dtype).rsplit(".", 1)[-1]
+        w = result["warm_iteration_s"]
+        print(f"[bo-warm-2d {label}] warm iteration median {w['median']:.3f} s, min "
+              f"{w['min']:.3f} s, max {w['max']:.3f} s over {bo_warm.ITERATIONS}; best objective "
+              f"{result['best_objective']!r}; host reads an iteration {reads:.1f}; one iteration "
+              f"profiled: {prof['wall_ms']:.1f} ms wall, {prof['device_ms']:.1f} ms of device "
+              f"kernels (idle {prof['idle_pct']:.1f}%), {prof['kernel_launches']} kernel "
+              f"launches; state vs an explicit refit after a fused proposal {fused_rel:.3e}, "
+              f"after a public read {read_rel:.3e}; histories {n_hist} entries for "
+              f"{opt.y.size - bo_warm.N_START} added points ({hist_ok})")
+        if not hist_ok:
+            raise RuntimeError("the histories do not hold one entry per added point")
+        if dtype == F64 and not max(fused_rel, read_rel) <= 1e-10:
+            raise RuntimeError(f"the adopted state differs from an explicit refit "
+                               f"({fused_rel}, {read_rel})")
+        twin = _bo_twin_check(opt) if dtype == F64 else None
+        _phase_line(f"bo-warm-2d {label}", time.perf_counter() - t_phase)
+        out[label] = {**result, "host_reads_per_iteration": reads, "profile": prof,
+                      "state_vs_refit": [fused_rel, read_rel], "twin": twin}
+        del opt
+        _free()
+    return out
+
+
+def phase_bo_demo():
+    """bo-demo-1d: ``demos/gp_optimisation_demo.py``'s loop on the card (3
+    points, 8 iterations, optimizer="device", the default dtype); the best
+    value within 0.05 of the grid maximum (``tests/gp/test_GpOptimiser.py``'s
+    limit)."""
+    t_phase = time.perf_counter()
+
+    def expensive_objective(x):
+        return -np.sin(3 * x) - 0.4 * (x - 2.0) ** 2 + 2.0
+
+    x = np.array([0.5, 2.0, 3.8])
+    opt = GpOptimiser(x, expensive_objective(x), bounds=[(0.0, 4.0)], optimizer="device",
+                      device=CUDA)
+    for _ in range(8):
+        new_x = float(np.atleast_1d(opt.propose_evaluation())[0])
+        opt.add_evaluation(np.array([new_x]), np.array([expensive_objective(new_x)]))
+    best, true_max = float(opt.y.max()), float(expensive_objective(np.linspace(0, 4, 2000)).max())
+    seconds = time.perf_counter() - t_phase
+    print(f"[bo-demo-1d] 8 iterations ({str(opt.gp._dtype)[6:]}): best {best!r}, grid maximum "
+          f"{true_max!r} (limit 0.05 below), proposals {opt.x[3:, 0].tolist()}")
+    if not best > true_max - 0.05:
+        raise RuntimeError(f"the demo's loop ended at {best}, grid maximum {true_max}")
+    _phase_line("bo-demo-1d", seconds)
+    return {"seconds": seconds, "best": best, "grid_max": true_max}
+
+
 def _probe_rows(probe, errs):
     """The probes' entries of the kernels JSON line: each headline (P1 float64
     vv with 8 chains, P2 full, P3) with every configuration beside it."""
@@ -3202,9 +3562,16 @@ def main():
     b2_err = phase_b2_checks(x16k)
     b2_ms = phase_b2_timing(x16k)
     b2_launches, evals, evals_a = phase_gp_main(x16k, y16k, err16k)
-    phase_gp_fit_predict()
+    lml_bfgs = phase_gp_fit_predict()
     print(f"[summary] gp-16k float64 LML+grad evals/s: {evals:.4f} (cholesky='auto'), "
           f"{evals_a:.4f} (cholesky='analytic')")
+    _free()
+    t_a10 = time.perf_counter()
+    bo = {"bfgs-card": phase_bfgs_card(), "gp-fit-device-4k": phase_fit_device(lml_bfgs),
+          "bo-warm-2d": phase_bo_warm(), "bo-demo-1d": phase_bo_demo()}
+    print(json.dumps({"gp_optimisation": bo}, default=float))
+    print(f"[summary] A10 (bfgs-card, gp-fit-device-4k, bo-warm-2d, bo-demo-1d) in "
+          f"{time.perf_counter() - t_a10:.1f} s (card: {SMI})")
     print(f"[summary] HMC and dense GP phases done at {time.perf_counter() - t_start:.1f} s")
 
     print(f"[summary] device memory allocated after those phases: {_free():.2f} GiB")
@@ -3325,6 +3692,9 @@ def main():
         "library_ms": None,
         "cdist_exp_ms": b2_ms[F64]["cdist_exp_ms"],
         "cg_block": b2_cg,
+        "launches_fit_device": bo["gp-fit-device-4k"]["b2_launches"],
+        "fit_device_4k": {k: bo["gp-fit-device-4k"][k] for k in ("seconds", "nit", "profile",
+                                                                   "b2")},
         "launches_cg_path": {**{f"gp-large-cg-50k {k}": v.get("B2", 0)
                                 for k, v in cg_launches.items()},
                              "gp-large-fit-16k": fit16k["launches"].get("B2", 0),

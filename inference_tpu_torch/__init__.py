@@ -8,12 +8,16 @@ its batched samplers (``parallel.ChainArray`` for the "hmc", "gibbs",
 ``GibbsChain`` and ``PcaChain``, posteriors written with numpy (evaluated
 on the host, ``utils.wrap``), the
 posterior building blocks of ``models`` (likelihoods, priors,
-``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``,
+``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``, with
+its on-device multistart fit ``optimizer="device"``, and
 ``gp.GpLinearInverter``, with the squared-exponential covariance kernel
-``ops.pairwise`` in CUDA C++) and the matrix-free GP
+``ops.pairwise`` in CUDA C++), Bayesian optimisation (ROADMAP A10:
+``gp.GpOptimiser``, its acquisitions and its deferred device iteration, on
+the BFGS batched over starts of ``utils.optimize``) and the matrix-free GP
 (``gp.LargeScaleGP`` in its cg, mixed and df64 tiers, with ``fit()``, and
 ``gp.LargeScaleGpLinearInverter``; the FP64 kernels of ``ops.df64`` in CUDA
-C++ serve the small-noise df64 tier). Its benches are ``bench.headline`` and ``bench.dense_hmc``.
+C++ serve the small-noise df64 tier). Its benches are ``bench.headline``,
+``bench.dense_hmc`` and ``bench.bo_warm``.
 Its entry points run on the card unless the caller passes
 ``device="cpu"``. It imports torch, numpy and scipy, never jax.
 """
@@ -31,7 +35,7 @@ from .models import (
     Posterior,
     UniformPrior,
 )
-from .gp import GpLinearInverter, GpRegressor
+from .gp import GpLinearInverter, GpOptimiser, GpRegressor
 
 __all__ = [
     "MetropolisChain",
@@ -48,5 +52,6 @@ __all__ = [
     "JointPrior",
     "Posterior",
     "GpRegressor",
+    "GpOptimiser",
     "GpLinearInverter",
 ]

@@ -4,7 +4,9 @@
   1,024-131,072 chains) through kernel B1, one JSON line with
   ``bench.py``'s keys;
 - ``dense_hmc``: ``benchmarks/dense_hmc_bench.py``'s two P = 256 workloads
-  on the batched transition.
+  on the batched transition;
+- ``bo_warm``: ``benchmarks/bo_warm_bench.py``'s warm ``GpOptimiser``
+  iteration (the deferred device refit), one JSON line.
 
 On the card by default; ``--device cpu`` runs them on the CPU at a small
 size (no device number is printed then).

@@ -14,6 +14,9 @@ hyperparameters, ``pad_to`` as numpy values, and its kernel and mean as
 class names (a kernel spec nests for ``CompositeCovariance`` and
 ``ChangePoint``). ``gp_state_of`` reads that state off a JAX model by its
 attributes; ``gp_regressor_from_state`` builds the port's model from it.
+A ``GpOptimiser`` crosses the same way, with its bounds, acquisition,
+optimizer and histories (``gp_optimiser_state_of``,
+``gp_optimiser_from_state``).
 A solved ``LargeScaleGP`` of any tier crosses the same way
 (``large_scale_state_of``, ``large_scale_gp_from_state``), with its
 settings, training solve and preconditioner factor, so it is not solved
@@ -260,6 +263,54 @@ def gp_regressor_from_state(state: dict, device="cuda", dtype=None, cholesky="au
         mean=getattr(_gp, state["mean"]), pad_to=state["pad_to"],
         dtype=dtype, cholesky=cholesky, device=device,
     )
+
+
+def gp_optimiser_state_of(opt) -> dict:
+    """The state of a ``GpOptimiser`` of either package as numpy values and
+    names: x, y, y_err, bounds, the GP's hyperparameters, kernel and mean
+    specs, ``cross_val``, the acquisition's kind (and ``kappa``), the
+    optimizer and the three histories. A pending deferred refit is settled
+    first (reading a history does it). It reads attributes only and imports
+    nothing of the JAX package."""
+    histories = (np.asarray(opt.acquisition_max_history, dtype=float),
+                 np.asarray(opt.convergence_metric_history, dtype=float),
+                 np.asarray(opt.iteration_history, dtype=int))
+    acq = opt.acquisition
+    return {
+        "x": np.asarray(opt.x, dtype=float),
+        "y": np.asarray(opt.y, dtype=float),
+        "y_err": None if opt.y_err is None else np.asarray(opt.y_err, dtype=float),
+        "bounds": [(float(lo), float(hi)) for lo, hi in opt.bounds],
+        "hyperpars": np.asarray(opt.gp.hyperpars, dtype=float),
+        "kernel": _kernel_spec(opt.gp.cov),
+        "mean": type(opt.gp.mean).__name__,
+        "cross_val": bool(opt.cross_val),
+        "acquisition": type(acq).__name__,
+        "kappa": float(acq.kappa) if hasattr(acq, "kappa") else None,
+        "optimizer": opt.optimizer,
+        "acquisition_max_history": histories[0],
+        "convergence_metric_history": histories[1],
+        "iteration_history": histories[2],
+    }
+
+
+def gp_optimiser_from_state(state: dict, device="cuda", dtype=None):
+    """The port's ``GpOptimiser`` with the state ``gp_optimiser_state_of``
+    returns, on ``device`` (default the card): the same data, bounds,
+    kernel, mean, acquisition and optimizer, the GP at the given
+    hyperparameters (no refit) and the histories as they were."""
+    kind = getattr(_gp, state["acquisition"])
+    acq = kind(state["kappa"]) if state["kappa"] is not None else kind()
+    opt = _gp.GpOptimiser(
+        state["x"], state["y"], bounds=state["bounds"], y_err=state["y_err"],
+        hyperpars=state["hyperpars"], kernel=_kernel_from_spec(state["kernel"]),
+        mean=getattr(_gp, state["mean"]), cross_val=state["cross_val"], acquisition=acq,
+        optimizer=state["optimizer"], dtype=dtype, device=device,
+    )
+    opt._acq_max_history = [float(v) for v in state["acquisition_max_history"]]
+    opt._conv_metric_history = [float(v) for v in state["convergence_metric_history"]]
+    opt._iter_history = [int(v) for v in state["iteration_history"]]
+    return opt
 
 
 def _block_kernel_spec(bk):

@@ -18,10 +18,15 @@ host with the objective on the device.
 - ``pad_to`` pads the data with masked rows that decouple from the real
   ones; results equal the unpadded computation.
 
+- ``optimizer="device"`` (``fit_device``) runs every start of the fit at
+  once on the device: ``utils.optimize.minimize_bfgs`` (JAX's BFGS,
+  batched over starts) on sigmoid-mapped hyperparameters, the objective of
+  all starts in one call (``_batched_objective``), the winner refined by a
+  second BFGS.
+
 ``dtype=None`` takes ``utils.dtypes.default_float()``. The keyword
 ``device=`` places the data; it is the one addition to the JAX
-constructor. ``optimizer="device"`` (the on-device multistart fit) is not
-ported yet.
+constructor.
 """
 
 from copy import copy
@@ -40,12 +45,19 @@ from ..ops.linalg import (
     identity_like,
     tril_gram,
 )
+from ..ops.pairwise import _PALLAS_MIN_N
 from ..utils.device import resolve_device
 from ..utils.dtypes import default_float
+from ..utils.optimize import minimize_bfgs, refined_multistart, scored_starts
 from .covariance import CovarianceFunction, SquaredExponential
 from .mean import ConstantMean, MeanFunction
 
 _INV_BLOCK = 2048  # panel width of the analytic backward's K^-1
+# the fit's relative diagonal jitter in float32 (fit_device only): in
+# float32 a line search probing extreme hyperparameters makes K singular and
+# the NaN factorisation poisons the gradients; float64 fits the exact
+# objective
+_FIT_JITTER_F32 = 1e-6
 
 
 def _tril_solve(L, b, upper=False):
@@ -77,27 +89,27 @@ class _AnalyticLml(torch.autograd.Function):
     no gradient get ``None``; the others get their true gradient."""
 
     @staticmethod
-    def forward(ctx, gp, theta, x, y, sig, m):
-        K, r = gp._assemble(theta, x, y, sig, m)
+    def forward(ctx, gp, theta, x, y, sig, m, jitter=0.0):
+        K, r = gp._assemble(theta, x, y, sig, m, jitter)
         L, ok = _factor_or_identity(cholesky_or_nan(K))
         del K
         v = _tril_solve(L, r)
         value = -0.5 * (v @ v) - torch.log(torch.diagonal(L)).sum()
-        ctx.gp = gp
+        ctx.gp, ctx.jitter = gp, jitter
         ctx.save_for_backward(theta, x, y, sig, m, L, v, ok)
         return torch.where(ok, value, _floor(value.dtype))
 
     @staticmethod
     def backward(ctx, g):
         theta, x, y, sig, m, L, v, ok = ctx.saved_tensors
-        need = ctx.needs_input_grad[1:]
+        need = ctx.needs_input_grad[1:6]
         alpha = _tril_solve(L.T, v, upper=True)
         iK = tril_gram(blocked_tril_inverse(L, block=_INV_BLOCK), block=_INV_BLOCK)
         Q = torch.outer(alpha, alpha).sub_(iK).mul_(0.5)
         del iK
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n) for t, n in zip((theta, x, y, sig, m), need)]
-            K, r = ctx.gp._assemble(*inputs)
+            K, r = ctx.gp._assemble(*inputs, ctx.jitter)
             outs = [(o, c) for o, c in ((K, Q), (r, -alpha)) if o.requires_grad]
             wanted = [t for t, n in zip(inputs, need) if n]
             grads = iter(torch.autograd.grad(
@@ -107,7 +119,32 @@ class _AnalyticLml(torch.autograd.Function):
         for n in need:
             gr = next(grads) if n else None
             result.append(None if gr is None else torch.where(ok, gr, 0.0) * g)
-        return tuple(result)
+        result.append(None)  # jitter
+        return tuple(result[: len(ctx.needs_input_grad)])
+
+
+class _PerStart(torch.autograd.Function):
+    """``objective`` at each row of ``thetas`` (S, p), one row at a time:
+    each row's gradient is taken at once and kept, so one start's graph is
+    alive at a time, and the backward scales the kept gradients."""
+
+    @staticmethod
+    def forward(ctx, thetas, objective):
+        values, grads = [], []
+        for t in thetas:
+            with torch.enable_grad():
+                t = t.detach().requires_grad_(True)
+                value = objective(t)
+                (grad,) = torch.autograd.grad(value, t)
+            values.append(value.detach())
+            grads.append(grad)
+        ctx.save_for_backward(torch.stack(grads))
+        return torch.stack(values)
+
+    @staticmethod
+    def backward(ctx, g):
+        (grads,) = ctx.saved_tensors
+        return g[:, None] * grads, None
 
 
 class GpRegressor:
@@ -127,8 +164,9 @@ class GpRegressor:
     :param mean: mean-function class or instance (default ``ConstantMean``).
     :param cross_val: select hyperparameters by the leave-one-out
         likelihood instead of the marginal likelihood.
-    :param optimizer: ``"bfgs"`` (host multistart L-BFGS-B) or ``"diffev"``
-        (differential evolution). ``"device"`` raises ``NotImplementedError``.
+    :param optimizer: ``"bfgs"`` (host multistart L-BFGS-B), ``"diffev"``
+        (differential evolution) or ``"device"`` (every start optimised at
+        once on the device, ``fit_device``).
     :param n_processes: accepted for API compatibility; ignored.
     :param n_starts: number of L-BFGS-B starting positions.
     :param pad_to: optional bucket size: the data is padded to the next
@@ -344,26 +382,30 @@ class GpRegressor:
         block = self._cholesky if isinstance(self._cholesky, int) else 2048
         return blocked_cholesky(K, block=block)
 
-    def _assemble(self, theta, x, y, sig, m):
+    def _assemble(self, theta, x, y, sig, m, jitter=0.0):
         """The training covariance (error model added, padded rows
-        decoupled as identity rows) and the masked residual ``y - mu``."""
+        decoupled as identity rows) and the masked residual ``y - mu``.
+        A non-zero ``jitter`` (the float32 fit only) adds ``jitter *
+        mean(diag K)`` to the diagonal."""
         K = self.cov.matrix(x, theta[self.cov_slice])
         K = add_diagonal(K, sig) if sig.ndim == 1 else K + sig
         r = y - self.mean.vector(x, theta[self.mean_slice])
         if self._n_padded != self.n_points:
             K = add_diagonal(K * (m[:, None] * m[None, :]), 1.0 - m)
             r = r * m
+        if jitter:
+            K = add_diagonal(K, jitter * torch.diagonal(K).mean())
         return K, r
 
-    def _lml_of(self, theta):
-        K, r = self._assemble(theta, *self._data())
+    def _lml_of(self, theta, jitter=0.0):
+        K, r = self._assemble(theta, *self._data(), jitter)
         L, ok = _factor_or_identity(self._factor(K))
         v = _tril_solve(L, r)
         value = -0.5 * (v @ v) - torch.log(torch.diagonal(L)).sum()
         return torch.where(ok, value, _floor(value.dtype))
 
-    def _loo_of(self, theta):
-        K, r = self._assemble(theta, *self._data())
+    def _loo_of(self, theta, jitter=0.0):
+        K, r = self._assemble(theta, *self._data(), jitter)
         L, ok = _factor_or_identity(self._factor(K))
         if self._cholesky == "analytic":
             iK = tril_gram(blocked_tril_inverse(L, block=_INV_BLOCK), block=_INV_BLOCK)
@@ -389,13 +431,16 @@ class GpRegressor:
         with torch.no_grad():
             return float(self._lml_of(self._theta(theta)))
 
+    def _lml_grad_objective(self, theta, jitter=0.0):
+        """The LML on the route its gradient takes: the closed-form
+        backward with ``cholesky="analytic"``, autograd otherwise."""
+        if self._cholesky == "analytic":
+            return _AnalyticLml.apply(self, theta, *self._data(), jitter)
+        return self._lml_of(theta, jitter)
+
     def marginal_likelihood_gradient(self, theta):
         """The log-marginal likelihood and its hyperparameter gradient."""
-        if self._cholesky == "analytic":
-            objective = lambda t: _AnalyticLml.apply(self, t, *self._data())
-        else:
-            objective = self._lml_of
-        return self._value_and_grad(objective, theta)
+        return self._value_and_grad(self._lml_grad_objective, theta)
 
     def loo_likelihood(self, theta) -> float:
         """Leave-one-out log-likelihood (R&W eqs. 5.10-5.12)."""
@@ -419,6 +464,24 @@ class GpRegressor:
         return (self.loo_likelihood_gradient if self.cross_val
                 else self.marginal_likelihood_gradient)
 
+    def _batched_objective(self, thetas, jitter=0.0):
+        """The model-selection objective (LOO with ``cross_val``, else the
+        LML on its gradient's route) at every row of ``thetas`` (S, p),
+        differentiable: each row's value and gradient are those of the
+        single-start objective at that row.
+
+        Blocks below ``_PALLAS_MIN_N`` rows take the matmul form, which
+        ``torch.func.vmap`` maps over the rows in one call. From
+        ``_PALLAS_MIN_N`` rows each start's covariance is a kernel-B2 block
+        (``SqexpCovariance``, which ``vmap`` cannot enter), and with
+        ``cholesky="analytic"`` the closed-form backward cannot be mapped
+        either: there ``_PerStart`` evaluates one start at a time on the
+        single-start route, B2 launched once per start and evaluation."""
+        single = self._loo_of if self.cross_val else self._lml_grad_objective
+        if self._n_padded >= _PALLAS_MIN_N or self._cholesky == "analytic":
+            return _PerStart.apply(thetas, lambda t: single(t, jitter))
+        return torch.func.vmap(lambda t: single(t, jitter))(thetas)
+
     # ------------------------------------------------------------------ #
     # state
     # ------------------------------------------------------------------ #
@@ -433,20 +496,37 @@ class GpRegressor:
                 f"there are {self.n_hyperpars} hyper-parameters but "
                 f"{hyperpars.size} values were given."
             )
-        self.hyperpars = hyperpars
-        self.mean_hyperpars = self.hyperpars[self.mean_slice]
-        self.cov_hyperpars = self.hyperpars[self.cov_slice]
-        theta = self._theta(hyperpars)
+        self._adopt_state(hyperpars, self._theta(hyperpars))
+
+    def _fit_state(self, theta):
+        """The training covariance, prior mean, Cholesky factor and
+        ``alpha`` at the hyperparameter tensor ``theta``, on the device."""
         with torch.no_grad():
             x, y, sig, m = self._data()
             K, r = self._assemble(theta, x, y, sig, m)
-            self.K_xx = K
-            self.mu = self.mean.vector(x, theta[self.mean_slice])
-            self.L = self._factor(K)
-            self.alpha = _tril_solve(self.L.T, _tril_solve(self.L, r), upper=True)
+            mu = self.mean.vector(x, theta[self.mean_slice])
+            L = self._factor(K)
+            alpha = _tril_solve(L.T, _tril_solve(L, r), upper=True)
+        return K, mu, L, alpha
+
+    def _adopt_state(self, hyperpars, theta, state=None):
+        """Take ``hyperpars`` (numpy) and its tensor ``theta`` as the model's
+        hyperparameters, with ``state`` (``_fit_state(theta)`` unless given)."""
+        self.hyperpars = np.asarray(hyperpars, dtype=float)
+        self.mean_hyperpars = self.hyperpars[self.mean_slice]
+        self.cov_hyperpars = self.hyperpars[self.cov_slice]
+        if state is None:
+            state = self._fit_state(theta)
+        self.K_xx, self.mu, self.L, self.alpha = state
         self._cov_pars_dev = theta[self.cov_slice]
         self._mean_pars_dev = theta[self.mean_slice]
         self._state_stale = False
+
+    def _state(self):
+        """The prediction state the state-taking predictor reads: x, L,
+        alpha, the covariance and mean parameters and the mask."""
+        return (self._x_dev, self.L, self.alpha, self._cov_pars_dev, self._mean_pars_dev,
+                self._mask_dev)
 
     def check_error_data(self, y_err, y_cov):
         self._sig_is_diag = y_cov is None
@@ -533,13 +613,14 @@ class GpRegressor:
         cov_pars = self._cov_pars_dev
         return torch.func.vmap(lambda p: self.cov(p[None, :], p[None, :], cov_pars)[0, 0])(q)
 
-    def _predict_single(self, q):
-        """Predictive mean and variance at one point ``q`` (D,)."""
-        x, m = self._x_dev, self._mask_dev
-        K_qx = self.cov(q[None, :], x, self._cov_pars_dev)[0] * m
-        mu = K_qx @ self.alpha + self.mean.point(q, self._mean_pars_dev, x)
-        v = _tril_solve(self.L, K_qx)
-        kqq = self.cov(q[None, :], q[None, :], self._cov_pars_dev)[0, 0]
+    def _predict_single(self, q, x, L, alpha, cov_pars, mean_pars, m):
+        """Predictive mean and variance at one point ``q`` (D,) under the
+        state given (``_state()`` for the model's own), so that a caller
+        can score points under another fit's state."""
+        K_qx = self.cov(q[None, :], x, cov_pars)[0] * m
+        mu = K_qx @ alpha + self.mean.point(q, mean_pars, x)
+        v = _tril_solve(L, K_qx)
+        kqq = self.cov(q[None, :], q[None, :], cov_pars)[0, 0]
         return mu, kqq - v @ v
 
     def __call__(self, points):
@@ -578,8 +659,9 @@ class GpRegressor:
         """Gradients of the predictive mean and variance at the given
         points, by autodiff of the predictor."""
         q = self._points(points)
-        dmu = torch.func.vmap(torch.func.grad(lambda p: self._predict_single(p)[0]))(q)
-        dvar = torch.func.vmap(torch.func.grad(lambda p: self._predict_single(p)[1]))(q)
+        st = self._state()
+        dmu = torch.func.vmap(torch.func.grad(lambda p: self._predict_single(p, *st)[0]))(q)
+        dvar = torch.func.vmap(torch.func.grad(lambda p: self._predict_single(p, *st)[1]))(q)
         return dmu.detach().cpu().numpy().squeeze(), dvar.detach().cpu().numpy().squeeze()
 
     def build_posterior(self, points, mean_only=False):
@@ -626,13 +708,66 @@ class GpRegressor:
             func=self.bfgs_cost_func, x0=x0, approx_grad=False, bounds=self.hp_bounds
         )
 
+    def _hp_box(self):
+        """The hyperparameter bounds as two tensors of the working dtype."""
+        lwr, upr = (torch.tensor([b[i] for b in self.hp_bounds], dtype=self._dtype,
+                                 device=self._device) for i in (0, 1))
+        return lwr, upr
+
+    def _fit_starts(self, starts: int, seed: int) -> torch.Tensor:
+        """``fit_device``'s starts in sigmoid coordinates: ``starts - 1``
+        uniform in the middle 90% of the box (``default_rng(seed)``), and
+        the box centre."""
+        rng = np.random.default_rng(seed)
+        u = rng.uniform(0.05, 0.95, size=(max(starts - 1, 0), self.n_hyperpars))
+        z0 = np.concatenate([np.log(u / (1 - u)), np.zeros((1, self.n_hyperpars))])
+        return torch.as_tensor(z0, dtype=self._dtype, device=self._device)
+
+    def _fit_device_z(self, z0, refine=True):
+        """Every start of ``z0`` (S, p) by the batched BFGS (250 iterations)
+        on the model-selection objective of ``lo + (hi - lo) sigmoid(z)``;
+        a start whose iterate is not finite keeps its start, scored +inf.
+        With ``refine`` the winner (the box centre if every start failed) is
+        refined (500 iterations, gtol 1e-8) and the refined point adopted
+        where it is finite and no worse (``utils.optimize.refined_multistart``).
+        Returns ``(zs, fs, z_best)`` on the device, ``z_best`` None without
+        ``refine``; no host read but the BFGS loops' own."""
+        lo, hi = self._hp_box()
+        jitter = _FIT_JITTER_F32 if self._dtype == torch.float32 else 0.0
+        neg = lambda z: -self._batched_objective(lo + (hi - lo) * torch.sigmoid(z), jitter)
+        if not refine:
+            return (*scored_starts(minimize_bfgs(neg, z0, maxiter=250), z0), None)
+        return refined_multistart(neg, z0, 250, 500, 1e-8)[:3]
+
     def fit_device(self, starts: int = 16, seed: int = 0, polish="device"):
-        """The on-device multistart fit is not ported yet (ROADMAP A10)."""
-        raise NotImplementedError(
-            "[ GpRegressor error ] optimizer='device' (the on-device "
-            "multistart BFGS) is not ported yet: ROADMAP queue A10. Use "
-            "optimizer='bfgs' or 'diffev'."
-        )
+        """
+        Hyperparameter fit with every start optimised at once on the
+        device: ``starts`` BFGS runs of the model-selection objective (the
+        LML, or the LOO likelihood with ``cross_val=True``) batched by
+        ``utils.optimize.minimize_bfgs``, on hyperparameters mapped into
+        their bounds by a sigmoid, so the optimiser is unconstrained.
+
+        :param starts: number of starting positions (``starts - 1`` drawn
+            from ``default_rng(seed)``, and the box centre).
+        :param seed: seed of the start positions.
+        :param polish: ``"device"`` (default) refines the winner with a
+            second, tighter device BFGS; ``"host"`` (or True) runs one host
+            L-BFGS-B from the winner; False or None skips refinement.
+        :return: the optimised hyperparameter vector (numpy array).
+        """
+        lwr = np.array([b[0] for b in self.hp_bounds], dtype=float)
+        upr = np.array([b[1] for b in self.hp_bounds], dtype=float)
+        zs, fs, z_best = self._fit_device_z(self._fit_starts(starts, seed),
+                                            refine=polish == "device")
+        if polish == "device":
+            z = z_best.cpu().numpy().astype(float)
+        else:
+            zs, fs = zs.cpu().numpy().astype(float), fs.cpu().numpy().astype(float)
+            z = zs[int(np.nanargmin(np.where(np.isfinite(fs), fs, np.inf)))]
+        theta = lwr + (upr - lwr) / (1.0 + np.exp(-z))
+        if polish in ("host", True):
+            theta, _, _ = self.launch_bfgs(theta)
+        return np.asarray(theta, dtype=float)
 
     def multistart_bfgs(self, starts: int = None, n_processes: int = 1):
         if starts is None:

@@ -1,7 +1,8 @@
 """The port's benches (inference_tpu_torch/bench) on the CPU at a tiny size:
-each prints one JSON line with ``bench.py``'s keys and names the device it
-ran on, with no device rate; their workloads and flop counts are those of
-``bench.py`` and ``benchmarks/dense_hmc_bench.py``."""
+each prints one JSON line with ``bench.py``'s keys (``bo_warm``: its own)
+and names the device it ran on, with no device rate; their workloads and
+flop counts are those of ``bench.py``, ``benchmarks/dense_hmc_bench.py``
+and ``benchmarks/bo_warm_bench.py``."""
 
 import importlib.util
 import json
@@ -11,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from inference_tpu_torch.bench import dense_hmc, headline
+from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "scaling", "acceptance", "mfu_pct"}
@@ -86,3 +87,27 @@ def test_dense_hmc_workloads_and_flops_are_the_jax_bench_s():
     like, A_fm, y, sigma = dense_hmc.forward_model("cpu")
     assert A_fm.shape == (ref.N_DATA, ref.P) and y.shape == (ref.N_DATA,)
     assert like.n_data == ref.N_DATA and np.all(sigma == 0.1)
+
+
+def test_bo_warm_prints_one_json_line(capsys):
+    bo_warm.main(["--device", "cpu", "--iterations", "1", "--dtype", "float64"])
+    lines = _json_lines(capsys.readouterr().out)
+    assert len(lines) == 1
+    result = lines[0]
+    assert result["bench"] == "bo_warm" and result["device"] == "cpu"
+    assert result["iterations"] == 1 and result["dtype"] == "float64"
+    assert set(result["warm_iteration_s"]) == {"median", "min", "max"}
+    assert np.isfinite(result["best_objective"])
+
+
+def test_bo_warm_configuration_is_the_jax_bench_s():
+    """The same objective, starting points and bounds as
+    benchmarks/bo_warm_bench.py (which imports jax only inside main)."""
+    ref = _module(os.path.join(REPO, "benchmarks", "bo_warm_bench.py"))
+    x = np.random.default_rng(5).uniform(0, 6, (7, 2))
+    assert [bo_warm.objective(p) for p in x] == [ref.objective(p) for p in x]
+    opt = bo_warm.make_optimiser("cpu", torch.float64)
+    np.testing.assert_array_equal(opt.x, np.random.default_rng(0).uniform(0, 6, size=(6, 2)))
+    assert opt.bounds == [(0.0, 6.0), (0.0, 6.0)] and opt.optimizer == "device"
+    assert type(opt.acquisition).__name__ == "ExpectedImprovement"
+    assert (bo_warm.WARMUP, bo_warm.ITERATIONS) == (2, 10)

@@ -5,7 +5,8 @@ sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
 sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
 plain PyTorch version on the same inputs, its launch count and its input
 checks; the fused ChainArray, HamiltonianChain and a models.Posterior on
-the card, the GpRegressor, the LargeScaleGP (its df64 store tiers, its cg
+the card, the GpRegressor (and its on-device fit, B2 once per start and
+evaluation), the GpOptimiser's state, the LargeScaleGP (its df64 store tiers, its cg
 tier's product and a fit step) and the LargeScaleGpLinearInverter's df64
 stores end to end; the gibbs,
 metropolis and pca ChainArrays on the card against their CPU runs, and a
@@ -22,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from inference_tpu_torch.gp import GpRegressor, LargeScaleGP, LargeScaleGpLinearInverter
+from inference_tpu_torch.gp import (GpOptimiser, GpRegressor, LargeScaleGP,
+                                    LargeScaleGpLinearInverter)
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
@@ -602,6 +604,54 @@ def test_gp_regressor_on_card_matches_cpu(cuda):
     q = rng.uniform(0, 10, (2048, 2))
     for a, b in zip(on_card(q), on_cpu(q)):
         np.testing.assert_allclose(a, b, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_fit_device_launches_b2_once_per_start_and_evaluation(cuda, monkeypatch):
+    """fit_device at N = 2,048 on the card: every start of every batched
+    evaluation is one kernel-B2 launch (the per-start route, never the
+    matmul form or the CPU), and the fit beats the start centre."""
+    rng = np.random.default_rng(2)
+    n = pairwise._PALLAS_MIN_N
+    x = rng.uniform(0, 10, (n, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, n)
+    gp = GpRegressor(x, y, y_err=np.full(n, 0.1), hyperpars=[0.0, 0.0, 0.5, 0.5],
+                     dtype=torch.float64, device=cuda)
+    rows = []
+    batched = gp._batched_objective
+
+    def counted(thetas, jitter=0.0):
+        assert thetas.device.type == "cuda"
+        rows.append(thetas.shape[0])
+        return batched(thetas, jitter)
+
+    monkeypatch.setattr(gp, "_batched_objective", counted)
+    before = pairwise.KERNEL_LAUNCHES
+    theta = gp.fit_device(starts=4)
+    assert pairwise.KERNEL_LAUNCHES - before == sum(rows) > 0
+    lwr, upr = (np.array([b[i] for b in gp.hp_bounds]) for i in (0, 1))
+    assert gp.marginal_likelihood(theta) > gp.marginal_likelihood(0.5 * (lwr + upr))
+
+
+@pytest.mark.cuda
+def test_gp_optimiser_state_stays_on_card(cuda):
+    """A GpOptimiser built with the default device keeps its GP's tensors on
+    the card, and so does its fused proposal's state (L, alpha, K, the
+    parameters); the proposal lies in the bounds."""
+    x = np.array([1.0, 5.0, 9.0])
+    y = np.sin(2 * x) + 0.1 * x
+    opt = GpOptimiser(x, y, bounds=[(0.0, 10.0)], optimizer="device", dtype=torch.float64)
+    gp = opt.gp
+    for t in (gp._x_dev, gp._y_dev, gp._mask_dev, gp._sig_dev, gp.L, gp.alpha):
+        assert t.device.type == "cuda"
+    nx = opt.propose_evaluation()
+    opt.add_evaluation(np.atleast_1d(nx), np.array([np.sin(2 * nx) + 0.1 * nx]))
+    assert opt._pending is not None
+    nx = opt.propose_evaluation()  # the fused step
+    assert opt._pending is None and 0.0 <= float(nx) <= 10.0
+    for t in (gp.L, gp.alpha, gp.K_xx, gp.mu, gp._cov_pars_dev, gp._mean_pars_dev):
+        assert t.device.type == "cuda"
+    assert all(t.device.type == "cuda" for t in opt.acquisition.gp_state())
 
 
 # Kernels B3-B8 against their plain versions on the card. Each entry is

@@ -8,8 +8,8 @@ import pytest
 import torch
 
 from inference_tpu_torch import convert, models
-from inference_tpu_torch.bench import dense_hmc, headline
-from inference_tpu_torch.gp import (GpLinearInverter, GpRegressor, LargeScaleGP,
+from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
+from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter)
 from inference_tpu_torch.mcmc import HamiltonianChain
 from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
@@ -58,6 +58,15 @@ ENTRY_POINTS = {
          np.zeros(4, bool), np.ones(4), np.full(4, 10, np.int32)]),
     "bench.headline": lambda: headline.sweep(chains=(4,), work=4),
     "bench.dense_hmc": lambda: dense_hmc.main([]),
+    "GpOptimiser": lambda: GpOptimiser(_X, _Y, bounds=[(0.0, 1.0)], hyperpars=[0.0, 0.0, 0.0]),
+    "gp_optimiser_from_state": lambda: convert.gp_optimiser_from_state({
+        "x": _X, "y": _Y, "y_err": None, "bounds": [(0.0, 1.0)], "hyperpars": np.zeros(3),
+        "kernel": "SquaredExponential", "mean": "ConstantMean", "cross_val": False,
+        "acquisition": "ExpectedImprovement", "kappa": None, "optimizer": "device",
+        "acquisition_max_history": [], "convergence_metric_history": [],
+        "iteration_history": [],
+    }),
+    "bench.bo_warm": lambda: bo_warm.main([]),
 }
 
 

@@ -1,7 +1,7 @@
-"""The port's package exports: every name in the ``__all__`` of
-``inference_tpu_torch`` and ``inference_tpu_torch.ops`` (but
-``GaussianForm``, the port's own) is exported by the JAX package from the
-same path, and is the object its defining module of the port holds."""
+"""The port's package exports: every name in the ``__all__`` of each path
+in ``PATHS`` (but ``GaussianForm``, the port's own) is exported by the JAX
+package from the same path, and is the object its defining module of the
+port holds."""
 
 import importlib
 import sys
@@ -12,7 +12,7 @@ import inference_tpu_torch
 import inference_tpu_torch.ops
 
 PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
-         "inference_tpu_torch.models")
+         "inference_tpu_torch.models", "inference_tpu_torch.gp")
 PORT_ONLY = {"GaussianForm"}
 # the JAX package's names from these paths that the port does not define
 # yet: the sharded matmat is ROADMAP A13; the TPU watchdog's chunk length

@@ -213,16 +213,15 @@ def test_analytic_backward_gives_none_or_true_gradients():
 
 
 def test_fit_bfgs_and_options():
-    """fit("bfgs") ends at least as high as the start centre;
-    optimizer="device" raises naming its ROADMAP item; an unknown
-    optimizer warns and falls back to "bfgs"."""
+    """fit("bfgs") and fit("device") end at least as high as the start
+    centre; an unknown optimizer warns and falls back to "bfgs"."""
     x, y, err = make_data(n=30)
     tg = tgp.GpRegressor(x, y, y_err=err, hyperpars=THETA, device="cpu")
     lwr, upr = (np.array([b[i] for b in tg.hp_bounds]) for i in (0, 1))
     theta = tg.fit(optimizer="bfgs", n_starts=2)
     assert tg.marginal_likelihood(theta) >= tg.marginal_likelihood(0.5 * (lwr + upr))
-    with pytest.raises(NotImplementedError, match="A10"):
-        tg.fit(optimizer="device")
+    theta = tg.fit(optimizer="device")
+    assert tg.marginal_likelihood(theta) > tg.marginal_likelihood(0.5 * (lwr + upr))
     with pytest.warns(UserWarning):
         tg.fit(optimizer="nonsense", n_starts=1)
     with pytest.raises(ValueError):

@@ -32,6 +32,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.mcmc._kernels.metropolis, inference_tpu_torch.utils.wrap, "
         "inference_tpu_torch.parallel._kinds, inference_tpu_torch.parallel.chain_array",
         "inference_tpu_torch.gp.large_inversion, inference_tpu_torch.gp.block_kernels",
+        "inference_tpu_torch.gp.optimisation, inference_tpu_torch.gp.acquisition, "
+        "inference_tpu_torch.utils.optimize, inference_tpu_torch.utils.figures, "
+        "inference_tpu_torch.bench.bo_warm",
         "chip_smoke",
     ],
 )
