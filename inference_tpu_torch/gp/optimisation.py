@@ -356,13 +356,21 @@ class GpOptimiser:
         lo_f, hi_f = gp._hp_box()
         _, _, z_fit = gp._fit_device_z(gp._fit_starts(_FIT_STARTS, 0))
         theta = lo_f + (hi_f - lo_f) * torch.sigmoid(z_fit)
+        state, st = self._state_at(theta)
+        z_prop, f_prop = self._cloud_multistart(cand, st)
+        return theta, state, obj_old, z_prop, f_prop
+
+    def _state_at(self, theta):
+        """The GP's state at the hyperparameters ``theta`` (a device
+        tensor), ``(K_xx, mu, L, alpha)``, and the acquisition's state
+        tuple built from it."""
+        gp = self.gp
         state = gp._fit_state(theta)
         _, _, L, alpha = state
         m = gp._mask_dev
         mu_max = torch.max(torch.where(m > 0, gp._y_dev, -torch.inf))
-        st = (gp._x_dev, L, alpha, theta[gp.cov_slice], theta[gp.mean_slice], m, mu_max)
-        z_prop, f_prop = self._cloud_multistart(cand, st)
-        return theta, state, obj_old, z_prop, f_prop
+        return state, (gp._x_dev, L, alpha, theta[gp.cov_slice], theta[gp.mean_slice], m,
+                       mu_max)
 
     def _cloud_multistart(self, cand, st):
         """The acquisition multistart of the deferred iteration under the
