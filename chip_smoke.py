@@ -1,8 +1,10 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
 (kernel B1, and its wide route for P > 64), the headline and dense HMC
 benches, the single-chain HamiltonianChain, the Metropolis family
-(ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain) and
-posteriors written with numpy, dense GP regression (kernel
+(ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain),
+posteriors written with numpy, parallel tempering (ParallelTempering) and
+the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), dense
+GP regression (kernel
 B2) with its on-device fit, Bayesian optimisation (GpOptimiser), the
 matrix-free GP (its small-noise df64 tier through kernels B3-B8;
 its cg and mixed tiers, fit() and the RQ and white-noise kernels through
@@ -85,7 +87,22 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the card (host evaluations, state on the card) held to the torch
    ``GibbsChain``'s CPU chain by the same check, ``HamiltonianChain`` with
    the forward-difference gradient, ``ChainArray("gibbs")`` at 64 chains;
-   their readings as one JSON line;
+   their readings as one JSON line; then parallel tempering and the
+   ensemble sampler, which have no kernel of their own either: (h)
+   pt-bimodal-8, ``benchmarks/tempering_bench.py``'s 8 GibbsChain rungs
+   (T = 1-128): a counted ``advance(2000)`` (the ladder's host reads, one
+   per chunk of cycles, and its transitions', by torch's sync warnings),
+   a timed one (steps/s per rung), the lengths, swap counts and the cold
+   rung's left-mode share held, the swap acceptance matrix, the device
+   swap against the host swap on one float64 state, a profile; pt-demo-6
+   (``demos/parallel_tempering_demo.py``'s ladder through ``run_for``),
+   pt-hmc-2 (two HamiltonianChain rungs, the R-row HMC step) and pt-pca-4
+   (four PcaChain rungs, their direction updates at a single chain's
+   steps); (i) ensemble-4096, ``benchmarks/ensemble_bench.py``'s 4,096
+   walkers: the facade's and the bare loop's walker-updates/s, a profile,
+   retry=False's variances within 5% of the truth, retry=True's printed;
+   ensemble-chains, ``ChainArray("ensemble")`` at 256 chains of 32
+   walkers; their readings as one ``{"tempering_ensemble": ...}`` line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -210,6 +227,7 @@ with its bound, plain version and library call) and the ``nvidia-smi``
 line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import functools
 import gc
 import json
@@ -219,18 +237,23 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from inference_tpu_torch import Bounds, GibbsChain, HamiltonianChain, PcaChain
+from inference_tpu_torch import (Bounds, EnsembleSampler, GibbsChain, HamiltonianChain,
+                                 ParallelTempering, PcaChain)
 from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
 from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
 from inference_tpu_torch.convert import gp_optimiser_from_state, gp_optimiser_state_of
 from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter, RationalQuadratic, WhiteNoise)
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
+from inference_tpu_torch.mcmc._kernels.ensemble import (init_ensemble_state, make_ensemble_step,
+                                                        run_steps as run_ensemble_steps)
+from inference_tpu_torch.mcmc.parallel import _swap_on_device, _swap_on_host
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
@@ -932,9 +955,9 @@ def _profile_chain(chain, n=20):
 
 GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's count
 # (warm-up, timed) steps of a gibbs or pca timing run: chain_batch_bench.py's
-# warm-up of 128 (the widths adapt in it), its timed 512 cut to 64 to fit the
-# script's time; the two halves of the timed window are timed apart
-GIBBS_STEPS = (128, 64)
+# warm-up of 128 (the widths adapt in it) cut to 32, its timed 512 cut to 64,
+# to fit the script's time; the two halves of the timed window are timed apart
+GIBBS_STEPS = (32, 64)
 METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
 GIBBS_CHECK = 1024  # chains of the stored correctness runs
 # steps of one chain by device after 200 warm-up steps (the demo's 150,000
@@ -1300,6 +1323,405 @@ def phase_a1_numpy(reference, steps=ROSEN_STEPS["cuda"], device="cuda"):
         raise RuntimeError("a1-numpy: ChainArray('gibbs') on a numpy posterior is off")
     out[f"ChainArray gibbs {device}"] = {"chain_steps_per_s": ca_rate, "logp_err": err}
     return out
+
+
+# ---------------------------------------------------------------------------
+# parallel tempering (A13(a)) and the ensemble sampler (A12's first half)
+# ---------------------------------------------------------------------------
+
+PT_TEMPS = [2.0**k for k in range(8)]  # tempering_bench.py: 8 rungs, T = 1-128
+PT_STEPS = 2000                        # tempering_bench.py's default n_steps
+PT_SWAP_INTERVAL = 10
+PT_TWIN_TRIALS = 64
+PT_PROFILE_STEPS = 20  # the profiler's processing of ~500 launches a step dominates
+PT_HMC_LEAPFROG = 10   # pt-hmc-2's leapfrog steps a proposal (the chains' default 50, cut)
+DEMO_TEMPS = [1.0, 3.0, 10.0, 30.0, 100.0, 300.0]  # demos/parallel_tempering_demo.py
+DEMO_MINUTES = 0.1                     # the demo's run_for(minutes=0.5), cut
+ENS_WALKERS, ENS_DIM, ENS_ITERS = 4096, 10, 100  # ensemble_bench.py's defaults
+ENS_CHECK_ITERS, ENS_CHECK_BURN = 1000, 500
+ENS_RETRY_ITERS, ENS_RETRY_BURN = 200, 100
+ENS_VAR_RTOL = 0.05  # retry=False variances vs the truth (CPU rehearsal: within 0.010)
+ENS_CHAINS, ENS_CHAIN_WALKERS = 256, 32
+
+
+def bimodal_bench(t):
+    """benchmarks/tempering_bench.py's posterior in torch: modes at -4 and
+    4, sigma 0.5, weights 2:1."""
+    x = t[0]
+    return torch.logaddexp(-0.5 * ((x + 4.0) / 0.5) ** 2,
+                           -0.5 * ((x - 4.0) / 0.5) ** 2 + np.log(0.5))
+
+
+def demo_posterior(t):
+    """demos/parallel_tempering_demo.py's posterior in torch: modes at -5
+    and 5, sigma 0.6, weights 2:1."""
+    x = t[0]
+    return torch.logaddexp(-0.5 * ((x + 5.0) / 0.6) ** 2,
+                           -0.5 * ((x - 5.0) / 0.6) ** 2 + np.log(0.5))
+
+
+def curved(t):
+    """tests/mcmc/test_parallel.py:98-116's posterior."""
+    return -0.5 * (t[0] ** 2 + (t[1] - t[0] ** 2) ** 2)
+
+
+def _fused_chunks(cycles):
+    """The chunks of cycles a fused advance of ``cycles`` cycles runs
+    (powers of two, at most 512 each): one host read each."""
+    n = 0
+    while cycles > 0:
+        cycles -= min(1 << (cycles.bit_length() - 1), 512)
+        n += 1
+    return n
+
+
+def _count_syncs(pt, run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing operations (host reads and blocking copies) the port's
+    ladder code makes outside its transitions, by source line, those its
+    transitions make (the retry loops' reads, ROADMAP D2), and those torch
+    reports from its own files (``outside``)."""
+    counts = {"ladder": 0, "steps": 0, "ladder_sites": {}, "outside": 0}
+    where = ["ladder"]
+    step = pt._vstep
+
+    def counted(*args, **kw):
+        where[0] = "steps"
+        try:
+            return step(*args, **kw)
+        finally:
+            where[0] = "ladder"
+
+    def hook(message, category, filename, lineno, *args, **kw):
+        if "synchroniz" not in str(message):
+            return
+        if "inference_tpu_torch" not in filename:  # torch's own, e.g. setting the mode
+            counts["outside"] += 1
+            return
+        counts[where[0]] += 1
+        if where[0] == "ladder":
+            site = f"{os.path.basename(filename)}:{lineno}"
+            counts["ladder_sites"][site] = counts["ladder_sites"].get(site, 0) + 1
+
+    pt._vstep = counted
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            pt._vstep = step
+    return counts
+
+
+def _profile_run(label, run):
+    """torch.profiler over ``run()``: wall and device-kernel ms, the device
+    idle share, kernel launches, host reads (``aten::_local_scalar_dense``
+    and ``aten::nonzero``) and the top kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if e.device_type == cuda]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3
+    count = lambda name: sum(e.count for e in events if e.key == name)
+    out = {"wall_ms": wall, "device_ms": device, "idle_pct": 100 * (1 - device / wall),
+           "launches": sum(e.count for e in kernels),
+           "reads": count("aten::_local_scalar_dense") + count("aten::nonzero")}
+    print(f"[{label} profile] {wall:.3f} ms wall, {device:.3f} ms of device kernels (device idle "
+          f"{out['idle_pct']:.1f}%), {out['launches']} kernel launches, {out['reads']} host "
+          f"reads (item, nonzero) (card: {SMI})")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"[{label} profile] {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
+              f"{e.key[:80]}")
+    if out["launches"] == 0:
+        raise RuntimeError(f"{label}: the profiler saw no kernel launch")
+    return out
+
+
+def _ladder(cls, posterior, temps, start, widths=None):
+    """A ladder of ``cls`` rungs on the card at ``temps``, rung i seeded i."""
+    kw = {} if widths is None else dict(widths=np.array([widths] * len(start)))
+    return ParallelTempering([
+        cls(posterior, start=np.array(start), temperature=T, display_progress=False,
+            seed=i, device="cuda", **kw) for i, T in enumerate(temps)])
+
+
+def _on_card(state):
+    return {t.device.type for t in torch.utils._pytree.tree_leaves(state)} == {"cuda"}
+
+
+def _swap_twin(pt, trials=PT_TWIN_TRIALS):
+    """The card's ``_swap_on_device`` against the host arithmetic of
+    ``swap()`` (``_swap_on_host``), from one copy of the ladder's state in
+    float64 and the same pairs and uniforms (drawn from a copy of its rng):
+    accepted flags and permutation equal, positions equal, logps within
+    1e-12 relative. ``trials`` pairings of the same state."""
+    state = torch.utils._pytree.tree_map(
+        lambda x: x.double() if x.is_floating_point() else x, pt._batched_state)
+    theta, logp = state.theta.cpu().numpy(), state.logp.cpu().numpy()
+    rng = copy.deepcopy(pt.rng)
+    probe = ParallelTempering.__new__(ParallelTempering)
+    probe.N_chains, probe.rng = pt.N_chains, rng
+    n_acc, err = 0, 0.0
+    for _ in range(trials):
+        pairs = probe.tight_pairs()
+        uniforms = [rng.random() for _ in pairs]
+        new, accepted = _swap_on_device(state, torch.tensor(pairs, device="cuda"),
+                                        torch.tensor(uniforms, device="cuda"))
+        pos, probs, perm, acc_host = _swap_on_host(theta, logp, pt.inv_temps, pairs, uniforms)
+        card_perm = np.arange(pt.N_chains)
+        for (i, j), ok in zip(pairs, accepted.cpu().tolist()):
+            if ok:
+                card_perm[[i, j]] = card_perm[[j, i]]
+        if accepted.cpu().tolist() != acc_host or not np.array_equal(card_perm, perm) or \
+                not np.array_equal(new.theta.cpu().numpy(), pos):
+            raise RuntimeError("pt-bimodal-8: the card's swap differs from the host swap")
+        err = max(err, float(np.abs(new.logp.cpu().numpy() / probs - 1.0).max()))
+        n_acc += sum(acc_host)
+    print(f"[pt-bimodal-8] twin: {trials} pairings of one float64 state on the card and on the "
+          f"host: accepted flags, permutation and positions equal ({n_acc} of "
+          f"{trials * (pt.N_chains // 2)} pairs accepted), logps within {err:.3e} relative "
+          f"(limit 1e-12)")
+    if err > 1e-12 or n_acc == 0:
+        raise RuntimeError("pt-bimodal-8: the twin's logps differ or no pair was accepted")
+    return {"max_rel_logp_err": err, "accepted": n_acc, "pairs": trials * (pt.N_chains // 2)}
+
+
+def phase_pt_bimodal():
+    """pt-bimodal-8: benchmarks/tempering_bench.py unchanged: 8 GibbsChain
+    rungs at T = 1-128 on its bimodal posterior from 4 (widths 0.3, seeds
+    0-7), swap_interval 10. ``advance(2000)`` counted (the ladder's host
+    reads and its transitions'), then a timed ``advance(2000)``: steps/s per
+    rung. Checks: every chain_length 4001, successful <= attempted swaps,
+    the cold rung's left-mode share after 500 steps in [0.4, 0.9] (target
+    2/3), the state on the card, the ladder's host reads one per chunk of
+    cycles; the swap twin (``_swap_twin``); a profile of one
+    ``advance(PT_PROFILE_STEPS)``."""
+    pt = _ladder(GibbsChain, bimodal_bench, PT_TEMPS, [4.0], widths=0.3)
+    if not pt._fusable:
+        raise RuntimeError("pt-bimodal-8: the Gibbs ladder did not take the fused path")
+    chunks = _fused_chunks(PT_STEPS // PT_SWAP_INTERVAL)
+    t0 = time.perf_counter()
+    syncs = _count_syncs(pt, lambda: pt.advance(PT_STEPS, swap_interval=PT_SWAP_INTERVAL))
+    warm = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.advance(PT_STEPS, swap_interval=PT_SWAP_INTERVAL)
+    torch.cuda.synchronize()
+    rate = PT_STEPS / (time.perf_counter() - t0)
+    chains = pt.return_chains()
+    rates = pt.successful_swaps / pt.attempted_swaps.clip(min=1)
+    adjacent = [float(rates[i, i + 1]) for i in range(pt.N_chains - 1)]
+    left = float((chains[0].get_sample(burn=500)[:, 0] < 0).mean())
+    print(f"[pt-bimodal-8] {pt.N_chains} GibbsChain rungs (T = 1-128): advance({PT_STEPS}) "
+          f"counted in {warm:.3f} s, then {rate:,.1f} steps/s per rung ({rate * pt.N_chains:,.0f} "
+          f"rung-steps/s) (card: {SMI}); host reads and blocking copies an advance: the ladder "
+          f"{syncs['ladder']} ({chunks} chunks of cycles), its transitions {syncs['steps']} "
+          f"(the retry loops' reads, {syncs['steps'] / PT_STEPS:.2f} a step; the ladder's at "
+          f"{syncs['ladder_sites']}; torch's own {syncs['outside']}); cold rung's "
+          f"left-mode share {left:.4f} (target 2/3, band [0.4, 0.9])")
+    print(f"[pt-bimodal-8] swap acceptance of adjacent rungs: "
+          f"{[round(r, 4) for r in adjacent]}; the matrix (successful / attempted):")
+    for row in rates:
+        print("[pt-bimodal-8]   " + " ".join(f"{v:6.3f}" for v in row))
+    if any(c.chain_length != 2 * PT_STEPS + 1 for c in chains) \
+            or (pt.successful_swaps > pt.attempted_swaps).any() or not 0.4 < left < 0.9 \
+            or not _on_card(pt._batched_state) or syncs["ladder"] != chunks:
+        raise RuntimeError("pt-bimodal-8: lengths, swap counts, left-mode share, the state's "
+                           "device or the ladder's host reads are off")
+    twin = _swap_twin(pt)
+    prof = _profile_run("pt-bimodal-8", lambda: pt.advance(PT_PROFILE_STEPS,
+                                                           swap_interval=PT_SWAP_INTERVAL))
+    return {"steps_per_s_per_rung": rate, "ladder_reads": syncs["ladder"],
+            "step_reads": syncs["steps"], "chunks": chunks, "left_fraction": left,
+            "adjacent_swap_rates": adjacent, "twin": twin, "profile": prof}
+
+
+def phase_pt_demo():
+    """pt-demo-6: demos/parallel_tempering_demo.py's posterior and ladder (6
+    GibbsChain rungs, T = 1-300, from 5, widths 0.5, seeds 0-5) through
+    ``run_for``, its half minute cut to ``DEMO_MINUTES``: steps, the cold
+    rung's left-mode share against 2/3 (printed), equal lengths, finite."""
+    pt = _ladder(GibbsChain, demo_posterior, DEMO_TEMPS, [5.0], widths=0.5)
+    t0 = time.perf_counter()
+    pt.run_for(minutes=DEMO_MINUTES, swap_interval=PT_SWAP_INTERVAL)
+    seconds = time.perf_counter() - t0
+    chains = pt.return_chains()
+    s = chains[0].get_sample(burn=100)
+    left = float((s[:, 0] < 0).mean())
+    n = chains[0].chain_length
+    print(f"[pt-demo-6] run_for({DEMO_MINUTES} min): {n - 1} steps a rung in {seconds:.1f} s "
+          f"({(n - 1) / seconds:,.1f} steps/s per rung); cold rung's left-mode share {left:.4f} "
+          f"(target 2/3, a reading); {int(pt.successful_swaps.sum())} swaps accepted of "
+          f"{int(pt.attempted_swaps.sum()) - pt.N_chains} (card: {SMI})")
+    if len({c.chain_length for c in chains}) != 1 or not np.isfinite(s).all():
+        raise RuntimeError("pt-demo-6: unequal lengths or non-finite samples")
+    return {"steps": n - 1, "seconds": seconds, "left_fraction": left}
+
+
+def phase_pt_hmc():
+    """pt-hmc-2: tests/mcmc/test_parallel.py:98-116, two HamiltonianChain
+    rungs (T = 1, 5) on the curved posterior from [0.5, 0.5] with
+    ``PT_HMC_LEAPFROG`` leapfrog steps, advance(100): lengths 101, the
+    rung-batched HMC step, its host reads (the retry loop's, ROADMAP D2)."""
+    chains = [HamiltonianChain(curved, start=np.array([0.5, 0.5]), temperature=T,
+                               display_progress=False, seed=i, device="cuda")
+              for i, T in enumerate([1.0, 5.0])]
+    for c in chains:
+        c.steps = PT_HMC_LEAPFROG
+    pt = ParallelTempering(chains)
+    if not pt._fusable:
+        raise RuntimeError("pt-hmc-2: the HMC ladder did not take the fused path")
+    t0 = time.perf_counter()
+    syncs = _count_syncs(pt, lambda: pt.advance(100, swap_interval=PT_SWAP_INTERVAL))
+    seconds = time.perf_counter() - t0
+    chains = pt.return_chains()
+    s = chains[0].get_sample(burn=0)
+    print(f"[pt-hmc-2] advance(100) in {seconds:.2f} s ({100 / seconds:.1f} transitions/s per "
+          f"rung); host reads and blocking copies: the ladder {syncs['ladder']}, the HMC retry "
+          f"loops {syncs['steps']} ({syncs['steps'] / 100:.1f} a transition); "
+          f"{int(pt.successful_swaps.sum())} swaps accepted (card: {SMI})")
+    if any(c.chain_length != 101 for c in chains) or not np.isfinite(s).all() \
+            or not _on_card(chains[1]._state):
+        raise RuntimeError("pt-hmc-2: lengths, samples or state off")
+    return {"seconds": seconds, "ladder_reads": syncs["ladder"], "step_reads": syncs["steps"]}
+
+
+def phase_pt_pca():
+    """pt-pca-4: four PcaChain rungs (T = 1-8) on gibbs-rosenbrock's
+    posterior from [2, -4], advance(600): every rung re-estimates its
+    directions at the chain lengths a single PcaChain does (100, 250, 475),
+    and the batched state carries them."""
+    pt = _ladder(PcaChain, rosen_torch, [1.0, 2.0, 4.0, 8.0], [2.0, -4.0])
+    single = PcaChain(rosen_torch, start=np.array([2.0, -4.0]), display_progress=False, seed=0,
+                      device="cuda")
+    t0 = time.perf_counter()
+    pt.advance(600, swap_interval=PT_SWAP_INTERVAL)
+    seconds = time.perf_counter() - t0
+    single.advance(600)
+    chains = pt.return_chains()
+    dirs_ok = all(np.allclose(pt._batched_state.directions[k].cpu().numpy(), c.directions,
+                              atol=1e-6) for k, c in enumerate(chains))
+    print(f"[pt-pca-4] advance(600) in {seconds:.2f} s ({600 / seconds:.1f} steps/s per rung); "
+          f"updates at {[c.update_history for c in chains]}, a single PcaChain at "
+          f"{single.update_history}; batched directions = the rungs': {dirs_ok} (card: {SMI})")
+    if any(c.update_history != single.update_history for c in chains) or not dirs_ok \
+            or not single.update_history:
+        raise RuntimeError("pt-pca-4: the rungs' direction updates differ from a PcaChain's")
+    return {"seconds": seconds, "updates": single.update_history}
+
+
+def ensemble_problem(n_walkers, seed=0):
+    """benchmarks/ensemble_bench.py::make_problem: the 10-dim correlated
+    Gaussian (default_rng(42)) and starts N(0, 0.3) from ``seed``."""
+    rng = np.random.default_rng(42)
+    A = rng.normal(size=(ENS_DIM, ENS_DIM)) / np.sqrt(ENS_DIM)
+    cov = A @ A.T + np.eye(ENS_DIM)
+    starts = np.random.default_rng(seed).normal(0, 0.3, size=(n_walkers, ENS_DIM))
+    return cov, starts
+
+
+def _ensemble_logp(cov):
+    icov = torch.as_tensor(np.linalg.inv(cov), dtype=torch.float32, device="cuda")
+    return lambda t: -0.5 * t @ icov @ t
+
+
+def phase_ensemble():
+    """ensemble-4096: ensemble_bench.py unchanged (4,096 walkers, its 10-dim
+    Gaussian, starts N(0, 0.3) seed 0, float32, retry=False, seed 1): the
+    facade's walker-updates/s (advance(100) warm-up, then timed) and its
+    history fetch, the bare ``run_steps`` loop's (history on the card);
+    a profile of 20 facade iterations; then a retry=False run of 1,000
+    iterations whose variances (after 500) must be within ``ENS_VAR_RTOL``
+    of the truth, and a retry=True run whose shrink ratio is printed."""
+    cov, starts = ensemble_problem(ENS_WALKERS)
+    logp = _ensemble_logp(cov)
+    es = EnsembleSampler(logp, starts, display_progress=False, seed=1, retry=False, device="cuda")
+    es.advance(ENS_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    es.advance(ENS_ITERS)
+    torch.cuda.synchronize()
+    facade = ENS_WALKERS * ENS_ITERS / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    sample = es.sample
+    fetch = time.perf_counter() - t0
+    step = make_ensemble_step(es._logp.batched, n_walkers=ENS_WALKERS, retry=False)
+    sd = torch.as_tensor(starts, dtype=torch.float32, device="cuda")
+    state = init_ensemble_state(sd[None], es._logp.batched(sd)[None])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, _ = run_ensemble_steps(step, state, ENS_ITERS, True, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = run_ensemble_steps(step, state, ENS_ITERS, True, gen)
+    torch.cuda.synchronize()
+    bare = ENS_WALKERS * ENS_ITERS / (time.perf_counter() - t0)
+    prof = _profile_run("ensemble-4096", lambda: es.advance(20))
+    print(f"[ensemble-4096] {ENS_WALKERS} walkers, {ENS_DIM} dims, float32, retry=False: facade "
+          f"{facade:,.0f} walker-updates/s, bare run_steps loop {bare:,.0f} (history on the "
+          f"card; {ENS_ITERS} iterations timed after as many); history fetch "
+          f"{sample.nbytes / 2**20:.0f} MB in {fetch:.3f} s (card: {SMI})")
+    out = {"facade_walker_updates_per_s": facade, "bare_walker_updates_per_s": bare,
+           "fetch_s": fetch, "profile": prof}
+    for retry, n, burn in ((False, ENS_CHECK_ITERS, ENS_CHECK_BURN),
+                           (True, ENS_RETRY_ITERS, ENS_RETRY_BURN)):
+        es = EnsembleSampler(logp, starts, display_progress=False, seed=2, retry=retry,
+                             device="cuda")
+        t0 = time.perf_counter()
+        es.advance(n)
+        seconds = time.perf_counter() - t0
+        s = es.get_sample(burn=burn * ENS_WALKERS)
+        ratio = np.diag(np.cov(s.T)) / np.diag(cov)
+        es._drain_stats()
+        proposals = float(np.mean(es.total_proposals))
+        print(f"[ensemble-4096] retry={retry}: {n} iterations in {seconds:.2f} s, "
+              f"{proposals:.2f} proposals a walker-update; variances / truth after {burn}: "
+              f"{ratio.round(4).tolist()} (mean {ratio.mean():.4f}); means "
+              f"{np.abs(s.mean(0)).max():.4f} from 0 at most")
+        out[f"retry={retry}"] = {"seconds": seconds, "var_ratio_min": float(ratio.min()),
+                                 "var_ratio_max": float(ratio.max()),
+                                 "var_ratio_mean": float(ratio.mean()),
+                                 "proposals_per_update": proposals}
+        if not np.isfinite(s).all() or not _on_card(es._state):
+            raise RuntimeError(f"ensemble-4096 retry={retry}: non-finite or off the card")
+        if not retry and np.abs(ratio - 1.0).max() > ENS_VAR_RTOL:
+            raise RuntimeError("ensemble-4096: retry=False variances off the truth")
+    return out
+
+
+def phase_ensemble_chains():
+    """ensemble-chains: ``ChainArray("ensemble")`` on the same Gaussian, 256
+    chains of 32 walkers (starts N(0, 0.3), seed 3), retry=False:
+    advance(100) warm-up, a timed stored advance(300), walker-updates/s,
+    R-hat (every walker a replicate chain) and ESS after 100."""
+    cov, starts = ensemble_problem(ENS_CHAINS * ENS_CHAIN_WALKERS, seed=3)
+    ca = ChainArray("ensemble", _ensemble_logp(cov),
+                    starts.reshape(ENS_CHAINS, ENS_CHAIN_WALKERS, ENS_DIM), retry=False, seed=4,
+                    device="cuda")
+    ca.advance(100, store=False)
+    t0 = time.perf_counter()
+    ca.advance(300)
+    rate = ENS_CHAINS * ENS_CHAIN_WALKERS * 300 / (time.perf_counter() - t0)
+    rhat = ca.rhat(burn=100)
+    ess = ca.effective_sample_size(burn=100)
+    var = ca.get_sample(burn=100).var(axis=0) / np.diag(cov)
+    print(f"[ensemble-chains] {ENS_CHAINS} chains x {ENS_CHAIN_WALKERS} walkers: {rate:,.0f} "
+          f"walker-updates/s (stored); R-hat max {rhat.max():.4f}, ESS per walker and parameter "
+          f"mean {ess.mean():.1f} of 200, variances / truth {var.min():.3f}-{var.max():.3f} "
+          f"(card: {SMI})")
+    if not np.isfinite(ca.theta).all() or ess.shape != (ENS_CHAINS, ENS_CHAIN_WALKERS, ENS_DIM) \
+            or not _on_card(ca._state):
+        raise RuntimeError("ensemble-chains: non-finite, wrong ESS shape or off the card")
+    return {"walker_updates_per_s": rate, "rhat_max": float(rhat.max()),
+            "ess_mean": float(ess.mean()), "var_ratio_min": float(var.min()),
+            "var_ratio_max": float(var.max())}
 
 
 # ---------------------------------------------------------------------------
@@ -3595,6 +4017,15 @@ def main():
           f"all)")
     print(json.dumps({"metropolis_family": {"gibbs-10d": gibbs10, "gibbs-rosenbrock": rosen,
                                             "a1-numpy": a1}}))
+    _free()
+    t_pt = time.perf_counter()
+    tempering = {"pt-bimodal-8": phase_pt_bimodal(), "pt-demo-6": phase_pt_demo(),
+                 "pt-hmc-2": phase_pt_hmc(), "pt-pca-4": phase_pt_pca()}
+    t_ens = time.perf_counter()
+    ensemble = {"ensemble-4096": phase_ensemble(), "ensemble-chains": phase_ensemble_chains()}
+    print(json.dumps({"tempering_ensemble": {**tempering, **ensemble}}, default=float))
+    print(f"[summary] parallel tempering {t_ens - t_pt:.1f} s, the ensemble sampler "
+          f"{time.perf_counter() - t_ens:.1f} s (card: {SMI})")
     _free()
 
     x16k, y16k, err16k = make_gp_data(GP_N)

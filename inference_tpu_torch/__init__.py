@@ -5,8 +5,10 @@ its batched samplers (``parallel.ChainArray`` for the "hmc", "gibbs",
 "metropolis" and "pca" kinds, with the fused whole-trajectory HMC kernel
 ``ops.hmc_fused`` written in CUDA C++), the single-chain
 ``mcmc.HamiltonianChain`` with reflecting ``Bounds``, ``MetropolisChain``,
-``GibbsChain`` and ``PcaChain``, posteriors written with numpy (evaluated
-on the host, ``utils.wrap``), the
+``GibbsChain`` and ``PcaChain``, the ``EnsembleSampler`` (and
+``ChainArray``'s "ensemble" kind), parallel tempering on one device
+(``ParallelTempering``, ``ChainPool``), posteriors written with numpy
+(evaluated on the host, ``utils.wrap``), the
 posterior building blocks of ``models`` (likelihoods, priors,
 ``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``, with
 its on-device multistart fit ``optimizer="device"``, and
@@ -24,7 +26,16 @@ Its entry points run on the card unless the caller passes
 
 __version__ = "0.1.0"
 
-from .mcmc import Bounds, GibbsChain, HamiltonianChain, MetropolisChain, PcaChain
+from .mcmc import (
+    Bounds,
+    ChainPool,
+    EnsembleSampler,
+    GibbsChain,
+    HamiltonianChain,
+    MetropolisChain,
+    ParallelTempering,
+    PcaChain,
+)
 from .models import (
     CauchyLikelihood,
     ExponentialPrior,
@@ -41,7 +52,10 @@ __all__ = [
     "MetropolisChain",
     "GibbsChain",
     "PcaChain",
+    "EnsembleSampler",
     "HamiltonianChain",
+    "ParallelTempering",
+    "ChainPool",
     "Bounds",
     "GaussianLikelihood",
     "CauchyLikelihood",

@@ -31,11 +31,19 @@ try_count ``(K, P)`` int32, the key ``(K, 2)`` uint32 and inv_temp
 ``(K,)``; its ``PcaState`` adds directions ``(K, P, P)`` as an 11th
 (``metropolis_state_from_jax``, ``metropolis_state_to_jax_leaves``).
 
-A ``HamiltonianChain``, ``GibbsChain``, ``MetropolisChain`` or ``PcaChain``
-crosses as its checkpoint items, the ``.npz`` keys both packages save
-(``hamiltonian_chain_from_jax``, ``gibbs_chain_from_jax``,
-``pca_chain_from_jax``); ``bounds_from_numpy`` and ``mass_from_numpy``
-build the port's ``Bounds`` and particle mass from numpy arrays.
+The JAX package's batched ``EnsembleState`` (the ensemble kind) flattens
+to 4 leaves: walkers ``(K, W, P)``, logps ``(K, W)``, the key ``(K, 2)``
+uint32 and inv_temp ``(K,)`` (``ensemble_state_from_jax``,
+``ensemble_state_to_jax_leaves``).
+
+A ``HamiltonianChain``, ``GibbsChain``, ``MetropolisChain``, ``PcaChain``
+or ``EnsembleSampler`` crosses as its checkpoint items, the ``.npz`` keys
+both packages save (``hamiltonian_chain_from_jax``, ``gibbs_chain_from_jax``,
+``pca_chain_from_jax``, ``ensemble_sampler_from_jax``, which also carries
+the sampler's inverse temperature and ``retry``); a ``ParallelTempering``
+crosses as its chains (``parallel_tempering_from_jax``).
+``bounds_from_numpy`` and ``mass_from_numpy`` build the port's ``Bounds``
+and particle mass from numpy arrays.
 """
 
 import io
@@ -45,10 +53,13 @@ import torch
 
 from . import gp as _gp
 from .mcmc._kernels.common import AdaptiveScale
+from .mcmc._kernels.ensemble import EnsembleState
 from .mcmc._kernels.hmc import HmcState
 from .mcmc._kernels.metropolis import MetropolisState, PcaState
+from .mcmc.ensemble import EnsembleSampler
 from .mcmc.gibbs import GibbsChain, MetropolisChain
 from .mcmc.hmc import HamiltonianChain
+from .mcmc.parallel import ParallelTempering
 from .mcmc.pca import PcaChain
 from .mcmc.hmc.mass import get_particle_mass
 from .ops.hmc_fused import GaussianForm
@@ -58,6 +69,7 @@ from .utils.dtypes import default_float
 
 N_HMC_LEAVES = 11
 N_METROPOLIS_LEAVES = 10  # a PcaState has one more, its directions
+N_ENSEMBLE_LEAVES = 4
 
 
 def hmc_state_from_jax(leaves, device="cuda", dtype=None) -> HmcState:
@@ -153,6 +165,32 @@ def metropolis_state_to_jax_leaves(state, key) -> list:
     return leaves
 
 
+def ensemble_state_from_jax(leaves, device="cuda", dtype=None) -> EnsembleState:
+    """The port's ``EnsembleState`` from the 4 leaves of a JAX batched
+    ``EnsembleState``, on ``device`` (the card unless the caller passes
+    ``"cpu"``). Floating leaves take ``dtype`` (default: the walkers' own
+    dtype); the key leaf is read and ignored."""
+    device = resolve_device(device, "ensemble_state_from_jax")
+    if len(leaves) != N_ENSEMBLE_LEAVES:
+        raise ValueError(
+            f"an EnsembleState has {N_ENSEMBLE_LEAVES} leaves, got {len(leaves)}"
+        )
+    walkers, logps, _key, inv_temp = (np.asarray(x) for x in leaves)
+    dtype = dtype or torch.tensor(walkers[:0]).dtype
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    return EnsembleState(walkers=f(walkers), logps=f(logps), inv_temp=f(inv_temp))
+
+
+def ensemble_state_to_jax_leaves(state: EnsembleState, key) -> list:
+    """The 4 leaves of a JAX batched ``EnsembleState`` as numpy arrays, with
+    ``key`` (a ``(K, 2)`` uint32 array) as the key leaf."""
+    host = lambda x: x.detach().cpu().numpy()
+    key = np.asarray(key, dtype=np.uint32)
+    if key.shape != (state.walkers.shape[0], 2):
+        raise ValueError(f"the key leaf must be (K, 2), got {key.shape}")
+    return [host(state.walkers), host(state.logps), key, host(state.inv_temp)]
+
+
 def _checkpoint_buffer(chain):
     """A JAX chain's ``.npz`` checkpoint, written into memory by its own
     ``save``."""
@@ -177,6 +215,42 @@ def pca_chain_from_jax(chain, posterior=None, seed=None, device="cuda"):
     ``device`` (default the card), as ``gibbs_chain_from_jax`` does, with
     its directions, blended covariance, update schedule and bounds."""
     return PcaChain.load(_checkpoint_buffer(chain), posterior=posterior, seed=seed, device=device)
+
+
+def ensemble_sampler_from_jax(sampler, posterior=None, seed=None, device="cuda"):
+    """The port's ``EnsembleSampler`` carrying a JAX ``EnsembleSampler``'s
+    state on ``device`` (default the card): its walkers and their
+    log-probabilities, history, proposal counts and settings, read from the
+    ``.npz`` items its own ``save`` writes, with its inverse temperature and
+    ``retry``. With ``posterior`` it continues from the stored walkers."""
+    state = getattr(sampler, "_state", None)
+    inv_temp = 1.0 if state is None else float(np.asarray(state.inv_temp))
+    port = EnsembleSampler.from_items(np.load(_checkpoint_buffer(sampler)), posterior, seed,
+                                      device, inv_temp=inv_temp)
+    port.retry = sampler.retry
+    return port
+
+
+def parallel_tempering_from_jax(pt, posterior, grad=None, seed=None, device="cuda"):
+    """The port's ``ParallelTempering`` over the chains of a JAX
+    ``ParallelTempering`` (its states synchronised first), each carried by
+    its class's conversion above on ``device`` (default the card), at its
+    temperature. ``posterior`` is the torch (or numpy) posterior of every
+    rung; ``grad`` goes to the HMC rungs; rung k's generator takes ``seed +
+    k`` when a seed is given. The pairing stream ``rng`` starts afresh."""
+    rungs = []
+    for k, chain in enumerate(pt.return_chains()):
+        kw = dict(seed=None if seed is None else seed + k, device=device)
+        name = type(chain).__name__
+        if name == "HamiltonianChain":
+            rungs.append(hamiltonian_chain_from_jax(chain, posterior, grad=grad, **kw))
+        elif name == "PcaChain":
+            rungs.append(pca_chain_from_jax(chain, posterior, **kw))
+        elif name in ("GibbsChain", "MetropolisChain"):
+            rungs.append(gibbs_chain_from_jax(chain, posterior, **kw))
+        else:
+            raise ValueError(f"a {name} rung has no conversion in inference_tpu_torch yet")
+    return ParallelTempering(rungs)
 
 
 def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:

@@ -1,18 +1,23 @@
-"""Samplers: the batched transitions (``_kernels``) and the single-chain
-``HamiltonianChain``, ``MetropolisChain``, ``GibbsChain`` and ``PcaChain``.
-The other single-chain facades are not ported yet (ROADMAP queue A12,
-A13)."""
+"""Samplers: the batched transitions (``_kernels``), the single-chain
+``HamiltonianChain``, ``MetropolisChain``, ``GibbsChain`` and ``PcaChain``,
+the ``EnsembleSampler`` and the one-device ``ParallelTempering`` and
+``ChainPool``. ``NutsChain`` is not ported yet (ROADMAP queue A12)."""
 
 from .gibbs import GibbsChain, MetropolisChain
-from .hmc import HamiltonianChain
 from .pca import PcaChain
+from .ensemble import EnsembleSampler
+from .hmc import HamiltonianChain
+from .parallel import ChainPool, ParallelTempering
 from .utilities import Bounds, ChainProgressPrinter, effective_sample_size
 
 __all__ = [
     "MetropolisChain",
     "GibbsChain",
     "PcaChain",
+    "EnsembleSampler",
     "HamiltonianChain",
+    "ParallelTempering",
+    "ChainPool",
     "Bounds",
     "effective_sample_size",
     "ChainProgressPrinter",

@@ -12,9 +12,11 @@ chains at once: positions are ``(K, P)`` and every per-chain scalar is
 - With ``retry=True`` the repeat-until-accept loop is a host loop over the
   chains that have not accepted yet, for at most ``max_attempts`` trips.
 - Randomness comes from an explicit ``torch.Generator``. The standard
-  normals ``z`` and the uniforms ``u_steps``/``u_acc`` of a single
-  proposal may be passed in instead, which is how the tests drive this
-  step and the JAX package with the same numbers.
+  normals ``z`` and the uniforms ``u_steps``/``u_acc`` may be passed in
+  instead: ``(K, P)`` and ``(K,)`` for the one proposal of ``retry=False``,
+  which is how the tests drive this step and the JAX package with the same
+  numbers; with ``retry=True`` a leading axis of attempts, ``(A, K, P)``
+  and ``(A, K)``, chain k's a-th proposal taking entry ``[a, k]``.
 """
 
 from typing import NamedTuple
@@ -175,20 +177,23 @@ def make_hmc_step(
             new_state = state._replace(theta=theta, logp=logp, eps=eps)
             return new_state, HmcOutput(theta, logp, n_steps, eps.value)
 
-        if z is not None or u_steps is not None or u_acc is not None:
-            raise ValueError(
-                "injected draws drive a single proposal: use retry=False"
-            )
+        for x, ndim in ((z, 3), (u_steps, 2), (u_acc, 2)):
+            if x is not None and x.ndim != ndim:
+                raise ValueError(
+                    "injected draws without a leading axis of attempts drive a single "
+                    "proposal: use retry=False, or pass (A, K, P) and (A, K) streams"
+                )
         theta, logp, eps = state.theta.clone(), state.logp.clone(), state.eps
         steps_taken = torch.zeros(K, dtype=torch.int32, device=theta.device)
         pending = torch.arange(K, device=theta.device)
-        for _ in range(max_attempts):
-            z, u_steps, u_acc = draws(generator, theta, pending.numel(), P)
+        for a in range(max_attempts):
+            injected = (_attempt(x, a, pending) for x in (z, u_steps, u_acc))
+            z_a, us_a, ua_a = draws(generator, theta, pending.numel(), P, *injected)
             t, p, sub_eps, accepted, n_steps = propose(
                 state.theta[pending], state.logp[pending],
                 AdaptiveScale(*(f[pending] for f in eps)),
                 state.inv_temp[pending], state.steps[pending],
-                z, u_steps, u_acc,
+                z_a, us_a, ua_a,
             )
             eps = AdaptiveScale(
                 *(f.index_copy(0, pending, g) for f, g in zip(eps, sub_eps))
@@ -206,6 +211,19 @@ def make_hmc_step(
         return new_state, HmcOutput(theta, logp, steps_taken, eps.value)
 
     return step
+
+
+def _attempt(stream, a, pending):
+    """Attempt ``a``'s entries of an injected ``(A, K, ...)`` stream for the
+    chains ``pending``."""
+    if stream is None:
+        return None
+    if a >= stream.shape[0]:
+        raise ValueError(
+            f"an injected stream of {stream.shape[0]} attempts ran out: a chain "
+            "proposed more often than the stream holds"
+        )
+    return stream[a][pending]
 
 
 def run_steps(step, state, n_steps: int, store: bool = True, generator=None):

@@ -129,7 +129,7 @@ class MetropolisChain(MarkovChain):
                 torch.as_tensor(widths, dtype=dtype, device=self.device)[None],
                 inv_temp=self.inv_temp,
             )
-            self._theta_chunks = [start.reshape(1, -1)]
+            self._theta_chunks = [start.reshape(1, -1).copy()]  # not the state's memory
             self._prob_chunks = [np.array([p0])]
             self._last_widths = widths.copy()
             self.sigma_values = [[w] for w in widths]

@@ -144,7 +144,7 @@ class HamiltonianChain(MarkovChain):
             )
 
         if start is not None:
-            start = np.asarray(start, dtype=float)
+            start = np.array(start, dtype=float)  # the caller's array is not aliased
             if start.ndim != 1:
                 raise ValueError(
                     "[ HamiltonianChain error ] 'start' must be a 1D array of "
@@ -168,7 +168,7 @@ class HamiltonianChain(MarkovChain):
                 inv_temp=self.inv_temp, steps=self.steps,
             )
             # history: host or device chunks, concatenated lazily
-            self._theta_chunks = [start.reshape(1, -1)]
+            self._theta_chunks = [start.reshape(1, -1).copy()]  # not the state's memory
             self._prob_chunks = [np.array([p0])]
             self._leapfrog_chunks = [np.array([0], dtype=int)]
         else:

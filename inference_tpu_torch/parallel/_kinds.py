@@ -1,27 +1,28 @@
 """Per-kind sampler construction for the scale-out layer.
 
 Port of ``inference_tpu.parallel._kinds`` for the "hmc", "gibbs",
-"metropolis" and "pca" kinds: the batched ``init`` and ``step`` of one
-sampler family, with the scalar, diagonal or full inverse-mass maps of HMC
-and the per-parameter proposal modes of the Metropolis family. The other
-kinds raise and name the ROADMAP queue item that ports them.
+"metropolis", "pca" and "ensemble" kinds: the batched ``init`` and ``step``
+of one sampler family, with the scalar, diagonal or full inverse-mass maps
+of HMC, the per-parameter proposal modes of the Metropolis family and the
+stretch moves of an ensemble per chain. The "nuts" kind raises and names
+the ROADMAP queue item that ports it.
 """
 
 import numpy as np
 import torch
 
+from ..mcmc._kernels import ensemble as ens_kernel
 from ..mcmc._kernels import hmc as hmc_kernel
 from ..mcmc._kernels import metropolis as met_kernel
 from ..mcmc.hmc.mass import get_particle_mass
 from ..utils.wrap import DeviceLogp
 
 KINDS = ("hmc", "nuts", "gibbs", "metropolis", "pca", "ensemble")
-PORTED = ("hmc", "gibbs", "metropolis", "pca")
+PORTED = ("hmc", "gibbs", "metropolis", "pca", "ensemble")
 
 # ROADMAP queue A item that ports each kind not yet in this package
 _QUEUE = {
     "nuts": "A12",
-    "ensemble": "A12",
 }
 
 
@@ -103,13 +104,17 @@ def build_kind(
     non_negative=None,
     boundaries=None,
     bounds=None,
+    alpha: float = 2.0,
+    n_walkers: int = None,
     retry: bool = False,
 ):
     """
     Build ``(init, step)`` for one sampler family:
 
     - ``init(theta0, logp0, inv_temp)`` initialises a batch of chains from
-      ``(K, P)`` positions and ``(K,)`` log-probabilities;
+      ``(K, P)`` positions and ``(K,)`` log-probabilities (for "ensemble",
+      ``(K, W, P)`` and ``(K, W)``: each chain is a sub-ensemble of W
+      walkers);
     - ``step(state, generator)`` is the batched transition.
 
     ``logp_fn`` is the posterior on its route (``utils.wrap.DeviceLogp``),
@@ -123,11 +128,16 @@ def build_kind(
     :param boundaries: ``(lower, upper)`` reflecting proposal boundaries
         (gibbs/metropolis).
     :param bounds: optional ``utils.Bounds``: reflecting boundaries of the
-        bounded leapfrog (hmc) or of every proposal (pca).
+        bounded leapfrog (hmc) or of every proposal (pca, ensemble).
+    :param alpha: stretch-move scale parameter (ensemble).
+    :param n_walkers: walkers per chain (ensemble).
     """
     require_ported(kind)
     if not isinstance(logp_fn, DeviceLogp):
         logp_fn = DeviceLogp(logp_fn, host=False)
+    if kind == "ensemble":
+        return _build_ensemble_kind(logp_fn, n_parameters, alpha=alpha, n_walkers=n_walkers,
+                                    bounds=bounds, retry=retry)
     if kind in ("gibbs", "metropolis", "pca"):
         return _build_metropolis_kind(
             kind, logp_fn, n_parameters, dtype, device, widths=widths,
@@ -185,3 +195,41 @@ def _build_metropolis_kind(kind, logp_fn, n_parameters, dtype, device, *, widths
         return met_kernel.init_metropolis_state(theta0, logp0, w_arr, inv_temp=inv_temp)
 
     return init, step
+
+
+def _build_ensemble_kind(logp_fn, n_parameters, *, alpha, n_walkers, bounds, retry):
+    """``(init, step)`` of the ensemble kind."""
+    if n_walkers is None:
+        raise ValueError("the ensemble kind requires n_walkers")
+    if n_walkers < 2 * (n_parameters + 1):
+        raise ValueError(
+            f"the ensemble kind needs n_walkers >= 2 * (n_parameters + 1) "
+            f"= {2 * (n_parameters + 1)}, got {n_walkers}"
+        )
+    step = ens_kernel.make_ensemble_step(
+        logp_fn.batched,
+        n_walkers=n_walkers,
+        alpha=alpha,
+        bounds_reflect=None if bounds is None else bounds.reflect,
+        retry=retry,
+    )
+
+    def init(walkers0, logps0, inv_temp=1.0):
+        return ens_kernel.init_ensemble_state(walkers0, logps0, inv_temp=inv_temp)
+
+    return init, step
+
+
+def positions_of(state):
+    """The swap-exchangeable position and log-probability tensors of a
+    state."""
+    if isinstance(state, ens_kernel.EnsembleState):
+        return state.walkers, state.logps
+    return state.theta, state.logp
+
+
+def with_positions(state, pos, logp):
+    """Replace the swap-exchangeable tensors of a state."""
+    if isinstance(state, ens_kernel.EnsembleState):
+        return state._replace(walkers=pos, logps=logp)
+    return state._replace(theta=pos, logp=logp)

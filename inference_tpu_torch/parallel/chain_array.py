@@ -1,8 +1,10 @@
 """Batched arrays of independent chains.
 
 Port of ``inference_tpu.parallel.chain_array`` for the "hmc", "gibbs",
-"metropolis" and "pca" kinds: one batched transition advances every chain
-at once on one device, with the history kept on the host as numpy arrays.
+"metropolis", "pca" and "ensemble" kinds: one batched transition advances
+every chain at once on one device, with the history kept on the host as
+numpy arrays. An ensemble chain is a sub-ensemble of walkers, and its
+diagnostics count every walker as a replicate chain.
 With ``fused=True`` the hmc advance runs through kernel B1
 (``ops.hmc_fused``), which keeps every chain's state on the chip through
 whole chunks of transitions. A posterior written with numpy runs on the
@@ -17,17 +19,21 @@ import torch
 from torch import nn
 
 from ..convert import (
+    N_ENSEMBLE_LEAVES,
     N_HMC_LEAVES,
     N_METROPOLIS_LEAVES,
+    ensemble_state_from_jax,
+    ensemble_state_to_jax_leaves,
     hmc_state_from_jax,
     hmc_state_to_jax_leaves,
     metropolis_state_from_jax,
     metropolis_state_to_jax_leaves,
 )
+from ..mcmc._kernels import ensemble as ens_kernel
 from ..mcmc._kernels import hmc as hmc_kernel
 from ..mcmc._kernels import metropolis as met_kernel
 from ..utils import as_device_logp, default_float, make_generator, resolve_device
-from ._kinds import build_kind, require_ported
+from ._kinds import build_kind, positions_of, require_ported
 
 METROPOLIS_KINDS = ("gibbs", "metropolis", "pca")
 
@@ -59,15 +65,17 @@ class ChainArray:
     A batch of ``n_chains`` independent chains advanced together on one
     device.
 
-    :param kind: sampler family: "hmc", "gibbs", "metropolis" or "pca"
+    :param kind: sampler family: "hmc", "gibbs", "metropolis", "pca"
         (PCA-directed Gibbs sweeps; call ``update_directions()`` between
         advances to re-estimate each chain's principal directions from its
-        own history). "nuts" and "ensemble" raise naming the ROADMAP queue
-        item that ports them.
+        own history) or "ensemble" (each chain is an independent
+        stretch-move ensemble). "nuts" raises naming the ROADMAP queue item
+        that ports it.
     :param posterior: log-probability callable over ``(P,)`` tensors, written
         with torch operations (an ``nn.Module`` is copied onto ``device``),
         or a numpy posterior, evaluated on the host (not for "hmc").
-    :param starts: starting positions, shape (n_chains, n_parameters).
+    :param starts: starting positions, shape (n_chains, n_parameters), or
+        (n_chains, n_walkers, n_parameters) for the ensemble kind.
     :param widths: initial proposal widths (gibbs/metropolis/pca): a scalar,
         (P,) or (n_chains, P); by default 5% of each chain's own start, or 1
         where it is 0.
@@ -80,7 +88,8 @@ class ChainArray:
     :param boundaries: optional (lower, upper) reflecting proposal
         boundaries (gibbs/metropolis).
     :param bounds: optional ``utils.Bounds`` for the bounded leapfrog (hmc)
-        or the reflected proposals (pca).
+        or the reflected proposals (pca, ensemble).
+    :param alpha: stretch-move scale parameter (ensemble).
     :param retry: repeat-until-accept proposals (the reference semantics)
         when True; textbook duplicate-on-reject MH when False.
     :param fused: "auto" (default) / True / False. True runs the advance
@@ -109,6 +118,7 @@ class ChainArray:
         non_negative=None,
         boundaries=None,
         bounds=None,
+        alpha: float = 2.0,
         retry: bool = True,
         fused="auto",
         mesh=None,
@@ -121,8 +131,18 @@ class ChainArray:
                 "[ ChainArray error ] device meshes are not ported to "
                 "inference_tpu_torch yet (ROADMAP queue A13)."
             )
-        starts = np.atleast_2d(np.asarray(starts, dtype=float))
-        self.n_chains, self.n_parameters = starts.shape
+        starts = np.asarray(starts, dtype=float)
+        if kind == "ensemble":
+            if starts.ndim != 3:
+                raise ValueError(
+                    "the ensemble kind requires starts of shape "
+                    "(n_chains, n_walkers, n_parameters)"
+                )
+            self.n_chains, self.n_walkers, self.n_parameters = starts.shape
+        else:
+            starts = np.atleast_2d(starts)
+            self.n_chains, self.n_parameters = starts.shape
+            self.n_walkers = None
         self.kind = kind
         self.device = resolve_device(device, "ChainArray")
 
@@ -131,7 +151,8 @@ class ChainArray:
             posterior = copy.deepcopy(posterior).to(device=self.device, dtype=dtype)
         self._posterior = posterior
         starts_dev = torch.as_tensor(starts, dtype=dtype, device=self.device)
-        self._logp = as_device_logp(posterior, starts_dev[0], "ChainArray")
+        self._logp = as_device_logp(posterior, starts_dev.reshape(-1, self.n_parameters)[0],
+                                    "ChainArray")
         self._generator = make_generator(seed, self.device)
 
         # kept so warmup()/set_inverse_mass() can rebuild the step with a
@@ -143,6 +164,8 @@ class ChainArray:
             non_negative=non_negative,
             boundaries=boundaries,
             bounds=bounds,
+            alpha=alpha,
+            n_walkers=self.n_walkers,
             retry=retry,
         )
         init, self._step = build_kind(
@@ -150,7 +173,8 @@ class ChainArray:
             **self._build_kwargs,
         )
         with torch.no_grad():
-            logp0 = self._logp.batched(starts_dev)
+            logp0 = self._logp.batched(starts_dev.reshape(-1, self.n_parameters))
+        logp0 = logp0.reshape(starts_dev.shape[:-1])
         self._state = init(starts_dev, logp0, 1.0)
         if kind in METROPOLIS_KINDS:
             # per-chain initial widths: 5% of each chain's own start point
@@ -164,8 +188,8 @@ class ChainArray:
             self._state = self._state._replace(
                 widths=self._state.widths._replace(value=value)
             )
-        self._run_steps = (met_kernel.run_steps if kind in METROPOLIS_KINDS
-                           else hmc_kernel.run_steps)
+        self._run_steps = {"hmc": hmc_kernel.run_steps,
+                           "ensemble": ens_kernel.run_steps}.get(kind, met_kernel.run_steps)
 
         self._history = []
         self._prob_history = []
@@ -228,10 +252,13 @@ class ChainArray:
             state, outs = self._run_steps(
                 self._step, self._state, n, store, self._generator
             )
-            pos, logp = (outs.theta, outs.logp) if store else (None, None)
+            pos, logp = (None, None)
+            if store:
+                pos, logp = (outs.walkers, outs.logps) if self.kind == "ensemble" else (
+                    outs.theta, outs.logp)
         self._state = state
         if store:
-            self._history.append(pos[::thin].cpu().numpy())  # (n/thin, K, P)
+            self._history.append(pos[::thin].cpu().numpy())  # (n/thin, K[, W], P)
             self._prob_history.append(logp[::thin].cpu().numpy())
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -323,34 +350,39 @@ class ChainArray:
 
     def effective_sample_size(self, burn: int = 0) -> np.ndarray:
         """Per-chain, per-parameter effective sample sizes, shape
-        (n_chains, n_parameters), from one batched FFT autocorrelation."""
+        (n_chains, n_parameters), with a walker axis inserted for the
+        ensemble kind: (n_chains, n_walkers, n_parameters); from one batched
+        FFT autocorrelation."""
         from ..utils.ess import effective_sample_size_batched
 
         h = self._stored(burn, "effective sample sizes")
-        series = torch.as_tensor(np.moveaxis(h, 0, -1))  # (K, P, steps)
+        series = torch.as_tensor(np.moveaxis(h, 0, -1))  # (K[, W], P, steps)
         return effective_sample_size_batched(series).numpy()
 
     def rhat(self, burn: int = 0, rank_normalized: bool = True) -> np.ndarray:
         """Per-parameter split-R-hat across the chain batch, shape
         (n_parameters,): the rank-normalized, folded variant of Vehtari et
         al. (2021) by default, the classic split statistic with
-        ``rank_normalized=False``."""
+        ``rank_normalized=False``. For the ensemble kind every walker is a
+        replicate chain."""
         from ..utils.diagnostics import rank_normalized_rhat, split_rhat
 
         h = self._stored(burn, "rhat")
+        if h.ndim == 4:  # ensemble kind: (steps, K, W, P) -> (steps, K * W, P)
+            h = h.reshape(h.shape[0], -1, h.shape[-1])
         series = torch.as_tensor(np.transpose(h, (2, 1, 0)))  # (P, K, steps)
         estimator = rank_normalized_rhat if rank_normalized else split_rhat
         return estimator(series).numpy()
 
     @property
     def theta(self) -> np.ndarray:
-        """Current positions, shape (n_chains, n_parameters)."""
-        return self._state.theta.cpu().numpy()
+        """Current positions, shape (n_chains[, n_walkers], n_parameters)."""
+        return positions_of(self._state)[0].cpu().numpy()
 
     @property
     def logp(self) -> np.ndarray:
-        """Current log-probabilities, shape (n_chains,)."""
-        return self._state.logp.cpu().numpy()
+        """Current log-probabilities, shape (n_chains[, n_walkers])."""
+        return positions_of(self._state)[1].cpu().numpy()
 
     def get_sample(self, burn: int = 0, thin: int = 1) -> np.ndarray:
         """Pooled samples from all chains, shape (n_kept * K, P). ``burn``
@@ -372,7 +404,17 @@ class ChainArray:
     def _n_leaves(self):
         if self.kind == "hmc":
             return N_HMC_LEAVES
+        if self.kind == "ensemble":
+            return N_ENSEMBLE_LEAVES
         return N_METROPOLIS_LEAVES + (self.kind == "pca")
+
+    def _leaf_codec(self):
+        """(to leaves, from leaves) of this kind's state."""
+        if self.kind == "hmc":
+            return hmc_state_to_jax_leaves, hmc_state_from_jax
+        if self.kind == "ensemble":
+            return ensemble_state_to_jax_leaves, ensemble_state_from_jax
+        return metropolis_state_to_jax_leaves, metropolis_state_from_jax
 
     def save(self, filename: str):
         """Checkpoint the chain state in the JAX ``ChainArray`` layout
@@ -383,8 +425,7 @@ class ChainArray:
             0, 2**32, (self.n_chains, 2), dtype=torch.int64,
             generator=self._generator, device=self.device,
         ).cpu().numpy().astype(np.uint32)
-        to_leaves = hmc_state_to_jax_leaves if self.kind == "hmc" else metropolis_state_to_jax_leaves
-        leaves = to_leaves(self._state, key)
+        leaves = self._leaf_codec()[0](self._state, key)
         items = {f"leaf_{i}": v for i, v in enumerate(leaves)}
         items["kind"] = self.kind
         items["n_chains"] = self.n_chains
@@ -406,10 +447,9 @@ class ChainArray:
                 f"[ ChainArray error ] checkpoint stores {n_saved} state "
                 f"leaves but an '{self.kind}' state has {self._n_leaves()}."
             )
-        from_leaves = hmc_state_from_jax if self.kind == "hmc" else metropolis_state_from_jax
-        self._state = from_leaves(
+        self._state = self._leaf_codec()[1](
             [D[f"leaf_{i}"] for i in range(n_saved)],
             device=self.device,
-            dtype=self._state.theta.dtype,
+            dtype=positions_of(self._state)[0].dtype,
         )
         return self

@@ -115,15 +115,16 @@ def test_history_accessors_and_thinning():
 
 
 def test_unported_options_raise():
-    """nuts and ensemble still raise naming A12; the Metropolis family is
-    ported."""
+    """nuts still raises naming A12; the Metropolis family and the
+    ensemble kind are ported."""
     form = GaussianForm(torch.eye(2))
     starts = np.zeros((4, 2))
-    for kind in ("nuts", "ensemble"):
-        with pytest.raises(ValueError, match="ROADMAP queue A12"):
-            ChainArray(kind, form, starts, device="cpu")
+    with pytest.raises(ValueError, match="ROADMAP queue A12"):
+        ChainArray("nuts", form, starts, device="cpu")
     for kind in ("gibbs", "metropolis", "pca"):
         assert ChainArray(kind, form, starts, device="cpu").kind == kind
+    walkers = np.random.default_rng(0).normal(size=(2, 6, 2))
+    assert ChainArray("ensemble", form, walkers, device="cpu").theta.shape == (2, 6, 2)
     with pytest.raises(ValueError, match="unknown"):
         ChainArray("slice", form, starts, device="cpu")
     with pytest.raises(ValueError, match="A13"):

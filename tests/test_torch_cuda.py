@@ -1258,3 +1258,99 @@ def test_numpy_posterior_state_stays_on_card(cuda):
     ca.advance(20)
     assert _state_devices(ca._state) == {"cuda"}
     np.testing.assert_allclose(ca.logp, [rosen(t) for t in ca.theta], rtol=1e-4, atol=1e-4)
+
+
+def _bimodal(t):
+    x = t[0]
+    return torch.logaddexp(-0.5 * ((x + 4.0) / 0.5) ** 2,
+                           -0.5 * ((x - 4.0) / 0.5) ** 2 + np.log(0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["GibbsChain", "HamiltonianChain"])
+def test_tempering_ladder_on_card_matches_cpu(cuda, cls):
+    """A 4-rung ladder in float64 on the card and on the CPU from the same
+    starts: the rung-batched step on injected draws and the swap on the
+    device with the same pairs and uniforms give the same states (1e-12);
+    a fused advance keeps every state tensor on the card."""
+    import inference_tpu_torch.mcmc as mcmc
+    from inference_tpu_torch.mcmc.parallel import _swap_on_device
+
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        temps, R = [1.0, 2.0, 4.0, 8.0], 4
+        rng = np.random.default_rng(0)
+        starts = rng.uniform(-5, 5, R)
+        ladders = {}
+        for device in (cuda, "cpu"):
+            chains = [getattr(mcmc, cls)(_bimodal, start=np.array([s]), temperature=T,
+                                         display_progress=False, seed=k, device=device)
+                      for k, (s, T) in enumerate(zip(starts, temps))]
+            for c in chains:
+                c.steps = 8
+            ladders[str(torch.device(device).type)] = mcmc.ParallelTempering(chains)
+        if cls == "HamiltonianChain":
+            A = 200
+            draws = [rng.normal(size=(A, R, 1)), rng.uniform(size=(A, R)), rng.uniform(size=(A, R))]
+        else:
+            draws = [rng.normal(size=(400, R)), rng.uniform(size=(400, R))]
+        pairs, uniforms = [[0, 1], [2, 3]], [0.3, 0.6]
+        out = {}
+        for name, pt in ladders.items():
+            dev = pt._batched_state.theta.device
+            with torch.no_grad():
+                state, _ = pt._vstep(pt._batched_state, None,
+                                     *(torch.as_tensor(d, device=dev) for d in draws))
+            state, acc = _swap_on_device(state, torch.tensor(pairs, device=dev),
+                                         torch.tensor(uniforms, device=dev))
+            out[name] = (state.theta.cpu().numpy(), state.logp.cpu().numpy(), acc.tolist())
+        for got, want in zip(out["cuda"][:2], out["cpu"][:2]):
+            np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+        assert out["cuda"][2] == out["cpu"][2]
+        pt = ladders["cuda"]
+        pt.advance(40, swap_interval=10)
+        assert _state_devices(pt._batched_state) == {"cuda"}
+        assert all(c.chain_length == 41 for c in pt.return_chains())
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("retry", [False, True])
+def test_ensemble_step_on_card_matches_cpu(cuda, retry):
+    """The batched stretch move of 2 ensembles of 64 walkers in float64 on
+    injected draws gives the same walkers, logps and proposal counts on the
+    card and on the CPU (1e-12); EnsembleSampler and ChainArray("ensemble")
+    keep their state on the card."""
+    from inference_tpu_torch.mcmc import EnsembleSampler
+    from inference_tpu_torch.mcmc._kernels import ensemble as ens
+
+    C, W, P, A = 2, 64, 3, 100
+    rng = np.random.default_rng(1)
+    walkers = rng.normal(size=(C, W, P))
+    h = W // 2
+    draws = [tuple(torch.as_tensor(x) for x in (rng.integers(0, h, (A, C, h)),
+                                                rng.uniform(size=(A, C, h)),
+                                                rng.uniform(size=(A, C, h))))
+             for _ in range(2)]
+    logp = lambda t: -0.5 * (t * t).sum(-1)
+    out = {}
+    for device in (cuda, "cpu"):
+        w = torch.as_tensor(walkers, device=device)
+        state = ens.init_ensemble_state(w, logp(w))
+        step = ens.make_ensemble_step(logp, n_walkers=W, retry=retry)
+        for _ in range(3):
+            state, o = step(state, None, draws)
+        out[torch.device(device).type] = (state.walkers.cpu().numpy(), state.logps.cpu().numpy(),
+                                          o.attempts.cpu().numpy())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+    es = EnsembleSampler(lambda t: -0.5 * (t * t).sum(), walkers[0], display_progress=False,
+                         seed=0, retry=retry, device=cuda)
+    es.advance(20)
+    assert _state_devices(es._state) == {"cuda"} and np.isfinite(es.get_sample()).all()
+    ca = ChainArray("ensemble", lambda t: -0.5 * (t * t).sum(), walkers, retry=retry, seed=0,
+                    device=cuda)
+    ca.advance(20)
+    assert _state_devices(ca._state) == {"cuda"} and ca.get_sample().shape == (20 * C * W, P)

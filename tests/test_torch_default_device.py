@@ -11,7 +11,7 @@ from inference_tpu_torch import convert, models
 from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
 from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter)
-from inference_tpu_torch.mcmc import HamiltonianChain
+from inference_tpu_torch.mcmc import EnsembleSampler, HamiltonianChain
 from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
@@ -39,6 +39,13 @@ ENTRY_POINTS = {
         "block_size": 8, "solver": "cg", "store_entries": "auto", "dtype": "float64",
         "cg_tol": 1e-6, "cg_maxiter": 100, "z64": np.zeros(8),
     }),
+    "ChainArray ensemble": lambda: ChainArray(
+        "ensemble", GaussianForm(torch.eye(2)), np.random.default_rng(0).normal(size=(2, 6, 2))),
+    "EnsembleSampler": lambda: EnsembleSampler(
+        GaussianForm(torch.eye(2)), np.random.default_rng(0).normal(size=(6, 2)),
+        display_progress=False),
+    "EnsembleSampler.from_items": lambda: EnsembleSampler.from_items({
+        "alpha": 2.0, "display_progress": False}),
     "HamiltonianChain": lambda: HamiltonianChain(GaussianForm(torch.eye(2)), start=np.zeros(2),
                                                  display_progress=False),
     "HamiltonianChain.from_items": lambda: HamiltonianChain.from_items({}),

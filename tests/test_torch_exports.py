@@ -15,8 +15,8 @@ PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.
          "inference_tpu_torch.models", "inference_tpu_torch.gp")
 PORT_ONLY = {"GaussianForm"}
 # the JAX package's names from these paths that the port does not define
-# yet: the sharded matmat is ROADMAP A13; the TPU watchdog's chunk length
-# has no job on a GPU (ROADMAP "Not ported")
+# yet: the sharded matmat is ROADMAP A13's multi-device part (b); the TPU
+# watchdog's chunk length has no job on a GPU (ROADMAP "Not ported")
 UNPORTED = {
     "inference_tpu.ops": {"df64_chunk_iters", "sqexp_matmat_df64_sharded"},
 }
