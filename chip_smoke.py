@@ -3,8 +3,10 @@
 benches, the single-chain HamiltonianChain, the Metropolis family
 (ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain),
 posteriors written with numpy, parallel tempering (ParallelTempering) and
-the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), dense
-GP regression (kernel
+the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), NUTS
+(NutsChain, ChainArray's nuts kind, NUTS ladders) and the 1D density
+estimators (GaussianKDE, UnimodalPdf, a chain's get_marginal and
+get_interval), dense GP regression (kernel
 B2) with its on-device fit, Bayesian optimisation (GpOptimiser), the
 matrix-free GP (its small-noise df64 tier through kernels B3-B8;
 its cg and mixed tiers, fit() and the RQ and white-noise kernels through
@@ -92,7 +94,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    pt-bimodal-8, ``benchmarks/tempering_bench.py``'s 8 GibbsChain rungs
    (T = 1-128): a counted ``advance(2000)`` (the ladder's host reads, one
    per chunk of cycles, and its transitions', by torch's sync warnings),
-   a timed one (steps/s per rung), the lengths, swap counts and the cold
+   a timed ``advance(1000)`` (steps/s per rung), the lengths, swap counts and the cold
    rung's left-mode share held, the swap acceptance matrix, the device
    swap against the host swap on one float64 state, a profile; pt-demo-6
    (``demos/parallel_tempering_demo.py``'s ladder through ``run_for``),
@@ -103,6 +105,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    retry=False's variances within 5% of the truth, retry=True's printed;
    ensemble-chains, ``ChainArray("ensemble")`` at 256 chains of 32
    walkers; their readings as one ``{"tempering_ensemble": ...}`` line;
+   then NUTS and the density estimators, which have no kernel of their own
+   either: (j) nuts-10d, ``bench.nuts`` (``benchmarks/nuts_bench.py``'s
+   10-dim Gaussian, NUTS at epsilon 0.25, max_depth 8 beside HMC at 50
+   steps) at 4,096, 16,384 and 65,536 chains (timed steps cut), its JSON
+   line a tier; at 4,096 chains the host reads a transition (torch's sync
+   warnings: the doubling loop's at most max_depth - 1), a stored run held
+   to the covariance (variances within 10%, R-hat < 1.05) and a profile
+   (launches a batch leaf, idle share); nuts-twin, 64 chains in float64 on
+   one set of injected draws, 5 transitions on the card and the CPU
+   (1e-12; depths, counts, flags equal); nuts-demo,
+   ``demos/nuts_demo.py``'s ring with one ``NutsChain`` (its 6,000
+   transitions cut to 400), radius and thickness within a CPU rehearsal's
+   bands; pt-nuts-3, ``tests/mcmc/test_parallel.py:212-247``'s NUTS ladder,
+   the cached gradients after the fused and the host swaps; (k)
+   kde-marginal, nuts-10d's stored run as one chain on the card and the
+   CPU: ``get_marginal(0)`` and a cross-validated ``GaussianKDE`` (bandwidth,
+   pdf and cdf at 10,000 points, 1e-10), ``get_interval()`` and
+   ``sample_hdi_device`` equal, ``UnimodalPdf`` held at the CPU's MAP
+   (1e-12) and no worse there (1e-9); their readings as one
+   ``{"nuts_pdf": ...}`` line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -132,7 +154,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and evaluation), its LML at least phase 8's less 1e-6 of it, one batched
    evaluation profiled (idle share, B2, the Cholesky and its backward);
 8c. bo-warm-2d: ``bench.bo_warm`` (``benchmarks/bo_warm_bench.py``'s warm
-   ``GpOptimiser`` iteration, optimizer="device") in float64 and float32:
+   ``GpOptimiser`` iteration, optimizer="device"; float32 times
+   ``BO_WARM_ITERATIONS_F32`` of its 10) in float64 and float32:
    warm-iteration seconds, host reads an iteration, one iteration profiled
    (device idle share, kernel launches); proposals in the bounds, the
    histories one entry per added point, the adopted state equal to an
@@ -244,19 +267,24 @@ import numpy as np
 import torch
 
 from inference_tpu_torch import (Bounds, EnsembleSampler, GibbsChain, HamiltonianChain,
-                                 ParallelTempering, PcaChain)
+                                 NutsChain, ParallelTempering, PcaChain)
 from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
+from inference_tpu_torch.bench import nuts as bench_nuts
 from inference_tpu_torch.bench.headline import HMC_STEPS, N_DIM, make_cov
 from inference_tpu_torch.convert import gp_optimiser_from_state, gp_optimiser_state_of
 from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter, RationalQuadratic, WhiteNoise)
-from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
+from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale, value_and_grad
 from inference_tpu_torch.mcmc._kernels.ensemble import (init_ensemble_state, make_ensemble_step,
                                                         run_steps as run_ensemble_steps)
+from inference_tpu_torch.mcmc._kernels import nuts as nuts_kernel
+from inference_tpu_torch.mcmc.hmc import EpsilonSelector
 from inference_tpu_torch.mcmc.parallel import _swap_on_device, _swap_on_host
 from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.parallel._kinds import build_kind
+from inference_tpu_torch.pdf import GaussianKDE, sample_hdi, sample_hdi_device
 from inference_tpu_torch.utils import effective_sample_size, optimize
 from inference_tpu_torch.utils.optimize import minimize_bfgs
 from inference_tpu_torch.probes import (EXP_FLOPS, FP32_FLOPS, FP64_FLOPS, bound, df64_ablate,
@@ -929,6 +957,29 @@ def phase_hamiltonian():
     return rates
 
 
+def _trace(prof):
+    """A profile's device events by name (count, ms) and its host events
+    (operators, runtime calls) counted by name, summed from the raw trace:
+    ``key_averages`` parses ~0.5 ms an event, 12-25 s for the ~3e4-5e4
+    events of a launch-bound path's profile; the raw trace ~5 us an
+    event."""
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels, ops = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            k = kernels.setdefault(e.name(), [0, 0.0])
+            k[0] += 1
+            k[1] += (e.end_ns() - e.start_ns()) / 1e6
+        else:
+            ops[e.name()] = ops.get(e.name(), 0) + 1
+    return kernels, ops
+
+
+def _top_kernels(kernels, n):
+    """The ``n`` device events of ``_trace`` with the most device time."""
+    return sorted(kernels.items(), key=lambda kv: -kv[1][1])[:n]
+
+
 def _profile_chain(chain, n=20):
     """torch.profiler over ``advance(n)`` of one chain on the card: device
     operations (kernels and copies) per transition and per leapfrog step,
@@ -938,8 +989,7 @@ def _profile_chain(chain, n=20):
     with torch.profiler.profile(activities=acts) as prof:
         chain.advance(n)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    ops = sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+    ops = sum(c for c, _ in _trace(prof)[0].values())
     leapfrog = int(np.sum(chain.leapfrog_steps[done:]))
     print(f"[hamiltonian] torch.profiler over advance({n}) on the card: {ops} device "
           f"operations, {ops / n:.1f} per transition, {ops / leapfrog:.1f} per leapfrog "
@@ -960,6 +1010,7 @@ GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's cou
 GIBBS_STEPS = (32, 64)
 METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
 GIBBS_CHECK = 1024  # chains of the stored correctness runs
+GIBBS_PROFILE_SWEEPS = 2  # sweeps of the profiled advance (4, cut: the profiler's processing dominates)
 # steps of one chain by device after 200 warm-up steps (the demo's 150,000
 # cut to the script's time: 2,000 and 5,000 until the matrix-free GP's rest
 # joined the script); the held moments drop the warm-up
@@ -1076,14 +1127,11 @@ def _profile_gibbs(ca, sweeps=4):
         t0 = time.perf_counter()
         ca.advance(sweeps, store=False)
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda]
-    device = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    count = lambda name: sum(e.count for e in events if e.key == name)
-    tries = count("aten::_local_scalar_dense")
-    syncs = count("cudaStreamSynchronize") + count("cudaDeviceSynchronize")
+    kernels, ops = _trace(prof)
+    device = sum(ms for _, ms in kernels.values())
+    launches = sum(c for c, _ in kernels.values())
+    tries = ops.get("aten::_local_scalar_dense", 0)
+    syncs = ops.get("cudaStreamSynchronize", 0) + ops.get("cudaDeviceSynchronize", 0)
     P = ca.n_parameters
     out = {"wall_ms": wall, "device_ms": device, "idle_pct": 100 * (1 - device / wall),
            "launches_per_sweep": launches / sweeps, "tries_per_parameter": tries / (sweeps * P),
@@ -1093,10 +1141,9 @@ def _profile_gibbs(ca, sweeps=4):
           f"{out['launches_per_sweep']:.0f} kernel launches a sweep, "
           f"{out['tries_per_parameter']:.2f} tries a parameter (host reads of the acceptance "
           f"count), {out['syncs_per_sweep']:.0f} host syncs a sweep")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        ms = e.self_device_time_total / 1e3
+    for name, (n, ms) in _top_kernels(kernels, 5):
         print(f"[gibbs-10d profile] {ms:10.3f} ms ({100 * ms / wall:5.2f}% of wall)  "
-              f"{e.count:6d}x  {e.key[:80]}")
+              f"{n:6d}x  {name[:80]}")
     if launches == 0 or tries == 0:
         raise RuntimeError("gibbs-10d: the profiler saw no launch or no try")
     return out
@@ -1130,7 +1177,7 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
             if not np.isfinite(ca.theta).all():
                 raise RuntimeError(f"gibbs-10d {kind}: non-finite positions")
             if retry and K == chains[-1] and torch.device(device).type == "cuda":
-                out["profile"] = _profile_gibbs(ca)
+                out["profile"] = _profile_gibbs(ca, sweeps=GIBBS_PROFILE_SWEEPS)
             del ca
     starts = np.random.default_rng(0).normal(size=(check, 10))
     for kind, retry, steps, burn in (("gibbs", True, 300, 100), ("gibbs", False, 600, 200),
@@ -1331,6 +1378,7 @@ def phase_a1_numpy(reference, steps=ROSEN_STEPS["cuda"], device="cuda"):
 
 PT_TEMPS = [2.0**k for k in range(8)]  # tempering_bench.py: 8 rungs, T = 1-128
 PT_STEPS = 2000                        # tempering_bench.py's default n_steps
+PT_TIMED_STEPS = 1000  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's time)
 PT_SWAP_INTERVAL = 10
 PT_TWIN_TRIALS = 64
 PT_PROFILE_STEPS = 20  # the profiler's processing of ~500 launches a step dominates
@@ -1426,20 +1474,16 @@ def _profile_run(label, run):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda]
-    device = sum(e.self_device_time_total for e in kernels) / 1e3
-    count = lambda name: sum(e.count for e in events if e.key == name)
+    kernels, ops = _trace(prof)
+    device = sum(ms for _, ms in kernels.values())
     out = {"wall_ms": wall, "device_ms": device, "idle_pct": 100 * (1 - device / wall),
-           "launches": sum(e.count for e in kernels),
-           "reads": count("aten::_local_scalar_dense") + count("aten::nonzero")}
+           "launches": sum(c for c, _ in kernels.values()),
+           "reads": ops.get("aten::_local_scalar_dense", 0) + ops.get("aten::nonzero", 0)}
     print(f"[{label} profile] {wall:.3f} ms wall, {device:.3f} ms of device kernels (device idle "
           f"{out['idle_pct']:.1f}%), {out['launches']} kernel launches, {out['reads']} host "
           f"reads (item, nonzero) (card: {SMI})")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        print(f"[{label} profile] {e.self_device_time_total / 1e3:10.3f} ms  {e.count:6d}x  "
-              f"{e.key[:80]}")
+    for name, (n, ms) in _top_kernels(kernels, 5):
+        print(f"[{label} profile] {ms:10.3f} ms  {n:6d}x  {name[:80]}")
     if out["launches"] == 0:
         raise RuntimeError(f"{label}: the profiler saw no kernel launch")
     return out
@@ -1495,11 +1539,11 @@ def _swap_twin(pt, trials=PT_TWIN_TRIALS):
 
 
 def phase_pt_bimodal():
-    """pt-bimodal-8: benchmarks/tempering_bench.py unchanged: 8 GibbsChain
+    """pt-bimodal-8: benchmarks/tempering_bench.py (its timed steps cut): 8 GibbsChain
     rungs at T = 1-128 on its bimodal posterior from 4 (widths 0.3, seeds
     0-7), swap_interval 10. ``advance(2000)`` counted (the ladder's host
-    reads and its transitions'), then a timed ``advance(2000)``: steps/s per
-    rung. Checks: every chain_length 4001, successful <= attempted swaps,
+    reads and its transitions'), then a timed ``advance(PT_TIMED_STEPS)``:
+    steps/s per rung. Checks: every chain_length 3001, successful <= attempted swaps,
     the cold rung's left-mode share after 500 steps in [0.4, 0.9] (target
     2/3), the state on the card, the ladder's host reads one per chunk of
     cycles; the swap twin (``_swap_twin``); a profile of one
@@ -1513,15 +1557,15 @@ def phase_pt_bimodal():
     warm = time.perf_counter() - t0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pt.advance(PT_STEPS, swap_interval=PT_SWAP_INTERVAL)
+    pt.advance(PT_TIMED_STEPS, swap_interval=PT_SWAP_INTERVAL)
     torch.cuda.synchronize()
-    rate = PT_STEPS / (time.perf_counter() - t0)
+    rate = PT_TIMED_STEPS / (time.perf_counter() - t0)
     chains = pt.return_chains()
     rates = pt.successful_swaps / pt.attempted_swaps.clip(min=1)
     adjacent = [float(rates[i, i + 1]) for i in range(pt.N_chains - 1)]
     left = float((chains[0].get_sample(burn=500)[:, 0] < 0).mean())
     print(f"[pt-bimodal-8] {pt.N_chains} GibbsChain rungs (T = 1-128): advance({PT_STEPS}) "
-          f"counted in {warm:.3f} s, then {rate:,.1f} steps/s per rung ({rate * pt.N_chains:,.0f} "
+          f"counted in {warm:.3f} s, then advance({PT_TIMED_STEPS}) at {rate:,.1f} steps/s per rung ({rate * pt.N_chains:,.0f} "
           f"rung-steps/s) (card: {SMI}); host reads and blocking copies an advance: the ladder "
           f"{syncs['ladder']} ({chunks} chunks of cycles), its transitions {syncs['steps']} "
           f"(the retry loops' reads, {syncs['steps'] / PT_STEPS:.2f} a step; the ladder's at "
@@ -1531,7 +1575,7 @@ def phase_pt_bimodal():
           f"{[round(r, 4) for r in adjacent]}; the matrix (successful / attempted):")
     for row in rates:
         print("[pt-bimodal-8]   " + " ".join(f"{v:6.3f}" for v in row))
-    if any(c.chain_length != 2 * PT_STEPS + 1 for c in chains) \
+    if any(c.chain_length != PT_STEPS + PT_TIMED_STEPS + 1 for c in chains) \
             or (pt.successful_swaps > pt.attempted_swaps).any() or not 0.4 < left < 0.9 \
             or not _on_card(pt._batched_state) or syncs["ladder"] != chunks:
         raise RuntimeError("pt-bimodal-8: lengths, swap counts, left-mode share, the state's "
@@ -1722,6 +1766,416 @@ def phase_ensemble_chains():
     return {"walker_updates_per_s": rate, "rhat_max": float(rhat.max()),
             "ess_mean": float(ess.mean()), "var_ratio_min": float(var.min()),
             "var_ratio_max": float(var.max())}
+
+
+# ---------------------------------------------------------------------------
+# NUTS (ROADMAP A12's second half) and the 1D density estimators (A14(a))
+# ---------------------------------------------------------------------------
+
+# nuts_bench.py's chain counts, each with its timed transitions: the
+# bench's max(32, 2^21 // chains), 512 / 128 / 32, cut to fit the script's
+# time; the hmc beside (~90 ms a transition) at the first count only
+NUTS_TIERS = {4096: 64, 16384: 32, 65536: 32}
+NUTS_HMC_TIER = 4096
+# warm-up transitions: nuts to its adapted step size (a CPU rehearsal at
+# 4,096 chains: epsilon 0.25 -> 0.78 and the batch's leaves a transition
+# ~70 -> ~12 by the 72nd transition), hmc (whose transitions cost 50
+# leapfrog steps at any step size) 8; the bench warms each for its timed
+# count. The stored run: the bench's 64 cut to 32
+NUTS_WARM, NUTS_HMC_WARM, NUTS_STORED = 72, 8, 32
+NUTS_ROUTE_CALLS = 200  # calls a turn of each batched value-and-gradient route timed
+NUTS_CHECK_CHAINS = 4096
+NUTS_CHECK_BURN, NUTS_CHECK_STEPS = 32, 128
+NUTS_READ_STEPS, NUTS_PROFILE_STEPS = 16, 4
+NUTS_VAR_RTOL, NUTS_RHAT = 0.10, 1.05
+NUTS_TWIN_CHAINS, NUTS_TWIN_STEPS, NUTS_TWIN_RTOL = 64, 5, 1e-12
+NUTS_DEMO_STEPS, NUTS_DEMO_BURN = 300, 75  # demos/nuts_demo.py's 6,000 and 1,000, cut
+# the bands of the demo's readings at this count: the range of CPU
+# rehearsals of the same chain at seeds 0-7 (float32; ``rehearse_nuts_demo``)
+# widened by 3 of their standard deviations each way: mean ring radius and
+# z-thickness
+NUTS_DEMO_RADIUS = (0.991, 1.016)  # rehearsals 0.9993-1.0076 (sd 0.0027)
+NUTS_DEMO_THICK = (0.034, 0.058)   # rehearsals 0.0423-0.0501 (sd 0.0026)
+PT_NUTS_TEMPS, PT_NUTS_DEPTH, PT_NUTS_STEPS, PT_NUTS_INTERVAL = [1.0, 3.0, 10.0], 5, 120, 5
+KDE_SAMPLES, KDE_POINTS, KDE_RTOL = 8192, 10_000, 1e-10
+UNIMODAL_OBJ_RTOL, UNIMODAL_MAP_RTOL = 1e-12, 1e-9
+
+
+class Toroidal:
+    """demos/nuts_demo.py's ToroidalGaussian in torch: a ring of radius 1
+    and thickness 0.05."""
+
+    coeff = -0.5 / 0.05**2
+
+    def __call__(self, theta):
+        r_sqr = theta[2] ** 2 + (torch.sqrt(theta[0] ** 2 + theta[1] ** 2) - 1.0) ** 2
+        return self.coeff * r_sqr
+
+
+def _host_reads(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode("warn")``: the
+    synchronizing operations (host reads, blocking copies) by source line of
+    the port's files, and the count torch reports from its own."""
+    sites, outside = {}, [0]
+
+    def hook(message, category, filename, lineno, *args, **kw):
+        if "synchroniz" not in str(message):
+            return
+        if "inference_tpu_torch" not in filename:
+            outside[0] += 1
+            return
+        site = f"{os.path.basename(filename)}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sites, outside[0]
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (0 when both are 0)."""
+    a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, dtype=float) for x in (a, b))
+    scale = np.abs(b).max()
+    return float(np.abs(a - b).max() / scale) if scale else float(np.abs(a - b).max())
+
+
+def _grad_routes(icov):
+    """Host ms a call, ended by a sync, of two batched value-and-gradient
+    routes on nuts-10d's posterior at ``NUTS_CHECK_CHAINS`` chains in
+    float32: the port's (``common.value_and_grad``: vmap of the values and
+    one backward pass of their sum) and ``torch.func.vmap(torch.func
+    .grad_and_value(...))``. ``NUTS_ROUTE_CALLS`` calls a turn, two turns
+    alternated, the lower kept; the gradients' largest difference."""
+    logp = bench_nuts.make_logp(icov, "cuda")
+    theta = torch.as_tensor(np.random.default_rng(4).normal(size=(NUTS_CHECK_CHAINS,
+                                                                  bench_nuts.N_DIM)),
+                            dtype=torch.float32, device="cuda")
+    func = torch.func.vmap(torch.func.grad_and_value(logp))
+    routes = {"autograd_of_sum": value_and_grad(logp),
+              "vmap_grad_and_value": lambda t: func(t)[::-1]}
+    ms = {k: [] for k in routes}
+    for _ in range(2):
+        for k, f in routes.items():
+            f(theta)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(NUTS_ROUTE_CALLS):
+                f(theta)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3 / NUTS_ROUTE_CALLS)
+    diff = float((routes["autograd_of_sum"](theta)[1] - func(theta)[0]).abs().max())
+    out = {k: min(v) for k, v in ms.items()}
+    print(f"[nuts-10d] a batched value and gradient at {NUTS_CHECK_CHAINS} chains, host ms a "
+          f"call (the lower of two turns of {NUTS_ROUTE_CALLS}): the port's autograd of the sum "
+          f"{out['autograd_of_sum']:.4f}, vmap(grad_and_value) {out['vmap_grad_and_value']:.4f}; "
+          f"turns {ms}; gradients within {diff:.3g} (card: {SMI})")
+    return {**out, "max_abs_grad_diff": diff}
+
+
+def phase_nuts_10d():
+    """nuts-10d: ``bench.nuts`` (nuts_bench.py's configuration: the 10-dim
+    Gaussian, epsilon 0.25, max_depth 8; hmc beside at 50 leapfrog steps,
+    retry=False; float32) at 4,096, 16,384 and 65,536 chains, its JSON line
+    a tier: nuts warmed to its adapted step size (``NUTS_WARM``), hmc at
+    ``NUTS_HMC_TIER`` only (``NUTS_HMC_WARM``), the timed transitions and the
+    stored run cut (``NUTS_TIERS``, ``NUTS_STORED``), the batch's leaves a
+    transition of the timed window beside the stored run's. The two
+    batched value-and-gradient routes timed (``_grad_routes``). Then a
+    ChainArray at 4,096 chains: ``NUTS_CHECK_BURN`` transitions of burn-in,
+    the host reads of ``NUTS_READ_STEPS`` more (torch's sync warnings by
+    source line: the doubling loop's must stay within max_depth - 1 a
+    transition), a stored run of ``NUTS_CHECK_STEPS`` held to the covariance
+    (pooled variances within 10% of diag(A A^T + I), rank-normalized R-hat <
+    1.05; divergences printed), and a profile of a short advance (launches
+    a batch leaf, device idle share). Returns the readings and the stored
+    run's pooled sample and log-probabilities, thinned for kde-marginal."""
+    icov, rng = bench_nuts.make_problem()
+    cov = np.linalg.inv(icov)
+    readings = {}
+    for n_chains, steps in NUTS_TIERS.items():
+        starts = rng.normal(0, 0.1, size=(n_chains, bench_nuts.N_DIM))
+        t0 = time.perf_counter()
+        row = bench_nuts.measure_tier(n_chains, icov, starts, "cuda", steps, NUTS_WARM,
+                                      NUTS_STORED, kinds=("nuts",))
+        if n_chains == NUTS_HMC_TIER:
+            row["hmc"] = bench_nuts.measure_tier(n_chains, icov, starts, "cuda", steps,
+                                                 NUTS_HMC_WARM, NUTS_STORED,
+                                                 kinds=("hmc",))["hmc"]
+        nuts_row = row["nuts"]
+        hmc = (f"hmc {row['hmc']['transitions_per_s']:,.0f} transitions/s, ESS/s "
+               f"{row['hmc']['ess_per_s']:,.0f}" if "hmc" in row else "hmc not run at this count")
+        print(f"[nuts-10d] {n_chains} chains, {row['steps']} steps timed after {NUTS_WARM}, in "
+              f"{time.perf_counter() - t0:.1f} s: nuts {nuts_row['transitions_per_s']:,.0f} "
+              f"transitions/s ({nuts_row['timed_batch_leaves_per_transition']:.2f} batch leaves a "
+              f"transition; the stored run {nuts_row['batch_leaves_per_transition']:.2f}); "
+              f"leapfrog gradients/s of the stored run "
+              f"{nuts_row['stored_lane_leapfrog_grads_per_s']:,.0f} "
+              f"(lanes' own) / {nuts_row['stored_batch_leapfrog_grads_per_s']:,.0f} (the batch's, "
+              f"masked); mean leapfrogs {nuts_row['mean_leapfrogs']:.2f}, mean depth "
+              f"{nuts_row['mean_depth']:.3f}, slowest lane {nuts_row['slowest_lane_leapfrogs']:.1f} "
+              f"a step; ESS/s nuts {nuts_row['ess_per_s']:,.0f} (at most the draw rate over "
+              f"{NUTS_STORED} draws); {hmc}; divergences {nuts_row['divergences']} (card: {SMI})")
+        print(json.dumps(row))
+        readings[n_chains] = row
+    routes = _grad_routes(icov)
+
+    starts = np.random.default_rng(3).normal(0, 0.1, size=(NUTS_CHECK_CHAINS, bench_nuts.N_DIM))
+    ca = ChainArray("nuts", bench_nuts.make_logp(icov, "cuda"), starts, epsilon=bench_nuts.EPSILON,
+                    max_depth=bench_nuts.MAX_DEPTH, seed=2, device="cuda")
+    ca.advance(NUTS_CHECK_BURN, store=False)
+    nuts_kernel.COUNTS.update(leaves=0, reads=0)
+    sites, outside = _host_reads(lambda: ca.advance(NUTS_READ_STEPS, store=False))
+    doubling = nuts_kernel.COUNTS["reads"]
+    in_nuts = sum(v for k, v in sites.items() if k.startswith("nuts.py"))
+    per_step = in_nuts / NUTS_READ_STEPS
+    leaves = nuts_kernel.COUNTS["leaves"] / NUTS_READ_STEPS
+    print(f"[nuts-10d] host reads a transition at {NUTS_CHECK_CHAINS} chains: {per_step:.2f} in "
+          f"the transition (the doubling loop's {doubling / NUTS_READ_STEPS:.2f}; max_depth "
+          f"{bench_nuts.MAX_DEPTH}), {leaves:.1f} batch leaves; by site over {NUTS_READ_STEPS} "
+          f"transitions: {sites}; torch's own {outside}")
+    if in_nuts > doubling or doubling > (bench_nuts.MAX_DEPTH - 1) * NUTS_READ_STEPS:
+        raise RuntimeError("nuts-10d: the transition read the host more than once a doubling")
+
+    t0 = time.perf_counter()
+    ca.advance(NUTS_CHECK_STEPS)
+    seconds = time.perf_counter() - t0
+    s = ca.get_sample()
+    var = s.var(axis=0) / np.diag(cov)
+    rhat = ca.rhat()
+    divergences = int(ca._state.divergences.sum())
+    print(f"[nuts-10d] stored run: {NUTS_CHECK_STEPS} transitions of {NUTS_CHECK_CHAINS} chains "
+          f"in {seconds:.2f} s after {NUTS_CHECK_BURN + NUTS_READ_STEPS}; pooled variances / "
+          f"truth {var.min():.4f}-{var.max():.4f}, R-hat max {rhat.max():.4f}, divergences "
+          f"{divergences}")
+    if np.abs(var - 1.0).max() > NUTS_VAR_RTOL or rhat.max() >= NUTS_RHAT \
+            or not np.isfinite(s).all() or not _on_card(ca._state):
+        raise RuntimeError("nuts-10d: variances, R-hat or the state off")
+    nuts_kernel.COUNTS["leaves"] = 0
+    prof = _profile_run("nuts-10d", lambda: ca.advance(NUTS_PROFILE_STEPS, store=False))
+    prof["launches_per_leaf"] = prof["launches"] / max(nuts_kernel.COUNTS["leaves"], 1)
+    print(f"[nuts-10d profile] {prof['launches_per_leaf']:.1f} kernel launches a batch leaf "
+          f"({nuts_kernel.COUNTS['leaves']} leaves in {NUTS_PROFILE_STEPS} transitions)")
+    thin = max(s.shape[0] // KDE_SAMPLES, 1)
+    sample = (s[::thin][:KDE_SAMPLES], ca.get_probabilities()[::thin][:KDE_SAMPLES])
+    return {"tiers": readings, "grad_routes": routes, "reads_per_transition": per_step,
+            "read_sites": sites,
+            "leaves_per_transition": leaves, "var_ratio_min": float(var.min()),
+            "var_ratio_max": float(var.max()), "rhat_max": float(rhat.max()),
+            "divergences": divergences, "stored_s": seconds, "profile": prof}, sample
+
+
+def phase_nuts_twin():
+    """nuts-twin: 64 chains of the nuts-10d Gaussian in float64 on one set
+    of injected draws (numpy, seed 8), ``NUTS_TWIN_STEPS`` transitions on
+    the card and on the CPU: positions, log-probabilities and cached
+    gradients within 1e-12 (max |card - CPU| over max |CPU|), tree depths,
+    leapfrog counts and divergence flags equal."""
+    icov = bench_nuts.make_problem()[0]
+    K, P, D = NUTS_TWIN_CHAINS, bench_nuts.N_DIM, bench_nuts.MAX_DEPTH
+    rng = np.random.default_rng(8)
+    starts = rng.normal(0, 1, size=(K, P))
+    draws = [(rng.normal(size=(K, P)), rng.uniform(size=(K, D)), rng.uniform(size=(K, D)),
+              rng.uniform(size=(K, 2**D - 1))) for _ in range(NUTS_TWIN_STEPS)]
+    runs = []
+    for device in ("cuda", "cpu"):
+        A = torch.as_tensor(icov, dtype=F64, device=device)
+        logp = lambda t, A=A: -0.5 * t @ A @ t
+        init, step = build_kind("nuts", logp, P, F64, device, epsilon=bench_nuts.EPSILON,
+                                max_depth=D)
+        theta = torch.as_tensor(starts, dtype=F64, device=device)
+        with torch.no_grad():
+            state, outs = init(theta, torch.func.vmap(logp)(theta)), []
+            for d in draws:
+                state, out = step(state, None, *(torch.as_tensor(x, dtype=F64, device=device)
+                                                 for x in d))
+                outs.append(out)
+        runs.append((state, outs))
+    (sc, oc), (sh, oh) = runs
+    errs = {f: _rel(getattr(sc, f), getattr(sh, f)) for f in ("theta", "logp", "grad")}
+    errs["outputs"] = max(max(_rel(a.theta, b.theta), _rel(a.logp, b.logp))
+                          for a, b in zip(oc, oh))
+    equal = all(torch.equal(getattr(a, f).cpu(), getattr(b, f))
+                for a, b in zip(oc, oh) for f in ("tree_depth", "leapfrog_steps", "divergent"))
+    depths = torch.stack([o.tree_depth for o in oh]).double()
+    print(f"[nuts-twin] {K} chains x {NUTS_TWIN_STEPS} transitions, float64, card vs CPU: "
+          f"relative differences {errs}; depths, leapfrog counts and divergence flags equal: "
+          f"{equal} (mean depth {float(depths.mean()):.2f}, max {int(depths.max())})")
+    if max(errs.values()) > NUTS_TWIN_RTOL or not equal:
+        raise RuntimeError("nuts-twin: the card's NUTS transitions differ from the CPU's")
+    return {"rel_err": errs, "discrete_equal": equal}
+
+
+def _nuts_demo_run(device, seed=0):
+    """demos/nuts_demo.py's chain cut to ``NUTS_DEMO_STEPS`` transitions:
+    one NutsChain on the toroidal posterior from [1, 0.1, 0.1]. Returns the
+    chain, its seconds, and the mean ring radius and z-thickness after
+    ``NUTS_DEMO_BURN``."""
+    chain = NutsChain(Toroidal(), start=np.array([1.0, 0.1, 0.1]), seed=seed,
+                      display_progress=False, device=device)
+    t0 = time.perf_counter()
+    chain.advance(NUTS_DEMO_STEPS)
+    seconds = time.perf_counter() - t0
+    s = chain.get_sample(burn=NUTS_DEMO_BURN)
+    return chain, seconds, float(np.hypot(s[:, 0], s[:, 1]).mean()), float(s[:, 2].std())
+
+
+def rehearse_nuts_demo(seeds=range(8)):
+    """The CPU rehearsals behind ``NUTS_DEMO_RADIUS`` and ``NUTS_DEMO_THICK``:
+    ``_nuts_demo_run`` on the CPU in float32 at each seed, each reading
+    printed, then the readings' range and standard deviation. Run as
+    ``python -c "import chip_smoke; chip_smoke.rehearse_nuts_demo()"``."""
+    torch.set_default_dtype(torch.float32)
+    runs = np.array([_nuts_demo_run("cpu", seed)[2:] for seed in seeds])
+    for seed, (radius, thick) in zip(seeds, runs):
+        print(f"[nuts-demo rehearsal] seed {seed}: radius {radius:.4f}, thickness {thick:.4f}")
+    for name, x in (("radius", runs[:, 0]), ("thickness", runs[:, 1])):
+        print(f"[nuts-demo rehearsal] {name} {x.min():.4f}-{x.max():.4f} (sd {x.std(ddof=1):.4f})")
+
+
+def phase_nuts_demo():
+    """nuts-demo: ``_nuts_demo_run`` on the card, seed 0 (the demo's 6,000
+    transitions cut to ``NUTS_DEMO_STEPS``; burn ``NUTS_DEMO_BURN``): the
+    mean ring radius and the z-thickness within the CPU rehearsals' bands,
+    the mean and largest depth and the divergences printed."""
+    chain, seconds, radius, thick = _nuts_demo_run("cuda")
+    depths = chain.tree_depths[NUTS_DEMO_BURN:]
+    print(f"[nuts-demo] {NUTS_DEMO_STEPS} transitions in {seconds:.1f} s "
+          f"({NUTS_DEMO_STEPS / seconds:.1f} transitions/s, "
+          f"{np.sum(chain.leapfrog_steps) / seconds:,.0f} leapfrog "
+          f"steps/s); mean ring radius {radius:.4f} (true 1.0, band {NUTS_DEMO_RADIUS}), "
+          f"z-thickness {thick:.4f} (true 0.05, band {NUTS_DEMO_THICK}); depth mean "
+          f"{depths.mean():.2f}, max {depths.max()}; divergences {chain.n_divergences} "
+          f"(card: {SMI})")
+    if not (NUTS_DEMO_RADIUS[0] < radius < NUTS_DEMO_RADIUS[1]
+            and NUTS_DEMO_THICK[0] < thick < NUTS_DEMO_THICK[1]) or not _on_card(chain._state):
+        raise RuntimeError("nuts-demo: the ring's radius or thickness is off")
+    return {"seconds": seconds, "radius": radius, "thickness": thick,
+            "depth_mean": float(depths.mean()), "depth_max": int(depths.max()),
+            "divergences": chain.n_divergences}
+
+
+def _grad_errors(pt):
+    """Each rung's cached gradient against inv_temp x the posterior's
+    gradient at its position (torch.func on the card): the largest
+    |cache - expected| / (1e-5 |expected| + 1e-6), which must stay <= 1."""
+    state = pt._batched_state
+    with torch.no_grad():
+        expected = torch.func.vmap(torch.func.grad(bimodal_bench))(state.theta)
+    expected = expected * state.inv_temp[:, None]
+    return float(((state.grad - expected).abs() / (1e-5 * expected.abs() + 1e-6)).max())
+
+
+def phase_pt_nuts():
+    """pt-nuts-3: tests/mcmc/test_parallel.py:212-247's ladder on the card:
+    3 NutsChain rungs on the bimodal posterior at T = 1, 3, 10, max_depth 5,
+    ``advance(120, swap_interval=5)`` through the R-row NUTS step. Checks:
+    swaps accepted off the diagonal, each rung's cached gradient = inv_temp
+    x grad logp at its position (rtol 1e-5, atol 1e-6) after the fused swaps
+    and again after 10 host swap()s, every rung's depths recorded."""
+    pt = ParallelTempering([
+        NutsChain(bimodal_bench, start=np.array([4.0]), temperature=T, max_depth=PT_NUTS_DEPTH,
+                  display_progress=False, seed=3 + i, device="cuda")
+        for i, T in enumerate(PT_NUTS_TEMPS)])
+    if pt._heterogeneous or pt._run_steps is not nuts_kernel.run_steps:
+        raise RuntimeError("pt-nuts-3: the NUTS ladder did not take the R-row NUTS step")
+    t0 = time.perf_counter()
+    pt.advance(PT_NUTS_STEPS, swap_interval=PT_NUTS_INTERVAL)
+    seconds = time.perf_counter() - t0
+    off = float(pt.successful_swaps.sum() - np.trace(pt.successful_swaps))
+    fused = _grad_errors(pt)
+    for _ in range(10):
+        pt.swap()
+    host = _grad_errors(pt)
+    chains = pt.return_chains()
+    depths = [float(c.tree_depths[1:].mean()) for c in chains]
+    print(f"[pt-nuts-3] advance({PT_NUTS_STEPS}, swap_interval={PT_NUTS_INTERVAL}) in "
+          f"{seconds:.2f} s; {off:.0f} swaps accepted off the diagonal; cached gradients' "
+          f"error / tolerance after the fused swaps {fused:.3g}, after 10 host swaps {host:.3g}; "
+          f"mean depth by rung {[round(d, 3) for d in depths]} (card: {SMI})")
+    if off <= 0 or fused > 1.0 or host > 1.0 \
+            or any(c.tree_depths.shape != (PT_NUTS_STEPS + 1,) for c in chains):
+        raise RuntimeError("pt-nuts-3: no swap, a stale cached gradient or missing depths")
+    return {"seconds": seconds, "swaps_off_diagonal": off, "grad_err_fused": fused,
+            "grad_err_host": host, "depth_means": depths}
+
+
+def _chain_items(sample, probs):
+    """A NutsChain's checkpoint items holding ``sample`` as its history."""
+    n, P = sample.shape
+    return {"inv_mass": 1.0, "inv_temp": 1.0, "theta": sample, "probs": probs,
+            "leapfrog_steps": np.zeros(n, int), "tree_depths": np.zeros(n, int),
+            "divergent": np.zeros(n, bool), "divergences": 0, "n_parameters": P,
+            "chain_length": n, "max_depth": bench_nuts.MAX_DEPTH, "display_progress": False,
+            **EpsilonSelector(bench_nuts.EPSILON).get_items()}
+
+
+def phase_kde_marginal(sample, probs):
+    """kde-marginal: nuts-10d's stored run (``KDE_SAMPLES`` pooled draws) as
+    one chain's history on the card and on the CPU (``NutsChain.from_items``):
+    ``get_marginal(0)`` (Silverman) and ``GaussianKDE(cross_validation=True)``
+    on the same draws (subsample from one seed), card against CPU: the
+    bandwidth, pdf and cdf at ``KDE_POINTS`` points within 1e-10 (max |card
+    - CPU| over max |CPU|); ``get_interval()`` and ``sample_hdi_device``
+    against ``sample_hdi`` equal; ``get_marginal(0, unimodal=True)``: at the
+    CPU's MAP the card's objective within 1e-12 of the CPU's, and the card's
+    MAP no worse than the CPU's by 1e-9 of the objective."""
+    chains = {label: NutsChain.from_items(_chain_items(sample, probs), device=dev)
+              for label, dev in (("card", "cuda"), ("cpu", "cpu"))}
+    x = np.linspace(sample[:, 0].min() - 1.0, sample[:, 0].max() + 1.0, KDE_POINTS)
+    out, timing = {}, {}
+    for label, make in (
+        ("silverman", lambda c: c.get_marginal(0)),
+        ("cross_validation", lambda c: GaussianKDE(c.get_parameter(0), cross_validation=True,
+                                                   rng=np.random.default_rng(0),
+                                                   device=c.device)),
+    ):
+        kdes = {}
+        for dev, c in chains.items():
+            t0 = time.perf_counter()
+            kdes[dev] = make(c)
+            pdf, cdf = kdes[dev](x), kdes[dev].cdf(x)
+            timing[f"{label} {dev}"] = time.perf_counter() - t0
+            kdes[dev] = (kdes[dev], pdf, cdf)
+        (kc, pc, cc), (kh, ph, ch) = kdes["card"], kdes["cpu"]
+        out[label] = {"h": kc.h, "h_rel": abs(kc.h - kh.h) / kh.h, "pdf_rel": _rel(pc, ph),
+                      "cdf_rel": _rel(cc, ch), "mode_card": kc.mode, "mode_cpu": kh.mode}
+    s_card, p_card = chains["card"].get_interval()
+    s_cpu, p_cpu = chains["cpu"].get_interval()
+    interval_equal = np.array_equal(s_card, s_cpu) and np.array_equal(p_card, p_cpu)
+    draws = torch.as_tensor(sample, dtype=F64, device="cuda")
+    hdi_equal = all(np.array_equal(sample_hdi_device(draws[:, 0], f).cpu().numpy(),
+                                   sample_hdi(sample[:, 0], f))
+                    and np.array_equal(sample_hdi_device(draws, f).cpu().numpy(),
+                                       sample_hdi(sample, f)) for f in (0.2, 0.6827, 0.95))
+    unimodal = {}
+    for dev, c in chains.items():
+        t0 = time.perf_counter()
+        unimodal[dev] = c.get_marginal(0, unimodal=True)
+        timing[f"unimodal {dev}"] = time.perf_counter() - t0
+    uc, uh = unimodal["card"], unimodal["cpu"]
+    obj_rel = abs(uc.posterior(uh.MAP) - uh.posterior(uh.MAP)) / abs(uh.posterior(uh.MAP))
+    best_card, best_cpu = uc.posterior(uc.MAP), uh.posterior(uh.MAP)
+    map_ok = best_card >= best_cpu - UNIMODAL_MAP_RTOL * abs(best_cpu)
+    print(f"[kde-marginal] {sample.shape[0]} draws of nuts-10d's stored run, {KDE_POINTS} "
+          f"points: {json.dumps(out)}; get_interval() equal: {interval_equal} "
+          f"({s_card.shape[0]} kept); sample_hdi_device = sample_hdi: {hdi_equal}")
+    print(f"[kde-marginal] UnimodalPdf MAP card {np.round(uc.MAP, 8).tolist()}, CPU "
+          f"{np.round(uh.MAP, 8).tolist()}; objective at the CPU's MAP card vs CPU {obj_rel:.3g}; "
+          f"log-posterior at each MAP card {best_card:.12g}, CPU {best_cpu:.12g}; seconds "
+          f"{ {k: round(v, 3) for k, v in timing.items()} } (card: {SMI})")
+    worst = max(max(v["h_rel"], v["pdf_rel"], v["cdf_rel"]) for v in out.values())
+    if worst > KDE_RTOL or not interval_equal or not hdi_equal \
+            or obj_rel > UNIMODAL_OBJ_RTOL or not map_ok:
+        raise RuntimeError("kde-marginal: the card's density estimates differ from the CPU's")
+    return {**out, "interval_equal": interval_equal, "hdi_equal": hdi_equal,
+            "unimodal_obj_rel": obj_rel, "unimodal_logp_card": best_card,
+            "unimodal_logp_cpu": best_cpu, "seconds": timing}
 
 
 # ---------------------------------------------------------------------------
@@ -2569,6 +3023,7 @@ RQ_THETA = np.array([0.0, 0.5, 0.5, 0.5, np.log(0.05)])
 INV_ERR = 0.02
 INV_CG_KW = dict(block_size=4096, cg_tol=1e-4, cg_maxiter=2000, dtype="float32")
 INV_DF64_KW = dict(block_size=4096, cg_tol=1e-10, cg_maxiter=6000)
+INV_VARIANCES = 8  # variances of the cg and df64 "auto" runs (16, cut to fit the script's time)
 SMI = ""  # nvidia-smi's name and power limit, set by phase_device
 
 
@@ -2988,7 +3443,8 @@ def phase_inversion_50k():
     and df64 with store_entries "auto" (B5 once, then B6) and False (B3/B4)
     at cg_tol 1e-10. Checks: the plain-route data-space residual (1e-3 for
     cg, 1e-9 for df64), the cg means within 1e-2 of df64's (relative), the
-    two df64 stores' means within 1e-7, 16 variances (cg, df64 "auto")
+    two df64 stores' means within 1e-7, ``INV_VARIANCES`` variances (cg,
+    df64 "auto")
     positive, at most the prior variance and cg's within 1e-3 of df64's,
     predict_data's rms against y at most 3 y_err for every tier. The mixed
     tier (the JAX package's mixed_pcg: the direction reset to steepest
@@ -3004,7 +3460,7 @@ def phase_inversion_50k():
     27.3 and 20.4 s on an H100, PR 15) equal their cold solves less the
     constructor's set-up."""
     xp, A, y, err = make_inversion_data(LARGE_N, 4096)
-    idx = np.random.default_rng(5).choice(len(xp), 16, replace=False)
+    idx = np.random.default_rng(5).choice(len(xp), INV_VARIANCES, replace=False)
     runs, launches = {}, {}
     for name, kw, needs, limit, sel in (
             ("cg", dict(INV_CG_KW, solver="cg"), ("B2",), 1e-3, idx),
@@ -3588,6 +4044,9 @@ FIT_STARTS = 16
 # no worse than the CPU's multistart from the same clouds under that state
 # (BO_TWIN_RTOL of it)
 BO_TWIN_RTOL, BO_TWIN_LML_RTOL = 1e-10, 1e-9
+# timed warm iterations in float32 (the bench's 10, cut to fit the script's
+# time); float64 keeps 10: its twin is held at that state
+BO_WARM_ITERATIONS_F32 = 5
 BO_TWIN_Y_SCALE = 1.0 + 1e-15
 
 
@@ -3870,8 +4329,9 @@ def phase_bo_warm():
         t_phase = time.perf_counter()
         _reset_launches()
         reads0 = optimize.COUNTS["host_reads"]
-        result, opt = bo_warm.measure(CUDA, dtype=dtype)
-        n_iter = bo_warm.WARMUP + bo_warm.ITERATIONS
+        iterations = bo_warm.ITERATIONS if dtype == F64 else BO_WARM_ITERATIONS_F32
+        result, opt = bo_warm.measure(CUDA, iterations=iterations, dtype=dtype)
+        n_iter = bo_warm.WARMUP + iterations
         reads = (optimize.COUNTS["host_reads"] - reads0) / n_iter
         prof = _profile_bo_iteration(opt)
         added = opt.x[bo_warm.N_START:]
@@ -3889,7 +4349,7 @@ def phase_bo_warm():
         label = str(dtype).rsplit(".", 1)[-1]
         w = result["warm_iteration_s"]
         print(f"[bo-warm-2d {label}] warm iteration median {w['median']:.3f} s, min "
-              f"{w['min']:.3f} s, max {w['max']:.3f} s over {bo_warm.ITERATIONS}; best objective "
+              f"{w['min']:.3f} s, max {w['max']:.3f} s over {iterations}; best objective "
               f"{result['best_objective']!r}; host reads an iteration {reads:.1f}; one iteration "
               f"profiled: {prof['wall_ms']:.1f} ms wall, {prof['device_ms']:.1f} ms of device "
               f"kernels (idle {prof['idle_pct']:.1f}%), {prof['kernel_launches']} kernel "
@@ -4026,6 +4486,17 @@ def main():
     print(json.dumps({"tempering_ensemble": {**tempering, **ensemble}}, default=float))
     print(f"[summary] parallel tempering {t_ens - t_pt:.1f} s, the ensemble sampler "
           f"{time.perf_counter() - t_ens:.1f} s (card: {SMI})")
+    _free()
+    t_nuts = time.perf_counter()
+    nuts10, kde_draws = phase_nuts_10d()
+    nuts = {"nuts-10d": nuts10, "nuts-twin": phase_nuts_twin(), "nuts-demo": phase_nuts_demo(),
+            "pt-nuts-3": phase_pt_nuts()}
+    t_kde = time.perf_counter()
+    kde_marginal = phase_kde_marginal(*kde_draws)
+    print(json.dumps({"nuts_pdf": {**nuts, "kde-marginal": kde_marginal}}, default=float))
+    print(f"[summary] NUTS (nuts-10d, nuts-twin, nuts-demo, pt-nuts-3) {t_kde - t_nuts:.1f} s, "
+          f"kde-marginal {time.perf_counter() - t_kde:.1f} s (card: {SMI})")
+    del kde_draws
     _free()
 
     x16k, y16k, err16k = make_gp_data(GP_N)

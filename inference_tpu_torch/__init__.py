@@ -1,13 +1,16 @@
 """PyTorch and CUDA port of ``inference_tpu`` for NVIDIA Hopper GPUs.
 
 The JAX package ``inference_tpu`` stays the reference. This package ports
-its batched samplers (``parallel.ChainArray`` for the "hmc", "gibbs",
-"metropolis" and "pca" kinds, with the fused whole-trajectory HMC kernel
-``ops.hmc_fused`` written in CUDA C++), the single-chain
-``mcmc.HamiltonianChain`` with reflecting ``Bounds``, ``MetropolisChain``,
-``GibbsChain`` and ``PcaChain``, the ``EnsembleSampler`` (and
-``ChainArray``'s "ensemble" kind), parallel tempering on one device
-(``ParallelTempering``, ``ChainPool``), posteriors written with numpy
+its batched samplers (``parallel.ChainArray`` for every kind: "hmc", with
+the fused whole-trajectory HMC kernel ``ops.hmc_fused`` written in CUDA
+C++, "nuts", "gibbs", "metropolis", "pca" and "ensemble"), the single-chain
+``mcmc.HamiltonianChain`` with reflecting ``Bounds``, ``NutsChain``,
+``MetropolisChain``, ``GibbsChain`` and ``PcaChain``, the
+``EnsembleSampler``, parallel tempering on one device
+(``ParallelTempering``, ``ChainPool``, NUTS ladders included), the 1D
+density estimators of ``pdf`` (``GaussianKDE``, ``UnimodalPdf``,
+``sample_hdi``) behind a chain's ``get_marginal`` and ``get_interval``,
+posteriors written with numpy
 (evaluated on the host, ``utils.wrap``), the
 posterior building blocks of ``models`` (likelihoods, priors,
 ``Posterior``), its dense Gaussian-process path (``gp.GpRegressor``, with
@@ -19,7 +22,7 @@ the BFGS batched over starts of ``utils.optimize``) and the matrix-free GP
 (``gp.LargeScaleGP`` in its cg, mixed and df64 tiers, with ``fit()``, and
 ``gp.LargeScaleGpLinearInverter``; the FP64 kernels of ``ops.df64`` in CUDA
 C++ serve the small-noise df64 tier). Its benches are ``bench.headline``,
-``bench.dense_hmc`` and ``bench.bo_warm``.
+``bench.dense_hmc``, ``bench.bo_warm`` and ``bench.nuts``.
 Its entry points run on the card unless the caller passes
 ``device="cpu"``. It imports torch, numpy and scipy, never jax.
 """
@@ -33,6 +36,7 @@ from .mcmc import (
     GibbsChain,
     HamiltonianChain,
     MetropolisChain,
+    NutsChain,
     ParallelTempering,
     PcaChain,
 )
@@ -47,6 +51,7 @@ from .models import (
     UniformPrior,
 )
 from .gp import GpLinearInverter, GpOptimiser, GpRegressor
+from .pdf import GaussianKDE, UnimodalPdf, sample_hdi
 
 __all__ = [
     "MetropolisChain",
@@ -54,6 +59,7 @@ __all__ = [
     "PcaChain",
     "EnsembleSampler",
     "HamiltonianChain",
+    "NutsChain",
     "ParallelTempering",
     "ChainPool",
     "Bounds",
@@ -68,4 +74,7 @@ __all__ = [
     "GpRegressor",
     "GpOptimiser",
     "GpLinearInverter",
+    "GaussianKDE",
+    "UnimodalPdf",
+    "sample_hdi",
 ]

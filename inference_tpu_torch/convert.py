@@ -31,14 +31,21 @@ try_count ``(K, P)`` int32, the key ``(K, 2)`` uint32 and inv_temp
 ``(K,)``; its ``PcaState`` adds directions ``(K, P, P)`` as an 11th
 (``metropolis_state_from_jax``, ``metropolis_state_to_jax_leaves``).
 
+The JAX package's batched ``NutsState`` (the nuts kind) flattens to 11
+leaves: theta ``(K, P)``, logp ``(K,)``, the cached tempered gradient
+``(K, P)``, the five step-size fields ``(K,)``, the key ``(K, 2)`` uint32,
+divergences ``(K,)`` int32 and inv_temp ``(K,)`` (``nuts_state_from_jax``,
+``nuts_state_to_jax_leaves``).
+
 The JAX package's batched ``EnsembleState`` (the ensemble kind) flattens
 to 4 leaves: walkers ``(K, W, P)``, logps ``(K, W)``, the key ``(K, 2)``
 uint32 and inv_temp ``(K,)`` (``ensemble_state_from_jax``,
 ``ensemble_state_to_jax_leaves``).
 
-A ``HamiltonianChain``, ``GibbsChain``, ``MetropolisChain``, ``PcaChain``
-or ``EnsembleSampler`` crosses as its checkpoint items, the ``.npz`` keys
-both packages save (``hamiltonian_chain_from_jax``, ``gibbs_chain_from_jax``,
+A ``HamiltonianChain``, ``NutsChain``, ``GibbsChain``, ``MetropolisChain``,
+``PcaChain`` or ``EnsembleSampler`` crosses as its checkpoint items, the
+``.npz`` keys both packages save (``hamiltonian_chain_from_jax``,
+``nuts_chain_from_jax``, ``gibbs_chain_from_jax``,
 ``pca_chain_from_jax``, ``ensemble_sampler_from_jax``, which also carries
 the sampler's inverse temperature and ``retry``); a ``ParallelTempering``
 crosses as its chains (``parallel_tempering_from_jax``).
@@ -56,9 +63,11 @@ from .mcmc._kernels.common import AdaptiveScale
 from .mcmc._kernels.ensemble import EnsembleState
 from .mcmc._kernels.hmc import HmcState
 from .mcmc._kernels.metropolis import MetropolisState, PcaState
+from .mcmc._kernels.nuts import NutsState
 from .mcmc.ensemble import EnsembleSampler
 from .mcmc.gibbs import GibbsChain, MetropolisChain
 from .mcmc.hmc import HamiltonianChain
+from .mcmc.nuts import NutsChain
 from .mcmc.parallel import ParallelTempering
 from .mcmc.pca import PcaChain
 from .mcmc.hmc.mass import get_particle_mass
@@ -70,6 +79,7 @@ from .utils.dtypes import default_float
 N_HMC_LEAVES = 11
 N_METROPOLIS_LEAVES = 10  # a PcaState has one more, its directions
 N_ENSEMBLE_LEAVES = 4
+N_NUTS_LEAVES = 11
 
 
 def hmc_state_from_jax(leaves, device="cuda", dtype=None) -> HmcState:
@@ -112,6 +122,48 @@ def hmc_state_to_jax_leaves(state: HmcState, key) -> list:
         host(state.failed),
         host(state.inv_temp),
         host(state.steps),
+    ]
+
+
+def nuts_state_from_jax(leaves, device="cuda", dtype=None) -> NutsState:
+    """The port's ``NutsState`` from the 11 leaves of a JAX batched
+    ``NutsState``, on ``device`` (the card unless the caller passes
+    ``"cpu"``). Floating leaves take ``dtype`` (default: theta's own dtype);
+    the key leaf is read and ignored."""
+    device = resolve_device(device, "nuts_state_from_jax")
+    if len(leaves) != N_NUTS_LEAVES:
+        raise ValueError(f"a NutsState has {N_NUTS_LEAVES} leaves, got {len(leaves)}")
+    theta, logp, grad, ev, ea, evr, en, ec, _key, divergences, inv_temp = (
+        np.asarray(x) for x in leaves
+    )
+    dtype = dtype or torch.tensor(theta[:0]).dtype
+    f = lambda x: torch.tensor(x, dtype=dtype, device=device)
+    i = lambda x: torch.tensor(x, dtype=torch.int32, device=device)
+    return NutsState(
+        theta=f(theta),
+        logp=f(logp),
+        grad=f(grad),
+        eps=AdaptiveScale(f(ev), f(ea), f(evr), i(en), i(ec)),
+        divergences=i(divergences),
+        inv_temp=f(inv_temp),
+    )
+
+
+def nuts_state_to_jax_leaves(state: NutsState, key) -> list:
+    """The 11 leaves of a JAX batched ``NutsState`` as numpy arrays, with
+    ``key`` (a ``(K, 2)`` uint32 array) as the key leaf."""
+    host = lambda x: x.detach().cpu().numpy()
+    key = np.asarray(key, dtype=np.uint32)
+    if key.shape != (state.theta.shape[0], 2):
+        raise ValueError(f"the key leaf must be (K, 2), got {key.shape}")
+    return [
+        host(state.theta),
+        host(state.logp),
+        host(state.grad),
+        *(host(x) for x in state.eps),
+        key,
+        host(state.divergences),
+        host(state.inv_temp),
     ]
 
 
@@ -236,7 +288,7 @@ def parallel_tempering_from_jax(pt, posterior, grad=None, seed=None, device="cud
     ``ParallelTempering`` (its states synchronised first), each carried by
     its class's conversion above on ``device`` (default the card), at its
     temperature. ``posterior`` is the torch (or numpy) posterior of every
-    rung; ``grad`` goes to the HMC rungs; rung k's generator takes ``seed +
+    rung; ``grad`` goes to the HMC and NUTS rungs; rung k's generator takes ``seed +
     k`` when a seed is given. The pairing stream ``rng`` starts afresh."""
     rungs = []
     for k, chain in enumerate(pt.return_chains()):
@@ -244,6 +296,8 @@ def parallel_tempering_from_jax(pt, posterior, grad=None, seed=None, device="cud
         name = type(chain).__name__
         if name == "HamiltonianChain":
             rungs.append(hamiltonian_chain_from_jax(chain, posterior, grad=grad, **kw))
+        elif name == "NutsChain":
+            rungs.append(nuts_chain_from_jax(chain, posterior, grad=grad, **kw))
         elif name == "PcaChain":
             rungs.append(pca_chain_from_jax(chain, posterior, **kw))
         elif name in ("GibbsChain", "MetropolisChain"):
@@ -269,6 +323,18 @@ def hamiltonian_chain_from_jax(chain, posterior, grad=None, seed=None, device="c
     own ``save`` writes (into memory). With ``posterior`` (a torch
     callable) it continues from the last stored step."""
     return HamiltonianChain.from_items(
+        np.load(_checkpoint_buffer(chain)), posterior=posterior, grad=grad, seed=seed,
+        device=device,
+    )
+
+
+def nuts_chain_from_jax(chain, posterior, grad=None, seed=None, device="cuda"):
+    """The port's ``NutsChain`` carrying a JAX ``NutsChain``'s state on
+    ``device`` (default the card): its history with the tree depths and
+    divergence flags, step-size adaptation, mass, ``max_depth`` and
+    divergence count, read from the ``.npz`` items its own ``save`` writes.
+    With ``posterior`` it continues from the last stored step."""
+    return NutsChain.from_items(
         np.load(_checkpoint_buffer(chain)), posterior=posterior, grad=grad, seed=seed,
         device=device,
     )

@@ -1,12 +1,13 @@
 """Samplers: the batched transitions (``_kernels``), the single-chain
-``HamiltonianChain``, ``MetropolisChain``, ``GibbsChain`` and ``PcaChain``,
-the ``EnsembleSampler`` and the one-device ``ParallelTempering`` and
-``ChainPool``. ``NutsChain`` is not ported yet (ROADMAP queue A12)."""
+``HamiltonianChain``, ``NutsChain``, ``MetropolisChain``, ``GibbsChain`` and
+``PcaChain``, the ``EnsembleSampler`` and the one-device
+``ParallelTempering`` and ``ChainPool``."""
 
 from .gibbs import GibbsChain, MetropolisChain
 from .pca import PcaChain
 from .ensemble import EnsembleSampler
 from .hmc import HamiltonianChain
+from .nuts import NutsChain
 from .parallel import ChainPool, ParallelTempering
 from .utilities import Bounds, ChainProgressPrinter, effective_sample_size
 
@@ -16,6 +17,7 @@ __all__ = [
     "PcaChain",
     "EnsembleSampler",
     "HamiltonianChain",
+    "NutsChain",
     "ParallelTempering",
     "ChainPool",
     "Bounds",

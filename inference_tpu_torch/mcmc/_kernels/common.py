@@ -2,7 +2,10 @@
 
 Port of ``inference_tpu.mcmc._kernels.common``: the acceptance-rate-driven
 scale adaptation as fixed-shape ``torch.where`` updates, so one update
-serves a whole batch of chains.
+serves a whole batch of chains; and ``value_and_grad``, the one route by
+which every gradient-based kernel (the hmc and nuts kinds, the tempering
+ladder's rows, ``HamiltonianChain`` and ``NutsChain``) differentiates a
+torch posterior.
 """
 
 from typing import NamedTuple
@@ -37,6 +40,34 @@ def init_adaptive_scale(value, chk_int):
     )
 
 
+def value_and_grad(logp_fn):
+    """The log-probabilities and gradients of a batch of chains, ``(K, P)
+    -> ((K,), (K, P))``, from ``logp_fn``, a torch callable over one
+    chain's ``(P,)``: the values by ``torch.func.vmap`` (a batch of one
+    needs no vmap) and the gradients by one backward pass of their sum. The
+    lanes are independent, so that is each lane's gradient."""
+    many = torch.func.vmap(logp_fn)
+
+    def value_and_grad(t):
+        with torch.enable_grad():
+            x = t.detach().requires_grad_(True)
+            v = logp_fn(x[0]).reshape(1) if t.shape[0] == 1 else many(x)
+            if not v.requires_grad:  # a posterior that ignores its input
+                return v, torch.zeros_like(t)
+            (g,) = torch.autograd.grad(v.sum(), x)
+        return v.detach(), g
+
+    return value_and_grad
+
+
+def _on_device(mask, device):
+    """``mask`` as a bool tensor on ``device``; a Python flag is filled
+    there rather than copied (a copy to the card syncs the host)."""
+    if isinstance(mask, torch.Tensor):
+        return mask.to(device)
+    return torch.full((), bool(mask), device=device)
+
+
 def submit_accept_prob(
     state: AdaptiveScale,
     p,
@@ -57,7 +88,7 @@ def submit_accept_prob(
     """
     fdtype = state.value.dtype
     p = torch.as_tensor(p, dtype=fdtype, device=state.value.device)
-    mask = torch.as_tensor(mask, device=state.value.device)
+    mask = _on_device(mask, state.value.device)
     zero = torch.zeros((), dtype=fdtype, device=p.device)
 
     num = state.num + mask.to(torch.int32)
@@ -79,7 +110,9 @@ def submit_accept_prob(
     # mu is clipped slightly below 1 to keep log(mu) finite (in float32
     # the upper clip rounds to 1.0, as it does in the JAX package)
     mu_safe = torch.clamp(mu, 1e-12, 1.0 - 1e-12)
-    log_target = torch.log(torch.tensor(target, dtype=fdtype, device=p.device))
+    # filled on the device: a tensor made from a Python number on the card
+    # is a blocking copy, a host sync each call
+    log_target = torch.log(torch.full((), target, dtype=fdtype, device=p.device))
     ratio = log_target / torch.log(mu_safe)
     adj = torch.clamp(ratio**adjust_power, adjust_min, adjust_max)
 
@@ -101,7 +134,7 @@ def submit_accept_prob(
 
 def rescale(state: AdaptiveScale, ratio, mask=True):
     """Directly rescale ``value`` and reset the counters."""
-    mask = torch.as_tensor(mask, device=state.value.device)
+    mask = _on_device(mask, state.value.device)
     zero = torch.zeros((), dtype=state.value.dtype, device=state.value.device)
     return AdaptiveScale(
         value=torch.where(mask, state.value * ratio, state.value),

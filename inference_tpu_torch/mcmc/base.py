@@ -5,10 +5,10 @@ Port of ``inference_tpu.mcmc.base``: the ``MarkovChain`` base class with
 getters and the removed ``burn``/``thin`` attribute errors. ``advance(m)``
 splits the run into 100 progress groups like the reference
 (reference: base.py:31-46), each run as power-of-two chunks of steps
-(``_run_chunk``). ``get_marginal`` and ``get_interval`` (which return
-``pdf`` density estimators and sample sets) and the ``matrix_plot`` and
-``trace_plot`` wrappers raise until ROADMAP queue A14 ports ``pdf/`` and
-the plotting module.
+(``_run_chunk``). ``get_marginal`` returns a ``pdf`` density estimator of
+one parameter on the chain's device and ``get_interval`` the samples inside
+a highest-density interval; the ``matrix_plot`` and ``trace_plot`` wrappers
+raise until ROADMAP queue A14(b) ports the plotting module.
 """
 
 from abc import ABC, abstractmethod
@@ -26,6 +26,7 @@ _MAX_CHUNK = 2048
 class MarkovChain(ABC):
     chain_length: int
     n_parameters: int
+    device: "torch.device"
     ProgressPrinter: ChainProgressPrinter
 
     @abstractmethod
@@ -111,29 +112,65 @@ class MarkovChain(ABC):
     def _not_ported(self, what: str):
         raise NotImplementedError(
             f"[ {self.__class__.__name__} error ] {what} is not ported to "
-            "inference_tpu_torch yet (ROADMAP queue A14: pdf/, plotting)."
+            "inference_tpu_torch yet (ROADMAP queue A14(b): plotting)."
         )
 
     def get_marginal(self, index: int, burn: int = 1, thin: int = 1, unimodal=False):
-        """A 1D marginal density estimator of one parameter: needs the
-        ``pdf`` module (ROADMAP queue A14)."""
-        self._not_ported("get_marginal")
+        """
+        Estimate the 1D marginal distribution of a chosen parameter, returning
+        a ``GaussianKDE`` (default) or ``UnimodalPdf`` density estimator on the
+        chain's device (reference: base.py:75-107).
+        """
+        from ..pdf import GaussianKDE, UnimodalPdf
+
+        samples = self.get_parameter(index, burn=burn, thin=thin)
+        estimator = UnimodalPdf if unimodal else GaussianKDE
+        return estimator(samples, device=self.device)
 
     def get_interval(
-        self, interval: float = 0.95, burn: int = 1, thin: int = 1, samples: int = None
+        self, interval: float = 0.95, burn: int = 1, thin: int = 1, samples: int = None,
+        rng=None,
     ):
-        """The samples inside a highest-density interval (ROADMAP queue
-        A14)."""
-        self._not_ported("get_interval")
+        """
+        Return the samples from the chain which lie inside a chosen
+        highest-density interval, with their log-probabilities (reference:
+        base.py:109-162). With ``samples``, the kept set is thinned to about
+        that many and trimmed to it at random by ``rng`` (a numpy
+        ``Generator``; a fresh one when None; the JAX package draws from
+        numpy's global stream).
+        """
+        probs = self.get_probabilities(burn=burn)
+        if samples is not None:
+            thin = max(probs.size // samples, 1)
+
+        sample = self.get_sample(burn=burn, thin=thin)
+        probs = probs[::thin]
+
+        sorter = probs.argsort()
+        sample = sample[sorter, :]
+        probs = probs[sorter]
+        cutoff = int(probs.size * (1 - interval))
+        sample = sample[cutoff:, :]
+        probs = probs[cutoff:]
+
+        if samples is not None:
+            n_trim = probs.size - samples
+            if n_trim > 0:
+                rng = rng if rng is not None else np.random.default_rng()
+                keep = np.sort(rng.permutation(probs.size)[n_trim:])
+                sample = sample[keep, :]
+                probs = probs[keep]
+
+        return sample, probs
 
     def matrix_plot(self, params=None, burn: int = 0, thin: int = 1, **kwargs):
         """A matrix plot of the marginals: needs the plotting module
-        (ROADMAP queue A14)."""
+        (ROADMAP queue A14(b))."""
         self._not_ported("matrix_plot")
 
     def trace_plot(self, params=None, burn: int = 0, thin: int = 1, **kwargs):
         """A trace plot of the parameters: needs the plotting module
-        (ROADMAP queue A14)."""
+        (ROADMAP queue A14(b))."""
         self._not_ported("trace_plot")
 
     @property

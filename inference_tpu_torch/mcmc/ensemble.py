@@ -19,7 +19,7 @@ until a host view is requested or ``utils.history.DEVICE_HISTORY_LIMIT`` is
 passed. ``save`` and ``load`` use the reference's ``.npz`` key layout, so a
 checkpoint of the JAX package's sampler loads here and the other way round.
 Importing this module does not import matplotlib: ``plot_diagnostics``
-raises until ROADMAP queue A14 ports the plotting.
+raises until ROADMAP queue A14(b) ports the plotting.
 """
 
 from time import time
@@ -364,7 +364,7 @@ class EnsembleSampler(MarkovChain):
 
     def plot_diagnostics(self, show=True, filename=None):
         """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14)."""
+        A14(b))."""
         self._not_ported("plot_diagnostics")
 
     # ------------------------------------------------------------------ #

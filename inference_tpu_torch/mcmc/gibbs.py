@@ -15,7 +15,7 @@ rebuilt on the host from the traces, at step granularity as in the JAX
 package. ``save`` and ``load`` use the reference's ``param_{i}...`` key
 layout, so a checkpoint of the JAX package's chains loads here and the other
 way round. Importing this module does not import matplotlib:
-``plot_diagnostics`` raises until ROADMAP queue A14 ports the plotting.
+``plot_diagnostics`` raises until ROADMAP queue A14(b) ports the plotting.
 """
 
 import copy
@@ -340,7 +340,7 @@ class MetropolisChain(MarkovChain):
 
     def plot_diagnostics(self, show=True, filename=None):
         """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14)."""
+        A14(b))."""
         self._not_ported("plot_diagnostics")
 
     # ------------------------------------------------------------------ #

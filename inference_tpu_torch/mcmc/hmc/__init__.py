@@ -19,7 +19,7 @@ trace is drained into the host ``EpsilonSelector`` lazily. Changing
 use the reference's ``.npz`` key layout, so a checkpoint of the JAX
 package's ``HamiltonianChain`` loads here and the other way round.
 Importing this module does not import matplotlib: ``plot_diagnostics``
-raises until ROADMAP queue A14 ports the plotting.
+raises until ROADMAP queue A14(b) ports the plotting.
 """
 
 import copy
@@ -38,7 +38,7 @@ from ...utils import (
 from ...utils.history import DEVICE_HISTORY_LIMIT
 from ...utils.wrap import host_call, runs_under_vmap
 from ..base import MarkovChain
-from .._kernels.common import AdaptiveScale
+from .._kernels.common import AdaptiveScale, value_and_grad
 from .._kernels.hmc import HmcState, init_hmc_state, make_hmc_step, run_steps
 from .epsilon import EpsilonSelector
 from .mass import MatrixMass, ParticleMass, ScalarMass, VectorMass, get_particle_mass
@@ -192,10 +192,10 @@ class HamiltonianChain(MarkovChain):
     def _gradient_fn(self, start):
         """The gradient of one chain, ``(P,) -> (P,)``: the user's on its
         route (``torch.func.vmap`` of it over two rows of ``start`` gives
-        ``(2, P)``: on the device; else on the host), autograd of a torch
-        posterior (``torch.autograd.grad``: one chain needs no
-        ``torch.func`` transform), or forward differences of a host
-        posterior."""
+        ``(2, P)``: on the device; else on the host), the batched kernels'
+        route on a batch of one for a torch posterior
+        (``_kernels.common.value_and_grad``), or forward differences of a
+        host posterior."""
         P = start.numel()
         if self.user_grad is not None:
             grad = self.user_grad
@@ -205,13 +205,8 @@ class HamiltonianChain(MarkovChain):
         logp = self._logp
         if logp.host:
             return lambda t: fd_gradient(logp.batched, t)
-
-        def autograd(t):
-            with torch.enable_grad():
-                x = t.detach().requires_grad_(True)
-                return torch.autograd.grad(logp(x), x)[0]
-
-        return autograd
+        one = value_and_grad(logp)
+        return lambda t: one(t[None])[1][0]
 
     def _get_step(self):
         # 'steps' is deliberately absent: it lives in the state, so changing
@@ -393,7 +388,7 @@ class HamiltonianChain(MarkovChain):
 
     def plot_diagnostics(self, show=True, filename=None, burn=None):
         """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14)."""
+        A14(b))."""
         self._not_ported("plot_diagnostics")
 
     # ------------------------------------------------------------------ #
@@ -438,7 +433,6 @@ class HamiltonianChain(MarkovChain):
         ``.npz``), on ``device``. With a posterior it
         continues from the last stored step with the stored step-size
         adaptation state."""
-        device = resolve_device(device, "HamiltonianChain")
         if all(k in D for k in ["lower_bounds", "upper_bounds"]):
             bounds = Bounds(
                 lower=D["lower_bounds"],
@@ -447,7 +441,29 @@ class HamiltonianChain(MarkovChain):
             )
         else:
             bounds = None
+        chain, head = cls._restored(D, posterior, grad, seed, device)
+        chain.steps = int(D["steps"])
+        chain.max_attempts = 200
+        chain.bounds = bounds
+        if head is not None:
+            start, logp, eps = head
+            like = lambda x, dt: torch.tensor([x], dtype=dt, device=chain.device)
+            chain._state = HmcState(
+                theta=start, logp=logp, eps=eps,
+                failed=torch.zeros(1, dtype=torch.bool, device=chain.device),
+                inv_temp=like(chain.inv_temp, start.dtype),
+                steps=like(chain.steps, torch.int32),
+            )
+        return chain
 
+    @classmethod
+    def _restored(cls, D, posterior, grad, seed, device):
+        """A chain of ``cls`` on ``device`` holding the checkpoint items
+        every chain of this family stores (history, mass, step-size
+        adaptation, display), and the state's head: with a posterior, its
+        one-row start, log-probability and adaptation state as tensors
+        (the posterior validated at the start), else None and no state."""
+        device = resolve_device(device, cls.__name__)
         theta = np.asarray(D["theta"], dtype=float)
         chain = cls.__new__(cls)
         chain.device = device
@@ -455,9 +471,6 @@ class HamiltonianChain(MarkovChain):
         chain.user_grad = grad
         chain.inv_temp = float(D["inv_temp"])
         chain.temperature = 1.0 / chain.inv_temp
-        chain.steps = int(D["steps"])
-        chain.max_attempts = 200
-        chain.bounds = bounds
         chain.n_parameters = int(D["n_parameters"])
         chain.chain_length = int(D["chain_length"])
         dtype = default_float()
@@ -480,26 +493,18 @@ class HamiltonianChain(MarkovChain):
         chain.ProgressPrinter = ChainProgressPrinter(
             display=chain.display_progress, leading_msg="advancing chain:"
         )
-
-        if posterior is not None:
-            as_dev = lambda x, dt=dtype: torch.tensor([x], dtype=dt, device=chain.device)
-            start = torch.as_tensor(theta[-1], dtype=dtype, device=chain.device)
-            chain._logp = chain._validate_posterior(chain.posterior, start)
-            chain._state = HmcState(
-                theta=start[None],
-                logp=as_dev(chain._prob_chunks[0][-1]),
-                eps=AdaptiveScale(
-                    value=as_dev(chain.ES.epsilon),
-                    avg=as_dev(chain.ES.avg),
-                    var=as_dev(chain.ES.var),
-                    num=as_dev(int(chain.ES.num), torch.int32),
-                    chk_int=as_dev(chain.ES.chk_int, torch.int32),
-                ),
-                failed=torch.zeros(1, dtype=torch.bool, device=chain.device),
-                inv_temp=as_dev(chain.inv_temp),
-                steps=as_dev(chain.steps, torch.int32),
-            )
-        else:
+        chain._state = None
+        if posterior is None:
             chain._logp = None
-            chain._state = None
-        return chain
+            return chain, None
+        as_dev = lambda x, dt=dtype: torch.tensor([x], dtype=dt, device=chain.device)
+        start = torch.as_tensor(theta[-1], dtype=dtype, device=chain.device)
+        chain._logp = chain._validate_posterior(chain.posterior, start)
+        eps = AdaptiveScale(
+            value=as_dev(chain.ES.epsilon),
+            avg=as_dev(chain.ES.avg),
+            var=as_dev(chain.ES.var),
+            num=as_dev(int(chain.ES.num), torch.int32),
+            chk_int=as_dev(chain.ES.chk_int, torch.int32),
+        )
+        return chain, (start[None], as_dev(chain._prob_chunks[0][-1]), eps)

@@ -7,7 +7,11 @@ R-row state (the inverse temperature is a state field, so rungs at
 different temperatures share the step), and the class's batched transition
 advances all rungs at once on the chains' device. ``HamiltonianChain``
 rungs take an R-row HMC step built from the chain's posterior, gradient
-route, mass, bounds and ``max_attempts`` (its own step evaluates one row).
+route, mass, bounds and ``max_attempts`` (its own step evaluates one row);
+``NutsChain`` rungs (a ``HamiltonianChain`` subclass, tested first) take
+the chain's own NUTS step, which is batched, over R rows, and each rung's
+cached tempered gradient travels and re-tempers with its position in every
+swap.
 
 Swap proposals use the reference's ``tight_pairs`` pairing and Metropolis
 test ``U <= exp(-d(beta) d(logP))`` (reference: parallel.py:162-231). A
@@ -37,9 +41,12 @@ import torch
 from torch.utils._pytree import tree_map
 
 from ..utils import make_generator
+from ._kernels import common
 from ._kernels import hmc as hmc_kernel
 from ._kernels import metropolis as met_kernel
+from ._kernels import nuts as nuts_kernel
 from .hmc import HamiltonianChain
+from .nuts import NutsChain
 
 
 class ChainPool:
@@ -118,13 +125,14 @@ def _swap_on_device(state, pairs, uniforms):
 
 def _hmc_rungs_step(chain):
     """The HMC transition of ``chain``'s configuration over any number of
-    rows: its posterior batched, its gradient route (``torch.func.grad``
-    of a torch posterior batched by ``vmap``; a user gradient or the
-    forward differences of a host posterior row by row), its mass, bounds
+    rows: its posterior batched, its gradient route (a torch posterior's
+    by ``common.value_and_grad``; a user gradient or the forward
+    differences of a host posterior row by row), its mass, bounds
     and ``max_attempts``, repeat until accept."""
     logp = chain._logp
     if chain.user_grad is None and not logp.host:
-        grad = torch.func.vmap(torch.func.grad(logp))
+        value_and_grad = common.value_and_grad(logp)
+        grad = lambda t: value_and_grad(t)[1]
     else:
         one = chain._gradient_fn(chain._state.theta[0])
         grad = lambda t: torch.stack([one(row) for row in t])
@@ -152,8 +160,8 @@ class ParallelTempering:
 
     :param chains: \
         A list of chain objects (``GibbsChain``, ``MetropolisChain``,
-        ``PcaChain``, ``HamiltonianChain``) sorted by increasing
-        temperature, all on one device.
+        ``PcaChain``, ``HamiltonianChain``, ``NutsChain``) sorted by
+        increasing temperature, all on one device.
     """
 
     def __init__(self, chains):
@@ -196,12 +204,18 @@ class ParallelTempering:
         if not self._heterogeneous:
             # stack the one-row states into one R-row state
             self._batched_state = _stack([self._rung_state(c) for c in self.chains])
-            if isinstance(self.chains[0], HamiltonianChain):
-                self._vstep = _hmc_rungs_step(self.chains[0])
+            chain = self.chains[0]
+            if isinstance(chain, HamiltonianChain) and not isinstance(chain, NutsChain):
+                # a HamiltonianChain's own step evaluates one row
+                self._vstep = _hmc_rungs_step(chain)
                 self._run_steps = hmc_kernel.run_steps
             else:
-                self._vstep = self.chains[0]._get_step()
-                self._run_steps = met_kernel.run_steps
+                # the other classes' own steps are batched, NUTS's included
+                # (a NutsChain is a HamiltonianChain: a NUTS ladder never
+                # runs R-row HMC transitions)
+                self._vstep = chain._get_step()
+                self._run_steps = (nuts_kernel.run_steps if isinstance(chain, NutsChain)
+                                   else met_kernel.run_steps)
         else:
             self._batched_state = None
             self._vstep = None
@@ -497,10 +511,10 @@ class ParallelTempering:
     # ------------------------------------------------------------------ #
     def swap_diagnostics(self):
         """The swap acceptance figure: needs the plotting module (ROADMAP
-        queue A14)."""
+        queue A14(b))."""
         raise NotImplementedError(
             "[ ParallelTempering error ] swap_diagnostics is not ported to "
-            "inference_tpu_torch yet (ROADMAP queue A14: pdf/, plotting)."
+            "inference_tpu_torch yet (ROADMAP queue A14(b): plotting)."
         )
 
     def _sync_states(self):

@@ -1,40 +1,29 @@
 """Per-kind sampler construction for the scale-out layer.
 
-Port of ``inference_tpu.parallel._kinds`` for the "hmc", "gibbs",
-"metropolis", "pca" and "ensemble" kinds: the batched ``init`` and ``step``
-of one sampler family, with the scalar, diagonal or full inverse-mass maps
-of HMC, the per-parameter proposal modes of the Metropolis family and the
-stretch moves of an ensemble per chain. The "nuts" kind raises and names
-the ROADMAP queue item that ports it.
+Port of ``inference_tpu.parallel._kinds`` for every kind ("hmc", "nuts",
+"gibbs", "metropolis", "pca" and "ensemble"): the batched ``init`` and
+``step`` of one sampler family, with the scalar, diagonal or full
+inverse-mass maps of HMC and NUTS, the per-parameter proposal modes of the
+Metropolis family and the stretch moves of an ensemble per chain.
 """
 
 import numpy as np
 import torch
 
+from ..mcmc._kernels import common
 from ..mcmc._kernels import ensemble as ens_kernel
 from ..mcmc._kernels import hmc as hmc_kernel
 from ..mcmc._kernels import metropolis as met_kernel
+from ..mcmc._kernels import nuts as nuts_kernel
 from ..mcmc.hmc.mass import get_particle_mass
 from ..utils.wrap import DeviceLogp
 
 KINDS = ("hmc", "nuts", "gibbs", "metropolis", "pca", "ensemble")
-PORTED = ("hmc", "gibbs", "metropolis", "pca", "ensemble")
-
-# ROADMAP queue A item that ports each kind not yet in this package
-_QUEUE = {
-    "nuts": "A12",
-}
 
 
-def require_ported(kind: str):
-    """Raise ``ValueError`` unless ``kind`` is ported to this package,
-    naming the ROADMAP queue item of a kind that is not."""
-    if kind in _QUEUE:
-        raise ValueError(
-            f"the {kind!r} kind is not ported to inference_tpu_torch yet "
-            f"(ROADMAP queue {_QUEUE[kind]}); the ported kinds are {PORTED}"
-        )
-    if kind not in PORTED:
+def check_kind(kind: str):
+    """Raise ``ValueError`` unless ``kind`` is one of ``KINDS``."""
+    if kind not in KINDS:
         raise ValueError(f"unknown chain kind: {kind!r} (options: {KINDS})")
 
 
@@ -107,6 +96,7 @@ def build_kind(
     alpha: float = 2.0,
     n_walkers: int = None,
     retry: bool = False,
+    max_depth: int = 10,
 ):
     """
     Build ``(init, step)`` for one sampler family:
@@ -119,8 +109,8 @@ def build_kind(
 
     ``logp_fn`` is the posterior on its route (``utils.wrap.DeviceLogp``),
     or a per-chain torch callable ``(P,) -> ()``: its ``batched`` form
-    evaluates the chains, and the hmc kind differentiates its torch form
-    with ``torch.func.grad``.
+    evaluates the chains, and the hmc and nuts kinds differentiate its
+    torch form by ``mcmc._kernels.common.value_and_grad``.
 
     :param widths: initial proposal widths (gibbs/metropolis/pca), a scalar
         or ``(P,)``; ``ChainArray`` writes per-chain widths into the state.
@@ -131,8 +121,9 @@ def build_kind(
         bounded leapfrog (hmc) or of every proposal (pca, ensemble).
     :param alpha: stretch-move scale parameter (ensemble).
     :param n_walkers: walkers per chain (ensemble).
+    :param max_depth: maximum trajectory doublings per transition (nuts).
     """
-    require_ported(kind)
+    check_kind(kind)
     if not isinstance(logp_fn, DeviceLogp):
         logp_fn = DeviceLogp(logp_fn, host=False)
     if kind == "ensemble":
@@ -145,18 +136,22 @@ def build_kind(
         )
     if logp_fn.host:
         raise ValueError(
-            "[ ChainArray error ] the batched 'hmc' kind needs a torch posterior: its "
-            "gradient is torch.func.grad of the posterior, and a posterior evaluated on "
+            f"[ ChainArray error ] the batched {kind!r} kind needs a torch posterior: its "
+            "gradient is autograd of the posterior, and a posterior evaluated on "
             "the host (numpy) has none. Write the posterior with torch operations, or "
-            "use the gibbs, metropolis or pca kind, or HamiltonianChain (which takes a "
-            "finite-difference gradient of a host posterior)."
+            "use the gibbs, metropolis or pca kind, or HamiltonianChain or NutsChain "
+            "(which take a finite-difference gradient of a host posterior)."
         )
     mass_velocity, mass_sample = build_mass_maps(
         n_parameters, dtype, device, inverse_mass
     )
+    if kind == "nuts":
+        return _build_nuts_kind(logp_fn, epsilon, max_depth, bounds, mass_velocity,
+                                mass_sample)
+    value_and_grad = common.value_and_grad(logp_fn)
     step = hmc_kernel.make_hmc_step(
         logp_fn.batched,
-        torch.func.vmap(torch.func.grad(logp_fn)),
+        lambda t: value_and_grad(t)[1],
         mass_velocity=mass_velocity,
         mass_sample=mass_sample,
         bounds_reflect=None if bounds is None else bounds.reflect_momenta,
@@ -167,6 +162,26 @@ def build_kind(
         return hmc_kernel.init_hmc_state(
             theta0, logp0, epsilon, inv_temp=inv_temp, steps=steps
         )
+
+    return init, step
+
+
+def _build_nuts_kind(logp_fn, epsilon, max_depth, bounds, mass_velocity, mass_sample):
+    """``(init, step)`` of the nuts kind; ``init`` computes the tempered
+    gradients the state caches."""
+    if bounds is not None:
+        raise ValueError(
+            "the nuts kind does not support reflecting bounds — "
+            "reparameterise the posterior or use the hmc kind"
+        )
+    step = nuts_kernel.make_nuts_step(
+        logp_fn, max_depth=max_depth, mass_velocity=mass_velocity, mass_sample=mass_sample,
+    )
+
+    def init(theta0, logp0, inv_temp=1.0):
+        grad0 = inv_temp * common.value_and_grad(logp_fn)(theta0)[1]
+        return nuts_kernel.init_nuts_state(theta0, logp0, epsilon, inv_temp=inv_temp,
+                                           grad0=grad0)
 
     return init, step
 

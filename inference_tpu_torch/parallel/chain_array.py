@@ -1,15 +1,16 @@
 """Batched arrays of independent chains.
 
-Port of ``inference_tpu.parallel.chain_array`` for the "hmc", "gibbs",
-"metropolis", "pca" and "ensemble" kinds: one batched transition advances
-every chain at once on one device, with the history kept on the host as
-numpy arrays. An ensemble chain is a sub-ensemble of walkers, and its
+Port of ``inference_tpu.parallel.chain_array`` for every kind ("hmc",
+"nuts", "gibbs", "metropolis", "pca" and "ensemble"): one batched transition
+advances every chain at once on one device, with the history kept on the
+host as numpy arrays. An ensemble chain is a sub-ensemble of walkers, and its
 diagnostics count every walker as a replicate chain.
 With ``fused=True`` the hmc advance runs through kernel B1
 (``ops.hmc_fused``), which keeps every chain's state on the chip through
 whole chunks of transitions. A posterior written with numpy runs on the
 host, one call per chain, with the chains' state on their device
-(``utils.wrap``); the hmc kind refuses it, as the JAX package does.
+(``utils.wrap``); the hmc and nuts kinds refuse it, as the JAX package's
+kinds do.
 """
 
 import copy
@@ -22,18 +23,22 @@ from ..convert import (
     N_ENSEMBLE_LEAVES,
     N_HMC_LEAVES,
     N_METROPOLIS_LEAVES,
+    N_NUTS_LEAVES,
     ensemble_state_from_jax,
     ensemble_state_to_jax_leaves,
     hmc_state_from_jax,
     hmc_state_to_jax_leaves,
     metropolis_state_from_jax,
     metropolis_state_to_jax_leaves,
+    nuts_state_from_jax,
+    nuts_state_to_jax_leaves,
 )
 from ..mcmc._kernels import ensemble as ens_kernel
 from ..mcmc._kernels import hmc as hmc_kernel
 from ..mcmc._kernels import metropolis as met_kernel
+from ..mcmc._kernels import nuts as nuts_kernel
 from ..utils import as_device_logp, default_float, make_generator, resolve_device
-from ._kinds import build_kind, positions_of, require_ported
+from ._kinds import build_kind, check_kind, positions_of
 
 METROPOLIS_KINDS = ("gibbs", "metropolis", "pca")
 
@@ -65,24 +70,25 @@ class ChainArray:
     A batch of ``n_chains`` independent chains advanced together on one
     device.
 
-    :param kind: sampler family: "hmc", "gibbs", "metropolis", "pca"
-        (PCA-directed Gibbs sweeps; call ``update_directions()`` between
-        advances to re-estimate each chain's principal directions from its
-        own history) or "ensemble" (each chain is an independent
-        stretch-move ensemble). "nuts" raises naming the ROADMAP queue item
-        that ports it.
+    :param kind: sampler family: "hmc", "nuts" (No-U-Turn trajectories,
+        no ``steps`` to tune), "gibbs", "metropolis", "pca" (PCA-directed
+        Gibbs sweeps; call ``update_directions()`` between advances to
+        re-estimate each chain's principal directions from its own history)
+        or "ensemble" (each chain is an independent stretch-move ensemble).
     :param posterior: log-probability callable over ``(P,)`` tensors, written
         with torch operations (an ``nn.Module`` is copied onto ``device``),
-        or a numpy posterior, evaluated on the host (not for "hmc").
+        or a numpy posterior, evaluated on the host (not for "hmc" or
+        "nuts").
     :param starts: starting positions, shape (n_chains, n_parameters), or
         (n_chains, n_walkers, n_parameters) for the ensemble kind.
     :param widths: initial proposal widths (gibbs/metropolis/pca): a scalar,
         (P,) or (n_chains, P); by default 5% of each chain's own start, or 1
         where it is 0.
-    :param epsilon: initial leapfrog step size (hmc).
+    :param epsilon: initial leapfrog step size (hmc, nuts).
     :param steps: nominal leapfrog steps per proposal (hmc).
+    :param max_depth: maximum trajectory doublings per transition (nuts).
     :param inverse_mass: scalar, (P,) diagonal, or full (P, P) matrix
-        inverse mass (hmc).
+        inverse mass (hmc, nuts).
     :param non_negative: bool or (P,) bools: parameters whose proposals
         are folded non-negative (gibbs/metropolis).
     :param boundaries: optional (lower, upper) reflecting proposal
@@ -114,6 +120,7 @@ class ChainArray:
         widths=None,
         epsilon: float = 0.1,
         steps: int = 50,
+        max_depth: int = 10,
         inverse_mass=None,
         non_negative=None,
         boundaries=None,
@@ -125,7 +132,7 @@ class ChainArray:
         seed=None,
         device="cuda",
     ):
-        require_ported(kind)
+        check_kind(kind)
         if mesh is not None:
             raise ValueError(
                 "[ ChainArray error ] device meshes are not ported to "
@@ -167,6 +174,7 @@ class ChainArray:
             alpha=alpha,
             n_walkers=self.n_walkers,
             retry=retry,
+            max_depth=max_depth,
         )
         init, self._step = build_kind(
             kind, self._logp, self.n_parameters, dtype, self.device,
@@ -188,7 +196,7 @@ class ChainArray:
             self._state = self._state._replace(
                 widths=self._state.widths._replace(value=value)
             )
-        self._run_steps = {"hmc": hmc_kernel.run_steps,
+        self._run_steps = {"hmc": hmc_kernel.run_steps, "nuts": nuts_kernel.run_steps,
                            "ensemble": ens_kernel.run_steps}.get(kind, met_kernel.run_steps)
 
         self._history = []
@@ -306,7 +314,7 @@ class ChainArray:
         return self
 
     def _require_hmc(self, what):
-        if self.kind != "hmc":
+        if self.kind not in ("hmc", "nuts"):
             raise ValueError(
                 f"[ ChainArray error ] {what} applies to the 'hmc' and "
                 "'nuts' kinds only."
@@ -364,15 +372,17 @@ class ChainArray:
         (n_parameters,): the rank-normalized, folded variant of Vehtari et
         al. (2021) by default, the classic split statistic with
         ``rank_normalized=False``. For the ensemble kind every walker is a
-        replicate chain."""
+        replicate chain. One batched program on the chains' device, as in
+        the JAX package: the rank normalization sorts every parameter's
+        pooled draws, which on the host takes seconds at 1e7 draws."""
         from ..utils.diagnostics import rank_normalized_rhat, split_rhat
 
         h = self._stored(burn, "rhat")
         if h.ndim == 4:  # ensemble kind: (steps, K, W, P) -> (steps, K * W, P)
             h = h.reshape(h.shape[0], -1, h.shape[-1])
-        series = torch.as_tensor(np.transpose(h, (2, 1, 0)))  # (P, K, steps)
+        series = torch.as_tensor(h, device=self.device).permute(2, 1, 0)  # (P, K, steps)
         estimator = rank_normalized_rhat if rank_normalized else split_rhat
-        return estimator(series).numpy()
+        return estimator(series).cpu().numpy()
 
     @property
     def theta(self) -> np.ndarray:
@@ -404,6 +414,8 @@ class ChainArray:
     def _n_leaves(self):
         if self.kind == "hmc":
             return N_HMC_LEAVES
+        if self.kind == "nuts":
+            return N_NUTS_LEAVES
         if self.kind == "ensemble":
             return N_ENSEMBLE_LEAVES
         return N_METROPOLIS_LEAVES + (self.kind == "pca")
@@ -412,6 +424,8 @@ class ChainArray:
         """(to leaves, from leaves) of this kind's state."""
         if self.kind == "hmc":
             return hmc_state_to_jax_leaves, hmc_state_from_jax
+        if self.kind == "nuts":
+            return nuts_state_to_jax_leaves, nuts_state_from_jax
         if self.kind == "ensemble":
             return ensemble_state_to_jax_leaves, ensemble_state_from_jax
         return metropolis_state_to_jax_leaves, metropolis_state_from_jax

@@ -111,3 +111,30 @@ def test_bo_warm_configuration_is_the_jax_bench_s():
     assert opt.bounds == [(0.0, 6.0), (0.0, 6.0)] and opt.optimizer == "device"
     assert type(opt.acquisition).__name__ == "ExpectedImprovement"
     assert (bo_warm.WARMUP, bo_warm.ITERATIONS) == (2, 10)
+
+
+def test_nuts_bench_prints_a_json_line_a_tier(capsys):
+    """bench.nuts on the CPU at a tiny size: one JSON line a chain count,
+    both kinds' rates, the stored run's statistics, nuts_bench.py's
+    configuration (tier steps max(32, 2^21 // chains), epsilon 0.25,
+    max_depth 8, hmc at 50 steps with retry=False)."""
+    from inference_tpu_torch.bench import nuts
+
+    nuts.main(["16", "32", "--device", "cpu", "--steps", "3", "--stored", "6"])
+    lines = _json_lines(capsys.readouterr().out)
+    assert [line["chains"] for line in lines] == [16, 32]
+    for line in lines:
+        assert line["device"] == "cpu" and line["steps"] == 3
+        assert line["hmc"]["transitions_per_s"] > 0 and line["hmc"]["ess_per_s"] > 0
+        row = line["nuts"]
+        assert 1 <= row["mean_depth"] <= nuts.MAX_DEPTH
+        assert row["mean_leapfrogs"] <= row["slowest_lane_leapfrogs"] \
+            == row["batch_leaves_per_transition"] <= 2**nuts.MAX_DEPTH - 1
+        assert row["stored_lane_leapfrog_grads_per_s"] <= row["stored_batch_leapfrog_grads_per_s"]
+        assert row["divergences"] == 0
+    assert [nuts.tier_steps(k) for k in nuts.TIERS] == [512, 128, 32]
+    assert nuts.KINDS == {"hmc": dict(steps=50, epsilon=0.25, retry=False),
+                          "nuts": dict(epsilon=0.25, max_depth=8)}
+    icov, _ = nuts.make_problem()
+    A = np.random.default_rng(42).normal(size=(10, 10)) / np.sqrt(10)
+    np.testing.assert_allclose(icov, np.linalg.inv(A @ A.T + np.eye(10)))

@@ -115,12 +115,12 @@ def test_history_accessors_and_thinning():
 
 
 def test_unported_options_raise():
-    """nuts still raises naming A12; the Metropolis family and the
-    ensemble kind are ported."""
+    """Every kind builds now (nuts last); an unknown kind and a mesh
+    (ROADMAP A13) still raise."""
     form = GaussianForm(torch.eye(2))
     starts = np.zeros((4, 2))
-    with pytest.raises(ValueError, match="ROADMAP queue A12"):
-        ChainArray("nuts", form, starts, device="cpu")
+    nuts = ChainArray("nuts", form, starts, max_depth=4, device="cpu")
+    assert nuts.kind == "nuts" and nuts._state.grad.shape == (4, 2)
     for kind in ("gibbs", "metropolis", "pca"):
         assert ChainArray(kind, form, starts, device="cpu").kind == kind
     walkers = np.random.default_rng(0).normal(size=(2, 6, 2))

@@ -9,8 +9,10 @@ the card, the GpRegressor (and its on-device fit, B2 once per start and
 evaluation), the GpOptimiser's state, the LargeScaleGP (its df64 store tiers, its cg
 tier's product and a fit step) and the LargeScaleGpLinearInverter's df64
 stores end to end; the gibbs,
-metropolis and pca ChainArrays on the card against their CPU runs, and a
-numpy posterior's chains with their state on the card.
+metropolis and pca ChainArrays on the card against their CPU runs, a
+numpy posterior's chains with their state on the card, tempering ladders
+and the ensemble step, the NUTS step and the density estimators against
+the CPU.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -1354,3 +1356,83 @@ def test_ensemble_step_on_card_matches_cpu(cuda, retry):
                     device=cuda)
     ca.advance(20)
     assert _state_devices(ca._state) == {"cuda"} and ca.get_sample().shape == (20 * C * W, P)
+
+
+@pytest.mark.cuda
+def test_nuts_step_on_card_matches_cpu(cuda):
+    """Three batched NUTS transitions of 32 chains in float64 on injected
+    draws give the same positions, logps and cached gradients on the card
+    and on the CPU (1e-12), the same depths, leapfrog counts and divergence
+    flags; ChainArray("nuts"), NutsChain and a NUTS ladder keep their state
+    on the card."""
+    from inference_tpu_torch.mcmc import NutsChain, ParallelTempering
+    from inference_tpu_torch.parallel._kinds import build_kind
+
+    K, P, D = 32, 4, 6
+    rng = np.random.default_rng(2)
+    B = rng.normal(size=(P, P)) / 2
+    icov = np.linalg.inv(B @ B.T + np.eye(P))
+    starts = rng.normal(size=(K, P))
+    draws = [(rng.normal(size=(K, P)), rng.uniform(size=(K, D)), rng.uniform(size=(K, D)),
+              rng.uniform(size=(K, 2**D - 1))) for _ in range(3)]
+    out = {}
+    for device in (cuda, "cpu"):
+        A = torch.as_tensor(icov, device=device)
+        logp = lambda t, A=A: -0.5 * t @ A @ t
+        init, step = build_kind("nuts", logp, P, torch.float64, device, epsilon=0.4, max_depth=D)
+        theta = torch.as_tensor(starts, device=device)
+        with torch.no_grad():
+            state = init(theta, torch.func.vmap(logp)(theta))
+            for d in draws:
+                state, o = step(state, None, *(torch.as_tensor(x, device=device) for x in d))
+        out[torch.device(device).type] = [x.cpu().numpy() for x in (
+            state.theta, state.logp, state.grad, o.tree_depth, o.leapfrog_steps, o.divergent)]
+    for got, want in zip(out["cuda"][:3], out["cpu"][:3]):
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+    for got, want in zip(out["cuda"][3:], out["cpu"][3:]):
+        np.testing.assert_array_equal(got, want)
+    A32 = torch.as_tensor(icov, dtype=torch.float32, device=cuda)
+    gauss = lambda t: -0.5 * t @ A32 @ t  # one callable: the ladder batches its rungs
+    ca = ChainArray("nuts", gauss, starts, max_depth=D, seed=0, device=cuda)
+    ca.advance(10)
+    chain = NutsChain(gauss, start=starts[0], max_depth=D, display_progress=False, seed=0,
+                      device=cuda)
+    chain.advance(10)
+    pt = ParallelTempering([NutsChain(gauss, start=s, temperature=T, max_depth=D,
+                                      display_progress=False, seed=k, device=cuda)
+                            for k, (s, T) in enumerate(zip(starts, [1.0, 4.0]))])
+    assert not pt._heterogeneous
+    pt.advance(20, swap_interval=5)
+    for state in (ca._state, chain._state, pt._batched_state):
+        assert _state_devices(state) == {"cuda"}
+    assert chain.tree_depths.shape == (11,) and np.isfinite(ca.get_sample()).all()
+
+
+@pytest.mark.cuda
+def test_kde_on_card_matches_cpu(cuda):
+    """GaussianKDE with cross-validation, KDE2D and UnimodalPdf on the card
+    against the CPU on one sample: the bandwidth, pdf and cdf within 1e-10,
+    the same objective at the CPU's MAP (1e-12); sample_hdi_device on the
+    card equals sample_hdi."""
+    from inference_tpu_torch.pdf import (KDE2D, GaussianKDE, UnimodalPdf, sample_hdi,
+                                         sample_hdi_device)
+
+    rng = np.random.default_rng(3)
+    s = rng.normal(0, 1, 6000) + rng.exponential(1.0, 6000)
+    x = np.linspace(-3.0, 8.0, 2000)
+    kdes = [GaussianKDE(s, cross_validation=True, rng=np.random.default_rng(0), device=d)
+            for d in (cuda, "cpu")]
+    assert kdes[0].h == pytest.approx(kdes[1].h, rel=1e-10)
+    np.testing.assert_allclose(kdes[0](x), kdes[1](x), rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(kdes[0].cdf(x), kdes[1].cdf(x), rtol=1e-10, atol=1e-14)
+    y = rng.normal(size=6000)
+    np.testing.assert_allclose(KDE2D(s, y, device=cuda)(x, x), KDE2D(s, y, device="cpu")(x, x),
+                               rtol=1e-10, atol=1e-14)
+    card, cpu = UnimodalPdf(s, device=cuda), UnimodalPdf(s, device="cpu")
+    assert card.posterior(cpu.MAP) == pytest.approx(cpu.posterior(cpu.MAP), rel=1e-12)
+    assert card.posterior(card.MAP) >= cpu.posterior(cpu.MAP) - 1e-9 * abs(cpu.posterior(cpu.MAP))
+    two = np.stack([s, y], axis=1)
+    for f in (0.3, 0.9):
+        np.testing.assert_array_equal(
+            sample_hdi_device(torch.as_tensor(two, device=cuda), f).cpu().numpy(),
+            sample_hdi(two, f))

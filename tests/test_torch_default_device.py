@@ -9,12 +9,14 @@ import torch
 
 from inference_tpu_torch import convert, models
 from inference_tpu_torch.bench import bo_warm, dense_hmc, headline
+from inference_tpu_torch.bench import nuts as nuts_bench
 from inference_tpu_torch.gp import (GpLinearInverter, GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter)
-from inference_tpu_torch.mcmc import EnsembleSampler, HamiltonianChain
+from inference_tpu_torch.mcmc import EnsembleSampler, HamiltonianChain, NutsChain
 from inference_tpu_torch.mcmc.hmc import MatrixMass, ScalarMass, VectorMass, get_particle_mass
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.pdf import KDE2D, GaussianKDE, UnimodalPdf
 
 _X = np.linspace(0.0, 1.0, 8)[:, None]
 _Y = np.sin(_X[:, 0])
@@ -74,6 +76,18 @@ ENTRY_POINTS = {
         "iteration_history": [],
     }),
     "bench.bo_warm": lambda: bo_warm.main([]),
+    "ChainArray nuts": lambda: ChainArray("nuts", GaussianForm(torch.eye(2)), np.zeros((4, 2))),
+    "NutsChain": lambda: NutsChain(GaussianForm(torch.eye(2)), start=np.zeros(2),
+                                   display_progress=False),
+    "NutsChain.from_items": lambda: NutsChain.from_items({}),
+    "nuts_state_from_jax": lambda: convert.nuts_state_from_jax(
+        [np.zeros((4, 2)), np.zeros(4), np.zeros((4, 2)), *[np.zeros(4)] * 3,
+         np.zeros(4, np.int32), np.full(4, 15, np.int32), np.zeros((4, 2), np.uint32),
+         np.zeros(4, np.int32), np.ones(4)]),
+    "bench.nuts": lambda: nuts_bench.main(["64"]),
+    "GaussianKDE": lambda: GaussianKDE(np.arange(5.0)),
+    "KDE2D": lambda: KDE2D(np.arange(5.0), np.arange(5.0) ** 2),
+    "UnimodalPdf": lambda: UnimodalPdf(np.arange(5.0)),
 }
 
 

@@ -12,7 +12,7 @@ import inference_tpu_torch
 import inference_tpu_torch.ops
 
 PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
-         "inference_tpu_torch.models", "inference_tpu_torch.gp")
+         "inference_tpu_torch.models", "inference_tpu_torch.gp", "inference_tpu_torch.pdf")
 PORT_ONLY = {"GaussianForm"}
 # the JAX package's names from these paths that the port does not define
 # yet: the sharded matmat is ROADMAP A13's multi-device part (b); the TPU

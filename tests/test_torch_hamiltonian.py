@@ -255,12 +255,20 @@ def test_numpy_posterior_and_gradient_raise_naming_a1():
 
 
 def test_unported_views_raise_naming_a14_and_burn_thin_errors():
+    """The plot views still raise naming A14; get_marginal and get_interval
+    (A14's first part) return an estimator on the chain's device and the
+    top of the sample."""
+    from inference_tpu_torch.pdf import GaussianKDE
+
     chain = make_chain(n=4)
-    for call in (lambda: chain.get_marginal(0), lambda: chain.get_interval(),
-                 lambda: chain.matrix_plot(), lambda: chain.trace_plot(),
+    for call in (lambda: chain.matrix_plot(), lambda: chain.trace_plot(),
                  lambda: chain.plot_diagnostics(show=False)):
         with pytest.raises(NotImplementedError, match="A14"):
             call()
+    marginal = chain.get_marginal(0, burn=0)
+    assert isinstance(marginal, GaussianKDE) and marginal.device == chain.device
+    sample, probs = chain.get_interval(0.5, burn=0)
+    assert sample.shape == (3, 3) and probs.min() >= np.median(chain.get_probabilities(0))
     with pytest.raises(AttributeError, match="burn"):
         chain.burn
     with pytest.raises(AttributeError, match="thin"):

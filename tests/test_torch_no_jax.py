@@ -35,6 +35,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.gp.optimisation, inference_tpu_torch.gp.acquisition, "
         "inference_tpu_torch.utils.optimize, inference_tpu_torch.utils.figures, "
         "inference_tpu_torch.bench.bo_warm",
+        "inference_tpu_torch.mcmc.nuts, inference_tpu_torch.mcmc._kernels.nuts, "
+        "inference_tpu_torch.bench.nuts",
+        "inference_tpu_torch.pdf, inference_tpu_torch.pdf.base, inference_tpu_torch.pdf.kde, "
+        "inference_tpu_torch.pdf.hdi, inference_tpu_torch.pdf.unimodal",
         "chip_smoke",
     ],
 )
