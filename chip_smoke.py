@@ -4,9 +4,11 @@ benches, the single-chain HamiltonianChain, the Metropolis family
 (ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain),
 posteriors written with numpy, parallel tempering (ParallelTempering) and
 the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), NUTS
-(NutsChain, ChainArray's nuts kind, NUTS ladders) and the 1D density
+(NutsChain, ChainArray's nuts kind, NUTS ladders), the 1D density
 estimators (GaussianKDE, UnimodalPdf, a chain's get_marginal and
-get_interval), dense GP regression (kernel
+get_interval), the multi-device layer (meshes of cells on the card,
+ShardedTempering, ChainArray(mesh=), the sharded df64 matmat and mesh= in
+the large GP and inverter, a one-process NCCL group), dense GP regression (kernel
 B2) with its on-device fit, Bayesian optimisation (GpOptimiser), the
 matrix-free GP (its small-noise df64 tier through kernels B3-B8;
 its cg and mixed tiers, fit() and the RQ and white-noise kernels through
@@ -65,9 +67,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    dense HMC bench (``inference_tpu_torch.bench.dense_hmc``) at 4,096
    chains, both workloads checked (the Gaussian's variances; the forward
    model's means and variances against its exact FP64 posterior); (d)
-   ``HamiltonianChain`` on the card, a bounded 10-dim problem for 1,000
+   ``HamiltonianChain`` on the card, a bounded 10-dim problem for 700
    steps (10 leapfrog steps a proposal) against the same chain on the CPU
-   for 1,000, its device operations per transition counted by
+   for 700, its device operations per transition counted by
    ``torch.profiler``, and a save, load and advance; then the Metropolis
    family, which has no kernel of its own: (e) gibbs-10d,
    ``ChainArray`` on ``benchmarks/chain_batch_bench.py``'s 10-dim Gaussian,
@@ -92,7 +94,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    their readings as one JSON line; then parallel tempering and the
    ensemble sampler, which have no kernel of their own either: (h)
    pt-bimodal-8, ``benchmarks/tempering_bench.py``'s 8 GibbsChain rungs
-   (T = 1-128): a counted ``advance(2000)`` (the ladder's host reads, one
+   (T = 1-128): a counted ``advance(1000)`` (the ladder's host reads, one
    per chunk of cycles, and its transitions', by torch's sync warnings),
    a timed ``advance(1000)`` (steps/s per rung), the lengths, swap counts and the cold
    rung's left-mode share held, the swap acceptance matrix, the device
@@ -121,10 +123,32 @@ Phases, each of which raises on failure (so the script exits non-zero):
    the cached gradients after the fused and the host swaps; (k)
    kde-marginal, nuts-10d's stored run as one chain on the card and the
    CPU: ``get_marginal(0)`` and a cross-validated ``GaussianKDE`` (bandwidth,
-   pdf and cdf at 10,000 points, 1e-10), ``get_interval()`` and
+   pdf and cdf at 5,000 points, 1e-10), ``get_interval()`` and
    ``sample_hdi_device`` equal, ``UnimodalPdf`` held at the CPU's MAP
    (1e-12) and no worse there (1e-9); their readings as one
-   ``{"nuts_pdf": ...}`` line;
+   ``{"nuts_pdf": ...}`` line; then the multi-device layer, whose only
+   kernel is B4 (the sharded matmat runs it once a cell): (l)
+   dryrun-mesh-8, ``parallel.dryrun.dryrun_multichip(8)`` on 8 cells of
+   the card (mesh {rungs 4, chains 2}, a swap rate in (0, 1), the sharded
+   df64 solve's residual < 1e-6); st-bimodal-8, tempering_bench.py's
+   ladder as ``ShardedTempering(kind="gibbs", retry=False)`` on 16 cells,
+   4,096 lanes a rung (steps/s per rung, lane-steps/s; one host read a
+   chunk; left-mode share in [0.4, 0.9]; swap acceptance in (0.1, 0.95);
+   launches a step at 16 cells within 10% of those at 8); st-swap-twin
+   (three swap phases of one float64 state, card against CPU: flags and
+   positions equal, logps 1e-12); st-nuts-4 (the nuts kind on 8 cells, the
+   cached gradients after the swaps as pt-nuts-3); chain-array-mesh-4
+   (bench-10d's posterior, 65,536 chains on 4 cells, the plain path beside
+   the run without a mesh; variances 10%, R-hat 1.05); gp-large-50k-mesh4
+   (the sharded matmat at n = 53,248, q = 8 against B4 unsharded within
+   1e-13 of sum|E||V|, both timed; the fused df64 solve on 4 cells beside
+   one device's: residual 1e-9, means ``MESH_MEAN_RTOL``);
+   gp-large-cg-50k-mesh4 (residual 1e-3, means 1e-2 of df64's);
+   inv-8k-mesh4 (the df64 inverter on 4 cells, 1e-8 of the dense FP64
+   inverter); nccl-1 (a child in a one-process NCCL group: a hmc
+   ShardedTempering's history and swap counts gathered through the group,
+   bit for bit the run without one); their readings as one
+   ``{"multi_device": ...}`` line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -148,7 +172,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    starts) on 64 starts of a 10-dim SPD quadratic and of the 2D Rosenbrock
    in float64, against the same code on the CPU: every quadratic row
    converged, each row's status the CPU's, x within 1e-10 / 1e-6;
-8b. gp-fit-device-4k: ``GpRegressor.fit_device(starts=16)`` on phase 8's
+8b. gp-fit-device-4k: ``GpRegressor.fit_device(starts=8)`` on phase 8's
    data: the batched objective against the single-start one at 4 thetas
    (1e-10), the fit's seconds, iterations and B2 launches (one per start
    and evaluation), its LML at least phase 8's less 1e-6 of it, one batched
@@ -871,7 +895,8 @@ def phase_dense_hmc():
     return rows
 
 
-HC_STEPS_CARD, HC_STEPS_CPU = 1000, 1000  # the card's 2,000 cut for the script's time
+HC_STEPS_CARD, HC_STEPS_CPU = 700, 700  # the card's 2,000 cut for the script's time (1,000
+# until the multi-device phases joined it)
 HC_LEAPFROG = 10  # leapfrog steps per proposal (the chain's default is 50)
 
 
@@ -902,8 +927,9 @@ def _moments(chain, burn):
 
 def phase_hamiltonian():
     """HamiltonianChain on the card: the bounded 10-dim problem advanced
-    1,000 steps (transitions/s), every sample inside the bounds; the same
-    chain on the CPU for 1,000 steps (transitions/s); their moments after a
+    ``HC_STEPS_CARD`` steps (transitions/s), every sample inside the bounds;
+    the same chain on the CPU for ``HC_STEPS_CPU`` steps (transitions/s);
+    their moments after a
     burn-in of 200 held to each other: each mean within 5 joint standard
     errors (sd / sqrt(ESS) of each chain), each variance ratio within 5 x
     sqrt(2/ESS + 2/ESS) of 1; the card chain's device operations over 20
@@ -1005,16 +1031,18 @@ def _profile_chain(chain, n=20):
 
 GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's count
 # (warm-up, timed) steps of a gibbs or pca timing run: chain_batch_bench.py's
-# warm-up of 128 (the widths adapt in it) cut to 32, its timed 512 cut to 64,
-# to fit the script's time; the two halves of the timed window are timed apart
-GIBBS_STEPS = (32, 64)
+# warm-up of 128 (the widths adapt in it) cut to 16, its timed 512 cut to 32,
+# to fit the script's time (32 and 64 until the multi-device phases joined it);
+# the two halves of the timed window are timed apart
+GIBBS_STEPS = (16, 32)
 METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
 GIBBS_CHECK = 1024  # chains of the stored correctness runs
 GIBBS_PROFILE_SWEEPS = 2  # sweeps of the profiled advance (4, cut: the profiler's processing dominates)
 # steps of one chain by device after 200 warm-up steps (the demo's 150,000
 # cut to the script's time: 2,000 and 5,000 until the matrix-free GP's rest
-# joined the script); the held moments drop the warm-up
-ROSEN_STEPS = {"cuda": 1200, "cpu": 3000}
+# joined the script, 1,200 and 3,000 until the multi-device phases did); the
+# held moments drop the warm-up
+ROSEN_STEPS = {"cuda": 600, "cpu": 1500}
 ROSEN_WARM = 200
 ROSEN_CHAINS = 1024  # chains of the ChainArray runs on the demo's posterior
 A1_CHAINS = 64
@@ -1166,6 +1194,7 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
         for kind, retry in (("gibbs", True), ("gibbs", False), ("metropolis", False),
                             ("pca", False)):
             kw = dict(widths=0.7) if kind == "metropolis" else {}
+            t_run = time.perf_counter()
             ca = ChainArray(kind, gauss10, starts, seed=1, retry=retry, device=device, **kw)
             warm, timed = METROPOLIS_STEPS if kind == "metropolis" else GIBBS_STEPS
             r = _timed_advance(ca, warm, timed)
@@ -1173,7 +1202,8 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
             print(f"[gibbs-10d] {kind} retry={retry} K={K}: advance({warm}) at {r['warm']:,.0f} "
                   f"chain-steps/s, then advance({timed // 2}) twice at {r['first_half']:,.0f} "
                   f"and {r['second_half']:,.0f}, store=False: {r['window']:,.0f} chain-steps/s "
-                  f"({r['window'] * 10:,.0f} parameter updates/s)")
+                  f"({r['window'] * 10:,.0f} parameter updates/s); run "
+                  f"{time.perf_counter() - t_run:.1f} s")
             if not np.isfinite(ca.theta).all():
                 raise RuntimeError(f"gibbs-10d {kind}: non-finite positions")
             if retry and K == chains[-1] and torch.device(device).type == "cuda":
@@ -1182,6 +1212,7 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
     starts = np.random.default_rng(0).normal(size=(check, 10))
     for kind, retry, steps, burn in (("gibbs", True, 300, 100), ("gibbs", False, 600, 200),
                                      ("metropolis", False, 3000, 1000), ("pca", False, 400, 150)):
+        t_run = time.perf_counter()
         ca = ChainArray(kind, gauss10, starts, seed=2, retry=retry, device=device,
                         widths=0.7 if kind == "metropolis" else 1.0)
         if kind == "pca":
@@ -1189,6 +1220,7 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
             ca.update_directions()
         out["checks"][f"{kind} retry={retry}"] = _gibbs10_check(
             f"{kind} retry={retry}", ca, cov, steps, burn if kind != "pca" else 2 * burn)
+        print(f"[gibbs-10d] {kind} retry={retry} check run {time.perf_counter() - t_run:.1f} s")
         if device == "cuda" and {t.device.type for t in
                                  torch.utils._pytree.tree_leaves(ca._state)} != {"cuda"}:
             raise RuntimeError(f"gibbs-10d {kind}: state left the card")
@@ -1377,17 +1409,19 @@ def phase_a1_numpy(reference, steps=ROSEN_STEPS["cuda"], device="cuda"):
 # ---------------------------------------------------------------------------
 
 PT_TEMPS = [2.0**k for k in range(8)]  # tempering_bench.py: 8 rungs, T = 1-128
-PT_STEPS = 2000                        # tempering_bench.py's default n_steps
-PT_TIMED_STEPS = 1000  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's time)
+PT_STEPS = 1000  # pt-bimodal-8's counted advance: tempering_bench.py's default n_steps
+# of 2,000, cut when the multi-device phases joined the script
+PT_TIMED_STEPS = 500  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's
+# time; 1,000 until the multi-device phases joined it)
 PT_SWAP_INTERVAL = 10
 PT_TWIN_TRIALS = 64
 PT_PROFILE_STEPS = 20  # the profiler's processing of ~500 launches a step dominates
 PT_HMC_LEAPFROG = 10   # pt-hmc-2's leapfrog steps a proposal (the chains' default 50, cut)
 DEMO_TEMPS = [1.0, 3.0, 10.0, 30.0, 100.0, 300.0]  # demos/parallel_tempering_demo.py
-DEMO_MINUTES = 0.1                     # the demo's run_for(minutes=0.5), cut
+DEMO_MINUTES = 0.05  # the demo's run_for(minutes=0.5), cut (0.1 until the multi-device phases)
 ENS_WALKERS, ENS_DIM, ENS_ITERS = 4096, 10, 100  # ensemble_bench.py's defaults
 ENS_CHECK_ITERS, ENS_CHECK_BURN = 1000, 500
-ENS_RETRY_ITERS, ENS_RETRY_BURN = 200, 100
+ENS_RETRY_ITERS, ENS_RETRY_BURN = 100, 50  # a reading (200, 100 until the multi-device phases)
 ENS_VAR_RTOL = 0.05  # retry=False variances vs the truth (CPU rehearsal: within 0.010)
 ENS_CHAINS, ENS_CHAIN_WALKERS = 256, 32
 
@@ -1541,9 +1575,10 @@ def _swap_twin(pt, trials=PT_TWIN_TRIALS):
 def phase_pt_bimodal():
     """pt-bimodal-8: benchmarks/tempering_bench.py (its timed steps cut): 8 GibbsChain
     rungs at T = 1-128 on its bimodal posterior from 4 (widths 0.3, seeds
-    0-7), swap_interval 10. ``advance(2000)`` counted (the ladder's host
+    0-7), swap_interval 10. ``advance(PT_STEPS)`` counted (the ladder's host
     reads and its transitions'), then a timed ``advance(PT_TIMED_STEPS)``:
-    steps/s per rung. Checks: every chain_length 3001, successful <= attempted swaps,
+    steps/s per rung. Checks: every chain_length PT_STEPS + PT_TIMED_STEPS + 1,
+    successful <= attempted swaps,
     the cold rung's left-mode share after 500 steps in [0.4, 0.9] (target
     2/3), the state on the card, the ladder's host reads one per chunk of
     cycles; the swap twin (``_swap_twin``); a profile of one
@@ -1774,18 +1809,19 @@ def phase_ensemble_chains():
 
 # nuts_bench.py's chain counts, each with its timed transitions: the
 # bench's max(32, 2^21 // chains), 512 / 128 / 32, cut to fit the script's
-# time; the hmc beside (~90 ms a transition) at the first count only
-NUTS_TIERS = {4096: 64, 16384: 32, 65536: 32}
+# time (64 / 32 / 32 until the multi-device phases joined it); the hmc beside
+# (~90 ms a transition) at the first count only
+NUTS_TIERS = {4096: 32, 16384: 16, 65536: 16}
 NUTS_HMC_TIER = 4096
 # warm-up transitions: nuts to its adapted step size (a CPU rehearsal at
 # 4,096 chains: epsilon 0.25 -> 0.78 and the batch's leaves a transition
 # ~70 -> ~12 by the 72nd transition), hmc (whose transitions cost 50
 # leapfrog steps at any step size) 8; the bench warms each for its timed
 # count. The stored run: the bench's 64 cut to 32
-NUTS_WARM, NUTS_HMC_WARM, NUTS_STORED = 72, 8, 32
+NUTS_WARM, NUTS_HMC_WARM, NUTS_STORED = 72, 8, 16  # stored 32 until the multi-device phases
 NUTS_ROUTE_CALLS = 200  # calls a turn of each batched value-and-gradient route timed
 NUTS_CHECK_CHAINS = 4096
-NUTS_CHECK_BURN, NUTS_CHECK_STEPS = 32, 128
+NUTS_CHECK_BURN, NUTS_CHECK_STEPS = 32, 64  # 128 stored until the multi-device phases
 NUTS_READ_STEPS, NUTS_PROFILE_STEPS = 16, 4
 NUTS_VAR_RTOL, NUTS_RHAT = 0.10, 1.05
 NUTS_TWIN_CHAINS, NUTS_TWIN_STEPS, NUTS_TWIN_RTOL = 64, 5, 1e-12
@@ -1797,7 +1833,7 @@ NUTS_DEMO_STEPS, NUTS_DEMO_BURN = 300, 75  # demos/nuts_demo.py's 6,000 and 1,00
 NUTS_DEMO_RADIUS = (0.991, 1.016)  # rehearsals 0.9993-1.0076 (sd 0.0027)
 NUTS_DEMO_THICK = (0.034, 0.058)   # rehearsals 0.0423-0.0501 (sd 0.0026)
 PT_NUTS_TEMPS, PT_NUTS_DEPTH, PT_NUTS_STEPS, PT_NUTS_INTERVAL = [1.0, 3.0, 10.0], 5, 120, 5
-KDE_SAMPLES, KDE_POINTS, KDE_RTOL = 8192, 10_000, 1e-10
+KDE_SAMPLES, KDE_POINTS, KDE_RTOL = 8192, 5_000, 1e-10  # 10,000 points until the multi-device phases
 UNIMODAL_OBJ_RTOL, UNIMODAL_MAP_RTOL = 1e-12, 1e-9
 
 
@@ -2847,11 +2883,12 @@ def _free():
     return torch.cuda.memory_allocated() / 2**30
 
 
-def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW, n_var=16):
+def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW, n_var=16, warm=True):
     """One LargeScaleGP(solver="df64") instance on the card (settings
-    ``kw``): cold constructor + solve, a warm solve, residuals,
-    predictions (``n_var`` of them with variances). Returns the instance,
-    the readings and the kernel launches of the run."""
+    ``kw``): cold constructor + solve, a warm solve (unless ``warm`` is
+    False), residuals, predictions (``n_var`` of them with variances).
+    Returns the instance, the readings and the kernel launches of the
+    run."""
     print(f"[{label}] device memory allocated before the run: {_free():.2f} GiB")
     for k in df64.KERNEL_LAUNCHES:
         df64.KERNEL_LAUNCHES[k] = 0
@@ -2866,9 +2903,10 @@ def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW, n_var=16):
     solver = gp._df64_solver._multi
     chunks = solver.chunks_run
     t0 = time.perf_counter()
-    gp._solve_alpha()
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    if warm:
+        gp._solve_alpha()
+        torch.cuda.synchronize()
+    warm = time.perf_counter() - t0 if warm else None
     warm_chunks = solver.chunks_run - chunks
     res_kernel = gp.residual_norm_f64()
     res_plain = _plain_residual(gp)
@@ -2882,7 +2920,8 @@ def _large_run(label, x, y, err, q, store, profile, kw=LARGE_KW, n_var=16):
     launches.update({f"{k} by q": dict(sorted(v.items()))
                      for k, v in df64.STORED_LAUNCHES_BY_Q.items()})
     print(f"[{label}] store_entries={store!r} (tier {gp._tier}): cold constructor + solve "
-          f"{cold:.3f} s, warm solve {warm:.3f} s ({warm_chunks} chunks of "
+          f"{cold:.3f} s, warm solve {'not run' if warm is None else f'{warm:.3f} s'} "
+          f"({warm_chunks} chunks of "
           f"{solver.restart_every} iterations; {solver.chunks_run} chunks in all), FP64 "
           f"relative residual {res_kernel:.3e} by the "
           f"tier's kernel, {res_plain:.3e} by the plain route; 256 means + {n_var} variances "
@@ -2937,17 +2976,18 @@ def phase_large_d20():
     """gp-large-50k-d20: LargeScaleGP(solver="df64") at N=50,000, d = 20 on
     the card with store_entries="auto" (the wide B5, then B6) and False (the
     wide B3, then the wide B4 for the predictions), each counting its
-    launches from 0, "auto" profiled over one warm solve (False's profile,
-    B3 98% of a warm solve, is in PERF.md; cut for the script's time); the
-    two tiers' 256 means and 8 sds must agree within 1e-7 (16 sds cut to 8
-    for the script's time)."""
+    launches from 0; the two tiers' 256 means and 8 sds must agree within
+    1e-7. Cut for the script's time: 16 sds to 8; False's warm solve (its
+    cold constructor holds the same solve, 0.3 s beside the pivoted
+    Cholesky) and both profiles (False's, B3 98% of a warm solve, and
+    "auto"'s are in PERF.md)."""
     x, y, err = make_d20_data(LARGE_N)
     q = np.random.default_rng(3).uniform(0, 7.5, (256, D20))
     runs, launches = {}, {}
     for store, needs in (("auto", ("B5", "B6")), (False, ("B3", "B4"))):
         gp, runs[store], launches[store] = _large_run("gp-large-50k-d20", x, y, err, q, store,
-                                                      profile=store == "auto", kw=D20_KW,
-                                                      n_var=8)
+                                                      profile=False, kw=D20_KW, n_var=8,
+                                                      warm=store == "auto")
         del gp
         wide = {k: launches[store][k] for k in needs}
         print(f"[gp-large-50k-d20] store_entries={store!r}: launches of the kernels at d = "
@@ -2959,8 +2999,8 @@ def phase_large_d20():
     auto, fused = runs["auto"], runs[False]
     gap = max(np.abs(auto["mu"] - fused["mu"]).max(), np.abs(auto["sd16"] - fused["sd16"]).max())
     print(f"[gp-large-50k-d20] 'auto' against False: max difference of means and sds {gap:.3e} "
-          f"(limit 1e-7); warm solve {auto['warm_s']:.3f} s against {fused['warm_s']:.3f} s, "
-          f"cold {auto['cold_s']:.3f} s against {fused['cold_s']:.3f} s")
+          f"(limit 1e-7); warm solve {auto['warm_s']:.3f} s with the store, cold "
+          f"{auto['cold_s']:.3f} s against {fused['cold_s']:.3f} s fused")
     if not gap <= 1e-7:
         raise RuntimeError(f"gp-large-50k-d20: the tiers 'auto' and False disagree by {gap}")
     return runs, launches
@@ -3456,9 +3496,9 @@ def phase_inversion_50k():
     variances are cg's (the same ``pcg_multi`` on the same operator, equal
     bit for bit on the card) and the fused store's cost as much as the
     FP64 store's, so neither is solved again (the script's time). For the
-    same reason only the cg tier times a warm solve; the others' (17.3,
-    27.3 and 20.4 s on an H100, PR 15) equal their cold solves less the
-    constructor's set-up."""
+    same reason no tier times a warm solve: each equals its cold solve less
+    the constructor's set-up (on an H100, cg's warm 8.6 s against its cold
+    10.0 s; PERF.md)."""
     xp, A, y, err = make_inversion_data(LARGE_N, 4096)
     idx = np.random.default_rng(5).choice(len(xp), INV_VARIANCES, replace=False)
     runs, launches = {}, {}
@@ -3470,7 +3510,7 @@ def phase_inversion_50k():
             ("df64 fused", dict(INV_DF64_KW, solver="df64", store_entries=False), ("B4",),
              1e-9, idx[:0])):
         runs[name], launches[name] = _inverter_run("inv-50k", y, err, A, xp, sel,
-                                                   warm=name == "cg", **kw)
+                                                   warm=False, **kw)
         run = runs[name]
         if not ((limit is None or run["residual"] <= limit) and run["rms"] <= 3 * INV_ERR):
             raise RuntimeError(f"inv-50k {name}: residual {run['residual']} (limit {limit}), "
@@ -4031,7 +4071,7 @@ def phase_probe_paths(n):
 
 BFGS_STARTS = 64
 FIT_N = 4096  # gp-fit-device-4k: phase 8's data
-FIT_STARTS = 16
+FIT_STARTS = 8  # 16 until the multi-device phases joined the script
 # the card's fused proposal against the CPU's, from one state, held stage by
 # stage where each stage is well posed. The fit's starts end where JAX's zoom
 # line search fails, on a surface so flat that roundoff alone moves the
@@ -4040,13 +4080,18 @@ FIT_STARTS = 16
 # readings, printed beside that CPU spread. Held: the card's
 # fit no worse in LML than the CPU's (BO_TWIN_LML_RTOL of it); at the card's
 # theta, the CPU's L and alpha, the acquisition at the card's proposal and
-# the history entry under the old state (BO_TWIN_RTOL); the card's proposal
+# the history entry under the old state, by its objective -log EI (the entry,
+# EI itself, carries |log EI| times that error: EI ~5e-7 there, its gap
+# measured 14.5 times the objective's, and once 1.8e-10 against the limit,
+# on an H100; PERF.md) (BO_TWIN_RTOL);
+# the card's proposal
 # no worse than the CPU's multistart from the same clouds under that state
 # (BO_TWIN_RTOL of it)
 BO_TWIN_RTOL, BO_TWIN_LML_RTOL = 1e-10, 1e-9
 # timed warm iterations in float32 (the bench's 10, cut to fit the script's
-# time); float64 keeps 10: its twin is held at that state
-BO_WARM_ITERATIONS_F32 = 5
+# time: 5 until the multi-device phases joined it); float64 keeps 10: its twin
+# is held at that state
+BO_WARM_ITERATIONS_F32 = 2
 BO_TWIN_Y_SCALE = 1.0 + 1e-15
 
 
@@ -4135,7 +4180,7 @@ def _profile_batched_evaluation(gp, thetas):
 
 
 def phase_fit_device(lml_bfgs):
-    """gp-fit-device-4k: ``fit_device(starts=16)`` at N = 4,096 in float64 on
+    """gp-fit-device-4k: ``fit_device(starts=FIT_STARTS)`` at N = 4,096 in float64 on
     phase 8's data. The batched objective against the single-start one at
     4 thetas (1e-10), then the fit: its seconds, B2 launches (one per start
     and evaluation), iterations per start, peak memory, and the winner's
@@ -4292,16 +4337,22 @@ def _bo_twin_check(opt):
     f_ms = float(cpu._cloud_multistart(cand, st_h)[1])
     at_rel = abs(f_at_c - f_c) / abs(f_c)
     f_short = (f_c - f_ms) / abs(f_ms)
-    hist_rel = rel(card.acquisition_max_history[-1], cpu.acquisition_max_history[-1])
-    readings = {"theta_rel": rel(theta_c, theta_h), "theta_rel_cpu_spread": rel(theta_p, theta_h),
+    # the history entry is expected improvement, exp(-objective): its relative
+    # error is |log EI| times the objective's, so the objective (-log EI, what
+    # the fused step computes) is held; the entry's own gap is a reading
+    h_c, h_h = card.acquisition_max_history[-1], cpu.acquisition_max_history[-1]
+    hist_rel = rel(-np.log(h_c), -np.log(h_h))
+    readings = {"history_entry_rel": rel(h_c, h_h), "history_entry": h_h,
+                "theta_rel": rel(theta_c, theta_h), "theta_rel_cpu_spread": rel(theta_p, theta_h),
                 "objective_rel": abs(f_c - f_h) / abs(f_h),
                 "objective_rel_cpu_spread": abs(f_p - f_h) / abs(f_h)}
     print(f"[bo-warm-2d twin] one fused proposal from one state, card vs CPU: the fit's LML "
           f"{lml_c!r} / {lml_h!r} (card short by {lml_short:.3e}, limit {BO_TWIN_LML_RTOL:g}); at "
           f"the card's theta, L and alpha {state_rel:.3e}, the acquisition at the card's "
           f"proposal {f_at_c!r} / {f_c!r} ({at_rel:.3e}), the CPU's multistart from the same "
-          f"clouds {f_ms!r} (card short by {f_short:.3e}); the history entry {hist_rel:.3e} "
-          f"(limits {BO_TWIN_RTOL:g}). Readings: theta card {theta_c.tolist()} CPU "
+          f"clouds {f_ms!r} (card short by {f_short:.3e}); the history entry's objective "
+          f"-log EI {hist_rel:.3e} (limits {BO_TWIN_RTOL:g}). Readings: the entry {h_h!r} "
+          f"({readings['history_entry_rel']:.3e}), theta card {theta_c.tolist()} CPU "
           f"{theta_h.tolist()} (max rel diff {readings['theta_rel']:.3e}; the CPU on y x "
           f"(1 + 1e-15) {readings['theta_rel_cpu_spread']:.3e}), the proposal's objective "
           f"{f_c!r} / {f_h!r} ({readings['objective_rel']:.3e}; the CPU on y x (1 + 1e-15) "
@@ -4394,6 +4445,492 @@ def phase_bo_demo():
         raise RuntimeError(f"the demo's loop ended at {best}, grid maximum {true_max}")
     _phase_line("bo-demo-1d", seconds)
     return {"seconds": seconds, "best": best, "grid_max": true_max}
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer (A13(b)): meshes of cells on one card, the sharded
+# samplers, the row-sharded df64 matmat, mesh= in the GP, NCCL in a child
+# ---------------------------------------------------------------------------
+
+MESH_GP_CELLS = 4
+ST_CELLS = 16                # st-bimodal-8: 8 rungs x 2 chain shards on the card
+ST_LANES = 4096              # lanes a rung: 32,768 chains
+ST_WARM, ST_TIMED, ST_STORED, ST_THIN = 100, 400, 1000, 10
+ST_PROFILE_STEPS = 20
+ST_TWIN_LANES = 64
+CA_MESH_WARM, CA_MESH_TIMED = 4, 16  # chain-array-mesh-4: the plain path's counts
+CA_MESH_BURN, CA_MESH_STORED, CA_MESH_THIN = 8, 48, 3  # a CPU rehearsal at 8,192 chains:
+# variances within 0.009 of the truth, R-hat 1.013 (thin 1: 1.11-1.13, biased by the
+# transitions' autocorrelation)
+NCCL_TIMEOUT = 240
+# gp-large-50k-mesh4's means against the single-device solve, relative to max
+# |mean|. The two solves' operators differ only by rounding (the matmat check
+# holds them within 1e-13 of sum|E||V|), and each stops at a relative residual
+# of 1e-9 of its own: their means differ by at most twice what stopping there
+# costs. The CPU rehearsal (rehearse_mesh_means, n = 4,096) measured that cost
+# at 2.1e-12 of max |mean| against a solve run on; the same kind of pair at
+# this size on the card (gp-large-50k's FP64 store against its fused solve,
+# PERF.md) differed by 9.8e-12. The limit stands 100x above that.
+MESH_MEAN_RTOL = 1e-9
+
+
+def _st_bimodal(n_cells, lanes=ST_LANES, seed=0):
+    """tempering_bench.py's ladder (8 GibbsChain rungs at T = 1-128, widths
+    0.3, from 4) as a ShardedTempering of the gibbs kind on ``n_cells`` cells
+    of the card."""
+    from inference_tpu_torch.parallel import ShardedTempering, tempering_mesh
+
+    return ShardedTempering(bimodal_bench, np.array([4.0]), PT_TEMPS, lanes,
+                            tempering_mesh(len(PT_TEMPS), n_cells, device=CUDA), kind="gibbs",
+                            widths=0.3, retry=False, seed=seed, display_progress=False)
+
+
+def _launches_a_step(st, steps=ST_PROFILE_STEPS):
+    """Kernel launches a step of ``st.advance(steps, swap_interval=10,
+    store=False)`` under torch.profiler, and its profile."""
+    prof = _profile_run(f"st {st._layout.n_cells} cells",
+                        lambda: st.advance(steps, swap_interval=PT_SWAP_INTERVAL, store=False))
+    return prof["launches"] / steps, prof
+
+
+def phase_dryrun_mesh():
+    """dryrun-mesh-8: ``parallel.dryrun.dryrun_multichip(8)`` on 8 cells of
+    the card (the JAX dry run's (rungs, chains) tempering advance, then its
+    sharded df64 solve at n = 1,024, B4 on each cell's rows): mesh {rungs
+    4, chains 2}, a swap rate in (0, 1), a residual below 1e-6."""
+    from inference_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = dryrun_multichip(8, devices=[CUDA] * 8)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = _launches()
+    print(f"[dryrun-mesh-8] {out} (card: {SMI})")
+    if out["mesh"] != {"rungs": 4, "chains": 2} or not 0.0 < out["swap_rate"] < 1.0 \
+            or not out["residual"] < 1e-6 or not out["launches"].get("B4"):
+        raise RuntimeError(f"dryrun-mesh-8: {out}")
+    return out
+
+
+def phase_st_bimodal():
+    """st-bimodal-8: tempering_bench.py's posterior and ladder (8 rungs, T =
+    1-128, swap_interval 10) as ``ShardedTempering(kind="gibbs",
+    retry=False)`` on ``tempering_mesh(8, n_devices=16)`` (16 cells on the
+    card, 4,096 lanes a rung: 32,768 chains). Warm-up, a timed advance
+    (steps/s per rung, lane-steps/s), a stored advance (thinned) whose host
+    reads are counted (one a chunk), the cold rung's left-mode share after
+    500 steps in [0.4, 0.9], the swap acceptance in (0.1, 0.95); kernel
+    launches a step at 16 cells within 10% of those at 8 cells (8 x 1, the
+    fewest an 8-rung mesh has)."""
+    t_phase = time.perf_counter()
+    st = _st_bimodal(ST_CELLS)
+    st.advance(ST_WARM, swap_interval=PT_SWAP_INTERVAL, store=False)
+    t0 = time.perf_counter()
+    st.advance(ST_TIMED, swap_interval=PT_SWAP_INTERVAL, store=False)
+    rate = ST_TIMED / (time.perf_counter() - t0)
+    reads = st._layout.host_reads
+    acc = st.advance(ST_STORED, swap_interval=PT_SWAP_INTERVAL, thin=ST_THIN)
+    reads = st._layout.host_reads - reads
+    chunks = _fused_chunks(ST_STORED // PT_SWAP_INTERVAL)
+    left = float((st.get_sample(0, burn=500 // ST_THIN)[:, 0] < 0).mean())
+    rates = st.swap_rate_matrix()
+    adjacent = [float(rates[i, i + 1]) for i in range(st.n_rungs - 1)]
+    per16, prof = _launches_a_step(st)
+    del st
+    _free()
+    per8, _ = _launches_a_step(_st_bimodal(len(PT_TEMPS)))
+    chains = ST_LANES * len(PT_TEMPS)
+    print(f"[st-bimodal-8] ShardedTempering gibbs on {ST_CELLS} cells of the card, {chains:,} "
+          f"chains: advance({ST_TIMED}) at {rate:,.1f} steps/s per rung ({rate * chains:,.0f} "
+          f"lane-steps/s) after {ST_WARM}; advance({ST_STORED}, thin={ST_THIN}) read the host "
+          f"{reads} times ({chunks} chunks); cold rung's left-mode share {left:.4f} (band "
+          f"[0.4, 0.9]); swap acceptance {acc.mean():.4f} (band (0.1, 0.95)), adjacent rungs "
+          f"{[round(r, 4) for r in adjacent]}; kernel launches a step {per16:.1f} at 16 cells, "
+          f"{per8:.1f} at 8 (limit 10%); phase {time.perf_counter() - t_phase:.1f} s (card: "
+          f"{SMI})")
+    if reads != chunks or not 0.4 <= left <= 0.9 or not 0.1 < acc.mean() < 0.95 \
+            or abs(per16 / per8 - 1.0) > 0.10:
+        raise RuntimeError("st-bimodal-8: host reads, left-mode share, swap acceptance or "
+                           "launches a step are off")
+    return {"steps_per_s_per_rung": rate, "lane_steps_per_s": rate * chains,
+            "host_reads_a_chunk": reads / chunks, "left_fraction": left,
+            "swap_acceptance": float(acc.mean()), "adjacent_swap_rates": adjacent,
+            "launches_a_step_16_cells": per16, "launches_a_step_8_cells": per8,
+            "profile": prof}
+
+
+def _st_swap_state(device):
+    """st-swap-twin's ladder in float64 on 16 cells of ``device`` with one
+    scattered state (positions uniform on [-6, 6], tempered logps), and
+    three swap phases on fixed uniforms: the gathered flags, positions and
+    logps after each."""
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(F64)
+    try:
+        from inference_tpu_torch.parallel import ShardedTempering, tempering_mesh
+
+        st = ShardedTempering(bimodal_bench, np.array([4.0]), PT_TEMPS, ST_TWIN_LANES,
+                              tempering_mesh(len(PT_TEMPS), ST_CELLS, device=device),
+                              kind="gibbs", widths=0.3, retry=False, seed=1,
+                              display_progress=False)
+        rng = np.random.default_rng(5)
+        rows = len(PT_TEMPS) * ST_TWIN_LANES
+        state = st.global_state()
+        theta = torch.as_tensor(rng.uniform(-6, 6, (rows, 1)))
+        logp = torch.func.vmap(bimodal_bench)(theta) * state.inv_temp
+        st.set_global_state(state._replace(theta=theta, logp=logp))
+        out = []
+        for phase in (0, 1, 0):
+            table = torch.as_tensor(rng.uniform(size=rows), device=st.device)
+            st._state, accept = st._swap(st._state, phase, st._layout.local_rows(table))
+            out.append(st._layout.gather([accept, st._state.theta, st._state.logp]))
+        return out
+    finally:
+        torch.set_default_dtype(default)
+
+
+def phase_st_swap_twin():
+    """st-swap-twin: st-bimodal-8's ladder in float64 on 16 cells of the card
+    and of the CPU, one scattered state and one set of injected uniforms,
+    three swap phases: accepted flags equal, positions equal (so the
+    permutation), logps within 1e-12 relative."""
+    card, cpu = _st_swap_state(CUDA), _st_swap_state("cpu")
+    err, accepted = 0.0, 0
+    for (f1, p1, l1), (f2, p2, l2) in zip(card, cpu):
+        if not (np.array_equal(f1, f2) and np.array_equal(p1, p2)):
+            raise RuntimeError("st-swap-twin: the card's flags or positions differ from the CPU's")
+        err = max(err, float(np.abs(l1 / l2 - 1.0).max()))
+        accepted += int(f1.sum())
+    print(f"[st-swap-twin] 3 swap phases of one float64 state, 16 cells, card against CPU: "
+          f"flags and positions equal ({accepted} rows swapped), logps within {err:.3e} "
+          f"relative (limit 1e-12)")
+    if err > 1e-12 or accepted == 0:
+        raise RuntimeError("st-swap-twin: logps differ or no swap accepted")
+    return {"max_rel_logp_err": err, "rows_swapped": accepted}
+
+
+def phase_st_nuts():
+    """st-nuts-4: ``ShardedTempering(kind="nuts")`` on 8 cells of the card
+    (pt-nuts-3's posterior, 4 rungs at T = 1, 3, 10, 30, 8 lanes a rung,
+    max_depth 5), ``advance(120, swap_interval=5)``; after the fused swaps
+    every row's cached gradient = inv_temp x grad logp at its position (rtol
+    1e-5, atol 1e-6, as pt-nuts-3), swaps accepted."""
+    from inference_tpu_torch.parallel import ShardedTempering, tempering_mesh
+
+    st = ShardedTempering(bimodal_bench, np.array([4.0]), [1.0, 3.0, 10.0, 30.0], 8,
+                          tempering_mesh(4, 8, device=CUDA), kind="nuts",
+                          max_depth=PT_NUTS_DEPTH, seed=3, display_progress=False)
+    t0 = time.perf_counter()
+    acc = st.advance(PT_NUTS_STEPS, swap_interval=PT_NUTS_INTERVAL)
+    seconds = time.perf_counter() - t0
+    state = st._state
+    with torch.no_grad():
+        expected = torch.func.vmap(torch.func.grad(bimodal_bench))(state.theta)
+    expected = expected * state.inv_temp[:, None]
+    err = float(((state.grad - expected).abs() / (1e-5 * expected.abs() + 1e-6)).max())
+    print(f"[st-nuts-4] advance({PT_NUTS_STEPS}, swap_interval={PT_NUTS_INTERVAL}) on 8 cells "
+          f"in {seconds:.2f} s; swap acceptance {acc.mean():.4f}; cached gradients' error / "
+          f"tolerance {err:.3g} (card: {SMI})")
+    if not acc.any() or err > 1.0 or not _on_card(state):
+        raise RuntimeError("st-nuts-4: no swap, a stale cached gradient or state off the card")
+    return {"seconds": seconds, "swap_acceptance": float(acc.mean()), "grad_err": err}
+
+
+def phase_chain_array_mesh():
+    """chain-array-mesh-4: bench-10d's posterior and starts, 65,536 chains,
+    ``ChainArray("hmc", mesh=chain_mesh(4 cells on the card), retry=False)``
+    on the plain path: attempts/s of ``advance(16, store=False)`` beside the
+    same run without a mesh; a stored run (burn 8, 48 transitions thinned by
+    3) held to pooled variances within 10% of the truth and rank-normalized
+    R-hat < 1.05."""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    cov = make_cov()
+    form = GaussianForm(torch.as_tensor(np.linalg.inv(cov)))
+    starts = np.random.default_rng(0).normal(0, 0.1, size=(N_CHAINS, N_DIM))
+    rates = {}
+    for label, mesh in (("mesh", chain_mesh(MESH_GP_CELLS, device=CUDA)), ("no mesh", None)):
+        ca = ChainArray("hmc", form, starts, steps=HMC_STEPS, epsilon=0.25, retry=False,
+                        mesh=mesh, device=CUDA, seed=1)
+        ca.advance(CA_MESH_WARM, store=False)
+        t0 = time.perf_counter()
+        ca.advance(CA_MESH_TIMED, store=False)
+        rates[label] = N_CHAINS * CA_MESH_TIMED / (time.perf_counter() - t0)
+        if mesh is not None:
+            meshed = ca
+    meshed.advance(CA_MESH_BURN, store=False)
+    meshed.advance(CA_MESH_STORED, thin=CA_MESH_THIN)
+    rel = float(np.abs(meshed.get_sample().var(axis=0) / np.diag(cov) - 1.0).max())
+    rhat = float(meshed.rhat().max())
+    print(f"[chain-array-mesh-4] ChainArray hmc on {MESH_GP_CELLS} cells of the card, "
+          f"{N_CHAINS:,} chains, plain path: {rates['mesh']:,.0f} attempts/s, without a mesh "
+          f"{rates['no mesh']:,.0f}; variances within {rel:.4f} of the truth (limit 0.10), max "
+          f"R-hat {rhat:.4f} (limit 1.05) (card: {SMI})")
+    if rel > 0.10 or not rhat < 1.05 or not _on_card(meshed._state):
+        raise RuntimeError("chain-array-mesh-4: statistics off or state off the card")
+    return {"attempts_per_s": rates["mesh"], "attempts_per_s_no_mesh": rates["no mesh"],
+            "max_rel_var_err": rel, "max_rhat": rhat}
+
+
+def _time_turns(fns, reps=5, turns=2):
+    """The least CUDA-event ms of each of ``fns`` over ``turns`` turns of
+    ``reps`` calls, in turn."""
+    best = [float("inf")] * len(fns)
+    for _ in range(turns):
+        for i, fn in enumerate(fns):
+            fn()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            best[i] = min(best[i], start.elapsed_time(end) / reps)
+    return best
+
+
+def phase_large_mesh(xpad):
+    """gp-large-50k-mesh4: gp-large-50k's generator and settings,
+    ``solver="df64"``, ``store_entries=False`` on a 4-cell mesh of the card.
+    ``sqexp_matmat_df64_sharded`` at n = 53,248, q = 8 against
+    ``sqexp_matmat_df64`` (within 1e-13 of sum_j |E_ij| |V_jk|, B4 launched
+    once a cell) and both timed (CUDA events); then the solve: cold, warm
+    beside the single-device fused solve's, the FP64 residual (<= 1e-9) by
+    the plain route, 256 means against the single-device solve's
+    (``MESH_MEAN_RTOL``). Returns the readings, the solves' launches and the
+    mesh instance's means (for gp-large-cg-50k-mesh4)."""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    mesh = chain_mesh(MESH_GP_CELLS, device=CUDA)
+    uh, ul = df64.split_f64(xpad)
+    uh, ul = torch.as_tensor(uh, device=CUDA), torch.as_tensor(ul, device=CUDA)
+    V = torch.as_tensor(np.random.default_rng(4).normal(size=(len(xpad), 8)),
+                        dtype=torch.float32, device=CUDA)
+    _reset_launches()
+    got = df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh)
+    sharded_launches = df64.KERNEL_LAUNCHES["B4"]
+    one = df64.sqexp_matmat_df64(uh, ul, V)
+    scale = df64.sqexp_matmat_df64(uh, ul, V.abs())
+    err = float(((got - one).abs() / scale).max())
+    ms_sharded, ms_one = _time_turns([lambda: df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh),
+                                      lambda: df64.sqexp_matmat_df64(uh, ul, V)])
+    del got, one, scale, V, uh, ul
+    print(f"[gp-large-50k-mesh4] sqexp_matmat_df64_sharded n={len(xpad)}, q=8 over "
+          f"{MESH_GP_CELLS} cells: {sharded_launches} B4 launches, within {err:.3e} of "
+          f"sum|E||V| of the unsharded B4 (limit 1e-13); {ms_sharded:.4f} ms against "
+          f"{ms_one:.4f} ms for one launch (card: {SMI})")
+    if sharded_launches != MESH_GP_CELLS or err > 1e-13:
+        raise RuntimeError("gp-large-50k-mesh4: the sharded matmat disagrees or its launches "
+                           "are off")
+    x, y, err_y = make_large_data(LARGE_N)
+    q = np.random.default_rng(1).uniform(0, 10, (256, 2))
+    out, launches = {"matmat_ms": ms_sharded, "matmat_one_launch_ms": ms_one,
+                     "matmat_max_err": err, "matmat_launches": sharded_launches}, {}
+    means = {}
+    for label, kw in (("mesh", dict(mesh=mesh)), ("one device", {})):
+        _free()
+        _reset_launches()
+        t_phase = t0 = time.perf_counter()
+        gp = LargeScaleGP(x, y, err_y, store_entries=False, device=CUDA, **LARGE_KW, **kw)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gp._solve_alpha()
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        res = _plain_residual(gp)
+        means[label] = gp(q)
+        launches[label] = _launches()
+        _phase_line("gp-large-50k-mesh4", time.perf_counter() - t_phase, (
+            f"{label}: cold constructor + solve {cold:.3f} s, warm solve {warm:.3f} s, FP64 "
+            f"relative residual by the plain route {res:.3e} (limit 1e-9); phase "))
+        out[label] = {"cold_s": cold, "warm_s": warm, "residual": res}
+        if not res <= 1e-9 or not np.isfinite(means[label]).all():
+            raise RuntimeError(f"gp-large-50k-mesh4 {label}: residual {res}")
+        del gp
+    gap = float(np.abs(means["mesh"] - means["one device"]).max()
+                / np.abs(means["one device"]).max())
+    out["mean_gap"] = gap
+    print(f"[gp-large-50k-mesh4] 256 means, mesh against one device: {gap:.3e} of max |mean| "
+          f"(limit {MESH_MEAN_RTOL:g}); B4 launches of the mesh's solve "
+          f"{launches['mesh'].get('B4', 0)}")
+    if gap > MESH_MEAN_RTOL or not launches["mesh"].get("B4") or launches["mesh"].get("B3"):
+        raise RuntimeError(f"gp-large-50k-mesh4: means {gap} apart, or the mesh's products "
+                           f"did not all run B4 ({launches['mesh']})")
+    _free()
+    return out, launches
+
+
+def phase_large_cg_mesh():
+    """gp-large-cg-50k-mesh4: gp-large-cg-50k's configuration with
+    ``solver="cg"`` on the 4-cell mesh (B2's row blocks dealt to the cells):
+    cold, warm, the FP64 residual by the plain route (<= 1e-3) and the 256
+    means within 1e-2 of max |mean| of ``solver="df64"``'s (FP64 store, one
+    device), as gp-large-cg-50k."""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 10, (LARGE_N, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, LARGE_N)
+    err = np.full(LARGE_N, 0.1)
+    q = rng.uniform(1, 9, (256, 2))
+    _free()
+    _reset_launches()
+    t_phase = t0 = time.perf_counter()
+    gp = LargeScaleGP(x, y, err, solver="cg", device=CUDA,
+                      mesh=chain_mesh(MESH_GP_CELLS, device=CUDA), **CG_KW)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp._set_alpha(gp._solve_alpha())
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    res = _plain_residual(gp)
+    mu = gp(q)
+    launches = _launches()
+    del gp
+    _free()
+    ref = LargeScaleGP(x, y, err, device=CUDA, **LARGE_KW)
+    mu64 = ref(q)
+    del ref
+    _free()
+    gap = float(np.abs(mu - mu64).max() / np.abs(mu64).max())
+    _phase_line("gp-large-cg-50k-mesh4", time.perf_counter() - t_phase, (
+        f"cg on {MESH_GP_CELLS} cells: cold {cold:.3f} s, warm solve {warm:.3f} s, FP64 "
+        f"residual by the plain route {res:.3e} (limit 1e-3), means against df64's {gap:.3e} "
+        f"(limit 1e-2); phase "))
+    if not res <= 1e-3 or not gap <= 1e-2 or not launches.get("B2"):
+        raise RuntimeError(f"gp-large-cg-50k-mesh4: residual {res}, means {gap}")
+    return {"cold_s": cold, "warm_s": warm, "residual": res, "mean_gap": gap}, launches
+
+
+def phase_inversion_mesh():
+    """inv-8k-mesh4: inv-8k's problem through the df64 inverter on the 4-cell
+    mesh (B4 on each cell's rows), its posterior mean within 1e-8 (relative
+    to max |mean|) of the dense FP64 GpLinearInverter's, as inv-8k."""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    xp, A, y, err = make_inversion_data(8192, 1024, seed=1)
+    default = torch.get_default_dtype()
+    torch.set_default_dtype(F64)
+    try:
+        _free()
+        _reset_launches()
+        t0 = time.perf_counter()
+        mean_ref = GpLinearInverter(y, err, A, xp, device=CUDA).calculate_posterior_mean(
+            [0.0, 0.0, 0.0, 0.0])
+        inv = LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0], device=CUDA,
+                                         mesh=chain_mesh(MESH_GP_CELLS, device=CUDA),
+                                         **dict(INV_DF64_KW, solver="df64"))
+        gap = float(np.abs(inv.calculate_posterior_mean() - mean_ref).max()
+                    / np.abs(mean_ref).max())
+        del inv
+        torch.cuda.synchronize()
+    finally:
+        torch.set_default_dtype(default)
+    launches = _launches()
+    _phase_line("inv-8k-mesh4", time.perf_counter() - t0,
+                f"df64 on {MESH_GP_CELLS} cells: means against the dense FP64 inverter "
+                f"{gap:.3e} (limit 1e-8); phase ")
+    if not gap <= 1e-8 or not launches.get("B4") or launches.get("B6"):
+        raise RuntimeError(f"inv-8k-mesh4: means {gap} apart, launches {launches}")
+    _free()
+    return {"mean_gap": gap}, launches
+
+
+NCCL_CHILD = """
+import sys
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+from inference_tpu_torch.parallel import (ShardedTempering, initialize_multihost,
+                                          global_tempering_mesh)
+import torch.distributed as dist
+info = initialize_multihost("127.0.0.1:{port}", 1, 0, cells_per_process=2, timeout=60)
+posterior = lambda t: torch.logaddexp(-0.5 * ((t[0] + 4.0) / 0.5) ** 2,
+                                      -0.5 * ((t[0] - 4.0) / 0.5) ** 2 + np.log(0.5))
+st = ShardedTempering(posterior, np.array([4.0]), [1.0, 5.0], 64, global_tempering_mesh(2),
+                      steps=5, epsilon=0.25, seed=11, display_progress=False)
+st.advance(40, swap_interval=10)
+np.savez({out!r}, history=np.concatenate(st._history), successful=st.successful_swaps,
+         attempted=st.attempted_swaps, theta=st.theta, backend=dist.get_backend(),
+         grouped=st._layout.grouped, **{{k: v for k, v in info.items()}})
+dist.destroy_process_group()
+"""
+
+
+def _nccl_tempering(mesh):
+    """nccl-1's run (the child's ``NCCL_CHILD`` runs the same): a 2-rung hmc
+    ShardedTempering (the bimodal posterior, 64 lanes, 5 leapfrog steps,
+    seed 11) advanced 40 steps with a swap every 10; its history and swap
+    counts gathered from ``mesh``'s cells."""
+    from inference_tpu_torch.parallel import ShardedTempering
+
+    st = ShardedTempering(bimodal_bench, np.array([4.0]), [1.0, 5.0], 64, mesh, steps=5,
+                          epsilon=0.25, seed=11, display_progress=False)
+    st.advance(40, swap_interval=10)
+    return st
+
+
+def phase_nccl():
+    """nccl-1: a child process joins a one-process NCCL group
+    (``initialize_multihost`` on the card, 2 cells), builds
+    ``global_tempering_mesh(2)`` and runs ``_nccl_tempering``, whose history
+    and swap counts are gathered through the group on CUDA tensors; it must
+    equal bit for bit the same seed's run in this process with no group."""
+    import socket
+    import tempfile
+    from inference_tpu_torch.parallel import global_tempering_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = os.path.join(tempfile.mkdtemp(), "nccl.npz")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", NCCL_CHILD.format(root=root, port=port, out=out)],
+                          capture_output=True, text=True, timeout=NCCL_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nccl-1: the child failed ({proc.returncode}):\n{proc.stdout}\n"
+                           f"{proc.stderr[-4000:]}")
+    child = dict(np.load(out))
+    shutil.rmtree(os.path.dirname(out))
+    st = _nccl_tempering(global_tempering_mesh(2, device=CUDA, cells_per_process=2))
+    same = {"history": np.array_equal(child["history"], np.concatenate(st._history)),
+            "successful": np.array_equal(child["successful"], st.successful_swaps),
+            "attempted": np.array_equal(child["attempted"], st.attempted_swaps),
+            "theta": np.array_equal(child["theta"], st.theta)}
+    print(f"[nccl-1] child on backend {child['backend']} (gathered through the group: "
+          f"{bool(child['grouped'])}), {int(child['n_processes'])} process, "
+          f"{int(child['global_devices'])} cells, in {seconds:.1f} s; bit for bit against the "
+          f"run with no group: {same}; swaps accepted {st.successful_swaps.sum():.0f} (card: "
+          f"{SMI})")
+    if str(child["backend"]) != "nccl" or not bool(child["grouped"]) or not all(same.values()):
+        raise RuntimeError(f"nccl-1: backend {child['backend']}, equal {same}")
+    return {"seconds": seconds, "backend": str(child["backend"]), "equal": same}
+
+
+def rehearse_mesh_means(n=4096):
+    """The CPU rehearsal behind ``MESH_MEAN_RTOL``: gp-large-50k's generator at
+    ``n``, the df64 solve on a 4-cell CPU mesh stopped at its cg_tol of 1e-9
+    against one device's run on to 1e-12: the 256 means' largest gap
+    relative to max |mean|, what stopping at 1e-9 costs. (On the CPU the
+    mesh's plain products equal one device's bit for bit, so the pair at one
+    tolerance differs by nothing there.)"""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    x, y, err = make_large_data(n)
+    q = np.random.default_rng(1).uniform(0, 10, (256, 2))
+    kw = dict(LARGE_KW, block_size=1024)
+    mesh = LargeScaleGP(x, y, err, device="cpu", mesh=chain_mesh(MESH_GP_CELLS, device="cpu"),
+                        **kw)
+    one = LargeScaleGP(x, y, err, device="cpu", **dict(kw, cg_tol=1e-12, cg_maxiter=20000))
+    mu, ref = mesh(q), one(q)
+    gap = float(np.abs(mu - ref).max() / np.abs(ref).max())
+    print(f"[rehearsal] n={n}: the mesh's means against one device's {gap:.3e} of max |mean| "
+          f"(tiers {mesh._tier!r} / {one._tier!r})")
+    return gap
 
 
 def _probe_rows(probe, errs):
@@ -4498,6 +5035,22 @@ def main():
           f"kde-marginal {time.perf_counter() - t_kde:.1f} s (card: {SMI})")
     del kde_draws
     _free()
+    t_multi = time.perf_counter()
+    multi = {"dryrun-mesh-8": phase_dryrun_mesh(), "st-bimodal-8": phase_st_bimodal(),
+             "st-swap-twin": phase_st_swap_twin(), "st-nuts-4": phase_st_nuts(),
+             "chain-array-mesh-4": phase_chain_array_mesh()}
+    _free()
+    t_multi_gp = time.perf_counter()
+    multi["gp-large-50k-mesh4"], mesh_launches = phase_large_mesh(
+        _padded(make_large_data(LARGE_N)[0]))
+    multi["gp-large-cg-50k-mesh4"], cg_mesh_launches = phase_large_cg_mesh()
+    multi["inv-8k-mesh4"], inv_mesh_launches = phase_inversion_mesh()
+    t_nccl = time.perf_counter()
+    multi["nccl-1"] = phase_nccl()
+    print(json.dumps({"multi_device": multi}, default=float))
+    print(f"[summary] the multi-device layer: samplers {t_multi_gp - t_multi:.1f} s, GP "
+          f"{t_nccl - t_multi_gp:.1f} s, nccl-1 {time.perf_counter() - t_nccl:.1f} s (card: {SMI})")
+    _free()
 
     x16k, y16k, err16k = make_gp_data(GP_N)
     b2_err = phase_b2_checks(x16k)
@@ -4547,9 +5100,9 @@ def main():
     print(f"[summary] gp-large-50k warm solve: {runs['auto']['warm_s']:.3f} s with the FP64 "
           f"store (B6), {runs[False]['warm_s']:.3f} s fused (B3), {runs['f32']['warm_s']:.3f} s "
           f"with the float32 store (B8, B3 refreshes); gp-large-50k-d20 warm solve "
-          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, "
-          f"{d20_runs[False]['warm_s']:.3f} s fused (the wide B3), cold "
-          f"{d20_runs['auto']['cold_s']:.3f} s with the store (the wide B5); all phases done "
+          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, cold "
+          f"{d20_runs['auto']['cold_s']:.3f} s with the store (the wide B5), "
+          f"{d20_runs[False]['cold_s']:.3f} s fused (the wide B3); all phases done "
           f"at {time.perf_counter() - t_start:.1f} s")
 
     df64_rows = []
@@ -4571,6 +5124,12 @@ def main():
             row["per_q"] = {q: df64_ms[f"{kernel} q={q}"] for q in STORED_Q}
         if kernel == "B4":
             row["per_q"] = {q: df64_ms[f"B4 q={q}"] for q in (2, 8, 16)}
+            row["launches_sharded"] = {
+                "dryrun-mesh-8": multi["dryrun-mesh-8"]["launches"].get("B4", 0),
+                "gp-large-50k-mesh4": mesh_launches["mesh"].get("B4", 0),
+                "inv-8k-mesh4": inv_mesh_launches.get("B4", 0)}
+            row["sharded_q8_ms"] = multi["gp-large-50k-mesh4"]["matmat_ms"]
+            row["sharded_q8_one_launch_ms"] = multi["gp-large-50k-mesh4"]["matmat_one_launch_ms"]
         if kernel in wide_ms:
             w = wide_ms[kernel]
             row.update({f"d{WIDE_D}_ms": w["ms"], f"d{WIDE_D}_bound_ms": w["bound_ms"],
@@ -4638,6 +5197,7 @@ def main():
                                                                    "b2")},
         "launches_cg_path": {**{f"gp-large-cg-50k {k}": v.get("B2", 0)
                                 for k, v in cg_launches.items()},
+                             "gp-large-cg-50k-mesh4": cg_mesh_launches.get("B2", 0),
                              "gp-large-fit-16k": fit16k["launches"].get("B2", 0),
                              **{f"inv-50k {k}": v.get("B2", 0) for k, v in inv_launches.items()}},
         "variant": b2_ms[F64]["variant"],

@@ -48,7 +48,9 @@ A ``HamiltonianChain``, ``NutsChain``, ``GibbsChain``, ``MetropolisChain``,
 ``nuts_chain_from_jax``, ``gibbs_chain_from_jax``,
 ``pca_chain_from_jax``, ``ensemble_sampler_from_jax``, which also carries
 the sampler's inverse temperature and ``retry``); a ``ParallelTempering``
-crosses as its chains (``parallel_tempering_from_jax``).
+crosses as its chains (``parallel_tempering_from_jax``), a
+``ShardedTempering`` as its gathered state, temperatures, swap phase and
+swap counts (``sharded_tempering_from_jax``).
 ``bounds_from_numpy`` and ``mass_from_numpy`` build the port's ``Bounds``
 and particle mass from numpy arrays.
 """
@@ -305,6 +307,45 @@ def parallel_tempering_from_jax(pt, posterior, grad=None, seed=None, device="cud
         else:
             raise ValueError(f"a {name} rung has no conversion in inference_tpu_torch yet")
     return ParallelTempering(rungs)
+
+
+def _state_leaves(state) -> list:
+    """The leaves of a (nested) NamedTuple state in ``jax.tree.flatten``'s
+    order (fields in order, depth first), as numpy arrays."""
+    if isinstance(state, tuple):
+        return [leaf for field in state for leaf in _state_leaves(field)]
+    return [np.asarray(state)]
+
+
+def sharded_tempering_from_jax(st, posterior, mesh, seed=None, **kwargs):
+    """The port's ``ShardedTempering`` on ``mesh`` (a port mesh of the JAX
+    mesh's shape, whose cells' device the state goes to) carrying a
+    single-process JAX ``ShardedTempering``: its kind, temperatures and
+    chain count, its state gathered from every device (each leaf
+    ``(n_rungs, n_chains, ...)``, through the ``*_state_from_jax`` helpers),
+    its swap phase and swap counts. ``posterior`` is the torch (or numpy)
+    posterior; the step settings the state does not carry (``max_depth``,
+    ``inverse_mass``, ``bounds``, proposal modes, ``alpha``, ``retry``) come
+    as keyword arguments of ``ShardedTempering``. The history and the
+    random streams start afresh."""
+    from .parallel._kinds import positions_of
+    from .parallel.tempering import ShardedTempering
+
+    leaves = _state_leaves(st._state)
+    R, C = leaves[0].shape[:2]
+    pos = leaves[0].reshape((R * C,) + leaves[0].shape[2:])
+    if st.kind == "ensemble":
+        kwargs.setdefault("n_walkers", pos.shape[1])
+    port = ShardedTempering(posterior, np.array(pos[0].reshape(-1)[:st.n_parameters]),
+                            st.temperatures, st.n_chains, mesh, kind=st.kind, seed=seed,
+                            display_progress=st.display_progress, **kwargs)
+    flat = [x.reshape((R * C,) + x.shape[2:]) for x in leaves]
+    dtype = positions_of(port._state)[0].dtype
+    port.set_global_state(port._leaf_codec()[1](flat, device="cpu", dtype=dtype))
+    port._phase = int(st._phase)
+    port.attempted_swaps = np.array(st.attempted_swaps, dtype=float)
+    port.successful_swaps = np.array(st.successful_swaps, dtype=float)
+    return port
 
 
 def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:

@@ -30,8 +30,12 @@ prior contraction ``K p`` takes one of three tiers:
 gradients of the data-space marginal likelihood, as ``LargeScaleGP.fit``
 does, with autograd through the blocked live-theta product.
 
-``mesh=`` is not ported yet and raises ``NotImplementedError`` naming
-ROADMAP A13.
+``mesh=`` (a ``parallel.mesh.Mesh``, its first axis) deals the prior
+contraction to the cells of one process, as in ``LargeScaleGP``: the df64
+tier runs kernel B4 on each cell's block of parameter rows
+(``ops.df64.sqexp_matmat_df64_sharded``) and stores no entries, and the cg
+and mixed tiers deal K's row blocks to the cells in turn. A mesh whose
+cells span processes raises ``NotImplementedError`` (ROADMAP A13(c)).
 """
 
 from functools import partial
@@ -46,6 +50,7 @@ from ..ops.df64 import (
     sqexp_entries_df64,
     sqexp_entries_f32,
     sqexp_matmat_df64,
+    sqexp_matmat_df64_sharded,
     sqexp_stored_f32_matmat,
     sqexp_stored_matmat_df64,
     stored_entries_tier,
@@ -55,7 +60,8 @@ from ..utils.device import resolve_device
 from ..utils.dtypes import default_float
 from .block_kernels import as_block_kernel
 from .covariance import SquaredExponential
-from .large_scale import _adam, _as_dtype, _worst_relative_residual
+from .large_scale import (_adam, _as_dtype, _worst_relative_residual, blocked_rows_product,
+                          mesh_devices)
 
 _ERR = "[ LargeScaleGpLinearInverter error ]"
 
@@ -63,13 +69,16 @@ _ERR = "[ LargeScaleGpLinearInverter error ]"
 def _prior_apply_split64(amp2, P64, *op):
     """``amp2 E P`` for a float64 (n, q) block, through one launch on the
     exact hi/lo float32 split of ``P`` (2q columns): kernel B6 on the FP64
-    store ``op = (E,)``, B8 on the float32 store, or B4 on the coordinate
-    pair ``op = (us_hi, us_lo)``."""
+    store ``op = (E,)``, B8 on the float32 store, B4 on the coordinate pair
+    ``op = (us_hi, us_lo)``, or B4 on each cell's rows with ``op = (us_hi,
+    us_lo, mesh)``."""
     q = P64.shape[1]
     Ph = P64.float()
     Pl = (P64 - Ph.double()).float()
     V = torch.cat([Ph, Pl], dim=1)
-    if len(op) == 2:
+    if len(op) == 3:
+        KP = sqexp_matmat_df64_sharded(op[0], op[1], V, op[2])
+    elif len(op) == 2:
         KP = sqexp_matmat_df64(op[0], op[1], V)
     elif op[0].dtype == torch.float32:
         KP = sqexp_stored_f32_matmat(op[0], V)
@@ -135,7 +144,10 @@ class LargeScaleGpLinearInverter:
     :param dtype: the working dtype of the cg and mixed tiers: ``None`` (the
         default float), ``"float32"`` or ``"float64"``; the df64 tier is FP64
         throughout, so there it is taken and checked but changes nothing.
-    :param mesh: not ported yet (ROADMAP A13).
+    :param mesh: optional ``parallel.mesh.Mesh`` whose first axis's cells
+        share the prior contraction (see the module docstring); every cell
+        must lie in this process. With ``solver="df64"`` the entries are not
+        stored (``store_entries`` True or ``"f32"`` raise).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
     """
@@ -212,10 +224,11 @@ class LargeScaleGpLinearInverter:
                 f"{_ERR} store_entries is a df64-tier option; use solver='df64' or drop "
                 f"the flag."
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                f"{_ERR} device meshes are not ported yet (ROADMAP A13, the "
-                f"row-sharded df64 matmat)."
+        if solver == "df64" and mesh is not None and store_entries in (True, "f32"):
+            raise ValueError(
+                f"{_ERR} store_entries is single-chip (the stored entries are one "
+                f"device's HBM); with a mesh the df64 tier runs the row-sharded fused "
+                f"kernel — drop the flag."
             )
         dtype = _as_dtype(dtype, "LargeScaleGpLinearInverter")
         self.store_entries = store_entries
@@ -263,6 +276,9 @@ class LargeScaleGpLinearInverter:
                 f"{_ERR} solver='df64' needs the padded parameter count to be a "
                 f"multiple of {_TJ}; use a block_size that is a multiple of {_TJ}."
             )
+        self._mesh = mesh
+        self._cell_devices = mesh_devices(mesh, solver, n_pad, "LargeScaleGpLinearInverter",
+                                          "parameter count")
 
         self._x_pad_host = x
         self._y_host = y
@@ -282,9 +298,8 @@ class LargeScaleGpLinearInverter:
         """The prior product ``K(theta) V`` for a vector or (n_pad, q) block
         in row blocks of ``block_size`` (one block's rows alive at a time),
         plus the white-noise prior term on the diagonal."""
-        x, step = self._x, self.block_size
-        KV = torch.cat([self._bk.rows(x[s : s + step], x, theta) @ V
-                        for s in range(0, self._n_padded, step)])
+        KV = blocked_rows_product(self._bk.rows, self._x, theta, V, self.block_size,
+                                  self._cell_devices)
         return KV + self._bk.noise_variance(theta) * V
 
     def _data_matmat(self, theta, V):
@@ -319,8 +334,8 @@ class LargeScaleGpLinearInverter:
         self._entries = None
         self._entries_f32 = None
         tier = stored_entries_tier(self._n_padded, self.store_entries)
-        if tier == "f32" and self.store_entries == "auto":
-            tier = None
+        if (tier == "f32" and self.store_entries == "auto") or self._mesh is not None:
+            tier = None  # a mesh's cells share the fused kernel
         self._tier = tier
         if tier == "f64":
             self._entries = sqexp_entries_df64(self._us_hi, self._us_lo)
@@ -334,6 +349,8 @@ class LargeScaleGpLinearInverter:
         coordinate pair."""
         if self._entries is not None:
             return (self._entries,)
+        if self._mesh is not None:
+            return (self._us_hi, self._us_lo, self._mesh)
         return (self._us_hi, self._us_lo)
 
     def _solver_kwargs(self, kind):

@@ -67,8 +67,13 @@ decisions:
   floors their tolerance at 1e-8, the noise of its pair arithmetic, which
   FP64 does not have.
 
-``mesh=`` is not ported yet and raises ``NotImplementedError`` naming
-ROADMAP A13.
+``mesh=`` (a ``parallel.mesh.Mesh``, its first axis) deals the work to
+the cells of one process, as the JAX package shards it over devices: the
+df64 tier's products run kernel B4 on each cell's block of rows
+(``ops.df64.sqexp_matmat_df64_sharded``; its single vectors too, as one
+column) and store no entries, and the cg and mixed tiers' system product
+deals its row blocks to the cells in turn. A mesh whose cells span
+processes raises ``NotImplementedError`` (ROADMAP A13(c)).
 """
 
 from functools import partial
@@ -78,11 +83,14 @@ import numpy as np
 import torch
 
 from ..ops.df64 import (
+    _TI,
     _TJ,
+    mesh_row_cells,
     split_f64,
     sqexp_entries_df64,
     sqexp_entries_f32,
     sqexp_matmat_df64,
+    sqexp_matmat_df64_sharded,
     sqexp_matvec_df64,
     sqexp_stored_f32_matmat,
     sqexp_stored_matmat_df64,
@@ -118,9 +126,12 @@ def woodbury_apply(V, U, dinv, core, *, core_chol, out_dtype=None):
 
 def _system_matvec(amp2, diag, v32, *op):
     """``(amp2 E + diag) v`` for a float32 vector, float64 out: kernel B6 on
-    the FP64 store ``op = (E,)``, B8 on the float32 store, or kernel B3 on
-    the coordinate pair ``op = (us_hi, us_lo)``."""
-    if len(op) == 2:
+    the FP64 store ``op = (E,)``, B8 on the float32 store, kernel B3 on the
+    coordinate pair ``op = (us_hi, us_lo)``, or B4 on each cell's rows with
+    ``op = (us_hi, us_lo, mesh)``."""
+    if len(op) == 3:
+        Ev = sqexp_matmat_df64_sharded(op[0], op[1], v32[:, None], op[2])[:, 0]
+    elif len(op) == 2:
         Ev = sqexp_matvec_df64(op[0], op[1], v32)
     elif op[0].dtype == torch.float32:
         Ev = sqexp_stored_f32_matmat(op[0], v32[:, None])[:, 0]
@@ -131,7 +142,9 @@ def _system_matvec(amp2, diag, v32, *op):
 
 def _entries_apply(V32, *op):
     """``E V`` through the FP64 store (kernel B6), the float32 store (B8),
-    else the fused kernel (B4)."""
+    the fused kernel (B4), or B4 on each cell's rows of a mesh."""
+    if len(op) == 3:
+        return sqexp_matmat_df64_sharded(op[0], op[1], V32, op[2])
     if len(op) == 2:
         return sqexp_matmat_df64(op[0], op[1], V32)
     if op[0].dtype == torch.float32:
@@ -143,6 +156,40 @@ def _system_matmat(amp2, diag, V32, *op):
     """``(amp2 E + diag) V`` for a float32 (n, q) block: kernel B6, B8 or
     B4."""
     return amp2 * _entries_apply(V32, *op) + diag[:, None] * V32.double()
+
+
+def blocked_rows_product(rows, x, theta, V, step, devices=None):
+    """``K(x, x) V`` in row blocks of ``step`` (one block alive at a time),
+    each block's kernel rows by ``rows`` then one product with V; with
+    ``devices`` (a mesh's cells), block b on ``devices[b % len(devices)]``
+    and its result back on x's device."""
+    n = x.shape[0]
+    if devices is None:
+        return torch.cat([rows(x[s : s + step], x, theta) @ V for s in range(0, n, step)])
+    on, out = {}, []
+    for b, s in enumerate(range(0, n, step)):
+        d = devices[b % len(devices)]
+        if d not in on:
+            on[d] = (x.to(d), theta.to(d), V.to(d))
+        xd, td, Vd = on[d]
+        out.append((rows(xd[s : s + step], xd, td) @ Vd).to(x.device))
+    return torch.cat(out)
+
+
+def mesh_devices(mesh, solver, n_padded, owner, what):
+    """The devices of a mesh's first-axis cells (None without a mesh),
+    after the JAX package's row-alignment check of the df64 tier."""
+    if mesh is None:
+        return None
+    cells = mesh_row_cells(mesh, owner)
+    n_dev = len(cells)
+    if solver == "df64" and n_padded % (n_dev * _TI) != 0:
+        raise ValueError(
+            f"[ {owner} error ] solver='df64' on a {n_dev}-device mesh needs the padded "
+            f"{what} ({n_padded}) to split into per-device blocks that are multiples of "
+            f"{_TI}; adjust block_size."
+        )
+    return [c.device for c in cells]
 
 
 def _as_dtype(dtype, owner="LargeScaleGP"):
@@ -227,7 +274,10 @@ class LargeScaleGP:
         dtype of either). The df64 tier is FP64 throughout, so there it is
         taken and checked but changes nothing; any other value raises
         ``ValueError``.
-    :param mesh: not ported yet (ROADMAP A13).
+    :param mesh: optional ``parallel.mesh.Mesh`` whose first axis's cells
+        share the products (see the module docstring); every cell must lie
+        in this process. With ``solver="df64"`` the entries are not stored
+        (``store_entries`` True or ``"f32"`` raise, ``"auto"`` stores none).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
     """
@@ -299,6 +349,13 @@ class LargeScaleGP:
                 f"got {self._bk.name}. Use solver='cg' or 'mixed' for "
                 f"this kernel."
             )
+        if solver == "df64" and mesh is not None and store_entries in (True, "f32"):
+            raise ValueError(
+                "[ LargeScaleGP error ] store_entries=True is single-chip "
+                "(the stored entries are one device's HBM); with a mesh "
+                "the df64 tier runs the row-sharded fused kernel instead "
+                "— drop the flag."
+            )
         if store_entries not in ("auto", True, False, "f32"):
             raise ValueError(
                 f"[ LargeScaleGP error ] 'store_entries' must be 'auto', "
@@ -309,11 +366,6 @@ class LargeScaleGP:
                 "[ LargeScaleGP error ] store_entries is a df64-tier option "
                 "(the stored entries serve the double-float matvec); use "
                 "solver='df64' or drop the flag."
-            )
-        if mesh is not None:
-            raise NotImplementedError(
-                "[ LargeScaleGP error ] device meshes are not ported yet "
-                "(ROADMAP A13, the row-sharded df64 matmat)."
             )
         dtype = _as_dtype(dtype)
         self.solver = solver
@@ -358,6 +410,8 @@ class LargeScaleGP:
                 f"count to be a multiple of {_TJ}; use a block_size that is a "
                 f"multiple of {_TJ}."
             )
+        self._mesh = mesh
+        self._cell_devices = mesh_devices(mesh, solver, n_pad, "LargeScaleGP", "row count")
         self.mean_value = float(np.mean(y[: self.n_points])) if mean_value is None else mean_value
 
         self._x_host = x
@@ -383,8 +437,10 @@ class LargeScaleGP:
                 "small-noise solve this solver exists for)."
             )
         self.preconditioner = preconditioner
-        # the df64 storage decision, before any O(N m^2) work
-        self._tier = stored_entries_tier(n_pad, store_entries) if solver == "df64" else None
+        # the df64 storage decision, before any O(N m^2) work; a mesh's
+        # cells share the fused kernel and store nothing
+        self._tier = stored_entries_tier(n_pad, store_entries) \
+            if solver == "df64" and mesh is None else None
 
     # ------------------------------------------------------------------ #
     # preconditioner
@@ -538,9 +594,8 @@ class LargeScaleGP:
         B2 for the squared exponential), then one product with V, so one
         block is alive at a time. The one system product of the cg and
         mixed tiers, of ``fit()`` and of the ``"device"`` residual."""
-        x, step = self._x, self.block_size
-        KV = torch.cat([self._bk.rows(x[s : s + step], x, theta) @ V
-                        for s in range(0, self._n_padded, step)])
+        KV = blocked_rows_product(self._bk.rows, self._x, theta, V, self.block_size,
+                                  self._cell_devices)
         diag = self._sig_diag + self._bk.noise_variance(theta) + self._bk.amp2(theta) * 1e-12
         return KV + (diag[:, None] * V if V.ndim == 2 else diag * V)
 
@@ -594,10 +649,12 @@ class LargeScaleGP:
         return True
 
     def _df64_op_args(self):
-        """Operands of the df64 system operator: the stored entries, or the
-        scaled-coordinate pair."""
+        """Operands of the df64 system operator: the stored entries, the
+        scaled-coordinate pair, or the pair and the mesh."""
         if self._entries is not None:
             return (self._entries,)
+        if self._mesh is not None:
+            return (self._us_hi, self._us_lo, self._mesh)
         return (self._us_hi, self._us_lo)
 
     def _diag64(self):

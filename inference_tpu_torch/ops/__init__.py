@@ -13,6 +13,7 @@ from .df64 import (
     sqexp_matvec_df64,
     sqexp_matmat_df64,
     sqexp_matmat_rect_df64,
+    sqexp_matmat_df64_sharded,
     sqexp_entries_df64,
     sqexp_entries_f32,
     sqexp_stored_matvec_df64,
@@ -38,6 +39,7 @@ __all__ = [
     "sqexp_matvec_df64",
     "sqexp_matmat_df64",
     "sqexp_matmat_rect_df64",
+    "sqexp_matmat_df64_sharded",
     "sqexp_entries_df64",
     "sqexp_entries_f32",
     "sqexp_stored_matvec_df64",

@@ -15,7 +15,8 @@ With ``E_ij = exp(-1/2 |us_i - us_j|^2)``:
 - ``sqexp_matvec_df64`` (B3) and ``sqexp_matmat_df64`` /
   ``sqexp_matmat_rect_df64`` (B4): ``E V`` evaluated entry by entry and
   never stored, one CUDA kernel (``csrc/sqexp_fused.cu``); B3 is its
-  ``q = 1`` launch.
+  ``q = 1`` launch. ``sqexp_matmat_df64_sharded`` runs B4 on each cell's
+  block of rows of a mesh (``parallel.mesh``).
 - ``sqexp_entries_df64`` (B5): E itself as one FP64 (n, n) tensor, 8 bytes
   per entry as the pair was (``csrc/sqexp_entries.cu``).
 - ``sqexp_stored_matmat_df64`` / ``sqexp_stored_matvec_df64`` (B6): ``E V``
@@ -335,6 +336,57 @@ def sqexp_matvec_df64(us_hi, us_lo, v):
     if v.shape != (us64.shape[0],):
         raise ValueError(f"[ {caller} error ] v must be ({us64.shape[0]},), got {tuple(v.shape)}.")
     return _fused(us64, us64, v.reshape(-1, 1), "B3")[:, 0]
+
+
+def mesh_row_cells(mesh, caller):
+    """The cells of a mesh's first axis (at index 0 of any other), which
+    all must lie in this process: a row-sharded product across processes is
+    ROADMAP A13(c)."""
+    from ..parallel.mesh import process_info
+
+    cells = list(mesh.devices.reshape(mesh.shape[mesh.axis_names[0]], -1)[:, 0])
+    rank, _ = process_info()
+    if any(c.rank != rank for c in cells):
+        raise NotImplementedError(
+            f"[ {caller} error ] the mesh's cells span processes; the row-sharded GP "
+            f"product across processes is not ported yet (ROADMAP A13(c))."
+        )
+    return cells
+
+
+def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh):
+    """
+    Row-sharded ``sqexp_matmat_df64`` over the cells of ``mesh``'s first
+    axis (kernel B4 once per cell and block of 16 columns): each cell
+    evaluates its block of ``E V``'s rows on its device against the full
+    columns and ``V``, and the blocks come back in order, as float64
+    ``(n, q)`` on the operands' device. ``n`` must split over the cells into
+    row blocks that are multiples of 128. Every cell must lie in this
+    process.
+    """
+    caller = "sqexp_matmat_df64_sharded"
+    axis = mesh.axis_names[0]
+    n_dev = mesh.shape[axis]
+    n = us_hi.shape[0]
+    if n % (n_dev * _TI) != 0:
+        raise ValueError(
+            f"[ sqexp_matmat_df64_sharded error ] n ({n}) must split over "
+            f"{n_dev} devices into row blocks that are multiples of {_TI}."
+        )
+    cells = mesh_row_cells(mesh, caller)
+    us64 = _pair_sum(us_hi, us_lo, caller)
+    V = _float32("V", V, caller)
+    _check_coords(us64, caller)
+    _check_block(V, n, caller)
+    home, block = us64.device, n // n_dev
+    on = {}  # the columns and V on each cell's device, moved once
+    out = []
+    for k, cell in enumerate(cells):
+        if cell.device not in on:
+            on[cell.device] = (us64.to(cell.device), V.to(cell.device))
+        cols, Vd = on[cell.device]
+        out.append(_fused(cols[k * block:(k + 1) * block], cols, Vd, "B4").to(home))
+    return torch.cat(out)
 
 
 # --------------------------------------------------------------------- #

@@ -5,6 +5,11 @@ Port of ``inference_tpu.parallel.chain_array`` for every kind ("hmc",
 advances every chain at once on one device, with the history kept on the
 host as numpy arrays. An ensemble chain is a sub-ensemble of walkers, and its
 diagnostics count every walker as a replicate chain.
+With ``mesh=`` the chains are split over the cells of a mesh's
+``axis_name`` axis (``parallel.mesh``): a process holds the chains of its
+cells and advances them as one batch on its device, and the history,
+positions and checkpoints are gathered from every process
+(``_collectives.Layout``).
 With ``fused=True`` the hmc advance runs through kernel B1
 (``ops.hmc_fused``), which keeps every chain's state on the chip through
 whole chunks of transitions. A posterior written with numpy runs on the
@@ -18,6 +23,7 @@ import copy
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..convert import (
     N_ENSEMBLE_LEAVES,
@@ -38,9 +44,31 @@ from ..mcmc._kernels import hmc as hmc_kernel
 from ..mcmc._kernels import metropolis as met_kernel
 from ..mcmc._kernels import nuts as nuts_kernel
 from ..utils import as_device_logp, default_float, make_generator, resolve_device
+from ._collectives import Layout
 from ._kinds import build_kind, check_kind, positions_of
+from .mesh import Mesh, cell_grid
+from .tempering import stream_seeds
 
 METROPOLIS_KINDS = ("gibbs", "metropolis", "pca")
+
+
+def _chain_layout(mesh, axis_name, n_chains):
+    """The ``Layout`` of ``n_chains`` chains split over the cells of the
+    mesh's ``axis_name`` axis (the cells at index 0 of any other axis)."""
+    if axis_name not in mesh.axis_names:
+        raise ValueError(
+            f"[ ChainArray error ] the mesh has no axis {axis_name!r} (axes "
+            f"{mesh.axis_names})."
+        )
+    axis = mesh.axis_names.index(axis_name)
+    cells = np.moveaxis(mesh.devices, axis, 0).reshape(mesh.shape[axis_name], -1)[:, 0]
+    if n_chains % len(cells) != 0:
+        raise ValueError(
+            f"[ ChainArray error ] n_chains ({n_chains}) must be a multiple of the mesh "
+            f"{axis_name!r} axis size ({len(cells)})."
+        )
+    line = Mesh(cell_grid(list(cells), (len(cells),)), (axis_name,))
+    return Layout(line, n_chains // len(cells), "ChainArray")
 
 
 def _warmup_window_sizes(n_steps: int, n_windows: int) -> np.ndarray:
@@ -105,8 +133,12 @@ class ChainArray:
         posterior, as the JAX package's kernel does. "auto" and False run the
         batched transition of ``mcmc/_kernels/hmc.py``, as the JAX package
         does.
-    :param mesh: device meshes are not ported yet (ROADMAP queue A13).
-    :param seed: optional integer seed of the chains' ``torch.Generator``.
+    :param mesh: optional ``parallel.mesh.Mesh`` whose ``axis_name`` axis
+        the chains are split over (``n_chains`` a multiple of its size); the
+        chains then live on the cells' devices and ``device`` is not read.
+    :param axis_name: mesh axis to split over (default "chains").
+    :param seed: optional integer seed of the chains' ``torch.Generator``
+        (another process of a mesh derives its own from it).
     :param device: the device every chain lives on (default the card;
         raises when there is none, pass ``"cpu"`` for the CPU).
     """
@@ -129,15 +161,11 @@ class ChainArray:
         retry: bool = True,
         fused="auto",
         mesh=None,
+        axis_name: str = "chains",
         seed=None,
         device="cuda",
     ):
         check_kind(kind)
-        if mesh is not None:
-            raise ValueError(
-                "[ ChainArray error ] device meshes are not ported to "
-                "inference_tpu_torch yet (ROADMAP queue A13)."
-            )
         starts = np.asarray(starts, dtype=float)
         if kind == "ensemble":
             if starts.ndim != 3:
@@ -151,7 +179,17 @@ class ChainArray:
             self.n_chains, self.n_parameters = starts.shape
             self.n_walkers = None
         self.kind = kind
-        self.device = resolve_device(device, "ChainArray")
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self._layout = None
+        if mesh is not None:
+            self._layout = _chain_layout(mesh, axis_name, self.n_chains)
+            self.device = self._layout.device
+            starts = starts[self._layout.rows]
+            if seed is not None and self._layout.rank > 0:
+                seed = stream_seeds(int(seed) % 2**32, self._layout.rank)[1]
+        else:
+            self.device = resolve_device(device, "ChainArray")
 
         dtype = default_float()
         if isinstance(posterior, nn.Module):
@@ -190,7 +228,11 @@ class ChainArray:
             if widths is None:
                 per_chain = np.where(starts != 0, np.abs(starts) * 0.05, 1.0)
             else:
-                per_chain = np.broadcast_to(np.asarray(widths, dtype=float), starts.shape)
+                per_chain = np.asarray(widths, dtype=float)
+                if self._layout is not None and per_chain.shape[:1] == (self.n_chains,) \
+                        and per_chain.ndim == 2:
+                    per_chain = self._layout.local_rows(per_chain)
+                per_chain = np.broadcast_to(per_chain, starts.shape)
             value = torch.as_tensor(np.ascontiguousarray(per_chain), dtype=dtype,
                                     device=self.device)
             self._state = self._state._replace(
@@ -226,6 +268,8 @@ class ChainArray:
             problems.append("retry=True (repeat-until-accept)")
         if kw["bounds"] is not None:
             problems.append("reflecting bounds")
+        if self.mesh is not None:
+            problems.append("a device mesh")
         im = kw["inverse_mass"]
         if im is not None and np.asarray(im).ndim > 1:
             problems.append("a full-matrix inverse mass")
@@ -266,8 +310,9 @@ class ChainArray:
                     outs.theta, outs.logp)
         self._state = state
         if store:
-            self._history.append(pos[::thin].cpu().numpy())  # (n/thin, K[, W], P)
-            self._prob_history.append(logp[::thin].cpu().numpy())
+            pos, logp = self._host([pos[::thin], logp[::thin]], axis=1)
+            self._history.append(pos)  # (n/thin, K[, W], P)
+            self._prob_history.append(logp)
         elif self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -341,6 +386,8 @@ class ChainArray:
             h = h[-last:]
         if h.shape[0] < max(2 * self.n_parameters, 3):
             return self  # not enough samples for a stable covariance
+        if self._layout is not None:
+            h = self._layout.local_rows(h, axis=1)  # this process's chains
         h = torch.as_tensor(h, dtype=self._state.theta.dtype, device=self.device)
         centred = h - h.mean(dim=0, keepdim=True)
         covs = torch.einsum("skp,skq->kpq", centred, centred) / (h.shape[0] - 1)
@@ -384,15 +431,22 @@ class ChainArray:
         estimator = rank_normalized_rhat if rank_normalized else split_rhat
         return estimator(series).cpu().numpy()
 
+    def _host(self, tensors, axis=0):
+        """Host copies of tensors whose ``axis`` holds this process's chains,
+        with every chain of a mesh gathered (one host read)."""
+        if self._layout is None:
+            return [t.cpu().numpy() for t in tensors]
+        return self._layout.gather(tensors, axis)
+
     @property
     def theta(self) -> np.ndarray:
         """Current positions, shape (n_chains[, n_walkers], n_parameters)."""
-        return positions_of(self._state)[0].cpu().numpy()
+        return self._host([positions_of(self._state)[0]])[0]
 
     @property
     def logp(self) -> np.ndarray:
         """Current log-probabilities, shape (n_chains[, n_walkers])."""
-        return positions_of(self._state)[1].cpu().numpy()
+        return self._host([positions_of(self._state)[1]])[0]
 
     def get_sample(self, burn: int = 0, thin: int = 1) -> np.ndarray:
         """Pooled samples from all chains, shape (n_kept * K, P). ``burn``
@@ -435,11 +489,15 @@ class ChainArray:
         (``leaf_0`` ... ``leaf_<n>``, kind, n_chains, n_parameters), so
         either package can restore it. The key leaf is drawn from this
         array's generator."""
+        state = self._state
+        if self._layout is not None:
+            leaves, spec = tree_flatten(state)
+            state = tree_unflatten([torch.as_tensor(h) for h in self._host(leaves)], spec)
         key = torch.randint(
             0, 2**32, (self.n_chains, 2), dtype=torch.int64,
             generator=self._generator, device=self.device,
         ).cpu().numpy().astype(np.uint32)
-        leaves = self._leaf_codec()[0](self._state, key)
+        leaves = self._leaf_codec()[0](state, key)
         items = {f"leaf_{i}": v for i, v in enumerate(leaves)}
         items["kind"] = self.kind
         items["n_chains"] = self.n_chains
@@ -461,8 +519,11 @@ class ChainArray:
                 f"[ ChainArray error ] checkpoint stores {n_saved} state "
                 f"leaves but an '{self.kind}' state has {self._n_leaves()}."
             )
+        leaves = [D[f"leaf_{i}"] for i in range(n_saved)]
+        if self._layout is not None:  # this process's chains, back on its cells
+            leaves = [self._layout.local_rows(x) for x in leaves]
         self._state = self._leaf_codec()[1](
-            [D[f"leaf_{i}"] for i in range(n_saved)],
+            leaves,
             device=self.device,
             dtype=positions_of(self._state)[0].dtype,
         )

@@ -13,7 +13,7 @@ from inference_tpu.utils import diagnostics as jax_diag
 from inference_tpu.utils import ess as jax_ess
 from inference_tpu_torch import convert
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
-from inference_tpu_torch.parallel import ChainArray
+from inference_tpu_torch.parallel import ChainArray, chain_mesh
 from inference_tpu_torch.utils import (
     as_device_logp,
     default_float,
@@ -115,8 +115,9 @@ def test_history_accessors_and_thinning():
 
 
 def test_unported_options_raise():
-    """Every kind builds now (nuts last); an unknown kind and a mesh
-    (ROADMAP A13) still raise."""
+    """Every kind builds now (nuts last), and so does a mesh (A13(b): the
+    chains split over two CPU cells, as without one); an unknown kind
+    still raises."""
     form = GaussianForm(torch.eye(2))
     starts = np.zeros((4, 2))
     nuts = ChainArray("nuts", form, starts, max_depth=4, device="cpu")
@@ -127,8 +128,11 @@ def test_unported_options_raise():
     assert ChainArray("ensemble", form, walkers, device="cpu").theta.shape == (2, 6, 2)
     with pytest.raises(ValueError, match="unknown"):
         ChainArray("slice", form, starts, device="cpu")
-    with pytest.raises(ValueError, match="A13"):
-        ChainArray("hmc", form, starts, mesh=object(), device="cpu")
+    meshed = ChainArray("hmc", form, starts, mesh=chain_mesh(2, device="cpu"), seed=1, steps=3)
+    plain = ChainArray("hmc", form, starts, seed=1, steps=3, device="cpu")
+    meshed.advance(4)
+    plain.advance(4)
+    np.testing.assert_array_equal(meshed.get_sample(), plain.get_sample())
 
 
 # --------------------------------------------------------------------- #

@@ -1436,3 +1436,82 @@ def test_kde_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(
             sample_hdi_device(torch.as_tensor(two, device=cuda), f).cpu().numpy(),
             sample_hdi(two, f))
+
+
+def _sharded_swap_twin(device, phases=(0, 1, 0)):
+    """A 4-rung x 8-lane nuts ladder on 8 cells of ``device`` in float64 on
+    a scattered state (tempered logp and gradients consistent), then swap
+    phases on fixed uniforms: the gathered state and flags after each."""
+    from inference_tpu_torch.parallel import ShardedTempering, tempering_mesh
+
+    def logp(t):
+        return torch.logaddexp(-0.5 * ((t[0] + 4.0) / 0.5) ** 2,
+                               -0.5 * ((t[0] - 4.0) / 0.5) ** 2 + np.log(0.5))
+
+    st = ShardedTempering(logp, np.array([4.0]), [1.0, 3.0, 10.0, 30.0], 8,
+                          tempering_mesh(4, 8, device=device), kind="nuts", max_depth=4, seed=1)
+    rng = np.random.default_rng(2)
+    state = st.global_state()
+    theta = torch.as_tensor(rng.uniform(-6, 6, (32, 1)))
+    x = theta.clone().requires_grad_(True)
+    v = torch.func.vmap(logp)(x)
+    (g,) = torch.autograd.grad(v.sum(), x)
+    it = state.inv_temp
+    st.set_global_state(state._replace(theta=theta, logp=v.detach() * it, grad=g * it[:, None]))
+    out = []
+    for phase in phases:
+        table = torch.as_tensor(rng.uniform(size=32), device=st.device)
+        st._state, accept = st._swap(st._state, phase, st._layout.local_rows(table))
+        flags, pos, lp, grad = st._layout.gather([accept, st._state.theta, st._state.logp,
+                                                  st._state.grad])
+        out.append((flags, pos, lp, grad))
+    return st, out
+
+
+@pytest.mark.cuda
+def test_sharded_tempering_on_card_matches_cpu(cuda):
+    """ShardedTempering on 8 cells of the card against its CPU twin: swaps
+    on one state and one set of uniforms give equal flags and positions and
+    logp and gradients within 1e-12; an advance keeps the state on the card
+    and reads the host once a chunk."""
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        st, card = _sharded_swap_twin(cuda)
+        _, cpu = _sharded_swap_twin("cpu")
+        for (f1, p1, l1, g1), (f2, p2, l2, g2) in zip(card, cpu):
+            np.testing.assert_array_equal(f1, f2)
+            np.testing.assert_array_equal(p1, p2)
+            np.testing.assert_allclose(l1, l2, rtol=1e-12, atol=1e-12)
+            np.testing.assert_allclose(g1, g2, rtol=1e-12, atol=1e-12)
+        assert any(f.any() for f, *_ in card) and not all(f.all() for f, *_ in card)
+        reads = st._layout.host_reads
+        st.advance(40, swap_interval=10)
+        assert st._layout.host_reads - reads == 1  # one chunk of 4 cycles
+        assert _state_devices(st._state) == {"cuda"}
+        assert np.isfinite(st.logp).all()
+    finally:
+        torch.set_default_dtype(old)
+
+
+@pytest.mark.cuda
+def test_sharded_matmat_on_card_matches_b4(cuda):
+    """``sqexp_matmat_df64_sharded`` over 4 cells of the card: kernel B4
+    once a cell (q <= 16), within 1e-13 of sum_j |E_ij| |V_jk| of B4
+    unsharded."""
+    from inference_tpu_torch.parallel import chain_mesh
+
+    n = 4096
+    rng = np.random.default_rng(3)
+    uh, ul = df64.split_f64(rng.uniform(0, 10, (n, 2)))
+    uh, ul = torch.as_tensor(uh, device=cuda), torch.as_tensor(ul, device=cuda)
+    V = torch.as_tensor(rng.normal(size=(n, 8)), dtype=torch.float32, device=cuda)
+    before = df64.KERNEL_LAUNCHES["B4"]
+    got = df64.sqexp_matmat_df64_sharded(uh, ul, V, chain_mesh(4, device=cuda))
+    assert df64.KERNEL_LAUNCHES["B4"] - before == 4
+    one = df64.sqexp_matmat_df64(uh, ul, V)
+    us = uh.double() + ul.double()
+    E = torch.exp(-0.5 * torch.cdist(us, us) ** 2)
+    scale = E @ V.double().abs()
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    assert bool(((got - one).abs() <= 1e-13 * scale).all())

@@ -12,13 +12,13 @@ import inference_tpu_torch
 import inference_tpu_torch.ops
 
 PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
-         "inference_tpu_torch.models", "inference_tpu_torch.gp", "inference_tpu_torch.pdf")
+         "inference_tpu_torch.models", "inference_tpu_torch.gp", "inference_tpu_torch.pdf",
+         "inference_tpu_torch.parallel")
 PORT_ONLY = {"GaussianForm"}
-# the JAX package's names from these paths that the port does not define
-# yet: the sharded matmat is ROADMAP A13's multi-device part (b); the TPU
-# watchdog's chunk length has no job on a GPU (ROADMAP "Not ported")
+# the JAX package's names from these paths that the port does not define:
+# the TPU watchdog's chunk length has no job on a GPU (ROADMAP "Not ported")
 UNPORTED = {
-    "inference_tpu.ops": {"df64_chunk_iters", "sqexp_matmat_df64_sharded"},
+    "inference_tpu.ops": {"df64_chunk_iters"},
 }
 
 
@@ -47,3 +47,10 @@ def test_ops_exports_every_ported_name():
     port = set(inference_tpu_torch.ops.__all__)
     reference = set(importlib.import_module("inference_tpu.ops").__all__)
     assert port - PORT_ONLY == reference - UNPORTED["inference_tpu.ops"]
+
+
+def test_parallel_exports_what_jax_exports():
+    """The parallel path exports the JAX package's names there, all of them
+    ported (A13(b))."""
+    port = importlib.import_module("inference_tpu_torch.parallel").__all__
+    assert sorted(port) == sorted(importlib.import_module("inference_tpu.parallel").__all__)

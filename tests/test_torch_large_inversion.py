@@ -29,6 +29,8 @@ from inference_tpu.gp import RationalQuadratic as JaxRationalQuadratic
 from inference_tpu.gp import SquaredExponential as JaxSquaredExponential
 from inference_tpu.gp import WhiteNoise as JaxWhiteNoise
 from inference_tpu_torch import convert
+from inference_tpu_torch.parallel import chain_mesh
+from inference_tpu_torch.parallel.mesh import Cell, Mesh, cell_grid
 from inference_tpu_torch.gp import (
     LargeScaleGpLinearInverter,
     RationalQuadratic,
@@ -253,9 +255,21 @@ def test_method_errors_match_jax(call):
 
 
 def test_mesh_raises_naming_its_roadmap_item():
+    """``mesh=`` is ported (A13(b)): on two CPU cells of one process the
+    df64 inverter solves as it does without a mesh; a mesh whose cells
+    span processes raises naming its ROADMAP item, A13(c)."""
     y, err, A, xp = averaging_problem(m=20, n=50)
-    with pytest.raises(NotImplementedError, match="A13"):
-        LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0], mesh=object(), device="cpu")
+    kw = dict(block_size=128, solver="df64", cg_tol=1e-10, device="cpu")
+    inv = LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0],
+                                     mesh=chain_mesh(2, device="cpu"), block_size=256,
+                                     solver="df64", cg_tol=1e-10, device="cpu")
+    one = LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0], store_entries=False, **kw)
+    mean, ref = inv.calculate_posterior_mean(), one.calculate_posterior_mean()
+    assert np.abs(mean - ref).max() <= 1e-8 * np.abs(ref).max()
+    across = Mesh(cell_grid([Cell(0, torch.device("cpu")), Cell(1, torch.device("cpu"))], (2,)),
+                  ("chains",))
+    with pytest.raises(NotImplementedError, match=r"A13\(c\)"):
+        LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0], mesh=across, device="cpu")
 
 
 # --------------------------------------------------------------------- #

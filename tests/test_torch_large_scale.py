@@ -21,6 +21,7 @@ from inference_tpu.gp import large_scale as jls
 from inference_tpu_torch import convert
 from inference_tpu_torch.gp import LargeScaleGP, RationalQuadratic, SquaredExponential, WhiteNoise
 from inference_tpu_torch.gp import large_scale as tls
+from inference_tpu_torch.parallel import chain_mesh
 
 THETA = np.array([0.0, 0.0, 0.0])
 
@@ -348,26 +349,23 @@ def test_validation_matches_jax(case):
 
 @pytest.mark.parametrize("case", ["cg", "mixed", "mesh", "rq", "white_noise", "fit"])
 def test_unported_options_raise(case):
-    """What waits for a later slice raises NotImplementedError naming its
-    ROADMAP item (``mesh=``, A13). What the A11 slice ported (the cg and
-    mixed tiers, the RQ and white-noise kernels, ``fit()``) no longer
-    raises: each constructs, solves and takes a fit step."""
+    """What earlier slices left for later no longer raises: the cg and
+    mixed tiers, the RQ and white-noise kernels and ``fit()`` (A11), and
+    ``mesh=`` (A13(b): the df64 tier on two CPU cells of a ``chain_mesh``,
+    the padded rows split into one 128-row block a cell). Each constructs,
+    solves and takes a fit step."""
     x, y, err, _ = small_noise_problem(64, seed=0)
     base = dict(hyperpars=THETA, block_size=128, solver="df64", device="cpu",
                 preconditioner_rank=16)
     kw = {
         "cg": dict(solver="cg"),
         "mixed": dict(solver="mixed"),
-        "mesh": dict(mesh=object()),
+        "mesh": dict(mesh=chain_mesh(2, device="cpu"), block_size=256),
         "rq": dict(solver="cg", kernel=RationalQuadratic, hyperpars=[0.0, 0.0, 0.0, 0.0]),
         "white_noise": dict(solver="cg", kernel=SquaredExponential() + WhiteNoise(),
                             hyperpars=[0.0, 0.0, 0.0, -2.0]),
         "fit": {},
     }[case]
-    if case == "mesh":
-        with pytest.raises(NotImplementedError, match="A13"):
-            LargeScaleGP(x, y, err, **{**base, **kw})
-        return
     gp = LargeScaleGP(x, y, err, **{**base, **kw})
     theta = gp.fit(n_steps=1, fit_maxiter=1000)
     assert theta.shape == gp.hyperpars.shape and np.isfinite(theta).all()

@@ -39,6 +39,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.bench.nuts",
         "inference_tpu_torch.pdf, inference_tpu_torch.pdf.base, inference_tpu_torch.pdf.kde, "
         "inference_tpu_torch.pdf.hdi, inference_tpu_torch.pdf.unimodal",
+        "inference_tpu_torch.parallel.mesh, inference_tpu_torch.parallel.multihost, "
+        "inference_tpu_torch.parallel._collectives, inference_tpu_torch.parallel.tempering, "
+        "inference_tpu_torch.parallel.dryrun",
         "chip_smoke",
     ],
 )
