@@ -8,7 +8,9 @@ the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), NUTS
 estimators (GaussianKDE, UnimodalPdf, a chain's get_marginal and
 get_interval), the multi-device layer (meshes of cells on the card,
 ShardedTempering, ChainArray(mesh=), the sharded df64 matmat and mesh= in
-the large GP and inverter, a one-process NCCL group), dense GP regression (kernel
+the large GP and inverter, a one-process NCCL group, the GP across two
+processes), the conditional approximations, a matrix plot's data and the
+profiler, dense GP regression (kernel
 B2) with its on-device fit, Bayesian optimisation (GpOptimiser), the
 matrix-free GP (its small-noise df64 tier through kernels B3-B8;
 its cg and mixed tiers, fit() and the RQ and white-noise kernels through
@@ -148,7 +150,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    inverter); nccl-1 (a child in a one-process NCCL group: a hmc
    ShardedTempering's history and swap counts gathered through the group,
    bit for bit the run without one); their readings as one
-   ``{"multi_device": ...}`` line;
+   ``{"multi_device": ...}`` line; then queue A's last items, with no
+   kernel of their own but B1 and B4: (m) conditional-10d and
+   conditional-256 (``get_conditionals`` on bench-10d's and dense-256's
+   Gaussians in float64: 28 batched posterior calls each, the grids against
+   the CPU's within 1e-10, ``conditional_moments`` against the closed form
+   within ``COND_MEAN_SD`` and ``COND_VAR_BAND``), conditional-numpy
+   (``gibbs_chain_demo.py``'s posterior in numpy through the host route,
+   the card's moments equal to the CPU's), matrix-panels
+   (``plotting.matrix_panels`` of kde-marginal's 8,192 draws, all 10
+   parameters, "hdi" style: 10 curves, 45 KDE2D grids and their levels, the
+   first 3 parameters' held to the CPU within 1e-10, matplotlib never
+   imported), profile-b1 (``device_trace`` around a fused advance at 65,536
+   chains, its trace listing B1 as often as it launched, the window padded
+   by ``TRACE_PAD_S``; a ``PhaseTimer`` phase within 10% of CUDA events)
+   and gp-2proc (two children on ``cuda:0`` joined by gloo, 2 cells each:
+   the sharded matmat at n = 53,248, q = 8, the df64 solve's means and the
+   cg tier's means bit for bit against gp-large-50k-mesh4's and
+   gp-large-cg-50k-mesh4's 4 cells in this process, the FP64 residual <=
+   1e-9, B4 launches a process and the gather's share of a product); their
+   readings as one ``{"a14": ...}`` line;
 6. kernel B2 against its plain version on the card, on the same inputs,
    each check printing the library and the store route it took: float64
    and float32 at 16,384 x 16,384 (D=2, gp-16k's data), a ragged float64
@@ -1037,6 +1058,12 @@ GIBBS_CHAINS = (1024, 65_536)  # chain_batch_bench.py's default; bench-10d's cou
 GIBBS_STEPS = (16, 32)
 METROPOLIS_STEPS = (128, 512)  # one launch-bound proposal a step: the bench's counts
 GIBBS_CHECK = 1024  # chains of the stored correctness runs
+# chains of the gibbs retry=True check run: its host loop tries again until
+# every chain has accepted, so its tries grow with the chains (1,024 until
+# A14(b)'s phases joined the script). A CPU rehearsal at 256 chains (seeds
+# 2-5): variances within 0.024-0.043 of the truth, R-hat 1.038-1.040; the
+# card at 1,024 (PERF.md): 0.0344, 1.0375
+GIBBS_RETRY_CHECK = 256
 GIBBS_PROFILE_SWEEPS = 2  # sweeps of the profiled advance (4, cut: the profiler's processing dominates)
 # steps of one chain by device after 200 warm-up steps (the demo's 150,000
 # cut to the script's time: 2,000 and 5,000 until the matrix-free GP's rest
@@ -1182,8 +1209,8 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
     (its starts, seed 1, default widths). Chain-steps/s of the gibbs kind at
     each chain count with retry=True and False, of the metropolis (widths
     0.7) and pca kinds with retry=False, after the bench's warm-up
-    (``_timed_advance``); stored correctness runs at ``check`` chains from
-    widths of 1 (metropolis 0.7; pca: one ``update_directions()`` after the
+    (``_timed_advance``); stored correctness runs at ``check`` chains
+    (gibbs with retry=True at ``GIBBS_RETRY_CHECK``) from widths of 1 (metropolis 0.7; pca: one ``update_directions()`` after the
     warm-up) of gibbs with retry=True and False and of metropolis and pca
     with retry=False; a profile of one advance at the largest count with
     retry=True, after its timed window. Returns the readings."""
@@ -1209,10 +1236,11 @@ def phase_gibbs_10d(device="cuda", chains=GIBBS_CHAINS, check=GIBBS_CHECK):
             if retry and K == chains[-1] and torch.device(device).type == "cuda":
                 out["profile"] = _profile_gibbs(ca, sweeps=GIBBS_PROFILE_SWEEPS)
             del ca
-    starts = np.random.default_rng(0).normal(size=(check, 10))
     for kind, retry, steps, burn in (("gibbs", True, 300, 100), ("gibbs", False, 600, 200),
                                      ("metropolis", False, 3000, 1000), ("pca", False, 400, 150)):
         t_run = time.perf_counter()
+        K = min(check, GIBBS_RETRY_CHECK) if retry else check
+        starts = np.random.default_rng(0).normal(size=(K, 10))
         ca = ChainArray(kind, gauss10, starts, seed=2, retry=retry, device=device,
                         widths=0.7 if kind == "metropolis" else 1.0)
         if kind == "pca":
@@ -1411,8 +1439,8 @@ def phase_a1_numpy(reference, steps=ROSEN_STEPS["cuda"], device="cuda"):
 PT_TEMPS = [2.0**k for k in range(8)]  # tempering_bench.py: 8 rungs, T = 1-128
 PT_STEPS = 1000  # pt-bimodal-8's counted advance: tempering_bench.py's default n_steps
 # of 2,000, cut when the multi-device phases joined the script
-PT_TIMED_STEPS = 500  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's
-# time; 1,000 until the multi-device phases joined it)
+PT_TIMED_STEPS = 250  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's
+# time; 1,000 until the multi-device phases joined it, 500 until A14(b)'s did)
 PT_SWAP_INTERVAL = 10
 PT_TWIN_TRIALS = 64
 PT_PROFILE_STEPS = 20  # the profiler's processing of ~500 launches a step dominates
@@ -1833,7 +1861,8 @@ NUTS_DEMO_STEPS, NUTS_DEMO_BURN = 300, 75  # demos/nuts_demo.py's 6,000 and 1,00
 NUTS_DEMO_RADIUS = (0.991, 1.016)  # rehearsals 0.9993-1.0076 (sd 0.0027)
 NUTS_DEMO_THICK = (0.034, 0.058)   # rehearsals 0.0423-0.0501 (sd 0.0026)
 PT_NUTS_TEMPS, PT_NUTS_DEPTH, PT_NUTS_STEPS, PT_NUTS_INTERVAL = [1.0, 3.0, 10.0], 5, 120, 5
-KDE_SAMPLES, KDE_POINTS, KDE_RTOL = 8192, 5_000, 1e-10  # 10,000 points until the multi-device phases
+# 10,000 points until the multi-device phases, 5,000 until A14(b)'s
+KDE_SAMPLES, KDE_POINTS, KDE_RTOL = 8192, 2_500, 1e-10
 UNIMODAL_OBJ_RTOL, UNIMODAL_MAP_RTOL = 1e-12, 1e-9
 
 
@@ -2542,6 +2571,9 @@ F32_STORE_TOL = 2.0**-24 + 1e-13  # B8 vs B6: the float32 store's rounding
 D20 = 20  # gp-large-50k-d20's coordinate dimension
 # amplitude 1, lengthscale 5 in every dimension: the pre-scaled coordinates on [0, 1.5]^20
 D20_KW = dict(LARGE_KW, hyperpars=[0.0] + [float(np.log(5.0))] * D20)
+# variances of each gp-large-50k-d20 run (16 cut to 8 to fit the script's
+# time, to 4 when A14(b)'s phases joined it)
+D20_VARIANCES = 4
 
 
 def make_large_data(n, seed=0):
@@ -2976,18 +3008,19 @@ def phase_large_d20():
     """gp-large-50k-d20: LargeScaleGP(solver="df64") at N=50,000, d = 20 on
     the card with store_entries="auto" (the wide B5, then B6) and False (the
     wide B3, then the wide B4 for the predictions), each counting its
-    launches from 0; the two tiers' 256 means and 8 sds must agree within
-    1e-7. Cut for the script's time: 16 sds to 8; False's warm solve (its
-    cold constructor holds the same solve, 0.3 s beside the pivoted
-    Cholesky) and both profiles (False's, B3 98% of a warm solve, and
-    "auto"'s are in PERF.md)."""
+    launches from 0; the two tiers' 256 means and ``D20_VARIANCES`` sds must
+    agree within 1e-7. Cut for the script's time: 16 sds to 4; both warm
+    solves (each cold constructor holds the same solve, 0.3 s beside the
+    pivoted Cholesky; "auto"'s warm solve 7.690 s, PERF.md) and both
+    profiles (False's, B3 98% of a warm solve, and "auto"'s are in
+    PERF.md)."""
     x, y, err = make_d20_data(LARGE_N)
     q = np.random.default_rng(3).uniform(0, 7.5, (256, D20))
     runs, launches = {}, {}
     for store, needs in (("auto", ("B5", "B6")), (False, ("B3", "B4"))):
         gp, runs[store], launches[store] = _large_run("gp-large-50k-d20", x, y, err, q, store,
-                                                      profile=False, kw=D20_KW, n_var=8,
-                                                      warm=store == "auto")
+                                                      profile=False, kw=D20_KW,
+                                                      n_var=D20_VARIANCES, warm=False)
         del gp
         wide = {k: launches[store][k] for k in needs}
         print(f"[gp-large-50k-d20] store_entries={store!r}: launches of the kernels at d = "
@@ -2999,8 +3032,8 @@ def phase_large_d20():
     auto, fused = runs["auto"], runs[False]
     gap = max(np.abs(auto["mu"] - fused["mu"]).max(), np.abs(auto["sd16"] - fused["sd16"]).max())
     print(f"[gp-large-50k-d20] 'auto' against False: max difference of means and sds {gap:.3e} "
-          f"(limit 1e-7); warm solve {auto['warm_s']:.3f} s with the store, cold "
-          f"{auto['cold_s']:.3f} s against {fused['cold_s']:.3f} s fused")
+          f"(limit 1e-7); cold {auto['cold_s']:.3f} s with the store against "
+          f"{fused['cold_s']:.3f} s fused")
     if not gap <= 1e-7:
         raise RuntimeError(f"gp-large-50k-d20: the tiers 'auto' and False disagree by {gap}")
     return runs, launches
@@ -3063,7 +3096,10 @@ RQ_THETA = np.array([0.0, 0.5, 0.5, 0.5, np.log(0.05)])
 INV_ERR = 0.02
 INV_CG_KW = dict(block_size=4096, cg_tol=1e-4, cg_maxiter=2000, dtype="float32")
 INV_DF64_KW = dict(block_size=4096, cg_tol=1e-10, cg_maxiter=6000)
-INV_VARIANCES = 8  # variances of the cg and df64 "auto" runs (16, cut to fit the script's time)
+# variances of inv-50k's cg and df64 "auto" runs (16, cut to fit the script's
+# time). Not cut to 4: the cg tier's mean field and 4 variances took 70-73 s
+# where the mean field and 8 take 22 s on an H100 (PERF.md; why: not measured)
+INV_VARIANCES = 8
 SMI = ""  # nvidia-smi's name and power limit, set by phase_device
 
 
@@ -4703,13 +4739,11 @@ def phase_large_mesh(xpad):
     from inference_tpu_torch.parallel import chain_mesh
 
     mesh = chain_mesh(MESH_GP_CELLS, device=CUDA)
-    uh, ul = df64.split_f64(xpad)
-    uh, ul = torch.as_tensor(uh, device=CUDA), torch.as_tensor(ul, device=CUDA)
-    V = torch.as_tensor(np.random.default_rng(4).normal(size=(len(xpad), 8)),
-                        dtype=torch.float32, device=CUDA)
+    uh, ul, V = _mesh_matmat_operands(xpad)
     _reset_launches()
     got = df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh)
     sharded_launches = df64.KERNEL_LAUNCHES["B4"]
+    twin = {"matmat": got.cpu().numpy()}
     one = df64.sqexp_matmat_df64(uh, ul, V)
     scale = df64.sqexp_matmat_df64(uh, ul, V.abs())
     err = float(((got - one).abs() / scale).max())
@@ -4723,24 +4757,15 @@ def phase_large_mesh(xpad):
     if sharded_launches != MESH_GP_CELLS or err > 1e-13:
         raise RuntimeError("gp-large-50k-mesh4: the sharded matmat disagrees or its launches "
                            "are off")
-    x, y, err_y = make_large_data(LARGE_N)
-    q = np.random.default_rng(1).uniform(0, 10, (256, 2))
     out, launches = {"matmat_ms": ms_sharded, "matmat_one_launch_ms": ms_one,
                      "matmat_max_err": err, "matmat_launches": sharded_launches}, {}
     means = {}
     for label, kw in (("mesh", dict(mesh=mesh)), ("one device", {})):
         _free()
         _reset_launches()
-        t_phase = t0 = time.perf_counter()
-        gp = LargeScaleGP(x, y, err_y, store_entries=False, device=CUDA, **LARGE_KW, **kw)
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        gp._solve_alpha()
-        torch.cuda.synchronize()
-        warm = time.perf_counter() - t0
+        t_phase = time.perf_counter()
+        gp, cold, warm, means[label] = _large_mesh_solve(kw)
         res = _plain_residual(gp)
-        means[label] = gp(q)
         launches[label] = _launches()
         _phase_line("gp-large-50k-mesh4", time.perf_counter() - t_phase, (
             f"{label}: cold constructor + solve {cold:.3f} s, warm solve {warm:.3f} s, FP64 "
@@ -4759,7 +4784,52 @@ def phase_large_mesh(xpad):
         raise RuntimeError(f"gp-large-50k-mesh4: means {gap} apart, or the mesh's products "
                            f"did not all run B4 ({launches['mesh']})")
     _free()
-    return out, launches
+    twin["means"] = means["mesh"]
+    return out, launches, twin
+
+
+def _mesh_matmat_operands(xpad):
+    """gp-large-50k-mesh4's matmat operands on the card: the coordinates'
+    float32 pair and a float32 V of 8 columns from seed 4."""
+    uh, ul = df64.split_f64(xpad)
+    V = np.random.default_rng(4).normal(size=(len(xpad), 8))
+    return (torch.as_tensor(uh, device=CUDA), torch.as_tensor(ul, device=CUDA),
+            torch.as_tensor(V, dtype=torch.float32, device=CUDA))
+
+
+def _large_mesh_solve(kw):
+    """gp-large-50k's df64 solve with ``store_entries=False`` and ``kw`` (a
+    mesh or none): the model, its cold seconds (constructor and solve), a
+    warm solve's seconds, and the means at 256 points from seed 1."""
+    x, y, err_y = make_large_data(LARGE_N)
+    q = np.random.default_rng(1).uniform(0, 10, (256, 2))
+    t0 = time.perf_counter()
+    gp = LargeScaleGP(x, y, err_y, store_entries=False, device=CUDA, **LARGE_KW, **kw)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp._solve_alpha()
+    torch.cuda.synchronize()
+    return gp, cold, time.perf_counter() - t0, gp(q)
+
+
+def _cg_mesh_solve(mesh):
+    """gp-large-cg-50k's configuration (``solver="cg"``) on ``mesh``: the
+    model, cold and warm seconds (the warm solve adopted), and the means at
+    256 points, with the data and points."""
+    rng = np.random.default_rng(0)
+    x = rng.uniform(0, 10, (LARGE_N, 2))
+    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, LARGE_N)
+    err = np.full(LARGE_N, 0.1)
+    q = rng.uniform(1, 9, (256, 2))
+    t0 = time.perf_counter()
+    gp = LargeScaleGP(x, y, err, solver="cg", device=CUDA, mesh=mesh, **CG_KW)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gp._set_alpha(gp._solve_alpha())
+    torch.cuda.synchronize()
+    return gp, cold, time.perf_counter() - t0, gp(q), (x, y, err, q)
 
 
 def phase_large_cg_mesh():
@@ -4770,24 +4840,11 @@ def phase_large_cg_mesh():
     device), as gp-large-cg-50k."""
     from inference_tpu_torch.parallel import chain_mesh
 
-    rng = np.random.default_rng(0)
-    x = rng.uniform(0, 10, (LARGE_N, 2))
-    y = np.sin(x[:, 0]) * np.cos(x[:, 1]) + rng.normal(0, 0.1, LARGE_N)
-    err = np.full(LARGE_N, 0.1)
-    q = rng.uniform(1, 9, (256, 2))
     _free()
     _reset_launches()
-    t_phase = t0 = time.perf_counter()
-    gp = LargeScaleGP(x, y, err, solver="cg", device=CUDA,
-                      mesh=chain_mesh(MESH_GP_CELLS, device=CUDA), **CG_KW)
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gp._set_alpha(gp._solve_alpha())
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    gp, cold, warm, mu, (x, y, err, q) = _cg_mesh_solve(chain_mesh(MESH_GP_CELLS, device=CUDA))
     res = _plain_residual(gp)
-    mu = gp(q)
     launches = _launches()
     del gp
     _free()
@@ -4802,7 +4859,7 @@ def phase_large_cg_mesh():
         f"(limit 1e-2); phase "))
     if not res <= 1e-3 or not gap <= 1e-2 or not launches.get("B2"):
         raise RuntimeError(f"gp-large-cg-50k-mesh4: residual {res}, means {gap}")
-    return {"cold_s": cold, "warm_s": warm, "residual": res, "mean_gap": gap}, launches
+    return {"cold_s": cold, "warm_s": warm, "residual": res, "mean_gap": gap}, launches, mu
 
 
 def phase_inversion_mesh():
@@ -4911,6 +4968,343 @@ def phase_nccl():
     return {"seconds": seconds, "backend": str(child["backend"]), "equal": same}
 
 
+# ---------------------------------------------------------------------------
+# the rest of queue A (A14(b)): the conditional approximations, the matrix
+# plot's data, the profiler, and the GP across two processes (A13(c))
+# ---------------------------------------------------------------------------
+
+# conditional_moments against the closed form (mean mu_i - sum_{j != i}
+# L_ij (x_j - mu_j) / L_ii, variance 1 / L_ii). The procedure keeps the
+# range where the conditional is within 8 nats of its mode, +-4 standard
+# deviations, so the variance misses the tails' share, 2 (4 phi(4) + Q(4)) =
+# 1.14e-3 of it, and the 0.05-nat bisection tolerance moves each edge by at
+# most 0.0125 sd. A CPU rehearsal of the same calls (bench-10d's Gaussian at
+# seeds 0-3, dense-256's at seeds 0-1) measured variance ratios - 1 in
+# [-1.121e-3, -1.027e-3] and mean errors up to 1.33e-5 sd; the limits stand
+# at [-2e-3, 0] and 5e-5 sd.
+COND_VAR_BAND = (-2e-3, 0.0)
+COND_MEAN_SD = 5e-5
+COND_RTOL = 1e-10      # get_conditionals on the card against the CPU
+MATRIX_RTOL = 1e-10    # matrix-panels: curves, grids and levels card against CPU
+MATRIX_CHECKED = 3     # the diagonals and pairs of the first 3 parameters, held on the CPU
+PHASE_TIMER_RTOL = 0.10
+# idle seconds that pad profile-b1's traced window on each side: late in a
+# long run a 29 ms window listed 1 of 10 B1 launches (PERF.md), so its
+# kernels' timestamps fall outside the window when it is as short as they
+TRACE_PAD_S = 0.5
+GP2_TIMEOUT = 300      # seconds a gp-2proc child may take; killed after
+
+
+def _gaussian_conditionals(cov, seed, device):
+    """A zero-mean Gaussian of covariance ``cov`` as a torch function in
+    float64 on ``device``, a conditioning point drawn from it by ``seed``,
+    bounds of +-6 marginal standard deviations, and the closed-form
+    conditional means and variances there."""
+    icov = np.linalg.inv(cov)
+    it = torch.as_tensor(icov, dtype=F64, device=device)
+
+    def logp(t):
+        return -0.5 * t @ it @ t
+
+    point = np.random.default_rng(seed).multivariate_normal(np.zeros(len(cov)), cov)
+    sd = np.sqrt(np.diag(cov))
+    diag = np.diag(icov)
+    means = -(icov @ point - diag * point) / diag
+    return logp, point, [(-6 * s, 6 * s) for s in sd], means, 1.0 / diag
+
+
+def phase_conditional(label, cov, seed=0):
+    """conditional-10d / conditional-256: ``conditional_moments`` of a
+    Gaussian on the card against the closed form (``COND_VAR_BAND``,
+    ``COND_MEAN_SD``) and ``get_conditionals`` on the card against the CPU
+    (axes and probabilities within 1e-10 relative); the batched posterior
+    calls of one ``get_conditionals`` and its wall seconds."""
+    from inference_tpu_torch.approx import conditional_moments, get_conditionals
+    from inference_tpu_torch.approx.conditional import COUNTS
+
+    logp, point, bounds, m_exact, v_exact = _gaussian_conditionals(cov, seed, CUDA)
+    get_conditionals(logp, bounds, point, device=CUDA)  # warm-up
+    torch.cuda.synchronize()
+    calls = COUNTS["calls"]
+    t0 = time.perf_counter()
+    axes, probs = get_conditionals(logp, bounds, point, device=CUDA)
+    seconds = time.perf_counter() - t0
+    calls = COUNTS["calls"] - calls
+    means, variances = conditional_moments(logp, bounds, point, device=CUDA)
+    logp_cpu = _gaussian_conditionals(cov, seed, "cpu")[0]
+    t0 = time.perf_counter()
+    axes_cpu, probs_cpu = get_conditionals(logp_cpu, bounds, point, device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    rel = max(_rel(axes, axes_cpu), _rel(probs, probs_cpu))
+    mean_sd = float((np.abs(means - m_exact) / np.sqrt(v_exact)).max())
+    ratio = variances / v_exact - 1.0
+    out = {"n_params": len(cov), "calls": calls, "seconds": seconds, "cpu_seconds": cpu_seconds,
+           "card_vs_cpu_rel": rel, "mean_err_sd": mean_sd,
+           "var_ratio_min": float(ratio.min()), "var_ratio_max": float(ratio.max())}
+    print(f"[{label}] get_conditionals on the card: {calls} batched posterior calls, "
+          f"{seconds:.4f} s (CPU {cpu_seconds:.4f} s); card against CPU {rel:.3e} (limit "
+          f"{COND_RTOL:g}); moments against the closed form: means within {mean_sd:.3e} sd "
+          f"(limit {COND_MEAN_SD:g}), variance ratios - 1 in [{ratio.min():.4e}, "
+          f"{ratio.max():.4e}] (band {COND_VAR_BAND}) (card: {SMI})")
+    if rel > COND_RTOL or mean_sd > COND_MEAN_SD or not COND_VAR_BAND[0] <= ratio.min() \
+            or not ratio.max() <= COND_VAR_BAND[1] or not np.isfinite(probs).all():
+        raise RuntimeError(f"{label}: the conditionals are off: {out}")
+    return out
+
+
+def phase_conditional_numpy():
+    """conditional-numpy: ``gibbs_chain_demo.py``'s posterior written with
+    numpy through the host route (one call a point) with the card as the
+    device: its conditional moments around (0.5, 0.25) equal those of the
+    same call on the CPU."""
+    from inference_tpu_torch.approx import conditional_moments
+    from inference_tpu_torch.approx.conditional import COUNTS, Conditional
+
+    point, bounds = np.array([0.5, 0.25]), [(-3.0, 3.0), (-2.0, 4.0)]
+    if not Conditional(rosen_numpy, point, 0, device=CUDA).host:
+        raise RuntimeError("conditional-numpy: the numpy posterior did not take the host route")
+    calls = COUNTS["calls"]
+    t0 = time.perf_counter()
+    card = conditional_moments(rosen_numpy, bounds, point, device=CUDA)
+    seconds = time.perf_counter() - t0
+    calls = COUNTS["calls"] - calls
+    cpu = conditional_moments(rosen_numpy, bounds, point, device="cpu")
+    equal = all(np.array_equal(a, b) for a, b in zip(card, cpu))
+    print(f"[conditional-numpy] host route on the card: {calls} calls, {seconds:.4f} s; means "
+          f"{card[0].tolist()}, variances {card[1].tolist()}; equal to the CPU's: {equal}")
+    if not equal or not np.isfinite(card[1]).all():
+        raise RuntimeError("conditional-numpy: the card's moments differ from the CPU's")
+    return {"calls": calls, "seconds": seconds, "means": card[0].tolist(),
+            "variances": card[1].tolist()}
+
+
+def phase_matrix_panels(sample):
+    """matrix-panels: ``plotting.matrix_panels`` of kde-marginal's draws
+    (all 10 parameters, "hdi" style) on the card: 10 diagonal KDE curves on
+    200 points, 45 KDE2D grids of 50 x 50 and their levels; the first
+    ``MATRIX_CHECKED`` parameters' curves, pairs and levels held to the CPU
+    within 1e-10 relative, their ranges equal; matplotlib never imported."""
+    from inference_tpu_torch.plotting import matrix_panels
+
+    samples = [sample[:, i] for i in range(sample.shape[1])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = matrix_panels(samples, "hdi", device=CUDA)
+    seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = matrix_panels(samples[:MATRIX_CHECKED], "hdi", device="cpu")
+    cpu_seconds = time.perf_counter() - t0
+    err, ranges_equal = 0.0, True
+    for i in range(MATRIX_CHECKED):
+        ranges_equal &= card["limits"][i] == cpu["limits"][i] \
+            and np.array_equal(card["grids"][i], cpu["grids"][i])
+        err = max(err, _rel(card["curves"][i], cpu["curves"][i]))
+    for key, (_, _, Z) in cpu["pairs"].items():
+        err = max(err, _rel(card["pairs"][key][2], Z),
+                  _rel(np.array(card["levels"][key]), np.array(cpu["levels"][key])))
+    no_mpl = "matplotlib" not in sys.modules
+    n_pairs = len(card["pairs"])
+    print(f"[matrix-panels] {len(samples)} parameters x {sample.shape[0]} draws on the card: "
+          f"{len(card['curves'])} curves, {n_pairs} KDE2D grids of 50 x 50 with their levels in "
+          f"{seconds:.3f} s (CPU, {MATRIX_CHECKED} parameters: {cpu_seconds:.3f} s); card "
+          f"against CPU {err:.3e} (limit {MATRIX_RTOL:g}), ranges equal {ranges_equal}; "
+          f"matplotlib not imported: {no_mpl} (card: {SMI})")
+    if err > MATRIX_RTOL or not ranges_equal or not no_mpl or n_pairs != 45:
+        raise RuntimeError("matrix-panels: the card's panels differ from the CPU's, or "
+                           "matplotlib was imported")
+    return {"seconds": seconds, "cpu_seconds_3_params": cpu_seconds, "max_rel_err": err,
+            "pairs": n_pairs, "matplotlib_imported": not no_mpl}
+
+
+def phase_profile_b1():
+    """profile-b1: bench-10d's fused ChainArray (65,536 chains, kernel B1):
+    ``device_trace`` around one ``advance(640, store=False)``, its trace file
+    listing B1's kernel as often as the advance launched it; then a
+    ``PhaseTimer`` phase around a second, untraced advance, its total within
+    10% of CUDA events over the same advance."""
+    import tempfile
+    from inference_tpu_torch.utils import PhaseTimer, device_trace
+
+    cov = make_cov()
+    form = GaussianForm(torch.as_tensor(np.linalg.inv(cov)))
+    starts = np.random.default_rng(0).normal(0, 0.1, size=(N_CHAINS, N_DIM))
+    ca = ChainArray("hmc", form, starts, steps=HMC_STEPS, epsilon=0.25, retry=False,
+                    fused=True, device=CUDA, seed=3)
+    ca.advance(64, store=False)
+    bare_dir, log_dir = tempfile.mkdtemp(), tempfile.mkdtemp()
+    with device_trace(bare_dir):  # unpadded: a reading, not held
+        ca.advance(640, store=False)
+        torch.cuda.synchronize()
+    bare_files, bare_kernels, _ = _b1_trace(bare_dir)
+    t0 = time.perf_counter()
+    with device_trace(log_dir):
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        hmc_fused.KERNEL_LAUNCHES = 0
+        ca.advance(640, store=False)
+        launches = hmc_fused.KERNEL_LAUNCHES
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    traced_s = time.perf_counter() - t0
+    files, kernels, offsets = _b1_trace(log_dir)
+    in_trace = len(kernels)
+    timer = PhaseTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.phase("advance"):
+        start.record()
+        ca.advance(640, store=False)
+        end.record()
+    torch.cuda.synchronize()
+    events_s = start.elapsed_time(end) / 1e3
+    gap = abs(timer.totals["advance"] - events_s) / events_s
+    out = {"launches": launches, "kernel_events": in_trace, "trace_files": len(files),
+           "kernel_events_unpadded": len(bare_kernels), "launch_to_kernel_ms": offsets,
+           "traced_s": traced_s, "phase_timer_s": timer.totals["advance"], "events_s": events_s,
+           "gap": gap}
+    print(f"[profile-b1] device_trace over advance(640) at {N_CHAINS:,} chains, padded by "
+          f"{TRACE_PAD_S} s of idle each side: {len(files)} trace file, {in_trace} "
+          f"hmc_chunk_kernel events for {launches} B1 launches, {traced_s:.3f} s traced; each "
+          f"kernel's start less its launch's in the trace (ms, min/median/max) {offsets}; "
+          f"unpadded {len(bare_kernels)} events in {len(bare_files)} file (a reading); "
+          f"PhaseTimer {timer.totals['advance']:.4f} s against CUDA events {events_s:.4f} s "
+          f"({100 * gap:.2f}% apart, limit 10%) (card: {SMI})")
+    print(timer.summary())
+    if len(files) != 1 or launches == 0 or in_trace != launches or gap > PHASE_TIMER_RTOL:
+        raise RuntimeError(f"profile-b1: {out}")
+    return out
+
+
+def _b1_trace(log_dir):
+    """The trace files ``device_trace`` wrote under ``log_dir`` (removed
+    after), B1's kernel events in them, and each such kernel's start less
+    its launch's (matched by correlation id; ms, min/median/max, or None)."""
+    files = os.listdir(log_dir)
+    events = []
+    for name in files:
+        with open(os.path.join(log_dir, name)) as f:
+            events += json.load(f)["traceEvents"]
+    shutil.rmtree(log_dir)
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "hmc_chunk_kernel" in e.get("name", "")]
+    launches = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    offsets = [(k["ts"] - launches[c]) / 1e3 for k in kernels
+               if (c := k.get("args", {}).get("correlation")) in launches]
+    stats = [min(offsets), float(np.median(offsets)), max(offsets)] if offsets else None
+    return files, kernels, stats
+
+
+GP2_CHILD = """
+import datetime, sys, time
+import numpy as np, torch
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+import chip_smoke as c
+from inference_tpu_torch.ops import df64
+from inference_tpu_torch.parallel import global_chain_mesh
+
+torch.set_default_dtype(torch.float32)
+torch.cuda.set_device(0)
+c.SMI = "child"
+dist.init_process_group("gloo", init_method="tcp://127.0.0.1:{port}", world_size=2,
+                        rank={rank}, timeout=datetime.timedelta(seconds={timeout}))
+mesh = global_chain_mesh(device="cuda:0", cells_per_process=2)
+out = {{"cells": [(cell.rank, str(cell.device)) for cell in mesh.cells()]}}
+uh, ul, V = c._mesh_matmat_operands(c._padded(c.make_large_data(c.LARGE_N)[0]))
+c._reset_launches()
+out["matmat"] = df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh).cpu().numpy()
+out["matmat_b4"] = df64.KERNEL_LAUNCHES["B4"]
+local = torch.zeros(2 * len(V) // 4, 8, dtype=torch.float64, device="cuda")
+parts = [torch.empty_like(local) for _ in range(2)]
+for label, fn in (("product", lambda: df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh)),
+                  ("gather", lambda: dist.all_gather(parts, local))):
+    times = []
+    for _ in range(6):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out[label + "_s"] = float(np.median(times[1:]))
+del uh, ul, V, local, parts
+c._reset_launches()
+gp, out["cold_s"], out["warm_s"], out["means"] = c._large_mesh_solve(dict(mesh=mesh))
+out["residual"] = c._plain_residual(gp)
+out["solve_b4"] = df64.KERNEL_LAUNCHES["B4"]
+del gp
+c._free()
+gp, out["cg_cold_s"], out["cg_warm_s"], out["cg_means"], _ = c._cg_mesh_solve(mesh)
+np.savez({out!r}, **out)
+dist.destroy_process_group()
+"""
+
+
+def phase_gp_2proc(twin):
+    """gp-2proc: two child processes on ``cuda:0`` joined by gloo, 2 cells
+    each, build the 4-cell ``global_chain_mesh``; each runs
+    gp-large-50k-mesh4's sharded matmat (n = 53,248, q = 8), its df64
+    ``LargeScaleGP`` (``store_entries=False``) with a warm solve, and
+    gp-large-cg-50k's cg tier on the mesh. Both must equal this process's
+    4-cell runs (``twin``) bit for bit: the product, the df64 means, the cg
+    means; the FP64 residual by the plain route <= 1e-9. The kernels are
+    built already (phase 2); each child has ``GP2_TIMEOUT`` seconds and is
+    killed after."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tmp = tempfile.mkdtemp()
+    root = os.path.dirname(os.path.abspath(__file__))
+    outs = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", GP2_CHILD.format(
+        root=root, port=port, rank=r, timeout=GP2_TIMEOUT, out=outs[r])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=GP2_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"gp-2proc: child {r} failed ({p.returncode}):\n{log[-4000:]}")
+    kids = [dict(np.load(o)) for o in outs]
+    shutil.rmtree(tmp)
+    same = [{"matmat": np.array_equal(k["matmat"], twin["matmat"]),
+             "means": np.array_equal(k["means"], twin["means"]),
+             "cg_means": np.array_equal(k["cg_means"], twin["cg_means"])} for k in kids]
+    share = [float(k["gather_s"] / k["product_s"]) for k in kids]
+    out = {"seconds": seconds, "equal": same, "b4_matmat": [int(k["matmat_b4"]) for k in kids],
+           "b4_solve": [int(k["solve_b4"]) for k in kids],
+           "residual": [float(k["residual"]) for k in kids],
+           "product_s": [float(k["product_s"]) for k in kids],
+           "gather_s": [float(k["gather_s"]) for k in kids], "gather_share": share,
+           "df64_cold_s": [float(k["cold_s"]) for k in kids],
+           "df64_warm_s": [float(k["warm_s"]) for k in kids],
+           "cg_cold_s": [float(k["cg_cold_s"]) for k in kids],
+           "cg_warm_s": [float(k["cg_warm_s"]) for k in kids],
+           "cells": kids[0]["cells"].tolist()}
+    print(f"[gp-2proc] 2 gloo processes x 2 cells on cuda:0 in {seconds:.1f} s: bit for bit "
+          f"against one process's 4 cells {same}; B4 launches a process: matmat "
+          f"{out['b4_matmat']}, solve {out['b4_solve']}; FP64 residual {out['residual']} (limit "
+          f"1e-9); a product {[round(1e3 * t, 3) for t in out['product_s']]} ms, its gather "
+          f"{[round(1e3 * t, 3) for t in out['gather_s']]} ms (share "
+          f"{[round(x, 4) for x in share]}); df64 warm {out['df64_warm_s']} s, cg warm "
+          f"{out['cg_warm_s']} s (card: {SMI})")
+    if not all(all(s.values()) for s in same) or max(out["residual"]) > 1e-9 \
+            or out["b4_matmat"] != [2, 2] or min(out["b4_solve"]) == 0:
+        raise RuntimeError(f"gp-2proc: {out}")
+    return out
+
+
 def rehearse_mesh_means(n=4096):
     """The CPU rehearsal behind ``MESH_MEAN_RTOL``: gp-large-50k's generator at
     ``n``, the df64 solve on a 4-cell CPU mesh stopped at its cg_tol of 1e-9
@@ -4931,6 +5325,47 @@ def rehearse_mesh_means(n=4096):
     print(f"[rehearsal] n={n}: the mesh's means against one device's {gap:.3e} of max |mean| "
           f"(tiers {mesh._tier!r} / {one._tier!r})")
     return gap
+
+
+def run_a14(sample, gp_twin):
+    """The phases of queue A's last items, in order, each timed; prints
+    their readings as one ``{"a14": ...}`` JSON line and returns them."""
+    t0 = time.perf_counter()
+    a14 = {"conditional-10d": phase_conditional("conditional-10d", make_cov()),
+           "conditional-256": phase_conditional("conditional-256",
+                                                dense_hmc.correlated_gaussian()[1]),
+           "conditional-numpy": phase_conditional_numpy()}
+    if a14["conditional-256"]["calls"] != a14["conditional-10d"]["calls"]:
+        raise RuntimeError("conditional-256 made another number of batched calls than "
+                           "conditional-10d")
+    t1 = time.perf_counter()
+    a14["matrix-panels"] = phase_matrix_panels(sample)
+    t2 = time.perf_counter()
+    a14["profile-b1"] = phase_profile_b1()
+    t3 = time.perf_counter()
+    a14["gp-2proc"] = phase_gp_2proc(gp_twin)
+    t4 = time.perf_counter()
+    a14["seconds"] = {"conditionals": t1 - t0, "matrix-panels": t2 - t1, "profile-b1": t3 - t2,
+                      "gp-2proc": t4 - t3}
+    print(json.dumps({"a14": a14}, default=float))
+    print(f"[summary] A14(b) and the GP across processes: conditionals {t1 - t0:.1f} s, "
+          f"matrix-panels {t2 - t1:.1f} s, profile-b1 {t3 - t2:.1f} s, gp-2proc "
+          f"{t4 - t3:.1f} s ({t4 - t0:.1f} s in all) (card: {SMI})")
+    return a14
+
+
+def a14_alone():
+    """The phases of ``run_a14`` alone: the device and the build, the 4-cell
+    GP runs gp-2proc is held to (gp-large-50k-mesh4, gp-large-cg-50k-mesh4),
+    and 8,192 draws of bench-10d's Gaussian in place of kde-marginal's."""
+    phase_device()
+    torch.set_default_dtype(torch.float32)
+    phase_build()
+    _, _, twin = phase_large_mesh(_padded(make_large_data(LARGE_N)[0]))
+    twin["cg_means"] = phase_large_cg_mesh()[2]
+    sample = np.random.default_rng(0).multivariate_normal(np.zeros(N_DIM), make_cov(),
+                                                          size=KDE_SAMPLES)
+    return run_a14(sample, twin)
 
 
 def _probe_rows(probe, errs):
@@ -5033,7 +5468,6 @@ def main():
     print(json.dumps({"nuts_pdf": {**nuts, "kde-marginal": kde_marginal}}, default=float))
     print(f"[summary] NUTS (nuts-10d, nuts-twin, nuts-demo, pt-nuts-3) {t_kde - t_nuts:.1f} s, "
           f"kde-marginal {time.perf_counter() - t_kde:.1f} s (card: {SMI})")
-    del kde_draws
     _free()
     t_multi = time.perf_counter()
     multi = {"dryrun-mesh-8": phase_dryrun_mesh(), "st-bimodal-8": phase_st_bimodal(),
@@ -5041,15 +5475,19 @@ def main():
              "chain-array-mesh-4": phase_chain_array_mesh()}
     _free()
     t_multi_gp = time.perf_counter()
-    multi["gp-large-50k-mesh4"], mesh_launches = phase_large_mesh(
+    multi["gp-large-50k-mesh4"], mesh_launches, gp_twin = phase_large_mesh(
         _padded(make_large_data(LARGE_N)[0]))
-    multi["gp-large-cg-50k-mesh4"], cg_mesh_launches = phase_large_cg_mesh()
+    multi["gp-large-cg-50k-mesh4"], cg_mesh_launches, gp_twin["cg_means"] = \
+        phase_large_cg_mesh()
     multi["inv-8k-mesh4"], inv_mesh_launches = phase_inversion_mesh()
     t_nccl = time.perf_counter()
     multi["nccl-1"] = phase_nccl()
     print(json.dumps({"multi_device": multi}, default=float))
     print(f"[summary] the multi-device layer: samplers {t_multi_gp - t_multi:.1f} s, GP "
           f"{t_nccl - t_multi_gp:.1f} s, nccl-1 {time.perf_counter() - t_nccl:.1f} s (card: {SMI})")
+    _free()
+    a14 = run_a14(kde_draws[0], gp_twin)
+    del kde_draws, gp_twin
     _free()
 
     x16k, y16k, err16k = make_gp_data(GP_N)
@@ -5099,8 +5537,7 @@ def main():
     print(f"[summary] probes P1-P3 in {time.perf_counter() - t_probes:.1f} s")
     print(f"[summary] gp-large-50k warm solve: {runs['auto']['warm_s']:.3f} s with the FP64 "
           f"store (B6), {runs[False]['warm_s']:.3f} s fused (B3), {runs['f32']['warm_s']:.3f} s "
-          f"with the float32 store (B8, B3 refreshes); gp-large-50k-d20 warm solve "
-          f"{d20_runs['auto']['warm_s']:.3f} s with the FP64 store, cold "
+          f"with the float32 store (B8, B3 refreshes); gp-large-50k-d20 cold "
           f"{d20_runs['auto']['cold_s']:.3f} s with the store (the wide B5), "
           f"{d20_runs[False]['cold_s']:.3f} s fused (the wide B3); all phases done "
           f"at {time.perf_counter() - t_start:.1f} s")
@@ -5127,7 +5564,9 @@ def main():
             row["launches_sharded"] = {
                 "dryrun-mesh-8": multi["dryrun-mesh-8"]["launches"].get("B4", 0),
                 "gp-large-50k-mesh4": mesh_launches["mesh"].get("B4", 0),
-                "inv-8k-mesh4": inv_mesh_launches.get("B4", 0)}
+                "inv-8k-mesh4": inv_mesh_launches.get("B4", 0),
+                "gp-2proc, each process": [m + s for m, s in zip(a14["gp-2proc"]["b4_matmat"],
+                                                                 a14["gp-2proc"]["b4_solve"])]}
             row["sharded_q8_ms"] = multi["gp-large-50k-mesh4"]["matmat_ms"]
             row["sharded_q8_one_launch_ms"] = multi["gp-large-50k-mesh4"]["matmat_one_launch_ms"]
         if kernel in wide_ms:
@@ -5155,6 +5594,7 @@ def main():
         "variant": dict(hmc_fused.kernel_variant(N_DIM, True)),
         "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
         "chain_sweep_attempts_per_s": sweep,
+        "launches_profile_b1": a14["profile-b1"]["launches"],
     }, {
         "name": "hmc_fused_chunk_wide",
         "kernel": "hmc_tile_kernel (a block of C chains shares each row of A; A resident in "

@@ -21,7 +21,14 @@ its on-device multistart fit ``optimizer="device"``, and
 the BFGS batched over starts of ``utils.optimize``) and the matrix-free GP
 (``gp.LargeScaleGP`` in its cg, mixed and df64 tiers, with ``fit()``, and
 ``gp.LargeScaleGpLinearInverter``; the FP64 kernels of ``ops.df64`` in CUDA
-C++ serve the small-noise df64 tier). Its benches are ``bench.headline``,
+C++ serve the small-noise df64 tier; with ``mesh=`` its products split
+over the cells of a mesh, across processes too). The multi-device layer is
+``parallel`` (meshes, ``ShardedTempering``, the multi-process runtime);
+``approx`` holds the conditional approximations (``get_conditionals``,
+batched over the variables), ``plotting`` the matrix, trace, HDI and
+transition-matrix plots behind the chains' plot views (matplotlib is
+imported only to draw), and ``utils.profiling`` ``PhaseTimer`` and
+``device_trace`` (``torch.profiler``). Its benches are ``bench.headline``,
 ``bench.dense_hmc``, ``bench.bo_warm`` and ``bench.nuts``.
 Its entry points run on the card unless the caller passes
 ``device="cpu"``. It imports torch, numpy and scipy, never jax.

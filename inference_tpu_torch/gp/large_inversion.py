@@ -31,11 +31,12 @@ gradients of the data-space marginal likelihood, as ``LargeScaleGP.fit``
 does, with autograd through the blocked live-theta product.
 
 ``mesh=`` (a ``parallel.mesh.Mesh``, its first axis) deals the prior
-contraction to the cells of one process, as in ``LargeScaleGP``: the df64
+contraction to the cells of a mesh, as in ``LargeScaleGP``: the df64
 tier runs kernel B4 on each cell's block of parameter rows
 (``ops.df64.sqexp_matmat_df64_sharded``) and stores no entries, and the cg
-and mixed tiers deal K's row blocks to the cells in turn. A mesh whose
-cells span processes raises ``NotImplementedError`` (ROADMAP A13(c)).
+and mixed tiers deal K's row blocks to the cells in turn. A mesh may span
+processes, each of them holding the full problem and gathering the blocks
+of the others' cells, as in ``LargeScaleGP``.
 """
 
 from functools import partial
@@ -61,7 +62,7 @@ from ..utils.dtypes import default_float
 from .block_kernels import as_block_kernel
 from .covariance import SquaredExponential
 from .large_scale import (_adam, _as_dtype, _worst_relative_residual, blocked_rows_product,
-                          mesh_devices)
+                          mesh_cells)
 
 _ERR = "[ LargeScaleGpLinearInverter error ]"
 
@@ -145,8 +146,8 @@ class LargeScaleGpLinearInverter:
         default float), ``"float32"`` or ``"float64"``; the df64 tier is FP64
         throughout, so there it is taken and checked but changes nothing.
     :param mesh: optional ``parallel.mesh.Mesh`` whose first axis's cells
-        share the prior contraction (see the module docstring); every cell
-        must lie in this process. With ``solver="df64"`` the entries are not
+        share the prior contraction (see the module docstring); across
+        processes every process passes the same problem. With ``solver="df64"`` the entries are not
         stored (``store_entries`` True or ``"f32"`` raise).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
@@ -277,8 +278,8 @@ class LargeScaleGpLinearInverter:
                 f"multiple of {_TJ}; use a block_size that is a multiple of {_TJ}."
             )
         self._mesh = mesh
-        self._cell_devices = mesh_devices(mesh, solver, n_pad, "LargeScaleGpLinearInverter",
-                                          "parameter count")
+        self._cells = mesh_cells(mesh, solver, n_pad, "LargeScaleGpLinearInverter",
+                                 "parameter count")
 
         self._x_pad_host = x
         self._y_host = y
@@ -299,7 +300,7 @@ class LargeScaleGpLinearInverter:
         in row blocks of ``block_size`` (one block's rows alive at a time),
         plus the white-noise prior term on the diagonal."""
         KV = blocked_rows_product(self._bk.rows, self._x, theta, V, self.block_size,
-                                  self._cell_devices)
+                                  self._cells)
         return KV + self._bk.noise_variance(theta) * V
 
     def _data_matmat(self, theta, V):

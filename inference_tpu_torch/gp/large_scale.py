@@ -68,12 +68,15 @@ decisions:
   FP64 does not have.
 
 ``mesh=`` (a ``parallel.mesh.Mesh``, its first axis) deals the work to
-the cells of one process, as the JAX package shards it over devices: the
+the cells of a mesh, as the JAX package shards it over devices: the
 df64 tier's products run kernel B4 on each cell's block of rows
 (``ops.df64.sqexp_matmat_df64_sharded``; its single vectors too, as one
 column) and store no entries, and the cg and mixed tiers' system product
-deals its row blocks to the cells in turn. A mesh whose cells span
-processes raises ``NotImplementedError`` (ROADMAP A13(c)).
+deals its row blocks to the cells in turn. A mesh may span processes
+(``parallel.multihost``): each process passes the full data, runs its own
+cells' blocks and gathers the rest (``parallel._collectives.deal_blocks``),
+so every process holds every product and takes the same solver steps. A
+mesh naming processes that do not exist raises ``ValueError``.
 """
 
 from functools import partial
@@ -158,27 +161,32 @@ def _system_matmat(amp2, diag, V32, *op):
     return amp2 * _entries_apply(V32, *op) + diag[:, None] * V32.double()
 
 
-def blocked_rows_product(rows, x, theta, V, step, devices=None):
+def blocked_rows_product(rows, x, theta, V, step, cells=None):
     """``K(x, x) V`` in row blocks of ``step`` (one block alive at a time),
     each block's kernel rows by ``rows`` then one product with V; with
-    ``devices`` (a mesh's cells), block b on ``devices[b % len(devices)]``
-    and its result back on x's device."""
+    ``cells`` (a mesh's first-axis cells), block b on the device of cell
+    ``b % len(cells)`` by the process that holds it, the blocks back in
+    order on x's device (gathered from the other processes when the cells
+    span processes)."""
     n = x.shape[0]
-    if devices is None:
+    if cells is None:
         return torch.cat([rows(x[s : s + step], x, theta) @ V for s in range(0, n, step)])
-    on, out = {}, []
-    for b, s in enumerate(range(0, n, step)):
-        d = devices[b % len(devices)]
+    on = {}
+
+    def block(b, d):
         if d not in on:
             on[d] = (x.to(d), theta.to(d), V.to(d))
         xd, td, Vd = on[d]
-        out.append((rows(xd[s : s + step], xd, td) @ Vd).to(x.device))
-    return torch.cat(out)
+        return rows(xd[b * step : (b + 1) * step], xd, td) @ Vd
+
+    from ..parallel._collectives import deal_blocks
+
+    return deal_blocks(cells, step, n, block, x.device)
 
 
-def mesh_devices(mesh, solver, n_padded, owner, what):
-    """The devices of a mesh's first-axis cells (None without a mesh),
-    after the JAX package's row-alignment check of the df64 tier."""
+def mesh_cells(mesh, solver, n_padded, owner, what):
+    """The cells of a mesh's first axis (None without a mesh), after the
+    JAX package's row-alignment check of the df64 tier."""
     if mesh is None:
         return None
     cells = mesh_row_cells(mesh, owner)
@@ -189,7 +197,7 @@ def mesh_devices(mesh, solver, n_padded, owner, what):
             f"{what} ({n_padded}) to split into per-device blocks that are multiples of "
             f"{_TI}; adjust block_size."
         )
-    return [c.device for c in cells]
+    return cells
 
 
 def _as_dtype(dtype, owner="LargeScaleGP"):
@@ -275,9 +283,10 @@ class LargeScaleGP:
         taken and checked but changes nothing; any other value raises
         ``ValueError``.
     :param mesh: optional ``parallel.mesh.Mesh`` whose first axis's cells
-        share the products (see the module docstring); every cell must lie
-        in this process. With ``solver="df64"`` the entries are not stored
-        (``store_entries`` True or ``"f32"`` raise, ``"auto"`` stores none).
+        share the products (see the module docstring); across processes
+        every process passes the same data. With ``solver="df64"`` the
+        entries are not stored (``store_entries`` True or ``"f32"`` raise,
+        ``"auto"`` stores none).
     :param device: where the data and the computation live (default the
         card; raises when there is none, pass ``"cpu"`` for the CPU).
     """
@@ -411,7 +420,7 @@ class LargeScaleGP:
                 f"multiple of {_TJ}."
             )
         self._mesh = mesh
-        self._cell_devices = mesh_devices(mesh, solver, n_pad, "LargeScaleGP", "row count")
+        self._cells = mesh_cells(mesh, solver, n_pad, "LargeScaleGP", "row count")
         self.mean_value = float(np.mean(y[: self.n_points])) if mean_value is None else mean_value
 
         self._x_host = x
@@ -595,7 +604,7 @@ class LargeScaleGP:
         block is alive at a time. The one system product of the cg and
         mixed tiers, of ``fit()`` and of the ``"device"`` residual."""
         KV = blocked_rows_product(self._bk.rows, self._x, theta, V, self.block_size,
-                                  self._cell_devices)
+                                  self._cells)
         diag = self._sig_diag + self._bk.noise_variance(theta) + self._bk.amp2(theta) * 1e-12
         return KV + (diag[:, None] * V if V.ndim == 2 else diag * V)
 

@@ -7,8 +7,9 @@ splits the run into 100 progress groups like the reference
 (reference: base.py:31-46), each run as power-of-two chunks of steps
 (``_run_chunk``). ``get_marginal`` returns a ``pdf`` density estimator of
 one parameter on the chain's device and ``get_interval`` the samples inside
-a highest-density interval; the ``matrix_plot`` and ``trace_plot`` wrappers
-raise until ROADMAP queue A14(b) ports the plotting module.
+a highest-density interval; ``matrix_plot`` and ``trace_plot`` draw the
+chain's history through ``inference_tpu_torch.plotting`` (a matrix plot's
+density estimates on the chain's device).
 """
 
 from abc import ABC, abstractmethod
@@ -109,12 +110,6 @@ class MarkovChain(ABC):
             self.ProgressPrinter.countdown_progress(end_time, steps_taken)
         self.ProgressPrinter.countdown_final(run_time, steps_taken)
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"[ {self.__class__.__name__} error ] {what} is not ported to "
-            "inference_tpu_torch yet (ROADMAP queue A14(b): plotting)."
-        )
-
     def get_marginal(self, index: int, burn: int = 1, thin: int = 1, unimodal=False):
         """
         Estimate the 1D marginal distribution of a chosen parameter, returning
@@ -164,14 +159,45 @@ class MarkovChain(ABC):
         return sample, probs
 
     def matrix_plot(self, params=None, burn: int = 0, thin: int = 1, **kwargs):
-        """A matrix plot of the marginals: needs the plotting module
-        (ROADMAP queue A14(b))."""
-        self._not_ported("matrix_plot")
+        """
+        Construct a matrix plot of 1D and 2D marginal distributions
+        (see ``inference_tpu_torch.plotting.matrix_plot``), its density
+        estimates on the chain's device unless ``device=`` says otherwise.
+        """
+        from ..plotting import matrix_plot
+
+        self.__plot_checks(burn, thin, "matrix")
+        params = params if params is not None else range(self.n_parameters)
+        samples = [self.get_parameter(i, burn=burn, thin=thin) for i in params]
+        matrix_plot(samples, **{"device": self.device, **kwargs})
 
     def trace_plot(self, params=None, burn: int = 0, thin: int = 1, **kwargs):
-        """A trace plot of the parameters: needs the plotting module
-        (ROADMAP queue A14(b))."""
-        self._not_ported("trace_plot")
+        """
+        Construct a trace plot of parameter values against step number
+        (see ``inference_tpu_torch.plotting.trace_plot``).
+        """
+        from ..plotting import trace_plot
+
+        self.__plot_checks(burn, thin, "trace")
+        params = params if params is not None else range(self.n_parameters)
+        samples = [self.get_parameter(i, burn=burn, thin=thin) for i in params]
+        trace_plot(samples, **kwargs)
+
+    def __plot_checks(self, burn: int, thin: int, plot_type: str):
+        if self.chain_length < 2:
+            raise ValueError(
+                f"[ {self.__class__.__name__} error ] Cannot generate the "
+                f"{plot_type} plot as no samples have been produced - current "
+                f"chain length is {self.chain_length}."
+            )
+        reduced_length = max(self.chain_length - burn - 1, 0) // thin + 1
+        if reduced_length < 2:
+            raise ValueError(
+                f"[ {self.__class__.__name__} error ] The given values of 'burn' "
+                f"and 'thin' leave insufficient samples to generate the "
+                f"{plot_type} plot. Number of samples after burn / thin is "
+                f"{reduced_length}."
+            )
 
     @property
     def burn(self):

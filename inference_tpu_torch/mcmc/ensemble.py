@@ -19,7 +19,7 @@ until a host view is requested or ``utils.history.DEVICE_HISTORY_LIMIT`` is
 passed. ``save`` and ``load`` use the reference's ``.npz`` key layout, so a
 checkpoint of the JAX package's sampler loads here and the other way round.
 Importing this module does not import matplotlib: ``plot_diagnostics``
-raises until ROADMAP queue A14(b) ports the plotting.
+imports it when it draws.
 """
 
 from time import time
@@ -363,9 +363,59 @@ class EnsembleSampler(MarkovChain):
         return self.sample[burn::thin, :]
 
     def plot_diagnostics(self, show=True, filename=None):
-        """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14(b))."""
-        self._not_ported("plot_diagnostics")
+        """
+        Plot per-walker acceptance rates and log-probabilities against
+        iteration number (reference: ensemble.py:244-288).
+        """
+        import matplotlib.pyplot as plt
+
+        from ..utils.figures import finish_figure, trace_bundle_panel
+
+        self._drain_stats()
+        x = np.linspace(1, self.n_iterations, self.n_iterations)
+        if self.retry:
+            # repeat-until-accept: acceptance = iterations / proposals
+            rates = x / np.array(self.total_proposals).cumsum(axis=1)
+        else:
+            # single-proposal mode always makes exactly one proposal per
+            # iteration, so acceptance is read from the sample history: a
+            # walker that kept its position rejected that proposal
+            walkers = self.sample.reshape(
+                self.n_iterations, self.n_walkers, self.n_parameters
+            )
+            moved = (np.diff(walkers, axis=0) != 0).any(axis=2)  # (n-1, W)
+            accepted = np.concatenate(
+                [np.ones((1, self.n_walkers), bool), moved]
+            )
+            rates = accepted.cumsum(axis=0).T / x[None, :]
+
+        fig = plt.figure(figsize=(10, 4))
+        trace_bundle_panel(
+            fig.add_subplot(121),
+            x,
+            rates,
+            rates.mean(axis=0),
+            "mean rate of all walkers",
+            title="walker acceptance rates",
+            ylabel="average acceptance rate per walker",
+            alpha=max(0.01, min(1, 20.0 / float(self.n_walkers))),
+            ylim=[0, 1],
+        )
+
+        itr_probs = self.sample_probs.reshape([self.n_iterations, self.n_walkers])
+        lowest_prob = itr_probs[self.n_iterations // 2 :, :].min()
+        trace_bundle_panel(
+            fig.add_subplot(122),
+            x,
+            itr_probs,
+            np.median(itr_probs, axis=1),
+            "median walker log-probability",
+            title="walker log-probabilities",
+            ylabel="walker log-probability",
+            scatter=True,
+            ylim=[lowest_prob, self.sample_probs.max() * 1.1 - 0.1 * lowest_prob],
+        )
+        finish_figure(fig, plt, show, filename)
 
     # ------------------------------------------------------------------ #
     # checkpointing (.npz key layout of the reference and the JAX package,

@@ -15,7 +15,7 @@ rebuilt on the host from the traces, at step granularity as in the JAX
 package. ``save`` and ``load`` use the reference's ``param_{i}...`` key
 layout, so a checkpoint of the JAX package's chains loads here and the other
 way round. Importing this module does not import matplotlib:
-``plot_diagnostics`` raises until ROADMAP queue A14(b) ports the plotting.
+``plot_diagnostics`` imports it when it draws.
 """
 
 import copy
@@ -339,9 +339,50 @@ class MetropolisChain(MarkovChain):
         return int(max(prob_estimate, float(np.mean(width_estimates))))
 
     def plot_diagnostics(self, show=True, filename=None):
-        """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14(b))."""
-        self._not_ported("plot_diagnostics")
+        """
+        Plot the log-probability history, proposal-width adjustment summary
+        and per-parameter effective sample sizes
+        (reference: gibbs.py:405-519).
+        """
+        import matplotlib.pyplot as plt
+
+        from ..utils import effective_sample_size
+        from ..utils.figures import (
+            ess_panel,
+            finish_figure,
+            logprob_history_panel,
+            percent_change_panel,
+            summary_text_panel,
+        )
+
+        burn = self.estimate_burn_in()
+        param_ESS = [
+            effective_sample_size(np.atleast_1d(self.get_parameter(i, burn=burn)))
+            for i in range(self.n_parameters)
+        ]
+        probs = self._consolidated_probs()
+
+        fig = plt.figure(figsize=(12, 9))
+        logprob_history_panel(
+            fig.add_subplot(221), probs, burn,
+            half_floor_from=self.chain_length // 2,
+        )
+        percent_change_panel(
+            fig.add_subplot(222),
+            self.sigma_values,
+            self.sigma_checks,
+            self.chain_length,
+        )
+        ess_panel(fig.add_subplot(223), param_ESS, histogram_above=10**9)
+        summary_text_panel(
+            fig.add_subplot(224),
+            [
+                ("Estimated burn-in:", f"{burn:.5G}"),
+                ("Average ESS:", f"{int(np.mean(param_ESS)):.5G}"),
+                ("Lowest ESS:", f"{int(np.min(param_ESS)):.5G}"),
+            ],
+        )
+        finish_figure(fig, plt, show, filename)
 
     # ------------------------------------------------------------------ #
     # checkpointing (.npz key layout of the reference and the JAX package,

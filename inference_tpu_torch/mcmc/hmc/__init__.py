@@ -19,7 +19,7 @@ trace is drained into the host ``EpsilonSelector`` lazily. Changing
 use the reference's ``.npz`` key layout, so a checkpoint of the JAX
 package's ``HamiltonianChain`` loads here and the other way round.
 Importing this module does not import matplotlib: ``plot_diagnostics``
-raises until ROADMAP queue A14(b) ports the plotting.
+imports it when it draws.
 """
 
 import copy
@@ -387,9 +387,57 @@ class HamiltonianChain(MarkovChain):
         return int(min(max(prob_estimate, epsl_estimate), 0.9 * self.chain_length))
 
     def plot_diagnostics(self, show=True, filename=None, burn=None):
-        """The diagnostics figure: needs the plotting module (ROADMAP queue
-        A14(b))."""
-        self._not_ported("plot_diagnostics")
+        """
+        Plot the log-probability history, the step-size adjustment summary,
+        and per-parameter effective sample sizes
+        (reference: hmc/__init__.py:245-359).
+        """
+        import matplotlib.pyplot as plt
+
+        from ...utils import effective_sample_size
+        from ...utils.figures import (
+            ess_panel,
+            finish_figure,
+            logprob_history_panel,
+            summary_text_panel,
+        )
+
+        self._drain_epsilon_trace()
+        if burn is None:
+            burn = self.estimate_burn_in()
+        param_ESS = [
+            effective_sample_size(np.atleast_1d(self.get_parameter(i, burn=burn)))
+            for i in range(self.n_parameters)
+        ]
+        probs = self._consolidated_probs()
+
+        fig = plt.figure(figsize=(12, 9))
+        logprob_history_panel(
+            fig.add_subplot(221), probs, burn,
+            half_floor_from=self.chain_length // 2,
+        )
+
+        # the one HMC-specific panel: leapfrog step-size adaptation
+        ax2 = fig.add_subplot(222)
+        ax2.plot(
+            np.array(self.ES.epsilon_checks) * 1e-3, self.ES.epsilon_values, ".-"
+        )
+        ax2.set_xlabel("chain step number ($10^3$)", fontsize=12)
+        ax2.set_ylabel("Leapfrog step-size", fontsize=12)
+        ax2.set_title("Simulation time-step adjustment summary")
+        ax2.set_yscale("log")
+        ax2.grid()
+
+        ess_panel(fig.add_subplot(223), param_ESS, histogram_above=50)
+        summary_text_panel(
+            fig.add_subplot(224),
+            [
+                ("Estimated burn-in:", f"{burn:.5G}"),
+                ("Average ESS:", f"{int(np.mean(param_ESS)):.5G}"),
+                ("Lowest ESS:", f"{int(np.min(param_ESS)):.5G}"),
+            ],
+        )
+        finish_figure(fig, plt, show, filename)
 
     # ------------------------------------------------------------------ #
     # checkpointing (.npz key layout of the reference and the JAX package,

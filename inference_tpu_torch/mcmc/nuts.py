@@ -14,8 +14,8 @@ chain; its state caches the tempered gradient at its position, which
 ``save`` and ``load`` use the JAX package's ``.npz`` keys (the
 ``HamiltonianChain`` items without ``steps``, with ``tree_depths``,
 ``divergent``, ``divergences`` and ``max_depth``), so a checkpoint of
-either package loads in the other. ``plot_diagnostics`` raises until
-ROADMAP queue A14(b) ports the plotting.
+either package loads in the other. ``plot_diagnostics`` is
+``HamiltonianChain``'s.
 """
 
 import numpy as np

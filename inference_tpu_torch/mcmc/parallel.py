@@ -510,12 +510,42 @@ class ParallelTempering:
     # diagnostics & teardown
     # ------------------------------------------------------------------ #
     def swap_diagnostics(self):
-        """The swap acceptance figure: needs the plotting module (ROADMAP
-        queue A14(b))."""
-        raise NotImplementedError(
-            "[ ParallelTempering error ] swap_diagnostics is not ported to "
-            "inference_tpu_torch yet (ROADMAP queue A14(b): plotting)."
+        """Plot acceptance rates of position swaps between the chains."""
+        import matplotlib.pyplot as plt
+        from ..plotting import transition_matrix_plot
+
+        rate_matrix = self.successful_swaps / self.attempted_swaps.clip(min=1)
+
+        pairs = [
+            (i, i + j)
+            for j in range(1, self.N_chains)
+            for i in range(self.N_chains - j)
+        ]
+        total_swaps = np.zeros(self.N_chains)
+        for i, j in pairs:
+            total_swaps[i] += self.successful_swaps[i, j]
+            total_swaps[j] += self.successful_swaps[i, j]
+
+        fig = plt.figure(figsize=(10, 5))
+        ax1 = fig.add_subplot(121)
+        transition_matrix_plot(
+            axis=ax1,
+            matrix=rate_matrix,
+            exclude_diagonal=True,
+            upper_triangular=True,
         )
+        ax1.set_xlabel("chain number")
+        ax1.set_ylabel("chain number")
+        ax1.set_title("acceptance rate of chain position swaps")
+
+        ax2 = fig.add_subplot(122)
+        ax2.bar(range(1, self.N_chains + 1), total_swaps)
+        ax2.set_ylim([0, None])
+        ax2.set_xlabel("chain number")
+        ax2.set_ylabel("total successful position swaps")
+
+        plt.tight_layout()
+        plt.show()
 
     def _sync_states(self):
         """Unstack the batched state back into the chain objects, each with

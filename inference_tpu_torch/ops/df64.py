@@ -339,18 +339,18 @@ def sqexp_matvec_df64(us_hi, us_lo, v):
 
 
 def mesh_row_cells(mesh, caller):
-    """The cells of a mesh's first axis (at index 0 of any other), which
-    all must lie in this process: a row-sharded product across processes is
-    ROADMAP A13(c)."""
-    from ..parallel.mesh import process_info
+    """The cells of a mesh's first axis (at index 0 of any other). Cells of
+    other processes are held to ``parallel._collectives.Layout``'s rules:
+    every process of the group holds as many of them (a ValueError names a
+    process that does not exist), each process's on one device (several
+    raise, ROADMAP A13(c))."""
+    from ..parallel._collectives import Layout
+    from ..parallel.mesh import Mesh, cell_grid, process_info
 
     cells = list(mesh.devices.reshape(mesh.shape[mesh.axis_names[0]], -1)[:, 0])
     rank, _ = process_info()
     if any(c.rank != rank for c in cells):
-        raise NotImplementedError(
-            f"[ {caller} error ] the mesh's cells span processes; the row-sharded GP "
-            f"product across processes is not ported yet (ROADMAP A13(c))."
-        )
+        Layout(Mesh(cell_grid(cells, (len(cells),)), ("rows",)), 1, caller)
     return cells
 
 
@@ -361,8 +361,10 @@ def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh):
     evaluates its block of ``E V``'s rows on its device against the full
     columns and ``V``, and the blocks come back in order, as float64
     ``(n, q)`` on the operands' device. ``n`` must split over the cells into
-    row blocks that are multiples of 128. Every cell must lie in this
-    process.
+    row blocks that are multiples of 128. When the cells span processes,
+    every process passes the full operands and runs its own cells' blocks,
+    and one ``dist.all_gather`` gives each the whole product (NCCL between
+    cards, gloo on the CPU or between processes that share a card).
     """
     caller = "sqexp_matmat_df64_sharded"
     axis = mesh.axis_names[0]
@@ -378,15 +380,18 @@ def sqexp_matmat_df64_sharded(us_hi, us_lo, V, mesh):
     V = _float32("V", V, caller)
     _check_coords(us64, caller)
     _check_block(V, n, caller)
-    home, block = us64.device, n // n_dev
+    block = n // n_dev
     on = {}  # the columns and V on each cell's device, moved once
-    out = []
-    for k, cell in enumerate(cells):
-        if cell.device not in on:
-            on[cell.device] = (us64.to(cell.device), V.to(cell.device))
-        cols, Vd = on[cell.device]
-        out.append(_fused(cols[k * block:(k + 1) * block], cols, Vd, "B4").to(home))
-    return torch.cat(out)
+
+    def rows(k, device):
+        if device not in on:
+            on[device] = (us64.to(device), V.to(device))
+        cols, Vd = on[device]
+        return _fused(cols[k * block:(k + 1) * block], cols, Vd, "B4")
+
+    from ..parallel._collectives import deal_blocks
+
+    return deal_blocks(cells, block, n, rows, us64.device)
 
 
 # --------------------------------------------------------------------- #

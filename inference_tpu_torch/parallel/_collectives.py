@@ -16,6 +16,11 @@ does both for a mesh of cells (``parallel.mesh``):
   the batch (the R-row swap of ``mcmc.parallel``); one of another process
   is sent and received with ``dist.batch_isend_irecv``, one message each
   way between two processes, whatever the number of cells.
+- ``deal_blocks``: the row blocks of a product dealt to a mesh's cells
+  (the row-sharded GP products), each process computing its own cells'
+  blocks; across processes one ``dist.all_gather`` brings the whole
+  product to every process's device (``shard_map``'s row-sharded output,
+  replicated).
 
 The same code runs whether the mesh spans one process or many. A process
 whose cells lie on more than one device is not supported (ROADMAP
@@ -185,3 +190,40 @@ class Exchange:
         for request in dist.batch_isend_irecv(ops):
             request.wait()
         return torch.cat([data, *received])[self.gather]
+
+
+def deal_blocks(cells, step: int, n: int, block_fn, home):
+    """
+    The row blocks of an ``n``-row product dealt to ``cells`` in turn
+    (block ``b``, rows ``b * step`` on, to cell ``b % len(cells)``):
+    ``block_fn(b, device)`` computes block b on its cell's device, for each
+    block of this process's cells. Returns every block in order on
+    ``home``. When the cells span processes, each process's blocks, in
+    block order and padded to ``step`` rows and to the most blocks any
+    process holds, travel in one ``dist.all_gather``, and the ragged last
+    block is trimmed after; every process must hold a block.
+    """
+    rank, world = process_info()
+    n_blocks = -(-n // step)
+    owners = [cells[b % len(cells)].rank for b in range(n_blocks)]
+    mine = {b: block_fn(b, cells[b % len(cells)].device).to(home)
+            for b in range(n_blocks) if owners[b] == rank}
+    if len(mine) == n_blocks:
+        return torch.cat([mine[b] for b in range(n_blocks)])
+    held = [[b for b, q in enumerate(owners) if q == p] for p in range(world)]
+    if not all(held):
+        raise ValueError(
+            f"{n_blocks} row blocks leave a process of {world} without one; use "
+            f"smaller blocks or fewer cells"
+        )
+    some = next(iter(mine.values()))
+    local = some.new_zeros((max(map(len, held)) * step,) + tuple(some.shape[1:]))
+    for j, b in enumerate(held[rank]):
+        local[j * step:j * step + mine[b].shape[0]] = mine[b]
+    parts = [torch.empty_like(local) for _ in range(world)]
+    dist.all_gather(parts, local)
+    out = []
+    for b, q in enumerate(owners):
+        j = held[q].index(b)
+        out.append(parts[q][j * step:j * step + min(step, n - b * step)])
+    return torch.cat(out)

@@ -511,12 +511,36 @@ class ShardedTempering:
         return self.successful_swaps / self.attempted_swaps.clip(min=1)
 
     def swap_diagnostics(self, show: bool = True):
-        """The swap acceptance figure: needs the plotting module (ROADMAP
-        queue A14(b))."""
-        raise NotImplementedError(
-            "[ ShardedTempering error ] swap_diagnostics is not ported to "
-            "inference_tpu_torch yet (ROADMAP queue A14(b): plotting)."
+        """Plot acceptance rates of position swaps between the rungs
+        (reference: parallel.py:328-362)."""
+        import matplotlib.pyplot as plt
+        from ..plotting import transition_matrix_plot
+
+        rate_matrix = self.swap_rate_matrix()
+        total_swaps = self.successful_swaps.sum(axis=0) + self.successful_swaps.sum(axis=1)
+
+        fig = plt.figure(figsize=(10, 5))
+        ax1 = fig.add_subplot(121)
+        transition_matrix_plot(
+            axis=ax1,
+            matrix=rate_matrix,
+            exclude_diagonal=True,
+            upper_triangular=True,
         )
+        ax1.set_xlabel("rung number")
+        ax1.set_ylabel("rung number")
+        ax1.set_title("acceptance rate of rung position swaps")
+
+        ax2 = fig.add_subplot(122)
+        ax2.bar(range(1, self.n_rungs + 1), total_swaps)
+        ax2.set_ylim([0, None])
+        ax2.set_xlabel("rung number")
+        ax2.set_ylabel("total successful position swaps")
+
+        plt.tight_layout()
+        if show:
+            plt.show()
+        return fig
 
     def update_directions(self, last: int = None):
         """

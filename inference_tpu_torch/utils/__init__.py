@@ -6,6 +6,7 @@ from .bounds import Bounds, reflect_to_bounds
 from .progress import ChainProgressPrinter
 from .ess import effective_sample_size, effective_sample_size_batched
 from .diagnostics import split_rhat, rank_normalized_rhat
+from .profiling import device_trace, PhaseTimer
 
 __all__ = [
     "resolve_device",
@@ -20,4 +21,6 @@ __all__ = [
     "effective_sample_size_batched",
     "split_rhat",
     "rank_normalized_rhat",
+    "device_trace",
+    "PhaseTimer",
 ]

@@ -1,11 +1,12 @@
 """Worker process of tests/test_torch_multihost.py: one of two gloo
-processes on the CPU, each holding 4 cells of the port's meshes.
+processes on the CPU, each holding 4 cells of the port's meshes (2 of the
+GP's 4-cell mesh).
 
 Run as:  python _torch_multihost_worker.py <coordinator host:port> <n_procs> <proc_id> <out_dir>
 
 Writes ``<out_dir>/rank<proc_id>.npz`` with what it measured, then
-destroys its process group. ``swap_scenario`` is also run by the parent
-test in one process, on the same state and uniforms.
+destroys its process group. ``swap_scenario`` and ``gp_scenario`` are also
+run by the parent test in one process, on the same inputs.
 """
 
 import os
@@ -41,6 +42,40 @@ def swap_scenario(st):
         st._state, accept = st._swap(st._state, phase, st._layout.local_rows(table))
         flags, pos, lp = st._layout.gather([accept, *positions_of(st._state)])
         out.update({f"flags{phase}": flags, f"theta{phase}": pos, f"logp{phase}": lp})
+    return out
+
+
+def gp_scenario(mesh):
+    """The row-sharded GP products on ``mesh``'s first axis (4 cells):
+    ``sqexp_matmat_df64_sharded`` at n = 512, q = 3; ``LargeScaleGP`` in the
+    df64 tier and in the cg tier (500 points in 6 row blocks of 96, so the
+    processes hold 4 and 2 blocks, the last ragged); the df64
+    ``LargeScaleGpLinearInverter``. Their outputs, float64 on the CPU."""
+    from inference_tpu_torch.gp import LargeScaleGP, LargeScaleGpLinearInverter
+    from inference_tpu_torch.ops import df64
+
+    rng = np.random.default_rng(2)
+    x = rng.uniform(0, 8, size=(512, 2))
+    uh, ul = (torch.as_tensor(a) for a in df64.split_f64(x))
+    V = torch.as_tensor(rng.normal(size=(512, 3)), dtype=torch.float32)
+    out = {"matmat": df64.sqexp_matmat_df64_sharded(uh, ul, V, mesh).numpy()}
+    y = np.sin(x[:500, 0]) * np.cos(0.5 * x[:500, 1])
+    q = rng.uniform(1, 7, size=(16, 2))
+    kw = dict(hyperpars=[0.0, 0.0, 0.0], preconditioner_rank=64, mesh=mesh, device="cpu")
+    gp = LargeScaleGP(x[:500], y, np.full(500, 0.01), solver="df64", block_size=128,
+                      cg_tol=1e-9, cg_maxiter=3000, **kw)
+    out["df64_means"], out["df64_var"] = gp(q, with_variance=True)
+    out["df64_residual"] = gp.residual_norm_f64()
+    gp = LargeScaleGP(x[:500], y, np.full(500, 0.1), solver="cg", block_size=96, cg_tol=1e-6,
+                      **kw)
+    out["cg_means"] = gp(q)
+    centres = rng.uniform(0, 8, size=(40, 2))
+    A = np.exp(-0.5 * ((centres[:, None, :] - x[None, :, :]) ** 2).sum(-1) / 0.5)
+    A /= A.sum(axis=1, keepdims=True)
+    inv = LargeScaleGpLinearInverter(A @ np.sin(x[:, 0]), np.full(40, 0.05), A, x,
+                                     [0.0, 0.0, 0.0], block_size=128, solver="df64",
+                                     cg_tol=1e-10, mesh=mesh, device="cpu")
+    out["inv_mean"] = inv.calculate_posterior_mean()
     return out
 
 
@@ -102,6 +137,11 @@ def main():
     ca2.restore(os.path.join(out_dir, f"ca{proc_id}.npz"))
     out["ca_restored_theta"] = ca2.theta
     out["ca_local_rows"] = ca._layout.rows
+
+    # the GP across the processes: 4 cells, 2 a process
+    gp_mesh = global_chain_mesh(cells_per_process=2)
+    out["gp_cell_ranks"] = [c.rank for c in gp_mesh.cells()]
+    out.update({f"gp_{k}": v for k, v in gp_scenario(gp_mesh).items()})
 
     np.savez(os.path.join(out_dir, f"rank{proc_id}.npz"), **out)
     dist.destroy_process_group()

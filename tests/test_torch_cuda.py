@@ -12,7 +12,8 @@ stores end to end; the gibbs,
 metropolis and pca ChainArrays on the card against their CPU runs, a
 numpy posterior's chains with their state on the card, tempering ladders
 and the ensemble step, the NUTS step and the density estimators against
-the CPU.
+the CPU; the conditionals, the matrix plot's data and the PhaseTimer on the
+card.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -1515,3 +1516,80 @@ def test_sharded_matmat_on_card_matches_b4(cuda):
     scale = E @ V.double().abs()
     assert got.device.type == "cuda" and got.dtype == torch.float64
     assert bool(((got - one).abs() <= 1e-13 * scale).all())
+
+
+def _gaussian_logp(P, device, seed=0):
+    """A correlated P-dim Gaussian in float64 on ``device``, and a
+    conditioning point drawn from near its mean."""
+    rng = np.random.default_rng(seed)
+    B = rng.normal(size=(P, P))
+    icov = torch.as_tensor(B @ B.T / P + np.eye(P), device=device)
+    mu = torch.as_tensor(rng.normal(size=P), device=device)
+    point = mu.cpu().numpy() + 0.5 * rng.normal(size=P)
+
+    def logp(t):
+        d = t - mu
+        return -0.5 * d @ icov @ d
+
+    return logp, point
+
+
+@pytest.mark.cuda
+def test_get_conditionals_on_card_matches_cpu(cuda):
+    """get_conditionals with the posterior on the card against the CPU:
+    grids and densities within 1e-10, as many batched calls."""
+    from inference_tpu_torch.approx import get_conditionals
+    from inference_tpu_torch.approx.conditional import Conditional
+
+    out = []
+    for device in (cuda, "cpu"):
+        logp, point = _gaussian_logp(6, device)
+        out.append(get_conditionals(logp, [(-6.0, 6.0)] * 6, point, device=device))
+        assert not Conditional(logp, point, 0, device=device).host
+    (a, p), (a_ref, p_ref) = out
+    assert np.abs(a - a_ref).max() <= 1e-10 * np.abs(a_ref).max()
+    assert np.abs(p - p_ref).max() <= 1e-10 * np.abs(p_ref).max()
+
+
+@pytest.mark.cuda
+def test_phase_timer_waits_for_queued_kernels(cuda):
+    """A phase that only queues FP64 matmuls lasts at least as long as the
+    card takes to run them (CUDA events), not just their launches."""
+    from inference_tpu_torch.utils import PhaseTimer
+
+    a = torch.randn(4096, 4096, dtype=torch.float64, device=cuda)
+    a @ a
+    torch.cuda.synchronize()
+    timer = PhaseTimer()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with timer.phase("matmul"):
+        start.record()
+        for _ in range(20):
+            a @ a
+        end.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(end) / 1e3
+    assert device_s > 0.02 and timer.totals["matmul"] >= 0.95 * device_s
+
+
+@pytest.mark.cuda
+def test_matrix_panels_on_card_match_cpu(cuda):
+    """matrix_plot's data (plot ranges, diagonal KDE curves, KDE2D grids and
+    the "hdi" levels) on the card against the CPU, within 1e-10; the
+    ranges equal."""
+    from inference_tpu_torch.plotting import matrix_panels
+
+    rng = np.random.default_rng(5)
+    base = rng.normal(size=3000)
+    samples = [base * (i + 1) + rng.normal(0, 0.5, 3000) for i in range(4)]
+    card, cpu = (matrix_panels(samples, "hdi", device=d) for d in (cuda, "cpu"))
+    assert card["limits"] == cpu["limits"]
+    for g, h in zip(card["grids"], cpu["grids"]):
+        np.testing.assert_array_equal(g, h)
+    for c, h in zip(card["curves"], cpu["curves"]):
+        assert np.abs(c - h).max() <= 1e-10 * np.abs(h).max()
+    assert sorted(card["pairs"]) == sorted(cpu["pairs"]) and len(card["pairs"]) == 6
+    for key, (_, _, Z) in card["pairs"].items():
+        Z_ref = cpu["pairs"][key][2]
+        assert np.abs(Z - Z_ref).max() <= 1e-10 * np.abs(Z_ref).max()
+        np.testing.assert_allclose(card["levels"][key], cpu["levels"][key], rtol=1e-10, atol=0)

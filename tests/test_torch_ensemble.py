@@ -197,8 +197,14 @@ def test_sampler_views():
     port._drain_stats()
     assert [len(v) for v in port.total_proposals] == [30] * 20
     assert port.failed_updates == [0] * 30
-    with pytest.raises(NotImplementedError, match="A14"):
-        port.plot_diagnostics()
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    port.plot_diagnostics()  # Agg: draws, shows nothing
+    assert len(plt.gcf().axes) == 2
+    plt.close("all")
 
 
 def test_sampler_validation():

@@ -13,12 +13,16 @@ import inference_tpu_torch.ops
 
 PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
          "inference_tpu_torch.models", "inference_tpu_torch.gp", "inference_tpu_torch.pdf",
-         "inference_tpu_torch.parallel")
-PORT_ONLY = {"GaussianForm"}
+         "inference_tpu_torch.parallel", "inference_tpu_torch.approx", "inference_tpu_torch.utils")
+# the port's own names: the device policy and the torch generator of utils
+PORT_ONLY = {"GaussianForm", "resolve_device", "make_generator"}
 # the JAX package's names from these paths that the port does not define:
-# the TPU watchdog's chunk length has no job on a GPU (ROADMAP "Not ported")
+# the TPU watchdog's chunk length has no job on a GPU (ROADMAP "Not ported");
+# utils' JAX keys and its probes of traceability and host callbacks have no
+# counterpart (torch generators; ``utils.wrap`` routes a posterior by vmap)
 UNPORTED = {
     "inference_tpu.ops": {"df64_chunk_iters"},
+    "inference_tpu.utils": {"make_key", "is_traceable", "callbacks_supported"},
 }
 
 
@@ -54,3 +58,22 @@ def test_parallel_exports_what_jax_exports():
     ported (A13(b))."""
     port = importlib.import_module("inference_tpu_torch.parallel").__all__
     assert sorted(port) == sorted(importlib.import_module("inference_tpu.parallel").__all__)
+
+
+@pytest.mark.parametrize("path", ["inference_tpu_torch.approx", "inference_tpu_torch.utils"])
+def test_approx_and_utils_export_every_ported_name(path):
+    """approx exports JAX's four names; utils all of JAX's but the unported
+    ones, with PhaseTimer and device_trace, and its own two."""
+    port = set(importlib.import_module(path).__all__)
+    reference = set(importlib.import_module(_jax_path(path)).__all__)
+    assert port - PORT_ONLY == reference - UNPORTED.get(_jax_path(path), set())
+    assert {"PhaseTimer", "device_trace"} <= set(importlib.import_module(
+        "inference_tpu_torch.utils").__all__)
+
+
+def test_plotting_has_jax_functions():
+    from inference_tpu import plotting as jax_plotting
+    from inference_tpu_torch import plotting
+
+    for name in ("matrix_plot", "trace_plot", "hdi_plot", "transition_matrix_plot"):
+        assert callable(getattr(plotting, name)) and callable(getattr(jax_plotting, name))

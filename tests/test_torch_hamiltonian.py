@@ -255,16 +255,23 @@ def test_numpy_posterior_and_gradient_raise_naming_a1():
 
 
 def test_unported_views_raise_naming_a14_and_burn_thin_errors():
-    """The plot views still raise naming A14; get_marginal and get_interval
-    (A14's first part) return an estimator on the chain's device and the
-    top of the sample."""
+    """The plot views (A14's second part, no longer raising) draw a figure
+    each; get_marginal and get_interval (A14's first part) return an
+    estimator on the chain's device and the top of the sample."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     from inference_tpu_torch.pdf import GaussianKDE
 
     chain = make_chain(n=4)
-    for call in (lambda: chain.matrix_plot(), lambda: chain.trace_plot(),
-                 lambda: chain.plot_diagnostics(show=False)):
-        with pytest.raises(NotImplementedError, match="A14"):
-            call()
+    for call, axes in ((lambda: chain.matrix_plot(), 6), (lambda: chain.trace_plot(), 3),
+                       (lambda: chain.plot_diagnostics(), 4)):
+        plt.close("all")
+        call()  # Agg: draws, shows nothing
+        assert len(plt.gcf().axes) == axes
+    plt.close("all")
     marginal = chain.get_marginal(0, burn=0)
     assert isinstance(marginal, GaussianKDE) and marginal.device == chain.device
     sample, probs = chain.get_interval(0.5, burn=0)

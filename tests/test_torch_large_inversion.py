@@ -255,9 +255,10 @@ def test_method_errors_match_jax(call):
 
 
 def test_mesh_raises_naming_its_roadmap_item():
-    """``mesh=`` is ported (A13(b)): on two CPU cells of one process the
-    df64 inverter solves as it does without a mesh; a mesh whose cells
-    span processes raises naming its ROADMAP item, A13(c)."""
+    """``mesh=`` is ported (A13(b), and across processes A13(c), run in
+    tests/test_torch_multihost.py): on two CPU cells of one process the
+    df64 inverter solves as it does without a mesh; a mesh naming a
+    process that does not exist raises the Layout's ValueError."""
     y, err, A, xp = averaging_problem(m=20, n=50)
     kw = dict(block_size=128, solver="df64", cg_tol=1e-10, device="cpu")
     inv = LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0],
@@ -268,7 +269,7 @@ def test_mesh_raises_naming_its_roadmap_item():
     assert np.abs(mean - ref).max() <= 1e-8 * np.abs(ref).max()
     across = Mesh(cell_grid([Cell(0, torch.device("cpu")), Cell(1, torch.device("cpu"))], (2,)),
                   ("chains",))
-    with pytest.raises(NotImplementedError, match=r"A13\(c\)"):
+    with pytest.raises(ValueError, match=r"every process of the group must hold the same"):
         LargeScaleGpLinearInverter(y, err, A, xp, [0.0, 0.0, 0.0], mesh=across, device="cpu")
 
 

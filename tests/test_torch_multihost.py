@@ -4,9 +4,13 @@ tests/test_multihost.py. They join over a localhost coordinator
 (``initialize_multihost``) and run, for real: the gather of sharded rows,
 a ``ShardedTempering`` whose swaps cross the process boundary (held to the
 same swaps in one process, on the same state and uniforms, exactly), a
-short run and a checkpoint restored across the processes, and a
-``ChainArray`` over the global chain mesh. The worker pair runs once per
-module; each worker has a hard timeout and is killed when it runs out.
+short run and a checkpoint restored across the processes, a
+``ChainArray`` over the global chain mesh, and the row-sharded GP on a
+4-cell global mesh, 2 cells a process (the sharded df64 matmat,
+``LargeScaleGP`` in the df64 and cg tiers, the df64 inverter), each held to
+the same run on a 4-cell mesh of one process exactly. The worker pair runs
+once per module; each worker has a hard timeout and is killed when it
+runs out.
 """
 
 import importlib.util
@@ -117,3 +121,30 @@ def test_chain_array_across_processes(results):
     np.testing.assert_array_equal(b["ca_local_rows"], np.arange(8, 16))
     for r in results:
         np.testing.assert_array_equal(r["ca_restored_theta"], r["ca_theta"])
+
+
+@pytest.fixture(scope="module")
+def gp_reference():
+    """``gp_scenario`` on a 4-cell mesh of this one process, single-threaded
+    as the workers run."""
+    worker = _worker_module()
+    dt, threads = torch.get_default_dtype(), torch.get_num_threads()
+    torch.set_default_dtype(torch.float64)
+    torch.set_num_threads(1)
+    try:
+        from inference_tpu_torch.parallel import chain_mesh
+
+        return worker.gp_scenario(chain_mesh(4, device="cpu"))
+    finally:
+        torch.set_default_dtype(dt)
+        torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("key", ["matmat", "df64_means", "df64_var", "cg_means", "inv_mean"])
+def test_gp_across_processes_equals_one_process(results, gp_reference, key):
+    """The GP's row blocks dealt to 2 processes x 2 cells and gathered give
+    what 4 cells of one process give, bit for bit, on both processes."""
+    for r in results:
+        assert list(r["gp_cell_ranks"]) == [0, 0, 1, 1]
+        np.testing.assert_array_equal(r[f"gp_{key}"], gp_reference[key])
+    assert float(results[0]["gp_df64_residual"]) < 1e-8

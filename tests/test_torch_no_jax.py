@@ -42,6 +42,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.parallel.mesh, inference_tpu_torch.parallel.multihost, "
         "inference_tpu_torch.parallel._collectives, inference_tpu_torch.parallel.tempering, "
         "inference_tpu_torch.parallel.dryrun",
+        "inference_tpu_torch.approx, inference_tpu_torch.approx.conditional, "
+        "inference_tpu_torch.plotting, inference_tpu_torch.utils.profiling",
         "chip_smoke",
     ],
 )

@@ -478,8 +478,16 @@ def test_nuts_save_load_both_packages(toroidal_chain, tmp_path):
 
 
 def test_nuts_plot_diagnostics_names_a14(toroidal_chain):
-    with pytest.raises(NotImplementedError, match="A14"):
-        toroidal_chain.plot_diagnostics(show=False)
+    """NutsChain's diagnostics figure (HamiltonianChain's, ported with A14(b))."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    plt.close("all")
+    toroidal_chain.plot_diagnostics()  # Agg: draws, shows nothing
+    assert len(plt.gcf().axes) == 4
+    plt.close("all")
 
 
 def test_nuts_mode_and_estimate_mass():

@@ -438,8 +438,14 @@ def test_pt_rejects_mixed_parameter_counts_and_names_a14():
     with pytest.raises(ValueError, match="same number of parameters"):
         ParallelTempering([GibbsChain(bimodal, start=np.array([4.0]), **kw),
                            GibbsChain(curved, start=np.array([0.5, 0.5]), **kw)])
-    with pytest.raises(NotImplementedError, match="A14"):
-        make_pt().swap_diagnostics()
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assert make_pt().swap_diagnostics() is None  # Agg: draws, shows nothing (A14(b))
+    assert len(plt.gcf().axes) == 2
+    plt.close("all")
 
 
 def test_parallel_tempering_from_jax():

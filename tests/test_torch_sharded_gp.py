@@ -193,16 +193,19 @@ def test_mesh_validation_matches_jax():
 
 
 def test_mesh_across_processes_raises_naming_a13c():
-    """A mesh with a cell of another process (as a process group's global
-    mesh would have) raises NotImplementedError naming ROADMAP A13(c)."""
+    """The GP across processes is ported (its working case runs in two
+    processes, tests/test_torch_multihost.py): a mesh with a cell of a
+    process that does not exist (rank 1 with no process group) raises the
+    Layout's ValueError."""
     x, y, err = dryrun_problem(256)
     mesh = Mesh(cell_grid([Cell(0, torch.device("cpu")), Cell(1, torch.device("cpu"))], (2,)),
                 ("chains",))
+    message = r"every process of the group must hold the same number of mesh cells"
     for solver in ("df64", "cg"):
-        with pytest.raises(NotImplementedError, match=r"A13\(c\)"):
+        with pytest.raises(ValueError, match=message):
             LargeScaleGP(x, y, err, mesh=mesh, solver=solver, device="cpu", **KW)
     A = np.eye(256)[:64]
-    with pytest.raises(NotImplementedError, match=r"A13\(c\)"):
+    with pytest.raises(ValueError, match=message):
         LargeScaleGpLinearInverter(y[:64], err[:64], A, x, [0.0, 0.0, 0.0], block_size=128,
                                    mesh=mesh, device="cpu")
 
@@ -212,7 +215,7 @@ def test_a_tempering_mesh_shards_gp_rows_over_its_first_axis():
     x, y, err = dryrun_problem(512)
     gp = LargeScaleGP(x, y, err, mesh=tempering_mesh(4, 8, device="cpu"), solver="df64",
                       device="cpu", cg_tol=1e-8, **KW)
-    assert len(gp._cell_devices) == 4 and gp.residual_norm_f64() < 1e-6
+    assert len(gp._cells) == 4 and gp.residual_norm_f64() < 1e-6
 
 
 def inversion_problem(n=N, m=128, seed=5, err=0.05):

@@ -367,8 +367,13 @@ def test_validation_matches_jax():
             errors.append(str(info.value))
         assert errors[0] == errors[1]
     st = ShardedTempering(gauss2, np.zeros(2), TEMPS, 4, cpu_mesh(), steps=2)
-    with pytest.raises(NotImplementedError, match=r"A14\(b\)"):
-        st.swap_diagnostics()
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    assert len(st.swap_diagnostics(show=False).axes) == 2  # ported with A14(b)
+    plt.close("all")
     with pytest.raises(ValueError, match="pca"):
         st.update_directions()
 
