@@ -1,6 +1,7 @@
 """Drive the PyTorch port's main paths once on one CUDA GPU: batched HMC
-(kernel B1, and its wide route for P > 64), the headline and dense HMC
-benches, the single-chain HamiltonianChain, the Metropolis family
+(kernel B1, its wide route for P > 64, and its model route for the
+library's posteriors over a linear forward model), the headline and dense
+HMC benches, the single-chain HamiltonianChain, the Metropolis family
 (ChainArray's gibbs, metropolis and pca kinds, GibbsChain, PcaChain),
 posteriors written with numpy, parallel tempering (ParallelTempering) and
 the ensemble sampler (EnsembleSampler, ChainArray's ensemble kind), NUTS
@@ -29,7 +30,8 @@ Phases, each of which raises on failure (so the script exits non-zero):
 2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
    one library per parameter count and kind of mass: P = 1, 2, 3, 10, 32,
    64 with unit mass, P = 32 with diagonal mass, and the wide library for
-   any P > 64), B2
+   any P > 64), B1's model route (``.../hmc_model.cu``, one library per
+   likelihood family with unit mass, and the Gaussian with diagonal mass), B2
    (``.../sqexp.cu``, one library per D up to 5: D = 2 and 5, and the wide
    one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
@@ -56,6 +58,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
    and R-hat; a ``torch.profiler`` breakdown of one more advance; then the
    port's headline bench (``inference_tpu_torch.bench.headline``:
    ``bench.py``'s chain sweep, 1,024 to 131,072 chains), its JSON line;
+   trace-early: two unpadded traces of one fused ``advance(640)``,
+   ``device_trace`` (held: as many B1 kernel events as launches) and
+   ``torch.profiler`` started directly (a reading);
 5. plain path: the same ChainArray with ``fused=False``, 16 transitions
    timed; then
    (a) kernel B1's wide route (P > 64): its plans (chains a block, A
@@ -68,10 +73,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    256, 16,384 chains (attempts/s, launches, variances); (c) the
    dense HMC bench (``inference_tpu_torch.bench.dense_hmc``) at 4,096
    chains, both workloads checked (the Gaussian's variances; the forward
-   model's means and variances against its exact FP64 posterior); (d)
-   ``HamiltonianChain`` on the card, a bounded 10-dim problem for 700
+   model's means and variances against its exact FP64 posterior); (c2)
+   kernel B1's model route (``ops/csrc/hmc_model.cu``: a library posterior
+   over a ``LinearForwardModel``): against its plain version for each
+   likelihood family with a Gaussian and an Exponential prior (the
+   Gaussian also with a Uniform one and with none), at P = 10, 65 and 256,
+   N = 1,024, 4,096 chains, one transition (step counts and counters
+   equal, the kernel's error against float64 at most 4x the float32 plain
+   version's, chains started outside the support at -inf) and a chunk of
+   16 (accept fractions, drift); one chunk timed at P = 10 and 256 beside
+   its bound and its plain version; dense-256-forward-fused (the dense
+   bench's forward model through ``ChainArray(fused=True)`` at 4,096
+   chains: samples/s and TFLOP/s beside the plain path, 128 stored
+   transitions held to the exact posterior) and robust-10 (a Cauchy
+   likelihood with a Gaussian and an Exponential prior, P = 10, fused
+   against the plain path: means within 5 combined standard errors,
+   variances within 10%, no Exponential variable below 0; the fused run
+   256 transitions on, held likewise to the posterior by importance
+   sampling; every pooled moment summed in float64); (d)
+   ``HamiltonianChain`` on the card, a bounded 10-dim problem for 500
    steps (10 leapfrog steps a proposal) against the same chain on the CPU
-   for 700, its device operations per transition counted by
+   for 500, its device operations per transition counted by
    ``torch.profiler``, and a save, load and advance; then the Metropolis
    family, which has no kernel of its own: (e) gibbs-10d,
    ``ChainArray`` on ``benchmarks/chain_batch_bench.py``'s 10-dim Gaussian,
@@ -162,8 +184,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    parameters, "hdi" style: 10 curves, 45 KDE2D grids and their levels, the
    first 3 parameters' held to the CPU within 1e-10, matplotlib never
    imported), profile-b1 (``device_trace`` around a fused advance at 65,536
-   chains, its trace listing B1 as often as it launched, the window padded
-   by ``TRACE_PAD_S``; a ``PhaseTimer`` phase within 10% of CUDA events)
+   chains, unpadded and padded by ``TRACE_PAD_S``, each trace listing B1 as
+   often as it launched, beside a reading of ``torch.profiler`` started
+   directly, as trace-early does after phase 4; a ``PhaseTimer`` phase
+   within 10% of CUDA events)
    and gp-2proc (two children on ``cuda:0`` joined by gloo, 2 cells each:
    the sharded matmat at n = 53,248, q = 8, the df64 solve's means and the
    cg tier's means bit for bit against gp-large-50k-mesh4's and
@@ -325,7 +349,11 @@ from inference_tpu_torch.mcmc._kernels.ensemble import (init_ensemble_state, mak
 from inference_tpu_torch.mcmc._kernels import nuts as nuts_kernel
 from inference_tpu_torch.mcmc.hmc import EpsilonSelector
 from inference_tpu_torch.mcmc.parallel import _swap_on_device, _swap_on_host
-from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
+from inference_tpu_torch.utils.random import make_generator
+from inference_tpu_torch.models import (CauchyLikelihood, ExponentialPrior, GaussianLikelihood,
+                                        GaussianPrior, JointPrior, LinearForwardModel,
+                                        LogisticLikelihood, Posterior, UniformPrior)
+from inference_tpu_torch.ops import _build, df64, hmc_fused, hmc_model, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 from inference_tpu_torch.parallel._kinds import build_kind
@@ -389,7 +417,10 @@ def _libraries():
     b2 = [("sqexp", pairwise.kernel_variant(d), _b2_label(d)) for d in B2_BUILD_D]
     p3 = [("sqexp_words_mma", words.kernel_variant(d), f"P3 d={d}")
           for d in P3_D + (P3_STREAMED_D,)]
-    return b1 + b2 + p3 + [(name, (), label) for name, label in KERNELS.items()]
+    model = [("hmc_model", hmc_model.kernel_variant(f, unit),
+              f"B1 model route {hmc_model.FAMILY_NAMES[f]} {'unit' if unit else 'diagonal'} mass")
+             for f, unit in MODEL_BUILD]
+    return b1 + model + b2 + p3 + [(name, (), label) for name, label in KERNELS.items()]
 
 
 def _b2_label(d):
@@ -862,12 +893,14 @@ def phase_b1_wide():
 
 
 DENSE_CHAINS = 4096
-DENSE_WORK = 1 << 17  # chain-transitions: 32 warm-up and 32 timed transitions at 4,096 chains
+DENSE_WORK = 1 << 16  # chain-transitions: 16 warm-up and 16 timed transitions at 4,096 chains
+# (32 and 32 until B1's model route joined the script, cut for its time; the plain path is
+# host-bound, so the rate is the same)
 
 
 def phase_dense_hmc():
     """``inference_tpu_torch.bench.dense_hmc``'s two workloads at 4,096
-    chains, 32 transitions each as a warm-up and 32 timed (samples/s,
+    chains, 16 transitions each as a warm-up and 16 timed (samples/s,
     TFLOP/s, share of the float32 peak; the bench itself times 512 at this
     count, but the plain path is host-bound, so the rate is the same), then
     32 more stored transitions of each, checked: the Gaussian's pooled variances
@@ -916,8 +949,636 @@ def phase_dense_hmc():
     return rows
 
 
-HC_STEPS_CARD, HC_STEPS_CPU = 700, 700  # the card's 2,000 cut for the script's time (1,000
-# until the multi-device phases joined it)
+# ---------------------------------------------------------------------------
+# kernel B1's model route (ops/hmc_model.py): library posteriors over a
+# LinearForwardModel
+# ---------------------------------------------------------------------------
+
+MODEL_N = 1024           # data of the model-route checks (dense-256-forward's N)
+MODEL_CHAINS = 4096
+MODEL_CHECK_P = (10, 65, 256)
+MODEL_CHUNK = 16         # transitions of a check
+MODEL_SIGMA = 0.1        # the noise scale of the checks' data
+# (family, prior) of the checks: each family with a Gaussian and an
+# Exponential prior, the Gaussian also with a Uniform and with none
+MODEL_CHECKS = (("gaussian", "gauss+exp"), ("gaussian", "gauss+unif"), ("gaussian", "none"),
+                ("cauchy", "gauss+exp"), ("logistic", "gauss+exp"))
+MODEL_ERR_RATIO = 4.0    # the kernel's error against float64 over the float32 plain version's
+MODEL_OUTSIDE = -50.0    # a check's outside chains start their bounded variables here
+MODEL_OUTSIDE_EVERY = 64  # every 64th chain of a check starts outside
+# the most a transition's accept fraction may differ between the kernel and
+# its plain version over a chunk while their chains agree: 8 chains in
+# 4,096, float32 roundoff flipping a few decisions where u lies within ~1e-6
+# of exp(h0 - h). Chains whose two runs have parted (where the dynamics
+# spread roundoff fast: a Cauchy likelihood at P = 256 keeps ~5% of either
+# float32 run's chains within tolerance of float64 after 16 transitions,
+# CPU rehearsal) accept independently, so the limit adds 4 binomial
+# standard errors of the parted share (``_model_compare``)
+MODEL_ACCEPT_TOL = 2e-3
+MODEL_BUILD = ((0, True), (1, True), (2, True), (0, False))  # (family, unit mass)
+ROBUST_P, ROBUST_N = 10, 1024
+# robust-10's runs, fused and plain alike, so both hold the same transient:
+# 64 + 128 cut for the script's time (the plain path is host-bound, 140-295
+# ms a transition on the H100's hosts)
+ROBUST_WARM, ROBUST_STORED = 24, 40
+ROBUST_LONG = 256       # the fused run's further stored transitions, held to the reference
+ROBUST_IS_DRAWS = 50_000  # importance-sampling draws of robust-10's reference
+DENSE_FUSED_WARM, DENSE_FUSED_TIMED, DENSE_FUSED_STORED = 64, 64, 128
+LIKELIHOODS = {"gaussian": GaussianLikelihood, "cauchy": CauchyLikelihood,
+               "logistic": LogisticLikelihood}
+
+
+def model_posterior(family, P, N, prior, seed, device="cuda"):
+    """A library posterior: the family's likelihood over a
+    ``LinearForwardModel`` of an N x P matrix of N(0, 1/P) entries and an
+    offset, data drawn about it with the family's noise of scale
+    ``MODEL_SIGMA`` (the Logistic's standard deviation), and the prior:
+    "none", "gauss+exp" (Gaussian(0, 3) on all but the last two variables,
+    Exponential(beta 1) on those) or "gauss+unif" (Uniform on [-1, 3] on
+    those); the true parameters' last two positive. Returns (posterior,
+    true parameters, M as float64 numpy)."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(N, P)) / np.sqrt(P)
+    offset = rng.normal(0, 0.5, N)
+    truth = rng.normal(0, 1, P)
+    truth[-2:] = np.abs(truth[-2:]) + 0.2
+    noise = {"gaussian": rng.normal(size=N), "cauchy": rng.standard_cauchy(N),
+             "logistic": rng.logistic(size=N) * np.sqrt(3.0) / np.pi}[family]
+    y = M @ truth + offset + MODEL_SIGMA * noise
+    likelihood = LIKELIHOODS[family](y, np.full(N, MODEL_SIGMA),
+                                     LinearForwardModel(M, offset, device=device), device=device)
+    if prior == "none":
+        return likelihood, truth, M
+    gauss = GaussianPrior(np.zeros(P - 2), np.full(P - 2, 3.0), list(range(P - 2)), device=device)
+    bounded = (ExponentialPrior([1.0, 1.0], [P - 2, P - 1], device=device) if prior == "gauss+exp"
+               else UniformPrior([-1.0, -1.0], [3.0, 3.0], [P - 2, P - 1], device=device))
+    return Posterior(likelihood, JointPrior([gauss, bounded], P)), truth, M
+
+
+# the largest curvature of each family's log term in u = (y - F) / scale,
+# over the Gaussian's 1: Cauchy's -log1p(u^2) 2, the Logistic's u - 2
+# softplus(u) with scale sigma sqrt(3) / pi, pi^2 / 6 in units of sigma
+CURVATURE = {"gaussian": 1.0, "cauchy": 2.0, "logistic": np.pi**2 / 6}
+
+
+def _model_scale(M, family="gaussian"):
+    """The leapfrog's stability edge at the largest curvature of a
+    ``family`` likelihood of noise ``MODEL_SIGMA`` over M: sigma / sqrt(c
+    times the largest eigenvalue of M^T M), c from ``CURVATURE``. Beyond
+    it trajectories diverge, and float32 roundoff with them."""
+    lam = CURVATURE[family] * float(np.linalg.eigvalsh(M.T @ M).max())
+    return MODEL_SIGMA / np.sqrt(lam)
+
+
+def _model_state(form, truth, M, K, seed, outside):
+    """K chains about the truth (their bounded variables positive), every
+    ``MODEL_OUTSIDE_EVERY``-th at ``MODEL_OUTSIDE`` in its last two when
+    ``outside``, with a mid-adaptation step size of 0.3-0.9 times the
+    family's ``_model_scale``: (theta (P, K), eps, inv_temp, the outside
+    chains' mask)."""
+    rng = np.random.default_rng(seed)
+    P = len(truth)
+    theta = truth[:, None] + rng.normal(0, 2 * MODEL_SIGMA * np.sqrt(P / len(M)), (P, K))
+    theta[-2:] = np.abs(theta[-2:])
+    mask = np.zeros(K, bool)
+    if outside:
+        mask[::MODEL_OUTSIDE_EVERY] = True
+        theta[-2:, mask] = MODEL_OUTSIDE
+    num = rng.integers(0, 20, K)
+    cuda = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt).cuda()
+    family = hmc_model.FAMILY_NAMES[form.family]
+    eps = AdaptiveScale(value=cuda(rng.uniform(0.3, 0.9, K) * _model_scale(M, family)),
+                        avg=cuda(num * rng.uniform(0.4, 0.9, K)), var=cuda(num * 0.2),
+                        num=cuda(num, torch.int32), chk_int=cuda(rng.choice([15, 20], K), torch.int32))
+    return cuda(theta), eps, torch.ones(K, device=CUDA), torch.as_tensor(mask, device=CUDA)
+
+
+def _model_runs(form, ops, im, args, chunk):
+    """The kernel, the plain version in float32 and in float64 on ``args``'
+    first ``chunk`` transitions, with the history. In float64 the outside
+    value -1e100 is finite, so a chain started outside accepts any proposal
+    (exp(h0 - h) = 1): that run is held on the chains started inside."""
+    theta, logp, eps, it, z, us, ua = args
+    kw = dict(form=form, steps=HMC_STEPS, inv_mass_diag=im, store=True)
+    head = (theta, logp, eps, it, z[:chunk], us[:chunk], ua[:chunk])
+    kernel = hmc_model._launch_model_chunk(*head, **kw, operands=ops)
+    plain = hmc_fused._reference_chunk(*head, **kw)
+    f64 = lambda x: x.double() if x.is_floating_point() else x
+    wide = hmc_fused._reference_chunk(
+        f64(theta), f64(logp), AdaptiveScale(*map(f64, eps)), *map(f64, head[3:]),
+        **dict(kw, form=form.to(torch.float64), inv_mass_diag=None if im is None else im.double()))
+    torch.cuda.synchronize()
+    return kernel, plain, wide
+
+
+def _model_compare(family, prior, P, K=MODEL_CHAINS, chunk=MODEL_CHUNK, seed=0, diag=False):
+    """The model route against its plain version on one state and one set
+    of draws (``_model_state``):
+
+    - one transition: the step counts and adaptation counters equal; over
+      the chains whose three runs (kernel, plain float32, plain float64)
+      accept alike (>= ``MIN_AGREE`` of them), the kernel's largest error
+      in positions and in logp against float64 at most ``MODEL_ERR_RATIO``
+      times the float32 plain version's; the chains started outside the
+      support at the value -inf, and their proposals accepted exactly where
+      they land inside it, alike in the kernel and the float32 plain
+      version;
+    - the chunk: the step counts equal, every transition's accept fraction
+      within ``MODEL_ACCEPT_TOL`` of the plain version's, plus 4 standard
+      errors of the chains whose two runs have parted, and the kernel's
+      share of chains within tolerance of the float64 run no lower than
+      the float32 plain version's, less 0.01 or three binomial standard
+      errors of the difference of two shares of K chains, whichever is
+      larger. (B1's check 3b holds the kernel to the plain version itself,
+      which its narrow route matches bit for bit on one transition; the
+      model route sums in another order than the plain version's matmul,
+      so the two float32 runs drift apart by two roundoffs, and each is
+      held to float64 instead. Where a chunk's dynamics spread roundoff
+      fast, a Cauchy likelihood at P = 65, only ~75% of either run's
+      chains stay within tolerance after 16 transitions, and the two
+      shares differ by chance by ~0.01, one standard error at K = 4,096:
+      a fixed 0.01 slack failed by 0.004 on the H100.)
+
+    Returns (the kernel's largest error in positions after one transition,
+    the plain version's)."""
+    post, truth, M = model_posterior(family, P, MODEL_N, prior, seed, CUDA)
+    form = hmc_model.model_form(post)
+    im = (torch.as_tensor(np.random.default_rng(seed).uniform(0.5, 2.0, P),
+                          dtype=torch.float32).cuda() if diag else None)
+    ops = hmc_model.model_operands(form, im)
+    theta, eps, it, outside = _model_state(form, truth, M, K, seed, prior != "none")
+    logp = (form.value_cols(theta) * it).contiguous()
+    gen = torch.Generator(device=CUDA)
+    gen.manual_seed(seed)
+    z = torch.randn((chunk, P, K), generator=gen, device=CUDA)
+    us = torch.rand((chunk, K), generator=gen, device=CUDA)
+    ua = torch.rand((chunk, K), generator=gen, device=CUDA)
+    args = (theta, logp, eps, it, z, us, ua)
+    where = (f"[model check] {family}, prior {prior}, P={P} N={MODEL_N} K={K}"
+             + (", diagonal mass" if diag else ""))
+
+    (tk, lk, ek, hk), (tp, lp, ep, hp), (tw, lw, ew, hw) = _model_runs(form, ops, im, args, 1)
+    counters = all(bool((a == b).all()) for a, b in ((ek.num, ep.num), (ek.chk_int, ep.chk_int),
+                                                     (hk[2], hp[2])))
+    moved = lambda t: (t != theta.to(t.dtype)).any(dim=0)
+    inside = ~outside
+    agree = inside & (moved(tk) == moved(tp)) & (moved(tp) == moved(tw))
+    share = float(agree.sum()) / float(inside.sum())
+    err = lambda t, l: (float((t.double() - tw)[:, agree].abs().max()),
+                        float(torch.where(agree, (l.double() - lw).abs(), torch.zeros_like(lw)).max()))
+    (ek_t, ek_l), (ep_t, ep_l) = err(tk, lk), err(tp, lp)
+    # a chain started outside has the value -inf (float32); its proposal is
+    # accepted exactly where it lands inside the support, alike in both
+    # float32 runs (float64's -1e100 is finite, so that run is not held here)
+    n_out = int(outside.sum())
+    out_ok, n_back = bool(torch.isneginf(logp[outside]).all()), 0
+    if n_out:
+        landed = torch.isfinite(lk) & (tk[-2:] >= (0.0 if prior == "gauss+exp" else -1.0)).all(dim=0)
+        out_ok &= bool((moved(tk)[outside] == moved(tp)[outside]).all())
+        out_ok &= bool((moved(tk)[outside] == landed[outside]).all())
+        out_ok &= bool(torch.isneginf(lk[outside & ~moved(tk)]).all())
+        n_back = int(moved(tk)[outside].sum())
+    print(f"{where}: one transition: step counts and adaptation counters equal {counters}; "
+          f"{share:.6f} of the chains started inside accept alike in all three runs; largest "
+          f"error against float64: kernel {ek_t:.3e} (positions) {ek_l:.3e} (logp), plain float32 "
+          f"{ep_t:.3e} / {ep_l:.3e} (limit {MODEL_ERR_RATIO:g}x); {n_out} chains started outside "
+          f"the support, value -inf, {n_back} proposals landed inside and were accepted, the rest "
+          f"rejected, alike in kernel and plain: {out_ok}")
+    if not counters or share < MIN_AGREE or not out_ok \
+            or ek_t > MODEL_ERR_RATIO * ep_t or ek_l > MODEL_ERR_RATIO * ep_l:
+        raise RuntimeError(f"model check {family}/{prior}/P={P}: the kernel differs from its "
+                           "plain version")
+
+    (_, _, _, hk), (_, _, _, hp), (_, _, _, hw) = _model_runs(form, ops, im, args, chunk)
+    steps_equal = bool((hk[2] == hp[2]).all())
+    accepted = lambda h, t0: (h[0] != torch.cat([t0.to(h[0].dtype)[None], h[0][:-1]])).any(dim=1)
+    fk, fp = accepted(hk, theta).float().mean(dim=1), accepted(hp, theta).float().mean(dim=1)
+    # chains whose kernel and plain runs have parted accept independently
+    parted = 1.0 - _close(hk[0], hp[0]).all(dim=1).float().mean(dim=1)
+    tol = MODEL_ACCEPT_TOL + 4.0 * torch.sqrt(2.0 * fp * (1.0 - fp) * parted / K)
+    worst = float(((fk - fp).abs() / tol).max())
+    drift_kw, drift_pw = _history_drift(hk, hw), _history_drift(hp, hw)
+    share = drift_pw[chunk]
+    slack = max(0.01, 3.0 * np.sqrt(2.0 * share * (1.0 - share) / K))
+    print(f"{where}: {chunk} transitions: step counts equal {steps_equal}; accept fraction "
+          f"kernel {float(fk.mean()):.4f}, plain {float(fp.mean()):.4f}, max difference a "
+          f"transition {float((fk - fp).abs().max()):.2e}, {worst:.3f} of its limit (chains "
+          f"parted from the plain run at the end {float(parted[-1]):.4f}); share of chains within "
+          f"tolerance of the float64 run after n transitions, kernel {drift_kw}, plain float32 "
+          f"{drift_pw} (the kernel's last at least the plain's less {slack:.4f})")
+    if not steps_equal or worst > 1.0 or drift_kw[chunk] < share - slack:
+        raise RuntimeError(f"model check {family}/{prior}/P={P}: the chunk differs from its "
+                           "plain version")
+    return ek_t, ep_t
+
+
+def phase_model_checks():
+    """The model route against its plain version: each of ``MODEL_CHECKS``
+    at P = 10, 65 and 256 (``_model_compare``), and the Gaussian with its
+    Exponential prior and diagonal mass at P = 65. Returns the kernel's
+    largest error in positions after one transition."""
+    errs = [_model_compare(family, prior, P, seed=P + i)[0]
+            for P in MODEL_CHECK_P for i, (family, prior) in enumerate(MODEL_CHECKS)]
+    errs.append(_model_compare("gaussian", "gauss+exp", 65, seed=99, diag=True)[0])
+    return max(errs)
+
+
+def _model_flops(us, P, N, steps=HMC_STEPS):
+    """The flops one chunk of the model route needs with these step draws,
+    not the kernel's: per leapfrog step a gradient, the two products with M
+    (4 N P), some 4 flops a datum and the drift and kick (5 P); per
+    transition the value's terms (4 N) from the last step's residuals (the
+    value needs no product of its own), the energies (9 P) and some 30 flops
+    of acceptance and adaptation."""
+    chunk, K = us.shape
+    n = float(_step_counts(us, steps).sum())
+    return n * (4 * N * P + 4 * N + 5 * P) + chunk * K * (4 * N + 9 * P + 30)
+
+
+def _time_model_chunk(label, post, truth, M, steps, K=MODEL_CHAINS, seed=7):
+    """CUDA-event times of one 64-transition chunk of the model route on a
+    main path's posterior (``post`` over M, about ``truth``) at its step
+    count and K chains, unit mass, without history: the kernel in two
+    turns with the plain version between them, after one warm-up launch.
+    Returns (ms, plain ms, bound ms, bound by), the kernel's the lower of
+    its turns; the bound from ``_model_flops`` and the bytes the chunk must
+    move (the draws, the state in and out, M and the data once)."""
+    form = hmc_model.model_form(post)
+    ops = hmc_model.model_operands(form)
+    P, N = form.n_parameters, form.n_data
+    theta, eps, it, _ = _model_state(form, truth, M, K, seed, False)
+    logp = (form.value_cols(theta) * it).contiguous()
+    gen = torch.Generator(device=CUDA)
+    gen.manual_seed(seed)
+    z = torch.randn((64, P, K), generator=gen, device=CUDA)
+    us = torch.rand((64, K), generator=gen, device=CUDA)
+    ua = torch.rand((64, K), generator=gen, device=CUDA)
+    args = (theta, logp, eps, it, z, us, ua)
+    kw = dict(form=form, steps=steps, inv_mass_diag=None, store=False)
+    launch = lambda: hmc_model._launch_model_chunk(*args, **kw, operands=ops)
+    launch()  # the warm-up; the checks before have run the plain version's operations
+
+    def once(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    times = [once(launch), once(lambda: hmc_fused._reference_chunk(*args, **kw)), once(launch)]
+    n_bytes = 4 * 64 * K * (P + 2) + 2 * 4 * K * (P + 7) + 4 * N * (P + 2)
+    bound_ms, by = bound(n_bytes, _model_flops(us, P, N, steps), FP32_FLOPS)
+    ms, p_ms = min(times[0], times[2]), times[1]
+    plan = hmc_model.model_plan(P, K, N)
+    print(f"[time] B1 model route one chunk ({label}: 64 transitions of {steps} steps, P={P}, "
+          f"N={N}, K={K}; {plan}): kernel {times[0]:.3f} / {times[2]:.3f} ms, plain "
+          f"version {p_ms:.3f} ms (kernel, plain, kernel); bound {bound_ms:.3f} ms ({by}), "
+          f"{ms / bound_ms:.2f}x (card: {SMI})")
+    return ms, p_ms, bound_ms, by
+
+
+def _pooled_moments(ca, skip=0, dtype=np.float64):
+    """The pooled means and variances of a ChainArray's stored history
+    after its first ``skip`` stored transitions, summed in ``dtype``, and
+    the standard errors of the means from the chains' means. (Summed in
+    the history's float32, a pooled mean over 4,096 x 256 draws of a
+    parameter near 1.3 is off by 0.2 of its posterior sd: numpy adds the
+    rows one by one into a float32 sum; ``robust10_sequence``.)"""
+    h = np.concatenate(ca._history, axis=0)[skip:].astype(dtype)  # (n, K, P)
+    sample = h.reshape(-1, h.shape[-1])
+    se = h.mean(axis=0).std(axis=0, ddof=1) / np.sqrt(h.shape[1])
+    return sample.mean(axis=0), sample.var(axis=0), se, h
+
+
+def phase_dense_fused(plain_row):
+    """dense-256-forward-fused: ``dense_hmc``'s forward model with its
+    matrix as a ``LinearForwardModel`` through ``ChainArray(fused=True)`` at
+    4,096 chains (the model route's kernel): 64 warm-up and 64 timed
+    transitions (samples/s, TFLOP/s by ``dense_hmc.flops_per_transition``,
+    share of the float32 peak) beside the plain path's row, then 128 stored
+    transitions held to the exact FP64 posterior as the plain phase is:
+    pooled means within 5 standard errors, variances within 10%, R-hat
+    printed. Returns (its row, the kernel's launches)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    likelihood, A, y, sigma = dense_hmc.forward_model(CUDA)
+    starts = np.random.default_rng(0).normal(0, 0.1, size=(DENSE_CHAINS, dense_hmc.P))
+    hmc_model.KERNEL_LAUNCHES = 0
+    ca = ChainArray("hmc", likelihood, starts, steps=dense_hmc.HMC_STEPS,
+                    epsilon=dense_hmc.EPSILON, seed=dense_hmc.SEED, retry=False, fused=True,
+                    device=CUDA)
+    ca.advance(DENSE_FUSED_WARM, store=False)
+    t0 = time.perf_counter()
+    ca.advance(DENSE_FUSED_TIMED, store=False)  # ends with a sync
+    seconds = time.perf_counter() - t0
+    ca.advance(DENSE_FUSED_STORED, store=True)
+    launches = hmc_model.KERNEL_LAUNCHES
+    mean_s, var_s, se, h = _pooled_moments(ca)
+    accept = float((np.abs(np.diff(h, axis=0)).max(axis=2) > 0).mean())
+    tflops = (DENSE_CHAINS * DENSE_FUSED_TIMED / seconds
+              * dense_hmc.flops_per_transition("forward-model") / 1e12)
+    ms_per = 1e3 * seconds / DENSE_FUSED_TIMED
+    plain_ms_per = 1e3 * plain_row["seconds"] / plain_row["transitions"]
+    row = {"chains": DENSE_CHAINS, "transitions": DENSE_FUSED_TIMED, "seconds": seconds,
+           "acceptance": accept,
+           "samples_per_s": DENSE_CHAINS * DENSE_FUSED_TIMED * accept / seconds,
+           "tflops": tflops, "fp32_peak_pct": 100 * tflops * 1e12 / FP32_FLOPS,
+           "ms_per_transition": ms_per, "plain_ms_per_transition": plain_ms_per,
+           "speedup_per_transition": plain_ms_per / ms_per}
+    precision = A.T @ (A / sigma[:, None] ** 2)
+    cov = np.linalg.inv(precision)
+    mean = cov @ (A.T @ (y / sigma**2))
+    z = np.abs(mean_s - mean) / se
+    rel = np.abs(var_s / np.diag(cov) - 1.0)
+    rhat = float(ca.rhat().max())
+    print(f"[dense-256-forward-fused] chains={DENSE_CHAINS}: {row['samples_per_s']:,.1f} "
+          f"samples/s (acceptance {accept:.4f}, {DENSE_FUSED_TIMED} transitions in "
+          f"{seconds:.3f} s, {ms_per:.3f} ms a transition), {tflops:.4f} TFLOP/s, "
+          f"{row['fp32_peak_pct']:.4f}% of the float32 peak; the plain path in this run "
+          f"{plain_ms_per:.3f} ms a transition, {plain_row['tflops']:.4f} TFLOP/s: "
+          f"{plain_ms_per / ms_per:.2f}x a transition (samples/s {plain_row['samples_per_s']:,.1f} "
+          f"at acceptance {plain_row['acceptance']:.4f} after {plain_row['transitions']} warm-up "
+          f"transitions, against {DENSE_FUSED_WARM} here: not compared); {launches} launches of "
+          f"the model route (card: {SMI})")
+    print(f"[dense-256-forward-fused] {DENSE_FUSED_STORED} stored transitions: pooled means "
+          f"within {z.max():.3f} standard errors of the exact posterior mean (limit 5), "
+          f"variances within {rel.max():.4f} (limit 0.10), max rhat {rhat:.5f}")
+    if launches == 0 or not np.isfinite(h).all() or z.max() > 5.0 or rel.max() > 0.10:
+        raise RuntimeError(f"dense-256-forward-fused: {launches} launches, {z.max():.3f} "
+                           f"standard errors, variance off by {rel.max():.4f}")
+    return dict(row, max_mean_se=float(z.max()), max_rel_var_err=float(rel.max()),
+                max_rhat=rhat), launches
+
+
+def robust_posterior(device="cuda"):
+    """robust-10: a ``CauchyLikelihood`` over a linear model with P = 10, N
+    = 1,024 (``model_posterior``'s data, drawn with Cauchy noise from seed
+    10) and a ``JointPrior`` of a Gaussian on 8 variables and an Exponential
+    on 2. Returns (posterior, truth, M)."""
+    return model_posterior("cauchy", ROBUST_P, ROBUST_N, "gauss+exp", 10, device)
+
+
+def _robust_laplace(truth):
+    """robust-10's Laplace approximation on the host in float64: the MAP by
+    L-BFGS-B from the truth (the Exponential's variables held >= 0) and the
+    inverse of minus the Hessian there. Returns (mode, covariance)."""
+    from scipy.optimize import minimize
+
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        post = robust_posterior("cpu")[0]
+        value = lambda t: -float(post(torch.as_tensor(t)))
+        grad = lambda t: -torch.func.grad(post)(torch.as_tensor(t)).numpy()
+        bounds = [(None, None)] * (ROBUST_P - 2) + [(0.0, None)] * 2
+        mode = minimize(value, truth, jac=grad, method="L-BFGS-B", bounds=bounds).x
+        cov = np.linalg.inv(-torch.func.hessian(post)(torch.as_tensor(mode)).numpy())
+    finally:
+        torch.set_default_dtype(old)
+    return mode, 0.5 * (cov + cov.T)
+
+
+def _robust_starts(truth):
+    """Starts of robust-10's chains near its posterior, so a short warm-up
+    suffices: draws of its Laplace approximation (``_robust_laplace``), the
+    Exponential's variables folded non-negative."""
+    mode, cov = _robust_laplace(truth)
+    starts = np.random.default_rng(11).multivariate_normal(mode, cov, MODEL_CHAINS)
+    starts[:, -2:] = np.abs(starts[:, -2:])
+    return starts
+
+
+def robust_reference(truth, n=ROBUST_IS_DRAWS, seed=13):
+    """robust-10's posterior means and variances by importance sampling in
+    float64 on the host, independent of any sampler: ``n`` draws of a
+    Student t (5 degrees of freedom) about the Laplace approximation's mode
+    and covariance, weighted by the posterior over the proposal (a draw
+    with an Exponential variable below 0 weighs 0). Returns (means,
+    variances, the means' standard errors by the delta method, the weights'
+    effective sample size)."""
+    mode, cov = _robust_laplace(truth)
+    rng = np.random.default_rng(seed)
+    nu, P = 5.0, ROBUST_P
+    g = rng.standard_normal((n, P))
+    s2 = rng.chisquare(nu, n) / nu
+    x = mode + (g @ np.linalg.cholesky(cov).T) / np.sqrt(s2)[:, None]
+    log_q = -0.5 * (nu + P) * np.log1p((g * g).sum(axis=1) / s2 / nu)  # up to a constant
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        post = robust_posterior("cpu")[0]
+        batched = torch.func.vmap(post)
+        log_p = np.concatenate([batched(torch.as_tensor(b)).numpy()
+                                for b in np.array_split(x, max(1, n // 16384))])
+    finally:
+        torch.set_default_dtype(old)
+    log_w = np.where(log_p > -1e99, log_p - log_q, -np.inf)
+    w = np.exp(log_w - log_w.max())
+    w /= w.sum()
+    mean = w @ x
+    var = w @ (x - mean) ** 2
+    se = np.sqrt((w**2) @ (x - mean) ** 2)
+    return mean, var, se, float(1.0 / (w**2).sum())
+
+
+def _robust_run(post, starts, M, fused, warm, stored):
+    ca = ChainArray("hmc", post, starts, steps=HMC_STEPS, epsilon=0.5 * _model_scale(M),
+                    seed=12, retry=False, fused=fused, device=CUDA)
+    t0 = time.perf_counter()
+    ca.advance(warm, store=False)
+    ca.advance(stored, store=True)
+    return ca, time.perf_counter() - t0
+
+
+def phase_robust():
+    """robust-10 (``robust_posterior``) at 4,096 chains from draws of its
+    Laplace approximation (``_robust_starts``), fused (the model route) and
+    on the plain path, each ``ROBUST_WARM`` transitions, then
+    ``ROBUST_STORED`` stored: the pooled means within 5 combined standard
+    errors of each other, the variances within 10%, no sample of the
+    Exponential's variables below 0. Then the fused run on for
+    ``ROBUST_LONG`` more stored transitions, held to the importance-sampled
+    posterior (``robust_reference``): its pooled means within 5 combined
+    standard errors, its variances within 10%. Returns (readings, the
+    kernel's launches in the windows shared with the plain run)."""
+    post, truth, M = robust_posterior(CUDA)
+    starts = _robust_starts(truth)
+    hmc_model.KERNEL_LAUNCHES = 0
+    fused, fused_s = _robust_run(post, starts, M, True, ROBUST_WARM, ROBUST_STORED)
+    launches = hmc_model.KERNEL_LAUNCHES
+    plain, plain_s = _robust_run(post, starts, M, False, ROBUST_WARM, ROBUST_STORED)
+    (m1, v1, se1, h1), (m2, v2, se2, h2) = _pooled_moments(fused), _pooled_moments(plain)
+    z = np.abs(m1 - m2) / np.sqrt(se1**2 + se2**2)
+    rel = np.abs(v1 / v2 - 1.0)
+    below = int((h1[..., -2:] < 0).sum() + (h2[..., -2:] < 0).sum())
+    rhat = (float(fused.rhat().max()), float(plain.rhat().max()))
+    n = ROBUST_WARM + ROBUST_STORED
+    print(f"[robust-10] Cauchy, P={ROBUST_P} N={ROBUST_N}, {MODEL_CHAINS} chains, {n} "
+          f"transitions: fused {fused_s:.3f} s ({launches} launches of the model route), plain "
+          f"path {plain_s:.3f} s ({plain_s / fused_s:.1f}x); pooled means within "
+          f"{z.max():.3f} combined standard errors (limit 5), variances within {rel.max():.4f} "
+          f"(limit 0.10), samples of the Exponential's variables below 0: {below}; max rhat "
+          f"fused {rhat[0]:.5f}, plain {rhat[1]:.5f} (card: {SMI})")
+    t0 = time.perf_counter()
+    fused.advance(ROBUST_LONG, store=True)
+    m3, v3, se3, h3 = _pooled_moments(fused, skip=ROBUST_STORED)
+    ref_m, ref_v, ref_se, ess = robust_reference(truth)
+    z_ref = np.abs(m3 - ref_m) / np.sqrt(se3**2 + ref_se**2)
+    rel_ref = np.abs(v3 / ref_v - 1.0)
+    below += int((h3[..., -2:] < 0).sum())
+    print(f"[robust-10] the fused run on for {ROBUST_LONG} stored transitions against the "
+          f"posterior by importance sampling ({ROBUST_IS_DRAWS:,} Student t draws about the "
+          f"Laplace mode, weights' ESS {ess:,.0f}): pooled means within {z_ref.max():.3f} "
+          f"combined standard errors (limit 5), variances within {rel_ref.max():.4f} (limit "
+          f"0.10); {time.perf_counter() - t0:.2f} s")
+    if launches == 0 or z.max() > 5.0 or rel.max() > 0.10 or below \
+            or z_ref.max() > 5.0 or rel_ref.max() > 0.10 \
+            or not (np.isfinite(h1).all() and np.isfinite(h2).all() and np.isfinite(h3).all()):
+        raise RuntimeError(f"robust-10: {z.max():.3f} standard errors, variance off by "
+                           f"{rel.max():.4f}, {below} samples below 0; against the reference "
+                           f"{z_ref.max():.3f}, {rel_ref.max():.4f}")
+    return {"fused_s": fused_s, "plain_s": plain_s, "max_mean_se": float(z.max()),
+            "max_rel_var_err": float(rel.max()), "max_rhat": rhat,
+            "reference_max_mean_se": float(z_ref.max()),
+            "reference_max_rel_var_err": float(rel_ref.max()), "reference_ess": ess}, launches
+
+
+def robust10_routes():
+    """Not part of ``main``: robust-10's fused advance from its Laplace
+    draws through the kernel and through its plain version on the card
+    (``hmc_fused._advance`` with the same generator seed, so the same
+    draws), each window's pooled means against the importance-sampled
+    posterior in its standard deviations and in combined standard errors,
+    and its variances' ratios (printed). Returns {route: [max |z| a
+    window]}."""
+    import functools
+
+    post, truth, M = robust_posterior(CUDA)
+    starts = _robust_starts(truth)
+    ref_m, ref_v, ref_se, ess = robust_reference(truth)
+    ca = ChainArray("hmc", post, starts, steps=HMC_STEPS, epsilon=0.5 * _model_scale(M),
+                    seed=12, retry=False, fused=True, device=CUDA)
+    plan, state0 = ca._fused_plan, ca._state
+    routes = {"kernel": functools.partial(hmc_fused._run_chunk, padded=plan.padded),
+              "plain version": hmc_fused._reference_chunk}
+    edges = np.cumsum((0, ROBUST_WARM, ROBUST_STORED, ROBUST_LONG))
+    out = {}
+    for route, fn in routes.items():
+        gen = torch.Generator(device=CUDA)
+        gen.manual_seed(5)
+        t0 = time.perf_counter()
+        state, hist = hmc_fused._advance(plan, state0, int(edges[-1]), True, gen, fn)
+        h = hist[0].cpu().numpy()  # (n, K, P)
+        seconds = time.perf_counter() - t0
+        lp_gap = float((state.logp - plan.form.value_cols(state.theta.T.contiguous())).abs().max())
+        out[route] = []
+        for a, b in zip(edges[1:-1], edges[2:]):
+            w = h[a:b]
+            m_k = w.mean(axis=0)
+            m = m_k.mean(axis=0)
+            se = m_k.std(axis=0, ddof=1) / np.sqrt(w.shape[1])
+            z = (m - ref_m) / np.sqrt(se**2 + ref_se**2)
+            out[route].append(float(np.abs(z).max()))
+            print(f"[robust-10 routes] {route}, transitions {a}-{b}: means less the reference "
+                  f"in its sd {np.round((m - ref_m) / np.sqrt(ref_v), 4).tolist()}, in combined "
+                  f"standard errors {np.round(z, 2).tolist()}; variance ratios "
+                  f"{np.round(w.reshape(-1, w.shape[-1]).var(axis=0) / ref_v, 4).tolist()}")
+        print(f"[robust-10 routes] {route}: {seconds:.2f} s; the carried logp against the "
+              f"posterior's value at the final positions, largest gap {lp_gap:.3e}; mean step "
+              f"size {float(state.eps.value.mean()):.5f} (card: {SMI})")
+    return out
+
+
+def robust10_sequence():
+    """Not part of ``main``: ``phase_robust``'s runs, each window's pooled
+    means against the importance-sampled posterior in combined standard
+    errors, summed in float32 (as the check once did) and in float64
+    (printed): a fused ChainArray's 24 + 40 transitions, the plain path's,
+    the fused run's 256 more; then a second fused ChainArray the same way
+    with no plain run between."""
+    post, truth, M = robust_posterior(CUDA)
+    starts = _robust_starts(truth)
+    ref_m, ref_v, ref_se, ess = robust_reference(truth)
+
+    def report(label, ca, skip=0):
+        for dtype in (np.float32, np.float64):
+            m, v, se, _ = _pooled_moments(ca, skip=skip, dtype=dtype)
+            z = (m - ref_m) / np.sqrt(se**2 + ref_se**2)
+            print(f"[robust-10 sequence] {label}, summed in {np.dtype(dtype).name}: means in "
+                  f"combined standard errors {np.round(z, 2).tolist()}, in the reference's sd "
+                  f"{np.round((m - ref_m) / np.sqrt(ref_v), 4).tolist()}; variance ratios "
+                  f"{np.round(v / ref_v, 4).tolist()} (card: {SMI})")
+
+    fused, _ = _robust_run(post, starts, M, True, ROBUST_WARM, ROBUST_STORED)
+    report("fused, 24 + 40", fused)
+    plain, _ = _robust_run(post, starts, M, False, ROBUST_WARM, ROBUST_STORED)
+    report("plain path, 24 + 40", plain)
+    fused.advance(ROBUST_LONG, store=True)
+    report("fused, 256 more after the plain run", fused, skip=ROBUST_STORED)
+    again, _ = _robust_run(post, starts, M, True, ROBUST_WARM, ROBUST_STORED)
+    report("a second fused run, 24 + 40", again)
+    again.advance(ROBUST_LONG, store=True)
+    report("the second run, 256 more, no plain run between", again, skip=ROBUST_STORED)
+
+
+def robust10_windows():
+    """Not part of ``main``: robust-10's fused and plain runs from the same
+    Laplace draws in unequal windows (the fused run 64 + 128 transitions,
+    the plain 32 + 64), each held to the importance-sampled
+    posterior and to each other in combined standard errors (printed). It
+    tells a transient of the starts, which unequal windows sample apart,
+    from a bias of the kernel, which the reference would show."""
+    post, truth, M = robust_posterior(CUDA)
+    starts = _robust_starts(truth)
+    ref_m, ref_v, ref_se, ess = robust_reference(truth)
+    runs = {}
+    for fused, w, st in ((True, 64, 128), (False, 32, 64)):
+        ca, seconds = _robust_run(post, starts, M, fused, w, st)
+        m, v, se, _ = _pooled_moments(ca)
+        runs[fused] = (m, v, se)
+        print(f"[robust-10 windows] {'fused' if fused else 'plain'} {w} + {st} transitions "
+              f"({seconds:.2f} s): means against the reference within "
+              f"{(np.abs(m - ref_m) / np.sqrt(se**2 + ref_se**2)).max():.3f} combined standard "
+              f"errors, variances within {np.abs(v / ref_v - 1.0).max():.4f} (weights' ESS "
+              f"{ess:,.0f}) (card: {SMI})")
+    (m1, v1, se1), (m2, v2, se2) = runs[True], runs[False]
+    z = np.abs(m1 - m2) / np.sqrt(se1**2 + se2**2)
+    print(f"[robust-10 windows] fused against plain: means within {z.max():.3f} combined "
+          f"standard errors, variances within {np.abs(v1 / v2 - 1.0).max():.4f}")
+    return float(z.max())
+
+
+def phase_model_route(plain_row):
+    """The model route's phases in order: the checks, the kernel timed on
+    dense-256-forward's posterior (P = 256, 20 steps) and robust-10's (P =
+    10, 50 steps), dense-256-forward-fused, robust-10; each one's seconds.
+    Returns the readings of the kernels line's ``hmc_model_chunk`` row."""
+    t0 = time.perf_counter()
+    err = phase_model_checks()
+    t1 = time.perf_counter()
+    likelihood, A, y, _ = dense_hmc.forward_model(CUDA)
+    times = {dense_hmc.P: _time_model_chunk("dense-256-forward", likelihood,
+                                            np.linalg.lstsq(A, y, rcond=None)[0], A,
+                                            dense_hmc.HMC_STEPS),
+             ROBUST_P: _time_model_chunk("robust-10", *robust_posterior(CUDA), HMC_STEPS)}
+    t2 = time.perf_counter()
+    dense, dense_launches = phase_dense_fused(plain_row)
+    t3 = time.perf_counter()
+    robust, robust_launches = phase_robust()
+    t4 = time.perf_counter()
+    seconds = {"checks": t1 - t0, "timing": t2 - t1, "dense-256-forward-fused": t3 - t2,
+               "robust-10": t4 - t3}
+    print(f"[summary] the model route: checks {t1 - t0:.1f} s, timing {t2 - t1:.1f} s, "
+          f"dense-256-forward-fused {t3 - t2:.1f} s, robust-10 {t4 - t3:.1f} s "
+          f"({t4 - t0:.1f} s in all) (card: {SMI})")
+    return {"max_abs_err": err, "times": times, "dense": dense, "robust": robust,
+            "launches": {"dense-256-forward-fused": dense_launches, "robust-10": robust_launches},
+            "seconds": seconds}
+
+
+HC_STEPS_CARD, HC_STEPS_CPU = 500, 500  # the card's 2,000 cut for the script's time (1,000
+# until the multi-device phases joined it, 700 until B1's model route did)
 HC_LEAPFROG = 10  # leapfrog steps per proposal (the chain's default is 50)
 
 
@@ -1067,11 +1728,14 @@ GIBBS_RETRY_CHECK = 256
 GIBBS_PROFILE_SWEEPS = 2  # sweeps of the profiled advance (4, cut: the profiler's processing dominates)
 # steps of one chain by device after 200 warm-up steps (the demo's 150,000
 # cut to the script's time: 2,000 and 5,000 until the matrix-free GP's rest
-# joined the script, 1,200 and 3,000 until the multi-device phases did); the
-# held moments drop the warm-up
-ROSEN_STEPS = {"cuda": 600, "cpu": 1500}
+# joined the script, 1,200 and 3,000 until the multi-device phases did, 600
+# and 1,500 until B1's model route did); the held moments drop the warm-up
+ROSEN_STEPS = {"cuda": 400, "cpu": 600}
 ROSEN_WARM = 200
 ROSEN_CHAINS = 1024  # chains of the ChainArray runs on the demo's posterior
+# (dropped, stored) steps of those runs (1,000 stored until B1's model route
+# joined the script; the standard errors come from the chains' spread)
+ROSEN_CA_STEPS = (1000, 500)
 A1_CHAINS = 64
 
 
@@ -1319,8 +1983,8 @@ def phase_gibbs_rosenbrock(steps=ROSEN_STEPS, devices=("cuda", "cpu")):
     held to its CPU chain (``_chains_agree``), the same code with the same
     meaning. Then the gibbs and pca kinds of ``ChainArray`` with the textbook
     update (retry=False) at 1,024 chains on the card around the mode (widths
-    0.5, 2,000 stored steps, the first 1,000 dropped; pca re-estimates its
-    directions at 1,000), pooled means and variances held within 5 standard
+    0.5, ``ROSEN_CA_STEPS``: 1,000 dropped, then 500 stored; pca
+    re-estimates its directions at 1,000), pooled means and variances held within 5 standard
     errors (from the 1,024 independent chains, ``_pooled``) of 2D grid
     quadrature of the density. The facades' distance to the quadrature is
     printed, not held: they run the reference's repeat-until-accept update,
@@ -1352,12 +2016,12 @@ def phase_gibbs_rosenbrock(steps=ROSEN_STEPS, devices=("cuda", "cpu")):
         ca = ChainArray(kind, rosen_torch, starts, widths=0.5, retry=False, seed=6,
                         device=devices[0])
         t0 = time.perf_counter()
-        ca.advance(1000)
+        ca.advance(ROSEN_CA_STEPS[0])
         if kind == "pca":
             ca.update_directions()
-        ca.advance(1000)
-        rate = ROSEN_CHAINS * 2000 / (time.perf_counter() - t0)
-        m, v, se_m, se_v = _pooled(ca, 1000)
+        ca.advance(ROSEN_CA_STEPS[1])
+        rate = ROSEN_CHAINS * sum(ROSEN_CA_STEPS) / (time.perf_counter() - t0)
+        m, v, se_m, se_v = _pooled(ca, ROSEN_CA_STEPS[0])
         z_m, z_v = np.abs(m - mean) / se_m, np.abs(v - var) / se_v
         print(f"[gibbs-rosenbrock] ChainArray('{kind}', retry=False), {ROSEN_CHAINS} chains on "
               f"{devices[0]}: {rate:,.0f} chain-steps/s (stored); pooled means {m} (se {se_m}), "
@@ -1442,6 +2106,11 @@ PT_STEPS = 1000  # pt-bimodal-8's counted advance: tempering_bench.py's default 
 PT_TIMED_STEPS = 250  # pt-bimodal-8's timed advance (the bench's 2,000, cut to fit the script's
 # time; 1,000 until the multi-device phases joined it, 500 until A14(b)'s did)
 PT_SWAP_INTERVAL = 10
+# pt-bimodal-8's swap draws, seeded so that its left-mode share is one
+# reading and not a new draw each run (unseeded, 0.3595-0.7204 over five
+# runs on an H100, one of them under the band's 0.4)
+PT_SWAP_SEED = 0
+PT_PCA_STEPS = 500  # pt-pca-4's advance, past its last update at 475 (600 until B1's model route)
 PT_TWIN_TRIALS = 64
 PT_PROFILE_STEPS = 20  # the profiler's processing of ~500 launches a step dominates
 PT_HMC_LEAPFROG = 10   # pt-hmc-2's leapfrog steps a proposal (the chains' default 50, cut)
@@ -1551,12 +2220,19 @@ def _profile_run(label, run):
     return out
 
 
-def _ladder(cls, posterior, temps, start, widths=None):
-    """A ladder of ``cls`` rungs on the card at ``temps``, rung i seeded i."""
+def _ladder(cls, posterior, temps, start, widths=None, swap_seed=None):
+    """A ladder of ``cls`` rungs on the card at ``temps``, rung i seeded i;
+    with ``swap_seed`` its swap draws too (the ladder's rng, unseeded in
+    the class as in the JAX package's, and the device generator drawn
+    from it)."""
     kw = {} if widths is None else dict(widths=np.array([widths] * len(start)))
-    return ParallelTempering([
+    pt = ParallelTempering([
         cls(posterior, start=np.array(start), temperature=T, display_progress=False,
             seed=i, device="cuda", **kw) for i, T in enumerate(temps)])
+    if swap_seed is not None:
+        pt.rng = np.random.default_rng(swap_seed)
+        pt._generator = make_generator(int(pt.rng.integers(0, 2**31 - 1)), pt.device)
+    return pt
 
 
 def _on_card(state):
@@ -1611,7 +2287,7 @@ def phase_pt_bimodal():
     2/3), the state on the card, the ladder's host reads one per chunk of
     cycles; the swap twin (``_swap_twin``); a profile of one
     ``advance(PT_PROFILE_STEPS)``."""
-    pt = _ladder(GibbsChain, bimodal_bench, PT_TEMPS, [4.0], widths=0.3)
+    pt = _ladder(GibbsChain, bimodal_bench, PT_TEMPS, [4.0], widths=0.3, swap_seed=PT_SWAP_SEED)
     if not pt._fusable:
         raise RuntimeError("pt-bimodal-8: the Gibbs ladder did not take the fused path")
     chunks = _fused_chunks(PT_STEPS // PT_SWAP_INTERVAL)
@@ -1703,20 +2379,21 @@ def phase_pt_hmc():
 
 def phase_pt_pca():
     """pt-pca-4: four PcaChain rungs (T = 1-8) on gibbs-rosenbrock's
-    posterior from [2, -4], advance(600): every rung re-estimates its
-    directions at the chain lengths a single PcaChain does (100, 250, 475),
-    and the batched state carries them."""
+    posterior from [2, -4], advance(PT_PCA_STEPS): every rung re-estimates
+    its directions at the chain lengths a single PcaChain does (100, 250,
+    475), and the batched state carries them."""
     pt = _ladder(PcaChain, rosen_torch, [1.0, 2.0, 4.0, 8.0], [2.0, -4.0])
     single = PcaChain(rosen_torch, start=np.array([2.0, -4.0]), display_progress=False, seed=0,
                       device="cuda")
     t0 = time.perf_counter()
-    pt.advance(600, swap_interval=PT_SWAP_INTERVAL)
+    pt.advance(PT_PCA_STEPS, swap_interval=PT_SWAP_INTERVAL)
     seconds = time.perf_counter() - t0
-    single.advance(600)
+    single.advance(PT_PCA_STEPS)
     chains = pt.return_chains()
     dirs_ok = all(np.allclose(pt._batched_state.directions[k].cpu().numpy(), c.directions,
                               atol=1e-6) for k, c in enumerate(chains))
-    print(f"[pt-pca-4] advance(600) in {seconds:.2f} s ({600 / seconds:.1f} steps/s per rung); "
+    print(f"[pt-pca-4] advance({PT_PCA_STEPS}) in {seconds:.2f} s ({PT_PCA_STEPS / seconds:.1f} "
+          f"steps/s per rung); "
           f"updates at {[c.update_history for c in chains]}, a single PcaChain at "
           f"{single.update_history}; batched directions = the rungs': {dirs_ok} (card: {SMI})")
     if any(c.update_history != single.update_history for c in chains) or not dirs_ok \
@@ -1839,7 +2516,7 @@ def phase_ensemble_chains():
 # bench's max(32, 2^21 // chains), 512 / 128 / 32, cut to fit the script's
 # time (64 / 32 / 32 until the multi-device phases joined it); the hmc beside
 # (~90 ms a transition) at the first count only
-NUTS_TIERS = {4096: 32, 16384: 16, 65536: 16}
+NUTS_TIERS = {4096: 32, 16384: 16, 65536: 8}  # 65,536's 16 until B1's model route joined
 NUTS_HMC_TIER = 4096
 # warm-up transitions: nuts to its adapted step size (a CPU rehearsal at
 # 4,096 chains: epsilon 0.25 -> 0.78 and the batch's leaves a transition
@@ -4988,9 +5665,10 @@ COND_RTOL = 1e-10      # get_conditionals on the card against the CPU
 MATRIX_RTOL = 1e-10    # matrix-panels: curves, grids and levels card against CPU
 MATRIX_CHECKED = 3     # the diagonals and pairs of the first 3 parameters, held on the CPU
 PHASE_TIMER_RTOL = 0.10
-# idle seconds that pad profile-b1's traced window on each side: late in a
-# long run a 29 ms window listed 1 of 10 B1 launches (PERF.md), so its
-# kernels' timestamps fall outside the window when it is as short as they
+# idle seconds that pad profile-b1's second traced window on each side (the
+# first check, kept): before device_trace opened its session with work of
+# its own on the card, a 29 ms window late in a long run listed 1 of 10 B1
+# launches (PERF.md); the unpadded trace is now held as well
 TRACE_PAD_S = 0.5
 GP2_TIMEOUT = 300      # seconds a gp-2proc child may take; killed after
 
@@ -5116,26 +5794,72 @@ def phase_matrix_panels(sample):
             "pairs": n_pairs, "matplotlib_imported": not no_mpl}
 
 
-def phase_profile_b1():
-    """profile-b1: bench-10d's fused ChainArray (65,536 chains, kernel B1):
-    ``device_trace`` around one ``advance(640, store=False)``, its trace file
-    listing B1's kernel as often as the advance launched it; then a
-    ``PhaseTimer`` phase around a second, untraced advance, its total within
-    10% of CUDA events over the same advance."""
+def _trace_counts(ca):
+    """Two unpadded traces of one ``advance(640, store=False)`` of ``ca``:
+    ``torch.profiler`` started directly (as ``device_trace`` once did, a
+    reading) and ``device_trace`` (held by profile-b1). Returns {label:
+    (B1 kernel events, B1 launches, launch-to-kernel ms min/median/max)}."""
     import tempfile
-    from inference_tpu_torch.utils import PhaseTimer, device_trace
+    from inference_tpu_torch.utils import device_trace
 
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for label in ("direct", "device_trace"):
+        log_dir = tempfile.mkdtemp()
+        hmc_fused.KERNEL_LAUNCHES = 0
+        if label == "direct":
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            ca.advance(640, store=False)  # ends with a sync
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+        else:
+            with device_trace(log_dir):
+                ca.advance(640, store=False)
+        launches = hmc_fused.KERNEL_LAUNCHES
+        _, kernels, offsets = _b1_trace(log_dir)
+        out[label] = (len(kernels), launches, offsets)
+    return out
+
+
+def phase_trace_early():
+    """C7's early reading: ``_trace_counts`` on bench-10d's fused
+    ChainArray right after the build and the first checks."""
+    ca = _profile_b1_array()
+    counts = _trace_counts(ca)
+    print(f"[trace-early] unpadded traces of advance(640), B1 kernel events / launches "
+          f"(launch-to-kernel ms min/median/max): {counts} (card: {SMI})")
+    if counts["device_trace"][0] != counts["device_trace"][1]:
+        raise RuntimeError(f"trace-early: device_trace listed {counts['device_trace'][0]} of "
+                           f"{counts['device_trace'][1]} B1 launches")
+    return counts
+
+
+def _profile_b1_array():
     cov = make_cov()
     form = GaussianForm(torch.as_tensor(np.linalg.inv(cov)))
     starts = np.random.default_rng(0).normal(0, 0.1, size=(N_CHAINS, N_DIM))
     ca = ChainArray("hmc", form, starts, steps=HMC_STEPS, epsilon=0.25, retry=False,
                     fused=True, device=CUDA, seed=3)
     ca.advance(64, store=False)
-    bare_dir, log_dir = tempfile.mkdtemp(), tempfile.mkdtemp()
-    with device_trace(bare_dir):  # unpadded: a reading, not held
-        ca.advance(640, store=False)
-        torch.cuda.synchronize()
-    bare_files, bare_kernels, _ = _b1_trace(bare_dir)
+    return ca
+
+
+def phase_profile_b1():
+    """profile-b1: bench-10d's fused ChainArray (65,536 chains, kernel B1),
+    late in the process: ``_trace_counts`` (``torch.profiler`` started
+    directly, a reading, and ``device_trace`` unpadded, its trace listing
+    B1's kernel as often as the advance launched it); ``device_trace``
+    around one ``advance(640, store=False)`` padded by ``TRACE_PAD_S`` of
+    idle on each side, likewise held; then a ``PhaseTimer`` phase around a
+    second, untraced advance, its total within 10% of CUDA events over the
+    same advance."""
+    import tempfile
+    from inference_tpu_torch.utils import PhaseTimer, device_trace
+
+    ca = _profile_b1_array()
+    counts = _trace_counts(ca)
+    log_dir = tempfile.mkdtemp()
     t0 = time.perf_counter()
     with device_trace(log_dir):
         torch.cuda.synchronize()
@@ -5157,21 +5881,63 @@ def phase_profile_b1():
     torch.cuda.synchronize()
     events_s = start.elapsed_time(end) / 1e3
     gap = abs(timer.totals["advance"] - events_s) / events_s
+    bare, bare_launches, bare_offsets = counts["device_trace"]
     out = {"launches": launches, "kernel_events": in_trace, "trace_files": len(files),
-           "kernel_events_unpadded": len(bare_kernels), "launch_to_kernel_ms": offsets,
+           "kernel_events_unpadded": bare, "launches_unpadded": bare_launches,
+           "kernel_events_direct": counts["direct"][0], "launches_direct": counts["direct"][1],
+           "launch_to_kernel_ms": offsets, "launch_to_kernel_ms_unpadded": bare_offsets,
            "traced_s": traced_s, "phase_timer_s": timer.totals["advance"], "events_s": events_s,
            "gap": gap}
-    print(f"[profile-b1] device_trace over advance(640) at {N_CHAINS:,} chains, padded by "
-          f"{TRACE_PAD_S} s of idle each side: {len(files)} trace file, {in_trace} "
-          f"hmc_chunk_kernel events for {launches} B1 launches, {traced_s:.3f} s traced; each "
-          f"kernel's start less its launch's in the trace (ms, min/median/max) {offsets}; "
-          f"unpadded {len(bare_kernels)} events in {len(bare_files)} file (a reading); "
+    print(f"[profile-b1] unpadded traces of advance(640) at {N_CHAINS:,} chains: device_trace "
+          f"{bare} hmc_chunk_kernel events for {bare_launches} B1 launches (held), "
+          f"torch.profiler started directly {counts['direct'][0]} for {counts['direct'][1]} (a "
+          f"reading); padded by {TRACE_PAD_S} s of idle each side: {len(files)} trace file, "
+          f"{in_trace} events for {launches} launches, {traced_s:.3f} s traced; each kernel's "
+          f"start less its launch's (ms, min/median/max) {offsets}, unpadded {bare_offsets}; "
           f"PhaseTimer {timer.totals['advance']:.4f} s against CUDA events {events_s:.4f} s "
           f"({100 * gap:.2f}% apart, limit 10%) (card: {SMI})")
     print(timer.summary())
-    if len(files) != 1 or launches == 0 or in_trace != launches or gap > PHASE_TIMER_RTOL:
+    if len(files) != 1 or launches == 0 or in_trace != launches or bare != bare_launches \
+            or gap > PHASE_TIMER_RTOL:
         raise RuntimeError(f"profile-b1: {out}")
     return out
+
+
+def c7_probe(until_s, start=None):
+    """Not part of ``main``: C7's reading over a process's age. After the
+    B1 P = 10 library is loaded, ``_trace_counts`` on bench-10d's fused
+    ChainArray round after round (the advance repeated between rounds, 8 s
+    a round) until ``until_s`` seconds after ``start`` (by default the
+    call): each round's B1 kernel events against launches for the direct
+    start and for ``device_trace``; the opening's device time by CUDA
+    events. Returns (rounds, rounds where device_trace listed every
+    launch, rounds where the direct start did)."""
+    from inference_tpu_torch.utils import profiling
+
+    start = time.perf_counter() if start is None else start
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    profiling._opening_burst()
+    e1.record()
+    torch.cuda.synchronize()
+    print(f"[c7-probe] device_trace's opening: {e0.elapsed_time(e1):.2f} ms from its first "
+          f"launch to its sync, {profiling.GAP_S * 1e3:g} ms idle after (card: {SMI})")
+    ca = _profile_b1_array()
+    rounds = kept = kept_direct = 0
+    while time.perf_counter() - start < until_s:
+        counts = _trace_counts(ca)
+        rounds += 1
+        kept += counts["device_trace"][0] == counts["device_trace"][1]
+        kept_direct += counts["direct"][0] == counts["direct"][1]
+        print(f"[c7-probe] {time.perf_counter() - start:7.1f} s: B1 kernel events / launches "
+              f"device_trace {counts['device_trace'][:2]}, direct {counts['direct'][:2]}")
+        t_end = time.perf_counter() + 8.0
+        while time.perf_counter() < t_end:
+            ca.advance(640, store=False)
+    print(f"[c7-probe] {rounds} rounds: device_trace listed every launch in {kept}, the direct "
+          f"start in {kept_direct}")
+    return rounds, kept, kept_direct
 
 
 def _b1_trace(log_dir):
@@ -5424,6 +6190,7 @@ def main():
     b1 = {P: _time_chunk(P, plain=P == N_DIM)[:4] for P in B1_TIME_P}
     ms, plain_ms, b1_bound, b1_by = b1[N_DIM]
     launches, attempts, accept = phase_main_path()
+    trace_early = phase_trace_early()
     _, sweep = phase_headline()
     plain_attempts = phase_plain_path()
     print(f"[summary] attempts/s: kernel path {attempts:,.0f}, plain path "
@@ -5432,12 +6199,15 @@ def main():
     wide_err, wide, wide_chains = phase_b1_wide()
     t_dense = time.perf_counter()
     dense = phase_dense_hmc()
+    t_model = time.perf_counter()
+    model = phase_model_route(dense["forward-model"])
     t_chain = time.perf_counter()
     hc_rates = phase_hamiltonian()
     t_end = time.perf_counter()
-    print(f"[summary] B1 wide {t_dense - t_new:.1f} s, dense HMC {t_chain - t_dense:.1f} s, "
-          f"HamiltonianChain {t_end - t_chain:.1f} s; HamiltonianChain transitions/s: card "
-          f"{hc_rates['cuda']:.2f}, CPU {hc_rates['cpu']:.2f}")
+    print(f"[summary] B1 wide {t_dense - t_new:.1f} s, dense HMC {t_model - t_dense:.1f} s, "
+          f"B1's model route {t_chain - t_model:.1f} s, HamiltonianChain {t_end - t_chain:.1f} s; "
+          f"HamiltonianChain transitions/s: card {hc_rates['cuda']:.2f}, CPU "
+          f"{hc_rates['cpu']:.2f}")
     gibbs10 = phase_gibbs_10d()
     t_rosen = time.perf_counter()
     rosen, cpu_gibbs = phase_gibbs_rosenbrock()
@@ -5595,6 +6365,10 @@ def main():
         "per_P": {P: {"ms": t[0], "bound_ms": t[2]} for P, t in b1.items()},
         "chain_sweep_attempts_per_s": sweep,
         "launches_profile_b1": a14["profile-b1"]["launches"],
+        "trace_counts": {"early": trace_early,
+                         "late": {k: a14["profile-b1"][k] for k in (
+                             "kernel_events_unpadded", "launches_unpadded",
+                             "kernel_events_direct", "launches_direct")}},
     }, {
         "name": "hmc_fused_chunk_wide",
         "kernel": "hmc_tile_kernel (a block of C chains shares each row of A; A resident in "
@@ -5617,6 +6391,32 @@ def main():
         "chain_array": {P: {"attempts_per_s": c[0], "launches": c[1], "max_rel_var_err": c[2],
                             "max_rhat": c[3]} for P, c in wide_chains.items()},
         "dense_hmc_4096": dense,
+    }, {
+        "name": "hmc_model_chunk",
+        "kernel": "hmc_model_kernel (a library posterior over a LinearForwardModel: a block of C "
+                  "chains streams M through a cp.async ring once a gradient, the kick folded into "
+                  "the pass; transitions in lockstep)",
+        "route": "cuda",
+        "source": "inference_tpu_torch/ops/csrc/hmc_model.cu",
+        "replaces": "inference_tpu/ops/hmc_fused.py:347",
+        "launches": model["launches"]["dense-256-forward-fused"],
+        "max_abs_err": model["max_abs_err"],
+        "ms": model["times"][256][0],
+        "plain_ms": model["times"][256][1],
+        "bound_ms": model["times"][256][2],
+        "bound_by": model["times"][256][3],
+        "library_ms": None,
+        "P": 256,
+        "N": MODEL_N,
+        "chains": MODEL_CHAINS,
+        "variant": dict(hmc_model.kernel_variant(0, True)),
+        "per_P": {P: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
+                      "plan": hmc_model.model_plan(P, MODEL_CHAINS, MODEL_N)._asdict()}
+                  for P, t in model["times"].items()},
+        "launches_by_path": model["launches"],
+        "dense_256_forward_fused": model["dense"],
+        "robust_10": model["robust"],
+        "seconds": model["seconds"],
     }, {
         "name": "sqexp_kernel",
         "kernel": b2_ms[F64]["kernel"],

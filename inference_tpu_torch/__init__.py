@@ -3,7 +3,8 @@
 The JAX package ``inference_tpu`` stays the reference. This package ports
 its batched samplers (``parallel.ChainArray`` for every kind: "hmc", with
 the fused whole-trajectory HMC kernel ``ops.hmc_fused`` written in CUDA
-C++, "nuts", "gibbs", "metropolis", "pca" and "ensemble"), the single-chain
+C++, which also runs the library's posteriors over a linear forward
+model (``ops.hmc_model``), "nuts", "gibbs", "metropolis", "pca" and "ensemble"), the single-chain
 ``mcmc.HamiltonianChain`` with reflecting ``Bounds``, ``NutsChain``,
 ``MetropolisChain``, ``GibbsChain`` and ``PcaChain``, the
 ``EnsembleSampler``, parallel tempering on one device

@@ -5,8 +5,9 @@ width on the port's batched transition (``ChainArray``, plain path).
    full-matrix inverse mass matched to its covariance: each leapfrog step
    is a gradient and a mass-velocity product of (chains, P) x (P, P).
 2. ``forward-model``: a ``GaussianLikelihood`` over a linear forward model
-   y = A theta with N_DATA = 1,024 and P = 256, unit mass: each gradient
-   is a pair of (chains, P) x (P, N_DATA) products.
+   y = A theta (a ``LinearForwardModel``) with N_DATA = 1,024 and P = 256,
+   unit mass: each gradient is a pair of (chains, P) x (P, N_DATA)
+   products.
 
 Both with ``HMC_STEPS = 20``, ``epsilon = 0.1``, ``seed = 1`` and the
 chain sweep 256-8,192; per chain count ``max(8, 2^21 // K)`` transitions
@@ -32,11 +33,11 @@ import time
 import numpy as np
 import torch
 
-from ..models import GaussianLikelihood
+from ..models import GaussianLikelihood, LinearForwardModel
 from ..ops.hmc_fused import GaussianForm
 from ..parallel import ChainArray
 from ..probes import FP32_FLOPS
-from ..utils import default_float, resolve_device
+from ..utils import resolve_device
 from . import device_label
 
 P = 256
@@ -63,14 +64,17 @@ def correlated_gaussian():
 def forward_model(device):
     """``(likelihood, A, y, sigma)``: the JAX bench's ``GaussianLikelihood``
     over y = A theta on ``device``, with A rounded to float32 as there and
-    returned as float64 numpy for an exact posterior."""
+    returned as float64 numpy for an exact posterior. The forward model is
+    ``LinearForwardModel(A)``, which the plain path differentiates like any
+    torch function and ``ChainArray(fused=True)`` runs through the fused
+    kernel's model route."""
     rng = np.random.default_rng(7)
     A = (rng.normal(size=(N_DATA, P)) / np.sqrt(P)).astype(np.float32).astype(float)
     theta_true = rng.normal(size=P)
     y = A @ theta_true + 0.1 * rng.normal(size=N_DATA)
     sigma = np.full(N_DATA, 0.1)
-    A_dev = torch.as_tensor(A, dtype=default_float(), device=device)
-    likelihood = GaussianLikelihood(y, sigma, forward_model=lambda t: A_dev @ t, device=device)
+    likelihood = GaussianLikelihood(y, sigma, forward_model=LinearForwardModel(A, device=device),
+                                    device=device)
     return likelihood, A, y, sigma
 
 

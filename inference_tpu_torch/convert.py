@@ -52,7 +52,9 @@ crosses as its chains (``parallel_tempering_from_jax``), a
 ``ShardedTempering`` as its gathered state, temperatures, swap phase and
 swap counts (``sharded_tempering_from_jax``).
 ``bounds_from_numpy`` and ``mass_from_numpy`` build the port's ``Bounds``
-and particle mass from numpy arrays.
+and particle mass from numpy arrays. ``linear_posterior_from_jax`` builds
+the port's posterior of a JAX ``Posterior`` over a linear forward model,
+its matrix given as numpy, as the fused kernel's model route takes it.
 """
 
 import io
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 
 from . import gp as _gp
+from . import models
 from .mcmc._kernels.common import AdaptiveScale
 from .mcmc._kernels.ensemble import EnsembleState
 from .mcmc._kernels.hmc import HmcState
@@ -355,6 +358,45 @@ def gaussian_form_from_numpy(icov, mean=None) -> GaussianForm:
         torch.as_tensor(np.asarray(icov, dtype=float)),
         None if mean is None else torch.as_tensor(np.asarray(mean, dtype=float)),
     )
+
+
+def linear_posterior_from_jax(posterior, M, offset=None, device="cuda"):
+    """The port's ``Posterior`` (or bare likelihood) of a JAX package
+    ``Posterior`` or likelihood whose forward model is ``M @ theta +
+    offset``, over a ``LinearForwardModel``, so ``ChainArray(fused=True)``
+    runs it through the fused kernel's model route. ``M`` and ``offset``
+    come from the caller as numpy (the JAX forward model is a function
+    whose matrix its closure hides); the data, scales and the priors'
+    parameters are read off the JAX objects by their attributes (Gaussian,
+    Cauchy and Logistic likelihoods; Gaussian, Exponential and Uniform
+    priors, alone or in a ``JointPrior``)."""
+
+    def likelihood_of(lik):
+        name = type(lik).__name__
+        scale = "gamma" if name == "CauchyLikelihood" else "sigma"
+        if name not in ("GaussianLikelihood", "CauchyLikelihood", "LogisticLikelihood"):
+            raise ValueError(f"linear_posterior_from_jax takes a Gaussian, Cauchy or Logistic "
+                             f"likelihood, got {name}")
+        return getattr(models, name)(
+            np.asarray(lik.y), np.asarray(getattr(lik, scale)),
+            models.LinearForwardModel(M, offset, device=device), device=device)
+
+    def prior_of(prior):
+        name = type(prior).__name__
+        if name == "JointPrior":
+            return models.JointPrior([prior_of(c) for c in prior.components],
+                                     int(prior.n_variables))
+        params = {"GaussianPrior": ("mean", "sigma"), "ExponentialPrior": ("beta",),
+                  "UniformPrior": ("lower", "upper")}.get(name)
+        if params is None:
+            raise ValueError(f"linear_posterior_from_jax takes Gaussian, Exponential and "
+                             f"Uniform priors, got {name}")
+        return getattr(models, name)(*(np.asarray(getattr(prior, k)) for k in params),
+                                     list(prior.variables), device=device)
+
+    if hasattr(posterior, "likelihood") and hasattr(posterior, "prior"):
+        return models.Posterior(likelihood_of(posterior.likelihood), prior_of(posterior.prior))
+    return likelihood_of(posterior)
 
 
 def hamiltonian_chain_from_jax(chain, posterior, grad=None, seed=None, device="cuda"):

@@ -1,11 +1,14 @@
 """Posterior building blocks: likelihoods, priors and their composition.
-Port of ``inference_tpu.models``."""
+Port of ``inference_tpu.models``, with the port's own
+``LinearForwardModel``: the forward model whose posteriors the fused HMC
+kernel runs (``ops.hmc_model``)."""
 
 from .likelihoods import (
     Likelihood,
     GaussianLikelihood,
     CauchyLikelihood,
     LogisticLikelihood,
+    LinearForwardModel,
 )
 from .priors import (
     BasePrior,
@@ -22,6 +25,7 @@ __all__ = [
     "GaussianLikelihood",
     "CauchyLikelihood",
     "LogisticLikelihood",
+    "LinearForwardModel",
     "BasePrior",
     "JointPrior",
     "GaussianPrior",

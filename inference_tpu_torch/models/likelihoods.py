@@ -1,4 +1,5 @@
-"""Likelihood functors (Gaussian, Cauchy, Logistic).
+"""Likelihood functors (Gaussian, Cauchy, Logistic) and the linear forward
+model.
 
 Port of ``inference_tpu.models.likelihoods``:
 
@@ -14,6 +15,14 @@ The data live as tensors on an explicit device (default the card) in
 callable ``(P,) -> (n_data,)``; it must compute on that device. Every
 method is torch arithmetic, so an instance works under ``torch.func.vmap``
 and ``grad`` and can be passed as the ``posterior`` of the samplers.
+
+``LinearForwardModel(M, offset)`` is the forward model ``M @ theta +
+offset`` as a callable that keeps its matrix readable: a likelihood over it
+(in a ``Posterior`` with the priors of ``models``) is what
+``ChainArray(fused=True)`` hands to the fused kernel's model route
+(``ops.hmc_model``), which cannot call a Python function. The JAX package
+reaches the same matrix through the closure of the user's function; the
+port's own counterpart has no JAX name.
 """
 
 from abc import ABC, abstractmethod
@@ -32,6 +41,41 @@ def _as_theta(theta, like):
     if isinstance(theta, torch.Tensor):
         return theta
     return torch.as_tensor(np.asarray(theta, dtype=float), dtype=like.dtype, device=like.device)
+
+
+class LinearForwardModel:
+    """
+    The forward model ``F(theta) = M @ theta + offset``: ``(P,)`` positions
+    give ``(N,)`` predictions, ``(K, P)`` give ``(K, N)``. Plain torch
+    arithmetic, so it works under ``torch.func.vmap`` and ``grad``.
+
+    :param M: the ``(N, P)`` model matrix.
+    :param offset: optional ``(N,)`` predictions at ``theta = 0``.
+    :param device: where ``M`` and ``offset`` live (default the card; pass
+        ``"cpu"`` for the CPU), in ``utils.dtypes.default_float()``.
+    """
+
+    def __init__(self, M, offset=None, device="cuda"):
+        self.device = resolve_device(device, "LinearForwardModel")
+        self.dtype = default_float()
+        as_tensor = lambda x: (x.detach() if isinstance(x, torch.Tensor)
+                               else torch.as_tensor(np.asarray(x, dtype=float))).to(
+            device=self.device, dtype=self.dtype)
+        self.M = as_tensor(M).contiguous()
+        if self.M.ndim != 2:
+            raise ValueError(f"M must be a 2D (N, P) matrix, got shape {tuple(self.M.shape)}")
+        self.n_data, self.n_parameters = self.M.shape
+        self.offset = None
+        if offset is not None:
+            self.offset = as_tensor(offset).reshape(-1).contiguous()
+            if self.offset.shape[0] != self.n_data:
+                raise ValueError(f"offset has {self.offset.shape[0]} elements, M has "
+                                 f"{self.n_data} rows")
+
+    def __call__(self, theta):
+        theta = _as_theta(theta, self.M)
+        predictions = theta @ self.M.T
+        return predictions if self.offset is None else predictions + self.offset
 
 
 class Likelihood(ABC):

@@ -1,5 +1,7 @@
 """Hand-written GPU kernels and their plain PyTorch versions:
-``hmc_fused`` (kernel B1, fused whole-trajectory HMC transitions) and
+``hmc_fused`` (kernel B1, fused whole-trajectory HMC transitions; its
+model route for the library's posteriors over a linear forward model in
+``hmc_model``) and
 ``pairwise`` (kernel B2, the squared-exponential covariance block) and
 ``df64`` (kernels B3-B8, the matrix-free GP's kernel matrix in FP64); the
 dense linear algebra of the GP path (``linalg``) and the matrix-free GP's

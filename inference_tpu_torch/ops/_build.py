@@ -3,8 +3,8 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point. At
 first use it is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/kernels/`` at the root of the checkout, named by a
-hash of its source and flags (``NVCC_FLAGS`` and, for some kernels,
-``KERNEL_FLAGS``), and loaded with ``ctypes``. A kernel built in variants
+hash of its source, the headers the kernels share (``csrc/*.cuh``) and
+its flags (``NVCC_FLAGS`` and, for some kernels, ``KERNEL_FLAGS``), and loaded with ``ctypes``. A kernel built in variants
 (kernel B1: one library per parameter count) takes ``defines``, pairs
 ``(macro, value)`` passed to nvcc as ``-Dmacro=value``: they join the
 flags in the hash and name the library, so each variant is its own file,
@@ -63,9 +63,11 @@ def find_nvcc() -> str:
 
 def library_path(name: str, defines: tuple = ()) -> Path:
     """Where the library of ``csrc/<name>.cu`` in the variant ``defines``
-    is built, keyed by a hash of the source and the flags."""
+    is built, keyed by a hash of the source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(flags(name, defines)).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(flags(name, defines)).encode()
     ).hexdigest()[:16]
     tag = "".join(f"_{k}{v}" for k, v in defines)
     return BUILD_DIR / f"{name}{tag}_{digest}.so"

@@ -23,7 +23,11 @@ version on the same draws.
 The posterior reaches the kernel as a ``GaussianForm``: a CUDA kernel
 cannot call a Python callable, so the quadratic form's operands ``A`` and
 ``mu`` are passed to it and the kernel evaluates value and gradient itself.
-Everywhere else a ``GaussianForm`` is an ordinary posterior module.
+Everywhere else a ``GaussianForm`` is an ordinary posterior module. A
+``Posterior`` of the library's models over a ``LinearForwardModel`` takes
+the model route instead (``ops.hmc_model``: its ``ModelForm``, its own
+kernel ``csrc/hmc_model.cu`` and launcher), with the same plain version and
+the same chunked advance; ``plan_fused_hmc`` picks the route.
 
 Up to ``P_NARROW`` (64) parameters the kernel is built once per parameter
 count P and kind of mass, unit or diagonal (``kernel_variant``): one
@@ -59,7 +63,8 @@ from ..mcmc._kernels.hmc import (
     EPS_TARGET,
     EPS_VAR_FLOOR,
 )
-from . import _build
+from . import _build, hmc_model
+from .hmc_model import ModelForm
 
 _CHUNK = 64     # transitions per kernel launch
 P_NARROW = 64  # the largest parameter count with a library of its own
@@ -445,9 +450,12 @@ def _launch_chunk(
 
 def _run_chunk(*args, padded=None, **kw):
     """One chunk: the kernel on a CUDA tensor (with the plan's ``padded``
-    form on the wide route), the plain version on a CPU tensor."""
+    form on the wide route and the model route), the plain version on a CPU
+    tensor."""
     device = args[0].device
     if device.type == "cuda":
+        if isinstance(kw["form"], ModelForm):
+            return hmc_model._launch_model_chunk(*args, **kw, operands=padded)
         return _launch_chunk(*args, **kw, padded=padded)
     if device.type == "cpu":
         return _reference_chunk(*args, **kw)
@@ -456,32 +464,32 @@ def _run_chunk(*args, padded=None, **kw):
 
 class FusedHmc(NamedTuple):
     """Plan for fused advances over a ChainArray's HMC state. The
-    posterior's operands live on ``form``, and for the wide route on the
-    card (P > ``P_NARROW``, a float32 form on CUDA) as the padded copies
-    ``padded``, made once here; there is no global cache."""
+    posterior's operands live on ``form`` (a ``GaussianForm``, or the
+    ``ModelForm`` of a model posterior), and on the card as the padded
+    copies ``padded``, made once here, for the wide route (P >
+    ``P_NARROW``, a float32 form on CUDA) and the model route (a form on
+    CUDA); there is no global cache."""
 
-    form: GaussianForm
+    form: object            # GaussianForm | ModelForm
     steps: int
     inv_mass_diag: object   # None | tuple of P floats
     chunk: int
-    padded: object = None   # None | WideForm
+    padded: object = None   # None | WideForm | hmc_model.ModelOperands
 
 
 def plan_fused_hmc(
     form, n_parameters: int, *, steps: int, inverse_mass=None, chunk: int = _CHUNK
 ):
     """Validate the configuration and build a fused-advance plan, or raise
-    ``ValueError`` describing why the fused kernel cannot apply."""
+    ``ValueError`` describing why the fused kernel cannot apply. ``form``
+    is a ``GaussianForm``, or a ``Posterior`` (or a bare likelihood) that
+    ``hmc_model.model_form`` takes: the model route."""
     if not isinstance(form, GaussianForm):
+        form = hmc_model.model_form(form)
+    size = form.A.shape[0] if isinstance(form, GaussianForm) else form.n_parameters
+    if size != n_parameters:
         raise ValueError(
-            "[ fused hmc ] the fused kernel evaluates the posterior itself "
-            "and takes one form: GaussianForm(A, mean) for "
-            "-1/2 (theta - mean)^T A (theta - mean); got "
-            f"{type(form).__name__}."
-        )
-    if form.A.shape[0] != n_parameters:
-        raise ValueError(
-            f"[ fused hmc ] the GaussianForm has {form.A.shape[0]} parameters, "
+            f"[ fused hmc ] the {type(form).__name__} has {size} parameters, "
             f"the chains have {n_parameters}."
         )
     im = None
@@ -498,7 +506,10 @@ def plan_fused_hmc(
             raise ValueError("inverse mass values must all be positive")
         im = tuple(im.tolist())
     padded = None
-    if n_parameters > P_NARROW and form.A.is_cuda and form.A.dtype == torch.float32:
+    if isinstance(form, ModelForm):
+        if form.M.is_cuda:
+            padded = hmc_model.model_operands(form, im)
+    elif n_parameters > P_NARROW and form.A.is_cuda and form.A.dtype == torch.float32:
         diag = None if im is None else torch.tensor(im, dtype=torch.float32, device=form.A.device)
         padded = wide_form(form, diag)
     return FusedHmc(form=form, steps=int(steps), inv_mass_diag=im, chunk=int(chunk),

@@ -11,8 +11,9 @@ cells and advances them as one batch on its device, and the history,
 positions and checkpoints are gathered from every process
 (``_collectives.Layout``).
 With ``fused=True`` the hmc advance runs through kernel B1
-(``ops.hmc_fused``), which keeps every chain's state on the chip through
-whole chunks of transitions. A posterior written with numpy runs on the
+(``ops.hmc_fused``; for a posterior of the models over a
+``LinearForwardModel``, its model route ``ops.hmc_model``), which keeps
+every chain's state on the chip through whole chunks of transitions. A posterior written with numpy runs on the
 host, one call per chain, with the chains' state on their device
 (``utils.wrap``); the hmc and nuts kinds refuse it, as the JAX package's
 kinds do.
@@ -129,10 +130,12 @@ class ChainArray:
     :param fused: "auto" (default) / True / False. True runs the advance
         through the fused whole-trajectory kernel B1 (``ops.hmc_fused``;
         its plain version on the CPU); it requires ``retry=False``, no
-        bounds, unit/scalar/diagonal inverse mass and a ``GaussianForm``
-        posterior, as the JAX package's kernel does. "auto" and False run the
-        batched transition of ``mcmc/_kernels/hmc.py``, as the JAX package
-        does.
+        bounds and unit/scalar/diagonal inverse mass, as the JAX package's
+        kernel does, and a posterior the kernel reads: a ``GaussianForm``,
+        or a ``Posterior`` (or bare likelihood) of ``models`` over a
+        ``LinearForwardModel`` (the model route, ``ops.hmc_model``).
+        "auto" and False run the batched transition of
+        ``mcmc/_kernels/hmc.py``, as the JAX package does.
     :param mesh: optional ``parallel.mesh.Mesh`` whose ``axis_name`` axis
         the chains are split over (``n_chains`` a multiple of its size); the
         chains then live on the cells' devices and ``device`` is not read.

@@ -1,5 +1,5 @@
 """Kernels B1 (inference_tpu_torch/ops/csrc/hmc_fused.cu, and its wide
-route for P > 64), B2
+route for P > 64; its model route, ops/csrc/hmc_model.cu), B2
 (inference_tpu_torch/ops/csrc/sqexp.cu), B3-B8 (ops/csrc/sqexp_fused.cu,
 sqexp_entries.cu, sqexp_stored.cu) and the probes P1-P3 (issue_probe.cu,
 sqexp_ablate.cu, sqexp_words_mma.cu) on a CUDA device: each against its
@@ -12,8 +12,8 @@ stores end to end; the gibbs,
 metropolis and pca ChainArrays on the card against their CPU runs, a
 numpy posterior's chains with their state on the card, tempering ladders
 and the ensemble step, the NUTS step and the density estimators against
-the CPU; the conditionals, the matrix plot's data and the PhaseTimer on the
-card.
+the CPU; the conditionals, the matrix plot's data, the PhaseTimer and
+device_trace on the card.
 
 Every test here needs the card and carries the ``cuda`` marker; without a
 card each one skips. The file imports only the port (not the JAX package),
@@ -29,7 +29,7 @@ import torch
 from inference_tpu_torch.gp import (GpOptimiser, GpRegressor, LargeScaleGP,
                                     LargeScaleGpLinearInverter)
 from inference_tpu_torch.mcmc._kernels.common import AdaptiveScale
-from inference_tpu_torch.ops import _build, df64, hmc_fused, pairwise
+from inference_tpu_torch.ops import _build, df64, hmc_fused, hmc_model, pairwise
 from inference_tpu_torch.ops.hmc_fused import GaussianForm
 from inference_tpu_torch.parallel import ChainArray
 from inference_tpu_torch.probes import df64_ablate, vpu_probe
@@ -145,6 +145,92 @@ def test_fused_chain_array_on_card(cuda):
     assert abs(sample.mean(axis=0)).max() < 0.05
     np.testing.assert_allclose(np.cov(sample.T), cov, atol=0.05)
     assert ca.rhat().max() < 1.05
+
+
+def _model_inputs(device, family, P, K, seed):
+    """A library posterior of ``family`` over a ``LinearForwardModel`` (N =
+    256, a Gaussian prior and an Exponential one on the last two
+    variables) as its ``ModelForm`` on the card, and a float32
+    mid-adaptation state about its truth with the draws of one transition;
+    every 16th chain starts outside the Exponential's support."""
+    from inference_tpu_torch import models
+
+    rng = np.random.default_rng(seed)
+    N = 256
+    M = rng.normal(size=(N, P)) / np.sqrt(P)
+    truth = rng.normal(0, 1, P)
+    truth[-2:] = np.abs(truth[-2:]) + 0.2
+    y = M @ truth + 0.1 * rng.standard_cauchy(N)
+    lik = getattr(models, f"{family.capitalize()}Likelihood")(
+        y, np.full(N, 0.1), models.LinearForwardModel(M, device=device), device=device)
+    prior = models.JointPrior([models.GaussianPrior(np.zeros(P - 2), np.full(P - 2, 3.0),
+                                                    list(range(P - 2)), device=device),
+                               models.ExponentialPrior([1.0, 1.0], [P - 2, P - 1], device=device)], P)
+    form = hmc_model.model_form(models.Posterior(lik, prior))
+    theta = truth[:, None] + rng.normal(0, 0.02, (P, K))
+    theta[-2:] = np.abs(theta[-2:])
+    theta[-1, ::16] = -1.0
+    dev = lambda x, dt=torch.float32: torch.as_tensor(x, dtype=dt).to(device)
+    num = rng.integers(0, 20, K)
+    scale = 0.1 / float(np.sqrt(np.linalg.eigvalsh(M.T @ M).max()))
+    eps = AdaptiveScale(dev(rng.uniform(0.3, 0.9, K) * scale), dev(num * rng.uniform(0.4, 0.9, K)),
+                        dev(num * 0.2), dev(num, torch.int32), dev(rng.choice([15, 20], K), torch.int32))
+    theta, it = dev(theta), torch.ones(K, device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((1, P, K), generator=gen, device=device)
+    us, ua = torch.rand((1, K), generator=gen, device=device), torch.rand((1, K), generator=gen, device=device)
+    return form, (theta, form.value_cols(theta).contiguous(), eps, it, z, us, ua)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gaussian", "cauchy", "logistic"])
+@pytest.mark.parametrize("P", [10, 65])
+def test_model_route_matches_plain_one_transition(cuda, family, P):
+    """Kernel B1's model route, one transition against its plain version:
+    position and step size within tolerance, logp within tolerance or -inf
+    in both, adaptation counters equal, on >= 99.9% of chains; one launch
+    counted."""
+    form, args = _model_inputs(cuda, family, P, 4096, seed=P + len(family))
+    kw = dict(form=form, steps=20, inv_mass_diag=None, store=False)
+    before = hmc_model.KERNEL_LAUNCHES
+    k = hmc_model._launch_model_chunk(*args, **kw, operands=hmc_model.model_operands(form))
+    p = hmc_fused._reference_chunk(*args, **kw)
+    torch.cuda.synchronize()
+    assert hmc_model.KERNEL_LAUNCHES == before + 1
+    lp_ok = _close(k[1], p[1]) | (torch.isneginf(k[1]) & torch.isneginf(p[1]))
+    ok = _close(k[0], p[0]).all(dim=0) & lp_ok & _close(k[2].value, p[2].value)
+    ok &= (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
+    assert float(ok.float().mean()) >= 0.999
+    assert bool(torch.isneginf(args[1][::16]).all())
+
+
+@pytest.mark.cuda
+def test_model_route_chain_array_on_card(cuda):
+    """ChainArray(fused=True) on a Gaussian likelihood over a
+    LinearForwardModel with a Gaussian prior launches the model route, and
+    its pooled means lie within 5 standard errors of the closed-form
+    posterior mean."""
+    from inference_tpu_torch import models
+
+    rng = np.random.default_rng(3)
+    M = rng.normal(size=(64, 3))
+    y = M @ np.array([0.5, -1.0, 2.0]) + 0.5 * rng.normal(size=64)
+    post = models.Posterior(
+        models.GaussianLikelihood(y, np.full(64, 0.5), models.LinearForwardModel(M, device=cuda),
+                                  device=cuda),
+        models.GaussianPrior(np.zeros(3), np.full(3, 2.0), [0, 1, 2], device=cuda))
+    cov = np.linalg.inv(M.T @ M / 0.25 + np.eye(3) / 4.0)
+    mean = cov @ (M.T @ y / 0.25)
+    ca = ChainArray("hmc", post, mean + rng.normal(0, 0.05, (4096, 3)), steps=10, epsilon=0.05,
+                    retry=False, fused=True, device=cuda, seed=5)
+    before = hmc_model.KERNEL_LAUNCHES
+    ca.advance(64, store=False)
+    ca.advance(64, store=True)
+    assert hmc_model.KERNEL_LAUNCHES - before == 2
+    h = np.concatenate(ca._history)
+    se = h.mean(axis=0).std(axis=0, ddof=1) / np.sqrt(h.shape[1])
+    assert (np.abs(h.reshape(-1, 3).mean(axis=0) - mean) / se).max() < 5.0
+    assert np.abs(h.reshape(-1, 3).var(axis=0) / np.diag(cov) - 1.0).max() < 0.10
 
 
 def _resident_edge(K):
@@ -1570,6 +1656,30 @@ def test_phase_timer_waits_for_queued_kernels(cuda):
     torch.cuda.synchronize()
     device_s = start.elapsed_time(end) / 1e3
     assert device_s > 0.02 and timer.totals["matmul"] >= 0.95 * device_s
+
+
+@pytest.mark.cuda
+def test_device_trace_lists_every_launch(cuda, tmp_path):
+    """device_trace around fused advances lists kernel B1 as often as they
+    launched it, in one trace file, with no idle pad, three times over."""
+    import json
+    from inference_tpu_torch.utils import device_trace
+
+    form = GaussianForm(torch.eye(3))
+    ca = ChainArray("hmc", form, np.random.default_rng(0).normal(size=(4096, 3)), steps=10,
+                    epsilon=0.3, retry=False, fused=True, device=cuda, seed=1)
+    ca.advance(64, store=False)
+    for i in range(3):
+        before = hmc_fused.KERNEL_LAUNCHES
+        with device_trace(str(tmp_path / str(i))):
+            ca.advance(320, store=False)
+        launches = hmc_fused.KERNEL_LAUNCHES - before
+        files = list((tmp_path / str(i)).iterdir())
+        assert len(files) == 1 and launches == 5
+        events = json.loads(files[0].read_text())["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"
+                   and "hmc_chunk_kernel" in e.get("name", "")]
+        assert len(kernels) == launches
 
 
 @pytest.mark.cuda

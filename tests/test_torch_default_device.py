@@ -22,6 +22,15 @@ _X = np.linspace(0.0, 1.0, 8)[:, None]
 _Y = np.sin(_X[:, 0])
 _ERR = np.full(8, 0.1)
 
+class _JaxLikelihood:
+    """What ``linear_posterior_from_jax`` reads off a JAX likelihood, by
+    its class name and attributes."""
+
+    y, sigma = np.zeros(2), np.ones(2)
+
+
+_JaxLikelihood.__name__ = "GaussianLikelihood"
+
 ENTRY_POINTS = {
     "ChainArray": lambda: ChainArray("hmc", GaussianForm(torch.eye(2)), np.zeros((4, 2))),
     "GpRegressor": lambda: GpRegressor(_X, _Y, y_err=_ERR, hyperpars=[0.0, 0.0, 0.0]),
@@ -57,6 +66,9 @@ ENTRY_POINTS = {
     "GaussianPrior": lambda: models.GaussianPrior(0.0, 1.0, 0),
     "ExponentialPrior": lambda: models.ExponentialPrior(1.0, 0),
     "UniformPrior": lambda: models.UniformPrior(0.0, 1.0, 0),
+    "LinearForwardModel": lambda: models.LinearForwardModel(np.eye(2)),
+    "linear_posterior_from_jax": lambda: convert.linear_posterior_from_jax(
+        _JaxLikelihood(), np.eye(2)),
     "mass_from_numpy": lambda: convert.mass_from_numpy(1.0, 2),
     "ScalarMass": lambda: ScalarMass(1.0, 2),
     "VectorMass": lambda: VectorMass(np.ones(2), 2),

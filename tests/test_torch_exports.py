@@ -1,5 +1,5 @@
 """The port's package exports: every name in the ``__all__`` of each path
-in ``PATHS`` (but ``GaussianForm``, the port's own) is exported by the JAX
+in ``PATHS`` (but the port's own, ``PORT_ONLY``) is exported by the JAX
 package from the same path, and is the object its defining module of the
 port holds."""
 
@@ -14,8 +14,9 @@ import inference_tpu_torch.ops
 PATHS = ("inference_tpu_torch", "inference_tpu_torch.ops", "inference_tpu_torch.mcmc",
          "inference_tpu_torch.models", "inference_tpu_torch.gp", "inference_tpu_torch.pdf",
          "inference_tpu_torch.parallel", "inference_tpu_torch.approx", "inference_tpu_torch.utils")
-# the port's own names: the device policy and the torch generator of utils
-PORT_ONLY = {"GaussianForm", "resolve_device", "make_generator"}
+# the port's own names: how a posterior reaches the fused kernel (ops' form,
+# models' forward model), the device policy and the torch generator of utils
+PORT_ONLY = {"GaussianForm", "LinearForwardModel", "resolve_device", "make_generator"}
 # the JAX package's names from these paths that the port does not define:
 # the TPU watchdog's chunk length has no job on a GPU (ROADMAP "Not ported");
 # utils' JAX keys and its probes of traceability and host callbacks have no

@@ -44,6 +44,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         "inference_tpu_torch.parallel.dryrun",
         "inference_tpu_torch.approx, inference_tpu_torch.approx.conditional, "
         "inference_tpu_torch.plotting, inference_tpu_torch.utils.profiling",
+        "inference_tpu_torch.ops.hmc_model, inference_tpu_torch.models.likelihoods, "
+        "inference_tpu_torch.convert",
         "chip_smoke",
     ],
 )

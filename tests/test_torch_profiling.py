@@ -80,3 +80,16 @@ def test_device_trace_stops_when_the_block_raises(tmp_path):
     with device_trace(str(tmp_path / "u")):
         torch.zeros(2).add_(1)
     assert "aten::add_" in {e.get("name") for e in _events(str(tmp_path / "u"))}
+
+
+def test_device_trace_marks_the_block(tmp_path):
+    """The block is one ``"device_trace"`` annotation in the trace file,
+    and the operations run inside the block lie within its span."""
+    with device_trace(str(tmp_path / "t")):
+        torch.ones(4).sum()
+    events = [e for e in _events(str(tmp_path / "t")) if e.get("ph") != "M"]
+    marks = [e for e in events if e.get("name") == "device_trace"]
+    assert len(marks) == 1
+    start, end = float(marks[0]["ts"]), float(marks[0]["ts"]) + float(marks[0]["dur"])
+    inside = [e for e in events if e.get("name") == "aten::sum"]
+    assert inside and all(start <= float(e["ts"]) <= end for e in inside)
