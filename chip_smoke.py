@@ -30,8 +30,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
 2. build: compiles kernel B1 (``inference_tpu_torch/ops/csrc/hmc_fused.cu``,
    one library per parameter count and kind of mass: P = 1, 2, 3, 10, 32,
    64 with unit mass, P = 32 with diagonal mass, and the wide library for
-   any P > 64), B1's model route (``.../hmc_model.cu``, one library per
-   likelihood family with unit mass, and the Gaussian with diagonal mass), B2
+   any P > 64), B1's model route (``.../hmc_model.cu``: its wide route,
+   one library per likelihood family with unit mass and the Gaussian with
+   diagonal mass; its narrow route at P = 10 for each family), B2
    (``.../sqexp.cu``, one library per D up to 5: D = 2 and 5, and the wide
    one for larger D), B3/B4 (``.../sqexp_fused.cu``), B5/B7
    (``.../sqexp_entries.cu``), B6/B8 (``.../sqexp_stored.cu``) and the
@@ -81,8 +82,10 @@ Phases, each of which raises on failure (so the script exits non-zero):
    N = 1,024, 4,096 chains, one transition (step counts and counters
    equal, the kernel's error against float64 at most 4x the float32 plain
    version's, chains started outside the support at -inf) and a chunk of
-   16 (accept fractions, drift); one chunk timed at P = 10 and 256 beside
-   its bound and its plain version; dense-256-forward-fused (the dense
+   16 (accept fractions, drift); one chunk timed at P = 10 (the narrow
+   route) and 256 (the wide one) beside its bound and its plain version,
+   with the plan, the SASS of the hot loops, the lockstep's share and a
+   ``torch.matmul`` yardstick of the products alone; dense-256-forward-fused (the dense
    bench's forward model through ``ChainArray(fused=True)`` at 4,096
    chains: samples/s and TFLOP/s beside the plain path, 128 stored
    transitions held to the exact posterior) and robust-10 (a Cauchy
@@ -319,9 +322,11 @@ with its bound, plain version and library call) and the ``nvidia-smi``
 line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -417,9 +422,10 @@ def _libraries():
     b2 = [("sqexp", pairwise.kernel_variant(d), _b2_label(d)) for d in B2_BUILD_D]
     p3 = [("sqexp_words_mma", words.kernel_variant(d), f"P3 d={d}")
           for d in P3_D + (P3_STREAMED_D,)]
-    model = [("hmc_model", hmc_model.kernel_variant(f, unit),
-              f"B1 model route {hmc_model.FAMILY_NAMES[f]} {'unit' if unit else 'diagonal'} mass")
-             for f, unit in MODEL_BUILD]
+    model = [("hmc_model", hmc_model.kernel_variant(f, unit, p),
+              f"B1 model route {hmc_model.FAMILY_NAMES[f]} {'unit' if unit else 'diagonal'} mass, "
+              + (f"narrow P={p}" if p else "wide"))
+             for f, unit, p in MODEL_BUILD]
     return b1 + model + b2 + p3 + [(name, (), label) for name, label in KERNELS.items()]
 
 
@@ -435,12 +441,21 @@ def _timed_build(name, defines):
     return cached, time.perf_counter() - t0
 
 
+def _build_and_read(name, defines):
+    """``_timed_build``; for B1's model route also its SASS (``_sass``,
+    cached for the ``[time]`` lines), read while slower libraries build."""
+    result = _timed_build(name, defines)
+    if name == "hmc_model":
+        _sass(name, defines)
+    return result
+
+
 def phase_build():
     """Build every library, one nvcc process each, all started together."""
     t0 = time.perf_counter()
     libs = _libraries()
     with ThreadPoolExecutor(len(libs)) as pool:
-        futures = [pool.submit(_timed_build, name, defines) for name, defines, _ in libs]
+        futures = [pool.submit(_build_and_read, name, defines) for name, defines, _ in libs]
         results = [f.result() for f in futures]
     for (name, defines, label), (cached, seconds) in zip(libs, results):
         print(f"[build] kernel {label} {'loaded from cache' if cached else 'built'} "
@@ -975,8 +990,12 @@ MODEL_OUTSIDE_EVERY = 64  # every 64th chain of a check starts outside
 # CPU rehearsal) accept independently, so the limit adds 4 binomial
 # standard errors of the parted share (``_model_compare``)
 MODEL_ACCEPT_TOL = 2e-3
-MODEL_BUILD = ((0, True), (1, True), (2, True), (0, False))  # (family, unit mass)
 ROBUST_P, ROBUST_N = 10, 1024
+# (family, unit mass, the narrow route's P or 0 for the wide library): the
+# wide route for each family (P = 65 and 256; diagonal mass at P = 65), the
+# narrow route at P = 10 for each family (robust-10 and the P = 10 checks)
+MODEL_BUILD = ((0, True, 0), (1, True, 0), (2, True, 0), (0, False, 0),
+               (0, True, ROBUST_P), (1, True, ROBUST_P), (2, True, ROBUST_P))
 # robust-10's runs, fused and plain alike, so both hold the same transient:
 # 64 + 128 cut for the script's time (the plain path is host-bound, 140-295
 # ms a transition on the H100's hosts)
@@ -1195,17 +1214,99 @@ def _model_flops(us, P, N, steps=HMC_STEPS):
     return n * (4 * N * P + 4 * N + 5 * P) + chunk * K * (4 * N + 9 * P + 30)
 
 
-def _time_model_chunk(label, post, truth, M, steps, K=MODEL_CHAINS, seed=7):
-    """CUDA-event times of one 64-transition chunk of the model route on a
-    main path's posterior (``post`` over M, about ``truth``) at its step
-    count and K chains, unit mass, without history: the kernel in two
-    turns with the plain version between them, after one warm-up launch.
-    Returns (ms, plain ms, bound ms, bound by), the kernel's the lower of
-    its turns; the bound from ``_model_flops`` and the bytes the chunk must
-    move (the draws, the state in and out, M and the data once)."""
+def _model_lockstep(us, plan, steps=HMC_STEPS):
+    """A count from one chunk's step draws, not a reading of the kernel:
+    the chains that step together (the wide route's block of C, the narrow
+    route's 32 / T chains of a warp) each take the group's largest n + 1
+    gradient passes a transition. Returns the chains in a group and the
+    share of the passes taken that no chain needed, 1 - sum(n + 1) / sum
+    over groups of their size x (max n + 1)."""
+    chunk, K = us.shape
+    group = plan.chains if plan.route == "wide" else max(1, 32 // plan.lanes)
+    n = _step_counts(us, steps) + 1
+    n = torch.nn.functional.pad(n, (0, -K % group)).reshape(chunk, -1, group)
+    return group, 1.0 - float(n.sum()) / (float(n.amax(dim=2).sum()) * group)
+
+
+SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def _model_sass(variant):
+    """The model route's kernel in the library ``variant``, read off its
+    SASS with cuobjdump: each innermost loop with at least 16 FFMA as
+    (FFMA, 16-byte shared loads LDS.128, other shared loads) in address
+    order, and the kernel's block barriers (BAR); None without cuobjdump.
+    The narrow kernel's loops are its row loop (at the last step and
+    before); the wide kernel's its residual and gradient products."""
+    sass = _sass("hmc_model", variant)
+    name = "hmc_model_narrow" if dict(variant)["HM_P"] else "hmc_model_wide"
+    body = next((part for part in (sass or "").split("Function : ")[1:]
+                 if part.split()[0] == name), None)
+    if body is None:
+        return None
+    found = SASS_INSTRUCTION.findall(body)
+    ops = [op for _, op, _ in found]
+    where = {int(a, 16): k for k, (a, _, _) in enumerate(found)}
+    spans = []
+    for k, (a, op, rest) in enumerate(found):
+        target = re.search(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) < int(a, 16) and int(target.group(1), 16) in where:
+            spans.append((where[int(target.group(1), 16)], k))
+    loops = []
+    for i, j in spans:
+        if any(i <= i2 and j2 <= j and (i2, j2) != (i, j) for i2, j2 in spans):
+            continue  # not innermost
+        ffma = sum(o.startswith("FFMA") for o in ops[i:j + 1])
+        if ffma >= 16:
+            wide = sum(o.startswith("LDS") and ".128" in o for o in ops[i:j + 1])
+            loops.append((ffma, wide, sum(o.startswith("LDS") for o in ops[i:j + 1]) - wide))
+    return loops, sum(op.startswith("BAR") for op in ops)
+
+
+def _sass_text(read):
+    """``_model_sass``'s reading as text."""
+    if read is None:
+        return "SASS not read (no cuobjdump)"
+    loops, bars = read
+    return ("hot loops (FFMA, LDS.128, other LDS; FFMA a 16-byte shared load): "
+            + "; ".join(f"{f}, {w}, {o} ({f / max(w, 1):.2f})" for f, w, o in loops)
+            + f"; block barriers in the kernel {bars}")
+
+
+def _products_yardstick(form, theta, us, steps):
+    """A yardstick of the products alone, not a library call for the
+    kernel's function: the two products of one gradient for all K chains
+    (M theta, then M^T psi) by float32 ``torch.matmul`` (no TF32), CUDA
+    events over 20 launches after a warm-up, times the chunk's gradients a
+    chain (the sum of n + 1 over the chains, over K)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M = form.M.float().contiguous()
+    psi = torch.randn(M.shape[0], theta.shape[1], device=CUDA)
+
+    def products():
+        torch.matmul(M, theta)
+        torch.matmul(M.T, psi)
+
+    products()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(20):
+        products()
+    end.record()
+    torch.cuda.synchronize()
+    gradients = float((_step_counts(us, steps) + 1).sum()) / theta.shape[1]
+    return start.elapsed_time(end) / 20 * gradients
+
+
+def _model_chunk(post, truth, M, steps, K=MODEL_CHAINS, seed=7):
+    """One 64-transition chunk of the model route on ``post`` (over M,
+    about ``truth``) at ``steps`` and K chains, unit mass, without history:
+    (the form, the launch's arguments and keywords, the launch), the state
+    from ``_model_state`` and the draws from ``seed``."""
     form = hmc_model.model_form(post)
     ops = hmc_model.model_operands(form)
-    P, N = form.n_parameters, form.n_data
+    P = form.n_parameters
     theta, eps, it, _ = _model_state(form, truth, M, K, seed, False)
     logp = (form.value_cols(theta) * it).contiguous()
     gen = torch.Generator(device=CUDA)
@@ -1215,28 +1316,59 @@ def _time_model_chunk(label, post, truth, M, steps, K=MODEL_CHAINS, seed=7):
     ua = torch.rand((64, K), generator=gen, device=CUDA)
     args = (theta, logp, eps, it, z, us, ua)
     kw = dict(form=form, steps=steps, inv_mass_diag=None, store=False)
-    launch = lambda: hmc_model._launch_model_chunk(*args, **kw, operands=ops)
+    return form, args, kw, lambda: hmc_model._launch_model_chunk(*args, **kw, operands=ops)
+
+
+def _event_ms(fn):
+    """CUDA-event milliseconds of one call of ``fn``, between syncs."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _time_model_chunk(label, post, truth, M, steps, K=MODEL_CHAINS, seed=7):
+    """CUDA-event times of one 64-transition chunk of the model route on a
+    main path's posterior (``post`` over M, about ``truth``) at its step
+    count and K chains, unit mass, without history: the kernel in two
+    turns with the plain version between them, after one warm-up launch.
+    Printed beside them: the route and its plan, the SASS of its library's
+    hot loops (``_model_sass``), the lockstep's share of the gradient
+    passes (``_model_lockstep``) and the ``torch.matmul`` yardstick of the
+    products alone (``_products_yardstick``). Returns (ms, plain ms, bound
+    ms, bound by, {the plan, the yardstick's ms, the chains stepping
+    together and the lockstep's share, the hot loops}), the kernel's the
+    lower of its turns; the bound from ``_model_flops`` and the bytes the
+    chunk must move (the draws, the state in and out, M and the data
+    once)."""
+    form, args, kw, launch = _model_chunk(post, truth, M, steps, K, seed)
+    theta, us = args[0], args[5]
+    P, N = form.n_parameters, form.n_data
     launch()  # the warm-up; the checks before have run the plain version's operations
-
-    def once(fn):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    times = [once(launch), once(lambda: hmc_fused._reference_chunk(*args, **kw)), once(launch)]
+    times = [_event_ms(launch), _event_ms(lambda: hmc_fused._reference_chunk(*args, **kw)),
+             _event_ms(launch)]
     n_bytes = 4 * 64 * K * (P + 2) + 2 * 4 * K * (P + 7) + 4 * N * (P + 2)
     bound_ms, by = bound(n_bytes, _model_flops(us, P, N, steps), FP32_FLOPS)
     ms, p_ms = min(times[0], times[2]), times[1]
     plan = hmc_model.model_plan(P, K, N)
+    group, lockstep = _model_lockstep(us, plan, steps)
+    yardstick = _products_yardstick(form, theta, us, steps)
+    read = _model_sass(hmc_model.model_variant(form.family, True, P, N))
     print(f"[time] B1 model route one chunk ({label}: 64 transitions of {steps} steps, P={P}, "
-          f"N={N}, K={K}; {plan}): kernel {times[0]:.3f} / {times[2]:.3f} ms, plain "
-          f"version {p_ms:.3f} ms (kernel, plain, kernel); bound {bound_ms:.3f} ms ({by}), "
-          f"{ms / bound_ms:.2f}x (card: {SMI})")
-    return ms, p_ms, bound_ms, by
+          f"N={N}, K={K}; the {plan.route} route, {plan}): kernel {times[0]:.3f} / "
+          f"{times[2]:.3f} ms, plain version {p_ms:.3f} ms (kernel, plain, kernel); bound "
+          f"{bound_ms:.3f} ms ({by}), {ms / bound_ms:.2f}x; the lockstep of {group} chains "
+          f"stepping together: {lockstep:.4f} of the gradient passes taken (a count from the step "
+          f"draws); {_sass_text(read)}; yardstick of the products alone, torch.matmul M theta "
+          f"and M^T psi for all {K} chains times the chunk's gradients a chain: {yardstick:.3f} ms "
+          f"(not a library call for the kernel's function) (card: {SMI})")
+    return ms, p_ms, bound_ms, by, {"plan": plan._asdict(), "yardstick_ms": yardstick,
+                                    "lockstep_group": group, "lockstep_share": lockstep,
+                                    "hot_loops": read[0] if read else None,
+                                    "block_barriers": read[1] if read else None}
 
 
 def _pooled_moments(ca, skip=0, dtype=np.float64):
@@ -1547,6 +1679,98 @@ def robust10_windows():
     print(f"[robust-10 windows] fused against plain: means within {z.max():.3f} combined "
           f"standard errors, variances within {np.abs(v1 / v2 - 1.0).max():.4f}")
     return float(z.max())
+
+
+def _chunk_ms(post, truth, M, steps):
+    """CUDA-event time of one chunk (``_model_chunk``) after a warm-up
+    launch, with the plan ``hmc_model.model_plan`` gives at the time of the
+    call."""
+    launch = _model_chunk(post, truth, M, steps)[3]
+    launch()
+    return _event_ms(launch)
+
+
+def model_route_sweep():
+    """Not part of ``main``: the readings behind the model route's plan
+    (PERF.md), each a chunk of 64 transitions at 4,096 chains and N =
+    1,024 (``_chunk_ms``) or a chunk check (``_model_compare``), with the
+    plan set by hand where it says so: robust-10 at 4, 8, 16 and 32 lanes a
+    chain; the Gaussian at P = 16, 24, 32, 40 and 48 (20 steps) on each
+    route; the Cauchy at P = 65 (20 steps) with its slab and residual
+    groups (128, 1: the plan's; 64, 2; 32, 4); each library's registers
+    and spills (``-Xptxas -v``); and the chunk check's drift
+    from float64 (the kernel's share less the float32 plain version's
+    after 16 transitions, and the check's slack) at the Cauchy's P = 10
+    (seeds 10-17) and P = 65 (seeds 60-69)."""
+    phase_device()
+    torch.set_default_dtype(torch.float32)
+    variants = ([hmc_model.kernel_variant(f, True, 0) for f in (0, 1)]
+                + [hmc_model.kernel_variant(1, True, ROBUST_P)]
+                + [hmc_model.kernel_variant(0, True, P) for P in (16, 24, 32, 40, 48)])
+    with ThreadPoolExecutor(len(variants)) as pool:
+        for f in [pool.submit(_build.load, "hmc_model", v) for v in variants]:
+            f.result()
+    for v in variants:
+        regs = [line.strip() for line in _build.build_log("hmc_model", v).splitlines()
+                if "registers" in line or "spill" in line]
+        print(f"[sweep] library {dict(v)}: {'; '.join(regs)}")
+    plan_of = hmc_model.model_plan
+    try:
+        robust = robust_posterior(CUDA)
+        for T in (4, 8, 16, 32):
+            plan = hmc_model.ModelPlan("narrow", 256 // T, T, ROBUST_N, hmc_model.narrow_width(10),
+                                       0, 0, 0, -(-MODEL_CHAINS * T // 256),
+                                       hmc_model._narrow_smem(ROBUST_N, 10))
+            hmc_model.model_plan = lambda P, K, N: plan
+            print(f"[sweep] robust-10, {T} lanes a chain: {_chunk_ms(*robust, HMC_STEPS):.3f} ms "
+                  f"(card: {SMI})")
+        hmc_model.model_plan = plan_of
+        limit, route_of = hmc_model.NARROW_P_MAX, hmc_model.model_route
+        for P in (16, 24, 32, 40, 48):
+            case = model_posterior("gaussian", P, MODEL_N, "gauss+exp", P, CUDA)
+            for route in ("narrow", "wide"):
+                hmc_model.NARROW_P_MAX = 48
+                hmc_model.model_route = lambda P_, N, r=route: r
+                plan_of.cache_clear()
+                try:
+                    ms = _chunk_ms(*case, 20)
+                    print(f"[sweep] Gaussian P={P}, the {route} route "
+                          f"({hmc_model.model_plan(P, MODEL_CHAINS, MODEL_N)}): {ms:.3f} ms "
+                          f"(card: {SMI})")
+                finally:
+                    hmc_model.NARROW_P_MAX, hmc_model.model_route = limit, route_of
+                    plan_of.cache_clear()
+        case = model_posterior("cauchy", 65, MODEL_N, "gauss+exp", 65, CUDA)
+        base = plan_of(65, MODEL_CHAINS, MODEL_N)
+        for S, ga in ((128, 1), (64, 2), (32, 4)):
+            gc = hmc_model._groups(base.rows, base.chains, S)[1]
+            plan = base._replace(slab=S, ga=ga, gc=gc,
+                                 smem=hmc_model._wide_smem(base.rows, base.chains, S, ga, gc))
+            hmc_model.model_plan = lambda P, K, N: plan
+            print(f"[sweep] Cauchy P=65, slab {S}, residual groups {ga}: "
+                  f"{_chunk_ms(*case, 20):.3f} ms (card: {SMI})")
+        hmc_model.model_plan = plan_of
+        found = re.compile(r"kernel \{[^}]*16: ([0-9.]+)\}, plain float32 \{[^}]*16: ([0-9.]+)\} "
+                           r"\(the kernel's last at least the plain's less ([0-9.]+)\)")
+        for P, seeds in ((ROBUST_P, range(10, 18)), (65, range(60, 70))):
+            for seed in seeds:
+                out = io.StringIO()
+                try:
+                    with contextlib.redirect_stdout(out):
+                        _model_compare("cauchy", "gauss+exp", P, seed=seed)
+                    held = "held"
+                except RuntimeError:
+                    held = "failed"
+                read = found.search(out.getvalue())
+                if read is None:
+                    print(f"[sweep] Cauchy P={P} seed {seed}: the one-transition check {held}")
+                    continue
+                k, p, slack = map(float, read.groups())
+                print(f"[sweep] Cauchy P={P} seed {seed}: drift from float64 after 16 "
+                      f"transitions, kernel less plain {k - p:+.4f} (slack {slack:.4f}), {held}")
+    finally:
+        hmc_model.model_plan = plan_of
+        plan_of.cache_clear()
 
 
 def phase_model_route(plain_row):
@@ -6393,9 +6617,11 @@ def main():
         "dense_hmc_4096": dense,
     }, {
         "name": "hmc_model_chunk",
-        "kernel": "hmc_model_kernel (a library posterior over a LinearForwardModel: a block of C "
-                  "chains streams M through a cp.async ring once a gradient, the kick folded into "
-                  "the pass; transitions in lockstep)",
+        "kernel": "hmc_model_wide (P = 256: a block of C chains, each thread an 8 x 4 tile of "
+                  "their momenta in registers, M streamed through a 3-stage cp.async ring, the "
+                  "two products pipelined a slab apart; transitions in lockstep) and "
+                  "hmc_model_narrow (robust-10's P = 10: T lanes of a warp a chain, M resident "
+                  "in shared memory, no block barrier in a leapfrog step)",
         "route": "cuda",
         "source": "inference_tpu_torch/ops/csrc/hmc_model.cu",
         "replaces": "inference_tpu/ops/hmc_fused.py:347",
@@ -6409,9 +6635,8 @@ def main():
         "P": 256,
         "N": MODEL_N,
         "chains": MODEL_CHAINS,
-        "variant": dict(hmc_model.kernel_variant(0, True)),
-        "per_P": {P: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3],
-                      "plan": hmc_model.model_plan(P, MODEL_CHAINS, MODEL_N)._asdict()}
+        "variant": dict(hmc_model.model_variant(0, True, 256, MODEL_N)),
+        "per_P": {P: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "bound_by": t[3], **t[4]}
                   for P, t in model["times"].items()},
         "launches_by_path": model["launches"],
         "dense_256_forward_fused": model["dense"],

@@ -21,10 +21,14 @@ The kernel (``csrc/hmc_model.cu``, CUDA C++ for Hopper) runs a chunk of
 transitions with the transition math of kernel B1 (``ops.hmc_fused``);
 ``_launch_model_chunk`` launches it with the sizes of ``model_plan`` on the
 zero-padded float32 operands of ``model_operands``, which a plan builds
-once. Its plain version is ``hmc_fused._reference_chunk`` driven by the
-form, which runs on a CPU tensor; on a CUDA tensor the kernel launches or
-the wrapper raises. One library per family and kind of mass
-(``kernel_variant``), built at first use into ``build/kernels/``.
+once. The plan takes one of two routes by shape alone (``model_route``):
+the narrow one (P up to ``NARROW_P_MAX`` with M resident in shared memory:
+a few lanes of a warp a chain) or the wide one (M streamed: a block of
+chains, each thread a tile of their momenta in registers). Its plain
+version is ``hmc_fused._reference_chunk`` driven by the form, which runs on
+a CPU tensor; on a CUDA tensor the kernel launches or the wrapper raises.
+One library per family, kind of mass and route, the narrow route's also
+per P (``kernel_variant``), built at first use into ``build/kernels/``.
 """
 
 import functools
@@ -56,14 +60,31 @@ TAKES = (
     "JointPrior)"
 )
 
-# csrc/hmc_model.cu's launch: threads a block, ring stages, rows of a
-# gradient tile, words a chain, the shared memory a block may have
-THREADS, STAGES, TILE_ROWS, CHAIN_WORDS = 256, 2, 8, 13
+# csrc/hmc_model.cu's launch: threads a block, the wide route's ring
+# stages, rows of its momentum (gradient) and residual tiles (by 4 chains
+# each), its momenta a block (one tile a thread) and words a chain, the
+# shared memory a block may have and an SM has
+THREADS, STAGES, TILE_ROWS, RES_ROWS, CHAIN_WORDS = 256, 3, 8, 4, 13
+TILE_VALUES = TILE_ROWS * 4 * THREADS
 SMEM_BLOCK = 232_448
+SMEM_SM, SMEM_RESERVED = 233_472, 1_024  # an SM's 228 KB, and what the card keeps a block
 N_SMS = 132            # the H100's SMs: a plan keeps a block per SM where K allows
-RING_BYTES = 65_536    # the most the ring of slabs of M takes, but at the smallest slab
+RING_BYTES = 131_072   # the most the wide route's ring of slabs of M takes, but at 4 rows
 SLAB_MAX = 256         # the most data rows a slab; M's rows are padded to a multiple
 CHAINS_MAX = 64
+# the narrow route: the most parameters (its libraries are built per P; at
+# N = 1,024 and 4,096 chains it ran 16-39% faster than the wide route at P
+# = 16-40 and 6% at 48: chip_smoke.py::model_route_sweep, PERF.md),
+# resident rows a multiple of NARROW_ROWS
+NARROW_P_MAX = 40
+NARROW_ROWS = 32
+
+
+def narrow_blocks_sm(P: int) -> int:
+    """The most blocks of the narrow route an SM holds by its registers,
+    as ``NARROW_BLOCKS_SM`` in ``csrc/hmc_model.cu``: two up to P = 16, one
+    above."""
+    return 2 if P <= 16 else 1
 
 
 class ModelForm:
@@ -186,10 +207,18 @@ def model_form(posterior) -> ModelForm:
                      likelihood.normalisation, priors)
 
 
-def kernel_variant(family: int, unit_mass: bool) -> tuple:
+def kernel_variant(family: int, unit_mass: bool, narrow_p: int = 0) -> tuple:
     """The nvcc defines of the model route's library for a family (an
-    index of ``FAMILY_NAMES``) and unit (else diagonal) mass."""
-    return (("HM_FAMILY", int(family)), ("HM_UNIT", int(unit_mass)))
+    index of ``FAMILY_NAMES``) and unit (else diagonal) mass: the narrow
+    route's for ``narrow_p`` parameters, the wide route's for 0
+    (``model_variant`` names the one a shape takes)."""
+    return (("HM_FAMILY", int(family)), ("HM_UNIT", int(unit_mass)), ("HM_P", int(narrow_p)))
+
+
+def model_variant(family: int, unit_mass: bool, P: int, N: int) -> tuple:
+    """``kernel_variant`` of the library that runs P parameters and N data:
+    the narrow route's for P, or the wide route's (``model_route``)."""
+    return kernel_variant(family, unit_mass, P if model_route(P, N) == "narrow" else 0)
 
 
 def _ceil(x, m):
@@ -199,21 +228,42 @@ def _ceil(x, m):
 class ModelPlan(NamedTuple):
     """Sizes of one launch (``model_plan``)."""
 
-    chains: int   # chains per block, a power of two from 4 to 64
-    rows: int     # P rounded up to 8: rows of the positions and momenta
-    slab: int     # data rows per ring stage, a power of two from 4 to 256
-    ga: int       # groups the residual's contraction over P is split in
-    gc: int       # groups the gradient's contraction over a slab is split in
+    route: str    # "narrow" (T lanes a chain, M resident) or "wide" (M streamed)
+    chains: int   # chains per block: 256 / lanes (narrow), a power of two from 4 to 64 (wide)
+    lanes: int    # narrow: lanes of a warp a chain, a power of two from 1 to 32; wide: 0
+    rows: int     # narrow: resident data rows, N rounded up to 32; wide: P rounded up to 8
+    stride: int   # words a row of M in shared memory: narrow_width(P), or rows + 4 (the ring)
+    slab: int     # wide: data rows per ring stage, a power of two from 4 to 256; narrow: 0
+    ga: int       # wide: groups the residual's contraction over P is split in; narrow: 0
+    gc: int       # wide: groups a pass's data rows are split in for the gradient; narrow: 0
     blocks: int
     smem: int     # bytes of shared memory per block
 
 
-def _model_smem(rows, chains, slab, ga, gc):
-    """Shared memory of a block in bytes, as ``model_smem`` in
-    ``csrc/hmc_model.cu`` computes it."""
-    words = (STAGES * slab * rows + 2 * rows * chains + slab * chains
-             + (ga * slab * chains if ga > 1 else 0) + (gc * rows * chains if gc > 1 else 0)
-             + 4 * rows + 7 * THREADS + CHAIN_WORDS * chains)
+def narrow_width(P: int) -> int:
+    """Words of a resident row on the narrow route: M's P, y - offset and
+    the inverse scale, zeros up to a multiple of 4 that is 4 mod 8 (so 8
+    lanes reading 8 consecutive rows hit distinct banks), as
+    ``narrow_width`` in ``csrc/hmc_model.cu``."""
+    w = _ceil(P + 2, 4)
+    return w + 4 if w % 8 == 0 else w
+
+
+def _narrow_smem(rows, P):
+    """Shared memory of a narrow block in bytes, as ``narrow_smem`` in
+    ``csrc/hmc_model.cu`` computes it: the resident rows and the four
+    per-variable words."""
+    return 4 * (rows * narrow_width(P) + 4 * _ceil(P, TILE_ROWS))
+
+
+def _wide_smem(rows, chains, slab, ga, gc):
+    """Shared memory of a wide block in bytes, as ``wide_smem`` in
+    ``csrc/hmc_model.cu`` computes it: the ring, the positions, psi's two
+    buffers, the groups' partial sums, the per-variable words, the owners'
+    partial sums, the likelihood's and the chains' words."""
+    words = (STAGES * slab * (rows + 4) + rows * chains + 2 * slab * chains
+             + (ga * slab * chains if ga > 1 else 0) + ((gc - 1) * rows * chains if gc > 1 else 0)
+             + 4 * rows + 3 * (rows // TILE_ROWS) * chains + 4 * THREADS + CHAIN_WORDS * chains)
     return 4 * words
 
 
@@ -221,45 +271,84 @@ def _pow2_at_least(x):
     return 1 << max(0, math.ceil(math.log2(max(x, 1))))
 
 
+def model_route(P: int, N: int) -> str:
+    """The route of P parameters and N data, by shape alone: "narrow" up to
+    ``NARROW_P_MAX`` parameters where M, y - offset and the inverse scales
+    fit a block's shared memory (N rounded up to 32 rows of
+    ``narrow_width(P)`` words), else "wide"."""
+    if P <= NARROW_P_MAX and _narrow_smem(_ceil(N, NARROW_ROWS), P) <= SMEM_BLOCK:
+        return "narrow"
+    return "wide"
+
+
 @functools.lru_cache(maxsize=None)
 def model_plan(P: int, K: int, N: int) -> ModelPlan:
     """The model route's sizes for P parameters, K chains and N data, the
-    same on any device. Chains a block: the smallest power of two that
-    keeps a block per SM where K allows, from 4 to 64, halved while the
-    block does not fit. Rows a slab: the largest power of two up to 256 (and
-    up to N rounded up) whose ring takes at most ``RING_BYTES``, or 4. Each
-    product's contraction is split in groups until its tiles fill the
-    block's threads. P beyond a block's shared memory at 4 chains and 4
-    rows raises ``ValueError``."""
+    same on any device; the route from ``model_route``.
+
+    Narrow: lanes a chain T, the largest power of two up to 32 whose blocks
+    (256 / T chains each) all fit on the card at once, at most
+    ``narrow_blocks_sm(P)`` per SM and as many as the resident rows let
+    share one; 1 where K is larger.
+
+    Wide: chains a block C, the smallest power of two that keeps a block
+    per SM where K allows, from 4 to 64, halved while the block's momenta
+    exceed one 8 x 4 tile a thread or its shared memory the block's. Rows a
+    slab: the largest power of two up to 256 (and up to N rounded up) whose
+    ring of 3 stages takes at most ``RING_BYTES``, or 4. The residual's
+    contraction over P is split in groups, none empty, until its 4 x 4
+    tiles fill the threads; a pass's data rows in groups until the
+    gradient's tiles do. P beyond the wide block at 4 chains raises
+    ``ValueError``."""
     if P < 1 or K < 1 or N < 1:
         raise ValueError(f"the model route takes P, K, N >= 1, got {P}, {K}, {N}")
+    if model_route(P, N) == "narrow":
+        rows = _ceil(N, NARROW_ROWS)
+        smem = _narrow_smem(rows, P)
+        per_sm = max(1, min(narrow_blocks_sm(P), SMEM_SM // (smem + SMEM_RESERVED)))
+        lanes = 32
+        while lanes > 1 and -(-K * lanes // THREADS) > N_SMS * per_sm:
+            lanes //= 2
+        chains = THREADS // lanes
+        return ModelPlan("narrow", chains, lanes, rows, narrow_width(P), 0, 0, 0,
+                         -(-K // chains), smem)
     rows = _ceil(P, TILE_ROWS)
     chains = min(CHAINS_MAX, max(4, _pow2_at_least(-(-K // N_SMS))))
+    while chains > 4 and rows * chains > TILE_VALUES:
+        chains //= 2
     slab = min(SLAB_MAX, max(4, _pow2_at_least(N)))
-    while slab > 4 and 4 * STAGES * slab * rows > RING_BYTES:
+    while slab > 4 and 4 * STAGES * slab * (rows + 4) > RING_BYTES:
         slab //= 2
-    while chains >= 4:
+    while rows * chains <= TILE_VALUES:
         ga, gc, smem = _groups(rows, chains, slab)
         if smem <= SMEM_BLOCK:
-            return ModelPlan(chains, rows, slab, ga, gc, -(-K // chains), smem)
+            return ModelPlan("wide", chains, 0, rows, rows + 4, slab, ga, gc, -(-K // chains),
+                             smem)
+        if chains == 4:
+            break
         chains //= 2
     raise ValueError(f"kernel B1's model route takes at most {model_p_max()} parameters, got "
                      f"P = {P}")
 
 
 def _groups(rows, chains, slab):
-    """The contraction groups of each product (enough tiles to fill the
-    block's threads) and the block's shared memory."""
-    tiles_a, tiles_c = slab * chains // 4, rows // TILE_ROWS * chains // 4
-    ga = max(1, min(THREADS // tiles_a, rows // 4))
+    """The contraction groups of each wide product (enough tiles to fill
+    the block's threads, no residual group empty) and the block's shared
+    memory."""
+    tiles_a, tiles_c = slab // RES_ROWS * chains // 4, rows // TILE_ROWS * chains // 4
+    quads = rows // 4
+    ga = max(1, min(THREADS // tiles_a, quads))
+    ga = -(-quads // -(-quads // ga))  # as many groups as a group's share of quads leaves
     gc = max(1, min(THREADS // tiles_c, slab))
-    return ga, gc, _model_smem(rows, chains, slab, ga, gc)
+    return ga, gc, _wide_smem(rows, chains, slab, ga, gc)
 
 
 @functools.lru_cache(maxsize=None)
 def model_p_max() -> int:
-    """The largest P whose block fits at 4 chains and 4 rows a slab."""
-    lo, hi = 1, 1 << 16
+    """The largest P the wide route takes: one 8 x 4 momentum tile a thread
+    at 4 chains, its block within a block's shared memory at 4 rows a
+    slab."""
+    lo, hi = 1, TILE_VALUES // 4
     while lo < hi:
         mid = (lo + hi + 1) // 2
         fits = _groups(_ceil(mid, TILE_ROWS), 4, 4)[2] <= SMEM_BLOCK
@@ -268,29 +357,41 @@ def model_p_max() -> int:
 
 
 class ModelOperands(NamedTuple):
-    """The form on the card, float32 and zero padded: M as ``(N rounded up
-    to SLAB_MAX, P rounded up to 8)``, y - offset and the inverse scales as
-    ``(N rounded up,)``, and ``vec``: the inverse mass (ones for unit mass),
+    """The form on the card, float32 and zero padded, for the route of its
+    P and N (``model_route``). ``M``: on the wide route ``(N rounded up to
+    SLAB_MAX, P rounded up to 8, plus 4)``, the ring's rows, y - offset and
+    the inverse scale in the words after the padded P; on the narrow route
+    ``(N rounded up to 32, narrow_width(P))``, each row M's, then y - offset
+    and the inverse scale. ``vec``: the inverse mass (ones for unit mass),
     the prior's kind, a and b per row (``P`` rounded up to 8 each), the
     whole normalisation, 3 words of padding. ``unit`` says which mass."""
 
     M: torch.Tensor
-    yo: torch.Tensor
-    w: torch.Tensor
     vec: torch.Tensor
     unit: bool
+    route: str
+
+
+def _operand_shapes(P, N):
+    """The shapes of ``ModelOperands``' M and vec for P and N."""
+    rows = _ceil(P, TILE_ROWS)
+    if model_route(P, N) == "narrow":
+        return (_ceil(N, NARROW_ROWS), narrow_width(P)), (4 * rows + 4,)
+    return (_ceil(N, SLAB_MAX), rows + 4), (4 * rows + 4,)
 
 
 def model_operands(form: ModelForm, inv_mass_diag=None) -> ModelOperands:
     """``ModelOperands`` of a form and a ``(P,)`` diagonal inverse mass
     (None: unit mass), on the form's device."""
     N, P = form.M.shape
-    rows, nr = _ceil(P, TILE_ROWS), _ceil(N, SLAB_MAX)
+    rows = _ceil(P, TILE_ROWS)
+    route = model_route(P, N)
+    m_shape, _ = _operand_shapes(P, N)
     f32 = dict(dtype=torch.float32, device=form.M.device)
-    M = torch.zeros((nr, rows), **f32)
+    M = torch.zeros(m_shape, **f32)
     M[:N, :P] = form.M
-    yo, w = torch.zeros(nr, **f32), torch.zeros(nr, **f32)
-    yo[:N], w[:N] = form.yo, form.w
+    at = P if route == "narrow" else rows  # the words of y - offset and the scale
+    M[:N, at], M[:N, at + 1] = form.yo, form.w
     vec = torch.zeros(4 * rows + 4, **f32)
     vec[:rows] = 1.0
     if inv_mass_diag is not None:
@@ -303,7 +404,7 @@ def model_operands(form: ModelForm, inv_mass_diag=None) -> ModelOperands:
             vec[3 * rows + idx] = b.to(torch.float32)
         norm += float(c_norm)
     vec[4 * rows] = norm
-    return ModelOperands(M, yo, w, vec, inv_mass_diag is None)
+    return ModelOperands(M, vec, inv_mass_diag is None, route)
 
 
 def _launch_model_chunk(theta, logp, eps, inv_temp, z, us, ua, *, form, steps, inv_mass_diag,
@@ -326,7 +427,6 @@ def _launch_model_chunk(theta, logp, eps, inv_temp, z, us, ua, *, form, steps, i
     if chunk < 1 or K < 1:
         raise ValueError("the model route needs at least one chain and one transition")
     f32, i32 = torch.float32, torch.int32
-    rows, nr = _ceil(P, TILE_ROWS), _ceil(N, SLAB_MAX)
     checks = [
         ("theta", theta, (P, K), f32),
         ("logp", logp, (K,), f32),
@@ -356,8 +456,11 @@ def _launch_model_chunk(theta, logp, eps, inv_temp, z, us, ua, *, form, steps, i
     if operands is None:
         raise ValueError("the model route takes operands=model_operands(form, inv_mass_diag), "
                          "the plan's padded form")
-    for name, x, shape in (("M", operands.M, (nr, rows)), ("yo", operands.yo, (nr,)),
-                           ("w", operands.w, (nr,)), ("vec", operands.vec, (4 * rows + 4,))):
+    plan = model_plan(P, K, N)
+    if operands.route != plan.route:
+        raise ValueError(f"the model route: the padded form is the {operands.route} route's, "
+                         f"the plan's is {plan.route}")
+    for name, x, shape in zip(("M", "vec"), operands[:2], _operand_shapes(P, N)):
         if x.dtype != f32 or x.device != dev or tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"the model route: the padded {name} is not a contiguous float32 "
                              f"{shape} tensor on {dev}")
@@ -371,22 +474,21 @@ def _launch_model_chunk(theta, logp, eps, inv_temp, z, us, ua, *, form, steps, i
     hist = ((empty((chunk, P, K)), empty((chunk, K)), empty((chunk, K), i32), empty((chunk, K)))
             if store else None)
     try:
-        fn = _build.bind("hmc_model", "hmc_model_chunk", 26, 12,
-                         kernel_variant(form.family, operands.unit))
+        fn = _build.bind("hmc_model", "hmc_model_chunk", 24, 14,
+                         model_variant(form.family, operands.unit, P, N))
     except (RuntimeError, OSError) as e:
-        raise RuntimeError(f"the model route ({FAMILY_NAMES[form.family]}) failed to build or "
-                           f"load: {e}") from e
-    plan = model_plan(P, K, N)
+        raise RuntimeError(f"the model route ({FAMILY_NAMES[form.family]}, {plan.route}, P = "
+                           f"{P}) failed to build or load: {e}") from e
     ptrs = [x.data_ptr() for _, x, _, _ in checks]
-    ptrs += [operands.M.data_ptr(), operands.yo.data_ptr(), operands.w.data_ptr(),
-             operands.vec.data_ptr()]
+    ptrs += [operands.M.data_ptr(), operands.vec.data_ptr()]
     ptrs += [x.data_ptr() for x in outs]
     ptrs += [x.data_ptr() for x in hist] if store else [None] * 4
-    sizes = (P, K, N, chunk, int(steps), max(int(steps * 1.1), 1), plan.rows, plan.chains,
-             plan.slab, plan.ga, plan.gc, int(operands.unit))
+    sizes = (P, K, N, chunk, int(steps), max(int(steps * 1.1), 1), plan.chains, plan.lanes,
+             plan.rows, plan.stride, plan.slab, plan.ga, plan.gc, int(operands.unit))
     with torch.cuda.device(dev):
         rc = fn(*ptrs, *sizes, _build.stream(dev))
-    _build.raise_on(rc, f"B1 model route ({FAMILY_NAMES[form.family]}, P = {P}, N = {N})")
+    _build.raise_on(rc, f"B1 model route ({FAMILY_NAMES[form.family]}, {plan.route}, P = {P}, "
+                        f"N = {N})")
     KERNEL_LAUNCHES += 1
     t_o, lp_o, ev_o, ea_o, evr_o, en_o, ec_o = outs
     return t_o, lp_o, AdaptiveScale(ev_o, ea_o, evr_o, en_o, ec_o), hist

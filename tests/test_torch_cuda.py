@@ -147,16 +147,15 @@ def test_fused_chain_array_on_card(cuda):
     assert ca.rhat().max() < 1.05
 
 
-def _model_inputs(device, family, P, K, seed):
-    """A library posterior of ``family`` over a ``LinearForwardModel`` (N =
-    256, a Gaussian prior and an Exponential one on the last two
+def _model_inputs(device, family, P, K, seed, N=256):
+    """A library posterior of ``family`` over a ``LinearForwardModel`` (N
+    data, a Gaussian prior and an Exponential one on the last two
     variables) as its ``ModelForm`` on the card, and a float32
     mid-adaptation state about its truth with the draws of one transition;
     every 16th chain starts outside the Exponential's support."""
     from inference_tpu_torch import models
 
     rng = np.random.default_rng(seed)
-    N = 256
     M = rng.normal(size=(N, P)) / np.sqrt(P)
     truth = rng.normal(0, 1, P)
     truth[-2:] = np.abs(truth[-2:]) + 0.2
@@ -182,18 +181,18 @@ def _model_inputs(device, family, P, K, seed):
     return form, (theta, form.value_cols(theta).contiguous(), eps, it, z, us, ua)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("family", ["gaussian", "cauchy", "logistic"])
-@pytest.mark.parametrize("P", [10, 65])
-def test_model_route_matches_plain_one_transition(cuda, family, P):
-    """Kernel B1's model route, one transition against its plain version:
-    position and step size within tolerance, logp within tolerance or -inf
-    in both, adaptation counters equal, on >= 99.9% of chains; one launch
-    counted."""
-    form, args = _model_inputs(cuda, family, P, 4096, seed=P + len(family))
-    kw = dict(form=form, steps=20, inv_mass_diag=None, store=False)
+def _model_one_transition(cuda, family, P, seed, N=256, diag=False):
+    """Kernel B1's model route, one transition against its plain version
+    on ``_model_inputs``: position and step size within tolerance, logp
+    within tolerance or -inf in both, adaptation counters equal, on >=
+    99.9% of chains; one launch counted. Returns the plan's route."""
+    K = 4096
+    form, args = _model_inputs(cuda, family, P, K, seed=seed, N=N)
+    im = (torch.as_tensor(np.random.default_rng(seed).uniform(0.5, 2.0, P), dtype=torch.float32,
+                          device=cuda) if diag else None)
+    kw = dict(form=form, steps=20, inv_mass_diag=im, store=False)
     before = hmc_model.KERNEL_LAUNCHES
-    k = hmc_model._launch_model_chunk(*args, **kw, operands=hmc_model.model_operands(form))
+    k = hmc_model._launch_model_chunk(*args, **kw, operands=hmc_model.model_operands(form, im))
     p = hmc_fused._reference_chunk(*args, **kw)
     torch.cuda.synchronize()
     assert hmc_model.KERNEL_LAUNCHES == before + 1
@@ -202,6 +201,36 @@ def test_model_route_matches_plain_one_transition(cuda, family, P):
     ok &= (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
     assert float(ok.float().mean()) >= 0.999
     assert bool(torch.isneginf(args[1][::16]).all())
+    return hmc_model.model_plan(P, K, N).route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gaussian", "cauchy", "logistic"])
+@pytest.mark.parametrize("P", [10, hmc_model.NARROW_P_MAX, hmc_model.NARROW_P_MAX + 1, 65, 256])
+def test_model_route_matches_plain_one_transition(cuda, family, P):
+    """Kernel B1's model route, one transition against its plain version
+    (``_model_one_transition``) for each family at P = 10, at the narrow
+    route's limit and one above it, and at 65 and 256: the narrow route up
+    to the limit, the wide one above."""
+    route = _model_one_transition(cuda, family, P, seed=P + len(family))
+    assert route == ("narrow" if P <= hmc_model.NARROW_P_MAX else "wide")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, route", [(10, "narrow"), (65, "wide")])
+def test_model_route_diagonal_mass_matches_plain(cuda, P, route):
+    """A diagonal inverse mass on each route, one transition against the
+    plain version."""
+    assert _model_one_transition(cuda, "gaussian", P, seed=40 + P, diag=True) == route
+
+
+@pytest.mark.cuda
+def test_model_route_past_the_resident_budget_takes_the_wide_route(cuda):
+    """P = 10 with N = 8,192 data: M, y - offset and the scales (384 KB)
+    do not fit a block's shared memory, so the plan takes the wide route,
+    which matches the plain version on one transition."""
+    assert hmc_model.model_route(10, 8192) == "wide"
+    assert _model_one_transition(cuda, "cauchy", 10, seed=51, N=8192) == "wide"
 
 
 @pytest.mark.cuda

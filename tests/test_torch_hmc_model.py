@@ -379,54 +379,139 @@ def test_auto_keeps_the_plain_path():
 # --------------------------------------------------------------------- #
 @pytest.mark.parametrize("N", [1, 40, 1024, 100_000])
 @pytest.mark.parametrize("K", [1, 1000, 4096, 65536])
-@pytest.mark.parametrize("P", [1, 10, 65, 256, 1000, hmc_model.model_p_max()])
+@pytest.mark.parametrize("P", [1, 10, hmc_model.NARROW_P_MAX, hmc_model.NARROW_P_MAX + 1, 65, 256,
+                               1000, hmc_model.model_p_max()])
 def test_model_plan_fits_a_block(P, K, N):
-    """Every plan fits a block's shared memory with 4 to 64 chains (a power
-    of two), a slab of 4 to 256 rows (a power of two), contraction groups
-    that leave no product's tiles wanting threads where it can, and the
-    kernel's own shared-memory formula; a larger P raises."""
+    """Every plan fits a block's shared memory by the kernel's own formula
+    and takes the route ``model_route`` names. Narrow: lanes a chain a
+    power of two up to 32, 256 / lanes chains a block, the resident rows N
+    rounded up to 32, and the most lanes whose blocks fit the card at once.
+    Wide: 4 to 64 chains (a power of two) whose momenta are one 8 x 4 tile
+    a thread at most, a slab of 4 to 256 rows (a power of two), the
+    residual's groups none empty and their tiles no more than the threads
+    where they can, the gradient's groups as many as its tiles leave
+    threads; a larger P raises."""
     plan = hmc_model.model_plan(P, K, N)
-    assert plan.chains in (4, 8, 16, 32, 64) and plan.slab in (4, 8, 16, 32, 64, 128, 256)
-    assert plan.rows == -(-P // 8) * 8 and plan.blocks == -(-K // plan.chains)
-    assert plan.smem == hmc_model._model_smem(plan.rows, plan.chains, plan.slab, plan.ga,
-                                               plan.gc) <= hmc_model.SMEM_BLOCK
-    tiles_a = plan.slab * plan.chains // 4
+    assert plan.route == hmc_model.model_route(P, N)
+    assert plan.blocks == -(-K // plan.chains) and plan.smem <= hmc_model.SMEM_BLOCK
+    if plan.route == "narrow":
+        assert plan.lanes in (1, 2, 4, 8, 16, 32) and plan.chains == 256 // plan.lanes
+        assert plan.rows == -(-N // 32) * 32 and plan.stride == hmc_model.narrow_width(P)
+        assert (plan.slab, plan.ga, plan.gc) == (0, 0, 0)
+        assert plan.smem == hmc_model._narrow_smem(plan.rows, P)
+        per_sm = max(1, min(hmc_model.narrow_blocks_sm(P), 233_472 // (plan.smem + 1024)))
+        fits = lambda lanes: -(-K * lanes // 256) <= 132 * per_sm
+        assert plan.lanes == 1 or fits(plan.lanes)
+        assert plan.lanes == 32 or not fits(2 * plan.lanes)
+        return
+    assert plan.lanes == 0 and plan.chains in (4, 8, 16, 32, 64)
+    assert plan.slab in (4, 8, 16, 32, 64, 128, 256)
+    assert plan.rows == -(-P // 8) * 8 and plan.stride == plan.rows + 4
+    assert plan.rows * plan.chains <= 8 * 4 * 256
+    assert plan.smem == hmc_model._wide_smem(plan.rows, plan.chains, plan.slab, plan.ga, plan.gc)
+    tiles_a = plan.slab // 4 * plan.chains // 4
     tiles_c = plan.rows // 8 * plan.chains // 4
-    assert tiles_a * plan.ga <= max(tiles_a, hmc_model.THREADS) and 4 * plan.ga <= plan.rows
-    assert tiles_c * plan.gc <= max(tiles_c, hmc_model.THREADS) and plan.gc <= plan.slab
+    quads, per_group = plan.rows // 4, -(-plan.rows // 4 // plan.ga)
+    assert tiles_a * plan.ga <= max(tiles_a, 256) and 4 * plan.ga <= plan.rows
+    assert (plan.ga - 1) * per_group < quads  # no residual group empty
+    assert tiles_c * plan.gc <= 256 and plan.gc <= plan.slab
+    assert plan.gc == plan.slab or tiles_c * (plan.gc + 1) > 256
     with pytest.raises(ValueError, match=str(hmc_model.model_p_max())):
         hmc_model.model_plan(hmc_model.model_p_max() + 1, K, N)
 
 
+@pytest.mark.parametrize("P, N, route", [
+    (1, 1, "narrow"), (10, 1024, "narrow"), (hmc_model.NARROW_P_MAX, 1024, "narrow"),
+    (hmc_model.NARROW_P_MAX + 1, 1024, "wide"), (65, 40, "wide"), (256, 1024, "wide"),
+    (10, 4832, "narrow"), (10, 4833, "wide"), (10, 100_000, "wide"),
+    (16, 2880, "narrow"), (16, 2881, "wide"), (hmc_model.NARROW_P_MAX, 1312, "narrow"),
+    (hmc_model.NARROW_P_MAX, 1313, "wide")])
+def test_model_route_by_p_and_n(P, N, route):
+    """The route by shape alone: narrow up to ``NARROW_P_MAX`` parameters
+    while N rounded up to 32 rows of ``narrow_width(P)`` words and the four
+    per-variable words fit a block (P = 10: 4,832 data; P = 16: 2,880; P =
+    40: 1,312), wide above either; the padded operands follow it."""
+    assert hmc_model.model_route(P, N) == route
+    rows = -(-N // 32) * 32
+    resident = 4 * (rows * hmc_model.narrow_width(P) + 4 * (-(-P // 8) * 8))
+    assert (route == "narrow") == (P <= hmc_model.NARROW_P_MAX
+                                   and resident <= hmc_model.SMEM_BLOCK)
+    form = hmc_model.ModelForm(torch.ones(N, P), torch.ones(N), torch.ones(N), 0,
+                               torch.tensor(0.0), [])
+    ops = hmc_model.model_operands(form)
+    assert ops.route == route
+    assert ops.M.shape == ((rows, hmc_model.narrow_width(P)) if route == "narrow"
+                           else (-(-N // 256) * 256, -(-P // 8) * 8 + 4))
+    assert hmc_model.model_variant(0, True, P, N) == hmc_model.kernel_variant(
+        0, True, P if route == "narrow" else 0)
+
+
+def test_narrow_limit_is_at_least_sixteen():
+    """The narrow route takes robust-10's P = 10 and every P up to its
+    limit, 40 (at least 16), at N = 1,024; its rows' words are 4 mod 8
+    (distinct banks for 8 lanes on 8 consecutive rows) and hold M, y -
+    offset and the scale."""
+    assert hmc_model.NARROW_P_MAX == 40
+    for P in range(1, hmc_model.NARROW_P_MAX + 1):
+        assert hmc_model.model_plan(P, 4096, 1024).route == "narrow"
+        w = hmc_model.narrow_width(P)
+        assert w % 8 == 4 and P + 2 <= w < P + 2 + 8
+    assert hmc_model.model_plan(hmc_model.NARROW_P_MAX + 1, 4096, 1024).route == "wide"
+
+
 def test_model_smem_formula_is_the_kernels():
-    """``_model_smem`` is csrc/hmc_model.cu's ``model_smem``, term by term,
-    and the constants it uses are the kernel's."""
+    """``_narrow_smem`` and ``_wide_smem`` are csrc/hmc_model.cu's
+    ``narrow_smem`` and ``wide_smem``, term by term, and the constants they
+    use are the kernel's."""
     src = (hmc_model.__file__[:-len("hmc_model.py")] + "csrc/hmc_model.cu")
     text = open(src).read()
-    for name, value in (("THREADS", 256), ("STAGES", 2), ("TR", 8), ("CHAIN_WORDS", 13)):
+    for name, value in (("THREADS", 256), ("STAGES", 3), ("TR", 8), ("RR", 4),
+                        ("CHAIN_WORDS", 13), ("TILE_VALUES", 8192), ("NARROW_ROWS", 32)):
         assert f"constexpr int {name} = {value};" in text
+    assert (hmc_model.THREADS, hmc_model.STAGES, hmc_model.TILE_ROWS, hmc_model.RES_ROWS,
+            hmc_model.CHAIN_WORDS, hmc_model.TILE_VALUES, hmc_model.NARROW_ROWS) == (
+        256, 3, 8, 4, 13, 8192, 32)
     assert "constexpr size_t SMEM_BLOCK = 232448;" in text
-    for term in ("size_t(STAGES) * slab * rows", "2 * size_t(rows) * chains",
-                 "size_t(slab) * chains", "size_t(ga) * slab * chains", "size_t(gc) * rows * chains",
-                 "4 * size_t(rows)", "7 * size_t(THREADS)", "CHAIN_WORDS * size_t(chains)"):
+    # narrow: the resident rows, the four per-variable words (P rounded up to 8)
+    assert "4 * (size_t(rows) * narrow_width(p) + 4 * size_t((p + 7) / 8 * 8))" in text
+    assert "return (p + 5) / 4 * 4 % 8 == 0 ? (p + 5) / 4 * 4 + 4 : (p + 5) / 4 * 4;" in text
+    # the narrow route's blocks an SM by its registers
+    assert "constexpr int NARROW_BLOCKS_SM = NP <= 16 ? 2 : 1;" in text
+    assert [hmc_model.narrow_blocks_sm(P) for P in (1, 16, 17, 40)] == [2, 2, 1, 1]
+    # wide: the ring, the positions, psi's two buffers, the groups' sums, the
+    # per-variable words, the owners' partial sums, vred and the chains' words
+    for term in ("size_t(STAGES) * slab * (rows + 4)", "size_t(rows) * chains",
+                 "2 * size_t(slab) * chains", "(ga > 1 ? size_t(ga) * slab * chains : 0)",
+                 "(gc > 1 ? size_t(gc - 1) * rows * chains : 0)", "4 * size_t(rows)",
+                 "3 * size_t(rows / TR) * chains", "4 * size_t(THREADS)",
+                 "CHAIN_WORDS * size_t(chains)"):
         assert term in text
+    assert hmc_model._wide_smem(256, 32, 32, 4, 1) == 4 * (
+        3 * 32 * 260 + 256 * 32 + 2 * 32 * 32 + 4 * 32 * 32 + 4 * 256 + 3 * 32 * 32 + 4 * 256
+        + 13 * 32)
+    assert hmc_model._narrow_smem(1024, 10) == 4 * (1024 * 12 + 4 * 16)
 
 
+@pytest.mark.parametrize("route", ["narrow", "wide"])
 @pytest.mark.parametrize("diag", [False, True])
-def test_model_operands_are_the_form_zero_padded(diag):
-    """M, y - offset and the scales zero padded to whole slabs and rows;
-    the inverse mass (ones for unit mass), the prior's kind, a and b per
-    variable and the whole normalisation in ``vec``."""
-    post, jpost, M, offset, truth = _posteriors("gaussian", "gauss+exp", 5, N=37, seed=14)
+def test_model_operands_are_the_form_zero_padded(diag, route):
+    """M zero padded to the route's rows and words, y - offset and the
+    scale in the words after P (narrow) or after P rounded up to 8 (wide:
+    the ring rows' padding); the inverse mass (ones for unit mass), the
+    prior's kind, a and b per variable and the whole normalisation in
+    ``vec``."""
+    N = 37 if route == "narrow" else 5000
+    post, jpost, M, offset, truth = _posteriors("gaussian", "gauss+exp", 5, N=N, seed=14)
     form = hmc_model.model_form(post)
     im = torch.linspace(0.5, 2.0, 5) if diag else None
     ops = hmc_model.model_operands(form, im)
-    assert ops.M.shape == (256, 8) and ops.M.dtype == torch.float32 and ops.unit == (not diag)
-    torch.testing.assert_close(ops.M[:37, :5], form.M.float())
-    assert not ops.M[37:].any() and not ops.M[:, 5:].any()
-    torch.testing.assert_close(ops.yo[:37], (form.yo).float())
-    torch.testing.assert_close(ops.w[:37], form.w.float())
-    assert not ops.yo[37:].any() and not ops.w[37:].any()
+    assert ops.route == route and ops.M.dtype == torch.float32 and ops.unit == (not diag)
+    at = 5 if route == "narrow" else 8
+    assert ops.M.shape == ((64, 12) if route == "narrow" else (-(-N // 256) * 256, 12))
+    torch.testing.assert_close(ops.M[:N, :5], form.M.float())
+    torch.testing.assert_close(ops.M[:N, at], form.yo.float())
+    torch.testing.assert_close(ops.M[:N, at + 1], form.w.float())
+    assert not ops.M[N:].any() and not ops.M[:, 5:at].any() and not ops.M[:, at + 2:].any()
     rows = 8
     torch.testing.assert_close(ops.vec[:5], im.float() if diag else torch.ones(5, dtype=torch.float32))
     assert ops.vec[:rows][5:].eq(1.0).all()
