@@ -322,11 +322,9 @@ with its bound, plain version and library call) and the ``nvidia-smi``
 line; the last line is ``{"ok": true, "device": {...}}``.
 """
 
-import contextlib
 import copy
 import functools
 import gc
-import io
 import json
 import os
 import re
@@ -1679,98 +1677,6 @@ def robust10_windows():
     print(f"[robust-10 windows] fused against plain: means within {z.max():.3f} combined "
           f"standard errors, variances within {np.abs(v1 / v2 - 1.0).max():.4f}")
     return float(z.max())
-
-
-def _chunk_ms(post, truth, M, steps):
-    """CUDA-event time of one chunk (``_model_chunk``) after a warm-up
-    launch, with the plan ``hmc_model.model_plan`` gives at the time of the
-    call."""
-    launch = _model_chunk(post, truth, M, steps)[3]
-    launch()
-    return _event_ms(launch)
-
-
-def model_route_sweep():
-    """Not part of ``main``: the readings behind the model route's plan
-    (PERF.md), each a chunk of 64 transitions at 4,096 chains and N =
-    1,024 (``_chunk_ms``) or a chunk check (``_model_compare``), with the
-    plan set by hand where it says so: robust-10 at 4, 8, 16 and 32 lanes a
-    chain; the Gaussian at P = 16, 24, 32, 40 and 48 (20 steps) on each
-    route; the Cauchy at P = 65 (20 steps) with its slab and residual
-    groups (128, 1: the plan's; 64, 2; 32, 4); each library's registers
-    and spills (``-Xptxas -v``); and the chunk check's drift
-    from float64 (the kernel's share less the float32 plain version's
-    after 16 transitions, and the check's slack) at the Cauchy's P = 10
-    (seeds 10-17) and P = 65 (seeds 60-69)."""
-    phase_device()
-    torch.set_default_dtype(torch.float32)
-    variants = ([hmc_model.kernel_variant(f, True, 0) for f in (0, 1)]
-                + [hmc_model.kernel_variant(1, True, ROBUST_P)]
-                + [hmc_model.kernel_variant(0, True, P) for P in (16, 24, 32, 40, 48)])
-    with ThreadPoolExecutor(len(variants)) as pool:
-        for f in [pool.submit(_build.load, "hmc_model", v) for v in variants]:
-            f.result()
-    for v in variants:
-        regs = [line.strip() for line in _build.build_log("hmc_model", v).splitlines()
-                if "registers" in line or "spill" in line]
-        print(f"[sweep] library {dict(v)}: {'; '.join(regs)}")
-    plan_of = hmc_model.model_plan
-    try:
-        robust = robust_posterior(CUDA)
-        for T in (4, 8, 16, 32):
-            plan = hmc_model.ModelPlan("narrow", 256 // T, T, ROBUST_N, hmc_model.narrow_width(10),
-                                       0, 0, 0, -(-MODEL_CHAINS * T // 256),
-                                       hmc_model._narrow_smem(ROBUST_N, 10))
-            hmc_model.model_plan = lambda P, K, N: plan
-            print(f"[sweep] robust-10, {T} lanes a chain: {_chunk_ms(*robust, HMC_STEPS):.3f} ms "
-                  f"(card: {SMI})")
-        hmc_model.model_plan = plan_of
-        limit, route_of = hmc_model.NARROW_P_MAX, hmc_model.model_route
-        for P in (16, 24, 32, 40, 48):
-            case = model_posterior("gaussian", P, MODEL_N, "gauss+exp", P, CUDA)
-            for route in ("narrow", "wide"):
-                hmc_model.NARROW_P_MAX = 48
-                hmc_model.model_route = lambda P_, N, r=route: r
-                plan_of.cache_clear()
-                try:
-                    ms = _chunk_ms(*case, 20)
-                    print(f"[sweep] Gaussian P={P}, the {route} route "
-                          f"({hmc_model.model_plan(P, MODEL_CHAINS, MODEL_N)}): {ms:.3f} ms "
-                          f"(card: {SMI})")
-                finally:
-                    hmc_model.NARROW_P_MAX, hmc_model.model_route = limit, route_of
-                    plan_of.cache_clear()
-        case = model_posterior("cauchy", 65, MODEL_N, "gauss+exp", 65, CUDA)
-        base = plan_of(65, MODEL_CHAINS, MODEL_N)
-        for S, ga in ((128, 1), (64, 2), (32, 4)):
-            gc = hmc_model._groups(base.rows, base.chains, S)[1]
-            plan = base._replace(slab=S, ga=ga, gc=gc,
-                                 smem=hmc_model._wide_smem(base.rows, base.chains, S, ga, gc))
-            hmc_model.model_plan = lambda P, K, N: plan
-            print(f"[sweep] Cauchy P=65, slab {S}, residual groups {ga}: "
-                  f"{_chunk_ms(*case, 20):.3f} ms (card: {SMI})")
-        hmc_model.model_plan = plan_of
-        found = re.compile(r"kernel \{[^}]*16: ([0-9.]+)\}, plain float32 \{[^}]*16: ([0-9.]+)\} "
-                           r"\(the kernel's last at least the plain's less ([0-9.]+)\)")
-        for P, seeds in ((ROBUST_P, range(10, 18)), (65, range(60, 70))):
-            for seed in seeds:
-                out = io.StringIO()
-                try:
-                    with contextlib.redirect_stdout(out):
-                        _model_compare("cauchy", "gauss+exp", P, seed=seed)
-                    held = "held"
-                except RuntimeError:
-                    held = "failed"
-                read = found.search(out.getvalue())
-                if read is None:
-                    print(f"[sweep] Cauchy P={P} seed {seed}: the one-transition check {held}")
-                    continue
-                k, p, slack = map(float, read.groups())
-                print(f"[sweep] Cauchy P={P} seed {seed}: drift from float64 after 16 "
-                      f"transitions, kernel less plain {k - p:+.4f} (slack {slack:.4f}), {held}")
-    finally:
-        hmc_model.model_plan = plan_of
-        plan_of.cache_clear()
 
 
 def phase_model_route(plain_row):

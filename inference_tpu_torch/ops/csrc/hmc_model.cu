@@ -42,7 +42,7 @@
 // (ops/hmc_model.py::model_plan) picks one of two routes by shape alone;
 // each is its own library.
 //
-// The narrow route (P up to ops/hmc_model.py's NARROW_P_MAX, 40, and M
+// The narrow route (P up to ops/hmc_model.py's NARROW_P_MAX, 52, and M
 // with y' and w resident in shared memory), built once per P (HM_P),
 // family and mass, so every loop over P unrolls with no padding: at small
 // P a gradient is a few FFMA a datum, so per-datum overheads and
@@ -64,9 +64,10 @@
 //     the residual over two halves of P (one run over a lane's 64 rows
 //     drifted measurably faster than the plain version).
 //
-// The wide route (any other P up to 2,048), one library per family and
-// mass (HM_P = 0): at P = 256 each datum is 2 x 256 FFMA a chain, so the
-// products must run near the FMA pipe's rate.
+// The wide route (any other P up to ops/hmc_model.py::model_p_max, 3,024),
+// one library per family, mass and tiles a thread (HM_P = 0, HM_TILES): at
+// P = 256 each datum is 2 x 256 FFMA a chain, so the products must run
+// near the FMA pipe's rate.
 //   - A block of 256 threads owns C chains (a power of two, 4 to 64). Each
 //     thread owns an 8-row by 4-chain tile of the block's momenta in
 //     registers for the whole chunk, and accumulates the same tile of the
@@ -75,6 +76,12 @@
 //     Where the tiles are fewer than the threads, the pass's data rows are
 //     split in GC groups whose partial gradients meet once a pass, not
 //     once a slab. The kick is the plain version's r + coef (g + prior).
+//     Past P = 2,048 (4 chains' momenta more than a tile a thread) a
+//     thread owns two tiles of the same chains (HM_TILES = 2: 128
+//     registers of momenta and gradients, so its loops are not unrolled).
+//     The per-variable words (inverse mass, prior) are read by their
+//     owners through L1, so shared memory holds the ring, the positions
+//     and psi.
 //   - One gradient is one pass over M in slabs of S rows streamed by
 //     cp.async through a ring of 3 stages. The pass is software pipelined:
 //     one phase takes the gradient product of slab i (M_slab^T psi, 8 x 4
@@ -99,14 +106,15 @@
 
 #include "hmc_common.cuh"  // adapt, step_count, the cp.async ring, row_sum
 
-#if !defined(HM_FAMILY) || !defined(HM_UNIT) || !defined(HM_P)
-#error "the model route is built per family, mass and route: nvcc -DHM_FAMILY=<0|1|2> -DHM_UNIT=<0|1> -DHM_P=<P|0>"
+#if !defined(HM_FAMILY) || !defined(HM_UNIT) || !defined(HM_P) || !defined(HM_TILES)
+#error "the model route is built per family, mass and route: nvcc -DHM_FAMILY=<0|1|2> -DHM_UNIT=<0|1> -DHM_P=<P|0> -DHM_TILES=<1|2>"
 #endif
 
 constexpr int FAMILY = HM_FAMILY;  // 0 Gaussian, 1 Cauchy, 2 Logistic
 constexpr bool UNIT = HM_UNIT != 0;
 static_assert(FAMILY >= 0 && FAMILY <= 2, "HM_FAMILY is 0, 1 or 2");
 static_assert(HM_P >= 0, "HM_P is the narrow route's P, or 0 for the wide route");
+static_assert(HM_TILES == 1 || HM_TILES == 2, "HM_TILES is the wide route's momentum tiles a thread");
 
 struct ModelArgs {
   // state in
@@ -442,18 +450,21 @@ namespace {
 constexpr int STAGES = 3;              // the ring of slabs of M
 constexpr int TR = 8;                  // rows of a momentum (gradient) tile, by 4 chains
 constexpr int RR = 4;                  // rows of a residual tile, by 4 chains
-constexpr int UR = 2, UG = 4;          // the products' unrolling, chosen by timing P = 256
+constexpr int NT = HM_TILES;           // momentum tiles a thread
+// the products' unrolling, chosen by timing P = 256 (none with two tiles,
+// whose momenta and gradients take 128 registers)
+constexpr int UR = NT == 1 ? 2 : 1, UG = NT == 1 ? 4 : 1;
 constexpr int TILE_VALUES = 8192;      // TR x 4 x THREADS: a block's momenta, one tile a thread
 constexpr int CHAIN_WORDS = 13;        // per-chain words in shared memory
 
 // Shared memory of a block in bytes (ops/hmc_model.py::_wide_smem computes
 // the same): the ring, the positions, psi's two buffers, the residual's
-// and the gradient's group sums, the per-variable words, the owners'
-// partial sums, the likelihood's and the chains' words.
+// and the gradient's group sums, the owners' partial sums, the
+// likelihood's and the chains' words.
 size_t wide_smem(int rows, int chains, int slab, int ga, int gc) {
   const size_t words = size_t(STAGES) * slab * (rows + 4) + size_t(rows) * chains +
                        2 * size_t(slab) * chains + (ga > 1 ? size_t(ga) * slab * chains : 0) +
-                       (gc > 1 ? size_t(gc - 1) * rows * chains : 0) + 4 * size_t(rows) +
+                       (gc > 1 ? size_t(gc - 1) * rows * chains : 0) +
                        3 * size_t(rows / TR) * chains + 4 * size_t(THREADS) +
                        CHAIN_WORDS * size_t(chains);
   return 4 * words;
@@ -483,11 +494,7 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
   float* Psi = Th + size_t(PR) * C;               // 2 x [slab row][chain]
   float* Ebuf = Psi + 2 * size_t(S) * C;          // the residual's group sums
   float* Cbuf = Ebuf + (GA > 1 ? size_t(GA) * S * C : 0);  // the gradient's, groups 1 ..
-  float* im_s = Cbuf + (GC > 1 ? size_t(GC - 1) * PR * C : 0);
-  float* kind_s = im_s + PR;
-  float* pa_s = kind_s + PR;
-  float* pb_s = pa_s + PR;
-  float* red = pb_s + PR;                        // kin0, kin, prior: 3 x [row tile][chain]
+  float* red = Cbuf + (GC > 1 ? size_t(GC - 1) * PR * C : 0);  // kin0, kin, prior: 3 x [row tile][chain]
   float* vred = red + 3 * size_t(NPT) * C;       // likelihood terms, 4 THREADS
   // per chain: the step size, the kick coefficients and the owner's state,
   // the step count, the accept flag and the support flags of two passes
@@ -504,19 +511,37 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
   int* acc_s = n_s + C;
   int* flags = acc_s + C;                        // 2 C
 
-  // the thread's momentum tile (owners: group 0) and gradient group
-  const int gq = tid / tiles_c;
+  // the thread's gradient group and momentum tiles (owners: group 0): tile
+  // tid and, with two tiles a thread (HM_TILES = 2, the tiles past the
+  // threads), tile tid + THREADS, of the same chains as THREADS is a
+  // multiple of CQ; a thread with no second tile repeats its first in the
+  // products and keeps nothing of it
+  const int tq = tid % tiles_c, gq = tid / tiles_c;
   const bool owner = gq == 0;
   const bool grads = gq < GC;
-  const int ocq = tid % tiles_c % CQ, p0 = TR * (tid % tiles_c / CQ), c0 = 4 * ocq;
-  float r[TR][4], acc[TR][4];
+  const int c0 = 4 * (tq % CQ);
+  int p0[NT];
+  bool has[NT];
+#pragma unroll
+  for (int q = 0; q < NT; ++q) {
+    const int u = tq + q * THREADS;
+    has[q] = owner && u < tiles_c;
+    p0[q] = TR * ((has[q] ? u : tq) / CQ);
+  }
+  float r[NT][TR][4], acc[NT][TR][4];
   float val[4];  // the likelihood terms of chains 4 (tid % CQ) .. over the last pass
+  // the per-variable words, read by the owners of their rows through L1:
+  // the inverse mass, the prior's kind, a and b
+  const float* vg = a.vec;
+  auto im_of = [&](int p) { return __ldg(vg + p); };
+  auto kind_of = [&](int p) { return static_cast<int>(__ldg(vg + PR + p)); };
+  auto pa_of = [&](int p) { return __ldg(vg + 2 * PR + p); };
+  auto pb_of = [&](int p) { return __ldg(vg + 3 * PR + p); };
 
-  // the ring's first slab, then the model's per-row words and the state
+  // the ring's first slab, then the state
   copy_rows(ring, a.M, 0, S, PRS);
   cp_async_commit();
   int issued = 1;  // slabs issued into the ring, counted over the chunk
-  for (int i = tid; i < 4 * PR; i += THREADS) im_s[i] = a.vec[i];  // im, kind, pa, pb
   const float norm = a.vec[4 * PR];
   const int ko = kb + tid;
   float u_acc = 0.0f, u_next = 0.0f;
@@ -543,33 +568,37 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   // Transition t's start, by each owner: the momentum draw (1 / sqrt(im)
-  // z) and its kinetic energy's partial sums, and the support flags of the
-  // current positions into flag buffer fb.
+  // z) of its tiles and their kinetic energy's partial sums, and the
+  // support flags of the current positions into flag buffer fb.
   auto draw = [&](int t, int fb) {
-    float kin0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     int bits[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int p = p0 + i;
-      const float im = im_s[p];
-      const int kind = static_cast<int>(kind_s[p]);
-      const float4 tv = *reinterpret_cast<const float4*>(Th + p * C + c0);
-      const float th[4] = {tv.x, tv.y, tv.z, tv.w};
+    for (int q = 0; q < NT; ++q) {
+      if (!has[q]) continue;
+      float kin0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k = kb + c0 + c;
-        float z = 0.0f;
-        if (p < P && k < K) {
-          z = a.z[(size_t(t) * P + p) * Ks + k];
-          if (!UNIT) z = (1.0f / sqrtf(im)) * z;
+      for (int i = 0; i < TR; ++i) {
+        const int p = p0[q] + i;
+        const float im = im_of(p);
+        const int kind = kind_of(p);
+        const float4 tv = *reinterpret_cast<const float4*>(Th + p * C + c0);
+        const float th[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = kb + c0 + c;
+          float z = 0.0f;
+          if (p < P && k < K) {
+            z = a.z[(size_t(t) * P + p) * Ks + k];
+            if (!UNIT) z = (1.0f / sqrtf(im)) * z;
+          }
+          r[q][i][c] = z;
+          kin0[c] = kin0[c] + z * velocity(im, z);
+          bits[c] |= support(kind, pa_of(p), pb_of(p), th[c]);
         }
-        r[i][c] = z;
-        kin0[c] = kin0[c] + z * velocity(im, z);
-        bits[c] |= support(kind, pa_s[p], pb_s[p], th[c]);
       }
+      *reinterpret_cast<float4*>(red + (p0[q] / TR) * C + c0) =
+          make_float4(kin0[0], kin0[1], kin0[2], kin0[3]);
     }
-    *reinterpret_cast<float4*>(red + (p0 / TR) * C + c0) =
-        make_float4(kin0[0], kin0[1], kin0[2], kin0[3]);
 #pragma unroll
     for (int c = 0; c < 4; ++c)
       if (bits[c]) atomicOr(flags + fb * C + c0 + c, bits[c]);
@@ -577,17 +606,21 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
 
   if (owner) {  // the positions into shared memory and theta_o, then the first draw
 #pragma unroll
-    for (int i = 0; i < TR; ++i) {
-      const int p = p0 + i;
-      float v[4];
+    for (int q = 0; q < NT; ++q) {
+      if (!has[q]) continue;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int k = kb + c0 + c;
-        const bool in = p < P && k < K;
-        v[c] = in ? a.theta[p * Ks + k] : 0.0f;
-        if (in) a.theta_o[p * Ks + k] = v[c];
+      for (int i = 0; i < TR; ++i) {
+        const int p = p0[q] + i;
+        float v[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int k = kb + c0 + c;
+          const bool in = p < P && k < K;
+          v[c] = in ? a.theta[p * Ks + k] : 0.0f;
+          if (in) a.theta_o[p * Ks + k] = v[c];
+        }
+        *reinterpret_cast<float4*>(Th + p * C + c0) = make_float4(v[0], v[1], v[2], v[3]);
       }
-      *reinterpret_cast<float4*>(Th + p * C + c0) = make_float4(v[0], v[1], v[2], v[3]);
     }
     draw(0, 0);
   }
@@ -604,9 +637,12 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
       const int* fl = flags + (pass & 1) * C;
       if (tid < C) flags[((pass + 1) & 1) * C + tid] = 0;  // the next pass's flags
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
+      for (int q = 0; q < NT; ++q) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
+        for (int i = 0; i < TR; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[q][i][c] = 0.0f;
+        }
       }
 #pragma unroll
       for (int c = 0; c < 4; ++c) val[c] = 0.0f;
@@ -709,20 +745,24 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
           }
         }
         if (ph > 0 && grads) {
-          // acc += M_slab^T psi on the thread's 8 x 4 tile, over its group's rows
-          const float* mg = ring + size_t(cg % STAGES) * slab_words + p0;
+          // acc += M_slab^T psi on the thread's 8 x 4 tiles, over its group's rows
+          const float* mg = ring + size_t(cg % STAGES) * slab_words;
           const float* psi = Psi + size_t(cg & 1) * S * C + c0;
 #pragma unroll UG
           for (int j = gq; j < S; j += GC) {
-            const float4 m0 = *reinterpret_cast<const float4*>(mg + size_t(j) * PRS);
-            const float4 m1 = *reinterpret_cast<const float4*>(mg + size_t(j) * PRS + 4);
             const float4 pv = *reinterpret_cast<const float4*>(psi + j * C);
-            const float mv[TR] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
             const float pc[4] = {pv.x, pv.y, pv.z, pv.w};
 #pragma unroll
-            for (int i = 0; i < TR; ++i) {
+            for (int q = 0; q < NT; ++q) {
+              const float* mj = mg + size_t(j) * PRS + p0[q];
+              const float4 m0 = *reinterpret_cast<const float4*>(mj);
+              const float4 m1 = *reinterpret_cast<const float4*>(mj + 4);
+              const float mv[TR] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
 #pragma unroll
-              for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(mv[i], pc[c], acc[i][c]);
+              for (int i = 0; i < TR; ++i) {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[q][i][c] = fmaf(mv[i], pc[c], acc[q][i][c]);
+              }
             }
           }
         }
@@ -751,14 +791,16 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
       }
       sc += NS;
 
-      // the pass's gradient, whole: the groups' partial sums in a fixed order
+      // the pass's gradient, whole: the groups' partial sums in a fixed
+      // order (one tile a thread: the plan takes groups only where the
+      // tiles are fewer than the threads)
       if (GC > 1) {
         if (grads && !owner) {
           float* dst = Cbuf + size_t(gq - 1) * PR * C + c0;
 #pragma unroll
           for (int i = 0; i < TR; ++i)
-            *reinterpret_cast<float4*>(dst + (p0 + i) * C) =
-                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            *reinterpret_cast<float4*>(dst + (p0[0] + i) * C) =
+                make_float4(acc[0][i][0], acc[0][i][1], acc[0][i][2], acc[0][i][3]);
         }
         __syncthreads();
         if (owner) {
@@ -766,11 +808,11 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
             const float* src = Cbuf + size_t(g - 1) * PR * C + c0;
 #pragma unroll
             for (int i = 0; i < TR; ++i) {
-              const float4 v = *reinterpret_cast<const float4*>(src + (p0 + i) * C);
-              acc[i][0] = acc[i][0] + v.x;
-              acc[i][1] = acc[i][1] + v.y;
-              acc[i][2] = acc[i][2] + v.z;
-              acc[i][3] = acc[i][3] + v.w;
+              const float4 v = *reinterpret_cast<const float4*>(src + (p0[0] + i) * C);
+              acc[0][i][0] = acc[0][i][0] + v.x;
+              acc[0][i][1] = acc[0][i][1] + v.y;
+              acc[0][i][2] = acc[0][i][2] + v.z;
+              acc[0][i][3] = acc[0][i][3] + v.w;
             }
           }
         }
@@ -780,7 +822,7 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
         // the kick r + coef (g + the prior's term); at the last step the
         // kinetic energy's and the prior's partial sums; then the next
         // step's drift and the support flags of its positions
-        float coef[4], ev[4], kin[4] = {0.0f, 0.0f, 0.0f, 0.0f}, prior[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float coef[4], ev[4];
         bool moving[4], next[4], exp_out[4];
         int bits[4] = {0, 0, 0, 0};
 #pragma unroll
@@ -793,32 +835,39 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
           exp_out[c] = (fl[ch] & EXP_OUT) != 0;
         }
 #pragma unroll
-        for (int i = 0; i < TR; ++i) {
-          const int p = p0 + i;
-          const int kind = static_cast<int>(kind_s[p]);
-          const float im = im_s[p], pa = pa_s[p], pb = pb_s[p];
-          float4* tp = reinterpret_cast<float4*>(Th + p * C + c0);
-          const float4 tv = *tp;
-          float th[4] = {tv.x, tv.y, tv.z, tv.w};
+        for (int q = 0; q < NT; ++q) {
+          if (!has[q]) continue;
+          float kin[4] = {0.0f, 0.0f, 0.0f, 0.0f}, prior[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if (moving[c])
-              r[i][c] = r[i][c] + coef[c] * prior_grad(acc[i][c], kind, pa, pb, th[c], exp_out[c]);
-            if (last) {
-              kin[c] = kin[c] + r[i][c] * velocity(im, r[i][c]);
-              prior[c] = prior[c] + prior_value(kind, pa, pb, th[c]);
+          for (int i = 0; i < TR; ++i) {
+            const int p = p0[q] + i;
+            const int kind = kind_of(p);
+            const float im = im_of(p), pa = pa_of(p), pb = pb_of(p);
+            float4* tp = reinterpret_cast<float4*>(Th + p * C + c0);
+            const float4 tv = *tp;
+            float th[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              if (moving[c])
+                r[q][i][c] = r[q][i][c] +
+                             coef[c] * prior_grad(acc[q][i][c], kind, pa, pb, th[c], exp_out[c]);
+              if (last) {
+                kin[c] = kin[c] + r[q][i][c] * velocity(im, r[q][i][c]);
+                prior[c] = prior[c] + prior_value(kind, pa, pb, th[c]);
+              }
+              if (next[c]) th[c] = th[c] + ev[c] * velocity(im, r[q][i][c]);
+              bits[c] |= support(kind, pa, pb, th[c]);
             }
-            if (next[c]) th[c] = th[c] + ev[c] * velocity(im, r[i][c]);
-            bits[c] |= support(kind, pa, pb, th[c]);
+            if (!last) *tp = make_float4(th[0], th[1], th[2], th[3]);
           }
-          if (!last) *tp = make_float4(th[0], th[1], th[2], th[3]);
+          if (last) {
+            *reinterpret_cast<float4*>(red + (NPT + p0[q] / TR) * C + c0) =
+                make_float4(kin[0], kin[1], kin[2], kin[3]);
+            *reinterpret_cast<float4*>(red + (2 * NPT + p0[q] / TR) * C + c0) =
+                make_float4(prior[0], prior[1], prior[2], prior[3]);
+          }
         }
-        if (last) {
-          *reinterpret_cast<float4*>(red + (NPT + p0 / TR) * C + c0) =
-              make_float4(kin[0], kin[1], kin[2], kin[3]);
-          *reinterpret_cast<float4*>(red + (2 * NPT + p0 / TR) * C + c0) =
-              make_float4(prior[0], prior[1], prior[2], prior[3]);
-        } else {
+        if (!last) {
 #pragma unroll
           for (int c = 0; c < 4; ++c)
             if (bits[c]) atomicOr(flags + ((pass + 1) & 1) * C + c0 + c, bits[c]);
@@ -879,20 +928,24 @@ extern "C" __global__ void __launch_bounds__(THREADS, 1)
     // is restored; the history; the next transition's draw
     if (owner) {
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const int p = p0 + i;
+      for (int q = 0; q < NT; ++q) {
+        if (!has[q]) continue;
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = kb + c0 + c;
-          if (p < P && k < K) {
-            const size_t at = p * Ks + k;
-            float* th = Th + p * C + c0 + c;
-            if (acc_s[c0 + c]) {
-              a.theta_o[at] = *th;
-            } else {
-              *th = a.theta_o[at];
+        for (int i = 0; i < TR; ++i) {
+          const int p = p0[q] + i;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int k = kb + c0 + c;
+            if (p < P && k < K) {
+              const size_t at = p * Ks + k;
+              float* th = Th + p * C + c0 + c;
+              if (acc_s[c0 + c]) {
+                a.theta_o[at] = *th;
+              } else {
+                *th = a.theta_o[at];
+              }
+              if (store) a.h_theta[size_t(t) * P * Ks + at] = *th;
             }
-            if (store) a.h_theta[size_t(t) * P * Ks + at] = *th;
           }
         }
       }
@@ -938,12 +991,13 @@ extern "C" int hmc_model_chunk(
 #else
   const bool pow2 = chains >= 4 && chains <= 64 && (chains & (chains - 1)) == 0;
   const bool slab_ok = slab >= RR && slab <= 256 && (slab & (slab - 1)) == 0;
+  // two tiles a thread only where one does not hold the block's momenta
   if (!pow2 || !slab_ok || lanes != 0 || rows % TR != 0 || rows < n_params || stride != rows + 4 ||
-      rows * chains > TILE_VALUES)
+      rows * chains > NT * TILE_VALUES || (NT == 2 && rows * chains <= TILE_VALUES))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles_a = slab / RR * (chains / 4), tiles_c = rows / TR * (chains / 4);
   if (ga < 1 || 4 * ga > rows || tiles_a * ga > (tiles_a > THREADS ? tiles_a : THREADS) || gc < 1 || gc > slab ||
-      tiles_c * gc > THREADS)
+      tiles_c * gc > NT * THREADS)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = wide_smem(rows, chains, slab, ga, gc);
   void (*kernel)(ModelArgs) = hmc_model_wide;

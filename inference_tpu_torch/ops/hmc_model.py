@@ -24,11 +24,13 @@ zero-padded float32 operands of ``model_operands``, which a plan builds
 once. The plan takes one of two routes by shape alone (``model_route``):
 the narrow one (P up to ``NARROW_P_MAX`` with M resident in shared memory:
 a few lanes of a warp a chain) or the wide one (M streamed: a block of
-chains, each thread a tile of their momenta in registers). Its plain
+chains, each thread one tile of their momenta in registers, or two where
+P passes 2,048). Its plain
 version is ``hmc_fused._reference_chunk`` driven by the form, which runs on
 a CPU tensor; on a CUDA tensor the kernel launches or the wrapper raises.
 One library per family, kind of mass and route, the narrow route's also
-per P (``kernel_variant``), built at first use into ``build/kernels/``.
+per P and the wide route's per tiles a thread (``kernel_variant``), built
+at first use into ``build/kernels/``.
 """
 
 import functools
@@ -62,21 +64,25 @@ TAKES = (
 
 # csrc/hmc_model.cu's launch: threads a block, the wide route's ring
 # stages, rows of its momentum (gradient) and residual tiles (by 4 chains
-# each), its momenta a block (one tile a thread) and words a chain, the
-# shared memory a block may have and an SM has
+# each), its momenta a block (one tile a thread; two tiles a thread, a
+# library of its own, where 4 chains' momenta pass that) and words a chain,
+# the shared memory a block may have and an SM has
 THREADS, STAGES, TILE_ROWS, RES_ROWS, CHAIN_WORDS = 256, 3, 8, 4, 13
 TILE_VALUES = TILE_ROWS * 4 * THREADS
+WIDE_TILES_MAX = 2
 SMEM_BLOCK = 232_448
 SMEM_SM, SMEM_RESERVED = 233_472, 1_024  # an SM's 228 KB, and what the card keeps a block
 N_SMS = 132            # the H100's SMs: a plan keeps a block per SM where K allows
 RING_BYTES = 131_072   # the most the wide route's ring of slabs of M takes, but at 4 rows
 SLAB_MAX = 256         # the most data rows a slab; M's rows are padded to a multiple
 CHAINS_MAX = 64
-# the narrow route: the most parameters (its libraries are built per P; at
-# N = 1,024 and 4,096 chains it ran 16-39% faster than the wide route at P
-# = 16-40 and 6% at 48: chip_smoke.py::model_route_sweep, PERF.md),
-# resident rows a multiple of NARROW_ROWS
-NARROW_P_MAX = 40
+# the narrow route: the most parameters, where the measurement puts it (its
+# libraries are built per P; at 4,096 chains on an H100 it ran 21%, 13%
+# and 6% faster than the wide route at P = 40, 44 and 48 with N = 1,024,
+# and 3% and 6% at P = 48 and 52 with N = 768, even at 56 and 16% slower
+# at 64, as its spills grow: PERF.md), resident rows a multiple of
+# NARROW_ROWS
+NARROW_P_MAX = 52
 NARROW_ROWS = 32
 
 
@@ -207,18 +213,29 @@ def model_form(posterior) -> ModelForm:
                      likelihood.normalisation, priors)
 
 
-def kernel_variant(family: int, unit_mass: bool, narrow_p: int = 0) -> tuple:
+def kernel_variant(family: int, unit_mass: bool, narrow_p: int = 0, tiles: int = 1) -> tuple:
     """The nvcc defines of the model route's library for a family (an
     index of ``FAMILY_NAMES``) and unit (else diagonal) mass: the narrow
-    route's for ``narrow_p`` parameters, the wide route's for 0
-    (``model_variant`` names the one a shape takes)."""
-    return (("HM_FAMILY", int(family)), ("HM_UNIT", int(unit_mass)), ("HM_P", int(narrow_p)))
+    route's for ``narrow_p`` parameters, the wide route's for 0 with
+    ``tiles`` momentum tiles a thread (``model_variant`` names the one a
+    shape takes)."""
+    return (("HM_FAMILY", int(family)), ("HM_UNIT", int(unit_mass)), ("HM_P", int(narrow_p)),
+            ("HM_TILES", int(tiles)))
+
+
+def wide_tiles(P: int) -> int:
+    """The wide route's momentum tiles a thread at P: one while 4 chains'
+    momenta fit one 8 x 4 tile a thread (P up to 2,048), else two."""
+    return 1 if _ceil(P, TILE_ROWS) * 4 <= TILE_VALUES else 2
 
 
 def model_variant(family: int, unit_mass: bool, P: int, N: int) -> tuple:
     """``kernel_variant`` of the library that runs P parameters and N data:
-    the narrow route's for P, or the wide route's (``model_route``)."""
-    return kernel_variant(family, unit_mass, P if model_route(P, N) == "narrow" else 0)
+    the narrow route's for P, or the wide route's for its tiles a thread
+    (``model_route``, ``wide_tiles``)."""
+    if model_route(P, N) == "narrow":
+        return kernel_variant(family, unit_mass, P)
+    return kernel_variant(family, unit_mass, 0, wide_tiles(P))
 
 
 def _ceil(x, m):
@@ -236,6 +253,7 @@ class ModelPlan(NamedTuple):
     slab: int     # wide: data rows per ring stage, a power of two from 4 to 256; narrow: 0
     ga: int       # wide: groups the residual's contraction over P is split in; narrow: 0
     gc: int       # wide: groups a pass's data rows are split in for the gradient; narrow: 0
+    tiles: int    # wide: momentum tiles a thread, 1, or 2 past P = 2,048 (``wide_tiles``); narrow: 0
     blocks: int
     smem: int     # bytes of shared memory per block
 
@@ -259,11 +277,12 @@ def _narrow_smem(rows, P):
 def _wide_smem(rows, chains, slab, ga, gc):
     """Shared memory of a wide block in bytes, as ``wide_smem`` in
     ``csrc/hmc_model.cu`` computes it: the ring, the positions, psi's two
-    buffers, the groups' partial sums, the per-variable words, the owners'
-    partial sums, the likelihood's and the chains' words."""
+    buffers, the groups' partial sums, the owners' partial sums, the
+    likelihood's and the chains' words (the per-variable words are read
+    through L1)."""
     words = (STAGES * slab * (rows + 4) + rows * chains + 2 * slab * chains
              + (ga * slab * chains if ga > 1 else 0) + ((gc - 1) * rows * chains if gc > 1 else 0)
-             + 4 * rows + 3 * (rows // TILE_ROWS) * chains + 4 * THREADS + CHAIN_WORDS * chains)
+             + 3 * (rows // TILE_ROWS) * chains + 4 * THREADS + CHAIN_WORDS * chains)
     return 4 * words
 
 
@@ -293,13 +312,14 @@ def model_plan(P: int, K: int, N: int) -> ModelPlan:
 
     Wide: chains a block C, the smallest power of two that keeps a block
     per SM where K allows, from 4 to 64, halved while the block's momenta
-    exceed one 8 x 4 tile a thread or its shared memory the block's. Rows a
-    slab: the largest power of two up to 256 (and up to N rounded up) whose
-    ring of 3 stages takes at most ``RING_BYTES``, or 4. The residual's
-    contraction over P is split in groups, none empty, until its 4 x 4
-    tiles fill the threads; a pass's data rows in groups until the
-    gradient's tiles do. P beyond the wide block at 4 chains raises
-    ``ValueError``."""
+    exceed one 8 x 4 tile a thread or its shared memory the block's; at 4
+    chains, two tiles a thread where one does not hold them (P above
+    2,048). Rows a slab: the largest power of two up to 256 (and up to N
+    rounded up) whose ring of 3 stages takes at most ``RING_BYTES``, or 4.
+    The residual's contraction over P is split in groups, none empty,
+    until its 4 x 4 tiles fill the threads; a pass's data rows in groups
+    until the gradient's tiles do. P beyond the wide block at 4 chains
+    raises ``ValueError``."""
     if P < 1 or K < 1 or N < 1:
         raise ValueError(f"the model route takes P, K, N >= 1, got {P}, {K}, {N}")
     if model_route(P, N) == "narrow":
@@ -310,7 +330,7 @@ def model_plan(P: int, K: int, N: int) -> ModelPlan:
         while lanes > 1 and -(-K * lanes // THREADS) > N_SMS * per_sm:
             lanes //= 2
         chains = THREADS // lanes
-        return ModelPlan("narrow", chains, lanes, rows, narrow_width(P), 0, 0, 0,
+        return ModelPlan("narrow", chains, lanes, rows, narrow_width(P), 0, 0, 0, 0,
                          -(-K // chains), smem)
     rows = _ceil(P, TILE_ROWS)
     chains = min(CHAINS_MAX, max(4, _pow2_at_least(-(-K // N_SMS))))
@@ -319,11 +339,11 @@ def model_plan(P: int, K: int, N: int) -> ModelPlan:
     slab = min(SLAB_MAX, max(4, _pow2_at_least(N)))
     while slab > 4 and 4 * STAGES * slab * (rows + 4) > RING_BYTES:
         slab //= 2
-    while rows * chains <= TILE_VALUES:
+    while rows * chains <= WIDE_TILES_MAX * TILE_VALUES:
         ga, gc, smem = _groups(rows, chains, slab)
         if smem <= SMEM_BLOCK:
-            return ModelPlan("wide", chains, 0, rows, rows + 4, slab, ga, gc, -(-K // chains),
-                             smem)
+            return ModelPlan("wide", chains, 0, rows, rows + 4, slab, ga, gc, wide_tiles(P),
+                             -(-K // chains), smem)
         if chains == 4:
             break
         chains //= 2
@@ -333,8 +353,8 @@ def model_plan(P: int, K: int, N: int) -> ModelPlan:
 
 def _groups(rows, chains, slab):
     """The contraction groups of each wide product (enough tiles to fill
-    the block's threads, no residual group empty) and the block's shared
-    memory."""
+    the block's threads, no residual group empty; none for the gradient
+    where its tiles pass the threads) and the block's shared memory."""
     tiles_a, tiles_c = slab // RES_ROWS * chains // 4, rows // TILE_ROWS * chains // 4
     quads = rows // 4
     ga = max(1, min(THREADS // tiles_a, quads))
@@ -345,10 +365,10 @@ def _groups(rows, chains, slab):
 
 @functools.lru_cache(maxsize=None)
 def model_p_max() -> int:
-    """The largest P the wide route takes: one 8 x 4 momentum tile a thread
-    at 4 chains, its block within a block's shared memory at 4 rows a
-    slab."""
-    lo, hi = 1, TILE_VALUES // 4
+    """The largest P the wide route takes: two 8 x 4 momentum tiles a
+    thread at 4 chains, its block within a block's shared memory at 4 rows
+    a slab."""
+    lo, hi = 1, WIDE_TILES_MAX * TILE_VALUES // 4
     while lo < hi:
         mid = (lo + hi + 1) // 2
         fits = _groups(_ceil(mid, TILE_ROWS), 4, 4)[2] <= SMEM_BLOCK

@@ -181,12 +181,11 @@ def _model_inputs(device, family, P, K, seed, N=256):
     return form, (theta, form.value_cols(theta).contiguous(), eps, it, z, us, ua)
 
 
-def _model_one_transition(cuda, family, P, seed, N=256, diag=False):
+def _model_one_transition(cuda, family, P, seed, N=256, diag=False, K=4096):
     """Kernel B1's model route, one transition against its plain version
     on ``_model_inputs``: position and step size within tolerance, logp
     within tolerance or -inf in both, adaptation counters equal, on >=
     99.9% of chains; one launch counted. Returns the plan's route."""
-    K = 4096
     form, args = _model_inputs(cuda, family, P, K, seed=seed, N=N)
     im = (torch.as_tensor(np.random.default_rng(seed).uniform(0.5, 2.0, P), dtype=torch.float32,
                           device=cuda) if diag else None)
@@ -222,6 +221,63 @@ def test_model_route_diagonal_mass_matches_plain(cuda, P, route):
     """A diagonal inverse mass on each route, one transition against the
     plain version."""
     assert _model_one_transition(cuda, "gaussian", P, seed=40 + P, diag=True) == route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, lanes", [(256, 32), (16384, 4), (32768, 2), (65536, 1)])
+def test_model_route_lanes_a_chain_by_chain_count(cuda, K, lanes):
+    """The narrow route at P = 10 and N = 1,024 with the lanes a chain the
+    plan takes for K chains, from 32 (few chains) to one thread a chain
+    over all the rows (B1's 65,536 chains), one transition against the
+    plain version."""
+    plan = hmc_model.model_plan(10, K, 1024)
+    assert (plan.route, plan.lanes) == ("narrow", lanes)
+    assert _model_one_transition(cuda, "cauchy", 10, seed=60 + lanes, N=1024, K=K) == "narrow"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family, P", [("gaussian", 2760), ("cauchy", 2760), ("logistic", 2760),
+                                       ("gaussian", hmc_model.model_p_max())])
+def test_model_route_two_tiles_a_thread_matches_plain(cuda, family, P):
+    """The wide route past P = 2,048, where each thread owns two momentum
+    tiles (its own library), up to the model route's first design's 2,760
+    and the route's limit: one transition of the kernel and of the plain
+    version in float32, each against the plain version in float64. At
+    these P two float32 runs part by their roundoff on a share of chains
+    (the plain float32 version misses float64 by RTOL/ATOL on ~5% of them
+    at P = 2,760), so each is held to float64, as ``chip_smoke.py``'s
+    model checks hold every P: over the chains whose three runs accept
+    alike (>= 99%), the kernel's largest error in positions and in logp at
+    most 4 times the float32 plain version's; the adaptation counters equal
+    to the float32 plain version's on >= 99.9% of chains; the chains
+    started outside the support at -inf."""
+    K = 4096
+    assert hmc_model.model_plan(P, K, 256).tiles == 2
+    form, args = _model_inputs(cuda, family, P, K, seed=P % 97 + len(family))
+    kw = dict(form=form, steps=20, inv_mass_diag=None, store=False)
+    before = hmc_model.KERNEL_LAUNCHES
+    k = hmc_model._launch_model_chunk(*args, **kw, operands=hmc_model.model_operands(form))
+    p = hmc_fused._reference_chunk(*args, **kw)
+    theta, logp, eps, it, z, us, ua = args
+    e64 = AdaptiveScale(eps.value.double(), eps.avg.double(), eps.var.double(), eps.num,
+                        eps.chk_int)
+    w = hmc_fused._reference_chunk(theta.double(), logp.double(), e64, it.double(), z.double(),
+                                   us.double(), ua.double(), form=form.to(torch.float64),
+                                   steps=20, inv_mass_diag=None, store=False)
+    torch.cuda.synchronize()
+    assert hmc_model.KERNEL_LAUNCHES == before + 1
+    moved = lambda t: (t != theta.to(t.dtype)).any(dim=0)
+    inside = torch.isfinite(logp)
+    agree = inside & (moved(k[0]) == moved(p[0])) & (moved(p[0]) == moved(w[0]))
+    assert float(agree.sum()) >= 0.99 * float(inside.sum())
+    err = lambda r: (float((r[0].double() - w[0])[:, agree].abs().max()),
+                     float((r[1].double() - w[1])[agree].abs().max()))
+    (kt, kl), (pt, pl) = err(k), err(p)
+    assert kt <= 4.0 * pt and kl <= 4.0 * pl, (kt, pt, kl, pl)
+    counters = (k[2].num == p[2].num) & (k[2].chk_int == p[2].chk_int)
+    assert float(counters.float().mean()) >= 0.999
+    stayed_outside = ~inside & ~moved(k[0])
+    assert bool(torch.isneginf(logp[::16]).all()) and bool(torch.isneginf(k[1][stayed_outside]).all())
 
 
 @pytest.mark.cuda

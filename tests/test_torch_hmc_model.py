@@ -380,24 +380,25 @@ def test_auto_keeps_the_plain_path():
 @pytest.mark.parametrize("N", [1, 40, 1024, 100_000])
 @pytest.mark.parametrize("K", [1, 1000, 4096, 65536])
 @pytest.mark.parametrize("P", [1, 10, hmc_model.NARROW_P_MAX, hmc_model.NARROW_P_MAX + 1, 65, 256,
-                               1000, hmc_model.model_p_max()])
+                               1000, 2048, 2049, 2760, hmc_model.model_p_max()])
 def test_model_plan_fits_a_block(P, K, N):
     """Every plan fits a block's shared memory by the kernel's own formula
     and takes the route ``model_route`` names. Narrow: lanes a chain a
     power of two up to 32, 256 / lanes chains a block, the resident rows N
     rounded up to 32, and the most lanes whose blocks fit the card at once.
     Wide: 4 to 64 chains (a power of two) whose momenta are one 8 x 4 tile
-    a thread at most, a slab of 4 to 256 rows (a power of two), the
-    residual's groups none empty and their tiles no more than the threads
-    where they can, the gradient's groups as many as its tiles leave
-    threads; a larger P raises."""
+    a thread at most, or two at 4 chains where one is too few (P above
+    2,048), a slab of 4 to 256 rows (a power of two), the residual's
+    groups none empty and their tiles no more than the threads where they
+    can, the gradient's groups as many as its tiles leave threads; a
+    larger P raises."""
     plan = hmc_model.model_plan(P, K, N)
     assert plan.route == hmc_model.model_route(P, N)
     assert plan.blocks == -(-K // plan.chains) and plan.smem <= hmc_model.SMEM_BLOCK
     if plan.route == "narrow":
         assert plan.lanes in (1, 2, 4, 8, 16, 32) and plan.chains == 256 // plan.lanes
         assert plan.rows == -(-N // 32) * 32 and plan.stride == hmc_model.narrow_width(P)
-        assert (plan.slab, plan.ga, plan.gc) == (0, 0, 0)
+        assert (plan.slab, plan.ga, plan.gc, plan.tiles) == (0, 0, 0, 0)
         assert plan.smem == hmc_model._narrow_smem(plan.rows, P)
         per_sm = max(1, min(hmc_model.narrow_blocks_sm(P), 233_472 // (plan.smem + 1024)))
         fits = lambda lanes: -(-K * lanes // 256) <= 132 * per_sm
@@ -407,30 +408,34 @@ def test_model_plan_fits_a_block(P, K, N):
     assert plan.lanes == 0 and plan.chains in (4, 8, 16, 32, 64)
     assert plan.slab in (4, 8, 16, 32, 64, 128, 256)
     assert plan.rows == -(-P // 8) * 8 and plan.stride == plan.rows + 4
-    assert plan.rows * plan.chains <= 8 * 4 * 256
+    assert plan.tiles == hmc_model.wide_tiles(P) == (1 if plan.rows <= 2048 else 2)
+    assert plan.rows * plan.chains <= plan.tiles * 8 * 4 * 256
+    assert plan.tiles == 1 or (plan.chains == 4 and plan.rows * plan.chains > 8 * 4 * 256)
     assert plan.smem == hmc_model._wide_smem(plan.rows, plan.chains, plan.slab, plan.ga, plan.gc)
     tiles_a = plan.slab // 4 * plan.chains // 4
     tiles_c = plan.rows // 8 * plan.chains // 4
     quads, per_group = plan.rows // 4, -(-plan.rows // 4 // plan.ga)
     assert tiles_a * plan.ga <= max(tiles_a, 256) and 4 * plan.ga <= plan.rows
     assert (plan.ga - 1) * per_group < quads  # no residual group empty
-    assert tiles_c * plan.gc <= 256 and plan.gc <= plan.slab
+    assert tiles_c * plan.gc <= 256 * plan.tiles and plan.gc <= plan.slab
     assert plan.gc == plan.slab or tiles_c * (plan.gc + 1) > 256
     with pytest.raises(ValueError, match=str(hmc_model.model_p_max())):
         hmc_model.model_plan(hmc_model.model_p_max() + 1, K, N)
 
 
 @pytest.mark.parametrize("P, N, route", [
-    (1, 1, "narrow"), (10, 1024, "narrow"), (hmc_model.NARROW_P_MAX, 1024, "narrow"),
-    (hmc_model.NARROW_P_MAX + 1, 1024, "wide"), (65, 40, "wide"), (256, 1024, "wide"),
+    (1, 1, "narrow"), (10, 1024, "narrow"), (hmc_model.NARROW_P_MAX, 768, "narrow"),
+    (hmc_model.NARROW_P_MAX + 1, 768, "wide"), (65, 40, "wide"), (256, 1024, "wide"),
     (10, 4832, "narrow"), (10, 4833, "wide"), (10, 100_000, "wide"),
-    (16, 2880, "narrow"), (16, 2881, "wide"), (hmc_model.NARROW_P_MAX, 1312, "narrow"),
-    (hmc_model.NARROW_P_MAX, 1313, "wide")])
+    (16, 2880, "narrow"), (16, 2881, "wide"), (40, 1312, "narrow"), (40, 1313, "wide"),
+    (48, 1088, "narrow"), (48, 1089, "wide"), (hmc_model.NARROW_P_MAX, 960, "narrow"),
+    (hmc_model.NARROW_P_MAX, 961, "wide")])
 def test_model_route_by_p_and_n(P, N, route):
     """The route by shape alone: narrow up to ``NARROW_P_MAX`` parameters
     while N rounded up to 32 rows of ``narrow_width(P)`` words and the four
     per-variable words fit a block (P = 10: 4,832 data; P = 16: 2,880; P =
-    40: 1,312), wide above either; the padded operands follow it."""
+    40: 1,312; P = 48: 1,088; P = 52: 960), wide above either; the padded
+    operands follow it."""
     assert hmc_model.model_route(P, N) == route
     rows = -(-N // 32) * 32
     resident = 4 * (rows * hmc_model.narrow_width(P) + 4 * (-(-P // 8) * 8))
@@ -448,15 +453,34 @@ def test_model_route_by_p_and_n(P, N, route):
 
 def test_narrow_limit_is_at_least_sixteen():
     """The narrow route takes robust-10's P = 10 and every P up to its
-    limit, 40 (at least 16), at N = 1,024; its rows' words are 4 mod 8
-    (distinct banks for 8 lanes on 8 consecutive rows) and hold M, y -
-    offset and the scale."""
-    assert hmc_model.NARROW_P_MAX == 40
+    limit, 52 (at least 16), at N = 768, and up to P = 50 at N = 1,024
+    (the rows of P = 51 and 52 pass a block's shared memory there); its
+    rows' words are 4 mod 8 (distinct banks for 8 lanes on 8 consecutive
+    rows) and hold M, y - offset and the scale."""
+    assert hmc_model.NARROW_P_MAX == 52
     for P in range(1, hmc_model.NARROW_P_MAX + 1):
-        assert hmc_model.model_plan(P, 4096, 1024).route == "narrow"
+        assert hmc_model.model_plan(P, 4096, 768).route == "narrow"
+        assert hmc_model.model_plan(P, 4096, 1024).route == ("narrow" if P <= 50 else "wide")
         w = hmc_model.narrow_width(P)
         assert w % 8 == 4 and P + 2 <= w < P + 2 + 8
-    assert hmc_model.model_plan(hmc_model.NARROW_P_MAX + 1, 4096, 1024).route == "wide"
+    assert hmc_model.model_plan(hmc_model.NARROW_P_MAX + 1, 4096, 768).route == "wide"
+
+
+def test_wide_route_keeps_the_first_designs_parameters():
+    """The wide route takes every P the model route's first design took
+    (up to 2,760 by a block's shared memory at 4 chains), one momentum tile
+    a thread up to P = 2,048 and two above, each its own library, named
+    by the shape and checked by the C entry."""
+    assert hmc_model.model_p_max() >= 2760
+    assert [hmc_model.wide_tiles(P) for P in (65, 2048, 2049, 2760)] == [1, 1, 2, 2]
+    for P, tiles in ((2048, 1), (2049, 2), (2760, 2), (hmc_model.model_p_max(), 2)):
+        plan = hmc_model.model_plan(P, 4096, 1024)
+        assert (plan.route, plan.chains, plan.tiles) == ("wide", 4, tiles)
+        assert hmc_model.model_variant(1, True, P, 1024) == hmc_model.kernel_variant(1, True, 0, tiles)
+    assert dict(hmc_model.kernel_variant(0, False, 10))["HM_TILES"] == 1
+    text = open(hmc_model.__file__[:-len("hmc_model.py")] + "csrc/hmc_model.cu").read()
+    assert "constexpr int NT = HM_TILES;" in text
+    assert "rows * chains > NT * TILE_VALUES || (NT == 2 && rows * chains <= TILE_VALUES)" in text
 
 
 def test_model_smem_formula_is_the_kernels():
@@ -479,16 +503,19 @@ def test_model_smem_formula_is_the_kernels():
     assert "constexpr int NARROW_BLOCKS_SM = NP <= 16 ? 2 : 1;" in text
     assert [hmc_model.narrow_blocks_sm(P) for P in (1, 16, 17, 40)] == [2, 2, 1, 1]
     # wide: the ring, the positions, psi's two buffers, the groups' sums, the
-    # per-variable words, the owners' partial sums, vred and the chains' words
+    # owners' partial sums, vred and the chains' words (the per-variable
+    # words are read through L1)
+    wide = text[text.index("size_t wide_smem("):]
+    wide = wide[:wide.index("return 4 * words;")]
     for term in ("size_t(STAGES) * slab * (rows + 4)", "size_t(rows) * chains",
                  "2 * size_t(slab) * chains", "(ga > 1 ? size_t(ga) * slab * chains : 0)",
-                 "(gc > 1 ? size_t(gc - 1) * rows * chains : 0)", "4 * size_t(rows)",
+                 "(gc > 1 ? size_t(gc - 1) * rows * chains : 0)",
                  "3 * size_t(rows / TR) * chains", "4 * size_t(THREADS)",
                  "CHAIN_WORDS * size_t(chains)"):
-        assert term in text
+        assert term in wide
+    assert "4 * size_t(rows)" not in wide
     assert hmc_model._wide_smem(256, 32, 32, 4, 1) == 4 * (
-        3 * 32 * 260 + 256 * 32 + 2 * 32 * 32 + 4 * 32 * 32 + 4 * 256 + 3 * 32 * 32 + 4 * 256
-        + 13 * 32)
+        3 * 32 * 260 + 256 * 32 + 2 * 32 * 32 + 4 * 32 * 32 + 3 * 32 * 32 + 4 * 256 + 13 * 32)
     assert hmc_model._narrow_smem(1024, 10) == 4 * (1024 * 12 + 4 * 16)
 
 
